@@ -5,23 +5,43 @@ Run from the repository root on a host with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Phases, each raising on failure:
+Phases, each raising on failure (each prints its seconds):
 
 1. device — the card's name and power limit (``nvidia-smi``);
-2. build  — a fresh ``nvcc`` build of every kernel source for sm_90a;
+2. build  — a fresh ``nvcc`` build of every kernel source for sm_90a, one
+   process per source, all started together;
 3. kernel check — each conv kernel (carry, halo) against its plain PyTorch
    version at the shapes of full-width VGG-16 (all 13 layers, batch 8),
    plus one stride-2 and one depthwise case: max-abs error within
    1e-4 * max(1, max|plain|) (sums of up to 4,608 f32 terms taken in
    another order), carry == halo bitwise, and each one's time beside the
    plain version's, ``F.conv2d``'s (TF32 off) and the card's bound;
-4. serve — full-width VGG-16 (1000 classes, seeded random weights) served
+4. backward kernel check — at the same 15 shapes: the weight-gradient
+   kernel against its plain version within 1e-4 * max|plain| (see
+   ``WGRAD_TOLERANCE``), two launches bitwise equal, and its time beside
+   the plain version's, ``torch.nn.grad.conv2d_weight``'s (TF32 off) and
+   the bound; the input gradient (the carry kernel on the dilated
+   cotangent) against the plain forward on the same padded cotangent,
+   within the forward's tolerance;
+5. serve — full-width VGG-16 (1000 classes, seeded random weights) served
    through ``ServingEngine`` on buckets (1, 2, 4, 8): a seeded Poisson
    trace on the carry kernel, then part of it on the halo kernel; every
    served row must bit-match ``forward_one``, the launch counts must rise
    by 13 per forward, and one image's logits must agree with the
    ``impl="ref"`` oracle;
-5. the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
+6. train — full-width VGG-16 (224x224, 1000 classes, seeded weights and
+   data, batch 8): the step-1 gradient of every leaf against autograd of
+   ``impl="ref"`` on the kernels' branch (``branch_matched_oracle``)
+   within ``GRAD_TOLERANCE``, then 3 AdamW steps of
+   ``launch.train_cnn.train_step``, each with exactly 25 carry launches
+   (13 forward, 12 input gradients: conv1's input needs none) and 13
+   weight-gradient calls, a finite loss, and step 1 run again from the
+   same state giving bitwise equal parameters; ms per step and peak
+   device memory;
+7. trainer — ``launch.train_cnn.train`` at the example's settings (50
+   steps, batch 16): the mean of the last five losses below the first
+   five's minus 0.1;
+8. the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without a result when no GPU is visible.
 """
@@ -40,9 +60,45 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12      # H100 SXM: f32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM: HBM3
 TOLERANCE = 1e-4            # of max(1, max|plain|); see the docstring
+# Weight gradient: of max|plain|.  Each dw element sums N*H_out*W_out
+# products (up to 8 * 224^2 = 401,408 at conv2); the kernel takes them as
+# one fmaf chain per chunk (>= 256 positions) and then one chain over the
+# chunks, the plain version as cuBLAS's blocked f32 GEMM.  For zero-mean
+# data the rounding error of either grows like eps * sqrt(terms) relative
+# to the sum (6e-8 * 634 = 3.8e-5 for one 401 k-term chain, about ten
+# times less for the chunked one), so 1e-4 of the largest element holds
+# with margin, and a wrong tap, chunk or padding row breaks it by orders.
+WGRAD_TOLERANCE = 1e-4
+# Whole-network gradients against impl="ref": of each leaf's max|ref|.
+# The oracle takes the branch the kernels took at every ReLU and max-pool
+# (``branch_matched_oracle``): both then differentiate the same
+# piecewise-linear function and differ only by f32 summation order, which
+# leaves ~1e-7-1e-6 of max|ref| per leaf after 13 layers (1.9e-6 measured
+# on the card).  Without it, the few dozen pre-activations and pool
+# windows that lie within rounding (<1e-6) of a tie take the other branch
+# in one of the two forwards, each moving one cotangent entry by O(|g|);
+# that reads 1e-4-1e-3 of max|ref| per leaf and is printed, not checked.
+GRAD_TOLERANCE = 1e-4
+TRAIN_BATCH = 8
+TRAIN_STEPS = 3
 REQUESTS = 48               # carry-kernel serving trace
 HALO_REQUESTS = 16          # halo-kernel serving trace (a prefix of it)
 ARRIVAL_RATE = 200.0        # requests per second (Poisson)
+
+
+class Phases:
+    """Seconds of each phase, printed as it ends."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+
+    def done(self, name: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {name}: {now - self.last:.2f} s")
+        self.last = now
+
+    def total(self) -> None:
+        print(f"phases total: {time.perf_counter() - self.t0:.2f} s")
 
 
 def card() -> str:
@@ -144,6 +200,228 @@ def check_kernels(torch):
     return rows
 
 
+def check_backward_kernels(torch):
+    from repro_torch.core.conv_plan import WeightGradPlan, input_grad_geometry
+    from repro_torch.kernels import trim_conv2d as tc
+    from repro_torch.kernels.ref import conv_pads, pad_nhwc
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    print("backward kernel check (times in ms, device events):")
+    print(f"  {'case':10s} {'dw_err':>9s} {'tol':>8s} {'rep':>5s} "
+          f"{'dx_err':>9s} {'tol':>8s} {'wgrad':>8s} {'plain':>8s} "
+          f"{'cw_lib':>8s} {'bound':>8s} by      {'dx':>8s} chunks")
+    for name, xs, wsh, stride, groups in kernel_cases():
+        k = wsh[0]
+        pads = conv_pads(xs[1], xs[2], k, stride, "same")
+        plan = WeightGradPlan.build(xs, wsh, stride=stride, pad=pads,
+                                    groups=groups)
+        x = torch.randn(xs, generator=gen, device="cuda")
+        g = torch.randn((plan.n, plan.h_out, plan.w_out, plan.cout),
+                        generator=gen, device="cuda")
+        w = torch.randn(wsh, generator=gen, device="cuda") \
+            / float(np.sqrt(k * k * wsh[2]))
+        kw = dict(kernel_size=k, stride=stride, pad=pads, groups=groups)
+        plain = tc.trim_conv2d_weight_grad_plain(x, g, **kw)
+        one = tc.trim_conv2d_weight_grad(x, g, **kw)
+        two = tc.trim_conv2d_weight_grad(x, g, **kw)
+        geo = input_grad_geometry(xs, wsh, stride=stride, pad=pads,
+                                  groups=groups)
+        dx = tc.trim_conv2d_input_grad(g, w, x_shape=xs, stride=stride,
+                                       pad=pads, groups=groups)
+        dx_plain = tc.trim_conv2d_plain(
+            tc.dilate_cotangent(g, stride),
+            tc.transpose_conv_weights(w, groups),
+            pad=(geo["pad_h"], geo["pad_w"]), groups=groups)
+        torch.cuda.synchronize()
+        err = (one - plain).abs().max().item()
+        tol = WGRAD_TOLERANCE * plain.abs().max().item()
+        rep = torch.equal(one, two)
+        dx_err = (dx - dx_plain).abs().max().item()
+        dx_tol = TOLERANCE * max(1.0, dx_plain.abs().max().item())
+        if not np.isfinite(err) or err > tol:
+            raise AssertionError(f"{name}: max|wgrad - plain| = {err} > "
+                                 f"{tol}")
+        if not rep:
+            raise AssertionError(f"{name}: two wgrad launches differ")
+        if not np.isfinite(dx_err) or dx_err > dx_tol or \
+                dx.shape != x.shape:
+            raise AssertionError(f"{name}: max|input grad - plain| = "
+                                 f"{dx_err} > {dx_tol}")
+        xp = pad_nhwc(x, pads).permute(0, 3, 1, 2)
+        gl = g.permute(0, 3, 1, 2)
+        wsize = (wsh[3], wsh[2], k, k)
+        t = {
+            "wgrad": time_ms(torch, lambda: tc.trim_conv2d_weight_grad(
+                x, g, **kw)),
+            "plain": time_ms(torch, lambda: tc.trim_conv2d_weight_grad_plain(
+                x, g, **kw)),
+            # one library call: cuDNN's weight gradient (TF32 off)
+            "library": time_ms(torch, lambda: torch.nn.grad.conv2d_weight(
+                xp, wsize, gl, stride=stride, groups=groups)),
+            "dx": time_ms(torch, lambda: tc.trim_conv2d_input_grad(
+                g, w, x_shape=xs, stride=stride, pad=pads, groups=groups)),
+        }
+        ops_ms = plan.flops / PEAK_F32_FLOPS * 1e3
+        bytes_ms = plan.min_bytes() / PEAK_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        rows.append(dict(name=name, err=err, dx_err=dx_err, bound=bound,
+                         by=by, ops_ms=ops_ms, bytes_ms=bytes_ms,
+                         vgg=name.startswith("conv"), **t))
+        print(f"  {name:10s} {err:9.2e} {tol:8.1e} {str(rep):>5s} "
+              f"{dx_err:9.2e} {dx_tol:8.1e} {t['wgrad']:8.3f} "
+              f"{t['plain']:8.3f} {t['library']:8.3f} {bound:8.3f} "
+              f"{by:10s} {t['dx']:8.3f} {plan.chunks}")
+        del x, g, w, plain, one, two, dx, dx_plain, xp, gl
+    torch.cuda.empty_cache()
+    return rows
+
+
+def branch_matched_oracle(topo, params, x):
+    """The ``impl="ref"`` forward of ``topo`` with every ReLU mask and
+    max-pool choice taken from a no-grad forward on the TrIM kernels at
+    ``(params, x)``: autograd through it is the oracle's gradient on the
+    branch the kernels took.  Returns ``(apply_fn, flips)``, ``flips``
+    counting where the plain ``impl="ref"`` forward branches otherwise."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.netplan import infer_pools, layer_kernel_problem
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import head_apply
+
+    def run(p, h, impl, masks=None, picks=None, rec=None):
+        j = 0
+        for i, (l, (ps, pw)) in enumerate(zip(topo, infer_pools(topo))):
+            _, _, _, padding = layer_kernel_problem(l, n=h.shape[0])
+            z = ops.conv2d(h, p[f"conv{i}"]["w"], bias=p[f"conv{i}"]["b"],
+                           stride=l.stride, padding=padding,
+                           feature_group_count=l.groups, impl=impl)
+            if masks is None:
+                rec["relu"].append(z > 0)
+                h = torch.relu(z)
+            else:
+                h = z * masks[i]
+            if ps > 1 or pw > 1:
+                hn = h.permute(0, 3, 1, 2)
+                if picks is None:
+                    hn, ind = F.max_pool2d(hn, pw, ps, return_indices=True)
+                    rec["pool"].append(ind)
+                else:
+                    ind = picks[j]
+                    hn = hn.flatten(2).gather(2, ind.flatten(2)).view_as(ind)
+                j += 1
+                h = hn.permute(0, 2, 3, 1).contiguous()
+        return head_apply(p["head"], h)
+
+    trim, plain = {"relu": [], "pool": []}, {"relu": [], "pool": []}
+    with torch.no_grad():
+        run(params, x, "trim", rec=trim)
+        run(params, x, "ref", rec=plain)
+    masks = [m.float() for m in trim["relu"]]
+    flips = {k: sum(int((a != b).sum()) for a, b in zip(trim[k], plain[k]))
+             for k in trim}
+    return (lambda p, h: run(p, h, "ref", masks, trim["pool"])), flips
+
+
+def train_vgg16(torch):
+    """Full-width VGG-16 training steps; returns the wgrad and carry launch
+    counts of the steps."""
+    from repro_torch.core.model import vgg16_layers
+    from repro_torch.kernels import trim_conv2d as tc
+    from repro_torch.launch.train_cnn import nll_loss, train_step
+    from repro_torch.models.layers import TrimCNN
+    from repro_torch.optim import AdamWConfig, adamw
+
+    topo = vgg16_layers()
+    model = TrimCNN.random(topo, n_classes=1000, seed=0, device="cuda",
+                           trainable=True)
+    cfg = AdamWConfig()
+    rng = np.random.default_rng(1)
+    batches = [
+        (torch.from_numpy(rng.standard_normal(
+            (TRAIN_BATCH, 224, 224, 3)).astype(np.float32)).cuda(),
+         torch.from_numpy(rng.integers(0, 1000, TRAIN_BATCH)).cuda())
+        for _ in range(TRAIN_STEPS)]
+
+    def grads(apply_fn, params, x, y):
+        live = [t.detach().requires_grad_()
+                for t in adamw.tree_leaves(params)]
+        loss = nll_loss(apply_fn(adamw.tree_unflatten(params, live), x), y)
+        return loss, torch.autograd.grad(loss, live)
+
+    params = {k: {n: t.detach() for n, t in v.items()}
+              for k, v in model.tree().items()}
+    names = [f"{k}.{n}" for k in sorted(params) for n in sorted(params[k])]
+    x0, y0 = batches[0]
+    loss_t, g_trim = grads(model.apply_tree, params, x0, y0)
+    matched, flips = branch_matched_oracle(topo, params, x0)
+    loss_m, g_match = grads(matched, params, x0, y0)
+    _, g_ref = grads(TrimCNN(topo, params, impl="ref").apply_tree, params,
+                     x0, y0)
+    worst, worst_ref = ("", 0.0), 0.0
+    for name, a, b, r in zip(names, g_trim, g_match, g_ref):
+        scale = b.abs().max().item()
+        rel = (a - b).abs().max().item() / scale
+        if not np.isfinite(rel) or rel > GRAD_TOLERANCE:
+            raise AssertionError(f"train: step-1 gradient of {name} differs "
+                                 f"from the branch-matched impl='ref' by "
+                                 f"{rel:.3e} of max|ref| {scale:.3e}")
+        worst = max(worst, (name, rel), key=lambda t: t[1])
+        worst_ref = max(worst_ref, (a - r).abs().max().item()
+                        / r.abs().max().item())
+    print(f"train: step-1 loss {loss_t.item():.6f} (branch-matched ref "
+          f"{loss_m.item():.6f}); gradients of all {len(names)} leaves vs "
+          f"the branch-matched impl='ref' within {GRAD_TOLERANCE:g} of "
+          f"max|ref| (worst {worst[0]}: {worst[1]:.2e}); vs plain "
+          f"impl='ref' worst {worst_ref:.2e}, its forward taking another "
+          f"branch at {flips['relu']} ReLUs and {flips['pool']} pool "
+          "windows")
+    del g_trim, g_match, g_ref, matched
+    torch.cuda.empty_cache()
+
+    moments = adamw.init_moments(params, cfg)
+    state0 = (params, moments)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches, times = {"carry": 0, "halo": 0, "wgrad": 0}, []
+    for i, (x, y) in enumerate(batches):
+        tc.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, moments, loss, met = train_step(
+            params, moments, i, x, y, apply_fn=model.apply_tree, cfg=cfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        step = dict(tc.LAUNCHES)
+        if step != {"carry": 25, "halo": 0, "wgrad": 13}:
+            raise AssertionError(f"train step {i}: launches {step}, want "
+                                 "25 carry (13 forward + 12 input "
+                                 "gradients) and 13 wgrad")
+        if not np.isfinite(loss.item()):
+            raise AssertionError(f"train step {i}: loss {loss.item()}")
+        for key in launches:
+            launches[key] += step[key]
+        if i == 0:
+            step1 = params
+        print(f"train: step {i} loss {loss.item():.6f} |g| "
+              f"{met['grad_norm'].item():.4f} lr {met['lr'].item():.3e} "
+              f"{times[-1]:.1f} ms; launches {step}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    again, _, _, _ = train_step(*state0, 0, *batches[0],
+                                apply_fn=model.apply_tree, cfg=cfg)
+    same = all(torch.equal(a, b) for a, b in zip(
+        adamw.tree_leaves(again), adamw.tree_leaves(step1)))
+    if not same:
+        raise AssertionError("train: step 1 from the same state gave "
+                             "different parameters")
+    print(f"train: VGG-16 full width, batch {TRAIN_BATCH}: "
+          f"{np.mean(times[1:]):.1f} ms per step (steps 2-{TRAIN_STEPS}, "
+          f"host clock to synchronize; step 1 {times[0]:.1f} ms), peak "
+          f"device memory {peak:.2f} GiB; step 1 repeated from the same "
+          "state is bitwise equal")
+    return launches
+
+
 def serve(n_requests, dataflow, model, xs, expect=None):
     """Replay a seeded Poisson trace through the serving engine on one
     dataflow; return (results, launches, forwards)."""
@@ -214,16 +492,19 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)")
     print(card())
+    phase = Phases()
 
-    t0 = time.perf_counter()
     build.build_all(rebuild=True)
-    print(f"build: {time.perf_counter() - t0:.2f} s")
+    phase.done("build")
     for src, log in build.build_log.items():
         print(f"  {src}: {log['command']}")
         for line in log["ptxas"]:
             print(f"    {line.strip()}")
 
     rows = check_kernels(torch)
+    phase.done("kernel check")
+    brows = check_backward_kernels(torch)
+    phase.done("backward kernel check")
 
     rng = np.random.default_rng(0)
     xs = rng.standard_normal((REQUESTS, 224, 224, 3)).astype(np.float32)
@@ -244,11 +525,27 @@ def main() -> int:
     print(f"serve: request 0 logits vs impl='ref' oracle: max|diff| "
           f"{diff:.3e} <= {lim:.1e}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model
+    torch.cuda.empty_cache()
+    phase.done("serve")
+
+    train_launches = train_vgg16(torch)
+    phase.done("train")
+
+    from repro_torch.kernels import trim_conv2d as tc
+    from repro_torch.launch.train_cnn import train
+    tc.reset_launch_counts()
+    out = train(steps=50, batch=16, device="cuda",
+                log=lambda line: print(f"trainer: {line}"))
+    print(f"trainer: OK, loss {out['first']:.4f} -> {out['last']:.4f}; "
+          f"launches {dict(tc.LAUNCHES)}")
+    phase.done("trainer")
 
     vgg = [r for r in rows if r["vgg"]]
     kernels = []
-    for df, launches, src_line in (("carry", carry_launches, 127),
-                                   ("halo", halo_launches, 162)):
+    for df, launches, src_line in (
+            ("carry", carry_launches + train_launches["carry"], 127),
+            ("halo", halo_launches, 162)):
         ops_ms = sum(r["ops_ms"] for r in vgg if r["by"] == "operations")
         bytes_ms = sum(r["bytes_ms"] for r in vgg if r["by"] == "bytes")
         kernels.append({
@@ -264,9 +561,28 @@ def main() -> int:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": sum(r["library"] for r in vgg),
         })
+    bvgg = [r for r in brows if r["vgg"]]
+    ops_ms = sum(r["ops_ms"] for r in bvgg if r["by"] == "operations")
+    bytes_ms = sum(r["bytes_ms"] for r in bvgg if r["by"] == "bytes")
+    kernels.append({
+        "name": "trim_conv2d_wgrad",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/trim_conv2d_wgrad.cu",
+        "replaces": "src/repro/kernels/trim_conv2d.py:429",
+        "launches": train_launches["wgrad"],
+        "max_abs_err": max(r["err"] for r in brows),
+        "ms": sum(r["wgrad"] for r in bvgg),
+        "plain_ms": sum(r["plain"] for r in bvgg),
+        "bound_ms": sum(r["bound"] for r in bvgg),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": sum(r["library"] for r in bvgg),
+    })
     print("kernel times: sums over the 13 VGG-16 conv layers at batch 8; "
-          f"launches from the serving runs ({carry_fw} carry forwards, "
-          f"{halo_fw} halo forwards)")
+          f"launches from the main paths: serving ({carry_fw} carry "
+          f"forwards, {halo_fw} halo forwards) and the {TRAIN_STEPS} VGG-16 "
+          f"training steps (carry {train_launches['carry']}, wgrad "
+          f"{train_launches['wgrad']})")
+    phase.total()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

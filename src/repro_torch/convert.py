@@ -1,11 +1,14 @@
 """Move a JAX parameter tree into the port.
 
-``params_from_jax`` takes the tree of ``repro.models.layers.
-cnn_params_from_layers`` after ``init_params``, already converted to numpy
-arrays (``jax.tree.map(np.asarray, params)``), and returns the same tree
-as float32 tensors: the ``params`` of ``models.layers.TrimCNN`` and of the
-functional ``cnn_apply_from_layers``.  Both packages then compute the same
-function, which is what the parity tests compare.
+``params_from_jax`` takes a parameter tree of the JAX package after
+``init_params`` — ``cnn_params_from_layers``'s (``conv{i}``, ``head``) or
+``simple_cnn_params``' (``conv{i}``, ``down{i}``, ``dw``, ``head``) —
+already converted to numpy arrays (``jax.tree.map(np.asarray, params)``),
+and returns the same tree as float32 tensors: the ``params`` of
+``models.layers.TrimCNN`` and of the functional ``*_apply`` forwards.
+``moments_from_jax`` does the same for AdamW's ``{"mu", "nu"}`` state.
+Both packages then compute the same function and take the same optimiser
+step, which is what the parity tests compare.
 """
 
 from __future__ import annotations
@@ -15,12 +18,20 @@ import torch
 
 
 def params_from_jax(tree, *, device="cpu") -> dict:
-    """``{"conv{i}": {"w", "b"}, "head": {"w", "b"}}`` of numpy arrays (or
-    tensors) -> the same tree of contiguous float32 tensors on
-    ``device``."""
+    """A nested dict of numpy arrays (or tensors), e.g. ``{"conv{i}":
+    {"w", "b"}, "head": {"w", "b"}}`` -> the same tree of contiguous
+    float32 tensors on ``device``."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device=device) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
         return tree.to(device=device, dtype=torch.float32).contiguous()
     # a copy: JAX hands out read-only buffers
     return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
+
+
+def moments_from_jax(moments, *, device="cpu") -> dict:
+    """``repro.optim.adamw.init_moments``' ``{"mu": tree, "nu": tree}``
+    (numpy leaves) -> the port's AdamW moments: float32 tensors on
+    ``device``."""
+    return {k: params_from_jax(moments[k], device=device)
+            for k in ("mu", "nu")}

@@ -1,7 +1,10 @@
-"""Hopper launch geometry for one 3D-TrIM convolution.
+"""Hopper launch geometry for one 3D-TrIM convolution and its gradients.
 
-The counterpart of ``repro.core.conv_plan.ConvPlan`` for the H100 kernels
-of ``kernels/csrc/trim_conv2d.cu``.  The TPU plan sizes its strips for an
+:class:`ConvPlan` is the counterpart of ``repro.core.conv_plan.ConvPlan``
+for the H100 forward kernels of ``kernels/csrc/trim_conv2d.cu`` (which
+also run the input gradient, laid out by :func:`input_grad_geometry`);
+:class:`WeightGradPlan` plans the weight-gradient kernel of
+``kernels/csrc/trim_conv2d_wgrad.cu``.  The TPU forward plan sizes its strips for an
 8 MiB VMEM budget and 128-lane C_out tiles; neither applies to the card,
 where a block has at most 227 KB of shared memory.  So a block here owns a
 *column band* of ``tile_w`` output columns as well as a C_out tile, and
@@ -223,4 +226,190 @@ class ConvPlan:
         elems = (self.n * self.h * self.w * self.cin
                  + self.k * self.k * self.cin_per_group * self.cout
                  + self.cout + self.n * self.h_out * self.w_out * self.cout)
+        return 4 * elems
+
+
+# ---------------------------------------------------------------------------
+# Backward geometry
+# ---------------------------------------------------------------------------
+
+def input_grad_geometry(x_shape, w_shape, *, stride: int = 1, pad=0,
+                        groups: int = 1) -> dict:
+    """Geometry of the input-gradient conv of one forward problem (the
+    counterpart of ``repro/core/conv_plan.py:505``).
+
+    The input cotangent of ``y = conv(x, w, stride, pads)`` is a stride-1
+    convolution of the stride-dilated cotangent with the flipped,
+    transposed weights.  The JAX version takes a symmetric ``pad`` (it
+    pre-pads 'same' itself); here ``pad`` is ``((top, bottom), (left,
+    right))``, asymmetric for XLA 'same' at stride 2, and the edge pads
+    that come back are passed to the forward kernel as virtual pads:
+
+        pad_h = (K-1-top, K-1-bottom + r_h),  r_h = (H+top+bottom-K) % s
+
+    and likewise for the width, so that the result has ``x``'s shape.
+    Each forward pad must be <= K-1 (true for 'same' and 'valid').
+
+    Returns ``h_out``/``w_out`` (the cotangent's), the dilated cotangent
+    shape ``g_dilated_shape``, the edge pads ``pad_h``/``pad_w``, the
+    padded shape ``g_padded_shape`` and ``wt_shape = (K, K, Cout/groups,
+    Cin)``.
+    """
+    n, h, w, cin = x_shape
+    kh, kw, cin_pg, cout = w_shape
+    if cin_pg * groups != cin:
+        raise ValueError(
+            f"weights expect cin/groups={cin_pg} with groups={groups}, "
+            f"input has cin={cin}")
+    (pt, pb), (pl, pr) = pads = normalize_pad(pad)
+    if max(pt, pb) > kh - 1 or max(pl, pr) > kw - 1:
+        raise ValueError(f"input-grad conv requires every pad <= K-1, got "
+                         f"pads={pads} for K=({kh}, {kw})")
+    s = stride
+    h_out = (h + pt + pb - kh) // s + 1
+    w_out = (w + pl + pr - kw) // s + 1
+    if h_out < 1 or w_out < 1:
+        raise ValueError("empty output: input smaller than kernel")
+    hd, wd = (h_out - 1) * s + 1, (w_out - 1) * s + 1
+    pad_h = (kh - 1 - pt, kh - 1 - pb + (h + pt + pb - kh) % s)
+    pad_w = (kw - 1 - pl, kw - 1 - pr + (w + pl + pr - kw) % s)
+    return dict(
+        h_out=h_out, w_out=w_out, stride=s,
+        g_dilated_shape=(n, hd, wd, cout),
+        g_padded_shape=(n, hd + sum(pad_h), wd + sum(pad_w), cout),
+        pad_h=pad_h, pad_w=pad_w,
+        wt_shape=(kh, kw, cout // groups, cin),
+    )
+
+
+WGRAD_TILE_ROWS = 64          # rows of the flattened (ki, kj, ci) axis
+WGRAD_TILE_COUT = 64          # output channels per block
+WGRAD_MIN_CHUNK_POSITIONS = 256
+WGRAD_WORKSPACE_CAP = 256 * 2**20   # bytes of per-chunk partial sums
+
+
+@dataclass(frozen=True)
+class WeightGradPlan:
+    """Launch geometry of the weight-gradient kernel
+    (``kernels/csrc/trim_conv2d_wgrad.cu``); the Hopper counterpart of
+    ``repro/core/conv_plan.py:552``.
+
+        dw[ki, kj, ci, g*Cpg+co] = sum_{n, oh, ow}
+            xpad[n, oh*s+ki, ow*s+kj, g*Cin_pg+ci] * dz[n, oh, ow, g*Cpg+co]
+
+    Per group, dw is a ``(K*K*Cin_pg) x Cpg`` matrix whose rows are the
+    flattened ``(ki, kj, ci)`` axis.  A block owns a tile of
+    :data:`WGRAD_TILE_ROWS` rows x :data:`WGRAD_TILE_COUT` columns of it
+    (one tap x a 64-channel Cin tile whenever ``Cin/g`` is a multiple of
+    64; several taps when ``Cin/g`` is small, as at VGG-16's conv1 or a
+    depthwise conv) and one *chunk* of the reduction.
+
+    The TPU plan sweeps ``(n, strip of tile_go cotangent rows)`` in
+    sequence into one resident accumulator.  Here the sweep is cut into
+    chunks that run in parallel: a chunk is a run of ``tile_go``
+    consecutive rows of the flattened ``(n, oh)`` cotangent axis (it may
+    cross an image boundary; the last may be shorter).  Each chunk writes
+    its partial dw into a workspace, and a second pass sums the partials
+    in ascending chunk order.  ``tile_go`` — and so the chunk count — is
+    a pure function of the shape: the fewest rows that give a chunk
+    :data:`WGRAD_MIN_CHUNK_POSITIONS` positions, raised until the
+    workspace fits :data:`WGRAD_WORKSPACE_CAP` (e.g. VGG-16 conv9 at
+    batch 8: 2.36 M dw elements = 9.4 MB a chunk, 24 chunks).  With one
+    chunk there is no workspace: the kernel writes dw itself.
+    """
+
+    n: int
+    h: int
+    w: int
+    cin: int
+    cout: int
+    k: int
+    stride: int
+    pads: tuple
+    groups: int
+    tile_go: int
+
+    @classmethod
+    def build(cls, x_shape, w_shape, *, stride: int = 1, pad=0,
+              groups: int = 1, tile_go: int | None = None
+              ) -> "WeightGradPlan":
+        """Plan from the forward problem's shapes; ``tile_go`` overrides
+        the chunk height (cotangent rows) and is raised to the cap."""
+        n, h, w, cin = x_shape
+        kh, kw, cin_pg, cout = w_shape
+        if kh != kw:
+            raise ValueError(f"square kernels only, got {kh}x{kw}")
+        if cin_pg * groups != cin:
+            raise ValueError(
+                f"weights expect cin/groups={cin_pg} with groups={groups}, "
+                f"input has cin={cin}")
+        if cout % groups:
+            raise ValueError(f"groups={groups} must divide cout={cout}")
+        if stride < 1:
+            raise ValueError(f"stride={stride} must be >= 1")
+        pads = normalize_pad(pad)
+        h_out = (h + sum(pads[0]) - kh) // stride + 1
+        w_out = (w + sum(pads[1]) - kw) // stride + 1
+        if h_out < 1 or w_out < 1:
+            raise ValueError("empty output: input smaller than kernel")
+        if tile_go is None:
+            tile_go = -(-WGRAD_MIN_CHUNK_POSITIONS // w_out)
+        if tile_go < 1:
+            raise ValueError(f"tile_go={tile_go} must be >= 1")
+        chunk_bytes = 4 * kh * kw * cin_pg * cout
+        max_chunks = max(1, WGRAD_WORKSPACE_CAP // chunk_bytes)
+        rows = n * h_out
+        tile_go = min(max(tile_go, -(-rows // max_chunks)), rows)
+        return cls(n=n, h=h, w=w, cin=cin, cout=cout, k=kh, stride=stride,
+                   pads=pads, groups=groups, tile_go=tile_go)
+
+    @property
+    def cin_per_group(self) -> int:
+        return self.cin // self.groups
+
+    @property
+    def cout_per_group(self) -> int:
+        return self.cout // self.groups
+
+    @property
+    def h_out(self) -> int:
+        return (self.h + sum(self.pads[0]) - self.k) // self.stride + 1
+
+    @property
+    def w_out(self) -> int:
+        return (self.w + sum(self.pads[1]) - self.k) // self.stride + 1
+
+    @property
+    def dw_shape(self) -> tuple[int, int, int, int]:
+        return (self.k, self.k, self.cin_per_group, self.cout)
+
+    @property
+    def rows(self) -> int:
+        """Rows of the flattened (ki, kj, ci) axis: K*K*Cin/groups."""
+        return self.k * self.k * self.cin_per_group
+
+    @property
+    def chunks(self) -> int:
+        return -(-self.n * self.h_out // self.tile_go)
+
+    @property
+    def dw_elems(self) -> int:
+        return self.rows * self.cout
+
+    @property
+    def workspace_bytes(self) -> int:
+        """Per-chunk partial sums; none with a single chunk."""
+        return 0 if self.chunks == 1 else 4 * self.chunks * self.dw_elems
+
+    @property
+    def flops(self) -> int:
+        return (2 * self.n * self.h_out * self.w_out * self.cout
+                * self.rows)
+
+    def min_bytes(self) -> int:
+        """f32 bytes the function must move: x and the cotangent read
+        once, dw written once."""
+        elems = (self.n * self.h * self.w * self.cin
+                 + self.n * self.h_out * self.w_out * self.cout
+                 + self.dw_elems)
         return 4 * elems

@@ -26,9 +26,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # C entry points of each source: name -> argument types (restype c_int)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _CONV_ARGS = [_P, _P, _P, _P] + [_I] * 17 + [_P]
+_WGRAD_ARGS = [_P, _P, _P, _P] + [_I] * 13 + [_P]
 SOURCES = {
     "trim_conv2d": {"trim_conv2d_carry": _CONV_ARGS,
                     "trim_conv2d_halo": _CONV_ARGS},
+    "trim_conv2d_wgrad": {"trim_conv2d_wgrad": _WGRAD_ARGS},
 }
 
 _lock = threading.Lock()

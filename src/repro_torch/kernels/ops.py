@@ -9,18 +9,90 @@
 There is no tier chain: a kernel that fails raises.  'same' padding is
 XLA's (asymmetric at stride > 1) and is applied inside the kernel, so no
 padded copy of the input is made.
+
+Gradients.  With grad enabled and an operand that requires grad, the
+``"trim"`` conv runs through :class:`_TrimConv2dFn`, the counterpart of
+the ``jax.custom_vjp`` ``_conv2d_vjp_core`` (``repro/kernels/ops.py:
+262-334``): the forward kernel without its activation, the activation
+outside it, and a backward whose ``dx`` runs the forward kernel on the
+dilated cotangent and whose ``dw`` runs the weight-gradient kernel.
+Otherwise the conv is one launch with the bias + activation epilogue
+fused, as served.
 """
 
 from __future__ import annotations
+
+import typing
 
 import torch
 
 from repro_torch.core.conv_plan import DATAFLOWS
 from repro_torch.kernels import ref
-from repro_torch.kernels.ref import conv_pads
-from repro_torch.kernels.trim_conv2d import trim_conv2d
+from repro_torch.kernels.ref import ACTIVATIONS, conv_pads
+from repro_torch.kernels.trim_conv2d import (trim_conv2d,
+                                             trim_conv2d_input_grad,
+                                             trim_conv2d_weight_grad)
 
 MAX_NATIVE_K = 8
+
+
+class _ConvConfig(typing.NamedTuple):
+    """Static knobs of one differentiable conv call."""
+
+    stride: int
+    pads: tuple
+    groups: int
+    activation: str | None
+    dataflow: str
+    tile_h: int | None
+    tile_cout: int | None
+
+
+def _activation_bwd(activation: str | None, z: torch.Tensor | None,
+                    gy: torch.Tensor) -> torch.Tensor:
+    """Cotangent through the epilogue activation, by autograd of
+    ``ref.ACTIVATIONS`` at the saved pre-activation ``z``
+    (``repro/kernels/ops.py:262``)."""
+    if activation is None:
+        return gy
+    with torch.enable_grad():
+        z = z.detach().requires_grad_()
+        return torch.autograd.grad(ACTIVATIONS[activation](z), z, gy)[0]
+
+
+class _TrimConv2dFn(torch.autograd.Function):
+    """The differentiable TrIM conv: ``_conv2d_vjp_fwd`` /
+    ``_conv2d_vjp_bwd`` / ``_conv_grads`` of ``repro/kernels/ops.py``."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, cfg: _ConvConfig):
+        z = trim_conv2d(x, w, bias, stride=cfg.stride, pad=cfg.pads,
+                        groups=cfg.groups, activation=None,
+                        dataflow=cfg.dataflow, tile_h=cfg.tile_h,
+                        tile_cout=cfg.tile_cout)
+        # z is a residual only when the activation needs it
+        ctx.save_for_backward(x, w, z if cfg.activation else None)
+        ctx.cfg, ctx.has_bias = cfg, bias is not None
+        return ACTIVATIONS[cfg.activation](z)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w, z = ctx.saved_tensors
+        cfg = ctx.cfg
+        dz = _activation_bwd(cfg.activation, z, gy).contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = trim_conv2d_input_grad(dz, w, x_shape=tuple(x.shape),
+                                        stride=cfg.stride, pad=cfg.pads,
+                                        groups=cfg.groups,
+                                        dataflow=cfg.dataflow)
+        if ctx.needs_input_grad[1]:
+            dw = trim_conv2d_weight_grad(x, dz, kernel_size=w.shape[0],
+                                         stride=cfg.stride, pad=cfg.pads,
+                                         groups=cfg.groups)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = dz.sum((0, 1, 2))
+        return dx, dw, db, None
 
 
 def kernel_input_shape(x_shape, k: int, stride: int, padding: str):
@@ -43,7 +115,9 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     x: (N, H, W, Cin); w: (K, K, Cin/groups, Cout); bias: (Cout,) or None;
     ``feature_group_count=Cin`` gives depthwise convolution.  ``dataflow``
     (``"carry"`` by default, or ``"halo"``) and the tile knobs go to the
-    kernel; knobs left as ``None`` take the plan's defaults.
+    kernel; knobs left as ``None`` take the plan's defaults.  Under grad,
+    the ``"trim"`` conv is differentiable in x, w and bias; its input
+    gradient runs the same dataflow's kernel with default tiles.
     """
     if dataflow is not None and dataflow not in DATAFLOWS:
         raise ValueError(f"unknown dataflow {dataflow!r}; "
@@ -66,8 +140,14 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     if k > MAX_NATIVE_K:
         raise NotImplementedError(
             f"K={k} > {MAX_NATIVE_K} needs the adder-tree kernel tiling "
-            "(ROADMAP Queue 1, item 1: K > 8 adder tree and AlexNet)")
+            "(ROADMAP Queue 1: K > 8 adder tree and AlexNet, after the "
+            "fused-group and LM-stack slices)")
     pads = conv_pads(x.shape[1], x.shape[2], k, stride, padding)
+    operands = (x, w) if bias is None else (x, w, bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        cfg = _ConvConfig(stride, pads, feature_group_count, activation,
+                          dataflow or "carry", tile_h, tile_cout)
+        return _TrimConv2dFn.apply(x, w, bias, cfg)
     return trim_conv2d(x, w, bias, stride=stride, pad=pads,
                        groups=feature_group_count, activation=activation,
                        dataflow=dataflow or "carry", tile_h=tile_h,

@@ -1,7 +1,8 @@
 """Plain PyTorch oracles (the counterpart of ``repro/kernels/ref.py``).
 
 Test oracles, independent of the kernel path and of its plain version: the
-convolution is one einsum over unfolded patches, not a tap loop.  On the
+convolution is one einsum over unfolded patches, not a tap loop, and its
+gradients are autograd through that einsum.  On the
 card, run them with ``torch.backends.cuda.matmul.allow_tf32 = False`` (and
 ``torch.backends.cudnn.allow_tf32 = False``) so f32 stays f32.
 """
@@ -66,6 +67,32 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     wg = w.reshape(k, k, cin_pg, g, cout // g)
     y = torch.einsum("nhwgcij,ijcgo->nhwgo", patches, wg)
     return epilogue(y.reshape(n, ho, wo, cout), bias, activation)
+
+
+def conv2d_grads(x: torch.Tensor, w: torch.Tensor, gy: torch.Tensor, *,
+                 stride: int = 1, padding: str = "same",
+                 feature_group_count: int = 1) -> tuple:
+    """(dx, dw) oracle: ``torch.autograd.grad`` through :func:`conv2d` (the
+    counterpart of ``repro/kernels/ref.py:137``, which is ``jax.vjp`` of
+    the XLA convolution)."""
+    with torch.enable_grad():
+        x = x.detach().requires_grad_()
+        w = w.detach().requires_grad_()
+        y = conv2d(x, w, stride=stride, padding=padding,
+                   feature_group_count=feature_group_count)
+        return torch.autograd.grad(y, (x, w), gy)
+
+
+def conv2d_input_grad(x: torch.Tensor, w: torch.Tensor, gy: torch.Tensor,
+                      **kw) -> torch.Tensor:
+    """Input cotangent of the conv2d oracle."""
+    return conv2d_grads(x, w, gy, **kw)[0]
+
+
+def conv2d_weight_grad(x: torch.Tensor, w: torch.Tensor, gy: torch.Tensor,
+                       **kw) -> torch.Tensor:
+    """Weight cotangent of the conv2d oracle."""
+    return conv2d_grads(x, w, gy, **kw)[1]
 
 
 def maxpool2d(x: torch.Tensor, stride: int, window: int) -> torch.Tensor:

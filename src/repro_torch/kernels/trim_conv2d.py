@@ -1,25 +1,38 @@
-"""3D-TrIM convolution: the wrapper of the Hopper kernels and their plain
-PyTorch version.
+"""3D-TrIM convolution and its two cotangents: the wrappers of the Hopper
+kernels and their plain PyTorch versions (the counterpart of
+``repro/kernels/trim_conv2d.py``, f32).
 
-``trim_conv2d`` is the counterpart of ``repro.kernels.trim_conv2d.
-trim_conv2d`` (forward, f32).  On a CUDA tensor it launches the hand-written
-kernel of ``csrc/trim_conv2d.cu`` for the chosen dataflow — ``"carry"`` (the
-paper's shadow registers) or ``"halo"`` (TrIM's over-fetch) — or raises;
-on a CPU tensor it runs :func:`trim_conv2d_plain`.  Nothing falls back.
+* ``trim_conv2d`` — the forward conv.  On a CUDA tensor it launches the
+  hand-written kernel of ``csrc/trim_conv2d.cu`` for the chosen dataflow,
+  ``"carry"`` (the paper's shadow registers) or ``"halo"`` (TrIM's
+  over-fetch); on a CPU tensor it runs :func:`trim_conv2d_plain`.
+* ``trim_conv2d_input_grad`` — dx, itself a TrIM conv: the stride-dilated
+  cotangent through the same forward kernel, with the flipped, transposed
+  weights and the edge pads applied virtually.
+* ``trim_conv2d_weight_grad`` — dw through the kernel of
+  ``csrc/trim_conv2d_wgrad.cu``; :func:`trim_conv2d_weight_grad_plain` on a
+  CPU tensor.
+
+A wrapper given a CUDA tensor launches its kernel or raises; nothing falls
+back.  The wrappers are not differentiable themselves (their results never
+require grad): ``kernels/ops.py`` wraps them in a ``torch.autograd.Function``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.conv_plan import DATAFLOWS, ConvPlan, normalize_pad
+from repro_torch.core.conv_plan import (DATAFLOWS, ConvPlan, WeightGradPlan,
+                                        input_grad_geometry, normalize_pad)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ACTIVATIONS, epilogue, pad_nhwc
 
 ACTIVATION_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3}
 
-# Kernel launches per dataflow: each successful launch adds one.
-LAUNCHES = {"carry": 0, "halo": 0}
+# Kernel launches: each successful launch of a forward dataflow adds one to
+# its key (input gradients included: they run the forward kernel), each
+# weight-gradient call one to "wgrad".
+LAUNCHES = {"carry": 0, "halo": 0, "wgrad": 0}
 
 
 def reset_launch_counts() -> None:
@@ -52,6 +65,26 @@ def trim_conv2d_plain(x: torch.Tensor, w: torch.Tensor,
     return epilogue(acc.reshape(n, h_out, w_out, cout), bias, activation)
 
 
+def _check_operands(**tensors) -> None:
+    """Every operand f32, contiguous and on the first one's CPU or CUDA
+    device."""
+    first = next(iter(tensors.values()))
+    for name, t in tensors.items():
+        if t.device.type not in ("cpu", "cuda") or t.device != first.device:
+            raise ValueError(f"{name} is on {t.device}, the first operand "
+                             f"on {first.device}: all operands must share "
+                             "a CPU or CUDA device")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}; this kernel takes "
+                            "float32 only")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.dim() != 4 and name != "bias":
+            raise ValueError(f"{name} must be 4-D (NHWC activations, "
+                             f"(K, K, Cin/g, Cout) weights); got "
+                             f"{tuple(t.shape)}")
+
+
 def _check(x, w, bias, activation, dataflow) -> None:
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}; "
@@ -59,24 +92,10 @@ def _check(x, w, bias, activation, dataflow) -> None:
     if dataflow not in DATAFLOWS:
         raise ValueError(f"unknown dataflow {dataflow!r}; choose from "
                          f"{DATAFLOWS}")
-    tensors = {"x": x, "w": w} if bias is None else \
-        {"x": x, "w": w, "bias": bias}
-    for name, t in tensors.items():
-        if t.device.type not in ("cpu", "cuda") or t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}; x is on {x.device}: "
-                             "all operands must share a CPU or CUDA device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} is {t.dtype}; this kernel takes "
-                            "float32 only")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "trim_conv2d has no backward yet (ROADMAP: training "
-                "slice); call it under torch.no_grad()")
-    if x.dim() != 4 or w.dim() != 4:
-        raise ValueError(f"x must be (N, H, W, Cin) and w (K, K, Cin/g, "
-                         f"Cout); got {tuple(x.shape)} and {tuple(w.shape)}")
+    if bias is None:
+        _check_operands(x=x, w=w)
+    else:
+        _check_operands(x=x, w=w, bias=bias)
     if bias is not None and tuple(bias.shape) != (w.shape[3],):
         raise ValueError(f"bias must be ({w.shape[3]},), got "
                          f"{tuple(bias.shape)}")
@@ -101,8 +120,10 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor,
                           pad=pad, groups=groups, tile_h=tile_h,
                           tile_cout=tile_cout, dataflow=dataflow)
     if x.device.type == "cpu":
-        return trim_conv2d_plain(x, w, bias, stride=stride, pad=plan.pads,
-                                 groups=groups, activation=activation)
+        with torch.no_grad():
+            return trim_conv2d_plain(x, w, bias, stride=stride,
+                                     pad=plan.pads, groups=groups,
+                                     activation=activation)
     lib = build.library("trim_conv2d")
     launch = lib.trim_conv2d_carry if dataflow == "carry" \
         else lib.trim_conv2d_halo
@@ -123,3 +144,131 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor,
             f"({lib.trim_conv2d_error_string(err).decode()}) for {plan}")
     LAUNCHES[dataflow] += 1
     return y
+
+
+# ---------------------------------------------------------------------------
+# Cotangents
+# ---------------------------------------------------------------------------
+
+def transpose_conv_weights(w: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    """Flip the spatial taps and swap the channel roles per group:
+    ``(K, K, Cin/g, Cout) -> (K, K, Cout/g, Cin)`` with the output (= the
+    forward input) channels group-major — the weights of the
+    input-gradient conv (``repro/kernels/trim_conv2d.py:384``)."""
+    kh, kw, cin_pg, cout = w.shape
+    wt = w.flip(0, 1).reshape(kh, kw, cin_pg, groups, cout // groups)
+    return wt.permute(0, 1, 4, 3, 2).reshape(
+        kh, kw, cout // groups, groups * cin_pg).contiguous()
+
+
+def dilate_cotangent(g: torch.Tensor, stride: int) -> torch.Tensor:
+    """Zeros between the cotangent's rows and columns (``stride - 1`` of
+    each); the cotangent itself at stride 1."""
+    if stride == 1:
+        return g
+    n, ho, wo, c = g.shape
+    gd = g.new_zeros((n, (ho - 1) * stride + 1, (wo - 1) * stride + 1, c))
+    gd[:, ::stride, ::stride, :] = g
+    return gd
+
+
+def trim_conv2d_input_grad(g: torch.Tensor, w: torch.Tensor, *,
+                           x_shape, stride: int = 1, pad=0, groups: int = 1,
+                           dataflow: str = "carry") -> torch.Tensor:
+    """Input cotangent of :func:`trim_conv2d` — itself a TrIM conv
+    (``repro/kernels/trim_conv2d.py:398``).
+
+    g: (N, H_out, W_out, Cout) output cotangent; w: (K, K, Cin/g, Cout) the
+    forward weights; ``x_shape``, ``stride``, ``pad`` and ``groups``
+    describe the FORWARD problem (``pad`` an int or ``((top, bottom),
+    (left, right))``).  Only the stride dilation is materialised; the edge
+    pads of :func:`~repro_torch.core.conv_plan.input_grad_geometry` are the
+    forward kernel's virtual pads, and the conv runs at stride 1 with
+    :func:`transpose_conv_weights` through the ``dataflow`` kernel (its
+    launch counts under that key).  Returns dx with shape ``x_shape``.
+    """
+    _check_operands(g=g, w=w)
+    geo = input_grad_geometry(tuple(x_shape), tuple(w.shape), stride=stride,
+                              pad=pad, groups=groups)
+    if tuple(g.shape) != (x_shape[0], geo["h_out"], geo["w_out"],
+                          w.shape[3]):
+        raise ValueError(f"cotangent shape {tuple(g.shape)} does not match "
+                         f"the forward geometry of x={tuple(x_shape)}, "
+                         f"w={tuple(w.shape)}, stride={stride}, pad={pad}")
+    return trim_conv2d(dilate_cotangent(g, stride),
+                       transpose_conv_weights(w, groups), stride=1,
+                       pad=(geo["pad_h"], geo["pad_w"]), groups=groups,
+                       dataflow=dataflow)
+
+
+def trim_conv2d_weight_grad_plain(x: torch.Tensor, g: torch.Tensor, *,
+                                  kernel_size: int, stride: int = 1, pad=0,
+                                  groups: int = 1) -> torch.Tensor:
+    """The weight-gradient kernel's function in plain PyTorch, as
+    ``_weight_grad_kernel``'s tap loop computes it
+    (``repro/kernels/trim_conv2d.py:429``): for each tap, the shifted
+    strided view of the padded input contracted with the cotangent over
+    (n, oh, ow) by ``einsum``, accumulated in f32."""
+    k, s = kernel_size, stride
+    xp = pad_nhwc(x, normalize_pad(pad))
+    n, ho, wo, cout = g.shape
+    cin_pg = x.shape[3] // groups
+    gg = g.reshape(-1, groups, cout // groups)
+    dw = torch.empty((k, k, cin_pg, groups, cout // groups),
+                     dtype=torch.float32, device=x.device)
+    for ki in range(k):
+        for kj in range(k):
+            rows = xp[:, ki:ki + (ho - 1) * s + 1:s,
+                      kj:kj + (wo - 1) * s + 1:s, :]
+            dw[ki, kj] = torch.einsum(
+                "mgc,mgo->cgo", rows.reshape(-1, groups, cin_pg), gg)
+    return dw.reshape(k, k, cin_pg, cout)
+
+
+def trim_conv2d_weight_grad(x: torch.Tensor, g: torch.Tensor, *,
+                            kernel_size: int, stride: int = 1, pad=0,
+                            groups: int = 1,
+                            tile_go: int | None = None) -> torch.Tensor:
+    """Weight cotangent of :func:`trim_conv2d`
+    (``repro/kernels/trim_conv2d.py:458``).
+
+    x: (N, H, W, Cin) the forward input; g: (N, H_out, W_out, Cout) the
+    output cotangent; ``kernel_size``, ``stride``, ``pad`` and ``groups``
+    as in the forward call (the padding is virtual: no padded copy of
+    ``x`` is made).  ``tile_go`` overrides the plan's chunk height.
+    Returns dw (K, K, Cin/groups, Cout) f32, bitwise the same on every
+    launch with the same inputs (no float atomics).
+    """
+    _check_operands(x=x, g=g)
+    k = kernel_size
+    plan = WeightGradPlan.build(tuple(x.shape),
+                                (k, k, x.shape[3] // groups, g.shape[3]),
+                                stride=stride, pad=pad, groups=groups,
+                                tile_go=tile_go)
+    if tuple(g.shape) != (plan.n, plan.h_out, plan.w_out, plan.cout):
+        raise ValueError(f"cotangent shape {tuple(g.shape)} does not match "
+                         f"the forward geometry of x={tuple(x.shape)}, "
+                         f"K={k}, stride={stride}, pad={pad}")
+    if x.device.type == "cpu":
+        with torch.no_grad():
+            return trim_conv2d_weight_grad_plain(
+                x, g, kernel_size=k, stride=stride, pad=plan.pads,
+                groups=groups)
+    lib = build.library("trim_conv2d_wgrad")
+    dw = torch.empty(plan.dw_shape, dtype=torch.float32, device=x.device)
+    ws = dw if plan.chunks == 1 else torch.empty(
+        (plan.chunks * plan.dw_elems,), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.trim_conv2d_wgrad(
+            x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(),
+            plan.n, plan.h, plan.w, plan.cin, plan.cout, plan.k,
+            plan.stride, plan.pads[0][0], plan.pads[1][0], plan.groups,
+            plan.h_out, plan.w_out, plan.tile_go, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"trim_conv2d_wgrad kernel launch failed: CUDA error {err} "
+            f"({lib.trim_conv2d_wgrad_error_string(err).decode()}) for "
+            f"{plan}")
+    LAUNCHES["wgrad"] += 1
+    return dw

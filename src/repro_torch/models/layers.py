@@ -2,8 +2,12 @@
 ``repro/models/layers.py``).
 
 Functional core on trees of tensors — ``conv2d_apply``,
+``depthwise_separable_apply``, ``simple_cnn_apply``,
 ``cnn_apply_from_layers`` — as in the JAX package, and :class:`TrimCNN`,
-the ``nn.Module`` that holds one topology's parameters and serves it.
+the ``nn.Module`` that holds one topology's parameters and serves or
+trains it.  Every function is differentiable: under grad, each conv runs
+the TrIM forward, input-gradient and weight-gradient kernels
+(``kernels/ops.py``), and max-pool's backward is ``F.max_pool2d``'s.
 Activations are NHWC and conv weights ``(K, K, Cin/groups, Cout)``.
 """
 
@@ -39,6 +43,60 @@ def conv2d_apply(p: dict, x: torch.Tensor, *, stride: int = 1,
     return ops.conv2d(x, p["w"], stride=stride, padding=padding, impl=impl,
                       feature_group_count=groups, bias=p.get("b"),
                       activation=activation, dataflow=dataflow)
+
+
+def depthwise_separable_params(k: int, cin: int, cout: int, *,
+                               bias: bool = True) -> dict:
+    """MobileNet-style depthwise KxK + pointwise 1x1 block."""
+    return {"dw": conv2d_params(k, cin, cin, groups=cin, bias=bias),
+            "pw": conv2d_params(1, cin, cout, bias=bias)}
+
+
+def depthwise_separable_apply(p: dict, x: torch.Tensor, *, stride: int = 1,
+                              activation: str | None = "relu",
+                              impl: str = "trim") -> torch.Tensor:
+    h = conv2d_apply(p["dw"], x, stride=stride, groups=x.shape[-1],
+                     activation=activation, impl=impl)
+    return conv2d_apply(p["pw"], h, activation=activation, impl=impl)
+
+
+def simple_cnn_params(*, cin: int = 3, channels=(8, 16), n_classes: int = 10,
+                      k: int = 3, depthwise_stage: bool = True) -> dict:
+    """The small CIFAR-shaped classifier of ``examples/train_cnn.py``.
+
+    Per stage: a stride-1 conv followed by a stride-2 "down" conv (pooling
+    as a strided conv, so every op runs the differentiable TrIM kernels);
+    ``depthwise_stage`` inserts a depthwise KxK before the last down conv
+    so training runs the grouped backward too.  The head is global mean
+    pooling + a dense projection.
+    """
+    p, prev = {}, cin
+    for i, c in enumerate(channels):
+        p[f"conv{i}"] = conv2d_params(k, prev, c)
+        p[f"down{i}"] = conv2d_params(k, c, c)
+        prev = c
+    if depthwise_stage:
+        p["dw"] = conv2d_params(k, prev, prev, groups=prev)
+    p["head"] = {"w": Param((prev, n_classes)),
+                 "b": Param((n_classes,), init="zeros")}
+    return p
+
+
+def simple_cnn_apply(p: dict, x: torch.Tensor, *,
+                     impl: str = "trim") -> torch.Tensor:
+    """Forward pass of :func:`simple_cnn_params`.  x: (N, H, W, Cin);
+    returns (N, n_classes) logits.  The depthwise stage is applied iff the
+    tree carries one (inferred from the tree, like the stage count)."""
+    n_stages = sum(1 for k in p if k.startswith("conv"))
+    for i in range(n_stages):
+        x = conv2d_apply(p[f"conv{i}"], x, activation="relu", impl=impl)
+        if "dw" in p and i == n_stages - 1:
+            x = conv2d_apply(p["dw"], x, groups=x.shape[-1],
+                             activation="relu", impl=impl)
+        x = conv2d_apply(p[f"down{i}"], x, stride=2, activation="relu",
+                         impl=impl)
+    x = x.mean(dim=(1, 2))                        # global mean pool
+    return x @ p["head"]["w"] + p["head"]["b"]
 
 
 def cnn_params_from_layers(layers_list, *, n_classes: int | None = None,
@@ -93,31 +151,37 @@ def cnn_apply_from_layers(p: dict, layers_list, x: torch.Tensor, *,
 
 
 class _Leaf(nn.Module):
-    """One ``{"w", "b"}`` entry of the tree as frozen parameters."""
+    """One ``{"w", "b"}`` entry of the tree as parameters, frozen unless
+    ``trainable``."""
 
-    def __init__(self, leaf: dict):
+    def __init__(self, leaf: dict, trainable: bool):
         super().__init__()
         for name, t in leaf.items():
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            self.register_parameter(
+                name, nn.Parameter(t, requires_grad=trainable))
 
 
 class TrimCNN(nn.Module):
-    """A conv topology with its parameters, served by the TrIM kernels.
+    """A conv topology with its parameters, served or trained on the TrIM
+    kernels.
 
     ``params`` is the tree of :func:`cnn_params_from_layers` as tensors
     (``{"conv{i}": {"w", "b"}, "head": {"w", "b"}}``, e.g. from
     :meth:`random` or ``repro_torch.convert.params_from_jax``); the
     module lives on their device.  ``dataflow`` picks the conv kernel
-    (``None`` is ``"carry"``).  Inference only: the parameters are frozen.
+    (``None`` is ``"carry"``).  The parameters are frozen for serving;
+    ``trainable=True`` registers them with ``requires_grad``, so a loss on
+    :meth:`forward` back-propagates through the TrIM backward kernels.
     """
 
     def __init__(self, layers_list, params: dict, *,
                  activation: str | None = "relu", impl: str = "trim",
-                 dataflow: str | None = None):
+                 dataflow: str | None = None, trainable: bool = False):
         super().__init__()
         self.layers_list = list(layers_list)
         self.activation, self.impl, self.dataflow = activation, impl, dataflow
-        self.params = nn.ModuleDict({k: _Leaf(v) for k, v in params.items()})
+        self.params = nn.ModuleDict({k: _Leaf(v, trainable)
+                                     for k, v in params.items()})
 
     @classmethod
     def random(cls, layers_list, *, n_classes: int | None = None,
@@ -134,7 +198,12 @@ class TrimCNN(nn.Module):
         """The parameters as the functional tree."""
         return {k: dict(m.named_parameters()) for k, m in self.params.items()}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return cnn_apply_from_layers(self.tree(), self.layers_list, x,
+    def apply_tree(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """The forward on a given parameter tree (the functional form a
+        trainer steps: ``launch.train_cnn.train_step``'s ``apply_fn``)."""
+        return cnn_apply_from_layers(params, self.layers_list, x,
                                      activation=self.activation,
                                      impl=self.impl, dataflow=self.dataflow)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.apply_tree(self.tree(), x)

@@ -1,0 +1,118 @@
+"""AdamW on trees of tensors (the counterpart of ``repro/optim/adamw.py``).
+
+The JAX numerics: clip by global norm with scale ``min(1, clip / (|g| +
+1e-9))``, warmup + cosine learning rate, bias corrections from ``step +
+1``, and decoupled weight decay only on tensors with ndim >= 2.  Trees are
+nested dicts; their leaves go in sorted-key order, as ``jax.tree.leaves``
+takes them, so the global norm sums in the JAX package's order.  Updates
+are functional (new trees, inputs untouched) and run under
+``torch.no_grad()``; ``step`` is a Python int or a 0-d tensor.  The
+ZeRO-style sharding of the JAX moments has no counterpart on one card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    moment_dtype: torch.dtype = torch.float32
+    warmup_steps: int = 100
+    decay_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+
+
+def tree_leaves(tree) -> list:
+    """Leaves of a nested dict in sorted-key order (``jax.tree.leaves``)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_unflatten(like, leaves) -> dict:
+    """A tree shaped like ``like`` from ``leaves`` in sorted-key order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+    return build(like)
+
+
+def _step_tensor(step, device) -> torch.Tensor:
+    return torch.as_tensor(step, device=device).to(torch.float32)
+
+
+def lr_at(cfg: AdamWConfig, step, device=None) -> torch.Tensor:
+    """Learning rate at ``step`` (f32, 0-d): linear warmup, then cosine
+    decay to ``min_lr_ratio * lr``."""
+    s = _step_tensor(step, device)
+    warm = cfg.lr * (s + 1) / max(cfg.warmup_steps, 1)
+    t = ((s - cfg.warmup_steps)
+         / max(cfg.decay_steps - cfg.warmup_steps, 1)).clamp(0.0, 1.0)
+    cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) \
+        * 0.5 * (1 + torch.cos(math.pi * t))
+    return torch.where(s < cfg.warmup_steps, warm, cfg.lr * cos)
+
+
+def init_moments(params, cfg: AdamWConfig) -> dict:
+    def zeros(tree):
+        if isinstance(tree, dict):
+            return {k: zeros(v) for k, v in tree.items()}
+        return torch.zeros(tree.shape, dtype=cfg.moment_dtype,
+                           device=tree.device)
+    return {"mu": zeros(params), "nu": zeros(params)}
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, summed leaf by leaf in
+    sorted-key order."""
+    total = None
+    for leaf in tree_leaves(tree):
+        sq = torch.sum(torch.square(leaf.to(torch.float32)))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def apply_updates(params, grads, moments, step, cfg: AdamWConfig):
+    """Returns ``(new_params, new_moments, metrics)`` with ``metrics =
+    {"grad_norm", "lr"}`` (0-d tensors)."""
+    flat_p = tree_leaves(params)
+    device = flat_p[0].device
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    lr = lr_at(cfg, step, device)
+    s = _step_tensor(step, device)
+    b1, b2 = cfg.b1, cfg.b2
+    bc1 = 1 - torch.pow(torch.tensor(b1, device=device), s + 1)
+    bc2 = 1 - torch.pow(torch.tensor(b2, device=device), s + 1)
+
+    new_p, new_mu, new_nu = [], [], []
+    for p, g, mu, nu in zip(flat_p, tree_leaves(grads),
+                            tree_leaves(moments["mu"]),
+                            tree_leaves(moments["nu"])):
+        g = g.to(torch.float32) * scale
+        mu32 = b1 * mu.to(torch.float32) + (1 - b1) * g
+        nu32 = b2 * nu.to(torch.float32) + (1 - b2) * g * g
+        upd = (mu32 / bc1) / (torch.sqrt(nu32 / bc2) + cfg.eps)
+        if p.dim() >= 2:   # decoupled weight decay on matrices only
+            upd = upd + cfg.weight_decay * p.to(torch.float32)
+        new_p.append((p.to(torch.float32) - lr * upd).to(p.dtype))
+        new_mu.append(mu32.to(mu.dtype))
+        new_nu.append(nu32.to(nu.dtype))
+    return (tree_unflatten(params, new_p),
+            {"mu": tree_unflatten(params, new_mu),
+             "nu": tree_unflatten(params, new_nu)},
+            {"grad_norm": gnorm, "lr": lr})

@@ -74,15 +74,28 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="shared memory"):
         tc.trim_conv2d(torch.zeros((1, 4, 4, 8192)),
                        torch.zeros((3, 3, 8192, 1)))
-    with pytest.raises(NotImplementedError, match="backward"):
-        tc.trim_conv2d(x, w.requires_grad_())
+    # operands that require grad are taken; the wrapper itself is not
+    # differentiable (ops.conv2d's autograd Function is)
+    assert tc.trim_conv2d(x, w.requires_grad_()).grad_fn is None
+    g = torch.zeros((1, 6, 6, 4))
+    with pytest.raises(ValueError, match="cotangent"):
+        tc.trim_conv2d_weight_grad(x, g, kernel_size=3, pad=0, stride=2)
+    with pytest.raises(ValueError, match="cotangent"):
+        tc.trim_conv2d_input_grad(g, w, x_shape=(1, 8, 8, 4), stride=2)
+    with pytest.raises(TypeError):
+        tc.trim_conv2d_weight_grad(x.double(), g.double(), kernel_size=3)
 
 
 def test_plain_path_does_not_count_launches():
     tc.reset_launch_counts()
     tc.trim_conv2d(torch.ones((1, 6, 6, 2)), torch.ones((3, 3, 2, 2)),
                    pad=1, dataflow="halo")
-    assert tc.LAUNCHES == {"carry": 0, "halo": 0}
+    tc.trim_conv2d_weight_grad(torch.ones((1, 6, 6, 2)),
+                               torch.ones((1, 6, 6, 2)), kernel_size=3, pad=1)
+    tc.trim_conv2d_input_grad(torch.ones((1, 6, 6, 2)),
+                              torch.ones((3, 3, 2, 2)), x_shape=(1, 6, 6, 2),
+                              pad=1)
+    assert tc.LAUNCHES == {"carry": 0, "halo": 0, "wgrad": 0}
 
 
 def test_build_raises_without_nvcc(monkeypatch):
