@@ -228,6 +228,32 @@ class ConvPlan:
                  + self.cout + self.n * self.h_out * self.w_out * self.cout)
         return 4 * elems
 
+    @property
+    def n_strips(self) -> int:
+        return -(-self.h_out // self.th_out)
+
+    @property
+    def n_bands(self) -> int:
+        return -(-self.w_out // self.tile_w)
+
+    def hbm_bytes(self) -> dict:
+        """f32 bytes the kernel's schedule moves: every block (image,
+        group, C_out tile, band) reads its band's window columns — each
+        padded row once with ``carry``, ``window_rows`` a strip with
+        ``halo`` — and streams its C_out tile's weights once per strip;
+        the output is written once."""
+        blocks = (self.n * self.groups * self.n_bands
+                  * -(-self.cout_per_group // self.tile_cout))
+        rows = (self.n_strips * self.tile_h + self.carry_rows
+                if self.dataflow == "carry"
+                else self.n_strips * self.window_rows)
+        in_bytes = 4 * blocks * rows * self.window_cols * self.cin_per_group
+        w_bytes = 4 * (self.n * self.n_bands * self.n_strips * self.k ** 2
+                       * self.cin_per_group * self.cout)
+        out_bytes = 4 * self.n * self.h_out * self.w_out * self.cout
+        return dict(input=in_bytes, weights=w_bytes, output=out_bytes,
+                    total=in_bytes + w_bytes + out_bytes)
+
 
 # ---------------------------------------------------------------------------
 # Backward geometry

@@ -1,0 +1,576 @@
+"""Residency-group fusion planning for the H100 (the counterpart of
+``repro/core/fuse_plan.py``; DESIGN.md §8).
+
+A *residency group* is a chain conv→[pool]→conv… that one launch of the
+fused kernel (``kernels/csrc/trim_conv2d_fused.cu``) executes with every
+interior activation kept in shared memory.  :class:`FusedGroupPlan`
+partitions a topology into such groups by a shortest-path dynamic
+program over executed device-memory bytes; groups of depth 1 run the
+per-layer path, so ``max_depth=1`` is exactly per-layer execution.
+
+What is carried over from the JAX plan, in meaning: the 'same' pads,
+:class:`FusedStage`, the per-layer problems, the affine backward
+recursion of the strip geometry (:func:`_strip_geometry`),
+:class:`FusedGroup`, :func:`build_group`, the layer eligibility rule
+and the strip candidates.  With ``band_cols`` at the full width a
+group's row geometry is the JAX one.
+
+What is new for Hopper:
+
+* **Tiles cut in both directions.**  The TPU strip spans the full width
+  and its working set is sized for 16 MiB of VMEM; a Hopper block has
+  :data:`SMEM_PER_BLOCK` (227 KB).  One pooled row of VGG-16's
+  conv1→conv2 at full width already needs 229 KB of conv1 output, so a
+  tile here is ``strip_rows`` x ``band_cols`` pooled outputs of the last
+  stage, and the same recursion runs on the W axis (``*_col_start``,
+  ``*_col_step``, ``*_cols``).  A stage's halo grows in both directions
+  and its halo columns are computed twice (the executed FLOPs count
+  them).
+* **Feasibility is the kernel's real footprint** (:attr:`FusedGroup.
+  smem_bytes`): two ping-pong buffers, one holding every even stage's
+  input tile and one every odd stage's (the stage's pooled output is the
+  next stage's input), plus one staged weight chunk.
+* **Bytes are the kernel's schedule.**  A fused group reads its stage-0
+  windows (halo overlap billed in full), streams each stage's weights
+  once per *pass* (a pass is as many positions as the block's registers
+  hold, as a strip is for the per-layer kernel) and writes the last
+  stage's pooled output.  The per-layer baseline is the port's own
+  :meth:`ConvPlan.hbm_bytes` schedule plus the separate pool's read and
+  write.  The TPU's ``NetworkPlan`` residency decision (VMEM accounting)
+  is not ported; a range may fuse when every layer is eligible and some
+  tile fits.
+
+The kernel is float32 only, so every byte count is of f32
+(:data:`F32_BYTES`), and the budget is always :data:`SMEM_PER_BLOCK`.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from dataclasses import dataclass
+
+from repro_torch.core.conv_plan import (SMEM_PER_BLOCK, THREADS, WARP,
+                                        WEIGHT_CHUNK, ConvPlan, same_pads)
+from repro_torch.core.netplan import (infer_pools, layer_kernel_problem,
+                                      network_layers, pooled_out_size)
+
+# Kernel constants, mirroring the constexprs of trim_conv2d_fused.cu (its
+# kThreads, kWeightChunk and kMaxSmemBytes are conv_plan's THREADS,
+# WEIGHT_CHUNK and SMEM_PER_BLOCK).
+MAX_FUSED_K = 8          # taps per side inside a group (ops.MAX_NATIVE_K)
+MAX_FUSED_STAGES = 8     # kMaxStages: stages of one launch
+FUSED_SLOTS = 9          # kMaxSlots: conv outputs per thread per pass
+FUSED_TILE_COUT = 64     # output channels per pass (kMaxCout 4 x a warp
+                         # would allow 128)
+F32_BYTES = 4
+
+
+# ---------------------------------------------------------------------------
+# Static per-stage description + tile geometry
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class FusedStage:
+    """One conv[+pool] stage of a fused group, with its tile geometry.
+
+    Every range is affine in the tile's strip index ``g`` (rows) and band
+    index ``b`` (columns): a tile covers rows ``[start + g*step, start +
+    g*step + rows)`` and columns ``[col_start + b*col_step, ... + cols)``
+    in the *global* (unpadded) coordinates of that tensor.  ``in_*``
+    address the stage's input (the previous stage's pooled output),
+    ``conv_*`` the conv output and ``pool_*`` the pooled output.  Rows
+    and columns outside the valid extent are zeros — the kernel's mask
+    makes them so — and serve as the next stage's 'same' padding.
+    """
+
+    name: str
+    # problem geometry (square spatial dims)
+    h_in: int
+    w_in: int
+    cin: int
+    cout: int
+    kernel: int
+    stride: int
+    pad_lo: int          # 'same' H/W pad (asymmetric), 0 for 'valid'
+    pad_hi: int
+    h_conv: int          # valid conv output rows (== layer.out_size)
+    w_conv: int
+    pool_stride: int     # (1, 1) == no pooling
+    pool_window: int
+    h_pool: int
+    w_pool: int
+    # row geometry (affine in the strip index g), as the JAX plan's
+    in_start: int
+    in_step: int
+    in_rows: int
+    conv_start: int
+    conv_step: int
+    conv_rows: int
+    pool_start: int
+    pool_step: int
+    pool_rows: int
+    # column geometry (affine in the band index b)
+    in_col_start: int
+    in_col_step: int
+    in_cols: int
+    conv_col_start: int
+    conv_col_step: int
+    conv_cols: int
+    pool_col_start: int
+    pool_col_step: int
+    pool_cols: int
+
+    @property
+    def weight_shape(self) -> tuple[int, int, int, int]:
+        return (self.kernel, self.kernel, self.cin, self.cout)
+
+    @property
+    def weight_bytes(self) -> int:
+        k = self.kernel
+        return k * k * self.cin * self.cout * F32_BYTES
+
+    @property
+    def padding(self) -> str:
+        """The ``ops.conv2d`` padding mode of the stage's layer."""
+        return "same" if self.pad_lo or self.pad_hi else "valid"
+
+    @property
+    def pooled(self) -> bool:
+        return self.pool_stride > 1 or self.pool_window > 1
+
+    # -- the kernel's thread layout for this stage ---------------------------
+
+    @property
+    def tile_cout(self) -> int:
+        """Output channels of one pass: 64, or the whole C_out when
+        smaller; above a warp, whole warps."""
+        t = min(self.cout, FUSED_TILE_COUT)
+        return -(-t // WARP) * WARP if t > WARP else t
+
+    @property
+    def threads_cout(self) -> int:
+        return min(self.tile_cout, WARP)
+
+    @property
+    def per_thread(self) -> int:
+        """Pooled positions a thread holds in one pass; each takes
+        ``pool_window**2`` conv accumulators (the pool runs in
+        registers)."""
+        return FUSED_SLOTS // (self.pool_window ** 2)
+
+    @property
+    def positions_per_pass(self) -> int:
+        return THREADS // self.threads_cout * self.per_thread
+
+    @property
+    def passes(self) -> int:
+        """Passes over one tile, all C_out tiles together: each streams
+        this stage's weights once."""
+        return -(-self.pool_rows * self.pool_cols // self.positions_per_pass)
+
+    @property
+    def in_tile_elems(self) -> int:
+        return self.in_rows * self.in_cols * self.cin
+
+    @property
+    def tile_macs(self) -> int:
+        """MACs of one tile, recomputed halo and masked positions
+        included (an overlapping pool recomputes its shared conv
+        outputs)."""
+        return (self.pool_rows * self.pool_cols * self.pool_window ** 2
+                * self.kernel ** 2 * self.cin * self.cout)
+
+
+def _stage_problems(layers, pools):
+    """Per-layer (layer, pad_lo, pad_hi, h_conv, ps, pw, h_pool) tuples,
+    validating each layer is 'same'/'valid'-executable."""
+    probs = []
+    for layer, (ps, pw) in zip(layers, pools):
+        layer_kernel_problem(layer)     # raises if not 'same'/'valid'
+        lo, hi = (same_pads(layer.ifmap, layer.kernel, layer.stride)
+                  if layer.padding else (0, 0))
+        h_conv = layer.out_size
+        probs.append((layer, lo, hi, h_conv, ps, pw,
+                      pooled_out_size(h_conv, ps, pw)))
+    return probs
+
+
+def _backward_ranges(probs, tile):
+    """The affine backward recursion on one axis: from ``tile`` pooled
+    outputs of the last stage, each stage's (input, conv, pool) ranges
+    as ``(start, step, size)`` triples, first stage first.
+
+    A pooled range needs conv positions ``[a*ps, a*ps + (c-1)*ps + pw)``;
+    a conv range needs padded-input positions ``[a*s, a*s + (c-1)*s +
+    K)``; un-padding subtracts the leading 'same' pad."""
+    out = []
+    a, b, c = 0, tile, tile
+    for layer, lo, _hi, _h_conv, ps, pw, _h_pool in reversed(probs):
+        pool = (a, b, c)
+        a, b, c = a * ps, b * ps, (c - 1) * ps + pw
+        conv = (a, b, c)
+        s, k = layer.stride, layer.kernel
+        a, b, c = a * s - lo, b * s, (c - 1) * s + k
+        out.append(((a, b, c), conv, pool))
+    out.reverse()
+    return out
+
+
+def _strip_geometry(probs, strip_rows, band_cols=None):
+    """Every stage's row and column ranges for a tile of ``strip_rows`` x
+    ``band_cols`` pooled outputs of the last stage (``band_cols`` None:
+    the full width).  The stage-0 input ranges are what one block
+    reads from device memory."""
+    if band_cols is None:
+        band_cols = probs[-1][6]
+    rows = _backward_ranges(probs, strip_rows)
+    cols = _backward_ranges(probs, band_cols)
+    stages = []
+    for (layer, lo, hi, h_conv, ps, pw, h_pool), r, c in zip(probs, rows,
+                                                             cols):
+        stages.append(FusedStage(
+            name=layer.name, h_in=layer.ifmap, w_in=layer.ifmap,
+            cin=layer.in_channels, cout=layer.out_channels,
+            kernel=layer.kernel, stride=layer.stride, pad_lo=lo, pad_hi=hi,
+            h_conv=h_conv, w_conv=h_conv,
+            pool_stride=ps, pool_window=pw, h_pool=h_pool, w_pool=h_pool,
+            in_start=r[0][0], in_step=r[0][1], in_rows=r[0][2],
+            conv_start=r[1][0], conv_step=r[1][1], conv_rows=r[1][2],
+            pool_start=r[2][0], pool_step=r[2][1], pool_rows=r[2][2],
+            in_col_start=c[0][0], in_col_step=c[0][1], in_cols=c[0][2],
+            conv_col_start=c[1][0], conv_col_step=c[1][1],
+            conv_cols=c[1][2],
+            pool_col_start=c[2][0], pool_col_step=c[2][1],
+            pool_cols=c[2][2]))
+    return tuple(stages)
+
+
+# ---------------------------------------------------------------------------
+# A fused residency group
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class FusedGroup:
+    """One residency group: ``depth`` consecutive layers executed as one
+    launch of the fused kernel (depth >= 2) or by the per-layer path
+    (depth 1, where the tile geometry is unused)."""
+
+    start: int                          # index of the first layer
+    stages: tuple[FusedStage, ...]
+    n: int = 1
+    strip_rows: int = 1                 # pooled rows of the LAST stage/tile
+    band_cols: int = 1                  # pooled columns of the LAST stage/tile
+
+    @property
+    def depth(self) -> int:
+        return len(self.stages)
+
+    @property
+    def fused(self) -> bool:
+        return self.depth >= 2
+
+    @property
+    def last(self) -> FusedStage:
+        return self.stages[-1]
+
+    @property
+    def n_strips(self) -> int:
+        return math.ceil(self.last.h_pool / self.strip_rows)
+
+    @property
+    def n_bands(self) -> int:
+        return math.ceil(self.last.w_pool / self.band_cols)
+
+    @property
+    def n_tiles(self) -> int:
+        """Blocks of one launch: (image, strip, band)."""
+        return self.n * self.n_strips * self.n_bands
+
+    @property
+    def out_shape(self) -> tuple[int, int, int, int]:
+        lt = self.last
+        return (self.n, lt.h_pool, lt.w_pool, lt.cout)
+
+    @property
+    def label(self) -> str:
+        return (self.stages[0].name if self.depth == 1 else
+                f"{self.stages[0].name}..{self.last.name}")
+
+    # -- shared memory -------------------------------------------------------
+
+    @property
+    def buffer_elems(self) -> tuple[int, int]:
+        """Floats of the two ping-pong buffers: stage i's input tile
+        lives in buffer ``i % 2`` (stage i writes its pooled, masked
+        output — stage i+1's input — into the other)."""
+        bufs = [0, 0]
+        for i, st in enumerate(self.stages):
+            bufs[i % 2] = max(bufs[i % 2], st.in_tile_elems)
+        return bufs[0], bufs[1]
+
+    @property
+    def smem_bytes(self) -> int:
+        """Everything the kernel allocates in shared memory: both
+        buffers and one staged weight chunk of the widest C_out tile."""
+        chunk = WEIGHT_CHUNK * max(st.tile_cout for st in self.stages)
+        return F32_BYTES * (sum(self.buffer_elems) + chunk)
+
+    # -- arithmetic / traffic ------------------------------------------------
+
+    @property
+    def macs(self) -> int:
+        """Useful MACs: each valid conv output once."""
+        return sum(self.n * st.h_conv * st.w_conv * st.cout
+                   * st.kernel * st.kernel * st.cin for st in self.stages)
+
+    @property
+    def flops(self) -> int:
+        return 2 * self.macs
+
+    @property
+    def executed_flops(self) -> int:
+        """FLOPs the kernel executes: every tile computes its whole
+        halo (twice-computed rows and columns, masked positions, an
+        overlapping pool's shared conv outputs)."""
+        return 2 * self.n_tiles * sum(st.tile_macs for st in self.stages)
+
+    @property
+    def recompute(self) -> float:
+        return self.executed_flops / self.flops
+
+    def hbm_bytes(self) -> dict:
+        """Device-memory bytes of the kernel's schedule: each tile's
+        stage-0 window (halo overlap billed in full), each stage's
+        weights once per pass, one write of the pooled output.  Interior
+        activations and pools move nothing."""
+        s0, lt = self.stages[0], self.last
+        in_bytes = self.n_tiles * s0.in_tile_elems * F32_BYTES
+        w_bytes = self.n_tiles * sum(st.passes * st.weight_bytes
+                                     for st in self.stages)
+        out_bytes = self.n * lt.h_pool * lt.w_pool * lt.cout * F32_BYTES
+        return dict(input=in_bytes, weights=w_bytes, output=out_bytes,
+                    total=in_bytes + w_bytes + out_bytes)
+
+    def min_bytes(self) -> int:
+        """The least bytes the group's function must move: the input,
+        each weight and bias once, the output once."""
+        s0, lt = self.stages[0], self.last
+        elems = (self.n * s0.h_in * s0.w_in * s0.cin
+                 + sum(st.kernel ** 2 * st.cin * st.cout + st.cout
+                       for st in self.stages)
+                 + self.n * lt.h_pool * lt.w_pool * lt.cout)
+        return F32_BYTES * elems
+
+
+def build_group(layers, start, *, n=1, strip_rows=1, band_cols=None,
+                pools=None):
+    """A :class:`FusedGroup` over ``layers``; ``band_cols`` None is the
+    full width of the last stage's pooled output.  ``pools`` defaults to
+    :func:`infer_pools` over ``layers`` *as given* (pass the
+    whole-network pools to keep a trailing group's final pool)."""
+    if pools is None:
+        pools = infer_pools(list(layers))
+    probs = _stage_problems(list(layers), list(pools))
+    if band_cols is None:
+        band_cols = probs[-1][6]
+    stages = _strip_geometry(probs, strip_rows, band_cols)
+    return FusedGroup(start=start, stages=stages, n=n,
+                      strip_rows=strip_rows, band_cols=band_cols)
+
+
+# ---------------------------------------------------------------------------
+# Whole-network partition
+# ---------------------------------------------------------------------------
+
+def _layer_eligible(layer) -> bool:
+    """Can this layer run *inside* a fused group at all?"""
+    if layer.groups != 1 or layer.kernel > MAX_FUSED_K:
+        return False
+    if layer.stride > 1 and layer.out_size == 1:
+        # the JAX plan's rule: a strided stage collapsing to one output
+        # row gains nothing from a tile and broke bit-equality there
+        return False
+    try:
+        layer_kernel_problem(layer)
+    except ValueError:
+        return False
+    return True
+
+
+def _strip_candidates(h_pool_last: int):
+    """Candidate tile sides: powers of two up to the full pooled extent
+    (the full extent is always included)."""
+    t, cands = 1, []
+    while t < h_pool_last:
+        cands.append(t)
+        t *= 2
+    cands.append(h_pool_last)
+    return cands
+
+
+def per_layer_exec_bytes(layers, pools, *, n) -> tuple:
+    """What the port's per-layer path moves for each layer: the carry
+    kernel's schedule (:meth:`ConvPlan.hbm_bytes`) with the full ofmap
+    written, plus the separate pool's read of that ofmap and write of
+    the pooled result (``pool``)."""
+    out = []
+    for layer, (ps, pw) in zip(layers, pools):
+        x_shape = (n, layer.ifmap, layer.ifmap, layer.in_channels)
+        w_shape = (layer.kernel, layer.kernel,
+                   layer.in_channels // layer.groups, layer.out_channels)
+        pads = ((same_pads(layer.ifmap, layer.kernel, layer.stride),) * 2
+                if layer.padding else 0)
+        b = dict(ConvPlan.build(x_shape, w_shape, stride=layer.stride,
+                                pad=pads, groups=layer.groups).hbm_bytes())
+        b["pool"] = 0
+        if ps > 1 or pw > 1:
+            h = layer.out_size
+            b["pool"] = n * layer.out_channels * F32_BYTES * (
+                h * h + pooled_out_size(h, ps, pw) ** 2)
+        b["total"] += b["pool"]
+        out.append(b)
+    return tuple(out)
+
+
+@dataclass(frozen=True)
+class FusedGroupPlan:
+    """Partition of a network into residency groups, with executed-byte
+    accounting for the fused schedule against the per-layer one."""
+
+    groups: tuple[FusedGroup, ...]
+    n: int
+    layer_exec_bytes: tuple   # per-layer executed byte dicts
+
+    @classmethod
+    def build(cls, network, *, n: int = 1,
+              max_depth: int | None = None) -> "FusedGroupPlan":
+        """Partition ``network`` (name or layer list) into residency
+        groups, with the fewest executed device-memory bytes.
+
+        A range of two or more layers may form one fused group iff every
+        layer is eligible (:func:`_layer_eligible`), it has at most
+        :data:`MAX_FUSED_STAGES` layers, and some tile keeps the
+        kernel's shared memory within :data:`SMEM_PER_BLOCK`.
+        ``max_depth`` caps the depth (``max_depth=1`` is per-layer
+        execution).  Plans are cached by their arguments.
+        """
+        return _build_plan(tuple(network_layers(network)), n, max_depth)
+
+    @staticmethod
+    def _tune_group(layers, pools, start, depth, *, n):
+        """The tile of least executed bytes (then least executed FLOPs)
+        over ``layers[start:start+depth]`` whose shared memory fits
+        :data:`SMEM_PER_BLOCK`, or None when none fits."""
+        sub = layers[start:start + depth]
+        subpools = pools[start:start + depth]
+        probe = build_group(sub, start, n=n, pools=subpools)
+        best, best_key = None, None
+        for t in _strip_candidates(probe.last.h_pool):
+            for b in _strip_candidates(probe.last.w_pool):
+                g = build_group(sub, start, n=n, strip_rows=t,
+                                band_cols=b, pools=subpools)
+                if g.smem_bytes > SMEM_PER_BLOCK:
+                    continue
+                key = (g.hbm_bytes()["total"], g.executed_flops)
+                if best is None or key < best_key:
+                    best, best_key = g, key
+        return best
+
+    # -- accounting ----------------------------------------------------------
+
+    @property
+    def depth(self) -> int:
+        return max(g.depth for g in self.groups)
+
+    @property
+    def fused_groups(self) -> tuple[FusedGroup, ...]:
+        return tuple(g for g in self.groups if g.fused)
+
+    @property
+    def flops(self) -> int:
+        return sum(g.flops for g in self.groups)
+
+    @property
+    def executed_flops(self) -> int:
+        """Fused groups' executed FLOPs (recomputed halo included) plus
+        the per-layer FLOPs of depth-1 groups."""
+        return sum(g.executed_flops if g.fused else g.flops
+                   for g in self.groups)
+
+    def executed_hbm_bytes(self) -> dict:
+        """Bytes the fused execution moves: the fused kernel's schedule
+        for fused groups, the per-layer schedule (separate pool
+        included) for depth-1 groups."""
+        tot = dict(input=0, weights=0, output=0, pool=0, total=0)
+        for g in self.groups:
+            b = g.hbm_bytes() if g.fused else self.layer_exec_bytes[g.start]
+            for k in tot:
+                tot[k] += b.get(k, 0)
+        return tot
+
+    def never_hbm_bytes(self) -> int:
+        """The per-layer baseline: every boundary through device memory,
+        every pool a separate read and write."""
+        return sum(b["total"] for b in self.layer_exec_bytes)
+
+    def executed_ratio(self) -> float:
+        return self.never_hbm_bytes() \
+            / max(self.executed_hbm_bytes()["total"], 1)
+
+    def describe(self) -> str:
+        """The groups in order: ``conv1..conv2 (T=8, B=16) | conv3 | …``
+        (T, B: the tile's pooled rows and columns of its last stage)."""
+        return " | ".join(
+            f"{g.label} (T={g.strip_rows}, B={g.band_cols})" if g.fused
+            else g.label for g in self.groups)
+
+    def summary(self) -> dict:
+        return dict(groups=len(self.groups), max_depth=self.depth,
+                    fused_layers=sum(g.depth for g in self.fused_groups),
+                    executed_bytes=self.executed_hbm_bytes()["total"],
+                    per_layer_bytes=self.never_hbm_bytes(),
+                    executed_ratio=self.executed_ratio(),
+                    flops=self.flops, executed_flops=self.executed_flops)
+
+
+@functools.lru_cache(maxsize=64)
+def _build_plan(layers, n, max_depth):
+    layers = list(layers)
+    pools = list(infer_pools(layers))
+    exec_bytes = per_layer_exec_bytes(layers, pools, n=n)
+    cap = min(len(layers) if max_depth is None else max(1, max_depth),
+              MAX_FUSED_STAGES)
+
+    def group_cost(i, j):
+        """Best group over layers[i..j] and its bytes, or (None, inf)."""
+        if j > i:
+            if not all(_layer_eligible(layers[k]) for k in range(i, j + 1)):
+                return None, math.inf
+            g = FusedGroupPlan._tune_group(layers, pools, i, j - i + 1, n=n)
+            if g is None:
+                return None, math.inf
+            return g, g.hbm_bytes()["total"]
+        g = build_group(layers[i:i + 1], i, n=n, pools=pools[i:i + 1])
+        return g, exec_bytes[i]["total"]
+
+    # shortest path over layer boundaries: best[j] = least bytes for
+    # layers[0..j-1]; the all-singletons path is always legal, so the
+    # optimum never exceeds the per-layer baseline.
+    best = [0.0] + [math.inf] * len(layers)
+    choice: list = [None] * (len(layers) + 1)
+    for j in range(1, len(layers) + 1):
+        for i in range(max(0, j - cap), j):
+            g, cost = group_cost(i, j - 1)
+            if g is not None and best[i] + cost < best[j]:
+                best[j] = best[i] + cost
+                choice[j] = g
+    groups: list[FusedGroup] = []
+    j = len(layers)
+    while j > 0:
+        g = choice[j]
+        groups.append(g)
+        j = g.start
+    groups.reverse()
+    return FusedGroupPlan(groups=tuple(groups), n=n,
+                          layer_exec_bytes=exec_bytes)

@@ -165,7 +165,8 @@ class ServingEngine:
 
     @classmethod
     def for_topology(cls, topo, model, *, buckets, n_replicas: int = 1,
-                     device=None, **kw) -> "ServingEngine":
+                     device=None, fused: bool = False,
+                     **kw) -> "ServingEngine":
         """Build an engine serving a conv topology (``list[ConvLayer]``)
         through ``models.layers.TrimCNN``.
 
@@ -173,11 +174,17 @@ class ServingEngine:
         arrays, e.g. ``convert.params_from_jax``), moved to ``device``
         (default ``"cuda"``; raises without a GPU).  Each replica takes a
         numpy batch, runs it on the device under ``torch.inference_mode``
-        and returns numpy.  ``n_replicas`` replicas share the module."""
+        and returns numpy.  ``n_replicas`` replicas share the module.
+        ``fused=True`` serves fused residency groups, planned per
+        bucket; a failing group raises, nothing demotes."""
         topo = list(topo)
         dev = resolve_device(device)
         if not isinstance(model, TrimCNN):
             model = TrimCNN(topo, params_from_jax(model, device=dev))
+        if fused:
+            model = TrimCNN(topo, model.tree(), activation=model.activation,
+                            impl=model.impl, dataflow=model.dataflow,
+                            fused=True)
         model = model.to(dev)
 
         def fn(batch):
@@ -291,7 +298,8 @@ class ServingEngine:
     def prewarm(self) -> dict:
         """Make every (bucket, replica) path hot before the first
         request: one throwaway forward per bucket per replica, which
-        builds the kernels on first use.  Returns the seconds of each
+        builds the kernels on first use (and, serving fused groups,
+        plans each bucket's groups).  Returns the seconds of each
         bucket's first forward (``{bucket: seconds}``)."""
         seconds: dict = {}
         if self.input_shape is not None:

@@ -4,8 +4,9 @@ Every kernel source under ``csrc/`` is compiled by ``nvcc`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds).  The build runs at first use, into
 ``build/repro_torch/`` at the root of the checkout (listed in
-``.gitignore``); a library's file name carries a hash of its source and
-flags, so an edited source is never served by a stale build.
+``.gitignore``); a library's file name carries a hash of its source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source is
+never served by a stale build.
 """
 
 from __future__ import annotations
@@ -27,10 +28,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _CONV_ARGS = [_P, _P, _P, _P] + [_I] * 17 + [_P]
 _WGRAD_ARGS = [_P, _P, _P, _P] + [_I] * 13 + [_P]
+_FUSED_ARGS = [_P, _P, _P, _P, _I, _P]
 SOURCES = {
     "trim_conv2d": {"trim_conv2d_carry": _CONV_ARGS,
                     "trim_conv2d_halo": _CONV_ARGS},
     "trim_conv2d_wgrad": {"trim_conv2d_wgrad": _WGRAD_ARGS},
+    "trim_conv2d_fused": {"trim_conv2d_fused": _FUSED_ARGS},
 }
 
 _lock = threading.Lock()
@@ -48,7 +51,9 @@ def nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    # the shared headers too: an edited epilogue must rebuild every source
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

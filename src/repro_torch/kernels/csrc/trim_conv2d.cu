@@ -47,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "epilogue.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;        // threads per block
@@ -63,18 +65,8 @@ struct ConvArgs {
   int tile_cout;     // output channels per block
   int threads_cout;  // threads along C_out (tile_cout = threads_cout * cpt)
   int n_strips, n_bands, co_tiles;
-  int activation;    // 0 none, 1 relu, 2 gelu (tanh form), 3 silu
+  int activation;    // activate()'s code (epilogue.cuh)
 };
-
-__device__ __forceinline__ float activate(float v, int act) {
-  if (act == 1) return v < 0.0f ? 0.0f : v;
-  if (act == 2) {
-    const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-    return 0.5f * v * (1.0f + tanhf(c * (v + 0.044715f * v * v * v)));
-  }
-  if (act == 3) return v / (1.0f + expf(-v));
-  return v;
-}
 
 inline size_t smem_bytes(const ConvArgs& a) {
   const int cin_pg = a.cin / a.groups;

@@ -141,7 +141,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
         raise NotImplementedError(
             f"K={k} > {MAX_NATIVE_K} needs the adder-tree kernel tiling "
             "(ROADMAP Queue 1: K > 8 adder tree and AlexNet, after the "
-            "fused-group and LM-stack slices)")
+            "LM-stack slice)")
     pads = conv_pads(x.shape[1], x.shape[2], k, stride, padding)
     operands = (x, w) if bias is None else (x, w, bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
@@ -165,3 +165,22 @@ def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     return conv2d(x, w, stride=stride, padding=padding, impl=impl,
                   feature_group_count=x.shape[-1], bias=bias,
                   activation=activation, dataflow=dataflow)
+
+
+def conv_pool_chain(x: torch.Tensor, weights, biases, steps, *,
+                    activation: str | None = "relu", impl: str = "trim",
+                    dataflow: str | None = None) -> torch.Tensor:
+    """Per-layer execution of a conv→[max-pool] chain: for each ``(stride,
+    padding, groups, pool_stride, pool_window)`` of ``steps``, one
+    :func:`conv2d` (bias + activation fused) and then a separate max pool
+    (none for ``(1, 1)``).  The one per-layer chain of the port: a
+    topology's per-layer forward and the fused groups' oracle and
+    recompute backward both run it."""
+    for w, b, (stride, padding, groups, ps, pw) in zip(weights, biases,
+                                                        steps):
+        x = conv2d(x, w, stride=stride, padding=padding, impl=impl,
+                   feature_group_count=groups, bias=b, activation=activation,
+                   dataflow=dataflow)
+        if ps > 1 or pw > 1:      # (1, w>1): stride-1 overlapping pool
+            x = ref.maxpool2d(x, ps, pw)
+    return x

@@ -31,8 +31,9 @@ ACTIVATION_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3}
 
 # Kernel launches: each successful launch of a forward dataflow adds one to
 # its key (input gradients included: they run the forward kernel), each
-# weight-gradient call one to "wgrad".
-LAUNCHES = {"carry": 0, "halo": 0, "wgrad": 0}
+# weight-gradient call one to "wgrad", each fused-group launch
+# (``kernels/trim_conv2d_fused.py``) one to "fused".
+LAUNCHES = {"carry": 0, "halo": 0, "wgrad": 0, "fused": 0}
 
 
 def reset_launch_counts() -> None:

@@ -20,6 +20,8 @@ VGG-16 on the card:
       --scale 1 --requests 32 --buckets 1,2,4,8 --rate 200
   PYTHONPATH=src python -m repro_torch.launch.serve_conv --smoke \
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve_conv --smoke --fused \
+      --device cpu
 """
 
 from __future__ import annotations
@@ -118,6 +120,7 @@ class AsyncConvServer:
 # ---------------------------------------------------------------------------
 
 def _build_engine(args):
+    from repro_torch.core.fuse_plan import FusedGroupPlan
     from repro_torch.core.model import ConvLayer
     from repro_torch.core.netplan import network_layers, scale_layers
     from repro_torch.models.layers import TrimCNN
@@ -136,12 +139,16 @@ def _build_engine(args):
     buckets = tuple(int(b) for b in args.buckets.split(","))
     engine = ServingEngine.for_topology(
         topo, model, buckets=buckets, n_replicas=args.replicas,
-        device=args.device, max_queue=args.max_queue)
+        device=args.device, fused=args.fused, max_queue=args.max_queue)
     t0 = time.perf_counter()
     engine.prewarm()
     print(f"prewarm: {len(buckets)} buckets x {args.replicas} replicas "
           f"({len(topo)} layers, kernels built on first use) in "
           f"{time.perf_counter() - t0:.2f}s")
+    if args.fused:
+        for b in engine.grid.buckets:
+            print(f"  fused groups at batch {b}: "
+                  f"{FusedGroupPlan.build(topo, n=b).describe()}")
     return engine, topo
 
 
@@ -191,6 +198,9 @@ def main(argv=None) -> None:
                     help="channel divisor for --net")
     ap.add_argument("--dataflow", default=None, choices=["carry", "halo"],
                     help="conv kernel dataflow (default: carry)")
+    ap.add_argument("--fused", action="store_true",
+                    help="serve fused residency groups (conv->[pool]->conv "
+                         "chains in one launch; DESIGN.md §8)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain PyTorch versions)")
@@ -209,6 +219,9 @@ def main(argv=None) -> None:
     ap.add_argument("--smoke", action="store_true",
                     help="tiny end-to-end run (CI)")
     args = ap.parse_args(argv)
+    if args.fused and args.dataflow == "halo":
+        ap.error("--fused runs the fused kernel and the carry kernel; "
+                 "it does not take --dataflow halo")
     if args.smoke:
         args.net, args.requests = None, min(args.requests, 8)
         args.rate = min(args.rate, 500.0)

@@ -16,10 +16,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.core.fuse_plan import FusedGroupPlan
 from repro_torch.core.netplan import infer_pools, layer_kernel_problem
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import maxpool2d
+from repro_torch.kernels.trim_conv2d_fused import fused_group_apply
 from repro_torch.models.base import Param, init_params
 
 
@@ -124,6 +125,20 @@ def head_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.cat(rows)
 
 
+def _apply_layer_range(p: dict, layers_list, pools, x: torch.Tensor, lo: int,
+                       hi: int, *, activation, impl, dataflow) -> torch.Tensor:
+    """Layers ``lo..hi-1`` on the per-layer path
+    (``ops.conv_pool_chain``): one kernel launch per conv (bias +
+    activation fused), then the layer's max pool."""
+    idx = range(lo, hi)
+    steps = [(layers_list[i].stride, layer_kernel_problem(layers_list[i])[3],
+              layers_list[i].groups, *pools[i]) for i in idx]
+    return ops.conv_pool_chain(x, [p[f"conv{i}"]["w"] for i in idx],
+                               [p[f"conv{i}"].get("b") for i in idx], steps,
+                               activation=activation, impl=impl,
+                               dataflow=dataflow)
+
+
 def cnn_apply_from_layers(p: dict, layers_list, x: torch.Tensor, *,
                           activation: str | None = "relu",
                           impl: str = "trim", dataflow: str | None = None,
@@ -132,19 +147,43 @@ def cnn_apply_from_layers(p: dict, layers_list, x: torch.Tensor, *,
     one kernel launch per conv layer (bias + activation fused), with the
     max pools inferred from the spatial dims between layers
     (``core.netplan.infer_pools``).  Returns class logits when the tree
-    has a head, else the final feature map."""
-    if fused:
-        raise NotImplementedError(
-            "fused residency groups are not ported yet (ROADMAP Queue 1, "
-            "item 3: fused groups)")
-    for i, (l, (ps, pw)) in enumerate(zip(layers_list,
-                                          infer_pools(layers_list))):
-        _, _, _, padding = layer_kernel_problem(l, n=x.shape[0])
-        x = conv2d_apply(p[f"conv{i}"], x, stride=l.stride, padding=padding,
-                         groups=l.groups, activation=activation, impl=impl,
-                         dataflow=dataflow)
-        if ps > 1 or pw > 1:      # (1, w>1): stride-1 overlapping pool
-            x = maxpool2d(x, ps, pw)
+    has a head, else the final feature map.
+
+    ``fused=True`` runs each residency group of the
+    :class:`~repro_torch.core.fuse_plan.FusedGroupPlan` built for ``x``'s
+    batch as one launch of the fused kernel, interior activations in
+    shared memory; depth-1 groups run the per-layer path, and the output
+    is bitwise the same either way.  A group that fails raises: nothing
+    falls back to per-layer execution.  The fused path needs raw
+    ``{"w", "b"}`` conv params.
+    """
+    layers_list = list(layers_list)
+    pools = list(infer_pools(layers_list))
+    kw = dict(activation=activation, impl=impl, dataflow=dataflow)
+    if not fused:
+        x = _apply_layer_range(p, layers_list, pools, x, 0,
+                               len(layers_list), **kw)
+    else:
+        if impl != "trim":
+            raise ValueError(f"fused execution runs the TrIM kernels; "
+                             f"impl={impl!r} needs fused=False")
+        for g in FusedGroupPlan.build(layers_list, n=x.shape[0]).groups:
+            lo, hi = g.start, g.start + g.depth
+            if not g.fused:
+                x = _apply_layer_range(p, layers_list, pools, x, lo, hi, **kw)
+                continue
+            weights, biases = [], []
+            for i in range(lo, hi):
+                lp = p[f"conv{i}"]
+                if "packed" in lp:
+                    raise ValueError(
+                        f"conv{i}: fused execution needs raw conv params "
+                        "({'w', 'b'}); packed trees freeze the per-layer "
+                        "kernel layout")
+                weights.append(lp["w"])
+                biases.append(lp.get("b"))
+            x = fused_group_apply(x, weights, biases, group=g,
+                                  activation=activation)
     if "head" not in p:
         return x
     return head_apply(p["head"], x)
@@ -169,17 +208,21 @@ class TrimCNN(nn.Module):
     (``{"conv{i}": {"w", "b"}, "head": {"w", "b"}}``, e.g. from
     :meth:`random` or ``repro_torch.convert.params_from_jax``); the
     module lives on their device.  ``dataflow`` picks the conv kernel
-    (``None`` is ``"carry"``).  The parameters are frozen for serving;
+    (``None`` is ``"carry"``); ``fused=True`` runs fused residency
+    groups (:func:`cnn_apply_from_layers`).  The parameters are frozen
+    for serving;
     ``trainable=True`` registers them with ``requires_grad``, so a loss on
     :meth:`forward` back-propagates through the TrIM backward kernels.
     """
 
     def __init__(self, layers_list, params: dict, *,
                  activation: str | None = "relu", impl: str = "trim",
-                 dataflow: str | None = None, trainable: bool = False):
+                 dataflow: str | None = None, trainable: bool = False,
+                 fused: bool = False):
         super().__init__()
         self.layers_list = list(layers_list)
         self.activation, self.impl, self.dataflow = activation, impl, dataflow
+        self.fused = fused
         self.params = nn.ModuleDict({k: _Leaf(v, trainable)
                                      for k, v in params.items()})
 
@@ -203,7 +246,8 @@ class TrimCNN(nn.Module):
         trainer steps: ``launch.train_cnn.train_step``'s ``apply_fn``)."""
         return cnn_apply_from_layers(params, self.layers_list, x,
                                      activation=self.activation,
-                                     impl=self.impl, dataflow=self.dataflow)
+                                     impl=self.impl, dataflow=self.dataflow,
+                                     fused=self.fused)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply_tree(self.tree(), x)

@@ -14,7 +14,10 @@ each activation.  Tolerance: 1e-4 * max(1, max|plain|) (f32 sums in
 another order); carry and halo must agree bitwise.  The weight-gradient
 kernel is held against its plain version within 1e-4 * max|plain| and
 must repeat bitwise; the input gradient (the forward kernel on the
-dilated cotangent) and the autograd conv against the ``ref`` oracle.
+dilated cotangent) and the autograd conv against the ``ref`` oracle.  The
+fused-group kernel is held against its plain version at the same
+tolerance, must repeat bitwise, and must equal the per-layer carry chain
+bitwise, forward and (through ``fused_group_apply``) backward.
 """
 
 import pytest
@@ -192,3 +195,86 @@ def test_autograd_conv_matches_ref_oracle(cuda):
     for got, want in zip(grads("trim"), grads("ref")):
         assert (got - want).abs().max().item() <= \
             TOL * want.abs().max().item()
+
+
+# Fused groups: (layers as ConvLayer args, activation, biases, tiles).
+# The CPU tests' chains (even pool, 'valid' strided stage with an
+# overlapping 3/2 pool and a pointwise stage, pool-free), a wide chain
+# whose C_out tiles and 32-channel weight chunks are ragged, and a
+# four-stage chain through two pools.
+FUSED_CASES = [
+    ([("c0", 12, 3, 4, 3, 1, 1), ("c1", 12, 4, 6, 3, 1, 1),
+      ("c2", 6, 6, 8, 3, 1, 1)], "relu", True, [(1, 1), (2, 3), (6, 6)]),
+    ([("s0", 17, 3, 4, 5, 2, 0), ("s1", 3, 4, 8, 1, 1, 0),
+      ("s2", 3, 8, 8, 3, 1, 1)], "gelu", True, [(1, 1), (2, 3), (3, 3)]),
+    ([("p0", 9, 2, 4, 3, 1, 1), ("p1", 9, 4, 4, 3, 1, 1),
+      ("p2", 9, 4, 6, 3, 1, 1)], "silu", False, [(1, 2), (4, 9), (9, 9)]),
+    ([("a", 20, 3, 70, 3, 1, 1), ("b", 20, 70, 40, 3, 1, 1),
+      ("c", 10, 40, 33, 3, 1, 1)], "relu", True, [(2, 3), (5, 10)]),
+    ([("d0", 16, 8, 16, 3, 1, 1), ("d1", 8, 16, 32, 3, 1, 1),
+      ("d2", 4, 32, 32, 3, 1, 1), ("d3", 4, 32, 64, 3, 1, 1)], None, True,
+     [(1, 1), (2, 4)]),
+]
+
+
+@pytest.mark.parametrize("case", FUSED_CASES,
+                         ids=[str(i) for i in range(len(FUSED_CASES))])
+def test_fused_kernel_matches_plain_and_the_per_layer_chain(cuda, case):
+    from repro_torch.core.fuse_plan import build_group
+    from repro_torch.core.model import ConvLayer
+    from repro_torch.kernels import trim_conv2d_fused as tfu
+    spec, act, with_bias, tiles = case
+    topo = [ConvLayer(*a) for a in spec]
+    gen = torch.Generator(device="cuda").manual_seed(len(FUSED_CASES))
+    x = torch.randn((2, topo[0].ifmap, topo[0].ifmap, topo[0].in_channels),
+                    generator=gen, device=cuda)
+    ws = [torch.randn((l.kernel, l.kernel, l.in_channels, l.out_channels),
+                      generator=gen, device=cuda) / (l.kernel * l.in_channels
+                                                     ** 0.5) for l in topo]
+    bs = [torch.randn((l.out_channels,), generator=gen, device=cuda)
+          if with_bias else None for l in topo]
+    chain = None
+    for t, b in tiles:
+        g = build_group(topo, 0, n=2, strip_rows=t, band_cols=b)
+        before = tc.LAUNCHES["fused"]
+        one = tfu.trim_conv2d_fused(x, ws, bs, group=g, activation=act)
+        two = tfu.trim_conv2d_fused(x, ws, bs, group=g, activation=act)
+        torch.cuda.synchronize()
+        assert tc.LAUNCHES["fused"] == before + 2
+        plain = tfu.trim_conv2d_fused_plain(x, ws, bs, group=g,
+                                            activation=act)
+        if chain is None:
+            chain = tfu.reference_chain(x, ws, bs, group=g, activation=act)
+        assert one.shape == plain.shape == g.out_shape
+        assert (one - plain).abs().max().item() <= \
+            TOL * max(1.0, plain.abs().max().item()), (t, b)
+        assert torch.equal(one, two), (t, b)
+        assert torch.equal(one, chain), (t, b)
+
+
+def test_fused_group_gradients_equal_the_per_layer_chain(cuda):
+    from repro_torch.core.fuse_plan import build_group
+    from repro_torch.core.model import ConvLayer
+    from repro_torch.kernels import trim_conv2d_fused as tfu
+    topo = [ConvLayer("c0", 12, 3, 8, 3, 1, 1),
+            ConvLayer("c1", 12, 8, 16, 3, 1, 1),
+            ConvLayer("c2", 6, 16, 8, 3, 1, 1)]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    g = build_group(topo, 0, n=2, strip_rows=2, band_cols=3)
+    x = torch.randn((2, 12, 12, 3), generator=gen, device=cuda)
+    ws = [0.3 * torch.randn((3, 3, l.in_channels, l.out_channels),
+                            generator=gen, device=cuda) for l in topo]
+    bs = [torch.randn((l.out_channels,), generator=gen, device=cuda)
+          for l in topo]
+    gy = torch.randn(g.out_shape, generator=gen, device=cuda)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, *ws, *bs)]
+        y = fn(leaves[0], leaves[1:4], leaves[4:], group=g)
+        return y, torch.autograd.grad(y, leaves, gy)
+
+    yf, fused = grads(tfu.fused_group_apply)
+    yc, chain = grads(tfu.reference_chain)
+    assert torch.equal(yf, yc)
+    for a, b in zip(fused, chain):
+        assert torch.equal(a, b)

@@ -3,8 +3,9 @@
 * no module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
   ``jax`` or anything of the JAX package ``repro`` (an AST scan);
 * an entry point given no device raises when PyTorch sees no GPU;
-* the kernel wrapper raises on tensors its kernel cannot take (the CUDA
-  cases themselves run in ``tests/test_torch_cuda.py`` on a GPU host);
+* the kernel wrappers raise on tensors their kernels cannot take (the
+  CUDA cases themselves run in ``tests/test_torch_cuda.py`` on a GPU
+  host), and their plain versions count no launch;
 * ``chip_smoke.py`` exits non-zero, printing no result, without a GPU.
 """
 
@@ -17,14 +18,18 @@ import sys
 import pytest
 import torch
 
+from repro_torch.core.fuse_plan import build_group
 from repro_torch.core.model import ConvLayer
 from repro_torch.core.serving import ServingEngine
 from repro_torch.kernels import build
 from repro_torch.kernels import trim_conv2d as tc
+from repro_torch.kernels import trim_conv2d_fused as tfu
 from repro_torch.models.layers import TrimCNN
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOPO = [ConvLayer("a", 8, 3, 4, 3, padding=1)]
+FUSED_TOPO = [ConvLayer("f0", 6, 2, 3, 3, padding=1),
+              ConvLayer("f1", 6, 3, 2, 3, padding=1)]
 
 
 def _port_files():
@@ -86,6 +91,31 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
         tc.trim_conv2d_weight_grad(x.double(), g.double(), kernel_size=3)
 
 
+def test_fused_wrapper_rejects_what_the_kernel_cannot_take():
+    g = build_group(FUSED_TOPO, 0, n=1, strip_rows=2, band_cols=2)
+    x = torch.zeros((1, 6, 6, 2))
+    ws = [torch.zeros((3, 3, 2, 3)), torch.zeros((3, 3, 3, 2))]
+    bs = [torch.zeros(3), torch.zeros(2)]
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tfu.trim_conv2d_fused(x.to("meta"), [w.to("meta") for w in ws],
+                              [None, None], group=g)
+    with pytest.raises(ValueError, match="share"):
+        tfu.trim_conv2d_fused(x, [ws[0], ws[1].to("meta")], bs, group=g)
+    with pytest.raises(TypeError):
+        tfu.trim_conv2d_fused(x.double(), ws, bs, group=g)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfu.trim_conv2d_fused(
+            x, [ws[0], torch.zeros((3, 3, 2, 3)).transpose(2, 3)], bs,
+            group=g)
+    with pytest.raises(ValueError, match="stage-0"):
+        tfu.trim_conv2d_fused(torch.zeros((2, 6, 6, 2)), ws, bs, group=g)
+    with pytest.raises(ValueError, match="planned"):
+        tfu.trim_conv2d_fused(x, ws[::-1], bs, group=g)
+    # the wrapper itself is not differentiable (fused_group_apply is)
+    assert tfu.trim_conv2d_fused(
+        x, [w.requires_grad_() for w in ws], bs, group=g).grad_fn is None
+
+
 def test_plain_path_does_not_count_launches():
     tc.reset_launch_counts()
     tc.trim_conv2d(torch.ones((1, 6, 6, 2)), torch.ones((3, 3, 2, 2)),
@@ -95,7 +125,11 @@ def test_plain_path_does_not_count_launches():
     tc.trim_conv2d_input_grad(torch.ones((1, 6, 6, 2)),
                               torch.ones((3, 3, 2, 2)), x_shape=(1, 6, 6, 2),
                               pad=1)
-    assert tc.LAUNCHES == {"carry": 0, "halo": 0, "wgrad": 0}
+    tfu.fused_group_apply(
+        torch.ones((1, 6, 6, 2)),
+        [torch.ones((3, 3, 2, 3)), torch.ones((3, 3, 3, 2))], [None, None],
+        group=build_group(FUSED_TOPO, 0, n=1, strip_rows=2))
+    assert tc.LAUNCHES == {"carry": 0, "halo": 0, "wgrad": 0, "fused": 0}
 
 
 def test_build_raises_without_nvcc(monkeypatch):

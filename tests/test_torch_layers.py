@@ -144,8 +144,15 @@ def test_random_init_is_seeded_and_scaled():
 
 
 def test_fused_is_not_ported_yet():
+    """``fused=True`` used to raise; it now runs the plan's fused groups
+    (``tests/test_torch_fused.py`` holds them against the JAX package)
+    and agrees with the per-layer path.  The name is kept."""
     topo = [ConvLayer(*a) for a in SMOKE]
     model = layers.TrimCNN.random(topo, n_classes=10, device="cpu")
-    with pytest.raises(NotImplementedError, match="fused"):
-        layers.cnn_apply_from_layers(model.tree(), topo,
-                                     torch.zeros((1, 16, 16, 3)), fused=True)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 16, 16, 3)).astype(np.float32))
+    with torch.no_grad():
+        fused = layers.cnn_apply_from_layers(model.tree(), topo, x,
+                                             fused=True)
+        per_layer = layers.cnn_apply_from_layers(model.tree(), topo, x)
+    _close(fused.numpy(), per_layer.numpy())
