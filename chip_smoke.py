@@ -58,7 +58,32 @@ Phases, each raising on failure (each prints its seconds):
 9. trainer — ``launch.train_cnn.train`` at the example's settings (50
    steps, batch 16): the mean of the last five losses below the first
    five's minus 0.1;
-10. the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
+10. attention kernel check — the flash-attention kernel against its plain
+   version (``ATTN_TOLERANCE``) at (a) the LM prefill's shape, B=2,
+   L=4096, Hq=16, Hkv=2, D=128, causal; (b) a 17-query continuation of
+   4096 keys; (c) recurrentgemma-2b's geometry, Hq=10, Hkv=1, D=256,
+   window 2048, soft cap 30; (d) (a) without the causal mask; (e) ragged
+   Lq=17 / Lk=47; each one's time beside the plain version's and the
+   bound, and for (a) ``F.scaled_dot_product_attention`` (the yardstick;
+   the port never calls it);
+11. LM prefill — full-width qwen2.5-3b (36 layers, 3.4 B parameters drawn
+   on the card) through ``steps.make_prefill_step`` on 2 x 4096 seeded
+   tokens, reduced from the JAX ``prefill_32k`` plan (32 x 32768, whose
+   f32 logits alone would take 637 GB): with ``attn_impl="flash"``
+   exactly 36 kernel launches a forward, finite logits, ms per forward and
+   peak memory; with ``"ref"`` none.  Under the JAX initialiser the
+   36-layer function is chaotic (f32 summation differences grow ~10x a
+   layer, PERF.md §6), so the whole-depth flash-vs-ref difference is
+   printed, and what is checked is (i) every layer's attention, flash
+   against ref on the flash forward's own activations
+   (``LM_LAYER_TOLERANCE``), and (ii) the logits and next tokens of the
+   depth-1 cut of the same model (``LM_TOLERANCE``);
+12. LM serve — ``launch.serve.serve_batch`` at full width, batch 4, prompt
+   16, gen 32: tokens/s; the decode path (KV caches, ``decode_attention``,
+   no kernel) against the flash prefill, position by position, on a
+   256-token prompt at the depth-1 cut (checked, ``LM_TOLERANCE``) and at
+   the serve prompt's last position at full depth (printed);
+13. the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without a result when no GPU is visible.
 """
@@ -96,6 +121,23 @@ WGRAD_TOLERANCE = 1e-4
 # in one of the two forwards, each moving one cotangent entry by O(|g|);
 # that reads 1e-4-1e-3 of max|ref| per leaf and is printed, not checked.
 GRAD_TOLERANCE = 1e-4
+# Attention kernel vs its plain version: of max|plain|.  Both run the
+# online softmax over the same 64-key tiles in f32 and differ only in the
+# order of the 128/256-term dot products and the row sums (a few ulp of
+# each score; outputs of N(0, 1) inputs are averages of <= 4096 values).
+ATTN_TOLERANCE = 1e-5
+# One layer's attention output, flash vs ref on the same input: of
+# max|ref|.  The ref oracle sums scores with cuBLAS and normalises with one
+# softmax; with the JAX initialiser's peaked logits (std ~360 at full
+# width, |s| up to ~1500) a score's few-ulp difference (~1e-4) moves p by
+# up to ~1e-5 where two keys nearly tie.
+LM_LAYER_TOLERANCE = 1e-4
+# Logits of the depth-1 cut, flash vs ref and decode vs prefill: of
+# max|logits|; one layer's attention difference through the MLP and head.
+LM_TOLERANCE = 1e-4
+PREFILL_BATCH, PREFILL_SEQ = 2, 4096
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32
+CROSS_PROMPT = 256          # decode-vs-prefill prompt at the depth-1 cut
 TRAIN_BATCH = 8
 TRAIN_STEPS = 3
 REQUESTS = 48               # carry- and fused-kernel serving traces
@@ -442,7 +484,7 @@ def branch_matched_oracle(topo, params, x):
     import torch.nn.functional as F
     from repro_torch.core.netplan import infer_pools, layer_kernel_problem
     from repro_torch.kernels import ops
-    from repro_torch.models.layers import head_apply
+    from repro_torch.models.layers import cnn_head_apply
 
     def run(p, h, impl, masks=None, picks=None, rec=None):
         j = 0
@@ -466,7 +508,7 @@ def branch_matched_oracle(topo, params, x):
                     hn = hn.flatten(2).gather(2, ind.flatten(2)).view_as(ind)
                 j += 1
                 h = hn.permute(0, 2, 3, 1).contiguous()
-        return head_apply(p["head"], h)
+        return cnn_head_apply(p["head"], h)
 
     trim, plain = {"relu": [], "pool": []}, {"relu": [], "pool": []}
     with torch.no_grad():
@@ -703,6 +745,320 @@ def serve(n_requests, dataflow, model, xs, expect=None, fused=False):
     return results, launches, forwards, s
 
 
+def attention_cases():
+    """(name, b, lq, lk, hq, hkv, d, causal, soft_cap, window)."""
+    return [("a_prefill", 2, 4096, 4096, 16, 2, 128, True, None, None),
+            ("b_continue", 2, 17, 4096, 16, 2, 128, True, None, None),
+            ("c_rgemma", 2, 4096, 4096, 10, 1, 256, True, 30.0, 2048),
+            ("d_noncausal", 2, 4096, 4096, 16, 2, 128, False, None, None),
+            ("e_ragged", 2, 17, 47, 16, 2, 128, True, None, None)]
+
+
+def attention_bound(b, lq, lk, hq, hkv, d, causal, window):
+    """(ms, bound_by, flops, bytes): 4 D FLOPs per unmasked (query, key)
+    pair over 67 TFLOP/s against q, k, v read once and o written once
+    over 3.35 TB/s."""
+    q_pos = np.arange(lq) + lk - lq
+    hi = np.minimum(q_pos + 1, lk) if causal else np.full(lq, lk)
+    lo = np.maximum(q_pos - window + 1, 0) if window else np.zeros(lq)
+    pairs = int(np.maximum(hi - lo, 0).sum())
+    flops = 4 * d * pairs * b * hq
+    nbytes = 4 * d * b * (2 * lq * hq + 2 * lk * hkv)
+    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes)
+
+
+def check_attention(torch):
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    print("attention kernel check (times in ms, device events):")
+    print(f"  {'case':12s} {'max_err':>9s} {'tol':>8s} {'kernel':>9s} "
+          f"{'plain':>9s} {'sdpa':>9s} {'bound':>8s} by         TFLOP/s")
+    for name, b, lq, lk, hq, hkv, d, causal, cap, win in attention_cases():
+        q = torch.randn((b, lq, hq, d), generator=gen, device="cuda")
+        k = torch.randn((b, lk, hkv, d), generator=gen, device="cuda")
+        v = torch.randn((b, lk, hkv, d), generator=gen, device="cuda")
+        kw = dict(causal=causal, soft_cap=cap, window=win)
+        out = fa.flash_attention(q, k, v, **kw)
+        plain = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (out - plain).abs().max().item()
+        tol = ATTN_TOLERANCE * plain.abs().max().item()
+        if out.shape != plain.shape or not np.isfinite(err) or err > tol:
+            raise AssertionError(f"attention {name}: max|kernel - plain| = "
+                                 f"{err} > {tol}")
+        t = {"kernel": time_ms(torch, lambda: fa.flash_attention(
+                q, k, v, **kw)),
+             "plain": time_ms(torch, lambda: fa.flash_attention_plain(
+                 q, k, v, **kw), reps=3),
+             "library": None}
+        if name == "a_prefill":   # the yardstick: one PyTorch call
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            sdpa = F.scaled_dot_product_attention
+            t["library"] = time_ms(torch, lambda: sdpa(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+        bound, by, flops, _ = attention_bound(b, lq, lk, hq, hkv, d, causal,
+                                              win)
+        rows.append(dict(name=name, err=err, bound=bound, by=by, **t))
+        lib = "-" if t["library"] is None else f"{t['library']:9.3f}"
+        print(f"  {name:12s} {err:9.2e} {tol:8.1e} {t['kernel']:9.3f} "
+              f"{t['plain']:9.3f} {lib:>9s} {bound:8.3f} {by:10s} "
+              f"{flops / t['kernel'] / 1e9:7.2f}")
+        del q, k, v, out, plain
+    torch.cuda.empty_cache()
+    return rows
+
+
+def same_tokens(picked, want, ref_logits, tol) -> bool:
+    """Greedy tokens equal, except where the reference's top two logits
+    lie within ``2 * tol`` (a tie the tolerance cannot resolve)."""
+    got = ref_logits.gather(1, picked[:, None])[:, 0]
+    return bool(((picked == want)
+                 | (ref_logits.amax(1) - got <= 2 * tol)).all())
+
+
+def depth_cut(params, n):
+    """The first ``n`` layers of a stacked LM parameter tree (views)."""
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[:n]
+    return {**params, "blocks": cut(params["blocks"])}
+
+
+def lm_layer_check(torch, cfg, params, tokens):
+    """Along the flash forward: each layer's attention on the kernel and
+    on the ref oracle, both on that layer's input in the flash stream
+    (checked); and the free-running ref stream's distance (printed)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cref = cfg.replace(attn_impl="ref")
+    pos = torch.arange(tokens.shape[1], device="cuda")[None]
+    worst, drift = 0.0, []
+    with torch.no_grad():
+        xf = L.embed_apply(params["tok"], tokens, cfg)
+        xr = xf.clone()
+        for i in range(cfg.n_layers):
+            pi = T.layer_slice(params["blocks"], i)
+            h = L.norm_apply(pi["ln_att"], xf, cfg)
+            af = L.attention_apply(pi["att"], h, cfg, positions=pos)
+            ar = L.attention_apply(pi["att"], h, cref, positions=pos)
+            err = ((af - ar).abs().max() / ar.abs().max()).item()
+            if not np.isfinite(err) or err > LM_LAYER_TOLERANCE:
+                raise AssertionError(f"LM layer {i}: attention on the kernel "
+                                     f"vs ref = {err:.3e} of max|ref| > "
+                                     f"{LM_LAYER_TOLERANCE}")
+            worst = max(worst, err)
+            del h, af, ar
+            xf = T.block_apply(pi, xf, cfg, positions=pos)
+            xr = T.block_apply(pi, xr, cref, positions=pos)
+            drift.append(((xf - xr).abs().max() / xr.abs().max()).item())
+    print(f"LM layer check: every layer's attention, kernel vs ref on the "
+          f"flash forward's activations, within {worst:.2e} of max|ref| "
+          f"(tol {LM_LAYER_TOLERANCE:g}); free-running flash vs ref residual "
+          f"stream, max|diff| / max|ref| after layers 1, 2, 4, 8, 16, 36: "
+          + ", ".join(f"{drift[i - 1]:.1e}" for i in (1, 2, 4, 8, 16, 36)))
+    return worst
+
+
+def lm_prefill(torch):
+    """Full-width qwen2.5-3b prefill (the LM main path) and its checks.
+    Returns what lm_serve and the kernel line need."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+
+    cfg = registry.get("qwen2.5-3b").CONFIG
+    assert cfg.attn_impl == "flash"
+    t0 = time.perf_counter()
+    params = init_params(api.params(cfg), torch.Generator(device="cuda")
+                         .manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    print(f"LM: {cfg.name} full width, {registry.count_params(cfg):,} "
+          f"parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ))).cuda()
+    batch = {"tokens": tokens}
+    prefill = steps.make_prefill_step(cfg)
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        logits, nxt = prefill(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = fa.LAUNCHES["flash_attention"]
+    if launches != 2 * cfg.n_layers:
+        raise AssertionError(f"LM prefill: {launches} flash launches in 2 "
+                             f"forwards, want {cfg.n_layers} each")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if tuple(logits.shape) != (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"LM prefill: logits {tuple(logits.shape)} "
+                             "not finite or of the wrong shape")
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    ref_logits, ref_nxt = steps.make_prefill_step(
+        cfg.replace(attn_impl="ref"))(params, batch)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    if fa.LAUNCHES["flash_attention"] != 0:
+        raise AssertionError("LM prefill: the ref forward launched the kernel")
+    drift = ((logits - ref_logits).abs().max()
+             / ref_logits.abs().max()).item()
+    print(f"LM prefill: {PREFILL_BATCH} x {PREFILL_SEQ} tokens, flash "
+          f"{times[1]:.1f} ms per forward (first {times[0]:.1f} ms), "
+          f"{cfg.n_layers} kernel launches each; ref {ref_ms:.1f} ms, 0 "
+          f"launches; peak device memory {peak:.2f} GiB (flash forwards); "
+          f"whole-depth logits flash vs ref max|diff| / max|ref| "
+          f"{drift:.2e}, next tokens {nxt.tolist()} vs {ref_nxt.tolist()} "
+          "(printed: the 36-layer function is chaotic under this init)")
+    del logits, ref_logits
+    torch.cuda.empty_cache()
+
+    layer_err = lm_layer_check(torch, cfg, params, tokens)
+
+    c1, p1 = cfg.replace(n_layers=1), depth_cut(params, 1)
+    l1, n1 = steps.make_prefill_step(c1)(p1, batch)
+    r1, m1 = steps.make_prefill_step(c1.replace(attn_impl="ref"))(p1, batch)
+    scale = r1.abs().max().item()
+    err1 = (l1 - r1).abs().max().item() / scale
+    if not np.isfinite(err1) or err1 > LM_TOLERANCE or not same_tokens(
+            n1, m1, r1[:, -1], LM_TOLERANCE * scale):
+        raise AssertionError(f"LM prefill, depth-1 cut: flash vs ref "
+                             f"{err1:.3e} of max|logits| (tol "
+                             f"{LM_TOLERANCE}), tokens {n1.tolist()} vs "
+                             f"{m1.tolist()}")
+    print(f"LM prefill, depth-1 cut of the same weights and tokens: flash vs "
+          f"ref logits within {err1:.2e} of max|logits| (tol "
+          f"{LM_TOLERANCE:g}), next tokens {n1.tolist()} == {m1.tolist()}")
+    del l1, r1
+    torch.cuda.empty_cache()
+    return dict(cfg=cfg, params=params, tokens=tokens, launches=launches,
+                ms=times[1], ref_ms=ref_ms, peak=peak, layer_err=layer_err,
+                err1=err1)
+
+
+def decode_logits(torch, cfg, params, tokens):
+    """Logits of every position, fed token by token through ``api.decode``
+    (the body of ``steps.make_decode_step``, which keeps only the token)."""
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+    b, n = tokens.shape
+    state = init_params(api.decode_state(cfg, b, n), torch.Generator(),
+                        device="cuda")
+    out = []
+    with torch.no_grad():
+        for t in range(n):
+            lg, state = api.decode(params, {
+                "tokens": tokens[:, t:t + 1],
+                "cache_len": torch.full((b,), t + 1, dtype=torch.int32,
+                                        device="cuda")}, state, cfg)
+            out.append(lg[:, 0])
+    return torch.stack(out, dim=1)
+
+
+def decode_device_share(torch, cfg, params, prompts, n=8):
+    """(device ms, wall ms, kernels) per decode step, from torch.profiler
+    over ``n`` steps after a warm-up: the kernels' summed device time
+    against the host clock."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.distributed import steps
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+    b = prompts.shape[0]
+    state = init_params(api.decode_state(cfg, b, n + 2), torch.Generator(),
+                        device="cuda")
+    decode = steps.make_decode_step(cfg)
+
+    def step(t):
+        return decode(params, state, {
+            "tokens": prompts[:, t:t + 1],
+            "cache_len": torch.full((b,), t + 1, dtype=torch.int32,
+                                    device="cuda")})
+    step(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(1, n + 1):
+            step(t)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = sum(e.device_time for e in kernels) / 1e3
+    return device / n, wall / n, len(kernels) / n
+
+
+def lm_serve(torch, lm):
+    """``serve_batch`` at full width and the decode-vs-prefill checks."""
+    from repro_torch.distributed import steps
+    from repro_torch.launch.serve import serve_batch
+
+    cfg, params = lm["cfg"], lm["params"]
+    rng = np.random.default_rng(4)
+    prompts = torch.from_numpy(rng.integers(
+        2, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).cuda()
+    serve_batch(cfg, params, prompts, 2)              # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve_batch(cfg, params, prompts, SERVE_GEN)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps_run = SERVE_PROMPT + SERVE_GEN - 1
+    if tuple(out.shape) != (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN) or \
+            not torch.equal(out[:, :SERVE_PROMPT], prompts) or \
+            int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+        raise AssertionError(f"LM serve: bad output {tuple(out.shape)}")
+    tok_s = SERVE_BATCH * SERVE_GEN / dt
+    print(f"LM serve: serve_batch batch {SERVE_BATCH}, prompt "
+          f"{SERVE_PROMPT}, gen {SERVE_GEN}: {dt * 1e3:.1f} ms for "
+          f"{steps_run} decode steps ({dt * 1e3 / steps_run:.2f} ms a step), "
+          f"{tok_s:.1f} tok/s batch-aggregate; sample "
+          f"{out[0, SERVE_PROMPT:SERVE_PROMPT + 8].tolist()}")
+
+    busy = decode_device_share(torch, cfg, params, prompts)
+    print(f"LM serve: decode step at batch {SERVE_BATCH}, torch.profiler "
+          f"over 8 steps: device busy {busy[0]:.2f} ms of {busy[1]:.2f} ms "
+          f"a step ({busy[0] / busy[1]:.1%}), {busy[2]:.0f} kernels a step"
+          if busy[0] > 0 else "LM serve: decode device share not measured "
+          "(the profiler recorded no kernel)")
+
+    # full depth, serve prompt, last position: printed
+    flash, _ = steps.make_prefill_step(cfg)(params, {"tokens": prompts})
+    dec = decode_logits(torch, cfg, params, prompts)
+    full = ((dec[:, -1] - flash[:, -1]).abs().max()
+            / flash[:, -1].abs().max()).item()
+    # depth-1 cut, 256-token prompt, every position: checked
+    c1 = cfg.replace(n_layers=1)
+    p1 = depth_cut(params, 1)
+    toks = lm["tokens"][:, :CROSS_PROMPT]
+    flash1, _ = steps.make_prefill_step(c1)(p1, {"tokens": toks})
+    dec1 = decode_logits(torch, c1, p1, toks)
+    err = ((dec1 - flash1).abs().max() / flash1.abs().max()).item()
+    if not np.isfinite(err) or err > LM_TOLERANCE:
+        raise AssertionError(f"LM decode vs flash prefill (depth-1 cut, "
+                             f"{CROSS_PROMPT} tokens): {err:.3e} of "
+                             f"max|logits| > {LM_TOLERANCE}")
+    print(f"LM decode vs flash prefill: depth-1 cut, {CROSS_PROMPT}-token "
+          f"prompt, every position within {err:.2e} of max|logits| (tol "
+          f"{LM_TOLERANCE:g}); full depth, serve prompt, last position "
+          f"{full:.2e} (printed)")
+    return dict(tok_s=tok_s, step_ms=dt * 1e3 / steps_run, cross_err=err,
+                cross_full=full, busy=busy)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -777,6 +1133,15 @@ def main() -> int:
           f"launches {dict(tc.LAUNCHES)}")
     phase.done("trainer")
 
+    arows = check_attention(torch)
+    phase.done("attention kernel check")
+    lm = lm_prefill(torch)
+    phase.done("LM prefill")
+    served = lm_serve(torch, lm)
+    del lm["params"], lm["tokens"]
+    torch.cuda.empty_cache()
+    phase.done("LM serve")
+
     vgg = [r for r in rows if r["vgg"]]
     kernels = []
     carry_total = (carry_launches["carry"] + fused_launches["carry"]
@@ -833,6 +1198,25 @@ def main() -> int:
         # F.max_pool2d chain's time is printed in the fused kernel check
         "library_ms": None,
     })
+    a = next(r for r in arows if r["name"] == "a_prefill")
+    kernels.append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:31",
+        "launches": lm["launches"],
+        "max_abs_err": max(r["err"] for r in arows),
+        "ms": a["kernel"],
+        "plain_ms": a["plain"],
+        "bound_ms": a["bound"],
+        "bound_by": a["by"],
+        "library_ms": a["library"],
+    })
+    print(f"LM: prefill {lm['ms']:.1f} ms a forward (2 x {PREFILL_SEQ}), "
+          f"serve {served['tok_s']:.1f} tok/s; flash_attention times are "
+          f"one launch at case (a), the prefill's shape (one layer); its "
+          f"launches are the {lm['launches']} of the two timed full-width "
+          f"prefill forwards")
     print("kernel times: sums over the 13 VGG-16 conv layers at batch 8 "
           "(trim_conv2d_fused: over the fused groups of the batch-8 plan, "
           f"per-layer carry chain of the same layers "

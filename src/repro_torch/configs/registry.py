@@ -1,0 +1,59 @@
+"""Architecture registry: ``--arch <id>`` resolution and parameter counts
+(the counterpart of ``repro/configs/registry.py``).
+
+The port runs the dense decoder family.  The other architectures of the
+JAX package are known by id and raise ``NotImplementedError`` naming the
+ROADMAP item that brings their family.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models import api
+from repro_torch.models.base import tree_size
+from repro_torch.models.config import ModelConfig
+
+_MODULES = ["qwen25_3b", "starcoder2_3b", "starcoder2_7b", "llama3_405b",
+            "llava_next_34b"]
+
+# arch id -> family, of the JAX package's architectures not ported yet
+NOT_PORTED = {
+    "falcon-mamba-7b": "ssm",
+    "recurrentgemma-2b": "hybrid",
+    "phi3.5-moe-42b-a6.6b": "moe",
+    "qwen3-moe-30b-a3b": "moe",
+    "seamless-m4t-large-v2": "encdec",
+}
+
+_TABLE: dict | None = None
+
+
+def _table() -> dict:
+    global _TABLE
+    if _TABLE is None:
+        mods = [importlib.import_module(f"repro_torch.configs.{m}")
+                for m in _MODULES]
+        _TABLE = {mod.ARCH_ID: mod for mod in mods}
+    return _TABLE
+
+
+def archs() -> list[str]:
+    """The ids the port runs."""
+    return list(_table())
+
+
+def get(arch_id: str):
+    """The config module (``ARCH_ID``, ``CONFIG``, ``SMOKE``) of an id."""
+    if arch_id in NOT_PORTED:
+        api.require_dense(NOT_PORTED[arch_id])
+    table = _table()
+    if arch_id not in table:
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
+                       f"{sorted([*table, *NOT_PORTED])}")
+    return table[arch_id]
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Exact parameter count from the declaration tree (no allocation)."""
+    return tree_size(api.params(cfg))

@@ -1,11 +1,15 @@
 """Move a JAX parameter tree into the port.
 
 ``params_from_jax`` takes a parameter tree of the JAX package after
-``init_params`` — ``cnn_params_from_layers``'s (``conv{i}``, ``head``) or
-``simple_cnn_params``' (``conv{i}``, ``down{i}``, ``dw``, ``head``) —
-already converted to numpy arrays (``jax.tree.map(np.asarray, params)``),
-and returns the same tree as float32 tensors: the ``params`` of
-``models.layers.TrimCNN`` and of the functional ``*_apply`` forwards.
+``init_params`` — ``cnn_params_from_layers``'s (``conv{i}``, ``head``),
+``simple_cnn_params``' (``conv{i}``, ``down{i}``, ``dw``, ``head``) or an
+LM's ``api.params`` (``tok {embed, head}``, ``blocks`` stacked over a
+leading layer axis — ``wq (L, d, h, hd)``, ``wo (L, h, hd, d)``, ... —
+``ln_f``, ``vision_proj``) — already converted to numpy arrays
+(``jax.tree.map(np.asarray, params)``), and returns the same tree as
+float32 tensors, keys, nesting and layouts unchanged: the ``params`` of
+``models.layers.TrimCNN``, of the functional ``*_apply`` forwards and of
+``models.api``, whose LM keeps the JAX layout for exactly this reason.
 ``moments_from_jax`` does the same for AdamW's ``{"mu", "nu"}`` state.
 Both packages then compute the same function and take the same optimiser
 step, which is what the parity tests compare.

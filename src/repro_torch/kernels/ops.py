@@ -1,4 +1,5 @@
-"""Operator API over the port's conv kernels (``repro/kernels/ops.py``).
+"""Operator API over the port's kernels (``repro/kernels/ops.py``): the
+conv and attention operators.
 
 ``conv2d`` takes ``impl``:
 
@@ -18,16 +19,25 @@ outside it, and a backward whose ``dx`` runs the forward kernel on the
 dilated cotangent and whose ``dw`` runs the weight-gradient kernel.
 Otherwise the conv is one launch with the bias + activation epilogue
 fused, as served.
+
+``attention`` takes ``impl``: ``"flash"`` (the hand-written Hopper kernel
+of ``kernels/flash_attention.py`` on a CUDA tensor, its plain version on a
+CPU tensor), ``"chunked"`` (the same online softmax in plain PyTorch over
+chunks of ``chunk`` keys) or ``"ref"`` (the oracle).  ``decode_attention``
+is plain PyTorch, as in JAX: one query over a KV cache has no kernel.
 """
 
 from __future__ import annotations
 
+import math
 import typing
 
 import torch
 
 from repro_torch.core.conv_plan import DATAFLOWS
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import (NEG_INF, flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.ref import ACTIVATIONS, conv_pads
 from repro_torch.kernels.trim_conv2d import (trim_conv2d,
                                              trim_conv2d_input_grad,
@@ -184,3 +194,65 @@ def conv_pool_chain(x: torch.Tensor, weights, biases, steps, *,
         if ps > 1 or pw > 1:      # (1, w>1): stride-1 overlapping pool
             x = ref.maxpool2d(x, ps, pw)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, soft_cap: float | None = None,
+                      window: int | None = None,
+                      chunk: int = 1024) -> torch.Tensor:
+    """The FlashAttention schedule in plain PyTorch, KV streamed in chunks
+    of ``chunk`` keys (``repro/kernels/ops.py:867``): the flash kernel's
+    plain version at that tile.  q: (B, Lq, Hq, D); k/v: (B, Lk, Hkv, D)."""
+    return flash_attention_plain(q, k, v, causal=causal, soft_cap=soft_cap,
+                                 window=window, block_k=min(chunk, k.shape[1]))
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, soft_cap: float | None = None,
+              window: int | None = None, impl: str = "flash",
+              chunk: int = 1024) -> torch.Tensor:
+    """Multi-head GQA attention (``repro/kernels/ops.py:924``).
+    q: (B, Lq, Hq, D); k/v: (B, Lk, Hkv, D)."""
+    if impl == "ref":
+        return ref.attention(q, k, v, causal=causal,
+                             logits_soft_cap=soft_cap, window=window)
+    if impl == "flash":
+        return flash_attention(q, k, v, causal=causal, soft_cap=soft_cap,
+                               window=window)
+    if impl == "chunked":
+        return chunked_attention(q, k, v, causal=causal, soft_cap=soft_cap,
+                                 window=window, chunk=chunk)
+    raise ValueError(f"unknown attention impl {impl!r}; choose 'flash', "
+                     "'chunked' or 'ref'")
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                     soft_cap: float | None = None,
+                     window: int | None = None) -> torch.Tensor:
+    """One-token attention over a KV cache (``repro/kernels/ops.py:944``).
+
+    q: (B, 1, Hq, D); caches: (B, Lmax, Hkv, D); cache_len: (B,) — the
+    number of valid cache entries, the current token included.
+    """
+    b, _, hq, d = q.shape
+    _, lmax, hkv, _ = k_cache.shape
+    group = hq // hkv
+    qg = q.reshape(b, hkv, group, d)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
+                     k_cache.float()) / math.sqrt(d)
+    if soft_cap is not None:
+        s = soft_cap * torch.tanh(s / soft_cap)
+    k_pos = torch.arange(lmax, device=q.device)
+    clen = cache_len.reshape(-1, 1)
+    valid = k_pos[None, :] < clen
+    if window is not None:
+        valid &= k_pos[None, :] >= clen - window
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return out.reshape(b, 1, hq, d).to(q.dtype)

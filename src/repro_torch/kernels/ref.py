@@ -2,7 +2,8 @@
 
 Test oracles, independent of the kernel path and of its plain version: the
 convolution is one einsum over unfolded patches, not a tap loop, and its
-gradients are autograd through that einsum.  On the
+gradients are autograd through that einsum; attention is one softmax over
+the masked logits, with no blocking and no online normaliser.  On the
 card, run them with ``torch.backends.cuda.matmul.allow_tf32 = False`` (and
 ``torch.backends.cudnn.allow_tf32 = False``) so f32 stays f32.
 """
@@ -102,3 +103,33 @@ def maxpool2d(x: torch.Tensor, stride: int, window: int) -> torch.Tensor:
     y = F.max_pool2d(x.permute(0, 3, 1, 2), kernel_size=window,
                      stride=stride)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, logits_soft_cap: float | None = None,
+              window: int | None = None) -> torch.Tensor:
+    """Dense GQA attention oracle (``repro/kernels/ref.py:191``).
+
+    q: (B, Lq, Hq, D); k/v: (B, Lk, Hkv, D); Hq % Hkv == 0; query head h
+    reads KV head ``h // (Hq / Hkv)``.  Queries are right-aligned (query i
+    sits at position ``i + Lk - Lq``); ``window`` is an optional local span
+    (RecurrentGemma).  Masked logits are -1e30 before one softmax.
+    """
+    b, lq, hq, d = q.shape
+    _, lk, hkv, _ = k.shape
+    group = hq // hkv
+    qg = q.reshape(b, lq, hkv, group, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) / float(d) ** 0.5
+    if logits_soft_cap is not None:
+        logits = logits_soft_cap * torch.tanh(logits / logits_soft_cap)
+    q_pos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+    k_pos = torch.arange(lk, device=q.device)[None, :]
+    mask = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window is not None:
+        mask &= q_pos - k_pos < window
+    logits = torch.where(mask, logits.float(), -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return out.reshape(b, lq, hq, d)

@@ -1,0 +1,76 @@
+"""Unified model API (the counterpart of ``repro/models/api.py``).
+
+``params(cfg)``                        -> Param declaration tree
+``forward(params, batch, cfg)``        -> (logits, aux)     [prefill]
+``decode(params, batch, state, cfg)``  -> (logits, state)
+``decode_state(cfg, batch, max_len)``  -> Param tree of the decode state
+
+Batch dict keys: ``tokens`` (B, S) int, plus ``vision`` (B, Nv, d) for a
+VLM; decode adds ``cache_len`` (B,).  The port runs the dense family; the
+others raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+
+# family -> the ROADMAP item that ports it
+NOT_PORTED = {
+    "ssm": "ROADMAP Queue 1 item 2b (falcon-mamba-7b: trim_conv1d and the "
+           "selective scan)",
+    "hybrid": "ROADMAP Queue 1 item 2c (recurrentgemma-2b: RG-LRU)",
+    "moe": "ROADMAP Queue 1 item 2d (MoE: moe_apply)",
+    "encdec": "ROADMAP Queue 1 item 2e (encoder-decoder and "
+              "cross-attention)",
+}
+
+
+def require_dense(family: str) -> None:
+    if family in NOT_PORTED:
+        raise NotImplementedError(f"the port does not run the {family!r} "
+                                  f"family yet: {NOT_PORTED[family]}")
+    if family != "dense":
+        raise ValueError(f"unknown family {family!r}")
+
+
+def params(cfg: ModelConfig) -> dict:
+    require_dense(cfg.family)
+    return transformer.lm_params(cfg)
+
+
+def forward(p: dict, batch: dict, cfg: ModelConfig):
+    """Full-sequence forward (prefill).  Returns (logits, aux); aux, the
+    MoE load-balance loss of the JAX API, is 0.0 for the dense family."""
+    require_dense(cfg.family)
+    logits, _ = transformer.lm_apply(p, batch["tokens"], cfg,
+                                     vision_embeds=batch.get("vision"))
+    return logits, 0.0
+
+
+def decode_state(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """Param declaration tree of the decode-time state (zero KV caches)."""
+    require_dense(cfg.family)
+    return {"caches": transformer.make_caches(cfg, batch, max_len)}
+
+
+def decode(p: dict, batch: dict, state: dict, cfg: ModelConfig):
+    """One-token decode step.  batch: tokens (B, 1), cache_len (B,).
+    Returns (logits (B, 1, V), state); the caches are updated in place."""
+    require_dense(cfg.family)
+    logits, caches = transformer.lm_apply(
+        p, batch["tokens"], cfg, caches=state["caches"],
+        cache_len=batch["cache_len"])
+    return logits, {"caches": caches}
+
+
+def loss_fn(logits: torch.Tensor, labels: torch.Tensor, aux=0.0,
+            aux_weight: float = 0.01) -> torch.Tensor:
+    """Mean next-token cross-entropy (+ the MoE load-balance aux)."""
+    if logits.shape[1] != labels.shape[1]:       # VLM: vision prefix
+        logits = logits[:, -labels.shape[1]:]
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(lp, -1, labels[..., None].long())[..., 0]
+    return nll.mean() + aux_weight * aux

@@ -27,13 +27,32 @@ class Param:
     scale: float = 1.0
 
 
+def stack_params(tree, n: int):
+    """Add a leading stacked-layers dim of size ``n`` to every Param
+    (``repro/models/base.py:41``).  The initialiser's fan-in stays
+    ``shape[-2]`` of the stacked shape, as in JAX: a stacked ``wq`` of
+    shape ``(L, d, h, hd)`` draws with ``std = 1 / sqrt(h)``."""
+    if isinstance(tree, Param):
+        return Param((n, *tree.shape), init=tree.init, scale=tree.scale)
+    return {k: stack_params(v, n) for k, v in tree.items()}
+
+
+def tree_size(tree) -> int:
+    """Number of elements declared by a tree of :class:`Param`, without
+    materialising it."""
+    if isinstance(tree, Param):
+        return math.prod(tree.shape)
+    return sum(tree_size(v) for v in tree.values())
+
+
 def init_params(tree, generator: torch.Generator, *,
                 device: torch.device | str = "cpu",
                 dtype: torch.dtype = torch.float32):
     """Materialise a tree of :class:`Param` into tensors on ``device``.
     Draws happen on the generator's device (the CPU for a default
     ``torch.Generator()``), so one seed gives the same weights on every
-    device."""
+    device; a ``torch.Generator(device="cuda")`` draws a multi-GB model
+    on the card."""
     if isinstance(tree, Param):
         if tree.init == "zeros":
             return torch.zeros(tree.shape, dtype=dtype, device=device)
@@ -45,6 +64,6 @@ def init_params(tree, generator: torch.Generator, *,
         std = tree.scale / math.sqrt(max(fan_in, 1))
         v = torch.randn(tree.shape, generator=generator,
                         dtype=torch.float32, device=generator.device)
-        return (v * std).to(device=device, dtype=dtype)
+        return v.mul_(std).to(device=device, dtype=dtype)
     return {k: init_params(v, generator, device=device, dtype=dtype)
             for k, v in tree.items()}

@@ -1,0 +1,126 @@
+"""Model configuration shared by every architecture family (the
+counterpart of ``repro/models/config.py``, with the same fields).
+
+The port runs float32 only, and its attention implementations are
+``"flash"`` (the hand-written CUDA kernel of ``kernels/flash_attention.py``
+on a CUDA tensor, its plain PyTorch version on a CPU tensor; the JAX
+``"pallas"``), ``"chunked"`` and ``"ref"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+ATTN_IMPLS = ("flash", "chunked", "ref")
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    family: str = "dense"      # dense | moe | ssm | hybrid | encdec
+    n_layers: int = 2
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 2
+    d_ff: int = 1024
+    vocab: int = 1024
+    head_dim: int | None = None
+    qkv_bias: bool = False
+    norm: str = "rmsnorm"      # rmsnorm | layernorm
+    mlp: str = "swiglu"        # swiglu | geglu | gelu
+    rope_theta: float = 1e4
+    logits_soft_cap: float | None = None
+    tie_embeddings: bool = False
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    moe_dff: int = 0
+    capacity_factor: float = 1.25
+    shared_expert_dff: int = 0     # dense expert alongside routed ones
+
+    # SSM (mamba1)
+    ssm_state: int = 0
+    d_conv: int = 4
+    dt_rank: int = 0
+    expand: int = 2
+    scan_chunk: int = 256
+
+    # hybrid (RG-LRU)
+    window: int | None = None      # local attention window
+    block_pattern: tuple = ()      # e.g. ("rec", "rec", "att")
+    lru_width: int = 0
+
+    # enc-dec
+    enc_layers: int = 0
+    dec_layers: int = 0
+
+    # modality frontend stub
+    frontend: str | None = None    # vision | audio
+    n_frontend_tokens: int = 0
+
+    # execution knobs
+    dtype: str = "float32"
+    attn_impl: str = "flash"       # flash | chunked | ref
+    attn_chunk: int = 1024
+    remat: bool = True             # read by no code of the port yet
+    unroll_layers: bool = False    # the port's layer loop is always unrolled
+    moe_impl: str = "gmm"
+
+    def __post_init__(self):
+        if self.dtype != "float32":
+            raise ValueError(
+                f"dtype={self.dtype!r}: the port runs float32 only; bf16 is "
+                "ROADMAP Queue 1 item 2g")
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl={self.attn_impl!r}; choose from "
+                             f"{ATTN_IMPLS}")
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def param_count(self) -> int:
+        """Approximate parameter count (``repro/models/config.py``'s, for
+        MODEL_FLOPS); ``configs.registry.count_params`` is the exact one."""
+        d, v = self.d_model, self.vocab
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            din, s, r = self.d_inner, self.ssm_state, self.dt_rank
+            per = (d * 2 * din + self.d_conv * din + din * (r + 2 * s)
+                   + r * din + din * s + din + din * d)
+            return self.n_layers * per + emb
+        att = d * self.n_heads * self.hd + 2 * d * self.n_kv_heads * self.hd \
+            + self.n_heads * self.hd * d
+        if self.family == "moe":
+            ffn = self.n_experts * 3 * d * self.moe_dff + d * self.n_experts \
+                + 3 * d * self.shared_expert_dff
+        elif self.mlp == "swiglu":
+            ffn = 3 * d * self.d_ff
+        else:
+            ffn = 2 * d * self.d_ff
+        if self.family == "hybrid":
+            n_att = sum(1 for i in range(self.n_layers)
+                        if self.pattern_at(i) == "att")
+            n_rec = self.n_layers - n_att
+            w = self.lru_width or d
+            rec = 2 * d * w + w * d + self.d_conv * w + 3 * w * w + 2 * w
+            return n_att * (att + ffn) + n_rec * (rec + ffn) + emb
+        if self.family == "encdec":
+            enc = self.enc_layers * (att + ffn)
+            dec = self.dec_layers * (2 * att + ffn)   # self + cross
+            return enc + dec + emb
+        return self.n_layers * (att + ffn) + emb
+
+    def pattern_at(self, i: int) -> str:
+        if not self.block_pattern:
+            return "att"
+        return self.block_pattern[i % len(self.block_pattern)]

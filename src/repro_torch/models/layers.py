@@ -1,7 +1,7 @@
-"""Convolution layers and whole-topology forward (the conv half of
-``repro/models/layers.py``).
+"""Layers of ``repro/models/layers.py``: the convolution half and the
+transformer (LM) half.
 
-Functional core on trees of tensors — ``conv2d_apply``,
+Convolutions.  Functional core on trees of tensors — ``conv2d_apply``,
 ``depthwise_separable_apply``, ``simple_cnn_apply``,
 ``cnn_apply_from_layers`` — as in the JAX package, and :class:`TrimCNN`,
 the ``nn.Module`` that holds one topology's parameters and serves or
@@ -9,11 +9,19 @@ trains it.  Every function is differentiable: under grad, each conv runs
 the TrIM forward, input-gradient and weight-gradient kernels
 (``kernels/ops.py``), and max-pool's backward is ``F.max_pool2d``'s.
 Activations are NHWC and conv weights ``(K, K, Cin/groups, Cout)``.
+
+Transformer layers.  Norms (RMSNorm / LayerNorm in f32, eps 1e-6), RoPE
+(split halves), GQA attention with an optional KV cache, the dense MLPs
+and the token embedding / LM head, each a ``*_params`` declaration and a
+``*_apply`` function on tensors in the JAX layout (``wq`` ``(d, h, hd)``,
+``wo`` ``(h, hd, d)``, activations ``(B, L, d)``).  No sharding: the
+port's LM runs on one device.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.fuse_plan import FusedGroupPlan
@@ -22,6 +30,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.trim_conv2d_fused import fused_group_apply
 from repro_torch.models.base import Param, init_params
+from repro_torch.models.config import ModelConfig
 
 
 def conv2d_params(k: int, cin: int, cout: int, *, groups: int = 1,
@@ -116,7 +125,7 @@ def cnn_params_from_layers(layers_list, *, n_classes: int | None = None,
     return p
 
 
-def head_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+def cnn_head_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     """Global mean pool + linear, one row at a time: the reduction and
     matmul libraries pick their schedule by batch size, so a batched head
     could round a row differently from the same row served alone."""
@@ -186,7 +195,7 @@ def cnn_apply_from_layers(p: dict, layers_list, x: torch.Tensor, *,
                                   activation=activation)
     if "head" not in p:
         return x
-    return head_apply(p["head"], x)
+    return cnn_head_apply(p["head"], x)
 
 
 class _Leaf(nn.Module):
@@ -251,3 +260,149 @@ class TrimCNN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply_tree(self.tree(), x)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def norm_params(cfg: ModelConfig, d: int | None = None) -> dict:
+    d = d or cfg.d_model
+    p = {"scale": Param((d,), init="ones")}
+    if cfg.norm == "layernorm":
+        p["bias"] = Param((d,), init="zeros")
+    return p
+
+
+def norm_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """RMSNorm or LayerNorm over the last dim, in f32, eps 1e-6."""
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + 1e-6) * p["scale"] + p["bias"]
+    else:
+        var = (xf * xf).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(var + 1e-6) * p["scale"]
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding on split halves (not interleaved).  x: (B, L, H,
+    D); positions: (B, L) or (1, L)."""
+    d = x.shape[-1]
+    exponent = -torch.arange(0, d // 2, dtype=torch.float32,
+                             device=x.device) / (d // 2)
+    freqs = torch.pow(theta, exponent)
+    angles = positions.float()[..., None] * freqs          # (B, L, D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA self-attention, with an optional KV cache
+# ---------------------------------------------------------------------------
+
+def attention_params(cfg: ModelConfig) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p = {"wq": Param((d, h, hd)), "wk": Param((d, kv, hd)),
+         "wv": Param((d, kv, hd)), "wo": Param((h, hd, d))}
+    if cfg.qkv_bias:
+        p["bq"] = Param((h, hd), init="zeros")
+        p["bk"] = Param((kv, hd), init="zeros")
+        p["bv"] = Param((kv, hd), init="zeros")
+    return p
+
+
+def attention_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                    positions: torch.Tensor,
+                    kv_cache: tuple | None = None,
+                    cache_len: torch.Tensor | None = None,
+                    window: int | None = None) -> torch.Tensor:
+    """Causal self-attention of ``repro/models/layers.py:84``; returns y.
+
+    * prefill: ``kv_cache`` is None; ``ops.attention`` with
+      ``impl=cfg.attn_impl`` over ``x`` (no cache is threaded through the
+      stack).
+    * decode: ``kv_cache=(k, v)`` of shape (B, Lmax, Hkv, hd); the new
+      token's k/v are written at ``max(cache_len) - 1`` IN PLACE (the JAX
+      function returns updated copies), then ``ops.decode_attention``.
+    """
+    q = torch.einsum("bld,dhk->blhk", x, p["wq"])
+    k = torch.einsum("bld,dhk->blhk", x, p["wk"])
+    v = torch.einsum("bld,dhk->blhk", x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    if kv_cache is not None:
+        kc, vc = kv_cache
+        idx = (cache_len.max() - 1).reshape(1).long()   # stays on device
+        kc.index_copy_(1, idx, k)
+        vc.index_copy_(1, idx, v)
+        o = ops.decode_attention(q, kc, vc, cache_len,
+                                 soft_cap=cfg.logits_soft_cap, window=window)
+    else:
+        o = ops.attention(q, k, v, causal=True,
+                          soft_cap=cfg.logits_soft_cap, window=window,
+                          impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+    return torch.einsum("blhk,hkd->bld", o, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Dense MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_params(cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp in ("swiglu", "geglu"):
+        return {"w_gate": Param((d, f)), "w_up": Param((d, f)),
+                "w_down": Param((f, d))}
+    return {"w_up": Param((d, f)), "b_up": Param((f,), init="zeros"),
+            "w_down": Param((f, d)), "b_down": Param((d,), init="zeros")}
+
+
+def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """swiglu, geglu or gelu (with biases); gelu is the tanh form of
+    ``jax.nn.gelu``."""
+    if cfg.mlp == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    elif cfg.mlp == "geglu":
+        h = F.gelu(x @ p["w_gate"], approximate="tanh") * (x @ p["w_up"])
+    else:
+        h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
+    y = h @ p["w_down"]
+    if "b_down" in p:
+        y = y + p["b_down"]
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+def embedding_params(cfg: ModelConfig) -> dict:
+    p = {"embed": Param((cfg.vocab, cfg.d_model))}
+    if not cfg.tie_embeddings:
+        p["head"] = Param((cfg.d_model, cfg.vocab))
+    return p
+
+
+def embed_apply(p: dict, tokens: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    return F.embedding(tokens, p["embed"])
+
+
+def head_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """LM head, tied (``embed.T``) or untied; a plain ``torch.matmul``,
+    which JAX leaves to XLA too."""
+    w = p["embed"].T if cfg.tie_embeddings else p["head"]
+    return x @ w

@@ -1,0 +1,135 @@
+"""The port's attention against the JAX package on the CPU.
+
+``ops.attention`` with ``impl="flash"`` (on the CPU the flash kernel's
+plain version), ``"chunked"`` and ``"ref"`` against JAX ``ops.attention(
+impl="pallas")`` (the Pallas kernel in interpret mode) and JAX
+``ref.attention``, on ``tests/test_kernels.py``'s six cases (GQA, soft
+cap, ragged Lq/Lk, non-causal, local window, Lq = 1); ``decode_attention``
+against JAX's and the oracle; and a hypothesis property over shapes.
+Inputs are numpy draws from a seed, handed to both packages.  Tolerance:
+f32, 1e-5 of max|JAX| — the two packages sum in another order, nothing
+else differs.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings, strategies as st
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref
+
+TOL = 1e-5
+# b, lq, lk, hq, hkv, d, causal, soft_cap, window (tests/test_kernels.py)
+CASES = [
+    (2, 32, 32, 4, 2, 16, True, None, None),
+    (1, 64, 64, 8, 8, 32, True, 30.0, None),
+    (2, 17, 47, 4, 1, 16, True, None, None),
+    (2, 32, 32, 4, 2, 16, False, None, None),
+    (1, 64, 64, 4, 2, 16, True, None, 16),
+    (2, 1, 40, 8, 2, 32, True, None, None),
+]
+
+
+def _close(got, want, tol=TOL):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    assert err <= tol * scale, (err, tol * scale)
+
+
+def _qkv(rng, b, lq, lk, hq, hkv, d):
+    return (rng.standard_normal((b, lq, hq, d)).astype(np.float32),
+            rng.standard_normal((b, lk, hkv, d)).astype(np.float32),
+            rng.standard_normal((b, lk, hkv, d)).astype(np.float32))
+
+
+@functools.cache
+def _jax_case(i):
+    """Inputs of case ``i`` and the JAX Pallas kernel's and oracle's
+    outputs on them."""
+    b, lq, lk, hq, hkv, d, causal, cap, win = CASES[i]
+    q, k, v = _qkv(np.random.default_rng(i), b, lq, lk, hq, hkv, d)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    pallas = jops.attention(jq, jk, jv, causal=causal, soft_cap=cap,
+                            window=win, impl="pallas")
+    oracle = jref.attention(jq, jk, jv, causal=causal, logits_soft_cap=cap,
+                            window=win)
+    return (q, k, v), np.asarray(pallas), np.asarray(oracle)
+
+
+@pytest.mark.parametrize("impl", ["flash", "chunked", "ref"])
+@pytest.mark.parametrize("case", range(len(CASES)),
+                         ids=[str(c[:6]) for c in CASES])
+def test_attention_matches_jax_pallas_and_oracle(case, impl):
+    (q, k, v), pallas, oracle = _jax_case(case)
+    _, _, _, _, _, _, causal, cap, win = CASES[case]
+    got = ops.attention(*map(torch.from_numpy, (q, k, v)), causal=causal,
+                        soft_cap=cap, window=win, impl=impl, chunk=16)
+    _close(got, pallas)
+    _close(got, oracle)
+
+
+def test_flash_plain_version_is_the_wrapper_on_cpu():
+    (q, k, v), _, _ = _jax_case(2)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    assert torch.equal(fa.flash_attention(tq, tk, tv),
+                       fa.flash_attention_plain(tq, tk, tv))
+
+
+@pytest.mark.parametrize("cap,win", [(None, None), (20.0, 5)])
+def test_decode_attention_matches_jax(cap, win):
+    b, lmax, hq, hkv, d, clen = 2, 24, 4, 2, 16, 17
+    rng = np.random.default_rng(3)
+    q, kc, vc = _qkv(rng, b, 1, lmax, hq, hkv, d)
+    got = ops.decode_attention(*map(torch.from_numpy, (q, kc, vc)),
+                               torch.full((b,), clen), soft_cap=cap,
+                               window=win)
+    want = jops.decode_attention(*map(jnp.asarray, (q, kc, vc)),
+                                 jnp.full((b,), clen), soft_cap=cap,
+                                 window=win)
+    _close(got, want)
+    if win is None:    # the dense oracle over the valid prefix
+        oracle = jref.attention(*map(jnp.asarray, (q, kc[:, :clen],
+                                                   vc[:, :clen])),
+                                causal=True, logits_soft_cap=cap)
+        _close(got, oracle)
+
+
+def test_decode_attention_per_row_cache_lengths():
+    """Rows with different ``cache_len`` each see their own prefix."""
+    b, lmax, hq, hkv, d = 3, 20, 4, 1, 8
+    q, kc, vc = map(torch.from_numpy, _qkv(np.random.default_rng(4), b, 1,
+                                           lmax, hq, hkv, d))
+    lens = [5, 20, 11]
+    got = ops.decode_attention(q, kc, vc, torch.tensor(lens))
+    for i, n in enumerate(lens):
+        want = ref.attention(q[i:i + 1], kc[i:i + 1, :n], vc[i:i + 1, :n])
+        _close(got[i:i + 1], want)
+
+
+def test_unknown_impl_raises():
+    q = torch.zeros((1, 4, 2, 8))
+    with pytest.raises(ValueError, match="impl"):
+        ops.attention(q, q, q, impl="pallas")
+
+
+@settings(max_examples=10, deadline=None)
+@given(lq=st.integers(1, 40), lk_extra=st.integers(0, 40),
+       hkv=st.sampled_from([1, 2, 4]), group=st.sampled_from([1, 2, 3]),
+       causal=st.booleans(), block_k=st.sampled_from([8, 64]))
+def test_attention_property(lq, lk_extra, hkv, group, causal, block_k):
+    lk, b, d = lq + lk_extra, 1, 8
+    hq = hkv * group
+    q, k, v = _qkv(np.random.default_rng(lq * 100 + lk), b, lq, lk, hq,
+                   hkv, d)
+    want = jref.attention(*map(jnp.asarray, (q, k, v)), causal=causal)
+    got = fa.flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
+                                   causal=causal, block_k=block_k)
+    _close(got, want)

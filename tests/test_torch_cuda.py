@@ -17,7 +17,12 @@ must repeat bitwise; the input gradient (the forward kernel on the
 dilated cotangent) and the autograd conv against the ``ref`` oracle.  The
 fused-group kernel is held against its plain version at the same
 tolerance, must repeat bitwise, and must equal the per-layer carry chain
-bitwise, forward and (through ``fused_group_apply``) backward.
+bitwise, forward and (through ``fused_group_apply``) backward.  The
+flash-attention kernel is held against its plain version and the ``ref``
+oracle within 1e-5 * max|plain| (f32 sums in another order) on the CPU
+tests' geometries plus head dims 12, 14, 128 and 256, GQA groups 7 and 10,
+windows, soft caps and ragged Lq / Lk; a SMOKE LM prefill on it against
+``attn_impl="ref"``.
 """
 
 import pytest
@@ -278,3 +283,97 @@ def test_fused_group_gradients_equal_the_per_layer_chain(cuda):
     assert torch.equal(yf, yc)
     for a, b in zip(fused, chain):
         assert torch.equal(a, b)
+
+
+# b, lq, lk, hq, hkv, d, causal, soft_cap, window
+FLASH_CASES = [
+    (2, 32, 32, 4, 2, 16, True, None, None),
+    (1, 64, 64, 8, 8, 32, True, 30.0, None),
+    (2, 17, 47, 4, 1, 16, True, None, None),
+    (2, 32, 32, 4, 2, 16, False, None, None),
+    (1, 64, 64, 4, 2, 16, True, None, 16),
+    (2, 1, 40, 8, 2, 32, True, None, None),
+    (1, 150, 150, 10, 1, 256, True, 30.0, 70),
+    (1, 17, 300, 16, 2, 128, True, None, None),
+    (1, 33, 100, 7, 1, 14, False, None, 20),
+    (1, 130, 130, 6, 2, 12, True, None, None),
+    (2, 70, 200, 9, 3, 128, False, 5.0, None),
+    (1, 300, 300, 16, 2, 128, True, None, None),
+]
+FLASH_TOL = 1e-5
+
+
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=[str(i) for i in range(len(FLASH_CASES))])
+def test_flash_kernel_matches_plain_and_oracle(cuda, case):
+    from repro_torch.kernels import flash_attention as fa
+    b, lq, lk, hq, hkv, d, causal, cap, win = case
+    gen = torch.Generator(device="cuda").manual_seed(lq + lk)
+    q = torch.randn((b, lq, hq, d), generator=gen, device=cuda)
+    k = torch.randn((b, lk, hkv, d), generator=gen, device=cuda)
+    v = torch.randn((b, lk, hkv, d), generator=gen, device=cuda)
+    kw = dict(causal=causal, soft_cap=cap, window=win)
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention(q, k, v, **kw)
+    again = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 2
+    plain = fa.flash_attention_plain(q, k, v, **kw)
+    oracle = ref.attention(q, k, v, causal=causal, logits_soft_cap=cap,
+                           window=win)
+    scale = plain.abs().max().item()
+    assert (out - plain).abs().max().item() <= FLASH_TOL * scale
+    assert (out - oracle).abs().max().item() <= FLASH_TOL * scale
+    assert torch.equal(out, again)
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """q/k/v as non-contiguous views of one fused QKV projection."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    qkv = torch.randn((2, 40, 4 + 2 + 2, 16), generator=gen, device=cuda)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    out = fa.flash_attention(q, k, v)
+    want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+def test_flash_wrapper_raises_on_cuda(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.zeros((1, 8, 4, 16), device=cuda)
+    kv = torch.zeros((1, 8, 2, 16), device=cuda)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError):
+        fa.flash_attention(torch.zeros((1, 8, 4, 272), device=cuda),
+                           torch.zeros((1, 8, 2, 272), device=cuda),
+                           torch.zeros((1, 8, 2, 272), device=cuda))
+    with pytest.raises(ValueError):
+        fa.flash_attention(torch.zeros((1, 8, 3, 16), device=cuda), kv, kv)
+
+
+def test_lm_prefill_on_the_kernel_matches_ref(cuda):
+    from repro_torch.configs import registry
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+    cfg = registry.get("qwen2.5-3b").SMOKE
+    p = init_params(api.params(cfg), torch.Generator(device="cuda")
+                    .manual_seed(0), device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 100), device=cuda,
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1))
+    fa.reset_launch_counts()
+    lf, tf = steps.make_prefill_step(cfg.replace(attn_impl="flash"))(
+        p, {"tokens": toks})
+    assert fa.LAUNCHES["flash_attention"] == cfg.n_layers
+    lr, tr = steps.make_prefill_step(cfg)(p, {"tokens": toks})
+    assert fa.LAUNCHES["flash_attention"] == cfg.n_layers
+    tol = 1e-4 * lr.abs().max().item()
+    assert (lf - lr).abs().max().item() <= tol
+    # the same greedy token, unless ref's top two lie within the tolerance
+    last = lr[:, -1]
+    picked = last.gather(1, tf[:, None])[:, 0]
+    assert bool(((tf == tr) | (last.amax(1) - picked <= 2 * tol)).all())

@@ -3,9 +3,10 @@
 * no module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
   ``jax`` or anything of the JAX package ``repro`` (an AST scan);
 * an entry point given no device raises when PyTorch sees no GPU;
-* the kernel wrappers raise on tensors their kernels cannot take (the
-  CUDA cases themselves run in ``tests/test_torch_cuda.py`` on a GPU
-  host), and their plain versions count no launch;
+* the kernel wrappers (conv, fused group, flash attention) raise on
+  tensors their kernels cannot take (the CUDA cases themselves run in
+  ``tests/test_torch_cuda.py`` on a GPU host), and their plain versions
+  count no launch;
 * ``chip_smoke.py`` exits non-zero, printing no result, without a GPU.
 """
 
@@ -22,7 +23,9 @@ from repro_torch.core.fuse_plan import build_group
 from repro_torch.core.model import ConvLayer
 from repro_torch.core.serving import ServingEngine
 from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import trim_conv2d as tc
+from repro_torch.launch import serve
 from repro_torch.kernels import trim_conv2d_fused as tfu
 from repro_torch.models.layers import TrimCNN
 
@@ -61,6 +64,47 @@ def test_no_device_means_cuda_and_raises_without_a_gpu(monkeypatch):
         ServingEngine.for_topology(TOPO, model, buckets=(1,))
     with pytest.raises(RuntimeError, match="GPU"):
         TrimCNN.random(TOPO, n_classes=2)
+
+
+def test_lm_serve_without_a_device_raises_without_a_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="GPU"):
+        serve.main(["--smoke", "--batch", "1", "--gen", "1"])
+
+
+def test_flash_wrapper_rejects_what_the_kernel_cannot_take():
+    q = torch.zeros((1, 8, 4, 16))
+    kv = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        fa.flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))
+    with pytest.raises(ValueError, match="share"):
+        fa.flash_attention(q, kv.to("meta"), kv)
+    with pytest.raises(ValueError, match="float32"):
+        fa.flash_attention(q.double(), kv.double(), kv.double())
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        fa.flash_attention(torch.zeros((1, 8, 16, 4)).transpose(2, 3), kv,
+                           kv)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention(torch.zeros((1, 8, 3, 16)), kv, kv)
+    with pytest.raises(ValueError, match="256"):
+        fa.flash_attention(torch.zeros((1, 8, 4, 264)),
+                           torch.zeros((1, 8, 2, 264)),
+                           torch.zeros((1, 8, 2, 264)))
+    with pytest.raises(ValueError, match="no key"):
+        fa.flash_attention(torch.zeros((1, 9, 4, 16)), kv, kv)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention(q, kv, kv, window=0)
+    with pytest.raises(ValueError, match="soft_cap"):
+        fa.flash_attention(q, kv, kv, soft_cap=0.0)
+    with pytest.raises(ValueError, match="Lk, Hkv"):
+        fa.flash_attention(q, kv, torch.zeros((1, 9, 2, 16)))
+
+
+def test_flash_plain_path_does_not_count_launches():
+    fa.reset_launch_counts()
+    fa.flash_attention(torch.ones((1, 5, 4, 8)), torch.ones((1, 7, 2, 8)),
+                       torch.ones((1, 7, 2, 8)), soft_cap=5.0, window=3)
+    assert fa.LAUNCHES == {"flash_attention": 0}
 
 
 def test_wrapper_rejects_what_the_kernel_cannot_take():
