@@ -83,7 +83,31 @@ Phases, each raising on failure (each prints its seconds):
    no kernel) against the flash prefill, position by position, on a
    256-token prompt at the depth-1 cut (checked, ``LM_TOLERANCE``) and at
    the serve prompt's last position at full depth (printed);
-13. the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
+13. conv1d kernel check — the causal depthwise conv1d kernel against its
+   plain version and the ``ref`` oracle, bit for bit, at falcon-mamba-7b's
+   prefill shape (B 2, L 2048, D 8192, K 4), contiguous and as the mixer's
+   strided half of the in-projection, and at edge cases (runs that do not
+   divide L, L < K-1, D = 5 and 24, K = 2 and 3, B = 3, L = 1); at the
+   prefill's shape its time beside the plain version's, ``F.conv1d``'s on
+   input laid out (B, D, L) (TF32 off) and the plan's bound, and the
+   bytes the function must move beside those the kernel's schedule moves
+   (the runs' re-read halos priced, ``Conv1dPlan.hbm_bytes``);
+14. mamba prefill — full-width falcon-mamba-7b (64 layers, 7.27 B
+   parameters drawn on the card, after qwen2.5-3b's are freed) through
+   ``steps.make_prefill_step`` on 2 x 2048 seeded tokens: exactly 64
+   ``trim_conv1d`` launches a forward, finite logits, ms per forward, peak
+   memory, and the shares of one layer's conv and selective scan (x 64) in
+   the forward; the residual stream after every layer, full-sequence
+   mixer against the stepped one, at full depth on a 64-token prompt
+   (printed); prefill (``make_prefill_step``) against token-by-token
+   decode (``api.decode``), the logits at every position (checked,
+   ``MAMBA_TOLERANCE``), at the depth-1 and depth-2 cuts on a 128-token
+   prompt and at full depth on the 64-token one;
+15. mamba serve — ``serve_batch`` at full width, batch 4, prompt 16, gen
+   32, through the conv windows and SSM states: tokens/s, ms per decode
+   step and the step's device-busy share (``torch.profiler``);
+16. the kernel JSON line (six kernels), then ``{"ok": true, "device":
+   ...}`` last.
 
 Exits non-zero without a result when no GPU is visible.
 """
@@ -135,6 +159,20 @@ LM_LAYER_TOLERANCE = 1e-4
 # Logits of the depth-1 cut, flash vs ref and decode vs prefill: of
 # max|logits|; one layer's attention difference through the MLP and head.
 LM_TOLERANCE = 1e-4
+# Mamba: prefill logits against token-by-token decode logits, of
+# max|logits|, at the depth-1 and depth-2 cuts and at full depth.  The two
+# paths share weights and inputs and differ in GEMM shapes (M = B x L
+# against M = B) and the scan's association (the chunked odd/even tree
+# against one step at a time); their convs are bitwise equal (the kernel
+# and the step's window sum, see kernels/trim_conv1d.py).  The mamba init
+# is well conditioned (2-D parameters per layer) and the scan decays
+# (a_bar <= 1), so the difference grows slowly with depth: 3.2e-6,
+# 3.7e-6 and 1.3e-5 at depths 1, 2 and 64 on an NVIDIA H100 80GB HBM3,
+# 700.00 W (PERF.md §6); a wrong tap, state or layer reads O(1).
+MAMBA_TOLERANCE = 1e-4
+MAMBA_BATCH, MAMBA_SEQ = 2, 2048
+MAMBA_CROSS_PROMPT = 128    # prefill-vs-decode prompt at the depth cuts
+MAMBA_DRIFT_PROMPT = 64     # ... at full depth, and its per-layer drift
 PREFILL_BATCH, PREFILL_SEQ = 2, 4096
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32
 CROSS_PROMPT = 256          # decode-vs-prefill prompt at the depth-1 cut
@@ -1059,6 +1097,265 @@ def lm_serve(torch, lm):
                 cross_full=full, busy=busy)
 
 
+def conv1d_cases():
+    """(name, b, length, d, k, tile_l, strided): the falcon-mamba-7b
+    prefill's shape (contiguous, and the mixer's strided half of the
+    in-projection), then the edge cases."""
+    return [("a_prefill", 2, 2048, 8192, 4, None, False),
+            ("b_mixer_view", 2, 2048, 8192, 4, None, True),
+            ("c_ragged_runs", 2, 1000, 256, 4, 64, False),
+            ("d_l_below_k", 2, 2, 64, 4, None, False),
+            ("e_d5_k2_b3", 3, 7, 5, 2, None, False),
+            ("f_d24", 1, 100, 24, 4, None, False),
+            ("g_k3_view", 2, 33, 16, 3, 5, True),
+            ("h_decode_len", 4, 1, 8192, 4, None, True)]
+
+
+def check_conv1d(torch):
+    """The conv1d kernel against its plain version and the oracle, bit
+    for bit, at every case; times at the prefill's shape."""
+    import torch.nn.functional as F
+    from repro_torch.core.conv_plan import Conv1dPlan
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import trim_conv1d as tc1
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    print("conv1d kernel check (bitwise; times in ms, device events):")
+    print(f"  {'case':14s} {'shape':>22s} {'T_l':>4s} {'grid':>14s} "
+          f"{'max_err':>8s} {'kernel':>8s} {'plain':>8s} {'F.conv1d':>8s} "
+          f"{'bound':>8s} by     GB/s  MB least  MB sched")
+    for name, b, length, d, k, tile_l, strided in conv1d_cases():
+        xz = torch.randn((b, length, 2 * d if strided else d),
+                         generator=gen, device="cuda")
+        x = xz[..., :d]
+        w = 0.5 * torch.randn((k, d), generator=gen, device="cuda")
+        out = tc1.trim_conv1d(x, w, tile_l=tile_l)
+        plain = tc1.trim_conv1d_plain(x, w, tile_l=tile_l)
+        oracle = ref.depthwise_conv1d(x, w)
+        torch.cuda.synchronize()
+        err = (out - plain).abs().max().item()
+        if not (torch.equal(out, plain) and torch.equal(out, oracle)):
+            raise AssertionError(f"conv1d {name}: the kernel differs from "
+                                 f"its plain version (max|diff| {err}) or "
+                                 "the oracle")
+        plan = Conv1dPlan.build((b, length, d), (k, d), tile_l=tile_l)
+        bound, by = plan.bound()
+        row = dict(name=name, err=err, bound=bound, by=by, kernel=None,
+                   plain=None, library=None)
+        line = (f"  {name:14s} {str((b, length, d, k)):>22s} "
+                f"{plan.tile_l:4d} {str(plan.grid):>14s} {err:8.1e}")
+        if length * d >= 2048 * 8192:       # the prefill's shape: timed
+            xt = x.transpose(1, 2).contiguous()     # (B, D, L) for cuDNN
+            wt = w.t()[:, None, :].contiguous()     # (D, 1, K)
+            lib = F.conv1d(xt, wt, padding=k - 1, groups=d)[..., :length]
+            lib_err = (lib.transpose(1, 2) - plain).abs().max().item()
+            row.update(
+                kernel=time_ms(torch, lambda: tc1.trim_conv1d(x, w)),
+                plain=time_ms(torch, lambda: tc1.trim_conv1d_plain(x, w)),
+                library=time_ms(torch, lambda: F.conv1d(
+                    xt, wt, padding=k - 1, groups=d)[..., :length]),
+                lib_err=lib_err)
+            line += (f" {row['kernel']:8.4f} {row['plain']:8.4f} "
+                     f"{row['library']:8.4f} {bound:8.4f} {by:6s} "
+                     f"{plan.min_bytes() / row['kernel'] / 1e6:6.0f}"
+                     f"  {plan.min_bytes() / 1e6:8.2f}"
+                     f"  {plan.hbm_bytes()['total'] / 1e6:8.2f}"
+                     f"  (F.conv1d vs plain {lib_err:.1e})")
+            del xt, wt, lib
+        rows.append(row)
+        print(line)
+        del xz, x, w, out, plain, oracle
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mamba_streams(torch, cfg, params, tokens):
+    """Residual stream after every layer, full-sequence prefill against
+    token-by-token decode (the mixer's two modes): [max|diff| /
+    max|prefill| per layer], printed to show where the two paths part.
+    The logits are checked through the entry points (mamba_prefill)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba as M
+    from repro_torch.models.base import init_params
+    from repro_torch.models.transformer import layer_slice
+    b, n = tokens.shape
+    drift = []
+    with torch.no_grad():
+        x = L.embed_apply(params["tok"], tokens, cfg)
+        pre = []
+        for i in range(cfg.n_layers):
+            pi = layer_slice(params["blocks"], i)
+            x = x + M.mixer_apply(pi["mixer"], L.norm_apply(pi["ln"], x, cfg),
+                                  cfg)
+            pre.append(x)
+        state = init_params(M.make_state(cfg, b), torch.Generator(),
+                            device="cuda")
+        dec = [torch.empty_like(x) for _ in range(cfg.n_layers)]
+        for t in range(n):
+            xt = L.embed_apply(params["tok"], tokens[:, t:t + 1], cfg)
+            for i in range(cfg.n_layers):
+                pi = layer_slice(params["blocks"], i)
+                xt = xt + M.mixer_apply(
+                    pi["mixer"], L.norm_apply(pi["ln"], xt, cfg), cfg,
+                    state=(state["conv"][i], state["ssm"][i]))
+                dec[i][:, t:t + 1] = xt
+        for a, d in zip(pre, dec):
+            drift.append(((a - d).abs().max() / a.abs().max()).item())
+    return drift
+
+
+def mamba_prefill(torch):
+    """Full-width falcon-mamba-7b prefill (the ssm main path) and its
+    checks.  Returns what mamba_serve and the kernel line need."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import trim_conv1d as tc1
+    from repro_torch.models import api
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba as M
+    from repro_torch.models.base import init_params
+    from repro_torch.models.transformer import layer_slice
+
+    cfg = registry.get("falcon-mamba-7b").CONFIG
+    n_params = registry.count_params(cfg)
+    if n_params != 7_272_665_088:
+        raise AssertionError(f"falcon-mamba-7b: {n_params:,} parameters")
+    t0 = time.perf_counter()
+    params = init_params(api.params(cfg), torch.Generator(device="cuda")
+                         .manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    print(f"mamba: {cfg.name} full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, d_inner {cfg.d_inner}), {n_params:,} parameters "
+          f"drawn on the card in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (MAMBA_BATCH, MAMBA_SEQ))).cuda()
+    batch = {"tokens": tokens}
+    prefill = steps.make_prefill_step(cfg)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tc1.reset_launch_counts()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        logits, nxt = prefill(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = tc1.LAUNCHES["trim_conv1d"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches != 2 * cfg.n_layers:
+        raise AssertionError(f"mamba prefill: {launches} trim_conv1d "
+                             f"launches in 2 forwards, want {cfg.n_layers} "
+                             "each")
+    if tuple(logits.shape) != (MAMBA_BATCH, MAMBA_SEQ, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"mamba prefill: logits {tuple(logits.shape)} "
+                             "not finite or of the wrong shape")
+    std = logits.std().item()
+    del logits
+    torch.cuda.empty_cache()
+
+    # one layer's conv and scan on its real input (every layer has the
+    # same shapes, so 64 x these is their share of a forward)
+    with torch.no_grad():
+        p0 = layer_slice(params["blocks"], 0)
+        h = L.norm_apply(p0["ln"], L.embed_apply(params["tok"], tokens, cfg),
+                         cfg)
+        xin = (h @ p0["mixer"]["w_in"])[..., :cfg.d_inner]
+        w = p0["mixer"]["conv_w"]
+        conv_ms = time_ms(torch, lambda: ops.depthwise_conv1d(xin, w))
+        xc = torch.nn.functional.silu(ops.depthwise_conv1d(xin, w)
+                                      + p0["mixer"]["conv_b"])
+        scan_ms = time_ms(torch, lambda: M.ssm_apply(p0["mixer"], xc, cfg),
+                          reps=3)
+        del h, xin, xc
+    torch.cuda.empty_cache()
+    fwd = times[1]
+    print(f"mamba prefill: {MAMBA_BATCH} x {MAMBA_SEQ} tokens, "
+          f"{fwd:.1f} ms per forward (first {times[0]:.1f} ms), "
+          f"{cfg.n_layers} trim_conv1d launches each; peak device memory "
+          f"{peak:.2f} GiB; logits std {std:.3f}, next tokens "
+          f"{nxt.tolist()}; one layer: conv {conv_ms:.4f} ms (the strided "
+          f"in-projection view), selective scan (ssm_apply) {scan_ms:.2f} "
+          f"ms; x {cfg.n_layers}: conv {cfg.n_layers * conv_ms / fwd:.2%}, "
+          f"scan {cfg.n_layers * scan_ms / fwd:.2%} of the forward")
+
+    drift = mamba_streams(torch, cfg, params,
+                          tokens[:, :MAMBA_DRIFT_PROMPT])
+    at = [i for i in (1, 2, 4, 8, 16, 32, 64) if i <= len(drift)]
+    print(f"mamba divergence, full depth, {MAMBA_DRIFT_PROMPT}-token "
+          f"prompt: prefill vs decode residual stream, max|diff| / "
+          f"max|prefill| after layers {', '.join(map(str, at))}: "
+          + ", ".join(f"{drift[i - 1]:.1e}" for i in at))
+
+    # prefill (make_prefill_step) against decode (api.decode, token by
+    # token) at every position: at the depth-1 and depth-2 cuts and at
+    # full depth, on the shorter prompt there
+    cut_errs = {}
+    for depth, n in ((1, MAMBA_CROSS_PROMPT), (2, MAMBA_CROSS_PROMPT),
+                     (cfg.n_layers, MAMBA_DRIFT_PROMPT)):
+        toks = tokens[:, :n]
+        cd, pd = cfg.replace(n_layers=depth), depth_cut(params, depth)
+        full, nxt_d = steps.make_prefill_step(cd)(pd, {"tokens": toks})
+        dec = decode_logits(torch, cd, pd, toks)
+        scale = full.abs().max().item()
+        err = (dec - full).abs().max().item() / scale
+        if not np.isfinite(err) or err > MAMBA_TOLERANCE or not same_tokens(
+                dec[:, -1].argmax(-1), nxt_d, full[:, -1],
+                MAMBA_TOLERANCE * scale):
+            raise AssertionError(f"mamba decode vs prefill, depth "
+                                 f"{depth}: {err:.3e} of max|logits| (tol "
+                                 f"{MAMBA_TOLERANCE})")
+        cut_errs[depth] = err
+        del full, dec
+    print(f"mamba decode vs prefill, every position: "
+          f"{MAMBA_CROSS_PROMPT}-token prompt, depth-1 cut "
+          f"{cut_errs[1]:.2e}, depth-2 cut {cut_errs[2]:.2e}; "
+          f"{MAMBA_DRIFT_PROMPT}-token prompt, full depth "
+          f"{cut_errs[cfg.n_layers]:.2e} of max|logits| (tol "
+          f"{MAMBA_TOLERANCE:g}), same last tokens")
+    torch.cuda.empty_cache()
+    return dict(cfg=cfg, params=params, launches=launches, ms=fwd,
+                peak=peak, conv_ms=conv_ms, scan_ms=scan_ms, drift=drift,
+                cut_errs=cut_errs)
+
+
+def mamba_serve(torch, mb):
+    """``serve_batch`` at full width through the SSM state."""
+    from repro_torch.launch.serve import serve_batch
+    cfg, params = mb["cfg"], mb["params"]
+    rng = np.random.default_rng(7)
+    prompts = torch.from_numpy(rng.integers(
+        2, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).cuda()
+    serve_batch(cfg, params, prompts, 2)              # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve_batch(cfg, params, prompts, SERVE_GEN)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps_run = SERVE_PROMPT + SERVE_GEN - 1
+    if tuple(out.shape) != (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN) or \
+            not torch.equal(out[:, :SERVE_PROMPT], prompts) or \
+            int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+        raise AssertionError(f"mamba serve: bad output {tuple(out.shape)}")
+    tok_s = SERVE_BATCH * SERVE_GEN / dt
+    print(f"mamba serve: serve_batch batch {SERVE_BATCH}, prompt "
+          f"{SERVE_PROMPT}, gen {SERVE_GEN}: {dt * 1e3:.1f} ms for "
+          f"{steps_run} decode steps ({dt * 1e3 / steps_run:.2f} ms a step), "
+          f"{tok_s:.1f} tok/s batch-aggregate; sample "
+          f"{out[0, SERVE_PROMPT:SERVE_PROMPT + 8].tolist()}")
+    busy = decode_device_share(torch, cfg, params, prompts)
+    print(f"mamba serve: decode step at batch {SERVE_BATCH}, torch.profiler "
+          f"over 8 steps: device busy {busy[0]:.2f} ms of {busy[1]:.2f} ms "
+          f"a step ({busy[0] / busy[1]:.1%}), {busy[2]:.0f} kernels a step"
+          if busy[0] > 0 else "mamba serve: decode device share not "
+          "measured (the profiler recorded no kernel)")
+    return dict(tok_s=tok_s, step_ms=dt * 1e3 / steps_run, busy=busy)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1141,6 +1438,14 @@ def main() -> int:
     del lm["params"], lm["tokens"]
     torch.cuda.empty_cache()
     phase.done("LM serve")
+    crows = check_conv1d(torch)
+    phase.done("conv1d kernel check")
+    mb = mamba_prefill(torch)
+    phase.done("mamba prefill")
+    mserved = mamba_serve(torch, mb)
+    del mb["params"]
+    torch.cuda.empty_cache()
+    phase.done("mamba serve")
 
     vgg = [r for r in rows if r["vgg"]]
     kernels = []
@@ -1212,6 +1517,25 @@ def main() -> int:
         "bound_by": a["by"],
         "library_ms": a["library"],
     })
+    c = next(r for r in crows if r["name"] == "a_prefill")
+    kernels.append({
+        "name": "trim_conv1d",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/trim_conv1d.cu",
+        "replaces": "src/repro/kernels/trim_conv1d.py:29",
+        "launches": mb["launches"],
+        "max_abs_err": max(r["err"] for r in crows),
+        "ms": c["kernel"],
+        "plain_ms": c["plain"],
+        "bound_ms": c["bound"],
+        "bound_by": c["by"],
+        "library_ms": c["library"],
+    })
+    print(f"mamba: prefill {mb['ms']:.1f} ms a forward (2 x {MAMBA_SEQ}), "
+          f"serve {mserved['tok_s']:.1f} tok/s; trim_conv1d times are one "
+          f"launch at case a_prefill, the prefill's shape (one layer); its "
+          f"launches are the {mb['launches']} of the two timed full-width "
+          f"prefill forwards")
     print(f"LM: prefill {lm['ms']:.1f} ms a forward (2 x {PREFILL_SEQ}), "
           f"serve {served['tok_s']:.1f} tok/s; flash_attention times are "
           f"one launch at case (a), the prefill's shape (one layer); its "

@@ -1,9 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolution and parameter counts
 (the counterpart of ``repro/configs/registry.py``).
 
-The port runs the dense decoder family.  The other architectures of the
-JAX package are known by id and raise ``NotImplementedError`` naming the
-ROADMAP item that brings their family.
+The port runs the dense decoder family and the ssm family
+(falcon-mamba-7b).  The other architectures of the JAX package are known
+by id and raise ``NotImplementedError`` naming the ROADMAP item that
+brings their family.
 """
 
 from __future__ import annotations
@@ -15,11 +16,10 @@ from repro_torch.models.base import tree_size
 from repro_torch.models.config import ModelConfig
 
 _MODULES = ["qwen25_3b", "starcoder2_3b", "starcoder2_7b", "llama3_405b",
-            "llava_next_34b"]
+            "llava_next_34b", "falcon_mamba"]
 
 # arch id -> family, of the JAX package's architectures not ported yet
 NOT_PORTED = {
-    "falcon-mamba-7b": "ssm",
     "recurrentgemma-2b": "hybrid",
     "phi3.5-moe-42b-a6.6b": "moe",
     "qwen3-moe-30b-a3b": "moe",
@@ -46,7 +46,7 @@ def archs() -> list[str]:
 def get(arch_id: str):
     """The config module (``ARCH_ID``, ``CONFIG``, ``SMOKE``) of an id."""
     if arch_id in NOT_PORTED:
-        api.require_dense(NOT_PORTED[arch_id])
+        api.require_ported(NOT_PORTED[arch_id])
     table = _table()
     if arch_id not in table:
         raise KeyError(f"unknown arch {arch_id!r}; known: "

@@ -5,7 +5,9 @@
 ``simple_cnn_params``' (``conv{i}``, ``down{i}``, ``dw``, ``head``) or an
 LM's ``api.params`` (``tok {embed, head}``, ``blocks`` stacked over a
 leading layer axis — ``wq (L, d, h, hd)``, ``wo (L, h, hd, d)``, ... —
-``ln_f``, ``vision_proj``) — already converted to numpy arrays
+``ln_f``, ``vision_proj``; for the mamba family ``blocks.mixer.{w_in,
+conv_w, conv_b, w_x, w_dt, dt_bias, a_log, d_skip, w_out}`` and
+``blocks.ln``) — already converted to numpy arrays
 (``jax.tree.map(np.asarray, params)``), and returns the same tree as
 float32 tensors, keys, nesting and layouts unchanged: the ``params`` of
 ``models.layers.TrimCNN``, of the functional ``*_apply`` forwards and of

@@ -4,11 +4,13 @@
 for the H100 forward kernels of ``kernels/csrc/trim_conv2d.cu`` (which
 also run the input gradient, laid out by :func:`input_grad_geometry`);
 :class:`WeightGradPlan` plans the weight-gradient kernel of
-``kernels/csrc/trim_conv2d_wgrad.cu``.  The TPU forward plan sizes its strips for an
-8 MiB VMEM budget and 128-lane C_out tiles; neither applies to the card,
-where a block has at most 227 KB of shared memory.  So a block here owns a
-*column band* of ``tile_w`` output columns as well as a C_out tile, and
-holds the band's input window for all ``Cin/groups`` channels:
+``kernels/csrc/trim_conv2d_wgrad.cu``, and :class:`Conv1dPlan` the causal
+depthwise conv1d of ``kernels/csrc/trim_conv1d.cu``.  The TPU forward plan
+sizes its strips for an 8 MiB VMEM budget and 128-lane C_out tiles;
+neither applies to the card, where a block has at most 227 KB of shared
+memory.  So a block here owns a *column band* of ``tile_w`` output
+columns as well as a C_out tile, and holds the band's input window for
+all ``Cin/groups`` channels:
 
 * ``tile_h`` — fresh input rows per strip (a multiple of the stride; the
   strip makes ``tile_h // stride`` output rows).  Oversized strips are
@@ -439,3 +441,143 @@ class WeightGradPlan:
                  + self.n * self.h_out * self.w_out * self.cout
                  + self.dw_elems)
         return 4 * elems
+
+
+# ---------------------------------------------------------------------------
+# 1-D plan (causal depthwise conv: the Mamba / RG-LRU temporal mixing)
+# ---------------------------------------------------------------------------
+
+SMS = 132                     # H100 SXM streaming multiprocessors
+THREADS_PER_SM = 2048
+PEAK_F32_FLOPS = 67e12        # H100 SXM: f32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12    # H100 SXM: HBM3
+CONV1D_TILE_D = 256           # channels (one a thread) per block; the
+                              # kernel's __launch_bounds__ (kMaxThreads)
+CONV1D_TILE_LS = (256, 128, 64, 32, 16, 8)   # run lengths, longest first
+CONV1D_MIN_WAVES = 3          # full waves of resident blocks to aim for
+CONV1D_MAX_K = 8              # the kernel's instances: K = 2..8
+
+
+@dataclass(frozen=True)
+class Conv1dPlan:
+    """Launch geometry of the causal depthwise conv1d kernel
+    (``kernels/csrc/trim_conv1d.cu``); the Hopper counterpart of
+    ``repro/core/conv_plan.py:759``.
+
+        y[b, t, d] = sum_{i < K} x[b, t-K+1+i, d] * w[i, d]
+
+    The TPU plan sweeps chunks of 512 steps in order on one core, carrying
+    the ``K-1`` boundary rows in VMEM, with 1024-lane channel tiles.  On
+    the card blocks run in parallel and in no order, so nothing carries
+    between them.  Here a thread owns one channel of one *run* of
+    ``tile_l`` timesteps and keeps the ``K-1`` previous inputs of its
+    channel in registers (the shadow registers) while it walks the run;
+    a block is ``tile_d`` consecutive channels (D is contiguous, so a
+    warp's row loads coalesce); the grid is ``(B, D / tile_d,
+    L / tile_l)``.  A run's first ``K-1`` inputs are re-read from device
+    memory (zeros before t = 0): that halo is what the plan's
+    :meth:`hbm_bytes` prices beyond the least traffic, the JAX plan's
+    ``"trim"`` mode; a carry between runs (its ``"3dtrim"``) would save
+    exactly those bytes at the price of ordered runs.  ``tile_l`` is the
+    longest run that still gives :data:`CONV1D_MIN_WAVES` full waves of
+    resident blocks over the 132 SMs, since a short run costs only its
+    halo (3 rows in 32 at K = 4) while too few blocks leave SMs idle.
+    """
+
+    b: int
+    length: int
+    d: int
+    k: int
+    tile_l: int
+    tile_d: int
+
+    @classmethod
+    def build(cls, x_shape, w_shape, *,
+              tile_l: int | None = None) -> "Conv1dPlan":
+        """Plan from ``x (B, L, D)`` and ``w (K, D)``, choosing ``tile_l``
+        if it is left as ``None``; ``tile_d`` is :data:`CONV1D_TILE_D`, or
+        D rounded up to a warp when D is narrower.  Raises ``ValueError``
+        for what the kernel cannot take, so every plan it returns is one
+        the kernel runs."""
+        if len(x_shape) != 3 or len(w_shape) != 2:
+            raise ValueError(f"x must be (B, L, D) and w (K, D); got "
+                             f"{tuple(x_shape)} and {tuple(w_shape)}")
+        b, length, d = (int(v) for v in x_shape)
+        k, wd = (int(v) for v in w_shape)
+        if wd != d:
+            raise ValueError(f"w has {wd} channels, x has {d}")
+        if min(b, length, d) < 1:
+            raise ValueError(f"empty input {tuple(x_shape)}: B, L and D "
+                             "must be >= 1")
+        if b > 65535:
+            raise ValueError(f"B={b} > 65535, the grid's z limit")
+        if not 2 <= k <= CONV1D_MAX_K:
+            raise ValueError(f"K={k}: the kernel takes 2 <= K <= "
+                             f"{CONV1D_MAX_K} (ops.depthwise_conv1d routes "
+                             "K < 2 to the oracle)")
+        tile_d = min(CONV1D_TILE_D, -(-d // 32) * 32)
+        if tile_l is None:
+            wave = SMS * (THREADS_PER_SM // tile_d)
+            blocks = b * -(-d // tile_d)
+            tile_l = next((t for t in CONV1D_TILE_LS
+                           if blocks * -(-length // t)
+                           >= CONV1D_MIN_WAVES * wave), CONV1D_TILE_LS[-1])
+            tile_l = min(tile_l, length)
+        if tile_l < 1:
+            raise ValueError(f"tile_l={tile_l} must be >= 1")
+        return cls(b=b, length=length, d=d, k=k, tile_l=tile_l,
+                   tile_d=tile_d)
+
+    @property
+    def d_tiles(self) -> int:
+        return -(-self.d // self.tile_d)
+
+    @property
+    def runs(self) -> int:
+        return -(-self.length // self.tile_l)
+
+    @property
+    def grid(self) -> tuple[int, int, int]:
+        """(B, channel tiles, runs)."""
+        return (self.b, self.d_tiles, self.runs)
+
+    @property
+    def blocks(self) -> int:
+        return self.b * self.d_tiles * self.runs
+
+    @property
+    def halo_rows(self) -> int:
+        """Input rows re-read per (batch, channel): run r >= 1 re-reads
+        the ``min(K-1, r * tile_l)`` rows before it."""
+        r0 = max(1, -(-(self.k - 1) // self.tile_l))
+        partial = sum(r * self.tile_l for r in range(1, min(r0, self.runs)))
+        return partial + (self.k - 1) * max(0, self.runs - r0)
+
+    @property
+    def flops(self) -> int:
+        return 2 * self.b * self.length * self.d * self.k
+
+    def min_bytes(self) -> int:
+        """f32 bytes the function must move: x and w read once, y
+        written once."""
+        return 4 * (2 * self.b * self.length * self.d + self.k * self.d)
+
+    def hbm_bytes(self) -> dict:
+        """f32 bytes the kernel's schedule moves: every input row once,
+        plus each run's re-read halo; each block's ``K x tile_d`` weights;
+        the output once."""
+        inp = 4 * self.b * self.length * self.d
+        halo = 4 * self.b * self.d * self.halo_rows
+        weights = 4 * self.b * self.runs * self.k * self.d
+        out = 4 * self.b * self.length * self.d
+        return dict(input=inp, halo=halo, weights=weights, output=out,
+                    total=inp + halo + weights + out)
+
+    def bound(self) -> tuple[float, str]:
+        """(ms, "bytes" or "operations"): the least time the H100 takes,
+        :attr:`flops` over 67 TFLOP/s against :meth:`min_bytes` over
+        3.35 TB/s."""
+        ops_ms = self.flops / PEAK_F32_FLOPS * 1e3
+        bytes_ms = self.min_bytes() / PEAK_BYTES_PER_S * 1e3
+        return (max(ops_ms, bytes_ms),
+                "operations" if ops_ms >= bytes_ms else "bytes")

@@ -1,5 +1,5 @@
 """Operator API over the port's kernels (``repro/kernels/ops.py``): the
-conv and attention operators.
+conv, conv1d and attention operators.
 
 ``conv2d`` takes ``impl``:
 
@@ -20,6 +20,12 @@ dilated cotangent and whose ``dw`` runs the weight-gradient kernel.
 Otherwise the conv is one launch with the bias + activation epilogue
 fused, as served.
 
+``depthwise_conv1d`` takes ``impl``: ``"trim"`` (the hand-written Hopper
+kernel of ``kernels/trim_conv1d.py`` on a CUDA tensor, its plain version on
+a CPU tensor; the JAX ``"pallas"``) or ``"ref"`` (the oracle); K < 2 goes
+to the oracle either way, as in JAX.  ``depthwise_conv1d_step`` is the
+oracle's decode step.
+
 ``attention`` takes ``impl``: ``"flash"`` (the hand-written Hopper kernel
 of ``kernels/flash_attention.py`` on a CUDA tensor, its plain version on a
 CPU tensor), ``"chunked"`` (the same online softmax in plain PyTorch over
@@ -39,6 +45,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (NEG_INF, flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.ref import ACTIVATIONS, conv_pads
+from repro_torch.kernels.trim_conv1d import trim_conv1d
 from repro_torch.kernels.trim_conv2d import (trim_conv2d,
                                              trim_conv2d_input_grad,
                                              trim_conv2d_weight_grad)
@@ -194,6 +201,20 @@ def conv_pool_chain(x: torch.Tensor, weights, biases, steps, *,
         if ps > 1 or pw > 1:      # (1, w>1): stride-1 overlapping pool
             x = ref.maxpool2d(x, ps, pw)
     return x
+
+
+def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, *,
+                     impl: str = "trim") -> torch.Tensor:
+    """Causal depthwise conv1d (``repro/kernels/ops.py:822``).  x: (B, L,
+    D); w: (K, D)."""
+    if impl not in ("trim", "ref"):
+        raise ValueError(f"unknown impl {impl!r}; choose 'trim' or 'ref'")
+    if impl == "ref" or w.shape[0] < 2:
+        return ref.depthwise_conv1d(x, w)
+    return trim_conv1d(x, w)
+
+
+depthwise_conv1d_step = ref.depthwise_conv1d_step
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,10 @@
 Test oracles, independent of the kernel path and of its plain version: the
 convolution is one einsum over unfolded patches, not a tap loop, and its
 gradients are autograd through that einsum; attention is one softmax over
-the masked logits, with no blocking and no online normaliser.  On the
-card, run them with ``torch.backends.cuda.matmul.allow_tf32 = False`` (and
+the masked logits, with no blocking and no online normaliser; the causal
+depthwise conv1d is the JAX tap sum over the whole padded sequence, with
+no runs or halos.  On the card, run them with
+``torch.backends.cuda.matmul.allow_tf32 = False`` (and
 ``torch.backends.cudnn.allow_tf32 = False``) so f32 stays f32.
 """
 
@@ -103,6 +105,34 @@ def maxpool2d(x: torch.Tensor, stride: int, window: int) -> torch.Tensor:
     y = F.max_pool2d(x.permute(0, 3, 1, 2), kernel_size=window,
                      stride=stride)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise conv1d oracle (``repro/kernels/ref.py:170``; the
+    Mamba / RG-LRU temporal conv).  x: (B, L, D); w: (K, D).
+
+    ``y[b, t, d] = sum_k x[b, t-K+1+k, d] * w[k, d]`` with zero left
+    padding, summed from 0 in the JAX order k = 0..K-1, every product
+    rounded before its add.
+    """
+    k, length = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    return sum(xp[:, i:i + length] * w[i] for i in range(k))
+
+
+def depthwise_conv1d_step(state: torch.Tensor, x_t: torch.Tensor,
+                          w: torch.Tensor):
+    """Single decode step (``repro/kernels/ref.py:180``).  state: (B, K-1,
+    D), the trailing inputs; x_t: (B, D).  Returns (new_state, y_t).
+
+    The state is the decode-time image of the shadow registers: the K-1
+    values carried across step boundaries.  The window sum runs over k in
+    the order of :func:`depthwise_conv1d`, so stepping through a sequence
+    gives the full conv bit for bit.
+    """
+    window = torch.cat([state, x_t[:, None, :]], dim=1)      # (B, K, D)
+    y_t = sum(window[:, i] * w[i] for i in range(w.shape[0]))
+    return window[:, 1:], y_t
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -6,21 +6,21 @@
 ``decode_state(cfg, batch, max_len)``  -> Param tree of the decode state
 
 Batch dict keys: ``tokens`` (B, S) int, plus ``vision`` (B, Nv, d) for a
-VLM; decode adds ``cache_len`` (B,).  The port runs the dense family; the
-others raise ``NotImplementedError`` naming their ROADMAP item.
+VLM; decode adds ``cache_len`` (B,), which the ssm family ignores.  The
+port runs the dense and ssm families; the others raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import mamba, transformer
 from repro_torch.models.config import ModelConfig
 
+PORTED = ("dense", "ssm")
 # family -> the ROADMAP item that ports it
 NOT_PORTED = {
-    "ssm": "ROADMAP Queue 1 item 2b (falcon-mamba-7b: trim_conv1d and the "
-           "selective scan)",
     "hybrid": "ROADMAP Queue 1 item 2c (recurrentgemma-2b: RG-LRU)",
     "moe": "ROADMAP Queue 1 item 2d (MoE: moe_apply)",
     "encdec": "ROADMAP Queue 1 item 2e (encoder-decoder and "
@@ -28,38 +28,50 @@ NOT_PORTED = {
 }
 
 
-def require_dense(family: str) -> None:
+def require_ported(family: str) -> None:
+    """Raise unless the port runs ``family`` (dense or ssm)."""
     if family in NOT_PORTED:
         raise NotImplementedError(f"the port does not run the {family!r} "
                                   f"family yet: {NOT_PORTED[family]}")
-    if family != "dense":
+    if family not in PORTED:
         raise ValueError(f"unknown family {family!r}")
 
 
 def params(cfg: ModelConfig) -> dict:
-    require_dense(cfg.family)
+    require_ported(cfg.family)
+    if cfg.family == "ssm":
+        return mamba.lm_params(cfg)
     return transformer.lm_params(cfg)
 
 
 def forward(p: dict, batch: dict, cfg: ModelConfig):
     """Full-sequence forward (prefill).  Returns (logits, aux); aux, the
-    MoE load-balance loss of the JAX API, is 0.0 for the dense family."""
-    require_dense(cfg.family)
-    logits, _ = transformer.lm_apply(p, batch["tokens"], cfg,
-                                     vision_embeds=batch.get("vision"))
+    MoE load-balance loss of the JAX API, is 0.0 for the ported families."""
+    require_ported(cfg.family)
+    if cfg.family == "ssm":
+        logits, _ = mamba.lm_apply(p, batch["tokens"], cfg)
+    else:
+        logits, _ = transformer.lm_apply(p, batch["tokens"], cfg,
+                                         vision_embeds=batch.get("vision"))
     return logits, 0.0
 
 
 def decode_state(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """Param declaration tree of the decode-time state (zero KV caches)."""
-    require_dense(cfg.family)
+    """Param declaration tree of the decode-time state: zero KV caches, or
+    for the ssm family the zero conv windows and SSM states (no
+    ``max_len``: the state does not grow)."""
+    require_ported(cfg.family)
+    if cfg.family == "ssm":
+        return mamba.make_state(cfg, batch)
     return {"caches": transformer.make_caches(cfg, batch, max_len)}
 
 
 def decode(p: dict, batch: dict, state: dict, cfg: ModelConfig):
     """One-token decode step.  batch: tokens (B, 1), cache_len (B,).
-    Returns (logits (B, 1, V), state); the caches are updated in place."""
-    require_dense(cfg.family)
+    Returns (logits (B, 1, V), state); the state is updated in place."""
+    require_ported(cfg.family)
+    if cfg.family == "ssm":
+        return mamba.lm_apply(p, batch["tokens"], cfg, state=state)
     logits, caches = transformer.lm_apply(
         p, batch["tokens"], cfg, caches=state["caches"],
         cache_len=batch["cache_len"])

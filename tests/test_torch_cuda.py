@@ -22,7 +22,12 @@ flash-attention kernel is held against its plain version and the ``ref``
 oracle within 1e-5 * max|plain| (f32 sums in another order) on the CPU
 tests' geometries plus head dims 12, 14, 128 and 256, GQA groups 7 and 10,
 windows, soft caps and ragged Lq / Lk; a SMOKE LM prefill on it against
-``attn_impl="ref"``.
+``attn_impl="ref"``.  The conv1d kernel is held against its plain version
+and the ``ref`` oracle bit for bit (the same rounded products summed in
+the same order) on ragged runs, L < K-1, narrow channel counts, K = 2..8
+and strided views like the Mamba mixer's; a falcon-mamba-7b SMOKE prefill
+on it launches it once a layer and matches the same prefill on the CPU
+within 1e-5 * max|logits| (GEMMs in another order).
 """
 
 import pytest
@@ -377,3 +382,73 @@ def test_lm_prefill_on_the_kernel_matches_ref(cuda):
     last = lr[:, -1]
     picked = last.gather(1, tf[:, None])[:, 0]
     assert bool(((tf == tr) | (last.amax(1) - picked <= 2 * tol)).all())
+
+
+# (b, length, d, k, tile_l, strided)
+CONV1D_CASES = [
+    (2, 2048, 512, 4, None, True),
+    (2, 1000, 256, 4, 64, False),
+    (2, 2, 64, 4, None, False),
+    (1, 100, 24, 4, None, False),
+    (3, 7, 5, 2, None, False),
+    (2, 33, 16, 3, 5, True),
+    (3, 37, 70, 8, 1, False),
+    (1, 1, 8192, 4, None, True),
+]
+
+
+@pytest.mark.parametrize("case", CONV1D_CASES,
+                         ids=[str(i) for i in range(len(CONV1D_CASES))])
+def test_conv1d_kernel_equals_plain_bitwise(cuda, case):
+    from repro_torch.kernels import trim_conv1d as tc1
+    b, length, d, k, tile_l, strided = case
+    gen = torch.Generator(device="cuda").manual_seed(length + d)
+    xz = torch.randn((b, length, 2 * d if strided else d), generator=gen,
+                     device=cuda)
+    x = xz[..., :d]
+    w = torch.randn((k, d), generator=gen, device=cuda)
+    before = tc1.LAUNCHES["trim_conv1d"]
+    out = tc1.trim_conv1d(x, w, tile_l=tile_l)
+    again = tc1.trim_conv1d(x, w, tile_l=tile_l)
+    torch.cuda.synchronize()
+    assert tc1.LAUNCHES["trim_conv1d"] == before + 2
+    assert torch.equal(out, tc1.trim_conv1d_plain(x, w, tile_l=tile_l))
+    assert torch.equal(out, ref.depthwise_conv1d(x, w))
+    assert torch.equal(out, again)
+
+
+def test_conv1d_wrapper_raises_on_cuda(cuda):
+    from repro_torch.kernels import trim_conv1d as tc1
+    x = torch.zeros((2, 8, 4), device=cuda)
+    w = torch.zeros((4, 4), device=cuda)
+    with pytest.raises(ValueError):
+        tc1.trim_conv1d(x.half(), w.half())
+    with pytest.raises(ValueError):
+        tc1.trim_conv1d(x, w[:1])
+    with pytest.raises(ValueError):
+        tc1.trim_conv1d(x, w.cpu())
+
+
+def test_mamba_prefill_on_the_kernel_matches_the_cpu(cuda):
+    from repro_torch.configs import registry
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import trim_conv1d as tc1
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+    cfg = registry.get("falcon-mamba-7b").SMOKE
+    p = init_params(api.params(cfg), torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 100),
+                         generator=torch.Generator().manual_seed(1))
+    want, want_tok = steps.make_prefill_step(cfg)(p, {"tokens": toks})
+    pc = params_from_jax(p, device=cuda)       # the same tree, on the card
+    tc1.reset_launch_counts()
+    got, tok = steps.make_prefill_step(cfg)(pc, {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    assert tc1.LAUNCHES["trim_conv1d"] == cfg.n_layers
+    tol = 1e-5 * want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() <= tol
+    last = want[:, -1]
+    picked = last.gather(1, tok.cpu()[:, None])[:, 0]
+    assert bool(((tok.cpu() == want_tok)
+                 | (last.amax(1) - picked <= 2 * tol)).all())

@@ -3,7 +3,7 @@
 * no module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
   ``jax`` or anything of the JAX package ``repro`` (an AST scan);
 * an entry point given no device raises when PyTorch sees no GPU;
-* the kernel wrappers (conv, fused group, flash attention) raise on
+* the kernel wrappers (conv, fused group, flash attention, conv1d) raise on
   tensors their kernels cannot take (the CUDA cases themselves run in
   ``tests/test_torch_cuda.py`` on a GPU host), and their plain versions
   count no launch;
@@ -24,6 +24,7 @@ from repro_torch.core.model import ConvLayer
 from repro_torch.core.serving import ServingEngine
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import trim_conv1d as tc1
 from repro_torch.kernels import trim_conv2d as tc
 from repro_torch.launch import serve
 from repro_torch.kernels import trim_conv2d_fused as tfu
@@ -51,6 +52,10 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 15
+    names = {p.relative_to(ROOT / "src").as_posix() for p in files[:-1]}
+    assert {"repro_torch/models/mamba.py",
+            "repro_torch/kernels/trim_conv1d.py",
+            "repro_torch/configs/falcon_mamba.py"} <= names
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
@@ -70,6 +75,41 @@ def test_lm_serve_without_a_device_raises_without_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="GPU"):
         serve.main(["--smoke", "--batch", "1", "--gen", "1"])
+
+
+def test_mamba_serve_without_a_device_raises_without_a_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="GPU"):
+        serve.main(["--arch", "falcon-mamba-7b", "--smoke", "--batch", "1",
+                    "--gen", "1"])
+
+
+def test_conv1d_wrapper_rejects_what_the_kernel_cannot_take():
+    x, w = torch.zeros((2, 8, 4)), torch.zeros((4, 4))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tc1.trim_conv1d(x.to("meta"), w.to("meta"))
+    with pytest.raises(ValueError, match="share"):
+        tc1.trim_conv1d(x, w.to("meta"))
+    with pytest.raises(ValueError, match="float32"):
+        tc1.trim_conv1d(x.double(), w.double())
+    with pytest.raises(ValueError, match="contiguous channel"):
+        tc1.trim_conv1d(torch.zeros((2, 4, 8)).transpose(1, 2), w)
+    with pytest.raises(ValueError, match="K=1"):
+        tc1.trim_conv1d(x, w[:1])
+    with pytest.raises(ValueError, match="empty"):
+        tc1.trim_conv1d(torch.zeros((2, 0, 4)), w)
+    # no backward yet: under autograd it refuses rather than drop the
+    # gradient; under no_grad it runs
+    with pytest.raises(NotImplementedError, match="2f"):
+        tc1.trim_conv1d(x, w.requires_grad_())
+    with torch.no_grad():
+        assert tc1.trim_conv1d(x, w).grad_fn is None
+
+
+def test_conv1d_plain_path_does_not_count_launches():
+    tc1.reset_launch_counts()
+    tc1.trim_conv1d(torch.ones((2, 9, 5)), torch.ones((3, 5)), tile_l=4)
+    assert tc1.LAUNCHES == {"trim_conv1d": 0}
 
 
 def test_flash_wrapper_rejects_what_the_kernel_cannot_take():
