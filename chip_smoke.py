@@ -11,11 +11,12 @@ Phases, each raising on failure (each prints its seconds):
 2. build  — a fresh ``nvcc`` build of every kernel source for sm_90a, one
    process per source, all started together;
 3. kernel check — each conv kernel (carry, halo) against its plain PyTorch
-   version at the shapes of full-width VGG-16 (all 13 layers, batch 8),
-   plus one stride-2 and one depthwise case: max-abs error within
-   1e-4 * max(1, max|plain|) (sums of up to 4,608 f32 terms taken in
-   another order), carry == halo bitwise, and each one's time beside the
-   plain version's, ``F.conv2d``'s (TF32 off) and the card's bound;
+   version at the shapes of full-width VGG-16 (all 13 layers), plus one
+   stride-2 and one depthwise case, at batch 8 and again at batch 1:
+   max-abs error within 1e-4 * max(1, max|plain|) (sums of up to 4,608
+   f32 terms taken in another order), carry == halo bitwise, and each
+   one's time and TFLOP/s and the plan's blocks beside the plain
+   version's and ``F.conv2d``'s (TF32 off) times and the card's bound;
 4. backward kernel check — at the same 15 shapes: the weight-gradient
    kernel against its plain version within 1e-4 * max|plain| (see
    ``WGRAD_TOLERANCE``), two launches bitwise equal, and its time beside
@@ -23,25 +24,30 @@ Phases, each raising on failure (each prints its seconds):
    the bound; the input gradient (the carry kernel on the dilated
    cotangent) against the plain forward on the same padded cotangent,
    within the forward's tolerance;
-5. fused kernel check — every fused group of ``FusedGroupPlan.build``
-   for full-width VGG-16 at batch 8 and at batch 1 (at least one at
-   each), plus the small geometry chains of the CPU tests (a 'valid'
+5. fused kernel check — full-width VGG-16's two-layer groups
+   conv1..conv2 (tile 8 x 16) and conv3..conv4 (4 x 8), built at their
+   tiles since the plan fuses no full-width layer (its description is
+   printed), at batch 8 and 1, every group the plan
+   picks for VGG-16 at 1/16 width (``fused_topo``; at least one at each
+   batch), and the small geometry chains of the CPU tests (a 'valid'
    strided stage with an overlapping 3/2 pool, a pool-free chain) at
    several tiles: the fused kernel against its plain version within
    the forward tolerance and bitwise equal to the per-layer carry chain
-   (``reference_chain``); for the VGG-16 groups also its time beside the
-   chain's, the plain version's, the ``F.conv2d`` + ``F.max_pool2d``
+   (``reference_chain``); for the full-width groups also its time beside
+   the chain's, the plain version's, the ``F.conv2d`` + ``F.max_pool2d``
    chain's (TF32 off; no single PyTorch call computes a group) and the
    bound, with the plan's executed and per-layer bytes;
 6. serve — full-width VGG-16 (1000 classes, seeded random weights) served
    through ``ServingEngine`` on buckets (1, 2, 4, 8): a seeded Poisson
-   trace on the carry kernel, then part of it on the halo kernel, then
-   all of it with ``fused=True`` (serve[fused]); every served row must
-   bit-match ``forward_one`` (halo and fused rows: the carry rows too);
-   a per-layer forward must launch its kernel 13 times, a fused one the
-   fused kernel once per fused group of its bucket's plan and the carry
-   kernel for the other layers; one image's logits must agree with the
-   ``impl="ref"`` oracle;
+   trace on the carry kernel, then part of it on the halo kernel and
+   with ``fused=True`` (which the plan runs per layer at full width);
+   then VGG-16/16 on the carry kernel and with ``fused=True``
+   (serve[fused]); every served row must bit-match ``forward_one`` (halo
+   and fused rows: the carry rows too); a per-layer forward must launch
+   its kernel 13 times, a fused one the fused kernel once per fused
+   group of its bucket's plan and the carry kernel for the other
+   layers; one image's logits must agree with the ``impl="ref"``
+   oracle;
 7. train — full-width VGG-16 (224x224, 1000 classes, seeded weights and
    data, batch 8): the step-1 gradient of every leaf against autograd of
    ``impl="ref"`` on the kernels' branch (``branch_matched_oracle``)
@@ -51,10 +57,11 @@ Phases, each raising on failure (each prints its seconds):
    weight-gradient calls, a finite loss, and step 1 run again from the
    same state giving bitwise equal parameters; ms per step and peak
    device memory;
-8. train[fused] — step 1 again with ``fused=True``: its gradients and
-   the parameters after it bitwise equal to the per-layer step's, with
-   25 carry, 13 weight-gradient and one fused launch per fused group
-   (the backward recomputes each group per layer);
+8. train[fused] — one VGG-16/16 AdamW step (batch 8) with ``fused=True``
+   and the same step per layer from the same state: gradients and the
+   parameters after it bitwise equal, with 25 carry, 13 weight-gradient
+   and one fused launch per fused group (the backward recomputes each
+   group per layer);
 9. trainer — ``launch.train_cnn.train`` at the example's settings (50
    steps, batch 16): the mean of the last five losses below the first
    five's minus 0.1;
@@ -63,7 +70,9 @@ Phases, each raising on failure (each prints its seconds):
    L=4096, Hq=16, Hkv=2, D=128, causal; (b) a 17-query continuation of
    4096 keys; (c) recurrentgemma-2b's geometry, Hq=10, Hkv=1, D=256,
    window 2048, soft cap 30; (d) (a) without the causal mask; (e) ragged
-   Lq=17 / Lk=47; each one's time beside the plain version's and the
+   Lq=17 / Lk=47; (f) head_dim 320 and (g) 512 with a 512 window, the
+   wide-head route (B=1, L=2048, Hq=8, Hkv=2); each one's time beside
+   the plain version's and the
    bound, and for (a) ``F.scaled_dot_product_attention`` (the yardstick;
    the port never calls it);
 11. LM prefill — full-width qwen2.5-3b (36 layers, 3.4 B parameters drawn
@@ -87,7 +96,8 @@ Phases, each raising on failure (each prints its seconds):
    plain version and the ``ref`` oracle, bit for bit, at falcon-mamba-7b's
    prefill shape (B 2, L 2048, D 8192, K 4), contiguous and as the mixer's
    strided half of the in-projection, and at edge cases (runs that do not
-   divide L, L < K-1, D = 5 and 24, K = 2 and 3, B = 3, L = 1); at the
+   divide L, L < K-1, D = 5 and 24, K = 2 and 3, B = 3, L = 1) and K = 9
+   (at the prefill's shape) and 16 (the runtime-K instance); at the
    prefill's shape its time beside the plain version's, ``F.conv1d``'s on
    input laid out (B, D, L) (TF32 off) and the plan's bound, and the
    bytes the function must move beside those the kernel's schedule moves
@@ -180,6 +190,7 @@ TRAIN_BATCH = 8
 TRAIN_STEPS = 3
 REQUESTS = 48               # carry- and fused-kernel serving traces
 HALO_REQUESTS = 16          # halo-kernel serving trace (a prefix of it)
+FUSED_SCALE = 16            # channel divisor of the fused phases' VGG-16
 ARRIVAL_RATE = 200.0        # requests per second (Poisson)
 
 
@@ -221,32 +232,38 @@ def time_ms(torch, fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_cases():
-    """(name, x_shape, w_shape, stride, groups): VGG-16 at batch 8, then
-    the extra stride-2 and depthwise cases."""
+def kernel_cases(n: int = 8):
+    """(name, x_shape, w_shape, stride, groups): VGG-16 at batch ``n``,
+    then the extra stride-2 and depthwise cases."""
     from repro_torch.core.model import vgg16_layers
-    cases = [(l.name, (8, l.ifmap, l.ifmap, l.in_channels),
+    cases = [(l.name, (n, l.ifmap, l.ifmap, l.in_channels),
               (3, 3, l.in_channels, l.out_channels), 1, 1)
              for l in vgg16_layers()]
-    cases.append(("s2_56x128", (8, 56, 56, 128), (3, 3, 128, 256), 2, 1))
-    cases.append(("dw_112x32", (8, 112, 112, 32), (3, 3, 1, 32), 1, 32))
+    cases.append(("s2_56x128", (n, 56, 56, 128), (3, 3, 128, 256), 2, 1))
+    cases.append(("dw_112x32", (n, 112, 112, 32), (3, 3, 1, 32), 1, 32))
     return cases
 
 
-def check_kernels(torch):
+def check_kernels(torch, n: int = 8):
+    """Carry and halo against the plain version at VGG-16's shapes at
+    batch ``n`` (plus the stride-2 and depthwise cases); each one's time,
+    TFLOP/s and the plan's blocks beside the plain version's and
+    ``F.conv2d``'s times and the bound."""
     import torch.nn.functional as F
     from repro_torch.core.conv_plan import ConvPlan
     from repro_torch.kernels.ref import conv_pads, pad_nhwc
     from repro_torch.kernels.trim_conv2d import (trim_conv2d,
                                                  trim_conv2d_plain)
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(0 if n == 8 else n)
     rows = []
-    print("kernel check (relu, bias, 'same'; times in ms, device events):")
+    print(f"kernel check, batch {n} (relu, bias, 'same'; times in ms, "
+          "device events; blocks carry/halo; tile T x W x C_out):")
     print(f"  {'case':10s} {'max_err':>9s} {'tol':>8s} {'c==h':>5s} "
           f"{'carry':>8s} {'halo':>8s} {'plain':>8s} {'F.conv':>8s} "
-          f"{'bound':>8s} by")
-    for name, xs, wsh, stride, groups in kernel_cases():
+          f"{'bound':>8s} by         {'TF/s c':>6s} {'TF/s h':>6s} "
+          f"{'blocks':>10s} tile")
+    for name, xs, wsh, stride, groups in kernel_cases(n):
         k = wsh[0]
         x = torch.randn(xs, generator=gen, device="cuda")
         w = torch.randn(wsh, generator=gen, device="cuda") \
@@ -263,10 +280,11 @@ def check_kernels(torch):
                   (halo - plain).abs().max().item())
         same = torch.equal(carry, halo)
         if not np.isfinite(err) or err > TOLERANCE * scale:
-            raise AssertionError(f"{name}: max|kernel - plain| = {err} > "
-                                 f"{TOLERANCE} * {scale}")
+            raise AssertionError(f"{name} n={n}: max|kernel - plain| = "
+                                 f"{err} > {TOLERANCE} * {scale}")
         if not same:
-            raise AssertionError(f"{name}: carry and halo differ bitwise")
+            raise AssertionError(f"{name} n={n}: carry and halo differ "
+                                 "bitwise")
         xp = pad_nhwc(x, pads).permute(0, 3, 1, 2)
         wl = w.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
@@ -282,6 +300,8 @@ def check_kernels(torch):
         }
         plan = ConvPlan.build(xs, wsh, stride=stride, pad=pads,
                               groups=groups)
+        halo_plan = ConvPlan.build(xs, wsh, stride=stride, pad=pads,
+                                   groups=groups, dataflow="halo")
         ops_ms = plan.flops / PEAK_F32_FLOPS * 1e3
         bytes_ms = plan.min_bytes() / PEAK_BYTES_PER_S * 1e3
         bound = max(ops_ms, bytes_ms)
@@ -289,11 +309,22 @@ def check_kernels(torch):
         rows.append(dict(name=name, err=err, bound=bound, by=by,
                          ops_ms=ops_ms, bytes_ms=bytes_ms,
                          vgg=name.startswith("conv"), **t))
+        blocks = f"{plan.blocks}/{halo_plan.blocks}"
         print(f"  {name:10s} {err:9.2e} {TOLERANCE * scale:8.1e} "
               f"{str(same):>5s} {t['carry']:8.3f} {t['halo']:8.3f} "
-              f"{t['plain']:8.3f} {t['library']:8.3f} {bound:8.3f} {by}")
+              f"{t['plain']:8.3f} {t['library']:8.3f} {bound:8.3f} "
+              f"{by:10s} {plan.flops / t['carry'] / 1e9:6.2f} "
+              f"{plan.flops / t['halo'] / 1e9:6.2f} {blocks:>10s} "
+              f"{plan.th_out}x{plan.tile_w}x{plan.tile_cout}")
         del x, w, b, plain, carry, halo, xp, wl
     torch.cuda.empty_cache()
+    vgg = [r for r in rows if r["vgg"]]
+    print(f"kernel check, batch {n}, sum of the 13 VGG-16 layers: carry "
+          f"{sum(r['carry'] for r in vgg):.3f} ms, halo "
+          f"{sum(r['halo'] for r in vgg):.3f} ms, plain "
+          f"{sum(r['plain'] for r in vgg):.3f} ms, F.conv2d "
+          f"{sum(r['library'] for r in vgg):.3f} ms, bound "
+          f"{sum(r['bound'] for r in vgg):.3f} ms")
     return rows
 
 
@@ -434,38 +465,66 @@ def time_fused(torch, g, x, ws, bs, exec_bytes):
                              for i in range(g.depth)) / 1e6)
 
 
+def fused_topo():
+    """VGG-16 at 1/16 width, the JAX fused parity tests' model: the
+    network the fused serving and training phases run, since at full
+    width no group moves fewer bytes than the per-layer kernel and the
+    plan fuses none (PERF.md §6)."""
+    from repro_torch.core.model import vgg16_layers
+    from repro_torch.core.netplan import scale_layers
+    return scale_layers(vgg16_layers(), FUSED_SCALE)
+
+
+def vgg16_pair_groups(n):
+    """Full-width VGG-16's two-layer groups at tiles that fit 227 KB:
+    conv1..conv2 (8 x 16) and conv3..conv4 (4 x 8)."""
+    from repro_torch.core.fuse_plan import build_group
+    from repro_torch.core.model import vgg16_layers
+    from repro_torch.core.netplan import infer_pools
+    topo, pools = vgg16_layers(), infer_pools(vgg16_layers())
+    return [build_group(topo[s:s + 2], s, n=n, strip_rows=t, band_cols=b,
+                        pools=pools[s:s + 2])
+            for s, t, b in ((0, 8, 16), (2, 4, 8))]
+
+
 def check_fused(torch):
     """Fused kernel against its plain version and the per-layer carry
-    chain on every fused VGG-16 group (batch 8 and 1) and the small
-    chains; returns one row per group, timed for the VGG-16 groups (the
-    small chains are there for their geometry)."""
+    chain on full-width VGG-16's two-layer groups (batch 8 and 1, timed),
+    on every group the plan picks for VGG-16 at 1/16 width (batch 8 and
+    1) and on the small chains; returns one row per group."""
     from repro_torch.core.fuse_plan import (FusedGroupPlan, build_group,
                                             per_layer_exec_bytes)
     from repro_torch.core.netplan import infer_pools
     from repro_torch.kernels import trim_conv2d_fused as tf
 
-    gen = torch.Generator(device="cuda").manual_seed(2)
     cases = []
     for n in (8, 1):
-        plan = FusedGroupPlan.build("vgg16", n=n)
+        full = FusedGroupPlan.build("vgg16", n=n)
+        print(f"fused plan, VGG-16 batch {n}: {full.describe()}; per-layer "
+              f"{full.never_hbm_bytes() / 1e6:.1f} MB")
+        cases += [(f"vgg16 n={n}", g, full.layer_exec_bytes)
+                  for g in vgg16_pair_groups(n)]
+        plan = FusedGroupPlan.build(fused_topo(), n=n)
         if not plan.fused_groups:
-            raise AssertionError(f"the VGG-16 plan at batch {n} has no "
-                                 "fused group")
+            raise AssertionError(f"the VGG-16/{FUSED_SCALE} plan at batch "
+                                 f"{n} has no fused group")
         sm = plan.summary()
-        print(f"fused plan, VGG-16 batch {n}: {plan.describe()}; executed "
+        print(f"fused plan, VGG-16/{FUSED_SCALE} batch {n}: "
+              f"{plan.describe()}; executed "
               f"{sm['executed_bytes'] / 1e6:.1f} MB vs per-layer "
               f"{sm['per_layer_bytes'] / 1e6:.1f} MB, FLOPs x"
               f"{sm['executed_flops'] / sm['flops']:.4f}")
-        cases += [(f"vgg16 n={n}", g, plan.layer_exec_bytes)
+        cases += [(f"vgg16/{FUSED_SCALE} n={n}", g, plan.layer_exec_bytes)
                   for g in plan.fused_groups]
     for name, (topo, tiles) in small_chains().items():
         exec_bytes = per_layer_exec_bytes(topo, infer_pools(topo), n=2)
         cases += [(name, build_group(topo, 0, n=2, strip_rows=t,
                                      band_cols=b), exec_bytes)
                   for t, b in tiles]
+    gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     print("fused kernel check (relu, bias; times in ms, device events):")
-    print(f"  {'case':13s} {'group':12s} {'T':>3s} {'B':>3s} "
+    print(f"  {'case':16s} {'group':12s} {'T':>3s} {'B':>3s} "
           f"{'max_err':>9s} {'tol':>8s} {'==chain':>7s} {'fused':>8s} "
           f"{'chain':>8s} {'plain':>8s} {'F.chain':>8s} {'bound':>8s} by"
           f"         {'MB exec':>8s} {'MB layer':>8s} {'FLOPx':>6s}")
@@ -495,10 +554,10 @@ def check_fused(torch):
                                  "the per-layer carry chain differ bitwise")
         row = dict(case=case, group=g.label, err=err,
                    vgg8=case == "vgg16 n=8")
-        line = (f"  {case:13s} {g.label:12s} {g.strip_rows:3d} "
+        line = (f"  {case:16s} {g.label:12s} {g.strip_rows:3d} "
                 f"{g.band_cols:3d} {err:9.2e} {TOLERANCE * scale:8.1e} "
                 f"{str(same):>7s}")
-        if case.startswith("vgg16"):
+        if case.startswith("vgg16 "):
             row.update(time_fused(torch, g, x, ws, bs, exec_bytes))
             line += (f" {row['fused']:8.3f} {row['chain']:8.3f} "
                      f"{row['plain']:8.3f} {row['library']:8.3f} "
@@ -571,8 +630,7 @@ def grads(apply_fn, params, x, y):
 
 def train_vgg16(torch):
     """Full-width VGG-16 training steps; returns the wgrad and carry launch
-    counts of the steps and what train[fused] compares with: the state
-    before step 1, the step-1 gradients and parameters, the batch."""
+    counts of the steps."""
     from repro_torch.core.model import vgg16_layers
     from repro_torch.kernels import trim_conv2d as tc
     from repro_torch.launch.train_cnn import train_step
@@ -659,76 +717,84 @@ def train_vgg16(torch):
           f"host clock to synchronize; step 1 {times[0]:.1f} ms), peak "
           f"device memory {peak:.2f} GiB; step 1 repeated from the same "
           "state is bitwise equal")
-    return launches, dict(state0=state0, step1=step1, grads=g_trim,
-                          batch=batches[0], cfg=cfg)
+    return launches
 
 
-def train_fused(torch, ref):
-    """One VGG-16 AdamW step with ``fused=True`` from the train phase's
-    state: gradients and parameters bitwise equal to the per-layer
-    step's.  Returns the step's launch counts."""
+def train_fused(torch):
+    """One AdamW step of VGG-16/16 (``fused_topo``) with ``fused=True``
+    against the same step per layer, from the same state: gradients and
+    parameters bitwise equal.  Returns the fused step's launch counts."""
     from repro_torch.core.fuse_plan import FusedGroupPlan
-    from repro_torch.core.model import vgg16_layers
     from repro_torch.kernels import trim_conv2d as tc
     from repro_torch.launch.train_cnn import train_step
-    from repro_torch.models.layers import cnn_apply_from_layers
-    from repro_torch.optim import adamw
+    from repro_torch.models.layers import TrimCNN, cnn_apply_from_layers
+    from repro_torch.optim import AdamWConfig, adamw
 
-    topo = vgg16_layers()
+    topo = fused_topo()
     plan = FusedGroupPlan.build(topo, n=TRAIN_BATCH)
+    model = TrimCNN.random(topo, n_classes=1000, seed=0, device="cuda",
+                           trainable=True)
+    params = {k: {n: t.detach() for n, t in v.items()}
+              for k, v in model.tree().items()}
+    cfg = AdamWConfig()
+    moments = adamw.init_moments(params, cfg)
+    rng = np.random.default_rng(4)
+    x0 = torch.from_numpy(rng.standard_normal(
+        (TRAIN_BATCH, 224, 224, 3)).astype(np.float32)).cuda()
+    y0 = torch.from_numpy(rng.integers(0, 1000, TRAIN_BATCH)).cuda()
 
-    def apply_fn(p, x):
+    def fused_fn(p, x):
         return cnn_apply_from_layers(p, topo, x, fused=True)
 
-    params, moments = ref["state0"]
-    x0, y0 = ref["batch"]
-    _, g_fused = grads(apply_fn, params, x0, y0)
-    diff = [i for i, (a, b) in enumerate(zip(g_fused, ref["grads"]))
+    _, g_layer = grads(model.apply_tree, params, x0, y0)
+    _, g_fused = grads(fused_fn, params, x0, y0)
+    diff = [i for i, (a, b) in enumerate(zip(g_fused, g_layer))
             if not torch.equal(a, b)]
     if diff:
         raise AssertionError(f"train[fused]: gradients of leaves {diff} "
                              "differ from the per-layer step's")
-    del g_fused
+    want_params, _, _, _ = train_step(params, moments, 0, x0, y0,
+                                      apply_fn=model.apply_tree, cfg=cfg)
     tc.reset_launch_counts()
     t0 = time.perf_counter()
     new, _, loss, _ = train_step(params, moments, 0, x0, y0,
-                                 apply_fn=apply_fn, cfg=ref["cfg"])
+                                 apply_fn=fused_fn, cfg=cfg)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     launches = dict(tc.LAUNCHES)
-    fused = len(plan.fused_groups)
-    want = {"carry": 25, "halo": 0, "wgrad": 13, "fused": fused}
+    want = {"carry": 25, "halo": 0, "wgrad": 13,
+            "fused": len(plan.fused_groups)}
     if launches != want:
         raise AssertionError(f"train[fused]: launches {launches}, want "
                              f"{want} (fused forward, per-layer recompute "
                              "of each group in the backward)")
     same = all(torch.equal(a, b) for a, b in zip(
-        adamw.tree_leaves(new), adamw.tree_leaves(ref["step1"])))
+        adamw.tree_leaves(new), adamw.tree_leaves(want_params)))
     if not same:
         raise AssertionError("train[fused]: parameters after the step "
                              "differ from the per-layer step's")
-    print(f"train[fused]: groups {plan.describe()}; step-1 gradients of "
-          f"all {len(ref['grads'])} leaves and the parameters after the "
-          f"AdamW step bitwise equal to the per-layer step's; loss "
-          f"{loss.item():.6f}, {ms:.1f} ms (host clock, first fused "
-          f"step), launches {launches}")
+    print(f"train[fused]: VGG-16/{FUSED_SCALE}, batch {TRAIN_BATCH}, groups "
+          f"{plan.describe()}; step-1 gradients of all {len(g_layer)} "
+          f"leaves and the parameters after the AdamW step bitwise equal "
+          f"to the per-layer step's; loss {loss.item():.6f}, {ms:.1f} ms "
+          f"(host clock, first fused step), launches {launches}")
     return launches
 
 
-def serve(n_requests, dataflow, model, xs, expect=None, fused=False):
+def serve(n_requests, dataflow, model, xs, expect=None, fused=False,
+          label=None):
     """Replay a seeded Poisson trace through the serving engine on one
     dataflow (or fused groups); return (results, launch counts, forwards,
     latency summary).  Rows are held against ``forward_one`` (unless ``expect``
     is given and the run is not fused) and against ``expect``."""
     from repro_torch.core.fuse_plan import FusedGroupPlan
-    from repro_torch.core.model import vgg16_layers
     from repro_torch.core.serving import ServingEngine, replay
     from repro_torch.kernels import trim_conv2d as tc
     from repro_torch.models.layers import TrimCNN
     from repro_torch.testing.load import poisson_arrivals
 
-    topo = vgg16_layers()
-    label = "fused" if fused else dataflow
+    topo = model.layers_list
+    label = label or ("fused" if fused else dataflow)
     served = TrimCNN(topo, model.tree(), dataflow=dataflow)
     engine = ServingEngine.for_topology(topo, served, buckets=(1, 2, 4, 8),
                                         device="cuda", fused=fused)
@@ -752,7 +818,7 @@ def serve(n_requests, dataflow, model, xs, expect=None, fused=False):
         groups = (FusedGroupPlan.build(topo, n=bucket).fused_groups
                   if fused else ())
         want["fused"] += count * len(groups)
-        want[dataflow] += count * (13 - sum(g.depth for g in groups))
+        want[dataflow] += count * (len(topo) - sum(g.depth for g in groups))
     if launches != want:
         raise AssertionError(f"serve[{label}]: launches {launches} for "
                              f"{forwards} forwards, want {want}")
@@ -789,7 +855,9 @@ def attention_cases():
             ("b_continue", 2, 17, 4096, 16, 2, 128, True, None, None),
             ("c_rgemma", 2, 4096, 4096, 10, 1, 256, True, 30.0, 2048),
             ("d_noncausal", 2, 4096, 4096, 16, 2, 128, False, None, None),
-            ("e_ragged", 2, 17, 47, 16, 2, 128, True, None, None)]
+            ("e_ragged", 2, 17, 47, 16, 2, 128, True, None, None),
+            ("f_d320", 1, 2048, 2048, 8, 2, 320, True, None, None),
+            ("g_d512_win", 1, 2048, 2048, 8, 2, 512, True, None, 512)]
 
 
 def attention_bound(b, lq, lk, hq, hkv, d, causal, window):
@@ -1108,7 +1176,9 @@ def conv1d_cases():
             ("e_d5_k2_b3", 3, 7, 5, 2, None, False),
             ("f_d24", 1, 100, 24, 4, None, False),
             ("g_k3_view", 2, 33, 16, 3, 5, True),
-            ("h_decode_len", 4, 1, 8192, 4, None, True)]
+            ("h_decode_len", 4, 1, 8192, 4, None, True),
+            ("i_k9", 2, 2048, 8192, 9, None, False),
+            ("j_k16_view", 2, 300, 96, 16, 7, True)]
 
 
 def check_conv1d(torch):
@@ -1382,7 +1452,8 @@ def main() -> int:
         for line in log["ptxas"]:
             print(f"    {line.strip()}")
 
-    rows = check_kernels(torch)
+    rows = check_kernels(torch, 8)
+    rows1 = check_kernels(torch, 1)
     phase.done("kernel check")
     brows = check_backward_kernels(torch)
     phase.done("backward kernel check")
@@ -1398,8 +1469,18 @@ def main() -> int:
                                                     model, xs)
     _, halo_launches, halo_fw, _ = serve(HALO_REQUESTS, "halo", model, xs,
                                          expect=carry_rows)
-    _, fused_launches, fused_fw, _ = serve(REQUESTS, "carry", model, xs,
-                                           expect=carry_rows, fused=True)
+    # at full width the plan fuses no group: fused=True serves per layer
+    _, full_fused_launches, _, _ = serve(HALO_REQUESTS, "carry", model, xs,
+                                         expect=carry_rows, fused=True)
+    small = TrimCNN.random(fused_topo(), n_classes=1000, seed=0,
+                           device="cuda")
+    small_label = f"VGG-16/{FUSED_SCALE}"
+    small_rows, small_launches, _, _ = serve(
+        REQUESTS, "carry", small, xs, label=f"carry, {small_label}")
+    _, fused_launches, fused_fw, _ = serve(
+        REQUESTS, "carry", small, xs, expect=small_rows, fused=True,
+        label=f"fused, {small_label}")
+    del small
     with torch.inference_mode():
         oracle = TrimCNN(vgg16_layers(), model.tree(), impl="ref")(
             torch.from_numpy(xs[:1]).cuda()).cpu().numpy()[0]
@@ -1414,10 +1495,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase.done("serve")
 
-    train_launches, step1 = train_vgg16(torch)
+    train_launches = train_vgg16(torch)
     phase.done("train")
-    train_fused_launches = train_fused(torch, step1)
-    del step1
+    train_fused_launches = train_fused(torch)
     torch.cuda.empty_cache()
     phase.done("train[fused]")
 
@@ -1449,7 +1529,8 @@ def main() -> int:
 
     vgg = [r for r in rows if r["vgg"]]
     kernels = []
-    carry_total = (carry_launches["carry"] + fused_launches["carry"]
+    carry_total = (carry_launches["carry"] + full_fused_launches["carry"]
+                   + small_launches["carry"] + fused_launches["carry"]
                    + train_launches["carry"] + train_fused_launches["carry"])
     for df, launches, src_line in (
             ("carry", carry_total, 127),
@@ -1541,16 +1622,23 @@ def main() -> int:
           f"one launch at case (a), the prefill's shape (one layer); its "
           f"launches are the {lm['launches']} of the two timed full-width "
           f"prefill forwards")
+    vgg1 = [r for r in rows1 if r["vgg"]]
+    print(f"kernel times at batch 1, sums over the 13 VGG-16 layers: carry "
+          f"{sum(r['carry'] for r in vgg1):.3f} ms, halo "
+          f"{sum(r['halo'] for r in vgg1):.3f} ms, F.conv2d "
+          f"{sum(r['library'] for r in vgg1):.3f} ms")
     print("kernel times: sums over the 13 VGG-16 conv layers at batch 8 "
-          "(trim_conv2d_fused: over the fused groups of the batch-8 plan, "
+          "(trim_conv2d_fused: over full-width VGG-16's two-layer groups "
+          "at batch 8, "
           f"per-layer carry chain of the same layers "
           f"{sum(r['chain'] for r in fvgg):.3f} ms, F.conv2d + "
           f"F.max_pool2d chain {sum(r['library'] for r in fvgg):.3f} ms); "
           f"launches from the main paths: serving ({carry_fw} carry "
-          f"forwards, {halo_fw} halo forwards, {fused_fw} fused forwards: "
-          f"{fused_launches}) and the {TRAIN_STEPS} + 1 VGG-16 training "
-          f"steps (per-layer {train_launches}, fused "
-          f"{train_fused_launches})")
+          f"forwards, {halo_fw} halo forwards, {fused_fw} fused forwards "
+          f"of VGG-16/{FUSED_SCALE}: {fused_launches}) and the "
+          f"{TRAIN_STEPS} VGG-16 training steps (per layer, "
+          f"{train_launches}) and one VGG-16/{FUSED_SCALE} fused step "
+          f"({train_fused_launches})")
     phase.total()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

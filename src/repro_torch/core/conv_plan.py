@@ -1,8 +1,8 @@
 """Hopper launch geometry for one 3D-TrIM convolution and its gradients.
 
 :class:`ConvPlan` is the counterpart of ``repro.core.conv_plan.ConvPlan``
-for the H100 forward kernels of ``kernels/csrc/trim_conv2d.cu`` (which
-also run the input gradient, laid out by :func:`input_grad_geometry`);
+for the H100 forward kernel of ``kernels/csrc/trim_conv2d.cu`` (which
+also runs the input gradient, laid out by :func:`input_grad_geometry`);
 :class:`WeightGradPlan` plans the weight-gradient kernel of
 ``kernels/csrc/trim_conv2d_wgrad.cu``, and :class:`Conv1dPlan` the causal
 depthwise conv1d of ``kernels/csrc/trim_conv1d.cu``.  The TPU forward plan
@@ -18,26 +18,40 @@ all ``Cin/groups`` channels:
   (``repro/core/conv_plan.py:166-173``).
 * ``carry_rows = max(K - stride, 0)`` — the rows a strip shares with its
   successor: kept in shared memory by ``carry``, re-read by ``halo``.
-* ``window_rows x window_cols x Cin/groups`` — the shared-memory ring;
-  ``smem_bytes`` adds one staged weight chunk and must fit
+* ``segments`` — a band's strips are cut into this many carry chains,
+  one block each; each loads its first window whole and then carries.
+  ``halo`` is the limit of one strip a segment.
+* ``ring_rows x window_cols x cin_stride`` — the shared-memory ring of
+  input rows; ``smem_bytes`` adds the weight ring and must fit
   :data:`SMEM_PER_BLOCK`.
 
-The kernel constants (threads, per-thread register tile, weight chunk)
-mirror the ``constexpr`` values at the top of the ``.cu`` file.
+The forward kernel's constants are the ``CONV_*`` values below; they
+mirror the ``constexpr`` values at the top of ``trim_conv2d.cu``.
+``THREADS`` and ``WEIGHT_CHUNK`` are the fused kernel's
+(``core/fuse_plan.py``, ``trim_conv2d_fused.cu``).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 SMEM_PER_BLOCK = 232_448     # H100: 227 KB of opt-in shared memory per block
-THREADS = 256                # threads per block (kThreads)
-MAX_POSITIONS = 8            # output positions per thread (kMaxPositions)
-MAX_COUT_PER_THREAD = 4      # output channels per thread (kMaxCout)
-WEIGHT_CHUNK = 32            # input channels per staged weight chunk
+SMEM_PER_SM = 233_472        # H100: 228 KB of shared memory per SM
+SMEM_RESERVED_PER_BLOCK = 1_024   # taken by the runtime from each block
+SMS = 132                    # H100 SXM streaming multiprocessors
+THREADS = 256                # fused kernel: threads per block (kThreads)
+WEIGHT_CHUNK = 32            # fused kernel: input channels a weight chunk
 WARP = 32
-DEFAULT_TILE_W = 16          # output columns per band
-DEFAULT_TILE_COUT = 64       # output channels per block
+# The forward kernel (trim_conv2d.cu)
+CONV_THREADS = 256           # threads per block (kThreads)
+CONV_POSITIONS = 8           # output positions a thread (kPositions)
+CONV_COUT = 4                # output channels a thread, one float4 (kCout)
+CONV_MAX_TILE_COUT = WARP * CONV_COUT    # a warp along C_out: 128
+CONV_WEIGHT_CHUNK = 16       # input channels of one tap a weight stage
+CONV_WEIGHT_STAGES = 2       # the weight ring's stages (kStages)
+CONV_BLOCKS_PER_SM = 2       # __launch_bounds__(kThreads, 2): <= 128 regs
+CONV_MAX_TILE_W = 64         # widest band the planner tries
 DATAFLOWS = ("carry", "halo")
 
 
@@ -60,6 +74,13 @@ def normalize_pad(pad) -> tuple[tuple[int, int], tuple[int, int]]:
     return pads
 
 
+def _blocks_per_sm(smem: int) -> int:
+    """Resident blocks of the forward kernel on one SM: its register cap
+    (:data:`CONV_BLOCKS_PER_SM`) or its shared memory, the fewer."""
+    return min(CONV_BLOCKS_PER_SM,
+               SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK))
+
+
 @dataclass(frozen=True)
 class ConvPlan:
     """Launch geometry of one strided, grouped NHWC conv on the card.
@@ -67,6 +88,15 @@ class ConvPlan:
     Input ``(N, H, W, Cin)``, weights ``(K, K, Cin/groups, Cout)``, zero
     padding ``pads = ((top, bottom), (left, right))`` applied virtually by
     the kernel's loader.
+
+    Threads: ``threads_cout`` threads along C_out, each with
+    :data:`CONV_COUT` channels (one float4 of weights a step), and
+    ``CONV_THREADS // threads_cout`` along positions, each with
+    :data:`CONV_POSITIONS`: a strip of one band is at most ``slots``
+    output positions, all computed in one pass.  ``cin_stride`` is the
+    window's channel pitch: ``Cin/groups``, plus 4 where it is a multiple
+    of 4 and the padded window fits, so that the two to four positions a
+    warp reads at once fall on different banks.
     """
 
     n: int
@@ -82,6 +112,7 @@ class ConvPlan:
     tile_w: int
     tile_cout: int
     dataflow: str = "carry"
+    cin_stride: int = 0          # 0: Cin/groups
 
     def __post_init__(self):
         if self.dataflow not in DATAFLOWS:
@@ -90,6 +121,13 @@ class ConvPlan:
         if self.tile_h < self.stride or self.tile_h % self.stride:
             raise ValueError(f"tile_h={self.tile_h} must be a positive "
                              f"multiple of the stride {self.stride}")
+        if not 1 <= self.tile_cout <= CONV_MAX_TILE_COUT:
+            raise ValueError(f"tile_cout={self.tile_cout} must be in [1, "
+                             f"{CONV_MAX_TILE_COUT}]")
+        if self.cin_stride == 0:
+            object.__setattr__(self, "cin_stride", self.cin_per_group)
+        if self.cin_stride < self.cin_per_group:
+            raise ValueError(f"cin_stride={self.cin_stride} < Cin/groups")
 
     # -- construction ------------------------------------------------------
 
@@ -99,62 +137,22 @@ class ConvPlan:
               tile_cout: int | None = None, dataflow: str = "carry") -> "ConvPlan":
         """Plan from tensor shapes, choosing any tile left as ``None``.
 
-        ``tile_cout`` defaults to 64 (one warp, two channels a thread) or
-        the whole per-group C_out when smaller; above a warp it is rounded
-        up to whole warps.  ``tile_w`` is 16 columns (or the output width);
-        the strip is the tallest that keeps the block's output positions
-        within its threads' registers and its window within
-        :data:`SMEM_PER_BLOCK`, narrowing the band when one output row does not
-        fit.  Raises ``ValueError`` when no geometry fits, so every plan it
-        returns is one the kernel takes.
+        ``tile_cout`` left as ``None`` is the per-group C_out up to
+        :data:`CONV_MAX_TILE_COUT` (a warp of threads, four channels
+        each) or up to half that (twice the positions), whichever plans
+        better below.  The band and strip (``tile_w`` x ``tile_h / stride``
+        output positions, at most ``slots``) are the pair whose window
+        fits :data:`SMEM_PER_BLOCK` and whose busiest SM walks the fewest
+        strips (each a full pass of the slots, so ragged edges, idle
+        slots and SMs left without a block all count), then the one
+        reading the fewest window pixels per output; a given ``tile_h``
+        fixes the strip.  Raises ``ValueError`` when no geometry fits, so
+        every plan it returns is one the kernel takes.  Plans are cached
+        by argument.
         """
-        n, h, w, cin = x_shape
-        kh, kw, cin_pg, cout = w_shape
-        if kh != kw:
-            raise ValueError(f"square kernels only, got {kh}x{kw}")
-        if cin_pg * groups != cin:
-            raise ValueError(
-                f"weights expect cin/groups={cin_pg} with groups={groups}, "
-                f"input has cin={cin}")
-        if cout % groups:
-            raise ValueError(f"groups={groups} must divide cout={cout}")
-        if stride < 1:
-            raise ValueError(f"stride={stride} must be >= 1")
-        pads = normalize_pad(pad)
-        h_out = (h + sum(pads[0]) - kh) // stride + 1
-        w_out = (w + sum(pads[1]) - kw) // stride + 1
-        if h_out < 1 or w_out < 1:
-            raise ValueError("empty output: input smaller than kernel")
-        cout_pg = cout // groups
-        if tile_cout is None:
-            tile_cout = min(cout_pg, DEFAULT_TILE_COUT)
-        if tile_cout < 1:
-            raise ValueError(f"tile_cout={tile_cout} must be >= 1")
-        tile_cout = min(tile_cout, cout_pg)
-        if tile_cout > WARP:
-            tile_cout = -(-tile_cout // WARP) * WARP
-        if tile_cout > WARP * MAX_COUT_PER_THREAD:
-            raise ValueError(f"tile_cout={tile_cout} exceeds "
-                             f"{WARP * MAX_COUT_PER_THREAD}")
-        max_positions = THREADS // min(tile_cout, WARP) * MAX_POSITIONS
-        for tile_w in range(min(DEFAULT_TILE_W, w_out), 0, -1):
-            if tile_h is not None:
-                # an oversized strip is clamped to the full height
-                heights = [min(tile_h, h_out * stride)]
-            else:
-                rows = min(h_out, max_positions // tile_w)
-                heights = [r * stride for r in range(rows, 0, -1)]
-            for th in heights:
-                plan = cls(n=n, h=h, w=w, cin=cin, cout=cout, k=kh,
-                           stride=stride, pads=pads, groups=groups,
-                           tile_h=th, tile_w=tile_w, tile_cout=tile_cout,
-                           dataflow=dataflow)
-                if (plan.smem_bytes <= SMEM_PER_BLOCK
-                        and plan.positions <= max_positions):
-                    return plan
-        raise ValueError(
-            f"no strip of tile_h={tile_h} fits {SMEM_PER_BLOCK} B of shared "
-            f"memory at K={kh}, Cin/groups={cin_pg}")
+        return _build(tuple(int(v) for v in x_shape),
+                      tuple(int(v) for v in w_shape), stride,
+                      normalize_pad(pad), groups, tile_h, tile_cout, dataflow)
 
     # -- problem geometry --------------------------------------------------
 
@@ -198,22 +196,97 @@ class ConvPlan:
     def window_cols(self) -> int:
         return (self.tile_w - 1) * self.stride + self.k
 
+    @property
+    def n_strips(self) -> int:
+        return -(-self.h_out // self.th_out)
+
+    @property
+    def n_bands(self) -> int:
+        return -(-self.w_out // self.tile_w)
+
+    @property
+    def co_tiles(self) -> int:
+        return -(-self.cout_per_group // self.tile_cout)
+
+    @property
+    def chains(self) -> int:
+        """(image, group, C_out tile, band) tuples: one column of strips
+        each."""
+        return self.n * self.groups * self.co_tiles * self.n_bands
+
     # -- thread layout -----------------------------------------------------
 
     @property
     def threads_cout(self) -> int:
-        """Threads along C_out: a warp, or the whole tile when smaller."""
-        return min(self.tile_cout, WARP)
+        """Threads along C_out, :data:`CONV_COUT` channels each."""
+        return -(-self.tile_cout // CONV_COUT)
+
+    @property
+    def slots(self) -> int:
+        """Output positions the block's threads hold in registers."""
+        return CONV_THREADS // self.threads_cout * CONV_POSITIONS
 
     @property
     def positions(self) -> int:
         """Output positions of one strip of one band."""
         return self.th_out * self.tile_w
 
+    # -- segments and shared memory ------------------------------------------
+
+    def _smem(self, ring_rows: int) -> int:
+        window = -(-ring_rows * self.window_cols * self.cin_stride // 4) * 4
+        weights = (CONV_WEIGHT_STAGES * CONV_WEIGHT_CHUNK
+                   * CONV_COUT * self.threads_cout)
+        return 4 * (window + weights)
+
+    @property
+    def segments(self) -> int:
+        """Carry chains a band's strips are cut into, one block each.
+        ``halo``: one a strip.  ``carry``: of the counts that give at
+        least one full wave of resident blocks over the 132 SMs, the
+        fewest whose busiest SM walks at most 10% more strips than under
+        the best count (the fewest alone can leave some SMs a whole chain
+        of strips more than the rest)."""
+        if self.dataflow == "halo":
+            return self.n_strips
+        wave = SMS * _blocks_per_sm(self._smem(self.window_rows))
+        counts = sorted({-(-self.n_strips // -(-self.n_strips // s))
+                         for s in range(1, self.n_strips + 1)})
+        full = [c for c in counts if self.chains * c >= wave] or counts[-1:]
+        cost = {c: -(-self.chains * c // SMS) * -(-self.n_strips // c)
+                for c in full}
+        best = min(cost.values())
+        return next(c for c in full if cost[c] <= 1.1 * best)
+
+    @property
+    def strips_per_segment(self) -> int:
+        return -(-self.n_strips // self.segments)
+
+    @property
+    def blocks(self) -> int:
+        """Blocks of one launch: one per (chain, segment)."""
+        return self.chains * self.segments
+
+    @property
+    def ring_rows(self) -> int:
+        """Row slots of the window ring: ``2 tile_h + carry_rows`` when a
+        segment walks more than one strip and the larger ring costs no
+        resident block (the next strip's fresh rows land while this one
+        computes), else ``window_rows``."""
+        base, ring = self.window_rows, 2 * self.tile_h + self.carry_rows
+        if self.strips_per_segment > 1 and self._smem(ring) <= SMEM_PER_BLOCK \
+                and _blocks_per_sm(self._smem(ring)) \
+                == _blocks_per_sm(self._smem(base)):
+            return ring
+        return base
+
+    @property
+    def prefetch(self) -> bool:
+        return self.ring_rows > self.window_rows
+
     @property
     def smem_bytes(self) -> int:
-        window = self.window_rows * self.window_cols * self.cin_per_group
-        return 4 * (window + WEIGHT_CHUNK * self.tile_cout)
+        return self._smem(self.ring_rows)
 
     # -- work and the least traffic ---------------------------------------
 
@@ -230,31 +303,105 @@ class ConvPlan:
                  + self.cout + self.n * self.h_out * self.w_out * self.cout)
         return 4 * elems
 
-    @property
-    def n_strips(self) -> int:
-        return -(-self.h_out // self.th_out)
-
-    @property
-    def n_bands(self) -> int:
-        return -(-self.w_out // self.tile_w)
-
     def hbm_bytes(self) -> dict:
-        """f32 bytes the kernel's schedule moves: every block (image,
-        group, C_out tile, band) reads its band's window columns — each
-        padded row once with ``carry``, ``window_rows`` a strip with
-        ``halo`` — and streams its C_out tile's weights once per strip;
-        the output is written once."""
-        blocks = (self.n * self.groups * self.n_bands
-                  * -(-self.cout_per_group // self.tile_cout))
-        rows = (self.n_strips * self.tile_h + self.carry_rows
-                if self.dataflow == "carry"
-                else self.n_strips * self.window_rows)
-        in_bytes = 4 * blocks * rows * self.window_cols * self.cin_per_group
+        """f32 bytes the kernel's schedule moves: every chain (image,
+        group, C_out tile, band) reads its band's window columns of each
+        padded row once, plus ``carry_rows`` more for every segment after
+        the first (a segment loads its first window whole: with ``halo``,
+        one a strip, that is ``window_rows`` a strip); every strip
+        streams its C_out tile's weights once; the output is written
+        once."""
+        rows = self.n_strips * self.tile_h + self.segments * self.carry_rows
+        in_bytes = (4 * self.chains * rows * self.window_cols
+                    * self.cin_per_group)
         w_bytes = 4 * (self.n * self.n_bands * self.n_strips * self.k ** 2
                        * self.cin_per_group * self.cout)
         out_bytes = 4 * self.n * self.h_out * self.w_out * self.cout
         return dict(input=in_bytes, weights=w_bytes, output=out_bytes,
                     total=in_bytes + w_bytes + out_bytes)
+
+
+@functools.lru_cache(maxsize=4096)
+def _build(x_shape, w_shape, stride, pads, groups, tile_h, tile_cout,
+           dataflow) -> ConvPlan:
+    n, h, w, cin = x_shape
+    kh, kw, cin_pg, cout = w_shape
+    if kh != kw:
+        raise ValueError(f"square kernels only, got {kh}x{kw}")
+    if cin_pg * groups != cin:
+        raise ValueError(
+            f"weights expect cin/groups={cin_pg} with groups={groups}, "
+            f"input has cin={cin}")
+    if cout % groups:
+        raise ValueError(f"groups={groups} must divide cout={cout}")
+    if stride < 1:
+        raise ValueError(f"stride={stride} must be >= 1")
+    h_out = (h + sum(pads[0]) - kh) // stride + 1
+    w_out = (w + sum(pads[1]) - kw) // stride + 1
+    if h_out < 1 or w_out < 1:
+        raise ValueError("empty output: input smaller than kernel")
+    if tile_h is not None and (tile_h < stride or tile_h % stride):
+        raise ValueError(f"tile_h={tile_h} must be a positive multiple of "
+                         f"the stride {stride}")
+    cout_pg = cout // groups
+    if tile_cout is not None:
+        if tile_cout < 1:
+            raise ValueError(f"tile_cout={tile_cout} must be >= 1")
+        if min(tile_cout, cout_pg) > CONV_MAX_TILE_COUT:
+            raise ValueError(f"tile_cout={tile_cout} exceeds "
+                             f"{CONV_MAX_TILE_COUT}")
+        tiles = [min(tile_cout, cout_pg)]
+    else:   # a warp along C_out, or half a warp and twice the positions
+        tiles = sorted({min(cout_pg, CONV_MAX_TILE_COUT),
+                        min(cout_pg, CONV_MAX_TILE_COUT // 2)}, reverse=True)
+    # padded pitch first (bank-conflict free), the plain one if it fits alone
+    pitches = [cin_pg + 4, cin_pg] if cin_pg % 4 == 0 else [cin_pg]
+    for pitch in pitches:
+        best = None
+        for tc in tiles:
+            best = _best_tile(best, h_out, w_out, kh, stride, pitch, tile_h,
+                              dict(n=n, h=h, w=w, cin=cin, cout=cout, k=kh,
+                                   stride=stride, pads=pads, groups=groups,
+                                   tile_cout=tc, dataflow=dataflow))
+        if best is not None:
+            return best[1]
+    raise ValueError(
+        f"no strip of tile_h={tile_h} fits {SMEM_PER_BLOCK} B of shared "
+        f"memory at K={kh}, Cin/groups={cin_pg}")
+
+
+def _best_tile(best, h_out, w_out, kh, stride, pitch, tile_h, base):
+    """The better of ``best`` and every (band, strip) of one C_out tile
+    and channel pitch, as ``(key, plan)``: the fewest strips the busiest
+    SM walks (each a full pass of the slots: 8,192 outputs whatever the
+    C_out tile, so ragged edges, idle slots and SMs left without a block
+    all count), then the fewest window pixels read per output, then the
+    widest band."""
+    probe = ConvPlan(tile_h=stride, tile_w=1, **base)
+    slots, kc = probe.slots, probe.carry_rows
+    weights = 4 * (CONV_WEIGHT_STAGES * CONV_WEIGHT_CHUNK * CONV_COUT
+                   * probe.threads_cout)
+    for tile_w in range(1, min(w_out, slots, CONV_MAX_TILE_W) + 1):
+        if tile_h is not None:
+            # an oversized strip is clamped to the full height
+            rows = [min(tile_h, h_out * stride) // stride]
+        else:
+            rows = range(1, min(h_out, slots // tile_w) + 1)
+        cols = (tile_w - 1) * stride + kh
+        for th_out in rows:
+            if th_out * tile_w > slots:
+                continue
+            window = -(-(th_out * stride + kc) * cols * pitch // 4) * 4
+            if 4 * window + weights > SMEM_PER_BLOCK:
+                continue
+            plan = ConvPlan(tile_h=th_out * stride, tile_w=tile_w,
+                            cin_stride=pitch, **base)
+            steps = -(-plan.blocks // SMS) * plan.strips_per_segment
+            read = plan.window_rows * cols / plan.positions
+            key = (steps, read, -tile_w)
+            if best is None or key < best[0]:
+                best = (key, plan)
+    return best
 
 
 # ---------------------------------------------------------------------------
@@ -447,7 +594,6 @@ class WeightGradPlan:
 # 1-D plan (causal depthwise conv: the Mamba / RG-LRU temporal mixing)
 # ---------------------------------------------------------------------------
 
-SMS = 132                     # H100 SXM streaming multiprocessors
 THREADS_PER_SM = 2048
 PEAK_F32_FLOPS = 67e12        # H100 SXM: f32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12    # H100 SXM: HBM3
@@ -455,7 +601,9 @@ CONV1D_TILE_D = 256           # channels (one a thread) per block; the
                               # kernel's __launch_bounds__ (kMaxThreads)
 CONV1D_TILE_LS = (256, 128, 64, 32, 16, 8)   # run lengths, longest first
 CONV1D_MIN_WAVES = 3          # full waves of resident blocks to aim for
-CONV1D_MAX_K = 8              # the kernel's instances: K = 2..8
+CONV1D_UNROLLED_K = 8         # K = 2..8 keep the window in registers (a
+                              # template instance each); larger K runs the
+                              # kernel's runtime-K instance
 
 
 @dataclass(frozen=True)
@@ -472,6 +620,8 @@ class Conv1dPlan:
     between them.  Here a thread owns one channel of one *run* of
     ``tile_l`` timesteps and keeps the ``K-1`` previous inputs of its
     channel in registers (the shadow registers) while it walks the run;
+    for K > :data:`CONV1D_UNROLLED_K` the kernel re-reads them through
+    L1 instead (K must be known at compile time for a register window);
     a block is ``tile_d`` consecutive channels (D is contiguous, so a
     warp's row loads coalesce); the grid is ``(B, D / tile_d,
     L / tile_l)``.  A run's first ``K-1`` inputs are re-read from device
@@ -511,10 +661,10 @@ class Conv1dPlan:
                              "must be >= 1")
         if b > 65535:
             raise ValueError(f"B={b} > 65535, the grid's z limit")
-        if not 2 <= k <= CONV1D_MAX_K:
-            raise ValueError(f"K={k}: the kernel takes 2 <= K <= "
-                             f"{CONV1D_MAX_K} (ops.depthwise_conv1d routes "
-                             "K < 2 to the oracle)")
+        if k < 2:
+            raise ValueError(f"K={k}: the kernel takes K >= 2 "
+                             "(ops.depthwise_conv1d routes K < 2 to the "
+                             "oracle)")
         tile_d = min(CONV1D_TILE_D, -(-d // 32) * 32)
         if tile_l is None:
             wave = SMS * (THREADS_PER_SM // tile_d)

@@ -27,7 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # C entry points of each source: name -> argument types (restype c_int)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_int64, ctypes.c_float
-_CONV_ARGS = [_P, _P, _P, _P] + [_I] * 17 + [_P]
+_CONV_ARGS = [_P, _P, _P, _P] + [_I] * 19 + [_P]
 _WGRAD_ARGS = [_P, _P, _P, _P] + [_I] * 13 + [_P]
 _FUSED_ARGS = [_P, _P, _P, _P, _I, _P]
 _ATTN_ARGS = [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I, _I, _F, _F, _P]
@@ -43,7 +43,9 @@ SOURCES = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-build_log: dict[str, dict] = {}   # name -> {"seconds", "command", "ptxas"}
+# name -> {"seconds", "command", "ptxas": each instance's name, registers
+# and spills as ptxas reports them}
+build_log: dict[str, dict] = {}
 
 
 def nvcc() -> str:
@@ -103,7 +105,8 @@ def build_all(*, rebuild: bool = False) -> dict[str, ctypes.CDLL]:
                     "seconds": time.perf_counter() - t0,
                     "command": " ".join(cmd),
                     "ptxas": [ln for ln in log.splitlines()
-                              if "registers" in ln or "spill" in ln]}
+                              if "entry function" in ln
+                              or "registers" in ln or "spill" in ln]}
                 _libs.pop(name, None)
             if failed:
                 raise RuntimeError("nvcc failed:\n" + "\n".join(failed))

@@ -39,6 +39,17 @@
 // written in the JAX (B, L, H, D) layout through their strides (the head
 // dim contiguous): no transposed or padded copy is made.
 //
+// Wide heads.  D > 256 runs flash_attention_wide_kernel: whole-D tiles
+// would not fit 227 KB (Q, K and V of 64 rows at D = 320 take 252 KB), so
+// there S = Q K^T walks D in chunks of kWideDs = 64 columns (Q and K chunks
+// staged in turn, the scores' fmaf chains continued across chunks in
+// ascending d, as the narrow kernel sums them), and a block accumulates
+// kWideDo = 256 output columns: the grid gets ceil(D / 256) blocks per
+// (row tile, KV head, batch), each recomputing the same scores and
+// softmax (bitwise the same in every block) for its slice of P V.
+// Shared memory is 119 KB whatever D is, so every D runs; the scores are
+// computed ceil(D / 256) times (2x at D = 320 and 512).
+//
 // Threads.  256 threads as 16 x 16: thread (ty, tx) owns rows ty + 16 i
 // (i < 4), score columns tx + 16 j (j < 4) of the 64 x 64 tile, and output
 // columns 4 tx + 64 c + (0..3) (c < Dp / 64).  S = Q K^T reads float4s of Q
@@ -72,7 +83,9 @@ namespace {
 constexpr int kThreads = 256;   // 16 x 16
 constexpr int kRows = 64;       // (query position, head) rows per block
 constexpr int kKeys = 64;       // keys per tile
-constexpr int kMaxHeadDim = 256;
+constexpr int kMaxNarrowDp = 256;   // larger D: the wide kernel
+constexpr int kWideDs = 64;         // D columns of Q and K a chunk (wide)
+constexpr int kWideDo = 256;        // output columns a block (wide)
 constexpr float kNegInf = -1e30f;   // the TPU kernel's mask value
 constexpr int kMaxSmemBytes = 232448;  // H100: 227 KB opt-in per block
 
@@ -320,6 +333,232 @@ int launch(const AttnArgs &a, int b, void *stream) {
   return (int)cudaGetLastError();
 }
 
+
+// D > 256: S over D chunks of kWideDs, P V over kWideDo output columns a
+// block (see "Wide heads" above).  The rows, the mask, the tile skip and
+// the online softmax are the narrow kernel's.
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_wide_kernel(const AttnArgs a) {
+  constexpr int kS = kWideDs + 4;      // Q / K chunk row stride (floats)
+  constexpr int kPStride = kKeys + 4;  // P row stride
+  constexpr int kVStride = kWideDo + 4;
+  constexpr int kDc = kWideDo / 64;    // float4 output columns a thread
+  extern __shared__ float4 smem4[];
+  float *qs = reinterpret_cast<float *>(smem4);
+  float *ks = qs + kRows * kS;
+  float *ps = ks + kKeys * kS;
+  float *vs = ps + kRows * kPStride;
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int o_chunks = (a.d + kWideDo - 1) / kWideDo;
+  const int oc = (int)blockIdx.x % o_chunks;
+  const int tile = a.row_tiles - 1 - (int)blockIdx.x / o_chunks;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int g = a.group, n_rows = a.lq * g;
+  const int t0 = tile * kRows;
+  const int off = a.lk - a.lq;
+  const int dv0 = oc * kWideDo;        // first output column of the block
+
+  int q_pos[4];
+  bool row_ok[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = t0 + ty + 16 * i;
+    row_ok[i] = t < n_rows;
+    q_pos[i] = t / g + off;
+  }
+  const int last = min(t0 + kRows, n_rows) - 1;
+  const int pos_lo = t0 / g + off, pos_hi = last / g + off;
+  int k_end = a.lk, k_begin = 0;
+  if (a.causal) k_end = min(k_end, pos_hi + 1);
+  if (a.window > 0) k_begin = max(0, pos_lo - a.window + 1);
+  const int kt_begin = k_begin / kKeys;
+  const int kt_end = k_end > k_begin ? (k_end + kKeys - 1) / kKeys : kt_begin;
+
+  float m[4], l[4];
+  float4 acc[4][kDc];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kDc; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const float *kbase = a.k + (int64_t)b * a.k_sb + (int64_t)kvh * a.k_sh;
+  const float *vbase = a.v + (int64_t)b * a.v_sb + (int64_t)kvh * a.v_sh;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * kKeys;
+    // S = Q K^T, one fmaf chain over d a score, D in chunks
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int d0 = 0; d0 < a.d; d0 += kWideDs) {
+      __syncthreads();   // the previous chunk (and tile: P, V) is consumed
+      for (int e = tid; e < kRows * kWideDs; e += kThreads) {
+        const int r = e / kWideDs, dd = e % kWideDs, t = t0 + r;
+        float qv = 0.f, kv = 0.f;
+        if (t < n_rows && d0 + dd < a.d) {
+          const int qi = t / g, h = kvh * g + t % g;
+          qv = __ldg(a.q + (int64_t)b * a.q_sb + (int64_t)qi * a.q_sl +
+                     (int64_t)h * a.q_sh + d0 + dd);
+        }
+        if (k0 + r < a.lk && d0 + dd < a.d)
+          kv = __ldg(kbase + (int64_t)(k0 + r) * a.k_sl + d0 + dd);
+        qs[r * kS + dd] = qv;
+        ks[r * kS + dd] = kv;
+      }
+      __syncthreads();
+#pragma unroll 1
+      for (int dd = 0; dd < kWideDs; dd += 4) {
+        float4 qv[4], kv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          qv[i] = *reinterpret_cast<const float4 *>(
+              &qs[(ty + 16 * i) * kS + dd]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          kv[j] = *reinterpret_cast<const float4 *>(
+              &ks[(tx + 16 * j) * kS + dd]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float t = s[i][j];
+            t = fmaf(qv[i].x, kv[j].x, t);
+            t = fmaf(qv[i].y, kv[j].y, t);
+            t = fmaf(qv[i].z, kv[j].z, t);
+            t = fmaf(qv[i].w, kv[j].w, t);
+            s[i][j] = t;
+          }
+      }
+    }
+
+    // scale, soft cap, mask; online softmax per row
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x = s[i][j] * a.sm_scale;
+        if (a.soft_cap > 0.f) x = a.soft_cap * tanhf(x / a.soft_cap);
+        const int kp = k0 + tx + 16 * j;
+        bool ok = row_ok[i] && kp < a.lk;
+        if (a.causal) ok = ok && q_pos[i] >= kp;
+        if (a.window > 0) ok = ok && q_pos[i] - kp < a.window;
+        s[i][j] = ok ? x : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        sum += s[i][j];
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < kDc; ++c) {
+        acc[i][c].x *= alpha;
+        acc[i][c].y *= alpha;
+        acc[i][c].z *= alpha;
+        acc[i][c].w *= alpha;
+      }
+    }
+
+    // P and the block's V columns (the previous tile's P V finished
+    // before the first barrier of this tile's D loop)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        ps[(ty + 16 * i) * kPStride + tx + 16 * j] = s[i][j];
+    for (int e = tid; e < kKeys * kWideDo; e += kThreads) {
+      const int r = e / kWideDo, dd = e % kWideDo;
+      float val = 0.f;
+      if (k0 + r < a.lk && dv0 + dd < a.d)
+        val = __ldg(vbase + (int64_t)(k0 + r) * a.v_sl + dv0 + dd);
+      vs[r * kVStride + dd] = val;
+    }
+    __syncthreads();
+
+    // O += P V
+#pragma unroll 1
+    for (int c0 = 0; c0 < kKeys; c0 += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pv[i] = *reinterpret_cast<const float4 *>(
+            &ps[(ty + 16 * i) * kPStride + c0]);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+#pragma unroll
+        for (int c = 0; c < kDc; ++c) {
+          const float4 vv = *reinterpret_cast<const float4 *>(
+              &vs[(c0 + cc) * kVStride + 4 * tx + 64 * c]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float p = cc == 0   ? pv[i].x
+                            : cc == 1 ? pv[i].y
+                            : cc == 2 ? pv[i].z
+                                      : pv[i].w;
+            acc[i][c].x = fmaf(p, vv.x, acc[i][c].x);
+            acc[i][c].y = fmaf(p, vv.y, acc[i][c].y);
+            acc[i][c].z = fmaf(p, vv.z, acc[i][c].z);
+            acc[i][c].w = fmaf(p, vv.w, acc[i][c].w);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = t0 + ty + 16 * i;
+    if (t >= n_rows) continue;
+    const int qi = t / g, h = kvh * g + t % g;
+    float *dst = a.o + (int64_t)b * a.o_sb + (int64_t)qi * a.o_sl +
+                 (int64_t)h * a.o_sh;
+    const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < kDc; ++c) {
+      const int d0 = dv0 + 4 * tx + 64 * c;
+      const float vals[4] = {acc[i][c].x, acc[i][c].y, acc[i][c].z,
+                             acc[i][c].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (d0 + e < a.d) dst[d0 + e] = vals[e] / den;
+    }
+  }
+}
+
+int launch_wide(const AttnArgs &a, int b, void *stream) {
+  constexpr size_t smem =
+      ((size_t)(kRows + kKeys) * (kWideDs + 4) + (size_t)kRows * (kKeys + 4) +
+       (size_t)kKeys * (kWideDo + 4)) * sizeof(float);
+  static_assert(smem <= (size_t)kMaxSmemBytes, "tile exceeds shared memory");
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_wide_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t blocks = (int64_t)a.row_tiles * ((a.d + kWideDo - 1) / kWideDo);
+  if (blocks > 2147483647) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, a.hkv, b);
+  flash_attention_wide_kernel<<<grid, kThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry point, bound with ctypes by repro_torch/kernels/build.py.  It
@@ -337,7 +576,7 @@ int flash_attention_f32(const float *q, const float *k, const float *v,
                         int window, float soft_cap, float sm_scale,
                         void *stream) {
   if (b < 1 || lq < 1 || lk < 1 || hkv < 1 || hq < hkv || hq % hkv != 0 ||
-      d < 1 || d > kMaxHeadDim || (causal && lq > lk) || b > 65535 ||
+      d < 1 || (causal && lq > lk) || b > 65535 ||
       hkv > 65535)
     return (int)cudaErrorInvalidValue;
   AttnArgs a;
@@ -355,7 +594,8 @@ int flash_attention_f32(const float *q, const float *k, const float *v,
   a.row_tiles = (int)((rows + kRows - 1) / kRows);
   if (d <= 64) return launch<64>(a, b, stream);
   if (d <= 128) return launch<128>(a, b, stream);
-  return launch<256>(a, b, stream);
+  if (d <= kMaxNarrowDp) return launch<256>(a, b, stream);
+  return launch_wide(a, b, stream);
 }
 
 const char *flash_attention_error_string(int err) {

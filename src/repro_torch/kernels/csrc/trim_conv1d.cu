@@ -37,13 +37,20 @@
 // 0.004 ms at 67 TFLOP/s.  The kernel keeps kUnroll = 8 loads in flight a
 // thread (2048 threads an SM, 64 KB in flight an SM) to cover the memory
 // latency; it does nothing else for speed.
+//
+// Any K >= 2.  The register window needs K at compile time, so K = 2..8
+// are template instances (every registered config has K = 4).  A larger K
+// runs trim_conv1d_any_k, which takes K as an argument and re-reads the
+// K-1 previous inputs of each output through the L1 cache (__ldg) instead
+// of shifting them through registers: each output still sums the same
+// rounded products from 0 in tap order, so it equals the plain version
+// bit for bit at every K.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxK = 8;       // template instances K = 2..8
 constexpr int kUnroll = 8;     // timesteps loaded ahead by each thread
 constexpr int kMaxThreads = 256;  // tile_d: CONV1D_TILE_D of conv_plan.py
 
@@ -93,6 +100,28 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// K as an argument: the previous inputs are re-read through L1 (the
+// neighbouring threads of a warp read the neighbouring channels of the
+// same rows), the weights likewise; zeros before t = 0.
+__global__ void __launch_bounds__(kMaxThreads)
+    trim_conv1d_any_k(const Conv1dArgs a, const int k) {
+  const int c = blockIdx.y * blockDim.x + threadIdx.x;
+  if (c >= a.d) return;
+  const int t0 = blockIdx.x * a.tile_l;
+  const int t1 = min(t0 + a.tile_l, a.length);
+  const float *__restrict__ xc = a.x + (int64_t)blockIdx.z * a.x_sb + c;
+  float *__restrict__ yc = a.y + (int64_t)blockIdx.z * a.y_sb + c;
+  for (int t = t0; t < t1; ++t) {
+    float acc = 0.0f;
+    for (int i = 0; i < k; ++i) {
+      const int tt = t - (k - 1) + i;
+      const float xv = tt >= 0 ? __ldg(xc + (int64_t)tt * a.x_sl) : 0.0f;
+      acc = __fadd_rn(acc, __fmul_rn(xv, __ldg(a.w + (int64_t)i * a.d + c)));
+    }
+    yc[(int64_t)t * a.y_sl] = acc;
+  }
+}
+
 template <int K>
 int launch(const Conv1dArgs &a, dim3 grid, int tile_d, void *stream) {
   trim_conv1d_kernel<K><<<grid, tile_d, 0,
@@ -113,7 +142,7 @@ int trim_conv1d_f32(const float *x, const float *w, float *y, int b,
                     int length, int d, int k, int64_t x_sb, int64_t x_sl,
                     int64_t y_sb, int64_t y_sl, int tile_l, int tile_d,
                     void *stream) {
-  if (b < 1 || b > 65535 || length < 1 || d < 1 || k < 2 || k > kMaxK ||
+  if (b < 1 || b > 65535 || length < 1 || d < 1 || k < 2 ||
       tile_l < 1 || tile_d < 32 || tile_d > kMaxThreads || tile_d % 32 != 0)
     return (int)cudaErrorInvalidValue;
   const int64_t runs = ((int64_t)length + tile_l - 1) / tile_l;
@@ -132,7 +161,11 @@ int trim_conv1d_f32(const float *x, const float *w, float *y, int b,
     case 5: return launch<5>(a, grid, tile_d, stream);
     case 6: return launch<6>(a, grid, tile_d, stream);
     case 7: return launch<7>(a, grid, tile_d, stream);
-    default: return launch<8>(a, grid, tile_d, stream);
+    case 8: return launch<8>(a, grid, tile_d, stream);
+    default:
+      trim_conv1d_any_k<<<grid, tile_d, 0,
+                          static_cast<cudaStream_t>(stream)>>>(a, k);
+      return (int)cudaGetLastError();
   }
 }
 

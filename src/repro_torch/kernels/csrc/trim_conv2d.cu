@@ -4,58 +4,79 @@
 //   trim_conv2d_carry -> _carry_kernel (:127), with _tap_matmuls (:82) and
 //                        _epilogue_store (:105), dataflow="carry"
 //   trim_conv2d_halo  -> _halo_kernel (:162), dataflow="halo"
-// Both entries instantiate one templated kernel: the two dataflows differ
-// only in how the K-s boundary rows of a strip reach shared memory.
+// Both entries launch one templated kernel: the two dataflows differ only
+// in how many strips one block walks (see Segments).
 //
 // Math.  y[n,oh,ow,g*Cpg+co] = act(bias + sum_{ki,kj,ci} xpad[n, oh*s+ki,
 // ow*s+kj, g*Cin_pg+ci] * w[ki,kj,ci,g*Cpg+co]).  Every output element is ONE
-// fp32 fmaf chain taken in a fixed order (ki, then kj, then ci ascending),
-// then + bias, then the activation.  The order depends on nothing but the
-// element, so carry and halo are bitwise equal, and a row's result does not
-// depend on the batch it was served in.
+// fp32 fmaf chain started from 0 and taken in a fixed order (ki, then kj,
+// then ci ascending over all of Cin/g), then + bias (a separate add), then
+// activate() of epilogue.cuh.  The order depends on nothing but the
+// element, so carry and halo are bitwise equal, a row's result does not
+// depend on the batch it was served in, and the fused kernel
+// (trim_conv2d_fused.cu), which takes the same chain, equals a chain of
+// these launches bit for bit.  No split of the sum across threads or
+// blocks and no tensor cores (TF32 would change the chain): f32 FFMA.
 //
-// Geometry.  A block owns (image n, group g, C_out tile, column band of TW
-// output columns).  Its input window is WR = TH + (K-s) padded rows x
-// WC = (TW-1)*s + K columns x all Cin/g channels, kept in shared memory as a
-// ring of WR row slots (slot = padded row mod WR), so strip t+1 reuses the
-// K-s rows strip t already holds without moving them.  'same'/'valid'
-// padding is virtual: the loader writes zeros outside the image, and the
-// ragged bottom/right edges are masked at the store.
-//   carry: one block walks all strips of its band top to bottom (the loop
-//          replaces the TPU's sequential grid axis) and loads only the TH
-//          fresh rows of each strip: the shadow registers.
-//   halo:  one block per strip (blockIdx.y); it loads all WR rows, i.e.
-//          re-reads its K-s predecessor rows from device memory.  Blocks are
-//          independent and run in any order.
-// Weights stream through shared memory in chunks of 32 input channels of one
-// tap; each thread keeps up to 8 positions x 4 output channels of fp32
-// accumulators in registers.
+// Geometry (core/conv_plan.py, ConvPlan).  A block owns (image n, group g,
+// C_out tile, column band of TW output columns) -- a chain -- and one
+// segment of that band's strips.  Its input window, TH + (K-s) padded rows
+// x WC = (TW-1)*s + K columns x all Cin/g channels, lives in shared memory
+// as a ring of row slots (slot = padded row mod ring_rows), so strip t+1
+// reuses the K-s rows strip t already holds without moving them: the
+// shadow registers.  'same'/'valid' padding is virtual: the loader
+// zero-fills outside the image, and ragged bottom/right edges are masked
+// at the store.
+//
+// Segments.  The TPU walks the strips of a band in order on one core.
+// Here a band's strips are cut into `segments` runs, one block each: a
+// block loads its first window whole, then only the TH fresh rows of each
+// further strip.  carry takes the fewest segments that fill a wave of
+// resident blocks on the 132 SMs; halo is the limit of one strip a
+// segment (each block re-reads its K-s predecessor rows).  When a segment
+// walks several strips and shared memory allows, the ring has 2 TH + (K-s)
+// slots and the next strip's fresh rows are copied in, a slice with each
+// weight stage, while this strip computes.
+//
+// Threads.  256 threads as tcx = ceil(tile_cout / 4) along C_out x
+// 256 / tcx along positions; a thread holds kPositions = 8 output
+// positions x kCout = 4 channels of fp32 accumulators (32), positions
+// ty + m * (256 / tcx).  For each group of 4 input channels it issues 8
+// float4 window loads (the lanes of a warp along C_out read the same
+// positions: broadcasts; the window's channel pitch is Cin/g + 4 so that
+// the 2-4 positions of a warp fall on different banks) and 4 float4
+// weight loads, for 128 FMAs.
+// Weights stream through a 2-stage ring of [16 input channels of one tap]
+// x [tile_cout] filled by cp.async: stage c+1 lands while stage c
+// computes, one barrier a stage.  Window rows also arrive by cp.async
+// (16-byte copies where Cin/g is a multiple of 4, zero-filled padding).
+// A window too large for two blocks an SM runs an instance compiled for
+// one block, which may use more than 128 registers.
 //
 // What bounds it on the H100.  At VGG-16 shapes the conv does hundreds of
-// FLOPs per byte it must move (input, weights, output), so the bound is
-// operations: 67 TFLOP/s of non-tensor f32 (f32 without TF32 has no tensor
-// cores).  This first kernel reaches a few TFLOP/s (PERF.md): with 8
-// positions x 2 channels a thread, its inner loop issues ten shared-memory
-// loads per sixteen FMAs, and carry runs only
-// N * groups * C_out tiles * bands blocks (8 at 14x14x512, N=1) for 132 SMs
-// because a block serialises its strips; at Cin >= 256 the window takes
-// most of an SM's shared memory.  The design keeps what the TPU kernel kept
-// out of device memory (each input row is read once per band by carry, the
-// weights of a tap stream once per strip) and leaves speed to later work;
-// halo trades the K-s re-read rows for one block per strip.
+// FLOPs per byte it must move, so the bound is operations: 67 TFLOP/s of
+// non-tensor f32.  The design aims at the FFMA pipes: 32 independent
+// accumulator chains a thread, few shared-memory loads per FMA, copies off
+// the critical path, and enough blocks to fill the SMs.  At Cin/g = 512 the
+// window of an 8 x 8 strip (10 x 10 x 516 floats, 206 KB) takes the whole
+// shared memory, so such layers run one block (8 warps) an SM.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #include "epilogue.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;        // threads per block
-constexpr int kMaxPositions = 8;     // output positions per thread
-constexpr int kMaxCout = 4;          // output channels per thread
-constexpr int kWeightChunk = 32;     // input channels per staged weight chunk
+constexpr int kThreads = 256;        // threads per block (CONV_THREADS)
+constexpr int kPositions = 8;        // output positions a thread
+constexpr int kCout = 4;             // output channels a thread (a float4)
+constexpr int kChunk = 16;           // input channels of one tap a stage
+constexpr int kStages = 2;           // weight ring stages
 constexpr int kMaxSmemBytes = 232448;  // H100: 227 KB opt-in per block
+constexpr int kSmemPerSm = 233472;     // H100: 228 KB an SM
+constexpr int kReservedSmem = 1024;    // the runtime's share of each block
 
 struct ConvArgs {
   int n, h, w, cin, cout, k, stride, pad_top, pad_left, groups;
@@ -63,203 +84,324 @@ struct ConvArgs {
   int tile_h_out;    // output rows per strip
   int tile_w;        // output columns per band
   int tile_cout;     // output channels per block
-  int threads_cout;  // threads along C_out (tile_cout = threads_cout * cpt)
-  int n_strips, n_bands, co_tiles;
+  int strips_per_seg;
+  int ring_rows;     // window ring slots (>= TH + K-s)
+  int cin_stride;    // window channel pitch (>= Cin/g)
+  int n_strips, n_bands, co_tiles, segments;
+  int tcx;           // threads along C_out: ceil(tile_cout / 4)
+  int vec_w;         // 16-byte weight copies
   int activation;    // activate()'s code (epilogue.cuh)
 };
 
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__host__ __device__ inline int window_cols(const ConvArgs& a) {
+  return (a.tile_w - 1) * a.stride + a.k;
+}
+
+// Floats of the window ring, rounded to a float4 so the weights align.
+__host__ __device__ inline int window_floats(const ConvArgs& a) {
+  return (a.ring_rows * window_cols(a) * a.cin_stride + 3) / 4 * 4;
+}
+
 inline size_t smem_bytes(const ConvArgs& a) {
-  const int cin_pg = a.cin / a.groups;
-  const int carry = a.k > a.stride ? a.k - a.stride : 0;
-  const size_t rows = (size_t)a.tile_h_out * a.stride + carry;
-  const size_t cols = (size_t)(a.tile_w - 1) * a.stride + a.k;
-  return (rows * cols * cin_pg + (size_t)kWeightChunk * a.tile_cout) *
+  return ((size_t)window_floats(a) + (size_t)kStages * kChunk * 4 * a.tcx) *
          sizeof(float);
 }
 
-template <bool kCarry>
-__global__ void __launch_bounds__(kThreads)
+template <bool kVecX, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 trim_conv2d_kernel(const float* __restrict__ x, const float* __restrict__ wt,
                    const float* __restrict__ bias, float* __restrict__ y,
                    const ConvArgs a) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);
+  float* ws = xs + window_floats(a);
+  constexpr int kVx = kVecX ? 4 : 1;         // floats a window copy
+
   const int cin_pg = a.cin / a.groups;
   const int cout_pg = a.cout / a.groups;
   const int s = a.stride, k = a.k;
-  const int th = a.tile_h_out * s;           // fresh input rows per strip
-  const int kc = k > s ? k - s : 0;          // rows carried to the next strip
-  const int wr = th + kc;                    // ring slots
-  const int wc = (a.tile_w - 1) * s + k;     // window columns
-  const int row_len = wc * cin_pg;           // floats per ring slot
-  float* xs = smem;                          // [wr][wc][cin_pg]
-  float* ws = smem + wr * row_len;           // [kWeightChunk][tile_cout]
+  const int th = a.tile_h_out * s;            // fresh input rows per strip
+  const int kc = k > s ? k - s : 0;           // rows carried to the next strip
+  const int wc = window_cols(a);
+  const int row_len = wc * a.cin_stride;      // floats per ring slot
+  const int tcp = 4 * a.tcx;                  // weight row pitch
+  const bool prefetch = a.ring_rows >= 2 * th + kc;
 
   int b = blockIdx.x;
   const int band = b % a.n_bands; b /= a.n_bands;
   const int cot = b % a.co_tiles; b /= a.co_tiles;
   const int grp = b % a.groups;
   const int img = b / a.groups;
+  const int t_first = blockIdx.y * a.strips_per_seg;
+  const int t_last = min(t_first + a.strips_per_seg, a.n_strips);
 
   const int tid = threadIdx.x;
-  const int tx = tid % a.threads_cout;
-  const int ty = tid / a.threads_cout;
-  const int pthreads = kThreads / a.threads_cout;
+  const int tx = tid % a.tcx;
+  const int ty = tid / a.tcx;
+  const int pthreads = kThreads / a.tcx;
   const bool computes = ty < pthreads;
   const int positions = a.tile_h_out * a.tile_w;
-  const int mp = (positions + pthreads - 1) / pthreads;
-  const int cpt = a.tile_cout / a.threads_cout;
   const int col0 = band * a.tile_w * s - a.pad_left;
   const float* xin = x + (size_t)img * a.h * a.w * a.cin + grp * cin_pg;
   const int co_base = grp * cout_pg + cot * a.tile_cout;
+  const int co_valid = min(a.tile_cout, cout_pg - cot * a.tile_cout);
+  const int cin_chunks = (cin_pg + kChunk - 1) / kChunk;
+  const int n_chunks = k * k * cin_chunks;    // weight stages per strip
 
-  // Padded rows [r0, r0 + rows) of this band into their ring slots.
-  auto load_rows = [&](int r0, int rows) {
-    const int total = rows * row_len;
-    for (int idx = tid; idx < total; idx += kThreads) {
-      const int r = idx / row_len;
-      const int rem = idx - r * row_len;
-      const int c = rem / cin_pg;
-      const int ci = rem - c * cin_pg;
+  // Copies part `part` of `parts` of padded rows [r0, r0 + rows) of the
+  // band into their ring slots (zeros outside the image).
+  const int units = wc * (cin_pg / kVx);      // copies per row
+  auto copy_rows = [&](int r0, int rows, int part, int parts) {
+    const int total = rows * units;
+    const int per = (total + parts - 1) / parts;
+    const int end = min(total, (part + 1) * per);
+    for (int idx = part * per + tid; idx < end; idx += kThreads) {
+      const int r = idx / units;
+      const int rem = idx - r * units;
+      const int c = rem / (cin_pg / kVx);
+      const int ci = (rem - c * (cin_pg / kVx)) * kVx;
       const int ih = r0 + r - a.pad_top;
       const int iw = col0 + c;
-      float v = 0.0f;
-      if (ih >= 0 && ih < a.h && iw >= 0 && iw < a.w)
-        v = xin[((size_t)ih * a.w + iw) * a.cin + ci];
-      xs[((r0 + r) % wr) * row_len + rem] = v;
+      const bool in = ih >= 0 && ih < a.h && iw >= 0 && iw < a.w;
+      const float* src = in ? xin + ((size_t)ih * a.w + iw) * a.cin + ci : xin;
+      float* dst = xs + ((r0 + r) % a.ring_rows) * row_len +
+                   c * a.cin_stride + ci;
+      if (kVecX)
+        cp_async16(dst, src, in);
+      else
+        cp_async4(dst, src, in);
     }
   };
 
-  // Taps + epilogue of strip t; the window is already in the ring.
-  auto run_strip = [&](int t) {
-    float acc[kMaxPositions][kMaxCout];
-#pragma unroll
-    for (int m = 0; m < kMaxPositions; ++m)
-#pragma unroll
-      for (int j = 0; j < kMaxCout; ++j) acc[m][j] = 0.0f;
+  // Weight stage: input channels [ci0, ci0 + 16) of one tap x the tile's
+  // C_out (zeros past the tile's valid channels).
+  auto copy_weights = [&](int chunk, int stage) {
+    const int tap = chunk / cin_chunks;
+    const int ci0 = (chunk - tap * cin_chunks) * kChunk;
+    const int nc = min(kChunk, cin_pg - ci0);
+    const float* src0 = wt + ((size_t)tap * cin_pg + ci0) * a.cout + co_base;
+    float* dst0 = ws + stage * kChunk * tcp;
+    if (a.vec_w) {
+      const int per_row = tcp / 4;
+      for (int idx = tid; idx < nc * per_row; idx += kThreads) {
+        const int cc = idx / per_row, co = (idx - cc * per_row) * 4;
+        const bool ok = co < co_valid;
+        cp_async16(dst0 + cc * tcp + co, ok ? src0 + (size_t)cc * a.cout + co
+                                            : wt, ok);
+      }
+    } else {
+      for (int idx = tid; idx < nc * tcp; idx += kThreads) {
+        const int cc = idx / tcp, co = idx - cc * tcp;
+        const bool ok = co < co_valid;
+        cp_async4(dst0 + cc * tcp + co, ok ? src0 + (size_t)cc * a.cout + co
+                                           : wt, ok);
+      }
+    }
+  };
 
-    for (int ki = 0; ki < k; ++ki) {
-      for (int kj = 0; kj < k; ++kj) {
-        int off[kMaxPositions];
+  // the first window whole, with the first weight stage
+  copy_rows(t_first * th, th + kc, 0, 1);
+  copy_weights(0, 0);
+  cp_async_commit();
+  int stage = 0;
+
+  for (int t = t_first; t < t_last; ++t) {
+    const bool has_next = t + 1 < t_last;
+    if (t > t_first && !prefetch) {
+      // the fresh rows replace strip t-1's first TH rows: every thread is
+      // done with strip t-1
+      __syncthreads();
+      copy_rows(t * th + kc, th, 0, 1);
+      cp_async_commit();
+    }
+
+    float acc[kPositions][kCout];
 #pragma unroll
-        for (int m = 0; m < kMaxPositions; ++m) {
+    for (int m = 0; m < kPositions; ++m)
+#pragma unroll
+      for (int j = 0; j < kCout; ++j) acc[m][j] = 0.0f;
+    int off[kPositions];
+
+    for (int c = 0; c < n_chunks; ++c) {
+      cp_async_wait_all();   // this thread's copies of stage c have landed
+      __syncthreads();       // everyone's; and stage c-1 is consumed
+      if (c + 1 < n_chunks || has_next)
+        copy_weights((c + 1) % n_chunks, stage ^ 1);
+      if (prefetch && has_next) copy_rows((t + 1) * th + kc, th, c, n_chunks);
+      cp_async_commit();
+
+      const int tap = c / cin_chunks;
+      const int ci0 = (c - tap * cin_chunks) * kChunk;
+      if (ci0 == 0) {        // a new tap: the positions' window offsets
+        const int ki = tap / k, kj = tap - (tap / k) * k;
+#pragma unroll
+        for (int m = 0; m < kPositions; ++m) {
           const int p = ty + m * pthreads;
-          int o = 0;  // idle slots read a valid address and are never stored
+          int o = 0;  // idle slots read a valid address, never stored
           if (p < positions) {
-            const int i = p / a.tile_w, c = p - i * a.tile_w;
-            const int slot = (t * th + i * s + ki) % wr;
-            o = (slot * wc + c * s + kj) * cin_pg;
+            const int i = p / a.tile_w, cc = p - i * a.tile_w;
+            const int slot = (t * th + i * s + ki) % a.ring_rows;
+            o = (slot * wc + cc * s + kj) * a.cin_stride;
           }
           off[m] = o;
         }
-        const float* wtap = wt + (size_t)(ki * k + kj) * cin_pg * a.cout;
-        for (int ci0 = 0; ci0 < cin_pg; ci0 += kWeightChunk) {
-          const int nc = min(kWeightChunk, cin_pg - ci0);
-          __syncthreads();  // previous chunk fully consumed; ring loads done
-          for (int idx = tid; idx < nc * a.tile_cout; idx += kThreads) {
-            const int cc = idx / a.tile_cout, co = idx - cc * a.tile_cout;
-            ws[idx] = cot * a.tile_cout + co < cout_pg
-                          ? wtap[(size_t)(ci0 + cc) * a.cout + co_base + co]
-                          : 0.0f;
-          }
-          __syncthreads();
-          if (computes) {
-            for (int cc = 0; cc < nc; ++cc) {
-              float wv[kMaxCout];
+      }
+      if (computes) {
+        const int nc = min(kChunk, cin_pg - ci0);
+        const float* wsb = ws + stage * kChunk * tcp + 4 * tx;
+        const float* xsb = xs + ci0;
+        if (kVecX) {
+          // 4 input channels: 8 window float4s, 4 weight float4s, 128 FMAs
+          auto mac4 = [&](int cc) {
+            float4 xv[kPositions];
 #pragma unroll
-              for (int j = 0; j < kMaxCout; ++j)
-                wv[j] = j < cpt ? ws[cc * a.tile_cout + tx + j * a.threads_cout]
-                                : 0.0f;
+            for (int m = 0; m < kPositions; ++m)
+              xv[m] = *reinterpret_cast<const float4*>(xsb + off[m] + cc);
 #pragma unroll
-              for (int m = 0; m < kMaxPositions; ++m) {
-                if (m < mp) {
-                  const float xv = xs[off[m] + ci0 + cc];
+            for (int u = 0; u < 4; ++u) {
+              const float4 wv =
+                  *reinterpret_cast<const float4*>(wsb + (cc + u) * tcp);
 #pragma unroll
-                  for (int j = 0; j < kMaxCout; ++j)
-                    if (j < cpt) acc[m][j] = fmaf(xv, wv[j], acc[m][j]);
-                }
+              for (int m = 0; m < kPositions; ++m) {
+                const float xu = u == 0   ? xv[m].x
+                                 : u == 1 ? xv[m].y
+                                 : u == 2 ? xv[m].z
+                                          : xv[m].w;
+                acc[m][0] = fmaf(xu, wv.x, acc[m][0]);
+                acc[m][1] = fmaf(xu, wv.y, acc[m][1]);
+                acc[m][2] = fmaf(xu, wv.z, acc[m][2]);
+                acc[m][3] = fmaf(xu, wv.w, acc[m][3]);
               }
+            }
+          };
+          if (nc == kChunk) {  // a full stage: unrolled, loads hoisted
+#pragma unroll
+            for (int cc = 0; cc < kChunk; cc += 4) mac4(cc);
+          } else {
+#pragma unroll 1
+            for (int cc = 0; cc < nc; cc += 4) mac4(cc);
+          }
+        } else {
+          for (int cc = 0; cc < nc; ++cc) {
+            const float4 wv =
+                *reinterpret_cast<const float4*>(wsb + cc * tcp);
+#pragma unroll
+            for (int m = 0; m < kPositions; ++m) {
+              const float xu = xsb[off[m] + cc];
+              acc[m][0] = fmaf(xu, wv.x, acc[m][0]);
+              acc[m][1] = fmaf(xu, wv.y, acc[m][1]);
+              acc[m][2] = fmaf(xu, wv.z, acc[m][2]);
+              acc[m][3] = fmaf(xu, wv.w, acc[m][3]);
             }
           }
         }
       }
+      stage ^= 1;
     }
 
-    if (!computes) return;
+    if (!computes) continue;
 #pragma unroll
-    for (int m = 0; m < kMaxPositions; ++m) {
+    for (int m = 0; m < kPositions; ++m) {
       const int p = ty + m * pthreads;
-      if (m >= mp || p >= positions) continue;
-      const int i = p / a.tile_w, c = p - i * a.tile_w;
-      const int oh = t * a.tile_h_out + i, ow = band * a.tile_w + c;
+      if (p >= positions) continue;
+      const int i = p / a.tile_w, cc = p - i * a.tile_w;
+      const int oh = t * a.tile_h_out + i, ow = band * a.tile_w + cc;
       if (oh >= a.h_out || ow >= a.w_out) continue;
-      float* yrow = y + (((size_t)img * a.h_out + oh) * a.w_out + ow) * a.cout;
+      float* yrow = y + (((size_t)img * a.h_out + oh) * a.w_out + ow) * a.cout +
+                    co_base;
 #pragma unroll
-      for (int j = 0; j < kMaxCout; ++j) {
-        const int co = tx + j * a.threads_cout;
-        if (j >= cpt || cot * a.tile_cout + co >= cout_pg) continue;
+      for (int j = 0; j < kCout; ++j) {
+        const int co = 4 * tx + j;
+        if (co >= co_valid) continue;
         float v = acc[m][j];
         if (bias != nullptr) v = v + bias[co_base + co];
-        yrow[co_base + co] = activate(v, a.activation);
+        yrow[co] = activate(v, a.activation);
       }
     }
-  };
-
-  if (kCarry) {
-    for (int t = 0; t < a.n_strips; ++t) {
-      __syncthreads();  // every read of the slots refilled below is done
-      if (t == 0)
-        load_rows(0, wr);
-      else
-        load_rows(t * th + kc, th);  // only the fresh rows; K-s carried
-      run_strip(t);
-    }
-  } else {
-    const int t = blockIdx.y;
-    load_rows(t * th, wr);  // the strip plus its K-s predecessor rows
-    run_strip(t);
   }
 }
 
-template <bool kCarry>
-int launch(const float* x, const float* w, const float* bias, float* y,
-           const ConvArgs& a, void* stream) {
-  const int positions = a.tile_h_out * a.tile_w;
-  if (a.threads_cout < 1 || a.threads_cout > 32 || a.tile_cout < 1 ||
-      a.tile_cout % a.threads_cout != 0 ||
-      a.tile_cout / a.threads_cout > kMaxCout ||
-      positions > (kThreads / a.threads_cout) * kMaxPositions ||
-      a.k < 1 || a.stride < 1 || a.groups < 1 || a.cin % a.groups != 0 ||
-      a.cout % a.groups != 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(a);
-  if (smem > (size_t)kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+template <bool kVecX, int kMinBlocks>
+int launch_kernel(const float* x, const float* w, const float* bias, float* y,
+                  const ConvArgs& a, size_t smem, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      trim_conv2d_kernel<kCarry>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      trim_conv2d_kernel<kVecX, kMinBlocks>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.n * a.groups * a.co_tiles * a.n_bands,
-                  kCarry ? 1 : a.n_strips);
-  trim_conv2d_kernel<kCarry><<<grid, kThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(a.n * a.groups * a.co_tiles * a.n_bands, a.segments);
+  trim_conv2d_kernel<kVecX, kMinBlocks><<<grid, kThreads, smem,
+                                          static_cast<cudaStream_t>(stream)>>>(
       x, w, bias, y, a);
   return (int)cudaGetLastError();
 }
 
+int launch(const float* x, const float* w, const float* bias, float* y,
+           ConvArgs a, void* stream) {
+  if (a.k < 1 || a.stride < 1 || a.groups < 1 || a.cin % a.groups != 0 ||
+      a.cout % a.groups != 0 || a.tile_cout < 1 || a.tile_cout > 32 * kCout ||
+      a.tile_h_out < 1 || a.tile_w < 1 || a.strips_per_seg < 1)
+    return (int)cudaErrorInvalidValue;
+  const int cin_pg = a.cin / a.groups, cout_pg = a.cout / a.groups;
+  const int kc = a.k > a.stride ? a.k - a.stride : 0;
+  a.tcx = (a.tile_cout + kCout - 1) / kCout;
+  a.n_strips = (a.h_out + a.tile_h_out - 1) / a.tile_h_out;
+  a.n_bands = (a.w_out + a.tile_w - 1) / a.tile_w;
+  a.co_tiles = (cout_pg + a.tile_cout - 1) / a.tile_cout;
+  a.segments = (a.n_strips + a.strips_per_seg - 1) / a.strips_per_seg;
+  const bool vec_x = cin_pg % 4 == 0 && a.cin_stride % 4 == 0 &&
+                     (uintptr_t)x % 16 == 0;
+  a.vec_w = a.cout % 4 == 0 && cout_pg % 4 == 0 && a.tile_cout % 4 == 0 &&
+            (uintptr_t)w % 16 == 0;
+  if (a.tile_h_out * a.tile_w > (kThreads / a.tcx) * kPositions ||
+      a.cin_stride < cin_pg || a.ring_rows < a.tile_h_out * a.stride + kc ||
+      a.segments > 65535)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(a);
+  if (smem > (size_t)kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  // a window too large for two blocks an SM runs the instance that may
+  // use all 255 registers (deeper load pipelining, one block an SM)
+  const bool one = 2 * (smem + kReservedSmem) > (size_t)kSmemPerSm;
+  if (vec_x)
+    return one ? launch_kernel<true, 1>(x, w, bias, y, a, smem, stream)
+               : launch_kernel<true, 2>(x, w, bias, y, a, smem, stream);
+  return one ? launch_kernel<false, 1>(x, w, bias, y, a, smem, stream)
+             : launch_kernel<false, 2>(x, w, bias, y, a, smem, stream);
+}
+
 ConvArgs make_args(int n, int h, int w, int cin, int cout, int k, int stride,
                    int pad_top, int pad_left, int groups, int h_out, int w_out,
-                   int tile_h_out, int tile_w, int tile_cout, int threads_cout,
+                   int tile_h_out, int tile_w, int tile_cout,
+                   int strips_per_seg, int ring_rows, int cin_stride,
                    int activation) {
-  ConvArgs a;
+  ConvArgs a = {};
   a.n = n; a.h = h; a.w = w; a.cin = cin; a.cout = cout; a.k = k;
   a.stride = stride; a.pad_top = pad_top; a.pad_left = pad_left;
   a.groups = groups; a.h_out = h_out; a.w_out = w_out;
   a.tile_h_out = tile_h_out; a.tile_w = tile_w; a.tile_cout = tile_cout;
-  a.threads_cout = threads_cout;
-  a.n_strips = (h_out + tile_h_out - 1) / tile_h_out;
-  a.n_bands = (w_out + tile_w - 1) / tile_w;
-  const int cout_pg = groups > 0 ? cout / groups : 0;
-  a.co_tiles = tile_cout > 0 ? (cout_pg + tile_cout - 1) / tile_cout : 0;
-  a.activation = activation;
+  a.strips_per_seg = strips_per_seg; a.ring_rows = ring_rows;
+  a.cin_stride = cin_stride; a.activation = activation;
   return a;
 }
 
@@ -268,23 +410,32 @@ ConvArgs make_args(int n, int h, int w, int cin, int cout, int k, int stride,
 // C entry points, bound with ctypes by repro_torch/kernels/build.py.  Each
 // launches on `stream` without synchronising and returns cudaGetLastError()
 // (or cudaErrorInvalidValue for a geometry the kernel cannot take).
+// strips_per_seg and ring_rows are ConvPlan's; halo takes one strip a
+// segment and the plain window ring whatever it is given.
 extern "C" {
 
 #define TRIM_CONV2D_ARGS                                                      \
   const float *x, const float *w, const float *bias, float *y, int n, int h,  \
       int wd, int cin, int cout, int k, int stride, int pad_top, int pad_left, \
       int groups, int h_out, int w_out, int tile_h_out, int tile_w,           \
-      int tile_cout, int threads_cout, int activation, void *stream
-#define TRIM_CONV2D_MAKE_ARGS                                                 \
-  make_args(n, h, wd, cin, cout, k, stride, pad_top, pad_left, groups, h_out, \
-            w_out, tile_h_out, tile_w, tile_cout, threads_cout, activation)
+      int tile_cout, int strips_per_seg, int ring_rows, int cin_stride,       \
+      int activation, void *stream
 
 int trim_conv2d_carry(TRIM_CONV2D_ARGS) {
-  return launch<true>(x, w, bias, y, TRIM_CONV2D_MAKE_ARGS, stream);
+  return launch(x, w, bias, y,
+                make_args(n, h, wd, cin, cout, k, stride, pad_top, pad_left,
+                          groups, h_out, w_out, tile_h_out, tile_w, tile_cout,
+                          strips_per_seg, ring_rows, cin_stride, activation),
+                stream);
 }
 
 int trim_conv2d_halo(TRIM_CONV2D_ARGS) {
-  return launch<false>(x, w, bias, y, TRIM_CONV2D_MAKE_ARGS, stream);
+  const int kc = k > stride ? k - stride : 0;
+  return launch(x, w, bias, y,
+                make_args(n, h, wd, cin, cout, k, stride, pad_top, pad_left,
+                          groups, h_out, w_out, tile_h_out, tile_w, tile_cout,
+                          1, tile_h_out * stride + kc, cin_stride, activation),
+                stream);
 }
 
 const char* trim_conv2d_error_string(int err) {

@@ -22,7 +22,6 @@ import torch
 from repro_torch.kernels import build
 
 BLOCK_K = 64           # keys per tile, the kernel's kKeys
-MAX_HEAD_DIM = 256     # the kernel's kMaxHeadDim
 NEG_INF = -1e30        # the TPU kernel's mask value
 
 # Kernel launches: each successful launch adds one.
@@ -53,9 +52,6 @@ def _check(q, k, v, causal, soft_cap, window) -> None:
                          f"be (B, Lk, Hkv, D) for q {tuple(q.shape)}")
     if hq % hkv:
         raise ValueError(f"Hq={hq} must be a multiple of Hkv={hkv}")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM}: the kernel keeps "
-                         "Q, K and V tiles of 64 rows in shared memory")
     if causal and lq > lk:
         raise ValueError(f"causal attention with Lq={lq} > Lk={lk} leaves "
                          "query rows with no key")
@@ -122,7 +118,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     On CUDA tensors, one launch of the hand-written kernel (counted in
     ``LAUNCHES``); on CPU tensors, :func:`flash_attention_plain`.  Raises
     ``ValueError`` for what the kernel cannot take: a dtype other than
-    f32, head_dim > 256, Hq % Hkv != 0, causal with Lq > Lk.
+    f32, Hq % Hkv != 0, causal with Lq > Lk.  Any head_dim: D > 256 runs
+    the kernel's wide-head route (D in chunks, 256 output columns a
+    block).
     """
     _check(q, k, v, causal, soft_cap, window)
     if q.device.type == "cpu":

@@ -66,12 +66,12 @@ def trim_conv1d_plain(x: torch.Tensor, w: torch.Tensor, *,
 def trim_conv1d(x: torch.Tensor, w: torch.Tensor, *,
                 tile_l: int | None = None) -> torch.Tensor:
     """x: (B, L, D) f32 with a contiguous channel axis (other strides are
-    read as they are); w: (K, D) f32, 2 <= K <= 8 -> y (B, L, D).
+    read as they are); w: (K, D) f32, K >= 2 -> y (B, L, D).
 
     On CUDA tensors, one launch of the hand-written kernel (counted in
     ``LAUNCHES``); on CPU tensors, :func:`trim_conv1d_plain`.  Raises
     ``ValueError`` for what the kernel cannot take: another dtype, mixed
-    devices, K outside [2, 8], or an empty B, L or D.  ``tile_l`` left as
+    devices, K < 2, or an empty B, L or D.  ``tile_l`` left as
     ``None`` takes ``Conv1dPlan.build``'s choice.  It has no backward:
     under autograd, with x or w requiring grad, it raises
     ``NotImplementedError`` rather than give a result no gradient reaches.

@@ -137,8 +137,8 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor,
             plan.n, plan.h, plan.w, plan.cin, plan.cout, plan.k,
             plan.stride, plan.pads[0][0], plan.pads[1][0], plan.groups,
             plan.h_out, plan.w_out, plan.th_out, plan.tile_w,
-            plan.tile_cout, plan.threads_cout, ACTIVATION_CODES[activation],
-            stream)
+            plan.tile_cout, plan.strips_per_segment, plan.ring_rows,
+            plan.cin_stride, ACTIVATION_CODES[activation], stream)
     if err != 0:
         raise RuntimeError(
             f"trim_conv2d {dataflow} kernel launch failed: CUDA error {err} "

@@ -76,6 +76,32 @@ def test_attention_matches_jax_pallas_and_oracle(case, impl):
     _close(got, oracle)
 
 
+# D > 256: the kernel's wide-head route on the card; on the CPU its plain
+# version.  b, lq, lk, hq, hkv, d, causal, window
+WIDE_CASES = [(1, 40, 40, 4, 2, 320, True, None),
+              (1, 40, 40, 4, 2, 320, True, 16),
+              (1, 33, 70, 2, 1, 512, True, None),
+              (1, 33, 70, 2, 1, 512, True, 24)]
+
+
+@pytest.mark.parametrize("case", WIDE_CASES,
+                         ids=[f"d{c[5]}-w{c[7]}" for c in WIDE_CASES])
+def test_flash_wide_head_matches_jax_pallas_and_chunked(case):
+    """head_dim 320 and 512: the port's flash takes them as JAX's Pallas
+    kernel does, and matches it and JAX ``chunked``."""
+    b, lq, lk, hq, hkv, d, causal, win = case
+    q, k, v = _qkv(np.random.default_rng(d + lk), b, lq, lk, hq, hkv, d)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    pallas = jops.attention(jq, jk, jv, causal=causal, window=win,
+                            impl="pallas")
+    chunked = jops.attention(jq, jk, jv, causal=causal, window=win,
+                             impl="chunked", chunk=16)
+    got = ops.attention(*map(torch.from_numpy, (q, k, v)), causal=causal,
+                        window=win, impl="flash")
+    _close(got, pallas)
+    _close(got, chunked)
+
+
 def test_flash_plain_version_is_the_wrapper_on_cpu():
     (q, k, v), _, _ = _jax_case(2)
     tq, tk, tv = map(torch.from_numpy, (q, k, v))

@@ -9,8 +9,9 @@ JAX, which such a host need not have):
 
 Small random geometries that reach every edge of the kernel: ragged
 bottom and right edges, bands narrower than the output, strides above K,
-grouped and depthwise convs, C_out tiles that do not divide C_out, and
-each activation.  Tolerance: 1e-4 * max(1, max|plain|) (f32 sums in
+grouped and depthwise convs, C_out tiles that do not divide C_out, each
+activation, carry segments of several strips with the prefetching ring,
+tile_cout 3, Cin 3, and operands at a 4-byte offset.  Tolerance: 1e-4 * max(1, max|plain|) (f32 sums in
 another order); carry and halo must agree bitwise.  The weight-gradient
 kernel is held against its plain version within 1e-4 * max|plain| and
 must repeat bitwise; the input gradient (the forward kernel on the
@@ -20,12 +21,14 @@ tolerance, must repeat bitwise, and must equal the per-layer carry chain
 bitwise, forward and (through ``fused_group_apply``) backward.  The
 flash-attention kernel is held against its plain version and the ``ref``
 oracle within 1e-5 * max|plain| (f32 sums in another order) on the CPU
-tests' geometries plus head dims 12, 14, 128 and 256, GQA groups 7 and 10,
+tests' geometries plus head dims 12, 14, 128 and 256 and the wide-head
+route's 320, 512 and 600, GQA groups 7 and 10,
 windows, soft caps and ragged Lq / Lk; a SMOKE LM prefill on it against
 ``attn_impl="ref"``.  The conv1d kernel is held against its plain version
 and the ``ref`` oracle bit for bit (the same rounded products summed in
 the same order) on ragged runs, L < K-1, narrow channel counts, K = 2..8
-and strided views like the Mamba mixer's; a falcon-mamba-7b SMOKE prefill
+and strided views like the Mamba mixer's, and K = 9, 12 and 16 (the
+runtime-K instance); a falcon-mamba-7b SMOKE prefill
 on it launches it once a layer and matches the same prefill on the CPU
 within 1e-5 * max|logits| (GEMMs in another order).
 """
@@ -93,6 +96,50 @@ def test_kernels_match_plain(cuda, case):
         assert y.shape == plain.shape
         assert (y - plain).abs().max().item() <= tol, df
     assert torch.equal(out["carry"], out["halo"])
+
+
+# The micro-tile's edges: carry segments of several strips with the
+# prefetching window ring, tile_cout 3 (a thread's float4 of weights
+# partly padding), Cin 3 and depthwise (4-byte window copies), stride 2,
+# and operands at a 4-byte offset (4-byte copies instead of 16-byte).
+# (n, h, w, cin, cout, k, stride, groups, tile_h, tile_cout, offset)
+EDGE_CASES = [
+    (8, 96, 96, 32, 64, 3, 1, 1, 2, None, False),
+    (8, 50, 50, 12, 64, 3, 1, 1, 2, 3, False),
+    (4, 33, 35, 3, 128, 3, 2, 1, None, None, False),
+    (8, 40, 40, 48, 48, 3, 1, 48, None, None, False),
+    (2, 19, 23, 16, 24, 3, 2, 1, None, None, True),
+]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES,
+                         ids=[str(i) for i in range(len(EDGE_CASES))])
+def test_micro_tile_edges_match_plain(cuda, case):
+    from repro_torch.core.conv_plan import ConvPlan
+    n, h, w, cin, cout, k, s, g, tile_h, tile_cout, offset = case
+    gen = torch.Generator(device="cuda").manual_seed(h + w)
+    x = torch.randn((n * h * w * cin + offset,), generator=gen,
+                    device=cuda)[offset:].view(n, h, w, cin)
+    wt = torch.randn((k * k * (cin // g) * cout + offset,), generator=gen,
+                     device=cuda)[offset:].view(k, k, cin // g, cout)
+    b = torch.randn((cout,), generator=gen, device=cuda)
+    kw = dict(stride=s, pad=conv_pads(h, w, k, s, "same"), groups=g,
+              activation="relu")
+    plan = ConvPlan.build(tuple(x.shape), tuple(wt.shape), tile_h=tile_h,
+                          tile_cout=tile_cout, **{k_: kw[k_] for k_ in
+                                                  ("stride", "pad",
+                                                   "groups")})
+    if case[0] == 8 and tile_h is not None:
+        assert plan.strips_per_segment > 1 and plan.prefetch
+    plain = tc.trim_conv2d_plain(x, wt, b, **kw)
+    carry = tc.trim_conv2d(x, wt, b, tile_h=tile_h, tile_cout=tile_cout,
+                           **kw)
+    halo = tc.trim_conv2d(x, wt, b, tile_h=tile_h, tile_cout=tile_cout,
+                          dataflow="halo", **kw)
+    torch.cuda.synchronize()
+    tol = TOL * max(1.0, plain.abs().max().item())
+    assert (carry - plain).abs().max().item() <= tol
+    assert torch.equal(carry, halo)
 
 
 def test_kernel_without_bias_and_batch_invariance(cuda):
@@ -304,6 +351,11 @@ FLASH_CASES = [
     (1, 130, 130, 6, 2, 12, True, None, None),
     (2, 70, 200, 9, 3, 128, False, 5.0, None),
     (1, 300, 300, 16, 2, 128, True, None, None),
+    # D > 256: the wide-head route (D in chunks, 256 output columns a block)
+    (1, 150, 150, 4, 2, 320, True, None, None),
+    (2, 70, 130, 6, 2, 320, False, 30.0, 40),
+    (1, 100, 100, 2, 1, 512, True, None, 33),
+    (1, 17, 80, 3, 1, 600, True, None, None),
 ]
 FLASH_TOL = 1e-5
 
@@ -350,10 +402,8 @@ def test_flash_wrapper_raises_on_cuda(cuda):
     kv = torch.zeros((1, 8, 2, 16), device=cuda)
     with pytest.raises(ValueError):
         fa.flash_attention(q.half(), kv.half(), kv.half())
-    with pytest.raises(ValueError):
-        fa.flash_attention(torch.zeros((1, 8, 4, 272), device=cuda),
-                           torch.zeros((1, 8, 2, 272), device=cuda),
-                           torch.zeros((1, 8, 2, 272), device=cuda))
+    with pytest.raises(ValueError):      # causal rows with no key
+        fa.flash_attention(torch.zeros((1, 9, 4, 16), device=cuda), kv, kv)
     with pytest.raises(ValueError):
         fa.flash_attention(torch.zeros((1, 8, 3, 16), device=cuda), kv, kv)
 
@@ -394,6 +444,10 @@ CONV1D_CASES = [
     (2, 33, 16, 3, 5, True),
     (3, 37, 70, 8, 1, False),
     (1, 1, 8192, 4, None, True),
+    # K > 8: the runtime-K instance
+    (2, 300, 96, 9, None, True),
+    (2, 100, 40, 16, 7, False),
+    (1, 5, 33, 12, None, False),
 ]
 
 

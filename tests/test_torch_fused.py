@@ -16,8 +16,9 @@ the JAX ``init_params``, carried over by ``convert.params_from_jax``.
   per-layer chain, and within 1e-4 of ``jax.grad`` of the JAX
   ``reference_chain`` on ``impl="ref"`` (the JAX Pallas backward fails
   here too).
-* The plan: ``max_depth=1`` is per-layer; full-width VGG-16 fuses under
-  227 KB with executed <= per-layer bytes.
+* The plan: ``max_depth=1`` is per-layer; VGG-16 at 1/16 width fuses
+  under 227 KB with executed <= per-layer bytes; at full width no group
+  beats the per-layer kernel's bytes, and the plan fuses none.
 """
 
 import dataclasses
@@ -344,7 +345,14 @@ def test_max_depth_one_is_per_layer_execution(net):
 
 @pytest.mark.parametrize("n", [1, 8])
 def test_vgg16_plan_fuses_within_shared_memory(n):
-    plan = FusedGroupPlan.build("vgg16", n=n)
+    """VGG-16 at 1/16 width (the JAX parity tests' model) fuses under
+    227 KB with executed <= per-layer bytes.  At full width no group moves
+    fewer bytes than the per-layer kernel's schedule (strips of up to 128
+    positions, each streaming the layer's weights once), so the plan runs
+    every layer on its own."""
+    from repro_torch.core.netplan import scale_layers
+    plan = FusedGroupPlan.build(scale_layers(network_layers("vgg16"), 16),
+                                n=n)
     assert plan.fused_groups, plan.describe()
     assert sum(g.depth for g in plan.groups) == 13
     for g in plan.fused_groups:
@@ -354,6 +362,17 @@ def test_vgg16_plan_fuses_within_shared_memory(n):
             plan.layer_exec_bytes[g.start + i]["total"]
             for i in range(g.depth))
     assert plan.executed_hbm_bytes()["total"] <= plan.never_hbm_bytes()
+    full = FusedGroupPlan.build("vgg16", n=n)
+    assert not full.fused_groups, full.describe()
+    assert full.executed_hbm_bytes()["total"] == full.never_hbm_bytes()
+    for start, t, b in ((0, 8, 16), (2, 4, 8)):   # two-layer groups
+        g = build_group(network_layers("vgg16")[start:start + 2], start,
+                        n=n, strip_rows=t, band_cols=b,
+                        pools=infer_pools(network_layers("vgg16"))[
+                            start:start + 2])
+        assert g.smem_bytes <= SMEM_PER_BLOCK
+        assert g.hbm_bytes()["total"] > sum(
+            full.layer_exec_bytes[start + i]["total"] for i in range(2))
 
 
 def test_plan_picks_the_least_byte_tile_within_the_budget(monkeypatch):
@@ -396,7 +415,9 @@ def test_per_layer_bytes_are_the_conv_plan_schedule_and_the_pool():
 
 
 def test_describe_lists_the_groups():
-    plan = FusedGroupPlan.build("vgg16", n=1)
+    from repro_torch.core.netplan import scale_layers
+    plan = FusedGroupPlan.build(scale_layers(network_layers("vgg16"), 16),
+                                n=1)
     text = plan.describe()
     assert text.startswith("conv1..") and "(T=" in text
     assert text.count("|") == len(plan.groups) - 1
