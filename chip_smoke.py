@@ -5,11 +5,18 @@ Run from the repository root on a host with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --step-times N`` only builds the kernels and times
+N full-width VGG-16 AdamW steps and the weight-gradient kernel at the
+step's shapes (one JSON line): copied into another checkout, it measures
+that checkout's package the same way, for a comparison in one call.
+
 Phases, each raising on failure (each prints its seconds):
 
 1. device — the card's name and power limit (``nvidia-smi``);
 2. build  — a fresh ``nvcc`` build of every kernel source for sm_90a, one
-   process per source, all started together;
+   process per source, all started together; the flash-attention
+   library's SASS (``cuobjdump``) must show TF32 tensor-core instructions
+   in each narrow-route instance;
 3. kernel check — each conv kernel (carry, halo) against its plain PyTorch
    version at the shapes of full-width VGG-16 (all 13 layers), plus one
    stride-2 and one depthwise case, at batch 8 and again at batch 1:
@@ -21,9 +28,10 @@ Phases, each raising on failure (each prints its seconds):
    kernel against its plain version within 1e-4 * max|plain| (see
    ``WGRAD_TOLERANCE``), two launches bitwise equal, and its time beside
    the plain version's, ``torch.nn.grad.conv2d_weight``'s (TF32 off) and
-   the bound; the input gradient (the carry kernel on the dilated
-   cotangent) against the plain forward on the same padded cotangent,
-   within the forward's tolerance;
+   the bound; the card's resident blocks an SM of each GEMM tile equal
+   to the plan's ``WGRAD_BLOCKS_PER_SM``; the input gradient (the carry
+   kernel on the dilated cotangent) against the plain forward on the
+   same padded cotangent, within the forward's tolerance;
 5. fused kernel check — full-width VGG-16's two-layer groups
    conv1..conv2 (tile 8 x 16) and conv3..conv4 (4 x 8), built at their
    tiles since the plan fuses no full-width layer (its description is
@@ -51,7 +59,7 @@ Phases, each raising on failure (each prints its seconds):
 7. train — full-width VGG-16 (224x224, 1000 classes, seeded weights and
    data, batch 8): the step-1 gradient of every leaf against autograd of
    ``impl="ref"`` on the kernels' branch (``branch_matched_oracle``)
-   within ``GRAD_TOLERANCE``, then 3 AdamW steps of
+   within ``GRAD_TOLERANCE``, then 6 AdamW steps of
    ``launch.train_cnn.train_step``, each with exactly 25 carry launches
    (13 forward, 12 input gradients: conv1's input needs none) and 13
    weight-gradient calls, a finite loss, and step 1 run again from the
@@ -72,9 +80,10 @@ Phases, each raising on failure (each prints its seconds):
    window 2048, soft cap 30; (d) (a) without the causal mask; (e) ragged
    Lq=17 / Lk=47; (f) head_dim 320 and (g) 512 with a 512 window, the
    wide-head route (B=1, L=2048, Hq=8, Hkv=2); each one's time beside
-   the plain version's and the
-   bound, and for (a) ``F.scaled_dot_product_attention`` (the yardstick;
-   the port never calls it);
+   the plain version's and two bounds, its route's (3xTF32 on the tensor
+   cores for D <= 256, f32 FFMA above) and the FFMA one, and for (a)
+   ``F.scaled_dot_product_attention`` (the yardstick; the port never
+   calls it);
 11. LM prefill — full-width qwen2.5-3b (36 layers, 3.4 B parameters drawn
    on the card) through ``steps.make_prefill_step`` on 2 x 4096 seeded
    tokens, reduced from the JAX ``prefill_32k`` plan (32 x 32768, whose
@@ -85,8 +94,11 @@ Phases, each raising on failure (each prints its seconds):
    layer, PERF.md §6), so the whole-depth flash-vs-ref difference is
    printed, and what is checked is (i) every layer's attention, flash
    against ref on the flash forward's own activations
-   (``LM_LAYER_TOLERANCE``), and (ii) the logits and next tokens of the
-   depth-1 cut of the same model (``LM_TOLERANCE``);
+   (``LM_LAYER_TOLERANCE``), (ii) every layer's attention against a
+   float64 oracle, the kernel's error at most ``F64_FACTOR`` times the
+   f32 ref's (the f32 error both carry at logits of |s| ~ 2000), and
+   (iii) the logits and next tokens of the depth-1 cut of the same model
+   (``LM_TOLERANCE``);
 12. LM serve — ``launch.serve.serve_batch`` at full width, batch 4, prompt
    16, gen 32: tokens/s; the decode path (KV caches, ``decode_attention``,
    no kernel) against the flash prefill, position by position, on a
@@ -134,6 +146,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12      # H100 SXM: f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12    # H100 SXM: TF32 tensor cores, dense
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM: HBM3
 TOLERANCE = 1e-4            # of max(1, max|plain|); see the docstring
 # Weight gradient: of max|plain|.  Each dw element sums N*H_out*W_out
@@ -156,16 +169,30 @@ WGRAD_TOLERANCE = 1e-4
 # that reads 1e-4-1e-3 of max|ref| per leaf and is printed, not checked.
 GRAD_TOLERANCE = 1e-4
 # Attention kernel vs its plain version: of max|plain|.  Both run the
-# online softmax over the same 64-key tiles in f32 and differ only in the
-# order of the 128/256-term dot products and the row sums (a few ulp of
-# each score; outputs of N(0, 1) inputs are averages of <= 4096 values).
+# online softmax over 64-key tiles (32 at D 256) in f32 and differ in the
+# order of the 128/256-term dot products and the row sums, and on the
+# narrow route in the 3xTF32 products (~2^-22 of each; a few ulp of each
+# score; outputs of N(0, 1) inputs are averages of <= 4096 values).
 ATTN_TOLERANCE = 1e-5
 # One layer's attention output, flash vs ref on the same input: of
-# max|ref|.  The ref oracle sums scores with cuBLAS and normalises with one
-# softmax; with the JAX initialiser's peaked logits (std ~360 at full
-# width, |s| up to ~1500) a score's few-ulp difference (~1e-4) moves p by
-# up to ~1e-5 where two keys nearly tie.
+# max|ref|.  This catches wiring faults (a wrong head, group, position or
+# mask reads O(1)), not small numeric ones: with the JAX initialiser's
+# peaked logits (|s| up to ~2000 at full width) an f32 score carries ~1e-4
+# of rounding, which moves p by ~1e-4 where keys nearly tie, so both f32
+# paths sit ~1e-4 from float64 and their difference reads up to 9.4e-5
+# with the 3xTF32 kernel (3e-7 with the FFMA kernel it replaced, which
+# rounded its sums like cuBLAS).  The kernel's numerics are held at 1e-5
+# by the attention kernel check (N(0, 1) inputs) and, at these logits, by
+# the float64 check below.
 LM_LAYER_TOLERANCE = 1e-4
+# Every layer's attention (batch row 0, the first F64_POSITIONS positions,
+# before the output projection) against ref in float64: the kernel's error
+# must be at most F64_FACTOR times the f32 ref oracle's own error (both are
+# f32 paths with the same score rounding, so a correct kernel is of the
+# same order; it read 0.38 of ref's at layer 0), or ATTN_TOLERANCE where
+# both are smaller than that.
+F64_FACTOR = 2.0
+F64_POSITIONS = 2048        # the float64 attention oracle's query rows
 # Logits of the depth-1 cut, flash vs ref and decode vs prefill: of
 # max|logits|; one layer's attention difference through the MLP and head.
 LM_TOLERANCE = 1e-4
@@ -187,7 +214,7 @@ PREFILL_BATCH, PREFILL_SEQ = 2, 4096
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32
 CROSS_PROMPT = 256          # decode-vs-prefill prompt at the depth-1 cut
 TRAIN_BATCH = 8
-TRAIN_STEPS = 3
+TRAIN_STEPS = 6
 REQUESTS = 48               # carry- and fused-kernel serving traces
 HALO_REQUESTS = 16          # halo-kernel serving trace (a prefix of it)
 FUSED_SCALE = 16            # channel divisor of the fused phases' VGG-16
@@ -215,6 +242,38 @@ def card() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def flash_sass_check() -> dict:
+    """Disassemble the built flash-attention library (``cuobjdump
+    -sass``) and count, in each kernel instance, the tensor-core
+    instructions on TF32 operands (``HMMA.1688.F32.TF32``): every
+    narrow-route instance (D <= 256) must issue them, the wide route
+    none."""
+    import shutil
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", build.library(
+        "flash_attention")._name], capture_output=True, text=True,
+        check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line and "TF32" in line:
+            counts[fn] += 1
+    narrow = {f: n for f, n in counts.items()
+              if "flash_attention_kernel" in f}
+    wide = {f: n for f, n in counts.items()
+            if "flash_attention_wide_kernel" in f}
+    if len(narrow) != 3 or min(narrow.values()) == 0 or \
+            any(wide.values()):
+        raise AssertionError(f"flash SASS: TF32 HMMA counts {counts}")
+    print("flash SASS: HMMA.1688.F32.TF32 instructions per narrow "
+          "instance " + ", ".join(str(n) for n in narrow.values())
+          + f"; wide route {sum(wide.values())}")
+    return counts
 
 
 def time_ms(torch, fn, reps: int = 10) -> float:
@@ -329,16 +388,31 @@ def check_kernels(torch, n: int = 8):
 
 
 def check_backward_kernels(torch):
+    import ctypes
+    from repro_torch.core import conv_plan as cp
     from repro_torch.core.conv_plan import WeightGradPlan, input_grad_geometry
+    from repro_torch.kernels import build
     from repro_torch.kernels import trim_conv2d as tc
     from repro_torch.kernels.ref import conv_pads, pad_nhwc
 
+    # the plan's time model assumes WGRAD_BLOCKS_PER_SM resident GEMM
+    # blocks an SM: the card must agree
+    for tile in (cp.WGRAD_NARROW_TILE_COUT, cp.WGRAD_TILE_COUT):
+        got = ctypes.c_int(0)
+        err = build.library("trim_conv2d_wgrad") \
+            .trim_conv2d_wgrad_resident_blocks(tile, ctypes.byref(got))
+        if err != 0 or got.value != cp.WGRAD_BLOCKS_PER_SM:
+            raise AssertionError(
+                f"wgrad {tile}-column tile: {got.value} resident blocks an "
+                f"SM (CUDA error {err}), the plan assumes "
+                f"{cp.WGRAD_BLOCKS_PER_SM}")
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     print("backward kernel check (times in ms, device events):")
     print(f"  {'case':10s} {'dw_err':>9s} {'tol':>8s} {'rep':>5s} "
           f"{'dx_err':>9s} {'tol':>8s} {'wgrad':>8s} {'plain':>8s} "
-          f"{'cw_lib':>8s} {'bound':>8s} by      {'dx':>8s} chunks")
+          f"{'cw_lib':>8s} {'bound':>8s} by         {'TF/s w':>6s} "
+          f"{'dx':>8s} route     chunks blocks")
     for name, xs, wsh, stride, groups in kernel_cases():
         k = wsh[0]
         pads = conv_pads(xs[1], xs[2], k, stride, "same")
@@ -400,9 +474,19 @@ def check_backward_kernels(torch):
         print(f"  {name:10s} {err:9.2e} {tol:8.1e} {str(rep):>5s} "
               f"{dx_err:9.2e} {dx_tol:8.1e} {t['wgrad']:8.3f} "
               f"{t['plain']:8.3f} {t['library']:8.3f} {bound:8.3f} "
-              f"{by:10s} {t['dx']:8.3f} {plan.chunks}")
+              f"{by:10s} {plan.flops / t['wgrad'] / 1e9:6.2f} "
+              f"{t['dx']:8.3f} {plan.route:9s} {plan.chunks:6d} "
+              f"{plan.blocks:6d}")
+        rows[-1]["flops"] = plan.flops
         del x, g, w, plain, one, two, dx, dx_plain, xp, gl
     torch.cuda.empty_cache()
+    vgg = [r for r in rows if r["vgg"]]
+    wgrad_ms = sum(r["wgrad"] for r in vgg)
+    print(f"backward kernel check, sum of the 13 VGG-16 layers: wgrad "
+          f"{wgrad_ms:.3f} ms ({sum(r['flops'] for r in vgg) / wgrad_ms / 1e9:.2f}"
+          f" TFLOP/s), conv2d_weight {sum(r['library'] for r in vgg):.3f} "
+          f"ms, bound {sum(r['bound'] for r in vgg):.3f} ms, dx "
+          f"{sum(r['dx'] for r in vgg):.3f} ms")
     return rows
 
 
@@ -632,7 +716,6 @@ def train_vgg16(torch):
     """Full-width VGG-16 training steps; returns the wgrad and carry launch
     counts of the steps."""
     from repro_torch.core.model import vgg16_layers
-    from repro_torch.kernels import trim_conv2d as tc
     from repro_torch.launch.train_cnn import train_step
     from repro_torch.models.layers import TrimCNN
     from repro_torch.optim import AdamWConfig, adamw
@@ -682,6 +765,35 @@ def train_vgg16(torch):
     state0 = (params, moments)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    times, launches, step1 = timed_train_steps(torch, model, state0, cfg,
+                                               batches, log=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    again, _, _, _ = train_step(*state0, 0, *batches[0],
+                                apply_fn=model.apply_tree, cfg=cfg)
+    same = all(torch.equal(a, b) for a, b in zip(
+        adamw.tree_leaves(again), adamw.tree_leaves(step1)))
+    if not same:
+        raise AssertionError("train: step 1 from the same state gave "
+                             "different parameters")
+    print(f"train: VGG-16 full width, batch {TRAIN_BATCH}: "
+          f"{np.mean(times[2:]):.1f} ms per step (mean of steps "
+          f"3-{TRAIN_STEPS}, host clock to synchronize; min "
+          f"{min(times[2:]):.1f}; mean of steps 2-3, the window of a 3-step "
+          f"run, {np.mean(times[1:3]):.1f}; step 1 {times[0]:.1f} ms), "
+          f"peak device memory {peak:.2f} GiB; step 1 repeated from the "
+          "same state is bitwise equal")
+    return launches
+
+
+def timed_train_steps(torch, model, state, cfg, batches, log=False):
+    """``launch.train_cnn.train_step`` on each batch from ``state``:
+    each step's ms (host clock to synchronize), every step holding
+    exactly 25 carry launches (13 forward, 12 input gradients) and 13
+    weight-gradient calls and a finite loss.  Returns the times, the
+    summed launch counts and the parameters after step 1."""
+    from repro_torch.kernels import trim_conv2d as tc
+    from repro_torch.launch.train_cnn import train_step
+    params, moments = state
     launches, times = {"carry": 0, "halo": 0, "wgrad": 0, "fused": 0}, []
     for i, (x, y) in enumerate(batches):
         tc.reset_launch_counts()
@@ -701,23 +813,53 @@ def train_vgg16(torch):
             launches[key] += step[key]
         if i == 0:
             step1 = params
-        print(f"train: step {i} loss {loss.item():.6f} |g| "
-              f"{met['grad_norm'].item():.4f} lr {met['lr'].item():.3e} "
-              f"{times[-1]:.1f} ms; launches {step}")
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    again, _, _, _ = train_step(*state0, 0, *batches[0],
-                                apply_fn=model.apply_tree, cfg=cfg)
-    same = all(torch.equal(a, b) for a, b in zip(
-        adamw.tree_leaves(again), adamw.tree_leaves(step1)))
-    if not same:
-        raise AssertionError("train: step 1 from the same state gave "
-                             "different parameters")
-    print(f"train: VGG-16 full width, batch {TRAIN_BATCH}: "
-          f"{np.mean(times[1:]):.1f} ms per step (steps 2-{TRAIN_STEPS}, "
-          f"host clock to synchronize; step 1 {times[0]:.1f} ms), peak "
-          f"device memory {peak:.2f} GiB; step 1 repeated from the same "
-          "state is bitwise equal")
-    return launches
+        if log:
+            print(f"train: step {i} loss {loss.item():.6f} |g| "
+                  f"{met['grad_norm'].item():.4f} lr "
+                  f"{met['lr'].item():.3e} {times[-1]:.1f} ms; launches "
+                  f"{step}")
+    return times, launches, step1
+
+
+def step_times(torch, steps: int) -> dict:
+    """``--step-times N``: N full-width VGG-16 AdamW steps at batch
+    ``TRAIN_BATCH`` (the train phase's model, data and checks), each
+    step's ms, and the weight-gradient kernel's device time summed over
+    the 13 layers at the step's shapes.  The same measurement on two
+    checkouts, in one call on one card, compares them."""
+    from repro_torch.core.model import vgg16_layers
+    from repro_torch.kernels import trim_conv2d as tc
+    from repro_torch.models.layers import TrimCNN
+    from repro_torch.optim import AdamWConfig, adamw
+    model = TrimCNN.random(vgg16_layers(), n_classes=1000, seed=0,
+                           device="cuda", trainable=True)
+    cfg = AdamWConfig()
+    rng = np.random.default_rng(1)
+    batches = [
+        (torch.from_numpy(rng.standard_normal(
+            (TRAIN_BATCH, 224, 224, 3)).astype(np.float32)).cuda(),
+         torch.from_numpy(rng.integers(0, 1000, TRAIN_BATCH)).cuda())
+        for _ in range(steps)]
+    params = {k: {n: t.detach() for n, t in v.items()}
+              for k, v in model.tree().items()}
+    times, _, _ = timed_train_steps(
+        torch, model, (params, adamw.init_moments(params, cfg)), cfg,
+        batches)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    wgrad = 0.0
+    for layer in vgg16_layers():
+        size = layer.ifmap
+        x = torch.randn((TRAIN_BATCH, size, size, layer.in_channels),
+                        generator=gen, device="cuda")
+        g = torch.randn((TRAIN_BATCH, size, size, layer.out_channels),
+                        generator=gen, device="cuda")
+        wgrad += time_ms(torch, lambda: tc.trim_conv2d_weight_grad(
+            x, g, kernel_size=3, pad=1))
+        del x, g
+    return {"step_ms": times, "mean_steps_3_on": float(np.mean(times[2:])),
+            "median_steps_3_on": float(np.median(times[2:])),
+            "mean_steps_2_3": float(np.mean(times[1:3])),
+            "wgrad_ms_13_layers": wgrad}
 
 
 def train_fused(torch):
@@ -861,19 +1003,25 @@ def attention_cases():
 
 
 def attention_bound(b, lq, lk, hq, hkv, d, causal, window):
-    """(ms, bound_by, flops, bytes): 4 D FLOPs per unmasked (query, key)
-    pair over 67 TFLOP/s against q, k, v read once and o written once
-    over 3.35 TB/s."""
+    """(ms, bound_by, flops, bytes, ffma_ms): 4 D FLOPs per unmasked
+    (query, key) pair against q, k, v read once and o written once over
+    3.35 TB/s.  The operations are timed at the rate of the route the
+    kernel takes: D <= 256 runs 3xTF32 on the tensor cores (three TF32
+    products a product: 3 x FLOPs over 495 TFLOP/s), D > 256 f32 FMAs (67
+    TFLOP/s).  ``ffma_ms`` is the f32 FFMA bound of the same work, printed
+    beside it."""
     q_pos = np.arange(lq) + lk - lq
     hi = np.minimum(q_pos + 1, lk) if causal else np.full(lq, lk)
     lo = np.maximum(q_pos - window + 1, 0) if window else np.zeros(lq)
     pairs = int(np.maximum(hi - lo, 0).sum())
     flops = 4 * d * pairs * b * hq
     nbytes = 4 * d * b * (2 * lq * hq + 2 * lk * hkv)
-    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    ffma_ms = flops / PEAK_F32_FLOPS * 1e3
+    ops_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3 if d <= 256 else ffma_ms
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return (max(ops_ms, bytes_ms),
-            "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes)
+            "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes,
+            max(ffma_ms, bytes_ms))
 
 
 def check_attention(torch):
@@ -883,8 +1031,12 @@ def check_attention(torch):
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
     print("attention kernel check (times in ms, device events):")
+    print("  bound: the kernel's route, 3xTF32 (3 x FLOPs / 495 TFLOP/s) "
+          "for D <= 256, f32 FFMA (FLOPs / 67 TFLOP/s) above; ffma_b: the "
+          "FFMA bound of the same work")
     print(f"  {'case':12s} {'max_err':>9s} {'tol':>8s} {'kernel':>9s} "
-          f"{'plain':>9s} {'sdpa':>9s} {'bound':>8s} by         TFLOP/s")
+          f"{'plain':>9s} {'sdpa':>9s} {'bound':>8s} by         "
+          f"{'ffma_b':>8s} TFLOP/s")
     for name, b, lq, lk, hq, hkv, d, causal, cap, win in attention_cases():
         q = torch.randn((b, lq, hq, d), generator=gen, device="cuda")
         k = torch.randn((b, lk, hkv, d), generator=gen, device="cuda")
@@ -908,13 +1060,14 @@ def check_attention(torch):
             sdpa = F.scaled_dot_product_attention
             t["library"] = time_ms(torch, lambda: sdpa(
                 qt, kt, vt, is_causal=True, enable_gqa=True))
-        bound, by, flops, _ = attention_bound(b, lq, lk, hq, hkv, d, causal,
-                                              win)
-        rows.append(dict(name=name, err=err, bound=bound, by=by, **t))
+        bound, by, flops, _, ffma = attention_bound(b, lq, lk, hq, hkv, d,
+                                                    causal, win)
+        rows.append(dict(name=name, err=err, bound=bound, by=by,
+                         ffma_bound=ffma, **t))
         lib = "-" if t["library"] is None else f"{t['library']:9.3f}"
         print(f"  {name:12s} {err:9.2e} {tol:8.1e} {t['kernel']:9.3f} "
               f"{t['plain']:9.3f} {lib:>9s} {bound:8.3f} {by:10s} "
-              f"{flops / t['kernel'] / 1e9:7.2f}")
+              f"{ffma:8.3f} {flops / t['kernel'] / 1e9:7.2f}")
         del q, k, v, out, plain
     torch.cuda.empty_cache()
     return rows
@@ -941,17 +1094,28 @@ def lm_layer_check(torch, cfg, params, tokens):
     """Along the flash forward: each layer's attention on the kernel and
     on the ref oracle, both on that layer's input in the flash stream
     (checked); and the free-running ref stream's distance (printed)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     cref = cfg.replace(attn_impl="ref")
     pos = torch.arange(tokens.shape[1], device="cuda")[None]
-    worst, drift = 0.0, []
+    worst, drift, f64 = 0.0, [], []
     with torch.no_grad():
         xf = L.embed_apply(params["tok"], tokens, cfg)
         xr = xf.clone()
         for i in range(cfg.n_layers):
             pi = T.layer_slice(params["blocks"], i)
             h = L.norm_apply(pi["ln_att"], xf, cfg)
+            e64 = attention_vs_f64(torch, fa, ref, L, pi["att"], h, cfg,
+                                   pos)
+            lim = max(F64_FACTOR * e64["ref"], ATTN_TOLERANCE)
+            if not e64["kernel"] <= lim:
+                raise AssertionError(
+                    f"LM layer {i}: attention on the kernel is "
+                    f"{e64['kernel']:.3e} of max|f64| from the float64 "
+                    f"oracle, ref {e64['ref']:.3e}: above {lim:.3e}")
+            f64.append(e64)
             af = L.attention_apply(pi["att"], h, cfg, positions=pos)
             ar = L.attention_apply(pi["att"], h, cref, positions=pos)
             err = ((af - ar).abs().max() / ar.abs().max()).item()
@@ -969,7 +1133,41 @@ def lm_layer_check(torch, cfg, params, tokens):
           f"(tol {LM_LAYER_TOLERANCE:g}); free-running flash vs ref residual "
           f"stream, max|diff| / max|ref| after layers 1, 2, 4, 8, 16, 36: "
           + ", ".join(f"{drift[i - 1]:.1e}" for i in (1, 2, 4, 8, 16, 36)))
+    ratio = [e["kernel"] / e["ref"] for e in f64]
+    top = int(np.argmax([e["kernel"] for e in f64]))
+    print(f"LM float64 check, every layer (batch row 0, first "
+          f"{F64_POSITIONS} positions, before the output projection): "
+          f"kernel error <= max({F64_FACTOR:g} x ref's, "
+          f"{ATTN_TOLERANCE:g}) of max|f64|; kernel / ref error ratio "
+          f"{min(ratio):.2f}..{max(ratio):.2f}; largest kernel error "
+          f"{f64[top]['kernel']:.2e} (ref {f64[top]['ref']:.2e}) at layer "
+          f"{top}; layer 0 kernel {f64[0]['kernel']:.2e}, ref "
+          f"{f64[0]['ref']:.2e}, max|s| {f64[0]['max_s']:.0f}; max|s| over "
+          f"layers {max(e['max_s'] for e in f64):.0f}")
     return worst
+
+
+def attention_vs_f64(torch, fa, ref, L, p, h, cfg, pos):
+    """One layer's attention, the kernel and the f32 ``ref`` oracle each
+    against ``ref`` in float64, on the layer's own q, k, v (formed as
+    ``layers.attention_apply`` forms them), each of max|f64|; and the
+    largest scaled score.  Checked against ``F64_FACTOR``."""
+    x = h[:1, :F64_POSITIONS]
+    q, k, v = (torch.einsum("bld,dhk->blhk", x, p[w])
+               for w in ("wq", "wk", "wv"))
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = L.rope(q, pos[:, :F64_POSITIONS], cfg.rope_theta)
+    k = L.rope(k, pos[:, :F64_POSITIONS], cfg.rope_theta)
+    o64 = ref.attention(q.double(), k.double(), v.double(), causal=True)
+    scale = o64.abs().max().item()
+    err = {name: ((o.double() - o64).abs().max() / scale).item()
+           for name, o in (("kernel", fa.flash_attention(q, k, v)),
+                           ("ref", ref.attention(q, k, v, causal=True)))}
+    group = cfg.n_heads // cfg.n_kv_heads
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k.repeat_interleave(group, 2))
+    err["max_s"] = s.abs().max().item() / np.sqrt(q.shape[-1])
+    return err
 
 
 def lm_prefill(torch):
@@ -1427,6 +1625,14 @@ def mamba_serve(torch, mb):
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--step-times", type=int, metavar="N",
+                    help="only build the kernels and time N full-width "
+                         "VGG-16 AdamW steps and the weight-gradient "
+                         "kernel (printed as one JSON line); no checks "
+                         "beyond the train phase's launch counts")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1451,6 +1657,11 @@ def main() -> int:
         print(f"  {src}: {log['command']}")
         for line in log["ptxas"]:
             print(f"    {line.strip()}")
+    if args.step_times:
+        print(json.dumps({"card": card(), **step_times(
+            torch, max(args.step_times, 3))}))
+        return 0
+    flash_sass_check()
 
     rows = check_kernels(torch, 8)
     rows1 = check_kernels(torch, 1)

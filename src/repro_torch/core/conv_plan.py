@@ -457,10 +457,38 @@ def input_grad_geometry(x_shape, w_shape, *, stride: int = 1, pad=0,
     )
 
 
-WGRAD_TILE_ROWS = 64          # rows of the flattened (ki, kj, ci) axis
-WGRAD_TILE_COUT = 64          # output channels per block
+WGRAD_THREADS = 256           # threads per block (kThreads)
+WGRAD_TILE_ROWS = 128         # rows of the flattened (ki, kj, ci) axis
+WGRAD_TILE_COUT = 128         # output channels per block (kTileCout) ...
+WGRAD_NARROW_TILE_COUT = 64   # ... or this where Cout/groups <= 64
+WGRAD_BLOCKS_PER_SM = 2       # __launch_bounds__(kThreads, 2)
+WGRAD_SLOTS = SMS * WGRAD_BLOCKS_PER_SM   # resident GEMM blocks: 264
 WGRAD_MIN_CHUNK_POSITIONS = 256
 WGRAD_WORKSPACE_CAP = 256 * 2**20   # bytes of per-chunk partial sums
+WGRAD_DW_BLOCKS = 4 * SMS * (2048 // WGRAD_THREADS)   # depthwise: 4 full
+                              # waves of resident blocks (8 an SM)
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_chunk_rows(rows: int, w_out: int, tiles: int, tile_flops: int,
+                      dw_elems: int, min_rows: int) -> int:
+    """The GEMM route's chunk height (cotangent rows) that minimises a
+    model of the kernel's time: ``ceil(blocks / WGRAD_SLOTS)`` rounds of
+    blocks that each do ``tile_flops`` per position of the largest chunk
+    at one slot's share of 67 TFLOP/s, plus the workspace's traffic
+    (partials written and read, dw written) at 3.35 TB/s.  Ties go to the
+    taller chunk (less workspace)."""
+    best = None
+    for t in range(rows, min_rows - 1, -1):
+        chunks = -(-rows // t)
+        rounds = -(-tiles * chunks // WGRAD_SLOTS)
+        ops_s = rounds * t * w_out * tile_flops * WGRAD_SLOTS \
+            / PEAK_F32_FLOPS
+        ws_s = 0 if chunks == 1 else \
+            (2 * chunks + 1) * 4 * dw_elems / PEAK_BYTES_PER_S
+        if best is None or ops_s + ws_s < best[0]:
+            best = (ops_s + ws_s, t)
+    return best[1]
 
 
 @dataclass(frozen=True)
@@ -473,11 +501,14 @@ class WeightGradPlan:
             xpad[n, oh*s+ki, ow*s+kj, g*Cin_pg+ci] * dz[n, oh, ow, g*Cpg+co]
 
     Per group, dw is a ``(K*K*Cin_pg) x Cpg`` matrix whose rows are the
-    flattened ``(ki, kj, ci)`` axis.  A block owns a tile of
-    :data:`WGRAD_TILE_ROWS` rows x :data:`WGRAD_TILE_COUT` columns of it
-    (one tap x a 64-channel Cin tile whenever ``Cin/g`` is a multiple of
-    64; several taps when ``Cin/g`` is small, as at VGG-16's conv1 or a
-    depthwise conv) and one *chunk* of the reduction.
+    flattened ``(ki, kj, ci)`` axis.  Two routes:
+
+    * ``"gemm"`` — a block owns a tile of :data:`WGRAD_TILE_ROWS` rows x
+      :data:`WGRAD_TILE_COUT` columns of it (:data:`WGRAD_NARROW_TILE_COUT`
+      where ``Cout/g <= 64``) and one *chunk* of the reduction;
+    * ``"depthwise"`` (``groups == Cin == Cout``: 9 rows and one column a
+      group at K = 3) — a thread owns one (tap, channel) element, lanes
+      along the channels, :data:`WGRAD_THREADS` elements a block.
 
     The TPU plan sweeps ``(n, strip of tile_go cotangent rows)`` in
     sequence into one resident accumulator.  Here the sweep is cut into
@@ -486,11 +517,15 @@ class WeightGradPlan:
     cross an image boundary; the last may be shorter).  Each chunk writes
     its partial dw into a workspace, and a second pass sums the partials
     in ascending chunk order.  ``tile_go`` — and so the chunk count — is
-    a pure function of the shape: the fewest rows that give a chunk
-    :data:`WGRAD_MIN_CHUNK_POSITIONS` positions, raised until the
-    workspace fits :data:`WGRAD_WORKSPACE_CAP` (e.g. VGG-16 conv9 at
-    batch 8: 2.36 M dw elements = 9.4 MB a chunk, 24 chunks).  With one
-    chunk there is no workspace: the kernel writes dw itself.
+    a pure function of the shape.  GEMM route: at least
+    :data:`WGRAD_MIN_CHUNK_POSITIONS` positions a chunk, then the height
+    that minimises :func:`_wgrad_chunk_rows`'s model, which fills the
+    card's :data:`WGRAD_SLOTS` resident blocks in whole rounds (VGG-16
+    conv2 at batch 8: 5 tiles x 52 chunks = 260 blocks, 7.7 MB of
+    partials).  Depthwise route: enough chunks for
+    :data:`WGRAD_DW_BLOCKS` blocks.  Either way the workspace stays
+    within :data:`WGRAD_WORKSPACE_CAP`; with one chunk there is none and
+    the kernel writes dw itself.
     """
 
     n: int
@@ -527,14 +562,25 @@ class WeightGradPlan:
         w_out = (w + sum(pads[1]) - kw) // stride + 1
         if h_out < 1 or w_out < 1:
             raise ValueError("empty output: input smaller than kernel")
-        if tile_go is None:
-            tile_go = -(-WGRAD_MIN_CHUNK_POSITIONS // w_out)
-        if tile_go < 1:
+        if tile_go is not None and tile_go < 1:
             raise ValueError(f"tile_go={tile_go} must be >= 1")
-        chunk_bytes = 4 * kh * kw * cin_pg * cout
-        max_chunks = max(1, WGRAD_WORKSPACE_CAP // chunk_bytes)
+        dw_elems = kh * kw * cin_pg * cout
+        max_chunks = max(1, WGRAD_WORKSPACE_CAP // (4 * dw_elems))
         rows = n * h_out
-        tile_go = min(max(tile_go, -(-rows // max_chunks)), rows)
+        cap_rows = min(rows, -(-rows // max_chunks))
+        plan = cls(n=n, h=h, w=w, cin=cin, cout=cout, k=kh, stride=stride,
+                   pads=pads, groups=groups, tile_go=rows)
+        if tile_go is None:
+            if plan.route == "depthwise":
+                chunks = -(-WGRAD_DW_BLOCKS // plan.tiles)
+                tile_go = -(-rows // chunks)
+            else:
+                min_rows = min(rows, -(-WGRAD_MIN_CHUNK_POSITIONS // w_out))
+                tile_go = _wgrad_chunk_rows(
+                    rows, w_out, plan.tiles,
+                    2 * WGRAD_TILE_ROWS * plan.tile_cout, dw_elems,
+                    max(min_rows, cap_rows))
+        tile_go = min(max(tile_go, cap_rows), rows)
         return cls(n=n, h=h, w=w, cin=cin, cout=cout, k=kh, stride=stride,
                    pads=pads, groups=groups, tile_go=tile_go)
 
@@ -545,6 +591,36 @@ class WeightGradPlan:
     @property
     def cout_per_group(self) -> int:
         return self.cout // self.groups
+
+    @property
+    def route(self) -> str:
+        """``"depthwise"`` where groups == Cin == Cout, else ``"gemm"``.
+        The wrapper passes it, :attr:`tile_cout` and :attr:`blocks` to the
+        kernel's launcher, which launches what they say and refuses a
+        block count that its own tile constants do not give."""
+        return "depthwise" if self.groups == self.cin == self.cout \
+            else "gemm"
+
+    @property
+    def tile_cout(self) -> int:
+        """GEMM route: the block tile's columns."""
+        return WGRAD_NARROW_TILE_COUT \
+            if self.cout_per_group <= WGRAD_NARROW_TILE_COUT \
+            else WGRAD_TILE_COUT
+
+    @property
+    def tiles(self) -> int:
+        """Blocks a chunk: GEMM tiles over all groups, or depthwise blocks
+        of :data:`WGRAD_THREADS` (tap, channel) elements."""
+        if self.route == "depthwise":
+            return -(-self.dw_elems // WGRAD_THREADS)
+        return (self.groups * -(-self.rows // WGRAD_TILE_ROWS)
+                * -(-self.cout_per_group // self.tile_cout))
+
+    @property
+    def blocks(self) -> int:
+        """Blocks of the partial (or only) launch."""
+        return self.tiles * self.chunks
 
     @property
     def h_out(self) -> int:

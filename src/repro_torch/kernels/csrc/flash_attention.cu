@@ -1,4 +1,5 @@
-// Flash attention for NVIDIA Hopper (sm_90a), f32, hand-written CUDA.
+// Flash attention for NVIDIA Hopper (sm_90a), f32 in and out, hand-written
+// CUDA.
 //
 // Replaces the TPU Pallas kernel _kernel of
 // src/repro/kernels/flash_attention.py:31 (wrapper flash_attention, :106).
@@ -24,65 +25,93 @@
 // is wiped exactly before it.  The wrapper refuses causal calls with
 // Lq > Lk, the only case that leaves a query row with no valid key.
 //
-// Geometry.  A block owns (batch b, KV head, tile of kRows = 64 query rows)
-// where a row is one (query position, head of the GQA group) pair, taken
+// Rows.  A block owns (batch b, KV head, tile of query rows) where a row
+// is one (query position, head of the GQA group) pair, taken
 // position-major: row t is position t / G of head g = t % G, G = Hq / Hkv.
 // All G query heads that read one KV head share the block, so each K/V
-// tile is read from device memory once per block and serves 64 rows: the
-// fetch-once contract of the TPU kernel's BlockSpecs.  Any G works (10 for
-// recurrentgemma, 7 for llava) without padding heads.  The loop over key
-// tiles inside the block takes the place of the TPU's sequential ik grid
-// axis.  The head dim is zero-padded in shared memory to Dp = 64, 128 or
-// 256 (a template parameter), so D = 12, 14, 16 (SMOKE configs), 128 and
-// 256 all run; stores are masked to d < D, and ragged Lq / Lk edges are
-// masked at the load (zeros) and in s (-1e30).  q, k, v and o are read and
-// written in the JAX (B, L, H, D) layout through their strides (the head
-// dim contiguous): no transposed or padded copy is made.
+// tile is read from device memory once per block and serves all its rows:
+// the fetch-once contract of the TPU kernel's BlockSpecs.  Any G works (10
+// for recurrentgemma, 7 for llava) without padding heads.  The loop over
+// key tiles inside the block takes the place of the TPU's sequential ik
+// grid axis.  q, k, v and o are read and written in the JAX (B, L, H, D)
+// layout through their strides (the head dim contiguous): no transposed or
+// padded copy is made.
 //
-// Wide heads.  D > 256 runs flash_attention_wide_kernel: whole-D tiles
-// would not fit 227 KB (Q, K and V of 64 rows at D = 320 take 252 KB), so
-// there S = Q K^T walks D in chunks of kWideDs = 64 columns (Q and K chunks
-// staged in turn, the scores' fmaf chains continued across chunks in
-// ascending d, as the narrow kernel sums them), and a block accumulates
-// kWideDo = 256 output columns: the grid gets ceil(D / 256) blocks per
-// (row tile, KV head, batch), each recomputing the same scores and
-// softmax (bitwise the same in every block) for its slice of P V.
-// Shared memory is 119 KB whatever D is, so every D runs; the scores are
-// computed ceil(D / 256) times (2x at D = 320 and 512).
+// What bounds it on the H100.  A layer of the qwen2.5-3b prefill (B = 2,
+// L = 4096, Hq = 16, Hkv = 2, D = 128, causal) needs 4 D FLOPs a valid
+// (query, key) pair, 137 GFLOP, against 67 MB of Q, K, V and O (0.02 ms
+// at 3.35 TB/s): operations bound it.  The first design ran both products
+// as f32 FMAs (67 TFLOP/s: 2.05 ms at the peak, 8.6 ms measured).
 //
-// Threads.  256 threads as 16 x 16: thread (ty, tx) owns rows ty + 16 i
-// (i < 4), score columns tx + 16 j (j < 4) of the 64 x 64 tile, and output
-// columns 4 tx + 64 c + (0..3) (c < Dp / 64).  S = Q K^T reads float4s of Q
-// and K rows from shared memory (row stride Dp + 4: conflict-free for
-// columns tx + 16 j) and issues 64 FMAs per 8 LDS.128; row maxima and sums
-// reduce over the 16 lanes of a half-warp with shuffles; P goes through
-// shared memory (into the K buffer, free by then) for O += P V, which reads
-// float4 rows of V.  Shared memory: Q, K (then P) and V tiles, (3 * 64) x
-// (Dp + 4) floats: 52 KB, 101 KB and 200 KB for Dp = 64, 128, 256.
+// Narrow route (D <= 256, flash_attention_kernel): both products on the
+// TF32 tensor cores at f32 accuracy.  Each operand a is split into
+// a_big = tf32(a) and a_small = tf32(a - a_big), rounded to nearest with
+// ties away as cvt.rna.tf32.f32 rounds (two integer ops, where cvt takes
+// four: the split is most of the kernel's non-tensor work), and each
+// product is accumulated as (a_small b_big + a_big b_small) + a_big b_big
+// in the f32 accumulators of warp-level mma.sync.m16n8k8 (3xTF32).  The
+// dropped a_small b_small term and the rounding of the small halves leave
+// ~2^-21 of each product, so the result stays within 1e-5 of the f32
+// plain version, where one TF32 pass (2^-11) would not.  The bound of
+// this route is 3 x FLOPs / 495 TFLOP/s (0.83 ms at the layer above).
+// Warp w owns 16 query rows: S = Q K^T for a tile of kKeys keys is
+// kKeys / 8 accumulator tiles of m16n8 (Q fragments read from shared
+// memory a k-step at a time and split there, K fragments likewise); the
+// online softmax runs on the accumulator registers, each row's max and
+// sum reduced over the 4 lanes that hold it; P goes to O += P V straight
+// from those registers: a lane holds keys 2t, 2t+1 of a row in the
+// accumulator layout, and the A operand wants keys t, t+4, so the k index
+// of the P V product is permuted (k = t reads key 2t, k = t + 4 key
+// 2t + 1) and V's B fragments are read with the same permutation.
 //
-// What bounds it on the H100.  Operations: f32 FMAs outside the tensor
-// cores, 67 TFLOP/s.  At the slice's shape (B = 2, L = 4096, Hq = 16,
-// Hkv = 2, D = 128, causal) a layer needs 4 D FLOPs a valid (query, key)
-// pair, 137 GFLOP, i.e. 2.05 ms at the peak, against 67 MB of Q, K, V and
-// O (0.02 ms at 3.35 TB/s).  This first kernel keeps the work on the
-// non-tensor f32 pipes with one 4 x 4 register tile of scores and a
-// 4 x 4 (Dp / 64) accumulator tile a thread, loads each K/V tile with all
-// threads and then computes (no copy/compute overlap), and fits two blocks
-// (16 warps) a SM at Dp = 128.  A later PR would move both products to the
-// tensor cores (TF32 or bf16 wgmma, 495 / 989 TFLOP/s), stage K/V with TMA
-// in a ring of tiles behind a producer warp, and split long key ranges of
-// few-row calls (Lq = 17) over blocks.
+// Truncation.  The tensor cores align each mma's terms (the accumulator
+// and the 8 products) to the largest and truncate as they add, so a long
+// chain into one accumulator loses bits to its own running sum.  O shows
+// it first: 3 x Lk / 8 truncated adds into it left 3e-5 of max|O| at
+// Lk = 4096 (a 17-query continuation), against 1e-5 allowed; the scores
+// of peaked logits (|s| ~ 2000 under qwen2.5-3b's JAX init) likewise
+// carry a running sum far larger than two k-steps' products.  So each
+// pair of k-steps goes into a fresh accumulator that is added to s in f32
+// (round to nearest), and each key tile's P V into one that is added to
+// O; there the small cross terms keep an accumulator of their own.  K/V
+// tiles arrive through a two-stage cp.async ring: tile j + 1 is copied
+// while tile j computes, one barrier a tile.  The head dim is zero-padded
+// in shared memory to Dp = 64, 128 or 256 (a template parameter) so
+// D = 12, 14, 16 (SMOKE configs), 128 and 256 all run; row stride Dp + 4
+// floats keeps every fragment read free of bank conflicts.  Geometry:
+// Dp 64 and 128: 8 warps, 128 rows, 64-key tiles (104 KB and 198 KB of
+// shared memory); Dp 256: 4 warps, 64 rows, 32-key tiles (195 KB), so the
+// 256-column output accumulator (128 registers a lane) fits.
+//
+// Wide heads.  D > 256 runs flash_attention_wide_kernel, the first
+// design's f32 FFMA code: whole-D tiles would not fit 227 KB (Q, K and V
+// of 64 rows at D = 320 take 252 KB), so there S = Q K^T walks D in
+// chunks of kWideDs = 64 columns (Q and K chunks staged in turn, the
+// scores' fmaf chains continued across chunks in ascending d), and a
+// block accumulates kWideDo = 256 output columns: the grid gets
+// ceil(D / 256) blocks per (row tile, KV head, batch), each recomputing
+// the same scores and softmax (bitwise the same in every block) for its
+// slice of P V.  Shared memory is 119 KB whatever D is, so every D runs;
+// the scores are computed ceil(D / 256) times (2x at D = 320 and 512).
+// Its threads are 16 x 16: thread (ty, tx) owns rows ty + 16 i (i < 4),
+// score columns tx + 16 j (j < 4) of the 64 x 64 tile, and output
+// columns 4 tx + 64 c + (0..3).
+//
+// Left for later: wgmma and TMA-fed K/V behind a producer warp, a key
+// split for few-row calls (Lq = 17), the wide route on the tensor cores.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;   // 16 x 16
-constexpr int kRows = 64;       // (query position, head) rows per block
-constexpr int kKeys = 64;       // keys per tile
+constexpr int kThreads = 256;   // wide kernel: 16 x 16
+constexpr int kRows = 64;       // wide kernel: rows a block
+constexpr int kKeys = 64;       // wide kernel: keys a tile
 constexpr int kMaxNarrowDp = 256;   // larger D: the wide kernel
 constexpr int kWideDs = 64;         // D columns of Q and K a chunk (wide)
 constexpr int kWideDo = 256;        // output columns a block (wide)
@@ -99,52 +128,78 @@ struct AttnArgs {
   float soft_cap;       // <= 0: none
   float sm_scale;
   int row_tiles;
+  int vec_kv;           // K and V rows copied 16 bytes at a time
 };
 
-template <int kDp>
-constexpr size_t smem_bytes() {
-  return (size_t)3 * kRows * (kDp + 4) * sizeof(float);
+// TF32 rounding of a finite f32 to nearest, ties away from zero: the
+// result of cvt.rna.tf32.f32, whose inf / NaN handling costs three more
+// instructions a value (add half an ulp of the 10-bit mantissa to the
+// magnitude, clear the 13 bits below it)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// Loads rows [row0, row0 + kKeys) of one KV head into a (kKeys, kDp + 4)
-// tile, zeros past lk and past d.
-template <int kDp>
-__device__ __forceinline__ void load_kv_tile(float *dst, const float *src,
-                                             int64_t sb, int64_t sl,
-                                             int64_t sh, int b, int head,
-                                             int row0, int lk, int d) {
-  const float *base = src + (int64_t)b * sb + (int64_t)head * sh;
-#pragma unroll 4
-  for (int e = threadIdx.x; e < kKeys * kDp; e += kThreads) {
-    const int r = e / kDp, dd = e % kDp;
-    const int key = row0 + r;
-    float val = 0.f;
-    if (key < lk && dd < d) val = __ldg(base + (int64_t)key * sl + dd);
-    dst[r * (kDp + 4) + dd] = val;
-  }
+// x = big + small, both TF32: big = tf32(x), small = tf32(x - big)
+__device__ __forceinline__ void split_tf32(float x, uint32_t &big,
+                                           uint32_t &small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
 }
 
-template <int kDp>
-__global__ void __launch_bounds__(kThreads, kDp <= 128 ? 2 : 1)
+// d += a b over one m16n8k8 tile, TF32 operands, f32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 3xTF32: d += a_big b_big and dc += a_small b_big + a_big b_small.  The
+// small cross terms keep their own accumulator, 2^-11 the size of d's, so
+// its truncation costs nothing and d's chain is a third as long.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], float (&dc)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           const uint32_t (&bb)[2],
+                                           const uint32_t (&bs)[2]) {
+  mma_tf32(dc, as, bb);
+  mma_tf32(dc, ab, bs);
+  mma_tf32(d, ab, bb);
+}
+
+template <int kDp, int kWarps, int kTileKeys>
+constexpr size_t narrow_smem_bytes() {
+  // Q tile and two stages of K and V tiles, rows of Dp + 4 floats
+  return (size_t)(16 * kWarps + 4 * kTileKeys) * (kDp + 4) * sizeof(float);
+}
+
+template <int kDp, int kWarps, int kTileKeys>
+__global__ void __launch_bounds__(kWarps * 32, 1)
     flash_attention_kernel(const AttnArgs a) {
-  constexpr int kStride = kDp + 4;     // Q / K / V row stride (floats)
-  constexpr int kPStride = kKeys + 4;  // P row stride
-  constexpr int kDc = kDp / 64;        // float4 output columns a thread
+  constexpr int kThr = kWarps * 32;
+  constexpr int kBRows = 16 * kWarps;     // query rows a block
+  constexpr int kS = kDp + 4;             // Q / K / V row stride (floats)
+  constexpr int kNt = kTileKeys / 8;      // score tiles (8 keys) a warp
+  constexpr int kOt = kDp / 8;            // output tiles (8 columns)
+  constexpr int kKV = kTileKeys * kS;     // floats of one K or V tile
   extern __shared__ float4 smem4[];
   float *qs = reinterpret_cast<float *>(smem4);
-  float *ks = qs + kRows * kStride;    // K tile, then P
-  float *vs = ks + kKeys * kStride;
+  float *kvs = qs + kBRows * kS;          // [stage][K, V][key][d]
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4; // mma group and thread-in-group
   // the last row tiles, the longest under a causal mask, start first
   const int tile = a.row_tiles - 1 - (int)blockIdx.x;
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int g = a.group, n_rows = a.lq * g;
-  const int t0 = tile * kRows;
-  const int off = a.lk - a.lq;         // right-aligned queries
+  const int t0 = tile * kBRows;
+  const int off = a.lk - a.lq;            // right-aligned queries
 
   // Q tile: row r is (position (t0 + r) / G, head kvh * G + (t0 + r) % G)
-  for (int e = tid; e < kRows * kDp; e += kThreads) {
+  for (int e = tid; e < kBRows * kDp; e += kThr) {
     const int r = e / kDp, dd = e % kDp, t = t0 + r;
     float val = 0.f;
     if (t < n_rows && dd < a.d) {
@@ -152,187 +207,213 @@ __global__ void __launch_bounds__(kThreads, kDp <= 128 ? 2 : 1)
       val = __ldg(a.q + (int64_t)b * a.q_sb + (int64_t)qi * a.q_sl +
                   (int64_t)h * a.q_sh + dd);
     }
-    qs[r * kStride + dd] = val;
+    qs[r * kS + dd] = val;
   }
 
-  int q_pos[4];
-  bool row_ok[4];
+  // this lane's rows: warp * 16 + gq (i = 0) and + 8 (i = 1)
+  int q_pos[2];
+  bool row_ok[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    const int t = t0 + warp * 16 + gq + 8 * i;
     row_ok[i] = t < n_rows;
     q_pos[i] = t / g + off;
   }
   // key range of the block's rows (positions t0 / G .. last / G)
-  const int last = min(t0 + kRows, n_rows) - 1;
+  const int last = min(t0 + kBRows, n_rows) - 1;
   const int pos_lo = t0 / g + off, pos_hi = last / g + off;
   int k_end = a.lk, k_begin = 0;
   if (a.causal) k_end = min(k_end, pos_hi + 1);
   if (a.window > 0) k_begin = max(0, pos_lo - a.window + 1);
-  const int kt_begin = k_begin / kKeys;
-  const int kt_end = k_end > k_begin ? (k_end + kKeys - 1) / kKeys : kt_begin;
+  const int kt_begin = k_begin / kTileKeys;
+  const int kt_end =
+      k_end > k_begin ? (k_end + kTileKeys - 1) / kTileKeys : kt_begin;
 
-  float m[4], l[4];
-  float4 acc[4][kDc];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kDc; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kKeys;
-    __syncthreads();   // the previous tile's P and V are consumed
-    load_kv_tile<kDp>(ks, a.k, a.k_sb, a.k_sl, a.k_sh, b, kvh, k0, a.lk, a.d);
-    load_kv_tile<kDp>(vs, a.v, a.v_sb, a.v_sl, a.v_sh, b, kvh, k0, a.lk, a.d);
-    __syncthreads();
-
-    // S = Q K^T: one fmaf chain over d a score
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 1
-    for (int dd = 0; dd < kDp; dd += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4 *>(
-            &qs[(ty + 16 * i) * kStride + dd]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4 *>(
-            &ks[(tx + 16 * j) * kStride + dd]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float t = s[i][j];
-          t = fmaf(qv[i].x, kv[j].x, t);
-          t = fmaf(qv[i].y, kv[j].y, t);
-          t = fmaf(qv[i].z, kv[j].z, t);
-          t = fmaf(qv[i].w, kv[j].w, t);
-          s[i][j] = t;
-        }
+  const float *kbase = a.k + (int64_t)b * a.k_sb + (int64_t)kvh * a.k_sh;
+  const float *vbase = a.v + (int64_t)b * a.v_sb + (int64_t)kvh * a.v_sh;
+  // K and V rows [k0, k0 + kTileKeys) into a stage, zeros past lk and d
+  auto load = [&](int kt, int stage) {
+    const int k0 = kt * kTileKeys;
+    float *kd = kvs + stage * 2 * kKV, *vd = kd + kKV;
+    if (a.vec_kv) {
+      for (int e = tid; e < kTileKeys * kDp / 4; e += kThr) {
+        const int r = e / (kDp / 4), c = 4 * (e % (kDp / 4));
+        const bool ok = k0 + r < a.lk && c < a.d;
+        cp_async16(kd + r * kS + c,
+                   ok ? kbase + (int64_t)(k0 + r) * a.k_sl + c : a.k, ok);
+        cp_async16(vd + r * kS + c,
+                   ok ? vbase + (int64_t)(k0 + r) * a.v_sl + c : a.v, ok);
+      }
+    } else {
+      for (int e = tid; e < kTileKeys * kDp; e += kThr) {
+        const int r = e / kDp, c = e % kDp;
+        const bool ok = k0 + r < a.lk && c < a.d;
+        cp_async4(kd + r * kS + c,
+                  ok ? kbase + (int64_t)(k0 + r) * a.k_sl + c : a.k, ok);
+        cp_async4(vd + r * kS + c,
+                  ok ? vbase + (int64_t)(k0 + r) * a.v_sl + c : a.v, ok);
+      }
     }
+  };
 
-    // scale, soft cap, mask; online softmax per row
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[kOt][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = kNegInf;
+  for (int j = 0; j < kOt; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = s[i][j] * a.sm_scale;
-        if (a.soft_cap > 0.f) x = a.soft_cap * tanhf(x / a.soft_cap);
-        const int kp = k0 + tx + 16 * j;
-        bool ok = row_ok[i] && kp < a.lk;
-        if (a.causal) ok = ok && q_pos[i] >= kp;
-        if (a.window > 0) ok = ok && q_pos[i] - kp < a.window;
-        s[i][j] = ok ? x : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  if (kt_begin < kt_end) load(kt_begin, 0);
+  cp_async_commit();
+  const float *qw = qs + warp * 16 * kS;
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int stage = (kt - kt_begin) & 1;
+    cp_async_wait<0>();   // this thread's copies of tile kt
+    __syncthreads();       // everyone's; the other stage is consumed
+    if (kt + 1 < kt_end) load(kt + 1, stage ^ 1);
+    cp_async_commit();
+    const float *ks = kvs + stage * 2 * kKV, *vs = ks + kKV;
+    const int k0 = kt * kTileKeys;
+
+    // S = Q K^T: s[j] is the m16n8 tile of keys k0 + 8 j ..; a lane holds
+    // (row gq, keys 2 tq, 2 tq + 1) in s[j][0..1] and row gq + 8 in [2..3]
+    float s[kNt][4];
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 1
+    for (int d0 = 0; d0 < kDp; d0 += 16) {
+      uint32_t ab[2][4], as[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float *qr = qw + gq * kS + d0 + 8 * h + tq;
+        split_tf32(qr[0], ab[h][0], as[h][0]);
+        split_tf32(qr[8 * kS], ab[h][1], as[h][1]);
+        split_tf32(qr[4], ab[h][2], as[h][2]);
+        split_tf32(qr[8 * kS + 4], ab[h][3], as[h][3]);
       }
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      for (int j = 0; j < kNt; ++j) {
+        // two k-steps into a fresh accumulator, added to s in f32 (see
+        // "Truncation" above)
+        float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float *kr = ks + (8 * j + gq) * kS + d0 + 8 * h + tq;
+          uint32_t bb[2], bs[2];
+          split_tf32(kr[0], bb[0], bs[0]);
+          split_tf32(kr[4], bb[1], bs[1]);
+          mma_3xtf32(t, t, ab[h], as[h], bb, bs);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] += t[e];
+      }
+    }
+
+    // scale, soft cap, mask; online softmax per row (4 lanes a row)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kNt; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = s[j][2 * i + e] * a.sm_scale;
+          if (a.soft_cap > 0.f) x = a.soft_cap * tanhf(x / a.soft_cap);
+          const int kp = k0 + 8 * j + 2 * tq + e;
+          bool ok = row_ok[i] && kp < a.lk;
+          if (a.causal) ok = ok && q_pos[i] >= kp;
+          if (a.window > 0) ok = ok && q_pos[i] - kp < a.window;
+          s[j][2 * i + e] = ok ? x : kNegInf;
+          mx = fmaxf(mx, s[j][2 * i + e]);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m[i], mx);
       const float alpha = expf(m[i] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        sum += s[i][j];
-      }
+      for (int j = 0; j < kNt; ++j)
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        for (int e = 0; e < 2; ++e) {
+          const float p = expf(s[j][2 * i + e] - m_new);
+          s[j][2 * i + e] = p;
+          sum += p;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       l[i] = l[i] * alpha + sum;
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < kDc; ++c) {
-        acc[i][c].x *= alpha;
-        acc[i][c].y *= alpha;
-        acc[i][c].z *= alpha;
-        acc[i][c].w *= alpha;
+      for (int c = 0; c < kOt; ++c) {
+        o[c][2 * i] *= alpha;
+        o[c][2 * i + 1] *= alpha;
       }
     }
 
-    __syncthreads();   // every thread is done reading the K tile
-    float *ps = ks;
+    // O += P V over 8 keys a k-step, k index permuted: A(row, k = tq) is
+    // P(row, key 2 tq) and A(row, k = tq + 4) is P(row, key 2 tq + 1).
+    // Each 8-column tile of O takes the tile's keys in a fresh
+    // accumulator, added to O in f32 (round to nearest): the tensor
+    // cores' accumulation truncates, and 3 x Lk / 8 truncated adds into O
+    // itself would bias it by ~3e-5 of |O| at Lk = 4096.
+    uint32_t pb[kNt][4], ps[kNt][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < kNt; ++j) {
+      split_tf32(s[j][0], pb[j][0], ps[j][0]);
+      split_tf32(s[j][2], pb[j][1], ps[j][1]);
+      split_tf32(s[j][1], pb[j][2], ps[j][2]);
+      split_tf32(s[j][3], pb[j][3], ps[j][3]);
+    }
+    const float *vr = vs + 2 * tq * kS + gq;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ps[(ty + 16 * i) * kPStride + tx + 16 * j] = s[i][j];
-    __syncthreads();
-
-    // O += P V
-#pragma unroll 1
-    for (int c0 = 0; c0 < kKeys; c0 += 4) {
-      float4 pv[4];
+    for (int c = 0; c < kOt; ++c) {
+      float t[4] = {0.f, 0.f, 0.f, 0.f}, tc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4 *>(
-            &ps[(ty + 16 * i) * kPStride + c0]);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-#pragma unroll
-        for (int c = 0; c < kDc; ++c) {
-          const float4 vv = *reinterpret_cast<const float4 *>(
-              &vs[(c0 + cc) * kStride + 4 * tx + 64 * c]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = cc == 0   ? pv[i].x
-                            : cc == 1 ? pv[i].y
-                            : cc == 2 ? pv[i].z
-                                      : pv[i].w;
-            acc[i][c].x = fmaf(p, vv.x, acc[i][c].x);
-            acc[i][c].y = fmaf(p, vv.y, acc[i][c].y);
-            acc[i][c].z = fmaf(p, vv.z, acc[i][c].z);
-            acc[i][c].w = fmaf(p, vv.w, acc[i][c].w);
-          }
-        }
+      for (int j = 0; j < kNt; ++j) {
+        uint32_t bb[2], bs[2];
+        split_tf32(vr[8 * j * kS + 8 * c], bb[0], bs[0]);
+        split_tf32(vr[(8 * j + 1) * kS + 8 * c], bb[1], bs[1]);
+        mma_3xtf32(t, tc, pb[j], ps[j], bb, bs);
       }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[c][e] += t[e] + tc[e];
     }
   }
 
-  // o = acc / max(l, 1e-30), stored for d < D
+  // o = acc / max(l, 1e-30), stored for d < D: o[c][2 i + e] is row
+  // gq + 8 i, column 8 c + 2 tq + e
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    const int t = t0 + warp * 16 + gq + 8 * i;
     if (t >= n_rows) continue;
     const int qi = t / g, h = kvh * g + t % g;
     float *dst = a.o + (int64_t)b * a.o_sb + (int64_t)qi * a.o_sl +
                  (int64_t)h * a.o_sh;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < kDc; ++c) {
-      const int d0 = 4 * tx + 64 * c;
-      const float vals[4] = {acc[i][c].x, acc[i][c].y, acc[i][c].z,
-                             acc[i][c].w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (d0 + e < a.d) dst[d0 + e] = vals[e] / den;
+    for (int c = 0; c < kOt; ++c) {
+      const int d0 = 8 * c + 2 * tq;
+      if (d0 < a.d) dst[d0] = o[c][2 * i] / den;
+      if (d0 + 1 < a.d) dst[d0 + 1] = o[c][2 * i + 1] / den;
     }
   }
 }
 
-template <int kDp>
-int launch(const AttnArgs &a, int b, void *stream) {
-  constexpr size_t smem = smem_bytes<kDp>();
+template <int kDp, int kWarps, int kTileKeys>
+int launch(AttnArgs a, int64_t rows, int b, void *stream) {
+  constexpr size_t smem = narrow_smem_bytes<kDp, kWarps, kTileKeys>();
   static_assert(smem <= (size_t)kMaxSmemBytes, "tile exceeds shared memory");
+  auto kernel = flash_attention_kernel<kDp, kWarps, kTileKeys>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<kDp>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  a.row_tiles = (int)((rows + 16 * kWarps - 1) / (16 * kWarps));
   const dim3 grid(a.row_tiles, a.hkv, b);
-  flash_attention_kernel<kDp><<<grid, kThreads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<grid, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
-
 
 // D > 256: S over D chunks of kWideDs, P V over kWideDo output columns a
 // block (see "Wide heads" above).  The rows, the mask, the tile skip and
@@ -542,7 +623,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-int launch_wide(const AttnArgs &a, int b, void *stream) {
+int launch_wide(AttnArgs a, int64_t rows, int b, void *stream) {
   constexpr size_t smem =
       ((size_t)(kRows + kKeys) * (kWideDs + 4) + (size_t)kRows * (kKeys + 4) +
        (size_t)kKeys * (kWideDo + 4)) * sizeof(float);
@@ -551,6 +632,7 @@ int launch_wide(const AttnArgs &a, int b, void *stream) {
       flash_attention_wide_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  a.row_tiles = (int)((rows + kRows - 1) / kRows);
   const int64_t blocks = (int64_t)a.row_tiles * ((a.d + kWideDo - 1) / kWideDo);
   if (blocks > 2147483647) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks, a.hkv, b);
@@ -591,11 +673,17 @@ int flash_attention_f32(const float *q, const float *k, const float *v,
   a.sm_scale = sm_scale;
   const int64_t rows = (int64_t)lq * a.group;
   if (rows > (int64_t)1 << 30) return (int)cudaErrorInvalidValue;
-  a.row_tiles = (int)((rows + kRows - 1) / kRows);
-  if (d <= 64) return launch<64>(a, b, stream);
-  if (d <= 128) return launch<128>(a, b, stream);
-  if (d <= kMaxNarrowDp) return launch<256>(a, b, stream);
-  return launch_wide(a, b, stream);
+  a.row_tiles = 0;
+  const auto al16 = [](const void *p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  a.vec_kv = d % 4 == 0 && al16(k) && al16(v) && k_sb % 4 == 0 &&
+             k_sl % 4 == 0 && k_sh % 4 == 0 && v_sb % 4 == 0 &&
+             v_sl % 4 == 0 && v_sh % 4 == 0;
+  if (d <= 64) return launch<64, 8, 64>(a, rows, b, stream);
+  if (d <= 128) return launch<128, 8, 64>(a, rows, b, stream);
+  if (d <= kMaxNarrowDp) return launch<256, 4, 32>(a, rows, b, stream);
+  return launch_wide(a, rows, b, stream);
 }
 
 const char *flash_attention_error_string(int err) {

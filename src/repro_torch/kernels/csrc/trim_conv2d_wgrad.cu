@@ -9,51 +9,68 @@
 // Cpg matrix whose rows are the flattened (ki, kj, ci) axis: the product
 // of the im2col'd input (positions x rows) and the cotangent (positions x
 // Cpg) over the positions, formed on the fly.  'same'/'valid' padding is
-// virtual, as in the forward kernel: the loader writes zeros outside the
-// image, so no padded copy of x exists.
-//
-// Geometry (core/conv_plan.py WeightGradPlan).  The TPU kernel sweeps
-// (image, strip of cotangent rows) in sequence into one resident f32
-// block.  Blocks here run in parallel and in no order, so the sweep is cut
-// into chunks of tile_go consecutive rows of the flattened (n, oh) axis.
-// A block owns (chunk, group, 64-row tile, 64-column tile).  It stages 32
-// positions at a time of its input rows and cotangent columns in shared
-// memory; each thread keeps a 4 x 4 tile of accumulators in registers and
-// reads one float4 of each staged tile per position.
-//
-// Determinism without float atomics.  Entry 1 (wgrad_partial_kernel)
-// writes one partial dw per chunk into a workspace: each element is ONE
-// fmaf chain over the chunk's positions in ascending (n, oh, ow) order.
-// Entry 2 (wgrad_reduce_kernel) sums the partials of each element in
-// ascending chunk order, one fadd chain.  The result depends on the shape
-// and the data only, so two launches on the same inputs are bitwise equal.
-// With a single chunk, entry 1 writes dw itself and entry 2 is skipped.
+// virtual: the loader zero-fills outside the image, so no padded copy of x
+// exists.
 //
 // What bounds it on the H100.  At VGG-16 shapes the weight gradient does
 // as many FLOPs as the forward conv on as many bytes, hundreds of FLOPs per
-// byte, so the bound is operations: 67 TFLOP/s of non-tensor f32.  This
-// first kernel issues two 16-byte shared-memory loads per sixteen FMAs and
-// stages without overlap (two barriers per 32 positions); the workspace
-// adds 8 bytes of traffic per dw element and chunk, which the plan keeps
-// below the FLOPs by giving a chunk at least 256 positions (64 FLOPs per
-// workspace byte).  Small Cin/g packs several taps into one row tile;
-// a depthwise conv (9 rows and one column per group) keeps 1 of 256
-// threads' accumulators busy.
+// byte, so the bound is operations: 67 TFLOP/s of f32 FFMA.  The kernel
+// stays on those pipes (no TF32, no tensor cores), so the bound stays
+// 67 TFLOP/s and its result stays one fmaf chain per element.
+//
+// Chunks (core/conv_plan.py WeightGradPlan).  The TPU kernel sweeps
+// (image, strip of cotangent rows) in sequence into one resident f32
+// block.  Blocks here run in parallel and in no order, so the sweep is cut
+// into chunks of tile_go consecutive rows of the flattened (n, oh) axis,
+// as tall as a full round of resident blocks on the 132 SMs allows (a
+// model of the time in the plan: VGG-16 conv2 at batch 8 is 52 chunks and
+// 7.7 MB of partials, down from 896 chunks and 132 MB in the first
+// design of 256-position chunks).
+//
+// GEMM route (wgrad_gemm_kernel).  A block owns (chunk, group, 128-row
+// tile, 128- or 64-column tile; 64 where Cout/g <= 64).  256 threads as
+// 16 x 16, each with an 8 x 8 (or 8 x 4) register tile of accumulators:
+// rows 4 ty + {0..3} and 64 + 4 ty + {0..3}, columns 4 tx + 64 c + {0..3},
+// so a position costs a thread 64 FMAs per four LDS.128 (the first design:
+// 16 per two).  Positions arrive 16 a stage in a 3-stage shared-memory
+// ring filled by cp.async with zero-fill at the virtual pad and past the
+// chunk: stage s + 2 is copied while stage s computes, one barrier a
+// stage.  NHWC keeps both operands contiguous along their channel axis,
+// so a thread copies 16 bytes along ci for a fixed tap and along co.
+// Where Cin/g or Cout/g is not a multiple of 4 (or the operand is not
+// 16-byte aligned) that operand's loader copies 4 bytes at a time: a
+// template instance of the same kernel, not a fallback.
+//
+// Depthwise route (wgrad_depthwise_kernel, groups == Cin == Cout).  A GEMM
+// tile would use 9 rows and 1 column a group.  Here a thread owns one
+// (tap, channel) element, lanes along the channels, so each position's
+// loads of x and the cotangent are coalesced; the same chunks and the same
+// ordered reduction apply.
+//
+// Determinism without float atomics.  The partial launch writes one
+// partial dw per chunk into a workspace: each element is ONE fmaf chain
+// over the chunk's positions in ascending (n, oh, ow) order.
+// wgrad_reduce_kernel sums the partials of each element in ascending chunk
+// order, one fadd chain (float4 where dw's size allows).  The result
+// depends on the shape and the data only, so two launches on the same
+// inputs are bitwise equal.  With a single chunk the partial launch writes
+// dw itself and the reduction is skipped.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;     // threads per block
-constexpr int kTileRows = 64;     // rows of the flattened (ki, kj, ci) axis
-constexpr int kTileCout = 64;     // output channels per block
-constexpr int kPositions = 32;    // cotangent positions staged per step
-constexpr int kLoadLanes = kThreads / kTileRows;  // positions loaded at once
+constexpr int kTileRows = 128;    // rows of the flattened (ki, kj, ci) axis
+constexpr int kPositions = 16;    // cotangent positions a stage
+constexpr int kStages = 3;        // stages of the cp.async ring
 
-static_assert(kTileRows == kTileCout, "one loader column serves both tiles");
-static_assert(kTileRows == 4 * 16 && kThreads == 16 * 16,
-              "a 16 x 16 thread grid of 4 x 4 accumulator tiles");
+static_assert(kThreads == 16 * 16 && kTileRows == 16 * 8,
+              "a 16 x 16 thread grid of 8-row accumulator tiles");
 
 struct WgradArgs {
   int n, h, w, cin, cout, k, stride, pad_top, pad_left, groups;
@@ -61,114 +78,318 @@ struct WgradArgs {
   int tile_go;     // cotangent rows per chunk
   int chunks;
   int rows;        // K * K * Cin/groups
+  int cin_pg, cout_pg;
   int row_tiles, co_tiles;
 };
 
-__global__ void __launch_bounds__(kThreads)
-wgrad_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                     float* __restrict__ ws, const WgradArgs a) {
-  __shared__ __align__(16) float xs[kPositions][kTileRows];
-  __shared__ __align__(16) float gs[kPositions][kTileCout];
-  const int cin_pg = a.cin / a.groups;
-  const int cout_pg = a.cout / a.groups;
+template <int kTileCout>
+constexpr size_t gemm_smem_bytes() {
+  return (size_t)kStages * kPositions * (kTileRows + kTileCout) *
+         sizeof(float);
+}
+
+// kVecX / kVecG: 16-byte copies of x / the cotangent (Cin/g, Cout/g
+// multiples of 4 and the operand 16-byte aligned); else 4-byte copies.
+template <int kTileCout, bool kVecX, bool kVecG>
+__global__ void __launch_bounds__(kThreads, 2)
+wgrad_gemm_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                  float* __restrict__ out, const WgradArgs a) {
+  constexpr int kCw = kTileCout / 64;          // float4 column groups
+  constexpr int kXStage = kPositions * kTileRows;
+  constexpr int kGStage = kPositions * kTileCout;
+  constexpr int kGCols4 = kTileCout / 4;       // float4s a staged row
+  constexpr int kGLanes = kThreads / kGCols4;  // positions copied at once
+  constexpr int kGPasses = kPositions / kGLanes;
+  constexpr int kXLanes = kThreads / (kTileRows / 4);
+  constexpr int kXPasses = kPositions / kXLanes;
+  static_assert(kGPasses >= 1 && kXPasses == 2, "loader geometry");
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);   // [stage][position][row]
+  float* gs = xs + kStages * kXStage;            // [stage][position][col]
 
   int b = blockIdx.x;
   const int cot = b % a.co_tiles; b /= a.co_tiles;
   const int rt = b % a.row_tiles; b /= a.row_tiles;
   const int grp = b % a.groups;
   const int chunk = b / a.groups;
-
   const int tid = threadIdx.x;
-  // Loader role: one column of both staged tiles, positions lp + 4i.
-  const int lc = tid % kTileRows;
-  const int lp = tid / kTileRows;
-  const int r = rt * kTileRows + lc;
-  const bool row_ok = r < a.rows;
-  int ki = 0, kj = 0, ci = 0;
-  if (row_ok) {
-    const int tap = r / cin_pg;
-    ci = r - tap * cin_pg;
-    ki = tap / a.k;
-    kj = tap - ki * a.k;
-  }
-  const int co = cot * kTileCout + lc;
-  const bool co_ok = co < cout_pg;
-  const float* xcol = x + grp * cin_pg + ci;
-  const float* gcol = g + grp * cout_pg + co;
 
   const int total_rows = a.n * a.h_out;
   const int row0 = chunk * a.tile_go;
   const int row1 = min(total_rows, row0 + a.tile_go);
   const int npos = (row1 - row0) * a.w_out;
+  const int nstages = (npos + kPositions - 1) / kPositions;
 
-  // Compute role: rows 4*ty.., columns 4*tx.. of the block's tile.
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[4][4];
+  // x loader: rows 4 xc .. 4 xc + 3 of the tile, positions xp + 8 i.  The
+  // vector path's four rows share one tap (Cin/g % 4 == 0), so only row 0's
+  // tap is kept.
+  constexpr int kXRows = kVecX ? 1 : 4;
+  const int xc = tid % (kTileRows / 4), xp = tid / (kTileRows / 4);
+  int xki[kXRows], xkj[kXRows];
+  long long xoff[kXRows];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < kXRows; ++j) {
+    const int r = rt * kTileRows + 4 * xc + j;
+    xki[j] = -(1 << 20);     // a row past the tile's end: never in range
+    xkj[j] = 0;
+    xoff[j] = 0;
+    if (r < a.rows) {
+      const int tap = r / a.cin_pg, ci = r - tap * a.cin_pg;
+      xki[j] = tap / a.k;
+      xkj[j] = tap - xki[j] * a.k;
+      xoff[j] = ((long long)xki[j] * a.w + xkj[j]) * a.cin +
+                grp * a.cin_pg + ci;
+    }
+  }
+  // (image, oh, ow) of the x loader's two positions, advanced a stage at a
+  // time
+  int pimg[kXPasses], poh[kXPasses], pow_[kXPasses];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  for (int i = 0; i < kXPasses; ++i) {
+    const int q = xp + kXLanes * i;
+    const int orow = row0 + q / a.w_out;
+    pow_[i] = q - (q / a.w_out) * a.w_out;
+    pimg[i] = orow / a.h_out;
+    poh[i] = orow - pimg[i] * a.h_out;
+  }
+  // cotangent loader: columns 4 gc .. 4 gc + 3, positions gp + kGLanes i
+  const int gc = tid % kGCols4, gp = tid / kGCols4;
+  const int gco = cot * kTileCout + 4 * gc;
+  const float* gsrc = g + (long long)row0 * a.w_out * a.cout +
+                      grp * a.cout_pg + gco;
 
-  for (int p0 = 0; p0 < npos; p0 += kPositions) {
-    const int np = min(kPositions, npos - p0);
+  auto load = [&](int stage, int buf) {
+    const int q0 = stage * kPositions;
+    float* xdst = xs + buf * kXStage;
 #pragma unroll
-    for (int i = 0; i < kPositions / kLoadLanes; ++i) {
-      const int p = lp + i * kLoadLanes;
-      float xv = 0.0f, gv = 0.0f;
-      if (p < np) {
-        const int q = p0 + p;
-        const int orow = row0 + q / a.w_out;
-        const int ow = q - (q / a.w_out) * a.w_out;
-        const int img = orow / a.h_out;
-        const int oh = orow - img * a.h_out;
-        if (co_ok)
-          gv = gcol[((size_t)orow * a.w_out + ow) * a.cout];
-        if (row_ok) {
-          const int ih = oh * a.stride + ki - a.pad_top;
-          const int iw = ow * a.stride + kj - a.pad_left;
-          if (ih >= 0 && ih < a.h && iw >= 0 && iw < a.w)
-            xv = xcol[(((size_t)img * a.h + ih) * a.w + iw) * a.cin];
+    for (int i = 0; i < kXPasses; ++i) {
+      const int p = xp + kXLanes * i;
+      const bool pos_ok = q0 + p < npos;
+      const int ih0 = poh[i] * a.stride - a.pad_top;
+      const int iw0 = pow_[i] * a.stride - a.pad_left;
+      const long long base =
+          (((long long)pimg[i] * a.h + ih0) * a.w + iw0) * a.cin;
+      float* dst = xdst + p * kTileRows + 4 * xc;
+#pragma unroll
+      for (int j = 0; j < kXRows; ++j) {
+        const int ih = ih0 + xki[j], iw = iw0 + xkj[j];
+        const bool ok = pos_ok && ih >= 0 && ih < a.h && iw >= 0 &&
+                        iw < a.w;
+        const float* src = ok ? x + base + xoff[j] : x;
+        if (kVecX)
+          cp_async16(dst, src, ok);
+        else
+          cp_async4(dst + j, src, ok);
+      }
+      // advance this position by one stage
+      int ow = pow_[i] + kPositions;
+      while (ow >= a.w_out) {
+        ow -= a.w_out;
+        if (++poh[i] == a.h_out) {
+          poh[i] = 0;
+          ++pimg[i];
         }
       }
-      xs[p][lc] = xv;
-      gs[p][lc] = gv;
+      pow_[i] = ow;
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int p = 0; p < np; ++p) {
-      const float4 xv = *reinterpret_cast<const float4*>(&xs[p][4 * ty]);
-      const float4 gv = *reinterpret_cast<const float4*>(&gs[p][4 * tx]);
-      const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
-      const float gr[4] = {gv.x, gv.y, gv.z, gv.w};
+    float* gdst = gs + buf * kGStage;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kGPasses; ++i) {
+      const int p = gp + kGLanes * i;
+      const bool pos_ok = q0 + p < npos;
+      const float* src = gsrc + (long long)(q0 + p) * a.cout;
+      float* dst = gdst + p * kTileCout + 4 * gc;
+      if (kVecG) {
+        const bool ok = pos_ok && gco < a.cout_pg;
+        cp_async16(dst, ok ? src : g, ok);
+      } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xr[i], gr[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) {
+          const bool ok = pos_ok && gco + j < a.cout_pg;
+          cp_async4(dst + j, ok ? src + j : g, ok);
+        }
+      }
     }
-    __syncthreads();  // every read of the staged tiles is done
+  };
+
+  const int ty = tid / 16, tx = tid % 16;
+  float acc[8][4 * kCw];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * kCw; ++j) acc[i][j] = 0.0f;
+
+  auto step = [&](const float* xb, const float* gb, int p) {
+    const float4 x0 = *reinterpret_cast<const float4*>(
+        xb + p * kTileRows + 4 * ty);
+    const float4 x1 = *reinterpret_cast<const float4*>(
+        xb + p * kTileRows + 64 + 4 * ty);
+    const float xr[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    float gr[4 * kCw];
+#pragma unroll
+    for (int c = 0; c < kCw; ++c) {
+      const float4 gv = *reinterpret_cast<const float4*>(
+          gb + p * kTileCout + 64 * c + 4 * tx);
+      gr[4 * c] = gv.x;
+      gr[4 * c + 1] = gv.y;
+      gr[4 * c + 2] = gv.z;
+      gr[4 * c + 3] = gv.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4 * kCw; ++j)
+        acc[i][j] = fmaf(xr[i], gr[j], acc[i][j]);
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nstages) load(s, s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nstages; ++s) {
+    cp_async_wait<kStages - 2>();   // this thread's copies of stage s
+    __syncthreads();                // everyone's; stage s-1 is consumed
+    if (s + kStages - 1 < nstages)
+      load(s + kStages - 1, (s + kStages - 1) % kStages);
+    cp_async_commit();
+    const float* xb = xs + (s % kStages) * kXStage;
+    const float* gb = gs + (s % kStages) * kGStage;
+    const int np = npos - s * kPositions;
+    if (np >= kPositions) {
+#pragma unroll
+      for (int p = 0; p < kPositions; ++p) step(xb, gb, p);
+    } else {
+#pragma unroll 1
+      for (int p = 0; p < np; ++p) step(xb, gb, p);
+    }
   }
 
-  float* out = ws + (size_t)chunk * a.rows * a.cout + grp * cout_pg;
+  float* dst = out + (size_t)chunk * a.rows * a.cout + grp * a.cout_pg;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = rt * kTileRows + 4 * ty + i;
+  for (int i = 0; i < 8; ++i) {
+    const int row = rt * kTileRows + 4 * ty + (i & 3) + (i >> 2) * 64;
     if (row >= a.rows) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = cot * kTileCout + 4 * tx + j;
-      if (c < cout_pg) out[(size_t)row * a.cout + c] = acc[i][j];
+    for (int c = 0; c < kCw; ++c) {
+      const int col = cot * kTileCout + 64 * c + 4 * tx;
+      float* o = dst + (size_t)row * a.cout + col;
+      if (kVecG) {
+        if (col < a.cout_pg)
+          *reinterpret_cast<float4*>(o) =
+              make_float4(acc[i][4 * c], acc[i][4 * c + 1],
+                          acc[i][4 * c + 2], acc[i][4 * c + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (col + j < a.cout_pg) o[j] = acc[i][4 * c + j];
+      }
     }
   }
 }
 
+// groups == Cin == Cout: thread e owns dw element e = tap * C + c.
+__global__ void __launch_bounds__(kThreads)
+wgrad_depthwise_kernel(const float* __restrict__ x,
+                       const float* __restrict__ g, float* __restrict__ out,
+                       const WgradArgs a) {
+  const int c_all = a.cin;
+  const int elems = a.k * a.k * c_all;
+  const int tiles = (elems + kThreads - 1) / kThreads;
+  const int chunk = blockIdx.x / tiles;
+  const int e = (blockIdx.x - chunk * tiles) * kThreads + threadIdx.x;
+  if (e >= elems) return;
+  const int tap = e / c_all, c = e - tap * c_all;
+  const int ki = tap / a.k, kj = tap - ki * a.k;
+  const int row0 = chunk * a.tile_go;
+  const int row1 = min(a.n * a.h_out, row0 + a.tile_go);
+  float acc = 0.0f;
+  for (int orow = row0; orow < row1; ++orow) {
+    const int img = orow / a.h_out, oh = orow - img * a.h_out;
+    const int ih = oh * a.stride + ki - a.pad_top;
+    const bool row_ok = ih >= 0 && ih < a.h;
+    const float* xrow =
+        x + ((long long)img * a.h + (row_ok ? ih : 0)) * a.w * c_all + c;
+    const float* grow = g + (long long)orow * a.w_out * c_all + c;
+#pragma unroll 4
+    for (int ow = 0; ow < a.w_out; ++ow) {
+      const int iw = ow * a.stride + kj - a.pad_left;
+      const bool ok = row_ok && iw >= 0 && iw < a.w;
+      const float xv = ok ? __ldg(xrow + (long long)iw * c_all) : 0.0f;
+      acc = fmaf(xv, __ldg(grow + (long long)ow * c_all), acc);
+    }
+  }
+  out[(size_t)chunk * elems + e] = acc;
+}
+
+// dw[e] = ws[0][e] + ws[1][e] + ... in ascending chunk order.
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 wgrad_reduce_kernel(const float* __restrict__ ws, float* __restrict__ dw,
                     size_t elems, int chunks) {
   const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= elems) return;
-  float s = ws[e];
-  for (int c = 1; c < chunks; ++c) s += ws[(size_t)c * elems + e];
-  dw[e] = s;
+  if (kVec) {
+    const size_t n4 = elems / 4;
+    if (e >= n4) return;
+    const float4* w4 = reinterpret_cast<const float4*>(ws);
+    float4 s = w4[e];
+#pragma unroll 8
+    for (int c = 1; c < chunks; ++c) {
+      const float4 t = w4[(size_t)c * n4 + e];
+      s.x += t.x;
+      s.y += t.y;
+      s.z += t.z;
+      s.w += t.w;
+    }
+    reinterpret_cast<float4*>(dw)[e] = s;
+  } else {
+    if (e >= elems) return;
+    float s = ws[e];
+#pragma unroll 8
+    for (int c = 1; c < chunks; ++c) s += ws[(size_t)c * elems + e];
+    dw[e] = s;
+  }
+}
+
+template <int kTileCout, bool kVecX, bool kVecG>
+cudaError_t launch_gemm(const float* x, const float* g, float* out,
+                        const WgradArgs& a, unsigned blocks,
+                        cudaStream_t s) {
+  constexpr size_t smem = gemm_smem_bytes<kTileCout>();
+  auto kernel = wgrad_gemm_kernel<kTileCout, kVecX, kVecG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kThreads, smem, s>>>(x, g, out, a);
+  return cudaGetLastError();
+}
+
+template <int kTileCout>
+cudaError_t launch_gemm(const float* x, const float* g, float* out,
+                        const WgradArgs& a, unsigned blocks, bool vec_x,
+                        bool vec_g, cudaStream_t s) {
+  if (vec_x && vec_g)
+    return launch_gemm<kTileCout, true, true>(x, g, out, a, blocks, s);
+  if (vec_x)
+    return launch_gemm<kTileCout, true, false>(x, g, out, a, blocks, s);
+  if (vec_g)
+    return launch_gemm<kTileCout, false, true>(x, g, out, a, blocks, s);
+  return launch_gemm<kTileCout, false, false>(x, g, out, a, blocks, s);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <int kTileCout>
+cudaError_t resident_blocks(int* out) {
+  constexpr size_t smem = gemm_smem_bytes<kTileCout>();
+  auto kernel = wgrad_gemm_kernel<kTileCout, true, true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, kThreads,
+                                                       smem);
 }
 
 }  // namespace
@@ -177,39 +398,81 @@ wgrad_reduce_kernel(const float* __restrict__ ws, float* __restrict__ dw,
 // launches on `stream` without synchronising and returns
 // cudaGetLastError() (or cudaErrorInvalidValue for a geometry the kernel
 // cannot take).  `ws` holds chunks * K*K*Cin/groups * Cout floats; with a
-// single chunk it may be `dw` itself.
+// single chunk it may be `dw` itself.  WeightGradPlan decides the route
+// (`depthwise`), the GEMM tile's columns (`tile_cout`, 64 or 128) and so
+// the partial launch's `blocks`; this launcher takes those decisions as
+// given and only checks them: the depthwise route needs groups == Cin ==
+// Cout, and `blocks` must equal the count from this file's tile rows and
+// threads, so a plan that prices another launch than the one made fails
+// here instead of running.
 extern "C" {
 
 int trim_conv2d_wgrad(const float* x, const float* g, float* ws, float* dw,
                       int n, int h, int wd, int cin, int cout, int k,
                       int stride, int pad_top, int pad_left, int groups,
-                      int h_out, int w_out, int tile_go, void* stream) {
+                      int h_out, int w_out, int tile_go, int depthwise,
+                      int tile_cout, int blocks, void* stream) {
   if (n < 1 || k < 1 || stride < 1 || groups < 1 || cin % groups != 0 ||
       cout % groups != 0 || h_out < 1 || w_out < 1 || tile_go < 1 ||
       pad_top < 0 || pad_left < 0)
+    return (int)cudaErrorInvalidValue;
+  if (depthwise ? !(groups == cin && cin == cout)
+                : tile_cout != 64 && tile_cout != 128)
     return (int)cudaErrorInvalidValue;
   WgradArgs a;
   a.n = n; a.h = h; a.w = wd; a.cin = cin; a.cout = cout; a.k = k;
   a.stride = stride; a.pad_top = pad_top; a.pad_left = pad_left;
   a.groups = groups; a.h_out = h_out; a.w_out = w_out; a.tile_go = tile_go;
   a.chunks = (n * h_out + tile_go - 1) / tile_go;
-  a.rows = k * k * (cin / groups);
+  a.cin_pg = cin / groups;
+  a.cout_pg = cout / groups;
+  a.rows = k * k * a.cin_pg;
   a.row_tiles = (a.rows + kTileRows - 1) / kTileRows;
-  a.co_tiles = (cout / groups + kTileCout - 1) / kTileCout;
+  a.co_tiles = (a.cout_pg + tile_cout - 1) / tile_cout;
   if (a.chunks > 1 && ws == dw) return (int)cudaErrorInvalidValue;
-  const long long blocks =
-      (long long)a.chunks * groups * a.row_tiles * a.co_tiles;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long tiles =
+      depthwise ? ((long long)k * k * cin + kThreads - 1) / kThreads
+                : (long long)groups * a.row_tiles * a.co_tiles;
+  if (tiles * a.chunks != (long long)blocks || blocks < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  wgrad_partial_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-      x, g, a.chunks > 1 ? ws : dw, a);
-  cudaError_t err = cudaGetLastError();
+  float* out = a.chunks > 1 ? ws : dw;
+  cudaError_t err;
+  if (depthwise) {
+    wgrad_depthwise_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(x, g, out,
+                                                                  a);
+    err = cudaGetLastError();
+  } else {
+    const bool vec_x = a.cin_pg % 4 == 0 && aligned16(x);
+    const bool vec_g = a.cout_pg % 4 == 0 && aligned16(g) &&
+                       aligned16(out);
+    err = tile_cout == 64
+              ? launch_gemm<64>(x, g, out, a, (unsigned)blocks, vec_x,
+                                vec_g, s)
+              : launch_gemm<128>(x, g, out, a, (unsigned)blocks, vec_x,
+                                 vec_g, s);
+  }
   if (err != cudaSuccess || a.chunks == 1) return (int)err;
   const size_t elems = (size_t)a.rows * cout;
-  const size_t rblocks = (elems + kThreads - 1) / kThreads;
-  wgrad_reduce_kernel<<<(unsigned)rblocks, kThreads, 0, s>>>(ws, dw, elems,
-                                                               a.chunks);
+  const bool vec = elems % 4 == 0 && aligned16(ws) && aligned16(dw);
+  const size_t threads = vec ? elems / 4 : elems;
+  const size_t rblocks = (threads + kThreads - 1) / kThreads;
+  if (vec)
+    wgrad_reduce_kernel<true><<<(unsigned)rblocks, kThreads, 0, s>>>(
+        ws, dw, elems, a.chunks);
+  else
+    wgrad_reduce_kernel<false><<<(unsigned)rblocks, kThreads, 0, s>>>(
+        ws, dw, elems, a.chunks);
   return (int)cudaGetLastError();
+}
+
+// Resident blocks an SM of the GEMM route's tile of `tile_cout` columns
+// (16-byte loaders), as the card reports it, into `*out`:
+// WeightGradPlan's time model assumes WGRAD_BLOCKS_PER_SM of them.
+int trim_conv2d_wgrad_resident_blocks(int tile_cout, int* out) {
+  if (tile_cout == 64) return (int)resident_blocks<64>(out);
+  if (tile_cout == 128) return (int)resident_blocks<128>(out);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* trim_conv2d_wgrad_error_string(int err) {

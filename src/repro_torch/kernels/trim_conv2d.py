@@ -265,7 +265,9 @@ def trim_conv2d_weight_grad(x: torch.Tensor, g: torch.Tensor, *,
             x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(),
             plan.n, plan.h, plan.w, plan.cin, plan.cout, plan.k,
             plan.stride, plan.pads[0][0], plan.pads[1][0], plan.groups,
-            plan.h_out, plan.w_out, plan.tile_go, stream)
+            plan.h_out, plan.w_out, plan.tile_go,
+            int(plan.route == "depthwise"), plan.tile_cout, plan.blocks,
+            stream)
     if err != 0:
         raise RuntimeError(
             f"trim_conv2d_wgrad kernel launch failed: CUDA error {err} "

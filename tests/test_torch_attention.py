@@ -159,3 +159,114 @@ def test_attention_property(lq, lk_extra, hkv, group, causal, block_k):
     got = fa.flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
                                    causal=causal, block_k=block_k)
     _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The narrow kernel's 3xTF32 products, emulated in plain PyTorch
+# ---------------------------------------------------------------------------
+
+def _tf32(x):
+    """Round f32 to TF32 (10 mantissa bits), to nearest with ties away from
+    zero: ``cvt.rna.tf32.f32``."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _einsum_3xtf32(eq, a, b):
+    """``a_small b_big + a_big b_small + a_big b_big``, each operand split
+    as the kernel splits it (big = tf32(a), small = tf32(a - big)), the
+    TF32 products exact and summed in f32."""
+    ab, bb = _tf32(a), _tf32(b)
+    as_, bs = _tf32(a - ab), _tf32(b - bb)
+    return (torch.einsum(eq, as_, bb) + torch.einsum(eq, ab, bs)
+            + torch.einsum(eq, ab, bb))
+
+
+def _einsum_tf32(eq, a, b):
+    return torch.einsum(eq, _tf32(a), _tf32(b))
+
+
+def _flash_emulated(q, k, v, causal, cap, win, einsum, block_k=64):
+    """``flash_attention_plain``'s tiles, mask and online softmax, with
+    both products (Q K^T and P V) through ``einsum``."""
+    b, lq, hq, d = q.shape
+    _, lk, hkv, _ = k.shape
+    group = hq // hkv
+    qg = q.reshape(b, lq, hkv, group, d).permute(0, 2, 3, 1, 4)
+    q_pos = torch.arange(lq) + lk - lq
+    m = torch.full((b, hkv, group, lq, 1), fa.NEG_INF)
+    l = torch.zeros((b, hkv, group, lq, 1))
+    acc = torch.zeros((b, hkv, group, lq, d))
+    for k0 in range(0, lk, block_k):
+        kc, vc = k[:, k0:k0 + block_k], v[:, k0:k0 + block_k]
+        s = einsum("bhgqd,bchd->bhgqc", qg, kc) * (1.0 / np.sqrt(d))
+        if cap is not None:
+            s = cap * torch.tanh(s / cap)
+        k_pos = torch.arange(k0, k0 + kc.shape[1])
+        mask = torch.ones((lq, kc.shape[1]), dtype=torch.bool)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if win is not None:
+            mask &= (q_pos[:, None] - k_pos[None, :]) < win
+        s = torch.where(mask, s, fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + einsum("bhgqc,bchd->bhgqd", p, vc)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, lq, hq, d)
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0 + 2**-10, 1.0 + 2**-11, 1.0 + 3 * 2**-12,
+                      -(1.0 + 2**-11), 3.0e-5], dtype=torch.float32)
+    got = _tf32(x)
+    assert got[0] == 1.0 + 2**-10                 # representable
+    assert got[1] == 1.0 + 2**-10                 # tie: away from zero
+    assert got[2] == 1.0 + 2**-10                 # below half: down
+    assert got[3] == -(1.0 + 2**-10)
+    assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+    big = _tf32(x)
+    small = _tf32(x - big)
+    assert ((big + small - x).abs() <= x.abs() * 2**-21).all()
+
+
+@pytest.mark.parametrize("case", range(len(CASES)),
+                         ids=[str(c[:6]) for c in CASES])
+def test_flash_3xtf32_matches_jax_pallas_and_oracle(case):
+    """Flash built from 3xTF32 products (the narrow kernel's arithmetic on
+    the card) stays within 1e-5 of JAX's Pallas kernel (interpret mode)
+    and of JAX ``ref.attention`` on the six shapes of
+    ``tests/test_kernels.py``."""
+    (q, k, v), pallas, oracle = _jax_case(case)
+    _, _, _, _, _, _, causal, cap, win = CASES[case]
+    got = _flash_emulated(*map(torch.from_numpy, (q, k, v)), causal, cap,
+                          win, _einsum_3xtf32)
+    _close(got, pallas)
+    _close(got, oracle)
+
+
+# b, lq, lk, hq, hkv, d, causal, soft_cap, window: the narrow route's
+# padded head dims 64, 128 and 256 with ragged Lq / Lk, a window and a cap
+WIDE_D_CASES = [(1, 40, 70, 4, 2, 64, True, None, None),
+                (1, 33, 100, 4, 1, 128, True, 30.0, 24),
+                (1, 20, 45, 2, 1, 256, False, None, None)]
+
+
+@pytest.mark.parametrize("case", WIDE_D_CASES,
+                         ids=[f"d{c[5]}" for c in WIDE_D_CASES])
+def test_flash_3xtf32_needs_the_split(case):
+    """At D = 64-256 the 3xTF32 products stay within 1e-5 of JAX
+    ``ref.attention``; one TF32 pass (2^-11 a product) does not."""
+    b, lq, lk, hq, hkv, d, causal, cap, win = case
+    q, k, v = _qkv(np.random.default_rng(d), b, lq, lk, hq, hkv, d)
+    want = jref.attention(*map(jnp.asarray, (q, k, v)), causal=causal,
+                          logits_soft_cap=cap, window=win)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    _close(_flash_emulated(tq, tk, tv, causal, cap, win, _einsum_3xtf32),
+           want)
+    one = _flash_emulated(tq, tk, tv, causal, cap, win, _einsum_tf32)
+    want = np.asarray(want)
+    assert np.abs(one.numpy() - want).max() > TOL * np.abs(want).max()

@@ -170,9 +170,11 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(cuda):
 
 
 # (n, h, w, cin, cout, k, stride, groups, padding, tile_go): ragged last
-# chunks, chunks that cross image boundaries, row tiles that span taps
-# (Cin/g < 64) or not (Cin/g = 64, 128), C_out tiles that do not divide
-# C_out, a single chunk (dw written directly), depthwise and grouped.
+# chunks and stages, chunks that cross image boundaries, row tiles that
+# span taps (Cin/g < 128) or not, C_out tiles of 64 and 128 that do not
+# divide C_out (70, 96, 130), a single chunk (dw written directly),
+# grouped, the depthwise route, the 4-byte loaders (Cin/g = 2, 3;
+# Cout/g = 6, 70, 130) and a plan of many chunks.
 WGRAD_CASES = [
     (2, 9, 11, 4, 6, 3, 1, 1, "same", None),
     (2, 10, 10, 4, 8, 3, 2, 1, "same", 3),
@@ -185,6 +187,12 @@ WGRAD_CASES = [
     (2, 28, 28, 32, 64, 3, 2, 2, "same", None),
     (3, 15, 15, 40, 130, 3, 1, 1, "same", 4),
     (2, 20, 20, 16, 16, 7, 1, 16, "same", None),
+    # VGG-16 conv2 at 1/2 the image: 50 chunks of 2,016 positions
+    (8, 112, 112, 64, 64, 3, 1, 1, "same", None),
+    # the smoke's depthwise case: the depthwise route, 896 chunks
+    (8, 112, 112, 32, 32, 3, 1, 32, "same", None),
+    # Cin/g 3 and Cout/g 6: both operands through the 4-byte loader
+    (2, 20, 20, 6, 12, 3, 1, 2, "same", None),
 ]
 
 
@@ -215,6 +223,42 @@ def test_wgrad_kernel_matches_plain_and_repeats_bitwise(cuda, case):
     assert (one - plain).abs().max().item() <= \
         TOL * plain.abs().max().item()
     assert torch.equal(one, two)
+
+
+def test_wgrad_launcher_takes_and_checks_the_plan(cuda):
+    """The plan's route, tile width and block count reach the launcher,
+    which refuses a block count or route its own constants do not give;
+    the card keeps as many GEMM blocks resident an SM as the plan's time
+    model assumes."""
+    import ctypes
+    from repro_torch.core import conv_plan as cp
+    from repro_torch.kernels import build
+    lib = build.library("trim_conv2d_wgrad")
+    for tile_cout in (cp.WGRAD_NARROW_TILE_COUT, cp.WGRAD_TILE_COUT):
+        got = ctypes.c_int(0)
+        assert lib.trim_conv2d_wgrad_resident_blocks(
+            tile_cout, ctypes.byref(got)) == 0
+        assert got.value == cp.WGRAD_BLOCKS_PER_SM, tile_cout
+    x = torch.randn((2, 12, 12, 8), device=cuda)
+    gy = torch.randn((2, 12, 12, 16), device=cuda)
+    plan = cp.WeightGradPlan.build(tuple(x.shape), (3, 3, 8, 16), pad=1)
+    dw = torch.empty(plan.dw_shape, device=cuda)
+    ws = torch.empty((plan.chunks * plan.dw_elems,), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(depthwise, tile_cout, blocks):
+        return lib.trim_conv2d_wgrad(
+            x.data_ptr(), gy.data_ptr(), ws.data_ptr(), dw.data_ptr(),
+            plan.n, plan.h, plan.w, plan.cin, plan.cout, plan.k,
+            plan.stride, 1, 1, plan.groups, plan.h_out, plan.w_out,
+            plan.tile_go, depthwise, tile_cout, blocks, stream)
+
+    assert plan.route == "gemm"
+    assert launch(0, plan.tile_cout, plan.blocks) == 0
+    torch.cuda.synchronize()
+    assert launch(0, plan.tile_cout, plan.blocks + 1) != 0
+    assert launch(0, 32, plan.blocks) != 0
+    assert launch(1, plan.tile_cout, plan.blocks) != 0
 
 
 @pytest.mark.parametrize("case", WGRAD_CASES[:6],
@@ -351,6 +395,14 @@ FLASH_CASES = [
     (1, 130, 130, 6, 2, 12, True, None, None),
     (2, 70, 200, 9, 3, 128, False, 5.0, None),
     (1, 300, 300, 16, 2, 128, True, None, None),
+    # the narrow route's 3xTF32 tiles at Dp 64, 128 and 256: ragged Lq /
+    # Lk, windows, soft caps, and long key ranges (thousands of truncating
+    # tensor-core accumulations, the accuracy hazard of that route)
+    (1, 77, 203, 8, 2, 64, True, 20.0, 50),
+    (2, 45, 4100, 8, 2, 128, True, None, None),
+    (1, 129, 257, 6, 3, 128, False, 30.0, 100),
+    (1, 95, 1000, 4, 1, 256, True, 15.0, 300),
+    (1, 33, 2100, 5, 5, 256, True, None, None),
     # D > 256: the wide-head route (D in chunks, 256 output columns a block)
     (1, 150, 150, 4, 2, 320, True, None, None),
     (2, 70, 130, 6, 2, 320, False, 30.0, 40),

@@ -28,6 +28,7 @@ from repro.core import conv_plan as jconv_plan
 from repro.kernels import ref as jref
 from repro.kernels.trim_conv2d import \
     trim_conv2d_input_grad as j_input_grad
+from repro_torch.core import conv_plan as cp
 from repro_torch.core.conv_plan import WeightGradPlan, input_grad_geometry
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import trim_conv2d as tc
@@ -166,20 +167,126 @@ def test_weight_grad_chunking_does_not_change_the_function(tile_go):
 
 
 @pytest.mark.parametrize("layer,x_shape,cout,tile_go,chunks", [
-    ("conv1", (8, 224, 224, 3), 64, 2, 896),
-    ("conv2", (8, 224, 224, 64), 64, 2, 896),
-    ("conv9", (8, 28, 28, 512), 512, 10, 23),
-    ("conv13", (8, 14, 14, 512), 512, 19, 6),
+    ("conv1", (8, 224, 224, 3), 64, 7, 256),
+    ("conv2", (8, 224, 224, 64), 64, 35, 52),
+    ("conv9", (8, 28, 28, 512), 512, 32, 7),
+    ("conv13", (8, 14, 14, 512), 512, 23, 5),
 ])
 def test_weight_grad_plan_at_vgg16_shapes(layer, x_shape, cout, tile_go,
                                           chunks):
     """The chunk count is a pure function of the shape: chunks of at least
-    256 positions, the workspace within 256 MiB."""
+    256 positions, as tall as whole rounds of resident blocks allow, the
+    workspace within 256 MiB."""
     plan = WeightGradPlan.build(x_shape, (3, 3, x_shape[3], cout), pad=1)
     assert (plan.tile_go, plan.chunks) == (tile_go, chunks), layer
+    assert plan.route == "gemm"
     assert plan.tile_go * plan.w_out >= 256
     assert 0 < plan.workspace_bytes <= 256 * 2**20
     assert plan.flops == 2 * 8 * x_shape[1] ** 2 * cout * 9 * x_shape[3]
+
+
+def _vgg16_wgrad_plans(n=8):
+    from repro_torch.core.model import vgg16_layers
+    plans = [(l.name, WeightGradPlan.build(
+        (n, l.ifmap, l.ifmap, l.in_channels),
+        (3, 3, l.in_channels, l.out_channels), pad=1))
+        for l in vgg16_layers()]
+    plans.append(("s2_56x128", WeightGradPlan.build(
+        (n, 56, 56, 128), (3, 3, 128, 256), stride=2, pad=1)))
+    return plans
+
+
+@pytest.mark.parametrize("name,plan", _vgg16_wgrad_plans(),
+                         ids=[name for name, _ in _vgg16_wgrad_plans()])
+def test_weight_grad_plan_reaches_the_wave_target(name, plan):
+    """Every GEMM-route plan of VGG-16 at batch 8 (and the stride-2 case)
+    puts two blocks on at least 90% of the 132 SMs, and its last round of
+    resident blocks is at least 90% full."""
+    assert plan.route == "gemm"
+    slots = cp.WGRAD_SLOTS
+    assert slots == 132 * 2
+    assert plan.blocks >= 0.9 * slots, name
+    rounds = -(-plan.blocks // slots)
+    assert plan.blocks >= 0.9 * rounds * slots, name
+    assert plan.tile_cout == (64 if plan.cout <= 64 else 128)
+    assert plan.blocks == plan.chunks * plan.tiles == plan.chunks * \
+        -(-plan.rows // 128) * -(-plan.cout // plan.tile_cout)
+
+
+@pytest.mark.parametrize("x_shape,w_shape", [
+    ((8, 56, 56, 1024), (3, 3, 1024, 1024)),    # the cap binds: 7 chunks
+    ((8, 28, 28, 1024), (3, 3, 1024, 1024)),
+    ((8, 224, 224, 64), (3, 3, 64, 64)),
+    ((1, 64, 16, 2048), (3, 3, 2048, 4096)),    # one chunk, no workspace
+])
+def test_weight_grad_plan_workspace_stays_under_the_cap(x_shape, w_shape):
+    plan = WeightGradPlan.build(x_shape, w_shape, pad=1)
+    cap = cp.WGRAD_WORKSPACE_CAP
+    assert plan.workspace_bytes <= cap
+    assert plan.chunks <= max(1, cap // (4 * plan.dw_elems))
+    # an override taller or shorter than the cap allows is raised to it
+    low = WeightGradPlan.build(x_shape, w_shape, pad=1, tile_go=1)
+    assert low.workspace_bytes <= cap
+    assert low.tile_go == min(plan.n * plan.h_out,
+                              -(-plan.n * plan.h_out
+                                // max(1, cap // (4 * plan.dw_elems))))
+
+
+@pytest.mark.parametrize("x_shape,w_shape,groups,route", [
+    ((8, 112, 112, 32), (3, 3, 1, 32), 32, "depthwise"),
+    ((2, 10, 10, 8), (3, 3, 1, 8), 8, "depthwise"),
+    ((2, 20, 20, 16), (7, 7, 1, 16), 16, "depthwise"),
+    ((2, 10, 10, 8), (3, 3, 1, 16), 8, "gemm"),       # channel multiplier 2
+    ((2, 20, 20, 6), (3, 3, 3, 12), 2, "gemm"),       # Cin/g 3, Cout/g 6
+    ((2, 10, 10, 8), (3, 3, 2, 8), 4, "gemm"),
+    ((2, 10, 10, 1), (3, 3, 1, 1), 1, "depthwise"),   # groups == Cin == Cout
+    ((2, 10, 10, 4), (3, 3, 4, 8), 1, "gemm"),
+])
+def test_weight_grad_plan_routes_depthwise_only(x_shape, w_shape, groups,
+                                                route):
+    plan = WeightGradPlan.build(x_shape, w_shape, pad=1, groups=groups)
+    assert plan.route == route
+    if route == "depthwise":
+        assert plan.tiles == -(-plan.dw_elems // 256)
+        assert plan.blocks >= min(cp.WGRAD_DW_BLOCKS,
+                                  plan.tiles * plan.n * plan.h_out)
+
+
+@pytest.mark.parametrize("case", [
+    (12, 12, 8, 8, 3, 1, 1, 8),      # depthwise route
+    (10, 9, 6, 12, 3, 2, 1, 2),      # Cin/g 3, Cout/g 6
+    (16, 16, 8, 16, 3, 1, 1, 1),
+])
+@pytest.mark.parametrize("tile_go", [None, 1, 3, 1000])
+def test_weight_grad_chunked_order_matches_jax_ref(case, tile_go):
+    """The kernels' summation order — one chain a chunk of the plan's
+    cotangent rows, then the partials in ascending chunk order — replayed
+    in plain PyTorch stays within 1e-5 of JAX ``ref.conv2d_grads``, and
+    so does the wrapper, for the plan's chunking and any override."""
+    h, w, cin, cout, k, s, pad, g = case
+    x, wt, gy = _shape_inputs(*case, seed=h * w + (tile_go or 0))
+    xp = jnp.pad(jnp.asarray(x), ((0, 0), (pad, pad), (pad, pad), (0, 0)))
+    _, want = jref.conv2d_grads(xp, jnp.asarray(wt), jnp.asarray(gy),
+                                stride=s, padding="valid",
+                                feature_group_count=g)
+    plan = WeightGradPlan.build(x.shape, wt.shape, stride=s, pad=pad,
+                                groups=g, tile_go=tile_go)
+    n, ho = gy.shape[0], gy.shape[1]
+    rows = np.arange(n * ho)
+    dw = None
+    for c in range(plan.chunks):
+        sel = rows[c * plan.tile_go:(c + 1) * plan.tile_go]
+        gs = np.zeros_like(gy)
+        for r in sel:       # the chunk's cotangent rows, zeros elsewhere
+            gs[r // ho, r % ho] = gy[r // ho, r % ho]
+        part = tc.trim_conv2d_weight_grad_plain(
+            _t(x), _t(gs), kernel_size=k, stride=s, pad=pad, groups=g)
+        dw = part if dw is None else dw + part
+    _close(dw, want)
+    got = tc.trim_conv2d_weight_grad(_t(x), _t(gy), kernel_size=k,
+                                     stride=s, pad=pad, groups=g,
+                                     tile_go=tile_go)
+    _close(got, want)
 
 
 def test_weight_grad_plan_single_chunk_has_no_workspace():
