@@ -33,22 +33,24 @@ Phases, each raising on failure (each prints its seconds):
    kernel on the dilated cotangent) against the plain forward on the
    same padded cotangent, within the forward's tolerance;
 5. fused kernel check — full-width VGG-16's two-layer groups
-   conv1..conv2 (tile 8 x 16) and conv3..conv4 (4 x 8), built at their
-   tiles since the plan fuses no full-width layer (its description is
-   printed), at batch 8 and 1, every group the plan
-   picks for VGG-16 at 1/16 width (``fused_topo``; at least one at each
-   batch), and the small geometry chains of the CPU tests (a 'valid'
-   strided stage with an overlapping 3/2 pool, a pool-free chain) at
-   several tiles: the fused kernel against its plain version within
-   the forward tolerance and bitwise equal to the per-layer carry chain
-   (``reference_chain``); for the full-width groups also its time beside
-   the chain's, the plain version's, the ``F.conv2d`` + ``F.max_pool2d``
-   chain's (TF32 off; no single PyTorch call computes a group) and the
-   bound, with the plan's executed and per-layer bytes;
+   conv1..conv2 (tile 8 x 16) and conv3..conv4 (4 x 8) at fixed tiles, every
+   group the plan picks for full-width VGG-16 (its description is
+   printed) and for VGG-16 at 1/16 width (``fused_topo``; at least one
+   at each batch), each at batch 8 and 1, and the small geometry chains
+   of the CPU tests (a 'valid' strided stage with an overlapping 3/2
+   pool, a pool-free chain) at several tiles: the fused kernel against
+   its plain version within the forward tolerance and bitwise equal to
+   the per-layer carry chain (``reference_chain``); each group's tile,
+   blocks, shared memory and per-stage C_out tiles and passes; for the
+   full-width groups also its time and TFLOP/s beside the chain's, the
+   plain version's, the ``F.conv2d`` + ``F.max_pool2d`` chain's (TF32
+   off; no single PyTorch call computes a group) and the bound, with the
+   plan's executed and per-layer bytes; the fused kernel's registers and
+   spill as ptxas reports them;
 6. serve — full-width VGG-16 (1000 classes, seeded random weights) served
    through ``ServingEngine`` on buckets (1, 2, 4, 8): a seeded Poisson
    trace on the carry kernel, then part of it on the halo kernel and
-   with ``fused=True`` (which the plan runs per layer at full width);
+   with ``fused=True`` (the plan's fused groups, the rest per layer);
    then VGG-16/16 on the carry kernel and with ``fused=True``
    (serve[fused]); every served row must bit-match ``forward_one`` (halo
    and fused rows: the carry rows too); a per-layer forward must launch
@@ -551,16 +553,16 @@ def time_fused(torch, g, x, ws, bs, exec_bytes):
 
 def fused_topo():
     """VGG-16 at 1/16 width, the JAX fused parity tests' model: the
-    network the fused serving and training phases run, since at full
-    width no group moves fewer bytes than the per-layer kernel and the
-    plan fuses none (PERF.md §6)."""
+    network the fused training phase runs and the second fused serving
+    trace."""
     from repro_torch.core.model import vgg16_layers
     from repro_torch.core.netplan import scale_layers
     return scale_layers(vgg16_layers(), FUSED_SCALE)
 
 
 def vgg16_pair_groups(n):
-    """Full-width VGG-16's two-layer groups at tiles that fit 227 KB:
+    """Full-width VGG-16's two-layer groups at fixed tiles (the pair the
+    fused kernel has been timed on since it was first ported):
     conv1..conv2 (8 x 16) and conv3..conv4 (4 x 8)."""
     from repro_torch.core.fuse_plan import build_group
     from repro_torch.core.model import vgg16_layers
@@ -571,23 +573,49 @@ def vgg16_pair_groups(n):
             for s, t, b in ((0, 8, 16), (2, 4, 8))]
 
 
+def fused_ptxas():
+    """The fused kernel's ptxas lines of this run's build: (registers,
+    spill bytes stored, spill bytes loaded) of each instance."""
+    import re
+    from repro_torch.kernels import build
+    out, fn = [], None
+    for line in build.build_log["trim_conv2d_fused"]["ptxas"]:
+        if "entry function" in line:
+            fn = line
+        elif "spill" in line and fn is not None:
+            st, ld = (int(v) for v in re.findall(r"(\d+) bytes spill", line))
+            out.append([None, st, ld])
+        elif "registers" in line and out:
+            out[-1][0] = int(re.search(r"Used (\d+) registers", line)[1])
+    return [tuple(r) for r in out]
+
+
 def check_fused(torch):
     """Fused kernel against its plain version and the per-layer carry
-    chain on full-width VGG-16's two-layer groups (batch 8 and 1, timed),
-    on every group the plan picks for VGG-16 at 1/16 width (batch 8 and
-    1) and on the small chains; returns one row per group."""
+    chain on full-width VGG-16's groups (the fixed-tile pair and the plan's;
+    batch 8 and 1, timed), on every group the plan picks for VGG-16 at
+    1/16 width (batch 8 and 1) and on the small chains; returns one row
+    per group."""
     from repro_torch.core.fuse_plan import (FusedGroupPlan, build_group,
                                             per_layer_exec_bytes)
     from repro_torch.core.netplan import infer_pools
     from repro_torch.kernels import trim_conv2d_fused as tf
 
+    regs = fused_ptxas()
+    print("fused kernel, ptxas (registers, spill stores, spill loads) per "
+          f"instance: {regs}")
     cases = []
     for n in (8, 1):
         full = FusedGroupPlan.build("vgg16", n=n)
-        print(f"fused plan, VGG-16 batch {n}: {full.describe()}; per-layer "
-              f"{full.never_hbm_bytes() / 1e6:.1f} MB")
+        sm = full.summary()
+        print(f"fused plan, VGG-16 batch {n}: {full.describe()}; executed "
+              f"{sm['executed_bytes'] / 1e6:.1f} MB vs per-layer "
+              f"{sm['per_layer_bytes'] / 1e6:.1f} MB, FLOPs x"
+              f"{sm['executed_flops'] / sm['flops']:.4f}")
         cases += [(f"vgg16 n={n}", g, full.layer_exec_bytes)
                   for g in vgg16_pair_groups(n)]
+        cases += [(f"vgg16 plan n={n}", g, full.layer_exec_bytes)
+                  for g in full.fused_groups]
         plan = FusedGroupPlan.build(fused_topo(), n=n)
         if not plan.fused_groups:
             raise AssertionError(f"the VGG-16/{FUSED_SCALE} plan at batch "
@@ -607,11 +635,14 @@ def check_fused(torch):
                   for t, b in tiles]
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
-    print("fused kernel check (relu, bias; times in ms, device events):")
-    print(f"  {'case':16s} {'group':12s} {'T':>3s} {'B':>3s} "
-          f"{'max_err':>9s} {'tol':>8s} {'==chain':>7s} {'fused':>8s} "
+    print("fused kernel check (relu, bias; times in ms, device events; "
+          "tile_cout and passes per stage; smem in bytes):")
+    print(f"  {'case':16s} {'group':13s} {'T':>3s} {'B':>3s} "
+          f"{'max_err':>9s} {'tol':>8s} {'==chain':>7s} {'blocks':>6s} "
+          f"{'smem':>6s} {'tile_cout':>10s} {'passes':>7s} {'fused':>8s} "
           f"{'chain':>8s} {'plain':>8s} {'F.chain':>8s} {'bound':>8s} by"
-          f"         {'MB exec':>8s} {'MB layer':>8s} {'FLOPx':>6s}")
+          f"         {'TF/s f':>6s} {'TF/s c':>6s} {'MB exec':>8s} "
+          f"{'MB layer':>8s} {'FLOPx':>6s}")
     for case, g, exec_bytes in cases:
         s0 = g.stages[0]
         x = torch.randn((g.n, s0.h_in, s0.w_in, s0.cin), generator=gen,
@@ -637,21 +668,38 @@ def check_fused(torch):
             raise AssertionError(f"{case} {g.label}: the fused kernel and "
                                  "the per-layer carry chain differ bitwise")
         row = dict(case=case, group=g.label, err=err,
-                   vgg8=case == "vgg16 n=8")
-        line = (f"  {case:16s} {g.label:12s} {g.strip_rows:3d} "
+                   vgg8=case == "vgg16 n=8", plan8=case == "vgg16 plan n=8",
+                   strip_rows=g.strip_rows,
+                   band_cols=g.band_cols, blocks=g.n_tiles,
+                   smem=g.smem_bytes,
+                   tile_cout=[st.tile_cout for st in g.stages],
+                   passes=[st.passes for st in g.stages])
+        line = (f"  {case:16s} {g.label:13s} {g.strip_rows:3d} "
                 f"{g.band_cols:3d} {err:9.2e} {TOLERANCE * scale:8.1e} "
-                f"{str(same):>7s}")
+                f"{str(same):>7s} {g.n_tiles:6d} {g.smem_bytes:6d} "
+                f"{'/'.join(map(str, row['tile_cout'])):>10s} "
+                f"{'/'.join(map(str, row['passes'])):>7s}")
         if case.startswith("vgg16 "):
             row.update(time_fused(torch, g, x, ws, bs, exec_bytes))
             line += (f" {row['fused']:8.3f} {row['chain']:8.3f} "
                      f"{row['plain']:8.3f} {row['library']:8.3f} "
                      f"{row['bound']:8.3f} {row['by']:10s} "
+                     f"{g.flops / row['fused'] / 1e9:6.2f} "
+                     f"{g.flops / row['chain'] / 1e9:6.2f} "
                      f"{row['exec_mb']:8.2f} {row['layer_mb']:8.2f} "
                      f"{g.recompute:6.3f}")
         rows.append(row)
         print(line)
         del x, ws, bs, fused, plain, chain
     torch.cuda.empty_cache()
+    for what, key in (("the fixed-tile full-width pair", "vgg8"),
+                      ("the full-width plan's groups", "plan8")):
+        sel = [r for r in rows if r[key]]
+        print(f"fused kernel check, {what} at batch 8: fused "
+              f"{sum(r['fused'] for r in sel):.3f} ms, per-layer chain "
+              f"{sum(r['chain'] for r in sel):.3f} ms, F.conv2d chain "
+              f"{sum(r['library'] for r in sel):.3f} ms, bound "
+              f"{sum(r['bound'] for r in sel):.3f} ms")
     return rows
 
 
@@ -1680,9 +1728,9 @@ def main() -> int:
                                                     model, xs)
     _, halo_launches, halo_fw, _ = serve(HALO_REQUESTS, "halo", model, xs,
                                          expect=carry_rows)
-    # at full width the plan fuses no group: fused=True serves per layer
-    _, full_fused_launches, _, _ = serve(HALO_REQUESTS, "carry", model, xs,
-                                         expect=carry_rows, fused=True)
+    # fused=True serves the plan's full-width groups, the rest per layer
+    _, full_fused_launches, full_fused_fw, _ = serve(
+        HALO_REQUESTS, "carry", model, xs, expect=carry_rows, fused=True)
     small = TrimCNN.random(fused_topo(), n_classes=1000, seed=0,
                            device="cuda")
     small_label = f"VGG-16/{FUSED_SCALE}"
@@ -1778,6 +1826,7 @@ def main() -> int:
         "library_ms": sum(r["library"] for r in bvgg),
     })
     fvgg = [r for r in frows if r["vgg8"]]
+    fplan = [r for r in frows if r["plan8"]]
     ops_ms = sum(r["ops_ms"] for r in fvgg if r["by"] == "operations")
     bytes_ms = sum(r["bytes_ms"] for r in fvgg if r["by"] == "bytes")
     kernels.append({
@@ -1785,7 +1834,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/trim_conv2d_fused.cu",
         "replaces": "src/repro/kernels/trim_conv2d_fused.py:102",
-        "launches": fused_launches["fused"] + train_fused_launches["fused"],
+        "launches": (full_fused_launches["fused"] + fused_launches["fused"]
+                     + train_fused_launches["fused"]),
         "max_abs_err": max(r["err"] for r in frows),
         "ms": sum(r["fused"] for r in fvgg),
         "plain_ms": sum(r["plain"] for r in fvgg),
@@ -1794,6 +1844,11 @@ def main() -> int:
         # no single PyTorch call computes a group; the F.conv2d +
         # F.max_pool2d chain's time is printed in the fused kernel check
         "library_ms": None,
+        # the groups that full-width fused serving runs (the plan's at
+        # batch 8), beside the fixed-tile pair above
+        "plan_ms": sum(r["fused"] for r in fplan),
+        "plan_chain_ms": sum(r["chain"] for r in fplan),
+        "plan_bound_ms": sum(r["bound"] for r in fplan),
     })
     a = next(r for r in arows if r["name"] == "a_prefill")
     kernels.append({
@@ -1839,14 +1894,17 @@ def main() -> int:
           f"{sum(r['halo'] for r in vgg1):.3f} ms, F.conv2d "
           f"{sum(r['library'] for r in vgg1):.3f} ms")
     print("kernel times: sums over the 13 VGG-16 conv layers at batch 8 "
-          "(trim_conv2d_fused: over full-width VGG-16's two-layer groups "
-          "at batch 8, "
+          "(trim_conv2d_fused: over full-width VGG-16's fixed-tile "
+          "two-layer pair at batch 8, "
           f"per-layer carry chain of the same layers "
           f"{sum(r['chain'] for r in fvgg):.3f} ms, F.conv2d + "
-          f"F.max_pool2d chain {sum(r['library'] for r in fvgg):.3f} ms); "
+          f"F.max_pool2d chain {sum(r['library'] for r in fvgg):.3f} ms; "
+          "plan_*: over the groups the full-width plan fuses at batch 8, "
+          f"F.conv2d chain {sum(r['library'] for r in fplan):.3f} ms); "
           f"launches from the main paths: serving ({carry_fw} carry "
-          f"forwards, {halo_fw} halo forwards, {fused_fw} fused forwards "
-          f"of VGG-16/{FUSED_SCALE}: {fused_launches}) and the "
+          f"forwards, {halo_fw} halo forwards, {full_fused_fw} fused "
+          f"forwards of VGG-16: {full_fused_launches}, {fused_fw} of "
+          f"VGG-16/{FUSED_SCALE}: {fused_launches}) and the "
           f"{TRAIN_STEPS} VGG-16 training steps (per layer, "
           f"{train_launches}) and one VGG-16/{FUSED_SCALE} fused step "
           f"({train_fused_launches})")

@@ -26,9 +26,8 @@ all ``Cin/groups`` channels:
   :data:`SMEM_PER_BLOCK`.
 
 The forward kernel's constants are the ``CONV_*`` values below; they
-mirror the ``constexpr`` values at the top of ``trim_conv2d.cu``.
-``THREADS`` and ``WEIGHT_CHUNK`` are the fused kernel's
-(``core/fuse_plan.py``, ``trim_conv2d_fused.cu``).
+mirror the ``constexpr`` values at the top of ``trim_conv2d.cu``.  The
+fused kernel's are ``FUSED_*`` in ``core/fuse_plan.py``.
 """
 
 from __future__ import annotations
@@ -40,8 +39,6 @@ SMEM_PER_BLOCK = 232_448     # H100: 227 KB of opt-in shared memory per block
 SMEM_PER_SM = 233_472        # H100: 228 KB of shared memory per SM
 SMEM_RESERVED_PER_BLOCK = 1_024   # taken by the runtime from each block
 SMS = 132                    # H100 SXM streaming multiprocessors
-THREADS = 256                # fused kernel: threads per block (kThreads)
-WEIGHT_CHUNK = 32            # fused kernel: input channels a weight chunk
 WARP = 32
 # The forward kernel (trim_conv2d.cu)
 CONV_THREADS = 256           # threads per block (kThreads)

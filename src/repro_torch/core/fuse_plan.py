@@ -29,11 +29,17 @@ What is new for Hopper:
 * **Feasibility is the kernel's real footprint** (:attr:`FusedGroup.
   smem_bytes`): two ping-pong buffers, one holding every even stage's
   input tile and one every odd stage's (the stage's pooled output is the
-  next stage's input), plus one staged weight chunk.
+  next stage's input), each at its stage's channel pitch
+  (:attr:`FusedStage.cin_pitch`), plus the 2-stage weight ring.
+* **The kernel's schedule is planned here.**  A thread holds
+  :data:`FUSED_POSITIONS` conv outputs (whole pool windows, so the pool
+  runs in registers; a 3x3 window takes :data:`FUSED_POOL3_POSITIONS`) x
+  :data:`FUSED_COUT` channels; :attr:`FusedStage.tile_cout` is the C_out
+  tile of each stage's fewest *pass tiles* (one sweep of the block's
+  accumulators each), then fewest passes.
 * **Bytes are the kernel's schedule.**  A fused group reads its stage-0
   windows (halo overlap billed in full), streams each stage's weights
-  once per *pass* (a pass is as many positions as the block's registers
-  hold, as a strip is for the per-layer kernel) and writes the last
+  once per *pass* (all C_out tiles together) and writes the last
   stage's pooled output.  The per-layer baseline is the port's own
   :meth:`ConvPlan.hbm_bytes` schedule plus the separate pool's read and
   write.  The TPU's ``NetworkPlan`` residency decision (VMEM accounting)
@@ -50,19 +56,24 @@ import functools
 import math
 from dataclasses import dataclass
 
-from repro_torch.core.conv_plan import (SMEM_PER_BLOCK, THREADS, WARP,
-                                        WEIGHT_CHUNK, ConvPlan, same_pads)
+from repro_torch.core.conv_plan import (SMEM_PER_BLOCK, WARP, ConvPlan,
+                                        same_pads)
 from repro_torch.core.netplan import (infer_pools, layer_kernel_problem,
                                       network_layers, pooled_out_size)
 
 # Kernel constants, mirroring the constexprs of trim_conv2d_fused.cu (its
-# kThreads, kWeightChunk and kMaxSmemBytes are conv_plan's THREADS,
-# WEIGHT_CHUNK and SMEM_PER_BLOCK).
-MAX_FUSED_K = 8          # taps per side inside a group (ops.MAX_NATIVE_K)
-MAX_FUSED_STAGES = 8     # kMaxStages: stages of one launch
-FUSED_SLOTS = 9          # kMaxSlots: conv outputs per thread per pass
-FUSED_TILE_COUT = 64     # output channels per pass (kMaxCout 4 x a warp
-                         # would allow 128)
+# kMaxSmemBytes is conv_plan's SMEM_PER_BLOCK; tests/test_torch_fused.py
+# parses the .cu and holds each against its mirror).
+MAX_FUSED_K = 8               # taps per side inside a group (ops.MAX_NATIVE_K)
+MAX_FUSED_STAGES = 8          # kMaxStages: stages of one launch
+FUSED_THREADS = 256           # kThreads: threads per block
+FUSED_POSITIONS = 8           # kPositions: conv outputs a thread (pool
+                              # window 1 or 2: 8 positions or two windows)
+FUSED_POOL3_POSITIONS = 9     # kPool3Positions: ... one 3x3 pool window
+FUSED_COUT = 4                # kCout: output channels a thread (a float4)
+FUSED_MAX_TILE_COUT = WARP * FUSED_COUT   # kMaxTileCout: a warp along C_out
+FUSED_WEIGHT_CHUNK = 32       # kChunk: weight rows (tap, channel) a ring stage
+FUSED_WEIGHT_STAGES = 2       # kStages: the weight ring's stages
 F32_BYTES = 4
 
 
@@ -142,36 +153,68 @@ class FusedStage:
     # -- the kernel's thread layout for this stage ---------------------------
 
     @property
-    def tile_cout(self) -> int:
-        """Output channels of one pass: 64, or the whole C_out when
-        smaller; above a warp, whole warps."""
-        t = min(self.cout, FUSED_TILE_COUT)
-        return -(-t // WARP) * WARP if t > WARP else t
-
-    @property
-    def threads_cout(self) -> int:
-        return min(self.tile_cout, WARP)
+    def cin_pitch(self) -> int:
+        """Channel pitch of the stage's input tile in shared memory:
+        ``cin + 4`` where ``cin % 4 == 0`` (float4 loads; the positions a
+        warp reads at once fall on different banks), else ``cin``."""
+        return self.cin + 4 if self.cin % 4 == 0 else self.cin
 
     @property
     def per_thread(self) -> int:
-        """Pooled positions a thread holds in one pass; each takes
-        ``pool_window**2`` conv accumulators (the pool runs in
-        registers)."""
-        return FUSED_SLOTS // (self.pool_window ** 2)
+        """Pooled positions a thread holds in one pass: whole pool
+        windows of its :data:`FUSED_POSITIONS` (or, for a 3x3 window,
+        :data:`FUSED_POOL3_POSITIONS`) conv accumulators, so the pool
+        runs in registers.  0: the kernel takes no such window."""
+        slots = (FUSED_POOL3_POSITIONS if self.pool_window == 3
+                 else FUSED_POSITIONS)
+        return slots // self.pool_window ** 2
+
+    def _pass_tiles(self, tile_cout: int) -> tuple[int, int]:
+        """(C_out tiles, passes over the tile's pooled positions) of one
+        C_out tile width."""
+        threads = -(-tile_cout // FUSED_COUT)
+        per_pass = FUSED_THREADS // threads * self.per_thread
+        return (-(-self.cout // tile_cout),
+                -(-self.pool_rows * self.pool_cols // per_pass))
+
+    @property
+    def tile_cout(self) -> int:
+        """Output channels of one pass: of 128 (a warp along C_out), 64
+        and 32, each capped at C_out, the one with the fewest pass tiles
+        (C_out tiles x passes: each a full sweep of the block's 8,192
+        accumulators), then the fewest passes (each streams the
+        stage's weights once)."""
+        cands = sorted({min(self.cout, t) for t in (
+            FUSED_MAX_TILE_COUT, FUSED_MAX_TILE_COUT // 2,
+            FUSED_MAX_TILE_COUT // 4)}, reverse=True)
+        if not self.per_thread:
+            return cands[0]
+
+        def key(t):
+            co_tiles, passes = self._pass_tiles(t)
+            return co_tiles * passes, passes
+        return min(cands, key=key)
+
+    @property
+    def threads_cout(self) -> int:
+        """Threads along C_out, :data:`FUSED_COUT` channels each."""
+        return -(-self.tile_cout // FUSED_COUT)
 
     @property
     def positions_per_pass(self) -> int:
-        return THREADS // self.threads_cout * self.per_thread
+        return FUSED_THREADS // self.threads_cout * self.per_thread
 
     @property
     def passes(self) -> int:
         """Passes over one tile, all C_out tiles together: each streams
         this stage's weights once."""
-        return -(-self.pool_rows * self.pool_cols // self.positions_per_pass)
+        return self._pass_tiles(self.tile_cout)[1]
 
     @property
     def in_tile_elems(self) -> int:
-        return self.in_rows * self.in_cols * self.cin
+        """Floats of the stage's input tile at its channel pitch, rounded
+        to a float4."""
+        return -(-self.in_rows * self.in_cols * self.cin_pitch // 4) * 4
 
     @property
     def tile_macs(self) -> int:
@@ -310,11 +353,17 @@ class FusedGroup:
         return bufs[0], bufs[1]
 
     @property
+    def ring_cout(self) -> int:
+        """Floats of one weight-ring row: the widest stage's C_out tile
+        rounded up to whole threads."""
+        return FUSED_COUT * max(st.threads_cout for st in self.stages)
+
+    @property
     def smem_bytes(self) -> int:
         """Everything the kernel allocates in shared memory: both
-        buffers and one staged weight chunk of the widest C_out tile."""
-        chunk = WEIGHT_CHUNK * max(st.tile_cout for st in self.stages)
-        return F32_BYTES * (sum(self.buffer_elems) + chunk)
+        buffers and the weight ring."""
+        ring = FUSED_WEIGHT_STAGES * FUSED_WEIGHT_CHUNK * self.ring_cout
+        return F32_BYTES * (sum(self.buffer_elems) + ring)
 
     # -- arithmetic / traffic ------------------------------------------------
 
@@ -461,10 +510,13 @@ class FusedGroupPlan:
     def _tune_group(layers, pools, start, depth, *, n):
         """The tile of least executed bytes (then least executed FLOPs)
         over ``layers[start:start+depth]`` whose shared memory fits
-        :data:`SMEM_PER_BLOCK`, or None when none fits."""
+        :data:`SMEM_PER_BLOCK`, or None when none fits or the kernel
+        takes no stage's pool window."""
         sub = layers[start:start + depth]
         subpools = pools[start:start + depth]
         probe = build_group(sub, start, n=n, pools=subpools)
+        if not all(st.per_thread for st in probe.stages):
+            return None
         best, best_key = None, None
         for t in _strip_candidates(probe.last.h_pool):
             for b in _strip_candidates(probe.last.w_pool):

@@ -65,6 +65,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
 #include "epilogue.cuh"
 
 namespace {
@@ -92,28 +93,6 @@ struct ConvArgs {
   int vec_w;         // 16-byte weight copies
   int activation;    // activate()'s code (epilogue.cuh)
 };
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 __host__ __device__ inline int window_cols(const ConvArgs& a) {
   return (a.tile_w - 1) * a.stride + a.k;
@@ -245,7 +224,7 @@ trim_conv2d_kernel(const float* __restrict__ x, const float* __restrict__ wt,
     int off[kPositions];
 
     for (int c = 0; c < n_chunks; ++c) {
-      cp_async_wait_all();   // this thread's copies of stage c have landed
+      cp_async_wait<0>();    // this thread's copies of stage c have landed
       __syncthreads();       // everyone's; and stage c-1 is consumed
       if (c + 1 < n_chunks || has_next)
         copy_weights((c + 1) % n_chunks, stage ^ 1);

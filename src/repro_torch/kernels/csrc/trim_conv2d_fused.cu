@@ -15,53 +15,71 @@
 // full width in 16 MiB of VMEM; a block here has 227 KB, so tiles are cut in
 // both directions and a stage's halo rows AND columns are computed by every
 // tile that needs them.
-//   * Stage 0 loads its input window into shared memory; 'same' padding is
-//     virtual, as in trim_conv2d.cu (zeros outside the image).
+//   * Stage 0's input window arrives by cp.async (16-byte copies where
+//     cin % 4 == 0 and x is aligned); 'same' padding is virtual, zero-filled
+//     by the copy, as in trim_conv2d.cu.
+//   * Stage i's input tile lives in buffer i % 2 at a channel pitch of
+//     cin + 4 where cin % 4 == 0 (float4 loads; the positions a warp reads
+//     at once fall on different banks), else cin.  An interior stage writes
+//     its pooled outputs into the other buffer at the next stage's pitch and
+//     zeroes every row and column outside the stage's valid pooled extent:
+//     those zeros are exactly the next conv's 'same' padding, and valid
+//     outputs never read anything else (the JAX kernel's argument, on both
+//     axes).  The last stage writes its valid pooled outputs to memory.
 //   * Each stage computes all its C_out, C_out tile by C_out tile, in passes
-//     of as many pooled positions as the threads' registers hold.  A thread
-//     holds per_thread pooled positions x pool_window^2 conv outputs, so the
-//     max-pool runs in registers after the epilogue and no pre-pool buffer
-//     exists.
-//   * An interior stage writes its pooled outputs into the other of two
-//     ping-pong buffers (stage i's input lives in buffer i % 2) and zeroes
-//     every row and column outside the stage's valid pooled extent: those
-//     zeros are exactly the next conv's 'same' padding, and valid outputs
-//     never read anything else (the JAX kernel's argument, on both axes).
-//   * The last stage writes its valid pooled outputs to device memory.
-//   * Weights stream through shared memory in chunks of 32 input channels of
-//     one tap, as in the per-layer kernel; each pass streams them once.
+//     over its pooled positions.  Threads: tcx = ceil(tile_cout / 4) along
+//     C_out x 256 / tcx along positions; a thread holds kPositions conv
+//     outputs (8 positions, or two 2x2 pool windows; one 3x3 window takes
+//     the kPool3Positions instance) x kCout = 4 channels of accumulators, so
+//     the max-pool runs in registers after the epilogue and no pre-pool
+//     buffer exists.  A pass computes each slot's window offset once; a tap
+//     adds a constant.
+//   * Weights stream as (ki, kj, ci) rows through a 2-stage ring of
+//     [kChunk rows] x [tile_cout] filled by cp.async, one barrier a ring
+//     stage: the stage after lands while this one computes.  A small cin
+//     packs several taps into one ring stage (VGG-16's conv1: 27 rows, one
+//     stage).  A stage's ring stages run on across its passes and C_out
+//     tiles, and a cursor stepped once a ring stage keeps integer divides
+//     out of the path from the barrier to the first FMA.
 //
 // Order.  Every conv output element is ONE fmaf chain in (ki, kj, ci) order
-// from 0.0f, then + bias, then activate() of epilogue.cuh -- the same
-// arithmetic as trim_conv2d.cu.  Max-pooling picks one of its inputs
-// exactly.  So a fused group is bitwise equal to the per-layer carry chain
-// (conv kernel, then a separate max-pool), and a served row to forward_one.
+// from 0.0f over exactly ci < cin, then + bias, then activate() of
+// epilogue.cuh -- the same arithmetic as trim_conv2d.cu.  Max-pooling picks
+// one of its inputs exactly.  So a fused group is bitwise equal to the
+// per-layer carry chain (conv kernel, then a separate max-pool), and a
+// served row to forward_one.  No TF32, no split of a sum across threads.
 //
 // What bounds it on the H100.  At VGG-16's early layers the group does
 // hundreds of FLOPs per byte it must move, so the bound is operations:
 // 67 TFLOP/s of non-tensor f32.  Fusing cuts the bytes the per-layer chain
 // moves (the interior ofmap and the pool's read and write never reach
 // device memory) at the cost of the recomputed halo (1.01-1.14x FLOPs on the
-// VGG-16 groups the plan picks).  The inner loop is the per-layer kernel's
-// (one shared-memory load of x per 2-4 FMAs, one block of 256 threads per SM
-// at 160-175 KB of shared memory), so it runs at that kernel's few TFLOP/s;
-// clusters with distributed shared memory, wgmma and TMA are later work.
+// VGG-16 groups).  The inner loop is the per-layer kernel's: for each group
+// of 4 input channels a thread issues kPositions float4 window loads (the
+// lanes of a warp along C_out read the same positions: broadcasts) and 4
+// float4 weight loads for 128 FMAs.  Buffers and ring take up to 227 KB, so
+// a block runs alone on its SM (8 warps, up to 255 registers a thread).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
+#include "cp_async.cuh"
 #include "epilogue.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;          // threads per block
 constexpr int kMaxStages = 8;          // stages of one launch
-constexpr int kMaxSlots = 9;           // conv outputs per thread per pass
-constexpr int kMaxCout = 4;            // output channels per thread
-constexpr int kWeightChunk = 32;       // input channels per staged chunk
+constexpr int kPositions = 8;          // conv outputs a thread (pool 1x1, 2x2)
+constexpr int kPool3Positions = 9;     // conv outputs a thread (pool 3x3)
+constexpr int kCout = 4;               // output channels a thread (a float4)
+constexpr int kMaxTileCout = 32 * kCout;  // a warp along C_out
+constexpr int kChunk = 32;             // (tap, channel) rows a ring stage
+constexpr int kStages = 2;             // weight ring stages
 constexpr int kMaxSmemBytes = 232448;  // H100: 227 KB opt-in per block
-constexpr int kHeader = 10;            // ints before the per-stage fields
-constexpr int kStageFields = 23;       // ints per stage (see make_args)
+constexpr int kHeader = 9;             // ints before the per-stage fields
+constexpr int kStageFields = 22;       // ints per stage (see make_args)
 
 struct StageArgs {
   const float* w;  // (K, K, cin, cout)
@@ -70,23 +88,259 @@ struct StageArgs {
   int in_rows, in_cols, pool_rows, pool_cols;
   int in_row_start, in_row_step, in_col_start, in_col_step;
   int pool_row_start, pool_row_step, pool_col_start, pool_col_step;
-  int tile_cout, threads_cout, per_thread;
+  int tile_cout, in_pitch;
+  int tcx;         // threads along C_out: ceil(tile_cout / kCout)
+  int per_thread;  // pooled positions a thread: whole windows of its slots
+  int out_pitch;   // the next stage's in_pitch (unused by the last stage)
+  int vec_w;       // 16-byte weight copies
 };
 
 struct FusedArgs {
   int n, h, w, cin, depth, n_strips, n_bands;
-  int buf0, buf1, wchunk;  // floats: ping-pong buffers, weight chunk width
-  int activation;          // activate()'s code (epilogue.cuh)
+  int buf0, buf1;   // floats of the ping-pong buffers (multiples of 4)
+  int ring_cout;    // floats of one ring row: 4 x the widest stage's tcx
+  int vec_x;        // 16-byte copies of the stage-0 window
+  int activation;   // activate()'s code (epilogue.cuh)
   StageArgs st[kMaxStages];
 };
 
-__global__ void __launch_bounds__(kThreads)
+// One stage of one tile: every C_out tile and pass, weights through the
+// ring.  `in` holds the stage's input tile; `out` receives its pooled,
+// masked output (or `y`, for the last stage).
+template <int kSlots, bool kVec>
+__device__ __forceinline__ void run_stage(const StageArgs& st, bool last,
+                                          int act, const float* in,
+                                          float* out, float* ws, int ring_cout,
+                                          float* __restrict__ y, int img,
+                                          int strip, int band) {
+  const int tid = threadIdx.x;
+  const int cin = st.cin, cout = st.cout, k = st.k, s = st.stride;
+  const int ps = st.ps, pw = st.pw, pw2 = st.pw * st.pw;
+  const int tcx = st.tcx, tcp = 4 * tcx, tile_cout = st.tile_cout;
+  const int tx = tid % tcx, ty = tid / tcx;
+  const int pthreads = kThreads / tcx;
+  const bool computes = ty < pthreads;
+  const int per_pass = pthreads * st.per_thread;
+  const int positions = st.pool_rows * st.pool_cols;
+  const int passes = (positions + per_pass - 1) / per_pass;
+  const int co_tiles = (cout + tile_cout - 1) / tile_cout;
+  const int pitch = st.in_pitch;
+  const int gr0 = st.pool_row_start + strip * st.pool_row_step;
+  const int gc0 = st.pool_col_start + band * st.pool_col_step;
+
+  // The weights as rows (ki, kj, ci) x C_out: a ring stage holds kChunk
+  // consecutive rows (within one tap where cin % kChunk == 0) of one C_out
+  // tile.  A unit is one ring stage of one pass, with the tap and channel
+  // of its first row; units run C_out tile by C_out tile, pass by pass.
+  const int rows = k * k * cin;
+  struct Unit { int cot, pass, r0, ki, kj, ci0; };
+  auto next = [&](Unit& v) {
+    v.r0 += kChunk;
+    if (v.r0 >= rows) {
+      v.r0 = v.ki = v.kj = v.ci0 = 0;
+      if (++v.pass == passes) {
+        v.pass = 0;
+        ++v.cot;
+      }
+      return;
+    }
+    for (v.ci0 += kChunk; v.ci0 >= cin; v.ci0 -= cin)
+      if (++v.kj == k) {
+        v.kj = 0;
+        ++v.ki;
+      }
+  };
+  // this thread's 16-byte copies of a full ring stage: rows and columns
+  constexpr int kCopies =
+      (kChunk * kMaxTileCout / 4 + kThreads - 1) / kThreads;
+  int copy_cc[kCopies], copy_co[kCopies];
+#pragma unroll
+  for (int it = 0; it < kCopies; ++it) {
+    const int idx = tid + it * kThreads;
+    copy_cc[it] = idx / tcx;
+    copy_co[it] = (idx - copy_cc[it] * tcx) * 4;
+  }
+
+  // Ring stage `slot` <- the unit's rows x its C_out tile (zeros past the
+  // tile's valid channels).
+  auto copy_weights = [&](const Unit& v, int slot) {
+    const int nr = min(kChunk, rows - v.r0);
+    const int co_valid = min(tile_cout, cout - v.cot * tile_cout);
+    const float* src0 = st.w + (size_t)v.r0 * cout + v.cot * tile_cout;
+    float* dst0 = ws + slot * kChunk * ring_cout;
+    if (st.vec_w) {
+#pragma unroll
+      for (int it = 0; it < kCopies; ++it) {
+        const int cc = copy_cc[it], co = copy_co[it];
+        if (cc < nr) {
+          const bool ok = co < co_valid;
+          cp_async16(dst0 + cc * tcp + co,
+                     ok ? src0 + (size_t)cc * cout + co : st.w, ok);
+        }
+      }
+    } else {
+      for (int idx = tid; idx < nr * tcp; idx += kThreads) {
+        const int cc = idx / tcp, co = idx - cc * tcp;
+        const bool ok = co < co_valid;
+        cp_async4(dst0 + cc * tcp + co,
+                  ok ? src0 + (size_t)cc * cout + co : st.w, ok);
+      }
+    }
+  };
+
+  Unit cur = {0, 0, 0, 0, 0, 0}, ahead = cur;
+  copy_weights(ahead, 0);
+  cp_async_commit();
+  next(ahead);
+
+  float acc[kSlots][kCout];
+  int off[kSlots];  // each slot's window offset at tap (0, 0)
+  int slot = 0;
+  const int units = co_tiles * passes * ((rows + kChunk - 1) / kChunk);
+  for (int u = 0; u < units; ++u) {
+    cp_async_wait<0>();  // this thread's copies of ring stage u have landed
+    __syncthreads();     // everyone's; and ring stage u-1 is consumed
+    if (u + 1 < units) copy_weights(ahead, slot ^ 1);
+    cp_async_commit();
+    next(ahead);
+
+    const int p0 = cur.pass * per_pass;
+    if (cur.r0 == 0) {  // a new pass: zero the sums, place the slots
+#pragma unroll
+      for (int m = 0; m < kSlots; ++m) {
+#pragma unroll
+        for (int j = 0; j < kCout; ++j) acc[m][j] = 0.0f;
+        int o = 0;  // idle slots read a valid address, never stored
+        const int j = m / pw2, wm = m - j * pw2;
+        const int p = p0 + ty + j * pthreads;
+        if (j < st.per_thread && p < positions) {
+          const int wi = wm / pw, wj = wm - wi * pw;
+          const int pr = p / st.pool_cols, pc = p - pr * st.pool_cols;
+          o = ((pr * ps + wi) * s * st.in_cols + (pc * ps + wj) * s) * pitch;
+        }
+        off[m] = o;
+      }
+    }
+
+    if (computes) {
+      const int nr = min(kChunk, rows - cur.r0);
+      const float* wsb = ws + slot * kChunk * ring_cout + 4 * tx;
+      int ki = cur.ki, kj = cur.kj, ci = cur.ci0;
+      // the window at row cc's tap and channel; rows walk (kj, ki) forward
+      auto step = [&](int by) {
+        if ((ci += by) == cin) {
+          ci = 0;
+          if (++kj == k) {
+            kj = 0;
+            ++ki;
+          }
+        }
+      };
+      if (kVec) {
+        // 4 rows of one tap: kSlots window float4s, 4 weight float4s
+        auto mac4 = [&](const float* xb, int cc) {
+          float4 xv[kSlots];
+#pragma unroll
+          for (int m = 0; m < kSlots; ++m)
+            xv[m] = *reinterpret_cast<const float4*>(xb + off[m]);
+#pragma unroll
+          for (int u4 = 0; u4 < 4; ++u4) {
+            const float4 wv =
+                *reinterpret_cast<const float4*>(wsb + (cc + u4) * tcp);
+#pragma unroll
+            for (int m = 0; m < kSlots; ++m) {
+              const float xu = u4 == 0   ? xv[m].x
+                               : u4 == 1 ? xv[m].y
+                               : u4 == 2 ? xv[m].z
+                                         : xv[m].w;
+              acc[m][0] = fmaf(xu, wv.x, acc[m][0]);
+              acc[m][1] = fmaf(xu, wv.y, acc[m][1]);
+              acc[m][2] = fmaf(xu, wv.z, acc[m][2]);
+              acc[m][3] = fmaf(xu, wv.w, acc[m][3]);
+            }
+          }
+        };
+        if (nr == kChunk && ci + kChunk <= cin) {
+          // a full ring stage in one tap: unrolled, loads hoisted
+          const float* xsb = in + (ki * st.in_cols + kj) * pitch + ci;
+#pragma unroll
+          for (int cc = 0; cc < kChunk; cc += 4) mac4(xsb + cc, cc);
+        } else {
+#pragma unroll 1
+          for (int cc = 0; cc < nr; cc += 4) {
+            mac4(in + (ki * st.in_cols + kj) * pitch + ci, cc);
+            step(4);
+          }
+        }
+      } else {
+#pragma unroll 1
+        for (int cc = 0; cc < nr; ++cc) {
+          const float* xb = in + (ki * st.in_cols + kj) * pitch + ci;
+          const float4 wv = *reinterpret_cast<const float4*>(wsb + cc * tcp);
+#pragma unroll
+          for (int m = 0; m < kSlots; ++m) {
+            const float xu = xb[off[m]];
+            acc[m][0] = fmaf(xu, wv.x, acc[m][0]);
+            acc[m][1] = fmaf(xu, wv.y, acc[m][1]);
+            acc[m][2] = fmaf(xu, wv.z, acc[m][2]);
+            acc[m][3] = fmaf(xu, wv.w, acc[m][3]);
+          }
+          step(1);
+        }
+      }
+    }
+
+    if (computes && cur.r0 + kChunk >= rows) {
+      // the pass's last unit: + bias, activation, max over each pool
+      // window, mask
+      const int cbase = cur.cot * tile_cout;
+      const int co_valid = min(tile_cout, cout - cbase);
+      float mx[kCout];
+#pragma unroll
+      for (int m = 0; m < kSlots; ++m) {
+        const int j = m / pw2, wm = m - j * pw2;
+        const int p = p0 + ty + j * pthreads;
+        if (j >= st.per_thread || p >= positions) continue;
+#pragma unroll
+        for (int jj = 0; jj < kCout; ++jj) {
+          const int co = 4 * tx + jj;
+          if (co >= co_valid) continue;
+          float v = acc[m][jj];
+          if (st.b != nullptr) v = v + st.b[cbase + co];
+          v = activate(v, act);
+          mx[jj] = wm == 0 ? v : fmaxf(mx[jj], v);
+        }
+        if (wm != pw2 - 1) continue;
+        const int pr = p / st.pool_cols, pc = p - pr * st.pool_cols;
+        const int gr = gr0 + pr, gc = gc0 + pc;
+        const bool valid =
+            gr >= 0 && gr < st.h_pool && gc >= 0 && gc < st.w_pool;
+#pragma unroll
+        for (int jj = 0; jj < kCout; ++jj) {
+          const int co = 4 * tx + jj;
+          if (co >= co_valid) continue;
+          if (!last)
+            out[(pr * st.pool_cols + pc) * st.out_pitch + cbase + co] =
+                valid ? mx[jj] : 0.0f;
+          else if (valid)
+            y[(((size_t)img * st.h_pool + gr) * st.w_pool + gc) * cout +
+              cbase + co] = mx[jj];
+        }
+      }
+    }
+
+    slot ^= 1;
+    next(cur);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 trim_conv2d_fused_kernel(const float* __restrict__ x, float* __restrict__ y,
-                         const FusedArgs a) {
-  extern __shared__ float smem[];
-  float* const buf0 = smem;
-  float* const buf1 = smem + a.buf0;
-  float* const ws = smem + a.buf0 + a.buf1;  // [kWeightChunk][tile_cout]
+                         const __grid_constant__ FusedArgs a) {
+  extern __shared__ float4 smem4[];
+  float* const buf0 = reinterpret_cast<float*>(smem4);
+  float* const buf1 = buf0 + a.buf0;
+  float* const ws = buf1 + a.buf1;  // [kStages][kChunk][ring_cout]
 
   int bid = blockIdx.x;
   const int band = bid % a.n_bands; bid /= a.n_bands;
@@ -94,23 +348,27 @@ trim_conv2d_fused_kernel(const float* __restrict__ x, float* __restrict__ y,
   const int img = bid / a.n_strips;
   const int tid = threadIdx.x;
 
-  {  // stage 0's input window, zeros outside the image
+  {  // stage 0's input window, zeros outside the image; it lands with the
+     // stage's first ring stage
     const StageArgs& s0 = a.st[0];
     const int r0 = s0.in_row_start + strip * s0.in_row_step;
     const int c0 = s0.in_col_start + band * s0.in_col_step;
     const float* xin = x + (size_t)img * a.h * a.w * a.cin;
-    const int row_len = s0.in_cols * a.cin;
-    const int total = s0.in_rows * row_len;
+    const int vx = a.vec_x ? 4 : 1;
+    const int per_px = a.cin / vx;
+    const int total = s0.in_rows * s0.in_cols * per_px;
     for (int idx = tid; idx < total; idx += kThreads) {
-      const int r = idx / row_len;
-      const int rem = idx - r * row_len;
-      const int c = rem / a.cin;
-      const int ci = rem - c * a.cin;
+      const int px = idx / per_px;
+      const int ci = (idx - px * per_px) * vx;
+      const int r = px / s0.in_cols, c = px - r * s0.in_cols;
       const int ih = r0 + r, iw = c0 + c;
-      float v = 0.0f;
-      if (ih >= 0 && ih < a.h && iw >= 0 && iw < a.w)
-        v = xin[((size_t)ih * a.w + iw) * a.cin + ci];
-      buf0[idx] = v;
+      const bool in = ih >= 0 && ih < a.h && iw >= 0 && iw < a.w;
+      const float* src = in ? xin + ((size_t)ih * a.w + iw) * a.cin + ci : x;
+      float* dst = buf0 + px * s0.in_pitch + ci;
+      if (a.vec_x)
+        cp_async16(dst, src, in);
+      else
+        cp_async4(dst, src, in);
     }
   }
 
@@ -119,128 +377,38 @@ trim_conv2d_fused_kernel(const float* __restrict__ x, float* __restrict__ y,
     const float* in = (i & 1) ? buf1 : buf0;
     float* out = (i & 1) ? buf0 : buf1;
     const bool last = i == a.depth - 1;
-    const int cin = st.cin, cout = st.cout, k = st.k, s = st.stride;
-    const int ps = st.ps, pw = st.pw, pw2 = st.pw * st.pw;
-    const int tc = st.threads_cout;
-    const int tx = tid % tc, ty = tid / tc;
-    const int pthreads = kThreads / tc;
-    const int cpt = st.tile_cout / tc;
-    const int per_pass = pthreads * st.per_thread;
-    const int positions = st.pool_rows * st.pool_cols;
-    const int co_tiles = (cout + st.tile_cout - 1) / st.tile_cout;
-    const int gr0 = st.pool_row_start + strip * st.pool_row_step;
-    const int gc0 = st.pool_col_start + band * st.pool_col_step;
-
-    for (int cot = 0; cot < co_tiles; ++cot) {
-      for (int p0 = 0; p0 < positions; p0 += per_pass) {
-        // pooled positions p0 + ty + j * pthreads, j < held, each taking
-        // pw2 consecutive slots (its pool window, row-major)
-        const int left = positions - p0 - ty;
-        const int held = (ty < pthreads && left > 0)
-                             ? min(st.per_thread, (left + pthreads - 1) / pthreads)
-                             : 0;
-        const int slots = held * pw2;
-
-        float acc[kMaxSlots][kMaxCout];
-#pragma unroll
-        for (int m = 0; m < kMaxSlots; ++m)
-#pragma unroll
-          for (int j = 0; j < kMaxCout; ++j) acc[m][j] = 0.0f;
-
-        for (int ki = 0; ki < k; ++ki) {
-          for (int kj = 0; kj < k; ++kj) {
-            int off[kMaxSlots];
-#pragma unroll
-            for (int m = 0; m < kMaxSlots; ++m) {
-              int o = 0;  // idle slots read a valid address, never stored
-              if (m < slots) {
-                const int j = m / pw2, wm = m - j * pw2;
-                const int wi = wm / pw, wj = wm - wi * pw;
-                const int p = p0 + ty + j * pthreads;
-                const int pr = p / st.pool_cols, pc = p - pr * st.pool_cols;
-                const int r = (pr * ps + wi) * s + ki;
-                const int c = (pc * ps + wj) * s + kj;
-                o = (r * st.in_cols + c) * cin;
-              }
-              off[m] = o;
-            }
-            const float* wtap = st.w + (size_t)(ki * k + kj) * cin * cout;
-            for (int ci0 = 0; ci0 < cin; ci0 += kWeightChunk) {
-              const int nc = min(kWeightChunk, cin - ci0);
-              __syncthreads();  // previous chunk consumed; buffers written
-              for (int idx = tid; idx < nc * st.tile_cout; idx += kThreads) {
-                const int cc = idx / st.tile_cout, co = idx - cc * st.tile_cout;
-                const int cg = cot * st.tile_cout + co;
-                ws[idx] = cg < cout ? wtap[(size_t)(ci0 + cc) * cout + cg] : 0.0f;
-              }
-              __syncthreads();
-              if (slots > 0) {
-                for (int cc = 0; cc < nc; ++cc) {
-                  float wv[kMaxCout];
-#pragma unroll
-                  for (int j = 0; j < kMaxCout; ++j)
-                    wv[j] = j < cpt ? ws[cc * st.tile_cout + tx + j * tc] : 0.0f;
-#pragma unroll
-                  for (int m = 0; m < kMaxSlots; ++m) {
-                    if (m < slots) {
-                      const float xv = in[off[m] + ci0 + cc];
-#pragma unroll
-                      for (int j = 0; j < kMaxCout; ++j)
-                        if (j < cpt) acc[m][j] = fmaf(xv, wv[j], acc[m][j]);
-                    }
-                  }
-                }
-              }
-            }
-          }
-        }
-
-        // epilogue: + bias, activation, max over the pool window, mask
-        float mx[kMaxCout];
-#pragma unroll
-        for (int m = 0; m < kMaxSlots; ++m) {
-          if (m >= slots) continue;
-          const int j = m / pw2, wm = m - j * pw2;
-#pragma unroll
-          for (int jj = 0; jj < kMaxCout; ++jj) {
-            const int co = cot * st.tile_cout + tx + jj * tc;
-            if (jj >= cpt || co >= cout) continue;
-            float v = acc[m][jj];
-            if (st.b != nullptr) v = v + st.b[co];
-            v = activate(v, a.activation);
-            mx[jj] = wm == 0 ? v : fmaxf(mx[jj], v);
-          }
-          if (wm != pw2 - 1) continue;
-          const int p = p0 + ty + j * pthreads;
-          const int pr = p / st.pool_cols, pc = p - pr * st.pool_cols;
-          const int gr = gr0 + pr, gc = gc0 + pc;
-          const bool valid = gr >= 0 && gr < st.h_pool && gc >= 0 && gc < st.w_pool;
-#pragma unroll
-          for (int jj = 0; jj < kMaxCout; ++jj) {
-            const int co = cot * st.tile_cout + tx + jj * tc;
-            if (jj >= cpt || co >= cout) continue;
-            if (!last)
-              out[(pr * st.pool_cols + pc) * cout + co] = valid ? mx[jj] : 0.0f;
-            else if (valid)
-              y[(((size_t)img * st.h_pool + gr) * st.w_pool + gc) * cout + co] =
-                  mx[jj];
-          }
-        }
-      }
+    const bool vec = st.cin % 4 == 0 && st.in_pitch % 4 == 0;
+    if (st.pw == 3) {
+      if (vec)
+        run_stage<kPool3Positions, true>(st, last, a.activation, in, out, ws,
+                                         a.ring_cout, y, img, strip, band);
+      else
+        run_stage<kPool3Positions, false>(st, last, a.activation, in, out,
+                                          ws, a.ring_cout, y, img, strip,
+                                          band);
+    } else {
+      if (vec)
+        run_stage<kPositions, true>(st, last, a.activation, in, out, ws,
+                                    a.ring_cout, y, img, strip, band);
+      else
+        run_stage<kPositions, false>(st, last, a.activation, in, out, ws,
+                                     a.ring_cout, y, img, strip, band);
     }
-    __syncthreads();  // this stage's output complete, its input fully read
+    __syncthreads();  // this stage's output complete, its input and the
+                      // ring fully read
   }
 }
 
 // Unpack the host geometry (layout in trim_conv2d_fused below); returns
 // false for one the kernel cannot take.
-bool make_args(const void* const* wb, const int* g, int activation,
-               FusedArgs* a) {
+bool make_args(const float* x, const void* const* wb, const int* g,
+               int activation, FusedArgs* a) {
   a->n = g[0]; a->h = g[1]; a->w = g[2]; a->cin = g[3]; a->depth = g[4];
   a->n_strips = g[5]; a->n_bands = g[6]; a->buf0 = g[7]; a->buf1 = g[8];
-  a->wchunk = g[9]; a->activation = activation;
+  a->ring_cout = 0; a->activation = activation;
   if (a->depth < 1 || a->depth > kMaxStages || a->n < 1 || a->n_strips < 1 ||
-      a->n_bands < 1 || a->buf0 < 0 || a->buf1 < 0 || a->wchunk < 1)
+      a->n_bands < 1 || a->buf0 < 0 || a->buf1 < 0 || a->buf0 % 4 != 0 ||
+      a->buf1 % 4 != 0)
     return false;
   for (int i = 0; i < a->depth; ++i) {
     const int* f = g + kHeader + i * kStageFields;
@@ -255,26 +423,33 @@ bool make_args(const void* const* wb, const int* g, int activation,
     st.in_col_start = f[14]; st.in_col_step = f[15];
     st.pool_row_start = f[16]; st.pool_row_step = f[17];
     st.pool_col_start = f[18]; st.pool_col_step = f[19];
-    st.tile_cout = f[20]; st.threads_cout = f[21]; st.per_thread = f[22];
+    st.tile_cout = f[20]; st.in_pitch = f[21];
+    st.tcx = (st.tile_cout + kCout - 1) / kCout;
+    st.per_thread = st.pw < 1 ? 0
+                    : (st.pw == 3 ? kPool3Positions : kPositions) /
+                          (st.pw * st.pw);
+    st.vec_w = st.cout % 4 == 0 && st.tile_cout % 4 == 0 &&
+               (uintptr_t)st.w % 16 == 0;
     const int need_rows = ((st.pool_rows - 1) * st.ps + st.pw - 1) * st.stride + st.k;
     const int need_cols = ((st.pool_cols - 1) * st.ps + st.pw - 1) * st.stride + st.k;
-    const long long tile = (long long)st.in_rows * st.in_cols * st.cin;
+    const long long tile = (long long)st.in_rows * st.in_cols * st.in_pitch;
     if (st.w == nullptr || st.cin < 1 || st.cout < 1 || st.k < 1 ||
         st.stride < 1 || st.ps < 1 || st.pw < 1 || st.pool_rows < 1 ||
-        st.pool_cols < 1 || st.threads_cout < 1 || st.threads_cout > 32 ||
-        st.tile_cout % st.threads_cout != 0 ||
-        st.tile_cout / st.threads_cout > kMaxCout ||
-        st.tile_cout > a->wchunk || st.per_thread < 1 ||
-        st.per_thread * st.pw * st.pw > kMaxSlots ||
-        need_rows > st.in_rows || need_cols > st.in_cols ||
-        tile > (i % 2 ? a->buf1 : a->buf0))
+        st.pool_cols < 1 || st.tile_cout < 1 || st.tile_cout > kMaxTileCout ||
+        st.per_thread < 1 || st.in_pitch < st.cin || need_rows > st.in_rows ||
+        need_cols > st.in_cols || tile > (i % 2 ? a->buf1 : a->buf0))
       return false;
     if (i == 0 ? st.cin != a->cin
                : (st.cin != a->st[i - 1].cout ||
                   st.in_rows != a->st[i - 1].pool_rows ||
                   st.in_cols != a->st[i - 1].pool_cols))
       return false;
+    if (i > 0) a->st[i - 1].out_pitch = st.in_pitch;
+    if (kCout * st.tcx > a->ring_cout) a->ring_cout = kCout * st.tcx;
   }
+  a->st[a->depth - 1].out_pitch = 0;
+  a->vec_x = a->cin % 4 == 0 && a->st[0].in_pitch % 4 == 0 &&
+             (uintptr_t)x % 16 == 0;
   return true;
 }
 
@@ -286,16 +461,17 @@ extern "C" {
 // x: (n, h, w, cin) stage-0 input; y: (n, h_pool, w_pool, cout) of the last
 // stage.  wb: host array of 2 * depth device pointers (w0, b0, w1, b1, ...;
 // a bias may be null).  geom: host ints, kHeader of them (n, h, w, cin,
-// depth, n_strips, n_bands, buf0, buf1, wchunk), then kStageFields per stage
-// in StageArgs' order from cin to per_thread.  Launches on `stream` without
-// synchronising; returns cudaGetLastError(), or cudaErrorInvalidValue for a
-// geometry the kernel cannot take.
+// depth, n_strips, n_bands, buf0, buf1), then kStageFields per stage in
+// StageArgs' order from cin to in_pitch.  Launches on `stream`
+// without synchronising; returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a geometry the kernel cannot take.
 int trim_conv2d_fused(const float* x, float* y, const void* const* wb,
                       const int* geom, int activation, void* stream) {
   FusedArgs a;
-  if (!make_args(wb, geom, activation, &a)) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      ((size_t)a.buf0 + a.buf1 + (size_t)kWeightChunk * a.wchunk) * sizeof(float);
+  if (!make_args(x, wb, geom, activation, &a))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = ((size_t)a.buf0 + a.buf1 +
+                       (size_t)kStages * kChunk * a.ring_cout) * sizeof(float);
   if (smem > (size_t)kMaxSmemBytes) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       trim_conv2d_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -111,23 +111,29 @@ def trim_conv2d_fused_plain(x: torch.Tensor, weights, biases, *, group,
     return out[:, :lt.h_pool, :lt.w_pool].contiguous()
 
 
+# The layout of kernel_geometry: kHeader and kStageFields of the .cu file
+GEOM_HEADER = 9
+GEOM_STAGE_FIELDS = 22
+
+
 def kernel_geometry(group) -> list[int]:
     """The kernel's host geometry (``make_args`` in the ``.cu`` file):
-    the header, then per stage its problem, tile ranges and thread
-    layout."""
+    :data:`GEOM_HEADER` ints (the problem, the tiles and the buffers),
+    then :data:`GEOM_STAGE_FIELDS` per stage (its problem, tile ranges,
+    C_out tile and channel pitch).  The kernel derives each stage's
+    threads along C_out and positions a thread, and the weight ring's
+    row, from these."""
     s0 = group.stages[0]
     buf0, buf1 = group.buffer_elems
     geom = [group.n, s0.h_in, s0.w_in, s0.cin, group.depth, group.n_strips,
-            group.n_bands, buf0, buf1,
-            max(st.tile_cout for st in group.stages)]
+            group.n_bands, buf0, buf1]
     for st in group.stages:
         geom += [st.cin, st.cout, st.kernel, st.stride, st.pool_stride,
                  st.pool_window, st.h_pool, st.w_pool, st.in_rows,
                  st.in_cols, st.pool_rows, st.pool_cols, st.in_start,
                  st.in_step, st.in_col_start, st.in_col_step,
                  st.pool_start, st.pool_step, st.pool_col_start,
-                 st.pool_col_step, st.tile_cout, st.threads_cout,
-                 st.per_thread]
+                 st.pool_col_step, st.tile_cout, st.cin_pitch]
     return geom
 
 

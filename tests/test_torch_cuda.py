@@ -18,7 +18,9 @@ must repeat bitwise; the input gradient (the forward kernel on the
 dilated cotangent) and the autograd conv against the ``ref`` oracle.  The
 fused-group kernel is held against its plain version at the same
 tolerance, must repeat bitwise, and must equal the per-layer carry chain
-bitwise, forward and (through ``fused_group_apply``) backward.  The
+bitwise, forward and (through ``fused_group_apply``) backward, also at a
+tile of exactly 227 KB, with a ragged last pass, cout % 4 != 0 and
+cin = 3.  The
 flash-attention kernel is held against its plain version and the ``ref``
 oracle within 1e-5 * max|plain| (f32 sums in another order) on the CPU
 tests' geometries plus head dims 12, 14, 128 and 256 and the wide-head
@@ -298,11 +300,21 @@ def test_autograd_conv_matches_ref_oracle(cuda):
             TOL * want.abs().max().item()
 
 
+# Edge groups of the fused kernel's schedule, as in
+# tests/test_torch_fused.py: (layers, tile).  "limit": exactly 227 KB of
+# shared memory, a ragged last pass and C_out tile, cout % 4 != 0;
+# "cin3": cin = 3 (the scalar route) at VGG-16's conv1..conv2 widths.
+FUSED_EDGES = {
+    "limit": ([("e0", 20, 44, 60, 3, 1, 1), ("e1", 20, 60, 6, 3, 1, 1)],
+              (19, 20)),
+    "cin3": ([("v1", 32, 3, 64, 3, 1, 1), ("v2", 32, 64, 64, 3, 1, 1),
+              ("v3", 16, 64, 32, 3, 1, 1)], (2, 3)),
+}
 # Fused groups: (layers as ConvLayer args, activation, biases, tiles).
 # The CPU tests' chains (even pool, 'valid' strided stage with an
 # overlapping 3/2 pool and a pointwise stage, pool-free), a wide chain
-# whose C_out tiles and 32-channel weight chunks are ragged, and a
-# four-stage chain through two pools.
+# whose C_out tiles and weight ring stages are ragged, a four-stage chain
+# through two pools, and the edge groups at their tile and at 7 x 6.
 FUSED_CASES = [
     ([("c0", 12, 3, 4, 3, 1, 1), ("c1", 12, 4, 6, 3, 1, 1),
       ("c2", 6, 6, 8, 3, 1, 1)], "relu", True, [(1, 1), (2, 3), (6, 6)]),
@@ -315,7 +327,8 @@ FUSED_CASES = [
     ([("d0", 16, 8, 16, 3, 1, 1), ("d1", 8, 16, 32, 3, 1, 1),
       ("d2", 4, 32, 32, 3, 1, 1), ("d3", 4, 32, 64, 3, 1, 1)], None, True,
      [(1, 1), (2, 4)]),
-]
+] + [(spec, "relu", True, [tile, (7, 6)])
+     for spec, tile in FUSED_EDGES.values()]
 
 
 @pytest.mark.parametrize("case", FUSED_CASES,
@@ -351,6 +364,41 @@ def test_fused_kernel_matches_plain_and_the_per_layer_chain(cuda, case):
             TOL * max(1.0, plain.abs().max().item()), (t, b)
         assert torch.equal(one, two), (t, b)
         assert torch.equal(one, chain), (t, b)
+
+
+@pytest.mark.parametrize("name", sorted(FUSED_EDGES))
+def test_fused_edge_gradients_equal_the_per_layer_chain(cuda, name):
+    """The edge groups through ``fused_group_apply``: the forward equals
+    the per-layer chain bitwise, and so does every gradient (the backward
+    recomputes the chain)."""
+    from repro_torch.core.fuse_plan import build_group
+    from repro_torch.core.model import ConvLayer
+    from repro_torch.kernels import trim_conv2d_fused as tfu
+    spec, (t, b) = FUSED_EDGES[name]
+    topo = [ConvLayer(*a) for a in spec]
+    g = build_group(topo, 0, n=2, strip_rows=t, band_cols=b)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((2, topo[0].ifmap, topo[0].ifmap, topo[0].in_channels),
+                    generator=gen, device=cuda)
+    ws = [torch.randn((3, 3, l.in_channels, l.out_channels), generator=gen,
+                      device=cuda) / (3 * l.in_channels ** 0.5) for l in topo]
+    bs = [torch.randn((l.out_channels,), generator=gen, device=cuda)
+          for l in topo]
+    gy = torch.randn(g.out_shape, generator=gen, device=cuda)
+    d = len(topo)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, *ws, *bs)]
+        y = fn(leaves[0], leaves[1:1 + d], leaves[1 + d:], group=g)
+        return y, torch.autograd.grad(y, leaves, gy)
+
+    before = tc.LAUNCHES["fused"]
+    yf, fused = grads(tfu.fused_group_apply)
+    assert tc.LAUNCHES["fused"] == before + 1
+    yc, chain = grads(tfu.reference_chain)
+    assert torch.equal(yf, yc)
+    for a, c in zip(fused, chain):
+        assert torch.equal(a, c)
 
 
 def test_fused_group_gradients_equal_the_per_layer_chain(cuda):

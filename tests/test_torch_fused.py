@@ -16,13 +16,21 @@ the JAX ``init_params``, carried over by ``convert.params_from_jax``.
   per-layer chain, and within 1e-4 of ``jax.grad`` of the JAX
   ``reference_chain`` on ``impl="ref"`` (the JAX Pallas backward fails
   here too).
-* The plan: ``max_depth=1`` is per-layer; VGG-16 at 1/16 width fuses
-  under 227 KB with executed <= per-layer bytes; at full width no group
-  beats the per-layer kernel's bytes, and the plan fuses none.
+* The plan: ``max_depth=1`` is per-layer; VGG-16 at 1/16 width and at
+  full width fuses under 227 KB, each group moving no more bytes than its
+  layers' per-layer schedule.
+* The kernel's schedule: the ``constexpr``s of ``trim_conv2d_fused.cu``
+  equal their Python mirrors; ``kernel_geometry`` is read field by field
+  as ``make_args`` reads it; channel pitch, buffers and weight ring,
+  whole pool windows per thread, C_out tiles and passes (a ragged last
+  pass), bytes; a tile at exactly 227 KB, ``cout % 4 != 0`` and
+  ``cin = 3`` groups against the per-layer chain.
 """
 
 import dataclasses
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -60,6 +68,17 @@ CHAINS = {
 # (chain, strip_rows, band_cols); None is the full extent
 TILES = [(c, t, b) for c in CHAINS for t in (1, 2, None)
          for b in (1, 3, None)]
+# Edge groups of the kernel's schedule: (layers, tile).  "limit": its
+# shared memory is exactly 227 KB; a ragged last pass and a ragged C_out
+# tile in e0 (60 = 32 + 28), cout % 4 != 0 in e1.  "cin3": VGG-16's
+# conv1..conv2 at 32 x 32, cin = 3 (the scalar route) into a 2x2 pool.
+EDGES = {
+    "limit": ([("e0", 20, 44, 60, 3, 1, 1), ("e1", 20, 60, 6, 3, 1, 1)],
+              (19, 20)),
+    "cin3": ([("v1", 32, 3, 64, 3, 1, 1), ("v2", 32, 64, 64, 3, 1, 1),
+              ("v3", 16, 64, 32, 3, 1, 1)], (2, 3)),
+}
+CU = Path(tf.__file__).parent / "csrc" / "trim_conv2d_fused.cu"
 
 
 def _topos(name):
@@ -345,34 +364,37 @@ def test_max_depth_one_is_per_layer_execution(net):
 
 @pytest.mark.parametrize("n", [1, 8])
 def test_vgg16_plan_fuses_within_shared_memory(n):
-    """VGG-16 at 1/16 width (the JAX parity tests' model) fuses under
-    227 KB with executed <= per-layer bytes.  At full width no group moves
-    fewer bytes than the per-layer kernel's schedule (strips of up to 128
-    positions, each streaming the layer's weights once), so the plan runs
-    every layer on its own."""
+    """VGG-16 at 1/16 width (the JAX parity tests' model) and at full
+    width both fuse under 227 KB, every fused group moving no more bytes
+    than its layers' per-layer schedule.  At full width the plan fuses
+    conv1..conv2 at 8 x 16, at under a third of its layers' bytes, and
+    takes a conv3..conv4 tile of no more bytes than 4 x 8 (the fixed
+    tiles the smoke times)."""
     from repro_torch.core.netplan import scale_layers
-    plan = FusedGroupPlan.build(scale_layers(network_layers("vgg16"), 16),
-                                n=n)
-    assert plan.fused_groups, plan.describe()
-    assert sum(g.depth for g in plan.groups) == 13
-    for g in plan.fused_groups:
-        assert g.smem_bytes <= SMEM_PER_BLOCK
-        assert g.executed_flops >= g.flops
-        assert g.hbm_bytes()["total"] <= sum(
-            plan.layer_exec_bytes[g.start + i]["total"]
-            for i in range(g.depth))
-    assert plan.executed_hbm_bytes()["total"] <= plan.never_hbm_bytes()
-    full = FusedGroupPlan.build("vgg16", n=n)
-    assert not full.fused_groups, full.describe()
-    assert full.executed_hbm_bytes()["total"] == full.never_hbm_bytes()
-    for start, t, b in ((0, 8, 16), (2, 4, 8)):   # two-layer groups
-        g = build_group(network_layers("vgg16")[start:start + 2], start,
-                        n=n, strip_rows=t, band_cols=b,
-                        pools=infer_pools(network_layers("vgg16"))[
-                            start:start + 2])
-        assert g.smem_bytes <= SMEM_PER_BLOCK
-        assert g.hbm_bytes()["total"] > sum(
-            full.layer_exec_bytes[start + i]["total"] for i in range(2))
+    for topo in (scale_layers(network_layers("vgg16"), 16),
+                 network_layers("vgg16")):
+        plan = FusedGroupPlan.build(topo, n=n)
+        assert plan.fused_groups, plan.describe()
+        assert sum(g.depth for g in plan.groups) == 13
+        for g in plan.fused_groups:
+            assert g.smem_bytes <= SMEM_PER_BLOCK
+            assert g.executed_flops >= g.flops
+            assert g.hbm_bytes()["total"] <= sum(
+                plan.layer_exec_bytes[g.start + i]["total"]
+                for i in range(g.depth))
+        assert plan.executed_hbm_bytes()["total"] < plan.never_hbm_bytes()
+    full, pools = plan, infer_pools(network_layers("vgg16"))
+    pairs = [build_group(network_layers("vgg16")[s:s + 2], s, n=n,
+                        strip_rows=t, band_cols=b, pools=pools[s:s + 2])
+            for s, t, b in ((0, 8, 16), (2, 4, 8))]
+    first, second = full.groups[:2]
+    assert (first.label, first.strip_rows, first.band_cols) == (
+        "conv1..conv2", 8, 16)
+    assert 3 * pairs[0].hbm_bytes()["total"] < sum(
+        full.layer_exec_bytes[i]["total"] for i in range(2))
+    assert second.label == "conv3..conv4"
+    assert second.hbm_bytes()["total"] <= pairs[1].hbm_bytes()["total"]
+    assert all(g.smem_bytes <= SMEM_PER_BLOCK for g in pairs)
 
 
 def test_plan_picks_the_least_byte_tile_within_the_budget(monkeypatch):
@@ -423,18 +445,197 @@ def test_describe_lists_the_groups():
     assert text.count("|") == len(plan.groups) - 1
 
 
+def _make_args_fields(name):
+    """``make_args``'s reads of one array (``g`` header, ``f`` stage
+    fields): {field: index}."""
+    body = CU.read_text().split("bool make_args(")[1].split("\n}\n")[0]
+    who = "a->" if name == "g" else "st."
+    return {f: int(i) for f, i in re.findall(
+        rf"{re.escape(who)}(\w+) = {name}\[(\d+)\]", body)}
+
+
 def test_kernel_geometry_layout():
+    """``kernel_geometry`` against ``make_args`` of the ``.cu``, read
+    field by field: every header and stage field it reads holds the
+    plan's value, and the layout has no field it does not read; what
+    ``make_args`` derives (threads along C_out, positions a thread, the
+    ring's row) follows the plan's rules."""
     topo, _ = _topos("strided_valid")
     g = build_group(topo, 0, n=2, strip_rows=2, band_cols=3)
     geom = tf.kernel_geometry(g)
-    assert len(geom) == 10 + 23 * g.depth
-    assert geom[:7] == [2, 17, 17, 3, 3, g.n_strips, g.n_bands]
-    assert 4 * (geom[7] + geom[8] + 32 * geom[9]) == g.smem_bytes
+    hn, fn = tf.GEOM_HEADER, tf.GEOM_STAGE_FIELDS
+    assert len(geom) == hn + fn * g.depth
+    s0 = g.stages[0]
+    header = dict(n=g.n, h=s0.h_in, w=s0.w_in, cin=s0.cin, depth=g.depth,
+                  n_strips=g.n_strips, n_bands=g.n_bands,
+                  buf0=g.buffer_elems[0], buf1=g.buffer_elems[1])
+    read = _make_args_fields("g")
+    assert sorted(read.values()) == list(range(hn))
+    assert {f: geom[i] for f, i in read.items()} == header
+    plan_name = dict(k="kernel", ps="pool_stride", pw="pool_window",
+                     in_row_start="in_start", in_row_step="in_step",
+                     pool_row_start="pool_start", pool_row_step="pool_step",
+                     in_pitch="cin_pitch")
+    read = _make_args_fields("f")
+    assert sorted(read.values()) == list(range(fn))
     for i, st in enumerate(g.stages):
-        f = geom[10 + 23 * i:10 + 23 * (i + 1)]
-        assert f[:6] == [st.cin, st.cout, st.kernel, st.stride,
-                         st.pool_stride, st.pool_window]
-        assert f[-1] * st.pool_window ** 2 <= fuse_plan.FUSED_SLOTS
+        f = geom[hn + fn * i:hn + fn * (i + 1)]
+        for field, j in read.items():
+            assert f[j] == getattr(st, plan_name.get(field, field)), field
+        assert st.threads_cout == -(-st.tile_cout // fuse_plan.FUSED_COUT)
+        assert st.per_thread == (
+            fuse_plan.FUSED_POOL3_POSITIONS if st.pool_window == 3
+            else fuse_plan.FUSED_POSITIONS) // st.pool_window ** 2
+        assert st.in_rows * st.in_cols * st.cin_pitch <= \
+            g.buffer_elems[i % 2]
+    assert g.ring_cout == fuse_plan.FUSED_COUT * max(
+        st.threads_cout for st in g.stages)
+    assert 4 * (geom[7] + geom[8] + fuse_plan.FUSED_WEIGHT_STAGES
+                * fuse_plan.FUSED_WEIGHT_CHUNK * g.ring_cout) == g.smem_bytes
+
+
+def test_plan_constants_match_the_kernel():
+    """The namespace-scope ``constexpr``s of ``trim_conv2d_fused.cu``
+    against their Python mirrors (the plan's schedule and the wrapper's
+    geometry layout), so the two cannot drift; a new constant needs a
+    mirror here."""
+    found = {}
+    for name, expr in re.findall(r"^constexpr int (k\w+) = ([^;]+);",
+                                 CU.read_text(), re.M):
+        found[name] = eval(expr, {"__builtins__": {}}, dict(found))
+    assert found == {
+        "kThreads": fuse_plan.FUSED_THREADS,
+        "kMaxStages": fuse_plan.MAX_FUSED_STAGES,
+        "kPositions": fuse_plan.FUSED_POSITIONS,
+        "kPool3Positions": fuse_plan.FUSED_POOL3_POSITIONS,
+        "kCout": fuse_plan.FUSED_COUT,
+        "kMaxTileCout": fuse_plan.FUSED_MAX_TILE_COUT,
+        "kChunk": fuse_plan.FUSED_WEIGHT_CHUNK,
+        "kStages": fuse_plan.FUSED_WEIGHT_STAGES,
+        "kMaxSmemBytes": SMEM_PER_BLOCK,
+        "kHeader": tf.GEOM_HEADER,
+        "kStageFields": tf.GEOM_STAGE_FIELDS,
+    }
+
+
+def _edge_group(name, n=2):
+    spec, (t, b) = EDGES[name]
+    topo = [ConvLayer(*a) for a in spec]
+    return topo, build_group(topo, 0, n=n, strip_rows=t, band_cols=b)
+
+
+def test_channel_pitch_buffers_and_weight_ring():
+    _, g = _edge_group("limit")
+    e0, e1 = g.stages
+    assert (e0.cin_pitch, e1.cin_pitch) == (44 + 4, 60 + 4)
+    assert build_group(*_topos("same_pool")[:1], 0).stages[0].cin_pitch == 3
+    assert g.buffer_elems == tuple(
+        -(-st.in_rows * st.in_cols * st.cin_pitch // 4) * 4
+        for st in g.stages)
+    assert g.ring_cout == 4 * max(e0.threads_cout, e1.threads_cout) == 32
+    ring = fuse_plan.FUSED_WEIGHT_STAGES * fuse_plan.FUSED_WEIGHT_CHUNK \
+        * g.ring_cout
+    assert g.smem_bytes == 4 * (sum(g.buffer_elems) + ring)
+
+
+def test_a_tile_at_exactly_the_shared_memory_limit():
+    """The "limit" group takes exactly 227 KB and is planned (<=); one
+    row more does not fit, so the plan never picks a tile above it."""
+    topo, g = _edge_group("limit", n=1)
+    assert g.smem_bytes == SMEM_PER_BLOCK
+    assert build_group(topo, 0, n=1, strip_rows=20,
+                       band_cols=20).smem_bytes > SMEM_PER_BLOCK
+    best = FusedGroupPlan._tune_group(topo, infer_pools(topo), 0, 2, n=1)
+    assert best.smem_bytes <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("ps,pw,per_thread", [(1, 1, 8), (2, 2, 2),
+                                              (2, 3, 1), (4, 4, 0)])
+def test_whole_pool_windows_per_thread(ps, pw, per_thread):
+    """A thread holds whole pool windows: 8 conv outputs (8 positions,
+    two 2x2 windows) or one 3x3 window of 9; the kernel takes no larger
+    window, and no group with one is planned."""
+    h_pool = (16 - pw) // ps + 1 if pw > 1 else 16
+    topo = [ConvLayer("q0", 16, 4, 8, 3, 1, 1),
+            ConvLayer("q1", h_pool, 8, 8, 3, 1, 1)]
+    pools = [(ps, pw), (1, 1)]
+    st = build_group(topo, 0, pools=pools).stages[0]
+    assert st.per_thread == per_thread
+    slots = (fuse_plan.FUSED_POOL3_POSITIONS if pw == 3
+             else fuse_plan.FUSED_POSITIONS)
+    assert per_thread * pw ** 2 <= slots
+    if per_thread:
+        assert st.positions_per_pass == \
+            fuse_plan.FUSED_THREADS // st.threads_cout * per_thread
+    else:
+        assert FusedGroupPlan._tune_group(topo, pools, 0, 2, n=1) is None
+
+
+@pytest.mark.parametrize("case", ["vgg12", "vgg34", "limit"])
+def test_tile_cout_takes_the_fewest_pass_tiles(case):
+    """Each stage's C_out tile (of 128, 64, 32, capped at C_out) has the
+    fewest C_out tiles x passes, then the fewest passes; a pass holds
+    256 / threads_cout threads' whole pool windows, and the last may be
+    ragged."""
+    if case == "limit":
+        _, g = _edge_group("limit")
+    else:
+        s, t, b = (0, 8, 16) if case == "vgg12" else (2, 4, 8)
+        g = build_group(network_layers("vgg16")[s:s + 2], s, n=1,
+                        strip_rows=t, band_cols=b,
+                        pools=infer_pools(network_layers("vgg16"))[s:s + 2])
+    for st in g.stages:
+        positions = st.pool_rows * st.pool_cols
+
+        def cost(tc):
+            ppp = fuse_plan.FUSED_THREADS // -(-tc // 4) * st.per_thread
+            return -(-st.cout // tc) * -(-positions // ppp), \
+                -(-positions // ppp)
+        cands = {min(st.cout, c) for c in (128, 64, 32)}
+        assert cost(st.tile_cout) == min(map(cost, cands))
+        assert st.passes == -(-positions // st.positions_per_pass)
+    want = {"vgg12": [64, 32], "vgg34": [128, 64], "limit": [32, 6]}[case]
+    assert [st.tile_cout for st in g.stages] == want
+    if case == "limit":   # 21 x 22 positions in passes of 256
+        e0 = g.stages[0]
+        assert (e0.positions_per_pass, e0.passes) == (256, 2)
+        assert e0.pool_rows * e0.pool_cols % e0.positions_per_pass
+
+
+def test_bytes_are_the_kernels_schedule():
+    g = build_group(network_layers("vgg16")[:2], 0, n=2, strip_rows=8,
+                    band_cols=16, pools=infer_pools(
+                        network_layers("vgg16"))[:2])
+    b = g.hbm_bytes()
+    s0, lt = g.stages[0], g.last
+    assert b["input"] == 4 * g.n_tiles * s0.in_rows * s0.in_cols * s0.cin
+    assert b["weights"] == g.n_tiles * sum(st.passes * st.weight_bytes
+                                           for st in g.stages)
+    assert b["output"] == 4 * 2 * 112 * 112 * 64
+    assert b["total"] == b["input"] + b["weights"] + b["output"]
+
+
+@pytest.mark.parametrize("name", sorted(EDGES))
+def test_edge_groups_match_the_per_layer_chain(name):
+    """The edge groups at their tiles against the JAX package's
+    ``reference_chain`` (its per-layer chain on the Pallas carry kernel,
+    interpret mode) on the same inputs."""
+    topo, g = _edge_group(name)
+    jtopo = [JConvLayer(*a) for a in EDGES[name][0]]
+    rng = np.random.default_rng(7)
+    s0 = g.stages[0]
+    x = rng.standard_normal((2, s0.h_in, s0.w_in, s0.cin)).astype(np.float32)
+    ws = [(rng.standard_normal(st.weight_shape)
+           / np.sqrt(9 * st.cin)).astype(np.float32) for st in g.stages]
+    bs = [rng.standard_normal(st.cout).astype(np.float32)
+          for st in g.stages]
+    got = tf.fused_group_apply(torch.from_numpy(x), _torch(ws), _torch(bs),
+                               group=g)
+    want = jreference(jnp.asarray(x), [jnp.asarray(w) for w in ws],
+                      [jnp.asarray(b) for b in bs],
+                      group=jbuild_group(jtopo, 0, n=2))
+    assert guard.events() == [], "JAX side fell back from the Pallas kernel"
+    _close(got.numpy(), np.asarray(want))
 
 
 # ---------------------------------------------------------------------------
