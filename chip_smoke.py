@@ -24,7 +24,15 @@ Phases, each raising on failure (each prints its seconds):
    f32 terms taken in another order), carry == halo bitwise, and each
    one's time and TFLOP/s and the plan's blocks beside the plain
    version's and ``F.conv2d``'s (TF32 off) times and the card's bound;
-4. backward kernel check — at the same 15 shapes: the weight-gradient
+4. int8 kernel check — the int8 kernel (``csrc/trim_conv2d_q8.cu``,
+   carry and halo) at the same 15 shapes at batch 8 and 1, on int8 data
+   with a nonzero zero point as the 'same' padding: bitwise equal to its
+   plain version and carry == halo bitwise, the quantize pass of an f32
+   input on the card bitwise equal to the CPU's; each one's time, TOPS
+   and blocks beside the plain version's, ``F.conv2d``'s in f32 (TF32
+   off; context: no PyTorch call computes the int8 function) and the
+   bound (operations at 1,979 TOPS, int8 in and f32 out at 3.35 TB/s);
+5. backward kernel check — at the same 15 shapes: the weight-gradient
    kernel against its plain version within 1e-4 * max|plain| (see
    ``WGRAD_TOLERANCE``), two launches bitwise equal, and its time beside
    the plain version's, ``torch.nn.grad.conv2d_weight``'s (TF32 off) and
@@ -32,7 +40,7 @@ Phases, each raising on failure (each prints its seconds):
    to the plan's ``WGRAD_BLOCKS_PER_SM``; the input gradient (the carry
    kernel on the dilated cotangent) against the plain forward on the
    same padded cotangent, within the forward's tolerance;
-5. fused kernel check — full-width VGG-16's two-layer groups
+6. fused kernel check — full-width VGG-16's two-layer groups
    conv1..conv2 (tile 8 x 16) and conv3..conv4 (4 x 8) at fixed tiles, every
    group the plan picks for full-width VGG-16 (its description is
    printed) and for VGG-16 at 1/16 width (``fused_topo``; at least one
@@ -47,7 +55,7 @@ Phases, each raising on failure (each prints its seconds):
    off; no single PyTorch call computes a group) and the bound, with the
    plan's executed and per-layer bytes; the fused kernel's registers and
    spill as ptxas reports them;
-6. serve — full-width VGG-16 (1000 classes, seeded random weights) served
+7. serve — full-width VGG-16 (1000 classes, seeded random weights) served
    through ``ServingEngine`` on buckets (1, 2, 4, 8): a seeded Poisson
    trace on the carry kernel, then part of it on the halo kernel and
    with ``fused=True`` (the plan's fused groups, the rest per layer);
@@ -58,7 +66,16 @@ Phases, each raising on failure (each prints its seconds):
    group of its bucket's plan and the carry kernel for the other
    layers; one image's logits must agree with the ``impl="ref"``
    oracle;
-7. train — full-width VGG-16 (224x224, 1000 classes, seeded weights and
+8. serve[int8] — the same full-width VGG-16, each conv calibrated to int8
+   (``layers.calibrate_conv2d``) on its input in the f32 forward over 8
+   seeded images, served through ``ServingEngine`` on buckets (1, 2, 4,
+   8) on the int8 kernel: the carry trace, then part of it on halo;
+   every row bit-matches ``forward_one`` (halo rows the carry rows too),
+   a forward launches the int8 kernel 13 times and no f32 conv kernel,
+   one image's logits equal the ``impl="ref"`` int8 chain
+   (``conv2d_quantized`` a layer) bitwise; the logits' max deviation
+   from the f32 model's and the top-1 agreement are printed;
+9. train — full-width VGG-16 (224x224, 1000 classes, seeded weights and
    data, batch 8): the step-1 gradient of every leaf against autograd of
    ``impl="ref"`` on the kernels' branch (``branch_matched_oracle``)
    within ``GRAD_TOLERANCE``, then 6 AdamW steps of
@@ -67,15 +84,15 @@ Phases, each raising on failure (each prints its seconds):
    weight-gradient calls, a finite loss, and step 1 run again from the
    same state giving bitwise equal parameters; ms per step and peak
    device memory;
-8. train[fused] — one VGG-16/16 AdamW step (batch 8) with ``fused=True``
+10. train[fused] — one VGG-16/16 AdamW step (batch 8) with ``fused=True``
    and the same step per layer from the same state: gradients and the
    parameters after it bitwise equal, with 25 carry, 13 weight-gradient
    and one fused launch per fused group (the backward recomputes each
    group per layer);
-9. trainer — ``launch.train_cnn.train`` at the example's settings (50
+11. trainer — ``launch.train_cnn.train`` at the example's settings (50
    steps, batch 16): the mean of the last five losses below the first
    five's minus 0.1;
-10. attention kernel check — the flash-attention kernel against its plain
+12. attention kernel check — the flash-attention kernel against its plain
    version (``ATTN_TOLERANCE``) at (a) the LM prefill's shape, B=2,
    L=4096, Hq=16, Hkv=2, D=128, causal; (b) a 17-query continuation of
    4096 keys; (c) recurrentgemma-2b's geometry, Hq=10, Hkv=1, D=256,
@@ -86,7 +103,7 @@ Phases, each raising on failure (each prints its seconds):
    cores for D <= 256, f32 FFMA above) and the FFMA one, and for (a)
    ``F.scaled_dot_product_attention`` (the yardstick; the port never
    calls it);
-11. LM prefill — full-width qwen2.5-3b (36 layers, 3.4 B parameters drawn
+13. LM prefill — full-width qwen2.5-3b (36 layers, 3.4 B parameters drawn
    on the card) through ``steps.make_prefill_step`` on 2 x 4096 seeded
    tokens, reduced from the JAX ``prefill_32k`` plan (32 x 32768, whose
    f32 logits alone would take 637 GB): with ``attn_impl="flash"``
@@ -101,12 +118,12 @@ Phases, each raising on failure (each prints its seconds):
    f32 ref's (the f32 error both carry at logits of |s| ~ 2000), and
    (iii) the logits and next tokens of the depth-1 cut of the same model
    (``LM_TOLERANCE``);
-12. LM serve — ``launch.serve.serve_batch`` at full width, batch 4, prompt
+14. LM serve — ``launch.serve.serve_batch`` at full width, batch 4, prompt
    16, gen 32: tokens/s; the decode path (KV caches, ``decode_attention``,
    no kernel) against the flash prefill, position by position, on a
    256-token prompt at the depth-1 cut (checked, ``LM_TOLERANCE``) and at
    the serve prompt's last position at full depth (printed);
-13. conv1d kernel check — the causal depthwise conv1d kernel against its
+15. conv1d kernel check — the causal depthwise conv1d kernel against its
    plain version and the ``ref`` oracle, bit for bit, at falcon-mamba-7b's
    prefill shape (B 2, L 2048, D 8192, K 4), contiguous and as the mixer's
    strided half of the in-projection, and at edge cases (runs that do not
@@ -116,7 +133,7 @@ Phases, each raising on failure (each prints its seconds):
    input laid out (B, D, L) (TF32 off) and the plan's bound, and the
    bytes the function must move beside those the kernel's schedule moves
    (the runs' re-read halos priced, ``Conv1dPlan.hbm_bytes``);
-14. mamba prefill — full-width falcon-mamba-7b (64 layers, 7.27 B
+16. mamba prefill — full-width falcon-mamba-7b (64 layers, 7.27 B
    parameters drawn on the card, after qwen2.5-3b's are freed) through
    ``steps.make_prefill_step`` on 2 x 2048 seeded tokens: exactly 64
    ``trim_conv1d`` launches a forward, finite logits, ms per forward, peak
@@ -127,10 +144,10 @@ Phases, each raising on failure (each prints its seconds):
    decode (``api.decode``), the logits at every position (checked,
    ``MAMBA_TOLERANCE``), at the depth-1 and depth-2 cuts on a 128-token
    prompt and at full depth on the 64-token one;
-15. mamba serve — ``serve_batch`` at full width, batch 4, prompt 16, gen
+17. mamba serve — ``serve_batch`` at full width, batch 4, prompt 16, gen
    32, through the conv windows and SSM states: tokens/s, ms per decode
    step and the step's device-busy share (``torch.profiler``);
-16. the kernel JSON line (six kernels), then ``{"ok": true, "device":
+18. the kernel JSON line (eight kernels), then ``{"ok": true, "device":
    ...}`` last.
 
 Exits non-zero without a result when no GPU is visible.
@@ -150,6 +167,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12      # H100 SXM: f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12    # H100 SXM: TF32 tensor cores, dense
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM: HBM3
+PEAK_INT8_OPS = 1979e12     # H100 SXM: int8 tensor cores, dense
+# __dp4a on the integer pipes: 132 SMs x 64 lanes x 4 MACs x 2 ops x
+# 1.98 GHz (the int8 kernel's own ceiling, printed beside the bound)
+PEAK_DP4A_OPS = 132 * 64 * 4 * 2 * 1.98e9
 TOLERANCE = 1e-4            # of max(1, max|plain|); see the docstring
 # Weight gradient: of max|plain|.  Each dw element sums N*H_out*W_out
 # products (up to 8 * 224^2 = 401,408 at conv2); the kernel takes them as
@@ -236,6 +257,12 @@ class Phases:
 
     def total(self) -> None:
         print(f"phases total: {time.perf_counter() - self.t0:.2f} s")
+
+
+def launch_counts(**nonzero) -> dict:
+    """Every key of the conv kernels' ``LAUNCHES``, 0 unless given."""
+    from repro_torch.kernels import trim_conv2d as tc
+    return {**dict.fromkeys(tc.LAUNCHES, 0), **nonzero}
 
 
 def card() -> str:
@@ -386,6 +413,113 @@ def check_kernels(torch, n: int = 8):
           f"{sum(r['plain'] for r in vgg):.3f} ms, F.conv2d "
           f"{sum(r['library'] for r in vgg):.3f} ms, bound "
           f"{sum(r['bound'] for r in vgg):.3f} ms")
+    return rows
+
+
+def check_q8_kernels(torch, n: int = 8):
+    """The int8 kernel (carry and halo) against its plain version at the
+    kernel check's 15 shapes at batch ``n``: bitwise equal (exact int32
+    sums, one int32 add and one f32 multiply in both), carry == halo
+    bitwise, and the quantize pass of an f32 input of the same shape on
+    the card equal to the CPU's bit for bit; each one's time, TOPS and
+    blocks beside the plain version's, ``F.conv2d``'s in f32 (TF32 off,
+    context only: no PyTorch call computes an int8 conv with int32
+    accumulation) and the bound (operations at the int8 tensor-core rate,
+    bytes int8 in and f32 out)."""
+    import torch.nn.functional as F
+    from repro_torch.core.conv_plan import ConvPlan
+    from repro_torch.kernels.ref import conv_pads, pad_nhwc, quantize_int8
+    from repro_torch.kernels.trim_conv2d import (pack_q8_weights,
+                                                 trim_conv2d_q8,
+                                                 trim_conv2d_q8_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(100 + n)
+    rows = []
+    print(f"int8 kernel check, batch {n} (relu, int32 bias, 'same' padded "
+          "with the zero point; times in ms, device events; blocks "
+          "carry/halo; tile T x W x C_out):")
+    print(f"  {'case':10s} {'max_err':>7s} {'c==h':>5s} {'quant':>5s} "
+          f"{'carry':>8s} {'halo':>8s} {'plain':>8s} {'F.c f32':>8s} "
+          f"{'bound':>8s} by    {'TOPS c':>6s} {'TOPS h':>6s} "
+          f"{'blocks':>10s} tile")
+    for name, xs, wsh, stride, groups in kernel_cases(n):
+        k, cout = wsh[0], wsh[3]
+        xf = torch.randn(xs, generator=gen, device="cuda")
+        x_scale = torch.tensor(float(xf.abs().max()) / 127.0, device="cuda")
+        zp = int(torch.randint(-20, 21, (), generator=gen, device="cuda"))
+        x = quantize_int8(xf, x_scale, zp)
+        if not torch.equal(x.cpu(), quantize_int8(xf.cpu(), x_scale.cpu(),
+                                                  zp)):
+            raise AssertionError(f"q8 {name} n={n}: the quantize pass on "
+                                 "the card differs from the CPU's")
+        w = torch.randint(-127, 128, wsh, generator=gen, device="cuda",
+                          dtype=torch.int8)
+        bias_q = torch.randint(-2 ** 20, 2 ** 20, (cout,), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        scale = torch.rand((cout,), generator=gen, device="cuda") * 1e-3
+        wp = pack_q8_weights(w)
+        pads = conv_pads(xs[1], xs[2], k, stride, "same")
+        kw = dict(zero_point=zp, stride=stride, pad=pads, groups=groups,
+                  activation="relu")
+        plain = trim_conv2d_q8_plain(x, w, bias_q, scale, **kw)
+        carry = trim_conv2d_q8(x, w, bias_q, scale, w_packed=wp, **kw)
+        halo = trim_conv2d_q8(x, w, bias_q, scale, w_packed=wp,
+                              dataflow="halo", **kw)
+        torch.cuda.synchronize()
+        err = max((carry - plain).abs().max().item(),
+                  (halo - plain).abs().max().item())
+        if not torch.equal(carry, plain):
+            raise AssertionError(f"q8 {name} n={n}: carry differs from the "
+                                 f"plain version (max|diff| {err})")
+        if not torch.equal(carry, halo):
+            raise AssertionError(f"q8 {name} n={n}: carry and halo differ "
+                                 "bitwise")
+        xp = pad_nhwc(xf, pads).permute(0, 3, 1, 2)
+        wl = torch.randn(wsh, generator=gen, device="cuda").permute(
+            3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        bf = torch.randn((cout,), generator=gen, device="cuda")
+        t = {
+            "carry": time_ms(torch, lambda: trim_conv2d_q8(
+                x, w, bias_q, scale, w_packed=wp, **kw)),
+            "halo": time_ms(torch, lambda: trim_conv2d_q8(
+                x, w, bias_q, scale, w_packed=wp, dataflow="halo", **kw)),
+            "plain": time_ms(torch, lambda: trim_conv2d_q8_plain(
+                x, w, bias_q, scale, **kw), reps=3),
+            # context only: the f32 conv of the same shape, one call
+            "f32_library": time_ms(torch, lambda: F.conv2d(
+                xp, wl, bf, stride=stride, groups=groups)),
+        }
+        plan = ConvPlan.build(xs, wsh, stride=stride, pad=pads,
+                              groups=groups, dtype_bytes=1)
+        halo_plan = ConvPlan.build(xs, wsh, stride=stride, pad=pads,
+                                   groups=groups, dataflow="halo",
+                                   dtype_bytes=1)
+        ops_ms = plan.flops / PEAK_INT8_OPS * 1e3
+        bytes_ms = plan.min_bytes() / PEAK_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        rows.append(dict(name=name, err=err, bound=bound, by=by,
+                         ops_ms=ops_ms, bytes_ms=bytes_ms, ops=plan.flops,
+                         vgg=name.startswith("conv"), **t))
+        print(f"  {name:10s} {err:7.1e} {'True':>5s} {'True':>5s} "
+              f"{t['carry']:8.3f} {t['halo']:8.3f} {t['plain']:8.3f} "
+              f"{t['f32_library']:8.3f} {bound:8.4f} {by:5s} "
+              f"{plan.flops / t['carry'] / 1e9:6.2f} "
+              f"{plan.flops / t['halo'] / 1e9:6.2f} "
+              f"{plan.blocks:>5d}/{halo_plan.blocks:<4d} "
+              f"{plan.th_out}x{plan.tile_w}x{plan.tile_cout}")
+        del xf, x, w, wp, plain, carry, halo, xp, wl
+    torch.cuda.empty_cache()
+    vgg = [r for r in rows if r["vgg"]]
+    ops = sum(r["ops"] for r in vgg)
+    print(f"int8 kernel check, batch {n}, sum of the 13 VGG-16 layers: "
+          f"carry {sum(r['carry'] for r in vgg):.3f} ms "
+          f"({ops / sum(r['carry'] for r in vgg) / 1e9:.1f} TOPS), halo "
+          f"{sum(r['halo'] for r in vgg):.3f} ms, plain "
+          f"{sum(r['plain'] for r in vgg):.3f} ms, F.conv2d f32 "
+          f"{sum(r['f32_library'] for r in vgg):.3f} ms, bound "
+          f"{sum(r['bound'] for r in vgg):.4f} ms ({ops / 1e9:.1f} GOP; "
+          f"at the __dp4a peak {ops / PEAK_DP4A_OPS * 1e3:.3f} ms)")
     return rows
 
 
@@ -842,7 +976,7 @@ def timed_train_steps(torch, model, state, cfg, batches, log=False):
     from repro_torch.kernels import trim_conv2d as tc
     from repro_torch.launch.train_cnn import train_step
     params, moments = state
-    launches, times = {"carry": 0, "halo": 0, "wgrad": 0, "fused": 0}, []
+    launches, times = launch_counts(), []
     for i, (x, y) in enumerate(batches):
         tc.reset_launch_counts()
         t0 = time.perf_counter()
@@ -851,7 +985,7 @@ def timed_train_steps(torch, model, state, cfg, batches, log=False):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         step = dict(tc.LAUNCHES)
-        if step != {"carry": 25, "halo": 0, "wgrad": 13, "fused": 0}:
+        if step != launch_counts(carry=25, wgrad=13):
             raise AssertionError(f"train step {i}: launches {step}, want "
                                  "25 carry (13 forward + 12 input "
                                  "gradients) and 13 wgrad")
@@ -952,8 +1086,7 @@ def train_fused(torch):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     launches = dict(tc.LAUNCHES)
-    want = {"carry": 25, "halo": 0, "wgrad": 13,
-            "fused": len(plan.fused_groups)}
+    want = launch_counts(carry=25, wgrad=13, fused=len(plan.fused_groups))
     if launches != want:
         raise AssertionError(f"train[fused]: launches {launches}, want "
                              f"{want} (fused forward, per-layer recompute "
@@ -976,7 +1109,9 @@ def serve(n_requests, dataflow, model, xs, expect=None, fused=False,
     """Replay a seeded Poisson trace through the serving engine on one
     dataflow (or fused groups); return (results, launch counts, forwards,
     latency summary).  Rows are held against ``forward_one`` (unless ``expect``
-    is given and the run is not fused) and against ``expect``."""
+    is given and the run is not fused) and against ``expect``.  A model
+    with calibrated layers counts its per-layer launches under the int8
+    kernel's key (``q8_carry`` / ``q8_halo``)."""
     from repro_torch.core.fuse_plan import FusedGroupPlan
     from repro_torch.core.serving import ServingEngine, replay
     from repro_torch.kernels import trim_conv2d as tc
@@ -985,7 +1120,9 @@ def serve(n_requests, dataflow, model, xs, expect=None, fused=False,
 
     topo = model.layers_list
     label = label or ("fused" if fused else dataflow)
-    served = TrimCNN(topo, model.tree(), dataflow=dataflow)
+    tree = model.tree()
+    key = ("q8_" if "packed" in tree["conv0"] else "") + dataflow
+    served = TrimCNN(topo, tree, dataflow=dataflow)
     engine = ServingEngine.for_topology(topo, served, buckets=(1, 2, 4, 8),
                                         device="cuda", fused=fused)
     t0 = time.perf_counter()
@@ -1003,12 +1140,12 @@ def serve(n_requests, dataflow, model, xs, expect=None, fused=False,
     if rejected or len(results) != n_requests:
         raise AssertionError(f"served {len(results)}/{n_requests}, "
                              f"rejected {rejected}")
-    want = {"carry": 0, "halo": 0, "wgrad": 0, "fused": 0}
+    want = launch_counts()
     for bucket, count in st["bucket_batches"].items():
         groups = (FusedGroupPlan.build(topo, n=bucket).fused_groups
                   if fused else ())
         want["fused"] += count * len(groups)
-        want[dataflow] += count * (len(topo) - sum(g.depth for g in groups))
+        want[key] += count * (len(topo) - sum(g.depth for g in groups))
     if launches != want:
         raise AssertionError(f"serve[{label}]: launches {launches} for "
                              f"{forwards} forwards, want {want}")
@@ -1037,6 +1174,70 @@ def serve(n_requests, dataflow, model, xs, expect=None, fused=False,
                                          ("the carry rows",
                                           expect is not None)) if on))
     return results, launches, forwards, s
+
+
+def calibrate_vgg16(torch, model, images):
+    """Calibrate every conv layer of ``model`` (f32, on the card) on its
+    input in the f32 network's forward over ``images``, layer by layer
+    (``layers.calibrate_conv2d``, as a user of the JAX package would);
+    returns the tree with ``{"packed"}`` conv entries and the f32 head."""
+    from repro_torch.core.netplan import infer_pools
+    from repro_torch.models.layers import _apply_layer_range, calibrate_conv2d
+    topo, tree = model.layers_list, model.tree()
+    pools = list(infer_pools(topo))
+    q8 = {"head": tree["head"]}
+    h = torch.from_numpy(images).cuda()
+    with torch.no_grad():
+        for i, layer in enumerate(topo):
+            q8[f"conv{i}"] = calibrate_conv2d(tree[f"conv{i}"], h,
+                                              groups=layer.groups)
+            h = _apply_layer_range(tree, topo, pools, h, i, i + 1,
+                                   activation="relu", impl="trim",
+                                   dataflow=None)
+    return q8
+
+
+def serve_q8(torch, model, xs, f32_rows):
+    """Full-width VGG-16 calibrated to int8 (8 seeded images), served on
+    the int8 kernel: the carry trace and part of it on halo (rows bitwise
+    equal to ``forward_one`` and halo's to carry's, 13 int8 launches a
+    forward and no f32 conv launch), one image's logits bitwise equal to
+    the ``impl="ref"`` int8 chain (``conv2d_quantized`` a layer); prints
+    the logits' deviation from the f32 model and the top-1 agreement.
+    Returns the launch counts and forwards of both runs."""
+    from repro_torch.core.model import vgg16_layers
+    from repro_torch.models.layers import TrimCNN
+
+    calib = np.random.default_rng(7).standard_normal(
+        (8, 224, 224, 3)).astype(np.float32)
+    t0 = time.perf_counter()
+    qmodel = TrimCNN(vgg16_layers(), calibrate_vgg16(torch, model, calib))
+    pk = qmodel.tree()["conv1"]["packed"]
+    print(f"serve[int8]: calibrated 13 layers on 8 images in "
+          f"{time.perf_counter() - t0:.2f} s (conv1: input scale "
+          f"{float(pk.input_scale):.6g}, zero point {pk.zp})")
+    rows, launches, fw, _ = serve(REQUESTS, "carry", qmodel, xs,
+                                  label="int8 carry")
+    _, halo_launches, halo_fw, _ = serve(HALO_REQUESTS, "halo", qmodel, xs,
+                                         expect=rows, label="int8 halo")
+    with torch.inference_mode():
+        oracle = TrimCNN(vgg16_layers(), qmodel.tree(), impl="ref")(
+            torch.from_numpy(xs[:1]).cuda()).cpu().numpy()[0]
+    if not np.array_equal(oracle, rows[0]):
+        raise AssertionError("serve[int8]: request 0 logits differ from "
+                             "the impl='ref' int8 chain: max|diff| "
+                             f"{np.abs(oracle - rows[0]).max()}")
+    q8 = np.stack([rows[i] for i in range(REQUESTS)])
+    f32 = np.stack([f32_rows[i] for i in range(REQUESTS)])
+    if not np.isfinite(q8).all():
+        raise AssertionError("serve[int8]: non-finite logits")
+    dev = float(np.abs(q8 - f32).max() / np.abs(f32).max())
+    top1 = float(np.mean(q8.argmax(1) == f32.argmax(1)))
+    print(f"serve[int8]: request 0 logits bitwise equal to the "
+          f"impl='ref' int8 chain; logits vs the f32 model over "
+          f"{REQUESTS} requests: max|q8 - f32| / max|f32| = {dev:.4e}, "
+          f"top-1 agreement {top1:.3f}")
+    return launches, fw, halo_launches, halo_fw
 
 
 def attention_cases():
@@ -1714,6 +1915,9 @@ def main() -> int:
     rows = check_kernels(torch, 8)
     rows1 = check_kernels(torch, 1)
     phase.done("kernel check")
+    qrows = check_q8_kernels(torch, 8)
+    qrows1 = check_q8_kernels(torch, 1)
+    phase.done("int8 kernel check")
     brows = check_backward_kernels(torch)
     phase.done("backward kernel check")
     frows = check_fused(torch)
@@ -1750,9 +1954,12 @@ def main() -> int:
     print(f"serve: request 0 logits vs impl='ref' oracle: max|diff| "
           f"{diff:.3e} <= {lim:.1e}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase.done("serve")
+    q8_launches, q8_fw, q8_halo_launches, q8_halo_fw = serve_q8(
+        torch, model, xs, carry_rows)
     del model
     torch.cuda.empty_cache()
-    phase.done("serve")
+    phase.done("serve[int8]")
 
     train_launches = train_vgg16(torch)
     phase.done("train")
@@ -1808,6 +2015,27 @@ def main() -> int:
             "bound_ms": sum(r["bound"] for r in vgg),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": sum(r["library"] for r in vgg),
+        })
+    qvgg = [r for r in qrows if r["vgg"]]
+    ops_ms = sum(r["ops_ms"] for r in qvgg if r["by"] == "operations")
+    bytes_ms = sum(r["bytes_ms"] for r in qvgg if r["by"] == "bytes")
+    for df, launches, src_line in (
+            ("carry", q8_launches["q8_carry"], 127),
+            ("halo", q8_halo_launches["q8_halo"], 162)):
+        kernels.append({
+            "name": f"trim_conv2d_q8_{df}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/trim_conv2d_q8.cu",
+            "replaces": f"src/repro/kernels/trim_conv2d.py:{src_line}",
+            "launches": launches,
+            "max_abs_err": max(r["err"] for r in qrows + qrows1),
+            "ms": sum(r[df] for r in qvgg),
+            "plain_ms": sum(r["plain"] for r in qvgg),
+            "bound_ms": sum(r["bound"] for r in qvgg),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            # no PyTorch call computes an int8 conv with int32
+            # accumulation; F.conv2d in f32 is printed as context
+            "library_ms": None,
         })
     bvgg = [r for r in brows if r["vgg"]]
     ops_ms = sum(r["ops_ms"] for r in bvgg if r["by"] == "operations")
@@ -1888,6 +2116,13 @@ def main() -> int:
           f"one launch at case (a), the prefill's shape (one layer); its "
           f"launches are the {lm['launches']} of the two timed full-width "
           f"prefill forwards")
+    qvgg1 = [r for r in qrows1 if r["vgg"]]
+    print(f"int8 kernel times: sums over the 13 VGG-16 layers at batch 8 "
+          f"(batch 1: carry {sum(r['carry'] for r in qvgg1):.3f} ms, halo "
+          f"{sum(r['halo'] for r in qvgg1):.3f} ms); F.conv2d in f32 "
+          f"{sum(r['f32_library'] for r in qvgg):.3f} ms at batch 8 "
+          f"(context, not the same function); launches from int8 serving "
+          f"({q8_fw} carry forwards, {q8_halo_fw} halo forwards)")
     vgg1 = [r for r in rows1 if r["vgg"]]
     print(f"kernel times at batch 1, sums over the 13 VGG-16 layers: carry "
           f"{sum(r['carry'] for r in vgg1):.3f} ms, halo "

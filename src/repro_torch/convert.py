@@ -9,12 +9,21 @@ leading layer axis — ``wq (L, d, h, hd)``, ``wo (L, h, hd, d)``, ... —
 conv_w, conv_b, w_x, w_dt, dt_bias, a_log, d_skip, w_out}`` and
 ``blocks.ln``) — already converted to numpy arrays
 (``jax.tree.map(np.asarray, params)``), and returns the same tree as
-float32 tensors, keys, nesting and layouts unchanged: the ``params`` of
+tensors, keys, nesting and layouts unchanged (floating leaves as float32,
+integer leaves in their own dtype): the ``params`` of
 ``models.layers.TrimCNN``, of the functional ``*_apply`` forwards and of
 ``models.api``, whose LM keeps the JAX layout for exactly this reason.
 ``moments_from_jax`` does the same for AdamW's ``{"mu", "nu"}`` state.
 Both packages then compute the same function and take the same optimiser
 step, which is what the parity tests compare.
+
+A calibrated conv entry of the JAX package, ``{"packed":
+PackedConv2dWeights}`` with its quantization leaves set
+(``layers.calibrate_conv2d``), becomes ``{"packed":
+ops.QuantizedConv2dWeights}``: its padded kernel layout unpacked to the
+logical ``(K, K, Cin/g, Cout)`` weights and ``(Cout,)`` rows, as the JAX
+``_unpack_weights`` and ``_unpack_cout_row`` do (``repro/kernels/ops.py:
+337``, ``:696``), int8 kept int8 and int32 kept int32.
 """
 
 from __future__ import annotations
@@ -22,17 +31,59 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels.ops import QuantizedConv2dWeights
+
+
+def _tensor(leaf, device) -> torch.Tensor:
+    """One leaf as a contiguous tensor on ``device``: floating leaves as
+    float32, integer ones in their own dtype."""
+    if isinstance(leaf, torch.Tensor):
+        dtype = torch.float32 if leaf.dtype.is_floating_point else leaf.dtype
+        return leaf.to(device=device, dtype=dtype).contiguous()
+    arr = np.asarray(leaf)
+    if not np.issubdtype(arr.dtype, np.integer):
+        arr = arr.astype(np.float32)
+    # a copy: JAX hands out read-only buffers
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def _unpack(leaf, groups: int, cout: int, device) -> torch.Tensor:
+    """The JAX packed layout's last axis ``groups * cout_padded`` cut back
+    to the logical ``cout``: weights ``(K, K, Cin/g, G*CoutP)`` or a
+    ``(1, G*CoutP)`` row (-> ``(Cout,)``)."""
+    t = _tensor(leaf, device)
+    lead = t.shape[:-1] if t.dim() == 4 else ()
+    cpp = t.shape[-1] // groups
+    t = t.reshape(*lead, groups, cpp)[..., :cout // groups]
+    return t.reshape(*lead, cout).contiguous()
+
+
+def _quantized_from_jax(pk, device) -> QuantizedConv2dWeights:
+    if pk.scale is None:
+        raise ValueError("f32 PackedConv2dWeights have no counterpart in the "
+                         "port (its kernels take logical weights): convert "
+                         "the raw {'w', 'b'} tree")
+    g, cout = int(pk.groups), int(pk.cout)
+    return QuantizedConv2dWeights(
+        w=_unpack(pk.w, g, cout, device),
+        bias=None if pk.bias is None else _unpack(pk.bias, g, cout, device),
+        scale=_unpack(pk.scale, g, cout, device),
+        zero_point=_tensor(pk.zero_point, device),
+        input_scale=_tensor(pk.input_scale, device), groups=g, cout=cout)
+
 
 def params_from_jax(tree, *, device="cpu") -> dict:
     """A nested dict of numpy arrays (or tensors), e.g. ``{"conv{i}":
     {"w", "b"}, "head": {"w", "b"}}`` -> the same tree of contiguous
-    float32 tensors on ``device``."""
+    tensors on ``device`` (float32, or the leaf's integer dtype); a JAX
+    quantized ``PackedConv2dWeights`` -> ``QuantizedConv2dWeights``."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device=device) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device=device, dtype=torch.float32).contiguous()
-    # a copy: JAX hands out read-only buffers
-    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
+    if isinstance(tree, QuantizedConv2dWeights):
+        return tree.to(device)
+    if hasattr(tree, "zero_point") and hasattr(tree, "tile_cout"):
+        return _quantized_from_jax(tree, device)
+    return _tensor(tree, device)
 
 
 def moments_from_jax(moments, *, device="cpu") -> dict:

@@ -25,9 +25,14 @@ all ``Cin/groups`` channels:
   input rows; ``smem_bytes`` adds the weight ring and must fit
   :data:`SMEM_PER_BLOCK`.
 
+``dtype_bytes`` picks the kernel: 4 is the f32 kernel, 1 the int8 kernel
+of ``kernels/csrc/trim_conv2d_q8.cu`` (int8 operands, f32 output), which
+takes the same blocks, threads and strips with its window held in bytes.
+
 The forward kernel's constants are the ``CONV_*`` values below; they
-mirror the ``constexpr`` values at the top of ``trim_conv2d.cu``.  The
-fused kernel's are ``FUSED_*`` in ``core/fuse_plan.py``.
+mirror the ``constexpr`` values at the top of ``trim_conv2d.cu``; the
+int8 kernel's own are ``Q8_*``.  The fused kernel's are ``FUSED_*`` in
+``core/fuse_plan.py``.
 """
 
 from __future__ import annotations
@@ -49,7 +54,14 @@ CONV_WEIGHT_CHUNK = 16       # input channels of one tap a weight stage
 CONV_WEIGHT_STAGES = 2       # the weight ring's stages (kStages)
 CONV_BLOCKS_PER_SM = 2       # __launch_bounds__(kThreads, 2): <= 128 regs
 CONV_MAX_TILE_W = 64         # widest band the planner tries
+# The int8 forward kernel (trim_conv2d_q8.cu): CONV_THREADS, CONV_POSITIONS,
+# CONV_COUT and CONV_BLOCKS_PER_SM as above, one byte an operand element
+Q8_QUAD = 4                  # input channels of one __dp4a word (kQuad)
+Q8_VEC = 16                  # input channels of one 16-byte window load (kVec)
+Q8_WEIGHT_CHUNK = 64         # input channels of one tap a weight stage
+Q8_WEIGHT_STAGES = 2         # the weight ring's stages (kStages)
 DATAFLOWS = ("carry", "halo")
+DTYPE_BYTES = {4: "float32", 1: "int8"}
 
 
 def same_pads(size: int, k: int, s: int) -> tuple[int, int]:
@@ -69,6 +81,34 @@ def normalize_pad(pad) -> tuple[tuple[int, int], tuple[int, int]]:
     if min(pads[0] + pads[1]) < 0:
         raise ValueError(f"negative padding {pad!r}")
     return pads
+
+
+def _smem_bytes(window_elems: int, threads_cout: int,
+                dtype_bytes: int) -> int:
+    """Shared memory of one block of the forward kernel (f32) or the int8
+    kernel: a window of ``window_elems`` elements rounded up to 16 bytes,
+    and the weight ring (stages x chunk input channels x 4 channels a
+    thread along C_out)."""
+    window = -(-window_elems * dtype_bytes // 16) * 16
+    if dtype_bytes == 4:
+        chunk, stages = CONV_WEIGHT_CHUNK, CONV_WEIGHT_STAGES
+    else:
+        chunk, stages = Q8_WEIGHT_CHUNK, Q8_WEIGHT_STAGES
+    return window + dtype_bytes * stages * chunk * CONV_COUT * threads_cout
+
+
+def _channel_pitches(cin_per_group: int, dtype_bytes: int = 4) -> list:
+    """Window channel pitches to try, best first.  f32: ``Cin/g + 4``
+    (bank-conflict free) where Cin/g is a multiple of 4, then ``Cin/g``.
+    int8: ``Cin/g + 16`` where Cin/g is a multiple of 16 (16-byte window
+    loads), then ``Cin/g``; otherwise Cin/g rounded up to a :data:`Q8_QUAD`
+    (four channels a ``__dp4a`` word, the extra ones zero)."""
+    if dtype_bytes == 4:
+        c = cin_per_group
+        return [c + 4, c] if c % 4 == 0 else [c]
+    if cin_per_group % Q8_VEC == 0:
+        return [cin_per_group + Q8_VEC, cin_per_group]
+    return [-(-cin_per_group // Q8_QUAD) * Q8_QUAD]
 
 
 def _blocks_per_sm(smem: int) -> int:
@@ -91,9 +131,10 @@ class ConvPlan:
     ``CONV_THREADS // threads_cout`` along positions, each with
     :data:`CONV_POSITIONS`: a strip of one band is at most ``slots``
     output positions, all computed in one pass.  ``cin_stride`` is the
-    window's channel pitch: ``Cin/groups``, plus 4 where it is a multiple
-    of 4 and the padded window fits, so that the two to four positions a
-    warp reads at once fall on different banks.
+    window's channel pitch in elements (:func:`_channel_pitches`): for f32
+    ``Cin/groups``, plus 4 where it is a multiple of 4 and the padded
+    window fits, so that the two to four positions a warp reads at once
+    fall on different banks; for int8 likewise plus 16 (one 16-byte load).
     """
 
     n: int
@@ -110,8 +151,12 @@ class ConvPlan:
     tile_cout: int
     dataflow: str = "carry"
     cin_stride: int = 0          # 0: Cin/groups
+    dtype_bytes: int = 4         # 4: the f32 kernel; 1: the int8 kernel
 
     def __post_init__(self):
+        if self.dtype_bytes not in DTYPE_BYTES:
+            raise ValueError(f"dtype_bytes={self.dtype_bytes} must be one "
+                             f"of {sorted(DTYPE_BYTES)} (f32, int8)")
         if self.dataflow not in DATAFLOWS:
             raise ValueError(f"dataflow={self.dataflow!r} must be one of "
                              f"{DATAFLOWS}")
@@ -131,7 +176,8 @@ class ConvPlan:
     @classmethod
     def build(cls, x_shape, w_shape, *, stride: int = 1, pad=0,
               groups: int = 1, tile_h: int | None = None,
-              tile_cout: int | None = None, dataflow: str = "carry") -> "ConvPlan":
+              tile_cout: int | None = None, dataflow: str = "carry",
+              dtype_bytes: int = 4) -> "ConvPlan":
         """Plan from tensor shapes, choosing any tile left as ``None``.
 
         ``tile_cout`` left as ``None`` is the per-group C_out up to
@@ -143,13 +189,14 @@ class ConvPlan:
         strips (each a full pass of the slots, so ragged edges, idle
         slots and SMs left without a block all count), then the one
         reading the fewest window pixels per output; a given ``tile_h``
-        fixes the strip.  Raises ``ValueError`` when no geometry fits, so
-        every plan it returns is one the kernel takes.  Plans are cached
-        by argument.
+        fixes the strip.  ``dtype_bytes=1`` plans the int8 kernel.  Raises
+        ``ValueError`` when no geometry fits, so every plan it returns is
+        one the kernel takes.  Plans are cached by argument.
         """
         return _build(tuple(int(v) for v in x_shape),
                       tuple(int(v) for v in w_shape), stride,
-                      normalize_pad(pad), groups, tile_h, tile_cout, dataflow)
+                      normalize_pad(pad), groups, tile_h, tile_cout, dataflow,
+                      dtype_bytes)
 
     # -- problem geometry --------------------------------------------------
 
@@ -231,10 +278,8 @@ class ConvPlan:
     # -- segments and shared memory ------------------------------------------
 
     def _smem(self, ring_rows: int) -> int:
-        window = -(-ring_rows * self.window_cols * self.cin_stride // 4) * 4
-        weights = (CONV_WEIGHT_STAGES * CONV_WEIGHT_CHUNK
-                   * CONV_COUT * self.threads_cout)
-        return 4 * (window + weights)
+        return _smem_bytes(ring_rows * self.window_cols * self.cin_stride,
+                           self.threads_cout, self.dtype_bytes)
 
     @property
     def segments(self) -> int:
@@ -293,26 +338,30 @@ class ConvPlan:
                 * self.k * self.k * self.cin_per_group)
 
     def min_bytes(self) -> int:
-        """f32 bytes the function must move: each input (x, w, bias) read
-        once, the output written once."""
-        elems = (self.n * self.h * self.w * self.cin
-                 + self.k * self.k * self.cin_per_group * self.cout
-                 + self.cout + self.n * self.h_out * self.w_out * self.cout)
-        return 4 * elems
+        """Bytes the function must move: each input read once (x and w at
+        ``dtype_bytes``; the f32 bias, or the int8 route's int32 bias and
+        f32 scale rows), the f32 output written once."""
+        rows = 1 if self.dtype_bytes == 4 else 2
+        return (self.dtype_bytes
+                * (self.n * self.h * self.w * self.cin
+                   + self.k * self.k * self.cin_per_group * self.cout)
+                + 4 * (rows * self.cout
+                       + self.n * self.h_out * self.w_out * self.cout))
 
     def hbm_bytes(self) -> dict:
-        """f32 bytes the kernel's schedule moves: every chain (image,
+        """Bytes the kernel's schedule moves: every chain (image,
         group, C_out tile, band) reads its band's window columns of each
         padded row once, plus ``carry_rows`` more for every segment after
         the first (a segment loads its first window whole: with ``halo``,
         one a strip, that is ``window_rows`` a strip); every strip
         streams its C_out tile's weights once; the output is written
-        once."""
+        once (f32).  x and w at ``dtype_bytes``."""
+        db = self.dtype_bytes
         rows = self.n_strips * self.tile_h + self.segments * self.carry_rows
-        in_bytes = (4 * self.chains * rows * self.window_cols
+        in_bytes = (db * self.chains * rows * self.window_cols
                     * self.cin_per_group)
-        w_bytes = 4 * (self.n * self.n_bands * self.n_strips * self.k ** 2
-                       * self.cin_per_group * self.cout)
+        w_bytes = db * (self.n * self.n_bands * self.n_strips * self.k ** 2
+                        * self.cin_per_group * self.cout)
         out_bytes = 4 * self.n * self.h_out * self.w_out * self.cout
         return dict(input=in_bytes, weights=w_bytes, output=out_bytes,
                     total=in_bytes + w_bytes + out_bytes)
@@ -320,7 +369,7 @@ class ConvPlan:
 
 @functools.lru_cache(maxsize=4096)
 def _build(x_shape, w_shape, stride, pads, groups, tile_h, tile_cout,
-           dataflow) -> ConvPlan:
+           dataflow, dtype_bytes) -> ConvPlan:
     n, h, w, cin = x_shape
     kh, kw, cin_pg, cout = w_shape
     if kh != kw:
@@ -352,14 +401,14 @@ def _build(x_shape, w_shape, stride, pads, groups, tile_h, tile_cout,
         tiles = sorted({min(cout_pg, CONV_MAX_TILE_COUT),
                         min(cout_pg, CONV_MAX_TILE_COUT // 2)}, reverse=True)
     # padded pitch first (bank-conflict free), the plain one if it fits alone
-    pitches = [cin_pg + 4, cin_pg] if cin_pg % 4 == 0 else [cin_pg]
-    for pitch in pitches:
+    for pitch in _channel_pitches(cin_pg, dtype_bytes):
         best = None
         for tc in tiles:
             best = _best_tile(best, h_out, w_out, kh, stride, pitch, tile_h,
                               dict(n=n, h=h, w=w, cin=cin, cout=cout, k=kh,
                                    stride=stride, pads=pads, groups=groups,
-                                   tile_cout=tc, dataflow=dataflow))
+                                   tile_cout=tc, dataflow=dataflow,
+                                   dtype_bytes=dtype_bytes))
         if best is not None:
             return best[1]
     raise ValueError(
@@ -374,10 +423,8 @@ def _best_tile(best, h_out, w_out, kh, stride, pitch, tile_h, base):
     C_out tile, so ragged edges, idle slots and SMs left without a block
     all count), then the fewest window pixels read per output, then the
     widest band."""
-    probe = ConvPlan(tile_h=stride, tile_w=1, **base)
+    probe = ConvPlan(tile_h=stride, tile_w=1, cin_stride=pitch, **base)
     slots, kc = probe.slots, probe.carry_rows
-    weights = 4 * (CONV_WEIGHT_STAGES * CONV_WEIGHT_CHUNK * CONV_COUT
-                   * probe.threads_cout)
     for tile_w in range(1, min(w_out, slots, CONV_MAX_TILE_W) + 1):
         if tile_h is not None:
             # an oversized strip is clamped to the full height
@@ -388,8 +435,9 @@ def _best_tile(best, h_out, w_out, kh, stride, pitch, tile_h, base):
         for th_out in rows:
             if th_out * tile_w > slots:
                 continue
-            window = -(-(th_out * stride + kc) * cols * pitch // 4) * 4
-            if 4 * window + weights > SMEM_PER_BLOCK:
+            if _smem_bytes((th_out * stride + kc) * cols * pitch,
+                           probe.threads_cout,
+                           probe.dtype_bytes) > SMEM_PER_BLOCK:
                 continue
             plan = ConvPlan(tile_h=th_out * stride, tile_w=tile_w,
                             cin_stride=pitch, **base)

@@ -7,7 +7,8 @@ queued requests, rounds the count up to the smallest bucket that fits,
 pads the short rows, executes on the next free replica, and returns only
 the real rows — padding never leaks (each output element of the conv
 kernels is one fixed-order fp32 sum, and the head runs row by row, so
-every served row is bit-identical to the single-request forward; tested
+every served row is bit-identical to the single-request forward, on the
+int8 route too, whose sums are exact integers; tested
 in ``tests/test_torch_serving.py`` and on the card by ``chip_smoke.py``).
 
 * **Deterministic core, async shell.**  :class:`ServingEngine` is a

@@ -28,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_int64, ctypes.c_float
 _CONV_ARGS = [_P, _P, _P, _P] + [_I] * 19 + [_P]
+_Q8_ARGS = [_P] * 5 + [_I] * 20 + [_P]
 _WGRAD_ARGS = [_P, _P, _P, _P] + [_I] * 16 + [_P]
 _FUSED_ARGS = [_P, _P, _P, _P, _I, _P]
 _ATTN_ARGS = [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I, _I, _F, _F, _P]
@@ -35,6 +36,8 @@ _CONV1D_ARGS = [_P] * 3 + [_I] * 4 + [_L] * 4 + [_I, _I, _P]
 SOURCES = {
     "trim_conv2d": {"trim_conv2d_carry": _CONV_ARGS,
                     "trim_conv2d_halo": _CONV_ARGS},
+    "trim_conv2d_q8": {"trim_conv2d_q8_carry": _Q8_ARGS,
+                       "trim_conv2d_q8_halo": _Q8_ARGS},
     "trim_conv2d_wgrad": {"trim_conv2d_wgrad": _WGRAD_ARGS,
                           "trim_conv2d_wgrad_resident_blocks": [_I, _P]},
     "trim_conv2d_fused": {"trim_conv2d_fused": _FUSED_ARGS},

@@ -11,6 +11,17 @@ There is no tier chain: a kernel that fails raises.  'same' padding is
 XLA's (asymmetric at stride > 1) and is applied inside the kernel, so no
 padded copy of the input is made.
 
+Int8.  ``conv2d`` given :class:`QuantizedConv2dWeights` (from
+:func:`quantize_conv2d_weights` or ``models.layers.calibrate_conv2d``)
+runs the int8 route, as the JAX ``_conv2d_packed`` does for packed
+weights with a ``scale`` (``repro/kernels/ops.py:629-636``): the f32
+input is quantized against the layer's calibration (a plain elementwise
+pass), and ``"trim"`` launches the int8 kernel (``trim_conv2d_q8``) with
+the zero point as its virtual 'same' padding, ``"ref"`` runs the
+``conv2d_quantized`` oracle.  There is no ``q8 -> pallas -> ref`` chain.
+The route is inference only: under grad, an input that requires grad
+raises.
+
 Gradients.  With grad enabled and an operand that requires grad, the
 ``"trim"`` conv runs through :class:`_TrimConv2dFn`, the counterpart of
 the ``jax.custom_vjp`` ``_conv2d_vjp_core`` (``repro/kernels/ops.py:
@@ -35,6 +46,7 @@ is plain PyTorch, as in JAX: one query over a KV cache has no kernel.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import typing
 
@@ -46,8 +58,9 @@ from repro_torch.kernels.flash_attention import (NEG_INF, flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.ref import ACTIVATIONS, conv_pads
 from repro_torch.kernels.trim_conv1d import trim_conv1d
-from repro_torch.kernels.trim_conv2d import (trim_conv2d,
+from repro_torch.kernels.trim_conv2d import (pack_q8_weights, trim_conv2d,
                                              trim_conv2d_input_grad,
+                                             trim_conv2d_q8,
                                              trim_conv2d_weight_grad)
 
 MAX_NATIVE_K = 8
@@ -112,6 +125,124 @@ class _TrimConv2dFn(torch.autograd.Function):
         return dx, dw, db, None
 
 
+@dataclasses.dataclass(frozen=True)
+class QuantizedConv2dWeights:
+    """One conv layer quantized for the int8 route: the port's counterpart
+    of the JAX ``PackedConv2dWeights`` with its quantization leaves set
+    (``repro/kernels/ops.py:73-113``), in the LOGICAL layout.
+
+    ``w``: int8 ``(K, K, Cin/groups, Cout)`` per-out-channel symmetric
+    quantized weights; ``bias``: the real f32 ``(Cout,)`` bias or None (the
+    int32 bias is derived per call, as in JAX); ``scale``: the f32
+    ``(Cout,)`` weight scales; ``zero_point`` (int32) and ``input_scale``
+    (f32), 0-dim: the per-tensor affine activation calibration.
+    ``w_kernel`` is the int8 kernel's layout of ``w``
+    (:func:`~repro_torch.kernels.trim_conv2d.pack_q8_weights`), made once
+    here when not given; ``zp`` is the zero point as a Python int, read
+    once, so a forward never waits on the device for it.
+    """
+
+    w: torch.Tensor
+    bias: torch.Tensor | None
+    scale: torch.Tensor
+    zero_point: torch.Tensor
+    input_scale: torch.Tensor
+    groups: int
+    cout: int
+    w_kernel: torch.Tensor | None = None
+    zp: int | None = None
+
+    def __post_init__(self):
+        if self.w.dtype != torch.int8 or self.w.dim() != 4:
+            raise ValueError(f"w must be int8 (K, K, Cin/g, Cout), got "
+                             f"{self.w.dtype} {tuple(self.w.shape)}")
+        if self.w.shape[3] != self.cout or self.cout % self.groups:
+            raise ValueError(f"w {tuple(self.w.shape)} does not hold "
+                             f"cout={self.cout} in groups={self.groups}")
+        if self.w_kernel is None:
+            object.__setattr__(self, "w_kernel", pack_q8_weights(self.w))
+        if self.zp is None:
+            object.__setattr__(self, "zp", int(self.zero_point))
+
+    def tensors(self) -> dict:
+        """The tensor fields by name (``bias`` only when set)."""
+        names = ("w", "bias", "scale", "zero_point", "input_scale",
+                 "w_kernel")
+        return {k: getattr(self, k) for k in names
+                if getattr(self, k) is not None}
+
+    def to(self, device) -> "QuantizedConv2dWeights":
+        return dataclasses.replace(
+            self, **{k: t.to(device) for k, t in self.tensors().items()})
+
+
+def quantize_conv2d_weights(w: torch.Tensor,
+                            bias: torch.Tensor | None = None, *, x_scale,
+                            x_zero_point=0,
+                            groups: int = 1) -> QuantizedConv2dWeights:
+    """Quantize one conv layer for the int8 route
+    (``repro/kernels/ops.py:184-215``): per-out-channel symmetric weight
+    scales (``ref.weight_scales_int8``) and the per-tensor affine
+    activation calibration ``(x_scale, x_zero_point)``, typically from
+    ``models.layers.calibrate_conv2d``.  w: f32 (K, K, Cin/groups, Cout);
+    bias: (Cout,) or None."""
+    w_scale = ref.weight_scales_int8(w)
+    w_q = ref.quantize_int8(w, w_scale[None, None, None, :])
+    dev = w.device
+    return QuantizedConv2dWeights(
+        w=w_q, bias=None if bias is None else bias.float(), scale=w_scale,
+        zero_point=torch.as_tensor(x_zero_point, device=dev)
+        .to(torch.int32),
+        input_scale=torch.as_tensor(x_scale, dtype=torch.float32,
+                                    device=dev),
+        groups=groups, cout=w.shape[3])
+
+
+def _q8_forward(x_q: torch.Tensor, pk: QuantizedConv2dWeights, *,
+                stride: int, pads, activation: str | None,
+                dataflow: str | None, tile_h: int | None = None,
+                tile_cout: int | None = None) -> torch.Tensor:
+    """The int8 kernel on a quantized input (``repro/kernels/ops.py:
+    702-730``): the dequant scale row and the requantized int32 bias from
+    ``ref.dequant_params``, then one launch with the zero point as the
+    virtual padding."""
+    scale, bias_q = ref.dequant_params(pk.w, pk.scale, pk.input_scale,
+                                       pk.zero_point, pk.bias)
+    return trim_conv2d_q8(x_q, pk.w, bias_q, scale, zero_point=pk.zp,
+                          stride=stride, pad=pads, groups=pk.groups,
+                          activation=activation,
+                          dataflow=dataflow or "carry", tile_h=tile_h,
+                          tile_cout=tile_cout, w_packed=pk.w_kernel)
+
+
+def _conv2d_q8(x: torch.Tensor, pk: QuantizedConv2dWeights, *, stride: int,
+               padding: str, impl: str, activation: str | None,
+               dataflow: str | None, tile_h: int | None = None,
+               tile_cout: int | None = None) -> torch.Tensor:
+    """The int8 route of :func:`conv2d` (``repro/kernels/ops.py:733-795``
+    without its tier chain): x is f32, quantized here against the layer's
+    calibration, or already int8."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError("the int8 route is inference only (the "
+                                  "JAX route defines no VJP)")
+    if x.dtype.is_floating_point:
+        x_q = ref.quantize_int8(x, pk.input_scale, pk.zero_point)
+    else:
+        x_q = x
+    if impl == "ref":
+        return ref.conv2d_quantized(
+            x_q, pk.w, x_scale=pk.input_scale, x_zero_point=pk.zp,
+            w_scale=pk.scale, bias=pk.bias, stride=stride, padding=padding,
+            feature_group_count=pk.groups, activation=activation)
+    if impl != "trim":
+        raise ValueError(f"unknown impl {impl!r}; choose 'trim' or 'ref'")
+    k = pk.w.shape[0]
+    pads = conv_pads(x.shape[1], x.shape[2], k, stride, padding)
+    return _q8_forward(x_q, pk, stride=stride, pads=pads,
+                       activation=activation, dataflow=dataflow,
+                       tile_h=tile_h, tile_cout=tile_cout)
+
+
 def kernel_input_shape(x_shape, k: int, stride: int, padding: str):
     """(shape, residual_pad) of the conv problem after the 'same' pre-pad
     (the padded input with ``pad=0``), as ``repro.kernels.ops`` defines
@@ -135,10 +266,25 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     kernel; knobs left as ``None`` take the plan's defaults.  Under grad,
     the ``"trim"`` conv is differentiable in x, w and bias; its input
     gradient runs the same dataflow's kernel with default tiles.
+
+    ``w`` may be :class:`QuantizedConv2dWeights`: the int8 route (module
+    docstring), its groups and bias its own (``bias`` must be None and
+    ``feature_group_count`` 1 or the weights' groups), f32 out.
     """
     if dataflow is not None and dataflow not in DATAFLOWS:
         raise ValueError(f"unknown dataflow {dataflow!r}; "
                          f"choose from {DATAFLOWS}")
+    if isinstance(w, QuantizedConv2dWeights):
+        if bias is not None:
+            raise ValueError("the bias is inside QuantizedConv2dWeights; "
+                             "pass it to quantize_conv2d_weights instead")
+        if feature_group_count not in (1, w.groups):
+            raise ValueError(f"feature_group_count={feature_group_count} "
+                             f"but the weights were quantized for "
+                             f"groups={w.groups}")
+        return _conv2d_q8(x, w, stride=stride, padding=padding, impl=impl,
+                          activation=activation, dataflow=dataflow,
+                          tile_h=tile_h, tile_cout=tile_cout)
     cin, (cin_pg, cout) = x.shape[3], w.shape[2:]
     if cin_pg * feature_group_count != cin:
         raise ValueError(

@@ -5,7 +5,9 @@ convolution is one einsum over unfolded patches, not a tap loop, and its
 gradients are autograd through that einsum; attention is one softmax over
 the masked logits, with no blocking and no online normaliser; the causal
 depthwise conv1d is the JAX tap sum over the whole padded sequence, with
-no runs or halos.  On the card, run them with
+no runs or halos; the int8 conv (``conv2d_quantized``) is one exact
+float64 einsum over unfolded patches, and the quantization helpers keep
+JAX's order of operations bit for bit.  On the card, run them with
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (and
 ``torch.backends.cudnn.allow_tf32 = False``) so f32 stays f32.
 """
@@ -70,6 +72,103 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     wg = w.reshape(k, k, cin_pg, g, cout // g)
     y = torch.einsum("nhwgcij,ijcgo->nhwgo", patches, wg)
     return epilogue(y.reshape(n, ho, wo, cout), bias, activation)
+
+
+def quantize_int8(x: torch.Tensor, scale, zero_point=0) -> torch.Tensor:
+    """Affine int8 quantization ``q = clip(round(x / scale) + zp, -128,
+    127)`` (``repro/kernels/ref.py:48``), in JAX's order: the f32 quotient
+    rounded half to even, the zero point added in f32, then the clip.
+
+    ``scale`` / ``zero_point`` are scalars (per-tensor activations) or
+    broadcastable tensors (per-channel weights with ``zero_point=0``).
+    Both become tensors on ``x``'s device first: on a CUDA tensor,
+    PyTorch divides by a CPU scalar as a multiply by its reciprocal, which
+    can round differently from the division.
+    """
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    zp = torch.as_tensor(zero_point, device=x.device).to(torch.float32)
+    q = torch.round(x.float() / scale) + zp
+    return q.clamp(-128, 127).to(torch.int8)
+
+
+def weight_scales_int8(w: torch.Tensor) -> torch.Tensor:
+    """Per-out-channel symmetric weight scales ``max|w| / 127`` with a
+    1e-12 floor (``repro/kernels/ref.py:59``).  w: (K, K, Cin/g, Cout) ->
+    (Cout,) f32; the zero point is 0."""
+    amax = w.float().abs().amax(dim=(0, 1, 2))
+    # a device tensor, not a Python scalar (see quantize_int8)
+    return amax.clamp_min(1e-12) / torch.tensor(127.0, device=w.device)
+
+
+def dequant_params(w_q: torch.Tensor, w_scale: torch.Tensor, x_scale,
+                   x_zero_point, bias: torch.Tensor | None = None) -> tuple:
+    """The epilogue ``y = (acc_i32 + bias_q) * scale`` of an int8 conv
+    (``repro/kernels/ref.py:69``): ``scale = x_scale * w_scale`` per out
+    channel (f32) and the requantized int32 bias
+
+        bias_q = -z_x * colsum(w_q) + round(bias / scale).
+
+    'same' borders are padded with the zero point, so the zero-point
+    correction is the same at every output position and exactly integer;
+    the real bias is rounded onto the scale grid.  The epilogue is then an
+    exact int32 add and ONE rounded f32 multiply, with no mul + add pair a
+    compiler could contract into an FMA.  w_q: (K, K, Cin/g, Cout) int8,
+    w_scale: (Cout,) f32; returns ``(scale, bias_q)``, (Cout,) f32 and
+    int32.
+    """
+    dev = w_q.device
+    colsum = w_q.to(torch.int32).sum(dim=(0, 1, 2), dtype=torch.int32)
+    scale = torch.as_tensor(x_scale, dtype=torch.float32, device=dev) \
+        * w_scale.float()
+    zp = torch.as_tensor(x_zero_point, device=dev).to(torch.int32)
+    bias_q = -zp * colsum
+    if bias is not None:
+        bias_q = bias_q + torch.round(bias.float() / scale).to(torch.int32)
+    return scale, bias_q
+
+
+def exact_int_products(a: torch.Tensor, b: torch.Tensor,
+                       equation: str) -> torch.Tensor:
+    """``einsum(equation, a, b)`` of integer tensors, exactly, as int32.
+
+    CUDA has no integer matmul, so the operands go through float64: every
+    int8 x int8 product is at most 2^14 in magnitude, and a sum of them
+    stays an integer below 2^53 for up to 2^39 terms (a VGG-16 output
+    sums 4,608), so every float64 product and partial sum is exact, in
+    any order, and the conversion to int32 loses nothing."""
+    return torch.einsum(equation, a.double(), b.double()).to(torch.int32)
+
+
+def conv2d_quantized(x_q: torch.Tensor, w_q: torch.Tensor, *, x_scale,
+                     x_zero_point, w_scale: torch.Tensor,
+                     bias: torch.Tensor | None = None, stride: int = 1,
+                     padding: str = "same", feature_group_count: int = 1,
+                     activation: str | None = None) -> torch.Tensor:
+    """Int8 quantized conv oracle (``repro/kernels/ref.py:104``): int32
+    accumulation, then the f32 dequant epilogue of :func:`dequant_params`.
+
+    x_q: int8 (N, H, W, Cin); w_q: int8 (K, K, Cin/g, Cout); w_scale:
+    (Cout,) per-out-channel symmetric scales; ``x_scale`` /
+    ``x_zero_point`` the per-tensor affine activation quantization.
+    'same' padding pads with the zero point (the quantized image of 0.0).
+    The accumulator is one einsum over unfolded patches
+    (:func:`exact_int_products`: float64, exact, converted to int32), not
+    the plain version's tap loop.  Returns f32.
+    """
+    k, g = w_q.shape[0], feature_group_count
+    cin_pg, cout = w_q.shape[2], w_q.shape[3]
+    zp = int(x_zero_point)
+    (pt, pb), (pl, pr) = conv_pads(x_q.shape[1], x_q.shape[2], k, stride,
+                                   padding)
+    xp = F.pad(x_q, (0, 0, pl, pr, pt, pb), value=zp)
+    patches = xp.unfold(1, k, stride).unfold(2, k, stride)
+    n, ho, wo = patches.shape[:3]
+    patches = patches.reshape(n, ho, wo, g, cin_pg, k, k)
+    wg = w_q.reshape(k, k, cin_pg, g, cout // g)
+    acc = exact_int_products(patches, wg, "nhwgcij,ijcgo->nhwgo")
+    scale, bias_q = dequant_params(w_q, w_scale, x_scale, zp, bias)
+    y = (acc.reshape(n, ho, wo, cout) + bias_q).float() * scale
+    return epilogue(y, None, activation)
 
 
 def conv2d_grads(x: torch.Tensor, w: torch.Tensor, gy: torch.Tensor, *,

@@ -12,6 +12,11 @@ kernels and their plain PyTorch versions (the counterpart of
 * ``trim_conv2d_weight_grad`` — dw through the kernel of
   ``csrc/trim_conv2d_wgrad.cu``; :func:`trim_conv2d_weight_grad_plain` on a
   CPU tensor.
+* ``trim_conv2d_q8`` — the int8 route of the forward conv (the JAX
+  ``trim_conv2d`` with a ``scale``): int8 operands, an exact int32
+  accumulator and the dequant epilogue ``(acc + bias_q) * scale``, f32
+  out, through the kernel of ``csrc/trim_conv2d_q8.cu`` (carry or halo);
+  :func:`trim_conv2d_q8_plain` on a CPU tensor.  Inference only.
 
 A wrapper given a CUDA tensor launches its kernel or raises; nothing falls
 back.  The wrappers are not differentiable themselves (their results never
@@ -21,19 +26,24 @@ require grad): ``kernels/ops.py`` wraps them in a ``torch.autograd.Function``.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core.conv_plan import (DATAFLOWS, ConvPlan, WeightGradPlan,
-                                        input_grad_geometry, normalize_pad)
+from repro_torch.core.conv_plan import (DATAFLOWS, Q8_QUAD, ConvPlan,
+                                        WeightGradPlan, input_grad_geometry,
+                                        normalize_pad)
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import ACTIVATIONS, epilogue, pad_nhwc
+from repro_torch.kernels.ref import (ACTIVATIONS, epilogue,
+                                     exact_int_products, pad_nhwc)
 
 ACTIVATION_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3}
 
 # Kernel launches: each successful launch of a forward dataflow adds one to
 # its key (input gradients included: they run the forward kernel), each
 # weight-gradient call one to "wgrad", each fused-group launch
-# (``kernels/trim_conv2d_fused.py``) one to "fused".
-LAUNCHES = {"carry": 0, "halo": 0, "wgrad": 0, "fused": 0}
+# (``kernels/trim_conv2d_fused.py``) one to "fused", each launch of the
+# int8 kernel one to "q8_carry" or "q8_halo".
+LAUNCHES = {"carry": 0, "halo": 0, "wgrad": 0, "fused": 0, "q8_carry": 0,
+            "q8_halo": 0}
 
 
 def reset_launch_counts() -> None:
@@ -77,7 +87,7 @@ def _check_operands(**tensors) -> None:
                              "a CPU or CUDA device")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} is {t.dtype}; this kernel takes "
-                            "float32 only")
+                            "float32 only (int8 operands: trim_conv2d_q8)")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.dim() != 4 and name != "bias":
@@ -275,3 +285,175 @@ def trim_conv2d_weight_grad(x: torch.Tensor, g: torch.Tensor, *,
             f"{plan}")
     LAUNCHES["wgrad"] += 1
     return dw
+
+
+# ---------------------------------------------------------------------------
+# The int8 route
+# ---------------------------------------------------------------------------
+
+def pack_q8_weights(w: torch.Tensor) -> torch.Tensor:
+    """The int8 kernel's weight layout: ``(K, K, Cin/g, Cout)`` int8 ->
+    ``(K, K, ceil(Cin/g / 4), Cout, 4)`` int8, four consecutive input
+    channels of one output channel in one 32-bit word (``__dp4a``'s
+    operand), the channels past Cin/g zero (their products add nothing).
+    Made once, at quantize time (``ops.quantize_conv2d_weights``)."""
+    k, _, cin_pg, cout = w.shape
+    cin4 = -(-cin_pg // Q8_QUAD) * Q8_QUAD
+    wp = F.pad(w, (0, 0, 0, cin4 - cin_pg))
+    return wp.reshape(k, k, cin4 // Q8_QUAD, Q8_QUAD, cout) \
+        .permute(0, 1, 2, 4, 3).contiguous()
+
+
+def trim_conv2d_q8_plain(x: torch.Tensor, w: torch.Tensor,
+                         bias_q: torch.Tensor | None, scale: torch.Tensor,
+                         *, zero_point: int = 0, stride: int = 1, pad=0,
+                         groups: int = 1,
+                         activation: str | None = None) -> torch.Tensor:
+    """The int8 kernel's function in plain PyTorch: ``_tap_matmuls``' int32
+    route (``repro/kernels/trim_conv2d.py:82-100``) as K^2 shifted strided
+    views of the input, padded with the zero point, times ``w[ki, kj]``,
+    each tap's products exact (:func:`~repro_torch.kernels.ref.
+    exact_int_products`) and accumulated in int32; then
+    ``_epilogue_store``'s dequant (``:103-124``): ``acc + bias_q`` in
+    int32, one f32 multiply by ``scale``, the activation."""
+    k, s = w.shape[0], stride
+    (pt, pb), (pl, pr) = normalize_pad(pad)
+    xp = F.pad(x, (0, 0, pl, pr, pt, pb), value=int(zero_point))
+    n, hp, wp, _ = xp.shape
+    cin_pg, cout = w.shape[2], w.shape[3]
+    h_out, w_out = (hp - k) // s + 1, (wp - k) // s + 1
+    acc = torch.zeros((n * h_out * w_out, groups, cout // groups),
+                      dtype=torch.int32, device=x.device)
+    for ki in range(k):
+        for kj in range(k):
+            rows = xp[:, ki:ki + (h_out - 1) * s + 1:s,
+                      kj:kj + (w_out - 1) * s + 1:s, :]
+            taps = w[ki, kj].reshape(cin_pg, groups, cout // groups)
+            acc += exact_int_products(rows.reshape(-1, groups, cin_pg), taps,
+                                      "mgc,cgo->mgo")
+    acc = acc.reshape(n, h_out, w_out, cout)
+    if bias_q is not None:
+        acc = acc + bias_q
+    return ACTIVATIONS[activation](acc.float() * scale)
+
+
+def _check_q8(x, w, bias_q, scale, w_packed, zero_point, activation,
+              dataflow) -> None:
+    """The JAX wrapper's consistency checks (``repro/kernels/
+    trim_conv2d.py:231-246``): integer x and w, an int32 requantized bias
+    and an f32 scale row together; then the kernel's own."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}; "
+                         f"choose from {sorted(ACTIVATIONS, key=str)}")
+    if dataflow not in DATAFLOWS:
+        raise ValueError(f"unknown dataflow {dataflow!r}; choose from "
+                         f"{DATAFLOWS}")
+    if x.dtype.is_floating_point or x.dtype.is_complex:
+        raise TypeError(f"the int8 route requires BOTH integer inputs and a "
+                        f"dequant scale: got x.dtype={x.dtype}")
+    if w.dtype.is_floating_point or w.dtype.is_complex:
+        raise TypeError(f"quantized conv needs integer weights, got "
+                        f"{w.dtype}")
+    if bias_q is not None and bias_q.dtype != torch.int32:
+        raise TypeError("quantized conv takes the requantized int32 bias of "
+                        f"ref.dequant_params, got {bias_q.dtype}")
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError(f"the int8 kernel takes int8 x and w, got {x.dtype} "
+                        f"and {w.dtype}")
+    if not isinstance(scale, torch.Tensor) or scale.dtype != torch.float32:
+        raise TypeError("the int8 route needs the f32 dequant scale row of "
+                        "ref.dequant_params")
+    if not -128 <= int(zero_point) <= 127:
+        raise ValueError(f"zero_point={zero_point} is not an int8 value")
+    tensors = dict(x=x, w=w, scale=scale)
+    if bias_q is not None:
+        tensors["bias_q"] = bias_q
+    if w_packed is not None:
+        tensors["w_packed"] = w_packed
+    dev = x.device
+    for name, t in tensors.items():
+        if t.device.type not in ("cpu", "cuda") or t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}: all "
+                             "operands must share a CPU or CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x.dim() != 4 or w.dim() != 4:
+        raise ValueError(f"x and w must be 4-D (NHWC, (K, K, Cin/g, Cout)); "
+                         f"got {tuple(x.shape)} and {tuple(w.shape)}")
+    for name, t in (("scale", scale), ("bias_q", bias_q)):
+        if t is not None and tuple(t.shape) != (w.shape[3],):
+            raise ValueError(f"{name} must be ({w.shape[3]},), got "
+                             f"{tuple(t.shape)}")
+    if w_packed is not None:
+        k, _, cin_pg, cout = w.shape
+        want = (k, k, -(-cin_pg // Q8_QUAD), cout, Q8_QUAD)
+        if w_packed.dtype != torch.int8 or tuple(w_packed.shape) != want:
+            raise ValueError(f"w_packed must be pack_q8_weights(w): int8 "
+                             f"{want}, got {w_packed.dtype} "
+                             f"{tuple(w_packed.shape)}")
+
+
+def trim_conv2d_q8(x: torch.Tensor, w: torch.Tensor,
+                   bias_q: torch.Tensor | None, scale: torch.Tensor, *,
+                   zero_point: int = 0, stride: int = 1, pad=0,
+                   groups: int = 1, activation: str | None = None,
+                   dataflow: str = "carry", tile_h: int | None = None,
+                   tile_cout: int | None = None,
+                   w_packed: torch.Tensor | None = None) -> torch.Tensor:
+    """Int8 strided (grouped) 2D convolution with the fused dequant + bias
+    + activation epilogue (the JAX ``trim_conv2d`` with ``scale``,
+    DESIGN.md §11).
+
+    x: (N, H, W, Cin) int8; w: (K, K, Cin/groups, Cout) int8; bias_q:
+    (Cout,) int32 or None and scale: (Cout,) f32, both from
+    :func:`~repro_torch.kernels.ref.dequant_params`.  ``pad`` (an int or
+    ``((top, bottom), (left, right))``) is applied inside the kernel and
+    reads ``zero_point``, the activation's quantized 0.0, as the JAX path
+    pre-pads with it.  ``w_packed`` is :func:`pack_q8_weights` of ``w``
+    (packed here when None).  Returns (N, H_out, W_out, Cout) f32:
+    ``act(float(acc + bias_q) * scale)`` with the exact int32 sum ``acc``.
+
+    On a CPU tensor it runs :func:`trim_conv2d_q8_plain`; on a CUDA tensor
+    it launches the int8 kernel or raises.  Inference only: the JAX route
+    has no VJP either, so a ``scale`` that requires grad raises under
+    autograd.
+    """
+    _check_q8(x, w, bias_q, scale, w_packed, zero_point, activation,
+              dataflow)
+    if torch.is_grad_enabled() and scale.requires_grad:
+        raise NotImplementedError("the int8 route is inference only (the "
+                                  "JAX route defines no VJP)")
+    plan = ConvPlan.build(tuple(x.shape), tuple(w.shape), stride=stride,
+                          pad=pad, groups=groups, tile_h=tile_h,
+                          tile_cout=tile_cout, dataflow=dataflow,
+                          dtype_bytes=1)
+    if x.device.type == "cpu":
+        with torch.no_grad():
+            return trim_conv2d_q8_plain(x, w, bias_q, scale,
+                                        zero_point=zero_point, stride=stride,
+                                        pad=plan.pads, groups=groups,
+                                        activation=activation)
+    if w_packed is None:
+        w_packed = pack_q8_weights(w)
+    lib = build.library("trim_conv2d_q8")
+    launch = lib.trim_conv2d_q8_carry if dataflow == "carry" \
+        else lib.trim_conv2d_q8_halo
+    y = torch.empty(plan.out_shape, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = launch(
+            x.data_ptr(), w_packed.data_ptr(),
+            None if bias_q is None else bias_q.data_ptr(), scale.data_ptr(),
+            y.data_ptr(), plan.n, plan.h, plan.w, plan.cin, plan.cout,
+            plan.k, plan.stride, plan.pads[0][0], plan.pads[1][0],
+            plan.groups, plan.h_out, plan.w_out, plan.th_out, plan.tile_w,
+            plan.tile_cout, plan.strips_per_segment, plan.ring_rows,
+            plan.cin_stride, int(zero_point), ACTIVATION_CODES[activation],
+            stream)
+    if err != 0:
+        raise RuntimeError(
+            f"trim_conv2d_q8 {dataflow} kernel launch failed: CUDA error "
+            f"{err} ({lib.trim_conv2d_q8_error_string(err).decode()}) for "
+            f"{plan}")
+    LAUNCHES[f"q8_{dataflow}"] += 1
+    return y

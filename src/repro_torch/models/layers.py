@@ -8,7 +8,10 @@ the ``nn.Module`` that holds one topology's parameters and serves or
 trains it.  Every function is differentiable: under grad, each conv runs
 the TrIM forward, input-gradient and weight-gradient kernels
 (``kernels/ops.py``), and max-pool's backward is ``F.max_pool2d``'s.
-Activations are NHWC and conv weights ``(K, K, Cin/groups, Cout)``.
+Activations are NHWC and conv weights ``(K, K, Cin/groups, Cout)``.  A
+conv entry is ``{"w", "b"}`` (f32) or, after :func:`calibrate_conv2d`,
+``{"packed": QuantizedConv2dWeights}``, which runs the int8 route
+(inference only; ``TrimCNN`` holds it as buffers).
 
 Transformer layers.  Norms (RMSNorm / LayerNorm in f32, eps 1e-6), RoPE
 (split halves), GQA attention with an optional KV cache, the dense MLPs
@@ -44,15 +47,52 @@ def conv2d_params(k: int, cin: int, cout: int, *, groups: int = 1,
     return p
 
 
+def _conv_operands(p: dict) -> tuple:
+    """(weights, bias) of one conv entry: ``{"w", "b"}``, or the
+    quantized weights of ``{"packed"}`` (their bias inside)."""
+    if "packed" in p:
+        return p["packed"], None
+    return p["w"], p.get("b")
+
+
 def conv2d_apply(p: dict, x: torch.Tensor, *, stride: int = 1,
                  padding: str = "same", groups: int = 1,
                  activation: str | None = "relu", impl: str = "trim",
                  dataflow: str | None = None) -> torch.Tensor:
     """One conv layer with the bias + activation epilogue fused into the
-    kernel (one store of the output)."""
-    return ops.conv2d(x, p["w"], stride=stride, padding=padding, impl=impl,
-                      feature_group_count=groups, bias=p.get("b"),
+    kernel (one store of the output).  Accepts raw params (``{"w", "b"}``)
+    or a calibrated entry (``{"packed"}``, :func:`calibrate_conv2d`), which
+    runs the int8 route."""
+    w, b = _conv_operands(p)
+    return ops.conv2d(x, w, stride=stride, padding=padding, impl=impl,
+                      feature_group_count=groups, bias=b,
                       activation=activation, dataflow=dataflow)
+
+
+def calibrate_conv2d(p: dict, x_batch: torch.Tensor, *,
+                     groups: int = 1) -> dict:
+    """Post-training int8 calibration of one conv layer
+    (``repro/models/layers.py:205-231``, DESIGN.md §11).
+
+    The sample batch's range, widened to contain 0.0 so that the zero
+    point (the quantized image of 0.0, which also pads 'same' borders) is
+    representable, gives the per-tensor affine calibration ``scale = (max
+    - min) / 255`` and ``zp = clip(round(-128 - min / scale), -128,
+    127)``; the weights are quantized per out channel
+    (``ops.quantize_conv2d_weights``).  Returns ``{"packed":
+    QuantizedConv2dWeights}``, which replaces ``{"w", "b"}`` and runs the
+    int8 route through :func:`conv2d_apply`.  The scalar arithmetic runs
+    on the CPU in f32, where division is exact-rounded as in JAX (on the
+    card PyTorch divides by a Python scalar through its reciprocal).
+    """
+    xf = x_batch.float()
+    lo = torch.clamp_max(xf.min(), 0.0).cpu()
+    hi = torch.clamp_min(xf.max(), 0.0).cpu()
+    scale = torch.clamp_min(hi - lo, 1e-12) / torch.tensor(255.0)
+    zp = torch.clamp(torch.round(-128.0 - lo / scale), -128, 127) \
+        .to(torch.int32)
+    return {"packed": ops.quantize_conv2d_weights(
+        p["w"], p.get("b"), x_scale=scale, x_zero_point=zp, groups=groups)}
 
 
 def depthwise_separable_params(k: int, cin: int, cout: int, *,
@@ -142,8 +182,8 @@ def _apply_layer_range(p: dict, layers_list, pools, x: torch.Tensor, lo: int,
     idx = range(lo, hi)
     steps = [(layers_list[i].stride, layer_kernel_problem(layers_list[i])[3],
               layers_list[i].groups, *pools[i]) for i in idx]
-    return ops.conv_pool_chain(x, [p[f"conv{i}"]["w"] for i in idx],
-                               [p[f"conv{i}"].get("b") for i in idx], steps,
+    weights, biases = zip(*(_conv_operands(p[f"conv{i}"]) for i in idx))
+    return ops.conv_pool_chain(x, weights, biases, steps,
                                activation=activation, impl=impl,
                                dataflow=dataflow)
 
@@ -164,7 +204,8 @@ def cnn_apply_from_layers(p: dict, layers_list, x: torch.Tensor, *,
     shared memory; depth-1 groups run the per-layer path, and the output
     is bitwise the same either way.  A group that fails raises: nothing
     falls back to per-layer execution.  The fused path needs raw
-    ``{"w", "b"}`` conv params.
+    ``{"w", "b"}`` conv params: a calibrated (int8) layer in a fused group
+    raises, as in JAX.
     """
     layers_list = list(layers_list)
     pools = list(infer_pools(layers_list))
@@ -208,6 +249,28 @@ class _Leaf(nn.Module):
             self.register_parameter(
                 name, nn.Parameter(t, requires_grad=trainable))
 
+    def entry(self) -> dict:
+        return dict(self.named_parameters())
+
+
+class _QuantLeaf(nn.Module):
+    """One calibrated ``{"packed": QuantizedConv2dWeights}`` entry: its
+    tensors as buffers in their own dtypes (int8 weights, int32 zero
+    point, f32 scales), moved with the module; ``entry`` rebuilds the
+    container from them without repacking."""
+
+    def __init__(self, pk: ops.QuantizedConv2dWeights):
+        super().__init__()
+        self.groups, self.cout, self.zp = pk.groups, pk.cout, pk.zp
+        for name, t in pk.tensors().items():
+            self.register_buffer(name, t)
+
+    def entry(self) -> dict:
+        bufs = dict(self.named_buffers())
+        bufs.setdefault("bias", None)
+        return {"packed": ops.QuantizedConv2dWeights(
+            groups=self.groups, cout=self.cout, zp=self.zp, **bufs)}
+
 
 class TrimCNN(nn.Module):
     """A conv topology with its parameters, served or trained on the TrIM
@@ -222,6 +285,9 @@ class TrimCNN(nn.Module):
     for serving;
     ``trainable=True`` registers them with ``requires_grad``, so a loss on
     :meth:`forward` back-propagates through the TrIM backward kernels.
+    Calibrated entries (``{"packed"}``, :func:`calibrate_conv2d`) are held
+    as buffers and serve the int8 route; with them ``trainable=True`` and
+    ``fused=True`` raise.
     """
 
     def __init__(self, layers_list, params: dict, *,
@@ -232,8 +298,15 @@ class TrimCNN(nn.Module):
         self.layers_list = list(layers_list)
         self.activation, self.impl, self.dataflow = activation, impl, dataflow
         self.fused = fused
-        self.params = nn.ModuleDict({k: _Leaf(v, trainable)
-                                     for k, v in params.items()})
+        quantized = sorted(k for k, v in params.items() if "packed" in v)
+        if quantized and (trainable or fused):
+            raise ValueError(
+                f"{quantized[0]} is calibrated (int8): the int8 route is "
+                "inference only and runs per layer; trainable=True and "
+                "fused=True need raw {'w', 'b'} conv params")
+        self.params = nn.ModuleDict({
+            k: _QuantLeaf(v["packed"]) if "packed" in v
+            else _Leaf(v, trainable) for k, v in params.items()})
 
     @classmethod
     def random(cls, layers_list, *, n_classes: int | None = None,
@@ -248,7 +321,7 @@ class TrimCNN(nn.Module):
 
     def tree(self) -> dict:
         """The parameters as the functional tree."""
-        return {k: dict(m.named_parameters()) for k, m in self.params.items()}
+        return {k: m.entry() for k, m in self.params.items()}
 
     def apply_tree(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         """The forward on a given parameter tree (the functional form a

@@ -32,7 +32,10 @@ the same order) on ragged runs, L < K-1, narrow channel counts, K = 2..8
 and strided views like the Mamba mixer's, and K = 9, 12 and 16 (the
 runtime-K instance); a falcon-mamba-7b SMOKE prefill
 on it launches it once a layer and matches the same prefill on the CPU
-within 1e-5 * max|logits| (GEMMs in another order).
+within 1e-5 * max|logits| (GEMMs in another order).  The int8 conv kernel
+is held against its plain version bit for bit (TOL for gelu / silu), carry
+against halo bitwise, and a calibrated layer on the card against the CPU
+bit for bit.
 """
 
 import pytest
@@ -606,3 +609,116 @@ def test_mamba_prefill_on_the_kernel_matches_the_cpu(cuda):
     picked = last.gather(1, tok.cpu()[:, None])[:, 0]
     assert bool(((tok.cpu() == want_tok)
                  | (last.amax(1) - picked <= 2 * tol)).all())
+
+
+# The int8 kernel (csrc/trim_conv2d_q8.cu) at its edges: Cin 3 and
+# depthwise (the word loader, Cin/g rounded up to 4), stride 2 and 'valid',
+# a nonzero zero point as the 'same' padding (clip edges -128 and 127), no
+# bias, tile_cout 3 and Cout % 4 != 0 (4-byte weight copies), carry
+# segments of several strips with the prefetching ring, Cin 512 (eight
+# weight stages a tap), and x at a 4-byte and a 1-byte offset (the 16-byte
+# loader falls back to words, then to bytes).  Bitwise against the plain
+# version for None / relu (exact int32 sums, one int32 add and one f32
+# multiply in both), within TOL for gelu / silu (the transcendentals);
+# carry and halo bitwise equal.
+# (n, h, w, cin, cout, k, stride, groups, padding, act, zp, bias, tile_h,
+#  tile_cout, offset)
+Q8_CASES = [
+    (2, 13, 11, 8, 12, 3, 1, 2, "same", "relu", 3, True, None, None, 0),
+    (2, 13, 11, 8, 12, 3, 2, 2, "valid", None, -7, True, None, None, 0),
+    (2, 10, 10, 3, 64, 3, 1, 1, "same", "relu", -128, True, None, None, 0),
+    (2, 40, 40, 32, 32, 3, 1, 32, "same", "relu", 127, True, None, None, 0),
+    (1, 12, 12, 8, 16, 3, 1, 1, "same", None, 5, False, None, None, 0),
+    (8, 96, 96, 32, 64, 3, 1, 1, "same", "relu", 9, True, 2, None, 0),
+    (2, 20, 33, 64, 70, 3, 1, 1, "same", "relu", -3, True, 4, 3, 0),
+    (1, 16, 16, 512, 64, 3, 1, 1, "same", "relu", 17, True, None, None, 0),
+    (2, 19, 23, 16, 24, 3, 2, 1, "same", "gelu", 6, True, None, None, 4),
+    (2, 19, 23, 16, 24, 5, 2, 1, "same", "silu", 6, True, None, None, 1),
+    (4, 56, 56, 128, 256, 3, 2, 1, "same", "relu", -1, True, None, None, 0),
+]
+
+
+def _q8_inputs(case, device):
+    (n, h, w, cin, cout, k, s, g, padding, act, zp, bias, _, _,
+     offset) = case
+    gen = torch.Generator(device="cuda").manual_seed(h * w + cin)
+    flat = torch.randint(-128, 128, (n * h * w * cin + offset,),
+                         generator=gen, device=device, dtype=torch.int8)
+    x = flat[offset:].view(n, h, w, cin)
+    wt = torch.randint(-127, 128, (k, k, cin // g, cout), generator=gen,
+                       device=device, dtype=torch.int8)
+    bq = torch.randint(-2 ** 20, 2 ** 20, (cout,), generator=gen,
+                       device=device, dtype=torch.int32) if bias else None
+    scale = torch.rand((cout,), generator=gen, device=device) * 1e-3 + 1e-5
+    kw = dict(zero_point=zp, stride=s, pad=conv_pads(h, w, k, s, padding),
+              groups=g, activation=act)
+    return x, wt, bq, scale, kw
+
+
+@pytest.mark.parametrize("case", Q8_CASES,
+                         ids=[str(i) for i in range(len(Q8_CASES))])
+def test_q8_kernel_equals_plain(cuda, case):
+    x, wt, bq, scale, kw = _q8_inputs(case, cuda)
+    tile_h, tile_cout = case[12], case[13]
+    plain = tc.trim_conv2d_q8_plain(x, wt, bq, scale, **kw)
+    out = {}
+    for df in ("carry", "halo"):
+        before = tc.LAUNCHES[f"q8_{df}"]
+        out[df] = tc.trim_conv2d_q8(x, wt, bq, scale, dataflow=df,
+                                    tile_h=tile_h, tile_cout=tile_cout,
+                                    **kw)
+        assert tc.LAUNCHES[f"q8_{df}"] == before + 1
+    torch.cuda.synchronize()
+    assert out["carry"].dtype == torch.float32
+    assert torch.equal(out["carry"], out["halo"])
+    if kw["activation"] in (None, "relu"):
+        assert torch.equal(out["carry"], plain)
+    else:
+        tol = TOL * max(1.0, plain.abs().max().item())
+        assert (out["carry"] - plain).abs().max().item() <= tol
+
+
+def test_q8_kernel_is_batch_invariant_and_takes_packed_weights(cuda):
+    x, wt, bq, scale, kw = _q8_inputs(Q8_CASES[0], cuda)
+    full = tc.trim_conv2d_q8(x, wt, bq, scale,
+                             w_packed=tc.pack_q8_weights(wt), **kw)
+    for i in range(x.shape[0]):
+        one = tc.trim_conv2d_q8(x[i:i + 1].contiguous(), wt, bq, scale, **kw)
+        assert torch.equal(one[0], full[i])
+
+
+def test_q8_calibrated_layer_on_the_card_equals_the_cpu(cuda):
+    """ops.conv2d on calibrated weights: the quantize pass, the dequant
+    parameters and the kernel on the card equal the CPU's bit for bit."""
+    from repro_torch.models import layers
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 28, 28, 64), generator=gen) + 0.2
+    p = layers.calibrate_conv2d(
+        {"w": torch.randn((3, 3, 64, 96), generator=gen) * 0.05,
+         "b": torch.randn((96,), generator=gen)}, x)
+    pk = p["packed"]
+    pc = pk.to(cuda)
+    assert torch.equal(ref.quantize_int8(x.to(cuda), pc.input_scale,
+                                         pc.zero_point).cpu(),
+                       ref.quantize_int8(x, pk.input_scale, pk.zero_point))
+    want = ops.conv2d(x, pk, activation="relu")
+    for df in ("carry", "halo"):
+        got = ops.conv2d(x.to(cuda), pc, activation="relu", dataflow=df)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_q8_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    x, wt, bq, scale, kw = _q8_inputs(Q8_CASES[0], cuda)
+    with pytest.raises(ValueError):
+        tc.trim_conv2d_q8(x, wt.cpu(), bq, scale, **kw)
+    with pytest.raises(ValueError):
+        tc.trim_conv2d_q8(x, wt, bq, scale, w_packed=wt, **kw)
+    with pytest.raises(ValueError):
+        tc.trim_conv2d_q8(x.permute(0, 2, 1, 3), wt, bq, scale, **kw)
+    with pytest.raises(TypeError):
+        tc.trim_conv2d_q8(x.float(), wt, bq, scale, **kw)
+    with pytest.raises(ValueError):      # window beyond shared memory
+        tc.trim_conv2d_q8(
+            torch.zeros((1, 8, 8, 65536), dtype=torch.int8, device=cuda),
+            torch.zeros((3, 3, 65536, 4), dtype=torch.int8, device=cuda),
+            None, torch.ones(4, device=cuda), pad=1)

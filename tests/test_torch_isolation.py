@@ -214,7 +214,12 @@ def test_plain_path_does_not_count_launches():
         torch.ones((1, 6, 6, 2)),
         [torch.ones((3, 3, 2, 3)), torch.ones((3, 3, 3, 2))], [None, None],
         group=build_group(FUSED_TOPO, 0, n=1, strip_rows=2))
-    assert tc.LAUNCHES == {"carry": 0, "halo": 0, "wgrad": 0, "fused": 0}
+    for df in ("carry", "halo"):
+        tc.trim_conv2d_q8(torch.ones((1, 6, 6, 2), dtype=torch.int8),
+                          torch.ones((3, 3, 2, 2), dtype=torch.int8), None,
+                          torch.ones(2), zero_point=3, pad=1, dataflow=df)
+    assert tc.LAUNCHES == {"carry": 0, "halo": 0, "wgrad": 0, "fused": 0,
+                           "q8_carry": 0, "q8_halo": 0}
 
 
 def test_build_raises_without_nvcc(monkeypatch):
