@@ -28,10 +28,17 @@ Phases, each raising on failure (each prints its seconds):
    carry and halo) at the same 15 shapes at batch 8 and 1, on int8 data
    with a nonzero zero point as the 'same' padding: bitwise equal to its
    plain version and carry == halo bitwise, the quantize pass of an f32
-   input on the card bitwise equal to the CPU's; each one's time, TOPS
-   and blocks beside the plain version's, ``F.conv2d``'s in f32 (TF32
-   off; context: no PyTorch call computes the int8 function) and the
-   bound (operations at 1,979 TOPS, int8 in and f32 out at 3.35 TB/s);
+   input on the card bitwise equal to the CPU's; the int8 library's
+   ptxas registers and spill by instance and its SASS, where every
+   tensor-core instance must issue ``IMMA``; each layer's route, warps,
+   weight stages, blocks and instance registers, each dataflow's device
+   time from CUDA graphs (the ``__dp4a`` design's in brackets), carry
+   through the wrapper eagerly, TOPS, the plain version's time,
+   ``torch._int_mm`` on the layer's im2col GEMM shape and ``F.conv2d``
+   in f32 (TF32 off; context only: no PyTorch call computes the int8
+   function) and the bound (operations at 1,979 TOPS, int8 in and f32
+   out at 3.35 TB/s);
+   every VGG-16 layer on a tensor-core route;
 5. backward kernel check — at the same 15 shapes: the weight-gradient
    kernel against its plain version within 1e-4 * max|plain| (see
    ``WGRAD_TOLERANCE``), two launches bitwise equal, and its time beside
@@ -416,16 +423,121 @@ def check_kernels(torch, n: int = 8):
     return rows
 
 
-def check_q8_kernels(torch, n: int = 8):
+# The int8 kernel's previous design (__dp4a on the integer pipes) at the
+# int8 kernel check's shapes, carry ms a launch: NVIDIA H100 80GB HBM3,
+# 700.00 W, PERF.md section 5 (printed in brackets beside this run's times)
+DP4A_Q8_CARRY_MS = {
+    8: dict(conv1=0.383, conv2=0.558, conv3=0.292, conv4=0.440, conv5=0.238,
+            conv6=0.393, conv7=0.395, conv8=0.260, conv9=0.466, conv10=0.461,
+            conv11=0.149, conv12=0.149, conv13=0.149, s2_56x128=0.090,
+            dw_112x32=0.231),
+    1: dict(conv1=0.138, conv2=0.147, conv3=0.064, conv4=0.085, conv5=0.069,
+            conv6=0.089, conv7=0.092, conv8=0.085, conv9=0.145, conv10=0.145,
+            conv11=0.144, conv12=0.145, conv13=0.146, s2_56x128=0.078,
+            dw_112x32=0.083),
+}
+DP4A_Q8_SUMS = {8: (4.333, 4.218), 1: (1.493, 1.301)}   # carry, halo
+
+
+def time_graph_ms(torch, fn, reps: int = 10) -> float:
+    """Device time of ``fn`` a launch: ``reps`` launches captured in one
+    CUDA graph and replayed between CUDA events, so that the wrapper's
+    host time (which exceeds a small kernel's) is not in it."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
+
+
+def q8_build_check() -> dict:
+    """The int8 library's instances: ptxas registers and spill bytes, and
+    the tensor-core instructions (``IMMA``) in each one's SASS
+    (``cuobjdump -sass``): every instance of the tensor-core routes must
+    issue them.  Returns {(kernel, im2col, m16 fragments, min blocks):
+    (registers, spill stores, spill loads, IMMA count)}."""
+    import re
+    import shutil
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", build.library(
+        "trim_conv2d_q8")._name], capture_output=True, text=True,
+        check=True, timeout=300).stdout
+    imma, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            imma[fn] = 0
+        elif fn is not None and "IMMA" in line:
+            imma[fn] += 1
+
+    def key(name):
+        m = re.search(r"trim_conv2d_q8_(mma|dp4a)_kernelI(?:Lb([01])E"
+                      r"Li(\d)E)?Li([12])E", name)
+        if m is None:
+            raise AssertionError(f"q8: unknown kernel instance {name}")
+        return (m.group(1), m.group(2) == "1", int(m.group(3) or 0),
+                int(m.group(4)))
+
+    out, cur = {}, None
+    for line in build.build_log.get("trim_conv2d_q8", {}).get("ptxas", []):
+        if "entry function" in line:
+            cur = key(line)
+            out[cur] = [0, 0, 0, 0]
+        elif cur is not None and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            out[cur][1:3] = [int(m.group(1)), int(m.group(2))]
+        elif cur is not None and "Used" in line and "registers" in line:
+            out[cur][0] = int(re.search(r"Used (\d+) registers",
+                                        line).group(1))
+    for f, count in imma.items():
+        k = key(f)
+        if k is not None:
+            out.setdefault(k, [0, 0, 0, 0])[3] = count
+    mma = {k: v for k, v in out.items() if k[0] == "mma"}
+    if len(mma) != 6 or min(v[3] for v in mma.values()) == 0:
+        raise AssertionError(f"q8 SASS: IMMA counts by instance {out}")
+    print("int8 library: " + "; ".join(
+        f"{k[0]}{'/im2col' if k[1] else ''}{f' {k[2]} frags' if k[2] else ''}"
+        f" x{k[3]}: {v[0]} registers, "
+        f"spill {v[1]}/{v[2]} B, {v[3]} IMMA" for k, v in sorted(out.items())))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def check_q8_kernels(torch, n: int = 8, build_info: dict | None = None):
     """The int8 kernel (carry and halo) against its plain version at the
     kernel check's 15 shapes at batch ``n``: bitwise equal (exact int32
     sums, one int32 add and one f32 multiply in both), carry == halo
     bitwise, and the quantize pass of an f32 input of the same shape on
-    the card equal to the CPU's bit for bit; each one's time, TOPS and
-    blocks beside the plain version's, ``F.conv2d``'s in f32 (TF32 off,
-    context only: no PyTorch call computes an int8 conv with int32
-    accumulation) and the bound (operations at the int8 tensor-core rate,
-    bytes int8 in and f32 out)."""
+    the card equal to the CPU's bit for bit.  Per layer: the plan's route,
+    warps (m x n x k, m16 fragments a warp), weight stages a strip and
+    blocks, the instance's ptxas registers and spill; each dataflow's
+    device time (:func:`time_graph_ms`) with the ``__dp4a`` design's in
+    brackets, carry
+    through the wrapper eagerly (host time included), TOPS, the plain
+    version's time, ``torch._int_mm`` on the layer's im2col GEMM shape
+    and ``F.conv2d`` in f32 (TF32 off; both context only: GEMM only, not
+    the same function, which no PyTorch call computes) and the bound
+    (operations at the int8 tensor-core rate, bytes int8 in and f32
+    out)."""
     import torch.nn.functional as F
     from repro_torch.core.conv_plan import ConvPlan
     from repro_torch.kernels.ref import conv_pads, pad_nhwc, quantize_int8
@@ -435,13 +547,18 @@ def check_q8_kernels(torch, n: int = 8):
 
     gen = torch.Generator(device="cuda").manual_seed(100 + n)
     rows = []
+    old = DP4A_Q8_CARRY_MS[n]
     print(f"int8 kernel check, batch {n} (relu, int32 bias, 'same' padded "
-          "with the zero point; times in ms, device events; blocks "
-          "carry/halo; tile T x W x C_out):")
-    print(f"  {'case':10s} {'max_err':>7s} {'c==h':>5s} {'quant':>5s} "
-          f"{'carry':>8s} {'halo':>8s} {'plain':>8s} {'F.c f32':>8s} "
-          f"{'bound':>8s} by    {'TOPS c':>6s} {'TOPS h':>6s} "
-          f"{'blocks':>10s} tile")
+          "with the zero point; device ms a launch from CUDA graphs, the "
+          "__dp4a design's carry in brackets; eager: carry through the "
+          "wrapper; "
+          "int_mm: torch._int_mm on the im2col GEMM shape, GEMM only, not "
+          "the same function; warps m x n x k / m16 fragments; blocks "
+          "carry/halo; tile T x W x C_out; registers/spill B):")
+    print(f"  {'case':10s} {'c==h':>5s} {'carry (dp4a)':>15s} "
+          f"{'halo':>7s} {'eager':>7s} {'plain':>7s} {'int_mm':>7s} "
+          f"{'F.c f32':>7s} {'bound':>7s} by    {'TOPS':>6s} route  "
+          f"{'warps':>8s} st {'blocks':>10s} {'tile':>9s} regs")
     for name, xs, wsh, stride, groups in kernel_cases(n):
         k, cout = wsh[0], wsh[3]
         xf = torch.randn(xs, generator=gen, device="cuda")
@@ -474,52 +591,78 @@ def check_q8_kernels(torch, n: int = 8):
         if not torch.equal(carry, halo):
             raise AssertionError(f"q8 {name} n={n}: carry and halo differ "
                                  "bitwise")
-        xp = pad_nhwc(xf, pads).permute(0, 3, 1, 2)
-        wl = torch.randn(wsh, generator=gen, device="cuda").permute(
-            3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        bf = torch.randn((cout,), generator=gen, device="cuda")
-        t = {
-            "carry": time_ms(torch, lambda: trim_conv2d_q8(
-                x, w, bias_q, scale, w_packed=wp, **kw)),
-            "halo": time_ms(torch, lambda: trim_conv2d_q8(
-                x, w, bias_q, scale, w_packed=wp, dataflow="halo", **kw)),
-            "plain": time_ms(torch, lambda: trim_conv2d_q8_plain(
-                x, w, bias_q, scale, **kw), reps=3),
-            # context only: the f32 conv of the same shape, one call
-            "f32_library": time_ms(torch, lambda: F.conv2d(
-                xp, wl, bf, stride=stride, groups=groups)),
-        }
+        del plain, carry, halo
         plan = ConvPlan.build(xs, wsh, stride=stride, pad=pads,
                               groups=groups, dtype_bytes=1)
         halo_plan = ConvPlan.build(xs, wsh, stride=stride, pad=pads,
                                    groups=groups, dataflow="halo",
                                    dtype_bytes=1)
+        # context only: the im2col GEMM of the same shape on cuBLASLt, and
+        # the f32 conv, one call each
+        gk = -(-k * k * wsh[2] // 8) * 8
+        ga = torch.randint(-127, 128, (n * plan.h_out * plan.w_out, gk),
+                           generator=gen, device="cuda", dtype=torch.int8)
+        gb = torch.randint(-127, 128, (cout, gk), generator=gen,
+                           device="cuda", dtype=torch.int8).t()
+        xp = pad_nhwc(xf, pads).permute(0, 3, 1, 2)
+        wl = torch.randn(wsh, generator=gen, device="cuda").permute(
+            3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        bf = torch.randn((cout,), generator=gen, device="cuda")
+        t = {
+            "carry": time_graph_ms(torch, lambda: trim_conv2d_q8(
+                x, w, bias_q, scale, w_packed=wp, **kw)),
+            "halo": time_graph_ms(torch, lambda: trim_conv2d_q8(
+                x, w, bias_q, scale, w_packed=wp, dataflow="halo", **kw)),
+            "eager": time_ms(torch, lambda: trim_conv2d_q8(
+                x, w, bias_q, scale, w_packed=wp, **kw)),
+            "plain": time_ms(torch, lambda: trim_conv2d_q8_plain(
+                x, w, bias_q, scale, **kw), reps=3),
+            "int_mm": time_graph_ms(torch, lambda: torch._int_mm(ga, gb)),
+            "f32_library": time_ms(torch, lambda: F.conv2d(
+                xp, wl, bf, stride=stride, groups=groups)),
+        }
         ops_ms = plan.flops / PEAK_INT8_OPS * 1e3
         bytes_ms = plan.min_bytes() / PEAK_BYTES_PER_S * 1e3
         bound = max(ops_ms, bytes_ms)
         by = "operations" if ops_ms >= bytes_ms else "bytes"
+        inst = ("dp4a", False, 0, plan.blocks_per_sm) \
+            if plan.route == "dp4a" else \
+            ("mma", plan.route == "im2col",
+             4 if plan.m_frags > 2 else 2, plan.blocks_per_sm)
+        regs = (build_info or {}).get(inst)
         rows.append(dict(name=name, err=err, bound=bound, by=by,
                          ops_ms=ops_ms, bytes_ms=bytes_ms, ops=plan.flops,
-                         vgg=name.startswith("conv"), **t))
-        print(f"  {name:10s} {err:7.1e} {'True':>5s} {'True':>5s} "
-              f"{t['carry']:8.3f} {t['halo']:8.3f} {t['plain']:8.3f} "
-              f"{t['f32_library']:8.3f} {bound:8.4f} {by:5s} "
-              f"{plan.flops / t['carry'] / 1e9:6.2f} "
-              f"{plan.flops / t['halo'] / 1e9:6.2f} "
+                         vgg=name.startswith("conv"), route=plan.route, **t))
+        warps = (f"{plan.warps_m}x{plan.warps_n}x{plan.warps_k}/"
+                 f"{plan.m_frags}" if plan.tensor_cores else "-")
+        stages = plan.weight_stages if plan.tensor_cores else "-"
+        print(f"  {name:10s} {'True':>5s} {t['carry']:7.4f} "
+              f"({old[name]:.3f}) {t['halo']:7.4f} {t['eager']:7.4f} "
+              f"{t['plain']:7.3f} {t['int_mm']:7.4f} "
+              f"{t['f32_library']:7.4f} {bound:7.4f} {by[:5]:5s} "
+              f"{plan.flops / t['carry'] / 1e9:6.1f} {plan.route:6s} "
+              f"{warps:>8s} {stages!s:>2s} "
               f"{plan.blocks:>5d}/{halo_plan.blocks:<4d} "
-              f"{plan.th_out}x{plan.tile_w}x{plan.tile_cout}")
-        del xf, x, w, wp, plain, carry, halo, xp, wl
+              f"{plan.th_out:>3d}x{plan.tile_w}x{plan.tile_cout:<3d} "
+              f"{'?' if regs is None else f'{regs[0]}/{regs[1]}'}")
+        del xf, x, w, wp, xp, wl, ga, gb
     torch.cuda.empty_cache()
     vgg = [r for r in rows if r["vgg"]]
     ops = sum(r["ops"] for r in vgg)
+    c_sum = sum(r["carry"] for r in vgg)
+    old_c, old_h = DP4A_Q8_SUMS[n]
     print(f"int8 kernel check, batch {n}, sum of the 13 VGG-16 layers: "
-          f"carry {sum(r['carry'] for r in vgg):.3f} ms "
-          f"({ops / sum(r['carry'] for r in vgg) / 1e9:.1f} TOPS), halo "
-          f"{sum(r['halo'] for r in vgg):.3f} ms, plain "
-          f"{sum(r['plain'] for r in vgg):.3f} ms, F.conv2d f32 "
-          f"{sum(r['f32_library'] for r in vgg):.3f} ms, bound "
-          f"{sum(r['bound'] for r in vgg):.4f} ms ({ops / 1e9:.1f} GOP; "
-          f"at the __dp4a peak {ops / PEAK_DP4A_OPS * 1e3:.3f} ms)")
+          f"carry {c_sum:.4f} ms (dp4a: {old_c:.3f}; {ops / c_sum / 1e9:.1f}"
+          f" TOPS), halo {sum(r['halo'] for r in vgg):.4f} ms (dp4a: "
+          f"{old_h:.3f}), eager carry {sum(r['eager'] for r in vgg):.4f} "
+          f"ms, plain {sum(r['plain'] for r in vgg):.3f} ms, torch._int_mm "
+          f"{sum(r['int_mm'] for r in vgg):.4f} ms (GEMM only), F.conv2d "
+          f"f32 {sum(r['f32_library'] for r in vgg):.3f} ms, bound "
+          f"{sum(r['bound'] for r in vgg):.4f} ms ({ops / 1e9:.1f} GOP; at "
+          f"the __dp4a peak {ops / PEAK_DP4A_OPS * 1e3:.3f} ms); routes "
+          f"{', '.join(sorted({r['route'] for r in vgg}))}")
+    if any(r["route"] == "dp4a" for r in vgg):
+        raise AssertionError("q8: a VGG-16 layer took the dp4a route")
     return rows
 
 
@@ -1915,8 +2058,9 @@ def main() -> int:
     rows = check_kernels(torch, 8)
     rows1 = check_kernels(torch, 1)
     phase.done("kernel check")
-    qrows = check_q8_kernels(torch, 8)
-    qrows1 = check_q8_kernels(torch, 1)
+    q8_build = q8_build_check()
+    qrows = check_q8_kernels(torch, 8, q8_build)
+    qrows1 = check_q8_kernels(torch, 1, q8_build)
     phase.done("int8 kernel check")
     brows = check_backward_kernels(torch)
     phase.done("backward kernel check")

@@ -26,8 +26,14 @@ all ``Cin/groups`` channels:
   :data:`SMEM_PER_BLOCK`.
 
 ``dtype_bytes`` picks the kernel: 4 is the f32 kernel, 1 the int8 kernel
-of ``kernels/csrc/trim_conv2d_q8.cu`` (int8 operands, f32 output), which
-takes the same blocks, threads and strips with its window held in bytes.
+of ``kernels/csrc/trim_conv2d_q8.cu`` (int8 operands, f32 output), whose
+window is held in bytes.  The int8 kernel has three routes
+(:attr:`ConvPlan.route`): ``"mma"`` (Cin/g a multiple of 16) and
+``"im2col"`` (small Cin, groups == 1) run ``mma.sync`` m16n8k32 on the
+int8 tensor cores with 8 warps of ``warps_m x warps_n x warps_k``, each
+holding ``m_frags`` m16 x 4 n8 fragments, the M tile sized per call by a
+clock model (:func:`_q8_strip_clocks`); ``"dp4a"`` (depthwise and other
+grouped convs with Cin/g < 16) keeps the f32 kernel's threads and tiles.
 
 The forward kernel's constants are the ``CONV_*`` values below; they
 mirror the ``constexpr`` values at the top of ``trim_conv2d.cu``; the
@@ -54,12 +60,37 @@ CONV_WEIGHT_CHUNK = 16       # input channels of one tap a weight stage
 CONV_WEIGHT_STAGES = 2       # the weight ring's stages (kStages)
 CONV_BLOCKS_PER_SM = 2       # __launch_bounds__(kThreads, 2): <= 128 regs
 CONV_MAX_TILE_W = 64         # widest band the planner tries
-# The int8 forward kernel (trim_conv2d_q8.cu): CONV_THREADS, CONV_POSITIONS,
-# CONV_COUT and CONV_BLOCKS_PER_SM as above, one byte an operand element
+# The int8 forward kernel (trim_conv2d_q8.cu), one byte an operand element;
+# CONV_THREADS and CONV_BLOCKS_PER_SM as above.  Tensor-core routes:
+Q8_WARPS = CONV_THREADS // WARP   # warps a block (kWarps)
+Q8_MMA_M = 16                # positions of one m16n8k32 fragment (kMmaM)
+Q8_MMA_N = 8                 # output channels of one fragment (kMmaN)
+Q8_MMA_K = 32                # bytes of k of one k-step (kMmaK)
+Q8_WARP_N = 32               # output channels a warp: 4 n8 fragments (kWarpN)
+Q8_MAX_M_FRAGS = 4           # m16 fragments a warp at most (kMaxMFrags),
+Q8_M_FRAGS_TWO = 2           # ... two blocks an SM (kMaxMFragsTwo: <= 128
+                             # registers; more take an SM alone)
+Q8_STAGE_STEPS = 4           # k-steps of one weight stage (kStageSteps)
+Q8_STAGES = 3                # the weight ring's stages (kStages)
+Q8_ROW_PAD = 16              # bytes past each weight-stage and im2col row
+Q8_STAGING = 16 * (Q8_WARP_N + 4) * 4   # a warp's epilogue staging bytes
+Q8_IM2COL_MAX_K = 256        # longest padded (ki, kj, ci) row of im2col
+# ... and the dp4a route (the __dp4a loop: CONV_POSITIONS x CONV_COUT a
+# thread)
 Q8_QUAD = 4                  # input channels of one __dp4a word (kQuad)
 Q8_VEC = 16                  # input channels of one 16-byte window load (kVec)
 Q8_WEIGHT_CHUNK = 64         # input channels of one tap a weight stage
-Q8_WEIGHT_STAGES = 2         # the weight ring's stages (kStages)
+Q8_WEIGHT_STAGES = 2         # the dp4a weight ring's stages (kDp4aStages)
+Q8_ROUTES = ("mma", "im2col", "dp4a")
+# The int8 plan's clock model (a ranking of tiles): the kernel is bound by
+# latency, not by the tensor cores (mma.sync s8 runs 1,230-1,280 TOPS from
+# registers on the H100, tools/q8_ablation.py), so a warp's k-step takes
+# about Q8_KSTEP_CLOCKS whatever its tile, the blocks resident on an SM
+# overlap, and one m16 fragment's epilogue adds Q8_EPILOGUE_CLOCKS
+# (clock64 probes and forced tiles on the card, PERF.md section 6)
+Q8_KSTEP_CLOCKS = 900.0
+Q8_EPILOGUE_CLOCKS = 2000.0
+Q8_TILE_COUTS = (128, 64, 32)   # C_out tiles the int8 plan tries
 DATAFLOWS = ("carry", "halo")
 DTYPE_BYTES = {4: "float32", 1: "int8"}
 
@@ -100,15 +131,60 @@ def _smem_bytes(window_elems: int, threads_cout: int,
 def _channel_pitches(cin_per_group: int, dtype_bytes: int = 4) -> list:
     """Window channel pitches to try, best first.  f32: ``Cin/g + 4``
     (bank-conflict free) where Cin/g is a multiple of 4, then ``Cin/g``.
-    int8: ``Cin/g + 16`` where Cin/g is a multiple of 16 (16-byte window
-    loads), then ``Cin/g``; otherwise Cin/g rounded up to a :data:`Q8_QUAD`
-    (four channels a ``__dp4a`` word, the extra ones zero)."""
+    int8 (the dp4a route): Cin/g rounded up to a :data:`Q8_QUAD` (four
+    channels a ``__dp4a`` word, the extra ones zero)."""
     if dtype_bytes == 4:
         c = cin_per_group
         return [c + 4, c] if c % 4 == 0 else [c]
+    return [q8_cin4(cin_per_group)]
+
+
+def q8_cin4(cin_per_group: int) -> int:
+    """Cin/g rounded up to a :data:`Q8_QUAD`: the channels of one tap in
+    the int8 kernel's packed weight row (the extra ones zero)."""
+    return -(-cin_per_group // Q8_QUAD) * Q8_QUAD
+
+
+def q8_tap_bytes(cin_per_group: int) -> int:
+    """Bytes of one tap in the int8 kernel's packed weight row: Cin/g
+    rounded up to a 32-byte k-step where it is a multiple of 16 (the mma
+    route: a 16-channel tail zero-padded, so a k-step never spans two
+    taps), else :func:`q8_cin4`."""
     if cin_per_group % Q8_VEC == 0:
-        return [cin_per_group + Q8_VEC, cin_per_group]
-    return [-(-cin_per_group // Q8_QUAD) * Q8_QUAD]
+        return -(-cin_per_group // Q8_MMA_K) * Q8_MMA_K
+    return q8_cin4(cin_per_group)
+
+
+def q8_kpad(k: int, cin_per_group: int) -> int:
+    """Bytes of one output channel's packed int8 weight row: the
+    ``(ki, kj, ci)`` axis, ``K * K`` taps of :func:`q8_tap_bytes`, rounded
+    up to a k-step (:data:`Q8_MMA_K`)."""
+    return -(-k * k * q8_tap_bytes(cin_per_group) // Q8_MMA_K) * Q8_MMA_K
+
+
+def q8_route(cin_per_group: int, groups: int, k: int) -> str:
+    """The int8 kernel's route for a shape: ``"mma"`` (the tensor cores
+    straight from the window) where Cin/g is a multiple of 16,
+    ``"im2col"`` (an im2col tile, then the same MMA loop) for groups == 1
+    and a packed row of at most :data:`Q8_IM2COL_MAX_K` bytes, else
+    ``"dp4a"`` (one output channel a depthwise A tile leaves the tensor
+    cores nothing to fill)."""
+    if cin_per_group % Q8_VEC == 0:
+        return "mma"
+    if groups == 1 and q8_kpad(k, cin_per_group) <= Q8_IM2COL_MAX_K:
+        return "im2col"
+    return "dp4a"
+
+
+def _q8_mma_pitches(cin_per_group: int) -> list:
+    """The mma route's window pitches, best first: ``Cin/g`` or ``Cin/g
+    + 16``, whichever is an odd count of 16-byte quads, so that the 8
+    neighbouring positions an ``ldmatrix`` phase reads (one pitch apart
+    on the phase-split window) hit 8 distinct bank quads; then
+    ``Cin/g``."""
+    c = cin_per_group
+    odd = c if (c // Q8_VEC) % 2 else c + Q8_VEC
+    return [odd] if odd == c else [odd, c]
 
 
 def _blocks_per_sm(smem: int) -> int:
@@ -134,7 +210,17 @@ class ConvPlan:
     window's channel pitch in elements (:func:`_channel_pitches`): for f32
     ``Cin/groups``, plus 4 where it is a multiple of 4 and the padded
     window fits, so that the two to four positions a warp reads at once
-    fall on different banks; for int8 likewise plus 16 (one 16-byte load).
+    fall on different banks.
+
+    int8 (``dtype_bytes=1``): ``route`` names the kernel's route.  On the
+    tensor-core routes the 8 warps are ``warps_m x warps_n x warps_k``
+    (along positions, C_out and the ``(ki, kj, ci)`` axis), each with
+    ``m_frags`` m16 fragments of positions x 4 n8 fragments of C_out, so
+    a strip is at most ``slots = 16 m_frags warps_m`` positions and a C_out
+    tile at most ``32 warps_n`` channels; the window's columns are stored
+    phase-split by the stride (:attr:`col_slots`) and ``cin_stride`` is an
+    odd count of 16-byte quads where it fits (:func:`_q8_mma_pitches`).
+    The dp4a route keeps the f32 kernel's threads (the warp fields 0).
     """
 
     n: int
@@ -152,6 +238,9 @@ class ConvPlan:
     dataflow: str = "carry"
     cin_stride: int = 0          # 0: Cin/groups
     dtype_bytes: int = 4         # 4: the f32 kernel; 1: the int8 kernel
+    warps_n: int = 0             # int8 tensor-core routes: warps along C_out
+    warps_k: int = 0             # ... along the (ki, kj, ci) axis
+    m_frags: int = 0             # ... m16 fragments of positions a warp
 
     def __post_init__(self):
         if self.dtype_bytes not in DTYPE_BYTES:
@@ -170,6 +259,19 @@ class ConvPlan:
             object.__setattr__(self, "cin_stride", self.cin_per_group)
         if self.cin_stride < self.cin_per_group:
             raise ValueError(f"cin_stride={self.cin_stride} < Cin/groups")
+        if self.tensor_cores and not (
+                self.warps_n in (1, 2, 4) and self.warps_k in (1, 2, 4)
+                and self.warps_n * self.warps_k <= Q8_WARPS
+                and 1 <= self.m_frags <= Q8_MAX_M_FRAGS
+                and (self.warps_k == 1 or self.m_frags == 1)
+                and self.tile_cout <= Q8_WARP_N * self.warps_n):
+            raise ValueError(
+                f"the int8 {self.route} route takes warps_n and warps_k in "
+                f"(1, 2, 4), at most {Q8_WARPS} warps, 1..{Q8_MAX_M_FRAGS} "
+                f"m16 fragments (1 where warps_k > 1) and tile_cout <= "
+                f"{Q8_WARP_N} x warps_n; got warps_n={self.warps_n}, "
+                f"warps_k={self.warps_k}, m_frags={self.m_frags}, "
+                f"tile_cout={self.tile_cout}")
 
     # -- construction ------------------------------------------------------
 
@@ -258,6 +360,73 @@ class ConvPlan:
         each."""
         return self.n * self.groups * self.co_tiles * self.n_bands
 
+    # -- the int8 kernel's route -------------------------------------------
+
+    @property
+    def route(self) -> str:
+        """``"f32"``, or the int8 kernel's route (:func:`q8_route`)."""
+        if self.dtype_bytes == 4:
+            return "f32"
+        return q8_route(self.cin_per_group, self.groups, self.k)
+
+    @property
+    def tensor_cores(self) -> bool:
+        return self.route in ("mma", "im2col")
+
+    @property
+    def cin4(self) -> int:
+        return q8_cin4(self.cin_per_group)
+
+    @property
+    def kpad(self) -> int:
+        """Bytes of one output channel's packed int8 weight row."""
+        return q8_kpad(self.k, self.cin_per_group)
+
+    @property
+    def k_steps(self) -> int:
+        """Tensor-core routes: k-steps of 32 bytes a strip, the packed
+        row's (mma: each tap's Cin/g in steps of 32; im2col: the im2col
+        row's)."""
+        return self.kpad // Q8_MMA_K
+
+    @property
+    def weight_stages(self) -> int:
+        """Tensor-core routes: weight-ring stages a strip."""
+        return -(-self.k_steps // Q8_STAGE_STEPS)
+
+    @property
+    def warps_m(self) -> int:
+        """Tensor-core routes: warps along positions (0 otherwise)."""
+        if not self.tensor_cores:
+            return 0
+        return Q8_WARPS // (self.warps_n * self.warps_k)
+
+    @property
+    def col_slots(self) -> int:
+        """Window columns a ring row holds.  Tensor-core routes: phase
+        split, column ``c`` at ``(c % s) * ceil(cols / s) + c // s``, so
+        positions one output column apart are one pitch apart at every
+        tap; otherwise the window's columns in order."""
+        if not self.tensor_cores:
+            return self.window_cols
+        return self.stride * -(-self.window_cols // self.stride)
+
+    @property
+    def row_bytes(self) -> int:
+        """Bytes of one window ring row.  mma: the columns plus the fewest
+        16-byte quads that make the next output row (``stride`` ring rows
+        on) continue this one's bank-quad sequence, so an ``ldmatrix``
+        phase that crosses output rows stays conflict free (none where
+        the stride and band make that impossible)."""
+        cols = self.col_slots * self.cin_stride
+        if self.route != "mma":
+            return cols
+        quads = self.cin_stride // 16
+        return cols + 16 * next(
+            (d for d in range(8)
+             if (self.stride * (cols // 16 + d) - self.tile_w * quads) % 8
+             == 0), 0)
+
     # -- thread layout -----------------------------------------------------
 
     @property
@@ -267,7 +436,10 @@ class ConvPlan:
 
     @property
     def slots(self) -> int:
-        """Output positions the block's threads hold in registers."""
+        """Output positions the block holds in registers: the warps' m16
+        fragments on the int8 tensor-core routes."""
+        if self.tensor_cores:
+            return Q8_MMA_M * self.m_frags * self.warps_m
         return CONV_THREADS // self.threads_cout * CONV_POSITIONS
 
     @property
@@ -278,6 +450,14 @@ class ConvPlan:
     # -- segments and shared memory ------------------------------------------
 
     def _smem(self, ring_rows: int) -> int:
+        if self.tensor_cores:
+            # window ring, weight ring, epilogue staging, im2col tile
+            window = -(-ring_rows * self.row_bytes // 16) * 16
+            stages = (Q8_STAGES * Q8_WARP_N * self.warps_n
+                      * (Q8_STAGE_STEPS * Q8_MMA_K + Q8_ROW_PAD))
+            im2col = (self.slots * (self.kpad + Q8_ROW_PAD)
+                      if self.route == "im2col" else 0)
+            return window + stages + Q8_WARPS * Q8_STAGING + im2col
         return _smem_bytes(ring_rows * self.window_cols * self.cin_stride,
                            self.threads_cout, self.dtype_bytes)
 
@@ -288,12 +468,17 @@ class ConvPlan:
         least one full wave of resident blocks over the 132 SMs, the
         fewest whose busiest SM walks at most 10% more strips than under
         the best count (the fewest alone can leave some SMs a whole chain
-        of strips more than the rest)."""
+        of strips more than the rest).  The int8 tensor-core routes count
+        whole rounds of resident blocks instead (:attr:`rounds`): the
+        fewest rounds x strips a segment, then the fewest segments."""
         if self.dataflow == "halo":
             return self.n_strips
-        wave = SMS * _blocks_per_sm(self._smem(self.window_rows))
+        wave = SMS * self._resident(self._smem(self.window_rows))
         counts = sorted({-(-self.n_strips // -(-self.n_strips // s))
                          for s in range(1, self.n_strips + 1)})
+        if self.tensor_cores:
+            return min(counts, key=lambda c: (
+                -(-self.chains * c // wave) * -(-self.n_strips // c), c))
         full = [c for c in counts if self.chains * c >= wave] or counts[-1:]
         cost = {c: -(-self.chains * c // SMS) * -(-self.n_strips // c)
                 for c in full}
@@ -303,6 +488,24 @@ class ConvPlan:
     @property
     def strips_per_segment(self) -> int:
         return -(-self.n_strips // self.segments)
+
+    def _resident(self, smem: int) -> int:
+        """Blocks resident on one SM at ``smem`` bytes a block: the
+        register cap (one where the int8 kernel holds more than
+        :data:`Q8_M_FRAGS_TWO` m16 fragments a warp) or shared memory."""
+        if self.tensor_cores and self.m_frags > Q8_M_FRAGS_TWO:
+            return min(1, _blocks_per_sm(smem))
+        return _blocks_per_sm(smem)
+
+    @property
+    def blocks_per_sm(self) -> int:
+        """Blocks resident on one SM (registers or shared memory)."""
+        return self._resident(self.smem_bytes)
+
+    @property
+    def rounds(self) -> int:
+        """Rounds of resident blocks over the 132 SMs."""
+        return -(-self.blocks // (SMS * self.blocks_per_sm))
 
     @property
     def blocks(self) -> int:
@@ -317,8 +520,8 @@ class ConvPlan:
         computes), else ``window_rows``."""
         base, ring = self.window_rows, 2 * self.tile_h + self.carry_rows
         if self.strips_per_segment > 1 and self._smem(ring) <= SMEM_PER_BLOCK \
-                and _blocks_per_sm(self._smem(ring)) \
-                == _blocks_per_sm(self._smem(base)):
+                and self._resident(self._smem(ring)) \
+                == self._resident(self._smem(base)):
             return ring
         return base
 
@@ -396,6 +599,12 @@ def _build(x_shape, w_shape, stride, pads, groups, tile_h, tile_cout,
         if min(tile_cout, cout_pg) > CONV_MAX_TILE_COUT:
             raise ValueError(f"tile_cout={tile_cout} exceeds "
                              f"{CONV_MAX_TILE_COUT}")
+    base = dict(n=n, h=h, w=w, cin=cin, cout=cout, k=kh, stride=stride,
+                pads=pads, groups=groups, dataflow=dataflow,
+                dtype_bytes=dtype_bytes)
+    if dtype_bytes == 1 and q8_route(cin_pg, groups, kh) != "dp4a":
+        return _build_q8(base, h_out, w_out, tile_h, tile_cout)
+    if tile_cout is not None:
         tiles = [min(tile_cout, cout_pg)]
     else:   # a warp along C_out, or half a warp and twice the positions
         tiles = sorted({min(cout_pg, CONV_MAX_TILE_COUT),
@@ -405,10 +614,7 @@ def _build(x_shape, w_shape, stride, pads, groups, tile_h, tile_cout,
         best = None
         for tc in tiles:
             best = _best_tile(best, h_out, w_out, kh, stride, pitch, tile_h,
-                              dict(n=n, h=h, w=w, cin=cin, cout=cout, k=kh,
-                                   stride=stride, pads=pads, groups=groups,
-                                   tile_cout=tc, dataflow=dataflow,
-                                   dtype_bytes=dtype_bytes))
+                              dict(base, tile_cout=tc))
         if best is not None:
             return best[1]
     raise ValueError(
@@ -447,6 +653,83 @@ def _best_tile(best, h_out, w_out, kh, stride, pitch, tile_h, base):
             if best is None or key < best[0]:
                 best = (key, plan)
     return best
+
+
+def _q8_strip_clocks(p: ConvPlan) -> float:
+    """SM clocks of one strip of one block of the int8 tensor-core routes
+    under the plan's latency model: the warp's k-steps, then its m16
+    fragments' epilogues."""
+    return p.k_steps * Q8_KSTEP_CLOCKS + p.m_frags * Q8_EPILOGUE_CLOCKS
+
+
+def _q8_bands(w_out: int, slots: int) -> list:
+    """Band widths the int8 plan tries: each width that changes the band
+    count (``ceil(w_out / b)``) and the multiples of 8, up to the slots
+    and :data:`CONV_MAX_TILE_W`."""
+    top = min(w_out, slots, CONV_MAX_TILE_W)
+    widths = {-(-w_out // b) for b in range(1, w_out + 1)}
+    widths |= set(range(8, top + 1, 8))
+    return sorted(v for v in widths if v <= top)
+
+
+def _build_q8(base: dict, h_out: int, w_out: int, tile_h, tile_cout
+              ) -> ConvPlan:
+    """The int8 tensor-core routes' plan.  For each C_out tile (the given
+    one, else :data:`Q8_TILE_COUTS` capped at Cout/g; ``warps_n`` the
+    fewest warps of 32 channels that hold it), each warp layout and M
+    tile (``warps_k`` > 1 only with one m16 fragment a warp: the small
+    tiles) and each band width: the tallest strip the M tile holds (or the
+    given ``tile_h``).  Of the plans whose window fits
+    :data:`SMEM_PER_BLOCK`, those with at least one block an SM first,
+    then the fewest clocks (:attr:`ConvPlan.rounds` of resident blocks,
+    which overlap, each of ``strips_per_segment`` strips of
+    :func:`_q8_strip_clocks`), then the fewest window pixels read per
+    output element (a C_out tile re-reads the window), then the widest
+    band."""
+    k, stride = base["k"], base["stride"]
+    cin_pg = base["cin"] // base["groups"]
+    cout_pg = base["cout"] // base["groups"]
+    route = q8_route(cin_pg, base["groups"], k)
+    pitches = (_q8_mma_pitches(cin_pg) if route == "mma"
+               else [q8_cin4(cin_pg)])
+    tiles = ([min(tile_cout, cout_pg)] if tile_cout is not None
+             else sorted({min(cout_pg, c) for c in Q8_TILE_COUTS},
+                         reverse=True))
+    for pitch in pitches:
+        best = None
+        for tc in tiles:
+            wn = 1 if tc <= Q8_WARP_N else 2 if tc <= 2 * Q8_WARP_N else 4
+            for wk in (1, 2, 4):
+                if wn * wk > Q8_WARPS:
+                    continue
+                wm = Q8_WARPS // (wn * wk)
+                for mi in (range(1, Q8_MAX_M_FRAGS + 1) if wk == 1 else (1,)):
+                    slots = Q8_MMA_M * mi * wm
+                    for tile_w in _q8_bands(w_out, slots):
+                        if tile_h is not None:
+                            th_out = min(tile_h, h_out * stride) // stride
+                        else:
+                            th_out = min(h_out, slots // tile_w)
+                        if th_out * tile_w > slots:
+                            continue
+                        plan = ConvPlan(tile_h=th_out * stride, tile_w=tile_w,
+                                        tile_cout=tc, cin_stride=pitch,
+                                        warps_n=wn, warps_k=wk, m_frags=mi,
+                                        **base)
+                        if plan._smem(plan.window_rows) > SMEM_PER_BLOCK:
+                            continue
+                        clocks = (plan.rounds * plan.strips_per_segment
+                                  * _q8_strip_clocks(plan))
+                        read = plan.window_rows * plan.window_cols \
+                            / (plan.positions * tc)
+                        key = (plan.blocks < SMS, clocks, read, -tile_w)
+                        if best is None or key < best[0]:
+                            best = (key, plan)
+        if best is not None:
+            return best[1]
+    raise ValueError(
+        f"no strip of tile_h={tile_h} fits {SMEM_PER_BLOCK} B of shared "
+        f"memory at K={k}, Cin/groups={cin_pg} (int8 {route} route)")
 
 
 # ---------------------------------------------------------------------------

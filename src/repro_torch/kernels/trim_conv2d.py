@@ -28,9 +28,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.conv_plan import (DATAFLOWS, Q8_QUAD, ConvPlan,
+from repro_torch.core.conv_plan import (DATAFLOWS, Q8_ROUTES, ConvPlan,
                                         WeightGradPlan, input_grad_geometry,
-                                        normalize_pad)
+                                        normalize_pad, q8_kpad,
+                                        q8_tap_bytes)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (ACTIVATIONS, epilogue,
                                      exact_int_products, pad_nhwc)
@@ -293,15 +294,22 @@ def trim_conv2d_weight_grad(x: torch.Tensor, g: torch.Tensor, *,
 
 def pack_q8_weights(w: torch.Tensor) -> torch.Tensor:
     """The int8 kernel's weight layout: ``(K, K, Cin/g, Cout)`` int8 ->
-    ``(K, K, ceil(Cin/g / 4), Cout, 4)`` int8, four consecutive input
-    channels of one output channel in one 32-bit word (``__dp4a``'s
-    operand), the channels past Cin/g zero (their products add nothing).
-    Made once, at quantize time (``ops.quantize_conv2d_weights``)."""
+    ``(Cout, kpad)`` int8, K-major rows, one an output channel: ``(K, K,
+    C)`` flattened, with C = Cin/g rounded up to 4, or to 32 where Cin/g
+    is a multiple of 16 (:func:`~repro_torch.core.conv_plan.
+    q8_tap_bytes`: a k-step then never spans two taps), zero-padded to
+    ``kpad`` (:func:`~repro_torch.core.conv_plan.q8_kpad`, a multiple of
+    the 32-byte k-step).  The channels past Cin/g and the bytes past
+    ``K * K * C`` are zero: their products add nothing.  A weight stage
+    of the tensor-core routes is then ``tile_cout`` rows of 32-byte
+    k-steps that ``ldmatrix`` loads as B fragments; the dp4a route reads
+    words of 4 channels from it.  Made once, at quantize time
+    (``ops.quantize_conv2d_weights``)."""
     k, _, cin_pg, cout = w.shape
-    cin4 = -(-cin_pg // Q8_QUAD) * Q8_QUAD
-    wp = F.pad(w, (0, 0, 0, cin4 - cin_pg))
-    return wp.reshape(k, k, cin4 // Q8_QUAD, Q8_QUAD, cout) \
-        .permute(0, 1, 2, 4, 3).contiguous()
+    tap, kpad = q8_tap_bytes(cin_pg), q8_kpad(k, cin_pg)
+    rows = F.pad(w, (0, 0, 0, tap - cin_pg)).permute(3, 0, 1, 2) \
+        .reshape(cout, k * k * tap)
+    return F.pad(rows, (0, kpad - k * k * tap)).contiguous()
 
 
 def trim_conv2d_q8_plain(x: torch.Tensor, w: torch.Tensor,
@@ -386,7 +394,7 @@ def _check_q8(x, w, bias_q, scale, w_packed, zero_point, activation,
                              f"{tuple(t.shape)}")
     if w_packed is not None:
         k, _, cin_pg, cout = w.shape
-        want = (k, k, -(-cin_pg // Q8_QUAD), cout, Q8_QUAD)
+        want = (cout, q8_kpad(k, cin_pg))
         if w_packed.dtype != torch.int8 or tuple(w_packed.shape) != want:
             raise ValueError(f"w_packed must be pack_q8_weights(w): int8 "
                              f"{want}, got {w_packed.dtype} "
@@ -449,7 +457,8 @@ def trim_conv2d_q8(x: torch.Tensor, w: torch.Tensor,
             plan.groups, plan.h_out, plan.w_out, plan.th_out, plan.tile_w,
             plan.tile_cout, plan.strips_per_segment, plan.ring_rows,
             plan.cin_stride, int(zero_point), ACTIVATION_CODES[activation],
-            stream)
+            Q8_ROUTES.index(plan.route), plan.warps_n, plan.warps_k,
+            plan.m_frags, stream)
     if err != 0:
         raise RuntimeError(
             f"trim_conv2d_q8 {dataflow} kernel launch failed: CUDA error "

@@ -611,18 +611,19 @@ def test_mamba_prefill_on_the_kernel_matches_the_cpu(cuda):
                  | (last.amax(1) - picked <= 2 * tol)).all())
 
 
-# The int8 kernel (csrc/trim_conv2d_q8.cu) at its edges: Cin 3 and
-# depthwise (the word loader, Cin/g rounded up to 4), stride 2 and 'valid',
-# a nonzero zero point as the 'same' padding (clip edges -128 and 127), no
-# bias, tile_cout 3 and Cout % 4 != 0 (4-byte weight copies), carry
-# segments of several strips with the prefetching ring, Cin 512 (eight
-# weight stages a tap), and x at a 4-byte and a 1-byte offset (the 16-byte
-# loader falls back to words, then to bytes).  Bitwise against the plain
-# version for None / relu (exact int32 sums, one int32 add and one f32
-# multiply in both), within TOL for gelu / silu (the transcendentals);
+# The int8 kernel (csrc/trim_conv2d_q8.cu) at its edges, on each route:
+# dp4a (Cin/g 4 grouped, depthwise: Cin/g rounded up to a word), im2col
+# (Cin 3 and 8; K 5 with Cin 3, past one k-step), mma (Cin/g a multiple
+# of 16: Cin 16, 48 with its 16-channel tail, 96, 512), stride 2 and
+# 'valid', a nonzero zero point as the 'same' padding (clip edges -128 and
+# 127), no bias, Cout 8, 24 and 70 (one, three and ragged n8 fragments),
+# tile_cout 3 and Cout % 4 != 0 (scalar stores), carry segments of several
+# strips with the prefetching ring, N=1 at 14x14x512 (the small M tiles
+# with warps split along k), and x at a 4-byte and a 1-byte offset (the
+# 16-byte loader falls back to words, then to bytes).  Bitwise against the
+# plain version for None / relu (exact int32 sums, one int32 add and one
+# f32 multiply in both), within TOL for gelu / silu (the transcendentals);
 # carry and halo bitwise equal.
-# (n, h, w, cin, cout, k, stride, groups, padding, act, zp, bias, tile_h,
-#  tile_cout, offset)
 Q8_CASES = [
     (2, 13, 11, 8, 12, 3, 1, 2, "same", "relu", 3, True, None, None, 0),
     (2, 13, 11, 8, 12, 3, 2, 2, "valid", None, -7, True, None, None, 0),
@@ -635,6 +636,15 @@ Q8_CASES = [
     (2, 19, 23, 16, 24, 3, 2, 1, "same", "gelu", 6, True, None, None, 4),
     (2, 19, 23, 16, 24, 5, 2, 1, "same", "silu", 6, True, None, None, 1),
     (4, 56, 56, 128, 256, 3, 2, 1, "same", "relu", -1, True, None, None, 0),
+    (2, 17, 15, 48, 40, 3, 1, 1, "same", "relu", 4, True, None, None, 0),
+    (1, 15, 13, 96, 64, 3, 1, 1, "same", None, -5, True, None, None, 0),
+    (2, 12, 12, 32, 8, 3, 1, 1, "same", "relu", 2, True, None, None, 0),
+    (2, 12, 12, 32, 24, 3, 1, 1, "same", "silu", 2, False, None, None, 0),
+    (2, 20, 33, 48, 70, 3, 1, 1, "same", "relu", -3, True, None, 3, 0),
+    (2, 18, 18, 3, 16, 5, 1, 1, "same", "relu", -9, True, None, None, 0),
+    (2, 21, 20, 64, 64, 3, 2, 1, "same", "relu", 11, True, None, None, 0),
+    (2, 30, 30, 96, 128, 3, 2, 1, "valid", "gelu", -6, True, None, None, 0),
+    (1, 14, 14, 512, 512, 3, 1, 1, "same", "relu", 3, True, None, None, 0),
 ]
 
 
@@ -722,3 +732,41 @@ def test_q8_wrapper_rejects_what_the_kernel_cannot_take(cuda):
             torch.zeros((1, 8, 8, 65536), dtype=torch.int8, device=cuda),
             torch.zeros((3, 3, 65536, 4), dtype=torch.int8, device=cuda),
             None, torch.ones(4, device=cuda), pad=1)
+
+
+def test_q8_launcher_takes_and_checks_the_plan(cuda):
+    """The plan's route and warps reach the int8 launcher, which refuses
+    a route its own constants do not give and a warp layout it cannot
+    run; the plan's own launch goes through."""
+    from repro_torch.core.conv_plan import Q8_ROUTES, ConvPlan
+    from repro_torch.kernels import build
+    lib = build.library("trim_conv2d_q8")
+    x, wt, bq, scale, kw = _q8_inputs(Q8_CASES[7], cuda)     # Cin 512: mma
+    plan = ConvPlan.build(tuple(x.shape), tuple(wt.shape), stride=1,
+                          pad=kw["pad"], dtype_bytes=1)
+    wp = tc.pack_q8_weights(wt)
+    y = torch.empty(plan.out_shape, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(route, warps_n, warps_k, m_frags):
+        return lib.trim_conv2d_q8_carry(
+            x.data_ptr(), wp.data_ptr(), bq.data_ptr(), scale.data_ptr(),
+            y.data_ptr(), plan.n, plan.h, plan.w, plan.cin, plan.cout,
+            plan.k, plan.stride, plan.pads[0][0], plan.pads[1][0],
+            plan.groups, plan.h_out, plan.w_out, plan.th_out, plan.tile_w,
+            plan.tile_cout, plan.strips_per_segment, plan.ring_rows,
+            plan.cin_stride, kw["zero_point"], 1, route, warps_n, warps_k,
+            m_frags, stream)
+
+    assert plan.route == "mma"
+    mma = Q8_ROUTES.index("mma")
+    assert launch(mma, plan.warps_n, plan.warps_k, plan.m_frags) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(y, tc.trim_conv2d_q8_plain(
+        x, wt, bq, scale, zero_point=kw["zero_point"], pad=kw["pad"],
+        activation="relu"))
+    assert launch(Q8_ROUTES.index("im2col"), plan.warps_n, plan.warps_k,
+                  plan.m_frags) != 0
+    assert launch(Q8_ROUTES.index("dp4a"), 0, 0, 0) != 0
+    assert launch(mma, 3, 1, 1) != 0
+    assert launch(mma, plan.warps_n, 2, 2) != 0

@@ -40,7 +40,7 @@ from repro.kernels.trim_conv2d import trim_conv2d as jtrim_conv2d
 from repro.models import layers as jlayers
 from repro.models.base import init_params as jinit
 from repro_torch.convert import params_from_jax
-from repro_torch.core.conv_plan import ConvPlan, same_pads
+from repro_torch.core.conv_plan import SMEM_PER_BLOCK, ConvPlan, same_pads
 from repro_torch.core.netplan import (infer_pools, layer_kernel_problem,
                                       network_layers, scale_layers)
 from repro_torch.core.serving import ServingEngine, replay
@@ -217,14 +217,19 @@ def test_q8_no_bias_nonzero_zero_point(dataflow):
 
 
 def test_q8_plan_holds_the_window_in_bytes():
-    """dtype_bytes=1 plans the int8 kernel: the same tiles' shared memory
+    """dtype_bytes=1 plans the int8 kernel: its own tiles with the window
     in bytes, 16-channel pitches where Cin/g allows, Cin/g rounded to a
-    word otherwise; the f32 plan of the same problem is unchanged."""
+    word otherwise; the f32 plan of the same problem is the f32 kernel's
+    (no int8 route or warps)."""
     f32 = ConvPlan.build((8, 56, 56, 256), (3, 3, 256, 256), pad=1)
     q8 = ConvPlan.build((8, 56, 56, 256), (3, 3, 256, 256), pad=1,
                         dtype_bytes=1)
     assert (f32.dtype_bytes, q8.dtype_bytes) == (4, 1)
-    assert q8.cin_stride in (256 + 16, 256) and q8.smem_bytes < f32.smem_bytes
+    assert (f32.route, f32.warps_n, f32.warps_k, f32.m_frags) == \
+        ("f32", 0, 0, 0)
+    assert q8.cin_stride in (256 + 16, 256)
+    assert q8.ring_rows * q8.row_bytes < q8.smem_bytes \
+        <= SMEM_PER_BLOCK
     assert q8.min_bytes() == (8 * 56 * 56 * 256 + 9 * 256 * 256
                               + 4 * (2 * 256 + 8 * 56 * 56 * 256))
     conv1 = ConvPlan.build((1, 224, 224, 3), (3, 3, 3, 64), pad=1,
@@ -253,27 +258,55 @@ def test_q8_plan_constants_match_the_kernel():
         found[name] = eval(expr, {"__builtins__": {}}, dict(found))
     assert found == {
         "kThreads": cp.CONV_THREADS,
+        "kWarps": cp.Q8_WARPS,
+        "kMmaM": cp.Q8_MMA_M,
+        "kMmaN": cp.Q8_MMA_N,
+        "kMmaK": cp.Q8_MMA_K,
+        "kWarpN": cp.Q8_WARP_N,
+        "kMaxMFrags": cp.Q8_MAX_M_FRAGS,
+        "kMaxMFragsTwo": cp.Q8_M_FRAGS_TWO,
+        "kStageSteps": cp.Q8_STAGE_STEPS,
+        "kStages": cp.Q8_STAGES,
+        "kRowPad": cp.Q8_ROW_PAD,
+        "kStagingBytes": cp.Q8_STAGING,
+        "kIm2colMaxK": cp.Q8_IM2COL_MAX_K,
         "kPositions": cp.CONV_POSITIONS,
         "kCout": cp.CONV_COUT,
         "kQuad": cp.Q8_QUAD,
         "kVec": cp.Q8_VEC,
         "kChunk": cp.Q8_WEIGHT_CHUNK,
-        "kStages": cp.Q8_WEIGHT_STAGES,
+        "kDp4aStages": cp.Q8_WEIGHT_STAGES,
         "kMaxSmemBytes": cp.SMEM_PER_BLOCK,
         "kSmemPerSm": cp.SMEM_PER_SM,
         "kReservedSmem": cp.SMEM_RESERVED_PER_BLOCK,
+        "kWPitch": cp.Q8_STAGE_STEPS * cp.Q8_MMA_K + cp.Q8_ROW_PAD,
     }
+    # the launcher's blocks-per-SM instances are the plan's
+    assert cp.CONV_BLOCKS_PER_SM == 2
 
 
-def test_pack_q8_weights_layout():
-    """Four consecutive input channels of one output channel per word,
-    the channels past Cin/g zero."""
-    w = torch.randint(-127, 128, (3, 3, 5, 6), dtype=torch.int8)
+@pytest.mark.parametrize("k,cin_pg,cout,tap,kpad", [
+    (3, 5, 6, 8, 96),        # dp4a / im2col: Cin4 = 8, 72 bytes -> 96
+    (3, 3, 64, 4, 64),       # VGG-16 conv1: 36 bytes -> two k-steps
+    (5, 3, 16, 4, 128),      # K 5: 100 bytes -> four k-steps
+    (3, 48, 40, 64, 576),    # mma: a 16-channel tail padded to 32
+    (3, 64, 8, 64, 576),     # mma: whole k-steps
+    (1, 16, 24, 32, 32),
+])
+def test_pack_q8_weights_layout(k, cin_pg, cout, tap, kpad):
+    """K-major rows, one an output channel: tap (ki, kj) at byte
+    ``(ki K + kj) tap``, its channels in order; zero past Cin/g in each
+    tap and past ``K K tap`` in the row; the round trip gives ``w``."""
+    from repro_torch.core.conv_plan import q8_kpad, q8_tap_bytes
+    w = torch.randint(-127, 128, (k, k, cin_pg, cout), dtype=torch.int8)
     wp = tc.pack_q8_weights(w)
-    assert wp.shape == (3, 3, 2, 6, 4) and wp.dtype == torch.int8
-    for ci in range(8):
-        want = w[:, :, ci, :] if ci < 5 else torch.zeros_like(w[:, :, 0, :])
-        assert torch.equal(wp[:, :, ci // 4, :, ci % 4], want)
+    assert (q8_tap_bytes(cin_pg), q8_kpad(k, cin_pg)) == (tap, kpad)
+    assert wp.shape == (cout, kpad) and wp.dtype == torch.int8
+    assert wp.is_contiguous()
+    taps = wp[:, :k * k * tap].reshape(cout, k, k, tap)
+    assert torch.equal(taps[..., :cin_pg].permute(1, 2, 3, 0), w)
+    assert not taps[..., cin_pg:].any()
+    assert not wp[:, k * k * tap:].any()
 
 
 # ---------------------------------------------------------------------------
