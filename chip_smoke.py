@@ -1,4 +1,3 @@
-#!/usr/bin/env python3
 """On-card smoke test of the PyTorch / CUDA port (``src/repro_torch``).
 
 Run from the repository root on a host with one NVIDIA GPU:
@@ -62,7 +61,24 @@ Phases, each raising on failure (each prints its seconds):
    off; no single PyTorch call computes a group) and the bound, with the
    plan's executed and per-layer bytes; the fused kernel's registers and
    spill as ptxas reports them;
-7. serve — full-width VGG-16 (1000 classes, seeded random weights) served
+7. rectangular kernel check — AlexNet conv1's four sub-kernel shapes of
+   the kernel tiling (3x3, 3x2, 2x3, 2x2; stride 4, Cin 3, Cout 96, the
+   full-width 'valid' slices of a 227x227 input) at batch 8 and 1: carry
+   and halo against the plain version within ``TOLERANCE`` and bitwise
+   equal to each other, the weight-gradient kernel against its plain
+   version within ``WGRAD_TOLERANCE`` and two launches bitwise equal;
+   each one's time;
+8. K > 8 check — ``ops.conv2d``'s adder tree against the plain K x K
+   conv: AlexNet conv1 (K 11, stride 4, batch 8), K 9 'same', a depthwise
+   K 9, and the P = 14 patch stem on a 336x336 tile at D 1024 (25
+   sub-kernels); one carry launch a sub-kernel; K 11 and K 9 under
+   autograd (gelu), dx, dw and db against autograd of ``impl="ref"``
+   (``GRAD_TOLERANCE``);
+9. AlexNet per-layer table at batch 8 and 1 — each conv's carry and halo
+   device time (CUDA graphs), conv1 as the adder tree's total with its
+   sub-kernels, its adds + epilogue and its slices timed apart,
+   ``F.conv2d`` (TF32 off) as a yardstick, the bound and the launches;
+10. serve — full-width VGG-16 (1000 classes, seeded random weights) served
    through ``ServingEngine`` on buckets (1, 2, 4, 8): a seeded Poisson
    trace on the carry kernel, then part of it on the halo kernel and
    with ``fused=True`` (the plan's fused groups, the rest per layer);
@@ -73,7 +89,7 @@ Phases, each raising on failure (each prints its seconds):
    group of its bucket's plan and the carry kernel for the other
    layers; one image's logits must agree with the ``impl="ref"``
    oracle;
-8. serve[int8] — the same full-width VGG-16, each conv calibrated to int8
+11. serve[int8] — the same full-width VGG-16, each conv calibrated to int8
    (``layers.calibrate_conv2d``) on its input in the f32 forward over 8
    seeded images, served through ``ServingEngine`` on buckets (1, 2, 4,
    8) on the int8 kernel: the carry trace, then part of it on halo;
@@ -82,7 +98,15 @@ Phases, each raising on failure (each prints its seconds):
    one image's logits equal the ``impl="ref"`` int8 chain
    (``conv2d_quantized`` a layer) bitwise; the logits' max deviation
    from the f32 model's and the top-1 agreement are printed;
-9. train — full-width VGG-16 (224x224, 1000 classes, seeded weights and
+12. serve[AlexNet] — full-width AlexNet (227x227, 1000 classes, seeded
+   random weights) served on buckets (1, 2, 4, 8): 48 seeded Poisson
+   requests on the carry kernel and on the halo kernel, 16 with
+   ``fused=True`` (the plan gives single-stage groups: per layer); every
+   row bit-matches ``forward_one`` (halo and fused rows the carry rows
+   too), a forward launches the kernel 20 times (conv1's 16 sub-kernels
+   and one a layer for the other four), one image's logits agree with
+   the ``impl="ref"`` chain; p50 and p99;
+13. train — full-width VGG-16 (224x224, 1000 classes, seeded weights and
    data, batch 8): the step-1 gradient of every leaf against autograd of
    ``impl="ref"`` on the kernels' branch (``branch_matched_oracle``)
    within ``GRAD_TOLERANCE``, then 6 AdamW steps of
@@ -91,15 +115,15 @@ Phases, each raising on failure (each prints its seconds):
    weight-gradient calls, a finite loss, and step 1 run again from the
    same state giving bitwise equal parameters; ms per step and peak
    device memory;
-10. train[fused] — one VGG-16/16 AdamW step (batch 8) with ``fused=True``
+14. train[fused] — one VGG-16/16 AdamW step (batch 8) with ``fused=True``
    and the same step per layer from the same state: gradients and the
    parameters after it bitwise equal, with 25 carry, 13 weight-gradient
    and one fused launch per fused group (the backward recomputes each
    group per layer);
-11. trainer — ``launch.train_cnn.train`` at the example's settings (50
+15. trainer — ``launch.train_cnn.train`` at the example's settings (50
    steps, batch 16): the mean of the last five losses below the first
    five's minus 0.1;
-12. attention kernel check — the flash-attention kernel against its plain
+16. attention kernel check — the flash-attention kernel against its plain
    version (``ATTN_TOLERANCE``) at (a) the LM prefill's shape, B=2,
    L=4096, Hq=16, Hkv=2, D=128, causal; (b) a 17-query continuation of
    4096 keys; (c) recurrentgemma-2b's geometry, Hq=10, Hkv=1, D=256,
@@ -110,7 +134,7 @@ Phases, each raising on failure (each prints its seconds):
    cores for D <= 256, f32 FFMA above) and the FFMA one, and for (a)
    ``F.scaled_dot_product_attention`` (the yardstick; the port never
    calls it);
-13. LM prefill — full-width qwen2.5-3b (36 layers, 3.4 B parameters drawn
+17. LM prefill — full-width qwen2.5-3b (36 layers, 3.4 B parameters drawn
    on the card) through ``steps.make_prefill_step`` on 2 x 4096 seeded
    tokens, reduced from the JAX ``prefill_32k`` plan (32 x 32768, whose
    f32 logits alone would take 637 GB): with ``attn_impl="flash"``
@@ -125,12 +149,12 @@ Phases, each raising on failure (each prints its seconds):
    f32 ref's (the f32 error both carry at logits of |s| ~ 2000), and
    (iii) the logits and next tokens of the depth-1 cut of the same model
    (``LM_TOLERANCE``);
-14. LM serve — ``launch.serve.serve_batch`` at full width, batch 4, prompt
+18. LM serve — ``launch.serve.serve_batch`` at full width, batch 4, prompt
    16, gen 32: tokens/s; the decode path (KV caches, ``decode_attention``,
    no kernel) against the flash prefill, position by position, on a
    256-token prompt at the depth-1 cut (checked, ``LM_TOLERANCE``) and at
    the serve prompt's last position at full depth (printed);
-15. conv1d kernel check — the causal depthwise conv1d kernel against its
+19. conv1d kernel check — the causal depthwise conv1d kernel against its
    plain version and the ``ref`` oracle, bit for bit, at falcon-mamba-7b's
    prefill shape (B 2, L 2048, D 8192, K 4), contiguous and as the mixer's
    strided half of the in-projection, and at edge cases (runs that do not
@@ -140,7 +164,7 @@ Phases, each raising on failure (each prints its seconds):
    input laid out (B, D, L) (TF32 off) and the plan's bound, and the
    bytes the function must move beside those the kernel's schedule moves
    (the runs' re-read halos priced, ``Conv1dPlan.hbm_bytes``);
-16. mamba prefill — full-width falcon-mamba-7b (64 layers, 7.27 B
+20. mamba prefill — full-width falcon-mamba-7b (64 layers, 7.27 B
    parameters drawn on the card, after qwen2.5-3b's are freed) through
    ``steps.make_prefill_step`` on 2 x 2048 seeded tokens: exactly 64
    ``trim_conv1d`` launches a forward, finite logits, ms per forward, peak
@@ -151,10 +175,10 @@ Phases, each raising on failure (each prints its seconds):
    decode (``api.decode``), the logits at every position (checked,
    ``MAMBA_TOLERANCE``), at the depth-1 and depth-2 cuts on a 128-token
    prompt and at full depth on the 64-token one;
-17. mamba serve — ``serve_batch`` at full width, batch 4, prompt 16, gen
+21. mamba serve — ``serve_batch`` at full width, batch 4, prompt 16, gen
    32, through the conv windows and SSM states: tokens/s, ms per decode
    step and the step's device-busy share (``torch.profiler``);
-18. the kernel JSON line (eight kernels), then ``{"ok": true, "device":
+22. the kernel JSON line (eight kernels), then ``{"ok": true, "device":
    ...}`` last.
 
 Exits non-zero without a result when no GPU is visible.
@@ -769,6 +793,347 @@ def check_backward_kernels(torch):
     return rows
 
 
+ALEXNET_BATCHES = (8, 1)
+
+
+def alexnet_conv1_parts(torch, n: int, gen):
+    """AlexNet conv1's input (n, 227, 227, 3), weights (11, 11, 3, 96) and
+    bias, and for each distinct sub-kernel shape of its kernel tiling
+    (3x3, 3x2, 2x3, 2x2 at stride 4) the full-width 'valid' input slice
+    and weight slice ``ops.conv2d`` gives the first sub-kernel of that
+    shape."""
+    from repro_torch.core.tiling import subkernel_decomposition
+    x = torch.randn((n, 227, 227, 3), generator=gen, device="cuda")
+    w = torch.randn((11, 11, 3, 96), generator=gen, device="cuda") \
+        / float(np.sqrt(11 * 11 * 3))
+    b = torch.randn((96,), generator=gen, device="cuda")
+    parts = {}
+    for r0, c0, kh, kw in subkernel_decomposition(11):
+        if (kh, kw) not in parts:
+            parts[(kh, kw)] = (
+                x[:, r0:r0 + 54 * 4 + kh, c0:c0 + 54 * 4 + kw].contiguous(),
+                w[r0:r0 + kh, c0:c0 + kw].contiguous())
+    return x, w, b, parts
+
+
+def check_rect_kernels(torch):
+    """The rectangular sub-kernels of AlexNet conv1 at batch 8 and 1:
+    carry and halo against the plain version (``TOLERANCE``) and against
+    each other bitwise; the weight gradient of each against its plain
+    version (``WGRAD_TOLERANCE``) and two launches bitwise equal."""
+    from repro_torch.kernels import trim_conv2d as tc
+    rows = []
+    print("rectangular kernel check: AlexNet conv1's sub-kernels, stride "
+          "4, Cin 3, Cout 96, 'valid' slices of the 227x227 input (device "
+          "ms a launch, from CUDA graphs):")
+    print(f"  {'n':>2s} {'kh x kw':8s} {'x slice':>16s} {'err':>9s} "
+          f"{'tol':>8s} {'c==h':>5s} {'dw_err':>9s} {'tol':>8s} "
+          f"{'rep':>5s} {'carry':>8s} {'halo':>8s} {'wgrad':>8s} "
+          f"{'plain':>8s}")
+    for n in ALEXNET_BATCHES:
+        gen = torch.Generator(device="cuda").manual_seed(20 + n)
+        _, _, b, parts = alexnet_conv1_parts(torch, n, gen)
+        for (kh, kw), (xs, ws) in parts.items():
+            kwargs = dict(stride=4, pad=0, activation="relu")
+            plain = tc.trim_conv2d_plain(xs, ws, b, **kwargs)
+            carry = tc.trim_conv2d(xs, ws, b, **kwargs)
+            halo = tc.trim_conv2d(xs, ws, b, dataflow="halo", **kwargs)
+            g = torch.randn(plain.shape, generator=gen, device="cuda")
+            wkw = dict(kernel_size=(kh, kw), stride=4, pad=0)
+            dw_plain = tc.trim_conv2d_weight_grad_plain(xs, g, **wkw)
+            dw1 = tc.trim_conv2d_weight_grad(xs, g, **wkw)
+            dw2 = tc.trim_conv2d_weight_grad(xs, g, **wkw)
+            torch.cuda.synchronize()
+            tol = TOLERANCE * max(1.0, plain.abs().max().item())
+            err = max((carry - plain).abs().max().item(),
+                      (halo - plain).abs().max().item())
+            same = torch.equal(carry, halo)
+            dw_tol = WGRAD_TOLERANCE * dw_plain.abs().max().item()
+            dw_err = (dw1 - dw_plain).abs().max().item()
+            rep = torch.equal(dw1, dw2)
+            label = f"{kh}x{kw} n={n}"
+            if not np.isfinite(err) or err > tol:
+                raise AssertionError(f"rect {label}: max|kernel - plain| = "
+                                     f"{err} > {tol}")
+            if not same:
+                raise AssertionError(f"rect {label}: carry and halo differ "
+                                     "bitwise")
+            if not np.isfinite(dw_err) or dw_err > dw_tol:
+                raise AssertionError(f"rect {label}: max|wgrad - plain| = "
+                                     f"{dw_err} > {dw_tol}")
+            if not rep:
+                raise AssertionError(f"rect {label}: two wgrad launches "
+                                     "differ")
+            t = {
+                "carry": time_graph_ms(torch, lambda: tc.trim_conv2d(
+                    xs, ws, b, **kwargs)),
+                "halo": time_graph_ms(torch, lambda: tc.trim_conv2d(
+                    xs, ws, b, dataflow="halo", **kwargs)),
+                "wgrad": time_graph_ms(
+                    torch, lambda: tc.trim_conv2d_weight_grad(xs, g, **wkw)),
+                "plain": time_graph_ms(torch, lambda: tc.trim_conv2d_plain(
+                    xs, ws, b, **kwargs)),
+            }
+            rows.append(dict(n=n, shape=(kh, kw), err=err, dw_err=dw_err,
+                             **t))
+            print(f"  {n:2d} {kh}x{kw:<6d} {str(tuple(xs.shape[1:3])):>16s} "
+                  f"{err:9.2e} {tol:8.1e} {str(same):>5s} {dw_err:9.2e} "
+                  f"{dw_tol:8.1e} {str(rep):>5s} {t['carry']:8.3f} "
+                  f"{t['halo']:8.3f} {t['wgrad']:8.3f} {t['plain']:8.3f}")
+            del plain, carry, halo, g, dw_plain, dw1, dw2
+        del parts
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_large_k(torch):
+    """``ops.conv2d`` for K > 8 (the kernel tiling's adder tree) against
+    the plain version of the whole K x K conv: AlexNet conv1 (K 11, stride
+    4, 'valid', batch 8), K 9 'same' at stride 1, a depthwise K 9, and the
+    P = 14 patch stem (``models.frontends.reference_vision_stem``) on a
+    336x336 tile at D 1024; each forward launches the carry kernel once a
+    sub-kernel.  Then K 11 and K 9 under autograd, with gelu: dx, dw and
+    db against autograd of ``impl="ref"`` (``GRAD_TOLERANCE`` of each
+    one's max|ref|).  Not with relu: among AlexNet conv1's 2.3 M outputs
+    some pre-activations lie within rounding of 0, and the two forwards
+    then take different sides of the kink (a dx difference of O(|w g|),
+    0.14 read on the card), as ``branch_matched_oracle`` explains."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import trim_conv2d as tc
+    from repro_torch.kernels.ref import conv_pads
+    from repro_torch.models.frontends import reference_vision_stem
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    # (name, x shape, w shape, stride, groups, padding, activation)
+    cases = [("k11_s4", (8, 227, 227, 3), (11, 11, 3, 96), 4, 1, "valid",
+              "relu"),
+             ("k9_same", (4, 56, 56, 32), (9, 9, 32, 64), 1, 1, "same",
+              "gelu"),
+             ("k9_dw", (8, 56, 56, 64), (9, 9, 1, 64), 1, 64, "same",
+              None),
+             ("stem_p14", (1, 336, 336, 3), (14, 14, 3, 1024), 14, 1,
+              "valid", None)]
+    rows = []
+    print("K > 8 check (ops.conv2d's adder tree against the plain K x K "
+          "conv; gradients against autograd of impl='ref'):")
+    for name, xs, wsh, s, g, padding, act in cases:
+        k = wsh[0]
+        x = torch.randn(xs, generator=gen, device="cuda")
+        w = torch.randn(wsh, generator=gen, device="cuda") \
+            / float(np.sqrt(k * k * wsh[2]))
+        b = None if name.startswith("stem") else \
+            torch.randn((wsh[3],), generator=gen, device="cuda")
+        before = tc.LAUNCHES["carry"]
+        if name.startswith("stem"):
+            y = reference_vision_stem(x, w)
+        else:
+            y = ops.conv2d(x, w, stride=s, padding=padding,
+                           feature_group_count=g, bias=b, activation=act)
+        torch.cuda.synchronize()
+        launches = tc.LAUNCHES["carry"] - before
+        plain = tc.trim_conv2d_plain(
+            x, w, b, stride=s, pad=conv_pads(xs[1], xs[2], k, s, padding),
+            groups=g, activation=act)
+        plain = plain.reshape(y.shape)
+        err = (y - plain).abs().max().item()
+        tol = TOLERANCE * max(1.0, plain.abs().max().item())
+        if not np.isfinite(err) or err > tol or y.shape != plain.shape:
+            raise AssertionError(f"{name}: max|adder tree - plain| = {err} "
+                                 f"> {tol}")
+        if launches != ops.conv_launches(k):
+            raise AssertionError(f"{name}: {launches} carry launches, want "
+                                 f"{ops.conv_launches(k)}")
+        line = (f"  {name:9s} x {xs} w {wsh}: max_err {err:.2e} <= "
+                f"{tol:.1e}, {launches} carry launches, out "
+                f"{tuple(y.shape)}")
+        row = dict(name=name, err=err)
+        if name in ("k11_s4", "k9_same"):
+            def grads(impl):
+                leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+                out = ops.conv2d(leaves[0], leaves[1], stride=s,
+                                 padding=padding, feature_group_count=g,
+                                 bias=leaves[2], activation="gelu",
+                                 impl=impl)
+                return torch.autograd.grad(
+                    (out * torch.linspace(-1, 1, out.shape[-1],
+                                          device="cuda")).sum(), leaves)
+            got, want = grads("trim"), grads("ref")
+            errs = []
+            for leaf, a, c in zip(("dx", "dw", "db"), got, want):
+                e = (a - c).abs().max().item()
+                lim = GRAD_TOLERANCE * c.abs().max().item()
+                if not np.isfinite(e) or e > lim:
+                    raise AssertionError(f"{name} {leaf}: max|trim - ref| = "
+                                         f"{e} > {lim}")
+                errs.append(f"{leaf} {e:.2e} <= {lim:.1e}")
+            row["grad_err"] = errs
+            line += "; grads " + ", ".join(errs)
+        print(line)
+        rows.append(row)
+        del x, w, b, y, plain
+    torch.cuda.empty_cache()
+    return rows
+
+
+def alexnet_table(torch, n: int):
+    """AlexNet's five convs at batch ``n``: carry and halo device times
+    (CUDA graphs), conv1 as the adder tree's total through ``ops.conv2d``
+    with its sub-kernels' launches, the adds (and epilogue) and the input
+    and weight slices' copies timed apart; ``F.conv2d`` (TF32 off) as a
+    yardstick; the bound max(FLOPs / 67 TFLOP/s, bytes / 3.35 TB/s) of the
+    whole K x K conv; launches a forward."""
+    import torch.nn.functional as F
+    from repro_torch.core.conv_plan import ConvPlan
+    from repro_torch.core.model import alexnet_layers
+    from repro_torch.core.tiling import subkernel_decomposition
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import trim_conv2d as tc
+    from repro_torch.kernels.ref import conv_pads, epilogue, pad_nhwc
+
+    gen = torch.Generator(device="cuda").manual_seed(40 + n)
+    rows = []
+    print(f"AlexNet per layer, batch {n} (relu, bias; device ms from CUDA "
+          "graphs; F.conv2d TF32 off, a yardstick):")
+    print(f"  {'layer':6s} {'K/s':>5s} {'carry':>8s} {'halo':>8s} "
+          f"{'F.conv':>8s} {'bound':>8s} by         {'x bound':>7s} "
+          f"{'GFLOP':>7s} launches")
+    for l in alexnet_layers():
+        k, s = l.kernel, l.stride
+        padding = "same" if l.padding else "valid"
+        xs = (n, l.ifmap, l.ifmap, l.in_channels)
+        wsh = (k, k, l.in_channels, l.out_channels)
+        x = torch.randn(xs, generator=gen, device="cuda")
+        w = torch.randn(wsh, generator=gen, device="cuda") \
+            / float(np.sqrt(k * k * wsh[2]))
+        b = torch.randn((wsh[3],), generator=gen, device="cuda")
+        pads = conv_pads(l.ifmap, l.ifmap, k, s, padding)
+        kw = dict(stride=s, padding=padding, bias=b, activation="relu")
+        t = {df: time_graph_ms(torch, lambda df=df: ops.conv2d(
+            x, w, dataflow=df, **kw)) for df in ("carry", "halo")}
+        xp = pad_nhwc(x, pads).permute(0, 3, 1, 2)
+        wl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        t["library"] = time_graph_ms(
+            torch, lambda: F.conv2d(xp, wl, b, stride=s))
+        plan = ConvPlan.build(xs, wsh, stride=s, pad=pads)
+        ops_ms = plan.flops / PEAK_F32_FLOPS * 1e3
+        bytes_ms = plan.min_bytes() / PEAK_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        row = dict(name=l.name, n=n, bound=bound, by=by, ops_ms=ops_ms,
+                   bytes_ms=bytes_ms, flops=plan.flops,
+                   launches=ops.conv_launches(k), **t)
+        print(f"  {l.name:6s} {k:2d}/{s:<2d} {t['carry']:8.4f} "
+              f"{t['halo']:8.4f} {t['library']:8.4f} {bound:8.4f} "
+              f"{by:10s} {t['carry'] / bound:7.1f} "
+              f"{plan.flops / 1e9:7.3f} {ops.conv_launches(k):8d}")
+        if k > ops.MAX_NATIVE_K:
+            subs = subkernel_decomposition(k)
+            h_out = (l.ifmap - k) // s + 1
+            ext = (h_out - 1) * s
+            sl = [(x[:, r0:r0 + ext + kh, c0:c0 + ext + kc].contiguous(),
+                   w[r0:r0 + kh, c0:c0 + kc].contiguous())
+                  for r0, c0, kh, kc in subs]
+            parts = [tc.trim_conv2d(a, c, stride=s) for a, c in sl]
+
+            def slices():
+                for r0, c0, kh, kc in subs:
+                    x[:, r0:r0 + ext + kh, c0:c0 + ext + kc].contiguous()
+                    w[r0:r0 + kh, c0:c0 + kc].contiguous()
+
+            def adds():
+                out = parts[0]
+                for p_ in parts[1:]:
+                    out = out + p_
+                return epilogue(out, b, "relu")
+
+            for df in ("carry", "halo"):
+                row[f"sub_{df}"] = time_graph_ms(torch, lambda df=df: [
+                    tc.trim_conv2d(a, c, stride=s, dataflow=df)
+                    for a, c in sl])
+            row["adds"] = time_graph_ms(torch, adds)
+            row["slices"] = time_graph_ms(torch, slices)
+            # the adds read two tensors and write one, the epilogue reads
+            # and writes one: the bytes they must move
+            part_bytes = 4 * parts[0].numel()
+            row["tree_bytes"] = part_bytes * (3 * (len(parts) - 1) + 2)
+            print(f"    {l.name}'s adder tree: {len(subs)} sub-kernel "
+                  f"launches {row['sub_carry']:.4f} ms carry / "
+                  f"{row['sub_halo']:.4f} ms halo, {len(parts) - 1} adds + "
+                  f"the epilogue {row['adds']:.4f} ms (they move "
+                  f"{row['tree_bytes'] / 1e6:.1f} MB: "
+                  f"{row['tree_bytes'] / PEAK_BYTES_PER_S * 1e3:.4f} ms at "
+                  f"3.35 TB/s), input and weight slices "
+                  f"{row['slices']:.4f} ms")
+            del sl, parts
+        rows.append(row)
+        del x, w, b, xp, wl
+    torch.cuda.empty_cache()
+    print(f"AlexNet, batch {n}, sum of the 5 convs: carry "
+          f"{sum(r['carry'] for r in rows):.4f} ms, halo "
+          f"{sum(r['halo'] for r in rows):.4f} ms, F.conv2d "
+          f"{sum(r['library'] for r in rows):.4f} ms, bound "
+          f"{sum(r['bound'] for r in rows):.4f} ms "
+          f"({sum(r['flops'] for r in rows) / n / 1e9:.3f} GFLOP an image)")
+    return rows
+
+
+def serve_alexnet(torch):
+    """Full-width AlexNet (227x227, 1000 classes, seeded random weights)
+    served through ``ServingEngine`` on buckets (1, 2, 4, 8): the seeded
+    Poisson trace on the carry kernel, on the halo kernel and with
+    ``fused=True`` (single-stage groups: per layer); every row bit-matches
+    ``forward_one`` (halo and fused rows the carry rows too), a forward
+    launches 20 carry (or halo) kernels (16 sub-kernels of conv1 and one
+    for each other layer), and one image's logits agree with the
+    ``impl="ref"`` chain within ``TOLERANCE`` of max(1, max|ref|)."""
+    from repro_torch.core.fuse_plan import FusedGroupPlan
+    from repro_torch.core.model import alexnet_layers
+    from repro_torch.kernels.ops import conv_launches
+    from repro_torch.models.layers import TrimCNN
+
+    topo = alexnet_layers()
+    per_forward = sum(conv_launches(l.kernel) for l in topo)
+    if per_forward != 20:
+        raise AssertionError(f"AlexNet: {per_forward} launches a forward, "
+                             "want 20 (16 + 4)")
+    for b in (1, 2, 4, 8):
+        if FusedGroupPlan.build(topo, n=b).fused_groups:
+            raise AssertionError(f"AlexNet at batch {b}: the plan fuses "
+                                 "a group")
+    rng = np.random.default_rng(1)
+    xs = rng.standard_normal((REQUESTS, 227, 227, 3)).astype(np.float32)
+    model = TrimCNN.random(topo, n_classes=1000, seed=0, device="cuda")
+    out = {}
+    carry_rows, out["carry"], out["carry_fw"], s = serve(
+        REQUESTS, "carry", model, xs, label="carry, AlexNet")
+    _, out["halo"], out["halo_fw"], sh = serve(
+        REQUESTS, "halo", model, xs, expect=carry_rows,
+        label="halo, AlexNet")
+    _, out["fused"], out["fused_fw"], _ = serve(
+        HALO_REQUESTS, "carry", model, xs, expect=carry_rows, fused=True,
+        label="fused, AlexNet")
+    for key, fw in (("carry", out["carry_fw"]), ("halo", out["halo_fw"])):
+        if out[key][key] != per_forward * fw:
+            raise AssertionError(f"AlexNet {key}: {out[key]} for {fw} "
+                                 f"forwards, want {per_forward} each")
+    with torch.inference_mode():
+        oracle = TrimCNN(topo, model.tree(), impl="ref")(
+            torch.from_numpy(xs[:1]).cuda()).cpu().numpy()[0]
+    diff = float(np.abs(oracle - carry_rows[0]).max())
+    lim = TOLERANCE * max(1.0, float(np.abs(oracle).max()))
+    if not diff <= lim:
+        raise AssertionError(f"AlexNet logits vs impl='ref': {diff} > {lim}")
+    print(f"serve[AlexNet]: request 0 logits vs impl='ref' oracle: max|diff| "
+          f"{diff:.3e} <= {lim:.1e}; {per_forward} launches a forward; "
+          f"carry p50 {s['p50_s'] * 1e3:.3f} ms p99 {s['p99_s'] * 1e3:.3f} "
+          f"ms, halo p50 {sh['p50_s'] * 1e3:.3f} ms p99 "
+          f"{sh['p99_s'] * 1e3:.3f} ms")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def small_chains():
     """The CPU tests' geometry chains (``tests/test_torch_fused.py``) with
     the tiles (strip_rows, band_cols) to run: a 'valid' strided stage with
@@ -1254,9 +1619,11 @@ def serve(n_requests, dataflow, model, xs, expect=None, fused=False,
     latency summary).  Rows are held against ``forward_one`` (unless ``expect``
     is given and the run is not fused) and against ``expect``.  A model
     with calibrated layers counts its per-layer launches under the int8
-    kernel's key (``q8_carry`` / ``q8_halo``)."""
+    kernel's key (``q8_carry`` / ``q8_halo``); a layer of K > 8 launches
+    once a sub-kernel of the kernel tiling."""
     from repro_torch.core.fuse_plan import FusedGroupPlan
     from repro_torch.core.serving import ServingEngine, replay
+    from repro_torch.kernels.ops import conv_launches
     from repro_torch.kernels import trim_conv2d as tc
     from repro_torch.models.layers import TrimCNN
     from repro_torch.testing.load import poisson_arrivals
@@ -1287,8 +1654,11 @@ def serve(n_requests, dataflow, model, xs, expect=None, fused=False,
     for bucket, count in st["bucket_batches"].items():
         groups = (FusedGroupPlan.build(topo, n=bucket).fused_groups
                   if fused else ())
+        inside = {i for g in groups for i in range(g.start, g.start + g.depth)}
         want["fused"] += count * len(groups)
-        want[key] += count * (len(topo) - sum(g.depth for g in groups))
+        want[key] += count * sum(conv_launches(l.kernel)
+                                 for i, l in enumerate(topo)
+                                 if i not in inside)
     if launches != want:
         raise AssertionError(f"serve[{label}]: launches {launches} for "
                              f"{forwards} forwards, want {want}")
@@ -2066,6 +2436,12 @@ def main() -> int:
     phase.done("backward kernel check")
     frows = check_fused(torch)
     phase.done("fused kernel check")
+    rect_rows = check_rect_kernels(torch)
+    phase.done("rectangular kernel check")
+    krows = check_large_k(torch)
+    phase.done("K > 8 check")
+    alex_rows = {n: alexnet_table(torch, n) for n in ALEXNET_BATCHES}
+    phase.done("AlexNet per-layer table")
 
     rng = np.random.default_rng(0)
     xs = rng.standard_normal((REQUESTS, 224, 224, 3)).astype(np.float32)
@@ -2104,6 +2480,8 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     phase.done("serve[int8]")
+    alex = serve_alexnet(torch)
+    phase.done("serve[AlexNet]")
 
     train_launches = train_vgg16(torch)
     phase.done("train")
@@ -2141,10 +2519,14 @@ def main() -> int:
     kernels = []
     carry_total = (carry_launches["carry"] + full_fused_launches["carry"]
                    + small_launches["carry"] + fused_launches["carry"]
-                   + train_launches["carry"] + train_fused_launches["carry"])
+                   + train_launches["carry"] + train_fused_launches["carry"]
+                   + alex["carry"]["carry"] + alex["fused"]["carry"])
+    halo_total = halo_launches["halo"] + alex["halo"]["halo"]
+    rect_err = max(max(r["err"] for r in rect_rows),
+                   max(r["err"] for r in krows))
     for df, launches, src_line in (
             ("carry", carry_total, 127),
-            ("halo", halo_launches["halo"], 162)):
+            ("halo", halo_total, 162)):
         ops_ms = sum(r["ops_ms"] for r in vgg if r["by"] == "operations")
         bytes_ms = sum(r["bytes_ms"] for r in vgg if r["by"] == "bytes")
         kernels.append({
@@ -2153,7 +2535,7 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/trim_conv2d.cu",
             "replaces": f"src/repro/kernels/trim_conv2d.py:{src_line}",
             "launches": launches,
-            "max_abs_err": max(r["err"] for r in rows),
+            "max_abs_err": max(max(r["err"] for r in rows), rect_err),
             "ms": sum(r[df] for r in vgg),
             "plain_ms": sum(r["plain"] for r in vgg),
             "bound_ms": sum(r["bound"] for r in vgg),
@@ -2190,7 +2572,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/trim_conv2d_wgrad.cu",
         "replaces": "src/repro/kernels/trim_conv2d.py:429",
         "launches": train_launches["wgrad"] + train_fused_launches["wgrad"],
-        "max_abs_err": max(r["err"] for r in brows),
+        "max_abs_err": max(max(r["err"] for r in brows),
+                           max(r["dw_err"] for r in rect_rows)),
         "ms": sum(r["wgrad"] for r in bvgg),
         "plain_ms": sum(r["plain"] for r in bvgg),
         "bound_ms": sum(r["bound"] for r in bvgg),
@@ -2272,6 +2655,20 @@ def main() -> int:
           f"{sum(r['carry'] for r in vgg1):.3f} ms, halo "
           f"{sum(r['halo'] for r in vgg1):.3f} ms, F.conv2d "
           f"{sum(r['library'] for r in vgg1):.3f} ms")
+    for n in ALEXNET_BATCHES:
+        ar = alex_rows[n]
+        print(f"AlexNet at batch {n}: carry "
+              f"{sum(r['carry'] for r in ar):.4f} ms, halo "
+              f"{sum(r['halo'] for r in ar):.4f} ms, F.conv2d "
+              f"{sum(r['library'] for r in ar):.4f} ms, bound "
+              f"{sum(r['bound'] for r in ar):.4f} ms over the 5 convs "
+              f"(conv1 {ar[0]['carry']:.4f} ms against its bound "
+              f"{ar[0]['bound']:.4f})")
+    print(f"launches of AlexNet serving: carry {alex['carry']} in "
+          f"{alex['carry_fw']} forwards, halo {alex['halo']} in "
+          f"{alex['halo_fw']}, fused=True {alex['fused']} in "
+          f"{alex['fused_fw']} (counted in the kernel line's carry and "
+          f"halo launches)")
     print("kernel times: sums over the 13 VGG-16 conv layers at batch 8 "
           "(trim_conv2d_fused: over full-width VGG-16's fixed-tile "
           "two-layer pair at batch 8, "

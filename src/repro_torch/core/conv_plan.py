@@ -16,7 +16,7 @@ all ``Cin/groups`` channels:
   strip makes ``tile_h // stride`` output rows).  Oversized strips are
   clamped to the full height, as ``ConvPlan`` clamps them
   (``repro/core/conv_plan.py:166-173``).
-* ``carry_rows = max(K - stride, 0)`` — the rows a strip shares with its
+* ``carry_rows = max(KH - stride, 0)`` — the rows a strip shares with its
   successor: kept in shared memory by ``carry``, re-read by ``halo``.
 * ``segments`` — a band's strips are cut into this many carry chains,
   one block each; each loads its first window whole and then carries.
@@ -34,6 +34,11 @@ int8 tensor cores with 8 warps of ``warps_m x warps_n x warps_k``, each
 holding ``m_frags`` m16 x 4 n8 fragments, the M tile sized per call by a
 clock model (:func:`_q8_strip_clocks`); ``"dp4a"`` (depthwise and other
 grouped convs with Cin/g < 16) keeps the f32 kernel's threads and tiles.
+
+Kernels are ``KH x KW``, as in the JAX ``ConvPlan``: the f32 plans take
+the rectangular sub-kernels of the kernel tiling (``core/tiling.py``: an
+11 x 11 kernel runs as 3 x 3, 3 x 2, 2 x 3 and 2 x 2 pieces); the int8
+plan stays square.
 
 The forward kernel's constants are the ``CONV_*`` values below; they
 mirror the ``constexpr`` values at the top of ``trim_conv2d.cu``; the
@@ -198,7 +203,7 @@ def _blocks_per_sm(smem: int) -> int:
 class ConvPlan:
     """Launch geometry of one strided, grouped NHWC conv on the card.
 
-    Input ``(N, H, W, Cin)``, weights ``(K, K, Cin/groups, Cout)``, zero
+    Input ``(N, H, W, Cin)``, weights ``(KH, KW, Cin/groups, Cout)``, zero
     padding ``pads = ((top, bottom), (left, right))`` applied virtually by
     the kernel's loader.
 
@@ -228,7 +233,8 @@ class ConvPlan:
     w: int
     cin: int
     cout: int
-    k: int
+    kh: int
+    kw: int
     stride: int
     pads: tuple
     groups: int
@@ -252,6 +258,9 @@ class ConvPlan:
         if self.tile_h < self.stride or self.tile_h % self.stride:
             raise ValueError(f"tile_h={self.tile_h} must be a positive "
                              f"multiple of the stride {self.stride}")
+        if self.dtype_bytes == 1 and self.kh != self.kw:
+            raise ValueError(f"the int8 kernel takes square kernels, got "
+                             f"{self.kh}x{self.kw}")
         if not 1 <= self.tile_cout <= CONV_MAX_TILE_COUT:
             raise ValueError(f"tile_cout={self.tile_cout} must be in [1, "
                              f"{CONV_MAX_TILE_COUT}]")
@@ -312,11 +321,11 @@ class ConvPlan:
 
     @property
     def h_out(self) -> int:
-        return (self.h + sum(self.pads[0]) - self.k) // self.stride + 1
+        return (self.h + sum(self.pads[0]) - self.kh) // self.stride + 1
 
     @property
     def w_out(self) -> int:
-        return (self.w + sum(self.pads[1]) - self.k) // self.stride + 1
+        return (self.w + sum(self.pads[1]) - self.kw) // self.stride + 1
 
     @property
     def out_shape(self) -> tuple[int, int, int, int]:
@@ -332,7 +341,7 @@ class ConvPlan:
     @property
     def carry_rows(self) -> int:
         """Rows a strip shares with its successor (carried or re-read)."""
-        return max(self.k - self.stride, 0)
+        return max(self.kh - self.stride, 0)
 
     @property
     def window_rows(self) -> int:
@@ -340,7 +349,7 @@ class ConvPlan:
 
     @property
     def window_cols(self) -> int:
-        return (self.tile_w - 1) * self.stride + self.k
+        return (self.tile_w - 1) * self.stride + self.kw
 
     @property
     def n_strips(self) -> int:
@@ -367,7 +376,7 @@ class ConvPlan:
         """``"f32"``, or the int8 kernel's route (:func:`q8_route`)."""
         if self.dtype_bytes == 4:
             return "f32"
-        return q8_route(self.cin_per_group, self.groups, self.k)
+        return q8_route(self.cin_per_group, self.groups, self.kh)
 
     @property
     def tensor_cores(self) -> bool:
@@ -380,7 +389,7 @@ class ConvPlan:
     @property
     def kpad(self) -> int:
         """Bytes of one output channel's packed int8 weight row."""
-        return q8_kpad(self.k, self.cin_per_group)
+        return q8_kpad(self.kh, self.cin_per_group)
 
     @property
     def k_steps(self) -> int:
@@ -538,7 +547,7 @@ class ConvPlan:
     @property
     def flops(self) -> int:
         return (2 * self.n * self.h_out * self.w_out * self.cout
-                * self.k * self.k * self.cin_per_group)
+                * self.kh * self.kw * self.cin_per_group)
 
     def min_bytes(self) -> int:
         """Bytes the function must move: each input read once (x and w at
@@ -547,7 +556,7 @@ class ConvPlan:
         rows = 1 if self.dtype_bytes == 4 else 2
         return (self.dtype_bytes
                 * (self.n * self.h * self.w * self.cin
-                   + self.k * self.k * self.cin_per_group * self.cout)
+                   + self.kh * self.kw * self.cin_per_group * self.cout)
                 + 4 * (rows * self.cout
                        + self.n * self.h_out * self.w_out * self.cout))
 
@@ -563,8 +572,8 @@ class ConvPlan:
         rows = self.n_strips * self.tile_h + self.segments * self.carry_rows
         in_bytes = (db * self.chains * rows * self.window_cols
                     * self.cin_per_group)
-        w_bytes = db * (self.n * self.n_bands * self.n_strips * self.k ** 2
-                        * self.cin_per_group * self.cout)
+        w_bytes = db * (self.n * self.n_bands * self.n_strips * self.kh
+                        * self.kw * self.cin_per_group * self.cout)
         out_bytes = 4 * self.n * self.h_out * self.w_out * self.cout
         return dict(input=in_bytes, weights=w_bytes, output=out_bytes,
                     total=in_bytes + w_bytes + out_bytes)
@@ -575,8 +584,9 @@ def _build(x_shape, w_shape, stride, pads, groups, tile_h, tile_cout,
            dataflow, dtype_bytes) -> ConvPlan:
     n, h, w, cin = x_shape
     kh, kw, cin_pg, cout = w_shape
-    if kh != kw:
-        raise ValueError(f"square kernels only, got {kh}x{kw}")
+    if dtype_bytes == 1 and kh != kw:
+        raise ValueError(f"the int8 kernel takes square kernels, got "
+                         f"{kh}x{kw}")
     if cin_pg * groups != cin:
         raise ValueError(
             f"weights expect cin/groups={cin_pg} with groups={groups}, "
@@ -599,8 +609,8 @@ def _build(x_shape, w_shape, stride, pads, groups, tile_h, tile_cout,
         if min(tile_cout, cout_pg) > CONV_MAX_TILE_COUT:
             raise ValueError(f"tile_cout={tile_cout} exceeds "
                              f"{CONV_MAX_TILE_COUT}")
-    base = dict(n=n, h=h, w=w, cin=cin, cout=cout, k=kh, stride=stride,
-                pads=pads, groups=groups, dataflow=dataflow,
+    base = dict(n=n, h=h, w=w, cin=cin, cout=cout, kh=kh, kw=kw,
+                stride=stride, pads=pads, groups=groups, dataflow=dataflow,
                 dtype_bytes=dtype_bytes)
     if dtype_bytes == 1 and q8_route(cin_pg, groups, kh) != "dp4a":
         return _build_q8(base, h_out, w_out, tile_h, tile_cout)
@@ -613,16 +623,16 @@ def _build(x_shape, w_shape, stride, pads, groups, tile_h, tile_cout,
     for pitch in _channel_pitches(cin_pg, dtype_bytes):
         best = None
         for tc in tiles:
-            best = _best_tile(best, h_out, w_out, kh, stride, pitch, tile_h,
+            best = _best_tile(best, h_out, w_out, kw, stride, pitch, tile_h,
                               dict(base, tile_cout=tc))
         if best is not None:
             return best[1]
     raise ValueError(
         f"no strip of tile_h={tile_h} fits {SMEM_PER_BLOCK} B of shared "
-        f"memory at K={kh}, Cin/groups={cin_pg}")
+        f"memory at K={kh}x{kw}, Cin/groups={cin_pg}")
 
 
-def _best_tile(best, h_out, w_out, kh, stride, pitch, tile_h, base):
+def _best_tile(best, h_out, w_out, kw, stride, pitch, tile_h, base):
     """The better of ``best`` and every (band, strip) of one C_out tile
     and channel pitch, as ``(key, plan)``: the fewest strips the busiest
     SM walks (each a full pass of the slots: 8,192 outputs whatever the
@@ -637,7 +647,7 @@ def _best_tile(best, h_out, w_out, kh, stride, pitch, tile_h, base):
             rows = [min(tile_h, h_out * stride) // stride]
         else:
             rows = range(1, min(h_out, slots // tile_w) + 1)
-        cols = (tile_w - 1) * stride + kh
+        cols = (tile_w - 1) * stride + kw
         for th_out in rows:
             if th_out * tile_w > slots:
                 continue
@@ -686,7 +696,7 @@ def _build_q8(base: dict, h_out: int, w_out: int, tile_h, tile_cout
     :func:`_q8_strip_clocks`), then the fewest window pixels read per
     output element (a C_out tile re-reads the window), then the widest
     band."""
-    k, stride = base["k"], base["stride"]
+    k, stride = base["kh"], base["stride"]
     cin_pg = base["cin"] // base["groups"]
     cout_pg = base["cout"] // base["groups"]
     route = q8_route(cin_pg, base["groups"], k)
@@ -748,14 +758,16 @@ def input_grad_geometry(x_shape, w_shape, *, stride: int = 1, pad=0,
     right))``, asymmetric for XLA 'same' at stride 2, and the edge pads
     that come back are passed to the forward kernel as virtual pads:
 
-        pad_h = (K-1-top, K-1-bottom + r_h),  r_h = (H+top+bottom-K) % s
+        pad_h = (KH-1-top, KH-1-bottom + r_h),  r_h = (H+top+bottom-KH) % s
 
-    and likewise for the width, so that the result has ``x``'s shape.
-    Each forward pad must be <= K-1 (true for 'same' and 'valid').
+    and likewise for the width with KW, so that the result has ``x``'s
+    shape (a rectangular sub-kernel of the kernel tiling gets pads of its
+    own extent on each axis).  Each forward pad must be <= its axis's
+    extent - 1 (true for 'same' and 'valid').
 
     Returns ``h_out``/``w_out`` (the cotangent's), the dilated cotangent
     shape ``g_dilated_shape``, the edge pads ``pad_h``/``pad_w``, the
-    padded shape ``g_padded_shape`` and ``wt_shape = (K, K, Cout/groups,
+    padded shape ``g_padded_shape`` and ``wt_shape = (KH, KW, Cout/groups,
     Cin)``.
     """
     n, h, w, cin = x_shape
@@ -828,8 +840,9 @@ class WeightGradPlan:
         dw[ki, kj, ci, g*Cpg+co] = sum_{n, oh, ow}
             xpad[n, oh*s+ki, ow*s+kj, g*Cin_pg+ci] * dz[n, oh, ow, g*Cpg+co]
 
-    Per group, dw is a ``(K*K*Cin_pg) x Cpg`` matrix whose rows are the
-    flattened ``(ki, kj, ci)`` axis.  Two routes:
+    Per group, dw is a ``(KH*KW*Cin_pg) x Cpg`` matrix whose rows are the
+    flattened ``(ki, kj, ci)`` axis (``KH x KW``: a rectangular sub-kernel
+    of the kernel tiling as well as a square kernel).  Two routes:
 
     * ``"gemm"`` — a block owns a tile of :data:`WGRAD_TILE_ROWS` rows x
       :data:`WGRAD_TILE_COUT` columns of it (:data:`WGRAD_NARROW_TILE_COUT`
@@ -861,7 +874,8 @@ class WeightGradPlan:
     w: int
     cin: int
     cout: int
-    k: int
+    kh: int
+    kw: int
     stride: int
     pads: tuple
     groups: int
@@ -875,8 +889,6 @@ class WeightGradPlan:
         the chunk height (cotangent rows) and is raised to the cap."""
         n, h, w, cin = x_shape
         kh, kw, cin_pg, cout = w_shape
-        if kh != kw:
-            raise ValueError(f"square kernels only, got {kh}x{kw}")
         if cin_pg * groups != cin:
             raise ValueError(
                 f"weights expect cin/groups={cin_pg} with groups={groups}, "
@@ -896,8 +908,8 @@ class WeightGradPlan:
         max_chunks = max(1, WGRAD_WORKSPACE_CAP // (4 * dw_elems))
         rows = n * h_out
         cap_rows = min(rows, -(-rows // max_chunks))
-        plan = cls(n=n, h=h, w=w, cin=cin, cout=cout, k=kh, stride=stride,
-                   pads=pads, groups=groups, tile_go=rows)
+        plan = cls(n=n, h=h, w=w, cin=cin, cout=cout, kh=kh, kw=kw,
+                   stride=stride, pads=pads, groups=groups, tile_go=rows)
         if tile_go is None:
             if plan.route == "depthwise":
                 chunks = -(-WGRAD_DW_BLOCKS // plan.tiles)
@@ -909,8 +921,8 @@ class WeightGradPlan:
                     2 * WGRAD_TILE_ROWS * plan.tile_cout, dw_elems,
                     max(min_rows, cap_rows))
         tile_go = min(max(tile_go, cap_rows), rows)
-        return cls(n=n, h=h, w=w, cin=cin, cout=cout, k=kh, stride=stride,
-                   pads=pads, groups=groups, tile_go=tile_go)
+        return cls(n=n, h=h, w=w, cin=cin, cout=cout, kh=kh, kw=kw,
+                   stride=stride, pads=pads, groups=groups, tile_go=tile_go)
 
     @property
     def cin_per_group(self) -> int:
@@ -952,20 +964,20 @@ class WeightGradPlan:
 
     @property
     def h_out(self) -> int:
-        return (self.h + sum(self.pads[0]) - self.k) // self.stride + 1
+        return (self.h + sum(self.pads[0]) - self.kh) // self.stride + 1
 
     @property
     def w_out(self) -> int:
-        return (self.w + sum(self.pads[1]) - self.k) // self.stride + 1
+        return (self.w + sum(self.pads[1]) - self.kw) // self.stride + 1
 
     @property
     def dw_shape(self) -> tuple[int, int, int, int]:
-        return (self.k, self.k, self.cin_per_group, self.cout)
+        return (self.kh, self.kw, self.cin_per_group, self.cout)
 
     @property
     def rows(self) -> int:
-        """Rows of the flattened (ki, kj, ci) axis: K*K*Cin/groups."""
-        return self.k * self.k * self.cin_per_group
+        """Rows of the flattened (ki, kj, ci) axis: KH*KW*Cin/groups."""
+        return self.kh * self.kw * self.cin_per_group
 
     @property
     def chunks(self) -> int:

@@ -1,12 +1,14 @@
 """CNN topologies of the paper (copied from ``repro/core/model.py``).
 
-Only the topology: the layer description and the VGG-16 / AlexNet /
-MobileNet conv stacks.  The accelerator configurations and the Fig. 6
-access accounting stay with the JAX package.
+Only the topology: the layer description, the VGG-16 / AlexNet /
+MobileNet conv stacks and the kernel tiling's sub-kernel count.  The
+accelerator configurations and the Fig. 6 access accounting stay with
+the JAX package.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 
@@ -65,6 +67,15 @@ def alexnet_layers() -> list[ConvLayer]:
         ConvLayer("conv4", 13, 384, 384, kernel=3, stride=1, padding=1),
         ConvLayer("conv5", 13, 384, 256, kernel=3, stride=1, padding=1),
     ]
+
+
+def num_subkernels(kernel: int, native_k: int = 3) -> int:
+    """Sub-kernels of the paper's kernel tiling (§III): one for K <= 3,
+    else ``ceil(K / 3)^2`` (``core.tiling.subkernel_decomposition``)."""
+    if kernel <= native_k:
+        return 1
+    t = math.ceil(kernel / native_k)
+    return t * t
 
 
 def mobilenet_layers() -> list[ConvLayer]:

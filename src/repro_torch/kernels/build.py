@@ -27,9 +27,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # C entry points of each source: name -> argument types (restype c_int)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_int64, ctypes.c_float
-_CONV_ARGS = [_P, _P, _P, _P] + [_I] * 19 + [_P]
+_CONV_ARGS = [_P, _P, _P, _P] + [_I] * 20 + [_P]
 _Q8_ARGS = [_P] * 5 + [_I] * 24 + [_P]
-_WGRAD_ARGS = [_P, _P, _P, _P] + [_I] * 16 + [_P]
+_WGRAD_ARGS = [_P, _P, _P, _P] + [_I] * 17 + [_P]
 _FUSED_ARGS = [_P, _P, _P, _P, _I, _P]
 _ATTN_ARGS = [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I, _I, _F, _F, _P]
 _CONV1D_ARGS = [_P] * 3 + [_I] * 4 + [_L] * 4 + [_I, _I, _P]

@@ -8,11 +8,14 @@
 // in how many strips one block walks (see Segments).
 //
 // Math.  y[n,oh,ow,g*Cpg+co] = act(bias + sum_{ki,kj,ci} xpad[n, oh*s+ki,
-// ow*s+kj, g*Cin_pg+ci] * w[ki,kj,ci,g*Cpg+co]).  Every output element is ONE
-// fp32 fmaf chain started from 0 and taken in a fixed order (ki, then kj,
-// then ci ascending over all of Cin/g), then + bias (a separate add), then
-// activate() of epilogue.cuh.  The order depends on nothing but the
-// element, so carry and halo are bitwise equal, a row's result does not
+// ow*s+kj, g*Cin_pg+ci] * w[ki,kj,ci,g*Cpg+co]), ki < KH, kj < KW: a square
+// kernel, or a rectangular sub-kernel of the kernel tiling (an 11 x 11
+// kernel runs as 3x3, 3x2, 2x3 and 2x2 pieces, kernels/ops.py).  Every
+// output element is ONE fp32 fmaf chain started from 0 and taken in a
+// fixed order (ki, then kj, then ci ascending over all of Cin/g), then
+// + bias (a separate add), then activate() of epilogue.cuh.  The order
+// depends on nothing but the element, so carry and halo are bitwise
+// equal, a row's result does not
 // depend on the batch it was served in, and the fused kernel
 // (trim_conv2d_fused.cu), which takes the same chain, equals a chain of
 // these launches bit for bit.  No split of the sum across threads or
@@ -20,21 +23,22 @@
 //
 // Geometry (core/conv_plan.py, ConvPlan).  A block owns (image n, group g,
 // C_out tile, column band of TW output columns) -- a chain -- and one
-// segment of that band's strips.  Its input window, TH + (K-s) padded rows
-// x WC = (TW-1)*s + K columns x all Cin/g channels, lives in shared memory
+// segment of that band's strips.  Its input window, TH + (KH-s) padded rows
+// x WC = (TW-1)*s + KW columns x all Cin/g channels, lives in shared memory
 // as a ring of row slots (slot = padded row mod ring_rows), so strip t+1
-// reuses the K-s rows strip t already holds without moving them: the
-// shadow registers.  'same'/'valid' padding is virtual: the loader
-// zero-fills outside the image, and ragged bottom/right edges are masked
-// at the store.
+// reuses the KH-s rows strip t already holds without moving them: the
+// shadow registers (none where KH <= s, as at a stride-4 sub-kernel of
+// AlexNet's conv1: each strip then loads its rows fresh).  'same'/'valid'
+// padding is virtual: the loader zero-fills outside the image, and ragged
+// bottom/right edges are masked at the store.
 //
 // Segments.  The TPU walks the strips of a band in order on one core.
 // Here a band's strips are cut into `segments` runs, one block each: a
 // block loads its first window whole, then only the TH fresh rows of each
 // further strip.  carry takes the fewest segments that fill a wave of
 // resident blocks on the 132 SMs; halo is the limit of one strip a
-// segment (each block re-reads its K-s predecessor rows).  When a segment
-// walks several strips and shared memory allows, the ring has 2 TH + (K-s)
+// segment (each block re-reads its KH-s predecessor rows).  When a segment
+// walks several strips and shared memory allows, the ring has 2 TH + (KH-s)
 // slots and the next strip's fresh rows are copied in, a slice with each
 // weight stage, while this strip computes.
 //
@@ -80,13 +84,13 @@ constexpr int kSmemPerSm = 233472;     // H100: 228 KB an SM
 constexpr int kReservedSmem = 1024;    // the runtime's share of each block
 
 struct ConvArgs {
-  int n, h, w, cin, cout, k, stride, pad_top, pad_left, groups;
+  int n, h, w, cin, cout, kh, kw, stride, pad_top, pad_left, groups;
   int h_out, w_out;
   int tile_h_out;    // output rows per strip
   int tile_w;        // output columns per band
   int tile_cout;     // output channels per block
   int strips_per_seg;
-  int ring_rows;     // window ring slots (>= TH + K-s)
+  int ring_rows;     // window ring slots (>= TH + KH-s)
   int cin_stride;    // window channel pitch (>= Cin/g)
   int n_strips, n_bands, co_tiles, segments;
   int tcx;           // threads along C_out: ceil(tile_cout / 4)
@@ -95,7 +99,7 @@ struct ConvArgs {
 };
 
 __host__ __device__ inline int window_cols(const ConvArgs& a) {
-  return (a.tile_w - 1) * a.stride + a.k;
+  return (a.tile_w - 1) * a.stride + a.kw;
 }
 
 // Floats of the window ring, rounded to a float4 so the weights align.
@@ -120,9 +124,9 @@ trim_conv2d_kernel(const float* __restrict__ x, const float* __restrict__ wt,
 
   const int cin_pg = a.cin / a.groups;
   const int cout_pg = a.cout / a.groups;
-  const int s = a.stride, k = a.k;
+  const int s = a.stride, kh = a.kh, kw = a.kw;
   const int th = a.tile_h_out * s;            // fresh input rows per strip
-  const int kc = k > s ? k - s : 0;           // rows carried to the next strip
+  const int kc = kh > s ? kh - s : 0;         // rows carried to the next strip
   const int wc = window_cols(a);
   const int row_len = wc * a.cin_stride;      // floats per ring slot
   const int tcp = 4 * a.tcx;                  // weight row pitch
@@ -147,7 +151,7 @@ trim_conv2d_kernel(const float* __restrict__ x, const float* __restrict__ wt,
   const int co_base = grp * cout_pg + cot * a.tile_cout;
   const int co_valid = min(a.tile_cout, cout_pg - cot * a.tile_cout);
   const int cin_chunks = (cin_pg + kChunk - 1) / kChunk;
-  const int n_chunks = k * k * cin_chunks;    // weight stages per strip
+  const int n_chunks = kh * kw * cin_chunks;  // weight stages per strip
 
   // Copies part `part` of `parts` of padded rows [r0, r0 + rows) of the
   // band into their ring slots (zeros outside the image).
@@ -234,7 +238,7 @@ trim_conv2d_kernel(const float* __restrict__ x, const float* __restrict__ wt,
       const int tap = c / cin_chunks;
       const int ci0 = (c - tap * cin_chunks) * kChunk;
       if (ci0 == 0) {        // a new tap: the positions' window offsets
-        const int ki = tap / k, kj = tap - (tap / k) * k;
+        const int ki = tap / kw, kj = tap - ki * kw;
 #pragma unroll
         for (int m = 0; m < kPositions; ++m) {
           const int p = ty + m * pthreads;
@@ -338,12 +342,13 @@ int launch_kernel(const float* x, const float* w, const float* bias, float* y,
 
 int launch(const float* x, const float* w, const float* bias, float* y,
            ConvArgs a, void* stream) {
-  if (a.k < 1 || a.stride < 1 || a.groups < 1 || a.cin % a.groups != 0 ||
-      a.cout % a.groups != 0 || a.tile_cout < 1 || a.tile_cout > 32 * kCout ||
+  if (a.kh < 1 || a.kw < 1 || a.stride < 1 || a.groups < 1 ||
+      a.cin % a.groups != 0 || a.cout % a.groups != 0 || a.tile_cout < 1 ||
+      a.tile_cout > 32 * kCout ||
       a.tile_h_out < 1 || a.tile_w < 1 || a.strips_per_seg < 1)
     return (int)cudaErrorInvalidValue;
   const int cin_pg = a.cin / a.groups, cout_pg = a.cout / a.groups;
-  const int kc = a.k > a.stride ? a.k - a.stride : 0;
+  const int kc = a.kh > a.stride ? a.kh - a.stride : 0;
   a.tcx = (a.tile_cout + kCout - 1) / kCout;
   a.n_strips = (a.h_out + a.tile_h_out - 1) / a.tile_h_out;
   a.n_bands = (a.w_out + a.tile_w - 1) / a.tile_w;
@@ -369,13 +374,13 @@ int launch(const float* x, const float* w, const float* bias, float* y,
              : launch_kernel<false, 2>(x, w, bias, y, a, smem, stream);
 }
 
-ConvArgs make_args(int n, int h, int w, int cin, int cout, int k, int stride,
-                   int pad_top, int pad_left, int groups, int h_out, int w_out,
-                   int tile_h_out, int tile_w, int tile_cout,
-                   int strips_per_seg, int ring_rows, int cin_stride,
-                   int activation) {
+ConvArgs make_args(int n, int h, int w, int cin, int cout, int kh, int kw,
+                   int stride, int pad_top, int pad_left, int groups,
+                   int h_out, int w_out, int tile_h_out, int tile_w,
+                   int tile_cout, int strips_per_seg, int ring_rows,
+                   int cin_stride, int activation) {
   ConvArgs a = {};
-  a.n = n; a.h = h; a.w = w; a.cin = cin; a.cout = cout; a.k = k;
+  a.n = n; a.h = h; a.w = w; a.cin = cin; a.cout = cout; a.kh = kh; a.kw = kw;
   a.stride = stride; a.pad_top = pad_top; a.pad_left = pad_left;
   a.groups = groups; a.h_out = h_out; a.w_out = w_out;
   a.tile_h_out = tile_h_out; a.tile_w = tile_w; a.tile_cout = tile_cout;
@@ -395,25 +400,27 @@ extern "C" {
 
 #define TRIM_CONV2D_ARGS                                                      \
   const float *x, const float *w, const float *bias, float *y, int n, int h,  \
-      int wd, int cin, int cout, int k, int stride, int pad_top, int pad_left, \
-      int groups, int h_out, int w_out, int tile_h_out, int tile_w,           \
-      int tile_cout, int strips_per_seg, int ring_rows, int cin_stride,       \
-      int activation, void *stream
+      int wd, int cin, int cout, int kh, int kw, int stride, int pad_top,     \
+      int pad_left, int groups, int h_out, int w_out, int tile_h_out,         \
+      int tile_w, int tile_cout, int strips_per_seg, int ring_rows,           \
+      int cin_stride, int activation, void *stream
 
 int trim_conv2d_carry(TRIM_CONV2D_ARGS) {
   return launch(x, w, bias, y,
-                make_args(n, h, wd, cin, cout, k, stride, pad_top, pad_left,
-                          groups, h_out, w_out, tile_h_out, tile_w, tile_cout,
-                          strips_per_seg, ring_rows, cin_stride, activation),
+                make_args(n, h, wd, cin, cout, kh, kw, stride, pad_top,
+                          pad_left, groups, h_out, w_out, tile_h_out, tile_w,
+                          tile_cout, strips_per_seg, ring_rows, cin_stride,
+                          activation),
                 stream);
 }
 
 int trim_conv2d_halo(TRIM_CONV2D_ARGS) {
-  const int kc = k > stride ? k - stride : 0;
+  const int kc = kh > stride ? kh - stride : 0;
   return launch(x, w, bias, y,
-                make_args(n, h, wd, cin, cout, k, stride, pad_top, pad_left,
-                          groups, h_out, w_out, tile_h_out, tile_w, tile_cout,
-                          1, tile_h_out * stride + kc, cin_stride, activation),
+                make_args(n, h, wd, cin, cout, kh, kw, stride, pad_top,
+                          pad_left, groups, h_out, w_out, tile_h_out, tile_w,
+                          tile_cout, 1, tile_h_out * stride + kc, cin_stride,
+                          activation),
                 stream);
 }
 

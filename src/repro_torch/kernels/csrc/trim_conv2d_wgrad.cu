@@ -5,8 +5,10 @@
 // src/repro/kernels/trim_conv2d.py (:429; pallas_call :529).
 //
 // Math.  dw[ki,kj,ci,g*Cpg+co] = sum_{n,oh,ow} xpad[n, oh*s+ki, ow*s+kj,
-// g*Cin_pg+ci] * dz[n,oh,ow,g*Cpg+co].  Per group, dw is a (K*K*Cin_pg) x
-// Cpg matrix whose rows are the flattened (ki, kj, ci) axis: the product
+// g*Cin_pg+ci] * dz[n,oh,ow,g*Cpg+co], ki < KH, kj < KW (a square kernel
+// or a rectangular sub-kernel of the kernel tiling).  Per group, dw is a
+// (KH*KW*Cin_pg) x Cpg matrix whose rows are the flattened (ki, kj, ci)
+// axis: the product
 // of the im2col'd input (positions x rows) and the cotangent (positions x
 // Cpg) over the positions, formed on the fly.  'same'/'valid' padding is
 // virtual: the loader zero-fills outside the image, so no padded copy of x
@@ -73,11 +75,11 @@ static_assert(kThreads == 16 * 16 && kTileRows == 16 * 8,
               "a 16 x 16 thread grid of 8-row accumulator tiles");
 
 struct WgradArgs {
-  int n, h, w, cin, cout, k, stride, pad_top, pad_left, groups;
+  int n, h, w, cin, cout, kh, kw, stride, pad_top, pad_left, groups;
   int h_out, w_out;
   int tile_go;     // cotangent rows per chunk
   int chunks;
-  int rows;        // K * K * Cin/groups
+  int rows;        // KH * KW * Cin/groups
   int cin_pg, cout_pg;
   int row_tiles, co_tiles;
 };
@@ -135,8 +137,8 @@ wgrad_gemm_kernel(const float* __restrict__ x, const float* __restrict__ g,
     xoff[j] = 0;
     if (r < a.rows) {
       const int tap = r / a.cin_pg, ci = r - tap * a.cin_pg;
-      xki[j] = tap / a.k;
-      xkj[j] = tap - xki[j] * a.k;
+      xki[j] = tap / a.kw;
+      xkj[j] = tap - xki[j] * a.kw;
       xoff[j] = ((long long)xki[j] * a.w + xkj[j]) * a.cin +
                 grp * a.cin_pg + ci;
     }
@@ -294,13 +296,13 @@ wgrad_depthwise_kernel(const float* __restrict__ x,
                        const float* __restrict__ g, float* __restrict__ out,
                        const WgradArgs a) {
   const int c_all = a.cin;
-  const int elems = a.k * a.k * c_all;
+  const int elems = a.kh * a.kw * c_all;
   const int tiles = (elems + kThreads - 1) / kThreads;
   const int chunk = blockIdx.x / tiles;
   const int e = (blockIdx.x - chunk * tiles) * kThreads + threadIdx.x;
   if (e >= elems) return;
   const int tap = e / c_all, c = e - tap * c_all;
-  const int ki = tap / a.k, kj = tap - ki * a.k;
+  const int ki = tap / a.kw, kj = tap - ki * a.kw;
   const int row0 = chunk * a.tile_go;
   const int row1 = min(a.n * a.h_out, row0 + a.tile_go);
   float acc = 0.0f;
@@ -397,7 +399,7 @@ cudaError_t resident_blocks(int* out) {
 // C entry point, bound with ctypes by repro_torch/kernels/build.py.  It
 // launches on `stream` without synchronising and returns
 // cudaGetLastError() (or cudaErrorInvalidValue for a geometry the kernel
-// cannot take).  `ws` holds chunks * K*K*Cin/groups * Cout floats; with a
+// cannot take).  `ws` holds chunks * KH*KW*Cin/groups * Cout floats; with a
 // single chunk it may be `dw` itself.  WeightGradPlan decides the route
 // (`depthwise`), the GEMM tile's columns (`tile_cout`, 64 or 128) and so
 // the partial launch's `blocks`; this launcher takes those decisions as
@@ -408,30 +410,33 @@ cudaError_t resident_blocks(int* out) {
 extern "C" {
 
 int trim_conv2d_wgrad(const float* x, const float* g, float* ws, float* dw,
-                      int n, int h, int wd, int cin, int cout, int k,
-                      int stride, int pad_top, int pad_left, int groups,
-                      int h_out, int w_out, int tile_go, int depthwise,
-                      int tile_cout, int blocks, void* stream) {
-  if (n < 1 || k < 1 || stride < 1 || groups < 1 || cin % groups != 0 ||
-      cout % groups != 0 || h_out < 1 || w_out < 1 || tile_go < 1 ||
+                      int n, int h, int wd, int cin, int cout, int kh,
+                      int kw, int stride, int pad_top, int pad_left,
+                      int groups, int h_out, int w_out, int tile_go,
+                      int depthwise, int tile_cout, int blocks,
+                      void* stream) {
+  if (n < 1 || kh < 1 || kw < 1 || stride < 1 || groups < 1 ||
+      cin % groups != 0 || cout % groups != 0 || h_out < 1 || w_out < 1 ||
+      tile_go < 1 ||
       pad_top < 0 || pad_left < 0)
     return (int)cudaErrorInvalidValue;
   if (depthwise ? !(groups == cin && cin == cout)
                 : tile_cout != 64 && tile_cout != 128)
     return (int)cudaErrorInvalidValue;
   WgradArgs a;
-  a.n = n; a.h = h; a.w = wd; a.cin = cin; a.cout = cout; a.k = k;
+  a.n = n; a.h = h; a.w = wd; a.cin = cin; a.cout = cout; a.kh = kh;
+  a.kw = kw;
   a.stride = stride; a.pad_top = pad_top; a.pad_left = pad_left;
   a.groups = groups; a.h_out = h_out; a.w_out = w_out; a.tile_go = tile_go;
   a.chunks = (n * h_out + tile_go - 1) / tile_go;
   a.cin_pg = cin / groups;
   a.cout_pg = cout / groups;
-  a.rows = k * k * a.cin_pg;
+  a.rows = kh * kw * a.cin_pg;
   a.row_tiles = (a.rows + kTileRows - 1) / kTileRows;
   a.co_tiles = (a.cout_pg + tile_cout - 1) / tile_cout;
   if (a.chunks > 1 && ws == dw) return (int)cudaErrorInvalidValue;
   const long long tiles =
-      depthwise ? ((long long)k * k * cin + kThreads - 1) / kThreads
+      depthwise ? ((long long)kh * kw * cin + kThreads - 1) / kThreads
                 : (long long)groups * a.row_tiles * a.co_tiles;
   if (tiles * a.chunks != (long long)blocks || blocks < 1)
     return (int)cudaErrorInvalidValue;

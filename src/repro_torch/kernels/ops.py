@@ -11,6 +11,18 @@ There is no tier chain: a kernel that fails raises.  'same' padding is
 XLA's (asymmetric at stride > 1) and is applied inside the kernel, so no
 padded copy of the input is made.
 
+K > 8 (``MAX_NATIVE_K``).  The paper's kernel tiling, as the JAX
+``_conv2d_pallas`` does it (``repro/kernels/ops.py:538-559``): the input is
+padded 'same' once (a padded copy, like ``jnp.pad``), the K x K kernel is
+split by ``core.tiling.subkernel_decomposition`` into sub-kernels of at
+most 3 x 3 taps (rectangular at the edges: 11 = 3 + 3 + 3 + 2), each runs
+as one kernel call (differentiable under grad) with no bias and no
+activation on its 'valid' slice of the padded input, the parts are summed
+in the decomposition's order (the adder tree) and the bias + activation
+epilogue runs once on the sum.  The slices, adds and epilogue are plain
+PyTorch, as they are XLA in JAX; explicit ``tile_h``, ``tile_cout`` and
+``dataflow`` apply to every sub-kernel.
+
 Int8.  ``conv2d`` given :class:`QuantizedConv2dWeights` (from
 :func:`quantize_conv2d_weights` or ``models.layers.calibrate_conv2d``)
 runs the int8 route, as the JAX ``_conv2d_packed`` does for packed
@@ -53,10 +65,11 @@ import typing
 import torch
 
 from repro_torch.core.conv_plan import DATAFLOWS
+from repro_torch.core.tiling import subkernel_decomposition
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (NEG_INF, flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.ref import ACTIVATIONS, conv_pads
+from repro_torch.kernels.ref import ACTIVATIONS, conv_pads, pad_nhwc
 from repro_torch.kernels.trim_conv1d import trim_conv1d
 from repro_torch.kernels.trim_conv2d import (pack_q8_weights, trim_conv2d,
                                              trim_conv2d_input_grad,
@@ -117,7 +130,8 @@ class _TrimConv2dFn(torch.autograd.Function):
                                         groups=cfg.groups,
                                         dataflow=cfg.dataflow)
         if ctx.needs_input_grad[1]:
-            dw = trim_conv2d_weight_grad(x, dz, kernel_size=w.shape[0],
+            dw = trim_conv2d_weight_grad(x, dz,
+                                         kernel_size=tuple(w.shape[:2]),
                                          stride=cfg.stride, pad=cfg.pads,
                                          groups=cfg.groups)
         if ctx.has_bias and ctx.needs_input_grad[2]:
@@ -153,7 +167,8 @@ class QuantizedConv2dWeights:
     zp: int | None = None
 
     def __post_init__(self):
-        if self.w.dtype != torch.int8 or self.w.dim() != 4:
+        if self.w.dtype != torch.int8 or self.w.dim() != 4 \
+                or self.w.shape[0] != self.w.shape[1]:
             raise ValueError(f"w must be int8 (K, K, Cin/g, Cout), got "
                              f"{self.w.dtype} {tuple(self.w.shape)}")
         if self.w.shape[3] != self.cout or self.cout % self.groups:
@@ -185,7 +200,14 @@ def quantize_conv2d_weights(w: torch.Tensor,
     scales (``ref.weight_scales_int8``) and the per-tensor affine
     activation calibration ``(x_scale, x_zero_point)``, typically from
     ``models.layers.calibrate_conv2d``.  w: f32 (K, K, Cin/groups, Cout);
-    bias: (Cout,) or None."""
+    bias: (Cout,) or None.  K > :data:`MAX_NATIVE_K` raises ``ValueError``,
+    as the JAX ``pack_conv2d_weights`` does (``repro/kernels/ops.py:
+    147-150``): the kernel-tiled path cannot take packed weights."""
+    kh = w.shape[0]
+    if kh > MAX_NATIVE_K:
+        raise ValueError(
+            f"K={kh} > {MAX_NATIVE_K}: the kernel-tiled path re-slices "
+            "weights per sub-kernel and cannot consume packed weights")
     w_scale = ref.weight_scales_int8(w)
     w_q = ref.quantize_int8(w, w_scale[None, None, None, :])
     dev = w.device
@@ -243,6 +265,15 @@ def _conv2d_q8(x: torch.Tensor, pk: QuantizedConv2dWeights, *, stride: int,
                        tile_h=tile_h, tile_cout=tile_cout)
 
 
+def conv_launches(k: int) -> int:
+    """Kernel launches of one ``"trim"`` :func:`conv2d` forward of a K x K
+    kernel: one, or one a sub-kernel of the kernel tiling for K >
+    :data:`MAX_NATIVE_K` (16 at K = 11)."""
+    if k > MAX_NATIVE_K:
+        return len(subkernel_decomposition(k, native_k=3))
+    return 1
+
+
 def kernel_input_shape(x_shape, k: int, stride: int, padding: str):
     """(shape, residual_pad) of the conv problem after the 'same' pre-pad
     (the padded input with ``pad=0``), as ``repro.kernels.ops`` defines
@@ -261,7 +292,8 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     """(Grouped) 2D convolution with optional fused bias + activation.
 
     x: (N, H, W, Cin); w: (K, K, Cin/groups, Cout); bias: (Cout,) or None;
-    ``feature_group_count=Cin`` gives depthwise convolution.  ``dataflow``
+    ``feature_group_count=Cin`` gives depthwise convolution.  K > 8 runs
+    the kernel tiling's adder tree (module docstring).  ``dataflow``
     (``"carry"`` by default, or ``"halo"``) and the tile knobs go to the
     kernel; knobs left as ``None`` take the plan's defaults.  Under grad,
     the ``"trim"`` conv is differentiable in x, w and bias; its input
@@ -301,20 +333,55 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
         raise ValueError(f"unknown impl {impl!r}; choose 'trim' or 'ref'")
     k = w.shape[0]
     if k > MAX_NATIVE_K:
-        raise NotImplementedError(
-            f"K={k} > {MAX_NATIVE_K} needs the adder-tree kernel tiling "
-            "(ROADMAP Queue 1: K > 8 adder tree and AlexNet, after the "
-            "LM-stack slice)")
+        return _conv2d_tiled(x, w, bias, stride=stride, padding=padding,
+                             groups=feature_group_count,
+                             activation=activation, dataflow=dataflow,
+                             tile_h=tile_h, tile_cout=tile_cout)
     pads = conv_pads(x.shape[1], x.shape[2], k, stride, padding)
+    return _conv_core(x, w, bias, _ConvConfig(
+        stride, pads, feature_group_count, activation, dataflow or "carry",
+        tile_h, tile_cout))
+
+
+def _conv_core(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
+               cfg: _ConvConfig) -> torch.Tensor:
+    """One TrIM kernel call: through :class:`_TrimConv2dFn` under grad with
+    an operand that requires it, else one launch with the bias +
+    activation epilogue fused."""
     operands = (x, w) if bias is None else (x, w, bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
-        cfg = _ConvConfig(stride, pads, feature_group_count, activation,
-                          dataflow or "carry", tile_h, tile_cout)
         return _TrimConv2dFn.apply(x, w, bias, cfg)
-    return trim_conv2d(x, w, bias, stride=stride, pad=pads,
-                       groups=feature_group_count, activation=activation,
-                       dataflow=dataflow or "carry", tile_h=tile_h,
-                       tile_cout=tile_cout)
+    return trim_conv2d(x, w, bias, stride=cfg.stride, pad=cfg.pads,
+                       groups=cfg.groups, activation=cfg.activation,
+                       dataflow=cfg.dataflow, tile_h=cfg.tile_h,
+                       tile_cout=cfg.tile_cout)
+
+
+def _conv2d_tiled(x: torch.Tensor, w: torch.Tensor,
+                  bias: torch.Tensor | None, *, stride: int, padding: str,
+                  groups: int, activation: str | None, dataflow: str | None,
+                  tile_h: int | None, tile_cout: int | None) -> torch.Tensor:
+    """The K > :data:`MAX_NATIVE_K` path (module docstring): the adder
+    tree over :func:`subkernel_decomposition`'s sub-kernels, each one
+    kernel call on the contiguous 'valid' slice of the padded input with
+    its contiguous weight slice, then the epilogue once."""
+    k = w.shape[0]
+    x = pad_nhwc(x, conv_pads(x.shape[1], x.shape[2], k, stride, padding))
+    h_out = (x.shape[1] - k) // stride + 1
+    w_out = (x.shape[2] - k) // stride + 1
+    if h_out < 1 or w_out < 1:
+        raise ValueError(f"empty output: input {tuple(x.shape)} (padded) "
+                         f"is smaller than the {k}x{k} kernel")
+    cfg = _ConvConfig(stride, ((0, 0), (0, 0)), groups, None,
+                      dataflow or "carry", tile_h, tile_cout)
+    out = None
+    for r0, c0, kh, kw in subkernel_decomposition(k, native_k=3):
+        xs = x[:, r0:r0 + (h_out - 1) * stride + kh,
+               c0:c0 + (w_out - 1) * stride + kw, :].contiguous()
+        part = _conv_core(xs, w[r0:r0 + kh, c0:c0 + kw].contiguous(), None,
+                          cfg)
+        out = part if out is None else out + part   # the adder tree
+    return ref.epilogue(out, bias, activation)
 
 
 def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,

@@ -57,18 +57,18 @@ def trim_conv2d_plain(x: torch.Tensor, w: torch.Tensor,
                       pad=0, groups: int = 1,
                       activation: str | None = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: ``_tap_matmuls``
-    (``repro/kernels/trim_conv2d.py:82``) as K^2 shifted strided views of
-    the padded input times ``w[ki, kj]``, accumulated in f32 in
+    (``repro/kernels/trim_conv2d.py:82``) as KH x KW shifted strided views
+    of the padded input times ``w[ki, kj]``, accumulated in f32 in
     ``(ki, kj)`` order, then ``_epilogue_store``'s bias and activation."""
-    k, s = w.shape[0], stride
+    kh, kw, cin_pg, cout = w.shape
+    s = stride
     xp = pad_nhwc(x, normalize_pad(pad))
     n, hp, wp, cin = xp.shape
-    cin_pg, cout = w.shape[2], w.shape[3]
-    h_out, w_out = (hp - k) // s + 1, (wp - k) // s + 1
+    h_out, w_out = (hp - kh) // s + 1, (wp - kw) // s + 1
     acc = torch.zeros((n * h_out * w_out, groups, cout // groups),
                       dtype=torch.float32, device=x.device)
-    for ki in range(k):
-        for kj in range(k):
+    for ki in range(kh):
+        for kj in range(kw):
             rows = xp[:, ki:ki + (h_out - 1) * s + 1:s,
                       kj:kj + (w_out - 1) * s + 1:s, :]
             taps = w[ki, kj].reshape(cin_pg, groups, cout // groups)
@@ -93,7 +93,7 @@ def _check_operands(**tensors) -> None:
             raise ValueError(f"{name} must be contiguous")
         if t.dim() != 4 and name != "bias":
             raise ValueError(f"{name} must be 4-D (NHWC activations, "
-                             f"(K, K, Cin/g, Cout) weights); got "
+                             f"(KH, KW, Cin/g, Cout) weights); got "
                              f"{tuple(t.shape)}")
 
 
@@ -120,7 +120,8 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor,
                 tile_cout: int | None = None) -> torch.Tensor:
     """Strided (grouped) 2D convolution with fused bias + activation.
 
-    x: (N, H, W, Cin) f32; w: (K, K, Cin/groups, Cout) f32; bias: (Cout,)
+    x: (N, H, W, Cin) f32; w: (KH, KW, Cin/groups, Cout) f32 (a square
+    kernel or a rectangular sub-kernel of the kernel tiling); bias: (Cout,)
     or None.  ``pad`` is an int (symmetric) or ``((top, bottom), (left,
     right))`` zero padding, applied inside the kernel.  ``activation`` is
     one of ``None | "relu" | "gelu" | "silu"``.  ``tile_h`` / ``tile_cout``
@@ -145,7 +146,7 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor,
         err = launch(
             x.data_ptr(), w.data_ptr(),
             None if bias is None else bias.data_ptr(), y.data_ptr(),
-            plan.n, plan.h, plan.w, plan.cin, plan.cout, plan.k,
+            plan.n, plan.h, plan.w, plan.cin, plan.cout, plan.kh, plan.kw,
             plan.stride, plan.pads[0][0], plan.pads[1][0], plan.groups,
             plan.h_out, plan.w_out, plan.th_out, plan.tile_w,
             plan.tile_cout, plan.strips_per_segment, plan.ring_rows,
@@ -164,7 +165,7 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor,
 
 def transpose_conv_weights(w: torch.Tensor, groups: int = 1) -> torch.Tensor:
     """Flip the spatial taps and swap the channel roles per group:
-    ``(K, K, Cin/g, Cout) -> (K, K, Cout/g, Cin)`` with the output (= the
+    ``(KH, KW, Cin/g, Cout) -> (KH, KW, Cout/g, Cin)`` with the output (= the
     forward input) channels group-major — the weights of the
     input-gradient conv (``repro/kernels/trim_conv2d.py:384``)."""
     kh, kw, cin_pg, cout = w.shape
@@ -190,8 +191,8 @@ def trim_conv2d_input_grad(g: torch.Tensor, w: torch.Tensor, *,
     """Input cotangent of :func:`trim_conv2d` — itself a TrIM conv
     (``repro/kernels/trim_conv2d.py:398``).
 
-    g: (N, H_out, W_out, Cout) output cotangent; w: (K, K, Cin/g, Cout) the
-    forward weights; ``x_shape``, ``stride``, ``pad`` and ``groups``
+    g: (N, H_out, W_out, Cout) output cotangent; w: (KH, KW, Cin/g, Cout)
+    the forward weights; ``x_shape``, ``stride``, ``pad`` and ``groups``
     describe the FORWARD problem (``pad`` an int or ``((top, bottom),
     (left, right))``).  Only the stride dilation is materialised; the edge
     pads of :func:`~repro_torch.core.conv_plan.input_grad_geometry` are the
@@ -213,58 +214,68 @@ def trim_conv2d_input_grad(g: torch.Tensor, w: torch.Tensor, *,
                        dataflow=dataflow)
 
 
+def _kernel_extents(kernel_size) -> tuple[int, int]:
+    """``(KH, KW)`` of a ``kernel_size`` given as an int or a pair."""
+    if isinstance(kernel_size, int):
+        return kernel_size, kernel_size
+    kh, kw = kernel_size
+    return int(kh), int(kw)
+
+
 def trim_conv2d_weight_grad_plain(x: torch.Tensor, g: torch.Tensor, *,
-                                  kernel_size: int, stride: int = 1, pad=0,
+                                  kernel_size, stride: int = 1, pad=0,
                                   groups: int = 1) -> torch.Tensor:
     """The weight-gradient kernel's function in plain PyTorch, as
     ``_weight_grad_kernel``'s tap loop computes it
     (``repro/kernels/trim_conv2d.py:429``): for each tap, the shifted
     strided view of the padded input contracted with the cotangent over
-    (n, oh, ow) by ``einsum``, accumulated in f32."""
-    k, s = kernel_size, stride
+    (n, oh, ow) by ``einsum``, accumulated in f32.  ``kernel_size`` is K
+    or ``(KH, KW)``."""
+    (kh, kw), s = _kernel_extents(kernel_size), stride
     xp = pad_nhwc(x, normalize_pad(pad))
     n, ho, wo, cout = g.shape
     cin_pg = x.shape[3] // groups
     gg = g.reshape(-1, groups, cout // groups)
-    dw = torch.empty((k, k, cin_pg, groups, cout // groups),
+    dw = torch.empty((kh, kw, cin_pg, groups, cout // groups),
                      dtype=torch.float32, device=x.device)
-    for ki in range(k):
-        for kj in range(k):
+    for ki in range(kh):
+        for kj in range(kw):
             rows = xp[:, ki:ki + (ho - 1) * s + 1:s,
                       kj:kj + (wo - 1) * s + 1:s, :]
             dw[ki, kj] = torch.einsum(
                 "mgc,mgo->cgo", rows.reshape(-1, groups, cin_pg), gg)
-    return dw.reshape(k, k, cin_pg, cout)
+    return dw.reshape(kh, kw, cin_pg, cout)
 
 
 def trim_conv2d_weight_grad(x: torch.Tensor, g: torch.Tensor, *,
-                            kernel_size: int, stride: int = 1, pad=0,
+                            kernel_size, stride: int = 1, pad=0,
                             groups: int = 1,
                             tile_go: int | None = None) -> torch.Tensor:
     """Weight cotangent of :func:`trim_conv2d`
     (``repro/kernels/trim_conv2d.py:458``).
 
     x: (N, H, W, Cin) the forward input; g: (N, H_out, W_out, Cout) the
-    output cotangent; ``kernel_size``, ``stride``, ``pad`` and ``groups``
-    as in the forward call (the padding is virtual: no padded copy of
-    ``x`` is made).  ``tile_go`` overrides the plan's chunk height.
-    Returns dw (K, K, Cin/groups, Cout) f32, bitwise the same on every
-    launch with the same inputs (no float atomics).
+    output cotangent; ``kernel_size`` (K, or ``(KH, KW)`` for a
+    rectangular sub-kernel), ``stride``, ``pad`` and ``groups`` as in the
+    forward call (the padding is virtual: no padded copy of ``x`` is
+    made).  ``tile_go`` overrides the plan's chunk height.  Returns dw
+    (KH, KW, Cin/groups, Cout) f32, bitwise the same on every launch with
+    the same inputs (no float atomics).
     """
     _check_operands(x=x, g=g)
-    k = kernel_size
+    kh, kw = _kernel_extents(kernel_size)
     plan = WeightGradPlan.build(tuple(x.shape),
-                                (k, k, x.shape[3] // groups, g.shape[3]),
+                                (kh, kw, x.shape[3] // groups, g.shape[3]),
                                 stride=stride, pad=pad, groups=groups,
                                 tile_go=tile_go)
     if tuple(g.shape) != (plan.n, plan.h_out, plan.w_out, plan.cout):
         raise ValueError(f"cotangent shape {tuple(g.shape)} does not match "
                          f"the forward geometry of x={tuple(x.shape)}, "
-                         f"K={k}, stride={stride}, pad={pad}")
+                         f"K={kh}x{kw}, stride={stride}, pad={pad}")
     if x.device.type == "cpu":
         with torch.no_grad():
             return trim_conv2d_weight_grad_plain(
-                x, g, kernel_size=k, stride=stride, pad=plan.pads,
+                x, g, kernel_size=(kh, kw), stride=stride, pad=plan.pads,
                 groups=groups)
     lib = build.library("trim_conv2d_wgrad")
     dw = torch.empty(plan.dw_shape, dtype=torch.float32, device=x.device)
@@ -274,7 +285,7 @@ def trim_conv2d_weight_grad(x: torch.Tensor, g: torch.Tensor, *,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.trim_conv2d_wgrad(
             x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(),
-            plan.n, plan.h, plan.w, plan.cin, plan.cout, plan.k,
+            plan.n, plan.h, plan.w, plan.cin, plan.cout, plan.kh, plan.kw,
             plan.stride, plan.pads[0][0], plan.pads[1][0], plan.groups,
             plan.h_out, plan.w_out, plan.tile_go,
             int(plan.route == "depthwise"), plan.tile_cout, plan.blocks,
@@ -453,7 +464,7 @@ def trim_conv2d_q8(x: torch.Tensor, w: torch.Tensor,
             x.data_ptr(), w_packed.data_ptr(),
             None if bias_q is None else bias_q.data_ptr(), scale.data_ptr(),
             y.data_ptr(), plan.n, plan.h, plan.w, plan.cin, plan.cout,
-            plan.k, plan.stride, plan.pads[0][0], plan.pads[1][0],
+            plan.kh, plan.stride, plan.pads[0][0], plan.pads[1][0],
             plan.groups, plan.h_out, plan.w_out, plan.th_out, plan.tile_w,
             plan.tile_cout, plan.strips_per_segment, plan.ring_rows,
             plan.cin_stride, int(zero_point), ACTIVATION_CODES[activation],

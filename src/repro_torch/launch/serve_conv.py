@@ -14,10 +14,13 @@ The CLI drives the whole serving path once, end to end: build a
 topology with seeded random weights, prewarm every bucket (which builds
 the CUDA kernels), replay a seeded Poisson arrival trace as real asyncio
 clients, and report latency percentiles and throughput.  Full-width
-VGG-16 on the card:
+VGG-16 and AlexNet (conv1 11 x 11: the kernel tiling's 16 sub-kernels)
+on the card:
 
   PYTHONPATH=src python -m repro_torch.launch.serve_conv --net vgg16 \
       --scale 1 --requests 32 --buckets 1,2,4,8 --rate 200
+  PYTHONPATH=src python -m repro_torch.launch.serve_conv --net alexnet \
+      --scale 1 --requests 32 --buckets 1,2,4,8
   PYTHONPATH=src python -m repro_torch.launch.serve_conv --smoke \
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve_conv --smoke --fused \

@@ -151,6 +151,6 @@ def test_plans_are_cached_and_errors_kept():
     with pytest.raises(ValueError, match="multiple"):
         ConvPlan.build((1, 9, 9, 4), (3, 3, 4, 4), stride=2, tile_h=3)
     with pytest.raises(ValueError, match="multiple"):
-        ConvPlan(n=1, h=8, w=8, cin=4, cout=4, k=3, stride=2,
+        ConvPlan(n=1, h=8, w=8, cin=4, cout=4, kh=3, kw=3, stride=2,
                  pads=((1, 1), (1, 1)), groups=1, tile_h=3, tile_w=4,
                  tile_cout=4)

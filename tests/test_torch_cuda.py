@@ -35,7 +35,10 @@ on it launches it once a layer and matches the same prefill on the CPU
 within 1e-5 * max|logits| (GEMMs in another order).  The int8 conv kernel
 is held against its plain version bit for bit (TOL for gelu / silu), carry
 against halo bitwise, and a calibrated layer on the card against the CPU
-bit for bit.
+bit for bit.  Rectangular (KH x KW) kernels, the sub-kernels of the
+kernel tiling, are held like the square ones (carry, halo, wgrad), and
+K > 8 through ``ops.conv2d`` (forward and gradients) against the ``ref``
+oracle.
 """
 
 import pytest
@@ -254,7 +257,7 @@ def test_wgrad_launcher_takes_and_checks_the_plan(cuda):
     def launch(depthwise, tile_cout, blocks):
         return lib.trim_conv2d_wgrad(
             x.data_ptr(), gy.data_ptr(), ws.data_ptr(), dw.data_ptr(),
-            plan.n, plan.h, plan.w, plan.cin, plan.cout, plan.k,
+            plan.n, plan.h, plan.w, plan.cin, plan.cout, plan.kh, plan.kw,
             plan.stride, 1, 1, plan.groups, plan.h_out, plan.w_out,
             plan.tile_go, depthwise, tile_cout, blocks, stream)
 
@@ -299,6 +302,118 @@ def test_autograd_conv_matches_ref_oracle(cuda):
         return torch.autograd.grad((y ** 2).sum(), leaves)
 
     for got, want in zip(grads("trim"), grads("ref")):
+        assert (got - want).abs().max().item() <= \
+            TOL * want.abs().max().item()
+
+
+# Rectangular (KH x KW) kernels: the sub-kernels of the kernel tiling.
+# AlexNet conv1's four shapes at stride 4 on 'valid' slices (no carried
+# rows), carried rows at stride 1 and 2 with KH != KW both ways, the
+# prefetching ring (several strips a segment), a depthwise 2 x 3, Cin 3
+# with ragged C_out tiles, asymmetric pads, and a 4-byte operand offset.
+# (n, h, w, cin, cout, kh, kw, stride, groups, pads, tile_h, offset)
+RECT_CASES = [
+    (2, 35, 35, 3, 96, 3, 3, 4, 1, 0, None, False),
+    (2, 35, 34, 3, 96, 3, 2, 4, 1, 0, None, False),
+    (2, 34, 35, 3, 96, 2, 3, 4, 1, 0, None, False),
+    (2, 34, 34, 3, 96, 2, 2, 4, 1, 0, None, False),
+    (8, 96, 95, 32, 64, 3, 2, 1, 1, 0, 2, False),
+    (2, 21, 19, 12, 20, 2, 3, 2, 1, ((1, 0), (0, 1)), None, False),
+    (2, 17, 19, 8, 8, 2, 3, 1, 8, ((0, 1), (1, 1)), None, False),
+    (1, 15, 16, 3, 70, 3, 1, 1, 1, 0, None, True),
+]
+
+
+@pytest.mark.parametrize("case", RECT_CASES,
+                         ids=[str(i) for i in range(len(RECT_CASES))])
+def test_rectangular_kernels_match_plain(cuda, case):
+    n, h, w, cin, cout, kh, kw, s, g, pads, tile_h, offset = case
+    gen = torch.Generator(device="cuda").manual_seed(h * w + kh)
+    x = torch.randn((n * h * w * cin + offset,), generator=gen,
+                    device=cuda)[offset:].view(n, h, w, cin)
+    wt = torch.randn((kh * kw * (cin // g) * cout + offset,), generator=gen,
+                     device=cuda)[offset:].view(kh, kw, cin // g, cout)
+    b = torch.randn((cout,), generator=gen, device=cuda)
+    kw_ = dict(stride=s, pad=pads, groups=g, activation="relu")
+    plain = tc.trim_conv2d_plain(x, wt, b, **kw_)
+    before = dict(tc.LAUNCHES)
+    carry = tc.trim_conv2d(x, wt, b, tile_h=tile_h, **kw_)
+    halo = tc.trim_conv2d(x, wt, b, tile_h=tile_h, dataflow="halo", **kw_)
+    torch.cuda.synchronize()
+    assert tc.LAUNCHES["carry"] == before["carry"] + 1
+    assert tc.LAUNCHES["halo"] == before["halo"] + 1
+    assert carry.shape == plain.shape
+    assert (carry - plain).abs().max().item() <= \
+        TOL * max(1.0, plain.abs().max().item())
+    assert torch.equal(carry, halo)
+
+
+# (n, h, w, cin, cout, kh, kw, stride, groups, tile_go): AlexNet conv1's
+# sub-kernel shapes on 'valid' slices, carried rows, the depthwise route
+# and the 4-byte loaders (Cin/g 3, Cout/g 6).
+RECT_WGRAD_CASES = [
+    (2, 35, 35, 3, 96, 3, 3, 4, 1, None),
+    (2, 35, 34, 3, 96, 3, 2, 4, 1, 3),
+    (2, 34, 35, 3, 96, 2, 3, 4, 1, None),
+    (2, 34, 34, 3, 96, 2, 2, 4, 1, 1),
+    (2, 20, 18, 32, 64, 3, 2, 1, 1, 5),
+    (2, 19, 21, 16, 16, 2, 3, 1, 16, None),
+    (2, 13, 14, 6, 12, 3, 1, 2, 2, None),
+]
+
+
+@pytest.mark.parametrize("case", RECT_WGRAD_CASES,
+                         ids=[str(i) for i in range(len(RECT_WGRAD_CASES))])
+def test_rectangular_wgrad_matches_plain_and_repeats_bitwise(cuda, case):
+    n, h, w, cin, cout, kh, kw, s, g, tile_go = case
+    gen = torch.Generator(device="cuda").manual_seed(kh * 10 + kw)
+    x = torch.randn((n, h, w, cin), generator=gen, device=cuda)
+    gy = torch.randn((n, (h - kh) // s + 1, (w - kw) // s + 1, cout),
+                     generator=gen, device=cuda)
+    kw_ = dict(kernel_size=(kh, kw), stride=s, pad=0, groups=g)
+    plain = tc.trim_conv2d_weight_grad_plain(x, gy, **kw_)
+    one = tc.trim_conv2d_weight_grad(x, gy, tile_go=tile_go, **kw_)
+    two = tc.trim_conv2d_weight_grad(x, gy, tile_go=tile_go, **kw_)
+    torch.cuda.synchronize()
+    assert one.shape == plain.shape == (kh, kw, cin // g, cout)
+    assert (one - plain).abs().max().item() <= \
+        TOL * plain.abs().max().item()
+    assert torch.equal(one, two)
+
+
+# K > 8 through ops.conv2d: AlexNet conv1's geometry ('valid', stride 4)
+# and a 'same' K 9 depthwise conv, forward and gradients against the ref
+# oracle; each forward launches the carry kernel once a sub-kernel.
+LARGE_K_CASES = [((2, 39, 39, 3), (11, 11, 3, 32), 4, 1, "valid", "relu"),
+                 ((2, 19, 17, 8), (9, 9, 1, 8), 1, 8, "same", "gelu")]
+
+
+@pytest.mark.parametrize("case", LARGE_K_CASES, ids=["k11", "k9_dw"])
+def test_large_k_op_and_gradients_match_ref(cuda, case):
+    xs, ws, s, g, padding, act = case
+    gen = torch.Generator(device="cuda").manual_seed(ws[0])
+    x = torch.randn(xs, generator=gen, device=cuda)
+    wt = torch.randn(ws, generator=gen, device=cuda) / ws[0]
+    b = torch.randn((ws[3],), generator=gen, device=cuda)
+    kw_ = dict(stride=s, padding=padding, feature_group_count=g, bias=b,
+               activation=act)
+    before = tc.LAUNCHES["carry"]
+    y = ops.conv2d(x, wt, **kw_)
+    torch.cuda.synchronize()
+    assert tc.LAUNCHES["carry"] == before + ops.conv_launches(ws[0])
+    want = ops.conv2d(x, wt, impl="ref", **kw_)
+    assert (y - want).abs().max().item() <= \
+        TOL * max(1.0, want.abs().max().item())
+
+    def grads(impl):
+        leaves = [t.clone().requires_grad_() for t in (x, wt, b)]
+        out = ops.conv2d(leaves[0], leaves[1], stride=s, padding=padding,
+                         feature_group_count=g, bias=leaves[2],
+                         activation=act, impl=impl)
+        return torch.autograd.grad((out ** 2).sum(), leaves)
+
+    for got, want in zip(grads("trim"), grads("ref")):
+        assert got.shape == want.shape
         assert (got - want).abs().max().item() <= \
             TOL * want.abs().max().item()
 
@@ -752,7 +867,7 @@ def test_q8_launcher_takes_and_checks_the_plan(cuda):
         return lib.trim_conv2d_q8_carry(
             x.data_ptr(), wp.data_ptr(), bq.data_ptr(), scale.data_ptr(),
             y.data_ptr(), plan.n, plan.h, plan.w, plan.cin, plan.cout,
-            plan.k, plan.stride, plan.pads[0][0], plan.pads[1][0],
+            plan.kh, plan.stride, plan.pads[0][0], plan.pads[1][0],
             plan.groups, plan.h_out, plan.w_out, plan.th_out, plan.tile_w,
             plan.tile_cout, plan.strips_per_segment, plan.ring_rows,
             plan.cin_stride, kw["zero_point"], 1, route, warps_n, warps_k,

@@ -55,7 +55,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     names = {p.relative_to(ROOT / "src").as_posix() for p in files[:-1]}
     assert {"repro_torch/models/mamba.py",
             "repro_torch/kernels/trim_conv1d.py",
-            "repro_torch/configs/falcon_mamba.py"} <= names
+            "repro_torch/configs/falcon_mamba.py",
+            "repro_torch/core/tiling.py",
+            "repro_torch/configs/trim_cnn.py",
+            "repro_torch/models/frontends.py"} <= names
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
@@ -159,8 +162,13 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
         tc.trim_conv2d(x.permute(0, 2, 1, 3), w)
     with pytest.raises(ValueError, match="bias"):
         tc.trim_conv2d(x, w, torch.zeros(3))
+    # the f32 kernel takes rectangular (KH x KW) sub-kernels; the int8
+    # kernel stays square
+    assert tc.trim_conv2d(x, torch.zeros((3, 1, 4, 4))).shape == (1, 6, 8, 4)
     with pytest.raises(ValueError, match="square"):
-        tc.trim_conv2d(x, torch.zeros((3, 1, 4, 4)))
+        tc.trim_conv2d_q8(x.to(torch.int8),
+                          torch.zeros((3, 1, 4, 4), dtype=torch.int8), None,
+                          torch.ones(4))
     with pytest.raises(ValueError, match="shared memory"):
         tc.trim_conv2d(torch.zeros((1, 4, 4, 8192)),
                        torch.zeros((3, 3, 8192, 1)))

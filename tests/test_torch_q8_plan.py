@@ -145,7 +145,7 @@ def test_routes():
 
 
 def test_plan_refuses_a_warp_layout_the_launcher_refuses():
-    base = dict(n=1, h=8, w=8, cin=64, cout=64, k=3, stride=1,
+    base = dict(n=1, h=8, w=8, cin=64, cout=64, kh=3, kw=3, stride=1,
                 pads=((1, 1), (1, 1)), groups=1, tile_h=2, tile_w=8,
                 tile_cout=64, cin_stride=80, dtype_bytes=1)
     ConvPlan(warps_n=2, warps_k=1, m_frags=1, **base)

@@ -239,7 +239,7 @@ def test_q8_plan_holds_the_window_in_bytes():
                         dtype_bytes=1)
     assert dw.cin_stride == 4
     with pytest.raises(ValueError, match="dtype_bytes"):
-        ConvPlan(n=1, h=8, w=8, cin=4, cout=4, k=3, stride=1,
+        ConvPlan(n=1, h=8, w=8, cin=4, cout=4, kh=3, kw=3, stride=1,
                  pads=((1, 1), (1, 1)), groups=1, tile_h=1, tile_w=1,
                  tile_cout=4, dtype_bytes=2)
 

@@ -194,7 +194,7 @@ def main() -> int:
         sc = torch.ones((ws[3],), device="cuda")
         y = torch.empty(p.out_shape, device="cuda")
         call = (x.data_ptr(), wp.data_ptr(), bq.data_ptr(), sc.data_ptr(),
-                y.data_ptr(), p.n, p.h, p.w, p.cin, p.cout, p.k, p.stride,
+                y.data_ptr(), p.n, p.h, p.w, p.cin, p.cout, p.kh, p.stride,
                 p.pads[0][0], p.pads[1][0], p.groups, p.h_out, p.w_out,
                 p.th_out, p.tile_w, p.tile_cout, p.strips_per_segment,
                 p.ring_rows, p.cin_stride, 0, 1, Q8_ROUTES.index(p.route),
