@@ -9,6 +9,13 @@ N full-width VGG-16 AdamW steps and the weight-gradient kernel at the
 step's shapes (one JSON line): copied into another checkout, it measures
 that checkout's package the same way, for a comparison in one call.
 
+Every phase runs on a fresh, empty autotune cache in a temporary
+directory (``REPRO_TORCH_CONVTUNE_CACHE``, removed at exit), so no run
+reads a cache an earlier run left or leaves one for a later run; the
+earlier phases' engines prewarm it with model-ranked records, which are
+the planner's default plans, so their numbers stay comparable across
+runs.
+
 Phases, each raising on failure (each prints its seconds):
 
 1. device — the card's name and power limit (``nvidia-smi``);
@@ -123,7 +130,23 @@ Phases, each raising on failure (each prints its seconds):
 15. trainer — ``launch.train_cnn.train`` at the example's settings (50
    steps, batch 16): the mean of the last five losses below the first
    five's minus 0.1;
-16. attention kernel check — the flash-attention kernel against its plain
+16. autotune — on an autotune cache of its own: a measured
+   ``autotune.tune_network`` (the leading candidates timed from CUDA
+   graphs on the card) of full-width VGG-16 in f32 and int8
+   (``conv2d_q8:``) and of AlexNet (conv1, K 11, skipped), each at batch
+   8 and 1; per layer the default plan and the tuned one (strip, band,
+   C_out tile, dataflow, segments) and their device ms, timed in turns in
+   this call, and the sums; every tuned output through ``ops.conv2d``
+   (which must launch the record's dataflow once) bitwise equal to the
+   default plan's; ``tune_backward_shapes`` of the trainer (measured)
+   and its AdamW step with the records against without, gradients within
+   ``GRAD_TOLERANCE``, two steps with the records bitwise equal; then
+   full-width VGG-16 served after ``prewarm(tune=True)`` with
+   ``tune_kwargs={"measure": True}`` on buckets (1, 2, 4, 8): 48 seeded
+   Poisson requests at 200 req/s, no cold tune, each layer launching its
+   record's kernel, every row bitwise equal to ``forward_one``; p50, p99,
+   the launches and the tuner's seconds;
+17. attention kernel check — the flash-attention kernel against its plain
    version (``ATTN_TOLERANCE``) at (a) the LM prefill's shape, B=2,
    L=4096, Hq=16, Hkv=2, D=128, causal; (b) a 17-query continuation of
    4096 keys; (c) recurrentgemma-2b's geometry, Hq=10, Hkv=1, D=256,
@@ -134,7 +157,7 @@ Phases, each raising on failure (each prints its seconds):
    cores for D <= 256, f32 FFMA above) and the FFMA one, and for (a)
    ``F.scaled_dot_product_attention`` (the yardstick; the port never
    calls it);
-17. LM prefill — full-width qwen2.5-3b (36 layers, 3.4 B parameters drawn
+18. LM prefill — full-width qwen2.5-3b (36 layers, 3.4 B parameters drawn
    on the card) through ``steps.make_prefill_step`` on 2 x 4096 seeded
    tokens, reduced from the JAX ``prefill_32k`` plan (32 x 32768, whose
    f32 logits alone would take 637 GB): with ``attn_impl="flash"``
@@ -149,12 +172,12 @@ Phases, each raising on failure (each prints its seconds):
    f32 ref's (the f32 error both carry at logits of |s| ~ 2000), and
    (iii) the logits and next tokens of the depth-1 cut of the same model
    (``LM_TOLERANCE``);
-18. LM serve — ``launch.serve.serve_batch`` at full width, batch 4, prompt
+19. LM serve — ``launch.serve.serve_batch`` at full width, batch 4, prompt
    16, gen 32: tokens/s; the decode path (KV caches, ``decode_attention``,
    no kernel) against the flash prefill, position by position, on a
    256-token prompt at the depth-1 cut (checked, ``LM_TOLERANCE``) and at
    the serve prompt's last position at full depth (printed);
-19. conv1d kernel check — the causal depthwise conv1d kernel against its
+20. conv1d kernel check — the causal depthwise conv1d kernel against its
    plain version and the ``ref`` oracle, bit for bit, at falcon-mamba-7b's
    prefill shape (B 2, L 2048, D 8192, K 4), contiguous and as the mixer's
    strided half of the in-projection, and at edge cases (runs that do not
@@ -164,7 +187,7 @@ Phases, each raising on failure (each prints its seconds):
    input laid out (B, D, L) (TF32 off) and the plan's bound, and the
    bytes the function must move beside those the kernel's schedule moves
    (the runs' re-read halos priced, ``Conv1dPlan.hbm_bytes``);
-20. mamba prefill — full-width falcon-mamba-7b (64 layers, 7.27 B
+21. mamba prefill — full-width falcon-mamba-7b (64 layers, 7.27 B
    parameters drawn on the card, after qwen2.5-3b's are freed) through
    ``steps.make_prefill_step`` on 2 x 2048 seeded tokens: exactly 64
    ``trim_conv1d`` launches a forward, finite logits, ms per forward, peak
@@ -175,10 +198,10 @@ Phases, each raising on failure (each prints its seconds):
    decode (``api.decode``), the logits at every position (checked,
    ``MAMBA_TOLERANCE``), at the depth-1 and depth-2 cuts on a 128-token
    prompt and at full depth on the 64-token one;
-21. mamba serve — ``serve_batch`` at full width, batch 4, prompt 16, gen
+22. mamba serve — ``serve_batch`` at full width, batch 4, prompt 16, gen
    32, through the conv windows and SSM states: tokens/s, ms per decode
    step and the step's device-busy share (``torch.profiler``);
-22. the kernel JSON line (eight kernels), then ``{"ok": true, "device":
+23. the kernel JSON line (eight kernels), then ``{"ok": true, "device":
    ...}`` last.
 
 Exits non-zero without a result when no GPU is visible.
@@ -1638,8 +1661,8 @@ def serve(n_requests, dataflow, model, xs, expect=None, fused=False,
     t0 = time.perf_counter()
     warm = engine.prewarm()
     print(f"serve[{label}]: prewarm {time.perf_counter() - t0:.3f} s "
-          f"(first forward per bucket, s: "
-          f"{ {b: round(s, 4) for b, s in warm.items()} })")
+          f"(model-ranked tune + first forward per bucket, s: "
+          f"{ {b: round(r['seconds'], 4) for b, r in warm.items()} })")
     trace = [(t, i, xs[i]) for i, t in enumerate(
         poisson_arrivals(ARRIVAL_RATE, n_requests, seed=0))]
     tc.reset_launch_counts()
@@ -2386,6 +2409,328 @@ def mamba_serve(torch, mb):
     return dict(tok_s=tok_s, step_ms=dt * 1e3 / steps_run, busy=busy)
 
 
+# ---------------------------------------------------------------------------
+# The autotune phase
+# ---------------------------------------------------------------------------
+
+TUNE_TURNS = 3              # alternating graph timings of default / tuned
+
+
+def time_turns_ms(torch, fns, turns: int = TUNE_TURNS) -> list:
+    """Device ms a launch of each of ``fns`` (``time_graph_ms``), timed in
+    ``turns`` alternating rounds in this call; the median of each."""
+    times = [[] for _ in fns]
+    for _ in range(turns):
+        for i, fn in enumerate(fns):
+            times[i].append(time_graph_ms(torch, fn))
+    return [float(np.median(t)) for t in times]
+
+
+def plan_label(plan) -> str:
+    return (f"{plan.th_out}x{plan.tile_w}x{plan.tile_cout} {plan.dataflow} "
+            f"s{plan.segments}")
+
+
+def tune_table(torch, label, topo, n, dtype):
+    """Measured ``tune_network`` of ``topo`` at batch ``n`` (``dtype``
+    "float32" or "int8"), then per tuned layer: the default plan's and
+    the tuned plan's output through ``ops.conv2d`` (the tuned one read
+    from the cache, its dataflow's kernel launched once) bitwise equal,
+    and both plans' device ms through the kernel wrapper, in turns.
+    Returns the rows and the sweep's seconds."""
+    from repro_torch.core import autotune
+    from repro_torch.core.conv_plan import ConvPlan
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import trim_conv2d as tc
+
+    t0 = time.perf_counter()
+    recs = autotune.tune_network(topo, n=n, dtype=dtype, measure=True,
+                                 device="cuda")
+    sweep_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    rows = []
+    print(f"autotune[{label}, N={n}]: measured tune of {len(recs)} layers "
+          f"in {sweep_s:.2f} s (plan: strip x band x C_out tile, "
+          "dataflow, segments; device ms from CUDA graphs, "
+          f"{TUNE_TURNS} alternating turns, median):")
+    for layer in topo:
+        rec = recs[layer.name]
+        if "skipped" in rec:
+            print(f"  {layer.name:7s} skipped: {rec['skipped']}")
+            continue
+        xs, pads, ws = autotune.layer_problem(layer, n=n)
+        padding = "same" if layer.padding else "valid"
+        common = dict(stride=layer.stride, pad=pads, groups=layer.groups,
+                      dtype_bytes=autotune.DTYPE_BYTES[dtype])
+        knobs = {k: rec[k] for k in ("tile_h", "tile_cout", "dataflow")}
+        default = ConvPlan.build(xs, ws, **common)
+        tuned = ConvPlan.build(xs, ws, **common, **knobs)
+        kw = dict(stride=layer.stride, pad=pads, groups=layer.groups,
+                  activation="relu")
+        if dtype == "int8":
+            x = torch.randint(-128, 128, xs, generator=gen, device="cuda",
+                              dtype=torch.int8)
+            w = torch.randint(-128, 128, ws, generator=gen, device="cuda",
+                              dtype=torch.int8)
+            pk = ops.QuantizedConv2dWeights(
+                w=w, bias=torch.randn((ws[3],), generator=gen,
+                                      device="cuda"),
+                scale=torch.full((ws[3],), 1e-3, device="cuda"),
+                zero_point=torch.tensor(3, dtype=torch.int32,
+                                        device="cuda"),
+                input_scale=torch.tensor(0.05, device="cuda"),
+                groups=layer.groups, cout=ws[3])
+            scale, bias_q = ref.dequant_params(pk.w, pk.scale,
+                                               pk.input_scale,
+                                               pk.zero_point, pk.bias)
+
+            def op(**o):
+                return ops.conv2d(x, pk, stride=layer.stride,
+                                  padding=padding, activation="relu", **o)
+
+            def wrap(k):
+                return lambda: tc.trim_conv2d_q8(
+                    x, w, bias_q, scale, zero_point=pk.zp,
+                    w_packed=pk.w_kernel, **k, **kw)
+            key = f"q8_{tuned.dataflow}"
+        else:
+            x = torch.randn(xs, generator=gen, device="cuda")
+            w = torch.randn(ws, generator=gen, device="cuda") \
+                / float(np.sqrt(ws[0] * ws[1] * ws[2]))
+            b = torch.randn((ws[3],), generator=gen, device="cuda")
+
+            def op(**o):
+                return ops.conv2d(x, w, stride=layer.stride,
+                                  padding=padding, bias=b,
+                                  feature_group_count=layer.groups,
+                                  activation="relu", **o)
+
+            def wrap(k):
+                return lambda: tc.trim_conv2d(x, w, b, **k, **kw)
+            key = tuned.dataflow
+        want = op(use_autotune_cache=False)
+        tc.reset_launch_counts()
+        got = op()
+        torch.cuda.synchronize()
+        if dict(tc.LAUNCHES) != launch_counts(**{key: 1}):
+            raise AssertionError(f"autotune[{label}] {layer.name}: "
+                                 f"ops.conv2d launched {tc.LAUNCHES}, want "
+                                 f"one {key} (the record's dataflow)")
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"autotune[{label}, N={n}] {layer.name}: the tuned plan's "
+                f"output differs from the default's bitwise: max|diff| "
+                f"{(got - want).abs().max().item()}")
+        # the default by no knobs: an int8 default strip need not replay
+        # as an explicit tile_h (the planner picks it with the warps)
+        ms_d, ms_t = time_turns_ms(torch, [wrap(dict(dataflow="carry")),
+                                           wrap(knobs)])
+        rows.append(dict(name=layer.name, default=ms_d, tuned=ms_t,
+                         moved=tuned != default,
+                         measured_us=rec["measured_us"]))
+        print(f"  {layer.name:7s} default {plan_label(default):22s} "
+              f"{ms_d:8.4f} ms | tuned {plan_label(tuned):22s} "
+              f"{ms_t:8.4f} ms ({rec['source']}, {rec['measured_us']:.1f} "
+              f"us in the tune){'' if tuned != default else ' = default'}")
+        del x, w
+    torch.cuda.empty_cache()
+    sd, st = sum(r["default"] for r in rows), sum(r["tuned"] for r in rows)
+    print(f"autotune[{label}, N={n}]: sum of {len(rows)} layers: default "
+          f"{sd:.4f} ms, tuned {st:.4f} ms ({(st / sd - 1) * 100:+.2f}%); "
+          f"{sum(r['moved'] for r in rows)} plans moved; every tuned output "
+          "bitwise equal to the default's")
+    return rows, sweep_s
+
+
+def tune_trainer(torch):
+    """``launch.train_cnn.tune_backward_shapes`` (measured input-gradient
+    convs) for the trainer's batch, then the trainer's AdamW step with the
+    records against the step without (``REPRO_TORCH_CONV_AUTOTUNE=0``),
+    timed in turns from one state: gradients within ``GRAD_TOLERANCE`` of
+    each leaf's max|g| (dW is not bitwise across chunk heights), two steps
+    with the records bitwise equal.  Returns the tuner's seconds."""
+    from repro_torch.core import autotune
+    from repro_torch.launch import train_cnn
+    from repro_torch.models import layers
+    from repro_torch.models.base import init_params
+    from repro_torch.optim import adamw
+
+    batch = 16
+    t0 = time.perf_counter()
+    recs = train_cnn.tune_backward_shapes(batch, device="cuda",
+                                          measure=True)
+    sweep_s = time.perf_counter() - t0
+    params = init_params(
+        layers.simple_cnn_params(cin=train_cnn.CIN,
+                                 channels=train_cnn.CHANNELS,
+                                 n_classes=train_cnn.N_CLASSES),
+        torch.Generator().manual_seed(0), device="cuda")
+    moments = adamw.init_moments(params, train_cnn.OPT)
+    rng = np.random.default_rng(0)
+    templates = rng.standard_normal((train_cnn.N_CLASSES, train_cnn.IMAGE,
+                                     train_cnn.IMAGE, train_cnn.CIN))
+    x, y = train_cnn.make_batch(rng, templates, batch, "cuda")
+
+    def step():
+        out = train_cnn.train_step(params, moments, 0, x, y,
+                                   apply_fn=layers.simple_cnn_apply,
+                                   cfg=train_cnn.OPT)
+        torch.cuda.synchronize()
+        return out
+
+    def with_records(on):
+        if on:
+            os.environ.pop(autotune.AUTOTUNE_ENV, None)
+        else:
+            os.environ[autotune.AUTOTUNE_ENV] = "0"
+
+    try:
+        with_records(True)
+        g_on = grads(layers.simple_cnn_apply, params, x, y)[1]
+        p1, p2 = step()[0], step()[0]
+        with_records(False)
+        g_off = grads(layers.simple_cnn_apply, params, x, y)[1]
+        for a, b in zip(adamw.tree_leaves(p1), adamw.tree_leaves(p2)):
+            if not torch.equal(a, b):
+                raise AssertionError("autotune[trainer]: two steps with the "
+                                     "records differ bitwise")
+        worst = 0.0
+        for a, b in zip(g_on, g_off):
+            rel = (a - b).abs().max().item() / max(b.abs().max().item(),
+                                                   1e-30)
+            worst = max(worst, rel)
+        if not worst <= GRAD_TOLERANCE:
+            raise AssertionError(f"autotune[trainer]: gradients with the "
+                                 f"records differ by {worst:.3e} of max|g|")
+        times = {True: [], False: []}
+        for _ in range(5):
+            for on in (True, False):
+                with_records(on)
+                t = time.perf_counter()
+                step()
+                times[on].append((time.perf_counter() - t) * 1e3)
+    finally:
+        with_records(True)
+    moved = sum(r["input_grad"]["tile_h"] is not None
+                or r["input_grad"]["dataflow"] != "carry"
+                for r in recs.values())
+    print(f"autotune[trainer]: tune_backward_shapes(batch {batch}, "
+          f"measured) {sweep_s:.2f} s, {len(recs)} convs, "
+          f"{2 * len(recs)} records; step with the records "
+          f"{np.median(times[True]):.2f} ms, without "
+          f"{np.median(times[False]):.2f} ms (medians of 5 alternating "
+          f"steps, host clock to synchronize); gradients within "
+          f"{worst:.2e} of max|g| (<= {GRAD_TOLERANCE:g}); two steps with "
+          f"the records bitwise equal ({moved} input-gradient records "
+          "with non-default knobs)")
+    return sweep_s
+
+
+def serve_tuned(torch):
+    """Full-width VGG-16 served after ``prewarm(tune=True)`` with
+    ``tune_kwargs={"measure": True}`` on buckets (1, 2, 4, 8): 48 seeded
+    Poisson requests, no cold tune, each forward launching per layer the
+    kernel of its bucket's record (carry or halo), every row bitwise
+    equal to ``forward_one``.  Returns (launch counts, forwards, prewarm
+    seconds)."""
+    from repro_torch.core.model import vgg16_layers
+    from repro_torch.core.serving import ServingEngine, replay
+    from repro_torch.kernels import trim_conv2d as tc
+    from repro_torch.models.layers import TrimCNN
+    from repro_torch.testing.load import poisson_arrivals
+
+    topo = vgg16_layers()
+    model = TrimCNN.random(topo, n_classes=1000, seed=0, device="cuda")
+    engine = ServingEngine.for_topology(topo, model, buckets=(1, 2, 4, 8),
+                                        device="cuda",
+                                        tune_kwargs={"measure": True})
+    t0 = time.perf_counter()
+    recs = engine.prewarm()
+    warm_s = time.perf_counter() - t0
+    for b, per in recs.items():
+        halo = sum(r["dataflow"] == "halo" for r in per["layers"].values())
+        print(f"serve[tuned]: bucket {b}: {len(per['layers'])} measured "
+              f"records ({halo} halo), first forward "
+              f"{per['seconds']:.4f} s")
+    rng = np.random.default_rng(0)
+    xs = rng.standard_normal((REQUESTS, 224, 224, 3)).astype(np.float32)
+    trace = [(t, i, xs[i]) for i, t in enumerate(
+        poisson_arrivals(ARRIVAL_RATE, REQUESTS, seed=0))]
+    tc.reset_launch_counts()
+    results, rejected = replay(engine, trace)
+    launches = dict(tc.LAUNCHES)
+    st = engine.stats()
+    if rejected or len(results) != REQUESTS:
+        raise AssertionError(f"serve[tuned]: served {len(results)}, "
+                             f"rejected {rejected}")
+    if st["cold_tunes"] != 0:
+        raise AssertionError(f"serve[tuned]: {st['cold_tunes']} cold tunes "
+                             "after prewarm")
+    want = launch_counts()
+    for bucket, count in st["bucket_batches"].items():
+        for r in recs[bucket]["layers"].values():
+            want[r["dataflow"]] += count
+    if launches != want:
+        raise AssertionError(f"serve[tuned]: launches {launches}, want "
+                             f"{want} from the records")
+    s = engine.recorder.summary()
+    for i in range(REQUESTS):
+        row = results[i]
+        if row.shape != (1000,) or not np.isfinite(row).all():
+            raise AssertionError(f"serve[tuned] request {i}: bad logits")
+        if not np.array_equal(row, engine.forward_one(xs[i])):
+            raise AssertionError(f"serve[tuned] request {i}: served row "
+                                 "differs from the single-request forward")
+    forwards = sum(st["bucket_batches"].values())
+    print(f"serve[tuned]: prewarm (measured tune of 13 layers x 4 buckets "
+          f"+ first forwards) {warm_s:.2f} s; {REQUESTS} requests, bucket "
+          f"batches {st['bucket_batches']}, {forwards} forwards, launches "
+          f"{launches}, cold tunes {st['cold_tunes']}; p50 "
+          f"{s['p50_s'] * 1e3:.3f} ms, p99 {s['p99_s'] * 1e3:.3f} ms, "
+          f"throughput {s['throughput_rps']:.1f} req/s; all rows bit-match "
+          "forward_one")
+    del model, engine
+    torch.cuda.empty_cache()
+    return launches, forwards, warm_s
+
+
+def autotune_phase(torch, cache_dir: str) -> dict:
+    """The tuner on the card, on a cache of its own (reset before and
+    after): the per-layer tables (VGG-16 f32 and int8, AlexNet conv2-5,
+    N=8 and 1), the trainer's backward shapes and VGG-16 served after a
+    measured prewarm.  Returns the tables, the serving launches and the
+    tuner's seconds."""
+    from repro_torch.core import autotune
+    from repro_torch.core.model import alexnet_layers, vgg16_layers
+
+    outer = os.environ.get(autotune.CACHE_ENV)
+    os.environ[autotune.CACHE_ENV] = os.path.join(cache_dir,
+                                                  "autotune_phase.json")
+    autotune.reset_memory_cache()
+    try:
+        tables, sweep = {}, {}
+        for label, topo, dtype in (("VGG-16 f32", vgg16_layers(), "float32"),
+                                   ("VGG-16 int8", vgg16_layers(), "int8"),
+                                   ("AlexNet f32", alexnet_layers(),
+                                    "float32")):
+            for n in (8, 1):
+                tables[label, n], sweep[f"{label} N={n}"] = tune_table(
+                    torch, label, topo, n, dtype)
+        sweep["trainer backward"] = tune_trainer(torch)
+        launches, forwards, sweep["serving prewarm"] = serve_tuned(torch)
+    finally:
+        if outer is None:
+            os.environ.pop(autotune.CACHE_ENV, None)
+        else:
+            os.environ[autotune.CACHE_ENV] = outer
+        autotune.reset_memory_cache()
+    print(f"autotune: launches of tuned serving {launches} in {forwards} "
+          f"forwards; the tuner's own seconds "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sweep.items())
+          + f"; total {sum(sweep.values()):.2f} s")
+    return dict(tables=tables, launches=launches, sweep=sweep)
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2403,6 +2748,25 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    # every phase on a fresh, empty autotune cache of this run's own: none
+    # reads a cache an earlier run left, none leaves one for a later run
+    import shutil
+    import tempfile
+    from repro_torch.core import autotune
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_convtune_")
+    os.environ[autotune.CACHE_ENV] = os.path.join(cache_dir,
+                                                  "convtune.json")
+    os.environ.pop(autotune.AUTOTUNE_ENV, None)
+    autotune.reset_memory_cache()
+    try:
+        return run(torch, args, cache_dir)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+def run(torch, args, cache_dir: str) -> int:
+    """The phases (module docstring), on the autotune cache that
+    :func:`main` set up."""
     from repro_torch.core.model import vgg16_layers
     from repro_torch.kernels import build
     from repro_torch.models.layers import TrimCNN
@@ -2497,6 +2861,8 @@ def main() -> int:
     print(f"trainer: OK, loss {out['first']:.4f} -> {out['last']:.4f}; "
           f"launches {dict(tc.LAUNCHES)}")
     phase.done("trainer")
+    tuned = autotune_phase(torch, cache_dir)
+    phase.done("autotune")
 
     arows = check_attention(torch)
     phase.done("attention kernel check")
@@ -2521,7 +2887,9 @@ def main() -> int:
                    + small_launches["carry"] + fused_launches["carry"]
                    + train_launches["carry"] + train_fused_launches["carry"]
                    + alex["carry"]["carry"] + alex["fused"]["carry"])
-    halo_total = halo_launches["halo"] + alex["halo"]["halo"]
+    carry_total += tuned["launches"]["carry"]
+    halo_total = (halo_launches["halo"] + alex["halo"]["halo"]
+                  + tuned["launches"]["halo"])
     rect_err = max(max(r["err"] for r in rect_rows),
                    max(r["err"] for r in krows))
     for df, launches, src_line in (
@@ -2682,8 +3050,9 @@ def main() -> int:
           f"forwards of VGG-16: {full_fused_launches}, {fused_fw} of "
           f"VGG-16/{FUSED_SCALE}: {fused_launches}) and the "
           f"{TRAIN_STEPS} VGG-16 training steps (per layer, "
-          f"{train_launches}) and one VGG-16/{FUSED_SCALE} fused step "
-          f"({train_fused_launches})")
+          f"{train_launches}), one VGG-16/{FUSED_SCALE} fused step "
+          f"({train_fused_launches}) and VGG-16 served on measured "
+          f"records ({tuned['launches']})")
     phase.total()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,13 +17,18 @@ integer leaves in their own dtype): the ``params`` of
 Both packages then compute the same function and take the same optimiser
 step, which is what the parity tests compare.
 
-A calibrated conv entry of the JAX package, ``{"packed":
-PackedConv2dWeights}`` with its quantization leaves set
-(``layers.calibrate_conv2d``), becomes ``{"packed":
-ops.QuantizedConv2dWeights}``: its padded kernel layout unpacked to the
+A packed conv entry of the JAX package, ``{"packed":
+PackedConv2dWeights}``, has its padded kernel layout unpacked to the
 logical ``(K, K, Cin/g, Cout)`` weights and ``(Cout,)`` rows, as the JAX
 ``_unpack_weights`` and ``_unpack_cout_row`` do (``repro/kernels/ops.py:
-337``, ``:696``), int8 kept int8 and int32 kept int32.
+337``, ``:696``).  With its quantization leaves set
+(``layers.calibrate_conv2d``) it becomes ``{"packed":
+ops.QuantizedConv2dWeights}``, int8 kept int8 and int32 kept int32.  An
+f32 one (``layers.cnn_pack_params``) becomes ``{"packed":
+ops.PackedConv2dWeights}``: the ``dataflow`` hint is kept (carry and halo
+mean the same in both packages); ``tile_h`` and ``tile_cout`` are
+dropped, since they size a TPU VMEM strip and a 128-lane C_out tile, not
+a Hopper plan, so the port's cache and planner choose them.
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels.ops import QuantizedConv2dWeights
+from repro_torch.kernels.ops import (PackedConv2dWeights,
+                                     QuantizedConv2dWeights)
 
 
 def _tensor(leaf, device) -> torch.Tensor:
@@ -58,15 +64,17 @@ def _unpack(leaf, groups: int, cout: int, device) -> torch.Tensor:
     return t.reshape(*lead, cout).contiguous()
 
 
-def _quantized_from_jax(pk, device) -> QuantizedConv2dWeights:
-    if pk.scale is None:
-        raise ValueError("f32 PackedConv2dWeights have no counterpart in the "
-                         "port (its kernels take logical weights): convert "
-                         "the raw {'w', 'b'} tree")
+def _packed_from_jax(pk, device):
+    """A JAX ``PackedConv2dWeights`` (numpy leaves) -> the port's packed
+    f32 or quantized entry (module docstring)."""
     g, cout = int(pk.groups), int(pk.cout)
+    bias = None if pk.bias is None else _unpack(pk.bias, g, cout, device)
+    if pk.scale is None:
+        return PackedConv2dWeights(
+            w=_unpack(pk.w, g, cout, device), bias=bias, groups=g, cout=cout,
+            dataflow=pk.dataflow)
     return QuantizedConv2dWeights(
-        w=_unpack(pk.w, g, cout, device),
-        bias=None if pk.bias is None else _unpack(pk.bias, g, cout, device),
+        w=_unpack(pk.w, g, cout, device), bias=bias,
         scale=_unpack(pk.scale, g, cout, device),
         zero_point=_tensor(pk.zero_point, device),
         input_scale=_tensor(pk.input_scale, device), groups=g, cout=cout)
@@ -76,13 +84,14 @@ def params_from_jax(tree, *, device="cpu") -> dict:
     """A nested dict of numpy arrays (or tensors), e.g. ``{"conv{i}":
     {"w", "b"}, "head": {"w", "b"}}`` -> the same tree of contiguous
     tensors on ``device`` (float32, or the leaf's integer dtype); a JAX
-    quantized ``PackedConv2dWeights`` -> ``QuantizedConv2dWeights``."""
+    ``PackedConv2dWeights`` -> ``PackedConv2dWeights`` (f32) or
+    ``QuantizedConv2dWeights`` (int8)."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device=device) for k, v in tree.items()}
-    if isinstance(tree, QuantizedConv2dWeights):
+    if isinstance(tree, (PackedConv2dWeights, QuantizedConv2dWeights)):
         return tree.to(device)
     if hasattr(tree, "zero_point") and hasattr(tree, "tile_cout"):
-        return _quantized_from_jax(tree, device)
+        return _packed_from_jax(tree, device)
     return _tensor(tree, device)
 
 

@@ -809,26 +809,43 @@ WGRAD_DW_BLOCKS = 4 * SMS * (2048 // WGRAD_THREADS)   # depthwise: 4 full
                               # waves of resident blocks (8 an SM)
 
 
+def _wgrad_seconds(rows: int, w_out: int, tiles: int, tile_flops: int,
+                   dw_elems: int, t: int) -> float:
+    """The GEMM route's time model at a chunk height of ``t`` cotangent
+    rows: ``ceil(blocks / WGRAD_SLOTS)`` rounds of blocks that each do
+    ``tile_flops`` per position of the largest chunk at one slot's share
+    of 67 TFLOP/s, plus the workspace's traffic (partials written and
+    read, dw written) at 3.35 TB/s."""
+    chunks = -(-rows // t)
+    rounds = -(-tiles * chunks // WGRAD_SLOTS)
+    ops_s = rounds * t * w_out * tile_flops * WGRAD_SLOTS / PEAK_F32_FLOPS
+    ws_s = 0 if chunks == 1 else \
+        (2 * chunks + 1) * 4 * dw_elems / PEAK_BYTES_PER_S
+    return ops_s + ws_s
+
+
 @functools.lru_cache(maxsize=None)
 def _wgrad_chunk_rows(rows: int, w_out: int, tiles: int, tile_flops: int,
                       dw_elems: int, min_rows: int) -> int:
-    """The GEMM route's chunk height (cotangent rows) that minimises a
-    model of the kernel's time: ``ceil(blocks / WGRAD_SLOTS)`` rounds of
-    blocks that each do ``tile_flops`` per position of the largest chunk
-    at one slot's share of 67 TFLOP/s, plus the workspace's traffic
-    (partials written and read, dw written) at 3.35 TB/s.  Ties go to the
-    taller chunk (less workspace)."""
+    """The GEMM route's chunk height (cotangent rows) from ``min_rows`` up
+    that minimises :func:`_wgrad_seconds`.  Ties go to the taller chunk
+    (less workspace)."""
     best = None
     for t in range(rows, min_rows - 1, -1):
-        chunks = -(-rows // t)
-        rounds = -(-tiles * chunks // WGRAD_SLOTS)
-        ops_s = rounds * t * w_out * tile_flops * WGRAD_SLOTS \
-            / PEAK_F32_FLOPS
-        ws_s = 0 if chunks == 1 else \
-            (2 * chunks + 1) * 4 * dw_elems / PEAK_BYTES_PER_S
-        if best is None or ops_s + ws_s < best[0]:
-            best = (ops_s + ws_s, t)
+        sec = _wgrad_seconds(rows, w_out, tiles, tile_flops, dw_elems, t)
+        if best is None or sec < best[0]:
+            best = (sec, t)
     return best[1]
+
+
+def _wgrad_min_rows(rows: int, w_out: int, dw_elems: int) -> tuple:
+    """(the workspace cap's least chunk height, the GEMM route's least
+    chunk height: at least :data:`WGRAD_MIN_CHUNK_POSITIONS` positions
+    and the cap's)."""
+    max_chunks = max(1, WGRAD_WORKSPACE_CAP // (4 * dw_elems))
+    cap_rows = min(rows, -(-rows // max_chunks))
+    return cap_rows, max(min(rows, -(-WGRAD_MIN_CHUNK_POSITIONS // w_out)),
+                         cap_rows)
 
 
 @dataclass(frozen=True)
@@ -905,9 +922,8 @@ class WeightGradPlan:
         if tile_go is not None and tile_go < 1:
             raise ValueError(f"tile_go={tile_go} must be >= 1")
         dw_elems = kh * kw * cin_pg * cout
-        max_chunks = max(1, WGRAD_WORKSPACE_CAP // (4 * dw_elems))
         rows = n * h_out
-        cap_rows = min(rows, -(-rows // max_chunks))
+        cap_rows, min_rows = _wgrad_min_rows(rows, w_out, dw_elems)
         plan = cls(n=n, h=h, w=w, cin=cin, cout=cout, kh=kh, kw=kw,
                    stride=stride, pads=pads, groups=groups, tile_go=rows)
         if tile_go is None:
@@ -915,11 +931,10 @@ class WeightGradPlan:
                 chunks = -(-WGRAD_DW_BLOCKS // plan.tiles)
                 tile_go = -(-rows // chunks)
             else:
-                min_rows = min(rows, -(-WGRAD_MIN_CHUNK_POSITIONS // w_out))
                 tile_go = _wgrad_chunk_rows(
                     rows, w_out, plan.tiles,
                     2 * WGRAD_TILE_ROWS * plan.tile_cout, dw_elems,
-                    max(min_rows, cap_rows))
+                    min_rows)
         tile_go = min(max(tile_go, cap_rows), rows)
         return cls(n=n, h=h, w=w, cin=cin, cout=cout, kh=kh, kw=kw,
                    stride=stride, pads=pads, groups=groups, tile_go=tile_go)

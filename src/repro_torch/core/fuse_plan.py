@@ -52,6 +52,7 @@ The kernel is float32 only, so every byte count is of f32
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from dataclasses import dataclass
@@ -135,6 +136,14 @@ class FusedStage:
     @property
     def weight_shape(self) -> tuple[int, int, int, int]:
         return (self.kernel, self.kernel, self.cin, self.cout)
+
+    @property
+    def signature(self) -> str:
+        """The stage's problem for the ``conv2d_fused:`` autotune key
+        (``repro/core/fuse_plan.py:152``, with the width)."""
+        return (f"h{self.h_in}w{self.w_in}c{self.cin}f{self.cout}"
+                f"k{self.kernel}s{self.stride}p{self.pad_lo}.{self.pad_hi}"
+                f"q{self.pool_stride}x{self.pool_window}")
 
     @property
     def weight_bytes(self) -> int:
@@ -340,6 +349,12 @@ class FusedGroup:
         return (self.stages[0].name if self.depth == 1 else
                 f"{self.stages[0].name}..{self.last.name}")
 
+    @property
+    def signature(self) -> str:
+        """The per-stage signature chain keying the group's
+        ``conv2d_fused:`` record (independent of the tile)."""
+        return "-".join(st.signature for st in self.stages)
+
     # -- shared memory -------------------------------------------------------
 
     @property
@@ -458,6 +473,34 @@ def _strip_candidates(h_pool_last: int):
     return cands
 
 
+def _tile_candidates(layers, start, *, n, pools):
+    """Every tile of the group over ``layers`` (``strip_rows`` x
+    ``band_cols`` over :func:`_strip_candidates`, strips outer) whose
+    shared memory fits :data:`SMEM_PER_BLOCK`; none when the kernel takes
+    no stage's pool window."""
+    probe = build_group(layers, start, n=n, pools=pools)
+    if not all(st.per_thread for st in probe.stages):
+        return []
+    out = []
+    for t in _strip_candidates(probe.last.h_pool):
+        for b in _strip_candidates(probe.last.w_pool):
+            g = build_group(layers, start, n=n, strip_rows=t, band_cols=b,
+                            pools=pools)
+            if g.smem_bytes <= SMEM_PER_BLOCK:
+                out.append(g)
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _group_at(layers, start, depth, n, strip_rows, band_cols):
+    """The group over ``layers[start:start+depth]`` (whole-network pools)
+    at one tile."""
+    pools = infer_pools(list(layers))[start:start + depth]
+    return build_group(layers[start:start + depth], start, n=n,
+                       strip_rows=strip_rows, band_cols=band_cols,
+                       pools=pools)
+
+
 def per_layer_exec_bytes(layers, pools, *, n) -> tuple:
     """What the port's per-layer path moves for each layer: the carry
     kernel's schedule (:meth:`ConvPlan.hbm_bytes`) with the full ofmap
@@ -492,8 +535,9 @@ class FusedGroupPlan:
     layer_exec_bytes: tuple   # per-layer executed byte dicts
 
     @classmethod
-    def build(cls, network, *, n: int = 1,
-              max_depth: int | None = None) -> "FusedGroupPlan":
+    def build(cls, network, *, n: int = 1, max_depth: int | None = None,
+              use_autotune_cache: bool = False,
+              device=None) -> "FusedGroupPlan":
         """Partition ``network`` (name or layer list) into residency
         groups, with the fewest executed device-memory bytes.
 
@@ -503,31 +547,52 @@ class FusedGroupPlan:
         kernel's shared memory within :data:`SMEM_PER_BLOCK`.
         ``max_depth`` caps the depth (``max_depth=1`` is per-layer
         execution).  Plans are cached by their arguments.
+
+        The partition is model-driven and reads no cache.  With
+        ``use_autotune_cache=True`` each fused group then takes the tile
+        of its ``conv2d_fused:`` record for ``device``'s backend
+        (``core.autotune.fused_knobs_for``; ``device`` None is
+        ``"cuda"``), where one exists and fits; a record whose tile does
+        not fit is a miss with one warning.
         """
-        return _build_plan(tuple(network_layers(network)), n, max_depth)
+        layers = tuple(network_layers(network))
+        plan = _build_plan(layers, n, max_depth)
+        if not use_autotune_cache:
+            return plan
+        from repro_torch.core import autotune
+        groups = []
+        for g in plan.groups:
+            rec = autotune.fused_knobs_for(g.signature, n=n, device=device) \
+                if g.fused else None
+            if rec is not None and (rec["strip_rows"], rec["band_cols"]) \
+                    != (g.strip_rows, g.band_cols):
+                t = _group_at(layers, g.start, g.depth, n, rec["strip_rows"],
+                              rec["band_cols"])
+                if t.smem_bytes <= SMEM_PER_BLOCK \
+                        and t.strip_rows <= g.last.h_pool \
+                        and t.band_cols <= g.last.w_pool:
+                    g = t
+                else:
+                    autotune._reject(
+                        autotune.fused_key(g.signature, n=n, device=device),
+                        f"tile {t.strip_rows} x {t.band_cols} does not fit "
+                        f"({t.smem_bytes} B of shared memory, pooled output "
+                        f"{g.last.h_pool} x {g.last.w_pool})", None)
+            groups.append(g)
+        return dataclasses.replace(plan, groups=tuple(groups))
 
     @staticmethod
     def _tune_group(layers, pools, start, depth, *, n):
         """The tile of least executed bytes (then least executed FLOPs)
         over ``layers[start:start+depth]`` whose shared memory fits
-        :data:`SMEM_PER_BLOCK`, or None when none fits or the kernel
-        takes no stage's pool window."""
-        sub = layers[start:start + depth]
-        subpools = pools[start:start + depth]
-        probe = build_group(sub, start, n=n, pools=subpools)
-        if not all(st.per_thread for st in probe.stages):
+        :data:`SMEM_PER_BLOCK` (:func:`_tile_candidates`), or None when
+        none fits or the kernel takes no stage's pool window."""
+        cands = _tile_candidates(layers[start:start + depth], start, n=n,
+                                 pools=pools[start:start + depth])
+        if not cands:
             return None
-        best, best_key = None, None
-        for t in _strip_candidates(probe.last.h_pool):
-            for b in _strip_candidates(probe.last.w_pool):
-                g = build_group(sub, start, n=n, strip_rows=t,
-                                band_cols=b, pools=subpools)
-                if g.smem_bytes > SMEM_PER_BLOCK:
-                    continue
-                key = (g.hbm_bytes()["total"], g.executed_flops)
-                if best is None or key < best_key:
-                    best, best_key = g, key
-        return best
+        return min(cands, key=lambda g: (g.hbm_bytes()["total"],
+                                         g.executed_flops))
 
     # -- accounting ----------------------------------------------------------
 

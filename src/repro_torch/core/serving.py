@@ -19,12 +19,14 @@ in ``tests/test_torch_serving.py`` and on the card by ``chip_smoke.py``).
   asyncio front end (``repro_torch.launch.serve_conv``) wraps the same
   engine with ``time.monotonic`` and real futures.
 
-* **No cold paths after prewarm.**  ``prewarm()`` runs one throwaway
-  forward per (bucket, replica), which builds the kernels on first use,
-  so no request pays for a build.  A bucket served without prewarm is
-  counted in ``stats()`` as a cold start (``cold_tunes``, the JAX
-  engine's key; the autotune sweep of the JAX ``prewarm`` waits for the
-  autotune port).
+* **No cold paths after prewarm.**  ``prewarm()`` sweeps the autotune
+  cache over the bucket grid (``core.autotune.prewarm_buckets``: every
+  layer of the topology at every bucket, and every fused group with
+  ``fused=True``; ``tune_kwargs`` such as ``{"measure": True}`` go to
+  the sweep) and runs one throwaway forward per (bucket, replica), which
+  builds the kernels on first use, so no request pays for a tune or a
+  build.  A bucket served without prewarm is tuned on the spot and
+  counted in ``stats()`` as a cold tune (``cold_tunes``).
 
 * **Nothing degrades.**  The port has no tier chain: a kernel that fails
   raises, so ``guard_events`` in ``stats()`` stay empty and no replica is
@@ -136,7 +138,8 @@ class ServingEngine:
     """
 
     def __init__(self, replicas, buckets, *, max_queue: int = 1024,
-                 pad_fill: float = 0.0, input_shape=None,
+                 pad_fill: float = 0.0, topo=None, fused: bool = False,
+                 tune_kwargs: dict | None = None, input_shape=None,
                  recorder: TraceRecorder | None = None) -> None:
         self.replicas = list(replicas)
         if not self.replicas:
@@ -150,6 +153,9 @@ class ServingEngine:
                 "full batch")
         self.max_queue = int(max_queue)
         self.pad_fill = float(pad_fill)
+        self.topo = topo
+        self.fused = fused
+        self.tune_kwargs = dict(tune_kwargs or {})
         self.input_shape = tuple(input_shape) if input_shape else None
         self.recorder = recorder or TraceRecorder()
 
@@ -167,6 +173,7 @@ class ServingEngine:
     @classmethod
     def for_topology(cls, topo, model, *, buckets, n_replicas: int = 1,
                      device=None, fused: bool = False,
+                     tune_kwargs: dict | None = None,
                      **kw) -> "ServingEngine":
         """Build an engine serving a conv topology (``list[ConvLayer]``)
         through ``models.layers.TrimCNN``.
@@ -177,7 +184,10 @@ class ServingEngine:
         numpy batch, runs it on the device under ``torch.inference_mode``
         and returns numpy.  ``n_replicas`` replicas share the module.
         ``fused=True`` serves fused residency groups, planned per
-        bucket; a failing group raises, nothing demotes."""
+        bucket; a failing group raises, nothing demotes.  The engine
+        tunes the topology for the device at prewarm (and on a cold
+        bucket) with ``tune_kwargs`` (``core.autotune.tune_network``'s,
+        e.g. ``{"measure": True}``)."""
         topo = list(topo)
         dev = resolve_device(device)
         if not isinstance(model, TrimCNN):
@@ -196,7 +206,8 @@ class ServingEngine:
         replicas = [Replica(name=f"replica{i}", fn=fn)
                     for i in range(n_replicas)]
         first = topo[0]
-        return cls(replicas, buckets,
+        return cls(replicas, buckets, topo=topo, fused=fused,
+                   tune_kwargs={"device": dev, **(tune_kwargs or {})},
                    input_shape=(first.ifmap, first.ifmap,
                                 first.in_channels), **kw)
 
@@ -236,12 +247,16 @@ class ServingEngine:
         return batch
 
     def _ensure_warm(self, bucket: int) -> None:
-        """First service of a non-prewarmed bucket — a cold start (the
-        JAX engine tunes here), counted so a run can assert prewarm
-        coverage was complete."""
+        """First service of a non-prewarmed bucket tunes it on the spot
+        (``repro/core/serving.py:263-277``) — a *cold tune*, counted so a
+        run can assert prewarm coverage was complete."""
         if bucket in self._warm:
             return
         self.cold_tunes += 1
+        if self.topo is not None:
+            from repro_torch.core import autotune
+            autotune.prewarm_buckets(self.topo, (bucket,), fused=self.fused,
+                                     **self.tune_kwargs)
         self._warm.add(bucket)
 
     def step(self, *, now: float, replica: int | None = None,
@@ -296,22 +311,31 @@ class ServingEngine:
 
     # -- prewarm ------------------------------------------------------------
 
-    def prewarm(self) -> dict:
+    def prewarm(self, *, tune: bool = True, compile: bool = True) -> dict:
         """Make every (bucket, replica) path hot before the first
-        request: one throwaway forward per bucket per replica, which
-        builds the kernels on first use (and, serving fused groups,
-        plans each bucket's groups).  Returns the seconds of each
-        bucket's first forward (``{bucket: seconds}``)."""
-        seconds: dict = {}
-        if self.input_shape is not None:
+        request: sweep the autotune cache over the bucket grid
+        (``core.autotune.prewarm_buckets`` with ``fused`` and
+        ``tune_kwargs``; skipped for an engine without a topology), then
+        run one throwaway forward per bucket per replica, which builds the
+        kernels on first use (and, serving fused groups, plans each
+        bucket's groups).  Returns the per-bucket tune records
+        (``{bucket: {"layers": ...[, "fused": ...]}}``, as JAX's), each
+        with ``"seconds"``: the bucket's first forwards."""
+        records: dict = {b: {} for b in self.grid.buckets}
+        if tune and self.topo is not None:
+            from repro_torch.core import autotune
+            records.update(autotune.prewarm_buckets(
+                self.topo, self.grid.buckets, fused=self.fused,
+                **self.tune_kwargs))
+        if compile and self.input_shape is not None:
             for b in self.grid.buckets:
                 zeros = np.zeros((b,) + self.input_shape, np.float32)
                 t0 = time.perf_counter()
                 for rep in self.replicas:
                     rep.fn(zeros)
-                seconds[b] = time.perf_counter() - t0
+                records[b]["seconds"] = time.perf_counter() - t0
         self._warm.update(self.grid.buckets)
-        return seconds
+        return records
 
     # -- reporting ----------------------------------------------------------
 

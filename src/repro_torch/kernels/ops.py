@@ -34,6 +34,15 @@ the zero point as its virtual 'same' padding, ``"ref"`` runs the
 The route is inference only: under grad, an input that requires grad
 raises.
 
+Autotuning.  Knobs a call leaves ``None`` (``tile_h``, ``tile_cout``,
+``dataflow``) come from the port's autotune cache (``core/autotune.py``,
+``repro/kernels/ops.py:520-530``): ``conv2d`` and the backward's two
+cotangent kernels read the records of their own problems, the int8 route
+its ``conv2d_q8:`` records, :class:`PackedConv2dWeights` carry the
+records' knobs as hints from load time; the K > 8 adder tree reads none.
+With no record the plan decides, so a call on an empty cache runs as it
+did before the tuner.
+
 Gradients.  With grad enabled and an operand that requires grad, the
 ``"trim"`` conv runs through :class:`_TrimConv2dFn`, the counterpart of
 the ``jax.custom_vjp`` ``_conv2d_vjp_core`` (``repro/kernels/ops.py:
@@ -64,7 +73,8 @@ import typing
 
 import torch
 
-from repro_torch.core.conv_plan import DATAFLOWS
+from repro_torch.core import autotune
+from repro_torch.core.conv_plan import DATAFLOWS, input_grad_geometry
 from repro_torch.core.tiling import subkernel_decomposition
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (NEG_INF, flash_attention,
@@ -89,6 +99,7 @@ class _ConvConfig(typing.NamedTuple):
     dataflow: str
     tile_h: int | None
     tile_cout: int | None
+    use_autotune_cache: bool = True
 
 
 def _activation_bwd(activation: str | None, z: torch.Tensor | None,
@@ -101,6 +112,32 @@ def _activation_bwd(activation: str | None, z: torch.Tensor | None,
     with torch.enable_grad():
         z = z.detach().requires_grad_()
         return torch.autograd.grad(ACTIVATIONS[activation](z), z, gy)[0]
+
+
+def _backward_knobs(cfg: _ConvConfig, x: torch.Tensor, w: torch.Tensor):
+    """Knobs of the two cotangent kernels (``repro/kernels/ops.py:
+    271-290``): the input-gradient conv's from the ``conv2d:`` record of
+    its own problem (the dilated cotangent, the transposed weights, the
+    edge pads of ``input_grad_geometry``), the weight gradient's from
+    ``conv2d_wgrad:``; without a record, the forward's dataflow and the
+    plans' defaults."""
+    ig = dict(tile_h=None, tile_cout=None, dataflow=cfg.dataflow)
+    wg = dict(tile_go=None)
+    if cfg.use_autotune_cache:
+        x_shape, w_shape = tuple(x.shape), tuple(w.shape)
+        geo = input_grad_geometry(x_shape, w_shape, stride=cfg.stride,
+                                  pad=cfg.pads, groups=cfg.groups)
+        rec = autotune.knobs_for(geo["g_dilated_shape"], geo["wt_shape"],
+                                 stride=1, pad=(geo["pad_h"], geo["pad_w"]),
+                                 groups=cfg.groups, device=x.device)
+        if rec is not None:
+            ig = {k: rec[k] for k in ig}
+        wrec = autotune.weight_grad_knobs_for(
+            x_shape, w_shape, stride=cfg.stride, pad=cfg.pads,
+            groups=cfg.groups, device=x.device)
+        if wrec is not None:
+            wg = dict(tile_go=wrec["tile_go"])
+    return ig, wg
 
 
 class _TrimConv2dFn(torch.autograd.Function):
@@ -124,19 +161,95 @@ class _TrimConv2dFn(torch.autograd.Function):
         cfg = ctx.cfg
         dz = _activation_bwd(cfg.activation, z, gy).contiguous()
         dx = dw = db = None
+        ig, wg = _backward_knobs(cfg, x, w)
         if ctx.needs_input_grad[0]:
             dx = trim_conv2d_input_grad(dz, w, x_shape=tuple(x.shape),
                                         stride=cfg.stride, pad=cfg.pads,
-                                        groups=cfg.groups,
-                                        dataflow=cfg.dataflow)
+                                        groups=cfg.groups, **ig)
         if ctx.needs_input_grad[1]:
             dw = trim_conv2d_weight_grad(x, dz,
                                          kernel_size=tuple(w.shape[:2]),
                                          stride=cfg.stride, pad=cfg.pads,
-                                         groups=cfg.groups)
+                                         groups=cfg.groups, **wg)
         if ctx.has_bias and ctx.needs_input_grad[2]:
             db = dz.sum((0, 1, 2))
         return dx, dw, db, None
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PackedConv2dWeights:
+    """One f32 conv layer packed at load time: the counterpart of the JAX
+    ``PackedConv2dWeights`` (``repro/kernels/ops.py:71-120``) without its
+    quantization leaves.  The port's kernels take LOGICAL weights, so
+    there is no padded layout: ``w`` is ``(K, K, Cin/groups, Cout)`` f32
+    and ``bias`` ``(Cout,)`` or None.  ``tile_cout``, ``tile_h`` and
+    ``dataflow`` are the frozen knob hints (from the autotune cache at
+    pack time, or given), applied where the call leaves a knob ``None``;
+    a ``None`` hint leaves it to the cache and the plan."""
+
+    w: torch.Tensor
+    bias: torch.Tensor | None
+    groups: int
+    cout: int
+    tile_cout: int | None = None
+    tile_h: int | None = None
+    dataflow: str | None = None
+
+    def __post_init__(self):
+        if self.w.dim() != 4 or self.w.shape[3] != self.cout \
+                or self.cout % self.groups:
+            raise ValueError(f"w {tuple(self.w.shape)} does not hold "
+                             f"cout={self.cout} in groups={self.groups}")
+        if self.dataflow is not None and self.dataflow not in DATAFLOWS:
+            raise ValueError(f"unknown dataflow {self.dataflow!r}; "
+                             f"choose from {DATAFLOWS}")
+
+    def tensors(self) -> dict:
+        """The tensor fields by name (``bias`` only when set)."""
+        return {k: getattr(self, k) for k in ("w", "bias")
+                if getattr(self, k) is not None}
+
+    def to(self, device) -> "PackedConv2dWeights":
+        return dataclasses.replace(
+            self, **{k: t.to(device) for k, t in self.tensors().items()})
+
+
+def pack_conv2d_weights(w: torch.Tensor, bias: torch.Tensor | None = None,
+                        *, groups: int = 1, tile_cout: int | None = None,
+                        tile_h: int | None = None,
+                        dataflow: str | None = None, x_shape=None,
+                        stride: int = 1, padding: str = "same",
+                        device=None) -> PackedConv2dWeights:
+    """Pack one f32 conv layer at load time (``repro/kernels/ops.py:
+    123-180``).  w: (K, K, Cin/groups, Cout); bias: (Cout,) or None.  When
+    ``x_shape`` (the input the layer will see) is given and a knob is
+    unset, the autotune cache is consulted under the key ``conv2d`` would
+    use for that input on ``device`` (default: ``w``'s device), and the
+    record's knobs become the entry's hints.  K > :data:`MAX_NATIVE_K`
+    raises ``ValueError``, as in JAX: the kernel-tiled path re-slices the
+    weights per sub-kernel."""
+    kh, kw, cin_pg, cout = w.shape
+    if kh > MAX_NATIVE_K:
+        raise ValueError(
+            f"K={kh} > {MAX_NATIVE_K}: the kernel-tiled path re-slices "
+            "weights per sub-kernel and cannot consume packed weights")
+    if cout % groups:
+        raise ValueError(f"groups={groups} must divide cout={cout}")
+    if x_shape is not None and None in (tile_cout, tile_h, dataflow):
+        n, h, wd, _ = x_shape
+        rec = autotune.knobs_for(
+            (n, h, wd, cin_pg * groups), tuple(w.shape), stride=stride,
+            pad=conv_pads(h, wd, kh, stride, padding), groups=groups,
+            device=w.device if device is None else device)
+        if rec is not None:
+            tile_cout = rec["tile_cout"] if tile_cout is None else tile_cout
+            tile_h = rec["tile_h"] if tile_h is None else tile_h
+            dataflow = rec["dataflow"] if dataflow is None else dataflow
+    return PackedConv2dWeights(
+        w=w.float().contiguous(),
+        bias=None if bias is None else bias.float().contiguous(),
+        groups=groups, cout=cout, tile_cout=tile_cout, tile_h=tile_h,
+        dataflow=dataflow)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,10 +353,13 @@ def _q8_forward(x_q: torch.Tensor, pk: QuantizedConv2dWeights, *,
 def _conv2d_q8(x: torch.Tensor, pk: QuantizedConv2dWeights, *, stride: int,
                padding: str, impl: str, activation: str | None,
                dataflow: str | None, tile_h: int | None = None,
-               tile_cout: int | None = None) -> torch.Tensor:
+               tile_cout: int | None = None,
+               use_autotune_cache: bool = True) -> torch.Tensor:
     """The int8 route of :func:`conv2d` (``repro/kernels/ops.py:733-795``
     without its tier chain): x is f32, quantized here against the layer's
-    calibration, or already int8."""
+    calibration, or already int8.  Knobs left ``None`` come from the
+    ``conv2d_q8:`` record of the problem (``repro/kernels/ops.py:
+    715-722``), never from an f32 one."""
     if torch.is_grad_enabled() and x.requires_grad:
         raise NotImplementedError("the int8 route is inference only (the "
                                   "JAX route defines no VJP)")
@@ -260,6 +376,15 @@ def _conv2d_q8(x: torch.Tensor, pk: QuantizedConv2dWeights, *, stride: int,
         raise ValueError(f"unknown impl {impl!r}; choose 'trim' or 'ref'")
     k = pk.w.shape[0]
     pads = conv_pads(x.shape[1], x.shape[2], k, stride, padding)
+    if use_autotune_cache and None in (tile_h, tile_cout, dataflow):
+        rec = autotune.knobs_for(tuple(x.shape), tuple(pk.w.shape),
+                                 stride=stride, pad=pads, groups=pk.groups,
+                                 dtype="int8", device=x.device,
+                                 op="conv2d_q8")
+        if rec is not None:
+            tile_h = rec["tile_h"] if tile_h is None else tile_h
+            tile_cout = rec["tile_cout"] if tile_cout is None else tile_cout
+            dataflow = rec["dataflow"] if dataflow is None else dataflow
     return _q8_forward(x_q, pk, stride=stride, pads=pads,
                        activation=activation, dataflow=dataflow,
                        tile_h=tile_h, tile_cout=tile_cout)
@@ -288,24 +413,47 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
            feature_group_count: int = 1, bias: torch.Tensor | None = None,
            activation: str | None = None, tile_h: int | None = None,
            tile_cout: int | None = None,
-           dataflow: str | None = None) -> torch.Tensor:
+           dataflow: str | None = None,
+           use_autotune_cache: bool = True) -> torch.Tensor:
     """(Grouped) 2D convolution with optional fused bias + activation.
 
     x: (N, H, W, Cin); w: (K, K, Cin/groups, Cout); bias: (Cout,) or None;
     ``feature_group_count=Cin`` gives depthwise convolution.  K > 8 runs
     the kernel tiling's adder tree (module docstring).  ``dataflow``
-    (``"carry"`` by default, or ``"halo"``) and the tile knobs go to the
-    kernel; knobs left as ``None`` take the plan's defaults.  Under grad,
-    the ``"trim"`` conv is differentiable in x, w and bias; its input
-    gradient runs the same dataflow's kernel with default tiles.
+    (``"carry"`` or ``"halo"``) and the tile knobs go to the kernel.  A
+    knob left ``None`` is filled from the autotune cache
+    (``core/autotune.py``) where a record exists for this problem on x's
+    device (disable with ``use_autotune_cache=False`` or
+    ``REPRO_TORCH_CONV_AUTOTUNE=0``), else the plan decides (``"carry"``
+    for the dataflow).  The K > 8 adder tree applies explicit knobs to
+    every sub-kernel and never consults the cache (a record describes
+    the full-K problem).  Under grad, the ``"trim"`` conv is
+    differentiable in x, w and bias; its cotangent kernels take the
+    records of their own problems, else the forward's dataflow and
+    default tiles.
 
-    ``w`` may be :class:`QuantizedConv2dWeights`: the int8 route (module
+    ``w`` may be :class:`PackedConv2dWeights` (its groups and bias its
+    own, its knob hints applied after explicit knobs and before the
+    cache) or :class:`QuantizedConv2dWeights`: the int8 route (module
     docstring), its groups and bias its own (``bias`` must be None and
     ``feature_group_count`` 1 or the weights' groups), f32 out.
     """
     if dataflow is not None and dataflow not in DATAFLOWS:
         raise ValueError(f"unknown dataflow {dataflow!r}; "
                          f"choose from {DATAFLOWS}")
+    if isinstance(w, PackedConv2dWeights):
+        if bias is not None:
+            raise ValueError("the bias is inside PackedConv2dWeights; "
+                             "pass it to pack_conv2d_weights instead")
+        if feature_group_count not in (1, w.groups):
+            raise ValueError(f"feature_group_count={feature_group_count} "
+                             f"but the weights were packed for "
+                             f"groups={w.groups}")
+        pk, feature_group_count = w, w.groups
+        w, bias = pk.w, pk.bias
+        tile_h = pk.tile_h if tile_h is None else tile_h
+        tile_cout = pk.tile_cout if tile_cout is None else tile_cout
+        dataflow = pk.dataflow if dataflow is None else dataflow
     if isinstance(w, QuantizedConv2dWeights):
         if bias is not None:
             raise ValueError("the bias is inside QuantizedConv2dWeights; "
@@ -316,7 +464,8 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                              f"groups={w.groups}")
         return _conv2d_q8(x, w, stride=stride, padding=padding, impl=impl,
                           activation=activation, dataflow=dataflow,
-                          tile_h=tile_h, tile_cout=tile_cout)
+                          tile_h=tile_h, tile_cout=tile_cout,
+                          use_autotune_cache=use_autotune_cache)
     cin, (cin_pg, cout) = x.shape[3], w.shape[2:]
     if cin_pg * feature_group_count != cin:
         raise ValueError(
@@ -338,9 +487,18 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                              activation=activation, dataflow=dataflow,
                              tile_h=tile_h, tile_cout=tile_cout)
     pads = conv_pads(x.shape[1], x.shape[2], k, stride, padding)
+    if use_autotune_cache and None in (tile_h, tile_cout, dataflow):
+        rec = autotune.knobs_for(tuple(x.shape), tuple(w.shape),
+                                 stride=stride, pad=pads,
+                                 groups=feature_group_count,
+                                 device=x.device)
+        if rec is not None:
+            tile_h = rec["tile_h"] if tile_h is None else tile_h
+            tile_cout = rec["tile_cout"] if tile_cout is None else tile_cout
+            dataflow = rec["dataflow"] if dataflow is None else dataflow
     return _conv_core(x, w, bias, _ConvConfig(
         stride, pads, feature_group_count, activation, dataflow or "carry",
-        tile_h, tile_cout))
+        tile_h, tile_cout, use_autotune_cache))
 
 
 def _conv_core(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
@@ -373,7 +531,8 @@ def _conv2d_tiled(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"empty output: input {tuple(x.shape)} (padded) "
                          f"is smaller than the {k}x{k} kernel")
     cfg = _ConvConfig(stride, ((0, 0), (0, 0)), groups, None,
-                      dataflow or "carry", tile_h, tile_cout)
+                      dataflow or "carry", tile_h, tile_cout,
+                      use_autotune_cache=False)
     out = None
     for r0, c0, kh, kw in subkernel_decomposition(k, native_k=3):
         xs = x[:, r0:r0 + (h_out - 1) * stride + kh,

@@ -187,7 +187,8 @@ def dilate_cotangent(g: torch.Tensor, stride: int) -> torch.Tensor:
 
 def trim_conv2d_input_grad(g: torch.Tensor, w: torch.Tensor, *,
                            x_shape, stride: int = 1, pad=0, groups: int = 1,
-                           dataflow: str = "carry") -> torch.Tensor:
+                           dataflow: str = "carry", tile_h: int | None = None,
+                           tile_cout: int | None = None) -> torch.Tensor:
     """Input cotangent of :func:`trim_conv2d` — itself a TrIM conv
     (``repro/kernels/trim_conv2d.py:398``).
 
@@ -198,7 +199,8 @@ def trim_conv2d_input_grad(g: torch.Tensor, w: torch.Tensor, *,
     pads of :func:`~repro_torch.core.conv_plan.input_grad_geometry` are the
     forward kernel's virtual pads, and the conv runs at stride 1 with
     :func:`transpose_conv_weights` through the ``dataflow`` kernel (its
-    launch counts under that key).  Returns dx with shape ``x_shape``.
+    launch counts under that key), ``tile_h`` / ``tile_cout`` its plan's
+    knobs.  Returns dx with shape ``x_shape``.
     """
     _check_operands(g=g, w=w)
     geo = input_grad_geometry(tuple(x_shape), tuple(w.shape), stride=stride,
@@ -211,7 +213,7 @@ def trim_conv2d_input_grad(g: torch.Tensor, w: torch.Tensor, *,
     return trim_conv2d(dilate_cotangent(g, stride),
                        transpose_conv_weights(w, groups), stride=1,
                        pad=(geo["pad_h"], geo["pad_w"]), groups=groups,
-                       dataflow=dataflow)
+                       dataflow=dataflow, tile_h=tile_h, tile_cout=tile_cout)
 
 
 def _kernel_extents(kernel_size) -> tuple[int, int]:

@@ -8,15 +8,16 @@ template (``np.random.default_rng(0)``), a sample is its template plus
 0.4 x Gaussian noise, the label is the template index.  Every conv runs
 the TrIM kernels in all three directions: the forward kernel, the input
 gradient through the same kernel on the dilated cotangent, and the
-weight-gradient kernel.  With ``--steps >= 40`` the mean of the last five
-losses must be below the mean of the first five minus 0.1, the example's
-acceptance check.
+weight-gradient kernel.  Before the first step, ``tune_backward_shapes``
+seeds the autotune cache with both cotangents of every conv the model
+trains through (``core.autotune.tune_backward``).  With ``--steps
+>= 40`` the mean of the last five losses must be below the mean of the
+first five minus 0.1, the example's acceptance check.
 
 Not here, unlike the JAX example: ``--devices/--data/--spatial`` (the
-sharded halo-exchange path, ROADMAP Queue 1: multi-GPU) and
-``tune_backward_shapes`` (ROADMAP Queue 1: autotune for Hopper).  The
-weights come from ``torch.Generator().manual_seed(0)``, not from
-``jax.random``, so the loss curve is not the JAX example's.
+sharded halo-exchange path, ROADMAP Queue 1: multi-GPU).  The weights
+come from ``torch.Generator().manual_seed(0)``, not from ``jax.random``,
+so the loss curve is not the JAX example's.
 
   PYTHONPATH=src python -m repro_torch.launch.train_cnn            # card
   PYTHONPATH=src python -m repro_torch.launch.train_cnn --device cpu \\
@@ -34,7 +35,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import autotune
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ref import conv_pads
 from repro_torch.models import layers
 from repro_torch.models.base import init_params
 from repro_torch.optim import AdamWConfig, adamw
@@ -54,6 +57,29 @@ def make_batch(rng: np.random.Generator, templates: np.ndarray, batch: int,
         (batch, *templates.shape[1:]))
     return (torch.from_numpy(x.astype(np.float32)).to(device),
             torch.from_numpy(labels).to(device))
+
+
+def tune_backward_shapes(batch: int, *, device=None,
+                         measure: bool = False) -> dict:
+    """Seed the autotune cache for every backward conv shape the model
+    trains through (``examples/train_cnn.py:74-92``): per conv, the
+    input-gradient conv's ``conv2d:`` record and the weight gradient's
+    ``conv2d_wgrad:`` record (``autotune.tune_backward``), keyed by the
+    unpadded input and the 'same' pads, as the backward looks them up.
+    Returns ``{name: {"input_grad": rec, "weight_grad": rec}}``."""
+    shapes, cur = [], (batch, IMAGE, IMAGE, CIN)
+    for i, c in enumerate(CHANNELS):
+        shapes.append((f"conv{i}", cur, (3, 3, cur[3], c), 1, 1))
+        shapes.append((f"down{i}", cur[:3] + (c,), (3, 3, c, c), 2, 1))
+        cur = (cur[0], -(-cur[1] // 2), -(-cur[2] // 2), c)
+    c = CHANNELS[-1]
+    up = (batch, IMAGE // 2, IMAGE // 2, c)
+    shapes.insert(3, ("dw", up, (3, 3, 1, c), 1, c))      # depthwise
+    return {name: autotune.tune_backward(
+        x_shape, w_shape, stride=stride,
+        pad=conv_pads(x_shape[1], x_shape[2], 3, stride, "same"),
+        groups=groups, device=device, measure=measure)
+        for name, x_shape, w_shape, stride, groups in shapes}
 
 
 def nll_loss(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -80,10 +106,15 @@ def train_step(params: dict, moments: dict, step, x: torch.Tensor,
 
 def train(*, steps: int = 50, batch: int = 16, device=None,
           log=print) -> dict:
-    """The example's loop on ``device`` (default ``"cuda"``).  Returns
-    ``{"losses", "first", "last", "ms_per_step", "device"}``; raises
-    ``RuntimeError`` when ``steps >= 40`` and the loss did not fall."""
+    """The example's loop on ``device`` (default ``"cuda"``), after
+    :func:`tune_backward_shapes`.  Returns ``{"losses", "first", "last",
+    "ms_per_step", "device"}``; raises ``RuntimeError`` when ``steps >=
+    40`` and the loss did not fall."""
     dev = resolve_device(device)
+    t0 = time.perf_counter()
+    recs = tune_backward_shapes(batch, device=dev)
+    log(f"tuned the backward shapes of {len(recs)} convs in "
+        f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(0)
     templates = rng.standard_normal((N_CLASSES, IMAGE, IMAGE, CIN))
     params = init_params(

@@ -9,9 +9,11 @@ trains it.  Every function is differentiable: under grad, each conv runs
 the TrIM forward, input-gradient and weight-gradient kernels
 (``kernels/ops.py``), and max-pool's backward is ``F.max_pool2d``'s.
 Activations are NHWC and conv weights ``(K, K, Cin/groups, Cout)``.  A
-conv entry is ``{"w", "b"}`` (f32) or, after :func:`calibrate_conv2d`,
-``{"packed": QuantizedConv2dWeights}``, which runs the int8 route
-(inference only; ``TrimCNN`` holds it as buffers).
+conv entry is ``{"w", "b"}`` (f32); after :func:`conv2d_pack_params` /
+:func:`cnn_pack_params`, ``{"packed": PackedConv2dWeights}`` (the same
+f32 weights with the autotune cache's knobs as hints); or, after
+:func:`calibrate_conv2d`, ``{"packed": QuantizedConv2dWeights}``, which
+runs the int8 route (inference only; ``TrimCNN`` holds it as buffers).
 
 Transformer layers.  Norms (RMSNorm / LayerNorm in f32, eps 1e-6), RoPE
 (split halves), GQA attention with an optional KV cache, the dense MLPs
@@ -48,8 +50,8 @@ def conv2d_params(k: int, cin: int, cout: int, *, groups: int = 1,
 
 
 def _conv_operands(p: dict) -> tuple:
-    """(weights, bias) of one conv entry: ``{"w", "b"}``, or the
-    quantized weights of ``{"packed"}`` (their bias inside)."""
+    """(weights, bias) of one conv entry: ``{"w", "b"}``, or the packed
+    or quantized weights of ``{"packed"}`` (their bias inside)."""
     if "packed" in p:
         return p["packed"], None
     return p["w"], p.get("b")
@@ -60,13 +62,30 @@ def conv2d_apply(p: dict, x: torch.Tensor, *, stride: int = 1,
                  activation: str | None = "relu", impl: str = "trim",
                  dataflow: str | None = None) -> torch.Tensor:
     """One conv layer with the bias + activation epilogue fused into the
-    kernel (one store of the output).  Accepts raw params (``{"w", "b"}``)
-    or a calibrated entry (``{"packed"}``, :func:`calibrate_conv2d`), which
-    runs the int8 route."""
+    kernel (one store of the output).  Accepts raw params (``{"w", "b"}``),
+    a packed entry (``{"packed"}``, :func:`conv2d_pack_params`) or a
+    calibrated one (``{"packed"}``, :func:`calibrate_conv2d`), which runs
+    the int8 route."""
     w, b = _conv_operands(p)
     return ops.conv2d(x, w, stride=stride, padding=padding, impl=impl,
                       feature_group_count=groups, bias=b,
                       activation=activation, dataflow=dataflow)
+
+
+def conv2d_pack_params(p: dict, *, groups: int = 1,
+                       tile_cout: int | None = None,
+                       tile_h: int | None = None,
+                       dataflow: str | None = None, x_shape=None,
+                       stride: int = 1, padding: str = "same") -> dict:
+    """Pack one conv layer's params at load time
+    (``repro/models/layers.py:185``): ``{"packed": PackedConv2dWeights}``,
+    consumed by :func:`conv2d_apply`.  With ``x_shape`` given, the
+    autotune cache fills any unset knob (``ops.pack_conv2d_weights``), so
+    the forward runs on the tuned plan."""
+    return {"packed": ops.pack_conv2d_weights(
+        p["w"], p.get("b"), groups=groups, tile_cout=tile_cout,
+        tile_h=tile_h, dataflow=dataflow, x_shape=x_shape, stride=stride,
+        padding=padding)}
 
 
 def calibrate_conv2d(p: dict, x_batch: torch.Tensor, *,
@@ -100,6 +119,21 @@ def depthwise_separable_params(k: int, cin: int, cout: int, *,
     """MobileNet-style depthwise KxK + pointwise 1x1 block."""
     return {"dw": conv2d_params(k, cin, cin, groups=cin, bias=bias),
             "pw": conv2d_params(1, cin, cout, bias=bias)}
+
+
+def depthwise_separable_pack_params(p: dict, *, x_shape=None,
+                                    stride: int = 1) -> dict:
+    """Load-time packing of a depthwise-separable block, both convs
+    (``repro/models/layers.py:242``); the pointwise conv sees the
+    depthwise conv's 'same' output."""
+    cin = p["dw"]["w"].shape[3]
+    dw_shape = pw_shape = x_shape
+    if x_shape is not None and stride != 1:
+        n, h, w, _ = x_shape
+        pw_shape = (n, -(-h // stride), -(-w // stride), cin)
+    return {"dw": conv2d_pack_params(p["dw"], groups=cin, x_shape=dw_shape,
+                                     stride=stride),
+            "pw": conv2d_pack_params(p["pw"], x_shape=pw_shape)}
 
 
 def depthwise_separable_apply(p: dict, x: torch.Tensor, *, stride: int = 1,
@@ -165,6 +199,27 @@ def cnn_params_from_layers(layers_list, *, n_classes: int | None = None,
     return p
 
 
+def cnn_pack_params(p: dict, layers_list, *, n: int = 1) -> dict:
+    """Load-time packing of a whole topology's conv weights
+    (``repro/models/layers.py:334``): each layer of K <=
+    ``ops.MAX_NATIVE_K`` becomes ``{"packed": PackedConv2dWeights}``
+    keyed with the input it sees at batch ``n`` (its ``ifmap``: the
+    pools between layers are in the topology's sizes), so after an
+    ``autotune.tune_network`` sweep the packed forward runs on the tuned
+    plans.  K > 8 layers keep their raw weights (the adder tree re-slices
+    them); the head is kept as is."""
+    packed = dict(p)
+    for i, l in enumerate(layers_list):
+        if l.kernel > ops.MAX_NATIVE_K:
+            continue
+        _, _, _, padding = layer_kernel_problem(l, n=n)
+        packed[f"conv{i}"] = conv2d_pack_params(
+            p[f"conv{i}"], groups=l.groups,
+            x_shape=(n, l.ifmap, l.ifmap, l.in_channels), stride=l.stride,
+            padding=padding)
+    return packed
+
+
 def cnn_head_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     """Global mean pool + linear, one row at a time: the reduction and
     matmul libraries pick their schedule by batch size, so a batched head
@@ -201,11 +256,12 @@ def cnn_apply_from_layers(p: dict, layers_list, x: torch.Tensor, *,
     ``fused=True`` runs each residency group of the
     :class:`~repro_torch.core.fuse_plan.FusedGroupPlan` built for ``x``'s
     batch as one launch of the fused kernel, interior activations in
-    shared memory; depth-1 groups run the per-layer path, and the output
-    is bitwise the same either way.  A group that fails raises: nothing
-    falls back to per-layer execution.  The fused path needs raw
-    ``{"w", "b"}`` conv params: a calibrated (int8) layer in a fused group
-    raises, as in JAX.
+    shared memory, each group on its ``conv2d_fused:`` record's tile where
+    one exists (``use_autotune_cache=True``); depth-1 groups run the
+    per-layer path, and the output is bitwise the same either way.  A
+    group that fails raises: nothing falls back to per-layer execution.
+    The fused path needs raw ``{"w", "b"}`` conv params: a packed or
+    calibrated layer in a fused group raises, as in JAX.
     """
     layers_list = list(layers_list)
     pools = list(infer_pools(layers_list))
@@ -217,7 +273,10 @@ def cnn_apply_from_layers(p: dict, layers_list, x: torch.Tensor, *,
         if impl != "trim":
             raise ValueError(f"fused execution runs the TrIM kernels; "
                              f"impl={impl!r} needs fused=False")
-        for g in FusedGroupPlan.build(layers_list, n=x.shape[0]).groups:
+        plan = FusedGroupPlan.build(layers_list, n=x.shape[0],
+                                    use_autotune_cache=True,
+                                    device=x.device)
+        for g in plan.groups:
             lo, hi = g.start, g.start + g.depth
             if not g.fused:
                 x = _apply_layer_range(p, layers_list, pools, x, lo, hi, **kw)
@@ -229,7 +288,8 @@ def cnn_apply_from_layers(p: dict, layers_list, x: torch.Tensor, *,
                     raise ValueError(
                         f"conv{i}: fused execution needs raw conv params "
                         "({'w', 'b'}); packed trees freeze the per-layer "
-                        "kernel layout")
+                        "kernel knobs (skip cnn_pack_params on the fused "
+                        "path)")
                 weights.append(lp["w"])
                 biases.append(lp.get("b"))
             x = fused_group_apply(x, weights, biases, group=g,
@@ -272,6 +332,26 @@ class _QuantLeaf(nn.Module):
             groups=self.groups, cout=self.cout, zp=self.zp, **bufs)}
 
 
+class _PackedLeaf(nn.Module):
+    """One packed f32 ``{"packed": PackedConv2dWeights}`` entry: its
+    weight and bias as frozen parameters, its knob hints as attributes;
+    ``entry`` rebuilds the container."""
+
+    def __init__(self, pk: ops.PackedConv2dWeights):
+        super().__init__()
+        self.groups, self.cout = pk.groups, pk.cout
+        self.hints = dict(tile_cout=pk.tile_cout, tile_h=pk.tile_h,
+                          dataflow=pk.dataflow)
+        for name, t in pk.tensors().items():
+            self.register_parameter(
+                name, nn.Parameter(t, requires_grad=False))
+
+    def entry(self) -> dict:
+        return {"packed": ops.PackedConv2dWeights(
+            w=self.w, bias=getattr(self, "bias", None), groups=self.groups,
+            cout=self.cout, **self.hints)}
+
+
 class TrimCNN(nn.Module):
     """A conv topology with its parameters, served or trained on the TrIM
     kernels.
@@ -285,9 +365,10 @@ class TrimCNN(nn.Module):
     for serving;
     ``trainable=True`` registers them with ``requires_grad``, so a loss on
     :meth:`forward` back-propagates through the TrIM backward kernels.
-    Calibrated entries (``{"packed"}``, :func:`calibrate_conv2d`) are held
-    as buffers and serve the int8 route; with them ``trainable=True`` and
-    ``fused=True`` raise.
+    Packed entries (``{"packed"}``: :func:`cnn_pack_params`, or
+    :func:`calibrate_conv2d`, whose tensors are held as buffers and serve
+    the int8 route) run per layer and are inference only: with them
+    ``trainable=True`` and ``fused=True`` raise.
     """
 
     def __init__(self, layers_list, params: dict, *,
@@ -298,15 +379,21 @@ class TrimCNN(nn.Module):
         self.layers_list = list(layers_list)
         self.activation, self.impl, self.dataflow = activation, impl, dataflow
         self.fused = fused
-        quantized = sorted(k for k, v in params.items() if "packed" in v)
-        if quantized and (trainable or fused):
+        packed = sorted(k for k, v in params.items() if "packed" in v)
+        if packed and (trainable or fused):
             raise ValueError(
-                f"{quantized[0]} is calibrated (int8): the int8 route is "
-                "inference only and runs per layer; trainable=True and "
-                "fused=True need raw {'w', 'b'} conv params")
-        self.params = nn.ModuleDict({
-            k: _QuantLeaf(v["packed"]) if "packed" in v
-            else _Leaf(v, trainable) for k, v in params.items()})
+                f"{packed[0]} is packed or calibrated (int8): packed "
+                "entries are inference only and run per layer; "
+                "trainable=True and fused=True need raw {'w', 'b'} conv "
+                "params")
+
+        def leaf(v):
+            if "packed" not in v:
+                return _Leaf(v, trainable)
+            if isinstance(v["packed"], ops.PackedConv2dWeights):
+                return _PackedLeaf(v["packed"])
+            return _QuantLeaf(v["packed"])
+        self.params = nn.ModuleDict({k: leaf(v) for k, v in params.items()})
 
     @classmethod
     def random(cls, layers_list, *, n_classes: int | None = None,

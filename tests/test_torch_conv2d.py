@@ -32,6 +32,18 @@ GRID = [(k, s, g, pad, ACTS[i % 4]) for i, (k, s, g, pad) in enumerate(
     itertools.product((1, 3, 5), (1, 2), (1, CIN), ("same", "valid")))]
 
 
+@pytest.fixture(autouse=True)
+def _port_convtune_cache(tmp_path, monkeypatch):
+    """The port's autotune cache in a per-test temp file: no test reads
+    or writes a cache outside it."""
+    from repro_torch.core import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV,
+                       str(tmp_path / "torch_convtune.json"))
+    autotune.reset_memory_cache()
+    yield
+    autotune.reset_memory_cache()
+
+
 def _inputs(k, groups, seed, hw=(11, 12)):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((2, *hw, CIN)).astype(np.float32)

@@ -53,6 +53,18 @@ pytestmark = pytest.mark.gpu
 TOL = 1e-4
 
 
+@pytest.fixture(autouse=True)
+def _port_convtune_cache(tmp_path, monkeypatch):
+    """The port's autotune cache in a per-test temp file: no test reads
+    or writes a cache outside it."""
+    from repro_torch.core import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV,
+                       str(tmp_path / "torch_convtune.json"))
+    autotune.reset_memory_cache()
+    yield
+    autotune.reset_memory_cache()
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -885,3 +897,70 @@ def test_q8_launcher_takes_and_checks_the_plan(cuda):
     assert launch(Q8_ROUTES.index("dp4a"), 0, 0, 0) != 0
     assert launch(mma, 3, 1, 1) != 0
     assert launch(mma, plan.warps_n, 2, 2) != 0
+
+
+# (x_shape, w_shape, stride, groups): three shapes for the measured tune
+TUNE_CASES = [((2, 28, 28, 64), (3, 3, 64, 128), 1, 1),
+              ((1, 14, 14, 256), (3, 3, 256, 256), 1, 1),
+              ((4, 30, 30, 32), (3, 3, 32, 96), 2, 1)]
+
+
+def test_measured_tune_on_the_card_writes_a_measured_record(cuda):
+    from repro_torch.core import autotune
+    xs, ws, stride, groups = TUNE_CASES[0]
+    pads = conv_pads(xs[1], xs[2], ws[0], stride, "same")
+    rec = autotune.tune(xs, ws, stride=stride, pad=pads, groups=groups,
+                        measure=True, device=cuda)
+    assert rec["source"] == "measured" and rec["measured_us"] > 0
+    key = autotune.make_key(xs, ws, stride=stride, pad=pads, device=cuda)
+    assert ":float32:cuda:sm" in key
+    autotune.reset_memory_cache()
+    assert autotune.knobs_for(xs, ws, stride=stride, pad=pads,
+                              device=cuda) == rec
+    # the CPU's key is another record
+    assert autotune.knobs_for(xs, ws, stride=stride, pad=pads,
+                              device="cpu") is None
+
+
+@pytest.mark.parametrize("case", TUNE_CASES, ids=["n2c64", "n1c256", "s2"])
+def test_tuned_knobs_give_the_default_output_bitwise(cuda, case):
+    """Every f32 output is one fmaf chain and every int8 sum exact, so a
+    tuned plan (tiles and dataflow) equals the default plan bit for bit:
+    carry, halo and int8, and through ``ops.conv2d`` on the record."""
+    from repro_torch.core import autotune
+    xs, ws, stride, groups = case
+    pads = conv_pads(xs[1], xs[2], ws[0], stride, "same")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(xs, generator=gen, device=cuda)
+    w = torch.randn(ws, generator=gen, device=cuda) * 0.05
+    b = torch.randn((ws[3],), generator=gen, device=cuda)
+    kw = dict(stride=stride, pad=pads, groups=groups, activation="relu")
+    default = tc.trim_conv2d(x, w, b, **kw)
+    rec = autotune.tune(xs, ws, stride=stride, pad=pads, groups=groups,
+                        measure=True, device=cuda)
+    for dataflow in ("carry", "halo"):
+        got = tc.trim_conv2d(x, w, b, tile_h=rec["tile_h"],
+                             tile_cout=rec["tile_cout"], dataflow=dataflow,
+                             **kw)
+        assert torch.equal(got, default), dataflow
+    tc.reset_launch_counts()
+    got = ops.conv2d(x, w, stride=stride, bias=b, activation="relu",
+                     feature_group_count=groups)
+    assert torch.equal(got, default)
+    assert tc.LAUNCHES[rec["dataflow"]] == 1
+    # int8: exact sums, any plan
+    x8 = torch.randint(-128, 128, xs, generator=gen, device=cuda,
+                       dtype=torch.int8)
+    w8 = torch.randint(-128, 128, ws, generator=gen, device=cuda,
+                       dtype=torch.int8)
+    scale = torch.full((ws[3],), 1e-3, device=cuda)
+    qkw = dict(stride=stride, pad=pads, groups=groups, zero_point=3)
+    q_default = tc.trim_conv2d_q8(x8, w8, None, scale, **qkw)
+    qrec = autotune.tune(xs, ws, stride=stride, pad=pads, groups=groups,
+                         dtype="int8", measure=True, device=cuda)
+    assert qrec["source"] == "measured"
+    for dataflow in ("carry", "halo"):
+        got = tc.trim_conv2d_q8(x8, w8, None, scale, tile_h=qrec["tile_h"],
+                                tile_cout=qrec["tile_cout"],
+                                dataflow=dataflow, **qkw)
+        assert torch.equal(got, q_default), dataflow

@@ -81,6 +81,18 @@ EDGES = {
 CU = Path(tf.__file__).parent / "csrc" / "trim_conv2d_fused.cu"
 
 
+@pytest.fixture(autouse=True)
+def _port_convtune_cache(tmp_path, monkeypatch):
+    """The port's autotune cache in a per-test temp file: no test reads
+    or writes a cache outside it."""
+    from repro_torch.core import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV,
+                       str(tmp_path / "torch_convtune.json"))
+    autotune.reset_memory_cache()
+    yield
+    autotune.reset_memory_cache()
+
+
 def _topos(name):
     spec = CHAINS[name]
     return [ConvLayer(*a) for a in spec], [JConvLayer(*a) for a in spec]

@@ -36,6 +36,18 @@ from repro_torch.kernels import trim_conv2d as tc
 TOL = 1e-5
 
 
+@pytest.fixture(autouse=True)
+def _port_convtune_cache(tmp_path, monkeypatch):
+    """The port's autotune cache in a per-test temp file: no test reads
+    or writes a cache outside it."""
+    from repro_torch.core import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV,
+                       str(tmp_path / "torch_convtune.json"))
+    autotune.reset_memory_cache()
+    yield
+    autotune.reset_memory_cache()
+
+
 def _close(got, want, tol=TOL):
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
     assert got.shape == want.shape, (got.shape, want.shape)

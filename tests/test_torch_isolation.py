@@ -36,6 +36,18 @@ FUSED_TOPO = [ConvLayer("f0", 6, 2, 3, 3, padding=1),
               ConvLayer("f1", 6, 3, 2, 3, padding=1)]
 
 
+@pytest.fixture(autouse=True)
+def _port_convtune_cache(tmp_path, monkeypatch):
+    """The port's autotune cache in a per-test temp file: no test reads
+    or writes a cache outside it."""
+    from repro_torch.core import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV,
+                       str(tmp_path / "torch_convtune.json"))
+    autotune.reset_memory_cache()
+    yield
+    autotune.reset_memory_cache()
+
+
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
         [ROOT / "chip_smoke.py"]
@@ -58,7 +70,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "repro_torch/configs/falcon_mamba.py",
             "repro_torch/core/tiling.py",
             "repro_torch/configs/trim_cnn.py",
-            "repro_torch/models/frontends.py"} <= names
+            "repro_torch/models/frontends.py",
+            "repro_torch/core/autotune.py"} <= names
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]

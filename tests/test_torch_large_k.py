@@ -39,6 +39,18 @@ ACTS = [None, "relu", "gelu", "silu"]
 CIN = COUT = 4
 
 
+@pytest.fixture(autouse=True)
+def _port_convtune_cache(tmp_path, monkeypatch):
+    """The port's autotune cache in a per-test temp file: no test reads
+    or writes a cache outside it."""
+    from repro_torch.core import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV,
+                       str(tmp_path / "torch_convtune.json"))
+    autotune.reset_memory_cache()
+    yield
+    autotune.reset_memory_cache()
+
+
 def _close(got, want, tol=TOL):
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape

@@ -30,6 +30,18 @@ SMOKE = [("s0", 16, 3, 8, 3, 1, 1), ("s1", 16, 8, 8, 3, 2, 1),
          ("s2", 8, 8, 16, 3, 1, 1)]
 
 
+@pytest.fixture(autouse=True)
+def _port_convtune_cache(tmp_path, monkeypatch):
+    """The port's autotune cache in a per-test temp file: no test reads
+    or writes a cache outside it."""
+    from repro_torch.core import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV,
+                       str(tmp_path / "torch_convtune.json"))
+    autotune.reset_memory_cache()
+    yield
+    autotune.reset_memory_cache()
+
+
 def _jax_params(topo, n_classes):
     p = jinit(jlayers.cnn_params_from_layers(topo, n_classes=n_classes),
               jax.random.PRNGKey(0))

@@ -57,6 +57,18 @@ GRID = [(1, 1, 1, "same"), (3, 1, 1, "same"), (3, 2, 1, "same"),
         (1, 1, 1, "valid")]
 
 
+@pytest.fixture(autouse=True)
+def _port_convtune_cache(tmp_path, monkeypatch):
+    """The port's autotune cache in a per-test temp file: no test reads
+    or writes a cache outside it."""
+    from repro_torch.core import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV,
+                       str(tmp_path / "torch_convtune.json"))
+    autotune.reset_memory_cache()
+    yield
+    autotune.reset_memory_cache()
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 
@@ -399,10 +411,13 @@ def test_params_from_jax_carries_a_calibrated_tree():
                             "b": np.ones(2, np.float64)})
     assert (ints["a"].dtype, ints["b"].dtype) == (torch.int32,
                                                   torch.float32)
+    # an f32 packed entry carries over as the port's packed f32 entry
+    # (logical weights; tests/test_torch_autotune.py holds its forward)
     f32 = jax.tree.map(np.asarray, jops.pack_conv2d_weights(
         jnp.ones((3, 3, 4, 8))))
-    with pytest.raises(ValueError, match="f32 PackedConv2dWeights"):
-        params_from_jax({"packed": f32})
+    pf = params_from_jax({"packed": f32})["packed"]
+    assert isinstance(pf, ops.PackedConv2dWeights)
+    assert torch.equal(pf.w, torch.ones((3, 3, 4, 8)))
 
 
 # ---------------------------------------------------------------------------

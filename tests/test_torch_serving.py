@@ -32,6 +32,18 @@ TOPO = [ConvLayer(*a) for a in SPEC]
 RNG = np.random.default_rng(8)
 
 
+@pytest.fixture(autouse=True)
+def _port_convtune_cache(tmp_path, monkeypatch):
+    """The port's autotune cache in a per-test temp file: no test reads
+    or writes a cache outside it."""
+    from repro_torch.core import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV,
+                       str(tmp_path / "torch_convtune.json"))
+    autotune.reset_memory_cache()
+    yield
+    autotune.reset_memory_cache()
+
+
 def _engine(**kw):
     kw.setdefault("buckets", (1, 2, 4))
     model = TrimCNN.random(TOPO, n_classes=10, device="cpu")
@@ -211,6 +223,61 @@ def test_prewarm_eliminates_cold_starts():
     assert st["cold_tunes"] == 0 and st["prewarmed_buckets"] == [1, 2, 4]
     assert all(not r["degraded"] and r["guard_events"] == []
                for r in st["replicas"].values())
+
+
+def test_prewarm_tunes_the_grid_and_serves_bitwise():
+    """``prewarm()`` sweeps the autotune cache over the bucket grid (JAX's
+    per-bucket records, with each bucket's first-forward seconds beside
+    them): afterwards every (layer, bucket) problem has its record, a
+    trace meets no cold tune and every served row bit-matches
+    ``forward_one``."""
+    from repro_torch.core import autotune
+    eng = _engine()
+    recs = eng.prewarm()
+    assert sorted(recs) == [1, 2, 4]
+    for b, per in recs.items():
+        assert set(per["layers"]) == {"t0", "t1", "t2"}
+        assert per["seconds"] > 0
+        for layer in TOPO:
+            xs, pads, ws = autotune.layer_problem(layer, n=b)
+            assert autotune.knobs_for(xs, ws, stride=layer.stride,
+                                      pad=pads, device="cpu") is not None
+    xs = _xs(7)
+    trace = [(t, i, xs[i])
+             for i, t in enumerate(poisson_arrivals(500.0, 7, seed=3))]
+    results, _ = replay(eng, trace)
+    assert eng.stats()["cold_tunes"] == 0
+    for i in range(7):
+        assert np.array_equal(results[i], eng.forward_one(xs[i])), i
+
+
+def test_prewarm_passes_tune_kwargs_and_fused_seeds_groups():
+    """``tune_kwargs`` reach the sweep (a measured tune: on a CPU tensor
+    the plain version's time); ``fused=True`` seeds the groups'
+    ``conv2d_fused:`` records; rows still bit-match ``forward_one``."""
+    eng = _engine(tune_kwargs={"measure": True, "measure_top_k": 2})
+    recs = eng.prewarm()
+    assert all(r["source"] == "measured" and r["measured_us"] > 0
+               for per in recs.values() for r in per["layers"].values())
+    x = _xs(1)[0]
+    assert np.array_equal(eng.forward_one(x), _engine().forward_one(x))
+    feng = _engine(fused=True)
+    frecs = feng.prewarm()
+    assert all(per["fused"] for per in frecs.values())
+    assert np.array_equal(feng.forward_one(x), eng.forward_one(x))
+
+
+def test_cold_bucket_is_tuned_on_the_spot():
+    from repro_torch.core import autotune
+    eng = _engine()
+    layer = TOPO[0]
+    xs, pads, ws = autotune.layer_problem(layer, n=2)
+    assert autotune.knobs_for(xs, ws, pad=pads, device="cpu") is None
+    eng.submit(0, _xs(1)[0], now=0.0)
+    eng.submit(1, _xs(1)[0], now=0.0)
+    eng.step(now=0.0)
+    assert eng.stats()["cold_tunes"] == 1
+    assert autotune.knobs_for(xs, ws, pad=pads, device="cpu") is not None
 
 
 def test_unprewarmed_bucket_counts_as_cold_start():

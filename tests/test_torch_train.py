@@ -39,6 +39,18 @@ from repro_torch.optim import AdamWConfig, adamw
 TOL = 1e-5
 
 
+@pytest.fixture(autouse=True)
+def _port_convtune_cache(tmp_path, monkeypatch):
+    """The port's autotune cache in a per-test temp file: no test reads
+    or writes a cache outside it."""
+    from repro_torch.core import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV,
+                       str(tmp_path / "torch_convtune.json"))
+    autotune.reset_memory_cache()
+    yield
+    autotune.reset_memory_cache()
+
+
 def _close(got, want, tol=TOL):
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
@@ -206,6 +218,43 @@ def test_trainer_cli_runs_on_the_cpu_and_writes_json(tmp_path):
     assert rec["steps"] == 12 and rec["device"] == "cpu"
     assert len(rec["losses"]) == 12 and np.isfinite(rec["losses"]).all()
     assert rec["last"] < rec["first"]
+
+
+def test_trainer_tunes_its_backward_shapes(capsys, monkeypatch):
+    """``train_cnn --device cpu --steps 12`` seeds both cotangent records
+    of each of the model's five convs before training (the JAX example's
+    ``tune_backward_shapes``), and a training step's backward reads them:
+    every weight-gradient and input-gradient call gets its record's
+    knobs."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels import ops
+    train_cnn.main(["--device", "cpu", "--steps", "12"])
+    assert "tuned the backward shapes of 5 convs" in \
+        capsys.readouterr().out
+    with open(autotune.cache_path()) as f:
+        keys = list(json.load(f)["entries"])
+    assert sum(k.startswith("conv2d_wgrad:") for k in keys) == 5
+    assert sum(k.startswith("conv2d:") for k in keys) == 5
+    recs = train_cnn.tune_backward_shapes(4, device="cpu")
+    assert list(recs) == ["conv0", "down0", "conv1", "dw", "down1"]
+    seen = {"ig": [], "wg": []}
+    for name, key in (("ig", "trim_conv2d_input_grad"),
+                      ("wg", "trim_conv2d_weight_grad")):
+        real = getattr(ops, key)
+        monkeypatch.setattr(ops, key, lambda *a, _r=real, _n=name, **kw:
+                            seen[_n].append(kw) or _r(*a, **kw))
+    params = params_from_jax(_jax_simple_cnn(channels=(8, 16),
+                                             n_classes=10))
+    cfg = AdamWConfig(lr=1e-2, warmup_steps=2, decay_steps=100)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (4, 32, 32, 3)).astype(np.float32))
+    train_cnn.train_step(params, adamw.init_moments(params, cfg), 0, x,
+                         torch.arange(4), apply_fn=layers.simple_cnn_apply,
+                         cfg=cfg)
+    assert len(seen["wg"]) == 5 and len(seen["ig"]) == 4
+    assert [kw["tile_go"] for kw in seen["wg"]][::-1] == \
+        [r["weight_grad"]["tile_go"] for r in recs.values()]
+    assert all(kw["tile_cout"] is not None for kw in seen["ig"])
 
 
 def test_trainer_defaults_to_the_card(monkeypatch):
