@@ -113,7 +113,29 @@ Phases, each raising on failure (each prints its seconds):
    too), a forward launches the kernel 20 times (conv1's 16 sub-kernels
    and one a layer for the other four), one image's logits agree with
    the ``impl="ref"`` chain; p50 and p99;
-13. train — full-width VGG-16 (224x224, 1000 classes, seeded weights and
+13. graph — the DAG topologies (``models.layers.cnn_apply_from_graph``):
+   first the geometries they bring to the kernels (ResNet-18's 7x7/2
+   'same' stem at Cin 3, batch 8 and 1; its 1x1/2 'valid'
+   down-projection; U-Net's 1x1 head): carry and halo against the plain
+   version and bitwise equal, wgrad against its plain version and
+   repeatable, dx against ``ref``; then full-width ResNet-18 (1000
+   classes, seeded random weights) at batch 8 and 1, per node on carry
+   and halo and ``fused=True`` (layer1's two pairs fused), halo and
+   fused bitwise equal to carry, the logits against ``impl="ref"``
+   (``TOLERANCE``), ms a forward (eager, and device only from CUDA
+   graphs) beside every conv as ``F.conv2d`` (TF32 off), each fused
+   group's time beside its per-layer chain's, launches and peak memory,
+   and a per-node table (ms, TFLOP/s, blocks, ``F.conv2d``, bound);
+   d/dx and d/dparams of a loss through ``TrimCNN(trainable=True)``
+   (gelu, batch 8) against ``impl="ref"`` on the kernels' pool picks
+   (``GRAD_TOLERANCE``); U-Net at the JAX defaults (batch 8) per node
+   and fused (bitwise), against ``impl="ref"``, ms a forward, its groups
+   and each fused one's time beside its chain's (the last ends in the
+   1x1 head); ``autotune.tune_graph`` of ResNet-18 at batch 8: model
+   records move no plan, the packed tree gives the per-node output
+   bitwise, and after a measured sweep the forward on its records is
+   still bitwise equal (its ms printed);
+14. train — full-width VGG-16 (224x224, 1000 classes, seeded weights and
    data, batch 8): the step-1 gradient of every leaf against autograd of
    ``impl="ref"`` on the kernels' branch (``branch_matched_oracle``)
    within ``GRAD_TOLERANCE``, then 6 AdamW steps of
@@ -122,15 +144,15 @@ Phases, each raising on failure (each prints its seconds):
    weight-gradient calls, a finite loss, and step 1 run again from the
    same state giving bitwise equal parameters; ms per step and peak
    device memory;
-14. train[fused] — one VGG-16/16 AdamW step (batch 8) with ``fused=True``
+15. train[fused] — one VGG-16/16 AdamW step (batch 8) with ``fused=True``
    and the same step per layer from the same state: gradients and the
    parameters after it bitwise equal, with 25 carry, 13 weight-gradient
    and one fused launch per fused group (the backward recomputes each
    group per layer);
-15. trainer — ``launch.train_cnn.train`` at the example's settings (50
+16. trainer — ``launch.train_cnn.train`` at the example's settings (50
    steps, batch 16): the mean of the last five losses below the first
    five's minus 0.1;
-16. autotune — on an autotune cache of its own: a measured
+17. autotune — on an autotune cache of its own: a measured
    ``autotune.tune_network`` (the leading candidates timed from CUDA
    graphs on the card) of full-width VGG-16 in f32 and int8
    (``conv2d_q8:``) and of AlexNet (conv1, K 11, skipped), each at batch
@@ -146,7 +168,7 @@ Phases, each raising on failure (each prints its seconds):
    Poisson requests at 200 req/s, no cold tune, each layer launching its
    record's kernel, every row bitwise equal to ``forward_one``; p50, p99,
    the launches and the tuner's seconds;
-17. attention kernel check — the flash-attention kernel against its plain
+18. attention kernel check — the flash-attention kernel against its plain
    version (``ATTN_TOLERANCE``) at (a) the LM prefill's shape, B=2,
    L=4096, Hq=16, Hkv=2, D=128, causal; (b) a 17-query continuation of
    4096 keys; (c) recurrentgemma-2b's geometry, Hq=10, Hkv=1, D=256,
@@ -157,7 +179,7 @@ Phases, each raising on failure (each prints its seconds):
    cores for D <= 256, f32 FFMA above) and the FFMA one, and for (a)
    ``F.scaled_dot_product_attention`` (the yardstick; the port never
    calls it);
-18. LM prefill — full-width qwen2.5-3b (36 layers, 3.4 B parameters drawn
+19. LM prefill — full-width qwen2.5-3b (36 layers, 3.4 B parameters drawn
    on the card) through ``steps.make_prefill_step`` on 2 x 4096 seeded
    tokens, reduced from the JAX ``prefill_32k`` plan (32 x 32768, whose
    f32 logits alone would take 637 GB): with ``attn_impl="flash"``
@@ -172,12 +194,12 @@ Phases, each raising on failure (each prints its seconds):
    f32 ref's (the f32 error both carry at logits of |s| ~ 2000), and
    (iii) the logits and next tokens of the depth-1 cut of the same model
    (``LM_TOLERANCE``);
-19. LM serve — ``launch.serve.serve_batch`` at full width, batch 4, prompt
+20. LM serve — ``launch.serve.serve_batch`` at full width, batch 4, prompt
    16, gen 32: tokens/s; the decode path (KV caches, ``decode_attention``,
    no kernel) against the flash prefill, position by position, on a
    256-token prompt at the depth-1 cut (checked, ``LM_TOLERANCE``) and at
    the serve prompt's last position at full depth (printed);
-20. conv1d kernel check — the causal depthwise conv1d kernel against its
+21. conv1d kernel check — the causal depthwise conv1d kernel against its
    plain version and the ``ref`` oracle, bit for bit, at falcon-mamba-7b's
    prefill shape (B 2, L 2048, D 8192, K 4), contiguous and as the mixer's
    strided half of the in-projection, and at edge cases (runs that do not
@@ -187,7 +209,7 @@ Phases, each raising on failure (each prints its seconds):
    input laid out (B, D, L) (TF32 off) and the plan's bound, and the
    bytes the function must move beside those the kernel's schedule moves
    (the runs' re-read halos priced, ``Conv1dPlan.hbm_bytes``);
-21. mamba prefill — full-width falcon-mamba-7b (64 layers, 7.27 B
+22. mamba prefill — full-width falcon-mamba-7b (64 layers, 7.27 B
    parameters drawn on the card, after qwen2.5-3b's are freed) through
    ``steps.make_prefill_step`` on 2 x 2048 seeded tokens: exactly 64
    ``trim_conv1d`` launches a forward, finite logits, ms per forward, peak
@@ -198,10 +220,10 @@ Phases, each raising on failure (each prints its seconds):
    decode (``api.decode``), the logits at every position (checked,
    ``MAMBA_TOLERANCE``), at the depth-1 and depth-2 cuts on a 128-token
    prompt and at full depth on the 64-token one;
-22. mamba serve — ``serve_batch`` at full width, batch 4, prompt 16, gen
+23. mamba serve — ``serve_batch`` at full width, batch 4, prompt 16, gen
    32, through the conv windows and SSM states: tokens/s, ms per decode
    step and the step's device-busy share (``torch.profiler``);
-23. the kernel JSON line (eight kernels), then ``{"ok": true, "device":
+24. the kernel JSON line (eight kernels), then ``{"ok": true, "device":
    ...}`` last.
 
 Exits non-zero without a result when no GPU is visible.
@@ -1155,6 +1177,616 @@ def serve_alexnet(torch):
     del model
     torch.cuda.empty_cache()
     return out
+
+
+GRAPH_BATCHES = (8, 1)       # ResNet-18's forwards; gradients at the first
+
+
+def graph_walk(torch, nodes, x, conv, pool):
+    """A DAG forward written against the ``GraphNode`` spec, apart from
+    ``models.layers.cnn_apply_from_graph``: ``conv(node, h)`` and
+    ``pool(stride, window, h)`` are the caller's, the joins are the
+    spec's (add in input order, concat on channels, nearest upsample).
+    Returns the last node's activation."""
+    outs = {}
+    for nd in nodes:
+        if nd.op == "conv":
+            h = conv(nd, outs[nd.inputs[0]] if nd.inputs else x)
+            if nd.pool > 1 or nd.pool_window > 1:
+                h = pool(nd.pool, nd.pool_window, h)
+        elif nd.op == "pool":
+            h = pool(nd.pool, nd.pool_window, outs[nd.inputs[0]])
+        elif nd.op == "add":
+            h = outs[nd.inputs[0]]
+            for s in nd.inputs[1:]:
+                h = h + outs[s]
+        elif nd.op == "concat":
+            h = torch.cat([outs[s] for s in nd.inputs], dim=-1)
+        else:
+            h = outs[nd.inputs[0]].repeat_interleave(nd.scale, dim=1) \
+                .repeat_interleave(nd.scale, dim=2)
+        outs[nd.name] = h
+    return outs[nodes[-1].name]
+
+
+def library_graph(torch, nodes, tree):
+    """The graph's forward with every conv as one ``F.conv2d`` (channels-
+    last views of NHWC tensors, 'same' pads as a pad, then bias in the
+    call and the relu after it) and the per-row head: the library
+    yardstick of a forward (TF32 off)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import conv_pads, maxpool2d, pad_nhwc
+    from repro_torch.models.layers import cnn_head_apply
+    wl = {nd.name: tree[nd.name]["w"].permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last) for nd in nodes if nd.op == "conv"}
+
+    def conv(nd, h):
+        l = nd.layer
+        pads = conv_pads(h.shape[1], h.shape[2], l.kernel, l.stride,
+                         "same" if l.padding else "valid")
+        y = F.conv2d(pad_nhwc(h, pads).permute(0, 3, 1, 2), wl[nd.name],
+                     tree[nd.name]["b"], stride=l.stride)
+        return F.relu(y).permute(0, 2, 3, 1)
+
+    def forward(x):
+        y = graph_walk(torch, nodes, x, conv,
+                       lambda s, w, h: maxpool2d(h, s, w))
+        return cnn_head_apply(tree["head"], y) if "head" in tree else y
+    return forward
+
+
+def graph_oracle(torch, nodes, x, params):
+    """The ``impl="ref"`` forward of a graph with gelu convs, its max
+    pools taking the windows' picks of the same forward on the TrIM
+    kernels at ``(params, x)``: autograd through it is the oracle's
+    gradient on the branch the kernels took (``branch_matched_oracle``
+    for graphs; gelu has no branch).  Returns ``(apply_fn, flips)``, the
+    pool windows where the plain ``impl="ref"`` forward picks otherwise."""
+    import torch.nn.functional as F
+    from repro_torch.core.netplan import layer_kernel_problem
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import cnn_head_apply
+
+    def run(p, h, impl, picks=None, rec=None):
+        def conv(nd, v):
+            l = nd.layer
+            _, _, _, padding = layer_kernel_problem(l, n=v.shape[0])
+            return ops.conv2d(v, p[nd.name]["w"], bias=p[nd.name]["b"],
+                              stride=l.stride, padding=padding,
+                              feature_group_count=l.groups,
+                              activation="gelu", impl=impl)
+        it = iter(picks or ())
+
+        def pool(s, w, v):
+            vn = v.permute(0, 3, 1, 2)
+            if picks is None:
+                vn, ind = F.max_pool2d(vn, w, s, return_indices=True)
+                rec.append(ind)
+            else:
+                ind = next(it)
+                vn = vn.flatten(2).gather(2, ind.flatten(2)).view_as(ind)
+            return vn.permute(0, 2, 3, 1).contiguous()
+        return cnn_head_apply(p["head"], graph_walk(torch, nodes, h, conv,
+                                                    pool))
+
+    trim, plain = [], []
+    with torch.no_grad():
+        run(params, x, "trim", rec=trim)
+        run(params, x, "ref", rec=plain)
+    flips = sum(int((a != b).sum()) for a, b in zip(trim, plain))
+    return (lambda p, h: run(p, h, "ref", picks=trim)), flips
+
+
+def graph_node_table(torch, nodes, n):
+    """Each conv node of a graph at batch ``n`` on its own (relu, bias,
+    random input of the node's shape): ``ops.conv2d``'s device ms (CUDA
+    graphs), TFLOP/s and the plan's blocks, ``F.conv2d``'s ms (TF32 off)
+    and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.core.conv_plan import ConvPlan
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import conv_pads, pad_nhwc
+
+    gen = torch.Generator(device="cuda").manual_seed(60 + n)
+    rows = []
+    print(f"ResNet-18 per node, batch {n} (relu, bias; device ms from CUDA "
+          "graphs; F.conv2d TF32 off, a yardstick):")
+    print(f"  {'node':11s} {'geometry':22s} {'carry':>8s} {'TF/s':>6s} "
+          f"{'blocks':>6s} {'F.conv':>8s} {'bound':>8s} by")
+    for nd in nodes:
+        if nd.op != "conv":
+            continue
+        l = nd.layer
+        k, s = l.kernel, l.stride
+        padding = "same" if l.padding else "valid"
+        xs = (n, l.ifmap, l.ifmap, l.in_channels)
+        wsh = (k, k, l.in_channels, l.out_channels)
+        x = torch.randn(xs, generator=gen, device="cuda")
+        w = torch.randn(wsh, generator=gen, device="cuda") \
+            / float(np.sqrt(k * k * wsh[2]))
+        b = torch.randn((wsh[3],), generator=gen, device="cuda")
+        pads = conv_pads(l.ifmap, l.ifmap, k, s, padding)
+        ms = time_graph_ms(torch, lambda: ops.conv2d(
+            x, w, stride=s, padding=padding, bias=b, activation="relu"))
+        xp = pad_nhwc(x, pads).permute(0, 3, 1, 2)
+        wl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        lib = time_graph_ms(torch, lambda: F.conv2d(xp, wl, b, stride=s))
+        plan = ConvPlan.build(xs, wsh, stride=s, pad=pads)
+        ops_ms = plan.flops / PEAK_F32_FLOPS * 1e3
+        bytes_ms = plan.min_bytes() / PEAK_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        rows.append(dict(name=nd.name, n=n, carry=ms, library=lib,
+                         bound=bound, by=by, ops_ms=ops_ms,
+                         bytes_ms=bytes_ms, flops=plan.flops,
+                         blocks=plan.blocks))
+        geo = f"{l.ifmap}² {l.in_channels}->{l.out_channels} {k}/{s}"
+        print(f"  {nd.name:11s} {geo:22s} {ms:8.4f} "
+              f"{plan.flops / ms / 1e9:6.2f} {plan.blocks:6d} {lib:8.4f} "
+              f"{bound:8.4f} {by}")
+        del x, w, b, xp, wl
+    torch.cuda.empty_cache()
+    print(f"ResNet-18, batch {n}, sum of the 20 convs: carry "
+          f"{sum(r['carry'] for r in rows):.4f} ms, F.conv2d "
+          f"{sum(r['library'] for r in rows):.4f} ms, bound "
+          f"{sum(r['bound'] for r in rows):.4f} ms "
+          f"({sum(r['flops'] for r in rows) / n / 1e9:.3f} GFLOP an image)")
+    return rows
+
+
+# The geometries the DAG topologies bring to the carry, halo and wgrad
+# kernels: (name, n, h, cin, cout, k, stride, padding)
+GRAPH_KERNEL_CASES = [
+    ("stem_n8", 8, 224, 3, 64, 7, 2, "same"),       # ResNet-18's stem
+    ("stem_n1", 1, 224, 3, 64, 7, 2, "same"),
+    ("down_1x1s2", 8, 56, 64, 128, 1, 2, "valid"),  # l2b0_down
+    ("head_1x1", 8, 64, 16, 4, 1, 1, "valid"),      # U-Net's out
+]
+
+
+def check_graph_kernels(torch):
+    """The new geometries against the plain versions: carry and halo
+    within ``TOLERANCE`` and bitwise equal, the weight gradient within
+    ``WGRAD_TOLERANCE`` and two launches bitwise equal, the input
+    gradient (the forward kernel on the stride-dilated cotangent) against
+    ``ref.conv2d_input_grad`` within ``TOLERANCE``; device ms a launch
+    (CUDA graphs)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import trim_conv2d as tc
+    from repro_torch.kernels.ref import conv_pads
+
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    rows = []
+    print("graph kernel check: the DAG topologies' new geometries (relu, "
+          "bias; device ms a launch from CUDA graphs):")
+    print(f"  {'case':10s} {'err':>9s} {'tol':>8s} {'c==h':>5s} "
+          f"{'dw_err':>9s} {'tol':>8s} {'rep':>5s} {'dx_err':>9s} "
+          f"{'carry':>8s} {'halo':>8s} {'wgrad':>8s} {'plain':>8s}")
+    for name, n, h, cin, cout, k, s, padding in GRAPH_KERNEL_CASES:
+        x = torch.randn((n, h, h, cin), generator=gen, device="cuda")
+        w = torch.randn((k, k, cin, cout), generator=gen, device="cuda") \
+            / float(np.sqrt(k * k * cin))
+        b = torch.randn((cout,), generator=gen, device="cuda")
+        pads = conv_pads(h, h, k, s, padding)
+        kw = dict(stride=s, pad=pads, activation="relu")
+        plain = tc.trim_conv2d_plain(x, w, b, **kw)
+        carry = tc.trim_conv2d(x, w, b, **kw)
+        halo = tc.trim_conv2d(x, w, b, dataflow="halo", **kw)
+        g = torch.randn(plain.shape, generator=gen, device="cuda")
+        wkw = dict(kernel_size=k, stride=s, pad=pads)
+        dw_plain = tc.trim_conv2d_weight_grad_plain(x, g, **wkw)
+        dw1 = tc.trim_conv2d_weight_grad(x, g, **wkw)
+        dw2 = tc.trim_conv2d_weight_grad(x, g, **wkw)
+        dx = tc.trim_conv2d_input_grad(g, w, x_shape=tuple(x.shape),
+                                       stride=s, pad=pads)
+        dx_ref = ref.conv2d_input_grad(x, w, g, stride=s, padding=padding)
+        torch.cuda.synchronize()
+        tol = TOLERANCE * max(1.0, plain.abs().max().item())
+        err = max((carry - plain).abs().max().item(),
+                  (halo - plain).abs().max().item())
+        same = torch.equal(carry, halo)
+        dw_tol = WGRAD_TOLERANCE * dw_plain.abs().max().item()
+        dw_err = (dw1 - dw_plain).abs().max().item()
+        rep = torch.equal(dw1, dw2)
+        dx_tol = TOLERANCE * max(1.0, dx_ref.abs().max().item())
+        dx_err = (dx - dx_ref).abs().max().item()
+        if not np.isfinite(err) or err > tol:
+            raise AssertionError(f"graph kernels {name}: max|kernel - "
+                                 f"plain| = {err} > {tol}")
+        if not same:
+            raise AssertionError(f"graph kernels {name}: carry and halo "
+                                 "differ bitwise")
+        if not np.isfinite(dw_err) or dw_err > dw_tol or not rep:
+            raise AssertionError(f"graph kernels {name}: max|wgrad - plain| "
+                                 f"= {dw_err} > {dw_tol} or two launches "
+                                 f"differ ({rep})")
+        if not np.isfinite(dx_err) or dx_err > dx_tol:
+            raise AssertionError(f"graph kernels {name}: max|dx - ref| = "
+                                 f"{dx_err} > {dx_tol}")
+        t = {
+            "carry": time_graph_ms(torch, lambda: tc.trim_conv2d(
+                x, w, b, **kw)),
+            "halo": time_graph_ms(torch, lambda: tc.trim_conv2d(
+                x, w, b, dataflow="halo", **kw)),
+            "wgrad": time_graph_ms(
+                torch, lambda: tc.trim_conv2d_weight_grad(x, g, **wkw)),
+            "plain": time_graph_ms(torch, lambda: tc.trim_conv2d_plain(
+                x, w, b, **kw)),
+        }
+        rows.append(dict(name=name, err=err, dw_err=dw_err, dx_err=dx_err,
+                         **t))
+        print(f"  {name:10s} {err:9.2e} {tol:8.1e} {str(same):>5s} "
+              f"{dw_err:9.2e} {dw_tol:8.1e} {str(rep):>5s} {dx_err:9.2e} "
+              f"{t['carry']:8.4f} {t['halo']:8.4f} {t['wgrad']:8.4f} "
+              f"{t['plain']:8.4f}")
+        del x, w, b, plain, carry, halo, g, dw_plain, dw1, dw2, dx, dx_ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def time_plan_groups(torch, label, plan):
+    """Every fused group of a ``GraphFusePlan`` on random inputs of its
+    shapes: the fused kernel against its plain version (``TOLERANCE``)
+    and bitwise against its per-layer chain; device ms of each (CUDA
+    graphs) beside the bound."""
+    from repro_torch.kernels import trim_conv2d_fused as tfu
+
+    gen = torch.Generator(device="cuda").manual_seed(95 + plan.n)
+    rows = []
+    for g in (g for g in plan.groups if g.fused):
+        s0 = g.stages[0]
+        x = torch.randn((g.n, s0.h_in, s0.w_in, s0.cin), generator=gen,
+                        device="cuda")
+        ws = [torch.randn(st.weight_shape, generator=gen, device="cuda")
+              / float(np.sqrt(st.kernel ** 2 * st.cin)) for st in g.stages]
+        bs = [torch.randn((st.cout,), generator=gen, device="cuda")
+              for st in g.stages]
+        one = tfu.trim_conv2d_fused(x, ws, bs, group=g)
+        plain = tfu.trim_conv2d_fused_plain(x, ws, bs, group=g)
+        chain = tfu.reference_chain(x, ws, bs, group=g)
+        err = (one - plain).abs().max().item()
+        tol = TOLERANCE * max(1.0, plain.abs().max().item())
+        if not err <= tol or not torch.equal(one, chain):
+            raise AssertionError(f"{label} {g.label}: fused vs plain {err} "
+                                 f"> {tol}, or it differs from its chain")
+        t = {"fused": time_graph_ms(torch, lambda: tfu.trim_conv2d_fused(
+                 x, ws, bs, group=g)),
+             "chain": time_graph_ms(torch, lambda: tfu.reference_chain(
+                 x, ws, bs, group=g))}
+        ops_ms = g.flops / PEAK_F32_FLOPS * 1e3
+        bytes_ms = g.min_bytes() / PEAK_BYTES_PER_S * 1e3
+        rows.append(dict(label=g.label, n=g.n, err=err,
+                         bound=max(ops_ms, bytes_ms), **t))
+        print(f"{label} group {g.label}, batch {g.n} (T={g.strip_rows}, "
+              f"B={g.band_cols}, {g.n_tiles} blocks): fused {t['fused']:.4f} "
+              f"ms, its per-layer chain {t['chain']:.4f} (bitwise equal), "
+              f"bound {max(ops_ms, bytes_ms):.4f} "
+              f"({'operations' if ops_ms >= bytes_ms else 'bytes'}); max|fused "
+              f"- plain| {err:.2e}")
+        del x, ws, bs, one, plain, chain
+    return rows
+
+
+def drive(torch, fn, want: dict, label: str):
+    """Run ``fn`` (a main path) with every launch count set to 0 just
+    before and read just after; the counts must be ``want`` (the other
+    keys 0).  Returns (output, counts)."""
+    from repro_torch.kernels import trim_conv2d as tc
+    tc.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = dict(tc.LAUNCHES)
+    if got != launch_counts(**want):
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+    return out, got
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def resnet_forward(torch, model, n, totals):
+    """Full-width ResNet-18 at batch ``n``: per node on carry and on halo,
+    and ``fused=True``, each equal to carry bitwise, the logits against
+    ``impl="ref"``; ms a forward, eager (CUDA events, mean of 10 after a
+    warm-up) and device only (CUDA graphs), beside the ``F.conv2d``
+    yardstick's; launches, peak memory, the fused groups' times."""
+    from repro_torch.core.fuse_plan import GraphFusePlan
+    from repro_torch.models.layers import TrimCNN
+
+    src = model.graph[0].layer
+    rng = np.random.default_rng(70 + n)
+    x = torch.from_numpy(rng.standard_normal(
+        (n, src.ifmap, src.ifmap, src.in_channels)).astype(np.float32)).cuda()
+    tree = model.tree()
+    plan = GraphFusePlan.build("resnet18", n=n)
+    fused_groups = [g for g in plan.groups if g.fused]
+    inside = sum(g.depth for g in fused_groups)
+    variants = {
+        "carry": (model, dict(carry=20)),
+        "halo": (TrimCNN("resnet18", tree, dataflow="halo"), dict(halo=20)),
+        "fused": (TrimCNN("resnet18", tree, fused=True),
+                  dict(carry=20 - inside, fused=len(fused_groups))),
+    }
+    out, ms = {}, {}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for name, (m, want) in variants.items():
+            out[name], counts = drive(torch, lambda: m(x), want,
+                                      f"ResNet-18 {name} n={n}")
+            add_counts(totals, counts)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for name in ("halo", "fused"):
+            if not torch.equal(out[name], out["carry"]):
+                raise AssertionError(f"ResNet-18 n={n}: {name} differs from "
+                                     "carry bitwise")
+        oracle = TrimCNN("resnet18", tree, impl="ref")(x)
+        diff = (out["carry"] - oracle).abs().max().item()
+        lim = TOLERANCE * max(1.0, oracle.abs().max().item())
+        if not diff <= lim or out["carry"].shape != (n, 1000):
+            raise AssertionError(f"ResNet-18 n={n} logits vs impl='ref': "
+                                 f"{diff} > {lim}")
+        lib = library_graph(torch, model.graph, tree)
+        fns = {**{name: (lambda m=m: m(x)) for name, (m, _) in
+                  variants.items()}, "library": lambda: lib(x)}
+        ms = {name: time_ms(torch, fn) for name, fn in fns.items()}
+        graph_ms = {name: time_graph_ms(torch, fn)
+                    for name, fn in fns.items()}
+    groups = time_plan_groups(torch, "ResNet-18", plan)
+    print(f"graph[ResNet-18] batch {n}: halo and fused (groups "
+          f"{[g.label for g in fused_groups]}) equal carry bitwise; logits "
+          f"vs impl='ref' max|diff| {diff:.3e} <= {lim:.1e}; ms a forward, "
+          f"eager (CUDA events, mean of 10 after a warm-up) / device (the "
+          f"10 captured in a CUDA graph): carry {ms['carry']:.4f} / "
+          f"{graph_ms['carry']:.4f}, halo {ms['halo']:.4f} / "
+          f"{graph_ms['halo']:.4f}, fused {ms['fused']:.4f} / "
+          f"{graph_ms['fused']:.4f}, every conv as F.conv2d "
+          f"{ms['library']:.4f} / {graph_ms['library']:.4f}; launches a "
+          f"forward carry 20 / halo 20 / fused {len(fused_groups)} + carry "
+          f"{20 - inside}; peak device memory {peak:.3f} GiB (tensors of "
+          f"earlier phases included)")
+    return dict(n=n, ms=ms, graph_ms=graph_ms, groups=groups, diff=diff,
+                peak=peak, out=out["carry"], x=x)
+
+
+def resnet_grads(torch, model, totals):
+    """d/dx and d/dparams of ``nll_loss`` through full-width ResNet-18 at
+    batch 8 on the TrIM backward kernels (``TrimCNN(trainable=True)``,
+    gelu), against autograd of the same loss through ``impl="ref"`` on
+    the kernels' pool picks (:func:`graph_oracle`), each within
+    ``GRAD_TOLERANCE`` of its max|ref|; the plain ``impl="ref"``
+    gradient's worst deviation and its pool flips are printed."""
+    from repro_torch.launch.train_cnn import nll_loss
+    from repro_torch.models.layers import TrimCNN
+    from repro_torch.optim import adamw
+
+    n = GRAPH_BATCHES[0]
+    src = model.graph[0].layer
+    rng = np.random.default_rng(80)
+    x = torch.from_numpy(rng.standard_normal(
+        (n, src.ifmap, src.ifmap, src.in_channels)).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 1000, n)).cuda()
+    params = {k: {m: t.detach() for m, t in v.items()}
+              for k, v in model.tree().items()}
+    trainable = TrimCNN("resnet18", params, activation="gelu",
+                        trainable=True)
+    leaves = adamw.tree_leaves(trainable.tree())
+    names = ["x"] + [f"{k}.{m}" for k in sorted(params)
+                     for m in sorted(params[k])]
+
+    def trim_grads():
+        xl = x.clone().requires_grad_()
+        loss = nll_loss(trainable(xl), y)
+        return loss, torch.autograd.grad(loss, [xl] + leaves)
+    # the convs' forward, their 20 input gradients (the stem's too: x
+    # requires grad) and 20 weight gradients
+    (loss_t, g_trim), counts = drive(torch, trim_grads,
+                                     dict(carry=40, wgrad=20),
+                                     "ResNet-18 gradients")
+    add_counts(totals, counts)
+
+    def oracle_grads(apply_fn):
+        xl = x.clone().requires_grad_()
+        live = [t.clone().requires_grad_() for t in
+                adamw.tree_leaves(params)]
+        loss = nll_loss(apply_fn(adamw.tree_unflatten(params, live), xl), y)
+        return loss, torch.autograd.grad(loss, [xl] + live)
+    matched, flips = graph_oracle(torch, trainable.graph, x, params)
+    loss_m, g_match = oracle_grads(matched)
+    _, g_ref = oracle_grads(TrimCNN("resnet18", params, activation="gelu",
+                                    impl="ref").apply_tree)
+    worst, worst_ref = ("", 0.0), 0.0
+    for name, a, b, r in zip(names, g_trim, g_match, g_ref):
+        scale = b.abs().max().item()
+        rel = (a - b).abs().max().item() / scale
+        if not np.isfinite(rel) or rel > GRAD_TOLERANCE:
+            raise AssertionError(f"ResNet-18: gradient of {name} differs "
+                                 f"from the pick-matched impl='ref' by "
+                                 f"{rel:.3e} of max|ref| {scale:.3e}")
+        worst = max(worst, (name, rel), key=lambda t: t[1])
+        worst_ref = max(worst_ref, (a - r).abs().max().item()
+                        / r.abs().max().item())
+    print(f"graph[ResNet-18] gradients, batch {n} (gelu): loss "
+          f"{loss_t.item():.6f} (pick-matched ref {loss_m.item():.6f}); "
+          f"d/dx and all {len(names) - 1} parameter leaves vs the "
+          f"pick-matched impl='ref' within {GRAD_TOLERANCE:g} of max|ref| "
+          f"(worst {worst[0]}: {worst[1]:.2e}); vs plain impl='ref' worst "
+          f"{worst_ref:.2e}, its forward picking otherwise in {flips} pool "
+          f"windows; launches {counts}")
+    del g_trim, g_match, g_ref, trainable
+    torch.cuda.empty_cache()
+    return dict(worst=worst, worst_ref=worst_ref, flips=flips)
+
+
+def unet_phase(torch, totals):
+    """U-Net at the JAX defaults (64 x 64, base 16, depth 2), batch 8
+    (``GRAPH_BATCHES[0]``): per node and ``fused=True`` (fused equal per
+    node bitwise), against ``impl="ref"``; ms a forward; the plan's
+    groups, each fused one (the last ends in the 1x1 head) timed beside
+    its per-layer chain and its bound."""
+    from repro_torch.core.fuse_plan import GraphFusePlan
+    from repro_torch.models.layers import TrimCNN
+
+    n = GRAPH_BATCHES[0]
+    model = TrimCNN.random("unet", seed=0, device="cuda")
+    tree = model.tree()
+    src = model.graph[0].layer
+    x = torch.from_numpy(np.random.default_rng(90).standard_normal(
+        (n, src.ifmap, src.ifmap, src.in_channels)).astype(np.float32)).cuda()
+    plan = GraphFusePlan.build("unet", n=n)
+    fused_groups = [g for g in plan.groups if g.fused]
+    inside = sum(g.depth for g in fused_groups)
+    fused = TrimCNN("unet", tree, fused=True)
+    with torch.inference_mode():
+        per_node, counts = drive(torch, lambda: model(x), dict(carry=13),
+                                 "U-Net per node")
+        add_counts(totals, counts)
+        out, counts = drive(torch, lambda: fused(x),
+                            dict(carry=13 - inside, fused=len(fused_groups)),
+                            "U-Net fused")
+        add_counts(totals, counts)
+        if not torch.equal(out, per_node):
+            raise AssertionError("U-Net: fused differs from per node "
+                                 "bitwise")
+        oracle = TrimCNN("unet", tree, impl="ref")(x)
+        diff = (per_node - oracle).abs().max().item()
+        lim = TOLERANCE * max(1.0, oracle.abs().max().item())
+        if not diff <= lim or per_node.shape != (n, src.ifmap, src.ifmap,
+                                                 model.graph[-1].layer
+                                                 .out_channels):
+            raise AssertionError(f"U-Net vs impl='ref': {diff} > {lim}")
+        fns = {"per node": lambda: model(x), "fused": lambda: fused(x)}
+        ms = {name: time_ms(torch, fn) for name, fn in fns.items()}
+        graph_ms = {name: time_graph_ms(torch, fn)
+                    for name, fn in fns.items()}
+    desc = "; ".join(
+        f"{g.label} (depth {g.depth}, "
+        + (f"fused, T={g.strip_rows}, B={g.band_cols}" if g.fused
+           else "per layer") + ")" for g in plan.groups)
+    print(f"graph[U-Net] batch {n}: groups {desc}")
+    groups = time_plan_groups(torch, "U-Net", plan)
+    head = next(r for r, g in zip(groups, fused_groups)
+                if g.last.kernel == 1)
+    print(f"graph[U-Net]: fused equals per node bitwise; vs impl='ref' "
+          f"max|diff| {diff:.3e} <= {lim:.1e}; ms a forward, eager (CUDA "
+          f"events) / device (CUDA graph): per node {ms['per node']:.4f} / "
+          f"{graph_ms['per node']:.4f}, fused {ms['fused']:.4f} / "
+          f"{graph_ms['fused']:.4f}; the group ending in the 1x1 head, "
+          f"{head['label']}: {head['fused']:.4f} ms against its chain's "
+          f"{head['chain']:.4f}")
+    del model, fused
+    torch.cuda.empty_cache()
+    return dict(ms=ms, graph_ms=graph_ms, groups=groups, diff=diff)
+
+
+def graph_tune(torch, model, base, cache_dir, totals):
+    """``tune_graph`` of ResNet-18 at batch 8 on a cache of its own:
+    model records (with the fused groups') move no plan, and the packed
+    tree (``cnn_pack_params_from_graph``) gives the per-node output
+    bitwise; then a measured sweep, after which the per-node forward
+    (each conv on its record's plan and dataflow) is still bitwise equal
+    to the default's.  ``base`` is :func:`resnet_forward`'s batch-8
+    result."""
+    from repro_torch.core import autotune
+    from repro_torch.core.conv_plan import ConvPlan
+    from repro_torch.core.fuse_plan import FusedGroupPlan, graph_segments
+    from repro_torch.models.layers import TrimCNN, cnn_pack_params_from_graph
+
+    n, x = base["n"], base["x"]
+    outer = os.environ.get(autotune.CACHE_ENV)
+    os.environ[autotune.CACHE_ENV] = os.path.join(cache_dir,
+                                                  "graph_phase.json")
+    autotune.reset_memory_cache()
+    try:
+        t0 = time.perf_counter()
+        recs = autotune.tune_graph("resnet18", n=n, fused=True)
+        t_model = time.perf_counter() - t0
+        default = {}
+        for nd in model.graph:
+            if nd.op != "conv":
+                continue
+            xs, pads, ws = autotune.layer_problem(nd.layer, n=n)
+            plan = ConvPlan.build(xs, ws, stride=nd.layer.stride, pad=pads)
+            default[nd.name] = (plan.tile_h, plan.tile_cout, "carry")
+            rec = recs["layers"][nd.name]
+            if (rec["tile_h"], rec["tile_cout"], rec["dataflow"]) \
+                    != default[nd.name]:
+                raise AssertionError(f"tune_graph: the model record of "
+                                     f"{nd.name} moves its plan: {rec}")
+        for _, seg in graph_segments(model.graph):
+            if len(seg) > 1 and FusedGroupPlan.build(
+                    list(seg), n=n, use_autotune_cache=True) \
+                    != FusedGroupPlan.build(list(seg), n=n):
+                raise AssertionError("tune_graph: a fused record moves a "
+                                     "group's tile")
+        packed = TrimCNN("resnet18", cnn_pack_params_from_graph(
+            model.tree(), "resnet18", n=n))
+        with torch.inference_mode():
+            out, counts = drive(torch, lambda: packed(x), dict(carry=20),
+                                "ResNet-18 packed")
+            add_counts(totals, counts)
+            if not torch.equal(out, base["out"]):
+                raise AssertionError("ResNet-18: the packed forward differs "
+                                     "from per node bitwise")
+            t0 = time.perf_counter()
+            recs = autotune.tune_graph("resnet18", n=n, measure=True)
+            t_measure = time.perf_counter() - t0
+            flows = [recs["layers"][nd.name]["dataflow"]
+                     for nd in model.graph if nd.op == "conv"]
+            want = {df: flows.count(df) for df in ("carry", "halo")
+                    if flows.count(df)}
+            out, counts = drive(torch, lambda: model(x), want,
+                                "ResNet-18 on measured records")
+            add_counts(totals, counts)
+            if not torch.equal(out, base["out"]):
+                raise AssertionError("ResNet-18: the forward on measured "
+                                     "records differs from the default's "
+                                     "bitwise")
+            tuned_ms = time_ms(torch, lambda: model(x))
+    finally:
+        if outer is None:
+            os.environ.pop(autotune.CACHE_ENV, None)
+        else:
+            os.environ[autotune.CACHE_ENV] = outer
+        autotune.reset_memory_cache()
+    moved = sorted(nm for nm, knobs in default.items() if knobs != tuple(
+        recs["layers"][nm][k] for k in ("tile_h", "tile_cout", "dataflow")))
+    print(f"graph[tune]: tune_graph('resnet18', n={n}, fused=True) model "
+          f"records in {t_model:.2f} s, {len(recs['layers'])} nodes on "
+          f"{len({r['key'] for r in recs['layers'].values()})} problems, no "
+          f"plan moved, packed forward bitwise; measured sweep "
+          f"{t_measure:.2f} s (plans moved at {len(moved)} nodes {moved}; "
+          f"dataflows {want}); the forward on the measured records bitwise "
+          f"equal to the default, {tuned_ms:.4f} ms a forward (default "
+          f"{base['ms']['carry']:.4f})")
+    return dict(t_model=t_model, t_measure=t_measure, ms=tuned_ms,
+                moved=moved)
+
+
+def graph_phase(torch, cache_dir):
+    """The DAG topologies on the card (module docstring, phase 13)."""
+    from repro_torch.models.layers import TrimCNN
+
+    krows = check_graph_kernels(torch)
+    totals = launch_counts()
+    model = TrimCNN.random("resnet18", n_classes=1000, seed=0,
+                           device="cuda")
+    fw = {n: resnet_forward(torch, model, n, totals) for n in GRAPH_BATCHES}
+    tables = {n: graph_node_table(torch, model.graph, n)
+              for n in GRAPH_BATCHES}
+    grads_ = resnet_grads(torch, model, totals)
+    unet = unet_phase(torch, totals)
+    tune = graph_tune(torch, model, fw[GRAPH_BATCHES[0]], cache_dir, totals)
+    for r in fw.values():
+        del r["x"], r["out"]
+    del model
+    torch.cuda.empty_cache()
+    print(f"graph: launches of the phase's main paths {totals}")
+    return dict(kernels=krows, forward=fw, tables=tables, grads=grads_,
+                unet=unet, tune=tune, launches=totals)
 
 
 def small_chains():
@@ -2846,6 +3478,8 @@ def run(torch, args, cache_dir: str) -> int:
     phase.done("serve[int8]")
     alex = serve_alexnet(torch)
     phase.done("serve[AlexNet]")
+    graph = graph_phase(torch, cache_dir)
+    phase.done("graph")
 
     train_launches = train_vgg16(torch)
     phase.done("train")
@@ -2887,11 +3521,12 @@ def run(torch, args, cache_dir: str) -> int:
                    + small_launches["carry"] + fused_launches["carry"]
                    + train_launches["carry"] + train_fused_launches["carry"]
                    + alex["carry"]["carry"] + alex["fused"]["carry"])
-    carry_total += tuned["launches"]["carry"]
+    carry_total += tuned["launches"]["carry"] + graph["launches"]["carry"]
     halo_total = (halo_launches["halo"] + alex["halo"]["halo"]
-                  + tuned["launches"]["halo"])
+                  + tuned["launches"]["halo"] + graph["launches"]["halo"])
     rect_err = max(max(r["err"] for r in rect_rows),
-                   max(r["err"] for r in krows))
+                   max(r["err"] for r in krows),
+                   max(r["err"] for r in graph["kernels"]))
     for df, launches, src_line in (
             ("carry", carry_total, 127),
             ("halo", halo_total, 162)):
@@ -2939,9 +3574,11 @@ def run(torch, args, cache_dir: str) -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/trim_conv2d_wgrad.cu",
         "replaces": "src/repro/kernels/trim_conv2d.py:429",
-        "launches": train_launches["wgrad"] + train_fused_launches["wgrad"],
+        "launches": (train_launches["wgrad"] + train_fused_launches["wgrad"]
+                     + graph["launches"]["wgrad"]),
         "max_abs_err": max(max(r["err"] for r in brows),
-                           max(r["dw_err"] for r in rect_rows)),
+                           max(r["dw_err"] for r in rect_rows),
+                           max(r["dw_err"] for r in graph["kernels"])),
         "ms": sum(r["wgrad"] for r in bvgg),
         "plain_ms": sum(r["plain"] for r in bvgg),
         "bound_ms": sum(r["bound"] for r in bvgg),
@@ -2958,7 +3595,8 @@ def run(torch, args, cache_dir: str) -> int:
         "source": "src/repro_torch/kernels/csrc/trim_conv2d_fused.cu",
         "replaces": "src/repro/kernels/trim_conv2d_fused.py:102",
         "launches": (full_fused_launches["fused"] + fused_launches["fused"]
-                     + train_fused_launches["fused"]),
+                     + train_fused_launches["fused"]
+                     + graph["launches"]["fused"]),
         "max_abs_err": max(r["err"] for r in frows),
         "ms": sum(r["fused"] for r in fvgg),
         "plain_ms": sum(r["plain"] for r in fvgg),
@@ -3037,6 +3675,27 @@ def run(torch, args, cache_dir: str) -> int:
           f"{alex['halo_fw']}, fused=True {alex['fused']} in "
           f"{alex['fused_fw']} (counted in the kernel line's carry and "
           f"halo launches)")
+    for n in GRAPH_BATCHES:
+        fw, tab = graph["forward"][n], graph["tables"][n]
+        gm = fw["graph_ms"]
+        print(f"ResNet-18 at batch {n}: forward carry {fw['ms']['carry']:.4f} "
+              f"ms, halo {fw['ms']['halo']:.4f}, fused "
+              f"{fw['ms']['fused']:.4f}, every conv as F.conv2d "
+              f"{fw['ms']['library']:.4f} (from CUDA graphs: "
+              f"{gm['carry']:.4f}, {gm['halo']:.4f}, {gm['fused']:.4f}, "
+              f"{gm['library']:.4f}); fused groups "
+              + ", ".join(f"{r['label']} {r['fused']:.4f} (chain "
+                          f"{r['chain']:.4f})" for r in fw["groups"])
+              + f"; the 20 convs alone: carry "
+              f"{sum(r['carry'] for r in tab):.4f} ms, F.conv2d "
+              f"{sum(r['library'] for r in tab):.4f}, bound "
+              f"{sum(r['bound'] for r in tab):.4f} (stem "
+              f"{tab[0]['carry']:.4f} against its bound "
+              f"{tab[0]['bound']:.4f}); peak {fw['peak']:.3f} GiB")
+    print(f"launches of the graph phase: {graph['launches']} (ResNet-18 "
+          f"forwards at batch {GRAPH_BATCHES}, per node, halo and fused, its "
+          f"gradients, the packed and measured-record forwards, U-Net per "
+          f"node and fused; counted in the kernel line)")
     print("kernel times: sums over the 13 VGG-16 conv layers at batch 8 "
           "(trim_conv2d_fused: over full-width VGG-16's fixed-tile "
           "two-layer pair at batch 8, "

@@ -779,12 +779,40 @@ def prewarm_buckets(network, buckets, *, dtype: str = "float32",
     return results
 
 
-def tune_graph(graph, **kwargs) -> dict:
-    """Not ported yet: the DAG topologies (resnet18, unet) and their
-    ``graph_segments`` wait for ROADMAP Queue 1 item 2."""
-    raise NotImplementedError(
-        "tune_graph needs the DAG topologies (resnet18, unet), ROADMAP "
-        "Queue 1 item 2 (DAG nets)")
+def tune_graph(graph, *, n: int = 1, dtype: str = "float32", device=None,
+               op: str | None = None, fused: bool = False,
+               measure: bool = False, measure_top_k: int = 4,
+               include_backward: bool = False, write: bool = True,
+               path: str | None = None) -> dict:
+    """Tune every conv node of a DAG topology in one sweep
+    (``repro/core/autotune.py:722``), the graph analogue of
+    :func:`tune_network`: ``graph`` is anything
+    ``core.netplan.graph_nodes`` resolves ("resnet18" | "unet" |
+    ``list[GraphNode]`` | a linear topology).  The conv nodes go through
+    one :func:`tune_network`, keyed as ``ops.conv2d`` looks them up, so
+    nodes sharing a problem (ResNet's repeated blocks) are tuned once and
+    ``cnn_apply_from_graph`` / ``cnn_pack_params_from_graph`` run on the
+    records afterwards.  Joins have nothing to tune.  ``fused=True`` also
+    runs :func:`tune_fused_network` over each segment of two or more
+    convs (``core.fuse_plan.graph_segments``), writing the
+    ``conv2d_fused:`` records its groups read.
+
+    Returns ``{"layers": {node: record}[, "fused": {group: record}]}``."""
+    from repro_torch.core.fuse_plan import graph_segments
+    from repro_torch.core.netplan import graph_nodes
+    nodes = graph_nodes(graph)
+    kw = dict(n=n, dtype=dtype, device=device, write=write, path=path)
+    out = {"layers": tune_network(
+        [nd.layer for nd in nodes if nd.op == "conv"], op=op,
+        measure=measure, measure_top_k=measure_top_k,
+        include_backward=include_backward, **kw)}
+    if fused:
+        out["fused"] = {}
+        for _, seg_layers in graph_segments(nodes):
+            if len(seg_layers) >= 2:
+                out["fused"].update(tune_fused_network(list(seg_layers),
+                                                       **kw))
+    return out
 
 
 def tune_sharded(x_shape, w_shape, **kwargs) -> dict:

@@ -48,6 +48,11 @@ What is new for Hopper:
 
 The kernel is float32 only, so every byte count is of f32
 (:data:`F32_BYTES`), and the budget is always :data:`SMEM_PER_BLOCK`.
+
+DAG topologies (ResNet-18, U-Net): :func:`graph_segments` cuts a graph
+into its fusable linear runs between joins, exactly as the JAX function
+does, and :class:`GraphFusePlan` plans each run as a chain with its own
+:class:`FusedGroupPlan`.
 """
 
 from __future__ import annotations
@@ -59,8 +64,9 @@ from dataclasses import dataclass
 
 from repro_torch.core.conv_plan import (SMEM_PER_BLOCK, WARP, ConvPlan,
                                         same_pads)
-from repro_torch.core.netplan import (infer_pools, layer_kernel_problem,
-                                      network_layers, pooled_out_size)
+from repro_torch.core.netplan import (graph_nodes, infer_pools,
+                                      layer_kernel_problem, network_layers,
+                                      pool_between, pooled_out_size)
 
 # Kernel constants, mirroring the constexprs of trim_conv2d_fused.cu (its
 # kMaxSmemBytes is conv_plan's SMEM_PER_BLOCK; tests/test_torch_fused.py
@@ -691,3 +697,167 @@ def _build_plan(layers, n, max_depth):
     groups.reverse()
     return FusedGroupPlan(groups=tuple(groups), n=n,
                           layer_exec_bytes=exec_bytes)
+
+
+# ---------------------------------------------------------------------------
+# DAG segmentation: fusable linear runs between joins
+# ---------------------------------------------------------------------------
+
+def graph_segments(nodes) -> list[tuple[tuple[str, ...], tuple]]:
+    """Maximal fusable linear runs of a DAG topology
+    (``repro/core/fuse_plan.py:596``), as ``(names, layers)`` tuples: the
+    covered node names (conv nodes plus absorbed single-consumer pool
+    nodes, in topological order) and the run's ``ConvLayer`` chain.
+
+    A run extends from conv to conv only while the intermediate tensor
+    has exactly one consumer (joins, skip taps and network outputs end
+    runs: their tensor must materialize) and the boundary's pooling is
+    exactly re-inferable from the spatial dims by
+    :func:`~repro_torch.core.netplan.pool_between`, so each run is a
+    linear chain that :class:`FusedGroupPlan` and
+    ``cnn_apply_from_layers`` take unchanged.  A trailing conv-node
+    epilogue pool is *not* part of the run (the graph executor applies
+    it after the run)."""
+    nodes = list(nodes)
+    by = {nd.name: nd for nd in nodes}
+    cons: dict[str, list[str]] = {nd.name: [] for nd in nodes}
+    for nd in nodes:
+        for s in nd.inputs:
+            cons[s].append(nd.name)
+    used: set[str] = set()
+    segments: list[tuple[tuple[str, ...], tuple]] = []
+    for nd in nodes:
+        if nd.op != "conv" or nd.name in used:
+            continue
+        names, layers = [nd.name], [nd.layer]
+        used.add(nd.name)
+        cur = nd
+        while True:
+            nxts = cons[cur.name]
+            if len(nxts) != 1:
+                break
+            nxt = by[nxts[0]]
+            absorbed: list[str] = []
+            if nxt.op == "pool":
+                if cur.pool > 1 or cur.pool_window > 1:
+                    break        # stacked pools: not dims-recoverable
+                pc = cons[nxt.name]
+                if len(pc) != 1:
+                    break        # pooled tensor has other consumers
+                cand = by[pc[0]]
+                expected = (nxt.pool, nxt.pool_window)
+                absorbed = [nxt.name]
+            elif nxt.op == "conv":
+                cand = nxt
+                expected = (cur.pool, cur.pool_window)
+            else:
+                break            # add / concat / upsample end the run
+            if cand.op != "conv":
+                break
+            try:
+                if pool_between(cur.layer, cand.layer) != expected:
+                    break        # dims would re-infer a different pool
+            except ValueError:
+                break
+            names.extend(absorbed)
+            names.append(cand.name)
+            layers.append(cand.layer)
+            used.update(absorbed)
+            used.add(cand.name)
+            cur = cand
+        segments.append((tuple(names), tuple(layers)))
+    return segments
+
+
+@dataclass(frozen=True)
+class GraphFusePlan:
+    """Fusion partition of a DAG topology (``repro/core/fuse_plan.py:
+    663``): each fusable linear segment between joins
+    (:func:`graph_segments`) is planned as a chain, with its own
+    :class:`FusedGroupPlan`; joins and skip taps stay un-fused, since
+    their tensors must materialize.
+
+    Bytes are the port plans' own (:meth:`FusedGroupPlan.
+    executed_hbm_bytes`, :meth:`FusedGroupPlan.never_hbm_bytes`), summed
+    over the segments; join traffic is the same on both sides of
+    :meth:`executed_ratio` and is not counted.  The JAX plan's TPU
+    arguments (``residency``, ``residency_budget``, ``vmem_budget``,
+    ``strip_rows``, ``dtype_bytes``) are left out, as
+    :meth:`FusedGroupPlan.build` leaves them out: the port plans 227 KB
+    of shared memory in f32 and picks each group's tile itself."""
+
+    name: str
+    segments: tuple              # (names, FusedGroupPlan) pairs
+    n: int
+
+    @classmethod
+    def build(cls, graph, *, n: int = 1, max_depth: int | None = None,
+              use_autotune_cache: bool = False,
+              device=None) -> "GraphFusePlan":
+        """Plan every segment of ``graph`` (anything
+        :func:`~repro_torch.core.netplan.graph_nodes` resolves) at batch
+        ``n``; the keywords go to :meth:`FusedGroupPlan.build`."""
+        segs = tuple(
+            (names, FusedGroupPlan.build(
+                list(layers), n=n, max_depth=max_depth,
+                use_autotune_cache=use_autotune_cache, device=device))
+            for names, layers in graph_segments(graph_nodes(graph)))
+        nm = graph if isinstance(graph, str) else "custom"
+        return cls(name=nm, segments=segs, n=n)
+
+    @property
+    def n_segments(self) -> int:
+        return len(self.segments)
+
+    @property
+    def groups(self) -> tuple[FusedGroup, ...]:
+        return tuple(g for _, p in self.segments for g in p.groups)
+
+    @property
+    def flops(self) -> int:
+        return sum(p.flops for _, p in self.segments)
+
+    @property
+    def macs(self) -> int:
+        return sum(g.macs for g in self.groups)
+
+    def executed_hbm_bytes(self) -> dict:
+        tot = dict(input=0, weights=0, output=0, pool=0, total=0)
+        for _, p in self.segments:
+            b = p.executed_hbm_bytes()
+            for k in tot:
+                tot[k] += b.get(k, 0)
+        return tot
+
+    def never_hbm_bytes(self) -> int:
+        return sum(p.never_hbm_bytes() for _, p in self.segments)
+
+    def executed_ratio(self) -> float:
+        return self.never_hbm_bytes() \
+            / max(self.executed_hbm_bytes()["total"], 1)
+
+    def as_rows(self) -> list[dict]:
+        """One row a group: its segment, layers, tile and executed
+        bytes (the fused schedule's, or the per-layer path's for a
+        depth-1 group)."""
+        rows = []
+        for names, p in self.segments:
+            for g in p.groups:
+                b = g.hbm_bytes() if g.fused else p.layer_exec_bytes[g.start]
+                rows.append(dict(
+                    segment=list(names), start=g.start, depth=g.depth,
+                    fused=g.fused, layers=[st.name for st in g.stages],
+                    strip_rows=g.strip_rows, band_cols=g.band_cols,
+                    n_tiles=g.n_tiles, flops=g.flops,
+                    hbm_total=b["total"]))
+        return rows
+
+    def summary(self) -> dict:
+        return dict(segments=self.n_segments,
+                    groups=sum(len(p.groups) for _, p in self.segments),
+                    max_depth=max(p.depth for _, p in self.segments),
+                    fused_layers=sum(g.depth for g in self.groups
+                                     if g.fused),
+                    executed_bytes=self.executed_hbm_bytes()["total"],
+                    per_layer_bytes=self.never_hbm_bytes(),
+                    executed_ratio=self.executed_ratio())

@@ -1,9 +1,9 @@
 """CNN topologies of the paper (copied from ``repro/core/model.py``).
 
 Only the topology: the layer description, the VGG-16 / AlexNet /
-MobileNet conv stacks and the kernel tiling's sub-kernel count.  The
-accelerator configurations and the Fig. 6 access accounting stay with
-the JAX package.
+MobileNet conv stacks, the DAG nodes of ResNet-18 and U-Net and the
+kernel tiling's sub-kernel count.  The accelerator configurations and
+the Fig. 6 access accounting stay with the JAX package.
 """
 
 from __future__ import annotations
@@ -90,3 +90,128 @@ def mobilenet_layers() -> list[ConvLayer]:
                                 padding=1, groups=c))
         layers.append(ConvLayer(f"pw{i+1}", i_sz // s, c, f, kernel=1))
     return layers
+
+
+# ---------------------------------------------------------------------------
+# DAG topologies (``core.netplan.graph_nodes`` resolves them; the executor
+# is ``models.layers.cnn_apply_from_graph``)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class GraphNode:
+    """One node of a DAG topology.
+
+    ``op`` is one of:
+
+    * ``"conv"``     — a :class:`ConvLayer` (``layer`` required); ``pool``
+      / ``pool_window`` fold a max-pool epilogue onto the conv, exactly
+      like a chain's inferred pool (linear chains converted by
+      ``netplan.linear_graph_nodes`` use this).
+    * ``"pool"``     — a standalone ``pool_window``^2 / stride-``pool``
+      max pool.  DAG topologies keep pools explicit so a skip edge can
+      tap the *pre*-pool activation.
+    * ``"add"``      — elementwise residual join (all inputs same shape).
+    * ``"concat"``   — channel concatenation (same spatial dims).
+    * ``"upsample"`` — nearest-neighbour spatial upsampling by ``scale``.
+
+    ``inputs`` name producer nodes; a conv node with no inputs reads the
+    network input (exactly one such source node per graph).  Joins
+    perform no MACs.
+    """
+
+    name: str
+    op: str
+    inputs: tuple[str, ...] = ()
+    layer: ConvLayer | None = None
+    pool: int = 1
+    pool_window: int = 1
+    scale: int = 1
+
+    def __post_init__(self):
+        if self.op not in ("conv", "pool", "add", "concat", "upsample"):
+            raise ValueError(f"node {self.name}: unknown op {self.op!r}")
+        if (self.layer is not None) != (self.op == "conv"):
+            raise ValueError(f"node {self.name}: op={self.op!r} "
+                             f"{'requires' if self.op == 'conv' else 'forbids'}"
+                             " a ConvLayer")
+        if self.op != "conv" and not self.inputs:
+            raise ValueError(f"node {self.name}: op={self.op!r} needs inputs")
+
+
+def resnet18_graph(image: int = 224, base: int = 64) -> list[GraphNode]:
+    """ResNet-18 feature extractor as a DAG: a 7x7/s2 stem, a 2x2/s2 max
+    pool, then four stages of two basic blocks (3x3 + 3x3 + residual
+    add); the first block of stages 2-4 strides by 2 with a 1x1/s2
+    projection conv on the skip edge.  ``base``/``image`` shrink the
+    topology for the CPU tests (defaults are the paper-scale ImageNet
+    configuration)."""
+    stem = ConvLayer("conv1", image, 3, base, kernel=7, stride=2, padding=3)
+    nodes = [GraphNode("conv1", "conv", (), stem),
+             GraphNode("pool1", "pool", ("conv1",), pool=2, pool_window=2)]
+    prev, size, cin = "pool1", stem.out_size // 2, base
+    for stage in range(1, 5):
+        cout = base << (stage - 1)
+        for b in range(2):
+            stride = 2 if (stage > 1 and b == 0) else 1
+            tag = f"l{stage}b{b}"
+            c1 = ConvLayer(f"{tag}_conv1", size, cin, cout, kernel=3,
+                           stride=stride, padding=1)
+            c2 = ConvLayer(f"{tag}_conv2", c1.out_size, cout, cout,
+                           kernel=3, stride=1, padding=1)
+            nodes.append(GraphNode(c1.name, "conv", (prev,), c1))
+            nodes.append(GraphNode(c2.name, "conv", (c1.name,), c2))
+            skip = prev
+            if stride != 1 or cin != cout:
+                ds = ConvLayer(f"{tag}_down", size, cin, cout, kernel=1,
+                               stride=stride)
+                nodes.append(GraphNode(ds.name, "conv", (prev,), ds))
+                skip = ds.name
+            nodes.append(GraphNode(f"{tag}_add", "add", (c2.name, skip)))
+            prev, size, cin = f"{tag}_add", c1.out_size, cout
+    return nodes
+
+
+def unet_graph(image: int = 64, base: int = 16, in_channels: int = 3,
+               out_channels: int = 4, depth: int = 2) -> list[GraphNode]:
+    """A small U-Net: ``depth`` encoder levels (two 3x3 convs + 2x2/s2
+    pool each), a two-conv bottleneck, then mirrored decoder levels
+    (nearest x2 upsample, channel-halving 3x3, concat with the encoder
+    skip, two 3x3 convs) and a 1x1 head.  Skip edges tap the *pre*-pool
+    encoder activations, so their liveness spans the whole U."""
+    if image % (1 << depth):
+        raise ValueError(f"image {image} not divisible by 2^{depth}")
+    nodes: list[GraphNode] = []
+    prev: str | None = None
+
+    def conv(name, ifmap, ci, co, k=3, p=1):
+        l = ConvLayer(name, ifmap, ci, co, kernel=k, stride=1, padding=p)
+        nodes.append(GraphNode(name, "conv",
+                               (prev,) if prev else (), l))
+        return name
+
+    size, cin, skips = image, in_channels, []
+    for lv in range(depth):
+        c = base << lv
+        prev = conv(f"enc{lv}a", size, cin, c)
+        prev = conv(f"enc{lv}b", size, c, c)
+        skips.append((prev, size, c))
+        nodes.append(GraphNode(f"pool{lv}", "pool", (prev,),
+                               pool=2, pool_window=2))
+        prev, size, cin = f"pool{lv}", size // 2, c
+    c = base << depth
+    prev = conv("mid_a", size, cin, c)
+    prev = conv("mid_b", size, c, c)
+    cin = c
+    for lv in reversed(range(depth)):
+        c = base << lv
+        nodes.append(GraphNode(f"up{lv}", "upsample", (prev,), scale=2))
+        prev, size = f"up{lv}", size * 2
+        prev = conv(f"dec{lv}r", size, cin, c)
+        skip, _, _ = skips[lv]
+        nodes.append(GraphNode(f"cat{lv}", "concat", (prev, skip)))
+        prev = f"cat{lv}"
+        prev = conv(f"dec{lv}a", size, 2 * c, c)
+        prev = conv(f"dec{lv}b", size, c, c)
+        cin = c
+    conv("out", size, cin, out_channels, k=1, p=0)
+    return nodes

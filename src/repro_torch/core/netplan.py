@@ -1,19 +1,29 @@
 """Topology helpers of the network planner (copied from
-``repro/core/netplan.py``): resolve and scale a topology, infer the max
+``repro/core/netplan.py``): resolve and scale a topology (a linear chain
+or a DAG of :class:`~repro_torch.core.model.GraphNode`), infer the max
 pools between its layers, and map a layer to the conv problem the
-execution path runs.  The network accounting stays with the JAX package.
+execution path runs.  The network accounting (``NetworkPlan``,
+``NetworkGraph``) stays with the JAX package: it bills the TPU plan's
+HBM model, which the port's Hopper ``ConvPlan`` does not have.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import replace as _dc_replace
 
-from repro_torch.core.model import (ConvLayer, alexnet_layers,
-                                    mobilenet_layers, vgg16_layers)
+from repro_torch.core.model import (ConvLayer, GraphNode, alexnet_layers,
+                                    mobilenet_layers, resnet18_graph,
+                                    unet_graph, vgg16_layers)
 from repro_torch.kernels.ops import kernel_input_shape
 
 NETWORKS = {"vgg16": vgg16_layers, "alexnet": alexnet_layers,
             "mobilenet": mobilenet_layers}
+
+# DAG topologies: name -> builder returning list[GraphNode] (topological
+# order).  Linear chains from NETWORKS convert through
+# linear_graph_nodes().
+GRAPHS = {"resnet18": resnet18_graph, "unet": unet_graph}
 
 
 def network_layers(network) -> list[ConvLayer]:
@@ -177,3 +187,76 @@ def layer_kernel_problem(layer: ConvLayer, *, n: int = 1):
     w_shape = (layer.kernel, layer.kernel,
                layer.in_channels // layer.groups, layer.out_channels)
     return x_shape, pad, w_shape, padding
+
+
+# ---------------------------------------------------------------------------
+# DAG topology helpers
+# ---------------------------------------------------------------------------
+
+def linear_graph_nodes(network) -> list[GraphNode]:
+    """A linear topology (name or ``list[ConvLayer]``) as graph nodes:
+    one conv node per layer, chained in order, with the inter-layer max
+    pools folded onto each conv as its epilogue (the chain's own view:
+    ``models.layers.cnn_apply_from_graph`` on these nodes computes
+    ``cnn_apply_from_layers``)."""
+    layers = network_layers(network)
+    pools = infer_pools(layers)
+    nodes: list[GraphNode] = []
+    prev: str | None = None
+    for l, (ps, pw) in zip(layers, pools):
+        nodes.append(GraphNode(l.name, "conv", (prev,) if prev else (),
+                               l, pool=ps, pool_window=pw))
+        prev = l.name
+    return nodes
+
+
+def graph_nodes(graph) -> list[GraphNode]:
+    """Resolve a DAG topology: a name from :data:`GRAPHS` ("resnet18",
+    "unet"), a name from :data:`NETWORKS` or an explicit
+    ``list[ConvLayer]`` (converted by :func:`linear_graph_nodes`), or an
+    explicit ``list[GraphNode]`` passed through unchanged."""
+    if isinstance(graph, str):
+        if graph in GRAPHS:
+            return GRAPHS[graph]()
+        if graph in NETWORKS:
+            return linear_graph_nodes(graph)
+        raise ValueError(f"unknown network {graph!r}; have "
+                         f"{sorted(GRAPHS) + sorted(NETWORKS)}")
+    nodes = list(graph)
+    if nodes and isinstance(nodes[0], ConvLayer):
+        return linear_graph_nodes(nodes)
+    return nodes
+
+
+def scale_graph(graph, scale: int) -> list[GraphNode]:
+    """Channel-shrink a DAG topology by ``scale`` (spatial dims and
+    kernels unchanged) — the graph analogue of :func:`scale_layers`.
+    Channels are recomputed in topological order (concat sums its
+    inputs, joins pass through), so add/concat joins stay consistent
+    after scaling."""
+    nodes = graph_nodes(graph)
+    if scale <= 1:
+        return nodes
+    ch: dict[str, int] = {}
+    out: list[GraphNode] = []
+    for nd in nodes:
+        if nd.op == "conv":
+            l = nd.layer
+            cin = ch[nd.inputs[0]] if nd.inputs else l.in_channels
+            cout = max(1, l.out_channels // scale)
+            if l.groups == l.in_channels and l.groups > 1:
+                groups = cin                 # depthwise stays depthwise
+            else:
+                groups = math.gcd(l.groups, cin)
+            if groups > 1:
+                cout = -(-cout // groups) * groups
+            out.append(_dc_replace(nd, layer=_dc_replace(
+                l, in_channels=cin, out_channels=cout, groups=groups)))
+            ch[nd.name] = cout
+        else:
+            out.append(nd)
+            if nd.op == "concat":
+                ch[nd.name] = sum(ch[s] for s in nd.inputs)
+            else:
+                ch[nd.name] = ch[nd.inputs[0]]
+    return out

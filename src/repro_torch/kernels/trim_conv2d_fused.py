@@ -89,8 +89,13 @@ def trim_conv2d_fused_plain(x: torch.Tensor, weights, biases, *, group,
                           dtype=torch.float32, device=dev)
         for ki in range(k):
             for kj in range(k):
-                acc += t[:, :, :, ki:ki + (rows - 1) * s + 1:s,
-                         kj:kj + (cols - 1) * s + 1:s, :] @ w[ki, kj]
+                # one (positions, Cin) x (Cin, Cout) product a tap on a
+                # contiguous copy, as trim_conv2d_plain takes it: a
+                # matmul on the strided view may round differently
+                taps = t[:, :, :, ki:ki + (rows - 1) * s + 1:s,
+                         kj:kj + (cols - 1) * s + 1:s, :]
+                acc += (taps.reshape(-1, st.cin) @ w[ki, kj]) \
+                    .reshape(acc.shape)
         y = epilogue(acc, b, activation)
         if st.pooled:
             ps, pw = st.pool_stride, st.pool_window

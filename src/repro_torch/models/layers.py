@@ -3,10 +3,11 @@ transformer (LM) half.
 
 Convolutions.  Functional core on trees of tensors — ``conv2d_apply``,
 ``depthwise_separable_apply``, ``simple_cnn_apply``,
-``cnn_apply_from_layers`` — as in the JAX package, and :class:`TrimCNN`,
-the ``nn.Module`` that holds one topology's parameters and serves or
-trains it.  Every function is differentiable: under grad, each conv runs
-the TrIM forward, input-gradient and weight-gradient kernels
+``cnn_apply_from_layers`` (linear chains), ``cnn_apply_from_graph`` (DAG
+topologies: ResNet-18, U-Net) — as in the JAX package, and
+:class:`TrimCNN`, the ``nn.Module`` that holds one topology's parameters
+and serves or trains it.  Every function is differentiable: under grad,
+each conv runs the TrIM forward, input-gradient and weight-gradient kernels
 (``kernels/ops.py``), and max-pool's backward is ``F.max_pool2d``'s.
 Activations are NHWC and conv weights ``(K, K, Cin/groups, Cout)``.  A
 conv entry is ``{"w", "b"}`` (f32); after :func:`conv2d_pack_params` /
@@ -29,10 +30,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.core.fuse_plan import FusedGroupPlan
-from repro_torch.core.netplan import infer_pools, layer_kernel_problem
+from repro_torch.core.fuse_plan import FusedGroupPlan, graph_segments
+from repro_torch.core.model import GraphNode
+from repro_torch.core.netplan import (GRAPHS, graph_nodes, infer_pools,
+                                      layer_kernel_problem, network_layers)
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.trim_conv2d_fused import fused_group_apply
 from repro_torch.models.base import Param, init_params
 from repro_torch.models.config import ModelConfig
@@ -246,7 +249,9 @@ def _apply_layer_range(p: dict, layers_list, pools, x: torch.Tensor, lo: int,
 def cnn_apply_from_layers(p: dict, layers_list, x: torch.Tensor, *,
                           activation: str | None = "relu",
                           impl: str = "trim", dataflow: str | None = None,
-                          fused: bool = False) -> torch.Tensor:
+                          fused: bool = False,
+                          fuse_plan: FusedGroupPlan | None = None
+                          ) -> torch.Tensor:
     """Forward pass of a topology built by :func:`cnn_params_from_layers`:
     one kernel launch per conv layer (bias + activation fused), with the
     max pools inferred from the spatial dims between layers
@@ -258,24 +263,26 @@ def cnn_apply_from_layers(p: dict, layers_list, x: torch.Tensor, *,
     batch as one launch of the fused kernel, interior activations in
     shared memory, each group on its ``conv2d_fused:`` record's tile where
     one exists (``use_autotune_cache=True``); depth-1 groups run the
-    per-layer path, and the output is bitwise the same either way.  A
-    group that fails raises: nothing falls back to per-layer execution.
-    The fused path needs raw ``{"w", "b"}`` conv params: a packed or
-    calibrated layer in a fused group raises, as in JAX.
+    per-layer path, and the output is bitwise the same either way.  Pass
+    ``fuse_plan`` (implies ``fused=True``) to run a prebuilt plan, e.g.
+    a segment's of a :class:`~repro_torch.core.fuse_plan.GraphFusePlan`.
+    A group that fails raises: nothing falls back to per-layer
+    execution.  The fused path needs raw ``{"w", "b"}`` conv params: a
+    packed or calibrated layer in a fused group raises, as in JAX.
     """
     layers_list = list(layers_list)
     pools = list(infer_pools(layers_list))
     kw = dict(activation=activation, impl=impl, dataflow=dataflow)
-    if not fused:
+    if not (fused or fuse_plan is not None):
         x = _apply_layer_range(p, layers_list, pools, x, 0,
                                len(layers_list), **kw)
     else:
         if impl != "trim":
             raise ValueError(f"fused execution runs the TrIM kernels; "
                              f"impl={impl!r} needs fused=False")
-        plan = FusedGroupPlan.build(layers_list, n=x.shape[0],
-                                    use_autotune_cache=True,
-                                    device=x.device)
+        plan = fuse_plan if fuse_plan is not None else \
+            FusedGroupPlan.build(layers_list, n=x.shape[0],
+                                 use_autotune_cache=True, device=x.device)
         for g in plan.groups:
             lo, hi = g.start, g.start + g.depth
             if not g.fused:
@@ -297,6 +304,157 @@ def cnn_apply_from_layers(p: dict, layers_list, x: torch.Tensor, *,
     if "head" not in p:
         return x
     return cnn_head_apply(p["head"], x)
+
+
+def cnn_params_from_graph(graph, *, n_classes: int | None = None,
+                          bias: bool = True) -> dict:
+    """Declarations for a DAG topology (``repro/models/layers.py:472``):
+    ``graph`` is anything ``core.netplan.graph_nodes`` resolves (a name,
+    "resnet18" | "unet", a ``list[GraphNode]`` or a linear topology).  One
+    entry per conv node, keyed by the node's name; joins carry no
+    params.  ``n_classes`` adds a global-mean-pool linear ``head`` over
+    the terminal node's channels, so no node may be called "head"."""
+    nodes = graph_nodes(graph)
+    p, ch = {}, {}
+    for nd in nodes:
+        if nd.name == "head":
+            raise ValueError(
+                'node name "head" is reserved for the linear classifier '
+                "head — rename the graph node")
+        if nd.op == "conv":
+            l = nd.layer
+            p[nd.name] = conv2d_params(l.kernel, l.in_channels,
+                                       l.out_channels, groups=l.groups,
+                                       bias=bias)
+            ch[nd.name] = l.out_channels
+        elif nd.op == "concat":
+            ch[nd.name] = sum(ch[s] for s in nd.inputs)
+        else:
+            ch[nd.name] = ch[nd.inputs[0]]
+    if n_classes is not None:
+        d = ch[nodes[-1].name]
+        p["head"] = {"w": Param((d, n_classes)),
+                     "b": Param((n_classes,), init="zeros")}
+    return p
+
+
+def cnn_pack_params_from_graph(p: dict, graph, *, n: int = 1) -> dict:
+    """Load-time packing of a DAG topology's conv weights
+    (``repro/models/layers.py:507``), the graph analogue of
+    :func:`cnn_pack_params`: each conv node of K <= ``ops.MAX_NATIVE_K``
+    is packed with the input it sees at batch ``n``, so after an
+    ``autotune.tune_graph`` sweep the packed forward runs on the tuned
+    plans; K > 8 nodes and the head are kept as they are."""
+    packed = dict(p)
+    for nd in graph_nodes(graph):
+        if nd.op != "conv" or nd.layer.kernel > ops.MAX_NATIVE_K:
+            continue
+        l = nd.layer
+        _, _, _, padding = layer_kernel_problem(l, n=n)
+        packed[nd.name] = conv2d_pack_params(
+            p[nd.name], groups=l.groups,
+            x_shape=(n, l.ifmap, l.ifmap, l.in_channels), stride=l.stride,
+            padding=padding)
+    return packed
+
+
+def _upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Nearest-neighbour spatial upsampling of an NHWC tensor (the U-Net
+    decoder's)."""
+    return x.repeat_interleave(scale, dim=1).repeat_interleave(scale, dim=2)
+
+
+def _graph_conv_node(p: dict, nd, x: torch.Tensor, *, activation, impl,
+                     dataflow) -> torch.Tensor:
+    """One graph conv node on the per-layer path
+    (``ops.conv_pool_chain``): the conv (padding from the shared layer ->
+    executed-problem mapping) and its epilogue pool."""
+    l = nd.layer
+    _, _, _, padding = layer_kernel_problem(l, n=x.shape[0])
+    w, b = _conv_operands(p[nd.name])
+    return ops.conv_pool_chain(
+        x, [w], [b], [(l.stride, padding, l.groups, nd.pool,
+                       nd.pool_window)],
+        activation=activation, impl=impl, dataflow=dataflow)
+
+
+def cnn_apply_from_graph(p: dict, graph, x: torch.Tensor, *,
+                         activation: str | None = "relu",
+                         impl: str = "trim", dataflow: str | None = None,
+                         fused: bool = False,
+                         fuse_plan=None) -> torch.Tensor:
+    """Forward pass of a DAG topology built by
+    :func:`cnn_params_from_graph` (``repro/models/layers.py:546``).
+
+    Nodes run in topological order: conv nodes on the per-layer path
+    (one kernel launch each, bias + activation fused, then the node's
+    pool), ``pool`` nodes as the chain's max pool, ``add`` as the sum of
+    its inputs in input order (out of place), ``concat`` on the channel
+    axis, ``upsample`` nearest-neighbour.  Returns the terminal node's
+    activation, or class logits (:func:`cnn_head_apply`) when the tree
+    has a head.
+
+    ``fused=True`` cuts the graph into its fusable linear segments
+    (``core.fuse_plan.graph_segments``) and runs each segment of two or
+    more convs through :func:`cnn_apply_from_layers` with ``fused=True``
+    (its residency groups in one launch each), so fused and per-node
+    outputs are bitwise equal.  ``fuse_plan`` (a prebuilt
+    :class:`~repro_torch.core.fuse_plan.GraphFusePlan`, implying
+    ``fused=True``) reuses its segment plans.  The fused path runs the
+    TrIM kernels (``impl="trim"``) on raw conv params."""
+    nodes = graph_nodes(graph)
+    by = {nd.name: nd for nd in nodes}
+    seg_of: dict[str, tuple] = {}
+    if fused or fuse_plan is not None:
+        if impl != "trim":
+            raise ValueError(f"fused execution runs the TrIM kernels; "
+                             f"impl={impl!r} needs fused=False")
+        segs = list(fuse_plan.segments) if fuse_plan is not None else \
+            [(names, None) for names, _ in graph_segments(nodes)]
+        seg_of = {names[0]: (names, plan) for names, plan in segs}
+    kw = dict(activation=activation, impl=impl, dataflow=dataflow)
+    outs: dict[str, torch.Tensor] = {}
+    executed: set[str] = set()
+    last = None
+    for nd in nodes:
+        if nd.name in executed:
+            continue
+        if nd.name in seg_of and len(seg_of[nd.name][0]) > 1:
+            names, plan = seg_of[nd.name]
+            seg = [by[nm] for nm in names]
+            convs = [sn for sn in seg if sn.op == "conv"]
+            xin = outs[seg[0].inputs[0]] if seg[0].inputs else x
+            y = cnn_apply_from_layers(
+                {f"conv{i}": p[sn.name] for i, sn in enumerate(convs)},
+                [sn.layer for sn in convs], xin, fused=True,
+                fuse_plan=plan, **kw)
+            tail = seg[-1]
+            if tail.pool > 1 or tail.pool_window > 1:
+                y = ref.maxpool2d(y, tail.pool, tail.pool_window)
+            executed.update(names)
+            outs[tail.name] = y
+            last = tail.name
+            continue
+        if nd.op == "conv":
+            xin = outs[nd.inputs[0]] if nd.inputs else x
+            y = _graph_conv_node(p, nd, xin, **kw)
+        elif nd.op == "pool":
+            y = ref.maxpool2d(outs[nd.inputs[0]], nd.pool, nd.pool_window)
+        elif nd.op == "add":
+            y = outs[nd.inputs[0]]
+            for s in nd.inputs[1:]:
+                y = y + outs[s]
+        elif nd.op == "concat":
+            y = torch.cat([outs[s] for s in nd.inputs], dim=-1)
+        else:                                     # upsample
+            y = _upsample_nearest(outs[nd.inputs[0]], nd.scale)
+        outs[nd.name] = y
+        executed.add(nd.name)
+        last = nd.name
+    y = outs[last]
+    if "head" not in p:
+        return y
+    return cnn_head_apply(p["head"], y)
 
 
 class _Leaf(nn.Module):
@@ -352,31 +510,48 @@ class _PackedLeaf(nn.Module):
             cout=self.cout, **self.hints)}
 
 
+def _is_graph(topology) -> bool:
+    """A DAG topology: a name from ``netplan.GRAPHS`` or a
+    ``list[GraphNode]``."""
+    if isinstance(topology, str):
+        return topology in GRAPHS
+    nodes = list(topology)
+    return bool(nodes) and isinstance(nodes[0], GraphNode)
+
+
 class TrimCNN(nn.Module):
     """A conv topology with its parameters, served or trained on the TrIM
     kernels.
 
-    ``params`` is the tree of :func:`cnn_params_from_layers` as tensors
-    (``{"conv{i}": {"w", "b"}, "head": {"w", "b"}}``, e.g. from
-    :meth:`random` or ``repro_torch.convert.params_from_jax``); the
-    module lives on their device.  ``dataflow`` picks the conv kernel
-    (``None`` is ``"carry"``); ``fused=True`` runs fused residency
-    groups (:func:`cnn_apply_from_layers`).  The parameters are frozen
-    for serving;
+    ``topology`` is a linear chain (a name from ``netplan.NETWORKS`` or a
+    ``list[ConvLayer]``), run by :func:`cnn_apply_from_layers`, or a DAG
+    (a name from ``netplan.GRAPHS``, "resnet18" | "unet", or a
+    ``list[GraphNode]``), run by :func:`cnn_apply_from_graph`.
+    ``params`` is the tree of :func:`cnn_params_from_layers` (``{"conv{i}":
+    {"w", "b"}, "head": {"w", "b"}}``) or :func:`cnn_params_from_graph`
+    (keyed by node name) as tensors, e.g. from :meth:`random` or
+    ``repro_torch.convert.params_from_jax``; the module lives on their
+    device.  ``dataflow`` picks the conv kernel (``None`` is
+    ``"carry"``); ``fused=True`` runs fused residency groups (a chain's,
+    or each graph segment's).  The parameters are frozen for serving;
     ``trainable=True`` registers them with ``requires_grad``, so a loss on
     :meth:`forward` back-propagates through the TrIM backward kernels.
-    Packed entries (``{"packed"}``: :func:`cnn_pack_params`, or
-    :func:`calibrate_conv2d`, whose tensors are held as buffers and serve
-    the int8 route) run per layer and are inference only: with them
-    ``trainable=True`` and ``fused=True`` raise.
+    Packed entries (``{"packed"}``: :func:`cnn_pack_params`,
+    :func:`cnn_pack_params_from_graph`, or :func:`calibrate_conv2d`,
+    whose tensors are held as buffers and serve the int8 route) run per
+    layer and are inference only: with them ``trainable=True`` and
+    ``fused=True`` raise.
     """
 
-    def __init__(self, layers_list, params: dict, *,
+    def __init__(self, topology, params: dict, *,
                  activation: str | None = "relu", impl: str = "trim",
                  dataflow: str | None = None, trainable: bool = False,
                  fused: bool = False):
         super().__init__()
-        self.layers_list = list(layers_list)
+        # graph: the DAG's nodes, or None for a chain (``layers_list``)
+        self.graph = graph_nodes(topology) if _is_graph(topology) else None
+        self.layers_list = None if self.graph is not None else \
+            network_layers(topology)
         self.activation, self.impl, self.dataflow = activation, impl, dataflow
         self.fused = fused
         packed = sorted(k for k, v in params.items() if "packed" in v)
@@ -396,15 +571,18 @@ class TrimCNN(nn.Module):
         self.params = nn.ModuleDict({k: leaf(v) for k, v in params.items()})
 
     @classmethod
-    def random(cls, layers_list, *, n_classes: int | None = None,
+    def random(cls, topology, *, n_classes: int | None = None,
                seed: int = 0, device=None, **kw) -> "TrimCNN":
         """Seeded random weights (``torch.Generator().manual_seed(seed)``)
         on ``device`` (default ``"cuda"``)."""
         dev = resolve_device(device)
-        tree = init_params(cnn_params_from_layers(layers_list,
-                                                  n_classes=n_classes),
-                           torch.Generator().manual_seed(seed), device=dev)
-        return cls(layers_list, tree, **kw)
+        decl = (cnn_params_from_graph(topology, n_classes=n_classes)
+                if _is_graph(topology) else
+                cnn_params_from_layers(network_layers(topology),
+                                       n_classes=n_classes))
+        tree = init_params(decl, torch.Generator().manual_seed(seed),
+                           device=dev)
+        return cls(topology, tree, **kw)
 
     def tree(self) -> dict:
         """The parameters as the functional tree."""
@@ -413,10 +591,11 @@ class TrimCNN(nn.Module):
     def apply_tree(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         """The forward on a given parameter tree (the functional form a
         trainer steps: ``launch.train_cnn.train_step``'s ``apply_fn``)."""
-        return cnn_apply_from_layers(params, self.layers_list, x,
-                                     activation=self.activation,
-                                     impl=self.impl, dataflow=self.dataflow,
-                                     fused=self.fused)
+        kw = dict(activation=self.activation, impl=self.impl,
+                  dataflow=self.dataflow, fused=self.fused)
+        if self.graph is not None:
+            return cnn_apply_from_graph(params, self.graph, x, **kw)
+        return cnn_apply_from_layers(params, self.layers_list, x, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply_tree(self.tree(), x)

@@ -38,7 +38,14 @@ against halo bitwise, and a calibrated layer on the card against the CPU
 bit for bit.  Rectangular (KH x KW) kernels, the sub-kernels of the
 kernel tiling, are held like the square ones (carry, halo, wgrad), and
 K > 8 through ``ops.conv2d`` (forward and gradients) against the ``ref``
-oracle.
+oracle.  The geometries of the DAG topologies are held the same way at
+full width: ResNet-18's 7x7/2 'same' stem at Cin 3 (pads 2 / 3), its
+1x1/2 'valid' down-projection (no carried rows) and U-Net's 1x1 head,
+with their weight and input gradients; ResNet-18 layer1's no-pool pair
+and U-Net's three-stage group ending in the 1x1 head, as the plans tile
+them, against their per-layer chains bitwise; and both tiny graphs
+through ``cnn_apply_from_graph`` (halo and fused equal to carry
+bitwise, carry against ``impl="ref"``).
 """
 
 import pytest
@@ -964,3 +971,135 @@ def test_tuned_knobs_give_the_default_output_bitwise(cuda, case):
                                 tile_cout=qrec["tile_cout"],
                                 dataflow=dataflow, **qkw)
         assert torch.equal(got, q_default), dataflow
+
+
+# The geometries of the DAG topologies at full width: ResNet-18's stem
+# (7x7/2 'same' at Cin 3, XLA pads 2 / 3, virtual here) at batch 8 and 1,
+# its 1x1/2 'valid' down-projection 64->128 at 56 x 56 (KH < stride: no
+# carried rows, every other input row skipped) and U-Net's 1x1 'valid'
+# head.  (n, h, cin, cout, k, stride, padding)
+GRAPH_CASES = [
+    (8, 224, 3, 64, 7, 2, "same"),
+    (1, 224, 3, 64, 7, 2, "same"),
+    (8, 56, 64, 128, 1, 2, "valid"),
+    (8, 64, 16, 4, 1, 1, "valid"),
+]
+
+
+@pytest.mark.parametrize("case", GRAPH_CASES,
+                         ids=["stem_n8", "stem_n1", "down_1x1s2", "head_1x1"])
+def test_graph_geometries_match_plain(cuda, case):
+    n, h, cin, cout, k, s, padding = case
+    gen = torch.Generator(device="cuda").manual_seed(h + k)
+    x = torch.randn((n, h, h, cin), generator=gen, device=cuda)
+    wt = torch.randn((k, k, cin, cout), generator=gen, device=cuda) \
+        / (k * cin ** 0.5)
+    b = torch.randn((cout,), generator=gen, device=cuda)
+    pads = conv_pads(h, h, k, s, padding)
+    kw = dict(stride=s, pad=pads, activation="relu")
+    plain = tc.trim_conv2d_plain(x, wt, b, **kw)
+    out = {df: tc.trim_conv2d(x, wt, b, dataflow=df, **kw)
+           for df in ("carry", "halo")}
+    torch.cuda.synchronize()
+    tol = TOL * max(1.0, plain.abs().max().item())
+    for df, y in out.items():
+        assert y.shape == plain.shape
+        assert (y - plain).abs().max().item() <= tol, df
+    assert torch.equal(out["carry"], out["halo"])
+    gy = torch.randn(plain.shape, generator=gen, device=cuda)
+    wkw = dict(kernel_size=k, stride=s, pad=pads)
+    dw_plain = tc.trim_conv2d_weight_grad_plain(x, gy, **wkw)
+    one = tc.trim_conv2d_weight_grad(x, gy, **wkw)
+    two = tc.trim_conv2d_weight_grad(x, gy, **wkw)
+    assert (one - dw_plain).abs().max().item() <= \
+        TOL * dw_plain.abs().max().item()
+    assert torch.equal(one, two)
+    want = ref.conv2d_input_grad(x, wt, gy, stride=s, padding=padding)
+    for df in ("carry", "halo"):
+        got = tc.trim_conv2d_input_grad(gy, wt, x_shape=tuple(x.shape),
+                                        stride=s, pad=pads, dataflow=df)
+        assert (got - want).abs().max().item() <= \
+            TOL * max(1.0, want.abs().max().item()), df
+
+
+@pytest.mark.parametrize("net", ["resnet18", "unet"])
+def test_graph_plan_groups_equal_their_chains(cuda, net):
+    """The groups the plans fuse on the card: ResNet-18 layer1's no-pool
+    pairs (3x3, 64 channels, 56 x 56) and U-Net's, the last of which ends
+    in the 1x1 head, at batch 8, against the plain version and bitwise
+    against the per-layer chain, forward and gradients."""
+    from repro_torch.core.fuse_plan import GraphFusePlan
+    from repro_torch.kernels import trim_conv2d_fused as tfu
+    groups = [g for g in GraphFusePlan.build(net, n=8).groups if g.fused]
+    assert groups and (net != "unet" or groups[-1].last.kernel == 1)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for g in groups:
+        s0 = g.stages[0]
+        x = torch.randn((g.n, s0.h_in, s0.w_in, s0.cin), generator=gen,
+                        device=cuda)
+        ws = [torch.randn(st.weight_shape, generator=gen, device=cuda)
+              / (st.kernel * st.cin ** 0.5) for st in g.stages]
+        bs = [torch.randn((st.cout,), generator=gen, device=cuda)
+              for st in g.stages]
+        before = tc.LAUNCHES["fused"]
+        one = tfu.trim_conv2d_fused(x, ws, bs, group=g)
+        assert tc.LAUNCHES["fused"] == before + 1
+        plain = tfu.trim_conv2d_fused_plain(x, ws, bs, group=g)
+        assert (one - plain).abs().max().item() <= \
+            TOL * max(1.0, plain.abs().max().item()), g.label
+        assert torch.equal(one, tfu.reference_chain(x, ws, bs, group=g)), \
+            g.label
+        gy = torch.randn(g.out_shape, generator=gen, device=cuda)
+
+        def grads(fn):
+            leaves = [t.clone().requires_grad_() for t in (x, *ws, *bs)]
+            d = g.depth
+            y = fn(leaves[0], leaves[1:1 + d], leaves[1 + d:], group=g)
+            return torch.autograd.grad(y, leaves, gy)
+        for a, c in zip(grads(tfu.fused_group_apply),
+                        grads(tfu.reference_chain)):
+            assert torch.equal(a, c), g.label
+
+
+@pytest.mark.parametrize("net", ["resnet18", "unet"])
+def test_tiny_graphs_on_the_card(cuda, net):
+    """``tests/test_torch_graph.py``'s tiny graphs through
+    ``cnn_apply_from_graph`` on the kernels: halo and fused (the plan's,
+    and for ResNet-18 layer1's pairs forced into fused groups) equal
+    carry bitwise, carry against ``impl="ref"``; the same on the CPU's
+    plain versions within TOL."""
+    import dataclasses
+    from repro_torch.core.fuse_plan import GraphFusePlan, build_group
+    from repro_torch.core.model import resnet18_graph, unet_graph
+    from repro_torch.core.netplan import scale_graph
+    from repro_torch.models import layers
+    nodes = (scale_graph(resnet18_graph(image=32, base=8), 2)
+             if net == "resnet18" else unet_graph(image=16, base=4, depth=2))
+    model = layers.TrimCNN.random(nodes, n_classes=5, device=cuda)
+    src = nodes[0].layer
+    x = torch.randn((2, src.ifmap, src.ifmap, src.in_channels),
+                    generator=torch.Generator(device="cuda").manual_seed(2),
+                    device=cuda)
+    plan = GraphFusePlan.build(nodes, n=2)
+    segs = []
+    for names, p in plan.segments:
+        if names[0].startswith("l1b"):
+            g = build_group([nd.layer for nd in nodes if nd.name in names],
+                            0, n=2, strip_rows=2, band_cols=3)
+            p = dataclasses.replace(p, groups=(g,))
+        segs.append((names, p))
+    forced = dataclasses.replace(plan, segments=tuple(segs))
+    tree = model.tree()
+    with torch.no_grad():
+        carry = layers.cnn_apply_from_graph(tree, nodes, x)
+        for kw in (dict(dataflow="halo"), dict(fused=True),
+                   dict(fuse_plan=forced)):
+            assert torch.equal(layers.cnn_apply_from_graph(
+                tree, nodes, x, **kw), carry), kw
+        want = layers.cnn_apply_from_graph(tree, nodes, x, impl="ref")
+        cpu = layers.cnn_apply_from_graph(
+            {k: {m: t.cpu() for m, t in v.items()} for k, v in tree.items()},
+            nodes, x.cpu())
+    tol = TOL * max(1.0, want.abs().max().item())
+    assert (carry - want).abs().max().item() <= tol
+    assert (carry.cpu() - cpu).abs().max().item() <= tol
