@@ -204,9 +204,10 @@ Phases, each raising on failure (each prints its seconds):
    prefill shape (B 2, L 2048, D 8192, K 4), contiguous and as the mixer's
    strided half of the in-projection, and at edge cases (runs that do not
    divide L, L < K-1, D = 5 and 24, K = 2 and 3, B = 3, L = 1) and K = 9
-   (at the prefill's shape) and 16 (the runtime-K instance); at the
-   prefill's shape its time beside the plain version's, ``F.conv1d``'s on
-   input laid out (B, D, L) (TF32 off) and the plan's bound, and the
+   (at the prefill's shape) and 16 (the runtime-K instance), and at
+   recurrentgemma-2b's prefill shape (B 2, L 4096, D 2560, K 4); at the
+   prefills' shapes its time beside the plain version's, ``F.conv1d``'s
+   on input laid out (B, D, L) (TF32 off) and the plan's bound, and the
    bytes the function must move beside those the kernel's schedule moves
    (the runs' re-read halos priced, ``Conv1dPlan.hbm_bytes``);
 22. mamba prefill — full-width falcon-mamba-7b (64 layers, 7.27 B
@@ -223,8 +224,30 @@ Phases, each raising on failure (each prints its seconds):
 23. mamba serve — ``serve_batch`` at full width, batch 4, prompt 16, gen
    32, through the conv windows and SSM states: tokens/s, ms per decode
    step and the step's device-busy share (``torch.profiler``);
-24. the kernel JSON line (eight kernels), then ``{"ok": true, "device":
-   ...}`` last.
+24. recurrentgemma prefill — full-width recurrentgemma-2b (26 layers, 18
+   rec + 8 local attention, 2.89 B parameters drawn on the card after
+   falcon-mamba-7b's are freed) through ``steps.make_prefill_step`` on
+   2 x 4096 seeded tokens (twice the 2048 window, so the window binds):
+   exactly 18 ``trim_conv1d`` and 8 ``flash_attention`` launches a
+   forward, finite logits, ms per forward and peak memory; the
+   whole-depth flash-vs-ref difference (printed); every att layer's
+   attention, flash against ref on the flash forward's own activations
+   (``LM_LAYER_TOLERANCE``), and the free-running streams' distance
+   after every layer (printed); the shares of one rec layer's RG-LRU scan
+   (plain PyTorch) and conv (x 18) and one att layer's kernel launch and
+   sublayer (x 8) in the forward; the logits and next tokens of the
+   depth-3 cut (one (rec, rec, att) period), flash against ref
+   (``LM_TOLERANCE``);
+25. recurrentgemma ring wrap — at the depth-3 cut, batch 1, a prompt of
+   window + 64 = 2112 tokens: prefill against token-by-token decode
+   through the 2048-slot ring caches, the logits at every position
+   (checked, ``RGEMMA_TOLERANCE``), before and after the wrap;
+26. recurrentgemma serve — ``serve_batch`` at full width, batch 4, prompt
+   16, gen 32, through the ring caches, conv windows and LRU states:
+   tokens/s, ms per decode step and the step's device-busy share;
+27. the kernel JSON line (eight kernels; the launches of trim_conv1d and
+   flash_attention include the recurrentgemma prefill's), then
+   ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without a result when no GPU is visible.
 """
@@ -310,6 +333,18 @@ MAMBA_BATCH, MAMBA_SEQ = 2, 2048
 MAMBA_CROSS_PROMPT = 128    # prefill-vs-decode prompt at the depth cuts
 MAMBA_DRIFT_PROMPT = 64     # ... at full depth, and its per-layer drift
 PREFILL_BATCH, PREFILL_SEQ = 2, 4096
+RGEMMA_BATCH, RGEMMA_SEQ = 2, 4096   # twice the window: the window binds
+RGEMMA_WRAP_EXTRA = 64      # decode-vs-prefill prompt: window + this
+# recurrentgemma-2b: prefill logits against token-by-token decode logits
+# across the ring's wrap, of max|logits|, at the depth-3 cut.  The two
+# paths share weights and inputs and differ in GEMM shapes, the scan's
+# association (one odd/even tree over the prompt against one step at a
+# time) and attention (the flash kernel's 3xTF32 tiles against the plain
+# decode softmax); their convs are bitwise equal.  The soft cap bounds
+# the attention scores at 30, so the softmax is far less peaked than
+# qwen2.5-3b's (|s| ~ 2000); a wrong ring slot, mask or valid length
+# reads O(1) once the ring has wrapped.
+RGEMMA_TOLERANCE = 1e-4
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32
 CROSS_PROMPT = 256          # decode-vs-prefill prompt at the depth-1 cut
 TRAIN_BATCH = 8
@@ -2722,13 +2757,11 @@ def decode_device_share(torch, cfg, params, prompts, n=8):
     return device / n, wall / n, len(kernels) / n
 
 
-def lm_serve(torch, lm):
-    """``serve_batch`` at full width and the decode-vs-prefill checks."""
-    from repro_torch.distributed import steps
+def family_serve(torch, label, cfg, params, seed):
+    """``serve_batch`` at full width through a family's decode state:
+    tokens/s, ms per decode step and the step's device-busy share."""
     from repro_torch.launch.serve import serve_batch
-
-    cfg, params = lm["cfg"], lm["params"]
-    rng = np.random.default_rng(4)
+    rng = np.random.default_rng(seed)
     prompts = torch.from_numpy(rng.integers(
         2, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).cuda()
     serve_batch(cfg, params, prompts, 2)              # warm-up
@@ -2741,20 +2774,31 @@ def lm_serve(torch, lm):
     if tuple(out.shape) != (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN) or \
             not torch.equal(out[:, :SERVE_PROMPT], prompts) or \
             int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
-        raise AssertionError(f"LM serve: bad output {tuple(out.shape)}")
+        raise AssertionError(f"{label} serve: bad output {tuple(out.shape)}")
     tok_s = SERVE_BATCH * SERVE_GEN / dt
-    print(f"LM serve: serve_batch batch {SERVE_BATCH}, prompt "
+    print(f"{label} serve: serve_batch batch {SERVE_BATCH}, prompt "
           f"{SERVE_PROMPT}, gen {SERVE_GEN}: {dt * 1e3:.1f} ms for "
           f"{steps_run} decode steps ({dt * 1e3 / steps_run:.2f} ms a step), "
           f"{tok_s:.1f} tok/s batch-aggregate; sample "
           f"{out[0, SERVE_PROMPT:SERVE_PROMPT + 8].tolist()}")
-
     busy = decode_device_share(torch, cfg, params, prompts)
-    print(f"LM serve: decode step at batch {SERVE_BATCH}, torch.profiler "
-          f"over 8 steps: device busy {busy[0]:.2f} ms of {busy[1]:.2f} ms "
-          f"a step ({busy[0] / busy[1]:.1%}), {busy[2]:.0f} kernels a step"
-          if busy[0] > 0 else "LM serve: decode device share not measured "
-          "(the profiler recorded no kernel)")
+    print(f"{label} serve: decode step at batch {SERVE_BATCH}, "
+          f"torch.profiler over 8 steps: device busy {busy[0]:.2f} ms of "
+          f"{busy[1]:.2f} ms a step ({busy[0] / busy[1]:.1%}), "
+          f"{busy[2]:.0f} kernels a step"
+          if busy[0] > 0 else f"{label} serve: decode device share not "
+          "measured (the profiler recorded no kernel)")
+    return dict(tok_s=tok_s, step_ms=dt * 1e3 / steps_run, busy=busy,
+                prompts=prompts)
+
+
+def lm_serve(torch, lm):
+    """``serve_batch`` at full width and the decode-vs-prefill checks."""
+    from repro_torch.distributed import steps
+
+    cfg, params = lm["cfg"], lm["params"]
+    served = family_serve(torch, "LM", cfg, params, 4)
+    prompts = served["prompts"]
 
     # full depth, serve prompt, last position: printed
     flash, _ = steps.make_prefill_step(cfg)(params, {"tokens": prompts})
@@ -2776,14 +2820,14 @@ def lm_serve(torch, lm):
           f"prompt, every position within {err:.2e} of max|logits| (tol "
           f"{LM_TOLERANCE:g}); full depth, serve prompt, last position "
           f"{full:.2e} (printed)")
-    return dict(tok_s=tok_s, step_ms=dt * 1e3 / steps_run, cross_err=err,
-                cross_full=full, busy=busy)
+    return dict(served, cross_err=err, cross_full=full)
 
 
 def conv1d_cases():
     """(name, b, length, d, k, tile_l, strided): the falcon-mamba-7b
     prefill's shape (contiguous, and the mixer's strided half of the
-    in-projection), then the edge cases."""
+    in-projection), then the edge cases, then recurrentgemma-2b's prefill
+    shape (the rec mixer's contiguous (B, L, lru_width))."""
     return [("a_prefill", 2, 2048, 8192, 4, None, False),
             ("b_mixer_view", 2, 2048, 8192, 4, None, True),
             ("c_ragged_runs", 2, 1000, 256, 4, 64, False),
@@ -2793,7 +2837,8 @@ def conv1d_cases():
             ("g_k3_view", 2, 33, 16, 3, 5, True),
             ("h_decode_len", 4, 1, 8192, 4, None, True),
             ("i_k9", 2, 2048, 8192, 9, None, False),
-            ("j_k16_view", 2, 300, 96, 16, 7, True)]
+            ("j_k16_view", 2, 300, 96, 16, 7, True),
+            ("k_rgemma", 2, 4096, 2560, 4, None, False)]
 
 
 def check_conv1d(torch):
@@ -2830,7 +2875,7 @@ def check_conv1d(torch):
                    plain=None, library=None)
         line = (f"  {name:14s} {str((b, length, d, k)):>22s} "
                 f"{plan.tile_l:4d} {str(plan.grid):>14s} {err:8.1e}")
-        if length * d >= 2048 * 8192:       # the prefill's shape: timed
+        if length * d >= 4096 * 2560:       # the prefills' shapes: timed
             xt = x.transpose(1, 2).contiguous()     # (B, D, L) for cuDNN
             wt = w.t()[:, None, :].contiguous()     # (D, 1, K)
             lib = F.conv1d(xt, wt, padding=k - 1, groups=d)[..., :length]
@@ -2892,7 +2937,7 @@ def mamba_streams(torch, cfg, params, tokens):
 
 def mamba_prefill(torch):
     """Full-width falcon-mamba-7b prefill (the ssm main path) and its
-    checks.  Returns what mamba_serve and the kernel line need."""
+    checks.  Returns what mamba's serve phase and the kernel line need."""
     from repro_torch.configs import registry
     from repro_torch.distributed import steps
     from repro_torch.kernels import ops
@@ -3008,37 +3053,238 @@ def mamba_prefill(torch):
                 cut_errs=cut_errs)
 
 
-def mamba_serve(torch, mb):
-    """``serve_batch`` at full width through the SSM state."""
-    from repro_torch.launch.serve import serve_batch
-    cfg, params = mb["cfg"], mb["params"]
-    rng = np.random.default_rng(7)
-    prompts = torch.from_numpy(rng.integers(
-        2, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).cuda()
-    serve_batch(cfg, params, prompts, 2)              # warm-up
-    torch.cuda.synchronize()
+def hybrid_cut(params, n):
+    """The first ``n`` layers of a hybrid parameter tree (per-layer
+    dicts; views)."""
+    return {**params, "blocks": {f"layer_{i}": params["blocks"][f"layer_{i}"]
+                                 for i in range(n)}}
+
+
+def rgemma_layer_check(torch, cfg, params, tokens):
+    """Along the flash forward: each att layer's attention on the kernel
+    and on the ref oracle, on that layer's input in the flash stream
+    (checked, ``LM_LAYER_TOLERANCE``); the free-running ref stream's
+    distance after every layer (printed); and one rec layer's RG-LRU scan
+    and temporal conv and one att layer's kernel launch timed on their
+    real inputs.  Returns (worst attention error, drift, times)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import rglru as R
+    cref = cfg.replace(attn_impl="ref")
+    pos = torch.arange(tokens.shape[1], device="cuda")[None]
+    worst, drift, times = 0.0, [], {}
+    with torch.no_grad():
+        xf = L.embed_apply(params["tok"], tokens, cfg)
+        xr = xf.clone()
+        for i in range(cfg.n_layers):
+            pi = params["blocks"][f"layer_{i}"]
+            h = L.norm_apply(pi["ln_mix"], xf, cfg)
+            if "att" in pi:
+                kw = dict(positions=pos, window=cfg.window)
+                af = L.attention_apply(pi["att"], h, cfg, **kw)
+                ar = L.attention_apply(pi["att"], h, cref, **kw)
+                err = ((af - ar).abs().max() / ar.abs().max()).item()
+                if not np.isfinite(err) or err > LM_LAYER_TOLERANCE:
+                    raise AssertionError(
+                        f"recurrentgemma layer {i}: attention on the kernel "
+                        f"vs ref = {err:.3e} of max|ref| > "
+                        f"{LM_LAYER_TOLERANCE}")
+                worst = max(worst, err)
+                if "attention" not in times:
+                    p = pi["att"]
+                    q = L.rope(torch.einsum("bld,dhk->blhk", h, p["wq"]),
+                               pos, cfg.rope_theta)
+                    k = L.rope(torch.einsum("bld,dhk->blhk", h, p["wk"]),
+                               pos, cfg.rope_theta)
+                    v = torch.einsum("bld,dhk->blhk", h, p["wv"])
+                    times["attention"] = time_ms(
+                        torch, lambda: fa.flash_attention(
+                            q, k, v, causal=True,
+                            soft_cap=cfg.logits_soft_cap,
+                            window=cfg.window))
+                    times["attention_layer"] = time_ms(
+                        torch, lambda: L.attention_apply(p, h, cfg, **kw))
+                    del q, k, v
+                del af, ar
+            elif "scan" not in times:
+                p = pi["rec"]
+                xb = h @ p["w_x"]
+                times["conv"] = time_ms(
+                    torch, lambda: ops.depthwise_conv1d(xb, p["conv_w"]))
+                xc = ops.depthwise_conv1d(xb, p["conv_w"]) + p["conv_b"]
+                r = torch.sigmoid(xc @ p["w_a"] + p["b_a"])
+                ig = torch.sigmoid(xc @ p["w_i"] + p["b_i"])
+                times["scan"] = time_ms(
+                    torch, lambda: R._rg_lru(xc, r, ig, p["lam"]), reps=3)
+                times["rec_layer"] = time_ms(
+                    torch, lambda: R.rec_mixer_apply(p, h, cfg), reps=3)
+                del xb, xc, r, ig
+            del h
+            xf = R.block_apply(pi, xf, cfg, positions=pos)
+            xr = R.block_apply(pi, xr, cref, positions=pos)
+            drift.append(((xf - xr).abs().max() / xr.abs().max()).item())
+    torch.cuda.empty_cache()
+    return worst, drift, times
+
+
+def rgemma_prefill(torch):
+    """Full-width recurrentgemma-2b prefill (the hybrid main path) and its
+    checks.  Returns what the later phases and the kernel line need."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import trim_conv1d as tc1
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+
+    cfg = registry.get("recurrentgemma-2b").CONFIG
+    assert cfg.attn_impl == "flash"
+    n_params = registry.count_params(cfg)
+    if n_params != 2_894_574_080:
+        raise AssertionError(f"recurrentgemma-2b: {n_params:,} parameters")
+    n_att = sum(cfg.pattern_at(i) == "att" for i in range(cfg.n_layers))
+    n_rec = cfg.n_layers - n_att
     t0 = time.perf_counter()
-    out = serve_batch(cfg, params, prompts, SERVE_GEN)
+    params = init_params(api.params(cfg), torch.Generator(device="cuda")
+                         .manual_seed(0), device="cuda")
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    steps_run = SERVE_PROMPT + SERVE_GEN - 1
-    if tuple(out.shape) != (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN) or \
-            not torch.equal(out[:, :SERVE_PROMPT], prompts) or \
-            int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
-        raise AssertionError(f"mamba serve: bad output {tuple(out.shape)}")
-    tok_s = SERVE_BATCH * SERVE_GEN / dt
-    print(f"mamba serve: serve_batch batch {SERVE_BATCH}, prompt "
-          f"{SERVE_PROMPT}, gen {SERVE_GEN}: {dt * 1e3:.1f} ms for "
-          f"{steps_run} decode steps ({dt * 1e3 / steps_run:.2f} ms a step), "
-          f"{tok_s:.1f} tok/s batch-aggregate; sample "
-          f"{out[0, SERVE_PROMPT:SERVE_PROMPT + 8].tolist()}")
-    busy = decode_device_share(torch, cfg, params, prompts)
-    print(f"mamba serve: decode step at batch {SERVE_BATCH}, torch.profiler "
-          f"over 8 steps: device busy {busy[0]:.2f} ms of {busy[1]:.2f} ms "
-          f"a step ({busy[0] / busy[1]:.1%}), {busy[2]:.0f} kernels a step"
-          if busy[0] > 0 else "mamba serve: decode device share not "
-          "measured (the profiler recorded no kernel)")
-    return dict(tok_s=tok_s, step_ms=dt * 1e3 / steps_run, busy=busy)
+    print(f"recurrentgemma: {cfg.name} full width ({cfg.n_layers} layers, "
+          f"{n_rec} rec + {n_att} att, d_model {cfg.d_model}, window "
+          f"{cfg.window}, soft cap {cfg.logits_soft_cap}), {n_params:,} "
+          f"parameters drawn on the card in {time.perf_counter() - t0:.2f} "
+          f"s; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(8)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (RGEMMA_BATCH, RGEMMA_SEQ))).cuda()
+    batch = {"tokens": tokens}
+    prefill = steps.make_prefill_step(cfg)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tc1.reset_launch_counts()
+    fa.reset_launch_counts()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        logits, nxt = prefill(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {"trim_conv1d": tc1.LAUNCHES["trim_conv1d"],
+                "flash_attention": fa.LAUNCHES["flash_attention"]}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches != {"trim_conv1d": 2 * n_rec, "flash_attention": 2 * n_att}:
+        raise AssertionError(f"recurrentgemma prefill: launches {launches} "
+                             f"in 2 forwards, want {n_rec} trim_conv1d and "
+                             f"{n_att} flash_attention each")
+    if tuple(logits.shape) != (RGEMMA_BATCH, RGEMMA_SEQ, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"recurrentgemma prefill: logits "
+                             f"{tuple(logits.shape)} not finite or of the "
+                             "wrong shape")
+    fwd = times[1]
+    std = logits.std().item()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    ref_logits, ref_nxt = steps.make_prefill_step(
+        cfg.replace(attn_impl="ref"))(params, batch)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    if fa.LAUNCHES["flash_attention"] != 0:
+        raise AssertionError("recurrentgemma prefill: the ref forward "
+                             "launched the flash kernel")
+    full_drift = ((logits - ref_logits).abs().max()
+                  / ref_logits.abs().max()).item()
+    del logits, ref_logits
+    torch.cuda.empty_cache()
+    print(f"recurrentgemma prefill: {RGEMMA_BATCH} x {RGEMMA_SEQ} tokens, "
+          f"{fwd:.1f} ms per forward (first {times[0]:.1f} ms), {n_rec} "
+          f"trim_conv1d and {n_att} flash_attention launches each; ref "
+          f"{ref_ms:.1f} ms; peak device memory {peak:.2f} GiB (flash "
+          f"forwards); logits std {std:.4f}; whole-depth logits flash vs "
+          f"ref max|diff| / max|ref| {full_drift:.2e}, next tokens "
+          f"{nxt.tolist()} vs {ref_nxt.tolist()} (printed)")
+
+    worst, drift, t = rgemma_layer_check(torch, cfg, params, tokens)
+    at = [i for i in (1, 2, 3, 6, 12, 18, 26) if i <= len(drift)]
+    shares = {"scan": n_rec * t["scan"] / fwd, "conv": n_rec * t["conv"] / fwd,
+              "rec_layer": n_rec * t["rec_layer"] / fwd,
+              "attention": n_att * t["attention"] / fwd,
+              "attention_layer": n_att * t["attention_layer"] / fwd}
+    print(f"recurrentgemma layer check: every att layer's attention, kernel "
+          f"vs ref on the flash forward's activations, within {worst:.2e} "
+          f"of max|ref| (tol {LM_LAYER_TOLERANCE:g}); free-running flash vs "
+          f"ref residual stream, max|diff| / max|ref| after layers "
+          f"{', '.join(map(str, at))}: "
+          + ", ".join(f"{drift[i - 1]:.1e}" for i in at))
+    print(f"recurrentgemma prefill, where the time goes (one layer's part on "
+          f"its real input, x {n_rec} rec / x {n_att} att, of the "
+          f"{fwd:.1f} ms forward): RG-LRU scan (plain) {t['scan']:.3f} ms "
+          f"({shares['scan']:.1%}); temporal conv (trim_conv1d) "
+          f"{t['conv']:.4f} ms ({shares['conv']:.2%}); the whole rec mixer "
+          f"{t['rec_layer']:.3f} ms ({shares['rec_layer']:.1%}); attention "
+          f"kernel {t['attention']:.3f} ms ({shares['attention']:.1%}); the "
+          f"whole attention sublayer {t['attention_layer']:.3f} ms "
+          f"({shares['attention_layer']:.1%})")
+
+    c3, p3 = cfg.replace(n_layers=3), hybrid_cut(params, 3)
+    l3, n3 = steps.make_prefill_step(c3)(p3, batch)
+    r3, m3 = steps.make_prefill_step(c3.replace(attn_impl="ref"))(p3, batch)
+    scale = r3.abs().max().item()
+    err3 = (l3 - r3).abs().max().item() / scale
+    if not np.isfinite(err3) or err3 > LM_TOLERANCE or not same_tokens(
+            n3, m3, r3[:, -1], LM_TOLERANCE * scale):
+        raise AssertionError(f"recurrentgemma prefill, depth-3 cut: flash vs "
+                             f"ref {err3:.3e} of max|logits| (tol "
+                             f"{LM_TOLERANCE}), tokens {n3.tolist()} vs "
+                             f"{m3.tolist()}")
+    print(f"recurrentgemma prefill, depth-3 cut (rec, rec, att) of the same "
+          f"weights and tokens: flash vs ref logits within {err3:.2e} of "
+          f"max|logits| (tol {LM_TOLERANCE:g}), next tokens {n3.tolist()} == "
+          f"{m3.tolist()}")
+    del l3, r3
+    torch.cuda.empty_cache()
+    return dict(cfg=cfg, params=params, launches=launches, ms=fwd,
+                ref_ms=ref_ms, peak=peak, times=t, shares=shares,
+                layer_err=worst, drift=drift, full_drift=full_drift,
+                err3=err3)
+
+
+def rgemma_wrap(torch, rg):
+    """Prefill against token-by-token decode across the ring's wrap, at
+    the published widths and window: the depth-3 cut, batch 1, a prompt
+    of window + ``RGEMMA_WRAP_EXTRA`` tokens, the logits at every
+    position (checked, ``RGEMMA_TOLERANCE``)."""
+    from repro_torch.distributed import steps
+    cfg = rg["cfg"].replace(n_layers=3)
+    params = hybrid_cut(rg["params"], 3)
+    n = cfg.window + RGEMMA_WRAP_EXTRA
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab, (1, n))).cuda()
+    full, _ = steps.make_prefill_step(cfg)(params, {"tokens": toks})
+    t0 = time.perf_counter()
+    dec = decode_logits(torch, cfg, params, toks)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n
+    scale = full.abs().max().item()
+    per_pos = ((dec - full).abs().amax(dim=(0, 2)) / scale).cpu().numpy()
+    err = float(per_pos.max())
+    if not np.isfinite(err) or err > RGEMMA_TOLERANCE:
+        raise AssertionError(f"recurrentgemma decode vs prefill across the "
+                             f"ring wrap: {err:.3e} of max|logits| at "
+                             f"position {int(per_pos.argmax())} (tol "
+                             f"{RGEMMA_TOLERANCE})")
+    print(f"recurrentgemma decode vs prefill across the ring wrap: depth-3 "
+          f"cut, batch 1, {n}-token prompt ({cfg.window}-slot ring, "
+          f"wrapped at position {cfg.window}), every position within "
+          f"{err:.2e} of max|logits| (tol {RGEMMA_TOLERANCE:g}; before the "
+          f"wrap {per_pos[:cfg.window].max():.2e}, after "
+          f"{per_pos[cfg.window:].max():.2e}); {step_ms:.2f} ms a decode "
+          f"step")
+    del full, dec
+    torch.cuda.empty_cache()
+    return dict(err=err, before=float(per_pos[:cfg.window].max()),
+                after=float(per_pos[cfg.window:].max()), step_ms=step_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -3510,10 +3756,19 @@ def run(torch, args, cache_dir: str) -> int:
     phase.done("conv1d kernel check")
     mb = mamba_prefill(torch)
     phase.done("mamba prefill")
-    mserved = mamba_serve(torch, mb)
+    mserved = family_serve(torch, "mamba", mb["cfg"], mb["params"], 7)
     del mb["params"]
     torch.cuda.empty_cache()
     phase.done("mamba serve")
+    rg = rgemma_prefill(torch)
+    phase.done("recurrentgemma prefill")
+    rwrap = rgemma_wrap(torch, rg)
+    phase.done("recurrentgemma ring wrap")
+    rserved = family_serve(torch, "recurrentgemma", rg["cfg"], rg["params"],
+                           10)
+    del rg["params"]
+    torch.cuda.empty_cache()
+    phase.done("recurrentgemma serve")
 
     vgg = [r for r in rows if r["vgg"]]
     kernels = []
@@ -3612,38 +3867,62 @@ def run(torch, args, cache_dir: str) -> int:
         "plan_bound_ms": sum(r["bound"] for r in fplan),
     })
     a = next(r for r in arows if r["name"] == "a_prefill")
+    ac = next(r for r in arows if r["name"] == "c_rgemma")
     kernels.append({
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:31",
-        "launches": lm["launches"],
+        "launches": lm["launches"] + rg["launches"]["flash_attention"],
         "max_abs_err": max(r["err"] for r in arows),
         "ms": a["kernel"],
         "plain_ms": a["plain"],
         "bound_ms": a["bound"],
         "bound_by": a["by"],
         "library_ms": a["library"],
+        # case (c), recurrentgemma-2b's local attention (soft cap 30: no
+        # single PyTorch call computes it)
+        "rgemma_ms": ac["kernel"],
+        "rgemma_plain_ms": ac["plain"],
+        "rgemma_bound_ms": ac["bound"],
+        "rgemma_bound_by": ac["by"],
     })
     c = next(r for r in crows if r["name"] == "a_prefill")
+    ck = next(r for r in crows if r["name"] == "k_rgemma")
     kernels.append({
         "name": "trim_conv1d",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/trim_conv1d.cu",
         "replaces": "src/repro/kernels/trim_conv1d.py:29",
-        "launches": mb["launches"],
+        "launches": mb["launches"] + rg["launches"]["trim_conv1d"],
         "max_abs_err": max(r["err"] for r in crows),
         "ms": c["kernel"],
         "plain_ms": c["plain"],
         "bound_ms": c["bound"],
         "bound_by": c["by"],
         "library_ms": c["library"],
+        # recurrentgemma-2b's prefill shape (2, 4096, 2560, K 4)
+        "rgemma_ms": ck["kernel"],
+        "rgemma_plain_ms": ck["plain"],
+        "rgemma_bound_ms": ck["bound"],
+        "rgemma_bound_by": ck["by"],
+        "rgemma_library_ms": ck["library"],
     })
     print(f"mamba: prefill {mb['ms']:.1f} ms a forward (2 x {MAMBA_SEQ}), "
           f"serve {mserved['tok_s']:.1f} tok/s; trim_conv1d times are one "
           f"launch at case a_prefill, the prefill's shape (one layer); its "
           f"launches are the {mb['launches']} of the two timed full-width "
           f"prefill forwards")
+    print(f"recurrentgemma: prefill {rg['ms']:.1f} ms a forward (2 x "
+          f"{RGEMMA_SEQ}), peak {rg['peak']:.2f} GiB, RG-LRU scan "
+          f"{rg['shares']['scan']:.1%} and attention kernel "
+          f"{rg['shares']['attention']:.1%} of it; ring-wrap decode vs "
+          f"prefill {rwrap['err']:.2e}; serve {rserved['tok_s']:.1f} tok/s, "
+          f"{rserved['step_ms']:.2f} ms a step; its launches "
+          f"{rg['launches']} (two timed full-width prefill forwards) are "
+          f"counted in the kernel line; rgemma_*: one launch at its "
+          f"prefill's shape (conv1d case k_rgemma, attention case "
+          f"c_rgemma)")
     print(f"LM: prefill {lm['ms']:.1f} ms a forward (2 x {PREFILL_SEQ}), "
           f"serve {served['tok_s']:.1f} tok/s; flash_attention times are "
           f"one launch at case (a), the prefill's shape (one layer); its "

@@ -25,8 +25,8 @@ def make_prefill_step(cfg: ModelConfig):
 
 def make_decode_step(cfg: ModelConfig):
     """``decode(params, state, batch) -> (next_tok, state)``: one token
-    through the decode state (KV caches, or conv windows and SSM states;
-    updated in place) and its greedy successor."""
+    through the decode state (KV caches, ring KV caches, conv windows, SSM
+    or LRU states; updated in place) and its greedy successor."""
     @torch.no_grad()
     def decode(params, state, batch):
         logits, state = api.decode(params, batch, state, cfg)

@@ -1,12 +1,15 @@
 """Batched LM serving driver (the counterpart of ``repro/launch/serve.py``):
 prefill a batch of prompts token by token through the decode step, then
-greedy decode, with the per-family state on the device (KV caches, or the
-conv windows and SSM states of falcon-mamba-7b).
+greedy decode, with the per-family state on the device (KV caches; the
+conv windows and SSM states of falcon-mamba-7b; the ring KV caches, conv
+windows and LRU states of recurrentgemma-2b).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
       --smoke --batch 4 --prompt-len 16 --gen 32 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch falcon-mamba-7b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch recurrentgemma-2b --smoke --device cpu
 
 Without ``--device`` it runs on the card and raises where PyTorch sees no
 GPU.  Weights are random, drawn from seed 0 on the device; prompts come

@@ -7,7 +7,7 @@
 
 Batch dict keys: ``tokens`` (B, S) int, plus ``vision`` (B, Nv, d) for a
 VLM; decode adds ``cache_len`` (B,), which the ssm family ignores.  The
-port runs the dense and ssm families; the others raise
+port runs the dense, ssm and hybrid families; the others raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -15,13 +15,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import mamba, transformer
+from repro_torch.models import mamba, rglru, transformer
 from repro_torch.models.config import ModelConfig
 
-PORTED = ("dense", "ssm")
+PORTED = ("dense", "ssm", "hybrid")
 # family -> the ROADMAP item that ports it
 NOT_PORTED = {
-    "hybrid": "ROADMAP Queue 1 item 2c (recurrentgemma-2b: RG-LRU)",
     "moe": "ROADMAP Queue 1 item 2d (MoE: moe_apply)",
     "encdec": "ROADMAP Queue 1 item 2e (encoder-decoder and "
               "cross-attention)",
@@ -29,7 +28,7 @@ NOT_PORTED = {
 
 
 def require_ported(family: str) -> None:
-    """Raise unless the port runs ``family`` (dense or ssm)."""
+    """Raise unless the port runs ``family`` (dense, ssm or hybrid)."""
     if family in NOT_PORTED:
         raise NotImplementedError(f"the port does not run the {family!r} "
                                   f"family yet: {NOT_PORTED[family]}")
@@ -41,6 +40,8 @@ def params(cfg: ModelConfig) -> dict:
     require_ported(cfg.family)
     if cfg.family == "ssm":
         return mamba.lm_params(cfg)
+    if cfg.family == "hybrid":
+        return rglru.lm_params(cfg)
     return transformer.lm_params(cfg)
 
 
@@ -50,6 +51,8 @@ def forward(p: dict, batch: dict, cfg: ModelConfig):
     require_ported(cfg.family)
     if cfg.family == "ssm":
         logits, _ = mamba.lm_apply(p, batch["tokens"], cfg)
+    elif cfg.family == "hybrid":
+        logits, _ = rglru.lm_apply(p, batch["tokens"], cfg)
     else:
         logits, _ = transformer.lm_apply(p, batch["tokens"], cfg,
                                          vision_embeds=batch.get("vision"))
@@ -57,12 +60,16 @@ def forward(p: dict, batch: dict, cfg: ModelConfig):
 
 
 def decode_state(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """Param declaration tree of the decode-time state: zero KV caches, or
-    for the ssm family the zero conv windows and SSM states (no
-    ``max_len``: the state does not grow)."""
+    """Param declaration tree of the decode-time state: zero KV caches;
+    for the ssm family the zero conv windows and SSM states, for the
+    hybrid family per-layer ring KV caches of ``cfg.window`` slots or conv
+    windows and LRU states (neither takes ``max_len``: the state does not
+    grow)."""
     require_ported(cfg.family)
     if cfg.family == "ssm":
         return mamba.make_state(cfg, batch)
+    if cfg.family == "hybrid":
+        return rglru.make_state(cfg, batch)
     return {"caches": transformer.make_caches(cfg, batch, max_len)}
 
 
@@ -72,6 +79,9 @@ def decode(p: dict, batch: dict, state: dict, cfg: ModelConfig):
     require_ported(cfg.family)
     if cfg.family == "ssm":
         return mamba.lm_apply(p, batch["tokens"], cfg, state=state)
+    if cfg.family == "hybrid":
+        return rglru.lm_apply(p, batch["tokens"], cfg, state=state,
+                              cache_len=batch["cache_len"])
     logits, caches = transformer.lm_apply(
         p, batch["tokens"], cfg, caches=state["caches"],
         cache_len=batch["cache_len"])

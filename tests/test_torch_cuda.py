@@ -30,9 +30,12 @@ windows, soft caps and ragged Lq / Lk; a SMOKE LM prefill on it against
 and the ``ref`` oracle bit for bit (the same rounded products summed in
 the same order) on ragged runs, L < K-1, narrow channel counts, K = 2..8
 and strided views like the Mamba mixer's, and K = 9, 12 and 16 (the
-runtime-K instance); a falcon-mamba-7b SMOKE prefill
-on it launches it once a layer and matches the same prefill on the CPU
-within 1e-5 * max|logits| (GEMMs in another order).  The int8 conv kernel
+runtime-K instance), and recurrentgemma-2b's prefill shape; a
+falcon-mamba-7b SMOKE prefill on it launches it once a layer and matches
+the same prefill on the CPU within 1e-5 * max|logits| (GEMMs in another
+order); recurrentgemma-2b cut to three layers (published widths, a
+1024-token vocab, a 64-slot window) prefills on both kernels and matches
+token-by-token decode across the ring wrap within 1e-4 * max|logits|.  The int8 conv kernel
 is held against its plain version bit for bit (TOL for gelu / silu), carry
 against halo bitwise, and a calibrated layer on the card against the CPU
 bit for bit.  Rectangular (KH x KW) kernels, the sub-kernels of the
@@ -685,6 +688,8 @@ CONV1D_CASES = [
     (2, 300, 96, 9, None, True),
     (2, 100, 40, 16, 7, False),
     (1, 5, 33, 12, None, False),
+    # recurrentgemma-2b's prefill: the rec mixer's (B, L, lru_width)
+    (2, 4096, 2560, 4, None, False),
 ]
 
 
@@ -743,6 +748,45 @@ def test_mamba_prefill_on_the_kernel_matches_the_cpu(cuda):
     picked = last.gather(1, tok.cpu()[:, None])[:, 0]
     assert bool(((tok.cpu() == want_tok)
                  | (last.amax(1) - picked <= 2 * tol)).all())
+
+
+def test_hybrid_prefill_on_the_kernels_matches_decode(cuda):
+    """recurrentgemma-2b at its published widths, cut to one (rec, rec,
+    att) period with a 1024-token vocab and a 64-slot window: the flash
+    prefill (2 conv1d launches, 1 flash launch) against token-by-token
+    decode through the ring caches, past the wrap, at every position."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import trim_conv1d as tc1
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+    cfg = registry.get("recurrentgemma-2b").CONFIG.replace(
+        n_layers=3, vocab=1024, window=64)
+    p = init_params(api.params(cfg), torch.Generator(device="cuda")
+                    .manual_seed(0), device=cuda)
+    n = 100
+    toks = torch.randint(0, cfg.vocab, (2, n), device=cuda,
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1))
+    fa.reset_launch_counts()
+    tc1.reset_launch_counts()
+    logits, _ = steps.make_prefill_step(cfg)(p, {"tokens": toks})
+    assert fa.LAUNCHES["flash_attention"] == 1
+    assert tc1.LAUNCHES["trim_conv1d"] == 2
+    state = init_params(api.decode_state(cfg, 2, n), torch.Generator(),
+                        device=cuda)
+    with torch.no_grad():
+        for t in range(n):
+            step, state = api.decode(p, {
+                "tokens": toks[:, t:t + 1],
+                "cache_len": torch.full((2,), t + 1, dtype=torch.int32,
+                                        device=cuda)}, state, cfg)
+            err = ((step[:, 0] - logits[:, t]).abs().max()
+                   / logits[:, t].abs().max()).item()
+            assert err <= 1e-4, (t, err)
+    assert fa.LAUNCHES["flash_attention"] == 1     # decode runs no kernel
+    assert tc1.LAUNCHES["trim_conv1d"] == 2
 
 
 # The int8 kernel (csrc/trim_conv2d_q8.cu) at its edges, on each route:

@@ -226,7 +226,8 @@ def test_config_rejects_what_the_port_does_not_run():
         cfg.replace(attn_impl="pallas")
     with pytest.raises(KeyError):
         registry.get("gpt-2")
-    assert sorted(registry.archs()) == sorted(DENSE + ["falcon-mamba-7b"])
+    assert sorted(registry.archs()) == sorted(
+        DENSE + ["falcon-mamba-7b", "recurrentgemma-2b"])
 
 
 def test_serve_cli_on_cpu(capsys):
