@@ -245,8 +245,36 @@ Phases, each raising on failure (each prints its seconds):
 26. recurrentgemma serve — ``serve_batch`` at full width, batch 4, prompt
    16, gen 32, through the ring caches, conv windows and LRU states:
    tokens/s, ms per decode step and the step's device-busy share;
-27. the kernel JSON line (eight kernels; the launches of trim_conv1d and
-   flash_attention include the recurrentgemma prefill's), then
+27. flash backward check — the two backward kernels (dQ with the rows'
+   statistics, then dK / dV) against their plain version on the same lse
+   (``BWD_TOLERANCE``), two calls bitwise equal, the forward's o bitwise
+   the same with and without its lse output and that lse against the
+   plain forward's, at (t) the LM training shape (B 2, L 1024, Hq 16,
+   Hkv 2, D 128, causal), (c) recurrentgemma-2b's (B 1, L 4096, Hq 10,
+   Hkv 1, D 256, window 2048, cap 30), a GQA group of 7 at D 64 and
+   Lq 256 < Lk 1024; each case's ms (the whole backward and each kernel)
+   beside the forward's, the plain backward's, the FFMA bounds and, for
+   (t) and the G=7 case, SDPA's forward + backward and backward (f32,
+   TF32 off; the yardstick, never called by the port);
+28. LM train — full-width qwen2.5-3b (36 layers, 3.40 B parameters, f32,
+   remat, flash) through ``launch.train.main``: 4 AdamW steps at batch 2
+   x 1024 tokens of the copy task, each loss finite, exactly 72 flash
+   forward (36 + 36 in the recompute), 36 dK/dV and 36 dQ launches a
+   step, ms a step, peak memory and each step's grad norm; then the
+   first-step gradients (1 x 256 tokens): at the depth-2 cut the backward
+   kernels against the plain backward under the same forward
+   (``BWD_TOLERANCE``) and flash against ref (``LM_GRAD_TOLERANCE``),
+   chunked against ref beside them; at full depth flash against ref
+   (printed), the gradient finite and its float64 norm; every layer's
+   attention backward on the flash forward's activations against
+   float64, the kernels' error at most ``F64_FACTOR`` times the f32 ref
+   oracle's;
+29. LM resume — qwen2.5-3b SMOKE widths on the kernels (flash, remat): 2
+   steps, a checkpoint (``repro_torch.checkpoint``), a restore into a
+   fresh state and 2 more steps, bitwise equal to 4 straight steps;
+30. the kernel JSON line (ten kernels; the launches of trim_conv1d and
+   flash_attention include the recurrentgemma prefill's, flash_attention's
+   and the backward kernels' the LM training steps'), then
    ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without a result when no GPU is visible.
@@ -345,6 +373,30 @@ RGEMMA_WRAP_EXTRA = 64      # decode-vs-prefill prompt: window + this
 # qwen2.5-3b's (|s| ~ 2000); a wrong ring slot, mask or valid length
 # reads O(1) once the ring has wrapped.
 RGEMMA_TOLERANCE = 1e-4
+# Flash backward kernels against their plain version on the same lse:
+# of each gradient's max|plain|.  The kernels form S, dP and the
+# gradients as fmaf chains (d, rows and keys in ascending order), the
+# plain version as einsums over the same 32-key tiles: the f32 order
+# differs, nothing else (2e-7 to 7.5e-6 read at the training and
+# recurrentgemma-2b shapes on an NVIDIA H100 80GB HBM3).
+BWD_TOLERANCE = 1e-4
+# First-step gradients of the depth-2 cut of full-width qwen2.5-3b, of
+# each leaf's max|ref|.  (i) The backward kernels against their plain
+# version under the same forward (the kernel forward, the plain backward
+# swapped in): BWD_TOLERANCE; 5.6e-7 read.  (ii) The kernels against
+# attn_impl="ref", a wiring check: a wrong head, mask, layer or
+# statistic reads O(1).  The gradient at this init is ill-conditioned in
+# the forward's rounding: with the backward kernels swapped for the plain
+# backward it moves by 5.6e-7, with the forward kernel (3xTF32) swapped
+# for its plain version (cuBLAS f32) by 9.4e-3 at blocks/att/wq, while the
+# kernel's own forward error is 0.2-0.6x ref's against float64 (the LM
+# prefill's float64 check); two cuBLAS f32 paths (chunked, ref) part by
+# 3.3e-4 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6).
+LM_GRAD_TOLERANCE = 3e-2
+BWD_F64_POSITIONS = 512     # the float64 backward oracle's query rows
+TRAIN_LM_STEPS, TRAIN_LM_BATCH = 4, 2
+TRAIN_LM_SEQ = 1025         # make_batch drops one: 1024 tokens a sequence
+GRAD_LM_LAYERS, GRAD_LM_TOKENS = 2, 256
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32
 CROSS_PROMPT = 256          # decode-vs-prefill prompt at the depth-1 cut
 TRAIN_BATCH = 8
@@ -3294,6 +3346,507 @@ def rgemma_wrap(torch, rg):
 TUNE_TURNS = 3              # alternating graph timings of default / tuned
 
 
+def flash_bwd_cases():
+    """(name, b, lq, lk, hq, hkv, d, causal, soft_cap, window): (t) the
+    LM training shape; (c) recurrentgemma-2b's attention; a GQA group of
+    7 at D 64; queries right-aligned to more keys."""
+    return [("t_train", 2, 1024, 1024, 16, 2, 128, True, None, None),
+            ("c_rgemma", 1, 4096, 4096, 10, 1, 256, True, 30.0, 2048),
+            ("g7_d64", 2, 1024, 1024, 14, 2, 64, True, None, None),
+            ("lq_lt_lk", 2, 256, 1024, 16, 2, 128, True, None, None)]
+
+
+def flash_bwd_bounds(b, lq, lk, hq, hkv, d, causal, window) -> dict:
+    """{part: {route: (ms, bound_by)}}: the FLOPs a part's function needs
+    per valid (query, key) pair (the whole backward 10 D, 2.5 x the
+    forward's 4 D: S, dP, dV, dK, dQ; the dK/dV kernel 8 D: S, dP, dV, dK;
+    the dQ kernel, the rows' statistics and dQ, 6 D: S, dP, dQ) at the
+    rate of each f32-accurate route, against its bytes (each input read
+    once, each output written once) over 3.35 TB/s.  Routes: ``ffma``,
+    f32 FFMA at 67 TFLOP/s (the kernels' own); ``tf32x3``, 3xTF32 on the
+    tensor cores (three TF32 products a product, 3 x FLOPs over 495
+    TFLOP/s; the forward's narrow route), the least time the card could
+    take."""
+    q_pos = np.arange(lq) + lk - lq
+    hi = np.minimum(q_pos + 1, lk) if causal else np.full(lq, lk)
+    lo = np.maximum(q_pos - window + 1, 0) if window else np.zeros(lq)
+    pairs = int(np.maximum(hi - lo, 0).sum()) * b * hq
+    rows, keys, stats = b * lq * hq * d, b * lk * hkv * d, b * hq * lq
+    # words: backward q, dO, dQ, k, v, dK, dV, lse; dkdv q, dO, k, v, dK,
+    # dV, the two stats; dq q, dO, dQ, k, v, lse, the two stats
+    parts = {"backward": (10, 3 * rows + 4 * keys + stats),
+             "dkdv": (8, 2 * rows + 4 * keys + 2 * stats),
+             "dq": (6, 3 * rows + 2 * keys + 3 * stats)}
+    out = {}
+    for part, (per_pair, words) in parts.items():
+        flops = per_pair * d * pairs
+        bytes_ms = 4 * words / PEAK_BYTES_PER_S * 1e3
+        out[part] = {
+            route: (max(ops_ms, bytes_ms),
+                    "operations" if ops_ms >= bytes_ms else "bytes")
+            for route, ops_ms in (
+                ("ffma", flops / PEAK_F32_FLOPS * 1e3),
+                ("tf32x3", 3 * flops / PEAK_TF32_FLOPS * 1e3))}
+    return out
+
+
+def check_flash_backward(torch):
+    """The two backward kernels against their plain version, two calls
+    bitwise equal, the forward's o bitwise the same with and without lse
+    and its lse against the plain forward's; times beside the plain
+    version's, the FFMA and 3xTF32 bounds and, where one PyTorch call
+    computes the same function, SDPA's forward + backward and backward
+    (f32, TF32 off)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    print("flash backward check (ms, device events; errors of each "
+          "gradient's max|plain|; bounds f32 FFMA, the kernels' route, 10 D "
+          "FLOPs a valid pair for the whole backward, 8 D dK/dV, 6 D dQ; "
+          "bnd3x: the whole backward's 3xTF32 bound, 3 x FLOPs / 495 "
+          "TFLOP/s):")
+    print(f"  {'case':9s} {'dq_err':>8s} {'dk_err':>8s} {'dv_err':>8s} "
+          f"{'bwd':>8s} {'dkdv':>8s} {'dq':>8s} {'fwd':>7s} {'plain':>8s} "
+          f"{'sdpa_fb':>8s} {'sdpa_b':>8s} {'bound':>7s} "
+          f"{'dkdv_b':>7s} {'dq_b':>7s} {'bnd3x':>7s}")
+    for name, b, lq, lk, hq, hkv, d, causal, cap, win in flash_bwd_cases():
+        q, do = (torch.randn((b, lq, hq, d), generator=gen, device="cuda")
+                 for _ in range(2))
+        k, v = (torch.randn((b, lk, hkv, d), generator=gen, device="cuda")
+                for _ in range(2))
+        kw = dict(causal=causal, soft_cap=cap, window=win)
+        lse = torch.empty((b, hq, lq), device="cuda")
+        o = fa._launch_forward(q, k, v, causal, cap, win, lse)
+        same_o = torch.equal(o, fa.flash_attention(q, k, v, **kw))
+        _, plain_lse = fa._plain_forward(q, k, v, block_k=fa.BLOCK_K, **kw)
+        got = fa.flash_attention_backward(q, k, v, lse, do, **kw)
+        again = fa.flash_attention_backward(q, k, v, lse, do, **kw)
+        plain = fa.flash_attention_backward_plain(q, k, v, lse, do, **kw)
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(x, y) for x, y in zip(got, again))
+        errs = [((g - p).abs().max() / p.abs().max()).item()
+                for g, p in zip(got, plain)]
+        abs_err = max((g - p).abs().max().item() for g, p in zip(got, plain))
+        lse_err = ((lse - plain_lse).abs().max()
+                   / plain_lse.abs().max()).item()
+        if not (same_o and repeat and np.isfinite(errs).all()
+                and max(errs) <= BWD_TOLERANCE
+                and lse_err <= ATTN_TOLERANCE):
+            raise AssertionError(
+                f"flash backward {name}: o with lse == without {same_o}, "
+                f"two calls bitwise {repeat}, dq/dk/dv of max|plain| "
+                f"{errs} (tol {BWD_TOLERANCE}), lse {lse_err:.2e}")
+        stats = torch.empty((2, b, hq, lq), device="cuda")
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        t = {"backward": time_ms(torch, lambda: fa.flash_attention_backward(
+                q, k, v, lse, do, **kw)),
+             "dq": time_ms(torch, lambda: fa._launch_backward(
+                 "dq", q, k, v, do, lse, stats, (dq,), **kw)),
+             "dkdv": time_ms(torch, lambda: fa._launch_backward(
+                 "dkdv", q, k, v, do, lse, stats, (dk, dv), **kw)),
+             "forward": time_ms(torch, lambda: fa.flash_attention(
+                 q, k, v, **kw)),
+             "plain": time_ms(torch, lambda: fa.flash_attention_backward_plain(
+                 q, k, v, lse, do, **kw), reps=2),
+             "sdpa_fwd_bwd": None, "sdpa_bwd": None}
+        if cap is None and win is None and lq == lk:
+            # one PyTorch call computes it (no cap, no window; causal
+            # top-left is the kernels' right-aligned mask at Lq == Lk)
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            dot = do.transpose(1, 2)
+            sdpa = F.scaled_dot_product_attention
+
+            def fwd_bwd():
+                out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+                return torch.autograd.grad(out, (qt, kt, vt), dot)
+            t["sdpa_fwd_bwd"] = time_ms(torch, fwd_bwd)
+            out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+            t["sdpa_bwd"] = time_ms(torch, lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True))
+            del out, qt, kt, vt
+        bounds = flash_bwd_bounds(b, lq, lk, hq, hkv, d, causal, win)
+        rows.append(dict(name=name, errs=errs, abs_err=abs_err,
+                         lse_err=lse_err, bounds=bounds, **t))
+        fmt = (lambda x: "-" if x is None else f"{x:.3f}")
+        print(f"  {name:9s} {errs[0]:8.1e} {errs[1]:8.1e} {errs[2]:8.1e} "
+              f"{t['backward']:8.3f} {t['dkdv']:8.3f} {t['dq']:8.3f} "
+              f"{t['forward']:7.3f} {t['plain']:8.3f} "
+              f"{fmt(t['sdpa_fwd_bwd']):>8s} {fmt(t['sdpa_bwd']):>8s} "
+              f"{bounds['backward']['ffma'][0]:7.3f} "
+              f"{bounds['dkdv']['ffma'][0]:7.3f} "
+              f"{bounds['dq']['ffma'][0]:7.3f} "
+              f"{bounds['backward']['tf32x3'][0]:7.3f}")
+        del q, k, v, o, do, lse, got, again, plain, stats, dq, dk, dv
+    print("  o bitwise equal with and without lse, two backward calls "
+          "bitwise equal, the kernel's lse within "
+          f"{max(r['lse_err'] for r in rows):.1e} of the plain forward's in "
+          "every case")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def lm_grads(torch, cfg, params, batch, plain_bwd: bool) -> dict:
+    """Per-leaf gradients of the loss on ``attn_impl`` flash (the
+    kernels), ref and chunked (the flash schedule in plain PyTorch, its
+    softmax differentiated by autograd), and with ``plain_bwd`` on flash
+    with the plain backward swapped in for the backward kernels (the same
+    forward): for each compared pair, (max over leaves of max|a - b| /
+    max|b|, that leaf); and the flash gradient's float64 global norm and
+    whether every element is finite."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+
+    def grads_of(impl):
+        live = [t.detach().requires_grad_()
+                for t in adamw.tree_leaves(params)]
+        logits, aux = api.forward(adamw.tree_unflatten(params, live), batch,
+                                  cfg.replace(attn_impl=impl))
+        return torch.autograd.grad(api.loss_fn(logits, batch["labels"], aux),
+                                   live)
+
+    grads = {impl: grads_of(impl) for impl in ("flash", "ref", "chunked")}
+    pairs = [("flash", "ref"), ("chunked", "ref")]
+    if plain_bwd:
+        kernels = fa.flash_attention_backward
+        fa.flash_attention_backward = fa.flash_attention_backward_plain
+        try:
+            grads["plain_bwd"] = grads_of("flash")
+        finally:
+            fa.flash_attention_backward = kernels
+        pairs.append(("flash", "plain_bwd"))
+    names = leaf_names(params)
+    out = {}
+    for a, b in pairs:
+        errs = [((x - y).abs().max() / y.abs().max()).item()
+                for x, y in zip(grads[a], grads[b])]
+        worst = int(np.nanargmax(errs))
+        out[f"{a}_{b}"] = (errs[worst] if np.isfinite(errs).all()
+                           else float("nan"), names[worst])
+    out["finite"] = all(bool(torch.isfinite(g).all())
+                        for g in grads["flash"])
+    out["norm64"] = float(sum(torch.sum(torch.square(g.double())).item()
+                              for g in grads["flash"]) ** 0.5)
+    del grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_f64(torch, q, k, v):
+    """Causal GQA attention in float64, differentiable (``ref.attention``
+    computes its scores in f32)."""
+    import math
+    group = q.shape[2] // k.shape[2]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k.repeat_interleave(group, 2))
+    s = s / math.sqrt(q.shape[-1])
+    lq = q.shape[1]
+    mask = torch.ones(lq, lq, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(torch.where(mask, s, -torch.inf), -1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.repeat_interleave(group, 2))
+
+
+def lm_bwd_layer_check(torch, cfg, params, tokens):
+    """Along the flash forward (batch row 0, the first BWD_F64_POSITIONS
+    positions): each layer's attention backward at its own q, k, v and a
+    seeded cotangent, on the kernels, on autograd of the f32 ``ref``
+    oracle and on autograd of float64 attention; the kernels' error of
+    max|float64 grad| at most max(F64_FACTOR x ref's, ATTN_TOLERANCE).
+    Returns (worst kernel error, worst ref error, worst ratio)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    toks = tokens[:1, :BWD_F64_POSITIONS]
+    pos = torch.arange(toks.shape[1], device="cuda")[None]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    worst = {"kernel": 0.0, "ref": 0.0, "ratio": 0.0}
+    with torch.no_grad():
+        x = L.embed_apply(params["tok"], toks, cfg)
+        for i in range(cfg.n_layers):
+            pi = T.layer_slice(params["blocks"], i)
+            h = L.norm_apply(pi["ln_att"], x, cfg)
+            p = pi["att"]
+            q, k, v = (torch.einsum("bld,dhk->blhk", h, p[w]) + p["b" + w[1]]
+                       for w in ("wq", "wk", "wv"))
+            q = L.rope(q, pos, cfg.rope_theta)
+            k = L.rope(k, pos, cfg.rope_theta)
+            do = torch.randn(q.shape, generator=gen, device="cuda")
+            grads = {}
+            with torch.enable_grad():
+                for name, fn, dt in (
+                        ("kernel", fa.flash_attention, torch.float32),
+                        ("ref", lambda a, b, c: ref.attention(
+                            a, b, c, causal=True), torch.float32),
+                        ("f64", lambda a, b, c: attention_f64(
+                            torch, a, b, c), torch.float64)):
+                    lv = [t.to(dt).requires_grad_() for t in (q, k, v)]
+                    grads[name] = torch.autograd.grad(fn(*lv), lv,
+                                                      do.to(dt))
+            for g64, gk, gr in zip(grads["f64"], grads["kernel"],
+                                   grads["ref"]):
+                scale = g64.abs().max().item()
+                ek = (gk.double() - g64).abs().max().item() / scale
+                er = (gr.double() - g64).abs().max().item() / scale
+                lim = max(F64_FACTOR * er, ATTN_TOLERANCE)
+                if not ek <= lim:
+                    raise AssertionError(
+                        f"LM train layer {i}: the attention backward on the "
+                        f"kernels is {ek:.3e} of max|f64 grad| from float64, "
+                        f"ref {er:.3e}: above {lim:.3e}")
+                worst["kernel"] = max(worst["kernel"], ek)
+                worst["ref"] = max(worst["ref"], er)
+                worst["ratio"] = max(worst["ratio"], ek / er)
+            del grads, q, k, v, do, h
+            x = T.block_apply(pi, x, cfg, positions=pos)
+    return worst
+
+
+def leaf_names(tree, prefix="") -> list:
+    """"a/b/c" paths of a nested dict's leaves in sorted-key order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def lm_train(torch):
+    """Full-width qwen2.5-3b trained through ``launch.train.main`` (remat,
+    flash forward and backward kernels) for TRAIN_LM_STEPS steps; then the
+    first-step gradients flash vs ref at the depth cut (checked) and at
+    full depth (printed)."""
+    from repro_torch.configs import registry
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+
+    cfg = registry.get("qwen2.5-3b").CONFIG
+    assert cfg.attn_impl == "flash" and cfg.remat
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    out = train.main(["--arch", "qwen2.5-3b", "--steps", str(TRAIN_LM_STEPS),
+                      "--batch", str(TRAIN_LM_BATCH), "--seq",
+                      str(TRAIN_LM_SEQ), "--task", "copy", "--log-every",
+                      "1", "--device", "cuda"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {"flash_attention": fa.LAUNCHES["flash_attention"],
+                **fa.BWD_LAUNCHES}
+    clip = train_clip_state(torch, out.pop("state"), out["grad_norms"],
+                            "full width")
+    torch.cuda.empty_cache()
+    n, layers = TRAIN_LM_STEPS, cfg.n_layers
+    want = {"flash_attention": 2 * layers * n,
+            "flash_attention_bwd_dkdv": layers * n,
+            "flash_attention_bwd_dq": layers * n}
+    losses = np.asarray(out["losses"])
+    if launches != want or losses.shape != (n,) or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f"LM train: launches {launches}, want {want}; "
+                             f"losses {out['losses']}")
+    steady = float(np.mean(out["step_ms"][1:]))
+    print(f"LM train: {cfg.name} full width ({layers} layers, remat, flash "
+          f"forward and backward kernels), batch {TRAIN_LM_BATCH} x "
+          f"{TRAIN_LM_SEQ - 1} tokens, {n} AdamW steps: losses "
+          f"{[round(x, 4) for x in out['losses']]}, ms a step "
+          f"{[round(x, 1) for x in out['step_ms']]} (steady {steady:.1f}); "
+          f"peak device memory {peak:.2f} GiB; a step launches "
+          f"{launches['flash_attention'] // n} flash forwards ({layers} + "
+          f"{layers} in the remat recompute), "
+          f"{launches['flash_attention_bwd_dkdv'] // n} dK/dV and "
+          f"{launches['flash_attention_bwd_dq'] // n} dQ kernels")
+
+    params = init_params(api.params(cfg), torch.Generator(device="cuda")
+                         .manual_seed(0), device="cuda")
+    nb = make_batch(DataConfig(batch=1, seq=GRAD_LM_TOKENS + 1,
+                               vocab=cfg.vocab, task="copy"), 0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in nb.items()}
+    cut = lm_grads(torch, cfg.replace(n_layers=GRAD_LM_LAYERS),
+                   depth_cut(params, GRAD_LM_LAYERS), batch, plain_bwd=True)
+    cut_err, cut_leaf = cut["flash_ref"]
+    bwd_err, bwd_leaf = cut["flash_plain_bwd"]
+    if not (bwd_err <= BWD_TOLERANCE and cut_err <= LM_GRAD_TOLERANCE):
+        raise AssertionError(
+            f"LM train: depth-{GRAD_LM_LAYERS} gradients, backward kernels "
+            f"vs plain {bwd_err:.3e} at {bwd_leaf} (tol {BWD_TOLERANCE}), "
+            f"flash vs ref {cut_err:.3e} at {cut_leaf} (tol "
+            f"{LM_GRAD_TOLERANCE})")
+    full = lm_grads(torch, cfg, params, batch, plain_bwd=False)
+    if not full["finite"]:
+        raise AssertionError("LM train: a full-depth gradient element on "
+                             "the kernels is not finite")
+    print(f"LM train: first-step gradients, 1 x {GRAD_LM_TOKENS} tokens, "
+          f"of each leaf's max|ref| (largest leaf named): depth-"
+          f"{GRAD_LM_LAYERS} cut, the backward kernels vs the plain backward "
+          f"on the same forward {bwd_err:.2e} ({bwd_leaf}; tol "
+          f"{BWD_TOLERANCE:g}), flash vs ref {cut_err:.2e} ({cut_leaf}; "
+          f"tol {LM_GRAD_TOLERANCE:g}), chunked vs ref "
+          f"{cut['chunked_ref'][0]:.2e}; full depth flash vs ref "
+          f"{full['flash_ref'][0]:.2e} ({full['flash_ref'][1]}), chunked "
+          f"vs ref {full['chunked_ref'][0]:.2e} (printed: the 36-layer "
+          f"function is chaotic under this init); the flash gradient is "
+          f"finite, its float64 global norm {full['norm64']:.3e} (f32 "
+          f"overflows above 3.4e38: the steps' gnorm "
+          f"{out['grad_norms']})")
+    f64 = lm_bwd_layer_check(torch, cfg, params, batch["tokens"])
+    del params, batch
+    torch.cuda.empty_cache()
+    cut_steps = lm_train_cut(torch, cfg.replace(n_layers=GRAD_LM_LAYERS))
+    print(f"LM train: every layer's attention backward (1 x "
+          f"{BWD_F64_POSITIONS} positions of the flash forward, a seeded "
+          f"cotangent) against float64: the kernels' worst error "
+          f"{f64['kernel']:.2e} of max|f64 grad|, the f32 ref oracle's "
+          f"{f64['ref']:.2e}, worst ratio {f64['ratio']:.1f} (limit "
+          f"max({F64_FACTOR:g} x ref's, {ATTN_TOLERANCE:g}))")
+    torch.cuda.empty_cache()
+    return dict(out, peak=peak, launches=launches, steady_ms=steady,
+                cut_err=cut_err, bwd_err=bwd_err,
+                full_err=full["flash_ref"][0], bwd_f64=f64, clip=clip,
+                cut_steps=cut_steps)
+
+
+def train_clip_state(torch, state, grad_norms, label) -> dict:
+    """What the steps' gradient clipping let through: every leaf of
+    params, mu and nu must be finite, and mu and nu must be exactly 0 if
+    and only if every step's clip scale ``min(1, clip / (gnorm + 1e-9))``
+    was 0 (an inf grad norm: AdamW then applies weight decay only, and a
+    NaN from inf x 0 would show here).  Prints the state; returns the
+    scales and the count of leaves whose mu is not all 0."""
+    from repro_torch.optim import AdamWConfig, adamw
+
+    clip = AdamWConfig().grad_clip
+    scales = [min(1.0, clip / (g + 1e-9)) for g in grad_norms]
+    leaves = {name: adamw.tree_leaves(tree) for name, tree in (
+        ("params", state["params"]), ("mu", state["opt"]["mu"]),
+        ("nu", state["opt"]["nu"]))}
+    finite = all(bool(torch.isfinite(t).all())
+                 for ts in leaves.values() for t in ts)
+    moved = {name: sum(bool(t.any()) for t in leaves[name])
+             for name in ("mu", "nu")}
+    n = len(leaves["mu"])
+    reached = any(x > 0 for x in scales)
+    if not finite or (moved["mu"] > 0) != reached or \
+            (moved["nu"] > 0) != reached:
+        raise AssertionError(
+            f"LM train ({label}): params, mu and nu finite {finite}; clip "
+            f"scales {scales} (grad norms {grad_norms}); leaves with mu / "
+            f"nu not all 0: {moved['mu']} / {moved['nu']} of {n}")
+    if reached:
+        print(f"LM train ({label}): grad norms {grad_norms}, clip scales "
+              f"{scales}: the gradient reaches params, mu and nu (mu not "
+              f"all 0 in {moved['mu']} of {n} leaves); every leaf finite")
+    else:
+        print(f"LM train ({label}): GRAD NORM INF on every step "
+              f"{grad_norms}: clip scale 0, so no gradient reaches params, "
+              f"mu or nu, and the steps apply weight decay only (mu and nu "
+              f"exactly 0 in all {n} leaves, every leaf finite); the "
+              f"reference's f32 norm overflows the same way (ROADMAP "
+              f"Queue 3)")
+    return dict(scales=scales, mu_leaves_moved=moved["mu"], leaves=n)
+
+
+def lm_train_cut(torch, cfg) -> dict:
+    """TRAIN_LM_STEPS train steps of the full-width depth cut ``cfg`` (its
+    own seeded init, the trainer's optimiser settings and batch) through
+    ``steps.make_train_step``: at this depth the grad norm is finite, so
+    the update at full width runs with a gradient that reaches params, mu
+    and nu (``train_clip_state`` must find it so)."""
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.distributed import steps
+    from repro_torch.optim import AdamWConfig
+
+    opt = AdamWConfig(lr=3e-3, warmup_steps=10, decay_steps=TRAIN_LM_STEPS)
+    state = steps.init_train_state(
+        cfg, opt, torch.Generator(device="cuda").manual_seed(0))
+    stream = SyntheticStream(DataConfig(batch=TRAIN_LM_BATCH,
+                                        seq=TRAIN_LM_SEQ, vocab=cfg.vocab,
+                                        task="copy"))
+    step_fn = steps.make_train_step(cfg, opt)
+    losses, norms = [], []
+    for _ in range(TRAIN_LM_STEPS):
+        state, metrics = step_fn(state, {k: torch.from_numpy(v).cuda()
+                                         for k, v in next(stream).items()})
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    clip = train_clip_state(torch, state, norms,
+                            f"depth-{cfg.n_layers} full-width cut")
+    del state
+    torch.cuda.empty_cache()
+    if not (np.isfinite(losses).all() and min(clip["scales"]) > 0):
+        raise AssertionError(f"LM train (depth-{cfg.n_layers} cut): losses "
+                             f"{losses}, grad norms {norms}: the gradient "
+                             f"must reach the params at this depth")
+    print(f"LM train (depth-{cfg.n_layers} full-width cut, batch "
+          f"{TRAIN_LM_BATCH} x {TRAIN_LM_SEQ - 1}): losses "
+          f"{[round(x, 4) for x in losses]}")
+    return dict(losses=losses, grad_norms=norms, **clip)
+
+
+def lm_resume(torch):
+    """Resume at SMOKE widths on the kernels (flash, remat): 2 steps, a
+    checkpoint, a restore into a fresh state and 2 more steps against 4
+    uninterrupted steps, bitwise (the contract of
+    ``tests/test_checkpoint.py::test_crash_resume_training_is_exact``)."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import registry
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.optim import AdamWConfig, adamw
+
+    cfg = registry.get("qwen2.5-3b").SMOKE.replace(attn_impl="flash",
+                                                   remat=True)
+    opt = AdamWConfig(lr=3e-3, warmup_steps=10, decay_steps=4)
+    dc = DataConfig(batch=8, seq=65, vocab=cfg.vocab, task="copy", seed=5)
+    step_fn = steps.make_train_step(cfg, opt)
+
+    def fresh(seed):
+        return steps.init_train_state(
+            cfg, opt, torch.Generator(device="cuda").manual_seed(seed))
+
+    def run(state, stream, n):
+        for _ in range(n):
+            state, _ = step_fn(state, {k: torch.from_numpy(v).cuda()
+                                       for k, v in next(stream).items()})
+        return state
+
+    fa.reset_launch_counts()
+    full = run(fresh(0), SyntheticStream(dc), 4)
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        mgr = CheckpointManager(directory)
+        stream = SyntheticStream(dc)
+        mgr.save(2, run(fresh(0), stream, 2),
+                 meta={"data_state": stream.state()})
+        resumed, manifest = mgr.restore(fresh(1))
+        resumed = run(resumed, SyntheticStream.from_state(
+            dc, manifest["data_state"]), 2)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    torch.cuda.synchronize()
+    pairs = list(zip(adamw.tree_leaves(full), adamw.tree_leaves(resumed)))
+    diff = max((x.double() - y.double()).abs().max().item()
+               for x, y in pairs)
+    launched = fa.LAUNCHES["flash_attention"] > 0 and \
+        min(fa.BWD_LAUNCHES.values()) > 0
+    if not launched or not all(torch.equal(x, y) for x, y in pairs):
+        raise AssertionError(f"LM resume: resumed state vs 4 straight "
+                             f"steps max|diff| {diff} (launches "
+                             f"{fa.LAUNCHES} {fa.BWD_LAUNCHES})")
+    print(f"LM resume: {cfg.name} SMOKE widths on the kernels (flash, "
+          f"remat), 2 steps + checkpoint + restore into a fresh state + 2 "
+          f"steps bitwise equal to 4 straight steps ({len(pairs)} leaves, "
+          f"max|diff| {diff})")
+    return diff
+
+
 def time_turns_ms(torch, fns, turns: int = TUNE_TURNS) -> list:
     """Device ms a launch of each of ``fns`` (``time_graph_ms``), timed in
     ``turns`` alternating rounds in this call; the median of each."""
@@ -3769,6 +4322,12 @@ def run(torch, args, cache_dir: str) -> int:
     del rg["params"]
     torch.cuda.empty_cache()
     phase.done("recurrentgemma serve")
+    fbrows = check_flash_backward(torch)
+    phase.done("flash backward check")
+    lmt = lm_train(torch)
+    phase.done("LM train")
+    lm_resume(torch)
+    phase.done("LM resume")
 
     vgg = [r for r in rows if r["vgg"]]
     kernels = []
@@ -3873,7 +4432,8 @@ def run(torch, args, cache_dir: str) -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:31",
-        "launches": lm["launches"] + rg["launches"]["flash_attention"],
+        "launches": (lm["launches"] + rg["launches"]["flash_attention"]
+                     + lmt["launches"]["flash_attention"]),
         "max_abs_err": max(r["err"] for r in arows),
         "ms": a["kernel"],
         "plain_ms": a["plain"],
@@ -3887,6 +4447,40 @@ def run(torch, args, cache_dir: str) -> int:
         "rgemma_bound_ms": ac["bound"],
         "rgemma_bound_by": ac["by"],
     })
+    bt = next(r for r in fbrows if r["name"] == "t_train")
+    bc = next(r for r in fbrows if r["name"] == "c_rgemma")
+    for part, err_of in (("dkdv", lambda r: max(r["errs"][1:])),
+                         ("dq", lambda r: r["errs"][0])):
+        kernels.append({
+            "name": f"flash_attention_bwd_{part}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            # the backward of row 6's kernel, which the JAX package leaves
+            # to XLA's autodiff of ops.attention(impl="chunked")
+            "replaces": "src/repro/kernels/flash_attention.py:31",
+            "launches": lmt["launches"][f"flash_attention_bwd_{part}"],
+            "max_abs_err": max(r["abs_err"] for r in fbrows),
+            "max_rel_err": max(err_of(r) for r in fbrows),
+            "ms": bt[part],
+            # the plain backward computes both kernels' outputs at once
+            "plain_ms": bt["plain"],
+            # the kernels' route, f32 FFMA; 3xTF32's beside it
+            "bound_ms": bt["bounds"][part]["ffma"][0],
+            "bound_by": bt["bounds"][part]["ffma"][1],
+            "tf32x3_bound_ms": bt["bounds"][part]["tf32x3"][0],
+            # no single PyTorch call computes one kernel's half; SDPA's
+            # backward (both halves) and forward + backward are beside it
+            "library_ms": None,
+            "backward_ms": bt["backward"],
+            "backward_bound_ms": bt["bounds"]["backward"]["ffma"][0],
+            "backward_tf32x3_bound_ms":
+                bt["bounds"]["backward"]["tf32x3"][0],
+            "sdpa_bwd_ms": bt["sdpa_bwd"],
+            "sdpa_fwd_bwd_ms": bt["sdpa_fwd_bwd"],
+            "rgemma_ms": bc[part],
+            "rgemma_bound_ms": bc["bounds"][part]["ffma"][0],
+            "rgemma_tf32x3_bound_ms": bc["bounds"][part]["tf32x3"][0],
+        })
     c = next(r for r in crows if r["name"] == "a_prefill")
     ck = next(r for r in crows if r["name"] == "k_rgemma")
     kernels.append({
@@ -3923,6 +4517,14 @@ def run(torch, args, cache_dir: str) -> int:
           f"counted in the kernel line; rgemma_*: one launch at its "
           f"prefill's shape (conv1d case k_rgemma, attention case "
           f"c_rgemma)")
+    print(f"LM train: {lmt['steady_ms']:.1f} ms a full-width qwen2.5-3b "
+          f"step (batch {TRAIN_LM_BATCH} x {TRAIN_LM_SEQ - 1}; clip scales "
+          f"{lmt['clip']['scales']}: the same operations at any scale), "
+          f"peak {lmt['peak']:.2f} GiB; flash_attention_bwd_* times are one "
+          f"launch at case t_train (one layer of that step), rgemma_* at "
+          f"case c_rgemma; their launches, and "
+          f"{lmt['launches']['flash_attention']} of flash_attention's, are "
+          f"the {TRAIN_LM_STEPS} training steps'")
     print(f"LM: prefill {lm['ms']:.1f} ms a forward (2 x {PREFILL_SEQ}), "
           f"serve {served['tok_s']:.1f} tok/s; flash_attention times are "
           f"one launch at case (a), the prefill's shape (one layer); its "

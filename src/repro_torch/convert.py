@@ -13,9 +13,11 @@ tensors, keys, nesting and layouts unchanged (floating leaves as float32,
 integer leaves in their own dtype): the ``params`` of
 ``models.layers.TrimCNN``, of the functional ``*_apply`` forwards and of
 ``models.api``, whose LM keeps the JAX layout for exactly this reason.
-``moments_from_jax`` does the same for AdamW's ``{"mu", "nu"}`` state.
-Both packages then compute the same function and take the same optimiser
-step, which is what the parity tests compare.
+``moments_from_jax`` does the same for AdamW's ``{"mu", "nu"}`` state, and
+``train_state_from_jax`` for a whole LM train state (``train_state_decl``'s
+``{"params", "opt": {"mu", "nu"}, "step"}``).  Both packages then compute
+the same function and take the same optimiser step, which is what the
+parity tests compare.
 
 A packed conv entry of the JAX package, ``{"packed":
 PackedConv2dWeights}``, has its padded kernel layout unpacked to the
@@ -101,3 +103,15 @@ def moments_from_jax(moments, *, device="cpu") -> dict:
     ``device``."""
     return {k: params_from_jax(moments[k], device=device)
             for k in ("mu", "nu")}
+
+
+def train_state_from_jax(state, *, device="cpu") -> dict:
+    """A JAX LM train state (``repro.distributed.steps.train_state_decl``
+    after ``init_params`` or a train step; numpy leaves) -> the port's
+    ``{"params", "opt": {"mu", "nu"}, "step"}``: params and moments as
+    float32 tensors on ``device`` (``params_from_jax``,
+    ``moments_from_jax``), the step a 0-d int32 tensor."""
+    return {"params": params_from_jax(state["params"], device=device),
+            "opt": moments_from_jax(state["opt"], device=device),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}

@@ -121,6 +121,7 @@ constexpr int kMaxSmemBytes = 232448;  // H100: 227 KB opt-in per block
 struct AttnArgs {
   const float *q, *k, *v;
   float *o;
+  float *lse;           // (B, Hq, Lq) row log-sum-exp, or null: not written
   int lq, lk, hq, hkv, d, group;
   int64_t q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh;
   int64_t o_sb, o_sl, o_sh;
@@ -392,6 +393,9 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
     float *dst = a.o + (int64_t)b * a.o_sb + (int64_t)qi * a.o_sl +
                  (int64_t)h * a.o_sh;
     const float den = fmaxf(l[i], 1e-30f);
+    // the 4 lanes of a row hold the same m and l
+    if (a.lse != nullptr && tq == 0)
+      a.lse[((int64_t)b * a.hq + h) * a.lq + qi] = m[i] + logf(den);
 #pragma unroll
     for (int c = 0; c < kOt; ++c) {
       const int d0 = 8 * c + 2 * tq;
@@ -611,6 +615,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     float *dst = a.o + (int64_t)b * a.o_sb + (int64_t)qi * a.o_sl +
                  (int64_t)h * a.o_sh;
     const float den = fmaxf(l[i], 1e-30f);
+    // every block of the row's output chunks, and every lane of the row,
+    // holds the same m and l: the first writes lse
+    if (a.lse != nullptr && tx == 0 && oc == 0)
+      a.lse[((int64_t)b * a.hq + h) * a.lq + qi] = m[i] + logf(den);
 #pragma unroll
     for (int c = 0; c < kDc; ++c) {
       const int d0 = dv0 + 4 * tx + 64 * c;
@@ -646,12 +654,16 @@ int launch_wide(AttnArgs a, int64_t rows, int b, void *stream) {
 // C entry point, bound with ctypes by repro_torch/kernels/build.py.  It
 // launches on `stream` without synchronising and returns cudaGetLastError()
 // (or cudaErrorInvalidValue for a geometry the kernel cannot take).
-// Strides are in elements; the head dim must be contiguous.
+// Strides are in elements; the head dim must be contiguous.  A non-null
+// `lse` (contiguous (B, Hq, Lq)) receives each row's log-sum-exp
+// m + log(max(l, 1e-30)), which the backward kernels of
+// flash_attention_bwd.cu read; o is the same with or without it.
 extern "C" {
 
 int flash_attention_f32(const float *q, const float *k, const float *v,
-                        float *o, int b, int lq, int lk, int hq, int hkv,
-                        int d, int64_t q_sb, int64_t q_sl, int64_t q_sh,
+                        float *o, float *lse, int b, int lq, int lk, int hq,
+                        int hkv, int d, int64_t q_sb, int64_t q_sl,
+                        int64_t q_sh,
                         int64_t k_sb, int64_t k_sl, int64_t k_sh,
                         int64_t v_sb, int64_t v_sl, int64_t v_sh,
                         int64_t o_sb, int64_t o_sl, int64_t o_sh, int causal,
@@ -662,7 +674,7 @@ int flash_attention_f32(const float *q, const float *k, const float *v,
       hkv > 65535)
     return (int)cudaErrorInvalidValue;
   AttnArgs a;
-  a.q = q; a.k = k; a.v = v; a.o = o;
+  a.q = q; a.k = k; a.v = v; a.o = o; a.lse = lse;
   a.lq = lq; a.lk = lk; a.hq = hq; a.hkv = hkv; a.d = d;
   a.group = hq / hkv;
   a.q_sb = q_sb; a.q_sl = q_sl; a.q_sh = q_sh;

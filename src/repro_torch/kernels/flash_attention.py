@@ -11,6 +11,18 @@ compute ``_kernel`` (``repro/kernels/flash_attention.py:31``): scores
 the keys (query i sits at position ``i + Lk - Lq``), and the online
 softmax over key tiles in f32.  GQA: query head h reads KV head
 ``h // (Hq / Hkv)``; no K/V head is replicated.
+
+Under autograd (grad enabled and q, k or v requiring grad) the call goes
+through ``_FlashAttentionFn``: its forward also keeps the row log-sum-exp
+``lse = m + log(max(l, 1e-30))`` (B, Hq, Lq), which the kernel writes when
+it is given a pointer for it (``o`` is bitwise the same either way); its
+backward launches the two kernels of ``csrc/flash_attention_bwd.cu`` (dQ,
+which first corrects lse and forms delta from its own recomputed scores,
+then dK and dV) on CUDA tensors and runs
+:func:`flash_attention_backward_plain` on CPU tensors.  The JAX package
+has no backward kernel: it differentiates ``ops.attention(impl=
+"chunked")`` through XLA.  The backward covers D <= 256 (the forward's
+narrow route); D > 256 under grad raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,15 +34,24 @@ import torch
 from repro_torch.kernels import build
 
 BLOCK_K = 64           # keys per tile, the kernel's kKeys
+BWD_BLOCK_K = 32       # keys per tile of the backward kernels
+MAX_BWD_D = 256        # the backward kernels' widest head
 NEG_INF = -1e30        # the TPU kernel's mask value
+WIDE_BWD = ("the flash-attention backward takes head_dim <= 256; the wide "
+            "route's backward is ROADMAP Queue 2 C item 8 (the flash "
+            "backward)")
 
-# Kernel launches: each successful launch adds one.
+# Kernel launches: each successful launch adds one.  The forward's count
+# includes the launches under autograd (and a remat recompute); the
+# backward's two kernels count in BWD_LAUNCHES.
 LAUNCHES = {"flash_attention": 0}
+BWD_LAUNCHES = {"flash_attention_bwd_dkdv": 0, "flash_attention_bwd_dq": 0}
 
 
 def reset_launch_counts() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, BWD_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 def _check(q, k, v, causal, soft_cap, window) -> None:
@@ -61,18 +82,14 @@ def _check(q, k, v, causal, soft_cap, window) -> None:
         raise ValueError(f"soft_cap={soft_cap} must be > 0")
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True,
-                          soft_cap: float | None = None,
-                          window: int | None = None,
-                          block_k: int = BLOCK_K) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: the key tiles of ``block_k``
-    keys in order, each one's scores, soft cap and -1e30 mask, and the
-    online max / sum / accumulator update of ``_kernel``, for all query
-    rows at once.  Tiles before the first query's window are skipped, as
-    the kernel skips the tiles masked for all rows of a block (exactly:
-    such a tile adds 0 after a row's first valid key and is wiped before
-    it).  q: (B, Lq, Hq, D); k/v: (B, Lk, Hkv, D)."""
+def _plain_forward(q, k, v, *, causal, soft_cap, window, block_k):
+    """The kernel's function in plain PyTorch -> (o, lse): the key tiles
+    of ``block_k`` keys in order, each one's scores, soft cap and -1e30
+    mask, and the online max / sum / accumulator update of ``_kernel``,
+    for all query rows at once; ``lse`` (B, Hq, Lq) is ``m + log(max(l,
+    1e-30))``.  Tiles before the first query's window are skipped, as the
+    kernel skips the tiles masked for all rows of a block (exactly: such a
+    tile adds 0 after a row's first valid key and is wiped before it)."""
     b, lq, hq, d = q.shape
     _, lk, hkv, _ = k.shape
     group = hq // hkv
@@ -83,22 +100,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = torch.full((b, hkv, group, lq, 1), NEG_INF, device=q.device)
     l = torch.zeros((b, hkv, group, lq, 1), device=q.device)
     acc = torch.zeros((b, hkv, group, lq, d), device=q.device)
-    # the last query sees every key up to Lk - 1: only a window skips
-    k_begin = max(0, off - window + 1) if window is not None else 0
-    for k0 in range(k_begin // block_k * block_k, lk, block_k):
+    for k0 in range(_first_tile(lq, lk, window, block_k), lk, block_k):
         kc = k[:, k0:k0 + block_k].float()
         vc = v[:, k0:k0 + block_k].float()
         s = torch.einsum("bhgqd,bchd->bhgqc", qg, kc) * sm_scale
         if soft_cap is not None:
             s = soft_cap * torch.tanh(s / soft_cap)
-        k_pos = torch.arange(k0, k0 + kc.shape[1], device=q.device)
-        mask = torch.ones((lq, kc.shape[1]), dtype=torch.bool,
-                          device=q.device)
-        if causal:
-            mask &= q_pos[:, None] >= k_pos[None, :]
-        if window is not None:
-            mask &= (q_pos[:, None] - k_pos[None, :]) < window
-        s = torch.where(mask, s, NEG_INF)
+        s = torch.where(_mask(q_pos, k0, kc.shape[1], causal, window), s,
+                        NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
@@ -106,27 +115,111 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * alpha + torch.einsum("bhgqc,bchd->bhgqd", p, vc)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, lq, hq, d).to(q.dtype)
+    lse = (m + torch.log(torch.clamp(l, min=1e-30))).reshape(b, hq, lq)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, lq, hq, d).to(q.dtype), lse
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, soft_cap: float | None = None,
-                    window: int | None = None) -> torch.Tensor:
-    """q: (B, Lq, Hq, D); k/v: (B, Lk, Hkv, D), f32, head dim contiguous
-    (other strides are read as they are) -> (B, Lq, Hq, D).
+def _first_tile(lq: int, lk: int, window, block_k: int) -> int:
+    """The first key tile any query sees: the last query sees every key up
+    to Lk - 1, so only a window skips tiles."""
+    k_begin = max(0, lk - lq - window + 1) if window is not None else 0
+    return k_begin // block_k * block_k
 
-    On CUDA tensors, one launch of the hand-written kernel (counted in
-    ``LAUNCHES``); on CPU tensors, :func:`flash_attention_plain`.  Raises
-    ``ValueError`` for what the kernel cannot take: a dtype other than
-    f32, Hq % Hkv != 0, causal with Lq > Lk.  Any head_dim: D > 256 runs
-    the kernel's wide-head route (D in chunks, 256 output columns a
-    block).
-    """
-    _check(q, k, v, causal, soft_cap, window)
-    if q.device.type == "cpu":
-        with torch.no_grad():
-            return flash_attention_plain(q, k, v, causal=causal,
-                                         soft_cap=soft_cap, window=window)
+
+def _mask(q_pos, k0: int, n: int, causal: bool, window):
+    """Valid (query, key) pairs of keys [k0, k0 + n): (Lq, n) bool."""
+    k_pos = torch.arange(k0, k0 + n, device=q_pos.device)
+    mask = torch.ones((q_pos.shape[0], n), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    return mask
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          soft_cap: float | None = None,
+                          window: int | None = None,
+                          block_k: int = BLOCK_K) -> torch.Tensor:
+    """The kernel's function in plain PyTorch (see :func:`_plain_forward`).
+    q: (B, Lq, Hq, D); k/v: (B, Lk, Hkv, D)."""
+    return _plain_forward(q, k, v, causal=causal, soft_cap=soft_cap,
+                          window=window, block_k=block_k)[0]
+
+
+def flash_attention_backward_plain(q, k, v, lse, do, *, causal=True,
+                                   soft_cap=None, window=None,
+                                   block_k: int = BWD_BLOCK_K):
+    """The backward kernels' function in plain PyTorch -> (dq, dk, dv).
+
+    Scores are recomputed key tile by key tile of ``block_k`` keys, in the
+    order the dQ kernel takes them, twice.  First the rows' statistics,
+    with the forward's ``lse`` (B, Hq, Lq) as the reference point: ``e =
+    exp(y - lse)`` for a valid pair (y the scaled, capped score), ``lse' =
+    lse + log(sum e)``, ``delta = sum(e dP) / sum(e)``, so that P is an
+    exact softmax of these scores (``csrc/flash_attention_bwd.cu``, "Row
+    statistics").  Then ``p = exp(y - lse')``, ``dS = P (dP - delta)``
+    times ``1 - tanh^2`` under the soft cap, ``dV = P^T dO``, ``dK = scale
+    dS^T Q``, ``dQ = scale dS K`` (the G heads of a KV head summed into
+    its dK and dV).  q, do: (B, Lq, Hq, D); k, v: (B, Lk, Hkv, D)."""
+    b, lq, hq, d = q.shape
+    _, lk, hkv, _ = k.shape
+    group = hq // hkv
+    sm_scale = 1.0 / math.sqrt(d)
+
+    def rows(t):      # (B, Lq, Hq, X) -> (B, Hkv, G, Lq, X)
+        return t.reshape(b, lq, hkv, group, -1).permute(0, 2, 3, 1, 4)
+
+    qg, dog = rows(q.float()), rows(do.float())
+    q_pos = torch.arange(lq, device=q.device) + lk - lq
+    tiles = range(_first_tile(lq, lk, window, block_k), lk, block_k)
+
+    def tile(k0):
+        """(K, V, y, the cap's 1 - tanh^2 or None, mask, dP) of a tile."""
+        kc = k[:, k0:k0 + block_k].float()
+        vc = v[:, k0:k0 + block_k].float()
+        y = torch.einsum("bhgqd,bchd->bhgqc", qg, kc) * sm_scale
+        chain = None
+        if soft_cap is not None:
+            th = torch.tanh(y / soft_cap)
+            y, chain = soft_cap * th, 1.0 - th * th
+        mask = _mask(q_pos, k0, kc.shape[1], causal, window)
+        dp = torch.einsum("bhgqd,bchd->bhgqc", dog, vc)
+        return kc, vc, y, chain, mask, dp
+
+    lse_g = lse.reshape(b, hkv, group, lq, 1).float()
+    l2 = torch.zeros_like(lse_g)
+    t2 = torch.zeros_like(lse_g)
+    for k0 in tiles:
+        _, _, y, _, mask, dp = tile(k0)
+        e = torch.where(mask, torch.exp(y - lse_g), 0.0)
+        l2 = l2 + e.sum(-1, keepdim=True)
+        t2 = t2 + (e * dp).sum(-1, keepdim=True)
+    lse_g = lse_g + torch.log(l2)
+    delta = t2 / l2
+
+    dq = torch.zeros_like(qg)
+    dk = torch.zeros((b, lk, hkv, d), device=q.device)
+    dv = torch.zeros((b, lk, hkv, d), device=q.device)
+    for k0 in tiles:
+        kc, _, y, chain, mask, dp = tile(k0)
+        p = torch.where(mask, torch.exp(y - lse_g), 0.0)
+        ds = p * (dp - delta)
+        if chain is not None:
+            ds = ds * chain
+        dv[:, k0:k0 + block_k] = torch.einsum("bhgqc,bhgqd->bchd", p, dog)
+        dk[:, k0:k0 + block_k] = torch.einsum("bhgqc,bhgqd->bchd", ds,
+                                              qg) * sm_scale
+        dq = dq + torch.einsum("bhgqc,bchd->bhgqd", ds, kc)
+    dq = (dq * sm_scale).permute(0, 3, 1, 2, 4).reshape(b, lq, hq, d)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _launch_forward(q, k, v, causal, soft_cap, window, lse=None):
+    """One launch of ``flash_attention_f32``; ``lse``, a contiguous (B, Hq,
+    Lq) f32 tensor or None, receives the rows' log-sum-exp."""
     b, lq, hq, d = q.shape
     _, lk, hkv, _ = k.shape
     lib = build.library("flash_attention")
@@ -135,6 +228,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             b, lq, lk, hq, hkv, d, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *o.stride()[:3], int(causal),
             0 if window is None else window,
@@ -148,3 +242,111 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"soft_cap={soft_cap}, window={window}")
     LAUNCHES["flash_attention"] += 1
     return o
+
+
+def _launch_backward(kernel, q, k, v, do, lse, stats, outs, causal,
+                     soft_cap, window) -> None:
+    """One launch of ``flash_attention_bwd_{kernel}_f32``: ``"dq"`` (outs
+    = (dq,)) reads the forward's ``lse`` and writes the rows' lse' and
+    delta into ``stats`` (2, B, Hq, Lq); ``"dkdv"`` (outs = (dk, dv))
+    reads them.  Outputs contiguous."""
+    b, lq, hq, d = q.shape
+    _, lk, hkv, _ = k.shape
+    lib = build.library("flash_attention_bwd")
+    ptrs = [t.data_ptr() for t in outs] + [None] * (2 - len(outs))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, f"flash_attention_bwd_{kernel}_f32")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), stats.data_ptr(), *ptrs, b, lq, lk, hq, hkv, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3], int(causal), 0 if window is None else window,
+            0.0 if soft_cap is None else soft_cap, 1.0 / math.sqrt(d),
+            stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention_bwd_{kernel} kernel launch failed: CUDA error "
+            f"{err} ({lib.flash_attention_bwd_error_string(err).decode()}) "
+            f"for q {tuple(q.shape)}, k {tuple(k.shape)}, causal={causal}, "
+            f"soft_cap={soft_cap}, window={window}")
+    BWD_LAUNCHES[f"flash_attention_bwd_{kernel}"] += 1
+
+
+def flash_attention_backward(q, k, v, lse, do, *, causal=True,
+                             soft_cap=None, window=None):
+    """(dq, dk, dv) of attention at ``do``, from the forward's ``lse``
+    (B, Hq, Lq).  On CUDA tensors one launch of each backward kernel (dQ
+    with the rows' statistics, then dK and dV; counted in
+    ``BWD_LAUNCHES``); on CPU tensors :func:`flash_attention_backward_
+    plain`.  D > 256 raises ``NotImplementedError``."""
+    _check(q, k, v, causal, soft_cap, window)
+    if q.shape[-1] > MAX_BWD_D:
+        raise NotImplementedError(WIDE_BWD)
+    kw = dict(causal=causal, soft_cap=soft_cap, window=window)
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, lse, do, **kw)
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    lse = lse.contiguous()
+    stats = torch.empty((2, *lse.shape), dtype=torch.float32,
+                        device=q.device)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    _launch_backward("dq", q, k, v, do, lse, stats, (dq,), **kw)
+    _launch_backward("dkdv", q, k, v, do, lse, stats, (dk, dv), **kw)
+    return dq, dk, dv
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """Attention with the kernels' gradient: the forward keeps (q, k, v,
+    lse), the backward runs :func:`flash_attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, soft_cap, window):
+        if q.device.type == "cpu":
+            o, lse = _plain_forward(q, k, v, causal=causal, soft_cap=soft_cap,
+                                    window=window, block_k=BLOCK_K)
+        else:
+            b, lq, hq, _ = q.shape
+            lse = torch.empty((b, hq, lq), dtype=torch.float32,
+                              device=q.device)
+            o = _launch_forward(q, k, v, causal, soft_cap, window, lse)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.kw = dict(causal=causal, soft_cap=soft_cap, window=window)
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, lse, do, **ctx.kw)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, soft_cap: float | None = None,
+                    window: int | None = None) -> torch.Tensor:
+    """q: (B, Lq, Hq, D); k/v: (B, Lk, Hkv, D), f32, head dim contiguous
+    (other strides are read as they are) -> (B, Lq, Hq, D).
+
+    On CUDA tensors, one launch of the hand-written kernel (counted in
+    ``LAUNCHES``); on CPU tensors, :func:`flash_attention_plain`.  Under
+    autograd, through ``_FlashAttentionFn`` (module docstring), whose
+    backward runs the backward kernels.  Raises ``ValueError`` for what
+    the kernel cannot take: a dtype other than f32, Hq % Hkv != 0, causal
+    with Lq > Lk.  Any head_dim: D > 256 runs the kernel's wide-head route
+    (D in chunks, 256 output columns a block), which has no backward:
+    under autograd it raises ``NotImplementedError``.
+    """
+    _check(q, k, v, causal, soft_cap, window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if q.shape[-1] > MAX_BWD_D:
+            raise NotImplementedError(WIDE_BWD)
+        return _FlashAttentionFn.apply(q, k, v, causal, soft_cap, window)
+    if q.device.type == "cpu":
+        with torch.no_grad():
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         soft_cap=soft_cap, window=window)
+    return _launch_forward(q, k, v, causal, soft_cap, window)

@@ -79,9 +79,9 @@ def trim_conv1d(x: torch.Tensor, w: torch.Tensor, *,
     _check(x, w)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         raise NotImplementedError(
-            "trim_conv1d has no backward (ROADMAP Queue 1 item 2f, LM "
-            "training); call it under torch.no_grad() or on detached "
-            "tensors")
+            "trim_conv1d has no backward (ROADMAP Queue 1 item 2f, ssm and "
+            "hybrid training); call it under torch.no_grad() or on "
+            "detached tensors")
     plan = Conv1dPlan.build(tuple(x.shape), tuple(w.shape), tile_l=tile_l)
     if x.device.type == "cpu":
         with torch.no_grad():

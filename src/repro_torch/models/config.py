@@ -64,7 +64,7 @@ class ModelConfig:
     dtype: str = "float32"
     attn_impl: str = "flash"       # flash | chunked | ref
     attn_chunk: int = 1024
-    remat: bool = True             # read by no code of the port yet
+    remat: bool = True             # checkpoint each dense block under grad
     unroll_layers: bool = False    # the port's layer loop is always unrolled
     moe_impl: str = "gmm"
 

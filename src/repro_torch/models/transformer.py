@@ -4,14 +4,22 @@
 Parameters keep the JAX tree and layout: ``tok {embed, head}``, ``blocks``
 stacked over a leading layer axis (``wq (L, d, h, hd)``, ``wo (L, h, hd,
 d)``, ...), ``ln_f`` and, for VLMs, ``vision_proj``.  A Python loop over
-the layer axis takes the place of ``lax.scan``; there is no remat, since
-this path does no training.  Encoder-decoder stacks and MoE blocks are not
-ported yet (ROADMAP Queue 1 items 2e and 2d).
+the layer axis takes the place of ``lax.scan``.  Each stacked leaf is
+cut into its layers once a forward with ``torch.unbind`` (views; under
+grad one gradient buffer per leaf, where ``tree[i]`` would allocate a zero
+tensor the size of the whole leaf per layer in its backward).  Under grad
+with ``cfg.remat`` each block runs under
+``torch.utils.checkpoint`` (non-reentrant), the counterpart of JAX's
+``jax.checkpoint(..., nothing_saveable)`` (``repro/models/transformer.py:
+75-77``): only the block inputs are kept, and the backward recomputes each
+block's forward.  Encoder-decoder stacks and MoE blocks are not ported yet
+(ROADMAP Queue 1 items 2e and 2d).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.base import Param, stack_params
@@ -39,6 +47,15 @@ def layer_slice(tree, i: int):
     if isinstance(tree, torch.Tensor):
         return tree[i]
     return {k: layer_slice(v, i) for k, v in tree.items()}
+
+
+def layer_list(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree, each leaf cut once with
+    ``torch.unbind`` (views; under grad one backward node a leaf)."""
+    if isinstance(tree, torch.Tensor):
+        return list(torch.unbind(tree))
+    per_key = {k: layer_list(v, n) for k, v in tree.items()}
+    return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
 
 
 def lm_params(cfg: ModelConfig) -> dict:
@@ -72,10 +89,16 @@ def lm_apply(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         positions = cache_len.reshape(-1, 1) - 1
     else:
         positions = torch.arange(x.shape[1], device=x.device)[None]
-    for i in range(cfg.n_layers):
+    # blocks rematerialised when training (grad on, no caches)
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    for i, pi in enumerate(layer_list(params["blocks"], cfg.n_layers)):
         kv = None if caches is None else (caches["k"][i], caches["v"][i])
-        x = block_apply(layer_slice(params["blocks"], i), x, cfg,
-                        positions=positions, kv_cache=kv, cache_len=cache_len)
+        if remat:
+            x = checkpoint(block_apply, pi, x, cfg, positions=positions,
+                           use_reentrant=False)
+        else:
+            x = block_apply(pi, x, cfg, positions=positions, kv_cache=kv,
+                            cache_len=cache_len)
     x = L.norm_apply(params["ln_f"], x, cfg)
     logits = L.head_apply(params["tok"], x, cfg)
     if cfg.logits_soft_cap:

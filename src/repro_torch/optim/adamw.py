@@ -4,10 +4,17 @@ The JAX numerics: clip by global norm with scale ``min(1, clip / (|g| +
 1e-9))``, warmup + cosine learning rate, bias corrections from ``step +
 1``, and decoupled weight decay only on tensors with ndim >= 2.  Trees are
 nested dicts; their leaves go in sorted-key order, as ``jax.tree.leaves``
-takes them, so the global norm sums in the JAX package's order.  Updates
-are functional (new trees, inputs untouched) and run under
-``torch.no_grad()``; ``step`` is a Python int or a 0-d tensor.  The
-ZeRO-style sharding of the JAX moments has no counterpart on one card.
+takes them, so the global norm sums in the JAX package's order.
+``apply_updates`` is functional (new trees, inputs untouched);
+``apply_updates_`` updates params and moments in place, the port's
+counterpart of the JAX train step's state donation (``repro/distributed/
+steps.py:128``, ``donate_argnums=(0,)``): it holds two leaf-sized
+temporaries where the functional update holds a second copy of params,
+mu and nu (at qwen2.5-3b's 3.40 B parameters ~41 GB more), and gives
+bitwise the functional update's numbers (the same operations in the same
+order).  Both run under ``torch.no_grad()``; ``step`` is a Python int or a
+0-d tensor.  The ZeRO-style sharding of the JAX moments has no counterpart
+on one card.
 """
 
 from __future__ import annotations
@@ -85,19 +92,25 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _scalars(grads, step, cfg: AdamWConfig, device):
+    """(grad_norm, clip scale, lr, bc1, bc2): 0-d f32 tensors on
+    ``device``."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    s = _step_tensor(step, device)
+    bc1 = 1 - torch.pow(torch.tensor(cfg.b1, device=device), s + 1)
+    bc2 = 1 - torch.pow(torch.tensor(cfg.b2, device=device), s + 1)
+    return gnorm, scale, lr_at(cfg, step, device), bc1, bc2
+
+
 @torch.no_grad()
 def apply_updates(params, grads, moments, step, cfg: AdamWConfig):
     """Returns ``(new_params, new_moments, metrics)`` with ``metrics =
     {"grad_norm", "lr"}`` (0-d tensors)."""
     flat_p = tree_leaves(params)
-    device = flat_p[0].device
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    lr = lr_at(cfg, step, device)
-    s = _step_tensor(step, device)
+    gnorm, scale, lr, bc1, bc2 = _scalars(grads, step, cfg,
+                                          flat_p[0].device)
     b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1 - torch.pow(torch.tensor(b1, device=device), s + 1)
-    bc2 = 1 - torch.pow(torch.tensor(b2, device=device), s + 1)
 
     new_p, new_mu, new_nu = [], [], []
     for p, g, mu, nu in zip(flat_p, tree_leaves(grads),
@@ -116,3 +129,36 @@ def apply_updates(params, grads, moments, step, cfg: AdamWConfig):
             {"mu": tree_unflatten(params, new_mu),
              "nu": tree_unflatten(params, new_nu)},
             {"grad_norm": gnorm, "lr": lr})
+
+
+@torch.no_grad()
+def apply_updates_(params, grads, moments, step, cfg: AdamWConfig) -> dict:
+    """:func:`apply_updates` in place: every leaf of ``params``,
+    ``moments["mu"]`` and ``moments["nu"]`` (float32) takes its new value,
+    and the leaves of ``grads`` (float32, the step's own) are scaled by
+    the clip factor in place.  Returns the metrics ``{"grad_norm",
+    "lr"}``.  Each new value comes from the functional update's operations
+    in its order (``b1 * mu`` then ``+ (1 - b1) * g``, ...), so the two
+    agree bit for bit."""
+    flat_p = tree_leaves(params)
+    flat = (flat_p, tree_leaves(grads), tree_leaves(moments["mu"]),
+            tree_leaves(moments["nu"]))
+    if any(t.dtype != torch.float32 for leaves in flat for t in leaves):
+        raise ValueError("apply_updates_ updates float32 params, grads and "
+                         "moments in place; use apply_updates for others")
+    gnorm, scale, lr, bc1, bc2 = _scalars(grads, step, cfg,
+                                          flat_p[0].device)
+    b1, b2 = cfg.b1, cfg.b2
+    for p, g, mu, nu in zip(*flat):
+        g.mul_(scale)
+        t = torch.mul(g, 1 - b1)
+        mu.mul_(b1).add_(t)                       # b1 mu + (1 - b1) g
+        torch.mul(g, 1 - b2, out=t).mul_(g)
+        nu.mul_(b2).add_(t)                       # b2 nu + (1 - b2) g g
+        u = torch.div(nu, bc2).sqrt_().add_(cfg.eps)
+        torch.div(mu, bc1, out=t).div_(u)         # (mu / bc1) / (...)
+        if p.dim() >= 2:   # decoupled weight decay on matrices only
+            t.add_(torch.mul(p, cfg.weight_decay, out=u))
+        p.sub_(t.mul_(lr))
+        del t, u
+    return {"grad_norm": gnorm, "lr": lr}

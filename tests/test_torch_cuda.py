@@ -26,11 +26,19 @@ oracle within 1e-5 * max|plain| (f32 sums in another order) on the CPU
 tests' geometries plus head dims 12, 14, 128 and 256 and the wide-head
 route's 320, 512 and 600, GQA groups 7 and 10,
 windows, soft caps and ragged Lq / Lk; a SMOKE LM prefill on it against
-``attn_impl="ref"``.  The conv1d kernel is held against its plain version
-and the ``ref`` oracle bit for bit (the same rounded products summed in
-the same order) on ragged runs, L < K-1, narrow channel counts, K = 2..8
-and strided views like the Mamba mixer's, and K = 9, 12 and 16 (the
-runtime-K instance), and recurrentgemma-2b's prefill shape; a
+``attn_impl="ref"``.  The flash backward kernels (dK/dV and dQ) are held
+against their plain backward on the same lse and against autograd
+of the ``ref`` oracle within 1e-4 of max|grad| (FFMA chains against
+einsums) at head dims 12, 16, 64, 128 and 256 (windowed and soft-capped),
+GQA groups up to 10 and Lq < Lk, and must repeat bitwise; the forward's o
+is bitwise the same with and without its lse output; a loss through
+``ops.attention(impl="flash")`` differentiates through them; and one
+train step of a depth-2 SMOKE LM on the kernels (remat) matches the same
+step on ``attn_impl="ref"``.  The conv1d kernel is held against its plain
+version and the ``ref`` oracle bit for bit (the same rounded products
+summed in the same order) on ragged runs, L < K-1, narrow channel
+counts, K = 2..8 and strided views like the Mamba mixer's, and K = 9, 12
+and 16 (the runtime-K instance), and recurrentgemma-2b's prefill shape; a
 falcon-mamba-7b SMOKE prefill on it launches it once a layer and matches
 the same prefill on the CPU within 1e-5 * max|logits| (GEMMs in another
 order); recurrentgemma-2b cut to three layers (published widths, a
@@ -646,6 +654,125 @@ def test_flash_wrapper_raises_on_cuda(cuda):
         fa.flash_attention(torch.zeros((1, 9, 4, 16), device=cuda), kv, kv)
     with pytest.raises(ValueError):
         fa.flash_attention(torch.zeros((1, 8, 3, 16), device=cuda), kv, kv)
+
+
+# (b, lq, lk, hq, hkv, d, causal, soft_cap, window): the backward kernels'
+# three instances (Dp 64, 128, 256), GQA groups 1, 2, 7 and 10, ragged Lq
+# < Lk, windows and soft caps, several row and key tiles
+FLASH_BWD_CASES = [
+    (2, 100, 100, 4, 2, 16, True, None, None),
+    (1, 130, 130, 7, 1, 64, True, None, None),
+    (2, 45, 300, 8, 2, 128, True, None, None),
+    (1, 200, 200, 10, 1, 256, True, 30.0, 70),
+    (1, 70, 150, 6, 3, 12, False, 5.0, 40),
+]
+FLASH_BWD_TOL = 1e-4
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES,
+                         ids=[str(i) for i in range(len(FLASH_BWD_CASES))])
+def test_flash_backward_kernels_match_plain(cuda, case):
+    """dq, dk, dv of the two backward kernels against the plain backward
+    on the same lse (1e-4 of max|grad|: FFMA chains against
+    einsums), against autograd of the ``ref`` oracle, and bitwise equal
+    over two calls; o bitwise the same with and without lse."""
+    from repro_torch.kernels import flash_attention as fa
+    b, lq, lk, hq, hkv, d, causal, cap, win = case
+    gen = torch.Generator(device="cuda").manual_seed(lq + d)
+    q, do = (torch.randn((b, lq, hq, d), generator=gen, device=cuda)
+             for _ in range(2))
+    k, v = (torch.randn((b, lk, hkv, d), generator=gen, device=cuda)
+            for _ in range(2))
+    kw = dict(causal=causal, soft_cap=cap, window=win)
+    lse = torch.empty((b, hq, lq), device=cuda)
+    o = fa._launch_forward(q, k, v, causal, cap, win, lse)
+    assert torch.equal(o, fa.flash_attention(q, k, v, **kw))
+    _, plain_lse = fa._plain_forward(q, k, v, block_k=fa.BLOCK_K, **kw)
+    assert (lse - plain_lse).abs().max().item() <= 1e-5 * plain_lse.abs(
+        ).max().item()
+    fa.reset_launch_counts()
+    got = fa.flash_attention_backward(q, k, v, lse, do, **kw)
+    again = fa.flash_attention_backward(q, k, v, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fa.BWD_LAUNCHES == {"flash_attention_bwd_dkdv": 2,
+                               "flash_attention_bwd_dq": 2}
+    plain = fa.flash_attention_backward_plain(q, k, v, lse, do, **kw)
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(ref.attention(
+        qq, kk, vv, causal=causal, logits_soft_cap=cap, window=win),
+        (qq, kk, vv), do)
+    for g, g2, p, w in zip(got, again, plain, want):
+        assert torch.equal(g, g2)
+        scale = p.abs().max().item()
+        assert (g - p).abs().max().item() <= FLASH_BWD_TOL * scale
+        assert (g - w).abs().max().item() <= FLASH_BWD_TOL * scale
+
+
+def test_flash_autograd_on_the_card_matches_ref(cuda):
+    """A loss through ``ops.attention(impl="flash")`` differentiates
+    through the kernels (one forward, one launch of each backward kernel)
+    to autograd of ``impl="ref"``; D > 256 under grad raises."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn((2, 64, 8, 64), generator=gen, device=cuda)
+    k, v = (torch.randn((2, 64, 2, 64), generator=gen, device=cuda)
+            for _ in range(2))
+    grads = {}
+    for impl in ("flash", "ref"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fa.reset_launch_counts()
+        out = ops.attention(*leaves, impl=impl, window=40)
+        grads[impl] = torch.autograd.grad((out * out).sum(), leaves)
+        want = 1 if impl == "flash" else 0
+        assert fa.LAUNCHES["flash_attention"] == want
+        assert set(fa.BWD_LAUNCHES.values()) == {want}
+    for g, w in zip(grads["flash"], grads["ref"]):
+        assert (g - w).abs().max().item() <= FLASH_BWD_TOL * w.abs().max(
+            ).item()
+    wide = torch.zeros((1, 8, 2, 264), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="Queue 2 C"):
+        fa.flash_attention(wide, wide, wide)
+
+
+def test_lm_train_step_on_the_kernels_matches_ref(cuda):
+    """One train step of a depth-2, narrow-width dense LM (qwen2.5-3b
+    SMOKE, remat on) on the flash kernels against the same step on
+    ``attn_impl="ref"`` from the same state: the loss within 1e-5, the
+    grad norm, params, mu and nu within 1e-4 of each tree's max (the
+    3xTF32 forward against cuBLAS, through a backward); the flash step
+    launches the forward twice a layer (remat) and each backward kernel
+    once a layer."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.optim import AdamWConfig, adamw
+    cfg = registry.get("qwen2.5-3b").SMOKE.replace(remat=True)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, decay_steps=50)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    toks = torch.randint(2, cfg.vocab, (4, 65), device=cuda, generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for impl in ("flash", "ref"):
+        state = steps.init_train_state(
+            cfg, opt, torch.Generator(device="cuda").manual_seed(1))
+        fa.reset_launch_counts()
+        out[impl] = steps.make_train_step(cfg.replace(attn_impl=impl), opt)(
+            state, batch)
+        if impl == "flash":
+            assert fa.LAUNCHES["flash_attention"] == 2 * cfg.n_layers
+            assert set(fa.BWD_LAUNCHES.values()) == {cfg.n_layers}
+    (sf, mf), (sr, mr) = out["flash"], out["ref"]
+    assert abs(mf["loss"].item() - mr["loss"].item()) <= 1e-5 * abs(
+        mr["loss"].item())
+    assert abs(mf["grad_norm"].item() - mr["grad_norm"].item()) <= \
+        1e-4 * mr["grad_norm"].item()
+    for tree in (("params",), ("opt", "mu"), ("opt", "nu")):
+        a, b = sf, sr
+        for key in tree:
+            a, b = a[key], b[key]
+        a = torch.cat([t.flatten() for t in adamw.tree_leaves(a)])
+        b = torch.cat([t.flatten() for t in adamw.tree_leaves(b)])
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
 
 
 def test_lm_prefill_on_the_kernel_matches_ref(cuda):
