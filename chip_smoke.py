@@ -245,25 +245,28 @@ Phases, each raising on failure (each prints its seconds):
 26. recurrentgemma serve — ``serve_batch`` at full width, batch 4, prompt
    16, gen 32, through the ring caches, conv windows and LRU states:
    tokens/s, ms per decode step and the step's device-busy share;
-27. flash backward check — the two backward kernels (dQ with the rows'
-   statistics, then dK / dV) against their plain version on the same lse
-   (``BWD_TOLERANCE``), two calls bitwise equal, the forward's o bitwise
-   the same with and without its lse output and that lse against the
-   plain forward's, at (t) the LM training shape (B 2, L 1024, Hq 16,
-   Hkv 2, D 128, causal), (c) recurrentgemma-2b's (B 1, L 4096, Hq 10,
-   Hkv 1, D 256, window 2048, cap 30), a GQA group of 7 at D 64 and
-   Lq 256 < Lk 1024; each case's ms (the whole backward and each kernel)
-   beside the forward's, the plain backward's, the FFMA bounds and, for
-   (t) and the G=7 case, SDPA's forward + backward and backward (f32,
-   TF32 off; the yardstick, never called by the port);
+27. flash backward check — the backward kernels (dQ with the rows'
+   statistics, the query heads' partial dK / dV, their sum) against their
+   plain version on the same lse (``BWD_TOLERANCE``; the sum bitwise),
+   two calls bitwise equal, the forward's o bitwise the same with and
+   without its lse output and that lse against the plain forward's, at
+   (t) the LM training shape (B 2, L 1024, Hq 16, Hkv 2, D 128, causal),
+   (c) recurrentgemma-2b's (B 1, L 4096, Hq 10, Hkv 1, D 256, window
+   2048, cap 30), a GQA group of 7 at D 64 and Lq 256 < Lk 1024; each
+   case's ms (the whole backward and each kernel), TFLOP/s and blocks
+   beside the forward's, the plain backward's, the 3xTF32 and FFMA
+   bounds and, for (t) and the G=7 case, SDPA's forward + backward and
+   backward (f32, TF32 off; the yardstick, never called by the port);
 28. LM train — full-width qwen2.5-3b (36 layers, 3.40 B parameters, f32,
    remat, flash) through ``launch.train.main``: 4 AdamW steps at batch 2
    x 1024 tokens of the copy task, each loss finite, exactly 72 flash
-   forward (36 + 36 in the recompute), 36 dK/dV and 36 dQ launches a
-   step, ms a step, peak memory and each step's grad norm; then the
+   forward (36 + 36 in the recompute), 36 dQ, 36 dK/dV and 36 partial-sum
+   launches a step, ms a step, peak memory and each step's grad norm;
+   then the
    first-step gradients (1 x 256 tokens): at the depth-2 cut the backward
-   kernels against the plain backward under the same forward
-   (``BWD_TOLERANCE``) and flash against ref (``LM_GRAD_TOLERANCE``),
+   kernels against the plain backward in float64 under the same forward
+   (``BWD_TOLERANCE``; the f32 plain backward's distance from it
+   printed) and flash against ref (``LM_GRAD_TOLERANCE``),
    chunked against ref beside them; at full depth flash against ref
    (printed), the gradient finite and its float64 norm; every layer's
    attention backward on the flash forward's activations against
@@ -272,7 +275,7 @@ Phases, each raising on failure (each prints its seconds):
 29. LM resume — qwen2.5-3b SMOKE widths on the kernels (flash, remat): 2
    steps, a checkpoint (``repro_torch.checkpoint``), a restore into a
    fresh state and 2 more steps, bitwise equal to 4 straight steps;
-30. the kernel JSON line (ten kernels; the launches of trim_conv1d and
+30. the kernel JSON line (eleven kernels; the launches of trim_conv1d and
    flash_attention include the recurrentgemma prefill's, flash_attention's
    and the backward kernels' the LM training steps'), then
    ``{"ok": true, "device": ...}`` last.
@@ -375,15 +378,22 @@ RGEMMA_WRAP_EXTRA = 64      # decode-vs-prefill prompt: window + this
 RGEMMA_TOLERANCE = 1e-4
 # Flash backward kernels against their plain version on the same lse:
 # of each gradient's max|plain|.  The kernels form S, dP and the
-# gradients as fmaf chains (d, rows and keys in ascending order), the
-# plain version as einsums over the same 32-key tiles: the f32 order
-# differs, nothing else (2e-7 to 7.5e-6 read at the training and
-# recurrentgemma-2b shapes on an NVIDIA H100 80GB HBM3).
+# gradients in 3xTF32 on the tensor cores (each product within ~2^-21 of
+# f32's, fresh accumulators against the tensor cores' truncation), the
+# plain version as f32 einsums over the dQ kernel's 16-key tiles (PR 25's
+# FFMA kernels read 2e-7 to 8.8e-6 at the training and recurrentgemma-2b
+# shapes on an NVIDIA H100 80GB HBM3).
 BWD_TOLERANCE = 1e-4
 # First-step gradients of the depth-2 cut of full-width qwen2.5-3b, of
 # each leaf's max|ref|.  (i) The backward kernels against their plain
-# version under the same forward (the kernel forward, the plain backward
-# swapped in): BWD_TOLERANCE; 5.6e-7 read.  (ii) The kernels against
+# version in float64 under the same forward (the kernel forward, the
+# plain backward swapped in, its f32 inputs and lse in float64):
+# BWD_TOLERANCE.  The plain version in f32 is no oracle at these logits:
+# |y| ~ 2000 has an f32 ulp of 2.4e-4, so p = exp(y - lse') carries ~1e-4
+# in any f32 arithmetic, and the f32 plain backward reads 2.39e-4 from the
+# float64 one, the 3xTF32 kernels 8.2e-5 (PR 25's FFMA kernels read 5.6e-7
+# from the f32 plain: their dot products rounded as cuBLAS's do; NVIDIA
+# H100 80GB HBM3, 700.00 W, PR 26).  (ii) The kernels against
 # attn_impl="ref", a wiring check: a wrong head, mask, layer or
 # statistic reads O(1).  The gradient at this init is ill-conditioned in
 # the forward's rounding: with the backward kernels swapped for the plain
@@ -437,34 +447,39 @@ def card() -> str:
 
 
 def flash_sass_check() -> dict:
-    """Disassemble the built flash-attention library (``cuobjdump
+    """Disassemble the built flash-attention libraries (``cuobjdump
     -sass``) and count, in each kernel instance, the tensor-core
     instructions on TF32 operands (``HMMA.1688.F32.TF32``): every
-    narrow-route instance (D <= 256) must issue them, the wide route
+    narrow-route forward instance (D <= 256) and every backward instance
+    (dQ and dK/dV at Dp 64, 128, 256) must issue them, the wide route
     none."""
     import shutil
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", build.library(
-        "flash_attention")._name], capture_output=True, text=True,
-        check=True, timeout=300).stdout
     counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HMMA" in line and "TF32" in line:
-            counts[fn] += 1
-    narrow = {f: n for f, n in counts.items()
-              if "flash_attention_kernel" in f}
-    wide = {f: n for f, n in counts.items()
-            if "flash_attention_wide_kernel" in f}
+    for lib in ("flash_attention", "flash_attention_bwd"):
+        sass = subprocess.run([tool, "-sass", build.library(lib)._name],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                counts[fn] = 0
+            elif fn is not None and "HMMA" in line and "TF32" in line:
+                counts[fn] += 1
+
+    def of(name):
+        return {f: n for f, n in counts.items() if name in f}
+    narrow, wide = of("flash_attention_kernel"), of("flash_attention_wide")
+    bwd = {**of("flash_attention_bwd_dq_kernel"),
+           **of("flash_attention_bwd_dkdv_kernel")}
     if len(narrow) != 3 or min(narrow.values()) == 0 or \
-            any(wide.values()):
+            any(wide.values()) or len(bwd) != 6 or min(bwd.values()) == 0:
         raise AssertionError(f"flash SASS: TF32 HMMA counts {counts}")
     print("flash SASS: HMMA.1688.F32.TF32 instructions per narrow "
           "instance " + ", ".join(str(n) for n in narrow.values())
-          + f"; wide route {sum(wide.values())}")
+          + f"; wide route {sum(wide.values())}; backward dQ / dK/dV "
+          "instances " + ", ".join(str(n) for n in bwd.values()))
     return counts
 
 
@@ -3357,16 +3372,17 @@ def flash_bwd_cases():
 
 
 def flash_bwd_bounds(b, lq, lk, hq, hkv, d, causal, window) -> dict:
-    """{part: {route: (ms, bound_by)}}: the FLOPs a part's function needs
-    per valid (query, key) pair (the whole backward 10 D, 2.5 x the
-    forward's 4 D: S, dP, dV, dK, dQ; the dK/dV kernel 8 D: S, dP, dV, dK;
-    the dQ kernel, the rows' statistics and dQ, 6 D: S, dP, dQ) at the
-    rate of each f32-accurate route, against its bytes (each input read
-    once, each output written once) over 3.35 TB/s.  Routes: ``ffma``,
-    f32 FFMA at 67 TFLOP/s (the kernels' own); ``tf32x3``, 3xTF32 on the
-    tensor cores (three TF32 products a product, 3 x FLOPs over 495
-    TFLOP/s; the forward's narrow route), the least time the card could
-    take."""
+    """{part: {route: (ms, bound_by), "flops": FLOPs}}: the FLOPs a part's
+    function needs per valid (query, key) pair (the whole backward 10 D,
+    2.5 x the forward's 4 D: S, dP, dV, dK, dQ; the dK/dV kernel 8 D: S,
+    dP, dV, dK; the dQ kernel, the rows' statistics and dQ, 6 D: S, dP,
+    dQ) at the rate of each f32-accurate route, against its bytes (each
+    input read once, each output written once) over 3.35 TB/s.  Routes:
+    ``tf32x3``, 3xTF32 on the tensor cores (three TF32 products a
+    product, 3 x FLOPs over 495 TFLOP/s; the kernels' route), the least
+    time the card could take; ``ffma``, f32 FFMA at 67 TFLOP/s.  ``sum``,
+    the G heads' partials added: (G - 1) adds an element of dK and dV at
+    half the FFMA FLOP rate, against 2 G reads and 2 writes an element."""
     q_pos = np.arange(lq) + lk - lq
     hi = np.minimum(q_pos + 1, lk) if causal else np.full(lq, lk)
     lo = np.maximum(q_pos - window + 1, 0) if window else np.zeros(lq)
@@ -3387,36 +3403,46 @@ def flash_bwd_bounds(b, lq, lk, hq, hkv, d, causal, window) -> dict:
             for route, ops_ms in (
                 ("ffma", flops / PEAK_F32_FLOPS * 1e3),
                 ("tf32x3", 3 * flops / PEAK_TF32_FLOPS * 1e3))}
+        out[part]["flops"] = flops
+    g = hq // hkv
+    adds_ms = 2 * (g - 1) * keys / (PEAK_F32_FLOPS / 2) * 1e3
+    bytes_ms = 4 * (2 * g + 2) * keys / PEAK_BYTES_PER_S * 1e3
+    out["sum"] = (max(adds_ms, bytes_ms),
+                  "operations" if adds_ms >= bytes_ms else "bytes")
     return out
 
 
 def check_flash_backward(torch):
-    """The two backward kernels against their plain version, two calls
+    """The backward kernels against their plain version, two calls
     bitwise equal, the forward's o bitwise the same with and without lse
-    and its lse against the plain forward's; times beside the plain
-    version's, the FFMA and 3xTF32 bounds and, where one PyTorch call
-    computes the same function, SDPA's forward + backward and backward
-    (f32, TF32 off)."""
+    and its lse against the plain forward's, the partials' sum kernel
+    bitwise against its plain version; times beside the plain version's,
+    the 3xTF32 and FFMA bounds, each kernel's TFLOP/s (of its function's
+    FLOPs) and blocks and, where one PyTorch call computes the same
+    function, SDPA's forward + backward and backward (f32, TF32 off) and
+    ``torch.sum`` over the partials."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     rows = []
     print("flash backward check (ms, device events; errors of each "
-          "gradient's max|plain|; bounds f32 FFMA, the kernels' route, 10 D "
-          "FLOPs a valid pair for the whole backward, 8 D dK/dV, 6 D dQ; "
-          "bnd3x: the whole backward's 3xTF32 bound, 3 x FLOPs / 495 "
-          "TFLOP/s):")
+          "gradient's max|plain|; bounds 3xTF32, the kernels' route (3 x "
+          "FLOPs / 495 TFLOP/s), of 10 D FLOPs a valid pair for the whole "
+          "backward, 8 D dK/dV, 6 D dQ; bndF: the whole backward's FFMA "
+          "bound; TFLOP/s of those FLOPs; blocks dQ / dK/dV / sum):")
     print(f"  {'case':9s} {'dq_err':>8s} {'dk_err':>8s} {'dv_err':>8s} "
-          f"{'bwd':>8s} {'dkdv':>8s} {'dq':>8s} {'fwd':>7s} {'plain':>8s} "
-          f"{'sdpa_fb':>8s} {'sdpa_b':>8s} {'bound':>7s} "
-          f"{'dkdv_b':>7s} {'dq_b':>7s} {'bnd3x':>7s}")
+          f"{'bwd':>7s} {'dkdv':>7s} {'dq':>7s} {'sum':>6s} {'fwd':>6s} "
+          f"{'plain':>8s} {'sdpa_fb':>7s} {'sdpa_b':>7s} {'bound':>6s} "
+          f"{'dkdv_b':>6s} {'dq_b':>6s} {'bndF':>6s} {'TF/s':>5s} "
+          f"{'dkdv':>5s} {'dq':>5s}  blocks")
     for name, b, lq, lk, hq, hkv, d, causal, cap, win in flash_bwd_cases():
         q, do = (torch.randn((b, lq, hq, d), generator=gen, device="cuda")
                  for _ in range(2))
         k, v = (torch.randn((b, lk, hkv, d), generator=gen, device="cuda")
                 for _ in range(2))
         kw = dict(causal=causal, soft_cap=cap, window=win)
+        plan = fa.bwd_plan(b, lq, lk, hq, hkv, d)
         lse = torch.empty((b, hq, lq), device="cuda")
         o = fa._launch_forward(q, k, v, causal, cap, win, lse)
         same_o = torch.equal(o, fa.flash_attention(q, k, v, **kw))
@@ -3431,26 +3457,46 @@ def check_flash_backward(torch):
         abs_err = max((g - p).abs().max().item() for g, p in zip(got, plain))
         lse_err = ((lse - plain_lse).abs().max()
                    / plain_lse.abs().max()).item()
-        if not (same_o and repeat and np.isfinite(errs).all()
+        stats = torch.empty((2, b, hq, lq), device="cuda")
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        part = torch.empty((2, plan.group, *k.shape), device="cuda")
+        outs = (dk, dv) if plan.group == 1 else (part[0], part[1])
+        fa._launch_backward("dq", q, k, v, do, lse, stats, (dq,), **kw)
+        fa._launch_backward("dkdv", q, k, v, do, lse, stats, outs, **kw)
+        sum_ok, sum_err = True, None
+        if plan.group > 1:
+            fa._launch_sum(part, dk, dv, plan)
+            want = fa.sum_partials_plain(part)
+            sum_ok = all(torch.equal(x, y) for x, y in zip((dk, dv), want))
+            sum_err = max((x - y).abs().max().item()
+                          for x, y in zip((dk, dv), want))
+        torch.cuda.synchronize()
+        if not (same_o and repeat and sum_ok and np.isfinite(errs).all()
                 and max(errs) <= BWD_TOLERANCE
                 and lse_err <= ATTN_TOLERANCE):
             raise AssertionError(
                 f"flash backward {name}: o with lse == without {same_o}, "
-                f"two calls bitwise {repeat}, dq/dk/dv of max|plain| "
-                f"{errs} (tol {BWD_TOLERANCE}), lse {lse_err:.2e}")
-        stats = torch.empty((2, b, hq, lq), device="cuda")
-        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+                f"two calls bitwise {repeat}, sum kernel == plain sum "
+                f"{sum_ok}, dq/dk/dv of max|plain| {errs} (tol "
+                f"{BWD_TOLERANCE}), lse {lse_err:.2e}")
         t = {"backward": time_ms(torch, lambda: fa.flash_attention_backward(
                 q, k, v, lse, do, **kw)),
              "dq": time_ms(torch, lambda: fa._launch_backward(
                  "dq", q, k, v, do, lse, stats, (dq,), **kw)),
              "dkdv": time_ms(torch, lambda: fa._launch_backward(
-                 "dkdv", q, k, v, do, lse, stats, (dk, dv), **kw)),
+                 "dkdv", q, k, v, do, lse, stats, outs, **kw)),
              "forward": time_ms(torch, lambda: fa.flash_attention(
                  q, k, v, **kw)),
              "plain": time_ms(torch, lambda: fa.flash_attention_backward_plain(
                  q, k, v, lse, do, **kw), reps=2),
+             "sum": None, "sum_plain": None, "sum_library": None,
              "sdpa_fwd_bwd": None, "sdpa_bwd": None}
+        if plan.group > 1:
+            t["sum"] = time_ms(torch, lambda: fa._launch_sum(part, dk, dv,
+                                                             plan))
+            t["sum_plain"] = time_ms(torch, lambda: fa.sum_partials_plain(
+                part))
+            t["sum_library"] = time_ms(torch, lambda: torch.sum(part, 1))
         if cap is None and win is None and lq == lk:
             # one PyTorch call computes it (no cap, no window; causal
             # top-left is the kernels' right-aligned mask at Lq == Lk)
@@ -3468,24 +3514,44 @@ def check_flash_backward(torch):
                 out, (qt, kt, vt), dot, retain_graph=True))
             del out, qt, kt, vt
         bounds = flash_bwd_bounds(b, lq, lk, hq, hkv, d, causal, win)
+        tflops = {p: bounds[p]["flops"] / t[p] / 1e9
+                  for p in ("backward", "dkdv", "dq")}
         rows.append(dict(name=name, errs=errs, abs_err=abs_err,
-                         lse_err=lse_err, bounds=bounds, **t))
-        fmt = (lambda x: "-" if x is None else f"{x:.3f}")
+                         lse_err=lse_err, sum_err=sum_err, bounds=bounds,
+                         plan=plan, tflops=tflops, **t))
+        fmt = (lambda x, w=7: "-".rjust(w) if x is None else f"{x:{w}.3f}")
         print(f"  {name:9s} {errs[0]:8.1e} {errs[1]:8.1e} {errs[2]:8.1e} "
-              f"{t['backward']:8.3f} {t['dkdv']:8.3f} {t['dq']:8.3f} "
-              f"{t['forward']:7.3f} {t['plain']:8.3f} "
-              f"{fmt(t['sdpa_fwd_bwd']):>8s} {fmt(t['sdpa_bwd']):>8s} "
-              f"{bounds['backward']['ffma'][0]:7.3f} "
-              f"{bounds['dkdv']['ffma'][0]:7.3f} "
-              f"{bounds['dq']['ffma'][0]:7.3f} "
-              f"{bounds['backward']['tf32x3'][0]:7.3f}")
-        del q, k, v, o, do, lse, got, again, plain, stats, dq, dk, dv
+              f"{t['backward']:7.3f} {t['dkdv']:7.3f} {t['dq']:7.3f} "
+              f"{fmt(t['sum'], 6)} {t['forward']:6.3f} {t['plain']:8.3f} "
+              f"{fmt(t['sdpa_fwd_bwd'])} {fmt(t['sdpa_bwd'])} "
+              f"{bounds['backward']['tf32x3'][0]:6.3f} "
+              f"{bounds['dkdv']['tf32x3'][0]:6.3f} "
+              f"{bounds['dq']['tf32x3'][0]:6.3f} "
+              f"{bounds['backward']['ffma'][0]:6.3f} "
+              f"{tflops['backward']:5.1f} {tflops['dkdv']:5.1f} "
+              f"{tflops['dq']:5.1f}  {plan.dq_blocks} / {plan.dkdv_blocks}"
+              f" / {plan.sum_blocks}")
+        del q, k, v, o, do, lse, got, again, plain, stats, dq, dk, dv, part
     print("  o bitwise equal with and without lse, two backward calls "
-          "bitwise equal, the kernel's lse within "
+          "bitwise equal, the sum kernel bitwise equal to its plain version, "
+          "the kernel's lse within "
           f"{max(r['lse_err'] for r in rows):.1e} of the plain forward's in "
-          "every case")
+          "every case; the partials' sum kernel: "
+          + ", ".join(f"{r['name']} {r['sum']:.4f} ms (plain "
+                      f"{r['sum_plain']:.4f}, torch.sum "
+                      f"{r['sum_library']:.4f}, bound "
+                      f"{r['bounds']['sum'][0]:.4f})"
+                      for r in rows if r["sum"] is not None))
     torch.cuda.empty_cache()
     return rows
+
+
+def plain_backward_f64(q, k, v, lse, do, **kw):
+    """The plain backward in float64 from the same f32 inputs and lse,
+    its gradients rounded to f32: the oracle of check (i)."""
+    from repro_torch.kernels import flash_attention as fa
+    return tuple(g.float() for g in fa.flash_attention_backward_plain(
+        q.double(), k.double(), v.double(), lse.double(), do.double(), **kw))
 
 
 def lm_grads(torch, cfg, params, batch, plain_bwd: bool) -> dict:
@@ -3493,9 +3559,10 @@ def lm_grads(torch, cfg, params, batch, plain_bwd: bool) -> dict:
     kernels), ref and chunked (the flash schedule in plain PyTorch, its
     softmax differentiated by autograd), and with ``plain_bwd`` on flash
     with the plain backward swapped in for the backward kernels (the same
-    forward): for each compared pair, (max over leaves of max|a - b| /
-    max|b|, that leaf); and the flash gradient's float64 global norm and
-    whether every element is finite."""
+    forward), in float64 (``plain_bwd``) and in f32 (``plain_bwd32``):
+    for each compared pair, (max over leaves of max|a - b| / max|b|, that
+    leaf); and the flash gradient's float64 global norm and whether every
+    element is finite."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import api
     from repro_torch.optim import adamw
@@ -3512,12 +3579,16 @@ def lm_grads(torch, cfg, params, batch, plain_bwd: bool) -> dict:
     pairs = [("flash", "ref"), ("chunked", "ref")]
     if plain_bwd:
         kernels = fa.flash_attention_backward
-        fa.flash_attention_backward = fa.flash_attention_backward_plain
         try:
-            grads["plain_bwd"] = grads_of("flash")
+            for name, fn in (("plain_bwd", plain_backward_f64),
+                             ("plain_bwd32",
+                              fa.flash_attention_backward_plain)):
+                fa.flash_attention_backward = fn
+                grads[name] = grads_of("flash")
         finally:
             fa.flash_attention_backward = kernels
-        pairs.append(("flash", "plain_bwd"))
+        pairs += [("flash", "plain_bwd"), ("plain_bwd32", "plain_bwd"),
+                  ("flash", "plain_bwd32")]
     names = leaf_names(params)
     out = {}
     for a, b in pairs:
@@ -3643,7 +3714,8 @@ def lm_train(torch):
     n, layers = TRAIN_LM_STEPS, cfg.n_layers
     want = {"flash_attention": 2 * layers * n,
             "flash_attention_bwd_dkdv": layers * n,
-            "flash_attention_bwd_dq": layers * n}
+            "flash_attention_bwd_dq": layers * n,
+            "flash_attention_bwd_sum": layers * n}
     losses = np.asarray(out["losses"])
     if launches != want or losses.shape != (n,) or \
             not np.isfinite(losses).all():
@@ -3658,8 +3730,9 @@ def lm_train(torch):
           f"peak device memory {peak:.2f} GiB; a step launches "
           f"{launches['flash_attention'] // n} flash forwards ({layers} + "
           f"{layers} in the remat recompute), "
+          f"{launches['flash_attention_bwd_dq'] // n} dQ, "
           f"{launches['flash_attention_bwd_dkdv'] // n} dK/dV and "
-          f"{launches['flash_attention_bwd_dq'] // n} dQ kernels")
+          f"{launches['flash_attention_bwd_sum'] // n} partial-sum kernels")
 
     params = init_params(api.params(cfg), torch.Generator(device="cuda")
                          .manual_seed(0), device="cuda")
@@ -3673,7 +3746,8 @@ def lm_train(torch):
     if not (bwd_err <= BWD_TOLERANCE and cut_err <= LM_GRAD_TOLERANCE):
         raise AssertionError(
             f"LM train: depth-{GRAD_LM_LAYERS} gradients, backward kernels "
-            f"vs plain {bwd_err:.3e} at {bwd_leaf} (tol {BWD_TOLERANCE}), "
+            f"vs the float64 plain backward {bwd_err:.3e} at {bwd_leaf} (tol "
+            f"{BWD_TOLERANCE}), "
             f"flash vs ref {cut_err:.3e} at {cut_leaf} (tol "
             f"{LM_GRAD_TOLERANCE})")
     full = lm_grads(torch, cfg, params, batch, plain_bwd=False)
@@ -3682,9 +3756,13 @@ def lm_train(torch):
                              "the kernels is not finite")
     print(f"LM train: first-step gradients, 1 x {GRAD_LM_TOKENS} tokens, "
           f"of each leaf's max|ref| (largest leaf named): depth-"
-          f"{GRAD_LM_LAYERS} cut, the backward kernels vs the plain backward "
-          f"on the same forward {bwd_err:.2e} ({bwd_leaf}; tol "
-          f"{BWD_TOLERANCE:g}), flash vs ref {cut_err:.2e} ({cut_leaf}; "
+          f"{GRAD_LM_LAYERS} cut, the backward kernels vs the float64 plain "
+          f"backward on the same forward {bwd_err:.2e} ({bwd_leaf}; tol "
+          f"{BWD_TOLERANCE:g}; the f32 plain backward vs it "
+          f"{cut['plain_bwd32_plain_bwd'][0]:.2e} "
+          f"({cut['plain_bwd32_plain_bwd'][1]}), the kernels vs the f32 "
+          f"plain {cut['flash_plain_bwd32'][0]:.2e}), flash vs ref "
+          f"{cut_err:.2e} ({cut_leaf}; "
           f"tol {LM_GRAD_TOLERANCE:g}), chunked vs ref "
           f"{cut['chunked_ref'][0]:.2e}; full depth flash vs ref "
           f"{full['flash_ref'][0]:.2e} ({full['flash_ref'][1]}), chunked "
@@ -4464,23 +4542,42 @@ def run(torch, args, cache_dir: str) -> int:
             "ms": bt[part],
             # the plain backward computes both kernels' outputs at once
             "plain_ms": bt["plain"],
-            # the kernels' route, f32 FFMA; 3xTF32's beside it
-            "bound_ms": bt["bounds"][part]["ffma"][0],
-            "bound_by": bt["bounds"][part]["ffma"][1],
-            "tf32x3_bound_ms": bt["bounds"][part]["tf32x3"][0],
+            # the kernels' route, 3xTF32 on the tensor cores; FFMA beside
+            "bound_ms": bt["bounds"][part]["tf32x3"][0],
+            "bound_by": bt["bounds"][part]["tf32x3"][1],
+            "ffma_bound_ms": bt["bounds"][part]["ffma"][0],
+            "tflops": bt["tflops"][part],
+            "blocks": getattr(bt["plan"], f"{part}_blocks"),
             # no single PyTorch call computes one kernel's half; SDPA's
             # backward (both halves) and forward + backward are beside it
             "library_ms": None,
             "backward_ms": bt["backward"],
-            "backward_bound_ms": bt["bounds"]["backward"]["ffma"][0],
-            "backward_tf32x3_bound_ms":
-                bt["bounds"]["backward"]["tf32x3"][0],
+            "backward_bound_ms": bt["bounds"]["backward"]["tf32x3"][0],
+            "backward_ffma_bound_ms": bt["bounds"]["backward"]["ffma"][0],
             "sdpa_bwd_ms": bt["sdpa_bwd"],
             "sdpa_fwd_bwd_ms": bt["sdpa_fwd_bwd"],
             "rgemma_ms": bc[part],
-            "rgemma_bound_ms": bc["bounds"][part]["ffma"][0],
-            "rgemma_tf32x3_bound_ms": bc["bounds"][part]["tf32x3"][0],
+            "rgemma_bound_ms": bc["bounds"][part]["tf32x3"][0],
+            "rgemma_backward_ms": bc["backward"],
         })
+    kernels.append({
+        "name": "flash_attention_bwd_sum",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        # part of the same backward: the G query heads' partial dK and dV
+        "replaces": "src/repro/kernels/flash_attention.py:31",
+        "launches": lmt["launches"]["flash_attention_bwd_sum"],
+        "max_abs_err": max(r["sum_err"] for r in fbrows
+                           if r["sum_err"] is not None),
+        "ms": bt["sum"],
+        "plain_ms": bt["sum_plain"],
+        "bound_ms": bt["bounds"]["sum"][0],
+        "bound_by": bt["bounds"]["sum"][1],
+        "library_ms": bt["sum_library"],   # torch.sum over the heads
+        "blocks": bt["plan"].sum_blocks,
+        "rgemma_ms": bc["sum"],
+        "rgemma_bound_ms": bc["bounds"]["sum"][0],
+    })
     c = next(r for r in crows if r["name"] == "a_prefill")
     ck = next(r for r in crows if r["name"] == "k_rgemma")
     kernels.append({

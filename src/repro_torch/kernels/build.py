@@ -32,7 +32,7 @@ _Q8_ARGS = [_P] * 5 + [_I] * 24 + [_P]
 _WGRAD_ARGS = [_P, _P, _P, _P] + [_I] * 17 + [_P]
 _FUSED_ARGS = [_P, _P, _P, _P, _I, _P]
 _ATTN_ARGS = [_P] * 5 + [_I] * 6 + [_L] * 12 + [_I, _I, _F, _F, _P]
-_ATTN_BWD_ARGS = [_P] * 8 + [_I] * 6 + [_L] * 12 + [_I, _I, _F, _F, _P]
+_ATTN_BWD_ARGS = [_P] * 8 + [_I] * 6 + [_L] * 12 + [_I, _I, _F, _F, _I, _P]
 _CONV1D_ARGS = [_P] * 3 + [_I] * 4 + [_L] * 4 + [_I, _I, _P]
 SOURCES = {
     "trim_conv2d": {"trim_conv2d_carry": _CONV_ARGS,
@@ -44,7 +44,9 @@ SOURCES = {
     "trim_conv2d_fused": {"trim_conv2d_fused": _FUSED_ARGS},
     "flash_attention": {"flash_attention_f32": _ATTN_ARGS},
     "flash_attention_bwd": {"flash_attention_bwd_dkdv_f32": _ATTN_BWD_ARGS,
-                            "flash_attention_bwd_dq_f32": _ATTN_BWD_ARGS},
+                            "flash_attention_bwd_dq_f32": _ATTN_BWD_ARGS,
+                            "flash_attention_bwd_sum_f32":
+                                [_P, _P, _P, _L, _I, _I, _P]},
     "trim_conv1d": {"trim_conv1d_f32": _CONV1D_ARGS},
 }
 

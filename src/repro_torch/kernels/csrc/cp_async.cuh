@@ -1,6 +1,6 @@
 // cp.async helpers shared by the kernels that stage operands through a
 // shared-memory ring (trim_conv2d.cu, trim_conv2d_fused.cu,
-// trim_conv2d_wgrad.cu, flash_attention.cu).  A copy
+// trim_conv2d_wgrad.cu, flash_attention.cu, flash_attention_bwd.cu).  A copy
 // with `valid` false writes zeros (src-size 0), which is how the loaders
 // zero-fill virtual padding and tile ends without a branch around the copy.
 #pragma once

@@ -1,5 +1,6 @@
 // The backward of flash attention for NVIDIA Hopper (sm_90a), f32, hand-
-// written CUDA: FlashAttention-2's backward, in two kernels.
+// written CUDA: FlashAttention-2's backward, redesigned for the H100's
+// TF32 tensor cores, in three kernels.
 //
 // Replaces no TPU kernel: the JAX package has no backward kernel for
 // _kernel of src/repro/kernels/flash_attention.py:31; it trains through
@@ -14,200 +15,250 @@
 //   dV = P^T dO,  dS = P (dP - delta) (1 - tanh^2 under the cap),
 //   dK = scale dS^T Q,  dQ = scale dS K,  delta = rowsum(P o dP).
 //
-// Row statistics.  The backward forms its scores with f32 FFMA chains,
-// the forward's narrow route with 3xTF32 products; at the peaked logits
-// of a full-width LM (|y| ~ 2000 under the JAX initialiser) the two differ
-// by ~1e-3 in the exponent.  With p = exp(y - lse) from the forward's lse
-// and delta = rowsum(dO o O) from its O, a saturated row's P would sum to
-// 1 + 1e-3 and its dS, which is ~0 in exact arithmetic, would keep a
-// spurious part of that size: one layer's attention gradient at those
-// logits then read up to 18x the f32 ref oracle's error from float64
-// (1.3x with the statistics below; chip_smoke.py's LM train phase on an
-// H100).  So the dQ kernel's first pass takes each
-// row's statistics from the backward's own scores, with the forward's
-// lse = m + log(max(l, 1e-30)) (written by flash_attention_f32 when it is
-// given an lse pointer) as the reference point that keeps the exponents
-// in range:  e = exp(y - lse),  l' = sum e,  lse' = lse + log l',
-// delta = sum e dP / l'.  Then p = exp(y - lse') sums to 1 over the row,
-// and dS is that of an exact softmax of the recomputed scores.  The dQ
-// kernel writes lse' and delta for the dK / dV kernel, which runs after
-// it.  The forward's O is not read.
-//
-// Rows.  As in the forward, a row is one (query position, head of the
-// GQA group) pair, position-major: row t is position t / G of head
-// kvh * G + t % G.  So the G query heads that read one KV head fall into
-// the same row tiles, and their contributions to dK and dV sum inside
-// one block: no float atomics, and two launches give the same bits.
-//
-// flash_attention_bwd_dkdv_kernel: one block per (key tile of kKeys keys,
-// KV head, batch).  K and V of the tile stay in shared memory; the block
-// walks the row tiles that can see the tile (causal: positions at or
-// after its first key; window: up to its last key + W - 1), each step
-// recomputing S and dP for kRows x kKeys pairs, then adding P^T dO and
-// dS^T Q into register accumulators (thread (ty, tx) owns keys ty + 16 i
-// and columns 4 tx + 64 c .. + 3).
-//
-// flash_attention_bwd_dq_kernel: one block per (row tile of kRows rows,
-// KV head, batch), Q and dO of the tile resident; it walks the key tiles
-// its rows see (the forward's range) twice: first for the rows'
-// statistics (each thread's partial sums over its keys, then summed over
-// the 16 threads of a row in order through shared memory), then adding
-// dS K into register accumulators (rows ty + 16 i, the same columns).
-//
-// Both form S and dP with tile_products: thread (ty, tx) of the 16 x 16
-// block forms the scores of rows ty + 16 i and keys tx + 16 j as fmaf
-// chains over d in ascending order.  The head dim is zero-padded in
-// shared memory to Dp = 64, 128 or 256 (a template parameter), rows at a
-// stride of Dp + 4 floats; the chains run over ceil(D / 4) float4 steps.
+// Row statistics.  The dQ kernel's first pass takes each row's statistics
+// from the backward's own scores, with the forward's lse = m + log(max(l,
+// 1e-30)) as the reference point that keeps the exponents in range:
+//   e = exp(y - lse),  l' = sum e,  lse' = lse + log l',
+//   delta = sum e dP / l'.
+// Then p = exp(y - lse') sums to 1 over the row and dS is that of an exact
+// softmax of the recomputed scores.  The forward's 3xTF32 scores and a
+// backward's own part by ~1e-3 at the peaked logits of a full-width LM
+// (|y| ~ 2000 under the JAX initialiser); p from the forward's lse and
+// delta = rowsum(dO o O) left a saturated row a spurious dS of that size
+// (one layer's attention gradient up to 18x the f32 ref oracle's error
+// from float64).  The dQ kernel writes lse' and delta for the dK / dV
+// kernel, which runs after it.  The forward's O is not read.
 //
 // What bounds it on the H100.  The backward needs 10 D FLOPs a valid
-// pair at the least (S, dP, dV, dK, dQ; 2.5 x the forward's 4 D); this
-// design does 18 D (S and dP are formed three times: twice in the dQ
-// kernel, once in the dK / dV kernel): dkdv 8 D, dq 10 D.  At the
-// training shape (B 2, L 1024, Hq 16, Hkv 2, D 128, causal) that is 21.5
-// GFLOP at the least against 42 MB of Q, K, V, O, dO and the gradients:
-// operations bound it, 0.32 ms at 67 TFLOP/s f32 FFMA.  This
-// first design is FFMA only (no tensor cores), with plain loads staged
-// through shared memory between barriers.  Left for later: 3xTF32 on
-// mma.sync as the forward's narrow route does, a cp.async ring, a split
-// of the dkdv rows for few-key-tile grids, and the wide route (D > 256).
+// pair at the least (S, dP, dV, dK, dQ); at the LM training shape (t)
+// (B 2, L 1024, Hq 16, Hkv 2, D 128, causal) that is 21.5 GFLOP against
+// 42 MB of Q, K, V, dO, the gradients and the statistics: operations bound
+// it.  At f32 accuracy on the tensor cores (3xTF32: three TF32 products a
+// product, 495 TFLOP/s) the least is 0.130 ms; at 67 TFLOP/s of f32 FFMA,
+// 0.321 ms.  This design does 18 D (S and dP are formed three times: twice
+// in the dQ kernel, whose first pass is the statistics, once in dK / dV).
+// The first design (FFMA chains, 128 dK / dV blocks at (t), plain loads
+// between barriers) read 4.504 ms there.
+//
+// The design.
+// (1) All five products run on mma.sync.m16n8k8 in 3xTF32 (tf32_mma.cuh):
+// each operand split into big + small TF32 halves, three products a
+// product.  The tensor cores truncate as they accumulate, so every product
+// that runs over D (S, dP) takes each pair of k-steps into a fresh
+// accumulator added to the sum in f32, and every product over the streamed
+// rows (dQ, dK, dV) takes each tile's 16 rows (two k-steps) into a fresh
+// accumulator, its small cross terms into one of their own.
+// (2) Both kernels share one shape: a block of 4 warps holds 64 rows of two
+// operands resident in shared memory, a warp 16 of them (the M of the
+// mma), and streams tiles of 16 rows of two others (the N of S and dP, the
+// k of the output products) through a two-stage cp.async ring, one barrier
+// a tile.  dQ: Q and dO resident (rows position-major across the GQA
+// group, as the forward's: row t is position t / G of head kvh G + t % G),
+// K and V streamed.  dK / dV: K and V resident (keys as M), Q and dO of
+// one query head streamed with each row's lse' and delta, so S^T = K Q^T
+// and dP^T = V dO^T leave P^T and dS^T in accumulator registers, which
+// feed dV += P^T dO and dK += dS^T Q as A operands (a lane holds rows 2t,
+// 2t + 1 of a key; the A operand wants k = t, t + 4: the k index is
+// permuted, k = t reading row 2t and k = t + 4 row 2t + 1, and the B
+// fragments are read with the same permutation), as the forward feeds P
+// into P V.  dQ += dS K likewise.  Each S-like product orders its three
+// TF32 products so that a dK / dV score (K as A) and a dQ score (Q as A)
+// add the same partial products in the same order.
+// (3) The dK / dV grid is FlashAttention-2's GQA scheme: one block per
+// (64-key tile, query head, batch), 512 blocks at (t) (PR 25: 128, one per
+// KV head, on 132 SMs).  Each writes its head's partial dK and dV into
+// scratch (2, G, B, Lk, Hkv, D); flash_attention_bwd_sum_kernel adds the G
+// partials in head order (G = 1 writes the gradients directly and launches
+// no sum).  Both kernels number their blocks tile-major, the tiles that
+// see the most rows or keys under a causal mask first.  No float atomics:
+// two launches give the same bits.
+// (4) Shared memory, rows at a stride of Dp + 4 floats (conflict-free
+// fragment reads): Dp 64 and 128 take 52 and 102 KB a block, two blocks an
+// SM; Dp 256 takes 200 KB, one block, and there dK / dV runs two passes
+// over the rows (dV, then dK), so each keeps one 16 x 256 accumulator (128
+// registers a lane): 10 D FLOPs a pair in that kernel instead of 8.
+// The wrapper's plan (kernels/flash_attention.py, bwd_plan) gives the
+// grids and scratch; each launcher refuses a block count its constants do
+// not give.  Left for later: wgmma, operands split once into shared memory,
+// the wide route (D > 256).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;          // 16 x 16
-constexpr int kMaxDp = 256;            // the forward's narrow route
-constexpr int kMaxSmemBytes = 232448;  // H100: 227 KB opt-in per block
+constexpr int kWarps = 4;                 // warps a block, both kernels
+constexpr int kThreads = kWarps * 32;
+constexpr int kBlockRows = 16 * kWarps;   // resident rows: dQ rows, dK/dV keys
+constexpr int kTile = 16;                 // streamed rows a ring stage
+constexpr int kStages = 2;
+constexpr int kMaxDp = 256;               // the forward's narrow route
+constexpr int kSumThreads = 256;
+constexpr int kMaxSmemBytes = 232448;     // H100: 227 KB opt-in per block
+
+constexpr int kJ = kTile / 8;             // m16n8 tiles of a score row
 
 struct BwdArgs {
   const float *q, *k, *v, *dout;
   const float *lse;       // the forward's (B, Hq, Lq), read by dq
   float *stats;           // (2, B, Hq, Lq): lse' and delta, dq -> dkdv
-  float *out_a, *out_b;   // dkdv: dK, dV; dq: dQ (contiguous B, L, H, D)
-  int lq, lk, hq, hkv, d, d4, group;
+  float *out_a, *out_b;   // dq: dQ; dkdv: dK and dV partials (G, B, Lk, Hkv, D)
+  int b, lq, lk, hq, hkv, d, group;
   int64_t q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh;
   int64_t do_sb, do_sl, do_sh;
   int causal, window;     // window <= 0: none
   float soft_cap;         // <= 0: none
   float sm_scale;
-  int tiles;              // dkdv: key tiles; dq: row tiles
+  int tiles;              // dq: row tiles; dkdv: key tiles
+  int vec;                // q, k, v, dO rows copied 16 bytes at a time
 };
 
-template <int kDp, int kRows, int kKeys>
+template <int kDp>
 constexpr size_t bwd_smem_bytes() {
-  // Q, dO (kRows rows), K, V (kKeys rows), P and dS (kRows x kKeys + 4),
-  // lse and delta of the rows
-  return ((size_t)(2 * kRows + 2 * kKeys) * (kDp + 4) +
-          (size_t)2 * kRows * (kKeys + 4) + 2 * kRows) * sizeof(float);
+  // two resident operands of kBlockRows rows, kStages stages of two
+  // streamed operands of kTile rows, and each stage's lse' and delta
+  return ((size_t)(2 * kBlockRows + 2 * kStages * kTile) * (kDp + 4) +
+          (size_t)2 * kStages * kTile) * sizeof(float);
 }
 
-// Q and dO of rows [t0, t0 + kRows) (zeros past the last row and past
-// d), and each row's entry of lse and of delta (zeros where delta is null)
-template <int kDp, int kRows>
-__device__ __forceinline__ void load_rows(const BwdArgs &a, int b, int kvh,
-                                          int t0, const float *lse,
-                                          const float *delta, float *qs,
-                                          float *dos, float *ls,
-                                          float *dls) {
+// Rows [0, n) into shared memory at a stride of kDp + 4 floats: row r from
+// src(r) (nullptr: zeros), its first d columns, zeros past them
+template <int kDp, typename Src>
+__device__ __forceinline__ void copy_rows(float *dst, int n, Src src, int d,
+                                          int vec, const float *any) {
   constexpr int kS = kDp + 4;
-  const int g = a.group, n_rows = a.lq * g;
-  for (int e = threadIdx.x; e < kRows * kDp; e += kThreads) {
-    const int r = e / kDp, dd = e % kDp, t = t0 + r;
-    float qv = 0.f, ov = 0.f;
-    if (t < n_rows && dd < a.d) {
-      const int qi = t / g, h = kvh * g + t % g;
-      qv = __ldg(a.q + (int64_t)b * a.q_sb + (int64_t)qi * a.q_sl +
-                 (int64_t)h * a.q_sh + dd);
-      ov = __ldg(a.dout + (int64_t)b * a.do_sb + (int64_t)qi * a.do_sl +
-                 (int64_t)h * a.do_sh + dd);
+  if (vec) {
+    for (int e = threadIdx.x; e < n * (kDp / 4); e += kThreads) {
+      const int r = e / (kDp / 4), c = 4 * (e % (kDp / 4));
+      const float *p = src(r);
+      const bool ok = p != nullptr && c < d;
+      cp_async16(dst + r * kS + c, ok ? p + c : any, ok);
     }
-    qs[r * kS + dd] = qv;
-    dos[r * kS + dd] = ov;
-  }
-  for (int r = threadIdx.x; r < kRows; r += kThreads) {
-    const int t = t0 + r;
-    float lv = 0.f, dv = 0.f;
-    if (t < n_rows) {
-      const int qi = t / g, h = kvh * g + t % g;
-      const int64_t idx = ((int64_t)b * a.hq + h) * a.lq + qi;
-      lv = __ldg(lse + idx);
-      if (delta != nullptr) dv = __ldg(delta + idx);
+  } else {
+    for (int e = threadIdx.x; e < n * kDp; e += kThreads) {
+      const int r = e / kDp, c = e % kDp;
+      const float *p = src(r);
+      const bool ok = p != nullptr && c < d;
+      cp_async4(dst + r * kS + c, ok ? p + c : any, ok);
     }
-    ls[r] = lv;
-    dls[r] = dv;
   }
 }
 
-// K and V of keys [k0, k0 + kKeys), zeros past lk and d
-template <int kDp, int kKeys>
-__device__ __forceinline__ void load_keys(const BwdArgs &a, int b, int kvh,
-                                          int k0, float *ks, float *vs) {
-  constexpr int kS = kDp + 4;
-  const float *kbase = a.k + (int64_t)b * a.k_sb + (int64_t)kvh * a.k_sh;
-  const float *vbase = a.v + (int64_t)b * a.v_sb + (int64_t)kvh * a.v_sh;
-  for (int e = threadIdx.x; e < kKeys * kDp; e += kThreads) {
-    const int r = e / kDp, dd = e % kDp;
-    float kv = 0.f, vv = 0.f;
-    if (k0 + r < a.lk && dd < a.d) {
-      kv = __ldg(kbase + (int64_t)(k0 + r) * a.k_sl + dd);
-      vv = __ldg(vbase + (int64_t)(k0 + r) * a.v_sl + dd);
-    }
-    ks[r * kS + dd] = kv;
-    vs[r * kS + dd] = vv;
+// Tiles [begin, end) through the two-stage ring: load(tile, stage) issues
+// a tile's copies, body(tile, stage) consumes it; tile j + 1 is copied
+// while tile j computes, one barrier a tile.  Copies issued before the
+// call join the first tile's group.
+template <typename Load, typename Body>
+__device__ __forceinline__ void stream_tiles(int begin, int end, Load load,
+                                             Body body) {
+  if (begin < end) load(begin, 0);
+  cp_async_commit();
+  for (int it = begin; it < end; ++it) {
+    const int stage = (it - begin) & 1;
+    cp_async_wait<0>();   // this thread's copies of tile it
+    __syncthreads();       // everyone's; the other stage is consumed
+    if (it + 1 < end) load(it + 1, stage ^ 1);
+    cp_async_commit();
+    body(it, stage);
   }
 }
 
-// S = Q K^T and dP = dO V^T of rows [t0, t0 + kRows) x keys [k0, k0 +
-// kKeys) in registers: thread (ty, tx) forms rows ty + 16 i, keys
-// tx + 16 j, each an fmaf chain over d in ascending order.
-template <int kDp, int kRI, int kCJ>
-__device__ __forceinline__ void tile_products(const BwdArgs &a,
-                                              const float *qs,
-                                              const float *dos,
-                                              const float *ks,
-                                              const float *vs,
-                                              float (&s)[kRI][kCJ],
-                                              float (&dp)[kRI][kCJ]) {
+// c[j] = the m16n8 tiles of X_w Y^T: X_w the warp's 16 resident rows (xw),
+// Y a streamed tile's kTile rows (ys), over kDp columns in 3xTF32, each
+// pair of k-steps into a fresh accumulator added to c in f32.  kYFirst:
+// Y's small half meets X's big half first (X = K or V in dK / dV, so that
+// its scores add the same partial products in the same order as dQ's,
+// where X = Q or dO).
+template <int kDp, bool kYFirst>
+__device__ __forceinline__ void tile_scores(const float *xw, const float *ys,
+                                            float (&c)[kJ][4]) {
   constexpr int kS = kDp + 4;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
 #pragma unroll
-  for (int i = 0; i < kRI; ++i)
+  for (int j = 0; j < kJ; ++j)
 #pragma unroll
-    for (int j = 0; j < kCJ; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 1
-  for (int dd = 0; dd < a.d4; dd += 4) {
-    float4 qv[kRI], ov[kRI], kv[kCJ], vv[kCJ];
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll 2
+  for (int d0 = 0; d0 < kDp; d0 += 16) {
+    uint32_t ab[2][4], as[2][4];
 #pragma unroll
-    for (int i = 0; i < kRI; ++i) {
-      qv[i] = *reinterpret_cast<const float4 *>(&qs[(ty + 16 * i) * kS + dd]);
-      ov[i] = *reinterpret_cast<const float4 *>(&dos[(ty + 16 * i) * kS + dd]);
+    for (int h = 0; h < 2; ++h) {
+      const float *xr = xw + gq * kS + d0 + 8 * h + tq;
+      split_tf32(xr[0], ab[h][0], as[h][0]);
+      split_tf32(xr[8 * kS], ab[h][1], as[h][1]);
+      split_tf32(xr[4], ab[h][2], as[h][2]);
+      split_tf32(xr[8 * kS + 4], ab[h][3], as[h][3]);
     }
 #pragma unroll
-    for (int j = 0; j < kCJ; ++j) {
-      kv[j] = *reinterpret_cast<const float4 *>(&ks[(tx + 16 * j) * kS + dd]);
-      vv[j] = *reinterpret_cast<const float4 *>(&vs[(tx + 16 * j) * kS + dd]);
-    }
+    for (int j = 0; j < kJ; ++j) {
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < kRI; ++i)
-#pragma unroll
-      for (int j = 0; j < kCJ; ++j) {
-        float t = s[i][j], u = dp[i][j];
-        t = fmaf(qv[i].x, kv[j].x, t);
-        t = fmaf(qv[i].y, kv[j].y, t);
-        t = fmaf(qv[i].z, kv[j].z, t);
-        t = fmaf(qv[i].w, kv[j].w, t);
-        u = fmaf(ov[i].x, vv[j].x, u);
-        u = fmaf(ov[i].y, vv[j].y, u);
-        u = fmaf(ov[i].z, vv[j].z, u);
-        u = fmaf(ov[i].w, vv[j].w, u);
-        s[i][j] = t;
-        dp[i][j] = u;
+      for (int h = 0; h < 2; ++h) {
+        const float *yr = ys + (8 * j + gq) * kS + d0 + 8 * h + tq;
+        uint32_t bb[2], bs[2];
+        split_tf32(yr[0], bb[0], bs[0]);
+        split_tf32(yr[4], bb[1], bs[1]);
+        if (kYFirst) {
+          mma_tf32(t, ab[h], bs);
+          mma_tf32(t, as[h], bb);
+          mma_tf32(t, ab[h], bb);
+        } else {
+          mma_3xtf32(t, t, ab[h], as[h], bb, bs);
+        }
       }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[j][e] += t[e];
+    }
   }
+}
+
+// acc[c] (the m16n8 tiles of the warp's 16 rows x kDp columns) += A Y: A
+// (16 x kTile) in accumulator layout (p[j][0..1]: row gq, k 8 j + 2 tq,
+// + 1; [2..3]: row gq + 8), Y the streamed tile (ys, kTile rows of kDp).
+// The k index is permuted: k = tq of a k-step reads Y's row 2 tq, k =
+// tq + 4 row 2 tq + 1.  One fresh accumulator a tile, its cross terms in
+// another, added to acc in f32.
+template <int kDp>
+__device__ __forceinline__ void accumulate(float (&acc)[kDp / 8][4],
+                                           const float (&p)[kJ][4],
+                                           const float *ys) {
+  constexpr int kS = kDp + 4;
+  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
+  uint32_t pb[kJ][4], ps[kJ][4];
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+    split_tf32(p[j][0], pb[j][0], ps[j][0]);
+    split_tf32(p[j][2], pb[j][1], ps[j][1]);
+    split_tf32(p[j][1], pb[j][2], ps[j][2]);
+    split_tf32(p[j][3], pb[j][3], ps[j][3]);
+  }
+  const float *yr = ys + 2 * tq * kS + gq;
+#pragma unroll
+  for (int c = 0; c < kDp / 8; ++c) {
+    float t[4] = {0.f, 0.f, 0.f, 0.f}, tc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      uint32_t bb[2], bs[2];
+      split_tf32(yr[8 * j * kS + 8 * c], bb[0], bs[0]);
+      split_tf32(yr[(8 * j + 1) * kS + 8 * c], bb[1], bs[1]);
+      mma_3xtf32(t, tc, pb[j], ps[j], bb, bs);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] += t[e] + tc[e];
+  }
+}
+
+template <int kDp>
+__device__ __forceinline__ void zero(float (&acc)[kDp / 8][4]) {
+#pragma unroll
+  for (int c = 0; c < kDp / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
 }
 
 // The scaled, capped score y of a raw product s, and (in chain) the cap's
@@ -224,305 +275,367 @@ __device__ __forceinline__ float capped(const BwdArgs &a, float s,
   return y;
 }
 
-// Whether row t (position-major) sees key kp
-__device__ __forceinline__ bool valid_pair(const BwdArgs &a, int t, int kp) {
-  const int q_pos = t / a.group + a.lk - a.lq;
-  bool ok = t < a.lq * a.group && kp < a.lk;
+// Whether a query at position q_pos (absolute) sees key kp
+__device__ __forceinline__ bool sees(const BwdArgs &a, int q_pos, int kp) {
+  bool ok = kp < a.lk;
   if (a.causal) ok = ok && q_pos >= kp;
   if (a.window > 0) ok = ok && q_pos - kp < a.window;
   return ok;
 }
 
-// P (where ps is given) and dS of rows [t0, t0 + kRows) x keys
-// [k0, k0 + kKeys) into shared memory, row stride kKeys + 4, from the
-// rows' lse' (ls) and delta (dls).  dS is the gradient of the scaled,
-// capped score y; the caller applies sm_scale once to its sums.
-template <int kDp, int kRows, int kKeys>
-__device__ __forceinline__ void score_tile(const BwdArgs &a, int t0, int k0,
-                                           const float *qs, const float *dos,
-                                           const float *ks, const float *vs,
-                                           const float *ls, const float *dls,
-                                           float *ps, float *dss) {
-  constexpr int kPS = kKeys + 4, kRI = kRows / 16, kCJ = kKeys / 16;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float s[kRI][kCJ], dp[kRI][kCJ];
-  tile_products<kDp, kRI, kCJ>(a, qs, dos, ks, vs, s, dp);
+template <int kDp>
+__global__ void __launch_bounds__(kThreads, kDp <= 128 ? 2 : 1)
+    flash_attention_bwd_dq_kernel(const BwdArgs a) {
+  constexpr int kS = kDp + 4;
+  extern __shared__ float4 smem4[];
+  float *qs = reinterpret_cast<float *>(smem4);
+  float *dos = qs + kBlockRows * kS;
+  float *ring = dos + kBlockRows * kS;    // [stage][K, V][key][d]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  // tile-major: the last row tiles, the longest under a causal mask, first
+  const int per_tile = a.hkv * a.b;
+  const int tile = a.tiles - 1 - (int)blockIdx.x / per_tile;
+  const int kvh = (int)blockIdx.x % per_tile % a.hkv;
+  const int b = (int)blockIdx.x % per_tile / a.hkv;
+  const int g = a.group, n_rows = a.lq * g, off = a.lk - a.lq;
+  const int t0 = tile * kBlockRows;
+
+  // the forward's key range of the block's rows
+  const int last = min(t0 + kBlockRows, n_rows) - 1;
+  const int pos_lo = t0 / g + off, pos_hi = last / g + off;
+  int k_end = a.lk, k_begin = 0;
+  if (a.causal) k_end = min(k_end, pos_hi + 1);
+  if (a.window > 0) k_begin = max(0, pos_lo - a.window + 1);
+  const int kt_begin = k_begin / kTile;
+  const int kt_end = k_end > k_begin ? (k_end + kTile - 1) / kTile : kt_begin;
+
+  // resident Q and dO: row r is (position (t0 + r) / G, head kvh G + ..)
+  auto row_of = [&](const float *base, int64_t sb, int64_t sl, int64_t sh) {
+    return [=](int r) -> const float * {
+      const int t = t0 + r;
+      if (t >= n_rows) return nullptr;
+      return base + (int64_t)b * sb + (int64_t)(t / g) * sl +
+             (int64_t)(kvh * g + t % g) * sh;
+    };
+  };
+  copy_rows<kDp>(qs, kBlockRows, row_of(a.q, a.q_sb, a.q_sl, a.q_sh), a.d,
+                 a.vec, a.q);
+  copy_rows<kDp>(dos, kBlockRows,
+                 row_of(a.dout, a.do_sb, a.do_sl, a.do_sh), a.d, a.vec,
+                 a.q);
+  const float *kbase = a.k + (int64_t)b * a.k_sb + (int64_t)kvh * a.k_sh;
+  const float *vbase = a.v + (int64_t)b * a.v_sb + (int64_t)kvh * a.v_sh;
+  auto load = [&](int kt, int stage) {
+    float *kd = ring + stage * 2 * kTile * kS, *vd = kd + kTile * kS;
+    const int k0 = kt * kTile;
+    copy_rows<kDp>(kd, kTile, [=](int r) -> const float * {
+      return k0 + r < a.lk ? kbase + (int64_t)(k0 + r) * a.k_sl : nullptr;
+    }, a.d, a.vec, a.q);
+    copy_rows<kDp>(vd, kTile, [=](int r) -> const float * {
+      return k0 + r < a.lk ? vbase + (int64_t)(k0 + r) * a.v_sl : nullptr;
+    }, a.d, a.vec, a.q);
+  };
+
+  // this lane's rows: warp * 16 + gq (i = 0) and + 8 (i = 1)
+  int q_pos[2];
+  bool row_ok[2];
+  float lse[2], delta[2];
 #pragma unroll
-  for (int i = 0; i < kRI; ++i) {
-    const int r = ty + 16 * i;
-    const float lse = ls[r], delta = dls[r];
+  for (int i = 0; i < 2; ++i) {
+    const int t = t0 + warp * 16 + gq + 8 * i;
+    row_ok[i] = t < n_rows;
+    q_pos[i] = t / g + off;
+    lse[i] = row_ok[i] ? __ldg(a.lse + ((int64_t)b * a.hq + kvh * g + t % g) *
+                                           a.lq + t / g)
+                       : 0.f;
+  }
+  const float *qw = qs + warp * 16 * kS, *dow = dos + warp * 16 * kS;
+
+  // pass 1: the rows' statistics under this kernel's scores (see "Row
+  // statistics" above): e = exp(y - lse), l' = sum e, t' = sum e dP
+  float lsum[2] = {0.f, 0.f}, tsum[2] = {0.f, 0.f};
+  stream_tiles(kt_begin, kt_end, load, [&](int kt, int stage) {
+    const float *ks = ring + stage * 2 * kTile * kS, *vs = ks + kTile * kS;
+    float s[kJ][4], dp[kJ][4];
+    tile_scores<kDp, false>(qw, ks, s);
+    tile_scores<kDp, false>(dow, vs, dp);
 #pragma unroll
-    for (int j = 0; j < kCJ; ++j) {
-      const int c = tx + 16 * j;
-      float chain;
-      const float y = capped(a, s[i][j], chain);
-      const float p = valid_pair(a, t0 + r, k0 + c) ? expf(y - lse) : 0.f;
-      if (ps != nullptr) ps[r * kPS + c] = p;
-      dss[r * kPS + c] = p * (dp[i][j] - delta) * chain;
+    for (int j = 0; j < kJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e / 2, kp = kt * kTile + 8 * j + 2 * tq + e % 2;
+        float chain;
+        const float y = capped(a, s[j][e], chain);
+        if (row_ok[i] && sees(a, q_pos[i], kp)) {
+          const float ev = expf(y - lse[i]);
+          lsum[i] += ev;
+          tsum[i] = fmaf(ev, dp[j][e], tsum[i]);
+        }
+      }
+  });
+  // each row's 4 lanes' sums, added in the same order on all four: lse'
+  // and delta
+  const int64_t n_stats = (int64_t)a.b * a.hq * a.lq;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l2 = lsum[i], t2 = tsum[i];
+    l2 += __shfl_xor_sync(0xffffffffu, l2, 1);
+    t2 += __shfl_xor_sync(0xffffffffu, t2, 1);
+    l2 += __shfl_xor_sync(0xffffffffu, l2, 2);
+    t2 += __shfl_xor_sync(0xffffffffu, t2, 2);
+    float lse2 = 0.f, dl = 0.f;   // rows past the last: never read
+    if (row_ok[i] && l2 > 0.f) {
+      lse2 = lse[i] + logf(l2);
+      dl = t2 / l2;
+      if (tq == 0) {
+        const int t = t0 + warp * 16 + gq + 8 * i;
+        const int64_t idx =
+            ((int64_t)b * a.hq + kvh * g + t % g) * a.lq + t / g;
+        a.stats[idx] = lse2;
+        a.stats[n_stats + idx] = dl;
+      }
     }
+    lse[i] = lse2;
+    delta[i] = dl;
+  }
+  __syncthreads();   // pass 1's last tile is consumed before pass 2 loads
+
+  // pass 2: dQ += dS K
+  float dq[kDp / 8][4];
+  zero<kDp>(dq);
+  stream_tiles(kt_begin, kt_end, load, [&](int kt, int stage) {
+    const float *ks = ring + stage * 2 * kTile * kS, *vs = ks + kTile * kS;
+    float s[kJ][4], dp[kJ][4];
+    tile_scores<kDp, false>(qw, ks, s);
+    tile_scores<kDp, false>(dow, vs, dp);
+#pragma unroll
+    for (int j = 0; j < kJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e / 2, kp = kt * kTile + 8 * j + 2 * tq + e % 2;
+        float chain;
+        const float y = capped(a, s[j][e], chain);
+        const bool ok = row_ok[i] && sees(a, q_pos[i], kp);
+        s[j][e] = ok ? expf(y - lse[i]) * (dp[j][e] - delta[i]) * chain : 0.f;
+      }
+    accumulate<kDp>(dq, s, ks);
+  });
+
+  // dQ (scaled), contiguous (B, Lq, Hq, D): dq[c][2 i + e] is row gq + 8 i,
+  // column 8 c + 2 tq + e
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = t0 + warp * 16 + gq + 8 * i;
+    if (t >= n_rows) continue;
+    float *dst = a.out_a + (((int64_t)b * a.lq + t / g) * a.hq + kvh * g +
+                            t % g) * a.d;
+#pragma unroll
+    for (int c = 0; c < kDp / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * c + 2 * tq + e;
+        if (col < a.d) dst[col] = dq[c][2 * i + e] * a.sm_scale;
+      }
   }
 }
 
-template <int kDp, int kRows, int kKeys>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_attention_bwd_dkdv_kernel(const BwdArgs a) {
-  constexpr int kS = kDp + 4, kPS = kKeys + 4;
-  constexpr int kKI = kKeys / 16, kDc = kDp / 64;
-  extern __shared__ float4 smem4[];
-  float *qs = reinterpret_cast<float *>(smem4);
-  float *dos = qs + kRows * kS;
-  float *ks = dos + kRows * kS;
-  float *vs = ks + kKeys * kS;
-  float *ps = vs + kKeys * kS;
-  float *dss = ps + kRows * kPS;
-  float *ls = dss + kRows * kPS;
-  float *dls = ls + kRows;
+// One pass of a dK / dV block over its query rows: dV += P^T dO (kDV) and
+// dK += dS^T Q (kDK) for the warp's 16 keys, written (dK scaled) into the
+// head's partial.  kvw, vw: the warp's K and V rows.
+template <int kDp, bool kDV, bool kDK>
+__device__ __forceinline__ void dkdv_pass(const BwdArgs &a, int b, int h,
+                                          int k0, int rt_begin, int rt_end,
+                                          const float *kw, const float *vw,
+                                          float *ring) {
+  constexpr int kS = kDp + 4;
+  constexpr int kStage = 2 * kTile * kS + 2 * kTile;   // Q, dO, lse', delta
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int kvh = h / a.group, off = a.lk - a.lq;
+  const int64_t n_stats = (int64_t)a.b * a.hq * a.lq;
+  const float *qbase = a.q + (int64_t)b * a.q_sb + (int64_t)h * a.q_sh;
+  const float *obase = a.dout + (int64_t)b * a.do_sb + (int64_t)h * a.do_sh;
+  const float *sbase = a.stats + ((int64_t)b * a.hq + h) * a.lq;
+  auto load = [&](int rt, int stage) {
+    float *qd = ring + stage * kStage, *od = qd + kTile * kS;
+    float *ld = od + kTile * kS;
+    const int r0 = rt * kTile;
+    copy_rows<kDp>(qd, kTile, [=](int r) -> const float * {
+      return r0 + r < a.lq ? qbase + (int64_t)(r0 + r) * a.q_sl : nullptr;
+    }, a.d, a.vec, a.q);
+    copy_rows<kDp>(od, kTile, [=](int r) -> const float * {
+      return r0 + r < a.lq ? obase + (int64_t)(r0 + r) * a.do_sl : nullptr;
+    }, a.d, a.vec, a.q);
+    for (int e = threadIdx.x; e < 2 * kTile; e += kThreads) {
+      const int r = e % kTile;
+      const bool ok = r0 + r < a.lq;
+      cp_async4(ld + e, ok ? sbase + (e / kTile) * n_stats + r0 + r : a.q,
+                ok);
+    }
+  };
 
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  // key tile 0, the longest under a causal mask, starts first
-  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int g = a.group, off = a.lk - a.lq;
-  const int k0 = kt * kKeys, k1 = min(k0 + kKeys, a.lk);
+  // this lane's keys: warp * 16 + gq (i = 0) and + 8 (i = 1)
+  float dk[kDp / 8][4], dv[kDp / 8][4];   // the pass's own: the other is dead
+  zero<kDp>(dk);
+  zero<kDp>(dv);
+
+  stream_tiles(rt_begin, rt_end, load, [&](int rt, int stage) {
+    const float *qt = ring + stage * kStage, *ot = qt + kTile * kS;
+    const float *ls = ot + kTile * kS, *dls = ls + kTile;
+    // S^T and dP^T: s[j][e] is key gq + 8 (e / 2), row 8 j + 2 tq + e % 2
+    float s[kJ][4], dp[kJ][4];
+    tile_scores<kDp, true>(kw, qt, s);
+    if constexpr (kDK) tile_scores<kDp, true>(vw, ot, dp);
+#pragma unroll
+    for (int j = 0; j < kJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 8 * j + 2 * tq + e % 2;
+        const int kp = k0 + warp * 16 + gq + 8 * (e / 2);
+        float chain;
+        const float y = capped(a, s[j][e], chain);
+        const bool ok = rt * kTile + r < a.lq &&
+                        sees(a, rt * kTile + r + off, kp);
+        const float p = ok ? expf(y - ls[r]) : 0.f;
+        s[j][e] = p;
+        if constexpr (kDK)
+          dp[j][e] = ok ? p * (dp[j][e] - dls[r]) * chain : 0.f;
+      }
+    if constexpr (kDV) accumulate<kDp>(dv, s, ot);
+    if constexpr (kDK) accumulate<kDp>(dk, dp, qt);
+  });
+
+  // the head's partial, (B, Lk, Hkv, D) at slot h % G: dk[c][2 i + e] is
+  // key gq + 8 i, column 8 c + 2 tq + e
+  const int64_t part = ((int64_t)(h % a.group) * a.b + b) * a.lk;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kp = k0 + warp * 16 + gq + 8 * i;
+    if (kp >= a.lk) continue;
+    const int64_t base = ((part + kp) * a.hkv + kvh) * a.d;
+#pragma unroll
+    for (int c = 0; c < kDp / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * c + 2 * tq + e;
+        if (col >= a.d) continue;
+        if constexpr (kDK) a.out_a[base + col] = dk[c][2 * i + e] * a.sm_scale;
+        if constexpr (kDV) a.out_b[base + col] = dv[c][2 * i + e];
+      }
+  }
+}
+
+template <int kDp>
+__global__ void __launch_bounds__(kThreads, kDp <= 128 ? 2 : 1)
+    flash_attention_bwd_dkdv_kernel(const BwdArgs a) {
+  constexpr int kS = kDp + 4;
+  extern __shared__ float4 smem4[];
+  float *ks = reinterpret_cast<float *>(smem4);
+  float *vs = ks + kBlockRows * kS;
+  float *ring = vs + kBlockRows * kS;     // [stage][Q, dO, lse', delta]
+
+  const int warp = threadIdx.x / 32;
+  // tile-major: key tile 0, the longest under a causal mask, first
+  const int per_tile = a.hq * a.b;
+  const int kt = (int)blockIdx.x / per_tile;
+  const int h = (int)blockIdx.x % per_tile % a.hq;
+  const int b = (int)blockIdx.x % per_tile / a.hq;
+  const int kvh = h / a.group, off = a.lk - a.lq;
+  const int k0 = kt * kBlockRows, k1 = min(k0 + kBlockRows, a.lk);
 
   // the query positions that see a key of [k0, k1)
   int qi_lo = 0, qi_hi = a.lq - 1;
   if (a.causal) qi_lo = max(qi_lo, k0 - off);
   if (a.window > 0) qi_hi = min(qi_hi, k1 - 1 + a.window - 1 - off);
-  const int t_lo = qi_lo * g, t_hi = (qi_hi + 1) * g;   // rows, exclusive
+  const int rt_begin = qi_lo / kTile;
+  const int rt_end = qi_hi >= qi_lo ? qi_hi / kTile + 1 : rt_begin;
 
-  load_keys<kDp, kKeys>(a, b, kvh, k0, ks, vs);
-  float dk[kKI][kDc][4], dv[kKI][kDc][4];
-#pragma unroll
-  for (int i = 0; i < kKI; ++i)
-#pragma unroll
-    for (int c = 0; c < kDc; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk[i][c][e] = dv[i][c][e] = 0.f;
-
-  for (int t0 = t_lo / kRows * kRows; t0 < t_hi; t0 += kRows) {
-    __syncthreads();   // the previous tile's rows, P and dS are consumed
-    const int64_t n_stats = (int64_t)gridDim.z * a.hq * a.lq;
-    load_rows<kDp, kRows>(a, b, kvh, t0, a.stats, a.stats + n_stats, qs,
-                          dos, ls, dls);
-    __syncthreads();
-    score_tile<kDp, kRows, kKeys>(a, t0, k0, qs, dos, ks, vs, ls, dls, ps,
-                                  dss);
-    __syncthreads();
-    // dV += P^T dO and dK += dS^T Q over the tile's rows in order
-#pragma unroll 1
-    for (int r = 0; r < kRows; ++r) {
-      float4 ov[kDc], qv[kDc];
-#pragma unroll
-      for (int c = 0; c < kDc; ++c) {
-        const int col = r * kS + 4 * tx + 64 * c;
-        ov[c] = *reinterpret_cast<const float4 *>(&dos[col]);
-        qv[c] = *reinterpret_cast<const float4 *>(&qs[col]);
-      }
-#pragma unroll
-      for (int i = 0; i < kKI; ++i) {
-        const float p = ps[r * kPS + ty + 16 * i];
-        const float ds = dss[r * kPS + ty + 16 * i];
-#pragma unroll
-        for (int c = 0; c < kDc; ++c) {
-          dv[i][c][0] = fmaf(p, ov[c].x, dv[i][c][0]);
-          dv[i][c][1] = fmaf(p, ov[c].y, dv[i][c][1]);
-          dv[i][c][2] = fmaf(p, ov[c].z, dv[i][c][2]);
-          dv[i][c][3] = fmaf(p, ov[c].w, dv[i][c][3]);
-          dk[i][c][0] = fmaf(ds, qv[c].x, dk[i][c][0]);
-          dk[i][c][1] = fmaf(ds, qv[c].y, dk[i][c][1]);
-          dk[i][c][2] = fmaf(ds, qv[c].z, dk[i][c][2]);
-          dk[i][c][3] = fmaf(ds, qv[c].w, dk[i][c][3]);
-        }
-      }
-    }
-  }
-
-  // dK (scaled) and dV, contiguous (B, Lk, Hkv, D)
-#pragma unroll
-  for (int i = 0; i < kKI; ++i) {
-    const int kp = k0 + ty + 16 * i;
-    if (kp >= a.lk) continue;
-    const int64_t base = (((int64_t)b * a.lk + kp) * a.hkv + kvh) * a.d;
-#pragma unroll
-    for (int c = 0; c < kDc; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 4 * tx + 64 * c + e;
-        if (col < a.d) {
-          a.out_a[base + col] = dk[i][c][e] * a.sm_scale;
-          a.out_b[base + col] = dv[i][c][e];
-        }
-      }
+  const float *kbase = a.k + (int64_t)b * a.k_sb + (int64_t)kvh * a.k_sh;
+  const float *vbase = a.v + (int64_t)b * a.v_sb + (int64_t)kvh * a.v_sh;
+  copy_rows<kDp>(ks, kBlockRows, [=](int r) -> const float * {
+    return k0 + r < a.lk ? kbase + (int64_t)(k0 + r) * a.k_sl : nullptr;
+  }, a.d, a.vec, a.q);
+  copy_rows<kDp>(vs, kBlockRows, [=](int r) -> const float * {
+    return k0 + r < a.lk ? vbase + (int64_t)(k0 + r) * a.v_sl : nullptr;
+  }, a.d, a.vec, a.q);
+  const float *kw = ks + warp * 16 * kS, *vw = vs + warp * 16 * kS;
+  if constexpr (kDp <= 128) {
+    dkdv_pass<kDp, true, true>(a, b, h, k0, rt_begin, rt_end, kw, vw, ring);
+  } else {
+    // 16 x 256 accumulators: dV and dK in two passes over the rows
+    dkdv_pass<kDp, true, false>(a, b, h, k0, rt_begin, rt_end, kw, vw,
+                                ring);
+    __syncthreads();   // the first pass's last tile is consumed
+    dkdv_pass<kDp, false, true>(a, b, h, k0, rt_begin, rt_end, kw, vw,
+                                ring);
   }
 }
 
-template <int kDp, int kRows, int kKeys>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_attention_bwd_dq_kernel(const BwdArgs a) {
-  constexpr int kS = kDp + 4, kPS = kKeys + 4;
-  constexpr int kRI = kRows / 16, kDc = kDp / 64;
-  extern __shared__ float4 smem4[];
-  float *qs = reinterpret_cast<float *>(smem4);
-  float *dos = qs + kRows * kS;
-  float *ks = dos + kRows * kS;
-  float *vs = ks + kKeys * kS;
-  float *dss = vs + kKeys * kS;
-  float *ls = dss + kRows * kPS;
-  float *dls = ls + kRows;
-
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  // the last row tiles, the longest under a causal mask, start first
-  const int tile = a.tiles - 1 - (int)blockIdx.x;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int g = a.group, n_rows = a.lq * g, off = a.lk - a.lq;
-  const int t0 = tile * kRows;
-
-  // the forward's key range of the tile's rows
-  const int last = min(t0 + kRows, n_rows) - 1;
-  const int pos_lo = t0 / g + off, pos_hi = last / g + off;
-  int k_end = a.lk, k_begin = 0;
-  if (a.causal) k_end = min(k_end, pos_hi + 1);
-  if (a.window > 0) k_begin = max(0, pos_lo - a.window + 1);
-  const int kt_begin = k_begin / kKeys;
-  const int kt_end = k_end > k_begin ? (k_end + kKeys - 1) / kKeys : kt_begin;
-
-  load_rows<kDp, kRows>(a, b, kvh, t0, a.lse, nullptr, qs, dos, ls, dls);
-
-  // pass 1: the rows' statistics under this kernel's scores (see "Row
-  // statistics" above): e = exp(y - lse), l' = sum e, t' = sum e dP
-  float lp[kRI], tp[kRI];
-#pragma unroll
-  for (int i = 0; i < kRI; ++i) lp[i] = tp[i] = 0.f;
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    __syncthreads();   // the previous tile's K and V are consumed
-    load_keys<kDp, kKeys>(a, b, kvh, kt * kKeys, ks, vs);
-    __syncthreads();
-    float s[kRI][kKeys / 16], dp[kRI][kKeys / 16];
-    tile_products<kDp, kRI, kKeys / 16>(a, qs, dos, ks, vs, s, dp);
-#pragma unroll
-    for (int i = 0; i < kRI; ++i)
-#pragma unroll
-      for (int j = 0; j < kKeys / 16; ++j) {
-        float chain;
-        const float y = capped(a, s[i][j], chain);
-        if (valid_pair(a, t0 + ty + 16 * i, kt * kKeys + tx + 16 * j)) {
-          const float e = expf(y - ls[ty + 16 * i]);
-          lp[i] += e;
-          tp[i] = fmaf(e, dp[i][j], tp[i]);
-        }
-      }
-  }
-  // each row's 16 partial sums, added in thread order: lse' and delta
-#pragma unroll
-  for (int i = 0; i < kRI; ++i) {
-    dss[(ty + 16 * i) * kPS + tx] = lp[i];
-    dss[(ty + 16 * i) * kPS + 16 + tx] = tp[i];
-  }
-  __syncthreads();
-  const int64_t n_stats = (int64_t)gridDim.z * a.hq * a.lq;
-  for (int r = threadIdx.x; r < kRows; r += kThreads) {
-    float l2 = 0.f, t2 = 0.f;
-    for (int x = 0; x < 16; ++x) {
-      l2 += dss[r * kPS + x];
-      t2 += dss[r * kPS + 16 + x];
+// dK and dV: the G heads' partials (2, G, n) summed in head order, four
+// elements a thread (16-byte accesses where vec: n % 4 == 0, aligned)
+__global__ void __launch_bounds__(kSumThreads)
+    flash_attention_bwd_sum_kernel(const float *part, float *dk, float *dv,
+                                   int64_t n, int g, int vec) {
+  const int64_t e0 = 4 * ((int64_t)blockIdx.x * kSumThreads + threadIdx.x);
+  if (vec && e0 < n) {
+    float4 sk = *reinterpret_cast<const float4 *>(part + e0);
+    float4 sv = *reinterpret_cast<const float4 *>(part + g * n + e0);
+    for (int i = 1; i < g; ++i) {
+      const float4 xk = *reinterpret_cast<const float4 *>(part + i * n + e0);
+      const float4 xv =
+          *reinterpret_cast<const float4 *>(part + (g + i) * n + e0);
+      sk.x += xk.x; sk.y += xk.y; sk.z += xk.z; sk.w += xk.w;
+      sv.x += xv.x; sv.y += xv.y; sv.z += xv.z; sv.w += xv.w;
     }
-    const int t = t0 + r;
-    float lse2 = 0.f, delta = 0.f;   // rows past the last: never read
-    if (t < n_rows && l2 > 0.f) {
-      lse2 = ls[r] + logf(l2);
-      delta = t2 / l2;
-      const int qi = t / g, h = kvh * g + t % g;
-      const int64_t idx = ((int64_t)b * a.hq + h) * a.lq + qi;
-      a.stats[idx] = lse2;
-      a.stats[n_stats + idx] = delta;
-    }
-    ls[r] = lse2;
-    dls[r] = delta;
+    *reinterpret_cast<float4 *>(dk + e0) = sk;
+    *reinterpret_cast<float4 *>(dv + e0) = sv;
+    return;
   }
-
-  // pass 2: dQ
-  float dq[kRI][kDc][4];
-#pragma unroll
-  for (int i = 0; i < kRI; ++i)
-#pragma unroll
-    for (int c = 0; c < kDc; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dq[i][c][e] = 0.f;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    __syncthreads();   // the previous tile's K, V and dS are consumed
-    load_keys<kDp, kKeys>(a, b, kvh, kt * kKeys, ks, vs);
-    __syncthreads();
-    score_tile<kDp, kRows, kKeys>(a, t0, kt * kKeys, qs, dos, ks, vs, ls,
-                                  dls, nullptr, dss);
-    __syncthreads();
-    // dQ += dS K over the tile's keys in order
-#pragma unroll 1
-    for (int c0 = 0; c0 < kKeys; ++c0) {
-      float4 kv[kDc];
-#pragma unroll
-      for (int c = 0; c < kDc; ++c)
-        kv[c] = *reinterpret_cast<const float4 *>(
-            &ks[c0 * kS + 4 * tx + 64 * c]);
-#pragma unroll
-      for (int i = 0; i < kRI; ++i) {
-        const float ds = dss[(ty + 16 * i) * kPS + c0];
-#pragma unroll
-        for (int c = 0; c < kDc; ++c) {
-          dq[i][c][0] = fmaf(ds, kv[c].x, dq[i][c][0]);
-          dq[i][c][1] = fmaf(ds, kv[c].y, dq[i][c][1]);
-          dq[i][c][2] = fmaf(ds, kv[c].z, dq[i][c][2]);
-          dq[i][c][3] = fmaf(ds, kv[c].w, dq[i][c][3]);
-        }
-      }
+  for (int64_t e = e0; e < min(e0 + 4, n); ++e) {
+    float sk = part[e], sv = part[g * n + e];
+    for (int i = 1; i < g; ++i) {
+      sk += part[i * n + e];
+      sv += part[(g + i) * n + e];
     }
-  }
-
-  // dQ (scaled), contiguous (B, Lq, Hq, D)
-#pragma unroll
-  for (int i = 0; i < kRI; ++i) {
-    const int t = t0 + ty + 16 * i;
-    if (t >= n_rows) continue;
-    const int qi = t / g, h = kvh * g + t % g;
-    const int64_t base = (((int64_t)b * a.lq + qi) * a.hq + h) * a.d;
-#pragma unroll
-    for (int c = 0; c < kDc; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 4 * tx + 64 * c + e;
-        if (col < a.d) a.out_a[base + col] = dq[i][c][e] * a.sm_scale;
-      }
+    dk[e] = sk;
+    dv[e] = sv;
   }
 }
 
-template <int kDp, int kRows, int kKeys>
-int launch_dkdv(BwdArgs a, int b, void *stream) {
-  constexpr size_t smem = bwd_smem_bytes<kDp, kRows, kKeys>();
+template <int kDp>
+int launch_dq(BwdArgs a, int blocks, void *stream) {
+  constexpr size_t smem = bwd_smem_bytes<kDp>();
   static_assert(smem <= (size_t)kMaxSmemBytes, "tile exceeds shared memory");
-  auto kernel = flash_attention_bwd_dkdv_kernel<kDp, kRows, kKeys>;
+  const int64_t tiles =
+      ((int64_t)a.lq * a.group + kBlockRows - 1) / kBlockRows;
+  const int64_t grid = tiles * a.hkv * a.b;
+  if (grid != blocks) return (int)cudaErrorInvalidValue;
+  auto kernel = flash_attention_bwd_dq_kernel<kDp>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  a.tiles = (a.lk + kKeys - 1) / kKeys;
-  const dim3 grid(a.tiles, a.hkv, b);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  a.tiles = (int)tiles;
+  kernel<<<(unsigned)grid, kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int kDp, int kRows, int kKeys>
-int launch_dq(BwdArgs a, int b, void *stream) {
-  constexpr size_t smem = bwd_smem_bytes<kDp, kRows, kKeys>();
+template <int kDp>
+int launch_dkdv(BwdArgs a, int blocks, void *stream) {
+  constexpr size_t smem = bwd_smem_bytes<kDp>();
   static_assert(smem <= (size_t)kMaxSmemBytes, "tile exceeds shared memory");
-  auto kernel = flash_attention_bwd_dq_kernel<kDp, kRows, kKeys>;
+  const int64_t tiles = (a.lk + kBlockRows - 1) / kBlockRows;
+  const int64_t grid = tiles * a.hq * a.b;
+  if (grid != blocks) return (int)cudaErrorInvalidValue;
+  auto kernel = flash_attention_bwd_dkdv_kernel<kDp>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int64_t rows = (int64_t)a.lq * a.group;
-  const int64_t tiles = (rows + kRows - 1) / kRows;
-  if (tiles > 2147483647) return (int)cudaErrorInvalidValue;
   a.tiles = (int)tiles;
-  const dim3 grid((unsigned)tiles, a.hkv, b);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<(unsigned)grid, kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -537,13 +650,15 @@ int make_args(BwdArgs &a, const float *q, const float *k, const float *v,
               int64_t do_sh, int causal, int window, float soft_cap,
               float sm_scale) {
   if (b < 1 || lq < 1 || lk < 1 || hkv < 1 || hq < hkv || hq % hkv != 0 ||
-      d < 1 || d > kMaxDp || (causal && lq > lk) || b > 65535 ||
-      hkv > 65535 || (int64_t)lq * (hq / hkv) > ((int64_t)1 << 30))
+      d < 1 || d > kMaxDp || (causal && lq > lk) ||
+      (int64_t)lq * (hq / hkv) > ((int64_t)1 << 30) ||
+      (int64_t)b * hq * ((lk + kBlockRows - 1) / kBlockRows) > 2147483647 ||
+      (int64_t)b * hkv * ((int64_t)lq * (hq / hkv) / kBlockRows + 1) >
+          2147483647)
     return (int)cudaErrorInvalidValue;
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.stats = stats;
   a.out_a = out_a; a.out_b = out_b;
-  a.lq = lq; a.lk = lk; a.hq = hq; a.hkv = hkv; a.d = d;
-  a.d4 = (d + 3) / 4 * 4;
+  a.b = b; a.lq = lq; a.lk = lk; a.hq = hq; a.hkv = hkv; a.d = d;
   a.group = hq / hkv;
   a.q_sb = q_sb; a.q_sl = q_sl; a.q_sh = q_sh;
   a.k_sb = k_sb; a.k_sl = k_sl; a.k_sh = k_sh;
@@ -552,6 +667,14 @@ int make_args(BwdArgs &a, const float *q, const float *k, const float *v,
   a.causal = causal; a.window = window; a.soft_cap = soft_cap;
   a.sm_scale = sm_scale;
   a.tiles = 0;
+  const auto al16 = [](const void *p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  a.vec = d % 4 == 0 && al16(q) && al16(k) && al16(v) && al16(dout) &&
+          q_sb % 4 == 0 && q_sl % 4 == 0 && q_sh % 4 == 0 &&
+          k_sb % 4 == 0 && k_sl % 4 == 0 && k_sh % 4 == 0 &&
+          v_sb % 4 == 0 && v_sl % 4 == 0 && v_sh % 4 == 0 &&
+          do_sb % 4 == 0 && do_sl % 4 == 0 && do_sh % 4 == 0;
   return 0;
 }
 
@@ -560,10 +683,12 @@ int make_args(BwdArgs &a, const float *q, const float *k, const float *v,
 // C entry points, bound with ctypes by repro_torch/kernels/build.py.  Each
 // launches on `stream` without synchronising and returns cudaGetLastError()
 // (or cudaErrorInvalidValue for a geometry the kernels cannot take: D >
-// 256 has no backward here).  q, k, v and dO are read through their
-// strides (in elements; the head dim contiguous); lse (the forward's) is
-// contiguous (B, Hq, Lq) and stats (2, B, Hq, Lq); the gradients are
-// written contiguous.  Launch dq first: it writes the stats dkdv reads.
+// 256 has no backward here; or a block count `blocks`, the wrapper's plan,
+// that the kernel's constants do not give).  q, k, v and dO are read
+// through their strides (in elements; the head dim contiguous); lse (the
+// forward's) is contiguous (B, Hq, Lq) and stats (2, B, Hq, Lq); the
+// outputs are written contiguous.  Launch dq first (it writes the stats
+// dkdv reads), then dkdv, then, for G > 1, sum.
 extern "C" {
 
 #define BWD_PARAMS                                                          \
@@ -573,21 +698,22 @@ extern "C" {
       int64_t q_sl, int64_t q_sh, int64_t k_sb, int64_t k_sl,              \
       int64_t k_sh, int64_t v_sb, int64_t v_sl, int64_t v_sh,              \
       int64_t do_sb, int64_t do_sl, int64_t do_sh, int causal, int window, \
-      float soft_cap, float sm_scale, void *stream
+      float soft_cap, float sm_scale, int blocks, void *stream
 #define BWD_ARGS                                                          \
   q, k, v, dout, lse, stats, out_a, out_b, b, lq, lk, hq, hkv, d, q_sb,  \
       q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, do_sb, do_sl,      \
       do_sh, causal, window, soft_cap, sm_scale
 
-// dK into out_a and dV into out_b, (B, Lk, Hkv, D), from the stats that
+// The heads' partial dK (scaled) into out_a and dV into out_b, each
+// (G, B, Lk, Hkv, D) (G = 1: the gradients), from the stats that
 // flash_attention_bwd_dq_f32 wrote
 int flash_attention_bwd_dkdv_f32(BWD_PARAMS) {
   BwdArgs a;
   const int err = make_args(a, BWD_ARGS);
   if (err != 0 || out_b == nullptr) return (int)cudaErrorInvalidValue;
-  if (d <= 64) return launch_dkdv<64, 64, 32>(a, b, stream);
-  if (d <= 128) return launch_dkdv<128, 64, 32>(a, b, stream);
-  return launch_dkdv<256, 32, 32>(a, b, stream);
+  if (d <= 64) return launch_dkdv<64>(a, blocks, stream);
+  if (d <= 128) return launch_dkdv<128>(a, blocks, stream);
+  return launch_dkdv<256>(a, blocks, stream);
 }
 
 // dQ into out_a, (B, Lq, Hq, D), and the rows' lse' and delta into
@@ -596,9 +722,26 @@ int flash_attention_bwd_dq_f32(BWD_PARAMS) {
   BwdArgs a;
   const int err = make_args(a, BWD_ARGS);
   if (err != 0) return err;
-  if (d <= 64) return launch_dq<64, 64, 32>(a, b, stream);
-  if (d <= 128) return launch_dq<128, 64, 32>(a, b, stream);
-  return launch_dq<256, 32, 32>(a, b, stream);
+  if (d <= 64) return launch_dq<64>(a, blocks, stream);
+  if (d <= 128) return launch_dq<128>(a, blocks, stream);
+  return launch_dq<256>(a, blocks, stream);
+}
+
+// dK into dk and dV into dv, n elements each, from the partials (2, G, n)
+// that flash_attention_bwd_dkdv_f32 wrote
+int flash_attention_bwd_sum_f32(const float *part, float *dk, float *dv,
+                                int64_t n, int g, int blocks, void *stream) {
+  if (n < 1 || g < 2 ||
+      (n + 4 * kSumThreads - 1) / (4 * kSumThreads) != blocks)
+    return (int)cudaErrorInvalidValue;
+  const auto al16 = [](const void *p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int vec = n % 4 == 0 && al16(part) && al16(dk) && al16(dv);
+  flash_attention_bwd_sum_kernel<<<(unsigned)blocks, kSumThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      part, dk, dv, n, g, vec);
+  return (int)cudaGetLastError();
 }
 
 const char *flash_attention_bwd_error_string(int err) {

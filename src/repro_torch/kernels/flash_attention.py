@@ -16,10 +16,11 @@ Under autograd (grad enabled and q, k or v requiring grad) the call goes
 through ``_FlashAttentionFn``: its forward also keeps the row log-sum-exp
 ``lse = m + log(max(l, 1e-30))`` (B, Hq, Lq), which the kernel writes when
 it is given a pointer for it (``o`` is bitwise the same either way); its
-backward launches the two kernels of ``csrc/flash_attention_bwd.cu`` (dQ,
+backward launches the kernels of ``csrc/flash_attention_bwd.cu`` (dQ,
 which first corrects lse and forms delta from its own recomputed scores,
-then dK and dV) on CUDA tensors and runs
-:func:`flash_attention_backward_plain` on CPU tensors.  The JAX package
+then each query head's partial dK and dV, then, for a GQA group G > 1,
+their sum in head order; geometry from :func:`bwd_plan`) on CUDA tensors
+and runs :func:`flash_attention_backward_plain` on CPU tensors.  The JAX package
 has no backward kernel: it differentiates ``ops.attention(impl=
 "chunked")`` through XLA.  The backward covers D <= 256 (the forward's
 narrow route); D > 256 under grad raises ``NotImplementedError``.
@@ -28,14 +29,26 @@ narrow route); D > 256 under grad raises ``NotImplementedError``.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels import build
 
 BLOCK_K = 64           # keys per tile, the kernel's kKeys
-BWD_BLOCK_K = 32       # keys per tile of the backward kernels
-MAX_BWD_D = 256        # the backward kernels' widest head
+MAX_BWD_D = 256        # the backward kernels' widest head, kMaxDp
+# The backward kernels' geometry (csrc/flash_attention_bwd.cu's constants;
+# tests/test_torch_flash_bwd_plan.py holds the two together)
+BWD_WARPS = 4          # warps a block, both kernels (kWarps)
+BWD_BLOCK_ROWS = 64    # resident rows: dQ rows, dK/dV keys (kBlockRows)
+BWD_BLOCK_K = 16       # streamed rows a ring stage (kTile): the dQ
+                       # kernel's keys, dK/dV's query positions; the plain
+                       # backward's key tile
+BWD_STAGES = 2         # the cp.async ring's stages (kStages)
+BWD_SUM_THREADS = 256  # threads a block of the partials' sum, four
+                       # elements a thread (kSumThreads)
+SMEM_PER_BLOCK = 232448   # H100: 227 KB opt-in per block (kMaxSmemBytes)
+SMEM_PER_SM = 233472      # 228 KB, 1 KB of it reserved for each block
 NEG_INF = -1e30        # the TPU kernel's mask value
 WIDE_BWD = ("the flash-attention backward takes head_dim <= 256; the wide "
             "route's backward is ROADMAP Queue 2 C item 8 (the flash "
@@ -43,9 +56,10 @@ WIDE_BWD = ("the flash-attention backward takes head_dim <= 256; the wide "
 
 # Kernel launches: each successful launch adds one.  The forward's count
 # includes the launches under autograd (and a remat recompute); the
-# backward's two kernels count in BWD_LAUNCHES.
+# backward's kernels count in BWD_LAUNCHES (the sum only where G > 1).
 LAUNCHES = {"flash_attention": 0}
-BWD_LAUNCHES = {"flash_attention_bwd_dkdv": 0, "flash_attention_bwd_dq": 0}
+BWD_LAUNCHES = {"flash_attention_bwd_dkdv": 0, "flash_attention_bwd_dq": 0,
+                "flash_attention_bwd_sum": 0}
 
 
 def reset_launch_counts() -> None:
@@ -163,23 +177,28 @@ def flash_attention_backward_plain(q, k, v, lse, do, *, causal=True,
     statistics").  Then ``p = exp(y - lse')``, ``dS = P (dP - delta)``
     times ``1 - tanh^2`` under the soft cap, ``dV = P^T dO``, ``dK = scale
     dS^T Q``, ``dQ = scale dS K`` (the G heads of a KV head summed into
-    its dK and dV).  q, do: (B, Lq, Hq, D); k, v: (B, Lk, Hkv, D)."""
+    its dK and dV).  q, do: (B, Lq, Hq, D); k, v: (B, Lk, Hkv, D).  f32,
+    or float64 throughout where q is float64 (an oracle of the kernels'
+    arithmetic: ``chip_smoke.py`` holds them to it at full-width logits,
+    where two f32 computations of this function part by more than
+    ``BWD_TOLERANCE``)."""
     b, lq, hq, d = q.shape
     _, lk, hkv, _ = k.shape
     group = hq // hkv
     sm_scale = 1.0 / math.sqrt(d)
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
 
     def rows(t):      # (B, Lq, Hq, X) -> (B, Hkv, G, Lq, X)
         return t.reshape(b, lq, hkv, group, -1).permute(0, 2, 3, 1, 4)
 
-    qg, dog = rows(q.float()), rows(do.float())
+    qg, dog = rows(q.to(dt)), rows(do.to(dt))
     q_pos = torch.arange(lq, device=q.device) + lk - lq
     tiles = range(_first_tile(lq, lk, window, block_k), lk, block_k)
 
     def tile(k0):
         """(K, V, y, the cap's 1 - tanh^2 or None, mask, dP) of a tile."""
-        kc = k[:, k0:k0 + block_k].float()
-        vc = v[:, k0:k0 + block_k].float()
+        kc = k[:, k0:k0 + block_k].to(dt)
+        vc = v[:, k0:k0 + block_k].to(dt)
         y = torch.einsum("bhgqd,bchd->bhgqc", qg, kc) * sm_scale
         chain = None
         if soft_cap is not None:
@@ -189,7 +208,7 @@ def flash_attention_backward_plain(q, k, v, lse, do, *, causal=True,
         dp = torch.einsum("bhgqd,bchd->bhgqc", dog, vc)
         return kc, vc, y, chain, mask, dp
 
-    lse_g = lse.reshape(b, hkv, group, lq, 1).float()
+    lse_g = lse.reshape(b, hkv, group, lq, 1).to(dt)
     l2 = torch.zeros_like(lse_g)
     t2 = torch.zeros_like(lse_g)
     for k0 in tiles:
@@ -201,8 +220,8 @@ def flash_attention_backward_plain(q, k, v, lse, do, *, causal=True,
     delta = t2 / l2
 
     dq = torch.zeros_like(qg)
-    dk = torch.zeros((b, lk, hkv, d), device=q.device)
-    dv = torch.zeros((b, lk, hkv, d), device=q.device)
+    dk = torch.zeros((b, lk, hkv, d), dtype=dt, device=q.device)
+    dv = torch.zeros((b, lk, hkv, d), dtype=dt, device=q.device)
     for k0 in tiles:
         kc, _, y, chain, mask, dp = tile(k0)
         p = torch.where(mask, torch.exp(y - lse_g), 0.0)
@@ -215,6 +234,51 @@ def flash_attention_backward_plain(q, k, v, lse, do, *, causal=True,
         dq = dq + torch.einsum("bhgqc,bchd->bhgqd", ds, kc)
     dq = (dq * sm_scale).permute(0, 3, 1, 2, 4).reshape(b, lq, hq, d)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """The backward kernels' geometry for one shape: the padded head dim
+    (the kernels' template instance), the dK/dV passes over the rows (two
+    at Dp 256: dV, then dK), each launch's blocks (``sum_blocks`` 0: G = 1,
+    no sum), the partials' scratch and each block's shared memory."""
+    dp: int
+    group: int
+    dkdv_passes: int
+    dq_blocks: int
+    dkdv_blocks: int
+    sum_blocks: int
+    scratch_bytes: int
+    smem_bytes: int
+
+    @property
+    def blocks_per_sm(self) -> int:
+        """Resident blocks an SM by shared memory (the launch bounds ask
+        for 2 at Dp <= 128, 1 at 256)."""
+        return SMEM_PER_SM // (self.smem_bytes + 1024)
+
+
+def bwd_plan(b: int, lq: int, lk: int, hq: int, hkv: int, d: int) -> BwdPlan:
+    """The grids and scratch of the backward kernels for q (B, Lq, Hq, D)
+    and k, v (B, Lk, Hkv, D), by the rules of their launchers: dQ one block
+    per (64 rows, KV head, batch), a row one (position, head of the GQA
+    group); dK/dV one per (64-key tile, query head, batch), each writing
+    its head's partial dK and dV into scratch (2, G, B, Lk, Hkv, D) when
+    G > 1; the sum one thread per four gradient elements."""
+    if d > MAX_BWD_D:
+        raise NotImplementedError(WIDE_BWD)
+    dp = 64 if d <= 64 else 128 if d <= 128 else 256
+    group = hq // hkv
+    n = b * lk * hkv * d
+    ring = BWD_STAGES * BWD_BLOCK_K
+    return BwdPlan(
+        dp=dp, group=group, dkdv_passes=1 if dp <= 128 else 2,
+        dq_blocks=-(-lq * group // BWD_BLOCK_ROWS) * hkv * b,
+        dkdv_blocks=-(-lk // BWD_BLOCK_ROWS) * hq * b,
+        sum_blocks=-(-n // (4 * BWD_SUM_THREADS)) if group > 1 else 0,
+        scratch_bytes=2 * group * n * 4 if group > 1 else 0,
+        smem_bytes=((2 * BWD_BLOCK_ROWS + 2 * ring) * (dp + 4) + 2 * ring)
+        * 4)
 
 
 def _launch_forward(q, k, v, causal, soft_cap, window, lse=None):
@@ -245,40 +309,74 @@ def _launch_forward(q, k, v, causal, soft_cap, window, lse=None):
 
 
 def _launch_backward(kernel, q, k, v, do, lse, stats, outs, causal,
-                     soft_cap, window) -> None:
+                     soft_cap, window, plan=None) -> None:
     """One launch of ``flash_attention_bwd_{kernel}_f32``: ``"dq"`` (outs
     = (dq,)) reads the forward's ``lse`` and writes the rows' lse' and
-    delta into ``stats`` (2, B, Hq, Lq); ``"dkdv"`` (outs = (dk, dv))
-    reads them.  Outputs contiguous."""
+    delta into ``stats`` (2, B, Hq, Lq); ``"dkdv"`` (outs = the partial
+    dK and dV, each (G, B, Lk, Hkv, D), or dk and dv when G = 1) reads
+    them.  Outputs contiguous; ``plan`` (default :func:`bwd_plan` of the
+    shapes) gives the blocks."""
     b, lq, hq, d = q.shape
     _, lk, hkv, _ = k.shape
+    plan = plan or bwd_plan(b, lq, lk, hq, hkv, d)
     lib = build.library("flash_attention_bwd")
+    name = f"flash_attention_bwd_{kernel}"
     ptrs = [t.data_ptr() for t in outs] + [None] * (2 - len(outs))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, f"flash_attention_bwd_{kernel}_f32")(
+        err = getattr(lib, f"{name}_f32")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), stats.data_ptr(), *ptrs, b, lq, lk, hq, hkv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *do.stride()[:3], int(causal), 0 if window is None else window,
             0.0 if soft_cap is None else soft_cap, 1.0 / math.sqrt(d),
-            stream)
+            getattr(plan, f"{kernel}_blocks"), stream)
     if err != 0:
         raise RuntimeError(
-            f"flash_attention_bwd_{kernel} kernel launch failed: CUDA error "
-            f"{err} ({lib.flash_attention_bwd_error_string(err).decode()}) "
-            f"for q {tuple(q.shape)}, k {tuple(k.shape)}, causal={causal}, "
+            f"{name} kernel launch failed: CUDA error {err} "
+            f"({lib.flash_attention_bwd_error_string(err).decode()}) for q "
+            f"{tuple(q.shape)}, k {tuple(k.shape)}, causal={causal}, "
             f"soft_cap={soft_cap}, window={window}")
-    BWD_LAUNCHES[f"flash_attention_bwd_{kernel}"] += 1
+    BWD_LAUNCHES[name] += 1
+
+
+def sum_partials_plain(part: torch.Tensor):
+    """The sum kernel's function in plain PyTorch: (dk, dv), each the G
+    heads' partials of ``part`` (2, G, B, Lk, Hkv, D) added in head order,
+    as the kernel adds them (bitwise the same)."""
+    dk, dv = part[0, 0].clone(), part[1, 0].clone()
+    for i in range(1, part.shape[1]):
+        dk += part[0, i]
+        dv += part[1, i]
+    return dk, dv
+
+
+def _launch_sum(part, dk, dv, plan) -> None:
+    """One launch of ``flash_attention_bwd_sum_f32``: dk and dv, each the
+    sum in head order of the G partials in ``part`` (2, G, B, Lk, Hkv,
+    D)."""
+    lib = build.library("flash_attention_bwd")
+    with torch.cuda.device(dk.device):
+        stream = torch.cuda.current_stream(dk.device).cuda_stream
+        err = lib.flash_attention_bwd_sum_f32(
+            part.data_ptr(), dk.data_ptr(), dv.data_ptr(), dk.numel(),
+            plan.group, plan.sum_blocks, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention_bwd_sum kernel launch failed: CUDA error {err} "
+            f"({lib.flash_attention_bwd_error_string(err).decode()}) for "
+            f"partials {tuple(part.shape)}")
+    BWD_LAUNCHES["flash_attention_bwd_sum"] += 1
 
 
 def flash_attention_backward(q, k, v, lse, do, *, causal=True,
                              soft_cap=None, window=None):
     """(dq, dk, dv) of attention at ``do``, from the forward's ``lse``
     (B, Hq, Lq).  On CUDA tensors one launch of each backward kernel (dQ
-    with the rows' statistics, then dK and dV; counted in
-    ``BWD_LAUNCHES``); on CPU tensors :func:`flash_attention_backward_
-    plain`.  D > 256 raises ``NotImplementedError``."""
+    with the rows' statistics; the query heads' partial dK and dV; for
+    G > 1 their sum; counted in ``BWD_LAUNCHES``); on CPU tensors
+    :func:`flash_attention_backward_plain`.  D > 256 raises
+    ``NotImplementedError``."""
     _check(q, k, v, causal, soft_cap, window)
     if q.shape[-1] > MAX_BWD_D:
         raise NotImplementedError(WIDE_BWD)
@@ -288,13 +386,23 @@ def flash_attention_backward(q, k, v, lse, do, *, causal=True,
     if do.stride(-1) != 1:
         do = do.contiguous()
     lse = lse.contiguous()
+    b, lq, hq, d = q.shape
+    plan = bwd_plan(b, lq, k.shape[1], hq, k.shape[2], d)
     stats = torch.empty((2, *lse.shape), dtype=torch.float32,
                         device=q.device)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
-    _launch_backward("dq", q, k, v, do, lse, stats, (dq,), **kw)
-    _launch_backward("dkdv", q, k, v, do, lse, stats, (dk, dv), **kw)
+    _launch_backward("dq", q, k, v, do, lse, stats, (dq,), plan=plan, **kw)
+    if plan.group == 1:
+        _launch_backward("dkdv", q, k, v, do, lse, stats, (dk, dv),
+                         plan=plan, **kw)
+        return dq, dk, dv
+    part = torch.empty((2, plan.group, *k.shape), dtype=torch.float32,
+                       device=q.device)
+    _launch_backward("dkdv", q, k, v, do, lse, stats, (part[0], part[1]),
+                     plan=plan, **kw)
+    _launch_sum(part, dk, dv, plan)
     return dq, dk, dv
 
 
