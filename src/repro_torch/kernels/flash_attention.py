@@ -47,8 +47,6 @@ BWD_BLOCK_K = 16       # streamed rows a ring stage (kTile): the dQ
 BWD_STAGES = 2         # the cp.async ring's stages (kStages)
 BWD_SUM_THREADS = 256  # threads a block of the partials' sum, four
                        # elements a thread (kSumThreads)
-SMEM_PER_BLOCK = 232448   # H100: 227 KB opt-in per block (kMaxSmemBytes)
-SMEM_PER_SM = 233472      # 228 KB, 1 KB of it reserved for each block
 NEG_INF = -1e30        # the TPU kernel's mask value
 WIDE_BWD = ("the flash-attention backward takes head_dim <= 256; the wide "
             "route's backward is ROADMAP Queue 2 C item 8 (the flash "
@@ -239,23 +237,19 @@ def flash_attention_backward_plain(q, k, v, lse, do, *, causal=True,
 @dataclass(frozen=True)
 class BwdPlan:
     """The backward kernels' geometry for one shape: the padded head dim
-    (the kernels' template instance), the dK/dV passes over the rows (two
-    at Dp 256: dV, then dK), each launch's blocks (``sum_blocks`` 0: G = 1,
-    no sum), the partials' scratch and each block's shared memory."""
+    (the kernels' template instance), each launch's blocks (``sum_blocks``
+    0: G = 1, no sum) and the shape of the heads' partials, which the
+    wrapper allocates (``()`` for G = 1: dK and dV are written directly)."""
     dp: int
     group: int
-    dkdv_passes: int
     dq_blocks: int
     dkdv_blocks: int
     sum_blocks: int
-    scratch_bytes: int
-    smem_bytes: int
+    scratch: tuple
 
     @property
-    def blocks_per_sm(self) -> int:
-        """Resident blocks an SM by shared memory (the launch bounds ask
-        for 2 at Dp <= 128, 1 at 256)."""
-        return SMEM_PER_SM // (self.smem_bytes + 1024)
+    def scratch_bytes(self) -> int:
+        return 4 * math.prod(self.scratch) if self.scratch else 0
 
 
 def bwd_plan(b: int, lq: int, lk: int, hq: int, hkv: int, d: int) -> BwdPlan:
@@ -267,18 +261,14 @@ def bwd_plan(b: int, lq: int, lk: int, hq: int, hkv: int, d: int) -> BwdPlan:
     G > 1; the sum one thread per four gradient elements."""
     if d > MAX_BWD_D:
         raise NotImplementedError(WIDE_BWD)
-    dp = 64 if d <= 64 else 128 if d <= 128 else 256
     group = hq // hkv
     n = b * lk * hkv * d
-    ring = BWD_STAGES * BWD_BLOCK_K
     return BwdPlan(
-        dp=dp, group=group, dkdv_passes=1 if dp <= 128 else 2,
+        dp=64 if d <= 64 else 128 if d <= 128 else 256, group=group,
         dq_blocks=-(-lq * group // BWD_BLOCK_ROWS) * hkv * b,
         dkdv_blocks=-(-lk // BWD_BLOCK_ROWS) * hq * b,
         sum_blocks=-(-n // (4 * BWD_SUM_THREADS)) if group > 1 else 0,
-        scratch_bytes=2 * group * n * 4 if group > 1 else 0,
-        smem_bytes=((2 * BWD_BLOCK_ROWS + 2 * ring) * (dp + 4) + 2 * ring)
-        * 4)
+        scratch=(2, group, b, lk, hkv, d) if group > 1 else ())
 
 
 def _launch_forward(q, k, v, causal, soft_cap, window, lse=None):
@@ -398,8 +388,7 @@ def flash_attention_backward(q, k, v, lse, do, *, causal=True,
         _launch_backward("dkdv", q, k, v, do, lse, stats, (dk, dv),
                          plan=plan, **kw)
         return dq, dk, dv
-    part = torch.empty((2, plan.group, *k.shape), dtype=torch.float32,
-                       device=q.device)
+    part = torch.empty(plan.scratch, dtype=torch.float32, device=q.device)
     _launch_backward("dkdv", q, k, v, do, lse, stats, (part[0], part[1]),
                      plan=plan, **kw)
     _launch_sum(part, dk, dv, plan)

@@ -748,16 +748,7 @@ def test_lm_train_step_on_the_kernels_matches_ref(cuda):
     grad norm, params, mu and nu within 1e-4 of each tree's max (the
     3xTF32 forward against cuBLAS, through a backward); the flash step
     launches the forward twice a layer (remat) and each backward kernel
-    once a layer.
-
-    A param whose reference gradient is within rounding of AdamW's eps
-    is held within what two first steps can part by, 2 lr: the step
-    moves an element by ``lr g / (|g| + eps)``, so there the sign of
-    rounding decides the step.  On an H100 element 4816 of tok/embed has
-    g 1.8e-7 on ref (of max|g| 0.10) and -1.4e-8 through an exact,
-    float64 plain backward, which then parts from ref by 7.6e-4 against
-    the tree's 2.97e-4 (the rule of ``tests/test_torch_train_lm.py``'s
-    ``_settled``)."""
+    once a layer."""
     from repro_torch.configs import registry
     from repro_torch.distributed import steps
     from repro_torch.kernels import flash_attention as fa
@@ -782,27 +773,13 @@ def test_lm_train_step_on_the_kernels_matches_ref(cuda):
         mr["loss"].item())
     assert abs(mf["grad_norm"].item() - mr["grad_norm"].item()) <= \
         1e-4 * mr["grad_norm"].item()
-    flat = {}
     for tree in (("params",), ("opt", "mu"), ("opt", "nu")):
         a, b = sf, sr
         for key in tree:
             a, b = a[key], b[key]
         a = torch.cat([t.flatten() for t in adamw.tree_leaves(a)])
         b = torch.cat([t.flatten() for t in adamw.tree_leaves(b)])
-        flat[tree[-1]] = (a, b)
-    for name in ("mu", "nu"):
-        a, b = flat[name]
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
-    # settled: a gradient error of 1e-4 max|g| (what mu is held to) moves
-    # the param by lr eps 1e-4 max|g| / g**2, within the params' bound
-    a, b = flat["params"]
-    lr, tol = float(mr["lr"]), 1e-4 * b.abs().max().item()
-    g = flat["mu"][1].abs() / (1 - opt.b1)
-    settled = g > (lr * opt.eps * 1e-4 * g.max().item() / tol) ** 0.5
-    err = (a - b).abs()
-    ulp = torch.nextafter(b.abs(), torch.full_like(b, float("inf"))) - b.abs()
-    assert err[settled].max().item() <= tol
-    assert bool((err[~settled] <= 2 * lr + ulp[~settled]).all())
 
 
 def test_lm_prefill_on_the_kernel_matches_ref(cuda):

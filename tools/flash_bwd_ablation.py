@@ -22,9 +22,10 @@ variant's error against the plain backward.  Variants:
   operands (garbage numbers; the time of everything but the tensor
   cores: loads, splits, exp, barriers).
 
-Each substitution is asserted to match the source, so an edit of the
-kernel that moves one breaks this tool loudly.  Prints a table and one
-JSON line.
+A one-off: it recorded where PR 26's kernels spend their time (PERF.md
+§6).  Its text anchors are those of that source and bind no later edit of
+the kernel; where one is gone, the tool says so and exits, and a later
+diagnosis writes its own variants.  Prints a table and one JSON line.
 """
 
 from __future__ import annotations
@@ -65,7 +66,10 @@ CASES = [("t_train", 2, 1024, 1024, 16, 2, 128, True, None, None),
 
 
 def sub(text, old, new):
-    assert text.count(old) >= 1, f"ablation anchor not in the source: {old!r}"
+    if old not in text:
+        sys.exit("flash_bwd_ablation: the kernel source has moved on from "
+                 f"the one these variants were written for ({old[:40]!r} "
+                 "is gone)")
     return text.replace(old, new)
 
 
