@@ -275,16 +275,51 @@ Phases, each raising on failure (each prints its seconds):
 29. LM resume — qwen2.5-3b SMOKE widths on the kernels (flash, remat): 2
    steps, a checkpoint (``repro_torch.checkpoint``), a restore into a
    fresh state and 2 more steps, bitwise equal to 4 straight steps;
-30. the kernel JSON line (eleven kernels; the launches of trim_conv1d and
-   flash_attention include the recurrentgemma prefill's, flash_attention's
-   and the backward kernels' the LM training steps'), then
-   ``{"ok": true, "device": ...}`` last.
+30. conv1d backward check — the input-gradient launch (the forward
+   kernel on the reversed cotangent) and the weight-gradient kernel
+   against their plain versions bit for bit, two calls bit for bit, and
+   against float64 autograd of ``ref.depthwise_conv1d``
+   (``CONV1D_BWD_TOLERANCE``), at recurrentgemma-2b's training row (B 1,
+   L 4096, D 2560, K 4), falcon-mamba-7b's training batch as the mixer's
+   strided view (2, 1024, 8192, 4), K 9, an L no run length divides and
+   L < K; at the two training shapes each one's time beside the forward
+   kernel's, the plain version's, ``torch.nn.grad.conv1d_input`` /
+   ``conv1d_weight``'s (TF32 off) and the bound;
+31. recurrentgemma train — full-width recurrentgemma-2b (26 layers, 2.89 B
+   parameters, f32, remat, flash) through ``launch.train.main``: 3 AdamW
+   steps at 1 x 4096 tokens of the copy task (the window binds), each
+   loss finite, exactly 36 conv1d forwards (18 + 18 in the recompute), 18
+   dx and 18 dw, 16 flash forwards and 8 of each flash backward kernel a
+   step, ms a step, peak memory and the clip state; 3 steps of the
+   depth-3 cut with a finite grad norm whose update reaches params, mu
+   and nu; at that cut (1 x 2560 tokens) the first-step gradient of
+   every leaf on the kernels (i) against the same step on ``impl="ref"``
+   conv1d and ``attn_impl="ref"`` in float64, at most ``F64_FACTOR``
+   times the f32 ref step's distance from it (both f32 steps read ~3e-4
+   at tok/embed: the f32 arithmetic they share, not the kernels), and
+   (ii) against the same kernel forward with the backward kernels
+   swapped for their plain versions in float64 (the conv1d's dx and dw,
+   the flash backward), within ``BWD_TOLERANCE`` and
+   max(``F64_FACTOR`` x the f32 plain versions', ``ATTN_TOLERANCE``);
+32. mamba train — falcon-mamba-7b at full width cut to
+   ``MAMBA_TRAIN_LAYERS`` layers (its 64 layers' f32 state is 116 GB)
+   through ``steps.make_train_step``: 3 AdamW steps at 2 x 1024 tokens,
+   exactly 2 conv1d forwards, one dx and one dw a layer a step, ms a step,
+   peak memory and the clip state; at the depth-2 cut the first-step
+   gradients on the kernels against the f32 step on ``impl="ref"``
+   (``MAMBA_GRAD_TOLERANCE``);
+33. the kernel JSON line (thirteen kernels; the launches of trim_conv1d
+   and flash_attention include the prefills' and the training phases',
+   the flash backward kernels' and conv1d backward kernels' the training
+   steps'), then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without a result when no GPU is visible.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -409,6 +444,29 @@ BWD_F64_POSITIONS = 512     # the float64 backward oracle's query rows
 TRAIN_LM_STEPS, TRAIN_LM_BATCH = 4, 2
 TRAIN_LM_SEQ = 1025         # make_batch drops one: 1024 tokens a sequence
 GRAD_LM_LAYERS, GRAD_LM_TOKENS = 2, 256
+# conv1d backward kernels against float64 autograd of ref.depthwise_conv1d,
+# of max|grad|: dx sums K rounded products, dw B x L of them (in runs,
+# groups of runs and the groups in order); f32 rounding leaves ~1e-7 (the
+# CPU tests read 1.6e-7), and a wrong tap, run or halo reads O(1).
+CONV1D_BWD_TOLERANCE = 1e-5
+# recurrentgemma-2b trained at full width through launch.train.main: one
+# row of the JAX train_4k plan's 4096 tokens (256 rows, n_micro 4), twice
+# the 2048 window, so the window mask binds in the backward
+RGEMMA_TRAIN_STEPS, RGEMMA_TRAIN_BATCH, RGEMMA_TRAIN_SEQ = 3, 1, 4097
+RGEMMA_GRAD_LAYERS = 3      # one (rec, rec, att) period
+RGEMMA_GRAD_TOKENS = 2560   # the float64 step's row: above the window
+# falcon-mamba-7b (116 GB of f32 state at full depth) trained at full
+# width on a depth cut, 2 x 1024 tokens (the JAX train_4k plan's rows cut
+# to fit one card): the deepest cut whose step peaks under ~72 GiB of the
+# 80 GB card (30 layers: 71.0 GiB; 32: 74.2; NVIDIA H100 80GB HBM3)
+MAMBA_TRAIN_LAYERS = 30
+MAMBA_TRAIN_STEPS, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ = 3, 2, 1025
+MAMBA_GRAD_LAYERS = 2
+# mamba's depth-2 gradients on the kernels against the f32 step on
+# impl="ref", of each leaf's max: the conv forward is bitwise the
+# oracle, and the backward kernels sum the same products in another
+# order (dw over 2 x 1024 positions), ~1e-7 through two layers.
+MAMBA_GRAD_TOLERANCE = 1e-5
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32
 CROSS_PROMPT = 256          # decode-vs-prefill prompt at the depth-1 cut
 TRAIN_BATCH = 8
@@ -3833,25 +3891,25 @@ def train_clip_state(torch, state, grad_norms, label) -> dict:
     return dict(scales=scales, mu_leaves_moved=moved["mu"], leaves=n)
 
 
-def lm_train_cut(torch, cfg) -> dict:
-    """TRAIN_LM_STEPS train steps of the full-width depth cut ``cfg`` (its
-    own seeded init, the trainer's optimiser settings and batch) through
-    ``steps.make_train_step``: at this depth the grad norm is finite, so
-    the update at full width runs with a gradient that reaches params, mu
-    and nu (``train_clip_state`` must find it so)."""
+def lm_train_cut(torch, cfg, batch: int = TRAIN_LM_BATCH,
+                 seq: int = TRAIN_LM_SEQ, n: int = TRAIN_LM_STEPS) -> dict:
+    """``n`` train steps of the full-width depth cut ``cfg`` (its own
+    seeded init, the trainer's optimiser settings, ``batch`` x ``seq``)
+    through ``steps.make_train_step``: at this depth the grad norm is
+    finite, so the update at full width runs with a gradient that reaches
+    params, mu and nu (``train_clip_state`` must find it so)."""
     from repro_torch.data import DataConfig, SyntheticStream
     from repro_torch.distributed import steps
     from repro_torch.optim import AdamWConfig
 
-    opt = AdamWConfig(lr=3e-3, warmup_steps=10, decay_steps=TRAIN_LM_STEPS)
+    opt = AdamWConfig(lr=3e-3, warmup_steps=10, decay_steps=n)
     state = steps.init_train_state(
         cfg, opt, torch.Generator(device="cuda").manual_seed(0))
-    stream = SyntheticStream(DataConfig(batch=TRAIN_LM_BATCH,
-                                        seq=TRAIN_LM_SEQ, vocab=cfg.vocab,
-                                        task="copy"))
+    stream = SyntheticStream(DataConfig(batch=batch, seq=seq,
+                                        vocab=cfg.vocab, task="copy"))
     step_fn = steps.make_train_step(cfg, opt)
     losses, norms = [], []
-    for _ in range(TRAIN_LM_STEPS):
+    for _ in range(n):
         state, metrics = step_fn(state, {k: torch.from_numpy(v).cuda()
                                          for k, v in next(stream).items()})
         losses.append(float(metrics["loss"]))
@@ -3864,8 +3922,8 @@ def lm_train_cut(torch, cfg) -> dict:
         raise AssertionError(f"LM train (depth-{cfg.n_layers} cut): losses "
                              f"{losses}, grad norms {norms}: the gradient "
                              f"must reach the params at this depth")
-    print(f"LM train (depth-{cfg.n_layers} full-width cut, batch "
-          f"{TRAIN_LM_BATCH} x {TRAIN_LM_SEQ - 1}): losses "
+    print(f"LM train ({cfg.name} depth-{cfg.n_layers} full-width cut, "
+          f"batch {batch} x {seq - 1}): losses "
           f"{[round(x, 4) for x in losses]}")
     return dict(losses=losses, grad_norms=norms, **clip)
 
@@ -3928,6 +3986,431 @@ def lm_resume(torch):
           f"steps bitwise equal to 4 straight steps ({len(pairs)} leaves, "
           f"max|diff| {diff})")
     return diff
+
+
+def conv1d_bwd_cases():
+    """(name, b, length, d, k, tile_l, strided): recurrentgemma-2b's
+    training row (the rec mixer's (B, L, lru_width)), falcon-mamba-7b's
+    training batch as the mixer's strided half of the in-projection, K 9
+    (the runtime-K instances), an L that no run length divides, L < K."""
+    return [("rg_train", 1, 4096, 2560, 4, None, False),
+            ("mamba_view", 2, 1024, 8192, 4, None, True),
+            ("k9", 2, 1024, 2048, 9, None, False),
+            ("ragged", 2, 1001, 264, 4, None, True),
+            ("l_below_k", 2, 2, 64, 4, None, False)]
+
+
+def check_conv1d_backward(torch):
+    """The conv1d backward kernels (dx: the forward kernel on the
+    reversed cotangent; dw: the weight-gradient kernel) against their
+    plain versions bit for bit, over two calls bit for bit, and against
+    float64 autograd of ``ref.depthwise_conv1d`` (``CONV1D_BWD_TOLERANCE``);
+    at the training shapes each one's time beside the forward kernel's,
+    the plain version's, ``torch.nn.grad.conv1d_input`` /
+    ``conv1d_weight``'s (TF32 off) and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.core.conv_plan import Conv1dPlan, Conv1dWeightGradPlan
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import trim_conv1d as tc1
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    rows = []
+    print("conv1d backward check (bitwise vs plain; of max|grad| vs "
+          "float64 autograd; times in ms, device events):")
+    print(f"  {'case':11s} {'shape':>22s} {'dx f64':>8s} {'dw f64':>8s} "
+          f"{'fwd':>8s} {'dx':>8s} {'dx pl':>8s} {'dx lib':>8s} "
+          f"{'dx bnd':>8s} {'dw':>8s} {'dw pl':>8s} {'dw lib':>8s} "
+          f"{'dw bnd':>8s} T_l groups")
+    for name, b, length, d, k, tile_l, strided in conv1d_bwd_cases():
+        xz = torch.randn((b, length, 2 * d if strided else d),
+                         generator=gen, device="cuda")
+        x = xz[..., :d]
+        w = 0.5 * torch.randn((k, d), generator=gen, device="cuda")
+        dy = torch.randn((b, length, d), generator=gen, device="cuda")
+        dx = tc1.trim_conv1d_input_grad(dy, w, tile_l=tile_l)
+        dw = tc1.trim_conv1d_weight_grad(x, dy, k, tile_l=tile_l)
+        dx2 = tc1.trim_conv1d_input_grad(dy, w, tile_l=tile_l)
+        dw2 = tc1.trim_conv1d_weight_grad(x, dy, k, tile_l=tile_l)
+        pdx = tc1.trim_conv1d_input_grad_plain(dy, w, tile_l=tile_l)
+        pdw = tc1.trim_conv1d_wgrad_plain(x, dy, k, tile_l=tile_l)
+        torch.cuda.synchronize()
+        if not (torch.equal(dx, pdx) and torch.equal(dw, pdw)
+                and torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+            raise AssertionError(
+                f"conv1d backward {name}: dx vs plain "
+                f"{(dx - pdx).abs().max().item()}, dw vs plain "
+                f"{(dw - pdw).abs().max().item()}, repeats equal "
+                f"{torch.equal(dx, dx2)} / {torch.equal(dw, dw2)}")
+        x64 = x.double().requires_grad_()
+        w64 = w.double().requires_grad_()
+        want = torch.autograd.grad(ref.depthwise_conv1d(x64, w64),
+                                   (x64, w64), dy.double())
+        errs = [((g.double() - t).abs().max() / t.abs().max()).item()
+                for g, t in zip((dx, dw), want)]
+        del x64, w64, want
+        if not max(errs) <= CONV1D_BWD_TOLERANCE:
+            raise AssertionError(f"conv1d backward {name}: dx / dw vs "
+                                 f"float64 autograd {errs} > "
+                                 f"{CONV1D_BWD_TOLERANCE}")
+        plan = Conv1dPlan.build((b, length, d), (k, d), tile_l=tile_l)
+        wplan = Conv1dWeightGradPlan.build((b, length, d), k, tile_l=tile_l)
+        row = dict(name=name, shape=(b, length, d, k), dx_err=errs[0],
+                   dw_err=errs[1], tile_l=wplan.tile_l,
+                   groups=wplan.groups, dx_bound=plan.bound(),
+                   dw_bound=wplan.bound(),
+                   dw_hbm=wplan.hbm_bytes()["total"])
+        line = (f"  {name:11s} {str((b, length, d, k)):>22s} "
+                f"{errs[0]:8.1e} {errs[1]:8.1e}")
+        if name in ("rg_train", "mamba_view"):       # the training shapes
+            xt = x.transpose(1, 2).contiguous()      # (B, D, L) for cuDNN
+            wt = w.t()[:, None, :].contiguous()      # (D, 1, K)
+            gt = F.pad(dy.transpose(1, 2), (0, k - 1)).contiguous()
+            lib_dx = torch.nn.grad.conv1d_input(xt.shape, wt, gt,
+                                                padding=k - 1, groups=d)
+            lib_dw = torch.nn.grad.conv1d_weight(xt, wt.shape, gt,
+                                                 padding=k - 1, groups=d)
+            lib_err = max((lib_dx.transpose(1, 2) - pdx).abs().max().item(),
+                          (lib_dw[:, 0].t() - pdw).abs().max().item())
+            row.update(
+                fwd=time_ms(torch, lambda: tc1.trim_conv1d(x, w)),
+                dx=time_ms(torch, lambda: tc1.trim_conv1d_input_grad(dy, w)),
+                dx_plain=time_ms(torch, lambda:
+                                 tc1.trim_conv1d_input_grad_plain(dy, w)),
+                dx_library=time_ms(torch, lambda: torch.nn.grad.conv1d_input(
+                    xt.shape, wt, gt, padding=k - 1, groups=d)),
+                dw=time_ms(torch, lambda: tc1.trim_conv1d_weight_grad(
+                    x, dy, k)),
+                dw_plain=time_ms(torch, lambda: tc1.trim_conv1d_wgrad_plain(
+                    x, dy, k), reps=3),
+                dw_library=time_ms(torch, lambda: torch.nn.grad.conv1d_weight(
+                    xt, wt.shape, gt, padding=k - 1, groups=d)),
+                lib_err=lib_err)
+            line += (f" {row['fwd']:8.4f} {row['dx']:8.4f} "
+                     f"{row['dx_plain']:8.4f} {row['dx_library']:8.4f} "
+                     f"{plan.bound()[0]:8.4f} {row['dw']:8.4f} "
+                     f"{row['dw_plain']:8.3f} {row['dw_library']:8.4f} "
+                     f"{wplan.bound()[0]:8.4f} {wplan.tile_l:3d} "
+                     f"{wplan.groups:4d}  (library vs plain {lib_err:.1e}; "
+                     f"dw moves {row['dw_hbm'] / 1e6:.1f} MB, least "
+                     f"{wplan.min_bytes() / 1e6:.1f})")
+            del xt, wt, gt, lib_dx, lib_dw
+        rows.append(row)
+        print(line)
+        del xz, x, w, dy, dx, dw, dx2, dw2, pdx, pdw
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def float64_reference(torch):
+    """Evaluate the f32 model in float64: while open, ``Tensor.float()``
+    (the port's norms, RoPE, RG-LRU, attention scores and loss upcast
+    with it) keeps a float64 tensor float64, so a step on float64 params
+    runs in float64 throughout."""
+    narrow = torch.Tensor.float
+
+    def widening(self, *args, **kwargs):
+        if self.dtype == torch.float64:
+            return self
+        return narrow(self, *args, **kwargs)
+    torch.Tensor.float = widening
+    try:
+        yield
+    finally:
+        torch.Tensor.float = narrow
+
+
+@contextlib.contextmanager
+def swapped(module, **fns):
+    """``module``'s functions of these names replaced while open (the
+    autograd Functions' backwards look them up at call time)."""
+    saved = {name: getattr(module, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def conv1d_backward_f64(torch) -> dict:
+    """The conv1d backward's oracle for :func:`swapped`: dx and dw of the
+    causal depthwise conv computed in float64 from the f32 inputs, rounded
+    to f32."""
+    import torch.nn.functional as F
+
+    def input_grad(dy, w, *, tile_l=None):
+        k, length = w.shape[0], dy.shape[1]
+        gp = F.pad(dy.double(), (0, 0, 0, k - 1))
+        return sum(gp[:, k - 1 - i:k - 1 - i + length] * w[i].double()
+                   for i in range(k)).float()
+
+    def weight_grad(x, dy, k, *, tile_l=None):
+        length = x.shape[1]
+        xp = F.pad(x.double(), (0, 0, k - 1, 0))
+        return torch.stack([(xp[:, i:i + length] * dy.double()).sum((0, 1))
+                            for i in range(k)]).float()
+    return {"trim_conv1d_input_grad": input_grad,
+            "trim_conv1d_weight_grad": weight_grad}
+
+
+def loss_grads(torch, cfg, params, batch, *, conv_impl: str = "trim",
+               dtype=None) -> list:
+    """The loss's gradient of every leaf (sorted-key order) at ``params``,
+    the temporal conv on ``conv_impl`` (``"ref"``: plain autograd of the
+    oracle; the models call ``ops.depthwise_conv1d``'s default
+    ``"trim"``), in ``dtype`` (float64 through
+    :func:`float64_reference`)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    dtype = dtype or torch.float32
+    live = [t.detach().to(dtype).requires_grad_()
+            for t in adamw.tree_leaves(params)]
+    conv = ops.depthwise_conv1d
+    ops.depthwise_conv1d = functools.partial(conv, impl=conv_impl)
+    wide = float64_reference(torch) if dtype == torch.float64 \
+        else contextlib.nullcontext()
+    try:
+        with wide:
+            logits, aux = api.forward(adamw.tree_unflatten(params, live),
+                                      batch, cfg)
+            loss = api.loss_fn(logits, batch["labels"], aux)
+            del logits
+            return list(torch.autograd.grad(loss, live))
+    finally:
+        ops.depthwise_conv1d = conv
+
+
+def leaf_errs(grads, want) -> list:
+    """max|g - want| / max|want| of each leaf."""
+    return [((g.double() - w.double()).abs().max()
+             / w.double().abs().max()).item() for g, w in zip(grads, want)]
+
+
+def family_counts(tc1, fa) -> dict:
+    return {**tc1.LAUNCHES, **tc1.BWD_LAUNCHES,
+            "flash_attention": fa.LAUNCHES["flash_attention"],
+            **fa.BWD_LAUNCHES}
+
+
+def rgemma_train(torch):
+    """Full-width recurrentgemma-2b trained through ``launch.train.main``
+    (remat; the conv1d and flash kernels forward and backward) at
+    RGEMMA_TRAIN_BATCH x RGEMMA_TRAIN_SEQ - 1 tokens; each step's
+    launches, the clip state, a depth-3 cut's steps with a finite norm,
+    and at that cut the first-step gradients on the kernels against the
+    same step on impl="ref" conv1d and attn_impl="ref" in float64 and
+    against the kernel forward with the backward kernels' plain versions
+    in float64 (module docstring, phase 31)."""
+    from repro_torch.configs import registry
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import trim_conv1d as tc1
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+    from repro_torch.optim import adamw
+
+    cfg = registry.get("recurrentgemma-2b").CONFIG
+    assert cfg.attn_impl == "flash" and cfg.remat
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tc1.reset_launch_counts()
+    fa.reset_launch_counts()
+    out = train.main(["--arch", "recurrentgemma-2b", "--steps",
+                      str(RGEMMA_TRAIN_STEPS), "--batch",
+                      str(RGEMMA_TRAIN_BATCH), "--seq", str(RGEMMA_TRAIN_SEQ),
+                      "--task", "copy", "--log-every", "1", "--device",
+                      "cuda"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = family_counts(tc1, fa)
+    clip = train_clip_state(torch, out.pop("state"), out["grad_norms"],
+                            "recurrentgemma-2b full width")
+    torch.cuda.empty_cache()
+    n = RGEMMA_TRAIN_STEPS
+    rec = sum(cfg.pattern_at(i) == "rec" for i in range(cfg.n_layers))
+    att = cfg.n_layers - rec
+    want = {"trim_conv1d": 2 * rec * n, "trim_conv1d_dx": rec * n,
+            "trim_conv1d_wgrad": rec * n, "flash_attention": 2 * att * n,
+            "flash_attention_bwd_dkdv": att * n,
+            "flash_attention_bwd_dq": att * n,
+            "flash_attention_bwd_sum": att * n}
+    losses = np.asarray(out["losses"])
+    if launches != want or losses.shape != (n,) or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f"recurrentgemma train: launches {launches}, "
+                             f"want {want}; losses {out['losses']}")
+    steady = float(np.mean(out["step_ms"][1:]))
+    print(f"recurrentgemma train: full width ({cfg.n_layers} layers: {rec} "
+          f"rec + {att} att, remat), batch {RGEMMA_TRAIN_BATCH} x "
+          f"{RGEMMA_TRAIN_SEQ - 1} tokens, {n} AdamW steps: losses "
+          f"{[round(x, 4) for x in out['losses']]}, ms a step "
+          f"{[round(x, 1) for x in out['step_ms']]} (steady {steady:.1f}); "
+          f"peak device memory {peak:.2f} GiB; a step launches "
+          + ", ".join(f"{k} {v // n}" for k, v in launches.items()))
+    cut = lm_train_cut(torch, cfg.replace(n_layers=RGEMMA_GRAD_LAYERS),
+                       RGEMMA_TRAIN_BATCH, RGEMMA_TRAIN_SEQ,
+                       RGEMMA_TRAIN_STEPS)
+
+    gcfg = cfg.replace(n_layers=RGEMMA_GRAD_LAYERS)
+    params = init_params(api.params(gcfg), torch.Generator(device="cuda")
+                         .manual_seed(0), device="cuda")
+    nb = make_batch(DataConfig(batch=1, seq=RGEMMA_GRAD_TOKENS + 1,
+                               vocab=cfg.vocab, task="copy"), 0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in nb.items()}
+    names = leaf_names(params)
+    ref_cfg = gcfg.replace(attn_impl="ref")
+    want64 = loss_grads(torch, ref_cfg, params, batch, conv_impl="ref",
+                        dtype=torch.float64)
+    tc1.reset_launch_counts()
+    fa.reset_launch_counts()
+    kern = loss_grads(torch, gcfg, params, batch)
+    grad_launches = family_counts(tc1, fa)
+    step = {"kernels": leaf_errs(kern, want64),
+            "f32 ref": leaf_errs(loss_grads(torch, ref_cfg, params, batch,
+                                            conv_impl="ref"), want64)}
+    del want64
+    # the same kernel forward, the backward kernels swapped for their
+    # plain versions in float64 (the oracle) and in f32
+    with swapped(fa, flash_attention_backward=plain_backward_f64), \
+            swapped(tc1, **conv1d_backward_f64(torch)):
+        bwd64 = loss_grads(torch, gcfg, params, batch)
+    with swapped(fa, flash_attention_backward=(
+            fa.flash_attention_backward_plain)), \
+            swapped(tc1, trim_conv1d_input_grad=(
+                tc1.trim_conv1d_input_grad_plain),
+                trim_conv1d_weight_grad=tc1.trim_conv1d_wgrad_plain):
+        bwd32 = loss_grads(torch, gcfg, params, batch)
+    bwd = {"kernels": leaf_errs(kern, bwd64),
+           "f32 plain": leaf_errs(bwd32, bwd64)}
+    del kern, bwd64, bwd32, params, batch
+    torch.cuda.empty_cache()
+
+    def worst(errs):
+        i = int(np.argmax(errs))
+        return f"{errs[i]:.2e} ({names[i]})"
+    step_ok = max(step["kernels"]) <= F64_FACTOR * max(step["f32 ref"])
+    bwd_lim = max(F64_FACTOR * max(bwd["f32 plain"]), ATTN_TOLERANCE)
+    bwd_ok = max(bwd["kernels"]) <= min(BWD_TOLERANCE, bwd_lim)
+    line = (f"depth-{RGEMMA_GRAD_LAYERS} cut, 1 x {RGEMMA_GRAD_TOKENS} "
+            f"tokens, of each leaf's max: the whole step on the kernels "
+            f"from the same step on impl='ref' conv1d and attn_impl='ref' "
+            f"in float64 {worst(step['kernels'])}, the f32 ref step "
+            f"{worst(step['f32 ref'])} (limit {F64_FACTOR:g} x the f32 ref "
+            f"step's); the backward kernels from their plain versions in "
+            f"float64 under the same kernel forward "
+            f"{worst(bwd['kernels'])}, the f32 plain versions "
+            f"{worst(bwd['f32 plain'])} (limit min({BWD_TOLERANCE:g}, "
+            f"max({F64_FACTOR:g} x the f32 plain's, {ATTN_TOLERANCE:g}))); "
+            f"launches {grad_launches}")
+    if not (step_ok and bwd_ok and min(grad_launches.values()) > 0):
+        raise AssertionError(f"recurrentgemma train: first-step gradients "
+                             f"at the {line}")
+    print(f"recurrentgemma train: first-step gradients at the {line}; "
+          "leaves above 1e-4 from the float64 ref step: "
+          + ", ".join(f"{names[i]} {e:.2e} (f32 ref "
+                      f"{step['f32 ref'][i]:.2e})"
+                      for i, e in enumerate(step["kernels"]) if e > 1e-4))
+    return dict(out, peak=peak, launches=launches, steady_ms=steady,
+                clip=clip, cut=cut, step_err=max(step["kernels"]),
+                step_ref_err=max(step["f32 ref"]),
+                bwd_err=max(bwd["kernels"]),
+                bwd_plain_err=max(bwd["f32 plain"]))
+
+
+def mamba_train(torch):
+    """The full-width falcon-mamba-7b depth cut (MAMBA_TRAIN_LAYERS layers,
+    remat) trained through ``steps.make_train_step``: each step's loss and
+    launches, ms a step, the peak, the clip state; at a depth-2 cut the
+    first-step gradients on the kernels against the f32 step on
+    impl="ref" (``MAMBA_GRAD_TOLERANCE``)."""
+    from repro_torch.configs import registry
+    from repro_torch.data import DataConfig, SyntheticStream, make_batch
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import trim_conv1d as tc1
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+    from repro_torch.optim import AdamWConfig
+
+    cfg = registry.get("falcon-mamba-7b").CONFIG.replace(
+        n_layers=MAMBA_TRAIN_LAYERS)
+    assert cfg.remat
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n, layers = MAMBA_TRAIN_STEPS, cfg.n_layers
+    opt = AdamWConfig(lr=3e-3, warmup_steps=10, decay_steps=n)
+    state = steps.init_train_state(
+        cfg, opt, torch.Generator(device="cuda").manual_seed(0))
+    stream = SyntheticStream(DataConfig(batch=MAMBA_TRAIN_BATCH,
+                                        seq=MAMBA_TRAIN_SEQ, vocab=cfg.vocab,
+                                        task="copy"))
+    step_fn = steps.make_train_step(cfg, opt)
+    tc1.reset_launch_counts()
+    fa.reset_launch_counts()
+    losses, norms, step_ms = [], [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, {k: torch.from_numpy(v).cuda()
+                                         for k, v in next(stream).items()})
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(metrics["grad_norm"]))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = family_counts(tc1, fa)
+    clip = train_clip_state(torch, state, norms,
+                            f"falcon-mamba-7b depth-{layers} full-width cut")
+    del state
+    torch.cuda.empty_cache()
+    want = {"trim_conv1d": 2 * layers * n, "trim_conv1d_dx": layers * n,
+            "trim_conv1d_wgrad": layers * n}
+    got = {k: launches[k] for k in want}
+    if got != want or any(launches[k] for k in launches if k not in want) \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"mamba train: launches {launches}, want "
+                             f"{want}; losses {losses}")
+    steady = float(np.mean(step_ms[1:]))
+    print(f"mamba train: falcon-mamba-7b full width cut to {layers} of 64 "
+          f"layers (remat, scan chunks checkpointed), batch "
+          f"{MAMBA_TRAIN_BATCH} x {MAMBA_TRAIN_SEQ - 1} tokens, {n} AdamW "
+          f"steps: losses {[round(x, 4) for x in losses]}, grad norms "
+          f"{norms}, ms a step {[round(x, 1) for x in step_ms]} (steady "
+          f"{steady:.1f}); peak device memory {peak:.2f} GiB; a step "
+          f"launches " + ", ".join(f"{k} {v // n}" for k, v in got.items()))
+
+    gcfg = cfg.replace(n_layers=MAMBA_GRAD_LAYERS)
+    params = init_params(api.params(gcfg), torch.Generator(device="cuda")
+                         .manual_seed(0), device="cuda")
+    nb = make_batch(DataConfig(batch=MAMBA_TRAIN_BATCH, seq=MAMBA_TRAIN_SEQ,
+                               vocab=cfg.vocab, task="copy"), 0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in nb.items()}
+    want_g = loss_grads(torch, gcfg, params, batch, conv_impl="ref")
+    tc1.reset_launch_counts()
+    errs = leaf_errs(loss_grads(torch, gcfg, params, batch), want_g)
+    names = leaf_names(params)
+    grad_launches = dict(tc1.BWD_LAUNCHES)
+    del want_g, params, batch
+    torch.cuda.empty_cache()
+    worst = int(np.argmax(errs))
+    if not (max(errs) <= MAMBA_GRAD_TOLERANCE
+            and min(grad_launches.values()) > 0):
+        raise AssertionError(
+            f"mamba train: depth-{MAMBA_GRAD_LAYERS} gradients on the "
+            f"kernels {max(errs):.3e} of a leaf's max from the f32 step on "
+            f"impl='ref' at {names[worst]} (tol {MAMBA_GRAD_TOLERANCE}); "
+            f"backward launches {grad_launches}")
+    print(f"mamba train: first-step gradients at the depth-"
+          f"{MAMBA_GRAD_LAYERS} cut ({MAMBA_TRAIN_BATCH} x "
+          f"{MAMBA_TRAIN_SEQ - 1} tokens) on the kernels against the f32 "
+          f"step on impl='ref': {max(errs):.2e} of a leaf's max "
+          f"({names[worst]}; tol {MAMBA_GRAD_TOLERANCE:g})")
+    return dict(losses=losses, grad_norms=norms, step_ms=step_ms,
+                steady_ms=steady, peak=peak, launches=launches, clip=clip,
+                grad_err=max(errs))
 
 
 def time_turns_ms(torch, fns, turns: int = TUNE_TURNS) -> list:
@@ -4254,6 +4737,11 @@ def main() -> int:
                          "kernel (printed as one JSON line); no checks "
                          "beyond the train phase's launch counts")
     args = ap.parse_args()
+    # growable segments: the mamba train phase's full-width cut fills the
+    # card, and fixed-size cached segments left 18.5 GiB of holes beside
+    # its 8 GiB gradient-norm temporary (out of memory at 58 GiB in use)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4411,6 +4899,12 @@ def run(torch, args, cache_dir: str) -> int:
     phase.done("LM train")
     lm_resume(torch)
     phase.done("LM resume")
+    c1b = check_conv1d_backward(torch)
+    phase.done("conv1d backward check")
+    rgt = rgemma_train(torch)
+    phase.done("recurrentgemma train")
+    mbt = mamba_train(torch)
+    phase.done("mamba train")
 
     vgg = [r for r in rows if r["vgg"]]
     kernels = []
@@ -4516,7 +5010,8 @@ def run(torch, args, cache_dir: str) -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:31",
         "launches": (lm["launches"] + rg["launches"]["flash_attention"]
-                     + lmt["launches"]["flash_attention"]),
+                     + lmt["launches"]["flash_attention"]
+                     + rgt["launches"]["flash_attention"]),
         "max_abs_err": max(r["err"] for r in arows),
         "ms": a["kernel"],
         "plain_ms": a["plain"],
@@ -4541,7 +5036,8 @@ def run(torch, args, cache_dir: str) -> int:
             # the backward of row 6's kernel, which the JAX package leaves
             # to XLA's autodiff of ops.attention(impl="chunked")
             "replaces": "src/repro/kernels/flash_attention.py:31",
-            "launches": lmt["launches"][f"flash_attention_bwd_{part}"],
+            "launches": (lmt["launches"][f"flash_attention_bwd_{part}"]
+                         + rgt["launches"][f"flash_attention_bwd_{part}"]),
             "max_abs_err": max(r["abs_err"] for r in fbrows),
             "max_rel_err": max(err_of(r) for r in fbrows),
             "ms": bt[part],
@@ -4571,7 +5067,8 @@ def run(torch, args, cache_dir: str) -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         # part of the same backward: the G query heads' partial dK and dV
         "replaces": "src/repro/kernels/flash_attention.py:31",
-        "launches": lmt["launches"]["flash_attention_bwd_sum"],
+        "launches": (lmt["launches"]["flash_attention_bwd_sum"]
+                     + rgt["launches"]["flash_attention_bwd_sum"]),
         "max_abs_err": max(r["sum_err"] for r in fbrows
                            if r["sum_err"] is not None),
         "ms": bt["sum"],
@@ -4590,7 +5087,9 @@ def run(torch, args, cache_dir: str) -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/trim_conv1d.cu",
         "replaces": "src/repro/kernels/trim_conv1d.py:29",
-        "launches": mb["launches"] + rg["launches"]["trim_conv1d"],
+        "launches": (mb["launches"] + rg["launches"]["trim_conv1d"]
+                     + rgt["launches"]["trim_conv1d"]
+                     + mbt["launches"]["trim_conv1d"]),
         "max_abs_err": max(r["err"] for r in crows),
         "ms": c["kernel"],
         "plain_ms": c["plain"],
@@ -4604,6 +5103,45 @@ def run(torch, args, cache_dir: str) -> int:
         "rgemma_bound_by": ck["by"],
         "rgemma_library_ms": ck["library"],
     })
+    cb = next(r for r in c1b if r["name"] == "rg_train")
+    cm = next(r for r in c1b if r["name"] == "mamba_view")
+    for part, key, src in (("dx", "trim_conv1d_dx", "trim_conv1d.cu"),
+                           ("dw", "trim_conv1d_wgrad",
+                            "trim_conv1d_wgrad.cu")):
+        kernels.append({
+            "name": key,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            # the backward of row 5's kernel, which the JAX package leaves
+            # to XLA's autodiff of ref.depthwise_conv1d
+            "replaces": "src/repro/kernels/trim_conv1d.py:29",
+            "launches": rgt["launches"][key] + mbt["launches"][key],
+            "max_abs_err": 0.0,          # bitwise its plain version
+            "max_rel_err_f64": max(r[f"{part}_err"] for r in c1b),
+            "ms": cb[part],
+            "plain_ms": cb[f"{part}_plain"],
+            "bound_ms": cb[f"{part}_bound"][0],
+            "bound_by": cb[f"{part}_bound"][1],
+            "library_ms": cb[f"{part}_library"],
+            "forward_ms": cb["fwd"],
+            # falcon-mamba-7b's training batch, the mixer's strided view
+            "mamba_ms": cm[part],
+            "mamba_bound_ms": cm[f"{part}_bound"][0],
+            "mamba_library_ms": cm[f"{part}_library"],
+            "mamba_forward_ms": cm["fwd"],
+        })
+    print(f"recurrentgemma train: {rgt['steady_ms']:.1f} ms a full-width "
+          f"step ({RGEMMA_TRAIN_BATCH} x {RGEMMA_TRAIN_SEQ - 1}; clip scales "
+          f"{rgt['clip']['scales']}), peak {rgt['peak']:.2f} GiB; mamba "
+          f"train: {mbt['steady_ms']:.1f} ms a step of the depth-"
+          f"{MAMBA_TRAIN_LAYERS} full-width cut ({MAMBA_TRAIN_BATCH} x "
+          f"{MAMBA_TRAIN_SEQ - 1}), peak {mbt['peak']:.2f} GiB; "
+          f"trim_conv1d_dx / _wgrad times are one launch at case rg_train "
+          f"(recurrentgemma-2b's training row), mamba_* at case mamba_view; "
+          f"their launches, and {rgt['launches']['trim_conv1d']} + "
+          f"{mbt['launches']['trim_conv1d']} of trim_conv1d's and "
+          f"{rgt['launches']['flash_attention']} of flash_attention's, are "
+          f"the two training phases' steps")
     print(f"mamba: prefill {mb['ms']:.1f} ms a forward (2 x {MAMBA_SEQ}), "
           f"serve {mserved['tok_s']:.1f} tok/s; trim_conv1d times are one "
           f"launch at case a_prefill, the prefill's shape (one layer); its "

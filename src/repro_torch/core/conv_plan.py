@@ -4,8 +4,10 @@
 for the H100 forward kernel of ``kernels/csrc/trim_conv2d.cu`` (which
 also runs the input gradient, laid out by :func:`input_grad_geometry`);
 :class:`WeightGradPlan` plans the weight-gradient kernel of
-``kernels/csrc/trim_conv2d_wgrad.cu``, and :class:`Conv1dPlan` the causal
-depthwise conv1d of ``kernels/csrc/trim_conv1d.cu``.  The TPU forward plan
+``kernels/csrc/trim_conv2d_wgrad.cu``, :class:`Conv1dPlan` the causal
+depthwise conv1d of ``kernels/csrc/trim_conv1d.cu`` (also its input
+gradient) and :class:`Conv1dWeightGradPlan` its weight gradient,
+``kernels/csrc/trim_conv1d_wgrad.cu``.  The TPU forward plan
 sizes its strips for an 8 MiB VMEM budget and 128-lane C_out tiles;
 neither applies to the card, where a block has at most 227 KB of shared
 memory.  So a block here owns a *column band* of ``tile_w`` output
@@ -1035,6 +1037,10 @@ CONV1D_MIN_WAVES = 3          # full waves of resident blocks to aim for
 CONV1D_UNROLLED_K = 8         # K = 2..8 keep the window in registers (a
                               # template instance each); larger K runs the
                               # kernel's runtime-K instance
+# The conv1d weight-gradient kernel (trim_conv1d_wgrad.cu)
+CONV1D_WGRAD_RUNS = 8         # runs (warps) a block (kRuns)
+CONV1D_WGRAD_TILE_D = 32      # channels (lanes) a block (kLanes)
+CONV1D_WGRAD_SUM_THREADS = 256   # threads a block of the partials' sum
 
 
 @dataclass(frozen=True)
@@ -1153,6 +1159,123 @@ class Conv1dPlan:
         out = 4 * self.b * self.length * self.d
         return dict(input=inp, halo=halo, weights=weights, output=out,
                     total=inp + halo + weights + out)
+
+    def bound(self) -> tuple[float, str]:
+        """(ms, "bytes" or "operations"): the least time the H100 takes,
+        :attr:`flops` over 67 TFLOP/s against :meth:`min_bytes` over
+        3.35 TB/s."""
+        ops_ms = self.flops / PEAK_F32_FLOPS * 1e3
+        bytes_ms = self.min_bytes() / PEAK_BYTES_PER_S * 1e3
+        return (max(ops_ms, bytes_ms),
+                "operations" if ops_ms >= bytes_ms else "bytes")
+
+
+@dataclass(frozen=True)
+class Conv1dWeightGradPlan:
+    """Launch geometry of the conv1d weight-gradient kernel
+    (``kernels/csrc/trim_conv1d_wgrad.cu``), which has no Pallas
+    counterpart (the JAX package differentiates ``ref.depthwise_conv1d``
+    by XLA's autodiff).
+
+        dw[i, d] = sum over (b, t) of x[b, t-K+1+i, d] * dy[b, t, d]
+
+    The (b, t) axis is cut into *runs* of ``tile_l`` steps, each within
+    one sequence (its window starts from the ``K-1`` inputs before it,
+    zeros before t = 0), numbered b-major; a block takes a *group* of
+    :data:`CONV1D_WGRAD_RUNS` consecutive runs (one a warp) over
+    :data:`CONV1D_WGRAD_TILE_D` channels (one a lane), adds its warps'
+    sums in run order and writes one ``(K, D)`` partial a group into
+    scratch; a second launch adds the partials in group order.  Nothing is
+    summed with atomics, so a call is deterministic and its plain version
+    replays it bit for bit.  ``tile_l`` is the longest run of
+    ``CONV1D_TILE_LS`` that still gives :data:`CONV1D_MIN_WAVES` full
+    waves of resident blocks, as for the forward."""
+
+    b: int
+    length: int
+    d: int
+    k: int
+    tile_l: int
+
+    @classmethod
+    def build(cls, x_shape, k: int, *,
+              tile_l: int | None = None) -> "Conv1dWeightGradPlan":
+        """Plan from ``x (B, L, D)`` and the tap count ``K``, choosing
+        ``tile_l`` if it is left as ``None``.  Raises ``ValueError`` for
+        what the kernel cannot take."""
+        if len(x_shape) != 3:
+            raise ValueError(f"x must be (B, L, D); got {tuple(x_shape)}")
+        b, length, d = (int(v) for v in x_shape)
+        k = int(k)
+        if min(b, length, d) < 1:
+            raise ValueError(f"empty input {tuple(x_shape)}: B, L and D "
+                             "must be >= 1")
+        if k < 2:
+            raise ValueError(f"K={k}: the kernel takes K >= 2")
+        if tile_l is None:
+            threads = CONV1D_WGRAD_RUNS * CONV1D_WGRAD_TILE_D
+            wave = SMS * (THREADS_PER_SM // threads)
+            d_tiles = -(-d // CONV1D_WGRAD_TILE_D)
+            tile_l = next(
+                (t for t in CONV1D_TILE_LS
+                 if d_tiles * -(-b * -(-length // t) // CONV1D_WGRAD_RUNS)
+                 >= CONV1D_MIN_WAVES * wave), CONV1D_TILE_LS[-1])
+            tile_l = min(tile_l, length)
+        if tile_l < 1:
+            raise ValueError(f"tile_l={tile_l} must be >= 1")
+        return cls(b=b, length=length, d=d, k=k, tile_l=tile_l)
+
+    @property
+    def runs_per_b(self) -> int:
+        return -(-self.length // self.tile_l)
+
+    @property
+    def runs(self) -> int:
+        return self.b * self.runs_per_b
+
+    @property
+    def groups(self) -> int:
+        return -(-self.runs // CONV1D_WGRAD_RUNS)
+
+    @property
+    def d_tiles(self) -> int:
+        return -(-self.d // CONV1D_WGRAD_TILE_D)
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        """(groups, channel tiles)."""
+        return (self.groups, self.d_tiles)
+
+    @property
+    def blocks(self) -> int:
+        return self.groups * self.d_tiles
+
+    @property
+    def partial_shape(self) -> tuple[int, int, int]:
+        """The scratch of the groups' partials, (groups, K, D) f32."""
+        return (self.groups, self.k, self.d)
+
+    @property
+    def flops(self) -> int:
+        return 2 * self.b * self.length * self.d * self.k
+
+    def min_bytes(self) -> int:
+        """f32 bytes the function must move: x and dy read once, dw
+        written once."""
+        return 4 * (2 * self.b * self.length * self.d + self.k * self.d)
+
+    def hbm_bytes(self) -> dict:
+        """f32 bytes the kernels' schedule moves: x and dy once, each
+        run's re-read halo (``min(K-1, t0)`` rows), the partials written
+        and read once, dw written."""
+        rows = sum(min(self.k - 1, r * self.tile_l)
+                   for r in range(self.runs_per_b))
+        inp = 8 * self.b * self.length * self.d
+        halo = 4 * self.b * self.d * rows
+        partials = 2 * 4 * self.groups * self.k * self.d
+        out = 4 * self.k * self.d
+        return dict(input=inp, halo=halo, partials=partials, output=out,
+                    total=inp + halo + partials + out)
 
     def bound(self) -> tuple[float, str]:
         """(ms, "bytes" or "operations"): the least time the H100 takes,

@@ -18,21 +18,6 @@ from repro_torch.models.base import init_params
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamWConfig, adamw
 
-# families whose training needs a kernel backward the port lacks
-NO_TRAINING = {
-    fam: "ROADMAP Queue 1 item 2f (ssm and hybrid training: the trim_conv1d "
-         "backward and remat in mamba.py / rglru.py)"
-    for fam in ("ssm", "hybrid")}
-
-
-def require_trainable(family: str) -> None:
-    """Raise unless the port trains ``family`` (dense only; the ssm and
-    hybrid families' conv1d kernel has no backward yet)."""
-    api.require_ported(family)
-    if family in NO_TRAINING:
-        raise NotImplementedError(f"the port does not train the {family!r} "
-                                  f"family yet: {NO_TRAINING[family]}")
-
 
 def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig,
                      generator: torch.Generator, device=None) -> dict:
@@ -60,7 +45,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     apply_updates_``), and the same state is returned.  Metrics: ``loss``,
     ``grad_norm``, ``lr`` (0-d tensors).  batch: ``tokens``, ``labels``
     (B, S) integer tensors on the params' device."""
-    require_trainable(cfg.family)
+    api.require_ported(cfg.family)
 
     def loss_and_grads(leaves, params, mb):
         live = [t.detach().requires_grad_() for t in leaves]

@@ -34,6 +34,7 @@ _FUSED_ARGS = [_P, _P, _P, _P, _I, _P]
 _ATTN_ARGS = [_P] * 5 + [_I] * 6 + [_L] * 12 + [_I, _I, _F, _F, _P]
 _ATTN_BWD_ARGS = [_P] * 8 + [_I] * 6 + [_L] * 12 + [_I, _I, _F, _F, _I, _P]
 _CONV1D_ARGS = [_P] * 3 + [_I] * 4 + [_L] * 4 + [_I, _I, _P]
+_CONV1D_WGRAD_ARGS = [_P] * 4 + [_I] * 4 + [_L] * 4 + [_I, _I, _P]
 SOURCES = {
     "trim_conv2d": {"trim_conv2d_carry": _CONV_ARGS,
                     "trim_conv2d_halo": _CONV_ARGS},
@@ -48,6 +49,7 @@ SOURCES = {
                             "flash_attention_bwd_sum_f32":
                                 [_P, _P, _P, _L, _I, _I, _P]},
     "trim_conv1d": {"trim_conv1d_f32": _CONV1D_ARGS},
+    "trim_conv1d_wgrad": {"trim_conv1d_wgrad_f32": _CONV1D_WGRAD_ARGS},
 }
 
 _lock = threading.Lock()

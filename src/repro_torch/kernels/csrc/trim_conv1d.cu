@@ -38,6 +38,13 @@
 // thread (2048 threads an SM, 64 KB in flight an SM) to cover the memory
 // latency; it does nothing else for speed.
 //
+// The input gradient runs this kernel too.  dx[t] = sum_i w[i] dy[t+K-1-i]
+// is, in reversed time, the causal conv of the reversed cotangent with the
+// same taps in the same order, so the wrapper passes dy and dx at row L-1
+// with their time strides negated (no copy).  Every offset is an int64_t
+// product of a signed index and a signed stride, so a negative time
+// stride walks backwards from the base pointer.
+//
 // Any K >= 2.  The register window needs K at compile time, so K = 2..8
 // are template instances (every registered config has K = 4).  A larger K
 // runs trim_conv1d_any_k, which takes K as an argument and re-reads the
@@ -58,7 +65,8 @@ struct Conv1dArgs {
   const float *x, *w;
   float *y;
   int length, d, tile_l;
-  int64_t x_sb, x_sl, y_sb, y_sl;   // strides in elements
+  // strides in elements; x_sl and y_sl are < 0 for the input gradient
+  int64_t x_sb, x_sl, y_sb, y_sl;
 };
 
 template <int K>
@@ -135,7 +143,8 @@ int launch(const Conv1dArgs &a, dim3 grid, int tile_d, void *stream) {
 // launches on `stream` without synchronising and returns cudaGetLastError()
 // (or cudaErrorInvalidValue for a geometry the kernel cannot take).
 // x: (B, L, D) with channel stride 1 and strides x_sb, x_sl; w: (K, D)
-// contiguous; y: (B, L, D) with strides y_sb, y_sl.
+// contiguous; y: (B, L, D) with strides y_sb, y_sl (the time strides of
+// either may be negative, the pointers then at row L-1).
 extern "C" {
 
 int trim_conv1d_f32(const float *x, const float *w, float *y, int b,

@@ -578,7 +578,9 @@ def conv_pool_chain(x: torch.Tensor, weights, biases, steps, *,
 def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, *,
                      impl: str = "trim") -> torch.Tensor:
     """Causal depthwise conv1d (``repro/kernels/ops.py:822``).  x: (B, L,
-    D); w: (K, D)."""
+    D); w: (K, D).  Under grad ``"trim"`` differentiates through the
+    backward kernels (``trim_conv1d``'s autograd Function), ``"ref"``
+    through plain autograd of the oracle."""
     if impl not in ("trim", "ref"):
         raise ValueError(f"unknown impl {impl!r}; choose 'trim' or 'ref'")
     if impl == "ref" or w.shape[0] < 2:

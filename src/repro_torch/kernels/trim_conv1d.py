@@ -1,6 +1,6 @@
-"""Causal depthwise conv1d (the Mamba / RG-LRU temporal conv): the wrapper
-of the Hopper kernel and its plain PyTorch version (the counterpart of
-``repro/kernels/trim_conv1d.py``, f32).
+"""Causal depthwise conv1d (the Mamba / RG-LRU temporal conv): the wrappers
+of the Hopper kernels, forward and backward, and their plain PyTorch
+versions (the counterpart of ``repro/kernels/trim_conv1d.py``, f32).
 
 ``trim_conv1d`` launches the hand-written kernel of ``csrc/trim_conv1d.cu``
 on CUDA tensors and runs :func:`trim_conv1d_plain` on CPU tensors; nothing
@@ -12,6 +12,26 @@ before its add, so the kernel, its plain version and
 ``tile_l`` steps, ``tile_d`` channels a block) is ``core.conv_plan.
 Conv1dPlan``'s.  The input may be a strided view with a contiguous channel
 axis (the mixer's half of the in-projection); it is read in place.
+
+Under autograd ``trim_conv1d`` is ``_TrimConv1dFn`` (it saves x and w),
+the counterpart of JAX's autodiff of ``ref.depthwise_conv1d`` (the JAX
+package has no conv1d backward kernel).  Its backward runs two kernels:
+
+* dx, :func:`trim_conv1d_input_grad`: ``dx[t] = sum_i w[i] dy[t+K-1-i]``,
+  which in reversed time (``r = L-1-t``) is the forward's causal conv of
+  the reversed cotangent with the same taps in the same order.  So it is
+  the forward kernel launched on dy and dx as reversed views (the base
+  pointer at row L-1, the time stride negated; no copy), and its plain
+  version is ``trim_conv1d_plain(dy.flip(1), w).flip(1)``, bit for bit.
+* dw, :func:`trim_conv1d_weight_grad`: the kernel of
+  ``csrc/trim_conv1d_wgrad.cu`` on ``core.conv_plan.
+  Conv1dWeightGradPlan``'s runs and groups, the partials added in group
+  order (no atomics), equal to :func:`trim_conv1d_wgrad_plain` bit for
+  bit.
+
+``LAUNCHES`` counts the forward kernel's launches, ``BWD_LAUNCHES`` the
+backward's (``trim_conv1d_dx``: the forward kernel on the reversed
+cotangent; ``trim_conv1d_wgrad``: one a call, its two launches together).
 """
 
 from __future__ import annotations
@@ -19,16 +39,19 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.conv_plan import Conv1dPlan
+from repro_torch.core.conv_plan import (CONV1D_WGRAD_RUNS, Conv1dPlan,
+                                         Conv1dWeightGradPlan)
 from repro_torch.kernels import build
 
 # Kernel launches: each successful launch adds one.
 LAUNCHES = {"trim_conv1d": 0}
+BWD_LAUNCHES = {"trim_conv1d_dx": 0, "trim_conv1d_wgrad": 0}
 
 
 def reset_launch_counts() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, BWD_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -63,44 +86,180 @@ def trim_conv1d_plain(x: torch.Tensor, w: torch.Tensor, *,
     return y[:, :length].contiguous()
 
 
+def _launch(x: torch.Tensor, w: torch.Tensor, plan: Conv1dPlan, *,
+            reverse: bool = False) -> torch.Tensor:
+    """One launch of ``trim_conv1d_f32`` on x; with ``reverse``, on x and
+    the output read in reversed time (the base pointer at row L-1, the
+    time strides negated), which is the input gradient's launch."""
+    b, length, d = x.shape
+    wc = w.contiguous()
+    y = torch.empty((b, length, d), dtype=torch.float32, device=x.device)
+    x_ptr, x_sl = x.data_ptr(), x.stride(1)
+    y_ptr, y_sl = y.data_ptr(), y.stride(1)
+    if reverse:
+        x_ptr += 4 * (length - 1) * x_sl
+        y_ptr += 4 * (length - 1) * y_sl
+        x_sl, y_sl = -x_sl, -y_sl
+    lib = build.library("trim_conv1d")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.trim_conv1d_f32(
+            x_ptr, wc.data_ptr(), y_ptr, b, length, d, plan.k, x.stride(0),
+            x_sl, y.stride(0), y_sl, plan.tile_l, plan.tile_d, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"trim_conv1d kernel launch failed: CUDA error {err} "
+            f"({lib.trim_conv1d_error_string(err).decode()}) for x "
+            f"{tuple(x.shape)} strides {x.stride()}, K={plan.k}, "
+            f"tile_l={plan.tile_l}, tile_d={plan.tile_d}, reverse={reverse}")
+    return y
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor,
+             tile_l: int | None) -> torch.Tensor:
+    plan = Conv1dPlan.build(tuple(x.shape), tuple(w.shape), tile_l=tile_l)
+    if x.device.type == "cpu":
+        with torch.no_grad():
+            return trim_conv1d_plain(x, w, tile_l=plan.tile_l)
+    y = _launch(x, w, plan)
+    LAUNCHES["trim_conv1d"] += 1
+    return y
+
+
+def _channels_contiguous(dy: torch.Tensor) -> torch.Tensor:
+    """The cotangent with a contiguous channel axis, as the kernels read
+    it (a copy only where it has none)."""
+    return dy if dy.dim() != 3 or dy.stride(2) == 1 else dy.contiguous()
+
+
+def trim_conv1d_input_grad(dy: torch.Tensor, w: torch.Tensor, *,
+                           tile_l: int | None = None) -> torch.Tensor:
+    """dx (B, L, D) of ``y = trim_conv1d(x, w)`` from dy (B, L, D): the
+    forward kernel on dy and dx in reversed time (module docstring),
+    counted in ``BWD_LAUNCHES["trim_conv1d_dx"]``; on CPU tensors its
+    plain version, :func:`trim_conv1d_input_grad_plain`."""
+    dy = _channels_contiguous(dy)
+    _check(dy, w)
+    plan = Conv1dPlan.build(tuple(dy.shape), tuple(w.shape), tile_l=tile_l)
+    if dy.device.type == "cpu":
+        with torch.no_grad():
+            return trim_conv1d_input_grad_plain(dy, w, tile_l=plan.tile_l)
+    dx = _launch(dy, w, plan, reverse=True)
+    BWD_LAUNCHES["trim_conv1d_dx"] += 1
+    return dx
+
+
+def trim_conv1d_input_grad_plain(dy: torch.Tensor, w: torch.Tensor, *,
+                                 tile_l: int | None = None) -> torch.Tensor:
+    """The input gradient's plain version: the forward's plain version on
+    the reversed cotangent, reversed back."""
+    return trim_conv1d_plain(dy.flip(1), w, tile_l=tile_l).flip(1)
+
+
+def trim_conv1d_wgrad_plain(x: torch.Tensor, dy: torch.Tensor, k: int, *,
+                            tile_l: int | None = None) -> torch.Tensor:
+    """The weight-gradient kernel's schedule in plain PyTorch -> dw (K, D):
+    each run of the plan's ``tile_l`` steps summed from 0 in time order
+    (every product rounded before its add) with its window's ``K-1``
+    predecessors (zeros before t = 0), the runs of each group of
+    ``CONV1D_WGRAD_RUNS`` added in run order, then the groups in group
+    order, every run, group and channel at once."""
+    plan = Conv1dWeightGradPlan.build(tuple(x.shape), k, tile_l=tile_l)
+    b, length, d = x.shape
+    tl, rpb = plan.tile_l, plan.runs_per_b
+    padded = rpb * tl
+    xw = F.pad(x, (0, 0, k - 1, padded - length)).unfold(1, tl + k - 1, tl)
+    gw = F.pad(dy, (0, 0, 0, padded - length)).unfold(1, tl, tl)
+    acc = torch.zeros((b, rpb, d, k), dtype=torch.float32, device=x.device)
+    for j in range(tl):                 # (B, runs, D, tl [+ K-1])
+        acc = acc + xw[..., j:j + k] * gw[..., j:j + 1]
+    runs = F.pad(acc.reshape(b * rpb, d, k),
+                 (0, 0, 0, 0, 0, plan.groups * CONV1D_WGRAD_RUNS - plan.runs))
+    runs = runs.reshape(plan.groups, CONV1D_WGRAD_RUNS, d, k)
+    part = torch.zeros((plan.groups, d, k), dtype=torch.float32,
+                       device=x.device)
+    for r in range(CONV1D_WGRAD_RUNS):
+        part = part + runs[:, r]
+    dw = torch.zeros((d, k), dtype=torch.float32, device=x.device)
+    for g in range(plan.groups):
+        dw = dw + part[g]
+    return dw.t().contiguous()
+
+
+def trim_conv1d_weight_grad(x: torch.Tensor, dy: torch.Tensor, k: int, *,
+                            tile_l: int | None = None) -> torch.Tensor:
+    """dw (K, D) of ``y = trim_conv1d(x, w)`` from x and dy (B, L, D), x
+    read through its strides: the kernel of ``csrc/trim_conv1d_wgrad.cu``
+    (two launches, counted once in ``BWD_LAUNCHES["trim_conv1d_wgrad"]``);
+    on CPU tensors :func:`trim_conv1d_wgrad_plain`."""
+    dy = _channels_contiguous(dy)
+    _check(x, dy)
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} is not of x's shape "
+                         f"{tuple(x.shape)}")
+    plan = Conv1dWeightGradPlan.build(tuple(x.shape), k, tile_l=tile_l)
+    if x.device.type == "cpu":
+        with torch.no_grad():
+            return trim_conv1d_wgrad_plain(x, dy, k, tile_l=plan.tile_l)
+    b, length, d = x.shape
+    partial = torch.empty(plan.partial_shape, dtype=torch.float32,
+                          device=x.device)
+    dw = torch.empty((k, d), dtype=torch.float32, device=x.device)
+    lib = build.library("trim_conv1d_wgrad")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.trim_conv1d_wgrad_f32(
+            x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+            b, length, d, k, x.stride(0), x.stride(1), dy.stride(0),
+            dy.stride(1), plan.tile_l, plan.groups, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"trim_conv1d_wgrad kernel launch failed: CUDA error {err} "
+            f"({lib.trim_conv1d_wgrad_error_string(err).decode()}) for x "
+            f"{tuple(x.shape)} strides {x.stride()}, K={k}, "
+            f"tile_l={plan.tile_l}, groups={plan.groups} (a wrong group "
+            "count means the plan's CONV1D_WGRAD_* constants and the .cu's "
+            "disagree)")
+    BWD_LAUNCHES["trim_conv1d_wgrad"] += 1
+    return dw
+
+
+class _TrimConv1dFn(torch.autograd.Function):
+    """The conv1d with the kernels' gradient: the forward keeps (x, w),
+    the backward runs :func:`trim_conv1d_input_grad` and
+    :func:`trim_conv1d_weight_grad` (each only where its input needs a
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, w, tile_l):
+        ctx.save_for_backward(x, w)
+        return _forward(x, w, tile_l)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = trim_conv1d_input_grad(dy, w) if ctx.needs_input_grad[0] \
+            else None
+        dw = trim_conv1d_weight_grad(x, dy, w.shape[0]) \
+            if ctx.needs_input_grad[1] else None
+        return dx, dw, None
+
+
 def trim_conv1d(x: torch.Tensor, w: torch.Tensor, *,
                 tile_l: int | None = None) -> torch.Tensor:
     """x: (B, L, D) f32 with a contiguous channel axis (other strides are
     read as they are); w: (K, D) f32, K >= 2 -> y (B, L, D).
 
     On CUDA tensors, one launch of the hand-written kernel (counted in
-    ``LAUNCHES``); on CPU tensors, :func:`trim_conv1d_plain`.  Raises
+    ``LAUNCHES``); on CPU tensors, :func:`trim_conv1d_plain`.  Under
+    autograd, with x or w requiring grad, through ``_TrimConv1dFn``,
+    whose backward runs the backward kernels (module docstring).  Raises
     ``ValueError`` for what the kernel cannot take: another dtype, mixed
-    devices, K < 2, or an empty B, L or D.  ``tile_l`` left as
-    ``None`` takes ``Conv1dPlan.build``'s choice.  It has no backward:
-    under autograd, with x or w requiring grad, it raises
-    ``NotImplementedError`` rather than give a result no gradient reaches.
+    devices, K < 2, or an empty B, L or D.  ``tile_l`` left as ``None``
+    takes ``Conv1dPlan.build``'s choice.
     """
     _check(x, w)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            "trim_conv1d has no backward (ROADMAP Queue 1 item 2f, ssm and "
-            "hybrid training); call it under torch.no_grad() or on "
-            "detached tensors")
-    plan = Conv1dPlan.build(tuple(x.shape), tuple(w.shape), tile_l=tile_l)
-    if x.device.type == "cpu":
-        with torch.no_grad():
-            return trim_conv1d_plain(x, w, tile_l=plan.tile_l)
-    b, length, d = x.shape
-    wc = w.contiguous()
-    y = torch.empty((b, length, d), dtype=torch.float32, device=x.device)
-    lib = build.library("trim_conv1d")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.trim_conv1d_f32(
-            x.data_ptr(), wc.data_ptr(), y.data_ptr(), b, length, d, plan.k,
-            x.stride(0), x.stride(1), y.stride(0), y.stride(1), plan.tile_l,
-            plan.tile_d, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"trim_conv1d kernel launch failed: CUDA error {err} "
-            f"({lib.trim_conv1d_error_string(err).decode()}) for x "
-            f"{tuple(x.shape)} strides {x.stride()}, K={plan.k}, "
-            f"tile_l={plan.tile_l}, tile_d={plan.tile_d}")
-    LAUNCHES["trim_conv1d"] += 1
-    return y
+        return _TrimConv1dFn.apply(x, w, tile_l)
+    return _forward(x, w, tile_l)

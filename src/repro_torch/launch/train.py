@@ -9,17 +9,24 @@ Usage (``--device cpu`` runs the plain versions; keep the model small):
       --ckpt-dir "$(mktemp -d)"
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
       --steps 4 --batch 2 --seq 1025           # full width on the card
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch recurrentgemma-2b --smoke --device cpu --steps 20 --batch 8 \\
+      --seq 64 --ckpt-dir "$(mktemp -d)"
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch recurrentgemma-2b --steps 4 --batch 1 --seq 4097   # the card
 
 The flags and their defaults are JAX's, plus ``--device`` (default
 ``cuda``) and ``--json OUT``; ``--model-parallel`` other than 1 raises
-(ROADMAP Queue 1 item 9).  The dense family trains (qwen2.5-3b,
-starcoder2-3b/7b, ...); the ssm and hybrid families raise up front (their
-conv1d kernel has no backward yet).  Attention runs the flash kernels
-forward and backward (``attn_impl="flash"``, the port's default) and each
-block is rematerialised (``remat``).  Every ``--ckpt-every`` steps, and at
-the end, the train state and the data-iterator state are written
-atomically; on startup the latest checkpoint in ``--ckpt-dir`` is
-restored, so a restart resumes exactly.  The weights come from
+(ROADMAP Queue 1 item 9).  The dense (qwen2.5-3b, starcoder2-3b/7b,
+...), ssm (falcon-mamba-7b, whose 116 GB of f32 state does not fit one
+card at full depth) and hybrid (recurrentgemma-2b) families train.
+Attention runs the flash kernels forward and backward
+(``attn_impl="flash"``, the port's default), the temporal conv the conv1d
+kernels forward and backward, and each block is rematerialised
+(``remat``).  Every ``--ckpt-every`` steps, and at the end, the train
+state and the data-iterator state are written atomically; on startup the
+latest checkpoint in ``--ckpt-dir`` is restored, so a restart resumes
+exactly.  The weights come from
 ``torch.Generator(device).manual_seed(0)``, not ``jax.random``: a JAX
 checkpoint restores here, but a fresh run does not start from JAX's
 weights.  The last line printed is JAX's JSON object ``{"final_loss",
@@ -92,7 +99,6 @@ def main(argv=None) -> dict:
             "(multi-GPU)")
     mod = registry.get(args.arch)
     cfg = mod.SMOKE if args.smoke else mod.CONFIG
-    steps.require_trainable(cfg.family)
     dev = resolve_device(args.device)
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=10,
                           decay_steps=args.steps)

@@ -16,21 +16,32 @@ chunks, so the (B, C, D_inner, S) tensors exist one chunk at a time.
 
 Parameters keep the JAX tree and layout (``blocks.mixer.{w_in, conv_w,
 conv_b, w_x, w_dt, dt_bias, a_log, d_skip, w_out}``, ``blocks.ln``,
-``ln_f``, ``tok``), stacked over a leading layer axis.  Decode (L = 1)
+``ln_f``, ``tok``), stacked over a leading layer axis and cut into their
+layers once a forward with ``transformer.layer_list``.  Decode (L = 1)
 updates the state ``{"conv": (L, B, K-1, Din), "ssm": (L, B, Din, S)}``
 in place.
+
+Training: under grad the conv runs ``_TrimConv1dFn`` (the backward
+kernels), the scan differentiates through plain autograd, and each scan
+chunk runs under ``torch.utils.checkpoint`` (non-reentrant), the
+counterpart of ``jax.checkpoint(one_chunk)`` (``repro/models/mamba.py:
+91``): a chunk's (B, C, Din, S) tensors are rebuilt in the backward, one
+chunk at a time.  With ``cfg.remat`` each layer is checkpointed too, the
+counterpart of ``repro/models/mamba.py:160-162``.  Without grad nothing
+is checkpointed and serving computes what it computed before.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.base import Param, stack_params
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import layer_slice
+from repro_torch.models.transformer import layer_list
 
 
 def mixer_params(cfg: ModelConfig) -> dict:
@@ -86,6 +97,16 @@ def _scan_chunk(a: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor):
     return h, h[:, -1]
 
 
+def _one_chunk(a: torch.Tensor, h0: torch.Tensor, dt_c: torch.Tensor,
+               x_c: torch.Tensor, b_c: torch.Tensor, c_c: torch.Tensor):
+    """One scan chunk (``one_chunk`` of ``repro/models/mamba.py:68``):
+    (y_c (B, C, Din), h_last (B, Din, S))."""
+    a_bar = torch.exp(dt_c[..., None] * a)                     # (B,C,Din,S)
+    bx = dt_c[..., None] * b_c[:, :, None, :] * x_c[..., None]
+    h, h_last = _scan_chunk(a_bar, bx, h0)
+    return torch.einsum("bcds,bcs->bcd", h, c_c), h_last
+
+
 def ssm_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
               h0: torch.Tensor | None = None):
     """Selective scan.  x: (B, L, Din) post-conv/SiLU activations.
@@ -106,16 +127,18 @@ def ssm_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
                               for t in (dt, x, bmat, cmat))
     else:
         xp = x
+    # under grad each chunk is rebuilt in the backward (jax.checkpoint)
+    remat = torch.is_grad_enabled() and x.requires_grad
     ys = []
     for ic in range(n_chunks):
         sl = slice(ic * chunk, (ic + 1) * chunk)
-        dt_c, x_c, b_c, c_c = (t[:, sl].float()
-                               for t in (dt, xp, bmat, cmat))
-        a_bar = torch.exp(dt_c[..., None] * a)                 # (B,C,Din,S)
-        bx = dt_c[..., None] * b_c[:, :, None, :] * x_c[..., None]
-        h, h0 = _scan_chunk(a_bar, bx, h0)
-        ys.append(torch.einsum("bcds,bcs->bcd", h, c_c))
-        del a_bar, bx, h
+        chunk_in = (a, h0) + tuple(t[:, sl].float()
+                                   for t in (dt, xp, bmat, cmat))
+        if remat:
+            y_c, h0 = checkpoint(_one_chunk, *chunk_in, use_reentrant=False)
+        else:
+            y_c, h0 = _one_chunk(*chunk_in)
+        ys.append(y_c)
     y = torch.cat(ys, dim=1)[:, :length].to(x.dtype)
     y = y + x * p["d_skip"]
     return y, h0
@@ -148,6 +171,14 @@ def block_params(cfg: ModelConfig) -> dict:
     return {"ln": L.norm_params(cfg), "mixer": mixer_params(cfg)}
 
 
+def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                state=None) -> torch.Tensor:
+    """One pre-norm residual block; a decode ``state`` is updated in
+    place."""
+    return x + mixer_apply(p["mixer"], L.norm_apply(p["ln"], x, cfg), cfg,
+                           state=state)
+
+
 def lm_params(cfg: ModelConfig) -> dict:
     return {"tok": L.embedding_params(cfg),
             "blocks": stack_params(block_params(cfg), cfg.n_layers),
@@ -168,12 +199,16 @@ def make_state(cfg: ModelConfig, batch: int) -> dict:
 def lm_apply(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
              state: dict | None = None):
     """tokens (B, S) -> (logits (B, S, vocab), state).  ``state`` selects
-    one-token decode; each layer's slice of it is updated in place."""
+    one-token decode; each layer's slice of it is updated in place.  Under
+    grad with ``cfg.remat`` each block is checkpointed."""
     x = L.embed_apply(params["tok"], tokens, cfg)
-    for i in range(cfg.n_layers):
-        pi = layer_slice(params["blocks"], i)
-        st = None if state is None else (state["conv"][i], state["ssm"][i])
-        x = x + mixer_apply(pi["mixer"], L.norm_apply(pi["ln"], x, cfg),
-                            cfg, state=st)
+    remat = cfg.remat and state is None and torch.is_grad_enabled()
+    for i, pi in enumerate(layer_list(params["blocks"], cfg.n_layers)):
+        if remat:
+            x = checkpoint(block_apply, pi, x, cfg, use_reentrant=False)
+        else:
+            st = None if state is None else (state["conv"][i],
+                                             state["ssm"][i])
+            x = block_apply(pi, x, cfg, state=st)
     x = L.norm_apply(params["ln_f"], x, cfg)
     return L.head_apply(params["tok"], x, cfg), state

@@ -23,12 +23,20 @@ Parameters keep the JAX tree: ``tok``, ``ln_f`` and per-layer dicts
 ``ln_mlp`` and ``mlp``).  The decode state ``{"layer_{i}": {"k", "v"}
 | {"conv", "h"}}`` is updated in place (the JAX function returns
 updated copies).
+
+Training: under grad the conv runs ``_TrimConv1dFn`` and the local
+attention ``_FlashAttentionFn`` (the backward kernels); the RG-LRU scan
+differentiates through plain autograd (the JAX package has no scan
+kernel either).  With ``cfg.remat`` and no decode state each block runs
+under ``torch.utils.checkpoint`` (non-reentrant), the counterpart of
+``repro/models/rglru.py:176-178``.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -173,17 +181,23 @@ def lm_apply(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
              state: dict | None = None, cache_len: torch.Tensor | None = None):
     """tokens (B, S) -> (logits (B, S, vocab), state).  ``state`` and
     ``cache_len`` (B,) select one-token decode; each layer's state is
-    updated in place."""
+    updated in place.  Under grad with ``cfg.remat`` each block is
+    checkpointed."""
     x = L.embed_apply(params["tok"], tokens, cfg)
     if cache_len is not None:
         positions = cache_len.reshape(-1, 1) - 1
     else:
         positions = torch.arange(x.shape[1], device=x.device)[None]
+    remat = cfg.remat and state is None and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        x = block_apply(params["blocks"][f"layer_{i}"], x, cfg,
-                        positions=positions,
-                        state=None if state is None else state[f"layer_{i}"],
-                        cache_len=cache_len)
+        p = params["blocks"][f"layer_{i}"]
+        if remat:
+            x = checkpoint(block_apply, p, x, cfg, positions=positions,
+                           use_reentrant=False)
+        else:
+            x = block_apply(p, x, cfg, positions=positions,
+                            state=None if state is None
+                            else state[f"layer_{i}"], cache_len=cache_len)
     x = L.norm_apply(params["ln_f"], x, cfg)
     logits = L.head_apply(params["tok"], x, cfg)
     if cfg.logits_soft_cap:

@@ -34,7 +34,14 @@ GQA groups up to 10 and Lq < Lk, and must repeat bitwise; the forward's o
 is bitwise the same with and without its lse output; a loss through
 ``ops.attention(impl="flash")`` differentiates through them; and one
 train step of a depth-2 SMOKE LM on the kernels (remat) matches the same
-step on ``attn_impl="ref"``.  The conv1d kernel is held against its plain
+step on ``attn_impl="ref"`` (``_hold_first_step``: the gradients
+themselves leaf by leaf within 1e-4 of each leaf's max, the params after
+the step split by ``tests/test_torch_train_lm.py``'s settled rule).  The
+conv1d backward kernels (dx: the forward kernel on the reversed
+cotangent; dw: the weight-gradient kernel) equal their plain versions
+bit for bit on the forward's cases, and one SMOKE train step of
+falcon-mamba-7b and of recurrentgemma-2b (flash) on the kernels matches
+the same step on the CPU by the same rule.  The conv1d kernel is held against its plain
 version and the ``ref`` oracle bit for bit (the same rounded products
 summed in the same order) on ragged runs, L < K-1, narrow channel
 counts, K = 2..8 and strided views like the Mamba mixer's, and K = 9, 12
@@ -741,12 +748,85 @@ def test_flash_autograd_on_the_card_matches_ref(cuda):
         fa.flash_attention(wide, wide, wide)
 
 
+STEP_GRAD_TOL = 1e-4      # a gradient's stated error, of its leaf's max
+STEP_TOL = 1e-4           # params, mu and nu after a step, of the tree's max
+SETTLED_TOL = 1e-5        # tests/test_torch_train_lm.py's TOL
+
+
+def _grads(cfg, state, batch):
+    """The loss's gradient at ``state``'s params, taken apart from the
+    step through ``api.forward`` / ``api.loss_fn``."""
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    live = [t.detach().clone().requires_grad_()
+            for t in adamw.tree_leaves(state["params"])]
+    logits, aux = api.forward(adamw.tree_unflatten(state["params"], live),
+                              batch, cfg)
+    return torch.autograd.grad(api.loss_fn(logits, batch["labels"], aux),
+                               live)
+
+
+def _hold_first_step(got, want, p0, opt, grad_tol=STEP_GRAD_TOL):
+    """One AdamW step from the params ``p0`` on two paths, each ``(state
+    after the step, metrics, gradient taken apart at p0)``, ``want`` the
+    reference.  The gradients leaf by leaf within ``grad_tol`` of the
+    leaf's max|g_ref|; the loss within 1e-5, the grad norm within 1e-4;
+    mu and nu within ``STEP_TOL`` of each tree's max.  The params split
+    by ``tests/test_torch_train_lm.py``'s ``_settled`` rule on the ref
+    step's (clipped) gradient g = mu / (1 - b1): a first step moves an
+    element by ``lr g / (|g| + eps)``, so where |g| is near the
+    gradient's error that move takes the sign of rounding.  Settled
+    elements within ``STEP_TOL`` of the tree's max; an unsettled one must
+    step in the ref step's direction wherever |g| is above its leaf's
+    stated error (``grad_tol`` x max|g|), and every other element moves
+    by at most one first step, ``lr (1 + wd |p0|)`` + an ulp."""
+    from repro_torch.optim import adamw
+    (s, m, g), (sr, mr, gr) = got, want
+    for i, (a, b) in enumerate(zip(g, gr)):
+        err = (a - b).abs().max().item()
+        assert err <= grad_tol * b.abs().max().item(), (i, err)
+    assert abs(m["loss"].item() - mr["loss"].item()) <= 1e-5 * abs(
+        mr["loss"].item())
+    assert abs(m["grad_norm"].item() - mr["grad_norm"].item()) <= \
+        1e-4 * mr["grad_norm"].item()
+    for tree in (("opt", "mu"), ("opt", "nu")):
+        a = torch.cat([t.flatten() for t in adamw.tree_leaves(
+            s[tree[0]][tree[1]])])
+        b = torch.cat([t.flatten() for t in adamw.tree_leaves(
+            sr[tree[0]][tree[1]])])
+        assert (a - b).abs().max().item() <= STEP_TOL * b.abs().max().item()
+    lr = mr["lr"].item()
+    params = adamw.tree_leaves(s["params"])
+    ref_params = adamw.tree_leaves(sr["params"])
+    scale = max(t.abs().max().item() for t in ref_params)
+    for i, (p, pr, q0, mu, mur) in enumerate(zip(
+            params, ref_params, p0, adamw.tree_leaves(s["opt"]["mu"]),
+            adamw.tree_leaves(sr["opt"]["mu"]))):
+        gl = (mur / (1 - opt.b1)).abs()
+        settled = gl > torch.sqrt(opt.eps * grad_tol * gl.max()
+                                  / SETTLED_TOL)
+        if settled.any():
+            err = (p - pr)[settled].abs().max().item()
+            assert err <= STEP_TOL * scale, (i, err)
+        decay = opt.weight_decay * q0 if q0.dim() >= 2 else 0.0
+        signed = ~settled & (gl > grad_tol * gl.max())
+        for d, dr in ((mu, mur), (q0 - p - lr * decay,
+                                  q0 - pr - lr * decay)):
+            assert torch.equal(torch.sign(d[signed]),
+                               torch.sign(dr[signed])), i
+        rest = ~settled & ~signed
+        ulp = torch.nextafter(q0.abs(), torch.full_like(q0, torch.inf)) \
+            - q0.abs()
+        bound = lr * (1 + opt.weight_decay * q0.abs()) + ulp
+        assert bool(((p - q0).abs() <= bound)[rest].all()), i
+
+
 def test_lm_train_step_on_the_kernels_matches_ref(cuda):
     """One train step of a depth-2, narrow-width dense LM (qwen2.5-3b
     SMOKE, remat on) on the flash kernels against the same step on
-    ``attn_impl="ref"`` from the same state: the loss within 1e-5, the
-    grad norm, params, mu and nu within 1e-4 of each tree's max (the
-    3xTF32 forward against cuBLAS, through a backward); the flash step
+    ``attn_impl="ref"`` from the same state, held by ``_hold_first_step``
+    (the gradients themselves leaf by leaf within 1e-4 of each leaf's
+    max: the 3xTF32 forward and backward against cuBLAS); the flash step
     launches the forward twice a layer (remat) and each backward kernel
     once a layer."""
     from repro_torch.configs import registry
@@ -762,24 +842,16 @@ def test_lm_train_step_on_the_kernels_matches_ref(cuda):
     for impl in ("flash", "ref"):
         state = steps.init_train_state(
             cfg, opt, torch.Generator(device="cuda").manual_seed(1))
+        p0 = [t.clone() for t in adamw.tree_leaves(state["params"])]
+        icfg = cfg.replace(attn_impl=impl)
+        g = _grads(icfg, state, batch)
         fa.reset_launch_counts()
-        out[impl] = steps.make_train_step(cfg.replace(attn_impl=impl), opt)(
-            state, batch)
+        state, metrics = steps.make_train_step(icfg, opt)(state, batch)
         if impl == "flash":
             assert fa.LAUNCHES["flash_attention"] == 2 * cfg.n_layers
             assert set(fa.BWD_LAUNCHES.values()) == {cfg.n_layers}
-    (sf, mf), (sr, mr) = out["flash"], out["ref"]
-    assert abs(mf["loss"].item() - mr["loss"].item()) <= 1e-5 * abs(
-        mr["loss"].item())
-    assert abs(mf["grad_norm"].item() - mr["grad_norm"].item()) <= \
-        1e-4 * mr["grad_norm"].item()
-    for tree in (("params",), ("opt", "mu"), ("opt", "nu")):
-        a, b = sf, sr
-        for key in tree:
-            a, b = a[key], b[key]
-        a = torch.cat([t.flatten() for t in adamw.tree_leaves(a)])
-        b = torch.cat([t.flatten() for t in adamw.tree_leaves(b)])
-        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+        out[impl] = (state, metrics, g)
+    _hold_first_step(out["flash"], out["ref"], p0, opt)
 
 
 def test_lm_prefill_on_the_kernel_matches_ref(cuda):
@@ -845,6 +917,97 @@ def test_conv1d_kernel_equals_plain_bitwise(cuda, case):
     assert torch.equal(out, tc1.trim_conv1d_plain(x, w, tile_l=tile_l))
     assert torch.equal(out, ref.depthwise_conv1d(x, w))
     assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("case", CONV1D_CASES,
+                         ids=[str(i) for i in range(len(CONV1D_CASES))])
+def test_conv1d_backward_kernels_equal_plain_bitwise(cuda, case):
+    """dx (the forward kernel on the reversed cotangent) and dw (the
+    weight-gradient kernel's runs and ordered groups) bitwise equal to
+    their plain versions and over two calls, on the forward's cases
+    (strided x, ragged runs, L < K, K up to 16); through the Function, a
+    loss's gradient reaches a strided x's base as the same dx, and w as
+    dw on the plan's own runs (``tile_l`` moves dw's rounding: it cuts
+    the runs)."""
+    from repro_torch.kernels import trim_conv1d as tc1
+    b, length, d, k, tile_l, strided = case
+    gen = torch.Generator(device="cuda").manual_seed(length + d + 1)
+    xz = torch.randn((b, length, 2 * d if strided else d), generator=gen,
+                     device=cuda)
+    x = xz[..., :d]
+    w = torch.randn((k, d), generator=gen, device=cuda)
+    dy = torch.randn((b, length, d), generator=gen, device=cuda)
+    tc1.reset_launch_counts()
+    dx = tc1.trim_conv1d_input_grad(dy, w, tile_l=tile_l)
+    dw = tc1.trim_conv1d_weight_grad(x, dy, k, tile_l=tile_l)
+    dx2 = tc1.trim_conv1d_input_grad(dy, w, tile_l=tile_l)
+    dw2 = tc1.trim_conv1d_weight_grad(x, dy, k, tile_l=tile_l)
+    torch.cuda.synchronize()
+    assert tc1.BWD_LAUNCHES == {"trim_conv1d_dx": 2, "trim_conv1d_wgrad": 2}
+    assert torch.equal(dx, tc1.trim_conv1d_input_grad_plain(
+        dy, w, tile_l=tile_l))
+    assert torch.equal(dw, tc1.trim_conv1d_wgrad_plain(x, dy, k,
+                                                       tile_l=tile_l))
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    xg, wg = xz.clone().requires_grad_(), w.clone().requires_grad_()
+    gxz, gw = torch.autograd.grad(tc1.trim_conv1d(xg[..., :d], wg),
+                                  (xg, wg), dy)
+    assert torch.equal(gxz[..., :d], dx)
+    assert torch.equal(gw, tc1.trim_conv1d_weight_grad(x, dy, k))
+    assert not gxz[..., d:].any()
+
+
+def _to_device(state, device):
+    """A copy of a train state on ``device`` (the step updates in place)."""
+    from repro_torch.optim import adamw
+    return adamw.tree_unflatten(state, [t.to(device, copy=True)
+                                        for t in adamw.tree_leaves(state)])
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-2b"])
+def test_ssm_and_hybrid_train_step_on_the_kernels_matches_the_cpu(cuda,
+                                                                  arch):
+    """One SMOKE train step (remat; recurrentgemma-2b on the flash
+    kernels) on the card's kernels against the same step on the CPU's
+    plain versions from the same state, held by ``_hold_first_step``;
+    the gradients within 1e-4 of each leaf's max (2e-4 for the hybrid:
+    at its SMOKE config each f32 path reads up to ~1e-4 from float64,
+    ``tests/test_torch_train_ssm.py``); the card's step launches the
+    conv1d forward twice a rec layer, dx and dw once, and for the hybrid
+    the flash forward twice and each backward kernel once an att
+    layer."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import trim_conv1d as tc1
+    from repro_torch.optim import AdamWConfig, adamw
+    cfg = registry.get(arch).SMOKE.replace(remat=True, attn_impl="flash")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, decay_steps=50)
+    toks = torch.randint(2, cfg.vocab, (4, 65),
+                         generator=torch.Generator().manual_seed(0))
+    cpu = steps.init_train_state(cfg, opt, torch.Generator().manual_seed(1))
+    p0 = [t.clone() for t in adamw.tree_leaves(cpu["params"])]
+    out = {}
+    for dev in ("cpu", cuda):
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        state = _to_device(cpu, dev)
+        g = _grads(cfg, state, batch)
+        fa.reset_launch_counts()
+        tc1.reset_launch_counts()
+        state, metrics = steps.make_train_step(cfg, opt)(state, batch)
+        out[str(dev)] = [_to_device(state, "cpu"),
+                         {k: v.cpu() for k, v in metrics.items()},
+                         [t.cpu() for t in g]]
+    rec = sum(cfg.pattern_at(i) == "rec" for i in range(cfg.n_layers)) \
+        if cfg.family == "hybrid" else cfg.n_layers
+    att = cfg.n_layers - rec
+    assert tc1.LAUNCHES["trim_conv1d"] == 2 * rec
+    assert tc1.BWD_LAUNCHES == {"trim_conv1d_dx": rec,
+                                "trim_conv1d_wgrad": rec}
+    assert fa.LAUNCHES["flash_attention"] == 2 * att
+    assert set(fa.BWD_LAUNCHES.values()) == ({att} if att else {0})
+    _hold_first_step(out[str(cuda)], out["cpu"], p0, opt,
+                     2e-4 if cfg.family == "hybrid" else STEP_GRAD_TOL)
 
 
 def test_conv1d_wrapper_raises_on_cuda(cuda):

@@ -39,7 +39,8 @@ the JAX ``make_batch``'s numpy arrays.  Checked here:
 * ``launch.train.main --device cpu --smoke``: 3 + 3 steps with a restart
   from the checkpoint equal 6 straight bit for bit, and the final JSON
   line is JAX's object;
-* the ssm and hybrid families refuse to train, naming their ROADMAP item.
+* the ssm and hybrid families train a step (``tests/test_torch_train_ssm.py``
+  holds them against JAX).
 
 Tolerance: f32 in both packages, sums in another order.
 """
@@ -90,23 +91,25 @@ def _leaf_errs(tree, jtree) -> list:
                   / (np.abs(w).max() + 1e-30)) for t, w in zip(tree, jtree)]
 
 
-def _settled(g, eps):
+def _settled(g, eps, tol_step=TOL_STEP):
     """Elements whose reference gradient ``g`` is far enough above AdamW's
     ``eps`` for a first step's change to hold TOL: the step moves an
-    element by ``lr g / (|g| + eps)``, so a gradient error of TOL_STEP x
-    max|g| moves it by ``lr eps TOL_STEP max|g| / g**2``, below TOL x lr
-    where ``|g| > sqrt(eps TOL_STEP max|g| / TOL)``."""
+    element by ``lr g / (|g| + eps)``, so a gradient error of ``tol_step``
+    x max|g| moves it by ``lr eps tol_step max|g| / g**2``, below TOL x lr
+    where ``|g| > sqrt(eps tol_step max|g| / TOL)``."""
     g = np.abs(g)
-    return g > np.sqrt(eps * TOL_STEP * g.max() / TOL)
+    return g > np.sqrt(eps * tol_step * g.max() / TOL)
 
 
-def _check_param_change(old, new, jnew, jmu, cfg, lr):
-    """Each leaf's change held against JAX's (module docstring)."""
+def _check_param_change(old, new, jnew, jmu, cfg, lr, tol_step=TOL_STEP):
+    """Each leaf's change held against JAX's (module docstring), the
+    gradients' stated error ``tol_step`` x max|g| deciding which elements
+    are settled."""
     for i, (p0, got, want, mu) in enumerate(zip(old, new, jnew, jmu)):
         change, jchange = got - p0, want - p0
         err = np.abs(change - jchange)
         ulp = np.spacing(np.maximum(np.abs(p0), np.abs(want)))
-        ok = _settled(mu / (1 - cfg.b1), cfg.eps)
+        ok = _settled(mu / (1 - cfg.b1), cfg.eps, tol_step)
         scale = np.abs(jchange).max()
         assert np.all((err - ulp)[ok] <= TOL * scale), (
             i, float(((err - ulp)[ok]).max() / scale))
@@ -317,12 +320,23 @@ def test_main_resumes_exactly(tmp_path, capsys):
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-2b"])
 def test_ssm_and_hybrid_training_raise(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2f"):
-        train.main(["--arch", arch, "--smoke", "--device", "cpu",
-                    "--steps", "1"])
-    cfg = registry.get(arch).SMOKE
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2f"):
-        steps.make_train_step(cfg, AdamWConfig())
+    """Named for the refusal it replaced: the ssm and hybrid families now
+    train.  One ``make_train_step`` step of the SMOKE config (remat) from
+    a seeded state gives a finite loss and grad norm and moves every
+    param leaf; ``tests/test_torch_train_ssm.py`` holds the step against
+    JAX's."""
+    cfg = registry.get(arch).SMOKE.replace(remat=True)
+    opt = AdamWConfig(**OPT)
+    state = steps.init_train_state(cfg, opt, torch.Generator().manual_seed(0))
+    before = [t.clone() for t in adamw.tree_leaves(state["params"])]
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(DataConfig(
+        batch=4, seq=17, vocab=cfg.vocab, task="copy"), 0).items()}
+    state, metrics = steps.make_train_step(cfg, opt)(state, batch)
+    assert int(state["step"]) == 1
+    assert np.isfinite(float(metrics["loss"]))
+    assert np.isfinite(float(metrics["grad_norm"]))
+    for p0, p1 in zip(before, adamw.tree_leaves(state["params"])):
+        assert not torch.equal(p0, p1)
 
 
 def test_model_parallel_raises():
