@@ -308,10 +308,29 @@ Phases, each raising on failure (each prints its seconds):
    peak memory and the clip state; at the depth-2 cut the first-step
    gradients on the kernels against the f32 step on ``impl="ref"``
    (``MAMBA_GRAD_TOLERANCE``);
-33. the kernel JSON line (thirteen kernels; the launches of trim_conv1d
+33. bf16 — the bf16 routes of the conv kernels: the carry and halo
+   entries (``trim_conv2d_carry_bf16`` / ``_halo_bf16``) at full-width
+   VGG-16's 13 layers at batch 8 and 1 and at AlexNet's five convs
+   (conv1 the K 11 adder tree of bf16 parts) at batch 8 and 1, against
+   their plain version (the kernels' own fmaf chain) within
+   ``BF16_ULPS`` and carry == halo bitwise; the fused entry
+   (``trim_conv2d_fused_bf16``) on the groups of full-width VGG-16's
+   bf16 plan at batch 8, bitwise equal to its bf16 per-layer chain; each
+   one's device ms from CUDA graphs beside ``F.conv2d`` on bf16 (cuDNN,
+   TF32 off; the yardstick), the plain version's, the bound (2 bytes an
+   element at 3.35 TB/s or 989 TFLOP/s of bf16) and the FFMA ceiling
+   (67 TFLOP/s); then full-width VGG-16 and AlexNet (seeded weights
+   drawn in f32 and cast to bf16) served in bf16 on buckets (1, 2, 4,
+   8): 48 Poisson requests at 200 req/s on carry and with ``fused=True``,
+   16 on halo, every row bit-matching ``forward_one`` (halo and fused
+   rows the carry rows too), each forward launching only bf16 entries,
+   and each bf16 row within ``BF16_F32_TOLERANCE`` of max|f32 row| of
+   the f32 serving of the same params; p50, p99 and throughput;
+34. the kernel JSON line (sixteen kernels; the launches of trim_conv1d
    and flash_attention include the prefills' and the training phases',
    the flash backward kernels' and conv1d backward kernels' the training
-   steps'), then ``{"ok": true, "device": ...}`` last.
+   steps', the bf16 entries' the bf16 serving phase's), then ``{"ok":
+   true, "device": ...}`` last.
 
 Exits non-zero without a result when no GPU is visible.
 """
@@ -333,6 +352,7 @@ PEAK_F32_FLOPS = 67e12      # H100 SXM: f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12    # H100 SXM: TF32 tensor cores, dense
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM: HBM3
 PEAK_INT8_OPS = 1979e12     # H100 SXM: int8 tensor cores, dense
+PEAK_BF16_FLOPS = 989e12    # H100 SXM: bf16 tensor cores, dense
 # __dp4a on the integer pipes: 132 SMs x 64 lanes x 4 MACs x 2 ops x
 # 1.98 GHz (the int8 kernel's own ceiling, printed beside the bound)
 PEAK_DP4A_OPS = 132 * 64 * 4 * 2 * 1.98e9
@@ -2436,8 +2456,10 @@ def serve(n_requests, dataflow, model, xs, expect=None, fused=False,
     latency summary).  Rows are held against ``forward_one`` (unless ``expect``
     is given and the run is not fused) and against ``expect``.  A model
     with calibrated layers counts its per-layer launches under the int8
-    kernel's key (``q8_carry`` / ``q8_halo``); a layer of K > 8 launches
-    once a sub-kernel of the kernel tiling."""
+    kernel's key (``q8_carry`` / ``q8_halo``), a bf16 model under the bf16
+    entries' (``carry_bf16``, ``halo_bf16``, ``fused_bf16``, its groups
+    planned at 2 bytes an element); a layer of K > 8 launches once a
+    sub-kernel of the kernel tiling."""
     from repro_torch.core.fuse_plan import FusedGroupPlan
     from repro_torch.core.serving import ServingEngine, replay
     from repro_torch.kernels.ops import conv_launches
@@ -2448,8 +2470,11 @@ def serve(n_requests, dataflow, model, xs, expect=None, fused=False,
     topo = model.layers_list
     label = label or ("fused" if fused else dataflow)
     tree = model.tree()
-    key = ("q8_" if "packed" in tree["conv0"] else "") + dataflow
     served = TrimCNN(topo, tree, dataflow=dataflow)
+    # a bf16 model launches the bf16 entries (and plans bf16 groups)
+    bf16 = str(served.dtype) == "torch.bfloat16"
+    suffix, dtype_bytes = ("_bf16", 2) if bf16 else ("", 4)
+    key = ("q8_" if "packed" in tree["conv0"] else "") + dataflow + suffix
     engine = ServingEngine.for_topology(topo, served, buckets=(1, 2, 4, 8),
                                         device="cuda", fused=fused)
     t0 = time.perf_counter()
@@ -2469,10 +2494,11 @@ def serve(n_requests, dataflow, model, xs, expect=None, fused=False,
                              f"rejected {rejected}")
     want = launch_counts()
     for bucket, count in st["bucket_batches"].items():
-        groups = (FusedGroupPlan.build(topo, n=bucket).fused_groups
+        groups = (FusedGroupPlan.build(topo, n=bucket,
+                                       dtype_bytes=dtype_bytes).fused_groups
                   if fused else ())
         inside = {i for g in groups for i in range(g.start, g.start + g.depth)}
-        want["fused"] += count * len(groups)
+        want["fused" + suffix] += count * len(groups)
         want[key] += count * sum(conv_launches(l.kernel)
                                  for i, l in enumerate(topo)
                                  if i not in inside)
@@ -4728,6 +4754,304 @@ def autotune_phase(torch, cache_dir: str) -> dict:
     return dict(tables=tables, launches=launches, sweep=sweep)
 
 
+# ---------------------------------------------------------------------------
+# The bf16 routes (phase 33)
+# ---------------------------------------------------------------------------
+
+# Each bf16 kernel against its plain version: the plain version takes the
+# kernel's own fmaf chain (a bf16 x bf16 product is exact in f32, so a
+# multiply then an add is the kernel's fmaf), so the two agree bit for bit
+# under relu; one bf16 ulp is the limit (an activation's tanh / exp may
+# differ in the last f32 bit between CUDA and PyTorch).
+BF16_ULPS = 1.0
+# bf16 serving's logits against the f32 serving of the same
+# (bf16-representable) params and inputs, of max|f32 logits| a request:
+# DESIGN.md section 5's bf16 tolerance, as tests/test_kernels.py holds
+# the JAX bf16 conv to its f32 oracle
+BF16_F32_TOLERANCE = 3e-2
+
+
+def bf16_ulps(torch, a, b) -> float:
+    """max |a - b| in bf16 ulps at max(|a|, |b|) (of the normal range)."""
+    a, b = a.double(), b.double()
+    m = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.pow(2.0, torch.floor(torch.log2(m)) - 7)
+    return ((a - b).abs() / ulp).max().item()
+
+
+def bf16_bound(flops: int, min_bytes: int) -> dict:
+    """The least time of a bf16 conv on the card: its bytes (2 an element,
+    each input read once, the output written once) at 3.35 TB/s or its
+    FLOPs on the dense bf16 tensor cores, the larger; ``ffma`` is the
+    kernels' own route's ceiling, the FLOPs at 67 TFLOP/s of f32 FFMA."""
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = min_bytes / PEAK_BYTES_PER_S * 1e3
+    return dict(bound=max(ops_ms, bytes_ms), ops_ms=ops_ms,
+                bytes_ms=bytes_ms, ffma=flops / PEAK_F32_FLOPS * 1e3,
+                by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def bf16_plain_conv(torch, x, w, b, *, stride, padding):
+    """The plain version of ``ops.conv2d`` on bf16 (relu): the carry
+    kernel's plain version, or for K > 8 the adder tree over its bf16
+    parts (summed in bf16 in order, then the bf16 epilogue)."""
+    from repro_torch.core.tiling import subkernel_decomposition
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import MAX_NATIVE_K
+    from repro_torch.kernels.trim_conv2d import trim_conv2d_plain
+    k = w.shape[0]
+    pads = ref.conv_pads(x.shape[1], x.shape[2], k, stride, padding)
+    if k <= MAX_NATIVE_K:
+        return trim_conv2d_plain(x, w, b, stride=stride, pad=pads,
+                                 activation="relu")
+    xp = ref.pad_nhwc(x, pads)
+    ho = (xp.shape[1] - k) // stride + 1
+    wo = (xp.shape[2] - k) // stride + 1
+    out = None
+    for r0, c0, kh, kw in subkernel_decomposition(k, native_k=3):
+        part = trim_conv2d_plain(
+            xp[:, r0:r0 + (ho - 1) * stride + kh,
+               c0:c0 + (wo - 1) * stride + kw].contiguous(),
+            w[r0:r0 + kh, c0:c0 + kw].contiguous(), stride=stride)
+        out = part if out is None else out + part
+    return ref.epilogue(out, b, "relu")
+
+
+def check_bf16_convs(torch, net: str, n: int) -> list:
+    """The bf16 carry and halo entries at a network's convs at batch ``n``
+    (VGG-16's 13, or AlexNet's 5 through ``ops.conv2d``: conv1 is the
+    K 11 adder tree of bf16 parts): against the plain version within
+    ``BF16_ULPS`` (under relu: bitwise), carry == halo bitwise; device
+    ms of each from CUDA graphs beside ``F.conv2d`` on bf16 (cuDNN on the
+    bf16 tensor cores; the yardstick) and the plain version's (eager,
+    CUDA events), the bound and the FFMA ceiling."""
+    import torch.nn.functional as F
+    from repro_torch.core.conv_plan import ConvPlan
+    from repro_torch.core.model import alexnet_layers, vgg16_layers
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import conv_pads, pad_nhwc
+
+    topo = vgg16_layers() if net == "VGG-16" else alexnet_layers()
+    gen = torch.Generator(device="cuda").manual_seed(28 + n)
+    bf = torch.bfloat16
+    rows = []
+    print(f"bf16 kernel check, {net} at batch {n} (relu, bias; device ms "
+          "from CUDA graphs, plain eager; ulps against the plain version; "
+          "tile T x W x C_out, blocks of the bf16 plan):")
+    print(f"  {'layer':7s} {'ulps':>5s} {'max_err':>9s} {'c==h':>5s} "
+          f"{'carry':>8s} {'halo':>8s} {'plain':>9s} {'F.conv':>8s} "
+          f"{'bound':>7s} by         {'FFMA':>7s} {'TF/s':>6s} tile")
+    for l in topo:
+        k, s = l.kernel, l.stride
+        padding = "same" if l.padding else "valid"
+        xs = (n, l.ifmap, l.ifmap, l.in_channels)
+        wsh = (k, k, l.in_channels // l.groups, l.out_channels)
+        x = torch.randn(xs, generator=gen, device="cuda").to(bf)
+        w = (torch.randn(wsh, generator=gen, device="cuda")
+             / float(np.sqrt(k * k * wsh[2]))).to(bf)
+        b = (0.1 * torch.randn((l.out_channels,), generator=gen,
+                               device="cuda")).to(bf)
+        kw = dict(stride=s, padding=padding, bias=b, activation="relu",
+                  use_autotune_cache=False)
+
+        def conv(df, x=x, w=w, kw=kw):
+            return ops.conv2d(x, w, dataflow=df, **kw)
+        with torch.inference_mode():
+            plain = bf16_plain_conv(torch, x, w, b, stride=s,
+                                    padding=padding)
+            carry, halo = conv("carry"), conv("halo")
+        torch.cuda.synchronize()
+        ulps = max(bf16_ulps(torch, carry, plain),
+                   bf16_ulps(torch, halo, plain))
+        err = (carry.float() - plain.float()).abs().max().item()
+        if carry.dtype != bf or carry.shape != plain.shape or \
+                not ulps <= BF16_ULPS:
+            raise AssertionError(f"bf16 {net} {l.name} n={n}: {ulps} ulps "
+                                 f"from the plain version > {BF16_ULPS}")
+        if not torch.equal(carry, halo):
+            raise AssertionError(f"bf16 {net} {l.name} n={n}: carry and "
+                                 "halo differ bitwise")
+        pads = conv_pads(l.ifmap, l.ifmap, k, s, padding)
+        xp = pad_nhwc(x, pads).permute(0, 3, 1, 2)
+        wl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        with torch.inference_mode():
+            t = {"carry": time_graph_ms(torch, lambda: conv("carry")),
+                 "halo": time_graph_ms(torch, lambda: conv("halo")),
+                 "library": time_graph_ms(torch, lambda: F.conv2d(
+                     xp, wl, b, stride=s)),
+                 "plain": time_ms(torch, lambda: bf16_plain_conv(
+                     torch, x, w, b, stride=s, padding=padding), reps=1)}
+        flops = 2 * carry.numel() * k * k * wsh[2]
+        min_bytes = 2 * (x.numel() + w.numel() + b.numel() + carry.numel())
+        row = dict(name=l.name, err=err, ulps=ulps, **t,
+                   **bf16_bound(flops, min_bytes))
+        tile = "tree"
+        if k <= ops.MAX_NATIVE_K:
+            plan = ConvPlan.build(xs, wsh, stride=s, pad=pads,
+                                  groups=l.groups, dtype_bytes=2)
+            tile = (f"{plan.th_out}x{plan.tile_w}x{plan.tile_cout}, "
+                    f"{plan.blocks}")
+        rows.append(row)
+        print(f"  {l.name:7s} {ulps:5.1f} {err:9.2e} {'True':>5s} "
+              f"{t['carry']:8.4f} {t['halo']:8.4f} {t['plain']:9.3f} "
+              f"{t['library']:8.4f} {row['bound']:7.4f} {row['by']:10s} "
+              f"{row['ffma']:7.4f} {flops / t['carry'] / 1e9:6.2f} {tile}")
+        del x, w, b, plain, carry, halo, xp, wl
+    torch.cuda.empty_cache()
+    print(f"bf16 kernel check, {net} at batch {n}, sums: carry "
+          f"{sum(r['carry'] for r in rows):.4f} ms, halo "
+          f"{sum(r['halo'] for r in rows):.4f} ms, plain "
+          f"{sum(r['plain'] for r in rows):.3f} ms, F.conv2d bf16 "
+          f"{sum(r['library'] for r in rows):.4f} ms, bound "
+          f"{sum(r['bound'] for r in rows):.4f} ms (FFMA ceiling "
+          f"{sum(r['ffma'] for r in rows):.4f} ms)")
+    return rows
+
+
+def check_bf16_fused(torch, n: int = 8) -> list:
+    """The bf16 fused entry on the groups of full-width VGG-16's bf16 plan
+    at batch ``n`` (the groups fused bf16 serving runs at that bucket):
+    bitwise equal to its bf16 per-layer chain (the carry entry and a
+    separate max-pool a stage) and within ``BF16_ULPS`` of its plain
+    version; device ms of the group and its chain from CUDA graphs beside
+    the plain version's and the ``F.conv2d`` + relu + ``F.max_pool2d``
+    chain's on bf16, the bound and the FFMA ceiling."""
+    from repro_torch.core.fuse_plan import FusedGroupPlan
+    from repro_torch.kernels import trim_conv2d_fused as tf
+
+    plan = FusedGroupPlan.build("vgg16", n=n, dtype_bytes=2)
+    print(f"bf16 fused plan, VGG-16 batch {n}: {plan.describe()}")
+    if not plan.fused_groups:
+        raise AssertionError("the bf16 VGG-16 plan fuses no group")
+    gen = torch.Generator(device="cuda").manual_seed(280 + n)
+    bf = torch.bfloat16
+    rows = []
+    for g in plan.fused_groups:
+        s0 = g.stages[0]
+        x = torch.randn((n, s0.h_in, s0.w_in, s0.cin), generator=gen,
+                        device="cuda").to(bf)
+        ws = [(torch.randn(st.weight_shape, generator=gen, device="cuda")
+               / float(np.sqrt(st.kernel ** 2 * st.cin))).to(bf)
+              for st in g.stages]
+        bs = [(0.1 * torch.randn((st.cout,), generator=gen,
+                                 device="cuda")).to(bf) for st in g.stages]
+        kw = dict(group=g, activation="relu")
+        with torch.inference_mode():
+            fused = tf.trim_conv2d_fused(x, ws, bs, **kw)
+            chain = tf.reference_chain(x, ws, bs, **kw)
+            plain = tf.trim_conv2d_fused_plain(x, ws, bs, **kw)
+        torch.cuda.synchronize()
+        ulps = bf16_ulps(torch, fused, plain)
+        if fused.dtype != bf or not torch.equal(fused, chain):
+            raise AssertionError(f"bf16 fused {g.label}: the group and its "
+                                 "bf16 per-layer chain differ bitwise")
+        if not ulps <= BF16_ULPS:
+            raise AssertionError(f"bf16 fused {g.label}: {ulps} ulps from "
+                                 "the plain version")
+        xl = x.permute(0, 3, 1, 2).contiguous()
+        wl = [w.permute(3, 2, 0, 1).contiguous() for w in ws]
+        with torch.inference_mode():
+            t = {"fused": time_graph_ms(
+                     torch, lambda: tf.trim_conv2d_fused(x, ws, bs, **kw)),
+                 "chain": time_graph_ms(
+                     torch, lambda: tf.reference_chain(x, ws, bs, **kw)),
+                 "library": time_graph_ms(
+                     torch, lambda: library_chain(torch, xl, wl, bs, g)),
+                 "plain": time_ms(torch, lambda: tf.trim_conv2d_fused_plain(
+                     x, ws, bs, **kw), reps=1)}
+        row = dict(group=g.label, ulps=ulps,
+                   err=(fused.float() - plain.float()).abs().max().item(),
+                   **t, **bf16_bound(g.flops, g.min_bytes()))
+        rows.append(row)
+        print(f"  bf16 fused {g.label:13s} T={g.strip_rows} B={g.band_cols} "
+              f"blocks {g.n_tiles} smem {g.smem_bytes}: == chain True, "
+              f"{ulps:.1f} ulps from plain; fused {t['fused']:.4f} ms, "
+              f"chain {t['chain']:.4f}, plain {t['plain']:.3f}, F.conv2d "
+              f"chain {t['library']:.4f}, bound {row['bound']:.4f} "
+              f"({row['by']}), FFMA ceiling {row['ffma']:.4f}")
+        del x, ws, bs, fused, chain, plain, xl, wl
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serve_bf16(torch, net: str) -> dict:
+    """Full-width VGG-16 or AlexNet (1000 classes, seeded random weights
+    drawn in f32 and cast to bf16 once) served in bf16 through
+    ``ServingEngine`` on buckets (1, 2, 4, 8): the 48-request Poisson trace
+    at 200 req/s per layer on the carry entry, its first 16 on halo, the
+    48 with ``fused=True`` (the bf16 plan's groups), every row bit-matching
+    ``forward_one`` (halo and fused rows the carry rows too); then the
+    f32 serving of the same params (bf16 values in f32) on the first 16
+    requests, each bf16 row within ``BF16_F32_TOLERANCE`` of max|f32
+    row|.  Inputs are rounded to bf16, so both see the same values."""
+    from repro_torch.core.model import alexnet_layers, vgg16_layers
+    from repro_torch.models.layers import TrimCNN
+
+    topo, size = ((vgg16_layers(), 224) if net == "VGG-16"
+                  else (alexnet_layers(), 227))
+    rng = np.random.default_rng(28)
+    xs = torch.from_numpy(rng.standard_normal(
+        (REQUESTS, size, size, 3)).astype(np.float32)).bfloat16() \
+        .float().numpy()
+    model = TrimCNN.random(topo, n_classes=1000, seed=0, device="cuda",
+                           dtype=torch.bfloat16)
+    if model.dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 {net}: the model is {model.dtype}")
+    out = {}
+    rows, out["carry"], out["carry_fw"], out["carry_s"] = serve(
+        REQUESTS, "carry", model, xs, label=f"bf16 carry, {net}")
+    _, out["halo"], out["halo_fw"], out["halo_s"] = serve(
+        HALO_REQUESTS, "halo", model, xs, expect=rows,
+        label=f"bf16 halo, {net}")
+    _, out["fused"], out["fused_fw"], out["fused_s"] = serve(
+        REQUESTS, "carry", model, xs, expect=rows, fused=True,
+        label=f"bf16 fused, {net}")
+    twin = TrimCNN(topo, {k: {p: t.float() for p, t in v.items()}
+                          for k, v in model.tree().items()})
+    f32_rows, *_ = serve(HALO_REQUESTS, "carry", twin, xs,
+                         label=f"f32 twin, {net}")
+    devs = [float(np.abs(rows[i] - f32_rows[i]).max()
+                  / np.abs(f32_rows[i]).max()) for i in range(HALO_REQUESTS)]
+    top1 = np.mean([rows[i].argmax() == f32_rows[i].argmax()
+                    for i in range(HALO_REQUESTS)])
+    if not max(devs) <= BF16_F32_TOLERANCE:
+        raise AssertionError(f"bf16 {net}: logits {max(devs)} of max|f32| "
+                             f"from the f32 serving > {BF16_F32_TOLERANCE}")
+    out["dev"], out["top1"] = max(devs), float(top1)
+    print(f"serve[bf16, {net}]: bf16 logits against the f32 serving of the "
+          f"same params: max|diff| / max|f32| {max(devs):.3e} (mean "
+          f"{np.mean(devs):.3e}) <= {BF16_F32_TOLERANCE}; top-1 agreement "
+          f"{top1:.3f} over {HALO_REQUESTS} requests")
+    del model, twin
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_phase(torch) -> dict:
+    """Phase 33 (module docstring): the bf16 kernel checks and tables,
+    then bf16 serving of full-width VGG-16 and AlexNet; the launches of
+    the three bf16 entries on the serving paths."""
+    out = {"rows": {n: check_bf16_convs(torch, "VGG-16", n) for n in (8, 1)},
+           "alex": {n: check_bf16_convs(torch, "AlexNet", n)
+                    for n in (8, 1)},
+           "fused": check_bf16_fused(torch, 8)}
+    launches = dict.fromkeys(("carry_bf16", "halo_bf16", "fused_bf16"), 0)
+    for net in ("VGG-16", "AlexNet"):
+        sv = out[net] = serve_bf16(torch, net)
+        for key in ("carry", "halo", "fused"):
+            for k in launches:
+                launches[k] += sv[key][k]
+            if any(sv[key][k] for k in ("carry", "halo", "fused")):
+                raise AssertionError(f"bf16 {net} {key}: f32 launches "
+                                     f"{sv[key]}")
+    out["launches"] = launches
+    print(f"bf16: launches of the bf16 entries on the serving paths "
+          f"{launches}")
+    return out
+
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4905,6 +5229,9 @@ def run(torch, args, cache_dir: str) -> int:
     phase.done("recurrentgemma train")
     mbt = mamba_train(torch)
     phase.done("mamba train")
+    torch.cuda.empty_cache()
+    bf = bf16_phase(torch)
+    phase.done("bf16")
 
     vgg = [r for r in rows if r["vgg"]]
     kernels = []
@@ -5001,6 +5328,56 @@ def run(torch, args, cache_dir: str) -> int:
         "plan_ms": sum(r["fused"] for r in fplan),
         "plan_chain_ms": sum(r["chain"] for r in fplan),
         "plan_bound_ms": sum(r["bound"] for r in fplan),
+    })
+    b8, b1, ba8, ba1 = (bf["rows"][8], bf["rows"][1], bf["alex"][8],
+                        bf["alex"][1])
+    ops_ms = sum(r["ops_ms"] for r in b8 if r["by"] == "operations")
+    bytes_ms = sum(r["bytes_ms"] for r in b8 if r["by"] == "bytes")
+    for df, src_line in (("carry", 127), ("halo", 162)):
+        kernels.append({
+            "name": f"trim_conv2d_{df}_bf16",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/trim_conv2d.cu",
+            "replaces": f"src/repro/kernels/trim_conv2d.py:{src_line}",
+            "launches": bf["launches"][f"{df}_bf16"],
+            "max_abs_err": max(r["err"] for r in b8 + b1 + ba8 + ba1),
+            "max_ulps": max(r["ulps"] for r in b8 + b1 + ba8 + ba1),
+            # sums over VGG-16's 13 layers at batch 8, CUDA graphs
+            "ms": sum(r[df] for r in b8),
+            "plain_ms": sum(r["plain"] for r in b8),
+            "bound_ms": sum(r["bound"] for r in b8),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ffma_bound_ms": sum(r["ffma"] for r in b8),
+            "library_ms": sum(r["library"] for r in b8),   # F.conv2d bf16
+            "n1_ms": sum(r[df] for r in b1),
+            "n1_bound_ms": sum(r["bound"] for r in b1),
+            "n1_library_ms": sum(r["library"] for r in b1),
+            # AlexNet's five convs at batch 8 (conv1: the K 11 tree)
+            "alexnet_ms": sum(r[df] for r in ba8),
+            "alexnet_bound_ms": sum(r["bound"] for r in ba8),
+            "alexnet_library_ms": sum(r["library"] for r in ba8),
+        })
+    bfu = bf["fused"]
+    ops_ms = sum(r["ops_ms"] for r in bfu if r["by"] == "operations")
+    bytes_ms = sum(r["bytes_ms"] for r in bfu if r["by"] == "bytes")
+    kernels.append({
+        "name": "trim_conv2d_fused_bf16",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/trim_conv2d_fused.cu",
+        "replaces": "src/repro/kernels/trim_conv2d_fused.py:102",
+        "launches": bf["launches"]["fused_bf16"],
+        "max_abs_err": max(r["err"] for r in bfu),
+        "max_ulps": max(r["ulps"] for r in bfu),
+        # the bf16 plan's groups of full-width VGG-16 at batch 8
+        "ms": sum(r["fused"] for r in bfu),
+        "plain_ms": sum(r["plain"] for r in bfu),
+        "bound_ms": sum(r["bound"] for r in bfu),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "ffma_bound_ms": sum(r["ffma"] for r in bfu),
+        # no single PyTorch call computes a group
+        "library_ms": None,
+        "chain_ms": sum(r["chain"] for r in bfu),
+        "library_chain_ms": sum(r["library"] for r in bfu),
     })
     a = next(r for r in arows if r["name"] == "a_prefill")
     ac = next(r for r in arows if r["name"] == "c_rgemma")
@@ -5170,6 +5547,26 @@ def run(torch, args, cache_dir: str) -> int:
           f"one launch at case (a), the prefill's shape (one layer); its "
           f"launches are the {lm['launches']} of the two timed full-width "
           f"prefill forwards")
+    for net in ("VGG-16", "AlexNet"):
+        sv = bf[net]
+        print(f"bf16 serving, {net}: carry p50 "
+              f"{sv['carry_s']['p50_s'] * 1e3:.3f} ms p99 "
+              f"{sv['carry_s']['p99_s'] * 1e3:.3f} ms "
+              f"{sv['carry_s']['throughput_rps']:.1f} req/s; fused p50 "
+              f"{sv['fused_s']['p50_s'] * 1e3:.3f} ms p99 "
+              f"{sv['fused_s']['p99_s'] * 1e3:.3f} ms; halo p50 "
+              f"{sv['halo_s']['p50_s'] * 1e3:.3f} ms; logits "
+              f"{sv['dev']:.3e} of max|f32| from f32 serving, top-1 "
+              f"{sv['top1']:.3f}; launches carry {sv['carry']['carry_bf16']}"
+              f" in {sv['carry_fw']} forwards, halo {sv['halo']['halo_bf16']}"
+              f" in {sv['halo_fw']}, fused {sv['fused']['fused_bf16']} + "
+              f"carry {sv['fused']['carry_bf16']} in {sv['fused_fw']}")
+    print("bf16 kernel times (trim_conv2d_*_bf16: sums over the 13 VGG-16 "
+          "layers at batch 8, n1_*: at batch 1, alexnet_*: AlexNet's five "
+          "convs at batch 8; trim_conv2d_fused_bf16: the bf16 plan's groups "
+          "at batch 8, chain_ms their bf16 per-layer chains); bounds at "
+          "989 TFLOP/s bf16 or 3.35 TB/s, ffma_bound_ms at 67 TFLOP/s; "
+          "launches from bf16 serving of full-width VGG-16 and AlexNet")
     qvgg1 = [r for r in qrows1 if r["vgg"]]
     print(f"int8 kernel times: sums over the 13 VGG-16 layers at batch 8 "
           f"(batch 1: carry {sum(r['carry'] for r in qvgg1):.3f} ms, halo "

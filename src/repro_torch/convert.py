@@ -9,8 +9,9 @@ leading layer axis — ``wq (L, d, h, hd)``, ``wo (L, h, hd, d)``, ... —
 conv_w, conv_b, w_x, w_dt, dt_bias, a_log, d_skip, w_out}`` and
 ``blocks.ln``) — already converted to numpy arrays
 (``jax.tree.map(np.asarray, params)``), and returns the same tree as
-tensors, keys, nesting and layouts unchanged (floating leaves as float32,
-integer leaves in their own dtype): the ``params`` of
+tensors, keys, nesting and layouts unchanged (bf16 leaves as bf16, other
+floating leaves as float32, integer leaves in their own dtype): the
+``params`` of
 ``models.layers.TrimCNN``, of the functional ``*_apply`` forwards and of
 ``models.api``, whose LM keeps the JAX layout for exactly this reason.
 ``moments_from_jax`` does the same for AdamW's ``{"mu", "nu"}`` state, and
@@ -43,12 +44,21 @@ from repro_torch.kernels.ops import (PackedConv2dWeights,
 
 
 def _tensor(leaf, device) -> torch.Tensor:
-    """One leaf as a contiguous tensor on ``device``: floating leaves as
-    float32, integer ones in their own dtype."""
+    """One leaf as a contiguous tensor on ``device``: bf16 leaves as bf16,
+    bit for bit, other floating leaves as float32, integer ones in their
+    own dtype.  A JAX bf16 array reaches numpy as a ``bfloat16`` array of
+    the ``ml_dtypes`` package, which ships with JAX; it is read by its
+    bits (as int16), so the port needs no such package."""
     if isinstance(leaf, torch.Tensor):
-        dtype = torch.float32 if leaf.dtype.is_floating_point else leaf.dtype
+        dtype = leaf.dtype
+        if dtype.is_floating_point and dtype != torch.bfloat16:
+            dtype = torch.float32
         return leaf.to(device=device, dtype=dtype).contiguous()
     arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(np.array(bits)).view(torch.bfloat16) \
+            .to(device)
     if not np.issubdtype(arr.dtype, np.integer):
         arr = arr.astype(np.float32)
     # a copy: JAX hands out read-only buffers
@@ -85,7 +95,8 @@ def _packed_from_jax(pk, device):
 def params_from_jax(tree, *, device="cpu") -> dict:
     """A nested dict of numpy arrays (or tensors), e.g. ``{"conv{i}":
     {"w", "b"}, "head": {"w", "b"}}`` -> the same tree of contiguous
-    tensors on ``device`` (float32, or the leaf's integer dtype); a JAX
+    tensors on ``device`` (bf16 kept bf16, other floats float32, or the
+    leaf's integer dtype); a JAX
     ``PackedConv2dWeights`` -> ``PackedConv2dWeights`` (f32) or
     ``QuantizedConv2dWeights`` (int8)."""
     if isinstance(tree, dict):

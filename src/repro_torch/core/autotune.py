@@ -237,6 +237,12 @@ def backend(device=None) -> str:
     return _cuda_backend(index)
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    """The dtype field of a key: ``torch.bfloat16`` -> ``"bfloat16"``, as
+    the JAX key's ``str(x.dtype)``."""
+    return str(dtype).removeprefix("torch.")
+
+
 def _dtype_bytes(dtype: str) -> int:
     if dtype not in DTYPE_BYTES:
         raise ValueError(f"dtype={dtype!r}: the port's conv kernels take "
@@ -475,8 +481,8 @@ def _as_record(knobs: dict, plan: ConvPlan, score: tuple, *, source: str,
 
 
 def _operands(xs, ws, device: torch.device, dtype: str):
-    """Seeded operands of one problem on ``device``: f32 x and w, or (the
-    int8 route, as JAX times it) integer x and w."""
+    """Seeded operands of one problem on ``device``: f32 (or bf16) x and
+    w, or (the int8 route, as JAX times it) integer x and w."""
     rng = np.random.default_rng(0)
     if dtype == "int8":
         x = rng.integers(-128, 128, xs, dtype=np.int8)
@@ -485,7 +491,10 @@ def _operands(xs, ws, device: torch.device, dtype: str):
         x = rng.standard_normal(xs, dtype=np.float32)
         w = (rng.standard_normal(ws, dtype=np.float32) * 0.1) \
             .astype(np.float32)
-    return (torch.from_numpy(x).to(device), torch.from_numpy(w).to(device))
+    x, w = torch.from_numpy(x).to(device), torch.from_numpy(w).to(device)
+    if dtype == "bfloat16":
+        return x.bfloat16(), w.bfloat16()
+    return x, w
 
 
 def _measure_plan(x_shape, w_shape, knobs, *, stride: int, pad,
@@ -718,8 +727,8 @@ def tune_network(network="vgg16", *, n: int = 1, dtype: str = "float32",
     from repro_torch.core.netplan import network_layers
     from repro_torch.kernels.ops import MAX_NATIVE_K
     if include_backward and dtype != "float32":
-        raise ValueError("include_backward: the int8 route is inference "
-                         "only")
+        raise ValueError(f"include_backward: the {dtype} route is "
+                         "inference only")
     dev = resolve_device(device)
     op = _default_op(op, dtype)
     results: dict[str, dict] = {}
@@ -869,11 +878,13 @@ def tune_fused(layers, *, start: int = 0, pools=None, n: int = 1,
     the tiles whose shared memory fits; model only, as in JAX) and (by
     default) persist it under ``conv2d_fused:``."""
     from repro_torch.core.fuse_plan import _tile_candidates, build_group
-    if dtype != "float32":
-        raise ValueError(f"the fused kernel is float32, got {dtype!r}")
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"the fused kernel takes float32 or bfloat16, got "
+                         f"{dtype!r}")
     dev = resolve_device(device)
     probe = build_group(layers, start, n=n, pools=pools)
-    cands = _tile_candidates(layers, start, n=n, pools=pools)
+    cands = _tile_candidates(layers, start, n=n, pools=pools,
+                             dtype_bytes=_dtype_bytes(dtype))
     if not cands:
         raise ValueError(f"no tile of fused group {probe.signature} fits "
                          f"{SMEM_PER_BLOCK} B of shared memory")
@@ -901,7 +912,8 @@ def tune_fused_network(network="vgg16", *, n: int = 1,
     pools = list(infer_pools(layers))
     dev = resolve_device(device)
     results: dict[str, dict] = {}
-    for g in FusedGroupPlan.build(layers, n=n).fused_groups:
+    for g in FusedGroupPlan.build(
+            layers, n=n, dtype_bytes=_dtype_bytes(dtype)).fused_groups:
         sub = layers[g.start:g.start + g.depth]
         rec = tune_fused(sub, start=g.start,
                          pools=pools[g.start:g.start + g.depth], n=n,

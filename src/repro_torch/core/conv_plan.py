@@ -27,15 +27,18 @@ all ``Cin/groups`` channels:
   input rows; ``smem_bytes`` adds the weight ring and must fit
   :data:`SMEM_PER_BLOCK`.
 
-``dtype_bytes`` picks the kernel: 4 is the f32 kernel, 1 the int8 kernel
-of ``kernels/csrc/trim_conv2d_q8.cu`` (int8 operands, f32 output), whose
-window is held in bytes.  The int8 kernel has three routes
-(:attr:`ConvPlan.route`): ``"mma"`` (Cin/g a multiple of 16) and
-``"im2col"`` (small Cin, groups == 1) run ``mma.sync`` m16n8k32 on the
-int8 tensor cores with 8 warps of ``warps_m x warps_n x warps_k``, each
-holding ``m_frags`` m16 x 4 n8 fragments, the M tile sized per call by a
-clock model (:func:`_q8_strip_clocks`); ``"dp4a"`` (depthwise and other
-grouped convs with Cin/g < 16) keeps the f32 kernel's threads and tiles.
+``dtype_bytes`` picks the kernel: 4 is the f32 kernel, 2 its bf16
+instance (bf16 operands, window, weight ring and output, the same f32
+``fmaf`` chain; 16-byte copies carry 8 channels, so its padded pitch is
+``Cin/g + 8``), 1 the int8 kernel of ``kernels/csrc/trim_conv2d_q8.cu``
+(int8 operands, f32 output), whose window is held in bytes.  The int8
+kernel has three routes (:attr:`ConvPlan.route`): ``"mma"`` (Cin/g a
+multiple of 16) and ``"im2col"`` (small Cin, groups == 1) run
+``mma.sync`` m16n8k32 on the int8 tensor cores with 8 warps of
+``warps_m x warps_n x warps_k``, each holding ``m_frags`` m16 x 4 n8
+fragments, the M tile sized per call by a clock model
+(:func:`_q8_strip_clocks`); ``"dp4a"`` (depthwise and other grouped convs
+with Cin/g < 16) keeps the f32 kernel's threads and tiles.
 
 Kernels are ``KH x KW``, as in the JAX ``ConvPlan``: the f32 plans take
 the rectangular sub-kernels of the kernel tiling (``core/tiling.py``: an
@@ -99,7 +102,7 @@ Q8_KSTEP_CLOCKS = 900.0
 Q8_EPILOGUE_CLOCKS = 2000.0
 Q8_TILE_COUTS = (128, 64, 32)   # C_out tiles the int8 plan tries
 DATAFLOWS = ("carry", "halo")
-DTYPE_BYTES = {4: "float32", 1: "int8"}
+DTYPE_BYTES = {4: "float32", 2: "bfloat16", 1: "int8"}
 
 
 def same_pads(size: int, k: int, s: int) -> tuple[int, int]:
@@ -123,12 +126,12 @@ def normalize_pad(pad) -> tuple[tuple[int, int], tuple[int, int]]:
 
 def _smem_bytes(window_elems: int, threads_cout: int,
                 dtype_bytes: int) -> int:
-    """Shared memory of one block of the forward kernel (f32) or the int8
-    kernel: a window of ``window_elems`` elements rounded up to 16 bytes,
-    and the weight ring (stages x chunk input channels x 4 channels a
-    thread along C_out)."""
+    """Shared memory of one block of the forward kernel (f32 or bf16) or
+    the int8 kernel: a window of ``window_elems`` elements rounded up to
+    16 bytes, and the weight ring (stages x chunk input channels x 4
+    channels a thread along C_out)."""
     window = -(-window_elems * dtype_bytes // 16) * 16
-    if dtype_bytes == 4:
+    if dtype_bytes != 1:
         chunk, stages = CONV_WEIGHT_CHUNK, CONV_WEIGHT_STAGES
     else:
         chunk, stages = Q8_WEIGHT_CHUNK, Q8_WEIGHT_STAGES
@@ -138,11 +141,16 @@ def _smem_bytes(window_elems: int, threads_cout: int,
 def _channel_pitches(cin_per_group: int, dtype_bytes: int = 4) -> list:
     """Window channel pitches to try, best first.  f32: ``Cin/g + 4``
     (bank-conflict free) where Cin/g is a multiple of 4, then ``Cin/g``.
-    int8 (the dp4a route): Cin/g rounded up to a :data:`Q8_QUAD` (four
-    channels a ``__dp4a`` word, the extra ones zero)."""
+    bf16: ``Cin/g + 8`` where Cin/g is a multiple of 8 (16 bytes: the
+    window's 16-byte copies stay aligned and the positions a warp reads
+    fall on different banks), then ``Cin/g``.  int8 (the dp4a route):
+    Cin/g rounded up to a :data:`Q8_QUAD` (four channels a ``__dp4a``
+    word, the extra ones zero)."""
+    c = cin_per_group
     if dtype_bytes == 4:
-        c = cin_per_group
         return [c + 4, c] if c % 4 == 0 else [c]
+    if dtype_bytes == 2:
+        return [c + 8, c] if c % 8 == 0 else [c]
     return [q8_cin4(cin_per_group)]
 
 
@@ -253,7 +261,7 @@ class ConvPlan:
     def __post_init__(self):
         if self.dtype_bytes not in DTYPE_BYTES:
             raise ValueError(f"dtype_bytes={self.dtype_bytes} must be one "
-                             f"of {sorted(DTYPE_BYTES)} (f32, int8)")
+                             f"of {sorted(DTYPE_BYTES)} (int8, bf16, f32)")
         if self.dataflow not in DATAFLOWS:
             raise ValueError(f"dataflow={self.dataflow!r} must be one of "
                              f"{DATAFLOWS}")
@@ -302,7 +310,8 @@ class ConvPlan:
         strips (each a full pass of the slots, so ragged edges, idle
         slots and SMs left without a block all count), then the one
         reading the fewest window pixels per output; a given ``tile_h``
-        fixes the strip.  ``dtype_bytes=1`` plans the int8 kernel.  Raises
+        fixes the strip.  ``dtype_bytes=2`` plans the bf16 instance of the
+        forward kernel, ``dtype_bytes=1`` the int8 kernel.  Raises
         ``ValueError`` when no geometry fits, so every plan it returns is
         one the kernel takes.  Plans are cached by argument.
         """
@@ -375,9 +384,12 @@ class ConvPlan:
 
     @property
     def route(self) -> str:
-        """``"f32"``, or the int8 kernel's route (:func:`q8_route`)."""
+        """``"f32"``, ``"bf16"``, or the int8 kernel's route
+        (:func:`q8_route`)."""
         if self.dtype_bytes == 4:
             return "f32"
+        if self.dtype_bytes == 2:
+            return "bf16"
         return q8_route(self.cin_per_group, self.groups, self.kh)
 
     @property
@@ -553,8 +565,14 @@ class ConvPlan:
 
     def min_bytes(self) -> int:
         """Bytes the function must move: each input read once (x and w at
-        ``dtype_bytes``; the f32 bias, or the int8 route's int32 bias and
-        f32 scale rows), the f32 output written once."""
+        ``dtype_bytes``; the f32 or bf16 bias, or the int8 route's int32
+        bias and f32 scale rows), the output (f32, or bf16 in bf16)
+        written once."""
+        if self.dtype_bytes == 2:
+            return 2 * (self.n * self.h * self.w * self.cin
+                        + self.kh * self.kw * self.cin_per_group * self.cout
+                        + self.cout + self.n * self.h_out * self.w_out
+                        * self.cout)
         rows = 1 if self.dtype_bytes == 4 else 2
         return (self.dtype_bytes
                 * (self.n * self.h * self.w * self.cin
@@ -569,14 +587,15 @@ class ConvPlan:
         the first (a segment loads its first window whole: with ``halo``,
         one a strip, that is ``window_rows`` a strip); every strip
         streams its C_out tile's weights once; the output is written
-        once (f32).  x and w at ``dtype_bytes``."""
+        once (f32, or bf16 in bf16).  x and w at ``dtype_bytes``."""
         db = self.dtype_bytes
         rows = self.n_strips * self.tile_h + self.segments * self.carry_rows
         in_bytes = (db * self.chains * rows * self.window_cols
                     * self.cin_per_group)
         w_bytes = db * (self.n * self.n_bands * self.n_strips * self.kh
                         * self.kw * self.cin_per_group * self.cout)
-        out_bytes = 4 * self.n * self.h_out * self.w_out * self.cout
+        out_bytes = (2 if db == 2 else 4) * self.n * self.h_out \
+            * self.w_out * self.cout
         return dict(input=in_bytes, weights=w_bytes, output=out_bytes,
                     total=in_bytes + w_bytes + out_bytes)
 

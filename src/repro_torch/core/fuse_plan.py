@@ -46,8 +46,12 @@ What is new for Hopper:
   is not ported; a range may fuse when every layer is eligible and some
   tile fits.
 
-The kernel is float32 only, so every byte count is of f32
-(:data:`F32_BYTES`), and the budget is always :data:`SMEM_PER_BLOCK`.
+The kernel runs f32 or bf16 with the same tiles, pitches and buffers in
+elements; a group's element size is its class's ``dtype_bytes``
+(:data:`F32_BYTES` for :class:`FusedGroup`, 2 for :class:`BF16FusedGroup`,
+which :meth:`FusedGroupPlan.build` and :func:`build_group` make at
+``dtype_bytes=2``), so in bf16 every byte count halves, a larger tile
+fits, and the budget is always :data:`SMEM_PER_BLOCK`.
 
 DAG topologies (ResNet-18, U-Net): :func:`graph_segments` cuts a graph
 into its fusable linear runs between joins, exactly as the JAX function
@@ -61,9 +65,10 @@ import dataclasses
 import functools
 import math
 from dataclasses import dataclass
+from typing import ClassVar
 
-from repro_torch.core.conv_plan import (SMEM_PER_BLOCK, WARP, ConvPlan,
-                                        same_pads)
+from repro_torch.core.conv_plan import (DTYPE_BYTES, SMEM_PER_BLOCK, WARP,
+                                        ConvPlan, same_pads)
 from repro_torch.core.netplan import (graph_nodes, infer_pools,
                                       layer_kernel_problem, network_layers,
                                       pool_between, pooled_out_size)
@@ -153,6 +158,7 @@ class FusedStage:
 
     @property
     def weight_bytes(self) -> int:
+        """Bytes of the stage's weights in f32."""
         k = self.kernel
         return k * k * self.cin * self.cout * F32_BYTES
 
@@ -170,8 +176,9 @@ class FusedStage:
     @property
     def cin_pitch(self) -> int:
         """Channel pitch of the stage's input tile in shared memory:
-        ``cin + 4`` where ``cin % 4 == 0`` (float4 loads; the positions a
-        warp reads at once fall on different banks), else ``cin``."""
+        ``cin + 4`` where ``cin % 4 == 0`` (4-element loads, a float4 or
+        8 bytes of bf16; the positions a warp reads at once fall on
+        different banks), else ``cin``."""
         return self.cin + 4 if self.cin % 4 == 0 else self.cin
 
     @property
@@ -227,8 +234,8 @@ class FusedStage:
 
     @property
     def in_tile_elems(self) -> int:
-        """Floats of the stage's input tile at its channel pitch, rounded
-        to a float4."""
+        """Elements of the stage's input tile at its channel pitch,
+        rounded to 4 (a float4 in f32, 8 bytes in bf16)."""
         return -(-self.in_rows * self.in_cols * self.cin_pitch // 4) * 4
 
     @property
@@ -312,13 +319,17 @@ def _strip_geometry(probs, strip_rows, band_cols=None):
 class FusedGroup:
     """One residency group: ``depth`` consecutive layers executed as one
     launch of the fused kernel (depth >= 2) or by the per-layer path
-    (depth 1, where the tile geometry is unused)."""
+    (depth 1, where the tile geometry is unused), planned for f32."""
 
     start: int                          # index of the first layer
     stages: tuple[FusedStage, ...]
     n: int = 1
     strip_rows: int = 1                 # pooled rows of the LAST stage/tile
     band_cols: int = 1                  # pooled columns of the LAST stage/tile
+    # bytes of one element: a class attribute, not a field, so that a
+    # group's fields (the geometry, in elements) are the same in f32 and
+    # bf16 and only the byte counts below differ
+    dtype_bytes: ClassVar[int] = F32_BYTES
 
     @property
     def depth(self) -> int:
@@ -365,7 +376,7 @@ class FusedGroup:
 
     @property
     def buffer_elems(self) -> tuple[int, int]:
-        """Floats of the two ping-pong buffers: stage i's input tile
+        """Elements of the two ping-pong buffers: stage i's input tile
         lives in buffer ``i % 2`` (stage i writes its pooled, masked
         output — stage i+1's input — into the other)."""
         bufs = [0, 0]
@@ -375,7 +386,7 @@ class FusedGroup:
 
     @property
     def ring_cout(self) -> int:
-        """Floats of one weight-ring row: the widest stage's C_out tile
+        """Elements of one weight-ring row: the widest stage's C_out tile
         rounded up to whole threads."""
         return FUSED_COUT * max(st.threads_cout for st in self.stages)
 
@@ -384,7 +395,7 @@ class FusedGroup:
         """Everything the kernel allocates in shared memory: both
         buffers and the weight ring."""
         ring = FUSED_WEIGHT_STAGES * FUSED_WEIGHT_CHUNK * self.ring_cout
-        return F32_BYTES * (sum(self.buffer_elems) + ring)
+        return self.dtype_bytes * (sum(self.buffer_elems) + ring)
 
     # -- arithmetic / traffic ------------------------------------------------
 
@@ -414,11 +425,11 @@ class FusedGroup:
         stage-0 window (halo overlap billed in full), each stage's
         weights once per pass, one write of the pooled output.  Interior
         activations and pools move nothing."""
-        s0, lt = self.stages[0], self.last
-        in_bytes = self.n_tiles * s0.in_tile_elems * F32_BYTES
-        w_bytes = self.n_tiles * sum(st.passes * st.weight_bytes
-                                     for st in self.stages)
-        out_bytes = self.n * lt.h_pool * lt.w_pool * lt.cout * F32_BYTES
+        s0, lt, db = self.stages[0], self.last, self.dtype_bytes
+        in_bytes = self.n_tiles * s0.in_tile_elems * db
+        w_bytes = self.n_tiles * db * sum(
+            st.passes * math.prod(st.weight_shape) for st in self.stages)
+        out_bytes = self.n * lt.h_pool * lt.w_pool * lt.cout * db
         return dict(input=in_bytes, weights=w_bytes, output=out_bytes,
                     total=in_bytes + w_bytes + out_bytes)
 
@@ -430,23 +441,39 @@ class FusedGroup:
                  + sum(st.kernel ** 2 * st.cin * st.cout + st.cout
                        for st in self.stages)
                  + self.n * lt.h_pool * lt.w_pool * lt.cout)
-        return F32_BYTES * elems
+        return self.dtype_bytes * elems
+
+
+class BF16FusedGroup(FusedGroup):
+    """A :class:`FusedGroup` planned for the bf16 instance of the fused
+    kernel (``trim_conv2d_fused_bf16``): the same geometry in elements,
+    two bytes each."""
+
+    dtype_bytes = 2
+
+
+_GROUP_TYPES = {F32_BYTES: FusedGroup, 2: BF16FusedGroup}
 
 
 def build_group(layers, start, *, n=1, strip_rows=1, band_cols=None,
-                pools=None):
-    """A :class:`FusedGroup` over ``layers``; ``band_cols`` None is the
-    full width of the last stage's pooled output.  ``pools`` defaults to
-    :func:`infer_pools` over ``layers`` *as given* (pass the
-    whole-network pools to keep a trailing group's final pool)."""
+                pools=None, dtype_bytes: int = F32_BYTES):
+    """A :class:`FusedGroup` (a :class:`BF16FusedGroup` at ``dtype_bytes``
+    2) over ``layers``; ``band_cols`` None is the full width of the last
+    stage's pooled output.  ``pools`` defaults to :func:`infer_pools`
+    over ``layers`` *as given* (pass the whole-network pools to keep a
+    trailing group's final pool)."""
+    if dtype_bytes not in _GROUP_TYPES:
+        raise ValueError(f"dtype_bytes={dtype_bytes}: the fused kernel "
+                         f"takes {sorted(_GROUP_TYPES)} (bf16, f32)")
     if pools is None:
         pools = infer_pools(list(layers))
     probs = _stage_problems(list(layers), list(pools))
     if band_cols is None:
         band_cols = probs[-1][6]
     stages = _strip_geometry(probs, strip_rows, band_cols)
-    return FusedGroup(start=start, stages=stages, n=n,
-                      strip_rows=strip_rows, band_cols=band_cols)
+    return _GROUP_TYPES[dtype_bytes](start=start, stages=stages, n=n,
+                                     strip_rows=strip_rows,
+                                     band_cols=band_cols)
 
 
 # ---------------------------------------------------------------------------
@@ -479,11 +506,12 @@ def _strip_candidates(h_pool_last: int):
     return cands
 
 
-def _tile_candidates(layers, start, *, n, pools):
+def _tile_candidates(layers, start, *, n, pools,
+                     dtype_bytes: int = F32_BYTES):
     """Every tile of the group over ``layers`` (``strip_rows`` x
     ``band_cols`` over :func:`_strip_candidates`, strips outer) whose
-    shared memory fits :data:`SMEM_PER_BLOCK`; none when the kernel takes
-    no stage's pool window."""
+    shared memory fits :data:`SMEM_PER_BLOCK` at ``dtype_bytes``; none
+    when the kernel takes no stage's pool window."""
     probe = build_group(layers, start, n=n, pools=pools)
     if not all(st.per_thread for st in probe.stages):
         return []
@@ -491,27 +519,29 @@ def _tile_candidates(layers, start, *, n, pools):
     for t in _strip_candidates(probe.last.h_pool):
         for b in _strip_candidates(probe.last.w_pool):
             g = build_group(layers, start, n=n, strip_rows=t, band_cols=b,
-                            pools=pools)
+                            pools=pools, dtype_bytes=dtype_bytes)
             if g.smem_bytes <= SMEM_PER_BLOCK:
                 out.append(g)
     return out
 
 
 @functools.lru_cache(maxsize=256)
-def _group_at(layers, start, depth, n, strip_rows, band_cols):
+def _group_at(layers, start, depth, n, strip_rows, band_cols,
+              dtype_bytes=F32_BYTES):
     """The group over ``layers[start:start+depth]`` (whole-network pools)
     at one tile."""
     pools = infer_pools(list(layers))[start:start + depth]
     return build_group(layers[start:start + depth], start, n=n,
                        strip_rows=strip_rows, band_cols=band_cols,
-                       pools=pools)
+                       pools=pools, dtype_bytes=dtype_bytes)
 
 
-def per_layer_exec_bytes(layers, pools, *, n) -> tuple:
+def per_layer_exec_bytes(layers, pools, *, n,
+                         dtype_bytes: int = F32_BYTES) -> tuple:
     """What the port's per-layer path moves for each layer: the carry
-    kernel's schedule (:meth:`ConvPlan.hbm_bytes`) with the full ofmap
-    written, plus the separate pool's read of that ofmap and write of
-    the pooled result (``pool``)."""
+    kernel's schedule (:meth:`ConvPlan.hbm_bytes`, at ``dtype_bytes``)
+    with the full ofmap written, plus the separate pool's read of that
+    ofmap and write of the pooled result (``pool``)."""
     out = []
     for layer, (ps, pw) in zip(layers, pools):
         x_shape = (n, layer.ifmap, layer.ifmap, layer.in_channels)
@@ -520,11 +550,12 @@ def per_layer_exec_bytes(layers, pools, *, n) -> tuple:
         pads = ((same_pads(layer.ifmap, layer.kernel, layer.stride),) * 2
                 if layer.padding else 0)
         b = dict(ConvPlan.build(x_shape, w_shape, stride=layer.stride,
-                                pad=pads, groups=layer.groups).hbm_bytes())
+                                pad=pads, groups=layer.groups,
+                                dtype_bytes=dtype_bytes).hbm_bytes())
         b["pool"] = 0
         if ps > 1 or pw > 1:
             h = layer.out_size
-            b["pool"] = n * layer.out_channels * F32_BYTES * (
+            b["pool"] = n * layer.out_channels * dtype_bytes * (
                 h * h + pooled_out_size(h, ps, pw) ** 2)
         b["total"] += b["pool"]
         out.append(b)
@@ -539,11 +570,12 @@ class FusedGroupPlan:
     groups: tuple[FusedGroup, ...]
     n: int
     layer_exec_bytes: tuple   # per-layer executed byte dicts
+    dtype_bytes: int = F32_BYTES   # 4: f32 groups; 2: BF16FusedGroup
 
     @classmethod
     def build(cls, network, *, n: int = 1, max_depth: int | None = None,
-              use_autotune_cache: bool = False,
-              device=None) -> "FusedGroupPlan":
+              use_autotune_cache: bool = False, device=None,
+              dtype_bytes: int = F32_BYTES) -> "FusedGroupPlan":
         """Partition ``network`` (name or layer list) into residency
         groups, with the fewest executed device-memory bytes.
 
@@ -560,27 +592,34 @@ class FusedGroupPlan:
         (``core.autotune.fused_knobs_for``; ``device`` None is
         ``"cuda"``), where one exists and fits; a record whose tile does
         not fit is a miss with one warning.
+
+        ``dtype_bytes=2`` plans the bf16 kernel: :class:`BF16FusedGroup`
+        tiles sized for bf16 shared memory, bytes (the per-layer
+        baseline's too) at two an element, and the ``bfloat16`` records.
         """
         layers = tuple(network_layers(network))
-        plan = _build_plan(layers, n, max_depth)
+        plan = _build_plan(layers, n, max_depth, dtype_bytes)
         if not use_autotune_cache:
             return plan
         from repro_torch.core import autotune
+        dtype = DTYPE_BYTES[dtype_bytes]
         groups = []
         for g in plan.groups:
-            rec = autotune.fused_knobs_for(g.signature, n=n, device=device) \
+            rec = autotune.fused_knobs_for(g.signature, n=n, dtype=dtype,
+                                           device=device) \
                 if g.fused else None
             if rec is not None and (rec["strip_rows"], rec["band_cols"]) \
                     != (g.strip_rows, g.band_cols):
                 t = _group_at(layers, g.start, g.depth, n, rec["strip_rows"],
-                              rec["band_cols"])
+                              rec["band_cols"], dtype_bytes)
                 if t.smem_bytes <= SMEM_PER_BLOCK \
                         and t.strip_rows <= g.last.h_pool \
                         and t.band_cols <= g.last.w_pool:
                     g = t
                 else:
                     autotune._reject(
-                        autotune.fused_key(g.signature, n=n, device=device),
+                        autotune.fused_key(g.signature, n=n, dtype=dtype,
+                                           device=device),
                         f"tile {t.strip_rows} x {t.band_cols} does not fit "
                         f"({t.smem_bytes} B of shared memory, pooled output "
                         f"{g.last.h_pool} x {g.last.w_pool})", None)
@@ -588,13 +627,15 @@ class FusedGroupPlan:
         return dataclasses.replace(plan, groups=tuple(groups))
 
     @staticmethod
-    def _tune_group(layers, pools, start, depth, *, n):
+    def _tune_group(layers, pools, start, depth, *, n,
+                    dtype_bytes: int = F32_BYTES):
         """The tile of least executed bytes (then least executed FLOPs)
         over ``layers[start:start+depth]`` whose shared memory fits
         :data:`SMEM_PER_BLOCK` (:func:`_tile_candidates`), or None when
         none fits or the kernel takes no stage's pool window."""
         cands = _tile_candidates(layers[start:start + depth], start, n=n,
-                                 pools=pools[start:start + depth])
+                                 pools=pools[start:start + depth],
+                                 dtype_bytes=dtype_bytes)
         if not cands:
             return None
         return min(cands, key=lambda g: (g.hbm_bytes()["total"],
@@ -658,10 +699,11 @@ class FusedGroupPlan:
 
 
 @functools.lru_cache(maxsize=64)
-def _build_plan(layers, n, max_depth):
+def _build_plan(layers, n, max_depth, dtype_bytes=F32_BYTES):
     layers = list(layers)
     pools = list(infer_pools(layers))
-    exec_bytes = per_layer_exec_bytes(layers, pools, n=n)
+    exec_bytes = per_layer_exec_bytes(layers, pools, n=n,
+                                      dtype_bytes=dtype_bytes)
     cap = min(len(layers) if max_depth is None else max(1, max_depth),
               MAX_FUSED_STAGES)
 
@@ -670,11 +712,13 @@ def _build_plan(layers, n, max_depth):
         if j > i:
             if not all(_layer_eligible(layers[k]) for k in range(i, j + 1)):
                 return None, math.inf
-            g = FusedGroupPlan._tune_group(layers, pools, i, j - i + 1, n=n)
+            g = FusedGroupPlan._tune_group(layers, pools, i, j - i + 1, n=n,
+                                           dtype_bytes=dtype_bytes)
             if g is None:
                 return None, math.inf
             return g, g.hbm_bytes()["total"]
-        g = build_group(layers[i:i + 1], i, n=n, pools=pools[i:i + 1])
+        g = build_group(layers[i:i + 1], i, n=n, pools=pools[i:i + 1],
+                        dtype_bytes=dtype_bytes)
         return g, exec_bytes[i]["total"]
 
     # shortest path over layer boundaries: best[j] = least bytes for
@@ -696,7 +740,8 @@ def _build_plan(layers, n, max_depth):
         j = g.start
     groups.reverse()
     return FusedGroupPlan(groups=tuple(groups), n=n,
-                          layer_exec_bytes=exec_bytes)
+                          layer_exec_bytes=exec_bytes,
+                          dtype_bytes=dtype_bytes)
 
 
 # ---------------------------------------------------------------------------

@@ -182,7 +182,11 @@ class ServingEngine:
         arrays, e.g. ``convert.params_from_jax``), moved to ``device``
         (default ``"cuda"``; raises without a GPU).  Each replica takes a
         numpy batch, runs it on the device under ``torch.inference_mode``
-        and returns numpy.  ``n_replicas`` replicas share the module.
+        and returns numpy.  The engine serves the model's dtype
+        (``TrimCNN.dtype``): a bf16 model's replica casts the f32 batch to
+        bf16 once on the device and returns its bf16 logits as f32 numpy
+        (exact: numpy has no bf16), and prewarm tunes the bf16 records.
+        ``n_replicas`` replicas share the module.
         ``fused=True`` serves fused residency groups, planned per
         bucket; a failing group raises, nothing demotes.  The engine
         tunes the topology for the device at prewarm (and on a cold
@@ -197,17 +201,21 @@ class ServingEngine:
                             impl=model.impl, dataflow=model.dataflow,
                             fused=True)
         model = model.to(dev)
+        dtype = model.dtype
 
         def fn(batch):
             xb = torch.from_numpy(np.ascontiguousarray(batch, np.float32))
             with torch.inference_mode():
-                return model(xb.to(dev)).cpu().numpy()
+                return model(xb.to(dev).to(dtype)).float().cpu().numpy()
 
         replicas = [Replica(name=f"replica{i}", fn=fn)
                     for i in range(n_replicas)]
         first = topo[0]
+        from repro_torch.core import autotune
         return cls(replicas, buckets, topo=topo, fused=fused,
-                   tune_kwargs={"device": dev, **(tune_kwargs or {})},
+                   tune_kwargs={"device": dev,
+                                "dtype": autotune.dtype_name(dtype),
+                                **(tune_kwargs or {})},
                    input_shape=(first.ifmap, first.ifmap,
                                 first.in_channels), **kw)
 

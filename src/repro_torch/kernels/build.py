@@ -37,12 +37,15 @@ _CONV1D_ARGS = [_P] * 3 + [_I] * 4 + [_L] * 4 + [_I, _I, _P]
 _CONV1D_WGRAD_ARGS = [_P] * 4 + [_I] * 4 + [_L] * 4 + [_I, _I, _P]
 SOURCES = {
     "trim_conv2d": {"trim_conv2d_carry": _CONV_ARGS,
-                    "trim_conv2d_halo": _CONV_ARGS},
+                    "trim_conv2d_halo": _CONV_ARGS,
+                    "trim_conv2d_carry_bf16": _CONV_ARGS,
+                    "trim_conv2d_halo_bf16": _CONV_ARGS},
     "trim_conv2d_q8": {"trim_conv2d_q8_carry": _Q8_ARGS,
                        "trim_conv2d_q8_halo": _Q8_ARGS},
     "trim_conv2d_wgrad": {"trim_conv2d_wgrad": _WGRAD_ARGS,
                           "trim_conv2d_wgrad_resident_blocks": [_I, _P]},
-    "trim_conv2d_fused": {"trim_conv2d_fused": _FUSED_ARGS},
+    "trim_conv2d_fused": {"trim_conv2d_fused": _FUSED_ARGS,
+                          "trim_conv2d_fused_bf16": _FUSED_ARGS},
     "flash_attention": {"flash_attention_f32": _ATTN_ARGS},
     "flash_attention_bwd": {"flash_attention_bwd_dkdv_f32": _ATTN_BWD_ARGS,
                             "flash_attention_bwd_dq_f32": _ATTN_BWD_ARGS,

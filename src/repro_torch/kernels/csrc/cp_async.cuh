@@ -13,6 +13,15 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                "l"(src), "r"(valid ? 16 : 0));
 }
 
+// 8 bytes (.ca: .cg takes only 16-byte copies): both pointers 8-byte
+// aligned.  Four bf16 values.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 8 : 0));
+}
+
 // 4 bytes (.ca: .cg takes only 16-byte copies).
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool valid) {

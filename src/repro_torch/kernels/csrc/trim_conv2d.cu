@@ -1,11 +1,15 @@
-// 3D-TrIM convolution for NVIDIA Hopper (sm_90a), f32, hand-written CUDA.
+// 3D-TrIM convolution for NVIDIA Hopper (sm_90a), f32 and bf16,
+// hand-written CUDA.
 //
 // Replaces the TPU Pallas kernels of src/repro/kernels/trim_conv2d.py:
 //   trim_conv2d_carry -> _carry_kernel (:127), with _tap_matmuls (:82) and
 //                        _epilogue_store (:105), dataflow="carry"
 //   trim_conv2d_halo  -> _halo_kernel (:162), dataflow="halo"
-// Both entries launch one templated kernel: the two dataflows differ only
-// in how many strips one block walks (see Segments).
+//   trim_conv2d_carry_bf16, trim_conv2d_halo_bf16 -> the same kernels on
+//                        bf16 operands (their out dtype is the input's, :355)
+// Every entry launches one templated kernel: the two dataflows differ only
+// in how many strips one block walks (see Segments), the two element
+// types only in what is stored (see bf16).
 //
 // Math.  y[n,oh,ow,g*Cpg+co] = act(bias + sum_{ki,kj,ci} xpad[n, oh*s+ki,
 // ow*s+kj, g*Cin_pg+ci] * w[ki,kj,ci,g*Cpg+co]), ki < KH, kj < KW: a square
@@ -20,6 +24,20 @@
 // (trim_conv2d_fused.cu), which takes the same chain, equals a chain of
 // these launches bit for bit.  No split of the sum across threads or
 // blocks and no tensor cores (TF32 would change the chain): f32 FFMA.
+//
+// bf16.  The T = __nv_bfloat16 instance holds x, w, bias and y in bf16:
+// the window ring and the weight ring are bf16 in shared memory (half the
+// bytes, so the plan may take taller strips), each value widens to f32
+// exactly on read (elem.cuh), and each output is the same single fmaf chain
+// in (ki, kj, ci) order, + bias, activate(), then ONE __float2bfloat16_rn at
+// the store.  A bf16 x bf16 product is exact in f32, so this is JAX's
+// bf16 function (products exact, the sum in f32, one cast at the store),
+// and carry == halo, batch invariance and fused == chain hold as in f32.
+// The window's 16-byte copies carry 8 channels (Cin/g a multiple of 8, a
+// pitch of Cin/g + 8); other rows (VGG-16's and AlexNet's Cin 3) load
+// element by element, since cp.async copies no 2-byte unit.  Weights move
+// as 8-byte copies of 4 output channels.  The bf16 tensor cores would
+// change the order of every sum (ROADMAP Queue 2 C).
 //
 // Geometry (core/conv_plan.py, ConvPlan).  A block owns (image n, group g,
 // C_out tile, column band of TW output columns) -- a chain -- and one
@@ -70,6 +88,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "elem.cuh"
 #include "epilogue.cuh"
 
 namespace {
@@ -102,25 +121,31 @@ __host__ __device__ inline int window_cols(const ConvArgs& a) {
   return (a.tile_w - 1) * a.stride + a.kw;
 }
 
-// Floats of the window ring, rounded to a float4 so the weights align.
-__host__ __device__ inline int window_floats(const ConvArgs& a) {
-  return (a.ring_rows * window_cols(a) * a.cin_stride + 3) / 4 * 4;
+// Elements of the window ring, rounded to 16 bytes so the weights align.
+template <typename T>
+__host__ __device__ inline int window_elems(const ConvArgs& a) {
+  constexpr int kAlign = 16 / (int)sizeof(T);
+  return (a.ring_rows * window_cols(a) * a.cin_stride + kAlign - 1) /
+         kAlign * kAlign;
 }
 
+template <typename T>
 inline size_t smem_bytes(const ConvArgs& a) {
-  return ((size_t)window_floats(a) + (size_t)kStages * kChunk * 4 * a.tcx) *
-         sizeof(float);
+  return ((size_t)window_elems<T>(a) + (size_t)kStages * kChunk * 4 * a.tcx) *
+         sizeof(T);
 }
 
-template <bool kVecX, int kMinBlocks>
+// T: float or __nv_bfloat16, the element type of x, w, bias and y.
+template <typename T, bool kVecX, int kMinBlocks>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-trim_conv2d_kernel(const float* __restrict__ x, const float* __restrict__ wt,
-                   const float* __restrict__ bias, float* __restrict__ y,
+trim_conv2d_kernel(const T* __restrict__ x, const T* __restrict__ wt,
+                   const T* __restrict__ bias, T* __restrict__ y,
                    const ConvArgs a) {
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
-  float* ws = xs + window_floats(a);
-  constexpr int kVx = kVecX ? 4 : 1;         // floats a window copy
+  T* xs = reinterpret_cast<T*>(smem4);
+  T* ws = xs + window_elems<T>(a);
+  // elements a window copy: 16 bytes, or one element (bf16: a plain load)
+  constexpr int kVx = kVecX ? 16 / (int)sizeof(T) : 1;
 
   const int cin_pg = a.cin / a.groups;
   const int cout_pg = a.cout / a.groups;
@@ -128,7 +153,7 @@ trim_conv2d_kernel(const float* __restrict__ x, const float* __restrict__ wt,
   const int th = a.tile_h_out * s;            // fresh input rows per strip
   const int kc = kh > s ? kh - s : 0;         // rows carried to the next strip
   const int wc = window_cols(a);
-  const int row_len = wc * a.cin_stride;      // floats per ring slot
+  const int row_len = wc * a.cin_stride;      // elements per ring slot
   const int tcp = 4 * a.tcx;                  // weight row pitch
   const bool prefetch = a.ring_rows >= 2 * th + kc;
 
@@ -147,7 +172,7 @@ trim_conv2d_kernel(const float* __restrict__ x, const float* __restrict__ wt,
   const bool computes = ty < pthreads;
   const int positions = a.tile_h_out * a.tile_w;
   const int col0 = band * a.tile_w * s - a.pad_left;
-  const float* xin = x + (size_t)img * a.h * a.w * a.cin + grp * cin_pg;
+  const T* xin = x + (size_t)img * a.h * a.w * a.cin + grp * cin_pg;
   const int co_base = grp * cout_pg + cot * a.tile_cout;
   const int co_valid = min(a.tile_cout, cout_pg - cot * a.tile_cout);
   const int cin_chunks = (cin_pg + kChunk - 1) / kChunk;
@@ -168,13 +193,17 @@ trim_conv2d_kernel(const float* __restrict__ x, const float* __restrict__ wt,
       const int ih = r0 + r - a.pad_top;
       const int iw = col0 + c;
       const bool in = ih >= 0 && ih < a.h && iw >= 0 && iw < a.w;
-      const float* src = in ? xin + ((size_t)ih * a.w + iw) * a.cin + ci : xin;
-      float* dst = xs + ((r0 + r) % a.ring_rows) * row_len +
-                   c * a.cin_stride + ci;
-      if (kVecX)
-        cp_async16(dst, src, in);
-      else
-        cp_async4(dst, src, in);
+      const T* src = in ? xin + ((size_t)ih * a.w + iw) * a.cin + ci : xin;
+      T* dst = xs + ((r0 + r) % a.ring_rows) * row_len +
+               c * a.cin_stride + ci;
+      if constexpr (kVecX)
+        cp_async16(reinterpret_cast<float*>(dst),
+                   reinterpret_cast<const float*>(src), in);
+      else if constexpr (sizeof(T) == 4)
+        cp_async4(reinterpret_cast<float*>(dst),
+                  reinterpret_cast<const float*>(src), in);
+      else  // no 2-byte cp.async: a plain load, seen after the barrier
+        *dst = in ? *src : T(0.0f);
     }
   };
 
@@ -184,22 +213,30 @@ trim_conv2d_kernel(const float* __restrict__ x, const float* __restrict__ wt,
     const int tap = chunk / cin_chunks;
     const int ci0 = (chunk - tap * cin_chunks) * kChunk;
     const int nc = min(kChunk, cin_pg - ci0);
-    const float* src0 = wt + ((size_t)tap * cin_pg + ci0) * a.cout + co_base;
-    float* dst0 = ws + stage * kChunk * tcp;
-    if (a.vec_w) {
+    const T* src0 = wt + ((size_t)tap * cin_pg + ci0) * a.cout + co_base;
+    T* dst0 = ws + stage * kChunk * tcp;
+    if (a.vec_w) {  // 4 output channels a copy: 16 bytes of f32, 8 of bf16
       const int per_row = tcp / 4;
       for (int idx = tid; idx < nc * per_row; idx += kThreads) {
         const int cc = idx / per_row, co = (idx - cc * per_row) * 4;
         const bool ok = co < co_valid;
-        cp_async16(dst0 + cc * tcp + co, ok ? src0 + (size_t)cc * a.cout + co
-                                            : wt, ok);
+        const T* src = ok ? src0 + (size_t)cc * a.cout + co : wt;
+        if constexpr (sizeof(T) == 4)
+          cp_async16(reinterpret_cast<float*>(dst0 + cc * tcp + co),
+                     reinterpret_cast<const float*>(src), ok);
+        else
+          cp_async8(dst0 + cc * tcp + co, src, ok);
       }
     } else {
       for (int idx = tid; idx < nc * tcp; idx += kThreads) {
         const int cc = idx / tcp, co = idx - cc * tcp;
         const bool ok = co < co_valid;
-        cp_async4(dst0 + cc * tcp + co, ok ? src0 + (size_t)cc * a.cout + co
-                                           : wt, ok);
+        const T* src = ok ? src0 + (size_t)cc * a.cout + co : wt;
+        if constexpr (sizeof(T) == 4)
+          cp_async4(reinterpret_cast<float*>(dst0 + cc * tcp + co),
+                    reinterpret_cast<const float*>(src), ok);
+        else
+          dst0[cc * tcp + co] = ok ? *src : T(0.0f);
       }
     }
   };
@@ -253,19 +290,18 @@ trim_conv2d_kernel(const float* __restrict__ x, const float* __restrict__ wt,
       }
       if (computes) {
         const int nc = min(kChunk, cin_pg - ci0);
-        const float* wsb = ws + stage * kChunk * tcp + 4 * tx;
-        const float* xsb = xs + ci0;
+        const T* wsb = ws + stage * kChunk * tcp + 4 * tx;
+        const T* xsb = xs + ci0;
         if (kVecX) {
           // 4 input channels: 8 window float4s, 4 weight float4s, 128 FMAs
           auto mac4 = [&](int cc) {
             float4 xv[kPositions];
 #pragma unroll
             for (int m = 0; m < kPositions; ++m)
-              xv[m] = *reinterpret_cast<const float4*>(xsb + off[m] + cc);
+              xv[m] = load4(xsb + off[m] + cc);
 #pragma unroll
             for (int u = 0; u < 4; ++u) {
-              const float4 wv =
-                  *reinterpret_cast<const float4*>(wsb + (cc + u) * tcp);
+              const float4 wv = load4(wsb + (cc + u) * tcp);
 #pragma unroll
               for (int m = 0; m < kPositions; ++m) {
                 const float xu = u == 0   ? xv[m].x
@@ -288,11 +324,10 @@ trim_conv2d_kernel(const float* __restrict__ x, const float* __restrict__ wt,
           }
         } else {
           for (int cc = 0; cc < nc; ++cc) {
-            const float4 wv =
-                *reinterpret_cast<const float4*>(wsb + cc * tcp);
+            const float4 wv = load4(wsb + cc * tcp);
 #pragma unroll
             for (int m = 0; m < kPositions; ++m) {
-              const float xu = xsb[off[m] + cc];
+              const float xu = to_f32(xsb[off[m] + cc]);
               acc[m][0] = fmaf(xu, wv.x, acc[m][0]);
               acc[m][1] = fmaf(xu, wv.y, acc[m][1]);
               acc[m][2] = fmaf(xu, wv.z, acc[m][2]);
@@ -312,36 +347,37 @@ trim_conv2d_kernel(const float* __restrict__ x, const float* __restrict__ wt,
       const int i = p / a.tile_w, cc = p - i * a.tile_w;
       const int oh = t * a.tile_h_out + i, ow = band * a.tile_w + cc;
       if (oh >= a.h_out || ow >= a.w_out) continue;
-      float* yrow = y + (((size_t)img * a.h_out + oh) * a.w_out + ow) * a.cout +
-                    co_base;
+      T* yrow = y + (((size_t)img * a.h_out + oh) * a.w_out + ow) * a.cout +
+                co_base;
 #pragma unroll
       for (int j = 0; j < kCout; ++j) {
         const int co = 4 * tx + j;
         if (co >= co_valid) continue;
         float v = acc[m][j];
-        if (bias != nullptr) v = v + bias[co_base + co];
-        yrow[co] = activate(v, a.activation);
+        if (bias != nullptr) v = v + to_f32(bias[co_base + co]);
+        store_elem(yrow + co, activate(v, a.activation));
       }
     }
   }
 }
 
-template <bool kVecX, int kMinBlocks>
-int launch_kernel(const float* x, const float* w, const float* bias, float* y,
+template <typename T, bool kVecX, int kMinBlocks>
+int launch_kernel(const T* x, const T* w, const T* bias, T* y,
                   const ConvArgs& a, size_t smem, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      trim_conv2d_kernel<kVecX, kMinBlocks>,
+      trim_conv2d_kernel<T, kVecX, kMinBlocks>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(a.n * a.groups * a.co_tiles * a.n_bands, a.segments);
-  trim_conv2d_kernel<kVecX, kMinBlocks><<<grid, kThreads, smem,
-                                          static_cast<cudaStream_t>(stream)>>>(
-      x, w, bias, y, a);
+  trim_conv2d_kernel<T, kVecX, kMinBlocks>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          x, w, bias, y, a);
   return (int)cudaGetLastError();
 }
 
-int launch(const float* x, const float* w, const float* bias, float* y,
-           ConvArgs a, void* stream) {
+template <typename T>
+int launch(const T* x, const T* w, const T* bias, T* y, ConvArgs a,
+           void* stream) {
   if (a.kh < 1 || a.kw < 1 || a.stride < 1 || a.groups < 1 ||
       a.cin % a.groups != 0 || a.cout % a.groups != 0 || a.tile_cout < 1 ||
       a.tile_cout > 32 * kCout ||
@@ -354,24 +390,26 @@ int launch(const float* x, const float* w, const float* bias, float* y,
   a.n_bands = (a.w_out + a.tile_w - 1) / a.tile_w;
   a.co_tiles = (cout_pg + a.tile_cout - 1) / a.tile_cout;
   a.segments = (a.n_strips + a.strips_per_seg - 1) / a.strips_per_seg;
-  const bool vec_x = cin_pg % 4 == 0 && a.cin_stride % 4 == 0 &&
+  // 16-byte window copies: 4 f32 or 8 bf16 channels
+  constexpr int kVx = 16 / (int)sizeof(T);
+  const bool vec_x = cin_pg % kVx == 0 && a.cin_stride % kVx == 0 &&
                      (uintptr_t)x % 16 == 0;
   a.vec_w = a.cout % 4 == 0 && cout_pg % 4 == 0 && a.tile_cout % 4 == 0 &&
-            (uintptr_t)w % 16 == 0;
+            (uintptr_t)w % (4 * sizeof(T)) == 0;
   if (a.tile_h_out * a.tile_w > (kThreads / a.tcx) * kPositions ||
       a.cin_stride < cin_pg || a.ring_rows < a.tile_h_out * a.stride + kc ||
       a.segments > 65535)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(a);
+  const size_t smem = smem_bytes<T>(a);
   if (smem > (size_t)kMaxSmemBytes) return (int)cudaErrorInvalidValue;
   // a window too large for two blocks an SM runs the instance that may
   // use all 255 registers (deeper load pipelining, one block an SM)
   const bool one = 2 * (smem + kReservedSmem) > (size_t)kSmemPerSm;
   if (vec_x)
-    return one ? launch_kernel<true, 1>(x, w, bias, y, a, smem, stream)
-               : launch_kernel<true, 2>(x, w, bias, y, a, smem, stream);
-  return one ? launch_kernel<false, 1>(x, w, bias, y, a, smem, stream)
-             : launch_kernel<false, 2>(x, w, bias, y, a, smem, stream);
+    return one ? launch_kernel<T, true, 1>(x, w, bias, y, a, smem, stream)
+               : launch_kernel<T, true, 2>(x, w, bias, y, a, smem, stream);
+  return one ? launch_kernel<T, false, 1>(x, w, bias, y, a, smem, stream)
+             : launch_kernel<T, false, 2>(x, w, bias, y, a, smem, stream);
 }
 
 ConvArgs make_args(int n, int h, int w, int cin, int cout, int kh, int kw,
@@ -394,34 +432,43 @@ ConvArgs make_args(int n, int h, int w, int cin, int cout, int kh, int kw,
 // C entry points, bound with ctypes by repro_torch/kernels/build.py.  Each
 // launches on `stream` without synchronising and returns cudaGetLastError()
 // (or cudaErrorInvalidValue for a geometry the kernel cannot take).
-// strips_per_seg and ring_rows are ConvPlan's; halo takes one strip a
-// segment and the plain window ring whatever it is given.
+// strips_per_seg and ring_rows are ConvPlan's (at dtype_bytes 4 for the f32
+// entries, 2 for the bf16 ones); halo takes one strip a segment and the
+// plain window ring whatever it is given.
 extern "C" {
 
-#define TRIM_CONV2D_ARGS                                                      \
-  const float *x, const float *w, const float *bias, float *y, int n, int h,  \
-      int wd, int cin, int cout, int kh, int kw, int stride, int pad_top,     \
-      int pad_left, int groups, int h_out, int w_out, int tile_h_out,         \
-      int tile_w, int tile_cout, int strips_per_seg, int ring_rows,           \
-      int cin_stride, int activation, void *stream
+#define TRIM_CONV2D_ARGS(T)                                                   \
+  const T *x, const T *w, const T *bias, T *y, int n, int h, int wd, int cin, \
+      int cout, int kh, int kw, int stride, int pad_top, int pad_left,        \
+      int groups, int h_out, int w_out, int tile_h_out, int tile_w,           \
+      int tile_cout, int strips_per_seg, int ring_rows, int cin_stride,       \
+      int activation, void *stream
 
-int trim_conv2d_carry(TRIM_CONV2D_ARGS) {
-  return launch(x, w, bias, y,
-                make_args(n, h, wd, cin, cout, kh, kw, stride, pad_top,
-                          pad_left, groups, h_out, w_out, tile_h_out, tile_w,
-                          tile_cout, strips_per_seg, ring_rows, cin_stride,
-                          activation),
-                stream);
+#define TRIM_CONV2D_CARRY                                                     \
+  launch(x, w, bias, y,                                                       \
+         make_args(n, h, wd, cin, cout, kh, kw, stride, pad_top, pad_left,    \
+                   groups, h_out, w_out, tile_h_out, tile_w, tile_cout,       \
+                   strips_per_seg, ring_rows, cin_stride, activation),        \
+         stream)
+
+#define TRIM_CONV2D_HALO                                                      \
+  launch(x, w, bias, y,                                                       \
+         make_args(n, h, wd, cin, cout, kh, kw, stride, pad_top, pad_left,    \
+                   groups, h_out, w_out, tile_h_out, tile_w, tile_cout, 1,    \
+                   tile_h_out * stride + (kh > stride ? kh - stride : 0),     \
+                   cin_stride, activation),                                   \
+         stream)
+
+int trim_conv2d_carry(TRIM_CONV2D_ARGS(float)) { return TRIM_CONV2D_CARRY; }
+
+int trim_conv2d_halo(TRIM_CONV2D_ARGS(float)) { return TRIM_CONV2D_HALO; }
+
+int trim_conv2d_carry_bf16(TRIM_CONV2D_ARGS(__nv_bfloat16)) {
+  return TRIM_CONV2D_CARRY;
 }
 
-int trim_conv2d_halo(TRIM_CONV2D_ARGS) {
-  const int kc = kh > stride ? kh - stride : 0;
-  return launch(x, w, bias, y,
-                make_args(n, h, wd, cin, cout, kh, kw, stride, pad_top,
-                          pad_left, groups, h_out, w_out, tile_h_out, tile_w,
-                          tile_cout, 1, tile_h_out * stride + kc, cin_stride,
-                          activation),
-                stream);
+int trim_conv2d_halo_bf16(TRIM_CONV2D_ARGS(__nv_bfloat16)) {
+  return TRIM_CONV2D_HALO;
 }
 
 const char* trim_conv2d_error_string(int err) {

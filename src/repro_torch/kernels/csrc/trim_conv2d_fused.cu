@@ -1,11 +1,13 @@
-// Fused residency group for NVIDIA Hopper (sm_90a), f32, hand-written CUDA.
+// Fused residency group for NVIDIA Hopper (sm_90a), f32 and bf16,
+// hand-written CUDA.
 //
 // Replaces the TPU Pallas kernel _fused_kernel of
 // src/repro/kernels/trim_conv2d_fused.py (:102, with _stage_conv :67 and
 // _stage_pool :87): a chain conv -> [max-pool] -> conv ... runs in one launch
-// and every interior activation stays on chip.  The geometry comes from
-// repro_torch/core/fuse_plan.py (FusedGroup); the wrapper is
-// repro_torch/kernels/trim_conv2d_fused.py.
+// and every interior activation stays on chip.  trim_conv2d_fused takes f32
+// operands, trim_conv2d_fused_bf16 bf16 ones (one templated kernel).  The
+// geometry comes from repro_torch/core/fuse_plan.py (FusedGroup); the
+// wrapper is repro_torch/kernels/trim_conv2d_fused.py.
 //
 // Geometry.  One block owns (image, strip, band): a tile of strip_rows x
 // band_cols pooled outputs of the LAST stage.  Each stage's ranges are affine
@@ -49,6 +51,19 @@
 // per-layer carry chain (conv kernel, then a separate max-pool), and a
 // served row to forward_one.  No TF32, no split of a sum across threads.
 //
+// bf16.  The T = __nv_bfloat16 instance keeps the input tile, the stage
+// buffers and the weight ring in bf16, widens each value to f32 exactly on
+// read (elem.cuh), and takes the same fmaf chain, + bias (bf16, widened:
+// JAX casts the bias to the input dtype), activate(); each stage is rounded
+// to bf16 once (__float2bfloat16_rn) where the JAX kernel casts it to the
+// scratch dtype (:84), after the max over its pool window, which commutes
+// with that monotone rounding.  So every stage is rounded exactly where the
+// per-layer bf16 chain stores it, and fused == chain bitwise holds in bf16.
+// Pitches and buffers are the f32 kernel's, in elements (fuse_plan's; the
+// bytes halve), so a copy of 4 channels is 8 bytes: the stage-0 window and
+// the weights move as 8-byte cp.async copies, VGG-16's conv1 (cin 3)
+// element by element (cp.async copies no 2-byte unit).
+//
 // What bounds it on the H100.  At VGG-16's early layers the group does
 // hundreds of FLOPs per byte it must move, so the bound is operations:
 // 67 TFLOP/s of non-tensor f32.  Fusing cuts the bytes the per-layer chain
@@ -65,6 +80,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "elem.cuh"
 #include "epilogue.cuh"
 
 namespace {
@@ -82,8 +98,8 @@ constexpr int kHeader = 9;             // ints before the per-stage fields
 constexpr int kStageFields = 22;       // ints per stage (see make_args)
 
 struct StageArgs {
-  const float* w;  // (K, K, cin, cout)
-  const float* b;  // (cout,) or nullptr
+  const void* w;   // (K, K, cin, cout), of the launch's element type
+  const void* b;   // (cout,) or nullptr
   int cin, cout, k, stride, ps, pw, h_pool, w_pool;
   int in_rows, in_cols, pool_rows, pool_cols;
   int in_row_start, in_row_step, in_col_start, in_col_step;
@@ -92,14 +108,14 @@ struct StageArgs {
   int tcx;         // threads along C_out: ceil(tile_cout / kCout)
   int per_thread;  // pooled positions a thread: whole windows of its slots
   int out_pitch;   // the next stage's in_pitch (unused by the last stage)
-  int vec_w;       // 16-byte weight copies
+  int vec_w;       // weight copies of 4 channels (16 bytes f32, 8 bf16)
 };
 
 struct FusedArgs {
   int n, h, w, cin, depth, n_strips, n_bands;
-  int buf0, buf1;   // floats of the ping-pong buffers (multiples of 4)
-  int ring_cout;    // floats of one ring row: 4 x the widest stage's tcx
-  int vec_x;        // 16-byte copies of the stage-0 window
+  int buf0, buf1;   // elements of the ping-pong buffers (multiples of 4)
+  int ring_cout;    // elements of one ring row: 4 x the widest stage's tcx
+  int vec_x;        // stage-0 window copies of 4 channels (16 / 8 bytes)
   int activation;   // activate()'s code (epilogue.cuh)
   StageArgs st[kMaxStages];
 };
@@ -107,12 +123,13 @@ struct FusedArgs {
 // One stage of one tile: every C_out tile and pass, weights through the
 // ring.  `in` holds the stage's input tile; `out` receives its pooled,
 // masked output (or `y`, for the last stage).
-template <int kSlots, bool kVec>
+template <typename T, int kSlots, bool kVec>
 __device__ __forceinline__ void run_stage(const StageArgs& st, bool last,
-                                          int act, const float* in,
-                                          float* out, float* ws, int ring_cout,
-                                          float* __restrict__ y, int img,
-                                          int strip, int band) {
+                                          int act, const T* in, T* out, T* ws,
+                                          int ring_cout, T* __restrict__ y,
+                                          int img, int strip, int band) {
+  const T* const wt = static_cast<const T*>(st.w);
+  const T* const bias = static_cast<const T*>(st.b);
   const int tid = threadIdx.x;
   const int cin = st.cin, cout = st.cout, k = st.k, s = st.stride;
   const int ps = st.ps, pw = st.pw, pw2 = st.pw * st.pw;
@@ -166,24 +183,32 @@ __device__ __forceinline__ void run_stage(const StageArgs& st, bool last,
   auto copy_weights = [&](const Unit& v, int slot) {
     const int nr = min(kChunk, rows - v.r0);
     const int co_valid = min(tile_cout, cout - v.cot * tile_cout);
-    const float* src0 = st.w + (size_t)v.r0 * cout + v.cot * tile_cout;
-    float* dst0 = ws + slot * kChunk * ring_cout;
-    if (st.vec_w) {
+    const T* src0 = wt + (size_t)v.r0 * cout + v.cot * tile_cout;
+    T* dst0 = ws + slot * kChunk * ring_cout;
+    if (st.vec_w) {  // 4 output channels a copy: 16 bytes of f32, 8 of bf16
 #pragma unroll
       for (int it = 0; it < kCopies; ++it) {
         const int cc = copy_cc[it], co = copy_co[it];
         if (cc < nr) {
           const bool ok = co < co_valid;
-          cp_async16(dst0 + cc * tcp + co,
-                     ok ? src0 + (size_t)cc * cout + co : st.w, ok);
+          const T* src = ok ? src0 + (size_t)cc * cout + co : wt;
+          if constexpr (sizeof(T) == 4)
+            cp_async16(reinterpret_cast<float*>(dst0 + cc * tcp + co),
+                       reinterpret_cast<const float*>(src), ok);
+          else
+            cp_async8(dst0 + cc * tcp + co, src, ok);
         }
       }
     } else {
       for (int idx = tid; idx < nr * tcp; idx += kThreads) {
         const int cc = idx / tcp, co = idx - cc * tcp;
         const bool ok = co < co_valid;
-        cp_async4(dst0 + cc * tcp + co,
-                  ok ? src0 + (size_t)cc * cout + co : st.w, ok);
+        const T* src = ok ? src0 + (size_t)cc * cout + co : wt;
+        if constexpr (sizeof(T) == 4)
+          cp_async4(reinterpret_cast<float*>(dst0 + cc * tcp + co),
+                    reinterpret_cast<const float*>(src), ok);
+        else  // no 2-byte cp.async: a plain load, seen after the barrier
+          dst0[cc * tcp + co] = ok ? *src : T(0.0f);
       }
     }
   };
@@ -224,7 +249,7 @@ __device__ __forceinline__ void run_stage(const StageArgs& st, bool last,
 
     if (computes) {
       const int nr = min(kChunk, rows - cur.r0);
-      const float* wsb = ws + slot * kChunk * ring_cout + 4 * tx;
+      const T* wsb = ws + slot * kChunk * ring_cout + 4 * tx;
       int ki = cur.ki, kj = cur.kj, ci = cur.ci0;
       // the window at row cc's tap and channel; rows walk (kj, ki) forward
       auto step = [&](int by) {
@@ -238,15 +263,13 @@ __device__ __forceinline__ void run_stage(const StageArgs& st, bool last,
       };
       if (kVec) {
         // 4 rows of one tap: kSlots window float4s, 4 weight float4s
-        auto mac4 = [&](const float* xb, int cc) {
+        auto mac4 = [&](const T* xb, int cc) {
           float4 xv[kSlots];
 #pragma unroll
-          for (int m = 0; m < kSlots; ++m)
-            xv[m] = *reinterpret_cast<const float4*>(xb + off[m]);
+          for (int m = 0; m < kSlots; ++m) xv[m] = load4(xb + off[m]);
 #pragma unroll
           for (int u4 = 0; u4 < 4; ++u4) {
-            const float4 wv =
-                *reinterpret_cast<const float4*>(wsb + (cc + u4) * tcp);
+            const float4 wv = load4(wsb + (cc + u4) * tcp);
 #pragma unroll
             for (int m = 0; m < kSlots; ++m) {
               const float xu = u4 == 0   ? xv[m].x
@@ -262,7 +285,7 @@ __device__ __forceinline__ void run_stage(const StageArgs& st, bool last,
         };
         if (nr == kChunk && ci + kChunk <= cin) {
           // a full ring stage in one tap: unrolled, loads hoisted
-          const float* xsb = in + (ki * st.in_cols + kj) * pitch + ci;
+          const T* xsb = in + (ki * st.in_cols + kj) * pitch + ci;
 #pragma unroll
           for (int cc = 0; cc < kChunk; cc += 4) mac4(xsb + cc, cc);
         } else {
@@ -275,11 +298,11 @@ __device__ __forceinline__ void run_stage(const StageArgs& st, bool last,
       } else {
 #pragma unroll 1
         for (int cc = 0; cc < nr; ++cc) {
-          const float* xb = in + (ki * st.in_cols + kj) * pitch + ci;
-          const float4 wv = *reinterpret_cast<const float4*>(wsb + cc * tcp);
+          const T* xb = in + (ki * st.in_cols + kj) * pitch + ci;
+          const float4 wv = load4(wsb + cc * tcp);
 #pragma unroll
           for (int m = 0; m < kSlots; ++m) {
-            const float xu = xb[off[m]];
+            const float xu = to_f32(xb[off[m]]);
             acc[m][0] = fmaf(xu, wv.x, acc[m][0]);
             acc[m][1] = fmaf(xu, wv.y, acc[m][1]);
             acc[m][2] = fmaf(xu, wv.z, acc[m][2]);
@@ -306,7 +329,7 @@ __device__ __forceinline__ void run_stage(const StageArgs& st, bool last,
           const int co = 4 * tx + jj;
           if (co >= co_valid) continue;
           float v = acc[m][jj];
-          if (st.b != nullptr) v = v + st.b[cbase + co];
+          if (bias != nullptr) v = v + to_f32(bias[cbase + co]);
           v = activate(v, act);
           mx[jj] = wm == 0 ? v : fmaxf(mx[jj], v);
         }
@@ -320,11 +343,14 @@ __device__ __forceinline__ void run_stage(const StageArgs& st, bool last,
           const int co = 4 * tx + jj;
           if (co >= co_valid) continue;
           if (!last)
-            out[(pr * st.pool_cols + pc) * st.out_pitch + cbase + co] =
-                valid ? mx[jj] : 0.0f;
+            store_elem(out + (pr * st.pool_cols + pc) * st.out_pitch + cbase +
+                           co,
+                       valid ? mx[jj] : 0.0f);
           else if (valid)
-            y[(((size_t)img * st.h_pool + gr) * st.w_pool + gc) * cout +
-              cbase + co] = mx[jj];
+            store_elem(y + (((size_t)img * st.h_pool + gr) * st.w_pool + gc) *
+                               cout +
+                           cbase + co,
+                       mx[jj]);
         }
       }
     }
@@ -334,13 +360,14 @@ __device__ __forceinline__ void run_stage(const StageArgs& st, bool last,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-trim_conv2d_fused_kernel(const float* __restrict__ x, float* __restrict__ y,
+trim_conv2d_fused_kernel(const T* __restrict__ x, T* __restrict__ y,
                          const __grid_constant__ FusedArgs a) {
   extern __shared__ float4 smem4[];
-  float* const buf0 = reinterpret_cast<float*>(smem4);
-  float* const buf1 = buf0 + a.buf0;
-  float* const ws = buf1 + a.buf1;  // [kStages][kChunk][ring_cout]
+  T* const buf0 = reinterpret_cast<T*>(smem4);
+  T* const buf1 = buf0 + a.buf0;
+  T* const ws = buf1 + a.buf1;  // [kStages][kChunk][ring_cout]
 
   int bid = blockIdx.x;
   const int band = bid % a.n_bands; bid /= a.n_bands;
@@ -353,8 +380,8 @@ trim_conv2d_fused_kernel(const float* __restrict__ x, float* __restrict__ y,
     const StageArgs& s0 = a.st[0];
     const int r0 = s0.in_row_start + strip * s0.in_row_step;
     const int c0 = s0.in_col_start + band * s0.in_col_step;
-    const float* xin = x + (size_t)img * a.h * a.w * a.cin;
-    const int vx = a.vec_x ? 4 : 1;
+    const T* xin = x + (size_t)img * a.h * a.w * a.cin;
+    const int vx = a.vec_x ? 4 : 1;  // elements a copy
     const int per_px = a.cin / vx;
     const int total = s0.in_rows * s0.in_cols * per_px;
     for (int idx = tid; idx < total; idx += kThreads) {
@@ -363,36 +390,45 @@ trim_conv2d_fused_kernel(const float* __restrict__ x, float* __restrict__ y,
       const int r = px / s0.in_cols, c = px - r * s0.in_cols;
       const int ih = r0 + r, iw = c0 + c;
       const bool in = ih >= 0 && ih < a.h && iw >= 0 && iw < a.w;
-      const float* src = in ? xin + ((size_t)ih * a.w + iw) * a.cin + ci : x;
-      float* dst = buf0 + px * s0.in_pitch + ci;
-      if (a.vec_x)
-        cp_async16(dst, src, in);
-      else
-        cp_async4(dst, src, in);
+      const T* src = in ? xin + ((size_t)ih * a.w + iw) * a.cin + ci : x;
+      T* dst = buf0 + px * s0.in_pitch + ci;
+      if constexpr (sizeof(T) == 4) {
+        if (a.vec_x)
+          cp_async16(reinterpret_cast<float*>(dst),
+                     reinterpret_cast<const float*>(src), in);
+        else
+          cp_async4(reinterpret_cast<float*>(dst),
+                    reinterpret_cast<const float*>(src), in);
+      } else if (a.vec_x) {
+        cp_async8(dst, src, in);
+      } else {  // no 2-byte cp.async: a plain load, seen after the barrier
+        *dst = in ? *src : T(0.0f);
+      }
     }
   }
 
   for (int i = 0; i < a.depth; ++i) {
     const StageArgs& st = a.st[i];
-    const float* in = (i & 1) ? buf1 : buf0;
-    float* out = (i & 1) ? buf0 : buf1;
+    const T* in = (i & 1) ? buf1 : buf0;
+    T* out = (i & 1) ? buf0 : buf1;
     const bool last = i == a.depth - 1;
     const bool vec = st.cin % 4 == 0 && st.in_pitch % 4 == 0;
     if (st.pw == 3) {
       if (vec)
-        run_stage<kPool3Positions, true>(st, last, a.activation, in, out, ws,
-                                         a.ring_cout, y, img, strip, band);
+        run_stage<T, kPool3Positions, true>(st, last, a.activation, in, out,
+                                            ws, a.ring_cout, y, img, strip,
+                                            band);
       else
-        run_stage<kPool3Positions, false>(st, last, a.activation, in, out,
-                                          ws, a.ring_cout, y, img, strip,
-                                          band);
+        run_stage<T, kPool3Positions, false>(st, last, a.activation, in, out,
+                                             ws, a.ring_cout, y, img, strip,
+                                             band);
     } else {
       if (vec)
-        run_stage<kPositions, true>(st, last, a.activation, in, out, ws,
-                                    a.ring_cout, y, img, strip, band);
+        run_stage<T, kPositions, true>(st, last, a.activation, in, out, ws,
+                                       a.ring_cout, y, img, strip, band);
       else
-        run_stage<kPositions, false>(st, last, a.activation, in, out, ws,
-                                     a.ring_cout, y, img, strip, band);
+        run_stage<T, kPositions, false>(st, last, a.activation, in, out, ws,
+                                        a.ring_cout, y, img, strip, band);
     }
     __syncthreads();  // this stage's output complete, its input and the
                       // ring fully read
@@ -401,7 +437,8 @@ trim_conv2d_fused_kernel(const float* __restrict__ x, float* __restrict__ y,
 
 // Unpack the host geometry (layout in trim_conv2d_fused below); returns
 // false for one the kernel cannot take.
-bool make_args(const float* x, const void* const* wb, const int* g,
+template <typename T>
+bool make_args(const T* x, const void* const* wb, const int* g,
                int activation, FusedArgs* a) {
   a->n = g[0]; a->h = g[1]; a->w = g[2]; a->cin = g[3]; a->depth = g[4];
   a->n_strips = g[5]; a->n_bands = g[6]; a->buf0 = g[7]; a->buf1 = g[8];
@@ -413,8 +450,8 @@ bool make_args(const float* x, const void* const* wb, const int* g,
   for (int i = 0; i < a->depth; ++i) {
     const int* f = g + kHeader + i * kStageFields;
     StageArgs& st = a->st[i];
-    st.w = static_cast<const float*>(wb[2 * i]);
-    st.b = static_cast<const float*>(wb[2 * i + 1]);
+    st.w = wb[2 * i];
+    st.b = wb[2 * i + 1];
     st.cin = f[0]; st.cout = f[1]; st.k = f[2]; st.stride = f[3];
     st.ps = f[4]; st.pw = f[5]; st.h_pool = f[6]; st.w_pool = f[7];
     st.in_rows = f[8]; st.in_cols = f[9];
@@ -429,7 +466,7 @@ bool make_args(const float* x, const void* const* wb, const int* g,
                     : (st.pw == 3 ? kPool3Positions : kPositions) /
                           (st.pw * st.pw);
     st.vec_w = st.cout % 4 == 0 && st.tile_cout % 4 == 0 &&
-               (uintptr_t)st.w % 16 == 0;
+               (uintptr_t)st.w % (4 * sizeof(T)) == 0;
     const int need_rows = ((st.pool_rows - 1) * st.ps + st.pw - 1) * st.stride + st.k;
     const int need_cols = ((st.pool_cols - 1) * st.ps + st.pw - 1) * st.stride + st.k;
     const long long tile = (long long)st.in_rows * st.in_cols * st.in_pitch;
@@ -449,8 +486,28 @@ bool make_args(const float* x, const void* const* wb, const int* g,
   }
   a->st[a->depth - 1].out_pitch = 0;
   a->vec_x = a->cin % 4 == 0 && a->st[0].in_pitch % 4 == 0 &&
-             (uintptr_t)x % 16 == 0;
+             (uintptr_t)x % (4 * sizeof(T)) == 0;
   return true;
+}
+
+template <typename T>
+int launch(const T* x, T* y, const void* const* wb, const int* geom,
+           int activation, void* stream) {
+  FusedArgs a;
+  if (!make_args(x, wb, geom, activation, &a))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = ((size_t)a.buf0 + a.buf1 +
+                       (size_t)kStages * kChunk * a.ring_cout) * sizeof(T);
+  if (smem > (size_t)kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      trim_conv2d_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)a.n * a.n_strips * a.n_bands;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  trim_conv2d_fused_kernel<T><<<(unsigned)blocks, kThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(x, y, a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -462,26 +519,20 @@ extern "C" {
 // stage.  wb: host array of 2 * depth device pointers (w0, b0, w1, b1, ...;
 // a bias may be null).  geom: host ints, kHeader of them (n, h, w, cin,
 // depth, n_strips, n_bands, buf0, buf1), then kStageFields per stage in
-// StageArgs' order from cin to in_pitch.  Launches on `stream`
-// without synchronising; returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a geometry the kernel cannot take.
+// StageArgs' order from cin to in_pitch; buf0, buf1 and the pitches in
+// elements of the entry's type (fuse_plan at dtype_bytes 4 or 2).
+// Launches on `stream` without synchronising; returns cudaGetLastError(),
+// or cudaErrorInvalidValue for a geometry the kernel cannot take.
 int trim_conv2d_fused(const float* x, float* y, const void* const* wb,
                       const int* geom, int activation, void* stream) {
-  FusedArgs a;
-  if (!make_args(x, wb, geom, activation, &a))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)a.buf0 + a.buf1 +
-                       (size_t)kStages * kChunk * a.ring_cout) * sizeof(float);
-  if (smem > (size_t)kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      trim_conv2d_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)a.n * a.n_strips * a.n_bands;
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  trim_conv2d_fused_kernel<<<(unsigned)blocks, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(x, y, a);
-  return (int)cudaGetLastError();
+  return launch(x, y, wb, geom, activation, stream);
+}
+
+// The same on bf16 x, weights, biases and y.
+int trim_conv2d_fused_bf16(const __nv_bfloat16* x, __nv_bfloat16* y,
+                           const void* const* wb, const int* geom,
+                           int activation, void* stream) {
+  return launch(x, y, wb, geom, activation, stream);
 }
 
 const char* trim_conv2d_fused_error_string(int err) {

@@ -34,6 +34,16 @@ the zero point as its virtual 'same' padding, ``"ref"`` runs the
 The route is inference only: under grad, an input that requires grad
 raises.
 
+bf16.  bf16 x, weights and bias (one dtype) run the bf16 route of the
+kernels, as the JAX ``conv2d(impl="pallas")`` does on bf16 operands: each
+conv's output is bf16, rounded once from its f32 sum; the K > 8 adder
+tree's parts are bf16 and are summed in bf16, out of place and in the
+decomposition's order, and its epilogue runs in bf16, as JAX's ``out +
+part`` and ``ref.epilogue`` do.  Autotune records are keyed by the dtype,
+so a bf16 call never takes an f32 record.  bf16 is inference only for
+now: under grad a bf16 operand that requires grad raises (the cotangent
+kernels are f32).
+
 Autotuning.  Knobs a call leaves ``None`` (``tile_h``, ``tile_cout``,
 ``dataflow``) come from the port's autotune cache (``core/autotune.py``,
 ``repro/kernels/ops.py:520-530``): ``conv2d`` and the backward's two
@@ -178,14 +188,15 @@ class _TrimConv2dFn(torch.autograd.Function):
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class PackedConv2dWeights:
-    """One f32 conv layer packed at load time: the counterpart of the JAX
-    ``PackedConv2dWeights`` (``repro/kernels/ops.py:71-120``) without its
-    quantization leaves.  The port's kernels take LOGICAL weights, so
-    there is no padded layout: ``w`` is ``(K, K, Cin/groups, Cout)`` f32
-    and ``bias`` ``(Cout,)`` or None.  ``tile_cout``, ``tile_h`` and
-    ``dataflow`` are the frozen knob hints (from the autotune cache at
-    pack time, or given), applied where the call leaves a knob ``None``;
-    a ``None`` hint leaves it to the cache and the plan."""
+    """One f32 (or bf16) conv layer packed at load time: the counterpart
+    of the JAX ``PackedConv2dWeights`` (``repro/kernels/ops.py:71-120``)
+    without its quantization leaves.  The port's kernels take LOGICAL
+    weights, so there is no padded layout: ``w`` is ``(K, K, Cin/groups,
+    Cout)`` f32 or bf16 and ``bias`` ``(Cout,)`` of its dtype, or None.
+    ``tile_cout``, ``tile_h`` and ``dataflow`` are the frozen knob hints
+    (from the autotune cache at pack time, or given), applied where the
+    call leaves a knob ``None``; a ``None`` hint leaves it to the cache
+    and the plan."""
 
     w: torch.Tensor
     bias: torch.Tensor | None
@@ -220,12 +231,13 @@ def pack_conv2d_weights(w: torch.Tensor, bias: torch.Tensor | None = None,
                         dataflow: str | None = None, x_shape=None,
                         stride: int = 1, padding: str = "same",
                         device=None) -> PackedConv2dWeights:
-    """Pack one f32 conv layer at load time (``repro/kernels/ops.py:
-    123-180``).  w: (K, K, Cin/groups, Cout); bias: (Cout,) or None.  When
-    ``x_shape`` (the input the layer will see) is given and a knob is
-    unset, the autotune cache is consulted under the key ``conv2d`` would
-    use for that input on ``device`` (default: ``w``'s device), and the
-    record's knobs become the entry's hints.  K > :data:`MAX_NATIVE_K`
+    """Pack one f32 (or bf16) conv layer at load time
+    (``repro/kernels/ops.py:123-180``).  w: (K, K, Cin/groups, Cout);
+    bias: (Cout,) or None; bf16 stays bf16, any other float becomes f32.
+    When ``x_shape`` (the input the layer will see) is given and a knob
+    is unset, the autotune cache is consulted under the key ``conv2d``
+    would use for that input on ``device`` (default: ``w``'s device), and
+    the record's knobs become the entry's hints.  K > :data:`MAX_NATIVE_K`
     raises ``ValueError``, as in JAX: the kernel-tiled path re-slices the
     weights per sub-kernel."""
     kh, kw, cin_pg, cout = w.shape
@@ -240,14 +252,16 @@ def pack_conv2d_weights(w: torch.Tensor, bias: torch.Tensor | None = None,
         rec = autotune.knobs_for(
             (n, h, wd, cin_pg * groups), tuple(w.shape), stride=stride,
             pad=conv_pads(h, wd, kh, stride, padding), groups=groups,
+            dtype=autotune.dtype_name(w.dtype),
             device=w.device if device is None else device)
         if rec is not None:
             tile_cout = rec["tile_cout"] if tile_cout is None else tile_cout
             tile_h = rec["tile_h"] if tile_h is None else tile_h
             dataflow = rec["dataflow"] if dataflow is None else dataflow
+    def keep(t):
+        return (t if t.dtype == torch.bfloat16 else t.float()).contiguous()
     return PackedConv2dWeights(
-        w=w.float().contiguous(),
-        bias=None if bias is None else bias.float().contiguous(),
+        w=keep(w), bias=None if bias is None else keep(bias),
         groups=groups, cout=cout, tile_cout=tile_cout, tile_h=tile_h,
         dataflow=dataflow)
 
@@ -418,6 +432,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     """(Grouped) 2D convolution with optional fused bias + activation.
 
     x: (N, H, W, Cin); w: (K, K, Cin/groups, Cout); bias: (Cout,) or None;
+    all f32, or all bf16 (the bf16 route, module docstring: bf16 out);
     ``feature_group_count=Cin`` gives depthwise convolution.  K > 8 runs
     the kernel tiling's adder tree (module docstring).  ``dataflow``
     (``"carry"`` or ``"halo"``) and the tile knobs go to the kernel.  A
@@ -491,6 +506,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
         rec = autotune.knobs_for(tuple(x.shape), tuple(w.shape),
                                  stride=stride, pad=pads,
                                  groups=feature_group_count,
+                                 dtype=autotune.dtype_name(x.dtype),
                                  device=x.device)
         if rec is not None:
             tile_h = rec["tile_h"] if tile_h is None else tile_h
@@ -508,6 +524,11 @@ def _conv_core(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
     activation epilogue fused."""
     operands = (x, w) if bias is None else (x, w, bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        if x.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "bf16 conv gradients are not ported yet (the cotangent "
+                "kernels are f32; ROADMAP Queue 1 item 7): run bf16 under "
+                "torch.no_grad or inference_mode")
         return _TrimConv2dFn.apply(x, w, bias, cfg)
     return trim_conv2d(x, w, bias, stride=cfg.stride, pad=cfg.pads,
                        groups=cfg.groups, activation=cfg.activation,

@@ -10,6 +10,12 @@ float64 einsum over unfolded patches, and the quantization helpers keep
 JAX's order of operations bit for bit.  On the card, run them with
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (and
 ``torch.backends.cudnn.allow_tf32 = False``) so f32 stays f32.
+
+bf16 (the bf16 routes of the conv kernels): ``conv2d`` on bf16 operands
+sums in f32 on the widened operands, applies the epilogue in f32 and casts
+once, as JAX's bf16 kernels do; ``epilogue`` and ``maxpool2d`` run on the
+tensors they are given, so on bf16 ones in bf16 arithmetic, as JAX runs
+the K > 8 adder tree's epilogue and the pools between layers.
 """
 
 from __future__ import annotations
@@ -61,7 +67,14 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     """2D (grouped) convolution oracle.
 
     x: (N, H, W, Cin); w: (K, K, Cin/groups, Cout); bias: (Cout,) or None.
+    bf16 operands: the conv and epilogue in f32, one cast to bf16.
     """
+    if x.dtype == torch.bfloat16:
+        y = conv2d(x.float(), w.float(), stride=stride, padding=padding,
+                   feature_group_count=feature_group_count,
+                   bias=None if bias is None else bias.float(),
+                   activation=activation)
+        return y.to(torch.bfloat16)
     k, g = w.shape[0], feature_group_count
     cin_pg, cout = w.shape[2], w.shape[3]
     xp = pad_nhwc(x, conv_pads(x.shape[1], x.shape[2], k, stride, padding))

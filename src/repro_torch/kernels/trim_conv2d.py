@@ -1,11 +1,15 @@
 """3D-TrIM convolution and its two cotangents: the wrappers of the Hopper
 kernels and their plain PyTorch versions (the counterpart of
-``repro/kernels/trim_conv2d.py``, f32).
+``repro/kernels/trim_conv2d.py``, f32 and bf16).
 
 * ``trim_conv2d`` — the forward conv.  On a CUDA tensor it launches the
   hand-written kernel of ``csrc/trim_conv2d.cu`` for the chosen dataflow,
   ``"carry"`` (the paper's shadow registers) or ``"halo"`` (TrIM's
-  over-fetch); on a CPU tensor it runs :func:`trim_conv2d_plain`.
+  over-fetch), in f32 or, on bf16 operands, its bf16 instance
+  (``trim_conv2d_carry_bf16`` / ``trim_conv2d_halo_bf16``: products
+  exact, one f32 sum, one rounding to bf16 at the store, as JAX's
+  ``_tap_matmuls`` and ``_epilogue_store`` on bf16); on a CPU tensor it
+  runs :func:`trim_conv2d_plain`.  The cotangents take f32 only.
 * ``trim_conv2d_input_grad`` — dx, itself a TrIM conv: the stride-dilated
   cotangent through the same forward kernel, with the flipped, transposed
   weights and the edge pads applied virtually.
@@ -39,17 +43,33 @@ from repro_torch.kernels.ref import (ACTIVATIONS, epilogue,
 ACTIVATION_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3}
 
 # Kernel launches: each successful launch of a forward dataflow adds one to
-# its key (input gradients included: they run the forward kernel), each
-# weight-gradient call one to "wgrad", each fused-group launch
-# (``kernels/trim_conv2d_fused.py``) one to "fused", each launch of the
-# int8 kernel one to "q8_carry" or "q8_halo".
+# its key (input gradients included: they run the forward kernel; the bf16
+# instance to "carry_bf16" or "halo_bf16"), each weight-gradient call one
+# to "wgrad", each fused-group launch (``kernels/trim_conv2d_fused.py``)
+# one to "fused" (bf16: "fused_bf16"), each launch of the int8 kernel one
+# to "q8_carry" or "q8_halo".
 LAUNCHES = {"carry": 0, "halo": 0, "wgrad": 0, "fused": 0, "q8_carry": 0,
-            "q8_halo": 0}
+            "q8_halo": 0, "carry_bf16": 0, "halo_bf16": 0, "fused_bf16": 0}
+# the float dtypes of the forward and fused kernels, with their plan's
+# dtype_bytes and the suffix of their C entries and launch keys
+FLOAT_KERNELS = {torch.float32: (4, ""), torch.bfloat16: (2, "_bf16")}
 
 
 def reset_launch_counts() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+
+
+def fmaf_taps(acc: torch.Tensor, rows: torch.Tensor,
+              taps: torch.Tensor) -> None:
+    """``acc += rows @ taps`` as the bf16 kernels take it: one f32 multiply
+    and add an input channel, in channel order, in place.  ``rows`` (...,
+    Cin) and ``taps`` (Cin, ...) hold widened bf16 values, whose products
+    are exact in f32, so each step rounds once, as the kernel's fmaf does:
+    over the (ki, kj) taps in order this is the kernel's chain, bit for
+    bit, and a row's result depends on nothing but the row."""
+    for ci in range(rows.shape[-1]):
+        acc.addcmul_(rows[..., ci:ci + 1], taps[ci])
 
 
 def trim_conv2d_plain(x: torch.Tensor, w: torch.Tensor,
@@ -59,10 +79,15 @@ def trim_conv2d_plain(x: torch.Tensor, w: torch.Tensor,
     """The kernel's function in plain PyTorch: ``_tap_matmuls``
     (``repro/kernels/trim_conv2d.py:82``) as KH x KW shifted strided views
     of the padded input times ``w[ki, kj]``, accumulated in f32 in
-    ``(ki, kj)`` order, then ``_epilogue_store``'s bias and activation."""
+    ``(ki, kj)`` order, then ``_epilogue_store``'s bias and activation.
+    bf16 operands are widened and summed by :func:`fmaf_taps` (the
+    kernel's chain); bias and activation are f32 and the result is
+    rounded to bf16 once."""
     kh, kw, cin_pg, cout = w.shape
     s = stride
-    xp = pad_nhwc(x, normalize_pad(pad))
+    bf16 = x.dtype == torch.bfloat16
+    xp = pad_nhwc(x, normalize_pad(pad)).float()
+    w = w.float()
     n, hp, wp, cin = xp.shape
     h_out, w_out = (hp - kh) // s + 1, (wp - kw) // s + 1
     acc = torch.zeros((n * h_out * w_out, groups, cout // groups),
@@ -71,24 +96,35 @@ def trim_conv2d_plain(x: torch.Tensor, w: torch.Tensor,
         for kj in range(kw):
             rows = xp[:, ki:ki + (h_out - 1) * s + 1:s,
                       kj:kj + (w_out - 1) * s + 1:s, :]
+            rows = rows.reshape(-1, groups, cin_pg)
             taps = w[ki, kj].reshape(cin_pg, groups, cout // groups)
-            acc += torch.einsum("mgc,cgo->mgo",
-                                rows.reshape(-1, groups, cin_pg), taps)
-    return epilogue(acc.reshape(n, h_out, w_out, cout), bias, activation)
+            if bf16:
+                fmaf_taps(acc, rows, taps)
+            else:
+                acc += torch.einsum("mgc,cgo->mgo", rows, taps)
+    y = epilogue(acc.reshape(n, h_out, w_out, cout),
+                 None if bias is None else bias.float(), activation)
+    return y.to(x.dtype)
 
 
-def _check_operands(**tensors) -> None:
-    """Every operand f32, contiguous and on the first one's CPU or CUDA
-    device."""
+def _check_operands(dtypes=(torch.float32,), **tensors) -> None:
+    """Every operand of one dtype of ``dtypes``, contiguous and on the
+    first one's CPU or CUDA device."""
     first = next(iter(tensors.values()))
     for name, t in tensors.items():
         if t.device.type not in ("cpu", "cuda") or t.device != first.device:
             raise ValueError(f"{name} is on {t.device}, the first operand "
                              f"on {first.device}: all operands must share "
                              "a CPU or CUDA device")
-        if t.dtype != torch.float32:
+        if t.dtype not in dtypes:
+            names = " or ".join(str(d).removeprefix("torch.")
+                                for d in dtypes)
             raise TypeError(f"{name} is {t.dtype}; this kernel takes "
-                            "float32 only (int8 operands: trim_conv2d_q8)")
+                            f"{names} (int8 operands: trim_conv2d_q8)")
+        if t.dtype != first.dtype:
+            raise TypeError(f"{name} is {t.dtype} but the first operand is "
+                            f"{first.dtype}: mixed float dtypes; cast every "
+                            "operand to one")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.dim() != 4 and name != "bias":
@@ -104,10 +140,8 @@ def _check(x, w, bias, activation, dataflow) -> None:
     if dataflow not in DATAFLOWS:
         raise ValueError(f"unknown dataflow {dataflow!r}; choose from "
                          f"{DATAFLOWS}")
-    if bias is None:
-        _check_operands(x=x, w=w)
-    else:
-        _check_operands(x=x, w=w, bias=bias)
+    operands = dict(x=x, w=w) if bias is None else dict(x=x, w=w, bias=bias)
+    _check_operands(tuple(FLOAT_KERNELS), **operands)
     if bias is not None and tuple(bias.shape) != (w.shape[3],):
         raise ValueError(f"bias must be ({w.shape[3]},), got "
                          f"{tuple(bias.shape)}")
@@ -120,27 +154,30 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor,
                 tile_cout: int | None = None) -> torch.Tensor:
     """Strided (grouped) 2D convolution with fused bias + activation.
 
-    x: (N, H, W, Cin) f32; w: (KH, KW, Cin/groups, Cout) f32 (a square
-    kernel or a rectangular sub-kernel of the kernel tiling); bias: (Cout,)
-    or None.  ``pad`` is an int (symmetric) or ``((top, bottom), (left,
-    right))`` zero padding, applied inside the kernel.  ``activation`` is
+    x: (N, H, W, Cin) f32 or bf16; w: (KH, KW, Cin/groups, Cout) of x's
+    dtype (a square kernel or a rectangular sub-kernel of the kernel
+    tiling); bias: (Cout,) of x's dtype, or None.  ``pad`` is an int
+    (symmetric) or ``((top, bottom), (left, right))`` zero padding,
+    applied inside the kernel.  ``activation`` is
     one of ``None | "relu" | "gelu" | "silu"``.  ``tile_h`` / ``tile_cout``
-    override the plan's strip height (input rows) and C_out tile.
-    Returns (N, H_out, W_out, Cout) f32.
+    override the plan's strip height (input rows) and C_out tile (the
+    plan at bf16's 2 bytes an element for bf16).  Returns (N, H_out,
+    W_out, Cout) in x's dtype.
     """
     _check(x, w, bias, activation, dataflow)
+    dtype_bytes, suffix = FLOAT_KERNELS[x.dtype]
     plan = ConvPlan.build(tuple(x.shape), tuple(w.shape), stride=stride,
                           pad=pad, groups=groups, tile_h=tile_h,
-                          tile_cout=tile_cout, dataflow=dataflow)
+                          tile_cout=tile_cout, dataflow=dataflow,
+                          dtype_bytes=dtype_bytes)
     if x.device.type == "cpu":
         with torch.no_grad():
             return trim_conv2d_plain(x, w, bias, stride=stride,
                                      pad=plan.pads, groups=groups,
                                      activation=activation)
     lib = build.library("trim_conv2d")
-    launch = lib.trim_conv2d_carry if dataflow == "carry" \
-        else lib.trim_conv2d_halo
-    y = torch.empty(plan.out_shape, dtype=torch.float32, device=x.device)
+    launch = getattr(lib, f"trim_conv2d_{dataflow}{suffix}")
+    y = torch.empty(plan.out_shape, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = launch(
@@ -153,9 +190,10 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor,
             plan.cin_stride, ACTIVATION_CODES[activation], stream)
     if err != 0:
         raise RuntimeError(
-            f"trim_conv2d {dataflow} kernel launch failed: CUDA error {err} "
-            f"({lib.trim_conv2d_error_string(err).decode()}) for {plan}")
-    LAUNCHES[dataflow] += 1
+            f"trim_conv2d_{dataflow}{suffix} kernel launch failed: CUDA "
+            f"error {err} ({lib.trim_conv2d_error_string(err).decode()}) "
+            f"for {plan}")
+    LAUNCHES[dataflow + suffix] += 1
     return y
 
 

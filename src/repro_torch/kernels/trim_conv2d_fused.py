@@ -3,8 +3,10 @@ counterpart of ``repro/kernels/trim_conv2d_fused.py``; DESIGN.md §8).
 
 * :func:`trim_conv2d_fused` — the kernel wrapper.  On a CUDA tensor it
   launches the hand-written kernel of ``csrc/trim_conv2d_fused.cu``
-  (counted in ``LAUNCHES["fused"]``) or raises; on a CPU tensor it runs
-  :func:`trim_conv2d_fused_plain`, which walks the same tile geometry.
+  (counted in ``LAUNCHES["fused"]``; on bf16 operands its bf16 instance,
+  ``trim_conv2d_fused_bf16``, in ``LAUNCHES["fused_bf16"]``) or raises;
+  on a CPU tensor it runs :func:`trim_conv2d_fused_plain`, which walks the
+  same tile geometry.
 * :func:`reference_chain` — the per-layer execution of the same group
   (``ops.conv_pool_chain``: a conv launch and a separate max-pool per
   stage).  The kernel is bitwise equal to it on the card (same fmaf
@@ -24,8 +26,9 @@ import torch
 
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.ref import ACTIVATIONS, epilogue
-from repro_torch.kernels.trim_conv2d import (ACTIVATION_CODES, LAUNCHES,
-                                             _check_operands)
+from repro_torch.kernels.trim_conv2d import (ACTIVATION_CODES,
+                                             FLOAT_KERNELS, LAUNCHES,
+                                             _check_operands, fmaf_taps)
 
 
 def _validate(x, weights, biases, group, activation) -> None:
@@ -71,8 +74,13 @@ def trim_conv2d_fused_plain(x: torch.Tensor, weights, biases, *, group,
     max over shifted strided views, and zeroes the rows and columns
     outside its valid pooled extent; the last stage's tiles are stitched
     into the output.  A wrong range in the geometry changes the result,
-    so the CPU tests check the geometry through this function."""
-    dev = x.device
+    so the CPU tests check the geometry through this function.  bf16
+    operands are summed by :func:`~repro_torch.kernels.trim_conv2d.
+    fmaf_taps` (the kernel's chain), the epilogue is f32, and each stage
+    is rounded to bf16 before its pool, as the JAX kernel casts it into
+    its scratch: so the result is bitwise the plain per-layer bf16
+    chain's."""
+    dev, bf16 = x.device, x.dtype == torch.bfloat16
     s0 = group.stages[0]
     ns, nb = group.n_strips, group.n_bands
     ri, rv = _tile_index(s0.in_start, s0.in_step, s0.in_rows, ns, s0.h_in,
@@ -87,6 +95,7 @@ def trim_conv2d_fused_plain(x: torch.Tensor, weights, biases, *, group,
         rows, cols = st.conv_rows, st.conv_cols
         acc = torch.zeros(t.shape[:3] + (rows, cols, st.cout),
                           dtype=torch.float32, device=dev)
+        wf = w.float()
         for ki in range(k):
             for kj in range(k):
                 # one (positions, Cin) x (Cin, Cout) product a tap on a
@@ -94,9 +103,13 @@ def trim_conv2d_fused_plain(x: torch.Tensor, weights, biases, *, group,
                 # matmul on the strided view may round differently
                 taps = t[:, :, :, ki:ki + (rows - 1) * s + 1:s,
                          kj:kj + (cols - 1) * s + 1:s, :]
-                acc += (taps.reshape(-1, st.cin) @ w[ki, kj]) \
-                    .reshape(acc.shape)
-        y = epilogue(acc, b, activation)
+                if bf16:
+                    fmaf_taps(acc, taps.float(), wf[ki, kj])
+                else:
+                    acc += (taps.reshape(-1, st.cin) @ wf[ki, kj]) \
+                        .reshape(acc.shape)
+        y = epilogue(acc, None if b is None else b.float(),
+                     activation).to(x.dtype)
         if st.pooled:
             ps, pw = st.pool_stride, st.pool_window
             pr, pc = st.pool_rows, st.pool_cols
@@ -144,20 +157,26 @@ def kernel_geometry(group) -> list[int]:
 
 def trim_conv2d_fused(x: torch.Tensor, weights, biases, *, group,
                       activation: str | None = "relu") -> torch.Tensor:
-    """One fused group, not differentiable: x (N, H, W, Cin0) f32, per
-    stage ``w (K, K, Cin, Cout)`` and ``b (Cout,)`` or None (zeros).
-    Returns the last stage's pooled output (N, Hp, Wp, Cout)."""
+    """One fused group, not differentiable: x (N, H, W, Cin0) f32 or bf16,
+    per stage ``w (K, K, Cin, Cout)`` and ``b (Cout,)`` or None (zeros), of
+    x's dtype.  Returns the last stage's pooled output (N, Hp, Wp, Cout)
+    in x's dtype.  The group's tile is planned for one element size
+    (:class:`~repro_torch.core.fuse_plan.BF16FusedGroup` for bf16); a
+    bf16 group's tile may not fit the f32 kernel, which then raises."""
     _validate(x, weights, biases, group, activation)
-    _check_operands(x=x, **{f"w{i}": w for i, w in enumerate(weights)})
+    floats = tuple(FLOAT_KERNELS)
+    _check_operands(floats, x=x,
+                    **{f"w{i}": w for i, w in enumerate(weights)})
     for b in biases:
         if b is not None:
-            _check_operands(x=x, bias=b)
+            _check_operands(floats, x=x, bias=b)
     if x.device.type == "cpu":
         with torch.no_grad():
             return trim_conv2d_fused_plain(x, weights, biases, group=group,
                                            activation=activation)
+    suffix = FLOAT_KERNELS[x.dtype][1]
     lib = build.library("trim_conv2d_fused")
-    y = torch.empty(group.out_shape, dtype=torch.float32, device=x.device)
+    y = torch.empty(group.out_shape, dtype=x.dtype, device=x.device)
     ptrs = [p for w, b in zip(weights, biases)
             for p in (w.data_ptr(), None if b is None else b.data_ptr())]
     wb = (ctypes.c_void_p * len(ptrs))(*ptrs)
@@ -165,16 +184,16 @@ def trim_conv2d_fused(x: torch.Tensor, weights, biases, *, group,
     geom_arr = (ctypes.c_int * len(geom))(*geom)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.trim_conv2d_fused(x.data_ptr(), y.data_ptr(), wb,
-                                    geom_arr, ACTIVATION_CODES[activation],
-                                    stream)
+        err = getattr(lib, f"trim_conv2d_fused{suffix}")(
+            x.data_ptr(), y.data_ptr(), wb, geom_arr,
+            ACTIVATION_CODES[activation], stream)
     if err != 0:
         raise RuntimeError(
-            f"trim_conv2d_fused kernel launch failed: CUDA error {err} "
-            f"({lib.trim_conv2d_fused_error_string(err).decode()}) for "
+            f"trim_conv2d_fused{suffix} kernel launch failed: CUDA error "
+            f"{err} ({lib.trim_conv2d_fused_error_string(err).decode()}) for "
             f"group {group.label} (T={group.strip_rows}, "
             f"B={group.band_cols}, n={group.n})")
-    LAUNCHES["fused"] += 1
+    LAUNCHES["fused" + suffix] += 1
     return y
 
 

@@ -10,7 +10,10 @@ and serves or trains it.  Every function is differentiable: under grad,
 each conv runs the TrIM forward, input-gradient and weight-gradient kernels
 (``kernels/ops.py``), and max-pool's backward is ``F.max_pool2d``'s.
 Activations are NHWC and conv weights ``(K, K, Cin/groups, Cout)``.  A
-conv entry is ``{"w", "b"}`` (f32); after :func:`conv2d_pack_params` /
+conv entry is ``{"w", "b"}`` (f32, or bf16: a bf16 tree runs the bf16
+routes of the conv and fused kernels, and its pools, global mean and head
+in bf16, as the JAX functions run a bf16 tree; inference only); after
+:func:`conv2d_pack_params` /
 :func:`cnn_pack_params`, ``{"packed": PackedConv2dWeights}`` (the same
 f32 weights with the autotune cache's knobs as hints); or, after
 :func:`calibrate_conv2d`, ``{"packed": QuantizedConv2dWeights}``, which
@@ -105,8 +108,13 @@ def calibrate_conv2d(p: dict, x_batch: torch.Tensor, *,
     QuantizedConv2dWeights}``, which replaces ``{"w", "b"}`` and runs the
     int8 route through :func:`conv2d_apply`.  The scalar arithmetic runs
     on the CPU in f32, where division is exact-rounded as in JAX (on the
-    card PyTorch divides by a Python scalar through its reciprocal).
+    card PyTorch divides by a Python scalar through its reciprocal).  The
+    layer and the batch are f32: the int8 route quantizes f32 only.
     """
+    for name, t in (("weights", p["w"]), ("sample batch", x_batch)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"calibrate_conv2d takes f32 {name}, got "
+                            f"{t.dtype}")
     xf = x_batch.float()
     lo = torch.clamp_max(xf.min(), 0.0).cpu()
     hi = torch.clamp_min(xf.max(), 0.0).cpu()
@@ -262,7 +270,8 @@ def cnn_apply_from_layers(p: dict, layers_list, x: torch.Tensor, *,
     :class:`~repro_torch.core.fuse_plan.FusedGroupPlan` built for ``x``'s
     batch as one launch of the fused kernel, interior activations in
     shared memory, each group on its ``conv2d_fused:`` record's tile where
-    one exists (``use_autotune_cache=True``); depth-1 groups run the
+    one exists (``use_autotune_cache=True``), planned for x's dtype (a
+    bf16 x plans bf16 tiles); depth-1 groups run the
     per-layer path, and the output is bitwise the same either way.  Pass
     ``fuse_plan`` (implies ``fused=True``) to run a prebuilt plan, e.g.
     a segment's of a :class:`~repro_torch.core.fuse_plan.GraphFusePlan`.
@@ -281,8 +290,10 @@ def cnn_apply_from_layers(p: dict, layers_list, x: torch.Tensor, *,
             raise ValueError(f"fused execution runs the TrIM kernels; "
                              f"impl={impl!r} needs fused=False")
         plan = fuse_plan if fuse_plan is not None else \
-            FusedGroupPlan.build(layers_list, n=x.shape[0],
-                                 use_autotune_cache=True, device=x.device)
+            FusedGroupPlan.build(
+                layers_list, n=x.shape[0], use_autotune_cache=True,
+                device=x.device,
+                dtype_bytes=2 if x.dtype == torch.bfloat16 else 4)
         for g in plan.groups:
             lo, hi = g.start, g.start + g.depth
             if not g.fused:
@@ -572,17 +583,29 @@ class TrimCNN(nn.Module):
 
     @classmethod
     def random(cls, topology, *, n_classes: int | None = None,
-               seed: int = 0, device=None, **kw) -> "TrimCNN":
+               seed: int = 0, device=None, dtype=torch.float32,
+               **kw) -> "TrimCNN":
         """Seeded random weights (``torch.Generator().manual_seed(seed)``)
-        on ``device`` (default ``"cuda"``)."""
+        on ``device`` (default ``"cuda"``); ``dtype=torch.bfloat16`` casts
+        the same f32 draws to bf16 once."""
         dev = resolve_device(device)
         decl = (cnn_params_from_graph(topology, n_classes=n_classes)
                 if _is_graph(topology) else
                 cnn_params_from_layers(network_layers(topology),
                                        n_classes=n_classes))
         tree = init_params(decl, torch.Generator().manual_seed(seed),
-                           device=dev)
+                           device=dev, dtype=dtype)
         return cls(topology, tree, **kw)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The floating dtype the module computes in: its first float
+        parameter's (f32 for a calibrated int8 tree, whose activations
+        enter in f32)."""
+        for t in self.parameters():
+            if t.dtype.is_floating_point:
+                return t.dtype
+        return torch.float32
 
     def tree(self) -> dict:
         """The parameters as the functional tree."""

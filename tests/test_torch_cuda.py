@@ -1444,3 +1444,141 @@ def test_tiny_graphs_on_the_card(cuda, net):
     tol = TOL * max(1.0, want.abs().max().item())
     assert (carry - want).abs().max().item() <= tol
     assert (carry.cpu() - cpu).abs().max().item() <= tol
+
+
+# ---------------------------------------------------------------------------
+# The bf16 routes: trim_conv2d_carry_bf16 / _halo_bf16 and
+# trim_conv2d_fused_bf16.  Their plain versions take the kernels' own fmaf
+# chain (products exact in f32), so the two agree bit for bit where the
+# epilogue is exact (none, relu) and within one bf16 ulp where CUDA's and
+# PyTorch's tanh / exp may differ in the last f32 bit (gelu, silu).
+# ---------------------------------------------------------------------------
+
+def _bf16_ulps(a, b) -> float:
+    """max |a - b| in bf16 ulps at max(|a|, |b|) (of the normal range)."""
+    a, b = a.double(), b.double()
+    m = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.pow(2.0, torch.floor(torch.log2(m)) - 7)
+    return ((a - b).abs() / ulp).max().item()
+
+
+# the f32 edge cases in bf16; an offset of one element is 2 bytes (plain
+# loads of the window and the weights)
+BF16_CASES = [c + (0,) for c in CASES] + [
+    (n, h, w, cin, cout, k, s, g, "same", "relu", tile_h, tile_cout,
+     int(off)) for n, h, w, cin, cout, k, s, g, tile_h, tile_cout, off
+    in EDGE_CASES]
+
+
+@pytest.mark.parametrize("case", BF16_CASES,
+                         ids=[str(i) for i in range(len(BF16_CASES))])
+def test_bf16_kernels_match_plain_within_an_ulp(cuda, case):
+    n, h, w, cin, cout, k, s, g, padding, act, tile_h, tile_cout, off = case
+    gen = torch.Generator(device="cuda").manual_seed(len(BF16_CASES))
+
+    def draw(shape, scale=1.0):
+        flat = torch.randn((off + torch.Size(shape).numel(),),
+                           generator=gen, device=cuda) * scale
+        return flat.bfloat16()[off:].view(shape)
+    x = draw((n, h, w, cin))
+    wt = draw((k, k, cin // g, cout), (k * k * cin // g) ** -0.5)
+    b = draw((cout,))
+    kw = dict(stride=s, pad=conv_pads(h, w, k, s, padding), groups=g,
+              activation=act)
+    plain = tc.trim_conv2d_plain(x, wt, b, **kw)
+    out = {}
+    for df in ("carry", "halo"):
+        before = dict(tc.LAUNCHES)
+        out[df] = tc.trim_conv2d(x, wt, b, dataflow=df, tile_h=tile_h,
+                                 tile_cout=tile_cout, **kw)
+        assert tc.LAUNCHES[f"{df}_bf16"] == before[f"{df}_bf16"] + 1
+        assert tc.LAUNCHES[df] == before[df]
+    torch.cuda.synchronize()
+    for df, y in out.items():
+        assert y.dtype == torch.bfloat16 and y.shape == plain.shape
+        if act in (None, "relu"):
+            assert torch.equal(y, plain), df
+        assert _bf16_ulps(y, plain) <= 1.0, df
+    assert torch.equal(out["carry"], out["halo"])
+    # batch invariance: a row alone gives the same bits
+    one = tc.trim_conv2d(x[:1].contiguous(), wt, b, **kw)
+    assert torch.equal(one[0], out["carry"][0])
+
+
+@pytest.mark.parametrize("case", FUSED_CASES,
+                         ids=[str(i) for i in range(len(FUSED_CASES))])
+def test_bf16_fused_kernel_equals_the_chain_bitwise(cuda, case):
+    from repro_torch.core.fuse_plan import BF16FusedGroup, build_group
+    from repro_torch.core.model import ConvLayer
+    from repro_torch.kernels import trim_conv2d_fused as tfu
+    spec, act, with_bias, tiles = case
+    topo = [ConvLayer(*a) for a in spec]
+    gen = torch.Generator(device="cuda").manual_seed(len(FUSED_CASES) + 1)
+    x = torch.randn((2, topo[0].ifmap, topo[0].ifmap, topo[0].in_channels),
+                    generator=gen, device=cuda).bfloat16()
+    ws = [(torch.randn((l.kernel, l.kernel, l.in_channels, l.out_channels),
+                       generator=gen, device=cuda)
+           / (l.kernel * l.in_channels ** 0.5)).bfloat16() for l in topo]
+    bs = [torch.randn((l.out_channels,), generator=gen, device=cuda)
+          .bfloat16() if with_bias else None for l in topo]
+    chain = tfu.reference_chain(x, ws, bs, group=build_group(topo, 0, n=2),
+                                activation=act)
+    for t, b in tiles:
+        g = build_group(topo, 0, n=2, strip_rows=t, band_cols=b,
+                        dtype_bytes=2)
+        assert isinstance(g, BF16FusedGroup)
+        before = tc.LAUNCHES["fused_bf16"]
+        one = tfu.trim_conv2d_fused(x, ws, bs, group=g, activation=act)
+        two = tfu.trim_conv2d_fused(x, ws, bs, group=g, activation=act)
+        torch.cuda.synchronize()
+        assert tc.LAUNCHES["fused_bf16"] == before + 2
+        plain = tfu.trim_conv2d_fused_plain(x, ws, bs, group=g,
+                                            activation=act)
+        assert one.dtype == torch.bfloat16 and one.shape == g.out_shape
+        assert torch.equal(one, two), (t, b)
+        assert torch.equal(one, chain), (t, b)
+        if act in (None, "relu"):
+            assert torch.equal(one, plain), (t, b)
+        else:   # stage by stage, an ulp may carry into the next stage
+            assert (one.float() - plain.float()).abs().max().item() <= \
+                3e-2 * plain.float().abs().max().item(), (t, b)
+
+
+def test_bf16_cuda_calls_never_reach_the_plain_versions(cuda, monkeypatch):
+    """A bf16 CUDA tensor launches its kernel or raises: spies on the plain
+    versions stay at zero calls through ops.conv2d (K 3 and the K 11
+    adder tree), the fused group and a bf16 network served per layer and
+    fused."""
+    from repro_torch.core.model import ConvLayer
+    from repro_torch.core.serving import ServingEngine
+    from repro_torch.kernels import trim_conv2d_fused as tfu
+    from repro_torch.models import layers
+    calls = []
+    for mod, name in ((tc, "trim_conv2d_plain"),
+                      (tfu, "trim_conv2d_fused_plain")):
+        monkeypatch.setattr(mod, name,
+                            lambda *a, _n=name, **k: calls.append(_n))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((2, 23, 23, 8), generator=gen, device=cuda).bfloat16()
+    w3 = torch.randn((3, 3, 8, 16), generator=gen, device=cuda).bfloat16()
+    w11 = torch.randn((11, 11, 8, 16), generator=gen,
+                      device=cuda).bfloat16()
+    tc.reset_launch_counts()
+    assert ops.conv2d(x, w3).dtype == torch.bfloat16
+    ops.conv2d(x, w11, stride=4, padding="valid")
+    assert tc.LAUNCHES["carry_bf16"] == 1 + ops.conv_launches(11)
+    topo = [ConvLayer("a", 16, 3, 8, 3, padding=1),
+            ConvLayer("b", 16, 8, 8, 3, padding=1),
+            ConvLayer("c", 8, 8, 16, 3, padding=1)]
+    model = layers.TrimCNN.random(topo, n_classes=4, device=cuda,
+                                  dtype=torch.bfloat16)
+    xs = torch.randn((2, 16, 16, 3), generator=gen, device=cuda).cpu()
+    rows = {}
+    for fused in (False, True):
+        eng = ServingEngine.for_topology(topo, model, buckets=(1, 2),
+                                         device=cuda, fused=fused)
+        rows[fused] = [eng.forward_one(r) for r in xs.numpy()]
+    assert all((a == b).all() for a, b in zip(rows[False], rows[True]))
+    assert tc.LAUNCHES["fused_bf16"] >= 2
+    assert calls == []
+    assert tc.LAUNCHES["carry"] == tc.LAUNCHES["fused"] == 0

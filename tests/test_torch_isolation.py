@@ -1,7 +1,8 @@
 """The port stands alone and never falls back.
 
 * no module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
-  ``jax`` or anything of the JAX package ``repro`` (an AST scan);
+  ``jax``, anything of the JAX package ``repro``, or ``ml_dtypes`` (JAX's
+  bf16 numpy type, absent where JAX is) (an AST scan);
 * an entry point given no device raises when PyTorch sees no GPU;
 * the kernel wrappers (conv, fused group, flash attention, conv1d) raise on
   tensors their kernels cannot take (the CUDA cases themselves run in
@@ -75,7 +76,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
-            assert root not in ("jax", "jaxlib", "repro"), (path, mod)
+            assert root not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
+                (path, mod)
 
 
 def test_no_device_means_cuda_and_raises_without_a_gpu(monkeypatch):
@@ -238,8 +240,17 @@ def test_plain_path_does_not_count_launches():
         tc.trim_conv2d_q8(torch.ones((1, 6, 6, 2), dtype=torch.int8),
                           torch.ones((3, 3, 2, 2), dtype=torch.int8), None,
                           torch.ones(2), zero_point=3, pad=1, dataflow=df)
+        tc.trim_conv2d(torch.ones((1, 6, 6, 2), dtype=torch.bfloat16),
+                       torch.ones((3, 3, 2, 2), dtype=torch.bfloat16),
+                       pad=1, dataflow=df)
+    tfu.fused_group_apply(
+        torch.ones((1, 6, 6, 2), dtype=torch.bfloat16),
+        [torch.ones((3, 3, 2, 3), dtype=torch.bfloat16),
+         torch.ones((3, 3, 3, 2), dtype=torch.bfloat16)], [None, None],
+        group=build_group(FUSED_TOPO, 0, n=1, strip_rows=2, dtype_bytes=2))
     assert tc.LAUNCHES == {"carry": 0, "halo": 0, "wgrad": 0, "fused": 0,
-                           "q8_carry": 0, "q8_halo": 0}
+                           "q8_carry": 0, "q8_halo": 0, "carry_bf16": 0,
+                           "halo_bf16": 0, "fused_bf16": 0}
 
 
 def test_build_raises_without_nvcc(monkeypatch):

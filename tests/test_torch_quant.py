@@ -250,10 +250,11 @@ def test_q8_plan_holds_the_window_in_bytes():
     dw = ConvPlan.build((1, 16, 16, 8), (3, 3, 1, 8), pad=1, groups=8,
                         dtype_bytes=1)
     assert dw.cin_stride == 4
+    # 4 (f32), 2 (bf16) and 1 (int8) are the kernels' element sizes
     with pytest.raises(ValueError, match="dtype_bytes"):
         ConvPlan(n=1, h=8, w=8, cin=4, cout=4, kh=3, kw=3, stride=1,
                  pads=((1, 1), (1, 1)), groups=1, tile_h=1, tile_w=1,
-                 tile_cout=4, dtype_bytes=2)
+                 tile_cout=4, dtype_bytes=3)
 
 
 def test_q8_plan_constants_match_the_kernel():
