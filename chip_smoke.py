@@ -326,10 +326,35 @@ Phases, each raising on failure (each prints its seconds):
    rows the carry rows too), each forward launching only bf16 entries,
    and each bf16 row within ``BF16_F32_TOLERANCE`` of max|f32 row| of
    the f32 serving of the same params; p50, p99 and throughput;
-34. the kernel JSON line (sixteen kernels; the launches of trim_conv1d
+34. lm_bf16 — the bf16 routes of the conv1d and flash kernels and bf16
+   LM inference: ``trim_conv1d_bf16`` at every case of
+   ``conv1d_cases`` bitwise equal to its plain version (f32 sums of
+   exact products, one rounding), ``flash_attention_bf16`` at cases (a),
+   (b), (c) and (f) of ``attention_cases`` within
+   ``FLASH_BF16_TOLERANCE`` of max|o| of its plain version (the
+   deviation printed) and repeatable bitwise; device ms from CUDA graphs
+   beside the plain versions', ``F.conv1d`` and SDPA on bf16 ((a), (b))
+   and the bound (989 TFLOP/s of bf16 or 2 bytes an element at 3.35
+   TB/s); then full-width qwen2.5-3b (2 x 4096), recurrentgemma-2b (2 x
+   4096) and falcon-mamba-7b (2 x 2048), each drawn in bf16 on the card
+   by the port's ``init_params`` (norm scales and scan states f32, as in
+   JAX) after its f32 twin of the earlier phases is freed: two timed
+   prefills through ``make_prefill_step`` launching only the bf16 routes
+   (36 flash; 18 conv1d and 8 flash; 64 conv1d a forward), ms a
+   forward beside this call's f32 figure, peak memory, finite bf16
+   logits and their distance from the f32 twin (the same weights
+   widened; printed: the full-width stacks are chaotic under the JAX
+   initialiser); the first ``LM_BF16_CUT`` layers sublayer by sublayer
+   in bf16 and f32 on the same bf16 input (MLPs and mixers within
+   ``LM_BF16_TOLERANCE``, the attention core's bf16 kernel against the
+   f32 kernel on the same q, k, v within ``FLASH_BF16_TOLERANCE``); and
+   ``BF16_REQUESTS`` greedy requests through ``make_decode_step`` on a
+   bf16 state (ms a step, the tokens; no kernel runs in decode);
+35. the kernel JSON line (eighteen kernels; the launches of trim_conv1d
    and flash_attention include the prefills' and the training phases',
    the flash backward kernels' and conv1d backward kernels' the training
-   steps', the bf16 entries' the bf16 serving phase's), then ``{"ok":
+   steps', the bf16 conv entries' the bf16 serving phase's, the bf16
+   conv1d and flash entries' the lm_bf16 prefills'), then ``{"ok":
    true, "device": ...}`` last.
 
 Exits non-zero without a result when no GPU is visible.
@@ -488,6 +513,14 @@ MAMBA_GRAD_LAYERS = 2
 # order (dw over 2 x 1024 positions), ~1e-7 through two layers.
 MAMBA_GRAD_TOLERANCE = 1e-5
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32
+# lm_bf16 (phase 34): bf16 against f32 per sublayer on the same bf16
+# input, of max|f32 out| (DESIGN.md §5's bf16 tolerance); the bf16 flash
+# kernel against its plain version (and the f32 kernel), of max|o|: both
+# f32 inside, one rounding to bf16 (2^-8 of a value) apart at most
+LM_BF16_TOLERANCE = 3e-2
+FLASH_BF16_TOLERANCE = 1e-2
+LM_BF16_CUT = 3             # layers held per sublayer (one rec, rec, att)
+BF16_REQUESTS, BF16_PROMPT, BF16_GEN = 4, 16, 8
 CROSS_PROMPT = 256          # decode-vs-prefill prompt at the depth-1 cut
 TRAIN_BATCH = 8
 TRAIN_STEPS = 6
@@ -530,9 +563,9 @@ def flash_sass_check() -> dict:
     """Disassemble the built flash-attention libraries (``cuobjdump
     -sass``) and count, in each kernel instance, the tensor-core
     instructions on TF32 operands (``HMMA.1688.F32.TF32``): every
-    narrow-route forward instance (D <= 256) and every backward instance
-    (dQ and dK/dV at Dp 64, 128, 256) must issue them, the wide route
-    none."""
+    narrow-route forward instance (D <= 256; f32 and bf16 at Dp 64, 128,
+    256) and every backward instance (dQ and dK/dV at Dp 64, 128, 256)
+    must issue them, the wide route (f32 and bf16) none."""
     import shutil
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -553,11 +586,14 @@ def flash_sass_check() -> dict:
     narrow, wide = of("flash_attention_kernel"), of("flash_attention_wide")
     bwd = {**of("flash_attention_bwd_dq_kernel"),
            **of("flash_attention_bwd_dkdv_kernel")}
-    if len(narrow) != 3 or min(narrow.values()) == 0 or \
-            any(wide.values()) or len(bwd) != 6 or min(bwd.values()) == 0:
+    if len(narrow) != 6 or min(narrow.values()) == 0 or len(wide) != 2 \
+            or any(wide.values()) or len(bwd) != 6 or min(bwd.values()) == 0:
         raise AssertionError(f"flash SASS: TF32 HMMA counts {counts}")
     print("flash SASS: HMMA.1688.F32.TF32 instructions per narrow "
-          "instance " + ", ".join(str(n) for n in narrow.values())
+          "instance, f32 " + ", ".join(
+              str(n) for f, n in narrow.items() if "bfloat16" not in f)
+          + ", bf16 " + ", ".join(
+              str(n) for f, n in narrow.items() if "bfloat16" in f)
           + f"; wide route {sum(wide.values())}; backward dQ / dK/dV "
           "instances " + ", ".join(str(n) for n in bwd.values()))
     return counts
@@ -4216,7 +4252,12 @@ def leaf_errs(grads, want) -> list:
 
 
 def family_counts(tc1, fa) -> dict:
-    return {**tc1.LAUNCHES, **tc1.BWD_LAUNCHES,
+    """The f32 routes' launches of an ssm / hybrid training path (the
+    bf16 routes have no backward, so a training step launches none)."""
+    if tc1.LAUNCHES["trim_conv1d_bf16"] or fa.LAUNCHES["flash_attention_bf16"]:
+        raise AssertionError(f"a training path launched a bf16 route: "
+                             f"{tc1.LAUNCHES} {fa.LAUNCHES}")
+    return {"trim_conv1d": tc1.LAUNCHES["trim_conv1d"], **tc1.BWD_LAUNCHES,
             "flash_attention": fa.LAUNCHES["flash_attention"],
             **fa.BWD_LAUNCHES}
 
@@ -5052,6 +5093,383 @@ def bf16_phase(torch) -> dict:
 
 
 
+def check_bf16_conv1d(torch) -> list:
+    """The conv1d kernel's bf16 route (``trim_conv1d_bf16``) against its
+    plain version, bit for bit, at every case of :func:`conv1d_cases`;
+    at the prefills' shapes its device ms from CUDA graphs beside the
+    plain version's (eager), ``F.conv1d`` on bf16 (the yardstick, CUDA
+    graphs) and the bound (2 bytes an element at 3.35 TB/s)."""
+    import torch.nn.functional as F
+    from repro_torch.core.conv_plan import Conv1dPlan
+    from repro_torch.kernels import trim_conv1d as tc1
+
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    bf = torch.bfloat16
+    rows = []
+    print("bf16 conv1d kernel check (bitwise vs plain; kernel and F.conv1d "
+          "ms from CUDA graphs, plain eager):")
+    print(f"  {'case':14s} {'shape':>22s} {'vec':>3s} {'T_l':>4s} "
+          f"{'grid':>14s} {'kernel':>8s} {'plain':>8s} {'F.conv1d':>8s} "
+          f"{'bound':>8s} by     GB/s")
+    for name, b, length, d, k, tile_l, strided in conv1d_cases():
+        xz = torch.randn((b, length, 2 * d if strided else d),
+                         generator=gen, device="cuda").to(bf)
+        x = xz[..., :d]
+        w = (0.5 * torch.randn((k, d), generator=gen, device="cuda")).to(bf)
+        out = tc1.trim_conv1d(x, w, tile_l=tile_l)
+        plain = tc1.trim_conv1d_plain(x, w, tile_l=tile_l)
+        torch.cuda.synchronize()
+        if out.dtype != bf or not torch.equal(out, plain):
+            raise AssertionError(
+                f"bf16 conv1d {name}: the kernel differs from its plain "
+                f"version (max|diff| "
+                f"{(out.float() - plain.float()).abs().max().item()})")
+        vec = tc1.bf16_vec(x, w)
+        plan = Conv1dPlan.build((b, length, d), (k, d), tile_l=tile_l,
+                                dtype_bytes=2, vec=vec)
+        bound, by = plan.bound()
+        row = dict(name=name, err=0.0, bound=bound, by=by, kernel=None,
+                   plain=None, library=None)
+        line = (f"  {name:14s} {str((b, length, d, k)):>22s} {vec:3d} "
+                f"{plan.tile_l:4d} {str(plan.grid):>14s}")
+        if length * d >= 4096 * 2560:       # the prefills' shapes: timed
+            xt = x.transpose(1, 2).contiguous()     # (B, D, L) for cuDNN
+            wt = w.t()[:, None, :].contiguous()     # (D, 1, K)
+            row.update(
+                kernel=time_graph_ms(torch, lambda: tc1.trim_conv1d(x, w)),
+                plain=time_ms(torch, lambda: tc1.trim_conv1d_plain(x, w),
+                              reps=3),
+                library=time_graph_ms(torch, lambda: F.conv1d(
+                    xt, wt, padding=k - 1, groups=d)[..., :length]))
+            line += (f" {row['kernel']:8.4f} {row['plain']:8.4f} "
+                     f"{row['library']:8.4f} {bound:8.4f} {by:6s} "
+                     f"{plan.min_bytes() / row['kernel'] / 1e6:6.0f}")
+            del xt, wt
+        rows.append(row)
+        print(line)
+        del xz, x, w, out, plain
+    torch.cuda.empty_cache()
+    return rows
+
+
+BF16_ATTENTION_CASES = ("a_prefill", "b_continue", "c_rgemma", "f_d320")
+
+
+def check_bf16_flash(torch) -> list:
+    """The flash kernel's bf16 route (``flash_attention_bf16``) at cases
+    (a), (b), (c) and (f) of :func:`attention_cases` against its plain
+    version within ``FLASH_BF16_TOLERANCE`` of max|o| (the deviation
+    printed), repeatable bitwise; device ms from CUDA graphs beside the
+    plain version's (eager), ``F.scaled_dot_product_attention`` on bf16
+    at (a) and (b) (queries right-aligned: (b) through an explicit mask;
+    none at (c), soft cap, or (f)), the bound at 989 TFLOP/s or 2 bytes
+    an element at 3.35 TB/s, and the kernel's own route's ceiling (its
+    TF32 mma: 1.5 x FLOPs at 495 TFLOP/s for D <= 256; f32 FFMA above)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    bf = torch.bfloat16
+    rows = []
+    print("bf16 attention kernel check (ms: kernel and SDPA from CUDA "
+          "graphs, plain eager):")
+    print(f"  {'case':12s} {'max_err':>9s} {'of max|o|':>9s} "
+          f"{'kernel':>9s} {'plain':>9s} {'sdpa':>9s} {'bound':>8s} by    "
+          f"{'route_b':>8s} TFLOP/s")
+    for name, b, lq, lk, hq, hkv, d, causal, cap, win in attention_cases():
+        if name not in BF16_ATTENTION_CASES:
+            continue
+        q = torch.randn((b, lq, hq, d), generator=gen, device="cuda").to(bf)
+        k = torch.randn((b, lk, hkv, d), generator=gen, device="cuda").to(bf)
+        v = torch.randn((b, lk, hkv, d), generator=gen, device="cuda").to(bf)
+        kw = dict(causal=causal, soft_cap=cap, window=win)
+        out = fa.flash_attention(q, k, v, **kw)
+        again = fa.flash_attention(q, k, v, **kw)
+        plain = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - plain.float()).abs().max().item()
+        rel = err / plain.float().abs().max().item()
+        if out.dtype != bf or not np.isfinite(err) or \
+                rel > FLASH_BF16_TOLERANCE or not torch.equal(out, again):
+            raise AssertionError(f"bf16 attention {name}: {rel:.3e} of "
+                                 f"max|o| from the plain version (tol "
+                                 f"{FLASH_BF16_TOLERANCE}), or not "
+                                 "repeatable")
+        t = {"kernel": time_graph_ms(torch, lambda: fa.flash_attention(
+                q, k, v, **kw), reps=5),
+             "plain": time_ms(torch, lambda: fa.flash_attention_plain(
+                 q, k, v, **kw), reps=2),
+             "library": None}
+        if name in ("a_prefill", "b_continue"):
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            q_pos = torch.arange(lq, device="cuda")[:, None] + lk - lq
+            mask = None if lq == lk else \
+                q_pos >= torch.arange(lk, device="cuda")[None, :]
+            t["library"] = time_graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True), reps=5)
+        _, _, flops, nbytes, ffma = attention_bound(b, lq, lk, hq, hkv, d,
+                                                    causal, win)
+        bd = bf16_bound(flops, nbytes // 2)
+        route = (1.5 * flops / PEAK_TF32_FLOPS * 1e3 if d <= 256 else ffma)
+        rows.append(dict(name=name, err=err, rel=rel, bound=bd["bound"],
+                         by=bd["by"], route_bound=route, **t))
+        lib = "-" if t["library"] is None else f"{t['library']:9.3f}"
+        print(f"  {name:12s} {err:9.2e} {rel:9.2e} {t['kernel']:9.3f} "
+              f"{t['plain']:9.3f} {lib:>9s} {bd['bound']:8.3f} "
+              f"{bd['by']:5s} {route:8.3f} {flops / t['kernel'] / 1e9:7.2f}")
+        del q, k, v, out, again, plain
+    torch.cuda.empty_cache()
+    return rows
+
+
+def widened(tree):
+    """A parameter tree's f32 twin: every leaf ``.float()`` (exact)."""
+    if isinstance(tree, dict):
+        return {k: widened(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def bf16_layer_check(torch, cfg, params, tokens) -> list:
+    """The first ``LM_BF16_CUT`` layers along the bf16 forward: each
+    sublayer (attention, MLP, the rec or mamba mixer) run in bf16 and in
+    f32 (the layer's params widened) on the same bf16 input.  Checked:
+    the MLPs and mixers within ``LM_BF16_TOLERANCE`` of max|f32 out|; an
+    attention sublayer's core, the bf16 flash kernel against the f32
+    kernel on the same bf16-rounded q, k and v, within
+    ``FLASH_BF16_TOLERANCE`` of max|o|.  Printed: the attention
+    sublayer's whole bf16 vs f32 distance, where bf16's rounding of q
+    and k (~2^-8 of scores of ~2000 under the JAX initialiser, PERF.md
+    §6) reorders near-tied softmax rows.  Returns [(layer, name, error,
+    checked)]."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba as M
+    from repro_torch.models import rglru as R
+    from repro_torch.models import transformer as T
+    c32 = cfg.replace(dtype="float32")
+    pos = torch.arange(tokens.shape[1], device="cuda")[None]
+    out = []
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    def check(i, name, fn, pb, pf, h):
+        yb, yf = fn(pb, h, cfg), fn(pf, h.float(), c32)
+        err = rel(yb, yf)
+        if yb.dtype != torch.bfloat16 or not np.isfinite(err) or \
+                err > LM_BF16_TOLERANCE:
+            raise AssertionError(f"{cfg.name} bf16 layer {i} {name}: "
+                                 f"{err:.3e} of max|f32| (tol "
+                                 f"{LM_BF16_TOLERANCE})")
+        out.append((i, name, err, True))
+        return yb
+
+    def attention(i, pb, pf, h, window):
+        ab = L.attention_apply(pb, h, cfg, positions=pos, window=window)
+        af = L.attention_apply(pf, h.float(), c32, positions=pos,
+                               window=window)
+        out.append((i, "attention sublayer", rel(ab, af), False))
+        q = L.rope(torch.einsum("bld,dhk->blhk", h, pb["wq"]), pos,
+                   cfg.rope_theta)
+        k = L.rope(torch.einsum("bld,dhk->blhk", h, pb["wk"]), pos,
+                   cfg.rope_theta)
+        v = torch.einsum("bld,dhk->blhk", h, pb["wv"])
+        kw = dict(causal=True, soft_cap=cfg.logits_soft_cap, window=window)
+        ob = fa.flash_attention(q, k, v, **kw)
+        of = fa.flash_attention(q.float(), k.float(), v.float(), **kw)
+        err = rel(ob, of)
+        if not np.isfinite(err) or err > FLASH_BF16_TOLERANCE:
+            raise AssertionError(f"{cfg.name} bf16 layer {i}: the bf16 "
+                                 f"flash kernel {err:.3e} of max|o| from "
+                                 "the f32 kernel on the same q, k, v (tol "
+                                 f"{FLASH_BF16_TOLERANCE})")
+        out.append((i, "flash bf16 vs f32 kernel", err, True))
+        return ab
+
+    with torch.no_grad():
+        x = L.embed_apply(params["tok"], tokens, cfg)
+        if cfg.family == "hybrid":
+            blocks = [params["blocks"][f"layer_{i}"]
+                      for i in range(LM_BF16_CUT)]
+        else:
+            blocks = T.layer_list(params["blocks"],
+                                  cfg.n_layers)[:LM_BF16_CUT]
+        for i, pb in enumerate(blocks):
+            pf = widened(pb)
+            if cfg.family == "ssm":
+                check(i, "mamba mixer", M.mixer_apply, pb["mixer"],
+                      pf["mixer"], L.norm_apply(pb["ln"], x, cfg))
+                x = M.block_apply(pb, x, cfg)
+                continue
+            ln = "ln_att" if cfg.family == "dense" else "ln_mix"
+            h = L.norm_apply(pb[ln], x, cfg)
+            if "rec" in pb:
+                y = check(i, "rec mixer", R.rec_mixer_apply, pb["rec"],
+                          pf["rec"], h)
+            else:
+                y = attention(i, pb["att"], pf["att"], h, cfg.window)
+            z = L.norm_apply(pb["ln_mlp"], x + y, cfg)
+            check(i, "MLP", L.mlp_apply, pb["mlp"], pf["mlp"], z)
+            x = (T.block_apply(pb, x, cfg, positions=pos)
+                 if cfg.family == "dense"
+                 else R.block_apply(pb, x, cfg, positions=pos))
+            del pf, h, y, z
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_requests(torch, cfg, params) -> dict:
+    """``BF16_REQUESTS`` prompts of ``BF16_PROMPT`` tokens, then
+    ``BF16_GEN`` greedy tokens, one token a step through
+    ``steps.make_decode_step`` on a bf16 decode state (the f32 scan
+    states pinned); ms a step (host clock, synchronised at the end)."""
+    from repro_torch.distributed import steps
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+    rng = np.random.default_rng(30)
+    b, n = BF16_REQUESTS, BF16_PROMPT + BF16_GEN
+    prompts = torch.from_numpy(rng.integers(
+        2, cfg.vocab, (b, BF16_PROMPT))).cuda()
+    state = init_params(api.decode_state(cfg, b, n), torch.Generator(),
+                        device="cuda", dtype=torch.bfloat16)
+    decode = steps.make_decode_step(cfg)
+    toks = [prompts[:, 0]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(n - 1):
+        tok = prompts[:, t] if t < BF16_PROMPT else toks[-1]
+        nxt, state = decode(params, state, {
+            "tokens": tok[:, None],
+            "cache_len": torch.full((b,), t + 1, dtype=torch.int32,
+                                    device="cuda")})
+        toks.append(prompts[:, t + 1] if t + 1 < BF16_PROMPT else nxt)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (n - 1)
+    gen = torch.stack(toks[BF16_PROMPT:], dim=1)
+    if tuple(gen.shape) != (b, BF16_GEN) or int(gen.min()) < 0 or \
+            int(gen.max()) >= cfg.vocab:
+        raise AssertionError(f"{cfg.name} bf16 requests: bad tokens "
+                             f"{tuple(gen.shape)}")
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                yield from leaves(v)
+        else:
+            yield tree
+    if not all(bool(torch.isfinite(t.float()).all()) for t in leaves(state)):
+        raise AssertionError(f"{cfg.name} bf16 requests: a state leaf is "
+                             "not finite")
+    return dict(ms_step=ms, tokens=gen.tolist())
+
+
+def lm_bf16_model(torch, arch, batch, seq, f32) -> dict:
+    """One model of the lm_bf16 phase (module docstring): full-width
+    params drawn in bf16 on the card, two timed bf16 prefills through
+    ``make_prefill_step`` (the launches of each route counted from 0),
+    the f32 twin's logits distance (printed), the per-layer check at the
+    depth cut and a few greedy requests through bf16 decode steps."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import trim_conv1d as tc1
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+
+    cfg = registry.get(arch).CONFIG.replace(dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = init_params(api.params(cfg), torch.Generator(device="cuda")
+                         .manual_seed(0), device="cuda",
+                         dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    rng = np.random.default_rng(30)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           (batch, seq))).cuda()
+    prefill = steps.make_prefill_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tc1.reset_launch_counts()
+    fa.reset_launch_counts()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        logits, nxt = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {**tc1.LAUNCHES, **fa.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_att = sum(cfg.pattern_at(i) == "att" for i in range(cfg.n_layers)) \
+        if cfg.family != "ssm" else 0
+    want = {"trim_conv1d": 0, "flash_attention": 0,
+            "trim_conv1d_bf16": 2 * (cfg.n_layers - n_att),
+            "flash_attention_bf16": 2 * n_att}
+    if launches != want:
+        raise AssertionError(f"{arch} bf16 prefill: launches {launches} in "
+                             f"2 forwards, want {want}")
+    if logits.dtype != torch.bfloat16 or \
+            tuple(logits.shape) != (batch, seq, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch} bf16 prefill: logits "
+                             f"{tuple(logits.shape)} {logits.dtype}, not "
+                             "finite or of the wrong shape or type")
+    last = logits[:, -1].float()
+    del logits
+    torch.cuda.empty_cache()
+    twin = widened(params)
+    with torch.no_grad():
+        f32_logits, f32_nxt = steps.make_prefill_step(
+            cfg.replace(dtype="float32"))(twin, {"tokens": tokens})
+    f32_last = f32_logits[:, -1]
+    del twin, f32_logits
+    torch.cuda.empty_cache()
+    dist = ((last - f32_last).abs().max() / f32_last.abs().max()).item()
+    layers = bf16_layer_check(torch, cfg, params, tokens)
+    req = bf16_requests(torch, cfg, params)
+    print(f"lm_bf16 {arch}: {registry.count_params(cfg):,} parameters drawn "
+          f"in bf16 on the card in {draw_s:.2f} s; prefill {batch} x {seq} "
+          f"{times[1]:.1f} ms a forward (first {times[0]:.1f} ms; f32 "
+          f"{f32['ms']:.1f} ms, peak {f32['peak']:.2f} GiB, this call), peak "
+          f"{peak:.2f} GiB; launches in 2 forwards {launches}; last-position "
+          f"logits vs the f32 twin (the same bf16 weights widened) "
+          f"{dist:.3e} of max|f32| (printed), next tokens {nxt.tolist()} vs "
+          f"{f32_nxt.tolist()}")
+    print(f"lm_bf16 {arch}: first {LM_BF16_CUT} layers, bf16 vs f32 on the "
+          "same bf16 input (checked *): " + ", ".join(
+              f"{i}:{name} {err:.2e}{'*' if chk else ''}"
+              for i, name, err, chk in layers))
+    print(f"lm_bf16 {arch}: {BF16_REQUESTS} requests, {BF16_PROMPT}-token "
+          f"prompts, {BF16_GEN} greedy tokens through bf16 decode steps: "
+          f"{req['ms_step']:.2f} ms a step (f32 serve_batch {f32['step_ms']:.2f} "
+          f"ms a step at batch {SERVE_BATCH}, this call); tokens "
+          f"{req['tokens']}")
+    del params, last, f32_last
+    torch.cuda.empty_cache()
+    return dict(ms=times[1], first_ms=times[0], peak=peak,
+                launches=launches, dist=dist, layers=layers, **req)
+
+
+def lm_bf16_phase(torch, f32: dict) -> dict:
+    """Phase 34 (module docstring): the bf16 routes of the conv1d and
+    flash kernels against their plain versions, then full-width
+    qwen2.5-3b, recurrentgemma-2b and falcon-mamba-7b prefilled and
+    decoded in bf16.  ``f32``: each model's f32 figures of this call."""
+    out = {"conv1d": check_bf16_conv1d(torch),
+           "flash": check_bf16_flash(torch)}
+    for arch, batch, seq in (("qwen2.5-3b", PREFILL_BATCH, PREFILL_SEQ),
+                             ("recurrentgemma-2b", RGEMMA_BATCH,
+                              RGEMMA_SEQ),
+                             ("falcon-mamba-7b", MAMBA_BATCH, MAMBA_SEQ)):
+        out[arch] = lm_bf16_model(torch, arch, batch, seq, f32[arch])
+    out["launches"] = {
+        key: sum(out[a]["launches"][key] for a in f32)
+        for key in ("trim_conv1d_bf16", "flash_attention_bf16")}
+    print(f"lm_bf16: launches of the bf16 routes on the three prefills "
+          f"{out['launches']}")
+    return out
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5232,6 +5650,14 @@ def run(torch, args, cache_dir: str) -> int:
     torch.cuda.empty_cache()
     bf = bf16_phase(torch)
     phase.done("bf16")
+    lmb = lm_bf16_phase(torch, {
+        "qwen2.5-3b": dict(ms=lm["ms"], peak=lm["peak"],
+                           step_ms=served["step_ms"]),
+        "recurrentgemma-2b": dict(ms=rg["ms"], peak=rg["peak"],
+                                  step_ms=rserved["step_ms"]),
+        "falcon-mamba-7b": dict(ms=mb["ms"], peak=mb["peak"],
+                                step_ms=mserved["step_ms"])})
+    phase.done("lm_bf16")
 
     vgg = [r for r in rows if r["vgg"]]
     kernels = []
@@ -5630,6 +6056,66 @@ def run(torch, args, cache_dir: str) -> int:
           f"{train_launches}), one VGG-16/{FUSED_SCALE} fused step "
           f"({train_fused_launches}) and VGG-16 served on measured "
           f"records ({tuned['launches']})")
+    c = next(r for r in lmb["conv1d"] if r["name"] == "a_prefill")
+    ck = next(r for r in lmb["conv1d"] if r["name"] == "k_rgemma")
+    kernels.append({
+        "name": "trim_conv1d_bf16",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/trim_conv1d.cu",
+        "replaces": "src/repro/kernels/trim_conv1d.py:29",
+        "launches": lmb["launches"]["trim_conv1d_bf16"],
+        "max_abs_err": max(r["err"] for r in lmb["conv1d"]),  # bitwise
+        # the mamba prefill's shape, CUDA graphs
+        "ms": c["kernel"],
+        "plain_ms": c["plain"],
+        "bound_ms": c["bound"],
+        "bound_by": c["by"],
+        "library_ms": c["library"],       # F.conv1d on bf16
+        "rgemma_ms": ck["kernel"],
+        "rgemma_plain_ms": ck["plain"],
+        "rgemma_bound_ms": ck["bound"],
+        "rgemma_library_ms": ck["library"],
+    })
+    fr = {r["name"]: r for r in lmb["flash"]}
+    a, ac, af = fr["a_prefill"], fr["c_rgemma"], fr["f_d320"]
+    kernels.append({
+        "name": "flash_attention_bf16",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:31",
+        "launches": lmb["launches"]["flash_attention_bf16"],
+        "max_abs_err": max(r["err"] for r in lmb["flash"]),
+        "max_rel_err": max(r["rel"] for r in lmb["flash"]),
+        # case (a), the qwen2.5-3b prefill's shape, CUDA graphs
+        "ms": a["kernel"],
+        "plain_ms": a["plain"],
+        "bound_ms": a["bound"],
+        "bound_by": a["by"],
+        "library_ms": a["library"],       # SDPA on bf16
+        "route_bound_ms": a["route_bound"],
+        "continue_ms": fr["b_continue"]["kernel"],
+        "continue_library_ms": fr["b_continue"]["library"],
+        # case (c), recurrentgemma-2b's local attention (soft cap 30: no
+        # single PyTorch call computes it)
+        "rgemma_ms": ac["kernel"],
+        "rgemma_plain_ms": ac["plain"],
+        "rgemma_bound_ms": ac["bound"],
+        # case (f), D 320: the wide route
+        "d320_ms": af["kernel"],
+        "d320_bound_ms": af["bound"],
+        "d320_route_bound_ms": af["route_bound"],
+    })
+    print("lm_bf16 (bf16 prefill ms a forward, f32 of this call in "
+          "brackets; peak GiB; ms a bf16 decode step): " + "; ".join(
+              f"{arch} {lmb[arch]['ms']:.1f} ({f:.1f}), "
+              f"{lmb[arch]['peak']:.2f} GiB, {lmb[arch]['ms_step']:.2f}"
+              for arch, f in (("qwen2.5-3b", lm["ms"]),
+                              ("recurrentgemma-2b", rg["ms"]),
+                              ("falcon-mamba-7b", mb["ms"])))
+          + "; trim_conv1d_bf16 times are one launch at case a_prefill "
+          "(rgemma_*: k_rgemma), flash_attention_bf16 at case (a) "
+          "(rgemma_*: (c), d320_*: (f)); their launches are the bf16 "
+          "prefills' (2 forwards a model)")
     phase.total()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

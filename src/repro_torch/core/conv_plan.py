@@ -1048,9 +1048,12 @@ class WeightGradPlan:
 
 THREADS_PER_SM = 2048
 PEAK_F32_FLOPS = 67e12        # H100 SXM: f32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12      # H100 SXM: bf16 on the tensor cores, dense
 PEAK_BYTES_PER_S = 3.35e12    # H100 SXM: HBM3
-CONV1D_TILE_D = 256           # channels (one a thread) per block; the
-                              # kernel's __launch_bounds__ (kMaxThreads)
+CONV1D_TILE_D = 256           # threads (one to `vec` channels each) per
+                              # block; __launch_bounds__ (kMaxThreads)
+CONV1D_BF16_VEC = 8           # channels a thread of the bf16 route where
+                              # rows are 16-byte aligned (kVec: one uint4)
 CONV1D_TILE_LS = (256, 128, 64, 32, 16, 8)   # run lengths, longest first
 CONV1D_MIN_WAVES = 3          # full waves of resident blocks to aim for
 CONV1D_UNROLLED_K = 8         # K = 2..8 keep the window in registers (a
@@ -1088,6 +1091,12 @@ class Conv1dPlan:
     longest run that still gives :data:`CONV1D_MIN_WAVES` full waves of
     resident blocks over the 132 SMs, since a short run costs only its
     halo (3 rows in 32 at K = 4) while too few blocks leave SMs idle.
+
+    ``dtype_bytes`` 2 is the bf16 route (``trim_conv1d_bf16``: bf16 in
+    and out, the same f32 sums); there a thread may own ``vec`` =
+    :data:`CONV1D_BF16_VEC` consecutive channels, read and written 16
+    bytes at a time, so ``tile_d`` (channels a block) is ``vec`` times the
+    threads.  The byte counts follow the element size.
     """
 
     b: int
@@ -1096,15 +1105,17 @@ class Conv1dPlan:
     k: int
     tile_l: int
     tile_d: int
+    dtype_bytes: int = 4
+    vec: int = 1
 
     @classmethod
-    def build(cls, x_shape, w_shape, *,
-              tile_l: int | None = None) -> "Conv1dPlan":
+    def build(cls, x_shape, w_shape, *, tile_l: int | None = None,
+              dtype_bytes: int = 4, vec: int = 1) -> "Conv1dPlan":
         """Plan from ``x (B, L, D)`` and ``w (K, D)``, choosing ``tile_l``
-        if it is left as ``None``; ``tile_d`` is :data:`CONV1D_TILE_D`, or
-        D rounded up to a warp when D is narrower.  Raises ``ValueError``
-        for what the kernel cannot take, so every plan it returns is one
-        the kernel runs."""
+        if it is left as ``None``; ``tile_d`` is :data:`CONV1D_TILE_D`
+        threads of ``vec`` channels, or D rounded up to a warp's channels
+        when D is narrower.  Raises ``ValueError`` for what the kernel
+        cannot take, so every plan it returns is one the kernel runs."""
         if len(x_shape) != 3 or len(w_shape) != 2:
             raise ValueError(f"x must be (B, L, D) and w (K, D); got "
                              f"{tuple(x_shape)} and {tuple(w_shape)}")
@@ -1121,9 +1132,15 @@ class Conv1dPlan:
             raise ValueError(f"K={k}: the kernel takes K >= 2 "
                              "(ops.depthwise_conv1d routes K < 2 to the "
                              "oracle)")
-        tile_d = min(CONV1D_TILE_D, -(-d // 32) * 32)
+        if dtype_bytes not in (2, 4) or vec not in (1, CONV1D_BF16_VEC) \
+                or (vec > 1 and (dtype_bytes != 2 or d % vec)):
+            raise ValueError(f"dtype_bytes={dtype_bytes}, vec={vec}: the "
+                             "kernel takes f32 with vec 1, or bf16 with vec "
+                             f"1 or {CONV1D_BF16_VEC} (D a multiple of it)")
+        lanes = 32 * vec                 # channels a warp
+        tile_d = min(CONV1D_TILE_D * vec, -(-d // lanes) * lanes)
         if tile_l is None:
-            wave = SMS * (THREADS_PER_SM // tile_d)
+            wave = SMS * (THREADS_PER_SM // (tile_d // vec))
             blocks = b * -(-d // tile_d)
             tile_l = next((t for t in CONV1D_TILE_LS
                            if blocks * -(-length // t)
@@ -1132,11 +1149,16 @@ class Conv1dPlan:
         if tile_l < 1:
             raise ValueError(f"tile_l={tile_l} must be >= 1")
         return cls(b=b, length=length, d=d, k=k, tile_l=tile_l,
-                   tile_d=tile_d)
+                   tile_d=tile_d, dtype_bytes=dtype_bytes, vec=vec)
 
     @property
     def d_tiles(self) -> int:
         return -(-self.d // self.tile_d)
+
+    @property
+    def threads(self) -> int:
+        """Threads a block: ``tile_d / vec``."""
+        return self.tile_d // self.vec
 
     @property
     def runs(self) -> int:
@@ -1164,26 +1186,29 @@ class Conv1dPlan:
         return 2 * self.b * self.length * self.d * self.k
 
     def min_bytes(self) -> int:
-        """f32 bytes the function must move: x and w read once, y
-        written once."""
-        return 4 * (2 * self.b * self.length * self.d + self.k * self.d)
+        """Bytes the function must move: x and w read once, y written
+        once, ``dtype_bytes`` an element."""
+        return self.dtype_bytes * (2 * self.b * self.length * self.d
+                                   + self.k * self.d)
 
     def hbm_bytes(self) -> dict:
-        """f32 bytes the kernel's schedule moves: every input row once,
-        plus each run's re-read halo; each block's ``K x tile_d`` weights;
-        the output once."""
-        inp = 4 * self.b * self.length * self.d
-        halo = 4 * self.b * self.d * self.halo_rows
-        weights = 4 * self.b * self.runs * self.k * self.d
-        out = 4 * self.b * self.length * self.d
+        """Bytes the kernel's schedule moves: every input row once, plus
+        each run's re-read halo; each block's ``K x tile_d`` weights; the
+        output once."""
+        e = self.dtype_bytes
+        inp = e * self.b * self.length * self.d
+        halo = e * self.b * self.d * self.halo_rows
+        weights = e * self.b * self.runs * self.k * self.d
+        out = e * self.b * self.length * self.d
         return dict(input=inp, halo=halo, weights=weights, output=out,
                     total=inp + halo + weights + out)
 
     def bound(self) -> tuple[float, str]:
         """(ms, "bytes" or "operations"): the least time the H100 takes,
-        :attr:`flops` over 67 TFLOP/s against :meth:`min_bytes` over
-        3.35 TB/s."""
-        ops_ms = self.flops / PEAK_F32_FLOPS * 1e3
+        :attr:`flops` over the peak of the operands' type (67 TFLOP/s f32,
+        989 TFLOP/s bf16) against :meth:`min_bytes` over 3.35 TB/s."""
+        peak = PEAK_BF16_FLOPS if self.dtype_bytes == 2 else PEAK_F32_FLOPS
+        ops_ms = self.flops / peak * 1e3
         bytes_ms = self.min_bytes() / PEAK_BYTES_PER_S * 1e3
         return (max(ops_ms, bytes_ms),
                 "operations" if ops_ms >= bytes_ms else "bytes")

@@ -18,6 +18,10 @@ from repro_torch.models.base import init_params
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamWConfig, adamw
 
+BF16_TRAIN = ("the port trains in f32 only: bf16 training needs the bf16 "
+              "backward of the conv1d and flash kernels, ROADMAP Queue 1 "
+              "item 7b (label 2g)")
+
 
 def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig,
                      generator: torch.Generator, device=None) -> dict:
@@ -44,8 +48,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     then updates params, moments and step in place (``adamw.
     apply_updates_``), and the same state is returned.  Metrics: ``loss``,
     ``grad_norm``, ``lr`` (0-d tensors).  batch: ``tokens``, ``labels``
-    (B, S) integer tensors on the params' device."""
+    (B, S) integer tensors on the params' device.
+
+    Training is f32: a bf16 config, or a step given bf16 params, raises
+    ``NotImplementedError`` (the bf16 backward is ROADMAP Queue 1 item
+    7b)."""
     api.require_ported(cfg.family)
+    if cfg.dtype != "float32":
+        raise NotImplementedError(BF16_TRAIN)
 
     def loss_and_grads(leaves, params, mb):
         live = [t.detach().requires_grad_() for t in leaves]
@@ -57,6 +67,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     def train_step(state, batch):
         params = state["params"]
         leaves = adamw.tree_leaves(params)
+        if any(t.dtype == torch.bfloat16 for t in leaves):
+            raise NotImplementedError(BF16_TRAIN)
         if n_micro == 1:
             loss, grads = loss_and_grads(leaves, params, batch)
         else:

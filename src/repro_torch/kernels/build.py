@@ -34,6 +34,7 @@ _FUSED_ARGS = [_P, _P, _P, _P, _I, _P]
 _ATTN_ARGS = [_P] * 5 + [_I] * 6 + [_L] * 12 + [_I, _I, _F, _F, _P]
 _ATTN_BWD_ARGS = [_P] * 8 + [_I] * 6 + [_L] * 12 + [_I, _I, _F, _F, _I, _P]
 _CONV1D_ARGS = [_P] * 3 + [_I] * 4 + [_L] * 4 + [_I, _I, _P]
+_CONV1D_BF16_ARGS = [_P] * 3 + [_I] * 4 + [_L] * 4 + [_I, _I, _I, _P]
 _CONV1D_WGRAD_ARGS = [_P] * 4 + [_I] * 4 + [_L] * 4 + [_I, _I, _P]
 SOURCES = {
     "trim_conv2d": {"trim_conv2d_carry": _CONV_ARGS,
@@ -46,12 +47,14 @@ SOURCES = {
                           "trim_conv2d_wgrad_resident_blocks": [_I, _P]},
     "trim_conv2d_fused": {"trim_conv2d_fused": _FUSED_ARGS,
                           "trim_conv2d_fused_bf16": _FUSED_ARGS},
-    "flash_attention": {"flash_attention_f32": _ATTN_ARGS},
+    "flash_attention": {"flash_attention_f32": _ATTN_ARGS,
+                        "flash_attention_bf16": _ATTN_ARGS},
     "flash_attention_bwd": {"flash_attention_bwd_dkdv_f32": _ATTN_BWD_ARGS,
                             "flash_attention_bwd_dq_f32": _ATTN_BWD_ARGS,
                             "flash_attention_bwd_sum_f32":
                                 [_P, _P, _P, _L, _I, _I, _P]},
-    "trim_conv1d": {"trim_conv1d_f32": _CONV1D_ARGS},
+    "trim_conv1d": {"trim_conv1d_f32": _CONV1D_ARGS,
+                    "trim_conv1d_bf16": _CONV1D_BF16_ARGS},
     "trim_conv1d_wgrad": {"trim_conv1d_wgrad_f32": _CONV1D_WGRAD_ARGS},
 }
 

@@ -1,5 +1,5 @@
-// Flash attention for NVIDIA Hopper (sm_90a), f32 in and out, hand-written
-// CUDA.
+// Flash attention for NVIDIA Hopper (sm_90a), f32 or bf16 in and out, f32
+// inside, hand-written CUDA.
 //
 // Replaces the TPU Pallas kernel _kernel of
 // src/repro/kernels/flash_attention.py:31 (wrapper flash_attention, :106).
@@ -97,8 +97,26 @@
 // score columns tx + 16 j (j < 4) of the 64 x 64 tile, and output
 // columns 4 tx + 64 c + (0..3).
 //
+// bf16 (flash_attention_bf16).  The TPU kernel widens q, k and v to f32,
+// computes S and P V in f32 and casts o once to q's dtype
+// (flash_attention.py:44-45, :66, :73).  The same kernels run on bf16
+// operands (the template's T): the Q tile and the K / V ring hold bf16,
+// so a 16-byte cp.async carries 8 elements and a ring stage takes half
+// the f32 bytes (row stride Dp + 8 elements: the fragment reads stay
+// free of bank conflicts); everything after the load is f32.  A bf16
+// value is exact in TF32 (8 bits of mantissa in 10), so Q K^T needs one
+// TF32 mma a k-step on the widened values, where the f32 route needs
+// three, and P V two: P's big and small halves against the exact V.  The
+// fresh accumulator per pair of k-steps and per key tile (see
+// "Truncation") is kept, and so is the lse output (f32).  o is rounded
+// to bf16 once, at the store.  The wide route widens its tile loads and
+// rounds at its store likewise.  The bound of the bf16 narrow route is
+// its FLOPs over 989 TFLOP/s; its tensor-core work is FLOPs x 1.5 at the
+// TF32 rate (495 TFLOP/s).
+//
 // Left for later: wgmma and TMA-fed K/V behind a producer warp, a key
-// split for few-row calls (Lq = 17), the wide route on the tensor cores.
+// split for few-row calls (Lq = 17), the wide route on the tensor cores,
+// the bf16 route on bf16 mma.sync (m16n8k16) or wgmma.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -106,6 +124,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "elem.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -119,9 +138,10 @@ constexpr int kWideDo = 256;        // output columns a block (wide)
 constexpr float kNegInf = -1e30f;   // the TPU kernel's mask value
 constexpr int kMaxSmemBytes = 232448;  // H100: 227 KB opt-in per block
 
+template <typename T>
 struct AttnArgs {
-  const float *q, *k, *v;
-  float *o;
+  const T *q, *k, *v;
+  T *o;
   float *lse;           // (B, Hq, Lq) row log-sum-exp, or null: not written
   int lq, lk, hq, hkv, d, group;
   int64_t q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh;
@@ -133,24 +153,51 @@ struct AttnArgs {
   int vec_kv;           // K and V rows copied 16 bytes at a time
 };
 
-template <int kDp, int kWarps, int kTileKeys>
-constexpr size_t narrow_smem_bytes() {
-  // Q tile and two stages of K and V tiles, rows of Dp + 4 floats
-  return (size_t)(16 * kWarps + 4 * kTileKeys) * (kDp + 4) * sizeof(float);
+// An element read through the read-only cache, and the zero of its type
+__device__ __forceinline__ float ldg_elem(const float *p) { return __ldg(p); }
+__device__ __forceinline__ __nv_bfloat16 ldg_elem(const __nv_bfloat16 *p) {
+  return __ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short *>(p)));
+}
+template <typename T>
+__device__ __forceinline__ T zero_elem() {
+  return T(0.f);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_elem<__nv_bfloat16>() {
+  return __ushort_as_bfloat16(0);
+}
+// A bf16 value as a TF32 operand: its widening, exact (no split needed)
+__device__ __forceinline__ uint32_t tf32_bits(__nv_bfloat16 x) {
+  return (uint32_t)__bfloat16_as_ushort(x) << 16;
 }
 
-template <int kDp, int kWarps, int kTileKeys>
+// Row padding of the shared tiles, in elements: 16 bytes, which keeps
+// rows 16-byte aligned for cp.async and the fragment reads conflict-free
+template <typename T>
+constexpr int kRowPad = 16 / (int)sizeof(T);
+
+template <typename T, int kDp, int kWarps, int kTileKeys>
+constexpr size_t narrow_smem_bytes() {
+  // Q tile and two stages of K and V tiles, rows of Dp + kRowPad elements
+  return (size_t)(16 * kWarps + 4 * kTileKeys) * (kDp + kRowPad<T>) *
+         sizeof(T);
+}
+
+template <typename T, int kDp, int kWarps, int kTileKeys>
 __global__ void __launch_bounds__(kWarps * 32, 1)
-    flash_attention_kernel(const AttnArgs a) {
+    flash_attention_kernel(const AttnArgs<T> a) {
+  constexpr bool kF32 = sizeof(T) == 4;
   constexpr int kThr = kWarps * 32;
   constexpr int kBRows = 16 * kWarps;     // query rows a block
-  constexpr int kS = kDp + 4;             // Q / K / V row stride (floats)
+  constexpr int kS = kDp + kRowPad<T>;    // Q / K / V row stride (elements)
   constexpr int kNt = kTileKeys / 8;      // score tiles (8 keys) a warp
   constexpr int kOt = kDp / 8;            // output tiles (8 columns)
-  constexpr int kKV = kTileKeys * kS;     // floats of one K or V tile
+  constexpr int kKV = kTileKeys * kS;     // elements of one K or V tile
+  constexpr int kVecE = 16 / (int)sizeof(T);   // elements a 16-byte copy
   extern __shared__ float4 smem4[];
-  float *qs = reinterpret_cast<float *>(smem4);
-  float *kvs = qs + kBRows * kS;          // [stage][K, V][key][d]
+  T *qs = reinterpret_cast<T *>(smem4);
+  T *kvs = qs + kBRows * kS;              // [stage][K, V][key][d]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane / 4, tq = lane % 4; // mma group and thread-in-group
@@ -164,11 +211,11 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
   // Q tile: row r is (position (t0 + r) / G, head kvh * G + (t0 + r) % G)
   for (int e = tid; e < kBRows * kDp; e += kThr) {
     const int r = e / kDp, dd = e % kDp, t = t0 + r;
-    float val = 0.f;
+    T val = zero_elem<T>();
     if (t < n_rows && dd < a.d) {
       const int qi = t / g, h = kvh * g + t % g;
-      val = __ldg(a.q + (int64_t)b * a.q_sb + (int64_t)qi * a.q_sl +
-                  (int64_t)h * a.q_sh + dd);
+      val = ldg_elem(a.q + (int64_t)b * a.q_sb + (int64_t)qi * a.q_sl +
+                     (int64_t)h * a.q_sh + dd);
     }
     qs[r * kS + dd] = val;
   }
@@ -192,29 +239,44 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
   const int kt_end =
       k_end > k_begin ? (k_end + kTileKeys - 1) / kTileKeys : kt_begin;
 
-  const float *kbase = a.k + (int64_t)b * a.k_sb + (int64_t)kvh * a.k_sh;
-  const float *vbase = a.v + (int64_t)b * a.v_sb + (int64_t)kvh * a.v_sh;
+  const T *kbase = a.k + (int64_t)b * a.k_sb + (int64_t)kvh * a.k_sh;
+  const T *vbase = a.v + (int64_t)b * a.v_sb + (int64_t)kvh * a.v_sh;
   // K and V rows [k0, k0 + kTileKeys) into a stage, zeros past lk and d
   auto load = [&](int kt, int stage) {
     const int k0 = kt * kTileKeys;
-    float *kd = kvs + stage * 2 * kKV, *vd = kd + kKV;
+    T *kd = kvs + stage * 2 * kKV, *vd = kd + kKV;
     if (a.vec_kv) {
-      for (int e = tid; e < kTileKeys * kDp / 4; e += kThr) {
-        const int r = e / (kDp / 4), c = 4 * (e % (kDp / 4));
+      for (int e = tid; e < kTileKeys * kDp / kVecE; e += kThr) {
+        const int r = e / (kDp / kVecE), c = kVecE * (e % (kDp / kVecE));
         const bool ok = k0 + r < a.lk && c < a.d;
-        cp_async16(kd + r * kS + c,
-                   ok ? kbase + (int64_t)(k0 + r) * a.k_sl + c : a.k, ok);
-        cp_async16(vd + r * kS + c,
-                   ok ? vbase + (int64_t)(k0 + r) * a.v_sl + c : a.v, ok);
+        cp_async16(reinterpret_cast<float *>(kd + r * kS + c),
+                   reinterpret_cast<const float *>(
+                       ok ? kbase + (int64_t)(k0 + r) * a.k_sl + c : a.k),
+                   ok);
+        cp_async16(reinterpret_cast<float *>(vd + r * kS + c),
+                   reinterpret_cast<const float *>(
+                       ok ? vbase + (int64_t)(k0 + r) * a.v_sl + c : a.v),
+                   ok);
       }
     } else {
       for (int e = tid; e < kTileKeys * kDp; e += kThr) {
         const int r = e / kDp, c = e % kDp;
         const bool ok = k0 + r < a.lk && c < a.d;
-        cp_async4(kd + r * kS + c,
-                  ok ? kbase + (int64_t)(k0 + r) * a.k_sl + c : a.k, ok);
-        cp_async4(vd + r * kS + c,
-                  ok ? vbase + (int64_t)(k0 + r) * a.v_sl + c : a.v, ok);
+        if constexpr (kF32) {
+          cp_async4(kd + r * kS + c,
+                    ok ? kbase + (int64_t)(k0 + r) * a.k_sl + c : a.k, ok);
+          cp_async4(vd + r * kS + c,
+                    ok ? vbase + (int64_t)(k0 + r) * a.v_sl + c : a.v, ok);
+        } else {
+          // cp.async has no 2-byte copy: plain loads and stores, seen by
+          // the other threads after the next tile's barrier
+          kd[r * kS + c] =
+              ok ? ldg_elem(kbase + (int64_t)(k0 + r) * a.k_sl + c)
+                 : zero_elem<T>();
+          vd[r * kS + c] =
+              ok ? ldg_elem(vbase + (int64_t)(k0 + r) * a.v_sl + c)
+                 : zero_elem<T>();
+        }
       }
     }
   };
@@ -228,14 +290,14 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
 
   if (kt_begin < kt_end) load(kt_begin, 0);
   cp_async_commit();
-  const float *qw = qs + warp * 16 * kS;
+  const T *qw = qs + warp * 16 * kS;
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int stage = (kt - kt_begin) & 1;
     cp_async_wait<0>();   // this thread's copies of tile kt
     __syncthreads();       // everyone's; the other stage is consumed
     if (kt + 1 < kt_end) load(kt + 1, stage ^ 1);
     cp_async_commit();
-    const float *ks = kvs + stage * 2 * kKV, *vs = ks + kKV;
+    const T *ks = kvs + stage * 2 * kKV, *vs = ks + kKV;
     const int k0 = kt * kTileKeys;
 
     // S = Q K^T: s[j] is the m16n8 tile of keys k0 + 8 j ..; a lane holds
@@ -250,11 +312,18 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
       uint32_t ab[2][4], as[2][4];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float *qr = qw + gq * kS + d0 + 8 * h + tq;
-        split_tf32(qr[0], ab[h][0], as[h][0]);
-        split_tf32(qr[8 * kS], ab[h][1], as[h][1]);
-        split_tf32(qr[4], ab[h][2], as[h][2]);
-        split_tf32(qr[8 * kS + 4], ab[h][3], as[h][3]);
+        const T *qr = qw + gq * kS + d0 + 8 * h + tq;
+        if constexpr (kF32) {
+          split_tf32(qr[0], ab[h][0], as[h][0]);
+          split_tf32(qr[8 * kS], ab[h][1], as[h][1]);
+          split_tf32(qr[4], ab[h][2], as[h][2]);
+          split_tf32(qr[8 * kS + 4], ab[h][3], as[h][3]);
+        } else {   // exact in TF32: no small half
+          ab[h][0] = tf32_bits(qr[0]);
+          ab[h][1] = tf32_bits(qr[8 * kS]);
+          ab[h][2] = tf32_bits(qr[4]);
+          ab[h][3] = tf32_bits(qr[8 * kS + 4]);
+        }
       }
 #pragma unroll
       for (int j = 0; j < kNt; ++j) {
@@ -263,11 +332,17 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
         float t[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const float *kr = ks + (8 * j + gq) * kS + d0 + 8 * h + tq;
+          const T *kr = ks + (8 * j + gq) * kS + d0 + 8 * h + tq;
           uint32_t bb[2], bs[2];
-          split_tf32(kr[0], bb[0], bs[0]);
-          split_tf32(kr[4], bb[1], bs[1]);
-          mma_3xtf32(t, t, ab[h], as[h], bb, bs);
+          if constexpr (kF32) {
+            split_tf32(kr[0], bb[0], bs[0]);
+            split_tf32(kr[4], bb[1], bs[1]);
+            mma_3xtf32(t, t, ab[h], as[h], bb, bs);
+          } else {
+            bb[0] = tf32_bits(kr[0]);
+            bb[1] = tf32_bits(kr[4]);
+            mma_tf32(t, ab[h], bb);
+          }
         }
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] += t[e];
@@ -329,16 +404,23 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
       split_tf32(s[j][1], pb[j][2], ps[j][2]);
       split_tf32(s[j][3], pb[j][3], ps[j][3]);
     }
-    const float *vr = vs + 2 * tq * kS + gq;
+    const T *vr = vs + 2 * tq * kS + gq;
 #pragma unroll
     for (int c = 0; c < kOt; ++c) {
       float t[4] = {0.f, 0.f, 0.f, 0.f}, tc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int j = 0; j < kNt; ++j) {
         uint32_t bb[2], bs[2];
-        split_tf32(vr[8 * j * kS + 8 * c], bb[0], bs[0]);
-        split_tf32(vr[(8 * j + 1) * kS + 8 * c], bb[1], bs[1]);
-        mma_3xtf32(t, tc, pb[j], ps[j], bb, bs);
+        if constexpr (kF32) {
+          split_tf32(vr[8 * j * kS + 8 * c], bb[0], bs[0]);
+          split_tf32(vr[(8 * j + 1) * kS + 8 * c], bb[1], bs[1]);
+          mma_3xtf32(t, tc, pb[j], ps[j], bb, bs);
+        } else {   // V exact: P's two halves, two mmas
+          bb[0] = tf32_bits(vr[8 * j * kS + 8 * c]);
+          bb[1] = tf32_bits(vr[(8 * j + 1) * kS + 8 * c]);
+          mma_tf32(tc, ps[j], bb);
+          mma_tf32(t, pb[j], bb);
+        }
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[c][e] += t[e] + tc[e];
@@ -352,8 +434,8 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
     const int t = t0 + warp * 16 + gq + 8 * i;
     if (t >= n_rows) continue;
     const int qi = t / g, h = kvh * g + t % g;
-    float *dst = a.o + (int64_t)b * a.o_sb + (int64_t)qi * a.o_sl +
-                 (int64_t)h * a.o_sh;
+    T *dst = a.o + (int64_t)b * a.o_sb + (int64_t)qi * a.o_sl +
+             (int64_t)h * a.o_sh;
     const float den = fmaxf(l[i], 1e-30f);
     // the 4 lanes of a row hold the same m and l
     if (a.lse != nullptr && tq == 0)
@@ -361,17 +443,17 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
 #pragma unroll
     for (int c = 0; c < kOt; ++c) {
       const int d0 = 8 * c + 2 * tq;
-      if (d0 < a.d) dst[d0] = o[c][2 * i] / den;
-      if (d0 + 1 < a.d) dst[d0 + 1] = o[c][2 * i + 1] / den;
+      if (d0 < a.d) store_elem(dst + d0, o[c][2 * i] / den);
+      if (d0 + 1 < a.d) store_elem(dst + d0 + 1, o[c][2 * i + 1] / den);
     }
   }
 }
 
-template <int kDp, int kWarps, int kTileKeys>
-int launch(AttnArgs a, int64_t rows, int b, void *stream) {
-  constexpr size_t smem = narrow_smem_bytes<kDp, kWarps, kTileKeys>();
+template <typename T, int kDp, int kWarps, int kTileKeys>
+int launch(AttnArgs<T> a, int64_t rows, int b, void *stream) {
+  constexpr size_t smem = narrow_smem_bytes<T, kDp, kWarps, kTileKeys>();
   static_assert(smem <= (size_t)kMaxSmemBytes, "tile exceeds shared memory");
-  auto kernel = flash_attention_kernel<kDp, kWarps, kTileKeys>;
+  auto kernel = flash_attention_kernel<T, kDp, kWarps, kTileKeys>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -383,9 +465,11 @@ int launch(AttnArgs a, int64_t rows, int b, void *stream) {
 
 // D > 256: S over D chunks of kWideDs, P V over kWideDo output columns a
 // block (see "Wide heads" above).  The rows, the mask, the tile skip and
-// the online softmax are the narrow kernel's.
+// the online softmax are the narrow kernel's.  Tiles are staged in f32
+// (bf16 widened as it is loaded).
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_attention_wide_kernel(const AttnArgs a) {
+    flash_attention_wide_kernel(const AttnArgs<T> a) {
   constexpr int kS = kWideDs + 4;      // Q / K chunk row stride (floats)
   constexpr int kPStride = kKeys + 4;  // P row stride
   constexpr int kVStride = kWideDo + 4;
@@ -431,8 +515,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int c = 0; c < kDc; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  const float *kbase = a.k + (int64_t)b * a.k_sb + (int64_t)kvh * a.k_sh;
-  const float *vbase = a.v + (int64_t)b * a.v_sb + (int64_t)kvh * a.v_sh;
+  const T *kbase = a.k + (int64_t)b * a.k_sb + (int64_t)kvh * a.k_sh;
+  const T *vbase = a.v + (int64_t)b * a.v_sb + (int64_t)kvh * a.v_sh;
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kKeys;
@@ -449,11 +533,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         float qv = 0.f, kv = 0.f;
         if (t < n_rows && d0 + dd < a.d) {
           const int qi = t / g, h = kvh * g + t % g;
-          qv = __ldg(a.q + (int64_t)b * a.q_sb + (int64_t)qi * a.q_sl +
-                     (int64_t)h * a.q_sh + d0 + dd);
+          qv = to_f32(ldg_elem(a.q + (int64_t)b * a.q_sb +
+                               (int64_t)qi * a.q_sl + (int64_t)h * a.q_sh +
+                               d0 + dd));
         }
         if (k0 + r < a.lk && d0 + dd < a.d)
-          kv = __ldg(kbase + (int64_t)(k0 + r) * a.k_sl + d0 + dd);
+          kv = to_f32(ldg_elem(kbase + (int64_t)(k0 + r) * a.k_sl + d0 + dd));
         qs[r * kS + dd] = qv;
         ks[r * kS + dd] = kv;
       }
@@ -534,7 +619,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int r = e / kWideDo, dd = e % kWideDo;
       float val = 0.f;
       if (k0 + r < a.lk && dv0 + dd < a.d)
-        val = __ldg(vbase + (int64_t)(k0 + r) * a.v_sl + dv0 + dd);
+        val = to_f32(ldg_elem(vbase + (int64_t)(k0 + r) * a.v_sl + dv0 + dd));
       vs[r * kVStride + dd] = val;
     }
     __syncthreads();
@@ -574,8 +659,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int t = t0 + ty + 16 * i;
     if (t >= n_rows) continue;
     const int qi = t / g, h = kvh * g + t % g;
-    float *dst = a.o + (int64_t)b * a.o_sb + (int64_t)qi * a.o_sl +
-                 (int64_t)h * a.o_sh;
+    T *dst = a.o + (int64_t)b * a.o_sb + (int64_t)qi * a.o_sl +
+             (int64_t)h * a.o_sh;
     const float den = fmaxf(l[i], 1e-30f);
     // every block of the row's output chunks, and every lane of the row,
     // holds the same m and l: the first writes lse
@@ -588,27 +673,66 @@ __global__ void __launch_bounds__(kThreads, 1)
                              acc[i][c].w};
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (d0 + e < a.d) dst[d0 + e] = vals[e] / den;
+        if (d0 + e < a.d) store_elem(dst + d0 + e, vals[e] / den);
     }
   }
 }
 
-int launch_wide(AttnArgs a, int64_t rows, int b, void *stream) {
+template <typename T>
+int launch_wide(AttnArgs<T> a, int64_t rows, int b, void *stream) {
   constexpr size_t smem =
       ((size_t)(kRows + kKeys) * (kWideDs + 4) + (size_t)kRows * (kKeys + 4) +
        (size_t)kKeys * (kWideDo + 4)) * sizeof(float);
   static_assert(smem <= (size_t)kMaxSmemBytes, "tile exceeds shared memory");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_wide_kernel,
+      flash_attention_wide_kernel<T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   a.row_tiles = (int)((rows + kRows - 1) / kRows);
   const int64_t blocks = (int64_t)a.row_tiles * ((a.d + kWideDo - 1) / kWideDo);
   if (blocks > 2147483647) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks, a.hkv, b);
-  flash_attention_wide_kernel<<<grid, kThreads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(a);
+  flash_attention_wide_kernel<T><<<grid, kThreads, smem,
+                                   static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Checks the geometry, fills the arguments and launches the route of D.
+template <typename T>
+int run(const T *q, const T *k, const T *v, T *o, float *lse, int b, int lq,
+        int lk, int hq, int hkv, int d, int64_t q_sb, int64_t q_sl,
+        int64_t q_sh, int64_t k_sb, int64_t k_sl, int64_t k_sh, int64_t v_sb,
+        int64_t v_sl, int64_t v_sh, int64_t o_sb, int64_t o_sl, int64_t o_sh,
+        int causal, int window, float soft_cap, float sm_scale,
+        void *stream) {
+  if (b < 1 || lq < 1 || lk < 1 || hkv < 1 || hq < hkv || hq % hkv != 0 ||
+      d < 1 || (causal && lq > lk) || b > 65535 ||
+      hkv > 65535)
+    return (int)cudaErrorInvalidValue;
+  AttnArgs<T> a;
+  a.q = q; a.k = k; a.v = v; a.o = o; a.lse = lse;
+  a.lq = lq; a.lk = lk; a.hq = hq; a.hkv = hkv; a.d = d;
+  a.group = hq / hkv;
+  a.q_sb = q_sb; a.q_sl = q_sl; a.q_sh = q_sh;
+  a.k_sb = k_sb; a.k_sl = k_sl; a.k_sh = k_sh;
+  a.v_sb = v_sb; a.v_sl = v_sl; a.v_sh = v_sh;
+  a.o_sb = o_sb; a.o_sl = o_sl; a.o_sh = o_sh;
+  a.causal = causal; a.window = window; a.soft_cap = soft_cap;
+  a.sm_scale = sm_scale;
+  const int64_t rows = (int64_t)lq * a.group;
+  if (rows > (int64_t)1 << 30) return (int)cudaErrorInvalidValue;
+  a.row_tiles = 0;
+  const auto al16 = [](const void *p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  constexpr int kV = 16 / (int)sizeof(T);   // elements a 16-byte copy
+  a.vec_kv = d % kV == 0 && al16(k) && al16(v) && k_sb % kV == 0 &&
+             k_sl % kV == 0 && k_sh % kV == 0 && v_sb % kV == 0 &&
+             v_sl % kV == 0 && v_sh % kV == 0;
+  if (d <= 64) return launch<T, 64, 8, 64>(a, rows, b, stream);
+  if (d <= 128) return launch<T, 128, 8, 64>(a, rows, b, stream);
+  if (d <= kMaxNarrowDp) return launch<T, 256, 4, 32>(a, rows, b, stream);
+  return launch_wide<T>(a, rows, b, stream);
 }
 
 }  // namespace
@@ -631,33 +755,25 @@ int flash_attention_f32(const float *q, const float *k, const float *v,
                         int64_t o_sb, int64_t o_sl, int64_t o_sh, int causal,
                         int window, float soft_cap, float sm_scale,
                         void *stream) {
-  if (b < 1 || lq < 1 || lk < 1 || hkv < 1 || hq < hkv || hq % hkv != 0 ||
-      d < 1 || (causal && lq > lk) || b > 65535 ||
-      hkv > 65535)
-    return (int)cudaErrorInvalidValue;
-  AttnArgs a;
-  a.q = q; a.k = k; a.v = v; a.o = o; a.lse = lse;
-  a.lq = lq; a.lk = lk; a.hq = hq; a.hkv = hkv; a.d = d;
-  a.group = hq / hkv;
-  a.q_sb = q_sb; a.q_sl = q_sl; a.q_sh = q_sh;
-  a.k_sb = k_sb; a.k_sl = k_sl; a.k_sh = k_sh;
-  a.v_sb = v_sb; a.v_sl = v_sl; a.v_sh = v_sh;
-  a.o_sb = o_sb; a.o_sl = o_sl; a.o_sh = o_sh;
-  a.causal = causal; a.window = window; a.soft_cap = soft_cap;
-  a.sm_scale = sm_scale;
-  const int64_t rows = (int64_t)lq * a.group;
-  if (rows > (int64_t)1 << 30) return (int)cudaErrorInvalidValue;
-  a.row_tiles = 0;
-  const auto al16 = [](const void *p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  a.vec_kv = d % 4 == 0 && al16(k) && al16(v) && k_sb % 4 == 0 &&
-             k_sl % 4 == 0 && k_sh % 4 == 0 && v_sb % 4 == 0 &&
-             v_sl % 4 == 0 && v_sh % 4 == 0;
-  if (d <= 64) return launch<64, 8, 64>(a, rows, b, stream);
-  if (d <= 128) return launch<128, 8, 64>(a, rows, b, stream);
-  if (d <= kMaxNarrowDp) return launch<256, 4, 32>(a, rows, b, stream);
-  return launch_wide(a, rows, b, stream);
+  return run<float>(q, k, v, o, lse, b, lq, lk, hq, hkv, d, q_sb, q_sl,
+                    q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, o_sb, o_sl,
+                    o_sh, causal, window, soft_cap, sm_scale, stream);
+}
+
+// bf16 q, k, v and o, f32 inside (see "bf16" above); lse stays f32.
+int flash_attention_bf16(const __nv_bfloat16 *q, const __nv_bfloat16 *k,
+                         const __nv_bfloat16 *v, __nv_bfloat16 *o,
+                         float *lse, int b, int lq, int lk, int hq, int hkv,
+                         int d, int64_t q_sb, int64_t q_sl, int64_t q_sh,
+                         int64_t k_sb, int64_t k_sl, int64_t k_sh,
+                         int64_t v_sb, int64_t v_sl, int64_t v_sh,
+                         int64_t o_sb, int64_t o_sl, int64_t o_sh,
+                         int causal, int window, float soft_cap,
+                         float sm_scale, void *stream) {
+  return run<__nv_bfloat16>(q, k, v, o, lse, b, lq, lk, hq, hkv, d, q_sb,
+                            q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
+                            o_sb, o_sl, o_sh, causal, window, soft_cap,
+                            sm_scale, stream);
 }
 
 const char *flash_attention_error_string(int err) {

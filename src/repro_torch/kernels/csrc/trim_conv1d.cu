@@ -1,4 +1,5 @@
-// Causal depthwise conv1d for NVIDIA Hopper (sm_90a), f32, hand-written CUDA.
+// Causal depthwise conv1d for NVIDIA Hopper (sm_90a), f32 and bf16,
+// hand-written CUDA.
 //
 // Replaces the TPU Pallas kernel _kernel of
 // src/repro/kernels/trim_conv1d.py:29 (wrapper trim_conv1d, :57): the
@@ -52,58 +53,140 @@
 // of shifting them through registers: each output still sums the same
 // rounded products from 0 in tap order, so it equals the plain version
 // bit for bit at every K.
+//
+// bf16 (trim_conv1d_bf16).  The TPU kernel widens each bf16 input and tap
+// to f32, sums from 0 in tap order in f32 and casts once at the store
+// (_kernel's acc and o_ref[0] = acc.astype, trim_conv1d.py:38-40).  Here
+// the same template runs on bf16 operands: each value widens exactly
+// (its 16 bits are the high half of the f32), a bf16 x bf16 product is
+// exact in f32, so the f32 chain above is that function and the one
+// rounding is __float2bfloat16_rn at the store; the kernel equals its
+// plain version and the TPU kernel bit for bit.  Where rows are 16-byte
+// aligned (D, the strides and the pointers multiples of 8 elements), a
+// thread owns kVec = 8 consecutive channels and moves each row's 8
+// values with one 16-byte load or store (half the f32 route's bytes a
+// row, a quarter of its loads); elsewhere one channel, as in f32.  A
+// thread then keeps 8 x K taps and 8 x K window registers, so it loads
+// kUnroll / 2 rows ahead.  What bounds it is the same: bytes, half the
+// f32 count.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kUnroll = 8;     // timesteps loaded ahead by each thread
-constexpr int kMaxThreads = 256;  // tile_d: CONV1D_TILE_D of conv_plan.py
+constexpr int kMaxThreads = 256;  // threads a block: CONV1D_TILE_D
+constexpr int kVec = 8;        // bf16 channels a thread, one 16-byte row
+                               // load (CONV1D_BF16_VEC of conv_plan.py)
 
+template <typename T>
 struct Conv1dArgs {
-  const float *x, *w;
-  float *y;
+  const T *x, *w;
+  T *y;
   int length, d, tile_l;
   // strides in elements; x_sl and y_sl are < 0 for the input gradient
   int64_t x_sb, x_sl, y_sb, y_sl;
 };
 
-template <int K>
+// V consecutive elements of a row, widened to f32 (exact)
+__device__ __forceinline__ void load_row(const float *p, float (&v)[1]) {
+  v[0] = __ldg(p);
+}
+__device__ __forceinline__ void load_row(const __nv_bfloat16 *p,
+                                         float (&v)[1]) {
+  v[0] = __uint_as_float(
+      (uint32_t)__ldg(reinterpret_cast<const unsigned short *>(p)) << 16);
+}
+__device__ __forceinline__ void load_row(const __nv_bfloat16 *p,
+                                         float (&v)[kVec]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4 *>(p));
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  // element 2i is the low half of word i
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// the one rounding to the output type
+__device__ __forceinline__ void store_row(float *p, const float (&v)[1]) {
+  *p = v[0];
+}
+__device__ __forceinline__ void store_row(__nv_bfloat16 *p,
+                                          const float (&v)[1]) {
+  *p = __float2bfloat16_rn(v[0]);
+}
+__device__ __forceinline__ void store_row(__nv_bfloat16 *p,
+                                          const float (&v)[kVec]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i])) |
+           ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i + 1]))
+            << 16);
+  *reinterpret_cast<uint4 *>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+template <int V>
+__device__ __forceinline__ void zero_row(float (&v)[V]) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) v[j] = 0.0f;
+}
+
+// A thread: channels c .. c + V - 1 of one run (V = 1, or kVec for bf16
+// rows read 16 bytes at a time).
+template <typename T, int K, int V>
 __global__ void __launch_bounds__(kMaxThreads)
-    trim_conv1d_kernel(const Conv1dArgs a) {
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
+    trim_conv1d_kernel(const Conv1dArgs<T> a) {
+  constexpr int kAhead = V == 1 ? kUnroll : kUnroll / 2;
+  const int c = (blockIdx.y * blockDim.x + threadIdx.x) * V;
   if (c >= a.d) return;
   const int t0 = blockIdx.x * a.tile_l;
   const int t1 = min(t0 + a.tile_l, a.length);
-  const float *__restrict__ xc = a.x + (int64_t)blockIdx.z * a.x_sb + c;
-  float *__restrict__ yc = a.y + (int64_t)blockIdx.z * a.y_sb + c;
+  const T *__restrict__ xc = a.x + (int64_t)blockIdx.z * a.x_sb + c;
+  T *__restrict__ yc = a.y + (int64_t)blockIdx.z * a.y_sb + c;
 
-  float wr[K];
+  float wr[K][V];
 #pragma unroll
-  for (int i = 0; i < K; ++i) wr[i] = __ldg(a.w + (int64_t)i * a.d + c);
+  for (int i = 0; i < K; ++i) load_row(a.w + (int64_t)i * a.d + c, wr[i]);
   // the shadow registers: the K-1 inputs before the run
-  float win[K];
+  float win[K][V];
 #pragma unroll
   for (int i = 0; i < K - 1; ++i) {
     const int t = t0 - (K - 1) + i;
-    win[i] = t >= 0 ? __ldg(xc + (int64_t)t * a.x_sl) : 0.0f;
+    if (t >= 0)
+      load_row(xc + (int64_t)t * a.x_sl, win[i]);
+    else
+      zero_row(win[i]);
   }
-  for (int tb = t0; tb < t1; tb += kUnroll) {
-    float in[kUnroll];
+  for (int tb = t0; tb < t1; tb += kAhead) {
+    float in[kAhead][V];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      in[u] = tb + u < t1 ? __ldg(xc + (int64_t)(tb + u) * a.x_sl) : 0.0f;
+    for (int u = 0; u < kAhead; ++u) {
+      if (tb + u < t1)
+        load_row(xc + (int64_t)(tb + u) * a.x_sl, in[u]);
+      else
+        zero_row(in[u]);
+    }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      win[K - 1] = in[u];
-      float acc = 0.0f;
+    for (int u = 0; u < kAhead; ++u) {
+      float acc[V];
 #pragma unroll
-      for (int i = 0; i < K; ++i)
-        acc = __fadd_rn(acc, __fmul_rn(win[i], wr[i]));
-      if (tb + u < t1) yc[(int64_t)(tb + u) * a.y_sl] = acc;
+      for (int j = 0; j < V; ++j) {
+        win[K - 1][j] = in[u][j];
+        acc[j] = 0.0f;
 #pragma unroll
-      for (int i = 0; i < K - 1; ++i) win[i] = win[i + 1];
+        for (int i = 0; i < K; ++i)
+          acc[j] = __fadd_rn(acc[j], __fmul_rn(win[i][j], wr[i][j]));
+      }
+      if (tb + u < t1) store_row(yc + (int64_t)(tb + u) * a.y_sl, acc);
+#pragma unroll
+      for (int i = 0; i < K - 1; ++i)
+#pragma unroll
+        for (int j = 0; j < V; ++j) win[i][j] = win[i + 1][j];
     }
   }
 }
@@ -111,30 +194,84 @@ __global__ void __launch_bounds__(kMaxThreads)
 // K as an argument: the previous inputs are re-read through L1 (the
 // neighbouring threads of a warp read the neighbouring channels of the
 // same rows), the weights likewise; zeros before t = 0.
+template <typename T, int V>
 __global__ void __launch_bounds__(kMaxThreads)
-    trim_conv1d_any_k(const Conv1dArgs a, const int k) {
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
+    trim_conv1d_any_k(const Conv1dArgs<T> a, const int k) {
+  const int c = (blockIdx.y * blockDim.x + threadIdx.x) * V;
   if (c >= a.d) return;
   const int t0 = blockIdx.x * a.tile_l;
   const int t1 = min(t0 + a.tile_l, a.length);
-  const float *__restrict__ xc = a.x + (int64_t)blockIdx.z * a.x_sb + c;
-  float *__restrict__ yc = a.y + (int64_t)blockIdx.z * a.y_sb + c;
+  const T *__restrict__ xc = a.x + (int64_t)blockIdx.z * a.x_sb + c;
+  T *__restrict__ yc = a.y + (int64_t)blockIdx.z * a.y_sb + c;
   for (int t = t0; t < t1; ++t) {
-    float acc = 0.0f;
+    float acc[V];
+    zero_row(acc);
     for (int i = 0; i < k; ++i) {
       const int tt = t - (k - 1) + i;
-      const float xv = tt >= 0 ? __ldg(xc + (int64_t)tt * a.x_sl) : 0.0f;
-      acc = __fadd_rn(acc, __fmul_rn(xv, __ldg(a.w + (int64_t)i * a.d + c)));
+      float xv[V], wv[V];
+      if (tt >= 0)
+        load_row(xc + (int64_t)tt * a.x_sl, xv);
+      else
+        zero_row(xv);
+      load_row(a.w + (int64_t)i * a.d + c, wv);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        acc[j] = __fadd_rn(acc[j], __fmul_rn(xv[j], wv[j]));
     }
-    yc[(int64_t)t * a.y_sl] = acc;
+    store_row(yc + (int64_t)t * a.y_sl, acc);
   }
 }
 
-template <int K>
-int launch(const Conv1dArgs &a, dim3 grid, int tile_d, void *stream) {
-  trim_conv1d_kernel<K><<<grid, tile_d, 0,
-                          static_cast<cudaStream_t>(stream)>>>(a);
+template <typename T, int V>
+int launch_k(const Conv1dArgs<T> &a, int k, dim3 grid, int threads,
+             void *stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (k) {
+    case 2: trim_conv1d_kernel<T, 2, V><<<grid, threads, 0, s>>>(a); break;
+    case 3: trim_conv1d_kernel<T, 3, V><<<grid, threads, 0, s>>>(a); break;
+    case 4: trim_conv1d_kernel<T, 4, V><<<grid, threads, 0, s>>>(a); break;
+    case 5: trim_conv1d_kernel<T, 5, V><<<grid, threads, 0, s>>>(a); break;
+    case 6: trim_conv1d_kernel<T, 6, V><<<grid, threads, 0, s>>>(a); break;
+    case 7: trim_conv1d_kernel<T, 7, V><<<grid, threads, 0, s>>>(a); break;
+    case 8: trim_conv1d_kernel<T, 8, V><<<grid, threads, 0, s>>>(a); break;
+    default: trim_conv1d_any_k<T, V><<<grid, threads, 0, s>>>(a, k);
+  }
   return (int)cudaGetLastError();
+}
+
+// Checks the geometry and launches: tile_d channels a block, vec a
+// thread.  cudaErrorInvalidValue for what the kernel cannot take.
+template <typename T>
+int run(const T *x, const T *w, T *y, int b, int length, int d, int k,
+        int64_t x_sb, int64_t x_sl, int64_t y_sb, int64_t y_sl, int tile_l,
+        int tile_d, int vec, void *stream) {
+  if (vec < 1 || tile_d % vec != 0) return (int)cudaErrorInvalidValue;
+  const int threads = tile_d / vec;
+  if (b < 1 || b > 65535 || length < 1 || d < 1 || k < 2 ||
+      tile_l < 1 || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int64_t runs = ((int64_t)length + tile_l - 1) / tile_l;
+  const int64_t d_tiles = ((int64_t)d + tile_d - 1) / tile_d;
+  if (runs > 2147483647 || d_tiles > 65535)
+    return (int)cudaErrorInvalidValue;
+  Conv1dArgs<T> a;
+  a.x = x; a.w = w; a.y = y;
+  a.length = length; a.d = d; a.tile_l = tile_l;
+  a.x_sb = x_sb; a.x_sl = x_sl; a.y_sb = y_sb; a.y_sl = y_sl;
+  const dim3 grid((unsigned)runs, (unsigned)d_tiles, (unsigned)b);
+  if (vec == 1) return launch_k<T, 1>(a, k, grid, threads, stream);
+  if constexpr (sizeof(T) == 2) {
+    // 16-byte rows: D, the strides and the pointers in whole vectors
+    const auto al = [](const void *p) {
+      return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    };
+    if (vec == kVec && d % kVec == 0 && x_sb % kVec == 0 &&
+        x_sl % kVec == 0 && y_sb % kVec == 0 && y_sl % kVec == 0 &&
+        al(x) && al(w) && al(y))
+      return launch_k<T, kVec>(a, k, grid, threads, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -151,31 +288,18 @@ int trim_conv1d_f32(const float *x, const float *w, float *y, int b,
                     int length, int d, int k, int64_t x_sb, int64_t x_sl,
                     int64_t y_sb, int64_t y_sl, int tile_l, int tile_d,
                     void *stream) {
-  if (b < 1 || b > 65535 || length < 1 || d < 1 || k < 2 ||
-      tile_l < 1 || tile_d < 32 || tile_d > kMaxThreads || tile_d % 32 != 0)
-    return (int)cudaErrorInvalidValue;
-  const int64_t runs = ((int64_t)length + tile_l - 1) / tile_l;
-  const int64_t d_tiles = ((int64_t)d + tile_d - 1) / tile_d;
-  if (runs > 2147483647 || d_tiles > 65535)
-    return (int)cudaErrorInvalidValue;
-  Conv1dArgs a;
-  a.x = x; a.w = w; a.y = y;
-  a.length = length; a.d = d; a.tile_l = tile_l;
-  a.x_sb = x_sb; a.x_sl = x_sl; a.y_sb = y_sb; a.y_sl = y_sl;
-  const dim3 grid((unsigned)runs, (unsigned)d_tiles, (unsigned)b);
-  switch (k) {
-    case 2: return launch<2>(a, grid, tile_d, stream);
-    case 3: return launch<3>(a, grid, tile_d, stream);
-    case 4: return launch<4>(a, grid, tile_d, stream);
-    case 5: return launch<5>(a, grid, tile_d, stream);
-    case 6: return launch<6>(a, grid, tile_d, stream);
-    case 7: return launch<7>(a, grid, tile_d, stream);
-    case 8: return launch<8>(a, grid, tile_d, stream);
-    default:
-      trim_conv1d_any_k<<<grid, tile_d, 0,
-                          static_cast<cudaStream_t>(stream)>>>(a, k);
-      return (int)cudaGetLastError();
-  }
+  return run<float>(x, w, y, b, length, d, k, x_sb, x_sl, y_sb, y_sl,
+                    tile_l, tile_d, 1, stream);
+}
+
+// bf16 x, w and y, f32 sums (see "bf16" above); vec is 1 or 8 channels
+// a thread (8: rows 16-byte aligned, checked here).
+int trim_conv1d_bf16(const __nv_bfloat16 *x, const __nv_bfloat16 *w,
+                     __nv_bfloat16 *y, int b, int length, int d, int k,
+                     int64_t x_sb, int64_t x_sl, int64_t y_sb, int64_t y_sl,
+                     int tile_l, int tile_d, int vec, void *stream) {
+  return run<__nv_bfloat16>(x, w, y, b, length, d, k, x_sb, x_sl, y_sb,
+                            y_sl, tile_l, tile_d, vec, stream);
 }
 
 const char *trim_conv1d_error_string(int err) {

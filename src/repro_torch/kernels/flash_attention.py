@@ -1,6 +1,6 @@
 """Tiled online-softmax attention (FlashAttention): the wrapper of the
 Hopper kernel and its plain PyTorch version (the counterpart of
-``repro/kernels/flash_attention.py``, f32).
+``repro/kernels/flash_attention.py``, f32 and bf16).
 
 ``flash_attention`` launches the hand-written kernel of
 ``csrc/flash_attention.cu`` on CUDA tensors and runs
@@ -11,6 +11,13 @@ compute ``_kernel`` (``repro/kernels/flash_attention.py:31``): scores
 the keys (query i sits at position ``i + Lk - Lq``), and the online
 softmax over key tiles in f32.  GQA: query head h reads KV head
 ``h // (Hq / Hkv)``; no K/V head is replicated.
+
+bf16 q, k and v launch ``flash_attention_bf16``: the same kernels on bf16
+tiles, everything after the load in f32 (``_kernel`` widens q, k and v,
+``repro/kernels/flash_attention.py:44-45, :66``), o rounded once to bf16
+(``:73``); the plain version widens likewise and casts once.  The bf16
+route has no backward yet: under autograd a bf16 operand raises
+``NotImplementedError`` (ROADMAP Queue 1 item 7b).
 
 Under autograd (grad enabled and q, k or v requiring grad) the call goes
 through ``_FlashAttentionFn``: its forward also keeps the row log-sum-exp
@@ -52,10 +59,15 @@ WIDE_BWD = ("the flash-attention backward takes head_dim <= 256; the wide "
             "route's backward is ROADMAP Queue 2 C item 8 (the flash "
             "backward)")
 
-# Kernel launches: each successful launch adds one.  The forward's count
+BF16_BWD = ("the flash-attention kernel's bf16 route has no backward: bf16 "
+            "under autograd is ROADMAP Queue 1 item 7b (the bf16 backward; "
+            "label 2g)")
+
+# Kernel launches: each successful launch adds one, under its route's key
+# (flash_attention: f32, flash_attention_bf16).  The forward's count
 # includes the launches under autograd (and a remat recompute); the
 # backward's kernels count in BWD_LAUNCHES (the sum only where G > 1).
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bf16": 0}
 BWD_LAUNCHES = {"flash_attention_bwd_dkdv": 0, "flash_attention_bwd_dq": 0,
                 "flash_attention_bwd_sum": 0}
 
@@ -66,14 +78,16 @@ def reset_launch_counts() -> None:
             counts[key] = 0
 
 
-def _check(q, k, v, causal, soft_cap, window) -> None:
+def _check(q, k, v, causal, soft_cap, window, *,
+           dtypes=(torch.float32, torch.bfloat16)) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type not in ("cpu", "cuda") or t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}: "
                              "q, k and v must share a CPU or CUDA device")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} is {t.dtype}; this kernel takes "
-                             "float32 only (bf16 is ROADMAP Queue 1 item 2g)")
+        if t.dtype not in dtypes or t.dtype != q.dtype:
+            raise ValueError(
+                f"{name} is {t.dtype}, q {q.dtype}; this kernel takes q, k "
+                f"and v all of one of {[str(d) for d in dtypes]}")
         if t.dim() != 4 or t.stride(-1) != 1:
             raise ValueError(f"{name} must be 4-D (B, L, H, D) with a "
                              f"contiguous head dim; got {tuple(t.shape)} "
@@ -155,8 +169,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           soft_cap: float | None = None,
                           window: int | None = None,
                           block_k: int = BLOCK_K) -> torch.Tensor:
-    """The kernel's function in plain PyTorch (see :func:`_plain_forward`).
-    q: (B, Lq, Hq, D); k/v: (B, Lk, Hkv, D)."""
+    """The kernel's function in plain PyTorch (see :func:`_plain_forward`):
+    bf16 operands widened to f32, o cast once to q's dtype.  q: (B, Lq,
+    Hq, D); k/v: (B, Lk, Hkv, D)."""
     return _plain_forward(q, k, v, causal=causal, soft_cap=soft_cap,
                           window=window, block_k=block_k)[0]
 
@@ -272,15 +287,19 @@ def bwd_plan(b: int, lq: int, lk: int, hq: int, hkv: int, d: int) -> BwdPlan:
 
 
 def _launch_forward(q, k, v, causal, soft_cap, window, lse=None):
-    """One launch of ``flash_attention_f32``; ``lse``, a contiguous (B, Hq,
-    Lq) f32 tensor or None, receives the rows' log-sum-exp."""
+    """One launch of ``flash_attention_f32`` (``flash_attention_bf16`` for
+    bf16 operands; o in q's dtype); ``lse``, a contiguous (B, Hq, Lq) f32
+    tensor or None, receives the rows' log-sum-exp."""
     b, lq, hq, d = q.shape
     _, lk, hkv, _ = k.shape
     lib = build.library("flash_attention")
-    o = torch.empty((b, lq, hq, d), dtype=torch.float32, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    name = "flash_attention_bf16" if bf16 else "flash_attention"
+    entry = lib.flash_attention_bf16 if bf16 else lib.flash_attention_f32
+    o = torch.empty((b, lq, hq, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_f32(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(),
             b, lq, lk, hq, hkv, d, *q.stride()[:3], *k.stride()[:3],
@@ -292,9 +311,9 @@ def _launch_forward(q, k, v, causal, soft_cap, window, lse=None):
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {err} "
             f"({lib.flash_attention_error_string(err).decode()}) for q "
-            f"{tuple(q.shape)}, k {tuple(k.shape)}, causal={causal}, "
-            f"soft_cap={soft_cap}, window={window}")
-    LAUNCHES["flash_attention"] += 1
+            f"{tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}, "
+            f"causal={causal}, soft_cap={soft_cap}, window={window}")
+    LAUNCHES[name] += 1
     return o
 
 
@@ -367,7 +386,7 @@ def flash_attention_backward(q, k, v, lse, do, *, causal=True,
     G > 1 their sum; counted in ``BWD_LAUNCHES``); on CPU tensors
     :func:`flash_attention_backward_plain`.  D > 256 raises
     ``NotImplementedError``."""
-    _check(q, k, v, causal, soft_cap, window)
+    _check(q, k, v, causal, soft_cap, window, dtypes=(torch.float32,))
     if q.shape[-1] > MAX_BWD_D:
         raise NotImplementedError(WIDE_BWD)
     kw = dict(causal=causal, soft_cap=soft_cap, window=window)
@@ -424,21 +443,27 @@ class _FlashAttentionFn(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, soft_cap: float | None = None,
                     window: int | None = None) -> torch.Tensor:
-    """q: (B, Lq, Hq, D); k/v: (B, Lk, Hkv, D), f32, head dim contiguous
-    (other strides are read as they are) -> (B, Lq, Hq, D).
+    """q: (B, Lq, Hq, D); k/v: (B, Lk, Hkv, D), all f32 or all bf16, head
+    dim contiguous (other strides are read as they are) -> (B, Lq, Hq, D)
+    of q's dtype.
 
-    On CUDA tensors, one launch of the hand-written kernel (counted in
-    ``LAUNCHES``); on CPU tensors, :func:`flash_attention_plain`.  Under
-    autograd, through ``_FlashAttentionFn`` (module docstring), whose
-    backward runs the backward kernels.  Raises ``ValueError`` for what
-    the kernel cannot take: a dtype other than f32, Hq % Hkv != 0, causal
-    with Lq > Lk.  Any head_dim: D > 256 runs the kernel's wide-head route
-    (D in chunks, 256 output columns a block), which has no backward:
-    under autograd it raises ``NotImplementedError``.
+    On CUDA tensors, one launch of the hand-written kernel's route for
+    the dtype (counted in ``LAUNCHES``); on CPU tensors,
+    :func:`flash_attention_plain`.  Under autograd, through
+    ``_FlashAttentionFn`` (module docstring), whose backward runs the
+    backward kernels; f32 only: a bf16 operand there raises
+    ``NotImplementedError`` (ROADMAP Queue 1 item 7b).  Raises
+    ``ValueError`` for what the kernel cannot take: another dtype, mixed
+    dtypes, Hq % Hkv != 0, causal with Lq > Lk.  Any head_dim: D > 256
+    runs the kernel's wide-head route (D in chunks, 256 output columns a
+    block), which has no backward: under autograd it raises
+    ``NotImplementedError``.
     """
     _check(q, k, v, causal, soft_cap, window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if q.dtype != torch.float32:
+            raise NotImplementedError(BF16_BWD)
         if q.shape[-1] > MAX_BWD_D:
             raise NotImplementedError(WIDE_BWD)
         return _FlashAttentionFn.apply(q, k, v, causal, soft_cap, window)

@@ -235,16 +235,22 @@ def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def depthwise_conv1d_step(state: torch.Tensor, x_t: torch.Tensor,
                           w: torch.Tensor):
     """Single decode step (``repro/kernels/ref.py:180``).  state: (B, K-1,
-    D), the trailing inputs; x_t: (B, D).  Returns (new_state, y_t).
+    D), the trailing inputs; x_t: (B, D).  Returns (new_state, y_t), in
+    the dtype JAX's promotion gives (the window's: state and x_t
+    promoted; y_t: the window and w promoted).
 
     The state is the decode-time image of the shadow registers: the K-1
     values carried across step boundaries.  The window sum runs over k in
-    the order of :func:`depthwise_conv1d`, so stepping through a sequence
-    gives the full conv bit for bit.
+    the order of :func:`depthwise_conv1d`, in f32 (bf16 operands widened:
+    exact products) and cast once, which is the ``trim_conv1d`` kernel's
+    arithmetic on bf16, so stepping through a sequence gives the full
+    conv bit for bit (in f32 the oracle's, in bf16 the kernel's).
     """
     window = torch.cat([state, x_t[:, None, :]], dim=1)      # (B, K, D)
-    y_t = sum(window[:, i] * w[i] for i in range(w.shape[0]))
-    return window[:, 1:], y_t
+    out = torch.promote_types(window.dtype, w.dtype)
+    acc = torch.promote_types(out, torch.float32)   # bf16 sums in f32
+    y_t = sum(window[:, i].to(acc) * w[i].to(acc) for i in range(w.shape[0]))
+    return window[:, 1:], y_t.to(out)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,6 +1,7 @@
 """Causal depthwise conv1d (the Mamba / RG-LRU temporal conv): the wrappers
 of the Hopper kernels, forward and backward, and their plain PyTorch
-versions (the counterpart of ``repro/kernels/trim_conv1d.py``, f32).
+versions (the counterpart of ``repro/kernels/trim_conv1d.py``, f32 and
+bf16).
 
 ``trim_conv1d`` launches the hand-written kernel of ``csrc/trim_conv1d.cu``
 on CUDA tensors and runs :func:`trim_conv1d_plain` on CPU tensors; nothing
@@ -12,6 +13,17 @@ before its add, so the kernel, its plain version and
 ``tile_l`` steps, ``tile_d`` channels a block) is ``core.conv_plan.
 Conv1dPlan``'s.  The input may be a strided view with a contiguous channel
 axis (the mixer's half of the in-projection); it is read in place.
+
+bf16 x and w launch ``trim_conv1d_bf16``, the same kernel on bf16
+operands: every value widened to f32 (exact), products exact in f32, the
+f32 sum from 0 in tap order rounded once to bf16 at the store, which is
+``_kernel``'s ``acc.astype(o_ref.dtype)`` (``repro/kernels/
+trim_conv1d.py:38-40``); the plain version computes the same in f32 and
+casts once, so the three agree bit for bit.  (``ref.depthwise_conv1d``
+on bf16 rounds every product and sum to bf16, as JAX's oracle does, and
+differs.)  Where rows are 16-byte aligned a thread owns 8 channels
+(``Conv1dPlan.vec``).  The bf16 route has no backward yet: under autograd
+a bf16 operand raises ``NotImplementedError`` (ROADMAP Queue 1 item 7b).
 
 Under autograd ``trim_conv1d`` is ``_TrimConv1dFn`` (it saves x and w),
 the counterpart of JAX's autodiff of ``ref.depthwise_conv1d`` (the JAX
@@ -29,7 +41,8 @@ package has no conv1d backward kernel).  Its backward runs two kernels:
   order (no atomics), equal to :func:`trim_conv1d_wgrad_plain` bit for
   bit.
 
-``LAUNCHES`` counts the forward kernel's launches, ``BWD_LAUNCHES`` the
+``LAUNCHES`` counts the forward kernel's launches by route
+(``trim_conv1d``: f32, ``trim_conv1d_bf16``), ``BWD_LAUNCHES`` the
 backward's (``trim_conv1d_dx``: the forward kernel on the reversed
 cotangent; ``trim_conv1d_wgrad``: one a call, its two launches together).
 """
@@ -39,12 +52,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.conv_plan import (CONV1D_WGRAD_RUNS, Conv1dPlan,
-                                         Conv1dWeightGradPlan)
+from repro_torch.core.conv_plan import (CONV1D_BF16_VEC, CONV1D_WGRAD_RUNS,
+                                         Conv1dPlan, Conv1dWeightGradPlan)
 from repro_torch.kernels import build
 
-# Kernel launches: each successful launch adds one.
-LAUNCHES = {"trim_conv1d": 0}
+# Kernel launches: each successful launch adds one, under its route's key.
+LAUNCHES = {"trim_conv1d": 0, "trim_conv1d_bf16": 0}
+BF16_BWD = ("the conv1d kernel's bf16 route has no backward: bf16 under "
+            "autograd is ROADMAP Queue 1 item 7b (the bf16 backward; label "
+            "2g)")
 BWD_LAUNCHES = {"trim_conv1d_dx": 0, "trim_conv1d_wgrad": 0}
 
 
@@ -54,14 +70,16 @@ def reset_launch_counts() -> None:
             counts[key] = 0
 
 
-def _check(x: torch.Tensor, w: torch.Tensor) -> None:
+def _check(x: torch.Tensor, w: torch.Tensor, *,
+           dtypes=(torch.float32, torch.bfloat16)) -> None:
     for name, t in (("x", x), ("w", w)):
         if t.device.type not in ("cpu", "cuda") or t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}: "
                              "x and w must share a CPU or CUDA device")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} is {t.dtype}; this kernel takes "
-                             "float32 only (bf16 is ROADMAP Queue 1 item 2g)")
+        if t.dtype not in dtypes or t.dtype != x.dtype:
+            raise ValueError(
+                f"{name} is {t.dtype}, x {x.dtype}; this kernel takes "
+                f"x and w both of one of {[str(d) for d in dtypes]}")
     if x.dim() == 3 and x.stride(2) != 1:
         raise ValueError(f"x must have a contiguous channel axis; got "
                          f"strides {x.stride()}")
@@ -72,57 +90,81 @@ def trim_conv1d_plain(x: torch.Tensor, w: torch.Tensor, *,
     """The kernel's schedule in plain PyTorch: the sequence cut into runs
     of the plan's ``tile_l`` steps, each run's window holding its ``K-1``
     predecessors (the halo; zeros before t = 0), and the taps summed over
-    every run at once in the kernel's order.  x: (B, L, D); w: (K, D)."""
+    every run at once in the kernel's order, in f32 (bf16 operands
+    widened: exact products), cast once to x's dtype.  x: (B, L, D); w:
+    (K, D)."""
     plan = Conv1dPlan.build(tuple(x.shape), tuple(w.shape), tile_l=tile_l)
     b, length, d = x.shape
     k, tl = plan.k, plan.tile_l
     padded = plan.runs * tl
-    xp = F.pad(x, (0, 0, k - 1, padded - length))
+    acc_dtype = torch.promote_types(x.dtype, torch.float32)
+    xp = F.pad(x.to(acc_dtype), (0, 0, k - 1, padded - length))
     win = xp.unfold(1, tl + k - 1, tl)            # (B, runs, D, tl + K - 1)
+    wf = w.to(acc_dtype)
     acc = 0
     for i in range(k):
-        acc = acc + win[..., i:i + tl] * w[i][:, None]
+        acc = acc + win[..., i:i + tl] * wf[i][:, None]
     y = acc.permute(0, 1, 3, 2).reshape(b, padded, d)
-    return y[:, :length].contiguous()
+    return y[:, :length].to(x.dtype).contiguous()
+
+
+def bf16_vec(x: torch.Tensor, w: torch.Tensor) -> int:
+    """Channels a thread of the bf16 route: :data:`CONV1D_BF16_VEC` where
+    x's rows, w's contiguous rows and the output's are 16-byte aligned (D
+    and x's batch and time strides multiples of 8 elements, the pointers
+    of 16 bytes), else 1."""
+    v = CONV1D_BF16_VEC
+    ok = (x.shape[-1] % v == 0 and x.stride(0) % v == 0
+          and x.stride(1) % v == 0 and x.data_ptr() % 16 == 0
+          and w.data_ptr() % 16 == 0)
+    return v if ok else 1
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, plan: Conv1dPlan, *,
             reverse: bool = False) -> torch.Tensor:
-    """One launch of ``trim_conv1d_f32`` on x; with ``reverse``, on x and
-    the output read in reversed time (the base pointer at row L-1, the
-    time strides negated), which is the input gradient's launch."""
+    """One launch of ``trim_conv1d_f32`` (or, for a bf16 plan,
+    ``trim_conv1d_bf16``) on x; with ``reverse``, on x and the output
+    read in reversed time (the base pointer at row L-1, the time strides
+    negated), which is the input gradient's launch (f32 only)."""
     b, length, d = x.shape
-    wc = w.contiguous()
-    y = torch.empty((b, length, d), dtype=torch.float32, device=x.device)
+    y = torch.empty((b, length, d), dtype=x.dtype, device=x.device)
     x_ptr, x_sl = x.data_ptr(), x.stride(1)
     y_ptr, y_sl = y.data_ptr(), y.stride(1)
     if reverse:
-        x_ptr += 4 * (length - 1) * x_sl
-        y_ptr += 4 * (length - 1) * y_sl
+        x_ptr += x.element_size() * (length - 1) * x_sl
+        y_ptr += y.element_size() * (length - 1) * y_sl
         x_sl, y_sl = -x_sl, -y_sl
     lib = build.library("trim_conv1d")
+    args = (x_ptr, w.data_ptr(), y_ptr, b, length, d, plan.k, x.stride(0),
+            x_sl, y.stride(0), y_sl, plan.tile_l, plan.tile_d)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.trim_conv1d_f32(
-            x_ptr, wc.data_ptr(), y_ptr, b, length, d, plan.k, x.stride(0),
-            x_sl, y.stride(0), y_sl, plan.tile_l, plan.tile_d, stream)
+        if plan.dtype_bytes == 2:
+            err = lib.trim_conv1d_bf16(*args, plan.vec, stream)
+        else:
+            err = lib.trim_conv1d_f32(*args, stream)
     if err != 0:
         raise RuntimeError(
             f"trim_conv1d kernel launch failed: CUDA error {err} "
             f"({lib.trim_conv1d_error_string(err).decode()}) for x "
-            f"{tuple(x.shape)} strides {x.stride()}, K={plan.k}, "
-            f"tile_l={plan.tile_l}, tile_d={plan.tile_d}, reverse={reverse}")
+            f"{tuple(x.shape)} {x.dtype} strides {x.stride()}, K={plan.k}, "
+            f"tile_l={plan.tile_l}, tile_d={plan.tile_d}, vec={plan.vec}, "
+            f"reverse={reverse}")
     return y
 
 
 def _forward(x: torch.Tensor, w: torch.Tensor,
              tile_l: int | None) -> torch.Tensor:
-    plan = Conv1dPlan.build(tuple(x.shape), tuple(w.shape), tile_l=tile_l)
+    bf16 = x.dtype == torch.bfloat16
+    w = w.contiguous()
+    plan = Conv1dPlan.build(tuple(x.shape), tuple(w.shape), tile_l=tile_l,
+                            dtype_bytes=x.element_size(),
+                            vec=bf16_vec(x, w) if bf16 else 1)
     if x.device.type == "cpu":
         with torch.no_grad():
             return trim_conv1d_plain(x, w, tile_l=plan.tile_l)
     y = _launch(x, w, plan)
-    LAUNCHES["trim_conv1d"] += 1
+    LAUNCHES["trim_conv1d_bf16" if bf16 else "trim_conv1d"] += 1
     return y
 
 
@@ -139,12 +181,12 @@ def trim_conv1d_input_grad(dy: torch.Tensor, w: torch.Tensor, *,
     counted in ``BWD_LAUNCHES["trim_conv1d_dx"]``; on CPU tensors its
     plain version, :func:`trim_conv1d_input_grad_plain`."""
     dy = _channels_contiguous(dy)
-    _check(dy, w)
+    _check(dy, w, dtypes=(torch.float32,))
     plan = Conv1dPlan.build(tuple(dy.shape), tuple(w.shape), tile_l=tile_l)
     if dy.device.type == "cpu":
         with torch.no_grad():
             return trim_conv1d_input_grad_plain(dy, w, tile_l=plan.tile_l)
-    dx = _launch(dy, w, plan, reverse=True)
+    dx = _launch(dy, w.contiguous(), plan, reverse=True)
     BWD_LAUNCHES["trim_conv1d_dx"] += 1
     return dx
 
@@ -193,7 +235,7 @@ def trim_conv1d_weight_grad(x: torch.Tensor, dy: torch.Tensor, k: int, *,
     (two launches, counted once in ``BWD_LAUNCHES["trim_conv1d_wgrad"]``);
     on CPU tensors :func:`trim_conv1d_wgrad_plain`."""
     dy = _channels_contiguous(dy)
-    _check(x, dy)
+    _check(x, dy, dtypes=(torch.float32,))
     if dy.shape != x.shape:
         raise ValueError(f"dy {tuple(dy.shape)} is not of x's shape "
                          f"{tuple(x.shape)}")
@@ -248,18 +290,23 @@ class _TrimConv1dFn(torch.autograd.Function):
 
 def trim_conv1d(x: torch.Tensor, w: torch.Tensor, *,
                 tile_l: int | None = None) -> torch.Tensor:
-    """x: (B, L, D) f32 with a contiguous channel axis (other strides are
-    read as they are); w: (K, D) f32, K >= 2 -> y (B, L, D).
+    """x: (B, L, D) f32 or bf16 with a contiguous channel axis (other
+    strides are read as they are); w: (K, D) of x's dtype, K >= 2 -> y
+    (B, L, D) of x's dtype.
 
-    On CUDA tensors, one launch of the hand-written kernel (counted in
-    ``LAUNCHES``); on CPU tensors, :func:`trim_conv1d_plain`.  Under
-    autograd, with x or w requiring grad, through ``_TrimConv1dFn``,
-    whose backward runs the backward kernels (module docstring).  Raises
+    On CUDA tensors, one launch of the hand-written kernel's route for
+    the dtype (counted in ``LAUNCHES``); on CPU tensors,
+    :func:`trim_conv1d_plain`.  Under autograd, with x or w requiring
+    grad, through ``_TrimConv1dFn``, whose backward runs the backward
+    kernels (module docstring); f32 only: a bf16 operand there raises
+    ``NotImplementedError`` (ROADMAP Queue 1 item 7b).  Raises
     ``ValueError`` for what the kernel cannot take: another dtype, mixed
-    devices, K < 2, or an empty B, L or D.  ``tile_l`` left as ``None``
-    takes ``Conv1dPlan.build``'s choice.
+    dtypes or devices, K < 2, or an empty B, L or D.  ``tile_l`` left as
+    ``None`` takes ``Conv1dPlan.build``'s choice.
     """
     _check(x, w)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        if x.dtype != torch.float32:
+            raise NotImplementedError(BF16_BWD)
         return _TrimConv1dFn.apply(x, w, tile_l)
     return _forward(x, w, tile_l)

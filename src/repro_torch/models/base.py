@@ -25,6 +25,7 @@ class Param:
     shape: tuple[int, ...]
     init: str = "normal"                  # normal | zeros | ones
     scale: float = 1.0
+    dtype: torch.dtype | None = None      # overrides the model dtype
 
 
 def stack_params(tree, n: int):
@@ -33,7 +34,8 @@ def stack_params(tree, n: int):
     ``shape[-2]`` of the stacked shape, as in JAX: a stacked ``wq`` of
     shape ``(L, d, h, hd)`` draws with ``std = 1 / sqrt(h)``."""
     if isinstance(tree, Param):
-        return Param((n, *tree.shape), init=tree.init, scale=tree.scale)
+        return Param((n, *tree.shape), init=tree.init, scale=tree.scale,
+                     dtype=tree.dtype)
     return {k: stack_params(v, n) for k, v in tree.items()}
 
 
@@ -48,22 +50,24 @@ def tree_size(tree) -> int:
 def init_params(tree, generator: torch.Generator, *,
                 device: torch.device | str = "cpu",
                 dtype: torch.dtype = torch.float32):
-    """Materialise a tree of :class:`Param` into tensors on ``device``.
-    Draws happen on the generator's device (the CPU for a default
+    """Materialise a tree of :class:`Param` into tensors on ``device``,
+    each in its own ``dtype`` if it declares one, else in ``dtype``
+    (``repro/models/base.py:56``).  Draws happen on the generator's device (the CPU for a default
     ``torch.Generator()``), so one seed gives the same weights on every
     device; a ``torch.Generator(device="cuda")`` draws a multi-GB model
     on the card."""
     if isinstance(tree, Param):
+        dt = tree.dtype or dtype
         if tree.init == "zeros":
-            return torch.zeros(tree.shape, dtype=dtype, device=device)
+            return torch.zeros(tree.shape, dtype=dt, device=device)
         if tree.init == "ones":
-            return torch.ones(tree.shape, dtype=dtype, device=device)
+            return torch.ones(tree.shape, dtype=dt, device=device)
         if tree.init != "normal":
             raise ValueError(f"unknown init {tree.init!r}")
         fan_in = tree.shape[-2] if len(tree.shape) >= 2 else tree.shape[-1]
         std = tree.scale / math.sqrt(max(fan_in, 1))
         v = torch.randn(tree.shape, generator=generator,
                         dtype=torch.float32, device=generator.device)
-        return v.mul_(std).to(device=device, dtype=dtype)
+        return v.mul_(std).to(device=device, dtype=dt)
     return {k: init_params(v, generator, device=device, dtype=dtype)
             for k, v in tree.items()}

@@ -1,7 +1,9 @@
 """Model configuration shared by every architecture family (the
 counterpart of ``repro/models/config.py``, with the same fields).
 
-The port runs float32 only, and its attention implementations are
+The port runs float32 and bfloat16 (``dtype``: bf16 LM inference, where
+the norms' scales and the scan states stay f32 as in JAX; training is
+f32 only, ROADMAP Queue 1 item 7b), and its attention implementations are
 ``"flash"`` (the hand-written CUDA kernel of ``kernels/flash_attention.py``
 on a CUDA tensor, its plain PyTorch version on a CPU tensor; the JAX
 ``"pallas"``), ``"chunked"`` and ``"ref"``.
@@ -13,6 +15,7 @@ import dataclasses
 from dataclasses import dataclass
 
 ATTN_IMPLS = ("flash", "chunked", "ref")
+DTYPES = ("float32", "bfloat16")
 
 
 @dataclass(frozen=True)
@@ -69,10 +72,10 @@ class ModelConfig:
     moe_impl: str = "gmm"
 
     def __post_init__(self):
-        if self.dtype != "float32":
+        if self.dtype not in DTYPES:
             raise ValueError(
-                f"dtype={self.dtype!r}: the port runs float32 only; bf16 is "
-                "ROADMAP Queue 1 item 2g")
+                f"dtype={self.dtype!r}: the port runs {' and '.join(DTYPES)}"
+                " (ROADMAP Queue 1 item 2g)")
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl={self.attn_impl!r}; choose from "
                              f"{ATTN_IMPLS}")

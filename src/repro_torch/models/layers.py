@@ -629,10 +629,12 @@ class TrimCNN(nn.Module):
 # ---------------------------------------------------------------------------
 
 def norm_params(cfg: ModelConfig, d: int | None = None) -> dict:
+    """Scale (and LayerNorm's bias), f32 in a model of any dtype, as
+    JAX pins them (``repro/models/layers.py:27-31``)."""
     d = d or cfg.d_model
-    p = {"scale": Param((d,), init="ones")}
+    p = {"scale": Param((d,), init="ones", dtype=torch.float32)}
     if cfg.norm == "layernorm":
-        p["bias"] = Param((d,), init="zeros")
+        p["bias"] = Param((d,), init="zeros", dtype=torch.float32)
     return p
 
 

@@ -187,12 +187,13 @@ def lm_params(cfg: ModelConfig) -> dict:
 
 def make_state(cfg: ModelConfig, batch: int) -> dict:
     """Decode state of every layer (stacked, zeros): the conv window (the
-    K-1 carried inputs) and the f32 SSM state."""
+    K-1 carried inputs, in the model dtype) and the SSM state, f32 in a
+    model of any dtype (``repro/models/mamba.py:146``)."""
     return {
         "conv": Param((cfg.n_layers, batch, cfg.d_conv - 1, cfg.d_inner),
                       init="zeros"),
         "ssm": Param((cfg.n_layers, batch, cfg.d_inner, cfg.ssm_state),
-                     init="zeros"),
+                     init="zeros", dtype=torch.float32),
     }
 
 

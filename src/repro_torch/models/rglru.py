@@ -121,7 +121,8 @@ def lm_params(cfg: ModelConfig) -> dict:
 
 def make_state(cfg: ModelConfig, batch: int) -> dict:
     """Per-layer decode state (zeros): a ring KV cache of ``cfg.window``
-    slots (att) or the conv window and the f32 LRU state (rec).  It does
+    slots (att) or the conv window and the LRU state (rec), the LRU state
+    f32 in a model of any dtype (``repro/models/rglru.py:118``).  It does
     not grow with the sequence, so it takes no ``max_len``."""
     w = cfg.lru_width or cfg.d_model
     state = {}
@@ -133,7 +134,7 @@ def make_state(cfg: ModelConfig, batch: int) -> dict:
         else:
             state[f"layer_{i}"] = {
                 "conv": Param((batch, cfg.d_conv - 1, w), init="zeros"),
-                "h": Param((batch, w), init="zeros")}
+                "h": Param((batch, w), init="zeros", dtype=torch.float32)}
     return state
 
 

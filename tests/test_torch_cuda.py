@@ -1582,3 +1582,117 @@ def test_bf16_cuda_calls_never_reach_the_plain_versions(cuda, monkeypatch):
     assert tc.LAUNCHES["fused_bf16"] >= 2
     assert calls == []
     assert tc.LAUNCHES["carry"] == tc.LAUNCHES["fused"] == 0
+
+
+# bf16 conv1d: the f32 cases (every K instance, ragged runs, strided
+# views; 8 channels a thread where D % 8 == 0), plus rows at a 2-byte
+# offset (one channel a thread)
+CONV1D_BF16_CASES = CONV1D_CASES + [(2, 300, 64, 4, None, "offset"),
+                                    (1, 50, 40, 9, 3, "offset")]
+
+
+@pytest.mark.parametrize("case", CONV1D_BF16_CASES,
+                         ids=[str(i) for i in range(len(CONV1D_BF16_CASES))])
+def test_conv1d_bf16_kernel_equals_plain_bitwise(cuda, case):
+    """The bf16 route: f32 sums of exact products, one rounding at the
+    store, so the kernel equals its plain version bit for bit; counted
+    under ``trim_conv1d_bf16`` and never under the f32 route."""
+    from repro_torch.kernels import trim_conv1d as tc1
+    b, length, d, k, tile_l, view = case
+    gen = torch.Generator(device="cuda").manual_seed(length + d + 1)
+    width = 2 * d if view is True else d + 1 if view == "offset" else d
+    xz = torch.randn((b, length, width), generator=gen,
+                     device=cuda).bfloat16()
+    x = xz[..., 1:d + 1] if view == "offset" else xz[..., :d]
+    w = (0.5 * torch.randn((k, d), generator=gen, device=cuda)).bfloat16()
+    assert tc1.bf16_vec(x, w) == (8 if d % 8 == 0 and view != "offset"
+                                  else 1)
+    before = dict(tc1.LAUNCHES)
+    out = tc1.trim_conv1d(x, w, tile_l=tile_l)
+    again = tc1.trim_conv1d(x, w, tile_l=tile_l)
+    torch.cuda.synchronize()
+    assert tc1.LAUNCHES["trim_conv1d_bf16"] == before["trim_conv1d_bf16"] + 2
+    assert tc1.LAUNCHES["trim_conv1d"] == before["trim_conv1d"]
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    assert torch.equal(out, tc1.trim_conv1d_plain(x, w, tile_l=tile_l))
+    assert torch.equal(out, again)
+
+
+# bf16 flash: D 16, 128 and 256 (the narrow route's three instances, the
+# SMOKE, qwen2.5-3b and recurrentgemma-2b head dims), 14 (element-wise
+# K / V loads), 320 (the wide route); GQA, windows, soft caps, Lq < Lk
+FLASH_BF16_CASES = [
+    (2, 40, 40, 4, 2, 16, True, None, None),
+    (1, 33, 100, 7, 1, 14, False, None, 20),
+    (1, 300, 300, 16, 2, 128, True, None, None),
+    (2, 17, 1000, 16, 2, 128, True, None, None),
+    (1, 150, 150, 10, 1, 256, True, 30.0, 70),
+    (1, 150, 150, 4, 2, 320, True, None, None),
+    (2, 70, 130, 6, 2, 320, False, 30.0, 40),
+]
+FLASH_BF16_TOL = 1e-2
+
+
+@pytest.mark.parametrize("case", FLASH_BF16_CASES,
+                         ids=[str(i) for i in range(len(FLASH_BF16_CASES))])
+def test_flash_bf16_kernel_matches_plain(cuda, case):
+    """bf16 q, k, v: the kernel within 1e-2 of max|o| of its plain
+    version (both f32 inside, one rounding to bf16 at the end; the
+    tolerance is DESIGN.md's bf16 one), counted under
+    ``flash_attention_bf16`` only, repeatable bitwise."""
+    from repro_torch.kernels import flash_attention as fa
+    b, lq, lk, hq, hkv, d, causal, cap, win = case
+    gen = torch.Generator(device="cuda").manual_seed(lq + lk + d)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).bfloat16()
+               for shape in ((b, lq, hq, d), (b, lk, hkv, d),
+                             (b, lk, hkv, d)))
+    kw = dict(causal=causal, soft_cap=cap, window=win)
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention(q, k, v, **kw)
+    again = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_bf16"] == \
+        before["flash_attention_bf16"] + 2
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"]
+    plain = fa.flash_attention_plain(q, k, v, **kw)
+    assert out.dtype == torch.bfloat16 and out.shape == plain.shape
+    scale = plain.float().abs().max().item()
+    assert (out.float() - plain.float()).abs().max().item() <= \
+        FLASH_BF16_TOL * scale
+    assert torch.equal(out, again)
+
+
+def test_bf16_lm_calls_never_reach_the_plain_versions(cuda, monkeypatch):
+    """A bf16 SMOKE prefill of each family on the card launches the bf16
+    routes (conv1d and flash) and calls no plain version."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import trim_conv1d as tc1
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+    calls = []
+    for mod, name in ((fa, "flash_attention_plain"), (fa, "_plain_forward"),
+                      (tc1, "trim_conv1d_plain")):
+        monkeypatch.setattr(mod, name,
+                            lambda *a, _n=name, **k: calls.append(_n))
+    # launches of a 3-layer prefill: (conv1d, flash)
+    want = {"qwen2.5-3b": (0, 3), "falcon-mamba-7b": (3, 0),
+            "recurrentgemma-2b": (2, 1)}
+    for arch, (n_conv, n_att) in want.items():
+        cfg = registry.get(arch).SMOKE.replace(
+            n_layers=3, dtype="bfloat16", attn_impl="flash")
+        p = init_params(api.params(cfg), torch.Generator().manual_seed(0),
+                        device=cuda, dtype=torch.bfloat16)
+        tokens = torch.randint(0, cfg.vocab, (2, 24), device=cuda)
+        fa.reset_launch_counts()
+        tc1.reset_launch_counts()
+        logits, _ = steps.make_prefill_step(cfg)(p, {"tokens": tokens})
+        torch.cuda.synchronize()
+        assert logits.dtype == torch.bfloat16
+        assert bool(torch.isfinite(logits.float()).all())
+        assert tc1.LAUNCHES == {"trim_conv1d": 0,
+                                "trim_conv1d_bf16": n_conv}
+        assert fa.LAUNCHES == {"flash_attention": 0,
+                               "flash_attention_bf16": n_att}
+    assert calls == []

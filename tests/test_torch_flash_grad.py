@@ -158,5 +158,5 @@ def test_plain_autograd_counts_no_launch():
     fa.reset_launch_counts()
     q, k, v, do = _inputs(CASES[0], 4)
     _port_grads("flash", q, k, v, do, _kw(CASES[0]))
-    assert fa.LAUNCHES == {"flash_attention": 0}
+    assert fa.LAUNCHES == {"flash_attention": 0, "flash_attention_bf16": 0}
     assert set(fa.BWD_LAUNCHES.values()) == {0}

@@ -126,7 +126,9 @@ def test_conv1d_wrapper_rejects_what_the_kernel_cannot_take():
 def test_conv1d_plain_path_does_not_count_launches():
     tc1.reset_launch_counts()
     tc1.trim_conv1d(torch.ones((2, 9, 5)), torch.ones((3, 5)), tile_l=4)
-    assert tc1.LAUNCHES == {"trim_conv1d": 0}
+    tc1.trim_conv1d(torch.ones((2, 9, 8), dtype=torch.bfloat16),
+                    torch.ones((3, 8), dtype=torch.bfloat16))
+    assert tc1.LAUNCHES == {"trim_conv1d": 0, "trim_conv1d_bf16": 0}
 
 
 def test_flash_wrapper_rejects_what_the_kernel_cannot_take():
@@ -162,7 +164,9 @@ def test_flash_plain_path_does_not_count_launches():
     fa.reset_launch_counts()
     fa.flash_attention(torch.ones((1, 5, 4, 8)), torch.ones((1, 7, 2, 8)),
                        torch.ones((1, 7, 2, 8)), soft_cap=5.0, window=3)
-    assert fa.LAUNCHES == {"flash_attention": 0}
+    fa.flash_attention(*(torch.ones(s, dtype=torch.bfloat16) for s in (
+        (1, 5, 4, 8), (1, 7, 2, 8), (1, 7, 2, 8))))
+    assert fa.LAUNCHES == {"flash_attention": 0, "flash_attention_bf16": 0}
 
 
 def test_wrapper_rejects_what_the_kernel_cannot_take():

@@ -220,8 +220,9 @@ def test_config_rejects_what_the_port_does_not_run():
     cfg = registry.get("qwen2.5-3b").CONFIG
     assert cfg.attn_impl == "flash"
     assert registry.get("qwen2.5-3b").SMOKE.attn_impl == "ref"
+    assert cfg.replace(dtype="bfloat16").dtype == "bfloat16"
     with pytest.raises(ValueError, match="2g"):
-        cfg.replace(dtype="bfloat16")
+        cfg.replace(dtype="float16")
     with pytest.raises(ValueError, match="attn_impl"):
         cfg.replace(attn_impl="pallas")
     with pytest.raises(KeyError):
