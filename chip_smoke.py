@@ -52,7 +52,15 @@ Phases, each raising on failure (each prints its seconds):
    the bound; the card's resident blocks an SM of each GEMM tile equal
    to the plan's ``WGRAD_BLOCKS_PER_SM``; the input gradient (the carry
    kernel on the dilated cotangent) against the plain forward on the
-   same padded cotangent, within the forward's tolerance;
+   same padded cotangent, within the forward's tolerance; then the bf16
+   entry (``trim_conv2d_wgrad_bf16``, PR 31) at VGG-16's 13 layers, the
+   112^2 depthwise case, AlexNet conv1's sub-kernels and ResNet-18's
+   7x7/2 Cin-3 stem at batch 8: its f32 sums bitwise the f32 entry's on
+   the widened operands and repeatable, and within ``WGRAD_TOLERANCE``
+   of its plain version; device
+   ms from CUDA graphs beside the f32 entry's, ``conv2d_weight`` on bf16,
+   the plain version's, the bound (989 TFLOP/s of bf16 or 2 bytes an
+   element at 3.35 TB/s) and the FFMA ceiling (67 TFLOP/s);
 6. fused kernel check — full-width VGG-16's two-layer groups
    conv1..conv2 (tile 8 x 16) and conv3..conv4 (4 x 8) at fixed tiles, every
    group the plan picks for full-width VGG-16 (its description is
@@ -350,12 +358,30 @@ Phases, each raising on failure (each prints its seconds):
    f32 kernel on the same q, k, v within ``FLASH_BF16_TOLERANCE``); and
    ``BF16_REQUESTS`` greedy requests through ``make_decode_step`` on a
    bf16 state (ms a step, the tokens; no kernel runs in decode);
-35. the kernel JSON line (eighteen kernels; the launches of trim_conv1d
+35. train_bf16 — full-width VGG-16 (224x224, 1000 classes, the train
+   phase's seeded weights drawn in f32 and cast to bf16, its first
+   batches rounded to bf16, batch 8): the step-1 gradients on the
+   kernels (25 ``carry_bf16`` and 13 ``wgrad_bf16`` launches, no f32
+   conv kernel) against the same step with ``kernels.ops``' three kernel
+   wrappers swapped for their plain versions (the forward and dx entries
+   are bitwise their plain versions, so the wgrad sees the same inputs):
+   every dw element within one bf16 ulp plus ``WGRAD_TOLERANCE`` of the
+   leaf's max (each side is its f32 sums rounded once, and the sums part
+   by the f32 route's tolerance: conv1's 401,408-term sums cancel, and
+   read 2 ulps apart at small elements), every other leaf and the loss
+   bitwise; each leaf's distance from the f32 step on the same draws
+   (printed: a network's bf16 gradient is not held to f32); then
+   ``BF16_TRAIN_STEPS`` AdamW steps of ``launch.train_cnn.train_step``,
+   each with exactly 25 ``carry_bf16`` and 13 ``wgrad_bf16`` launches
+   and a finite loss, step 1 run again from the same state bitwise
+   equal; ms a step (steps 2-4) and peak memory beside the train phase's
+   f32 figures of this call;
+36. the kernel JSON line (nineteen kernels; the launches of trim_conv1d
    and flash_attention include the prefills' and the training phases',
    the flash backward kernels' and conv1d backward kernels' the training
-   steps', the bf16 conv entries' the bf16 serving phase's, the bf16
-   conv1d and flash entries' the lm_bf16 prefills'), then ``{"ok":
-   true, "device": ...}`` last.
+   steps', the bf16 conv entries' the bf16 serving phase's and the
+   train_bf16 phase's timed steps', the bf16 conv1d and flash entries'
+   the lm_bf16 prefills'), then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without a result when no GPU is visible.
 """
@@ -524,6 +550,7 @@ BF16_REQUESTS, BF16_PROMPT, BF16_GEN = 4, 16, 8
 CROSS_PROMPT = 256          # decode-vs-prefill prompt at the depth-1 cut
 TRAIN_BATCH = 8
 TRAIN_STEPS = 6
+BF16_TRAIN_STEPS = 4        # the train_bf16 phase's AdamW steps
 REQUESTS = 48               # carry- and fused-kernel serving traces
 HALO_REQUESTS = 16          # halo-kernel serving trace (a prefix of it)
 FUSED_SCALE = 16            # channel divisor of the fused phases' VGG-16
@@ -1053,6 +1080,118 @@ def check_backward_kernels(torch):
           f" TFLOP/s), conv2d_weight {sum(r['library'] for r in vgg):.3f} "
           f"ms, bound {sum(r['bound'] for r in vgg):.3f} ms, dx "
           f"{sum(r['dx'] for r in vgg):.3f} ms")
+    return rows, check_wgrad_bf16(torch)
+
+
+def wgrad_bf16_cases(n: int = TRAIN_BATCH):
+    """(name, x_shape, (KH, KW, Cout), stride, groups, pads) of the bf16
+    weight-gradient check at batch ``n``: VGG-16's 13 layers, the 112^2
+    depthwise case of :func:`kernel_cases`, AlexNet conv1's sub-kernel
+    shapes (the 'valid' slices of its 227x227 input at stride 4, as
+    :func:`alexnet_conv1_parts` cuts them) and ResNet-18's 7x7/2 'same'
+    stem at Cin 3."""
+    from repro_torch.core.model import vgg16_layers
+    from repro_torch.core.tiling import subkernel_decomposition
+    from repro_torch.kernels.ref import conv_pads
+    cases = [(l.name, (n, l.ifmap, l.ifmap, l.in_channels),
+              (3, 3, l.out_channels), 1, 1,
+              conv_pads(l.ifmap, l.ifmap, 3, 1, "same"))
+             for l in vgg16_layers()]
+    cases.append(("dw_112x32", (n, 112, 112, 32), (3, 3, 32), 1, 32,
+                  conv_pads(112, 112, 3, 1, "same")))
+    shapes = []
+    for _, _, kh, kw in subkernel_decomposition(11):
+        if (kh, kw) not in shapes:
+            shapes.append((kh, kw))
+            cases.append((f"alex1_{kh}x{kw}", (n, 54 * 4 + kh, 54 * 4 + kw, 3),
+                          (kh, kw, 96), 4, 1, ((0, 0), (0, 0))))
+    cases.append(("stem_7x7s2", (n, 224, 224, 3), (7, 7, 64), 2, 1,
+                  conv_pads(224, 224, 7, 2, "same")))
+    return cases
+
+
+def check_wgrad_bf16(torch) -> list:
+    """The weight-gradient kernel's bf16 entry (``trim_conv2d_wgrad_bf16``)
+    at :func:`wgrad_bf16_cases`: its f32 sums bitwise the f32 entry's on
+    the widened operands and bitwise repeatable, and within
+    ``WGRAD_TOLERANCE`` of max|plain| of the plain version; device ms
+    from CUDA graphs beside the f32 entry's on the widened operands,
+    ``torch.nn.grad.conv2d_weight`` on bf16 (cuDNN, TF32 off; the
+    yardstick) and the plain version's (eager), the bound (operations at
+    989 TFLOP/s of bf16, or 2 bytes an element at 3.35 TB/s) and the FFMA
+    ceiling (67 TFLOP/s)."""
+    from repro_torch.core.conv_plan import WeightGradPlan
+    from repro_torch.kernels import trim_conv2d as tc
+    from repro_torch.kernels.ref import pad_nhwc
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    bf, f32 = torch.bfloat16, torch.float32
+    rows = []
+    print(f"bf16 weight-gradient check at batch {TRAIN_BATCH} (device ms "
+          "from CUDA graphs, plain eager; f32 sums == the f32 entry on the "
+          "widened operands, bitwise):")
+    print(f"  {'case':11s} {'err':>9s} {'tol':>8s} {'==f32':>5s} "
+          f"{'bf16':>8s} {'f32':>8s} {'cw_lib':>8s} {'plain':>8s} "
+          f"{'bound':>8s} by         {'FFMA':>8s} {'TF/s':>6s} route     "
+          "chunks blocks")
+    for name, xs, (kh, kw, cout), s, g, pads in wgrad_bf16_cases():
+        plan = WeightGradPlan.build(xs, (kh, kw, xs[3] // g, cout),
+                                    stride=s, pad=pads, groups=g,
+                                    dtype_bytes=2)
+        x = torch.randn(xs, generator=gen, device="cuda").to(bf)
+        gy = torch.randn((plan.n, plan.h_out, plan.w_out, cout),
+                         generator=gen, device="cuda").to(bf)
+        xf, gf = x.float(), gy.float()
+        kw_ = dict(kernel_size=(kh, kw), stride=s, pad=pads, groups=g)
+        sums = tc.trim_conv2d_weight_grad(x, gy, **kw_)
+        again = tc.trim_conv2d_weight_grad(x, gy, **kw_)
+        wide = tc.trim_conv2d_weight_grad(xf, gf, **kw_)
+        plain = tc.trim_conv2d_weight_grad_plain(x, gy, **kw_)
+        torch.cuda.synchronize()
+        err = (sums - plain).abs().max().item()
+        tol = WGRAD_TOLERANCE * plain.abs().max().item()
+        if sums.dtype != f32 or not torch.equal(sums, wide):
+            raise AssertionError(f"wgrad bf16 {name}: the f32 sums differ "
+                                 "from the f32 entry on the widened "
+                                 "operands")
+        if not torch.equal(sums, again):
+            raise AssertionError(f"wgrad bf16 {name}: two launches differ")
+        if not np.isfinite(err) or err > tol:
+            raise AssertionError(f"wgrad bf16 {name}: max|kernel - plain| "
+                                 f"= {err} > {tol}")
+        xp = pad_nhwc(x, pads).permute(0, 3, 1, 2)
+        gl = gy.permute(0, 3, 1, 2)
+        wsize = (cout, xs[3] // g, kh, kw)
+        t = {"kernel": time_graph_ms(torch, lambda: tc.trim_conv2d_weight_grad(
+                 x, gy, **kw_)),
+             "f32": time_graph_ms(torch, lambda: tc.trim_conv2d_weight_grad(
+                 xf, gf, **kw_)),
+             # one library call: cuDNN's bf16 weight gradient (TF32 off)
+             "library": time_graph_ms(
+                 torch, lambda: torch.nn.grad.conv2d_weight(
+                     xp, wsize, gl, stride=s, groups=g)),
+             "plain": time_ms(torch, lambda: tc.trim_conv2d_weight_grad_plain(
+                 x, gy, **kw_), reps=3)}
+        row = dict(name=name, vgg=name.startswith("conv"), err=err,
+                   flops=plan.flops, **t,
+                   **bf16_bound(plan.flops, plan.min_bytes()))
+        rows.append(row)
+        print(f"  {name:11s} {err:9.2e} {tol:8.1e} {'True':>5s} "
+              f"{t['kernel']:8.3f} {t['f32']:8.3f} {t['library']:8.3f} "
+              f"{t['plain']:8.3f} {row['bound']:8.4f} {row['by']:10s} "
+              f"{row['ffma']:8.3f} {plan.flops / t['kernel'] / 1e9:6.2f} "
+              f"{plan.route:9s} {plan.chunks:6d} {plan.blocks:6d}")
+        del x, gy, xf, gf, sums, again, wide, plain, xp, gl
+    torch.cuda.empty_cache()
+    vgg = [r for r in rows if r["vgg"]]
+    ms = sum(r["kernel"] for r in vgg)
+    print(f"bf16 weight-gradient check, sums over the 13 VGG-16 layers: "
+          f"bf16 {ms:.3f} ms ({sum(r['flops'] for r in vgg) / ms / 1e9:.2f} "
+          f"TFLOP/s), f32 entry {sum(r['f32'] for r in vgg):.3f} ms, "
+          f"conv2d_weight bf16 {sum(r['library'] for r in vgg):.3f} ms, "
+          f"plain {sum(r['plain'] for r in vgg):.3f} ms, bound "
+          f"{sum(r['bound'] for r in vgg):.4f} ms (FFMA ceiling "
+          f"{sum(r['ffma'] for r in vgg):.3f} ms)")
     return rows
 
 
@@ -2277,7 +2416,8 @@ def grads(apply_fn, params, x, y):
 
 def train_vgg16(torch):
     """Full-width VGG-16 training steps; returns the wgrad and carry launch
-    counts of the steps."""
+    counts of the steps and ``{"times", "peak"}``: each step's ms and the
+    peak device memory (GiB) of the timed steps."""
     from repro_torch.core.model import vgg16_layers
     from repro_torch.launch.train_cnn import train_step
     from repro_torch.models.layers import TrimCNN
@@ -2345,18 +2485,22 @@ def train_vgg16(torch):
           f"run, {np.mean(times[1:3]):.1f}; step 1 {times[0]:.1f} ms), "
           f"peak device memory {peak:.2f} GiB; step 1 repeated from the "
           "same state is bitwise equal")
-    return launches
+    return launches, {"times": times, "peak": peak}
 
 
-def timed_train_steps(torch, model, state, cfg, batches, log=False):
+def timed_train_steps(torch, model, state, cfg, batches, log=False,
+                      suffix=""):
     """``launch.train_cnn.train_step`` on each batch from ``state``:
     each step's ms (host clock to synchronize), every step holding
     exactly 25 carry launches (13 forward, 12 input gradients) and 13
-    weight-gradient calls and a finite loss.  Returns the times, the
-    summed launch counts and the parameters after step 1."""
+    weight-gradient calls (under the keys of ``suffix``'s entries:
+    ``"_bf16"`` for a bf16 model) and no other conv launch, and a finite
+    loss.  Returns the times, the summed launch counts and the parameters
+    after step 1."""
     from repro_torch.kernels import trim_conv2d as tc
     from repro_torch.launch.train_cnn import train_step
     params, moments = state
+    want = launch_counts(**{"carry" + suffix: 25, "wgrad" + suffix: 13})
     launches, times = launch_counts(), []
     for i, (x, y) in enumerate(batches):
         tc.reset_launch_counts()
@@ -2366,10 +2510,10 @@ def timed_train_steps(torch, model, state, cfg, batches, log=False):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         step = dict(tc.LAUNCHES)
-        if step != launch_counts(carry=25, wgrad=13):
+        if step != want:
             raise AssertionError(f"train step {i}: launches {step}, want "
-                                 "25 carry (13 forward + 12 input "
-                                 "gradients) and 13 wgrad")
+                                 f"25 carry{suffix} (13 forward + 12 input "
+                                 f"gradients) and 13 wgrad{suffix}")
         if not np.isfinite(loss.item()):
             raise AssertionError(f"train step {i}: loss {loss.item()}")
         for key in launches:
@@ -2377,7 +2521,7 @@ def timed_train_steps(torch, model, state, cfg, batches, log=False):
         if i == 0:
             step1 = params
         if log:
-            print(f"train: step {i} loss {loss.item():.6f} |g| "
+            print(f"train{suffix}: step {i} loss {loss.item():.6f} |g| "
                   f"{met['grad_norm'].item():.4f} lr "
                   f"{met['lr'].item():.3e} {times[-1]:.1f} ms; launches "
                   f"{step}")
@@ -5470,6 +5614,138 @@ def lm_bf16_phase(torch, f32: dict) -> dict:
     return out
 
 
+def train_bf16(torch, f32: dict) -> dict:
+    """Phase 35 (module docstring): full-width VGG-16 drawn in bf16 and
+    trained through ``launch.train_cnn.train_step``; ``f32`` is the train
+    phase's ``{"times", "peak"}`` of this call.  Returns the launches of
+    the timed steps, ms a step, the peak, the dw leaves' largest ulps from
+    the plain step and each leaf's distance from the f32 step."""
+    from repro_torch.core.model import vgg16_layers
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import trim_conv2d as tc
+    from repro_torch.launch.train_cnn import train_step
+    from repro_torch.models.layers import TrimCNN
+    from repro_torch.optim import AdamWConfig, adamw
+
+    topo = vgg16_layers()
+    model = TrimCNN.random(topo, n_classes=1000, seed=0, device="cuda",
+                           dtype=torch.bfloat16, trainable=True)
+    if model.dtype != torch.bfloat16:
+        raise AssertionError(f"train_bf16: the model is {model.dtype}")
+    cfg = AdamWConfig()
+    # the train phase's draws: the same seed, its first steps' batches
+    rng = np.random.default_rng(1)
+    batches = [
+        (torch.from_numpy(rng.standard_normal(
+            (TRAIN_BATCH, 224, 224, 3)).astype(np.float32)).cuda(),
+         torch.from_numpy(rng.integers(0, 1000, TRAIN_BATCH)).cuda())
+        for _ in range(BF16_TRAIN_STEPS)]
+    bf_batches = [(x.bfloat16(), y) for x, y in batches]
+    params = {k: {n: t.detach() for n, t in v.items()}
+              for k, v in model.tree().items()}
+    names = [f"{k}.{n}" for k in sorted(params) for n in sorted(params[k])]
+
+    # step 1's gradients on the kernels and with every conv kernel swapped
+    # for its plain version: the forward and dx entries are bitwise their
+    # plain versions, so the wgrad sees the same inputs either way
+    x0, y0 = bf_batches[0]
+    tc.reset_launch_counts()
+    loss_k, g_k = grads(model.apply_tree, params, x0, y0)
+    torch.cuda.synchronize()
+    if dict(tc.LAUNCHES) != launch_counts(carry_bf16=25, wgrad_bf16=13):
+        raise AssertionError(f"train_bf16: step-1 gradients launched "
+                             f"{dict(tc.LAUNCHES)}")
+    t0 = time.perf_counter()
+    with swapped(ops, **tc.plain_versions()):
+        tc.reset_launch_counts()
+        loss_p, g_p = grads(model.apply_tree, params, x0, y0)
+        torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if any(tc.LAUNCHES.values()):
+        raise AssertionError(f"train_bf16: the plain step launched "
+                             f"{dict(tc.LAUNCHES)}")
+    worst_ulps, beyond = 0.0, {}
+    for name, a, b in zip(names, g_k, g_p):
+        if a.dtype != torch.bfloat16:
+            raise AssertionError(f"train_bf16: {name}'s gradient is "
+                                 f"{a.dtype}")
+        if name.startswith("conv") and name.endswith(".w"):
+            # each side is its f32 sums rounded once; the sums (up to
+            # 401,408 products at conv1, much cancellation) part by the
+            # f32 route's tolerance, which can exceed a small element's
+            # bf16 ulp
+            a64, b64 = a.double(), b.double()
+            m = torch.maximum(a64.abs(), b64.abs()).clamp_min(2.0 ** -126)
+            ulp = torch.pow(2.0, torch.floor(torch.log2(m)) - 7)
+            diff = (a64 - b64).abs()
+            ulps = (diff / ulp).max().item()
+            worst_ulps = max(worst_ulps, ulps)
+            beyond[name] = int((diff > ulp).sum())
+            lim = ulp + WGRAD_TOLERANCE * b64.abs().max()
+            if not bool((diff <= lim).all()):
+                raise AssertionError(
+                    f"train_bf16: {name} lies {ulps} bf16 ulps from the "
+                    "plain step's, beyond one ulp plus WGRAD_TOLERANCE "
+                    "of its max")
+        elif not torch.equal(a, b):
+            raise AssertionError(f"train_bf16: {name} differs from the "
+                                 "plain step's (forward and dx are bitwise "
+                                 "their plain versions)")
+    if not torch.equal(loss_k, loss_p):
+        raise AssertionError("train_bf16: the step-1 loss differs from the "
+                             "plain step's")
+    print(f"train_bf16: step-1 loss {loss_k.item():.6f}; gradients against "
+          f"the same step on the plain versions ({plain_s:.1f} s): every "
+          f"dw within one bf16 ulp plus {WGRAD_TOLERANCE:g} of its max "
+          f"(worst {worst_ulps:.1f} ulps; elements beyond one ulp: "
+          + ", ".join(f"{n} {c}" for n, c in beyond.items() if c)
+          + f"), every other leaf and the loss bitwise; launches "
+          f"{launch_counts(carry_bf16=25, wgrad_bf16=13)}")
+    del g_p
+
+    # context: each leaf's distance from the f32 step on the same draws
+    twin = TrimCNN.random(topo, n_classes=1000, seed=0, device="cuda",
+                          trainable=True)
+    p32 = {k: {n: t.detach() for n, t in v.items()}
+           for k, v in twin.tree().items()}
+    loss32, g32 = grads(twin.apply_tree, p32, *batches[0])
+    dist = {name: (a.float() - b).abs().max().item() / b.abs().max().item()
+            for name, a, b in zip(names, g_k, g32)}
+    worst = sorted(dist.items(), key=lambda t: -t[1])
+    print(f"train_bf16: step-1 gradients against the f32 step on the same "
+          f"draws (loss {loss32.item():.6f}), max|bf16 - f32| / max|f32| "
+          "per leaf (printed, not checked): " + ", ".join(
+              f"{n} {d:.2e}" for n, d in worst))
+    del twin, p32, g32, g_k
+    torch.cuda.empty_cache()
+
+    moments = adamw.init_moments(params, cfg)
+    state0 = (params, moments)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, launches, step1 = timed_train_steps(
+        torch, model, state0, cfg, bf_batches, log=True, suffix="_bf16")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    again, _, _, _ = train_step(*state0, 0, *bf_batches[0],
+                                apply_fn=model.apply_tree, cfg=cfg)
+    if not all(torch.equal(a, b) for a, b in zip(
+            adamw.tree_leaves(again), adamw.tree_leaves(step1))):
+        raise AssertionError("train_bf16: step 1 from the same state gave "
+                             "different parameters")
+    ms = float(np.mean(times[1:]))
+    f32_ms = float(np.mean(f32["times"][1:BF16_TRAIN_STEPS]))
+    print(f"train_bf16: VGG-16 full width in bf16, batch {TRAIN_BATCH}: "
+          f"{ms:.1f} ms per step (mean of steps 2-{BF16_TRAIN_STEPS}, host "
+          f"clock to synchronize; step 1 {times[0]:.1f} ms), peak device "
+          f"memory {peak:.2f} GiB; the f32 train phase of this call "
+          f"{f32_ms:.1f} ms over the same steps, peak {f32['peak']:.2f} "
+          "GiB; step 1 repeated from the same state is bitwise equal")
+    del model, params, moments, state0, step1, again
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": ms, "times": times, "peak": peak,
+            "f32_ms": f32_ms, "ulps": worst_ulps, "dist": dist}
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5540,7 +5816,7 @@ def run(torch, args, cache_dir: str) -> int:
     qrows = check_q8_kernels(torch, 8, q8_build)
     qrows1 = check_q8_kernels(torch, 1, q8_build)
     phase.done("int8 kernel check")
-    brows = check_backward_kernels(torch)
+    brows, wrows16 = check_backward_kernels(torch)
     phase.done("backward kernel check")
     frows = check_fused(torch)
     phase.done("fused kernel check")
@@ -5593,7 +5869,7 @@ def run(torch, args, cache_dir: str) -> int:
     graph = graph_phase(torch, cache_dir)
     phase.done("graph")
 
-    train_launches = train_vgg16(torch)
+    train_launches, train_stats = train_vgg16(torch)
     phase.done("train")
     train_fused_launches = train_fused(torch)
     torch.cuda.empty_cache()
@@ -5658,6 +5934,8 @@ def run(torch, args, cache_dir: str) -> int:
         "falcon-mamba-7b": dict(ms=mb["ms"], peak=mb["peak"],
                                 step_ms=mserved["step_ms"])})
     phase.done("lm_bf16")
+    tb = train_bf16(torch, train_stats)
+    phase.done("train_bf16")
 
     vgg = [r for r in rows if r["vgg"]]
     kernels = []
@@ -5765,7 +6043,9 @@ def run(torch, args, cache_dir: str) -> int:
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/trim_conv2d.cu",
             "replaces": f"src/repro/kernels/trim_conv2d.py:{src_line}",
-            "launches": bf["launches"][f"{df}_bf16"],
+            # bf16 serving's and the train_bf16 phase's timed steps'
+            "launches": (bf["launches"][f"{df}_bf16"]
+                         + tb["launches"][f"{df}_bf16"]),
             "max_abs_err": max(r["err"] for r in b8 + b1 + ba8 + ba1),
             "max_ulps": max(r["ulps"] for r in b8 + b1 + ba8 + ba1),
             # sums over VGG-16's 13 layers at batch 8, CUDA graphs
@@ -5783,6 +6063,34 @@ def run(torch, args, cache_dir: str) -> int:
             "alexnet_bound_ms": sum(r["bound"] for r in ba8),
             "alexnet_library_ms": sum(r["library"] for r in ba8),
         })
+    w16 = [r for r in wrows16 if r["vgg"]]
+    w16x = {r["name"]: r for r in wrows16}
+    ops_ms = sum(r["ops_ms"] for r in w16 if r["by"] == "operations")
+    bytes_ms = sum(r["bytes_ms"] for r in w16 if r["by"] == "bytes")
+    kernels.append({
+        "name": "trim_conv2d_wgrad_bf16",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/trim_conv2d_wgrad.cu",
+        "replaces": "src/repro/kernels/trim_conv2d.py:429",
+        # the train_bf16 phase's timed steps
+        "launches": tb["launches"]["wgrad_bf16"],
+        # its f32 sums against the plain version (before the rounding)
+        "max_abs_err": max(r["err"] for r in wrows16),
+        # sums over VGG-16's 13 layers at batch 8, CUDA graphs
+        "ms": sum(r["kernel"] for r in w16),
+        "plain_ms": sum(r["plain"] for r in w16),
+        "bound_ms": sum(r["bound"] for r in w16),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "ffma_bound_ms": sum(r["ffma"] for r in w16),
+        "library_ms": sum(r["library"] for r in w16),  # conv2d_weight bf16
+        "f32_entry_ms": sum(r["f32"] for r in w16),
+        "depthwise_ms": w16x["dw_112x32"]["kernel"],
+        "depthwise_library_ms": w16x["dw_112x32"]["library"],
+        "alex1_3x2_ms": w16x["alex1_3x2"]["kernel"],
+        "alex1_3x2_library_ms": w16x["alex1_3x2"]["library"],
+        "stem_ms": w16x["stem_7x7s2"]["kernel"],
+        "stem_library_ms": w16x["stem_7x7s2"]["library"],
+    })
     bfu = bf["fused"]
     ops_ms = sum(r["ops_ms"] for r in bfu if r["by"] == "operations")
     bytes_ms = sum(r["bytes_ms"] for r in bfu if r["by"] == "bytes")
@@ -6116,6 +6424,14 @@ def run(torch, args, cache_dir: str) -> int:
           "(rgemma_*: k_rgemma), flash_attention_bf16 at case (a) "
           "(rgemma_*: (c), d320_*: (f)); their launches are the bf16 "
           "prefills' (2 forwards a model)")
+    print(f"train_bf16: {tb['ms']:.1f} ms a full-width VGG-16 step in bf16 "
+          f"(batch {TRAIN_BATCH}; f32 {tb['f32_ms']:.1f} ms over the same "
+          f"steps), peak {tb['peak']:.2f} GiB; trim_conv2d_wgrad_bf16 times "
+          "are sums over the 13 VGG-16 layers at batch 8 (f32_entry_ms: the "
+          "f32 entry on the widened operands; depthwise_*, alex1_3x2_*, "
+          "stem_*: one launch at those cases), its launches the "
+          f"{BF16_TRAIN_STEPS} timed steps'; the bf16 carry launches include "
+          f"them ({tb['launches']['carry_bf16']})")
     phase.total()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -652,10 +652,12 @@ def tune_weight_grad(x_shape, w_shape, *, stride: int = 1, pad=0,
                      write: bool = True, path: str | None = None) -> dict:
     """Tune the weight-gradient kernel of one forward problem by
     :func:`_wgrad_score` (model only, as in JAX) and (by default) persist
-    it under ``conv2d_wgrad:``."""
-    if dtype != "float32":
-        raise ValueError(f"the weight-gradient kernel is float32, got "
-                         f"{dtype!r}")
+    it under ``conv2d_wgrad:`` at ``dtype`` (the bf16 entry runs the f32
+    geometry, so both dtypes rank the same plans; each keeps its own
+    record, as the backward looks them up at the tensors' dtype)."""
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"the weight-gradient kernel takes float32 or "
+                         f"bfloat16, got {dtype!r}")
     dev = resolve_device(device)
     plans = candidate_weight_grad_knobs(x_shape, w_shape, stride=stride,
                                         pad=pad, groups=groups)
@@ -726,7 +728,7 @@ def tune_network(network="vgg16", *, n: int = 1, dtype: str = "float32",
     ``{"skipped": reason}``)."""
     from repro_torch.core.netplan import network_layers
     from repro_torch.kernels.ops import MAX_NATIVE_K
-    if include_backward and dtype != "float32":
+    if include_backward and dtype not in ("float32", "bfloat16"):
         raise ValueError(f"include_backward: the {dtype} route is "
                          "inference only")
     dev = resolve_device(device)

@@ -4,7 +4,8 @@
 for the H100 forward kernel of ``kernels/csrc/trim_conv2d.cu`` (which
 also runs the input gradient, laid out by :func:`input_grad_geometry`);
 :class:`WeightGradPlan` plans the weight-gradient kernel of
-``kernels/csrc/trim_conv2d_wgrad.cu``, :class:`Conv1dPlan` the causal
+``kernels/csrc/trim_conv2d_wgrad.cu`` (:class:`BF16WeightGradPlan` its
+bf16 entry), :class:`Conv1dPlan` the causal
 depthwise conv1d of ``kernels/csrc/trim_conv1d.cu`` (also its input
 gradient) and :class:`Conv1dWeightGradPlan` its weight gradient,
 ``kernels/csrc/trim_conv1d_wgrad.cu``.  The TPU forward plan
@@ -55,6 +56,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+from typing import ClassVar
 
 SMEM_PER_BLOCK = 232_448     # H100: 227 KB of opt-in shared memory per block
 SMEM_PER_SM = 233_472        # H100: 228 KB of shared memory per SM
@@ -905,7 +907,16 @@ class WeightGradPlan:
     :data:`WGRAD_DW_BLOCKS` blocks.  Either way the workspace stays
     within :data:`WGRAD_WORKSPACE_CAP`; with one chunk there is none and
     the kernel writes dw itself.
+
+    The element size of x, the cotangent and dw is the class's
+    ``dtype_bytes`` (4 here; :class:`BF16WeightGradPlan`, from
+    ``build(..., dtype_bytes=2)``, for the bf16 entry).  Only the byte
+    counts depend on it: the bf16 entry widens its operands into the f32
+    kernel's stages, so it runs the f32 geometry, chunks and f32
+    partials, and an f32 plan prints as it did before.
     """
+
+    dtype_bytes: ClassVar[int] = 4
 
     n: int
     h: int
@@ -921,10 +932,16 @@ class WeightGradPlan:
 
     @classmethod
     def build(cls, x_shape, w_shape, *, stride: int = 1, pad=0,
-              groups: int = 1, tile_go: int | None = None
-              ) -> "WeightGradPlan":
+              groups: int = 1, tile_go: int | None = None,
+              dtype_bytes: int = 4) -> "WeightGradPlan":
         """Plan from the forward problem's shapes; ``tile_go`` overrides
-        the chunk height (cotangent rows) and is raised to the cap."""
+        the chunk height (cotangent rows) and is raised to the cap.
+        ``dtype_bytes=2`` gives the :class:`BF16WeightGradPlan` of the
+        same geometry."""
+        if dtype_bytes not in _WGRAD_PLANS:
+            raise ValueError(f"dtype_bytes={dtype_bytes}: the weight-"
+                             "gradient kernel takes f32 (4) or bf16 (2)")
+        cls = _WGRAD_PLANS[dtype_bytes]
         n, h, w, cin = x_shape
         kh, kw, cin_pg, cout = w_shape
         if cin_pg * groups != cin:
@@ -1034,12 +1051,24 @@ class WeightGradPlan:
                 * self.rows)
 
     def min_bytes(self) -> int:
-        """f32 bytes the function must move: x and the cotangent read
-        once, dw written once."""
+        """Bytes the function must move at ``dtype_bytes`` an element:
+        x and the cotangent read once, dw written once."""
         elems = (self.n * self.h * self.w * self.cin
                  + self.n * self.h_out * self.w_out * self.cout
                  + self.dw_elems)
-        return 4 * elems
+        return self.dtype_bytes * elems
+
+
+@dataclass(frozen=True)
+class BF16WeightGradPlan(WeightGradPlan):
+    """The :class:`WeightGradPlan` of the bf16 entry
+    (``trim_conv2d_wgrad_bf16``): bf16 x, cotangent and dw, the same
+    geometry and f32 partials."""
+
+    dtype_bytes = 2
+
+
+_WGRAD_PLANS = {4: WeightGradPlan, 2: BF16WeightGradPlan}
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,7 @@ SOURCES = {
     "trim_conv2d_q8": {"trim_conv2d_q8_carry": _Q8_ARGS,
                        "trim_conv2d_q8_halo": _Q8_ARGS},
     "trim_conv2d_wgrad": {"trim_conv2d_wgrad": _WGRAD_ARGS,
+                          "trim_conv2d_wgrad_bf16": _WGRAD_ARGS,
                           "trim_conv2d_wgrad_resident_blocks": [_I, _P]},
     "trim_conv2d_fused": {"trim_conv2d_fused": _FUSED_ARGS,
                           "trim_conv2d_fused_bf16": _FUSED_ARGS},

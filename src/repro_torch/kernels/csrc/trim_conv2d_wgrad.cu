@@ -1,8 +1,9 @@
 // Weight gradient of the 3D-TrIM convolution for NVIDIA Hopper (sm_90a),
-// f32, hand-written CUDA.
+// f32 and bf16 operands, hand-written CUDA.
 //
 // Replaces the TPU Pallas kernel _weight_grad_kernel of
-// src/repro/kernels/trim_conv2d.py (:429; pallas_call :529).
+// src/repro/kernels/trim_conv2d.py (:429; pallas_call :529), on f32 and on
+// bf16 operands.
 //
 // Math.  dw[ki,kj,ci,g*Cpg+co] = sum_{n,oh,ow} xpad[n, oh*s+ki, ow*s+kj,
 // g*Cin_pg+ci] * dz[n,oh,ow,g*Cpg+co], ki < KH, kj < KW (a square kernel
@@ -43,11 +44,29 @@
 // 16-byte aligned) that operand's loader copies 4 bytes at a time: a
 // template instance of the same kernel, not a fallback.
 //
+// bf16 operands (trim_conv2d_wgrad_bf16).  JAX's kernel takes bf16 x and
+// cotangent, sums their products in f32 (preferred_element_type) into an
+// f32 block and casts dw to bf16 once.  Here the element type is a
+// template parameter of the same kernel: the loaders widen each bf16 value
+// to f32 on its way into the same f32 shared-memory stages, and the FFMA
+// loop, the tiles, the chunks and the ordered reduction are the f32
+// kernel's.  A bf16 x bf16 product is exact in f32, so the bf16 entry's
+// f32 dw is bitwise the f32 entry's on the widened operands under the
+// same plan.  The entry writes f32 dw; autograd rounds it once to bf16.
+// cp.async cannot widen and has no 2-byte copy (a bf16 pixel of Cin 3 is
+// 6 bytes, so half of VGG-16 conv1's pixels do not start on a 4-byte
+// boundary), so the bf16 loaders load through registers: 16 bytes (8
+// bf16) a thread where Cin/g (Cout/g) is a multiple of 8 and the operand
+// 16-byte aligned, else one element a thread, again instances of one
+// kernel.  The loads of stage s + 2 are issued before stage s computes and
+// land in shared memory before the next barrier; the other resident warps
+// hide their latency.
+//
 // Depthwise route (wgrad_depthwise_kernel, groups == Cin == Cout).  A GEMM
 // tile would use 9 rows and 1 column a group.  Here a thread owns one
 // (tap, channel) element, lanes along the channels, so each position's
 // loads of x and the cotangent are coalesced; the same chunks and the same
-// ordered reduction apply.
+// ordered reduction apply.  bf16 widens at the load.
 //
 // Determinism without float atomics.  The partial launch writes one
 // partial dw per chunk into a workspace: each element is ONE fmaf chain
@@ -58,13 +77,18 @@
 // inputs are bitwise equal.  With a single chunk the partial launch writes
 // dw itself and the reduction is skipped.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "cp_async.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;     // threads per block
 constexpr int kTileRows = 128;    // rows of the flattened (ki, kj, ci) axis
@@ -90,21 +114,156 @@ constexpr size_t gemm_smem_bytes() {
          sizeof(float);
 }
 
-// kVecX / kVecG: 16-byte copies of x / the cotangent (Cin/g, Cout/g
-// multiples of 4 and the operand 16-byte aligned); else 4-byte copies.
+// A bf16 value widened to f32, exactly: its 16 bits are the f32's high
+// half.
+__device__ __forceinline__ float widen(unsigned u) {
+  return __uint_as_float(u << 16);
+}
+
+__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f32(const bf16* p) {
+  return widen(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+
+// Eight bf16 at `src` (16-byte aligned) widened into dst[0..7] (shared,
+// 32-byte aligned), or eight zeros where !ok.  Element 2i is the low half
+// of word i.
+__device__ __forceinline__ void load8_widen(float* dst, const bf16* src,
+                                            bool ok) {
+  const uint4 u = ok ? __ldg(reinterpret_cast<const uint4*>(src))
+                     : make_uint4(0u, 0u, 0u, 0u);
+  float4* d = reinterpret_cast<float4*>(dst);
+  d[0] = make_float4(widen(u.x), __uint_as_float(u.x & 0xffff0000u),
+                     widen(u.y), __uint_as_float(u.y & 0xffff0000u));
+  d[1] = make_float4(widen(u.z), __uint_as_float(u.z & 0xffff0000u),
+                     widen(u.w), __uint_as_float(u.w & 0xffff0000u));
+}
+
+// (image, oh, ow) of a cotangent position moved `by` positions along the
+// flattened (n, oh, ow) axis.
+__device__ __forceinline__ void advance(int& img, int& oh, int& ow, int by,
+                                        const WgradArgs& a) {
+  ow += by;
+  while (ow >= a.w_out) {
+    ow -= a.w_out;
+    if (++oh == a.h_out) {
+      oh = 0;
+      ++img;
+    }
+  }
+}
+
+// The bf16 stage loader: stage(xdst, gdst, q0, npos) fills one stage of
+// the ring (positions q0 .. q0 + 15 of the chunk) in the layout the
+// compute loop reads: x as [position][row], the cotangent as
+// [position][column], f32, zeros at the virtual pad, past the chunk and
+// past the tile.  f32 operands need none: the kernel's own cp.async
+// loaders copy them (the primary template is empty).
+template <typename T, int kTileCout, bool kVecX, bool kVecG>
+struct Bf16Loader {
+  template <typename... Args>
+  __device__ __forceinline__ explicit Bf16Loader(const Args&...) {}
+};
+
+// bf16: loads through registers, widened and stored as f32.  kVecX /
+// kVecG: 8 bf16 (16 bytes) a thread, eight rows of one tap (Cin/g % 8
+// == 0) or eight columns; else one element a thread.
 template <int kTileCout, bool kVecX, bool kVecG>
+struct Bf16Loader<bf16, kTileCout, kVecX, kVecG> {
+  static constexpr int kXV = kVecX ? 8 : 1;             // elements a load
+  static constexpr int kXThreads = kTileRows / kXV;     // a position
+  static constexpr int kXLanes = kThreads / kXThreads;  // positions at once
+  static constexpr int kXPasses = kPositions / kXLanes;
+  static constexpr int kGV = kVecG ? 8 : 1;
+  static constexpr int kGThreads = kTileCout / kGV;
+  static constexpr int kGLanes = kThreads / kGThreads;
+  static constexpr int kGPasses = (kPositions + kGLanes - 1) / kGLanes;
+  static_assert(kXPasses >= 1 && kXLanes * kXPasses == kPositions &&
+                    kGThreads * kGLanes == kThreads,
+                "loader geometry");
+
+  const bf16* x;
+  const bf16* gsrc;
+  int xc, xp, gc, gp, gco;
+  int xki, xkj;
+  long long xoff;
+  // (image, oh, ow) of the x loader's first position of the next stage
+  int pimg, poh, pow_;
+
+  __device__ __forceinline__ Bf16Loader(const bf16* x_, const bf16* g,
+                                         const WgradArgs& a, int rt, int grp,
+                                         int cot, int row0, int tid)
+      : x(x_) {
+    // x loader: rows kXV xc .. kXV xc + kXV - 1 of the tile (one tap),
+    // positions xp + kXLanes i
+    xc = tid % kXThreads;
+    xp = tid / kXThreads;
+    const int r = rt * kTileRows + kXV * xc;
+    xki = -(1 << 20);          // a row past the tile's end: never in range
+    xkj = 0;
+    xoff = 0;
+    if (r < a.rows) {
+      const int tap = r / a.cin_pg, ci = r - tap * a.cin_pg;
+      xki = tap / a.kw;
+      xkj = tap - xki * a.kw;
+      xoff = ((long long)xki * a.w + xkj) * a.cin + grp * a.cin_pg + ci;
+    }
+    const int orow = row0 + xp / a.w_out;
+    pow_ = xp - (xp / a.w_out) * a.w_out;
+    pimg = orow / a.h_out;
+    poh = orow - pimg * a.h_out;
+    // cotangent loader: columns kGV gc .., positions gp + kGLanes i
+    gc = tid % kGThreads;
+    gp = tid / kGThreads;
+    gco = cot * kTileCout + kGV * gc;
+    gsrc = g + (long long)row0 * a.w_out * a.cout + grp * a.cout_pg + gco;
+  }
+
+  __device__ __forceinline__ void stage(float* xdst, float* gdst, int q0,
+                                        int npos, const WgradArgs& a) {
+    int img = pimg, oh = poh, ow = pow_;
+#pragma unroll
+    for (int i = 0; i < kXPasses; ++i) {
+      const int p = xp + kXLanes * i;
+      const int ih0 = oh * a.stride - a.pad_top;
+      const int iw0 = ow * a.stride - a.pad_left;
+      const int ih = ih0 + xki, iw = iw0 + xkj;
+      const bool ok = q0 + p < npos && ih >= 0 && ih < a.h && iw >= 0 &&
+                      iw < a.w;
+      const bf16* src =
+          x + (((long long)img * a.h + ih0) * a.w + iw0) * a.cin + xoff;
+      float* dst = xdst + p * kTileRows + kXV * xc;
+      if (kVecX)
+        load8_widen(dst, src, ok);
+      else
+        *dst = ok ? ldg_f32(src) : 0.0f;
+      if (i + 1 < kXPasses) advance(img, oh, ow, kXLanes, a);
+    }
+    advance(pimg, poh, pow_, kPositions, a);
+#pragma unroll
+    for (int i = 0; i < kGPasses; ++i) {
+      const int p = gp + kGLanes * i;
+      if (kGLanes > kPositions && p >= kPositions) break;
+      const bool ok = q0 + p < npos && gco < a.cout_pg;
+      const bf16* src = gsrc + (long long)(q0 + p) * a.cout;
+      float* dst = gdst + p * kTileCout + kGV * gc;
+      if (kVecG)
+        load8_widen(dst, src, ok);
+      else
+        *dst = ok ? ldg_f32(src) : 0.0f;
+    }
+  }
+};
+
+// T: float or bf16 x and cotangent; the partials (out) are f32 either way.
+// kVecX / kVecG pick the loaders' vector or scalar instance.
+template <typename T, int kTileCout, bool kVecX, bool kVecG>
 __global__ void __launch_bounds__(kThreads, 2)
-wgrad_gemm_kernel(const float* __restrict__ x, const float* __restrict__ g,
+wgrad_gemm_kernel(const T* __restrict__ x, const T* __restrict__ g,
                   float* __restrict__ out, const WgradArgs a) {
   constexpr int kCw = kTileCout / 64;          // float4 column groups
   constexpr int kXStage = kPositions * kTileRows;
   constexpr int kGStage = kPositions * kTileCout;
-  constexpr int kGCols4 = kTileCout / 4;       // float4s a staged row
-  constexpr int kGLanes = kThreads / kGCols4;  // positions copied at once
-  constexpr int kGPasses = kPositions / kGLanes;
-  constexpr int kXLanes = kThreads / (kTileRows / 4);
-  constexpr int kXPasses = kPositions / kXLanes;
-  static_assert(kGPasses >= 1 && kXPasses == 2, "loader geometry");
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);   // [stage][position][row]
   float* gs = xs + kStages * kXStage;            // [stage][position][col]
@@ -122,9 +281,17 @@ wgrad_gemm_kernel(const float* __restrict__ x, const float* __restrict__ g,
   const int npos = (row1 - row0) * a.w_out;
   const int nstages = (npos + kPositions - 1) / kPositions;
 
+  // f32: cp.async straight into the stage, inline (behind a loader
+  // struct like the bf16 one the f32 entry ran 2.4% slower on the H100).
   // x loader: rows 4 xc .. 4 xc + 3 of the tile, positions xp + 8 i.  The
-  // vector path's four rows share one tap (Cin/g % 4 == 0), so only row 0's
-  // tap is kept.
+  // vector path's four rows share one tap (Cin/g % 4 == 0), so only row
+  // 0's tap is kept.  bf16 operands leave this state unused.
+  constexpr int kGCols4 = kTileCout / 4;       // float4s a staged row
+  constexpr int kGLanes = kThreads / kGCols4;  // positions copied at once
+  constexpr int kGPasses = kPositions / kGLanes;
+  constexpr int kXLanes = kThreads / (kTileRows / 4);
+  constexpr int kXPasses = kPositions / kXLanes;
+  static_assert(kGPasses >= 1 && kXPasses == 2, "loader geometry");
   constexpr int kXRows = kVecX ? 1 : 4;
   const int xc = tid % (kTileRows / 4), xp = tid / (kTileRows / 4);
   int xki[kXRows], xkj[kXRows];
@@ -157,58 +324,55 @@ wgrad_gemm_kernel(const float* __restrict__ x, const float* __restrict__ g,
   // cotangent loader: columns 4 gc .. 4 gc + 3, positions gp + kGLanes i
   const int gc = tid % kGCols4, gp = tid / kGCols4;
   const int gco = cot * kTileCout + 4 * gc;
-  const float* gsrc = g + (long long)row0 * a.w_out * a.cout +
-                      grp * a.cout_pg + gco;
+  const T* gsrc = g + (long long)row0 * a.w_out * a.cout +
+                  grp * a.cout_pg + gco;
+  Bf16Loader<T, kTileCout, kVecX, kVecG> bf16_loader(x, g, a, rt, grp, cot,
+                                                     row0, tid);
 
   auto load = [&](int stage, int buf) {
     const int q0 = stage * kPositions;
     float* xdst = xs + buf * kXStage;
-#pragma unroll
-    for (int i = 0; i < kXPasses; ++i) {
-      const int p = xp + kXLanes * i;
-      const bool pos_ok = q0 + p < npos;
-      const int ih0 = poh[i] * a.stride - a.pad_top;
-      const int iw0 = pow_[i] * a.stride - a.pad_left;
-      const long long base =
-          (((long long)pimg[i] * a.h + ih0) * a.w + iw0) * a.cin;
-      float* dst = xdst + p * kTileRows + 4 * xc;
-#pragma unroll
-      for (int j = 0; j < kXRows; ++j) {
-        const int ih = ih0 + xki[j], iw = iw0 + xkj[j];
-        const bool ok = pos_ok && ih >= 0 && ih < a.h && iw >= 0 &&
-                        iw < a.w;
-        const float* src = ok ? x + base + xoff[j] : x;
-        if (kVecX)
-          cp_async16(dst, src, ok);
-        else
-          cp_async4(dst + j, src, ok);
-      }
-      // advance this position by one stage
-      int ow = pow_[i] + kPositions;
-      while (ow >= a.w_out) {
-        ow -= a.w_out;
-        if (++poh[i] == a.h_out) {
-          poh[i] = 0;
-          ++pimg[i];
-        }
-      }
-      pow_[i] = ow;
-    }
     float* gdst = gs + buf * kGStage;
+    if constexpr (!std::is_same<T, float>::value) {
+      bf16_loader.stage(xdst, gdst, q0, npos, a);
+    } else {
 #pragma unroll
-    for (int i = 0; i < kGPasses; ++i) {
-      const int p = gp + kGLanes * i;
-      const bool pos_ok = q0 + p < npos;
-      const float* src = gsrc + (long long)(q0 + p) * a.cout;
-      float* dst = gdst + p * kTileCout + 4 * gc;
-      if (kVecG) {
-        const bool ok = pos_ok && gco < a.cout_pg;
-        cp_async16(dst, ok ? src : g, ok);
-      } else {
+      for (int i = 0; i < kXPasses; ++i) {
+        const int p = xp + kXLanes * i;
+        const bool pos_ok = q0 + p < npos;
+        const int ih0 = poh[i] * a.stride - a.pad_top;
+        const int iw0 = pow_[i] * a.stride - a.pad_left;
+        const long long base =
+            (((long long)pimg[i] * a.h + ih0) * a.w + iw0) * a.cin;
+        float* dst = xdst + p * kTileRows + 4 * xc;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const bool ok = pos_ok && gco + j < a.cout_pg;
-          cp_async4(dst + j, ok ? src + j : g, ok);
+        for (int j = 0; j < kXRows; ++j) {
+          const int ih = ih0 + xki[j], iw = iw0 + xkj[j];
+          const bool ok = pos_ok && ih >= 0 && ih < a.h && iw >= 0 &&
+                          iw < a.w;
+          const float* src = ok ? x + base + xoff[j] : x;
+          if (kVecX)
+            cp_async16(dst, src, ok);
+          else
+            cp_async4(dst + j, src, ok);
+        }
+        advance(pimg[i], poh[i], pow_[i], kPositions, a);
+      }
+#pragma unroll
+      for (int i = 0; i < kGPasses; ++i) {
+        const int p = gp + kGLanes * i;
+        const bool pos_ok = q0 + p < npos;
+        const float* src = gsrc + (long long)(q0 + p) * a.cout;
+        float* dst = gdst + p * kTileCout + 4 * gc;
+        if (kVecG) {
+          const bool ok = pos_ok && gco < a.cout_pg;
+          cp_async16(dst, ok ? src : g, ok);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const bool ok = pos_ok && gco + j < a.cout_pg;
+            cp_async4(dst + j, ok ? src + j : g, ok);
+          }
         }
       }
     }
@@ -291,10 +455,10 @@ wgrad_gemm_kernel(const float* __restrict__ x, const float* __restrict__ g,
 }
 
 // groups == Cin == Cout: thread e owns dw element e = tap * C + c.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-wgrad_depthwise_kernel(const float* __restrict__ x,
-                       const float* __restrict__ g, float* __restrict__ out,
-                       const WgradArgs a) {
+wgrad_depthwise_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                       float* __restrict__ out, const WgradArgs a) {
   const int c_all = a.cin;
   const int elems = a.kh * a.kw * c_all;
   const int tiles = (elems + kThreads - 1) / kThreads;
@@ -310,15 +474,15 @@ wgrad_depthwise_kernel(const float* __restrict__ x,
     const int img = orow / a.h_out, oh = orow - img * a.h_out;
     const int ih = oh * a.stride + ki - a.pad_top;
     const bool row_ok = ih >= 0 && ih < a.h;
-    const float* xrow =
+    const T* xrow =
         x + ((long long)img * a.h + (row_ok ? ih : 0)) * a.w * c_all + c;
-    const float* grow = g + (long long)orow * a.w_out * c_all + c;
+    const T* grow = g + (long long)orow * a.w_out * c_all + c;
 #pragma unroll 4
     for (int ow = 0; ow < a.w_out; ++ow) {
       const int iw = ow * a.stride + kj - a.pad_left;
       const bool ok = row_ok && iw >= 0 && iw < a.w;
-      const float xv = ok ? __ldg(xrow + (long long)iw * c_all) : 0.0f;
-      acc = fmaf(xv, __ldg(grow + (long long)ow * c_all), acc);
+      const float xv = ok ? ldg_f32(xrow + (long long)iw * c_all) : 0.0f;
+      acc = fmaf(xv, ldg_f32(grow + (long long)ow * c_all), acc);
     }
   }
   out[(size_t)chunk * elems + e] = acc;
@@ -353,12 +517,12 @@ wgrad_reduce_kernel(const float* __restrict__ ws, float* __restrict__ dw,
   }
 }
 
-template <int kTileCout, bool kVecX, bool kVecG>
-cudaError_t launch_gemm(const float* x, const float* g, float* out,
+template <typename T, int kTileCout, bool kVecX, bool kVecG>
+cudaError_t launch_gemm(const T* x, const T* g, float* out,
                         const WgradArgs& a, unsigned blocks,
                         cudaStream_t s) {
   constexpr size_t smem = gemm_smem_bytes<kTileCout>();
-  auto kernel = wgrad_gemm_kernel<kTileCout, kVecX, kVecG>;
+  auto kernel = wgrad_gemm_kernel<T, kTileCout, kVecX, kVecG>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -366,17 +530,17 @@ cudaError_t launch_gemm(const float* x, const float* g, float* out,
   return cudaGetLastError();
 }
 
-template <int kTileCout>
-cudaError_t launch_gemm(const float* x, const float* g, float* out,
+template <typename T, int kTileCout>
+cudaError_t launch_gemm(const T* x, const T* g, float* out,
                         const WgradArgs& a, unsigned blocks, bool vec_x,
                         bool vec_g, cudaStream_t s) {
   if (vec_x && vec_g)
-    return launch_gemm<kTileCout, true, true>(x, g, out, a, blocks, s);
+    return launch_gemm<T, kTileCout, true, true>(x, g, out, a, blocks, s);
   if (vec_x)
-    return launch_gemm<kTileCout, true, false>(x, g, out, a, blocks, s);
+    return launch_gemm<T, kTileCout, true, false>(x, g, out, a, blocks, s);
   if (vec_g)
-    return launch_gemm<kTileCout, false, true>(x, g, out, a, blocks, s);
-  return launch_gemm<kTileCout, false, false>(x, g, out, a, blocks, s);
+    return launch_gemm<T, kTileCout, false, true>(x, g, out, a, blocks, s);
+  return launch_gemm<T, kTileCout, false, false>(x, g, out, a, blocks, s);
 }
 
 bool aligned16(const void* p) {
@@ -386,7 +550,7 @@ bool aligned16(const void* p) {
 template <int kTileCout>
 cudaError_t resident_blocks(int* out) {
   constexpr size_t smem = gemm_smem_bytes<kTileCout>();
-  auto kernel = wgrad_gemm_kernel<kTileCout, true, true>;
+  auto kernel = wgrad_gemm_kernel<float, kTileCout, true, true>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -394,27 +558,15 @@ cudaError_t resident_blocks(int* out) {
                                                        smem);
 }
 
-}  // namespace
-
-// C entry point, bound with ctypes by repro_torch/kernels/build.py.  It
-// launches on `stream` without synchronising and returns
-// cudaGetLastError() (or cudaErrorInvalidValue for a geometry the kernel
-// cannot take).  `ws` holds chunks * KH*KW*Cin/groups * Cout floats; with a
-// single chunk it may be `dw` itself.  WeightGradPlan decides the route
-// (`depthwise`), the GEMM tile's columns (`tile_cout`, 64 or 128) and so
-// the partial launch's `blocks`; this launcher takes those decisions as
-// given and only checks them: the depthwise route needs groups == Cin ==
-// Cout, and `blocks` must equal the count from this file's tile rows and
-// threads, so a plan that prices another launch than the one made fails
-// here instead of running.
-extern "C" {
-
-int trim_conv2d_wgrad(const float* x, const float* g, float* ws, float* dw,
-                      int n, int h, int wd, int cin, int cout, int kh,
-                      int kw, int stride, int pad_top, int pad_left,
-                      int groups, int h_out, int w_out, int tile_go,
-                      int depthwise, int tile_cout, int blocks,
-                      void* stream) {
+// The launcher of both entries.  The loaders' vector instances need the
+// channels of a group in whole vectors (4 f32 or 8 bf16: 16 bytes) and
+// 16-byte aligned operands.
+template <typename T>
+int wgrad_entry(const T* x, const T* g, float* ws, float* dw, int n, int h,
+                int wd, int cin, int cout, int kh, int kw, int stride,
+                int pad_top, int pad_left, int groups, int h_out, int w_out,
+                int tile_go, int depthwise, int tile_cout, int blocks,
+                void* stream) {
   if (n < 1 || kh < 1 || kw < 1 || stride < 1 || groups < 1 ||
       cin % groups != 0 || cout % groups != 0 || h_out < 1 || w_out < 1 ||
       tile_go < 1 ||
@@ -444,18 +596,19 @@ int trim_conv2d_wgrad(const float* x, const float* g, float* ws, float* dw,
   float* out = a.chunks > 1 ? ws : dw;
   cudaError_t err;
   if (depthwise) {
-    wgrad_depthwise_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(x, g, out,
-                                                                  a);
+    wgrad_depthwise_kernel<T><<<(unsigned)blocks, kThreads, 0, s>>>(
+        x, g, out, a);
     err = cudaGetLastError();
   } else {
-    const bool vec_x = a.cin_pg % 4 == 0 && aligned16(x);
-    const bool vec_g = a.cout_pg % 4 == 0 && aligned16(g) &&
+    constexpr int kVec = 16 / (int)sizeof(T);    // elements a vector
+    const bool vec_x = a.cin_pg % kVec == 0 && aligned16(x);
+    const bool vec_g = a.cout_pg % kVec == 0 && aligned16(g) &&
                        aligned16(out);
     err = tile_cout == 64
-              ? launch_gemm<64>(x, g, out, a, (unsigned)blocks, vec_x,
-                                vec_g, s)
-              : launch_gemm<128>(x, g, out, a, (unsigned)blocks, vec_x,
-                                 vec_g, s);
+              ? launch_gemm<T, 64>(x, g, out, a, (unsigned)blocks, vec_x,
+                                   vec_g, s)
+              : launch_gemm<T, 128>(x, g, out, a, (unsigned)blocks, vec_x,
+                                    vec_g, s);
   }
   if (err != cudaSuccess || a.chunks == 1) return (int)err;
   const size_t elems = (size_t)a.rows * cout;
@@ -471,9 +624,50 @@ int trim_conv2d_wgrad(const float* x, const float* g, float* ws, float* dw,
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+// C entry points, bound with ctypes by repro_torch/kernels/build.py.  Each
+// launches on `stream` without synchronising and returns
+// cudaGetLastError() (or cudaErrorInvalidValue for a geometry the kernel
+// cannot take).  `ws` holds chunks * KH*KW*Cin/groups * Cout floats; with a
+// single chunk it may be `dw` itself.  dw and ws are f32 in both entries;
+// x and g are f32 (trim_conv2d_wgrad) or bf16 (trim_conv2d_wgrad_bf16).
+// WeightGradPlan decides the route (`depthwise`), the GEMM tile's columns
+// (`tile_cout`, 64 or 128) and so the partial launch's `blocks`; this
+// launcher takes those decisions as given and only checks them: the
+// depthwise route needs groups == Cin == Cout, and `blocks` must equal the
+// count from this file's tile rows and threads, so a plan that prices
+// another launch than the one made fails here instead of running.
+extern "C" {
+
+int trim_conv2d_wgrad(const float* x, const float* g, float* ws, float* dw,
+                      int n, int h, int wd, int cin, int cout, int kh,
+                      int kw, int stride, int pad_top, int pad_left,
+                      int groups, int h_out, int w_out, int tile_go,
+                      int depthwise, int tile_cout, int blocks,
+                      void* stream) {
+  return wgrad_entry<float>(x, g, ws, dw, n, h, wd, cin, cout, kh, kw,
+                            stride, pad_top, pad_left, groups, h_out, w_out,
+                            tile_go, depthwise, tile_cout, blocks, stream);
+}
+
+int trim_conv2d_wgrad_bf16(const void* x, const void* g, float* ws,
+                           float* dw, int n, int h, int wd, int cin,
+                           int cout, int kh, int kw, int stride,
+                           int pad_top, int pad_left, int groups, int h_out,
+                           int w_out, int tile_go, int depthwise,
+                           int tile_cout, int blocks, void* stream) {
+  return wgrad_entry<bf16>(static_cast<const bf16*>(x),
+                           static_cast<const bf16*>(g), ws, dw, n, h, wd,
+                           cin, cout, kh, kw, stride, pad_top, pad_left,
+                           groups, h_out, w_out, tile_go, depthwise,
+                           tile_cout, blocks, stream);
+}
+
 // Resident blocks an SM of the GEMM route's tile of `tile_cout` columns
 // (16-byte loaders), as the card reports it, into `*out`:
-// WeightGradPlan's time model assumes WGRAD_BLOCKS_PER_SM of them.
+// WeightGradPlan's time model assumes WGRAD_BLOCKS_PER_SM of them.  The
+// bf16 instances share the stages and __launch_bounds__(kThreads, 2).
 int trim_conv2d_wgrad_resident_blocks(int tile_cout, int* out) {
   if (tile_cout == 64) return (int)resident_blocks<64>(out);
   if (tile_cout == 128) return (int)resident_blocks<128>(out);

@@ -40,9 +40,12 @@ conv's output is bf16, rounded once from its f32 sum; the K > 8 adder
 tree's parts are bf16 and are summed in bf16, out of place and in the
 decomposition's order, and its epilogue runs in bf16, as JAX's ``out +
 part`` and ``ref.epilogue`` do.  Autotune records are keyed by the dtype,
-so a bf16 call never takes an f32 record.  bf16 is inference only for
-now: under grad a bf16 operand that requires grad raises (the cotangent
-kernels are f32).
+so a bf16 call never takes an f32 record.  Under grad the bf16 conv
+differentiates as JAX's ``_conv_grads`` does on bf16: dx is the bf16
+forward entry on the dilated cotangent, dw the weight-gradient kernel's
+bf16 entry (f32 sums of exact products, rounded once to w's dtype), db
+the cotangent's sum in the bias's dtype; the backward's autotune lookups
+run at the tensors' dtype too.
 
 Autotuning.  Knobs a call leaves ``None`` (``tile_h``, ``tile_cout``,
 ``dataflow``) come from the port's autotune cache (``core/autotune.py``,
@@ -129,22 +132,24 @@ def _backward_knobs(cfg: _ConvConfig, x: torch.Tensor, w: torch.Tensor):
     271-290``): the input-gradient conv's from the ``conv2d:`` record of
     its own problem (the dilated cotangent, the transposed weights, the
     edge pads of ``input_grad_geometry``), the weight gradient's from
-    ``conv2d_wgrad:``; without a record, the forward's dataflow and the
-    plans' defaults."""
+    ``conv2d_wgrad:``, both at x's dtype (JAX's ``str(x.dtype)``);
+    without a record, the forward's dataflow and the plans' defaults."""
     ig = dict(tile_h=None, tile_cout=None, dataflow=cfg.dataflow)
     wg = dict(tile_go=None)
     if cfg.use_autotune_cache:
         x_shape, w_shape = tuple(x.shape), tuple(w.shape)
+        dtype = autotune.dtype_name(x.dtype)
         geo = input_grad_geometry(x_shape, w_shape, stride=cfg.stride,
                                   pad=cfg.pads, groups=cfg.groups)
         rec = autotune.knobs_for(geo["g_dilated_shape"], geo["wt_shape"],
                                  stride=1, pad=(geo["pad_h"], geo["pad_w"]),
-                                 groups=cfg.groups, device=x.device)
+                                 groups=cfg.groups, dtype=dtype,
+                                 device=x.device)
         if rec is not None:
             ig = {k: rec[k] for k in ig}
         wrec = autotune.weight_grad_knobs_for(
             x_shape, w_shape, stride=cfg.stride, pad=cfg.pads,
-            groups=cfg.groups, device=x.device)
+            groups=cfg.groups, dtype=dtype, device=x.device)
         if wrec is not None:
             wg = dict(tile_go=wrec["tile_go"])
     return ig, wg
@@ -152,7 +157,11 @@ def _backward_knobs(cfg: _ConvConfig, x: torch.Tensor, w: torch.Tensor):
 
 class _TrimConv2dFn(torch.autograd.Function):
     """The differentiable TrIM conv: ``_conv2d_vjp_fwd`` /
-    ``_conv2d_vjp_bwd`` / ``_conv_grads`` of ``repro/kernels/ops.py``."""
+    ``_conv2d_vjp_bwd`` / ``_conv_grads`` of ``repro/kernels/ops.py``.
+    x, w and bias share one dtype; each cotangent comes back in its
+    operand's dtype, as ``_conv_grads`` casts them
+    (``repro/kernels/ops.py:303-306``): dx from the input-gradient conv in
+    that dtype, dw the weight-gradient kernel's f32 sums rounded once."""
 
     @staticmethod
     def forward(ctx, x, w, bias, cfg: _ConvConfig):
@@ -180,7 +189,8 @@ class _TrimConv2dFn(torch.autograd.Function):
             dw = trim_conv2d_weight_grad(x, dz,
                                          kernel_size=tuple(w.shape[:2]),
                                          stride=cfg.stride, pad=cfg.pads,
-                                         groups=cfg.groups, **wg)
+                                         groups=cfg.groups, **wg
+                                         ).to(w.dtype)
         if ctx.has_bias and ctx.needs_input_grad[2]:
             db = dz.sum((0, 1, 2))
         return dx, dw, db, None
@@ -524,11 +534,6 @@ def _conv_core(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
     activation epilogue fused."""
     operands = (x, w) if bias is None else (x, w, bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
-        if x.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "bf16 conv gradients are not ported yet (the cotangent "
-                "kernels are f32; ROADMAP Queue 1 item 7): run bf16 under "
-                "torch.no_grad or inference_mode")
         return _TrimConv2dFn.apply(x, w, bias, cfg)
     return trim_conv2d(x, w, bias, stride=cfg.stride, pad=cfg.pads,
                        groups=cfg.groups, activation=cfg.activation,

@@ -9,13 +9,17 @@ kernels and their plain PyTorch versions (the counterpart of
   (``trim_conv2d_carry_bf16`` / ``trim_conv2d_halo_bf16``: products
   exact, one f32 sum, one rounding to bf16 at the store, as JAX's
   ``_tap_matmuls`` and ``_epilogue_store`` on bf16); on a CPU tensor it
-  runs :func:`trim_conv2d_plain`.  The cotangents take f32 only.
+  runs :func:`trim_conv2d_plain`.
 * ``trim_conv2d_input_grad`` — dx, itself a TrIM conv: the stride-dilated
-  cotangent through the same forward kernel, with the flipped, transposed
-  weights and the edge pads applied virtually.
+  cotangent through the same forward kernel (its bf16 instance on bf16
+  operands), with the flipped, transposed weights and the edge pads
+  applied virtually.
 * ``trim_conv2d_weight_grad`` — dw through the kernel of
-  ``csrc/trim_conv2d_wgrad.cu``; :func:`trim_conv2d_weight_grad_plain` on a
-  CPU tensor.
+  ``csrc/trim_conv2d_wgrad.cu`` (``trim_conv2d_wgrad``, or on bf16
+  operands ``trim_conv2d_wgrad_bf16``: the operands widened to f32, the
+  f32 kernel's sums, so its f32 dw is bitwise the f32 entry's on the
+  widened operands); f32 dw either way, which the caller rounds once;
+  :func:`trim_conv2d_weight_grad_plain` on a CPU tensor.
 * ``trim_conv2d_q8`` — the int8 route of the forward conv (the JAX
   ``trim_conv2d`` with a ``scale``): int8 operands, an exact int32
   accumulator and the dequant epilogue ``(acc + bias_q) * scale``, f32
@@ -45,13 +49,15 @@ ACTIVATION_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3}
 # Kernel launches: each successful launch of a forward dataflow adds one to
 # its key (input gradients included: they run the forward kernel; the bf16
 # instance to "carry_bf16" or "halo_bf16"), each weight-gradient call one
-# to "wgrad", each fused-group launch (``kernels/trim_conv2d_fused.py``)
-# one to "fused" (bf16: "fused_bf16"), each launch of the int8 kernel one
-# to "q8_carry" or "q8_halo".
+# to "wgrad" (bf16: "wgrad_bf16"), each fused-group launch
+# (``kernels/trim_conv2d_fused.py``) one to "fused" (bf16: "fused_bf16"),
+# each launch of the int8 kernel one to "q8_carry" or "q8_halo".
 LAUNCHES = {"carry": 0, "halo": 0, "wgrad": 0, "fused": 0, "q8_carry": 0,
-            "q8_halo": 0, "carry_bf16": 0, "halo_bf16": 0, "fused_bf16": 0}
-# the float dtypes of the forward and fused kernels, with their plan's
-# dtype_bytes and the suffix of their C entries and launch keys
+            "q8_halo": 0, "carry_bf16": 0, "halo_bf16": 0, "fused_bf16": 0,
+            "wgrad_bf16": 0}
+# the float dtypes of the forward, fused and weight-gradient kernels, with
+# their plan's dtype_bytes and the suffix of their C entries and launch
+# keys
 FLOAT_KERNELS = {torch.float32: (4, ""), torch.bfloat16: (2, "_bf16")}
 
 
@@ -233,14 +239,24 @@ def trim_conv2d_input_grad(g: torch.Tensor, w: torch.Tensor, *,
     g: (N, H_out, W_out, Cout) output cotangent; w: (KH, KW, Cin/g, Cout)
     the forward weights; ``x_shape``, ``stride``, ``pad`` and ``groups``
     describe the FORWARD problem (``pad`` an int or ``((top, bottom),
-    (left, right))``).  Only the stride dilation is materialised; the edge
+    (left, right))``); g and w f32, or bf16 (dx then bf16, rounded once
+    from its f32 sum).  Only the stride dilation is materialised; the edge
     pads of :func:`~repro_torch.core.conv_plan.input_grad_geometry` are the
     forward kernel's virtual pads, and the conv runs at stride 1 with
     :func:`transpose_conv_weights` through the ``dataflow`` kernel (its
     launch counts under that key), ``tile_h`` / ``tile_cout`` its plan's
     knobs.  Returns dx with shape ``x_shape``.
     """
-    _check_operands(g=g, w=w)
+    _check_operands(tuple(FLOAT_KERNELS), g=g, w=w)
+    gd, wt, pads = _input_grad_layout(g, w, x_shape, stride, pad, groups)
+    return trim_conv2d(gd, wt, stride=1, pad=pads, groups=groups,
+                       dataflow=dataflow, tile_h=tile_h, tile_cout=tile_cout)
+
+
+def _input_grad_layout(g, w, x_shape, stride, pad, groups):
+    """The operands of :func:`trim_conv2d_input_grad`'s stride-1 conv:
+    the stride-dilated cotangent, the transposed weights and the edge
+    pads of :func:`~repro_torch.core.conv_plan.input_grad_geometry`."""
     geo = input_grad_geometry(tuple(x_shape), tuple(w.shape), stride=stride,
                               pad=pad, groups=groups)
     if tuple(g.shape) != (x_shape[0], geo["h_out"], geo["w_out"],
@@ -248,10 +264,18 @@ def trim_conv2d_input_grad(g: torch.Tensor, w: torch.Tensor, *,
         raise ValueError(f"cotangent shape {tuple(g.shape)} does not match "
                          f"the forward geometry of x={tuple(x_shape)}, "
                          f"w={tuple(w.shape)}, stride={stride}, pad={pad}")
-    return trim_conv2d(dilate_cotangent(g, stride),
-                       transpose_conv_weights(w, groups), stride=1,
-                       pad=(geo["pad_h"], geo["pad_w"]), groups=groups,
-                       dataflow=dataflow, tile_h=tile_h, tile_cout=tile_cout)
+    return (dilate_cotangent(g, stride), transpose_conv_weights(w, groups),
+            (geo["pad_h"], geo["pad_w"]))
+
+
+def trim_conv2d_input_grad_plain(g: torch.Tensor, w: torch.Tensor, *,
+                                 x_shape, stride: int = 1, pad=0,
+                                 groups: int = 1) -> torch.Tensor:
+    """:func:`trim_conv2d_input_grad`'s function in plain PyTorch: the
+    forward's plain version on the same dilated cotangent, transposed
+    weights and edge pads."""
+    gd, wt, pads = _input_grad_layout(g, w, x_shape, stride, pad, groups)
+    return trim_conv2d_plain(gd, wt, pad=pads, groups=groups)
 
 
 def _kernel_extents(kernel_size) -> tuple[int, int]:
@@ -269,9 +293,12 @@ def trim_conv2d_weight_grad_plain(x: torch.Tensor, g: torch.Tensor, *,
     ``_weight_grad_kernel``'s tap loop computes it
     (``repro/kernels/trim_conv2d.py:429``): for each tap, the shifted
     strided view of the padded input contracted with the cotangent over
-    (n, oh, ow) by ``einsum``, accumulated in f32.  ``kernel_size`` is K
-    or ``(KH, KW)``."""
+    (n, oh, ow) by ``einsum``, accumulated in f32.  bf16 operands are
+    widened to f32 first (their products are exact in f32, as JAX's
+    ``preferred_element_type`` sums them).  Returns f32 dw whatever the
+    operands' dtype.  ``kernel_size`` is K or ``(KH, KW)``."""
     (kh, kw), s = _kernel_extents(kernel_size), stride
+    x, g = x.float(), g.float()
     xp = pad_nhwc(x, normalize_pad(pad))
     n, ho, wo, cout = g.shape
     cin_pg = x.shape[3] // groups
@@ -289,25 +316,31 @@ def trim_conv2d_weight_grad_plain(x: torch.Tensor, g: torch.Tensor, *,
 
 def trim_conv2d_weight_grad(x: torch.Tensor, g: torch.Tensor, *,
                             kernel_size, stride: int = 1, pad=0,
-                            groups: int = 1,
-                            tile_go: int | None = None) -> torch.Tensor:
+                            groups: int = 1, tile_go: int | None = None
+                            ) -> torch.Tensor:
     """Weight cotangent of :func:`trim_conv2d`
     (``repro/kernels/trim_conv2d.py:458``).
 
     x: (N, H, W, Cin) the forward input; g: (N, H_out, W_out, Cout) the
-    output cotangent; ``kernel_size`` (K, or ``(KH, KW)`` for a
-    rectangular sub-kernel), ``stride``, ``pad`` and ``groups`` as in the
-    forward call (the padding is virtual: no padded copy of ``x`` is
-    made).  ``tile_go`` overrides the plan's chunk height.  Returns dw
-    (KH, KW, Cin/groups, Cout) f32, bitwise the same on every launch with
-    the same inputs (no float atomics).
+    output cotangent, both f32 or both bf16; ``kernel_size`` (K, or
+    ``(KH, KW)`` for a rectangular sub-kernel), ``stride``, ``pad`` and
+    ``groups`` as in the forward call (the padding is virtual: no padded
+    copy of ``x`` is made).  ``tile_go`` overrides the plan's chunk
+    height.  Returns the f32 sums dw (KH, KW, Cin/groups, Cout) whatever
+    the operands' dtype; the caller rounds them once, as
+    ``_TrimConv2dFn.backward`` rounds dw to w's dtype like JAX's
+    ``_conv_grads`` (``repro/kernels/ops.py:306``; JAX's wrapper casts
+    its f32 block to x's dtype at ``repro/kernels/trim_conv2d.py:542``,
+    the same single rounding).  Bitwise the same on every launch with the
+    same inputs (no float atomics).
     """
-    _check_operands(x=x, g=g)
+    _check_operands(tuple(FLOAT_KERNELS), x=x, g=g)
+    dtype_bytes, suffix = FLOAT_KERNELS[x.dtype]
     kh, kw = _kernel_extents(kernel_size)
     plan = WeightGradPlan.build(tuple(x.shape),
                                 (kh, kw, x.shape[3] // groups, g.shape[3]),
                                 stride=stride, pad=pad, groups=groups,
-                                tile_go=tile_go)
+                                tile_go=tile_go, dtype_bytes=dtype_bytes)
     if tuple(g.shape) != (plan.n, plan.h_out, plan.w_out, plan.cout):
         raise ValueError(f"cotangent shape {tuple(g.shape)} does not match "
                          f"the forward geometry of x={tuple(x.shape)}, "
@@ -323,7 +356,7 @@ def trim_conv2d_weight_grad(x: torch.Tensor, g: torch.Tensor, *,
         (plan.chunks * plan.dw_elems,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.trim_conv2d_wgrad(
+        err = getattr(lib, f"trim_conv2d_wgrad{suffix}")(
             x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(),
             plan.n, plan.h, plan.w, plan.cin, plan.cout, plan.kh, plan.kw,
             plan.stride, plan.pads[0][0], plan.pads[1][0], plan.groups,
@@ -332,11 +365,34 @@ def trim_conv2d_weight_grad(x: torch.Tensor, g: torch.Tensor, *,
             stream)
     if err != 0:
         raise RuntimeError(
-            f"trim_conv2d_wgrad kernel launch failed: CUDA error {err} "
-            f"({lib.trim_conv2d_wgrad_error_string(err).decode()}) for "
-            f"{plan}")
-    LAUNCHES["wgrad"] += 1
+            f"trim_conv2d_wgrad{suffix} kernel launch failed: CUDA error "
+            f"{err} ({lib.trim_conv2d_wgrad_error_string(err).decode()}) "
+            f"for {plan}")
+    LAUNCHES["wgrad" + suffix] += 1
     return dw
+
+
+def plain_versions() -> dict:
+    """The three conv wrappers that ``kernels.ops`` calls, keyed by name,
+    as their plain versions on tensors of any device, the kernels' knobs
+    dropped: what a check swaps into ``kernels.ops`` to run a path with no
+    kernel."""
+    def forward(x, w, bias=None, *, stride=1, pad=0, groups=1,
+                activation=None, **_):
+        return trim_conv2d_plain(x, w, bias, stride=stride, pad=pad,
+                                 groups=groups, activation=activation)
+
+    def input_grad(g, w, *, x_shape, stride=1, pad=0, groups=1, **_):
+        return trim_conv2d_input_grad_plain(g, w, x_shape=x_shape,
+                                            stride=stride, pad=pad,
+                                            groups=groups)
+
+    def weight_grad(x, g, *, kernel_size, stride=1, pad=0, groups=1, **_):
+        return trim_conv2d_weight_grad_plain(x, g, kernel_size=kernel_size,
+                                             stride=stride, pad=pad,
+                                             groups=groups)
+    return {"trim_conv2d": forward, "trim_conv2d_input_grad": input_grad,
+            "trim_conv2d_weight_grad": weight_grad}
 
 
 # ---------------------------------------------------------------------------

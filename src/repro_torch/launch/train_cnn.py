@@ -83,8 +83,9 @@ def tune_backward_shapes(batch: int, *, device=None,
 
 
 def nll_loss(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Mean negative log-likelihood of the labels under log-softmax."""
-    logp = F.log_softmax(logits, dim=-1)
+    """Mean negative log-likelihood of the labels under log-softmax, in
+    f32 (bf16 logits are widened first)."""
+    logp = F.log_softmax(logits.float(), dim=-1)
     return -logp.gather(1, y[:, None]).mean()
 
 
@@ -93,7 +94,9 @@ def train_step(params: dict, moments: dict, step, x: torch.Tensor,
     """One AdamW step on ``nll_loss(apply_fn(params, x), y)``.
 
     Functional, as the JAX example's jitted step: returns ``(new_params,
-    new_moments, loss, metrics)`` and leaves its inputs untouched.
+    new_moments, loss, metrics)`` and leaves its inputs untouched.  A bf16
+    tree trains on the bf16 kernels; its moments stay f32 and each leaf
+    is rounded to bf16 once per step (``adamw.apply_updates``).
     """
     leaves = adamw.tree_leaves(params)
     live = [t.detach().requires_grad_() for t in leaves]

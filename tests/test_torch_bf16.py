@@ -425,11 +425,16 @@ def test_mixed_float_dtypes_raise():
     with pytest.raises(TypeError, match="mixed"):
         tf.trim_conv2d_fused(torch.zeros((2, 12, 12, 3), dtype=BF16), ws,
                              [None, None], group=g)
-    # the cotangent kernels and the int8 calibration take f32 only
-    with pytest.raises(TypeError):
-        tc.trim_conv2d_weight_grad(x, x, kernel_size=3, pad=1)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        ops.conv2d(x, w.clone().requires_grad_())
+    # the cotangent kernels take one float dtype (bf16 since the bf16
+    # weight-gradient route: tests/test_torch_bf16_train.py); the int8
+    # calibration takes f32 only
+    with pytest.raises(TypeError, match="mixed"):
+        tc.trim_conv2d_weight_grad(x, x.float(), kernel_size=3, pad=1)
+    with pytest.raises(TypeError, match="mixed"):
+        tc.trim_conv2d_input_grad(x, w.float(), x_shape=tuple(x.shape),
+                                  pad=1)
+    with pytest.raises(TypeError, match="mixed"):
+        ops.conv2d(x, w.float().requires_grad_())
     with pytest.raises(TypeError, match="f32"):
         layers.calibrate_conv2d({"w": w, "b": b}, x)
 

@@ -14,8 +14,12 @@ activation, carry segments of several strips with the prefetching ring,
 tile_cout 3, Cin 3, and operands at a 4-byte offset.  Tolerance: 1e-4 * max(1, max|plain|) (f32 sums in
 another order); carry and halo must agree bitwise.  The weight-gradient
 kernel is held against its plain version within 1e-4 * max|plain| and
-must repeat bitwise; the input gradient (the forward kernel on the
-dilated cotangent) and the autograd conv against the ``ref`` oracle.  The
+must repeat bitwise (its bf16 entry's f32 sums bitwise the f32 entry's
+on the widened operands, its bf16 dw those sums rounded once; one bf16
+example-CNN train step on the kernels against the same step on the plain
+versions: dw within one bf16 ulp, every other leaf bitwise); the input
+gradient (the forward kernel on the dilated cotangent) and the autograd
+conv against the ``ref`` oracle.  The
 fused-group kernel is held against its plain version at the same
 tolerance, must repeat bitwise, and must equal the per-layer carry chain
 bitwise, forward and (through ``fused_group_apply``) backward, also at a
@@ -1696,3 +1700,130 @@ def test_bf16_lm_calls_never_reach_the_plain_versions(cuda, monkeypatch):
         assert fa.LAUNCHES == {"flash_attention": 0,
                                "flash_attention_bf16": n_att}
     assert calls == []
+
+
+# bf16 weight gradient: the geometries of tests/test_torch_bf16_train.py's
+# (a) (K 3 at strides 1 and 2, 'same' and 'valid', groups 2, depthwise,
+# Cin 3 and K 11's rectangular sub-kernels), ragged chunks and 128-column
+# tiles, VGG-16 conv2 at 1/2 the image, the smoke's depthwise case and
+# operands at a 2-byte offset (the one-element loaders).
+# (n, h, w, cin, cout, kh, kw, stride, groups, padding, tile_go, offset)
+WGRAD_BF16_CASES = [
+    (2, 11, 12, 8, 16, 3, 3, 1, 1, "same", None, 0),
+    (2, 11, 12, 8, 16, 3, 3, 1, 1, "valid", 2, 0),
+    (2, 11, 12, 8, 16, 3, 3, 2, 1, "same", None, 0),
+    (2, 11, 12, 8, 16, 3, 3, 2, 1, "valid", None, 0),
+    (2, 10, 9, 8, 12, 3, 3, 1, 2, "same", 3, 0),
+    (2, 10, 10, 8, 8, 3, 3, 2, 8, "same", None, 0),
+    (2, 13, 12, 3, 16, 3, 3, 1, 1, "same", 4, 0),
+    (2, 19, 18, 3, 16, 3, 2, 4, 1, "valid", None, 0),
+    (2, 18, 19, 3, 16, 2, 3, 4, 1, "valid", None, 0),
+    (2, 18, 18, 3, 16, 2, 2, 4, 1, "valid", None, 0),
+    (3, 15, 15, 40, 130, 3, 3, 1, 1, "same", 4, 0),
+    (8, 112, 112, 64, 64, 3, 3, 1, 1, "same", None, 0),
+    (8, 112, 112, 32, 32, 3, 3, 1, 32, "same", None, 0),
+    (2, 19, 23, 16, 24, 3, 3, 2, 1, "same", None, 1),
+]
+
+
+@pytest.mark.parametrize("case", WGRAD_BF16_CASES,
+                         ids=[str(i) for i in range(len(WGRAD_BF16_CASES))])
+def test_bf16_wgrad_is_the_f32_entry_on_widened_operands(cuda, case):
+    """``trim_conv2d_wgrad_bf16`` widens its operands into the f32
+    kernel's stages: its f32 sums are bitwise the f32 entry's on the
+    widened operands (a bf16 product is exact in f32; the same plan, so
+    the same chunks and order) and repeatable, and within TOL of
+    max|plain| of the plain version.  Counted under ``wgrad_bf16``
+    only."""
+    n, h, w, cin, cout, kh, kw, s, g, padding, tile_go, offset = case
+    gen = torch.Generator(device="cuda").manual_seed(h * w + cout)
+    pads = conv_pads(h, w, kh, s, padding) if kh == kw else \
+        ((0, 0), (0, 0))
+    ho = (h + sum(pads[0]) - kh) // s + 1
+    wo = (w + sum(pads[1]) - kw) // s + 1
+
+    def draw(shape):
+        size = 1
+        for d in shape:
+            size *= d
+        t = torch.randn((size + offset,), generator=gen, device=cuda)
+        return t.bfloat16()[offset:].view(shape)
+    x, gy = draw((n, h, w, cin)), draw((n, ho, wo, cout))
+    kw_ = dict(kernel_size=(kh, kw), stride=s, pad=pads, groups=g,
+               tile_go=tile_go)
+    before = dict(tc.LAUNCHES)
+    sums = tc.trim_conv2d_weight_grad(x, gy, **kw_)
+    again = tc.trim_conv2d_weight_grad(x, gy, **kw_)
+    assert tc.LAUNCHES["wgrad_bf16"] == before["wgrad_bf16"] + 2
+    assert tc.LAUNCHES["wgrad"] == before["wgrad"]
+    wide = tc.trim_conv2d_weight_grad(x.float(), gy.float(), **kw_)
+    torch.cuda.synchronize()
+    assert sums.dtype == torch.float32 and torch.equal(sums, wide)
+    assert torch.equal(sums, again)
+    plain = tc.trim_conv2d_weight_grad_plain(
+        x, gy, kernel_size=(kh, kw), stride=s, pad=pads, groups=g)
+    assert (sums - plain).abs().max().item() <= \
+        TOL * plain.abs().max().item()
+
+
+def _bf16_ulps(a, b) -> float:
+    """max |a - b| in bf16 ulps at max(|a|, |b|) (of the normal range)."""
+    a, b = a.double(), b.double()
+    m = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    return ((a - b).abs() / torch.pow(2.0, torch.floor(torch.log2(m)) - 7)
+            ).max().item()
+
+
+def test_bf16_cnn_train_step_on_the_kernels_matches_plain(cuda, monkeypatch):
+    """One bf16 ``train_step`` of the example CNN on the kernels against
+    the same step with ``kernels.ops``' three wrappers swapped for their
+    plain versions, on the card: the forward and input-gradient entries
+    are bitwise their plain versions, so every leaf but the weight
+    gradients is bitwise equal and each dw within one bf16 ulp (the
+    kernel's chunked f32 sums against an f32 einsum, each rounded once);
+    the AdamW step after it within one bf16 ulp."""
+    from repro_torch.launch import train_cnn
+    from repro_torch.models import layers
+    from repro_torch.models.base import init_params
+    from repro_torch.optim import adamw
+    params = init_params(
+        layers.simple_cnn_params(cin=3, channels=(8, 16), n_classes=10),
+        torch.Generator().manual_seed(0), device=cuda, dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((4, 32, 32, 3), generator=gen,
+                    device=cuda).bfloat16()
+    y = torch.randint(0, 10, (4,), generator=gen, device=cuda)
+    names = [f"{k}.{n}" for k in sorted(params) for n in sorted(params[k])]
+
+    def step():
+        live = [t.detach().requires_grad_()
+                for t in adamw.tree_leaves(params)]
+        loss = train_cnn.nll_loss(layers.simple_cnn_apply(
+            adamw.tree_unflatten(params, live), x), y)
+        grads = torch.autograd.grad(loss, live)
+        new_p, _, _, _ = train_cnn.train_step(
+            params, adamw.init_moments(params, train_cnn.OPT), 0, x, y,
+            apply_fn=layers.simple_cnn_apply, cfg=train_cnn.OPT)
+        torch.cuda.synchronize()
+        return loss, grads, adamw.tree_leaves(new_p)
+
+    tc.reset_launch_counts()
+    loss_k, g_k, p_k = step()
+    # five convs: 5 forwards + 4 input gradients (the image needs none)
+    # and 5 weight gradients, twice (the gradients, then the step)
+    assert tc.LAUNCHES["carry_bf16"] == 18 and tc.LAUNCHES["wgrad_bf16"] == 10
+    assert tc.LAUNCHES["carry"] == tc.LAUNCHES["wgrad"] == 0
+    for name, fn in tc.plain_versions().items():
+        monkeypatch.setattr(ops, name, fn)
+    tc.reset_launch_counts()
+    loss_p, g_p, p_p = step()
+    assert not any(tc.LAUNCHES.values())
+    assert torch.equal(loss_k, loss_p)
+    for name, a, b in zip(names, g_k, g_p):
+        assert a.dtype == torch.bfloat16, name
+        if name.endswith(".w") and not name.startswith("head"):
+            assert _bf16_ulps(a, b) <= 1.0, name
+        else:
+            assert torch.equal(a, b), name
+    for name, a, b in zip(names, p_k, p_p):
+        assert a.dtype == torch.bfloat16 and _bf16_ulps(a, b) <= 1.0, name

@@ -252,9 +252,12 @@ def test_plain_path_does_not_count_launches():
         [torch.ones((3, 3, 2, 3), dtype=torch.bfloat16),
          torch.ones((3, 3, 3, 2), dtype=torch.bfloat16)], [None, None],
         group=build_group(FUSED_TOPO, 0, n=1, strip_rows=2, dtype_bytes=2))
+    tc.trim_conv2d_weight_grad(torch.ones((1, 6, 6, 2), dtype=torch.bfloat16),
+                               torch.ones((1, 6, 6, 2), dtype=torch.bfloat16),
+                               kernel_size=3, pad=1)
     assert tc.LAUNCHES == {"carry": 0, "halo": 0, "wgrad": 0, "fused": 0,
                            "q8_carry": 0, "q8_halo": 0, "carry_bf16": 0,
-                           "halo_bf16": 0, "fused_bf16": 0}
+                           "halo_bf16": 0, "fused_bf16": 0, "wgrad_bf16": 0}
 
 
 def test_build_raises_without_nvcc(monkeypatch):
