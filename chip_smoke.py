@@ -316,24 +316,33 @@ Phases, each raising on failure (each prints its seconds):
    peak memory and the clip state; at the depth-2 cut the first-step
    gradients on the kernels against the f32 step on ``impl="ref"``
    (``MAMBA_GRAD_TOLERANCE``);
-33. bf16 — the bf16 routes of the conv kernels: the carry and halo
-   entries (``trim_conv2d_carry_bf16`` / ``_halo_bf16``) at full-width
-   VGG-16's 13 layers at batch 8 and 1 and at AlexNet's five convs
-   (conv1 the K 11 adder tree of bf16 parts) at batch 8 and 1, against
-   their plain version (the kernels' own fmaf chain) within
-   ``BF16_ULPS`` and carry == halo bitwise; the fused entry
-   (``trim_conv2d_fused_bf16``) on the groups of full-width VGG-16's
-   bf16 plan at batch 8, bitwise equal to its bf16 per-layer chain; each
-   one's device ms from CUDA graphs beside ``F.conv2d`` on bf16 (cuDNN,
+33. bf16 — the bf16 routes of the conv kernels: first the SASS of the
+   conv and fused libraries (``cuobjdump``), where every instance of the
+   tensor-core kernel (route mma) and the fused kernel's bf16 instance must
+   issue ``HMMA.16816.F32.BF16`` and the bf16 ffma and f32 instances none;
+   then the carry and halo entries (``trim_conv2d_carry_bf16`` /
+   ``_halo_bf16``) at full-width VGG-16's 13 layers at batch 8 and 1 and
+   at AlexNet's five convs (conv1 the K 11 adder tree of bf16 parts) at
+   batch 8 and 1, each layer's route printed (VGG-16's conv2-13 must run
+   ``mma``): carry == halo bitwise; route ffma within ``BF16_ULPS`` of
+   the plain version (the kernels' own fmaf chain); route mma within one
+   bf16 ulp plus n 2^-22 sum|x w| of the float64 oracle rounded to bf16,
+   its distance from the plain version in ulps printed; the fused entry
+   (``trim_conv2d_fused_bf16``) on the groups of full-width VGG-16's and
+   AlexNet's bf16 plans at batch 8 and 1, each bitwise equal to its bf16
+   per-layer chain (a group all on route ffma also within ``BF16_ULPS``
+   of its plain version); each one's device ms from CUDA graphs beside
+   the f32 route's on the same values, ``F.conv2d`` on bf16 (cuDNN,
    TF32 off; the yardstick), the plain version's, the bound (2 bytes an
-   element at 3.35 TB/s or 989 TFLOP/s of bf16) and the FFMA ceiling
-   (67 TFLOP/s); then full-width VGG-16 and AlexNet (seeded weights
-   drawn in f32 and cast to bf16) served in bf16 on buckets (1, 2, 4,
-   8): 48 Poisson requests at 200 req/s on carry and with ``fused=True``,
-   16 on halo, every row bit-matching ``forward_one`` (halo and fused
-   rows the carry rows too), each forward launching only bf16 entries,
-   and each bf16 row within ``BF16_F32_TOLERANCE`` of max|f32 row| of
-   the f32 serving of the same params; p50, p99 and throughput;
+   element at 3.35 TB/s or 989 TFLOP/s of bf16) and the FFMA ceiling (67
+   TFLOP/s); then full-width VGG-16 and AlexNet (seeded weights drawn in
+   f32 and cast to bf16) served in bf16 on buckets (1, 2, 4, 8): 48
+   Poisson requests at 200 req/s on carry and with ``fused=True``, 16 on
+   halo, every row bit-matching ``forward_one`` (halo and fused rows the
+   carry rows too), each forward launching only bf16 entries, and each
+   bf16 row within ``BF16_F32_TOLERANCE`` of max|f32 row| of the f32
+   serving of the same params; p50, p99 and throughput beside the f32
+   serve phases' of this call;
 34. lm_bf16 — the bf16 routes of the conv1d and flash kernels and bf16
    LM inference: ``trim_conv1d_bf16`` at every case of
    ``conv1d_cases`` bitwise equal to its plain version (f32 sums of
@@ -362,20 +371,17 @@ Phases, each raising on failure (each prints its seconds):
    phase's seeded weights drawn in f32 and cast to bf16, its first
    batches rounded to bf16, batch 8): the step-1 gradients on the
    kernels (25 ``carry_bf16`` and 13 ``wgrad_bf16`` launches, no f32
-   conv kernel) against the same step with ``kernels.ops``' three kernel
-   wrappers swapped for their plain versions (the forward and dx entries
-   are bitwise their plain versions, so the wgrad sees the same inputs):
-   every dw element within one bf16 ulp plus ``WGRAD_TOLERANCE`` of the
-   leaf's max (each side is its f32 sums rounded once, and the sums part
-   by the f32 route's tolerance: conv1's 401,408-term sums cancel, and
-   read 2 ulps apart at small elements), every other leaf and the loss
-   bitwise; each leaf's distance from the f32 step on the same draws
-   (printed: a network's bf16 gradient is not held to f32); then
-   ``BF16_TRAIN_STEPS`` AdamW steps of ``launch.train_cnn.train_step``,
-   each with exactly 25 ``carry_bf16`` and 13 ``wgrad_bf16`` launches
-   and a finite loss, step 1 run again from the same state bitwise
-   equal; ms a step (steps 2-4) and peak memory beside the train phase's
-   f32 figures of this call;
+   conv kernel), the same step with ``kernels.ops``' three kernel
+   wrappers swapped for their plain versions (the fmaf chain) and the
+   same step on the f32 kernels for the same values widened: every leaf
+   and the loss of the kernels' step within twice the plain step's
+   distance from the f32 step plus 2^-8 of the leaf's max (the tensor
+   cores add in their own order, so no leaf is bitwise the plain step's;
+   each leaf's three distances printed); then ``BF16_TRAIN_STEPS`` AdamW
+   steps of ``launch.train_cnn.train_step``, each with exactly 25
+   ``carry_bf16`` and 13 ``wgrad_bf16`` launches and a finite loss, step
+   1 run again from the same state bitwise equal; ms a step (steps 2-4)
+   and peak memory beside the train phase's f32 figures of this call;
 36. the kernel JSON line (nineteen kernels; the launches of trim_conv1d
    and flash_attention include the prefills' and the training phases',
    the flash backward kernels' and conv1d backward kernels' the training
@@ -1509,6 +1515,7 @@ def serve_alexnet(torch):
     out = {}
     carry_rows, out["carry"], out["carry_fw"], s = serve(
         REQUESTS, "carry", model, xs, label="carry, AlexNet")
+    out["carry_s"] = s
     _, out["halo"], out["halo_fw"], sh = serve(
         REQUESTS, "halo", model, xs, expect=carry_rows,
         label="halo, AlexNet")
@@ -4943,11 +4950,15 @@ def autotune_phase(torch, cache_dir: str) -> dict:
 # The bf16 routes (phase 33)
 # ---------------------------------------------------------------------------
 
-# Each bf16 kernel against its plain version: the plain version takes the
-# kernel's own fmaf chain (a bf16 x bf16 product is exact in f32, so a
-# multiply then an add is the kernel's fmaf), so the two agree bit for bit
-# under relu; one bf16 ulp is the limit (an activation's tanh / exp may
-# differ in the last f32 bit between CUDA and PyTorch).
+# Each bf16 kernel on route ffma against its plain version: the plain
+# version takes the kernel's own fmaf chain (a bf16 x bf16 product is
+# exact in f32, so a multiply then an add is the kernel's fmaf), so the
+# two agree bit for bit under relu; one bf16 ulp is the limit (an
+# activation's tanh / exp may differ in the last f32 bit between CUDA and
+# PyTorch).  Route mma (the bf16 tensor cores, csrc/bf16_mma.cuh) adds in
+# the tensor core's order, which the plain version cannot repeat: it is
+# held to the float64 oracle (bf16_f64_excess) and its distance from the
+# plain version is printed.
 BF16_ULPS = 1.0
 # bf16 serving's logits against the f32 serving of the same
 # (bf16-representable) params and inputs, of max|f32 logits| a request:
@@ -5002,16 +5013,88 @@ def bf16_plain_conv(torch, x, w, b, *, stride, padding):
     return ref.epilogue(out, b, "relu")
 
 
+def bf16_f64_excess(torch, y, x, w, b, *, stride, pads) -> float:
+    """How far a bf16 conv output (relu) lies beyond its bound from the
+    float64 oracle rounded to bf16 (<= 0: within): one bf16 ulp of the
+    oracle plus n 2^-22 sum|x w| (n = KH KW Cin/g products: the f32
+    chain's n 2^-24 bound of tests/test_torch_bf16.py, doubled twice for
+    the tensor core's truncating additions)."""
+    import torch.nn.functional as F
+    (pt, pb), (pl, pr) = pads
+    xd = F.pad(x.double().permute(0, 3, 1, 2), (pl, pr, pt, pb))
+    wd = w.double().permute(3, 2, 0, 1)
+    acc = F.conv2d(xd, wd, b.double(), stride=stride)
+    want = torch.relu(acc).bfloat16().double()
+    del acc
+    mass = F.conv2d(xd.abs(), wd.abs(), stride=stride)
+    n = w.shape[0] * w.shape[1] * w.shape[2]
+    ulp = torch.pow(2.0, torch.floor(torch.log2(
+        want.abs().clamp_min(2.0 ** -126))) - 7)
+    excess = ((y.permute(0, 3, 1, 2).double() - want).abs() - ulp
+              - n * 2.0 ** -22 * mass).max().item()
+    del xd, want, mass, ulp
+    return excess
+
+
+def bf16_sass_check() -> dict:
+    """The bf16 instances' tensor-core instructions (``cuobjdump -sass``,
+    as the int8 check reads them): every instance of the per-layer mma
+    kernel and the fused kernel's bf16 instance (whose stages on route
+    mma run the shared k-loop) must issue ``HMMA.16816.F32.BF16``; the
+    per-layer kernel's bf16 ffma instances and every f32 instance none.
+    Returns {instance: HMMA count}."""
+    import shutil
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for lib_name in ("trim_conv2d", "trim_conv2d_fused"):
+        sass = subprocess.run([tool, "-sass", build.library(lib_name)._name],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                out[fn] = 0
+            elif fn is not None and "HMMA.16816.F32.BF16" in line:
+                out[fn] += 1
+    named = {}
+    for f, count in out.items():
+        if "trim_conv2d_mma_kernel" in f:
+            kind = "mma"
+        elif "trim_conv2d_kernelI13__nv_bfloat16" in f:
+            kind = "ffma"
+        elif "trim_conv2d_fused_kernelI13__nv_bfloat16" in f:
+            kind = "fused_bf16"
+        else:
+            kind = "f32"
+        named.setdefault(kind, []).append(count)
+    if (len(named.get("mma", [])) != 3 or min(named["mma"]) == 0
+            or len(named.get("fused_bf16", [])) != 1
+            or named["fused_bf16"][0] == 0
+            or any(named.get("ffma", [1])) or len(named["ffma"]) != 4
+            or any(named.get("f32", [1]))):
+        raise AssertionError(f"bf16 SASS: HMMA.16816.F32.BF16 by instance "
+                             f"{out}")
+    print("bf16 SASS: HMMA.16816.F32.BF16 a kernel instance: mma "
+          f"{named['mma']}, fused bf16 {named['fused_bf16']}; bf16 ffma "
+          f"{named['ffma']} and f32 {named['f32']} (none)")
+    return out
+
+
 def check_bf16_convs(torch, net: str, n: int) -> list:
     """The bf16 carry and halo entries at a network's convs at batch ``n``
     (VGG-16's 13, or AlexNet's 5 through ``ops.conv2d``: conv1 is the
-    K 11 adder tree of bf16 parts): against the plain version within
-    ``BF16_ULPS`` (under relu: bitwise), carry == halo bitwise; device
-    ms of each from CUDA graphs beside ``F.conv2d`` on bf16 (cuDNN on the
-    bf16 tensor cores; the yardstick) and the plain version's (eager,
-    CUDA events), the bound and the FFMA ceiling."""
+    K 11 adder tree of bf16 parts), each layer's route printed (VGG-16's
+    conv2-13 must take ``mma``): carry == halo bitwise; route ffma within
+    ``BF16_ULPS`` of the plain version (under relu: bitwise); route mma
+    within the float64 oracle's bound (``bf16_f64_excess``), its distance
+    from the plain version in ulps printed; device ms of each from CUDA
+    graphs beside the f32 route's on the same values (widened), ``F.conv2d``
+    on bf16 (cuDNN on the bf16 tensor cores; the yardstick) and the plain
+    version's (eager, CUDA events), the bound and the FFMA ceiling."""
     import torch.nn.functional as F
-    from repro_torch.core.conv_plan import ConvPlan
+    from repro_torch.core.conv_plan import ConvPlan, bf16_route
     from repro_torch.core.model import alexnet_layers, vgg16_layers
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import conv_pads, pad_nhwc
@@ -5021,16 +5104,21 @@ def check_bf16_convs(torch, net: str, n: int) -> list:
     bf = torch.bfloat16
     rows = []
     print(f"bf16 kernel check, {net} at batch {n} (relu, bias; device ms "
-          "from CUDA graphs, plain eager; ulps against the plain version; "
-          "tile T x W x C_out, blocks of the bf16 plan):")
-    print(f"  {'layer':7s} {'ulps':>5s} {'max_err':>9s} {'c==h':>5s} "
-          f"{'carry':>8s} {'halo':>8s} {'plain':>9s} {'F.conv':>8s} "
-          f"{'bound':>7s} by         {'FFMA':>7s} {'TF/s':>6s} tile")
+          "from CUDA graphs, plain eager; ulps against the plain version, "
+          "f64: the excess over the float64 bound, <= 0; tile T x W x "
+          "C_out, blocks of the bf16 plan; mma: warps_n x m16 fragments):")
+    print(f"  {'layer':7s} {'route':5s} {'ulps':>6s} {'f64':>9s} "
+          f"{'c==h':>5s} {'carry':>8s} {'halo':>8s} {'f32':>8s} "
+          f"{'plain':>9s} {'F.conv':>8s} {'bound':>7s} by         "
+          f"{'FFMA':>7s} {'TF/s':>6s} tile")
     for l in topo:
         k, s = l.kernel, l.stride
         padding = "same" if l.padding else "valid"
         xs = (n, l.ifmap, l.ifmap, l.in_channels)
         wsh = (k, k, l.in_channels // l.groups, l.out_channels)
+        route = bf16_route(wsh[2], l.groups)
+        if net == "VGG-16" and l.name != "conv1" and route != "mma":
+            raise AssertionError(f"bf16 VGG-16 {l.name}: route {route}")
         x = torch.randn(xs, generator=gen, device="cuda").to(bf)
         w = (torch.randn(wsh, generator=gen, device="cuda")
              / float(np.sqrt(k * k * wsh[2]))).to(bf)
@@ -5049,71 +5137,105 @@ def check_bf16_convs(torch, net: str, n: int) -> list:
         ulps = max(bf16_ulps(torch, carry, plain),
                    bf16_ulps(torch, halo, plain))
         err = (carry.float() - plain.float()).abs().max().item()
-        if carry.dtype != bf or carry.shape != plain.shape or \
-                not ulps <= BF16_ULPS:
+        pads = conv_pads(l.ifmap, l.ifmap, k, s, padding)
+        excess = None
+        if carry.dtype != bf or carry.shape != plain.shape:
+            raise AssertionError(f"bf16 {net} {l.name} n={n}: "
+                                 f"{carry.dtype} {tuple(carry.shape)}")
+        if route == "mma":
+            excess = bf16_f64_excess(torch, carry, x, w, b, stride=s,
+                                     pads=pads)
+            if not excess <= 0:
+                raise AssertionError(
+                    f"bf16 {net} {l.name} n={n}: {excess} beyond the "
+                    "float64 oracle's bound (one ulp + n 2^-22 sum|x w|)")
+        elif not (ulps <= BF16_ULPS and torch.equal(carry, plain)):
             raise AssertionError(f"bf16 {net} {l.name} n={n}: {ulps} ulps "
-                                 f"from the plain version > {BF16_ULPS}")
+                                 f"from the plain version (route ffma: "
+                                 "bitwise under relu)")
         if not torch.equal(carry, halo):
             raise AssertionError(f"bf16 {net} {l.name} n={n}: carry and "
                                  "halo differ bitwise")
-        pads = conv_pads(l.ifmap, l.ifmap, k, s, padding)
+        del plain
         xp = pad_nhwc(x, pads).permute(0, 3, 1, 2)
         wl = w.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
+        x32, w32, b32 = x.float(), w.float(), b.float()
         with torch.inference_mode():
             t = {"carry": time_graph_ms(torch, lambda: conv("carry")),
                  "halo": time_graph_ms(torch, lambda: conv("halo")),
+                 "f32": time_graph_ms(torch, lambda: ops.conv2d(
+                     x32, w32, dataflow="carry", **dict(kw, bias=b32))),
                  "library": time_graph_ms(torch, lambda: F.conv2d(
                      xp, wl, b, stride=s)),
                  "plain": time_ms(torch, lambda: bf16_plain_conv(
                      torch, x, w, b, stride=s, padding=padding), reps=1)}
         flops = 2 * carry.numel() * k * k * wsh[2]
         min_bytes = 2 * (x.numel() + w.numel() + b.numel() + carry.numel())
-        row = dict(name=l.name, err=err, ulps=ulps, **t,
-                   **bf16_bound(flops, min_bytes))
+        row = dict(name=l.name, route=route, err=err, ulps=ulps,
+                   excess=excess, **t, **bf16_bound(flops, min_bytes))
         tile = "tree"
         if k <= ops.MAX_NATIVE_K:
             plan = ConvPlan.build(xs, wsh, stride=s, pad=pads,
                                   groups=l.groups, dtype_bytes=2)
             tile = (f"{plan.th_out}x{plan.tile_w}x{plan.tile_cout}, "
                     f"{plan.blocks}")
+            if route == "mma":
+                tile += f", {plan.warps_n}x{plan.m_frags}"
         rows.append(row)
-        print(f"  {l.name:7s} {ulps:5.1f} {err:9.2e} {'True':>5s} "
-              f"{t['carry']:8.4f} {t['halo']:8.4f} {t['plain']:9.3f} "
-              f"{t['library']:8.4f} {row['bound']:7.4f} {row['by']:10s} "
-              f"{row['ffma']:7.4f} {flops / t['carry'] / 1e9:6.2f} {tile}")
-        del x, w, b, plain, carry, halo, xp, wl
+        f64 = "-" if excess is None else f"{excess:.2e}"
+        print(f"  {l.name:7s} {route:5s} {ulps:6.1f} {f64:>9s} {'True':>5s} "
+              f"{t['carry']:8.4f} {t['halo']:8.4f} {t['f32']:8.4f} "
+              f"{t['plain']:9.3f} {t['library']:8.4f} {row['bound']:7.4f} "
+              f"{row['by']:10s} {row['ffma']:7.4f} "
+              f"{flops / t['carry'] / 1e9:6.2f} {tile}")
+        del x, w, b, carry, halo, xp, wl, x32, w32, b32
     torch.cuda.empty_cache()
     print(f"bf16 kernel check, {net} at batch {n}, sums: carry "
           f"{sum(r['carry'] for r in rows):.4f} ms, halo "
-          f"{sum(r['halo'] for r in rows):.4f} ms, plain "
+          f"{sum(r['halo'] for r in rows):.4f} ms, the f32 route "
+          f"{sum(r['f32'] for r in rows):.4f} ms, plain "
           f"{sum(r['plain'] for r in rows):.3f} ms, F.conv2d bf16 "
           f"{sum(r['library'] for r in rows):.4f} ms, bound "
           f"{sum(r['bound'] for r in rows):.4f} ms (FFMA ceiling "
-          f"{sum(r['ffma'] for r in rows):.4f} ms)")
+          f"{sum(r['ffma'] for r in rows):.4f} ms); route mma "
+          f"{sum(r['route'] == 'mma' for r in rows)} of {len(rows)} layers")
     return rows
 
 
-def check_bf16_fused(torch, n: int = 8) -> list:
-    """The bf16 fused entry on the groups of full-width VGG-16's bf16 plan
-    at batch ``n`` (the groups fused bf16 serving runs at that bucket):
-    bitwise equal to its bf16 per-layer chain (the carry entry and a
-    separate max-pool a stage) and within ``BF16_ULPS`` of its plain
-    version; device ms of the group and its chain from CUDA graphs beside
-    the plain version's and the ``F.conv2d`` + relu + ``F.max_pool2d``
-    chain's on bf16, the bound and the FFMA ceiling."""
-    from repro_torch.core.fuse_plan import FusedGroupPlan
+def check_bf16_fused(torch, net: str = "VGG-16", n: int = 8) -> list:
+    """The bf16 fused entry on the groups of a network's bf16 plan at
+    batch ``n`` (the groups fused bf16 serving runs at that bucket; each
+    stage's route printed; AlexNet's conv3..conv4 at T=4, B=13 too):
+    bitwise equal to its bf16 per-layer chain (the
+    carry entry and a separate max-pool a stage); a group all on route
+    ffma within ``BF16_ULPS`` of its plain version, one with a stage on
+    route mma its distance printed (the chain's layers are held to float64
+    by ``check_bf16_convs``); device ms of the group and its chain from
+    CUDA graphs beside the ``F.conv2d`` + relu + ``F.max_pool2d`` chain's
+    on bf16, the plain version's (batch 8), the bound and the FFMA
+    ceiling."""
+    from repro_torch.core.fuse_plan import FusedGroupPlan, _group_at
+    from repro_torch.core.netplan import network_layers
     from repro_torch.kernels import trim_conv2d_fused as tf
 
-    plan = FusedGroupPlan.build("vgg16", n=n, dtype_bytes=2)
-    print(f"bf16 fused plan, VGG-16 batch {n}: {plan.describe()}")
+    name = "vgg16" if net == "VGG-16" else "alexnet"
+    plan = FusedGroupPlan.build(name, n=n, dtype_bytes=2)
+    print(f"bf16 fused plan, {net} batch {n}: {plan.describe()}")
     if not plan.fused_groups:
-        raise AssertionError("the bf16 VGG-16 plan fuses no group")
+        raise AssertionError(f"the bf16 {net} plan fuses no group")
+    groups = list(plan.fused_groups)
+    if net == "AlexNet" and not any(g.start == 2 for g in groups):
+        # conv3..conv4, the group bf16 AlexNet serving ran before PR 32's
+        # plan (at its tile then), held to its chain as well
+        groups.append(_group_at(tuple(network_layers(name)), 2, 2, n, 4,
+                                13, 2))
     gen = torch.Generator(device="cuda").manual_seed(280 + n)
     bf = torch.bfloat16
     rows = []
-    for g in plan.fused_groups:
+    for g in groups:
         s0 = g.stages[0]
+        routes = [lay.route for lay in g.layouts]
         x = torch.randn((n, s0.h_in, s0.w_in, s0.cin), generator=gen,
                         device="cuda").to(bf)
         ws = [(torch.randn(st.weight_shape, generator=gen, device="cuda")
@@ -5129,11 +5251,11 @@ def check_bf16_fused(torch, n: int = 8) -> list:
         torch.cuda.synchronize()
         ulps = bf16_ulps(torch, fused, plain)
         if fused.dtype != bf or not torch.equal(fused, chain):
-            raise AssertionError(f"bf16 fused {g.label}: the group and its "
-                                 "bf16 per-layer chain differ bitwise")
-        if not ulps <= BF16_ULPS:
-            raise AssertionError(f"bf16 fused {g.label}: {ulps} ulps from "
-                                 "the plain version")
+            raise AssertionError(f"bf16 fused {net} {g.label}: the group and "
+                                 "its bf16 per-layer chain differ bitwise")
+        if "mma" not in routes and not ulps <= BF16_ULPS:
+            raise AssertionError(f"bf16 fused {net} {g.label}: {ulps} ulps "
+                                 "from the plain version")
         xl = x.permute(0, 3, 1, 2).contiguous()
         wl = [w.permute(3, 2, 0, 1).contiguous() for w in ws]
         with torch.inference_mode():
@@ -5142,21 +5264,29 @@ def check_bf16_fused(torch, n: int = 8) -> list:
                  "chain": time_graph_ms(
                      torch, lambda: tf.reference_chain(x, ws, bs, **kw)),
                  "library": time_graph_ms(
-                     torch, lambda: library_chain(torch, xl, wl, bs, g)),
-                 "plain": time_ms(torch, lambda: tf.trim_conv2d_fused_plain(
-                     x, ws, bs, **kw), reps=1)}
-        row = dict(group=g.label, ulps=ulps,
+                     torch, lambda: library_chain(torch, xl, wl, bs, g))}
+            t["plain"] = time_ms(torch, lambda: tf.trim_conv2d_fused_plain(
+                x, ws, bs, **kw), reps=1) if n == 8 else None
+        row = dict(group=g.label, routes=routes, ulps=ulps,
                    err=(fused.float() - plain.float()).abs().max().item(),
-                   **t, **bf16_bound(g.flops, g.min_bytes()))
+                   tiles=g.n_tiles, **t,
+                   **bf16_bound(g.flops, g.min_bytes()))
         rows.append(row)
-        print(f"  bf16 fused {g.label:13s} T={g.strip_rows} B={g.band_cols} "
-              f"blocks {g.n_tiles} smem {g.smem_bytes}: == chain True, "
-              f"{ulps:.1f} ulps from plain; fused {t['fused']:.4f} ms, "
-              f"chain {t['chain']:.4f}, plain {t['plain']:.3f}, F.conv2d "
-              f"chain {t['library']:.4f}, bound {row['bound']:.4f} "
-              f"({row['by']}), FFMA ceiling {row['ffma']:.4f}")
+        plain_ms = "-" if t["plain"] is None else f"{t['plain']:.3f}"
+        print(f"  bf16 fused {g.label:14s} {'/'.join(routes):14s} "
+              f"T={g.strip_rows} B={g.band_cols} blocks {g.n_tiles} smem "
+              f"{g.smem_bytes}: == chain True, {ulps:.1f} ulps from plain; "
+              f"fused {t['fused']:.4f} ms, chain {t['chain']:.4f}, plain "
+              f"{plain_ms}, F.conv2d chain {t['library']:.4f}, bound "
+              f"{row['bound']:.4f} ({row['by']}), FFMA ceiling "
+              f"{row['ffma']:.4f}")
         del x, ws, bs, fused, chain, plain, xl, wl
     torch.cuda.empty_cache()
+    print(f"bf16 fused, {net} batch {n}, sums: fused "
+          f"{sum(r['fused'] for r in rows):.4f} ms, chains "
+          f"{sum(r['chain'] for r in rows):.4f} ms, F.conv2d chains "
+          f"{sum(r['library'] for r in rows):.4f} ms, bound "
+          f"{sum(r['bound'] for r in rows):.4f} ms")
     return rows
 
 
@@ -5214,13 +5344,17 @@ def serve_bf16(torch, net: str) -> dict:
 
 
 def bf16_phase(torch) -> dict:
-    """Phase 33 (module docstring): the bf16 kernel checks and tables,
-    then bf16 serving of full-width VGG-16 and AlexNet; the launches of
-    the three bf16 entries on the serving paths."""
-    out = {"rows": {n: check_bf16_convs(torch, "VGG-16", n) for n in (8, 1)},
+    """Phase 33 (module docstring): the bf16 SASS check, the bf16 kernel
+    checks and tables, then bf16 serving of full-width VGG-16 and AlexNet;
+    the launches of the three bf16 entries on the serving paths."""
+    out = {"sass": bf16_sass_check(),
+           "rows": {n: check_bf16_convs(torch, "VGG-16", n) for n in (8, 1)},
            "alex": {n: check_bf16_convs(torch, "AlexNet", n)
                     for n in (8, 1)},
-           "fused": check_bf16_fused(torch, 8)}
+           "fused": check_bf16_fused(torch, "VGG-16", 8),
+           "fused1": check_bf16_fused(torch, "VGG-16", 1),
+           "alex_fused": {n: check_bf16_fused(torch, "AlexNet", n)
+                          for n in (8, 1)}}
     launches = dict.fromkeys(("carry_bf16", "halo_bf16", "fused_bf16"), 0)
     for net in ("VGG-16", "AlexNet"):
         sv = out[net] = serve_bf16(torch, net)
@@ -5234,7 +5368,6 @@ def bf16_phase(torch) -> dict:
     print(f"bf16: launches of the bf16 entries on the serving paths "
           f"{launches}")
     return out
-
 
 
 def check_bf16_conv1d(torch) -> list:
@@ -5614,12 +5747,37 @@ def lm_bf16_phase(torch, f32: dict) -> dict:
     return out
 
 
+def device_share(torch, fn, n: int = 2) -> dict:
+    """``fn``'s device time against its host time, over ``n`` calls
+    after a warm-up (``torch.profiler``): device ms and wall ms a call
+    (host clock to synchronize), kernels a call, and the five kernels of
+    most device time (ms a call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3 / n
+    top = sorted(by_name.items(), key=lambda t: -t[1])[:5]
+    return dict(device_ms=sum(e.device_time for e in kernels) / 1e3 / n,
+                wall_ms=wall / n, kernels=len(kernels) / n, top=top)
+
+
 def train_bf16(torch, f32: dict) -> dict:
     """Phase 35 (module docstring): full-width VGG-16 drawn in bf16 and
     trained through ``launch.train_cnn.train_step``; ``f32`` is the train
     phase's ``{"times", "peak"}`` of this call.  Returns the launches of
-    the timed steps, ms a step, the peak, the dw leaves' largest ulps from
-    the plain step and each leaf's distance from the f32 step."""
+    the timed steps, ms a step, the peak and each step-1 leaf's distance
+    from the f32 step on the same values (on the kernels, on the plain
+    versions)."""
     from repro_torch.core.model import vgg16_layers
     from repro_torch.kernels import ops
     from repro_torch.kernels import trim_conv2d as tc
@@ -5645,9 +5803,14 @@ def train_bf16(torch, f32: dict) -> dict:
               for k, v in model.tree().items()}
     names = [f"{k}.{n}" for k in sorted(params) for n in sorted(params[k])]
 
-    # step 1's gradients on the kernels and with every conv kernel swapped
-    # for its plain version: the forward and dx entries are bitwise their
-    # plain versions, so the wgrad sees the same inputs either way
+    # step 1's gradients on the kernels, on the plain versions (every conv
+    # kernel swapped out: the fmaf chain) and on the f32 kernels for the
+    # same values widened.  VGG-16's conv2-13 and their input gradients
+    # run on the bf16 tensor cores (route mma), whose additions the fmaf
+    # chain does not repeat, so no leaf is bitwise the plain step's; each
+    # leaf of the kernels' step (and the loss) lies at most twice as far
+    # from the f32 step as the plain step's does, plus one bf16 ulp of the
+    # leaf's max: the plain step's distance is the bf16 arithmetic's own
     x0, y0 = bf_batches[0]
     tc.reset_launch_counts()
     loss_k, g_k = grads(model.apply_tree, params, x0, y0)
@@ -5664,59 +5827,39 @@ def train_bf16(torch, f32: dict) -> dict:
     if any(tc.LAUNCHES.values()):
         raise AssertionError(f"train_bf16: the plain step launched "
                              f"{dict(tc.LAUNCHES)}")
-    worst_ulps, beyond = 0.0, {}
-    for name, a, b in zip(names, g_k, g_p):
-        if a.dtype != torch.bfloat16:
+    p32 = {k: {n: t.float() for n, t in v.items()}
+           for k, v in params.items()}
+    loss32, g32 = grads(model.apply_tree, p32, x0.float(), y0)
+    torch.cuda.synchronize()
+
+    def dist(a, b):
+        return (a.float() - b).abs().max().item() / max(
+            b.abs().max().item(), 2.0 ** -126)
+    rows = [("loss", loss_k, loss_p, loss32)] + list(zip(names, g_k, g_p,
+                                                         g32))
+    dist_k, dist_p, dist_kp = {}, {}, {}
+    for name, a, b, f in rows:
+        if name != "loss" and a.dtype != torch.bfloat16:
             raise AssertionError(f"train_bf16: {name}'s gradient is "
                                  f"{a.dtype}")
-        if name.startswith("conv") and name.endswith(".w"):
-            # each side is its f32 sums rounded once; the sums (up to
-            # 401,408 products at conv1, much cancellation) part by the
-            # f32 route's tolerance, which can exceed a small element's
-            # bf16 ulp
-            a64, b64 = a.double(), b.double()
-            m = torch.maximum(a64.abs(), b64.abs()).clamp_min(2.0 ** -126)
-            ulp = torch.pow(2.0, torch.floor(torch.log2(m)) - 7)
-            diff = (a64 - b64).abs()
-            ulps = (diff / ulp).max().item()
-            worst_ulps = max(worst_ulps, ulps)
-            beyond[name] = int((diff > ulp).sum())
-            lim = ulp + WGRAD_TOLERANCE * b64.abs().max()
-            if not bool((diff <= lim).all()):
-                raise AssertionError(
-                    f"train_bf16: {name} lies {ulps} bf16 ulps from the "
-                    "plain step's, beyond one ulp plus WGRAD_TOLERANCE "
-                    "of its max")
-        elif not torch.equal(a, b):
-            raise AssertionError(f"train_bf16: {name} differs from the "
-                                 "plain step's (forward and dx are bitwise "
-                                 "their plain versions)")
-    if not torch.equal(loss_k, loss_p):
-        raise AssertionError("train_bf16: the step-1 loss differs from the "
-                             "plain step's")
-    print(f"train_bf16: step-1 loss {loss_k.item():.6f}; gradients against "
-          f"the same step on the plain versions ({plain_s:.1f} s): every "
-          f"dw within one bf16 ulp plus {WGRAD_TOLERANCE:g} of its max "
-          f"(worst {worst_ulps:.1f} ulps; elements beyond one ulp: "
-          + ", ".join(f"{n} {c}" for n, c in beyond.items() if c)
-          + f"), every other leaf and the loss bitwise; launches "
-          f"{launch_counts(carry_bf16=25, wgrad_bf16=13)}")
-    del g_p
-
-    # context: each leaf's distance from the f32 step on the same draws
-    twin = TrimCNN.random(topo, n_classes=1000, seed=0, device="cuda",
-                          trainable=True)
-    p32 = {k: {n: t.detach() for n, t in v.items()}
-           for k, v in twin.tree().items()}
-    loss32, g32 = grads(twin.apply_tree, p32, *batches[0])
-    dist = {name: (a.float() - b).abs().max().item() / b.abs().max().item()
-            for name, a, b in zip(names, g_k, g32)}
-    worst = sorted(dist.items(), key=lambda t: -t[1])
-    print(f"train_bf16: step-1 gradients against the f32 step on the same "
-          f"draws (loss {loss32.item():.6f}), max|bf16 - f32| / max|f32| "
-          "per leaf (printed, not checked): " + ", ".join(
-              f"{n} {d:.2e}" for n, d in worst))
-    del twin, p32, g32, g_k
+        dist_k[name], dist_p[name] = dist(a, f), dist(b, f)
+        dist_kp[name] = dist(a, b.float())
+        if not dist_k[name] <= 2 * dist_p[name] + 2.0 ** -8:
+            raise AssertionError(
+                f"train_bf16: {name} lies {dist_k[name]:.3e} of its max from "
+                f"the f32 step, the plain step {dist_p[name]:.3e}: beyond "
+                "twice that plus one bf16 ulp")
+    worst = sorted(dist_k, key=lambda n: -dist_k[n])
+    print(f"train_bf16: step-1 loss {loss_k.item():.6f} (plain "
+          f"{loss_p.item():.6f}, f32 on the same values "
+          f"{loss32.item():.6f}); launches "
+          f"{launch_counts(carry_bf16=25, wgrad_bf16=13)}; each leaf's "
+          "max|diff| / max|f32 step's| on the kernels (on the plain "
+          f"versions, {plain_s:.1f} s; kernels against plain): " + ", ".join(
+              f"{n} {dist_k[n]:.2e} ({dist_p[n]:.2e}; {dist_kp[n]:.2e})"
+              for n in worst) + " -- each within twice the plain step's "
+          "distance plus 2^-8")
+    del g_p, g32, p32, g_k
     torch.cuda.empty_cache()
 
     moments = adamw.init_moments(params, cfg)
@@ -5734,6 +5877,14 @@ def train_bf16(torch, f32: dict) -> dict:
                              "different parameters")
     ms = float(np.mean(times[1:]))
     f32_ms = float(np.mean(f32["times"][1:BF16_TRAIN_STEPS]))
+    # where a step's time goes: its kernels' device time against the host
+    share = device_share(torch, lambda: train_step(
+        *state0, 0, *bf_batches[0], apply_fn=model.apply_tree, cfg=cfg))
+    print(f"train_bf16: a profiled step (torch.profiler, 2 steps): device "
+          f"{share['device_ms']:.2f} ms of {share['wall_ms']:.2f} ms wall "
+          f"({100 * share['device_ms'] / share['wall_ms']:.1f}% busy), "
+          f"{share['kernels']:.0f} kernels a step; most device time: "
+          + "; ".join(f"{n[:60]} {t:.3f} ms" for n, t in share["top"]))
     print(f"train_bf16: VGG-16 full width in bf16, batch {TRAIN_BATCH}: "
           f"{ms:.1f} ms per step (mean of steps 2-{BF16_TRAIN_STEPS}, host "
           f"clock to synchronize; step 1 {times[0]:.1f} ms), peak device "
@@ -5743,7 +5894,8 @@ def train_bf16(torch, f32: dict) -> dict:
     del model, params, moments, state0, step1, again
     torch.cuda.empty_cache()
     return {"launches": launches, "ms": ms, "times": times, "peak": peak,
-            "f32_ms": f32_ms, "ulps": worst_ulps, "dist": dist}
+            "f32_ms": f32_ms, "dist": dist_k, "plain_dist": dist_p,
+            "share": share}
 
 
 def main() -> int:
@@ -5832,8 +5984,8 @@ def run(torch, args, cache_dir: str) -> int:
     torch.cuda.reset_peak_memory_stats()
     model = TrimCNN.random(vgg16_layers(), n_classes=1000, seed=0,
                            device="cuda")
-    carry_rows, carry_launches, carry_fw, _ = serve(REQUESTS, "carry",
-                                                    model, xs)
+    carry_rows, carry_launches, carry_fw, carry_s = serve(REQUESTS, "carry",
+                                                          model, xs)
     _, halo_launches, halo_fw, _ = serve(HALO_REQUESTS, "halo", model, xs,
                                          expect=carry_rows)
     # fused=True serves the plan's full-width groups, the rest per layer
@@ -6046,20 +6198,29 @@ def run(torch, args, cache_dir: str) -> int:
             # bf16 serving's and the train_bf16 phase's timed steps'
             "launches": (bf["launches"][f"{df}_bf16"]
                          + tb["launches"][f"{df}_bf16"]),
+            # against the plain version (the fmaf chain): route mma adds
+            # on the tensor cores in its own order (held to float64:
+            # max_f64_excess <= 0)
             "max_abs_err": max(r["err"] for r in b8 + b1 + ba8 + ba1),
             "max_ulps": max(r["ulps"] for r in b8 + b1 + ba8 + ba1),
+            "max_f64_excess": max(r["excess"] for r in b8 + b1 + ba8 + ba1
+                                  if r["excess"] is not None),
+            "mma_layers": sum(r["route"] == "mma" for r in b8),
             # sums over VGG-16's 13 layers at batch 8, CUDA graphs
             "ms": sum(r[df] for r in b8),
+            "f32_route_ms": sum(r["f32"] for r in b8),
             "plain_ms": sum(r["plain"] for r in b8),
             "bound_ms": sum(r["bound"] for r in b8),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "ffma_bound_ms": sum(r["ffma"] for r in b8),
             "library_ms": sum(r["library"] for r in b8),   # F.conv2d bf16
             "n1_ms": sum(r[df] for r in b1),
+            "n1_f32_route_ms": sum(r["f32"] for r in b1),
             "n1_bound_ms": sum(r["bound"] for r in b1),
             "n1_library_ms": sum(r["library"] for r in b1),
             # AlexNet's five convs at batch 8 (conv1: the K 11 tree)
             "alexnet_ms": sum(r[df] for r in ba8),
+            "alexnet_f32_route_ms": sum(r["f32"] for r in ba8),
             "alexnet_bound_ms": sum(r["bound"] for r in ba8),
             "alexnet_library_ms": sum(r["library"] for r in ba8),
         })
@@ -6100,6 +6261,8 @@ def run(torch, args, cache_dir: str) -> int:
         "source": "src/repro_torch/kernels/csrc/trim_conv2d_fused.cu",
         "replaces": "src/repro/kernels/trim_conv2d_fused.py:102",
         "launches": bf["launches"]["fused_bf16"],
+        # against the plain version (the fmaf chain; equal to the bf16
+        # per-layer chain bitwise)
         "max_abs_err": max(r["err"] for r in bfu),
         "max_ulps": max(r["ulps"] for r in bfu),
         # the bf16 plan's groups of full-width VGG-16 at batch 8
@@ -6112,6 +6275,13 @@ def run(torch, args, cache_dir: str) -> int:
         "library_ms": None,
         "chain_ms": sum(r["chain"] for r in bfu),
         "library_chain_ms": sum(r["library"] for r in bfu),
+        "groups": len(bfu),
+        # the plan's groups at batch 1
+        "n1_ms": sum(r["fused"] for r in bf["fused1"]),
+        "n1_chain_ms": sum(r["chain"] for r in bf["fused1"]),
+        # AlexNet's bf16 plan's groups at batch 8
+        "alexnet_ms": sum(r["fused"] for r in bf["alex_fused"][8]),
+        "alexnet_chain_ms": sum(r["chain"] for r in bf["alex_fused"][8]),
     })
     a = next(r for r in arows if r["name"] == "a_prefill")
     ac = next(r for r in arows if r["name"] == "c_rgemma")
@@ -6281,9 +6451,11 @@ def run(torch, args, cache_dir: str) -> int:
           f"one launch at case (a), the prefill's shape (one layer); its "
           f"launches are the {lm['launches']} of the two timed full-width "
           f"prefill forwards")
-    for net in ("VGG-16", "AlexNet"):
+    for net, f32_s in (("VGG-16", carry_s), ("AlexNet", alex["carry_s"])):
         sv = bf[net]
-        print(f"bf16 serving, {net}: carry p50 "
+        print(f"bf16 serving, {net}: f32 (the serve phases of this call) "
+              f"carry p50 {f32_s['p50_s'] * 1e3:.3f} ms p99 "
+              f"{f32_s['p99_s'] * 1e3:.3f} ms; bf16 carry p50 "
               f"{sv['carry_s']['p50_s'] * 1e3:.3f} ms p99 "
               f"{sv['carry_s']['p99_s'] * 1e3:.3f} ms "
               f"{sv['carry_s']['throughput_rps']:.1f} req/s; fused p50 "
@@ -6296,10 +6468,12 @@ def run(torch, args, cache_dir: str) -> int:
               f" in {sv['halo_fw']}, fused {sv['fused']['fused_bf16']} + "
               f"carry {sv['fused']['carry_bf16']} in {sv['fused_fw']}")
     print("bf16 kernel times (trim_conv2d_*_bf16: sums over the 13 VGG-16 "
-          "layers at batch 8, n1_*: at batch 1, alexnet_*: AlexNet's five "
-          "convs at batch 8; trim_conv2d_fused_bf16: the bf16 plan's groups "
-          "at batch 8, chain_ms their bf16 per-layer chains); bounds at "
-          "989 TFLOP/s bf16 or 3.35 TB/s, ffma_bound_ms at 67 TFLOP/s; "
+          "layers at batch 8, f32_route_ms the f32 entry on the same "
+          "values, n1_*: at batch 1, alexnet_*: AlexNet's five convs at "
+          "batch 8; trim_conv2d_fused_bf16: the bf16 plan's groups at batch "
+          "8, chain_ms their bf16 per-layer chains, n1_*: the plan's groups "
+          "at batch 1, alexnet_*: AlexNet's at batch 8); bounds at 989 "
+          "TFLOP/s bf16 or 3.35 TB/s, ffma_bound_ms at 67 TFLOP/s; "
           "launches from bf16 serving of full-width VGG-16 and AlexNet")
     qvgg1 = [r for r in qrows1 if r["vgg"]]
     print(f"int8 kernel times: sums over the 13 VGG-16 layers at batch 8 "

@@ -28,7 +28,12 @@ size a TPU VMEM tile, these a Hopper strip and C_out tile.  Schema
 
 ``tile_h`` null is the planner's strip for the record's C_out tile and
 dataflow (the int8 planner picks the strip and the warp layout together,
-so its strip is not a knob that replays on its own).
+so its strip is not a knob that replays on its own).  A ``bfloat16``
+record also holds the layer's bf16 route (``"route": "mma"|"ffma"``,
+``conv_plan.bf16_route``), a fused one its stages' (``"routes"``); a
+record without it predates the tensor-core route (it was tuned for the
+fmaf chain, route ``"ffma"``) and is read only where the route is still
+``"ffma"``: it is never replayed as an ``mma`` plan.
 
 Keys are ``<op>:n..h..w..cin..cout..k<kh>x<kw>s..p<t>.<b>.<l>.<r>g..:
 <dtype>:<backend>``: the problem as the port's kernel sees it — the
@@ -66,12 +71,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import conv_plan
-from repro_torch.core.conv_plan import (CONV_MAX_TILE_COUT, DATAFLOWS,
-                                        Q8_TILE_COUTS, SMEM_PER_BLOCK, SMS,
-                                        WGRAD_TILE_ROWS, ConvPlan,
-                                        WeightGradPlan, _q8_strip_clocks,
+from repro_torch.core.conv_plan import (BF16_TILE_COUTS, CONV_MAX_TILE_COUT,
+                                        DATAFLOWS, Q8_TILE_COUTS,
+                                        SMEM_PER_BLOCK, SMS, WGRAD_TILE_ROWS,
+                                        ConvPlan, WeightGradPlan,
                                         _wgrad_min_rows, _wgrad_seconds,
-                                        input_grad_geometry, normalize_pad)
+                                        bf16_route, input_grad_geometry,
+                                        mma_strip_clocks, normalize_pad)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ref import conv_pads
 
@@ -331,6 +337,12 @@ def _checked_record(key, x_shape, w_shape, stride, pad, groups, dtype,
     if not _valid_record(rec, stride):
         _reject(key, f"bad shape/type/knobs: {rec!r}", path)
         return None
+    if dtype == "bfloat16":
+        route = bf16_route(int(w_shape[2]), groups)
+        if rec.get("route", "ffma") != route:
+            _reject(key, f"a record of bf16 route {rec.get('route', 'ffma')!r}"
+                         f" for a layer on route {route!r}", path)
+            return None
     try:
         plan = ConvPlan.build(x_shape, w_shape, stride=stride, pad=pad,
                               groups=groups, tile_h=rec["tile_h"],
@@ -432,7 +444,8 @@ def _in_planner_space(plan: ConvPlan, base: ConvPlan) -> bool:
         return False
     cpg = plan.cout_per_group
     if plan.tensor_cores:
-        tiles = {min(cpg, c) for c in Q8_TILE_COUTS}
+        tiles = {min(cpg, c) for c in (
+            BF16_TILE_COUTS if plan.dtype_bytes == 2 else Q8_TILE_COUTS)}
         natural = min(plan.h_out, plan.slots // plan.tile_w)
         return plan.tile_cout in tiles and plan.th_out == natural
     return plan.tile_cout in {min(cpg, CONV_MAX_TILE_COUT),
@@ -452,8 +465,9 @@ def _model_score(plan: ConvPlan, base: ConvPlan) -> tuple:
     the int8 dp4a route) the busiest SM's strips, then the window pixels
     read per output (``_best_tile``); the int8 tensor-core routes whether
     the blocks fill the SMs, then the clocks of the latency model
-    (``_q8_strip_clocks``), then the window pixels per output element
-    (``_build_q8``); then the planner's tie-breaks (wider band, larger
+    (``mma_strip_clocks``), then the window pixels per output element
+    (``_build_q8``; the bf16 mma route's ``_build_bf16_mma`` alike); then
+    the planner's tie-breaks (wider band, larger
     C_out tile, shorter strip).  Then the plan's own HBM bytes (carry
     re-reads fewer rows than halo), then fewer blocks, then carry.  Unlike
     JAX, no tie goes to halo: the TPU grid's parallel axes argue for it,
@@ -462,7 +476,7 @@ def _model_score(plan: ConvPlan, base: ConvPlan) -> tuple:
         else dataclasses.replace(plan, dataflow="carry")
     if plan.tensor_cores:
         head = (c.blocks < SMS,
-                c.rounds * c.strips_per_segment * _q8_strip_clocks(c),
+                c.rounds * c.strips_per_segment * mma_strip_clocks(c),
                 c.window_rows * c.window_cols / (c.positions * c.tile_cout))
     else:
         head = (-(-c.blocks // SMS) * c.strips_per_segment,
@@ -474,10 +488,11 @@ def _model_score(plan: ConvPlan, base: ConvPlan) -> tuple:
 
 def _as_record(knobs: dict, plan: ConvPlan, score: tuple, *, source: str,
                measured_us: float | None = None) -> dict:
+    route = {"route": plan.bf16_route} if plan.dtype_bytes == 2 else {}
     return dict(knobs, source=source,
                 model_key=[float(v) for v in score],
                 measured_us=measured_us, tile_w=plan.tile_w,
-                segments=plan.segments, blocks=plan.blocks)
+                segments=plan.segments, blocks=plan.blocks, **route)
 
 
 def _operands(xs, ws, device: torch.device, dtype: str):
@@ -896,6 +911,8 @@ def tune_fused(layers, *, start: int = 0, pools=None, n: int = 1,
                   depth=best.depth, source="model",
                   hbm_total=best.hbm_bytes()["total"],
                   executed_flops=best.executed_flops, measured_us=None)
+    if dtype == "bfloat16":
+        record["routes"] = [lay.route for lay in best.layouts]
     if write:
         store(fused_key(best.signature, n=n, dtype=dtype, device=dev),
               record, path)

@@ -29,9 +29,13 @@ all ``Cin/groups`` channels:
   :data:`SMEM_PER_BLOCK`.
 
 ``dtype_bytes`` picks the kernel: 4 is the f32 kernel, 2 its bf16
-instance (bf16 operands, window, weight ring and output, the same f32
-``fmaf`` chain; 16-byte copies carry 8 channels, so its padded pitch is
-``Cin/g + 8``), 1 the int8 kernel of ``kernels/csrc/trim_conv2d_q8.cu``
+entries (:class:`BF16ConvPlan`: bf16 operands, window, weight ring and
+output; route ``"mma"`` where Cin/g is a multiple of 16, the bf16 tensor
+cores in the k-order of ``kernels/csrc/bf16_mma.cuh``, planned like the
+int8 mma route by :func:`_build_bf16_mma`; route ``"ffma"`` elsewhere,
+the same f32 ``fmaf`` chain; :func:`bf16_route`; 16-byte copies carry 8
+channels, so the padded pitch is ``Cin/g + 8``), 1 the int8 kernel of
+``kernels/csrc/trim_conv2d_q8.cu``
 (int8 operands, f32 output), whose window is held in bytes.  The int8
 kernel has three routes (:attr:`ConvPlan.route`): ``"mma"`` (Cin/g a
 multiple of 16) and ``"im2col"`` (small Cin, groups == 1) run
@@ -47,8 +51,9 @@ the rectangular sub-kernels of the kernel tiling (``core/tiling.py``: an
 plan stays square.
 
 The forward kernel's constants are the ``CONV_*`` values below; they
-mirror the ``constexpr`` values at the top of ``trim_conv2d.cu``; the
-int8 kernel's own are ``Q8_*``.  The fused kernel's are ``FUSED_*`` in
+mirror the ``constexpr`` values at the top of ``trim_conv2d.cu``; its bf16
+mma route's are ``BF16_MMA_*`` (``trim_conv2d.cu`` and ``bf16_mma.cuh``);
+the int8 kernel's own are ``Q8_*``.  The fused kernel's are ``FUSED_*`` in
 ``core/fuse_plan.py``.
 """
 
@@ -103,6 +108,32 @@ Q8_ROUTES = ("mma", "im2col", "dp4a")
 Q8_KSTEP_CLOCKS = 900.0
 Q8_EPILOGUE_CLOCKS = 2000.0
 Q8_TILE_COUTS = (128, 64, 32)   # C_out tiles the int8 plan tries
+# The bf16 instance of the forward kernel (trim_conv2d.cu) has two routes
+# (bf16_route): "mma" on the bf16 tensor cores, whose k-order is
+# csrc/bf16_mma.cuh's (its kBf16* constants), and "ffma", the f32 kernel's
+# fmaf chain on bf16.  Route mma (kWarps, kMma* of trim_conv2d.cu):
+BF16_ROUTES = ("ffma", "mma")   # the bf16 entries' route codes, in order
+BF16_MMA_M = 16              # positions of one m16n8k16 fragment (kBf16MmaM)
+BF16_MMA_N = 8               # output channels of one fragment (kBf16MmaN)
+BF16_MMA_K = 16              # input channels of one k-step (kBf16MmaK)
+BF16_MMA_WARP_N = 32         # output channels a warp: 4 n8 fragments
+BF16_MMA_ROW_PAD = 8         # bf16 past each weight-stage row (kBf16RowPad)
+BF16_MMA_WARPS = CONV_THREADS // WARP   # warps a block (kWarps)
+BF16_MMA_MAX_M_FRAGS = 4     # m16 fragments a warp at most (kMmaMaxMFrags),
+BF16_MMA_M_FRAGS_TWO = 2     # ... two blocks an SM (kMmaMFragsTwo)
+BF16_MMA_STAGE_STEPS = 4     # k-steps of one weight stage (kMmaStageSteps)
+BF16_MMA_STAGES = 3          # the weight ring's stages (kMmaStages)
+BF16_MMA_STAGING_PITCH = BF16_MMA_WARP_N + 8   # bf16 a staging row
+# its plan's clock model, a ranking of tiles like the int8 one's: one
+# k-step of a warp, plus the block's weight copies it waits on (per warp
+# along C_out: 32 channels of the stage), and one m16 fragment's epilogue.
+# The copy term is fitted to the tuner's candidate tiles of VGG-16's and
+# AlexNet's mma layers at N 1-8 timed on the card
+# (tools/bf16_tile_sweep.py: a flat optimum from 225 to 450)
+BF16_MMA_KSTEP_CLOCKS = 900.0
+BF16_MMA_COPY_CLOCKS = 300.0
+BF16_MMA_EPILOGUE_CLOCKS = 2000.0
+BF16_TILE_COUTS = (128, 64, 32)   # C_out tiles the mma plan tries
 DATAFLOWS = ("carry", "halo")
 DTYPE_BYTES = {4: "float32", 2: "bfloat16", 1: "int8"}
 
@@ -191,6 +222,19 @@ def q8_route(cin_per_group: int, groups: int, k: int) -> str:
     if groups == 1 and q8_kpad(k, cin_per_group) <= Q8_IM2COL_MAX_K:
         return "im2col"
     return "dp4a"
+
+
+def bf16_route(cin_per_group: int, groups: int = 1) -> str:
+    """The bf16 route of a conv layer, a function of its geometry alone:
+    ``"mma"`` (the bf16 tensor cores, the k-order of ``csrc/bf16_mma.cuh``)
+    where Cin/g is a multiple of :data:`BF16_MMA_K` (every k-step a run of
+    16 channels of one tap), else ``"ffma"`` (the f32 kernel's fmaf chain
+    on bf16: the Cin-3 first layers, depthwise and other narrow groups).
+    ``ConvPlan.build(dtype_bytes=2)``, the input gradient's plan, the
+    fused plan and the tuner all take the route from here; ``groups``
+    only names the layer (the route reads Cin/g)."""
+    del groups
+    return "mma" if cin_per_group % BF16_MMA_K == 0 else "ffma"
 
 
 def _q8_mma_pitches(cin_per_group: int) -> list:
@@ -602,6 +646,98 @@ class ConvPlan:
                     total=in_bytes + w_bytes + out_bytes)
 
 
+@dataclass(frozen=True)
+class BF16ConvPlan(ConvPlan):
+    """The :class:`ConvPlan` of the bf16 entries (``trim_conv2d_carry_bf16``
+    / ``_halo_bf16``), from ``ConvPlan.build(..., dtype_bytes=2)``.  Its
+    kernel route is :attr:`bf16_route` (:func:`bf16_route` of the layer):
+
+    * ``"mma"`` — the implicit GEMM on the bf16 tensor cores: 8 warps of
+      ``warps_m x warps_n`` (``warps_k`` 1: no split of the k axis), each
+      with ``m_frags`` m16 x 4 n8 fragments; :attr:`k_steps` mma k-steps a
+      strip (``KH x KW`` taps x ``Cin/g / 16``), :attr:`weight_stages` of
+      :data:`BF16_MMA_STAGE_STEPS` each; the window's columns phase-split
+      (:attr:`col_slots`), its pitch ``Cin/g + 8`` (an odd count of 16-byte
+      quads) where it fits, its rows padded (:attr:`row_elems`).
+    * ``"ffma"`` — the f32 kernel's threads and tiles on bf16 (the warp
+      fields 0), the plan :class:`ConvPlan` made for it before.
+
+    ``route`` stays ``"bf16"`` (the element type, as ``"f32"``); a class of
+    its own keeps the f32 and int8 plans' fields and properties as they
+    were."""
+
+    def __post_init__(self):
+        if self.dtype_bytes != 2:
+            raise ValueError("BF16ConvPlan plans the bf16 entries "
+                             "(dtype_bytes=2)")
+        mma = self.bf16_route == "mma"
+        warps = (self.warps_n, self.warps_k, self.m_frags)
+        if not mma and warps != (0, 0, 0):
+            raise ValueError(f"the bf16 ffma route takes no warps, got "
+                             f"{warps}")
+        if mma and not (self.warps_n in (1, 2, 4) and self.warps_k == 1
+                        and 1 <= self.m_frags <= BF16_MMA_MAX_M_FRAGS
+                        and self.tile_cout
+                        <= BF16_MMA_WARP_N * self.warps_n):
+            raise ValueError(
+                f"the bf16 mma route takes warps_n in (1, 2, 4), warps_k 1, "
+                f"1..{BF16_MMA_MAX_M_FRAGS} m16 fragments and tile_cout <= "
+                f"{BF16_MMA_WARP_N} x warps_n; got warps_n={self.warps_n}, "
+                f"warps_k={self.warps_k}, m_frags={self.m_frags}, "
+                f"tile_cout={self.tile_cout}")
+        super().__post_init__()
+
+    @property
+    def bf16_route(self) -> str:
+        return bf16_route(self.cin_per_group, self.groups)
+
+    @property
+    def tensor_cores(self) -> bool:
+        return self.bf16_route == "mma"
+
+    @property
+    def k_steps(self) -> int:
+        """mma: the k-steps of one strip, each 16 channels of one tap in
+        the order of ``csrc/bf16_mma.cuh``; ffma: 0."""
+        if not self.tensor_cores:
+            return 0
+        return self.kh * self.kw * self.cin_per_group // BF16_MMA_K
+
+    @property
+    def weight_stages(self) -> int:
+        """mma: weight-ring stages a strip; ffma: 0."""
+        return -(-self.k_steps // BF16_MMA_STAGE_STEPS)
+
+    @property
+    def row_elems(self) -> int:
+        """mma: elements of one window ring row, the columns plus the
+        fewest 16-byte quads that make the next output row continue this
+        one's bank-quad sequence (the int8 route's rule,
+        :attr:`ConvPlan.row_bytes`); ffma: the columns."""
+        cols = self.col_slots * self.cin_stride
+        if not self.tensor_cores:
+            return cols
+        quads = self.cin_stride // 8
+        return cols + 8 * next(
+            (d for d in range(8)
+             if (self.stride * (cols // 8 + d) - self.tile_w * quads) % 8
+             == 0), 0)
+
+    @property
+    def row_bytes(self) -> int:
+        return 2 * self.row_elems
+
+    def _smem(self, ring_rows: int) -> int:
+        if not self.tensor_cores:
+            return super()._smem(ring_rows)
+        # window ring, weight ring, epilogue staging (bf16)
+        window = -(-ring_rows * self.row_elems // 8) * 8
+        stages = (BF16_MMA_STAGES * BF16_MMA_STAGE_STEPS * BF16_MMA_K
+                  * (BF16_MMA_WARP_N * self.warps_n + BF16_MMA_ROW_PAD))
+        staging = BF16_MMA_WARPS * BF16_MMA_M * BF16_MMA_STAGING_PITCH
+        return 2 * (window + stages + staging)
+
+
 @functools.lru_cache(maxsize=4096)
 def _build(x_shape, w_shape, stride, pads, groups, tile_h, tile_cout,
            dataflow, dtype_bytes) -> ConvPlan:
@@ -637,6 +773,9 @@ def _build(x_shape, w_shape, stride, pads, groups, tile_h, tile_cout,
                 dtype_bytes=dtype_bytes)
     if dtype_bytes == 1 and q8_route(cin_pg, groups, kh) != "dp4a":
         return _build_q8(base, h_out, w_out, tile_h, tile_cout)
+    if dtype_bytes == 2 and bf16_route(cin_pg, groups) == "mma":
+        return _build_bf16_mma(base, h_out, w_out, tile_h, tile_cout)
+    cls = BF16ConvPlan if dtype_bytes == 2 else ConvPlan
     if tile_cout is not None:
         tiles = [min(tile_cout, cout_pg)]
     else:   # a warp along C_out, or half a warp and twice the positions
@@ -647,7 +786,7 @@ def _build(x_shape, w_shape, stride, pads, groups, tile_h, tile_cout,
         best = None
         for tc in tiles:
             best = _best_tile(best, h_out, w_out, kw, stride, pitch, tile_h,
-                              dict(base, tile_cout=tc))
+                              dict(base, tile_cout=tc), cls)
         if best is not None:
             return best[1]
     raise ValueError(
@@ -655,14 +794,17 @@ def _build(x_shape, w_shape, stride, pads, groups, tile_h, tile_cout,
         f"memory at K={kh}x{kw}, Cin/groups={cin_pg}")
 
 
-def _best_tile(best, h_out, w_out, kw, stride, pitch, tile_h, base):
+def _best_tile(best, h_out, w_out, kw, stride, pitch, tile_h, base,
+               cls=None):
     """The better of ``best`` and every (band, strip) of one C_out tile
     and channel pitch, as ``(key, plan)``: the fewest strips the busiest
     SM walks (each a full pass of the slots: 8,192 outputs whatever the
     C_out tile, so ragged edges, idle slots and SMs left without a block
     all count), then the fewest window pixels read per output, then the
-    widest band."""
-    probe = ConvPlan(tile_h=stride, tile_w=1, cin_stride=pitch, **base)
+    widest band.  ``cls``: the plan class (ConvPlan or, for bf16,
+    :class:`BF16ConvPlan`)."""
+    cls = cls or ConvPlan
+    probe = cls(tile_h=stride, tile_w=1, cin_stride=pitch, **base)
     slots, kc = probe.slots, probe.carry_rows
     for tile_w in range(1, min(w_out, slots, CONV_MAX_TILE_W) + 1):
         if tile_h is not None:
@@ -678,8 +820,8 @@ def _best_tile(best, h_out, w_out, kw, stride, pitch, tile_h, base):
                            probe.threads_cout,
                            probe.dtype_bytes) > SMEM_PER_BLOCK:
                 continue
-            plan = ConvPlan(tile_h=th_out * stride, tile_w=tile_w,
-                            cin_stride=pitch, **base)
+            plan = cls(tile_h=th_out * stride, tile_w=tile_w,
+                       cin_stride=pitch, **base)
             steps = -(-plan.blocks // SMS) * plan.strips_per_segment
             read = plan.window_rows * cols / plan.positions
             key = (steps, read, -tile_w)
@@ -763,6 +905,76 @@ def _build_q8(base: dict, h_out: int, w_out: int, tile_h, tile_cout
     raise ValueError(
         f"no strip of tile_h={tile_h} fits {SMEM_PER_BLOCK} B of shared "
         f"memory at K={k}, Cin/groups={cin_pg} (int8 {route} route)")
+
+
+def mma_strip_clocks(p: ConvPlan) -> float:
+    """SM clocks of one strip of one block of a tensor-core route (int8
+    mma / im2col, bf16 mma) under its plan's latency model: the warp's
+    k-steps (bf16: each with the weight copies of the block's
+    ``warps_n`` x 32 channels), then its m16 fragments' epilogues."""
+    if p.dtype_bytes == 2:
+        return (p.k_steps * (BF16_MMA_KSTEP_CLOCKS
+                             + BF16_MMA_COPY_CLOCKS * p.warps_n)
+                + p.m_frags * BF16_MMA_EPILOGUE_CLOCKS)
+    return _q8_strip_clocks(p)
+
+
+def _build_bf16_mma(base: dict, h_out: int, w_out: int, tile_h, tile_cout
+                    ) -> ConvPlan:
+    """The bf16 mma route's plan, :func:`_build_q8`'s search without a
+    split of the k axis: for each C_out tile (the given one, else
+    :data:`BF16_TILE_COUTS` capped at Cout/g; ``warps_n`` the fewest warps
+    of 32 channels that hold it), each M tile (``m_frags``) and each band
+    width, the tallest strip the M tile holds (or the given ``tile_h``).
+    Of the plans whose window fits :data:`SMEM_PER_BLOCK`: at least one
+    block an SM first, then the fewest clocks of the latency model
+    (:func:`mma_strip_clocks`), then the fewest window pixels read per
+    output element, then the widest band.  The tiles move no k-step: every
+    plan takes each output's k-steps in the one order of
+    ``csrc/bf16_mma.cuh``."""
+    stride = base["stride"]
+    cin_pg = base["cin"] // base["groups"]
+    cout_pg = base["cout"] // base["groups"]
+    pitches = [cin_pg + 8, cin_pg]     # odd 16-byte quads, then the plain
+    tiles = ([min(tile_cout, cout_pg)] if tile_cout is not None
+             else sorted({min(cout_pg, c) for c in BF16_TILE_COUTS},
+                         reverse=True))
+    for pitch in pitches:
+        best = None
+        for tc in tiles:
+            if tc > BF16_MMA_WARP_N * 4:
+                continue
+            wn = 1 if tc <= BF16_MMA_WARP_N else \
+                2 if tc <= 2 * BF16_MMA_WARP_N else 4
+            wm = BF16_MMA_WARPS // wn
+            for mi in range(1, BF16_MMA_MAX_M_FRAGS + 1):
+                slots = BF16_MMA_M * mi * wm
+                for tile_w in _q8_bands(w_out, slots):
+                    if tile_h is not None:
+                        th_out = min(tile_h, h_out * stride) // stride
+                    else:
+                        th_out = min(h_out, slots // tile_w)
+                    if th_out * tile_w > slots:
+                        continue
+                    plan = BF16ConvPlan(tile_h=th_out * stride, tile_w=tile_w,
+                                        tile_cout=tc, cin_stride=pitch,
+                                        warps_n=wn, warps_k=1, m_frags=mi,
+                                        **base)
+                    if plan._smem(plan.window_rows) > SMEM_PER_BLOCK:
+                        continue
+                    clocks = (plan.rounds * plan.strips_per_segment
+                              * mma_strip_clocks(plan))
+                    read = plan.window_rows * plan.window_cols \
+                        / (plan.positions * tc)
+                    key = (plan.blocks < SMS, clocks, read, -tile_w)
+                    if best is None or key < best[0]:
+                        best = (key, plan)
+        if best is not None:
+            return best[1]
+    raise ValueError(
+        f"no strip of tile_h={tile_h} fits {SMEM_PER_BLOCK} B of shared "
+        f"memory at K={base['kh']}x{base['kw']}, Cin/groups={cin_pg} (bf16 "
+        f"mma route)")
 
 
 # ---------------------------------------------------------------------------

@@ -46,12 +46,16 @@ What is new for Hopper:
   is not ported; a range may fuse when every layer is eligible and some
   tile fits.
 
-The kernel runs f32 or bf16 with the same tiles, pitches and buffers in
-elements; a group's element size is its class's ``dtype_bytes``
-(:data:`F32_BYTES` for :class:`FusedGroup`, 2 for :class:`BF16FusedGroup`,
-which :meth:`FusedGroupPlan.build` and :func:`build_group` make at
-``dtype_bytes=2``), so in bf16 every byte count halves, a larger tile
-fits, and the budget is always :data:`SMEM_PER_BLOCK`.
+The kernel runs f32 or bf16 on the same tile geometry in elements; a
+group's element size is its class's ``dtype_bytes`` (:data:`F32_BYTES`
+for :class:`FusedGroup`, 2 for :class:`BF16FusedGroup`, which
+:meth:`FusedGroupPlan.build` and :func:`build_group` make at
+``dtype_bytes=2``), and each stage's schedule is its
+:class:`StageLayout` (:attr:`FusedGroup.layouts`): the f32 figures for f32
+and for a bf16 stage on the fmaf chain (its bytes halve), its own pitch,
+warps, passes and weight ring for a bf16 stage on the bf16 tensor cores
+(:func:`stage_layout`, Cin a multiple of 16).  The budget is always
+:data:`SMEM_PER_BLOCK`.
 
 DAG topologies (ResNet-18, U-Net): :func:`graph_segments` cuts a graph
 into its fusable linear runs between joins, exactly as the JAX function
@@ -67,8 +71,10 @@ import math
 from dataclasses import dataclass
 from typing import ClassVar
 
-from repro_torch.core.conv_plan import (DTYPE_BYTES, SMEM_PER_BLOCK, WARP,
-                                        ConvPlan, same_pads)
+from repro_torch.core.conv_plan import (BF16_MMA_ROW_PAD, BF16_MMA_WARP_N,
+                                        BF16_MMA_WARPS, DTYPE_BYTES,
+                                        SMEM_PER_BLOCK, WARP, ConvPlan,
+                                        bf16_route, same_pads)
 from repro_torch.core.netplan import (graph_nodes, infer_pools,
                                       layer_kernel_problem, network_layers,
                                       pool_between, pooled_out_size)
@@ -86,6 +92,15 @@ FUSED_COUT = 4                # kCout: output channels a thread (a float4)
 FUSED_MAX_TILE_COUT = WARP * FUSED_COUT   # kMaxTileCout: a warp along C_out
 FUSED_WEIGHT_CHUNK = 32       # kChunk: weight rows (tap, channel) a ring stage
 FUSED_WEIGHT_STAGES = 2       # kStages: the weight ring's stages
+# A bf16 stage on route mma (bf16_route; the k-order of csrc/bf16_mma.cuh):
+# 8 warps of warps_m x warps_n, each with FUSED_MMA_M_FRAGS m16 x 4 n8
+# fragments (kBf16FusedMFrags of bf16_mma.cuh), a thread's 2 x that many
+# fragment rows holding whole pool windows
+FUSED_MMA_M_FRAGS = 4
+FUSED_MMA_SLOTS = 2 * FUSED_MMA_M_FRAGS   # a thread's rows: (fragment, g / g+8)
+FUSED_MMA_CHUNK = 64          # kBf16FusedChunk: (tap, channel) rows of ...
+FUSED_MMA_RING_SLOTS = 2      # kBf16FusedRingSlots: ... its weight ring's
+                              # slots
 F32_BYTES = 4
 
 
@@ -247,6 +262,84 @@ class FusedStage:
                 * self.kernel ** 2 * self.cin * self.cout)
 
 
+@dataclass(frozen=True)
+class StageLayout:
+    """How the fused kernel runs one stage at one element size: the
+    stage's route and the figures of its schedule.  The f32 kernel (and a
+    bf16 stage on route ``"ffma"``) takes :class:`FusedStage`'s own
+    (``cin_pitch``, ``tile_cout``, ...); a bf16 stage on route ``"mma"``
+    its own pitch and warps (:func:`stage_layout`)."""
+
+    route: str              # "ffma" (the fmaf chain) or "mma"
+    pitch: int              # channel pitch of the stage's input tile
+    tile_cout: int          # output channels of one pass
+    per_thread: int         # pooled positions a thread holds in a pass
+                            # (mma: whole windows of its fragment rows);
+                            # 0: the kernel takes no such pool window
+    positions_per_pass: int
+    passes: int             # passes over one tile: each streams the
+                            # stage's weights once
+    ring_row: int           # elements of one weight-ring row it uses
+    in_tile_elems: int      # elements of its input tile (buffer sizing)
+
+
+def _mma_warps_n(tile_cout: int) -> int:
+    """Warps along C_out of a route-mma stage: 1, 2 or 4, the fewest whose
+    32 channels each hold the tile."""
+    return next(w for w in (1, 2, 4) if tile_cout <= w * BF16_MMA_WARP_N)
+
+
+def _mma_pass_tiles(st: FusedStage, tile_cout: int, wins: int) -> tuple:
+    """(C_out tiles, pooled positions a pass, passes) of a route-mma stage
+    at one C_out tile: 8 warps of warps_m x warps_n, each warp 8 threads
+    groups x ``wins`` windows."""
+    warps_n = _mma_warps_n(tile_cout)
+    per_pass = BF16_MMA_WARPS // warps_n * 8 * wins
+    return (-(-st.cout // tile_cout), per_pass,
+            -(-st.pool_rows * st.pool_cols // per_pass))
+
+
+def stage_layout(st: FusedStage, dtype_bytes: int) -> StageLayout:
+    """The fused kernel's layout of ``st`` at ``dtype_bytes``.  f32, and
+    bf16 stages whose Cin is not a multiple of 16: the fmaf chain's
+    (:class:`FusedStage`'s figures).  bf16 route ``"mma"``: a pitch of
+    ``Cin + 8`` (16-byte rows for ``ldmatrix``, an odd count of 16-byte
+    quads), whole pool windows in a thread's :data:`FUSED_MMA_SLOTS`
+    fragment rows (none for a 3 x 3 window: such a stage does not fuse),
+    the C_out tile of 128, 64 or 32 with the fewest pass tiles, then the
+    fewest passes, as the fmaf chain chooses; a weight-ring row of the
+    tile's warps' channels + 8; its input tile rounded to 8 elements (16
+    bytes: a group with such a stage rounds both buffers so, and every
+    region of shared memory starts aligned for ``ldmatrix``)."""
+    if dtype_bytes == F32_BYTES or bf16_route(st.cin) == "ffma":
+        return StageLayout(route="ffma", pitch=st.cin_pitch,
+                           tile_cout=st.tile_cout, per_thread=st.per_thread,
+                           positions_per_pass=st.positions_per_pass,
+                           # no passes where the kernel takes no window
+                           passes=st.passes if st.per_thread else 0,
+                           ring_row=FUSED_COUT * st.threads_cout,
+                           in_tile_elems=st.in_tile_elems)
+    pitch = st.cin + BF16_MMA_ROW_PAD
+    wins = FUSED_MMA_SLOTS // st.pool_window ** 2
+    cands = sorted({min(st.cout, t) for t in (
+        FUSED_MAX_TILE_COUT, FUSED_MAX_TILE_COUT // 2,
+        FUSED_MAX_TILE_COUT // 4)}, reverse=True)
+    tile, per_pass, passes = cands[0], 0, 0
+    if wins:
+        def key(t):
+            co_tiles, _, passes = _mma_pass_tiles(st, t, wins)
+            return co_tiles * passes, passes
+        tile = min(cands, key=key)
+        _, per_pass, passes = _mma_pass_tiles(st, tile, wins)
+    return StageLayout(route="mma", pitch=pitch, tile_cout=tile,
+                       per_thread=wins, positions_per_pass=per_pass,
+                       passes=passes,
+                       ring_row=BF16_MMA_WARP_N * _mma_warps_n(tile)
+                       + BF16_MMA_ROW_PAD,
+                       in_tile_elems=-(-st.in_rows * st.in_cols * pitch
+                                       // 8) * 8)
+
+
 def _stage_problems(layers, pools):
     """Per-layer (layer, pad_lo, pad_hi, h_conv, ps, pw, h_pool) tuples,
     validating each layer is 'same'/'valid'-executable."""
@@ -374,28 +467,48 @@ class FusedGroup:
 
     # -- shared memory -------------------------------------------------------
 
+    @functools.cached_property
+    def layouts(self) -> tuple[StageLayout, ...]:
+        """Each stage's :class:`StageLayout` at the group's element size
+        (f32: :class:`FusedStage`'s own figures)."""
+        return tuple(stage_layout(st, self.dtype_bytes)
+                     for st in self.stages)
+
     @property
     def buffer_elems(self) -> tuple[int, int]:
         """Elements of the two ping-pong buffers: stage i's input tile
         lives in buffer ``i % 2`` (stage i writes its pooled, masked
         output — stage i+1's input — into the other)."""
         bufs = [0, 0]
-        for i, st in enumerate(self.stages):
-            bufs[i % 2] = max(bufs[i % 2], st.in_tile_elems)
+        for i, lay in enumerate(self.layouts):
+            bufs[i % 2] = max(bufs[i % 2], lay.in_tile_elems)
+        if any(lay.route == "mma" for lay in self.layouts):
+            return tuple(-(-b // 8) * 8 for b in bufs)   # 16-byte aligned
         return bufs[0], bufs[1]
 
     @property
     def ring_cout(self) -> int:
         """Elements of one weight-ring row: the widest stage's C_out tile
-        rounded up to whole threads."""
-        return FUSED_COUT * max(st.threads_cout for st in self.stages)
+        rounded up to whole threads (bf16 route mma: its warps' channels
+        + 8)."""
+        return max(lay.ring_row for lay in self.layouts)
+
+    @property
+    def ring_elems(self) -> int:
+        """Elements of the weight ring: :data:`FUSED_WEIGHT_STAGES` slots
+        of :data:`FUSED_WEIGHT_CHUNK` rows of :attr:`ring_cout`, or a bf16
+        route-mma stage's :data:`FUSED_MMA_RING_SLOTS` slots of
+        :data:`FUSED_MMA_CHUNK` rows of its own, the larger."""
+        return max(lay.ring_row * (
+            FUSED_MMA_RING_SLOTS * FUSED_MMA_CHUNK if lay.route == "mma"
+            else FUSED_WEIGHT_STAGES * FUSED_WEIGHT_CHUNK)
+            for lay in self.layouts)
 
     @property
     def smem_bytes(self) -> int:
         """Everything the kernel allocates in shared memory: both
         buffers and the weight ring."""
-        ring = FUSED_WEIGHT_STAGES * FUSED_WEIGHT_CHUNK * self.ring_cout
-        return self.dtype_bytes * (sum(self.buffer_elems) + ring)
+        return self.dtype_bytes * (sum(self.buffer_elems) + self.ring_elems)
 
     # -- arithmetic / traffic ------------------------------------------------
 
@@ -425,10 +538,11 @@ class FusedGroup:
         stage-0 window (halo overlap billed in full), each stage's
         weights once per pass, one write of the pooled output.  Interior
         activations and pools move nothing."""
-        s0, lt, db = self.stages[0], self.last, self.dtype_bytes
-        in_bytes = self.n_tiles * s0.in_tile_elems * db
+        lt, db, lays = self.last, self.dtype_bytes, self.layouts
+        in_bytes = self.n_tiles * lays[0].in_tile_elems * db
         w_bytes = self.n_tiles * db * sum(
-            st.passes * math.prod(st.weight_shape) for st in self.stages)
+            lay.passes * math.prod(st.weight_shape)
+            for st, lay in zip(self.stages, lays))
         out_bytes = self.n * lt.h_pool * lt.w_pool * lt.cout * db
         return dict(input=in_bytes, weights=w_bytes, output=out_bytes,
                     total=in_bytes + w_bytes + out_bytes)
@@ -446,8 +560,10 @@ class FusedGroup:
 
 class BF16FusedGroup(FusedGroup):
     """A :class:`FusedGroup` planned for the bf16 instance of the fused
-    kernel (``trim_conv2d_fused_bf16``): the same geometry in elements,
-    two bytes each."""
+    kernel (``trim_conv2d_fused_bf16``): the same tile geometry in
+    elements, two bytes each; a stage whose Cin is a multiple of 16 runs
+    on the bf16 tensor cores (:func:`stage_layout`: its own pitch, warps
+    and passes), the rest take the fmaf chain."""
 
     dtype_bytes = 2
 
@@ -512,8 +628,9 @@ def _tile_candidates(layers, start, *, n, pools,
     ``band_cols`` over :func:`_strip_candidates`, strips outer) whose
     shared memory fits :data:`SMEM_PER_BLOCK` at ``dtype_bytes``; none
     when the kernel takes no stage's pool window."""
-    probe = build_group(layers, start, n=n, pools=pools)
-    if not all(st.per_thread for st in probe.stages):
+    probe = build_group(layers, start, n=n, pools=pools,
+                        dtype_bytes=dtype_bytes)
+    if not all(lay.per_thread for lay in probe.layouts):
         return []
     out = []
     for t in _strip_candidates(probe.last.h_pool):
@@ -608,6 +725,16 @@ class FusedGroupPlan:
             rec = autotune.fused_knobs_for(g.signature, n=n, dtype=dtype,
                                            device=device) \
                 if g.fused else None
+            routes = [lay.route for lay in g.layouts]
+            if rec is not None and dtype_bytes == 2 and rec.get(
+                    "routes", ["ffma"] * g.depth) != routes:
+                # a record of the fmaf-chain design, or of other routes
+                autotune._reject(
+                    autotune.fused_key(g.signature, n=n, dtype=dtype,
+                                       device=device),
+                    f"a record of bf16 routes {rec.get('routes')} for a "
+                    f"group on {routes}", None)
+                rec = None
             if rec is not None and (rec["strip_rows"], rec["band_cols"]) \
                     != (g.strip_rows, g.band_cols):
                 t = _group_at(layers, g.start, g.depth, n, rec["strip_rows"],

@@ -28,9 +28,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_int64, ctypes.c_float
 _CONV_ARGS = [_P, _P, _P, _P] + [_I] * 20 + [_P]
+_CONV_BF16_ARGS = [_P, _P, _P, _P] + [_I] * 23 + [_P]   # + route, warps
 _Q8_ARGS = [_P] * 5 + [_I] * 24 + [_P]
 _WGRAD_ARGS = [_P, _P, _P, _P] + [_I] * 17 + [_P]
 _FUSED_ARGS = [_P, _P, _P, _P, _I, _P]
+_FUSED_BF16_ARGS = [_P, _P, _P, _P, _P, _I, _P]   # + the stages' routes
 _ATTN_ARGS = [_P] * 5 + [_I] * 6 + [_L] * 12 + [_I, _I, _F, _F, _P]
 _ATTN_BWD_ARGS = [_P] * 8 + [_I] * 6 + [_L] * 12 + [_I, _I, _F, _F, _I, _P]
 _CONV1D_ARGS = [_P] * 3 + [_I] * 4 + [_L] * 4 + [_I, _I, _P]
@@ -39,15 +41,15 @@ _CONV1D_WGRAD_ARGS = [_P] * 4 + [_I] * 4 + [_L] * 4 + [_I, _I, _P]
 SOURCES = {
     "trim_conv2d": {"trim_conv2d_carry": _CONV_ARGS,
                     "trim_conv2d_halo": _CONV_ARGS,
-                    "trim_conv2d_carry_bf16": _CONV_ARGS,
-                    "trim_conv2d_halo_bf16": _CONV_ARGS},
+                    "trim_conv2d_carry_bf16": _CONV_BF16_ARGS,
+                    "trim_conv2d_halo_bf16": _CONV_BF16_ARGS},
     "trim_conv2d_q8": {"trim_conv2d_q8_carry": _Q8_ARGS,
                        "trim_conv2d_q8_halo": _Q8_ARGS},
     "trim_conv2d_wgrad": {"trim_conv2d_wgrad": _WGRAD_ARGS,
                           "trim_conv2d_wgrad_bf16": _WGRAD_ARGS,
                           "trim_conv2d_wgrad_resident_blocks": [_I, _P]},
     "trim_conv2d_fused": {"trim_conv2d_fused": _FUSED_ARGS,
-                          "trim_conv2d_fused_bf16": _FUSED_ARGS},
+                          "trim_conv2d_fused_bf16": _FUSED_BF16_ARGS},
     "flash_attention": {"flash_attention_f32": _ATTN_ARGS,
                         "flash_attention_bf16": _ATTN_ARGS},
     "flash_attention_bwd": {"flash_attention_bwd_dkdv_f32": _ATTN_BWD_ARGS,

@@ -1,10 +1,13 @@
 // Element access shared by the f32 and bf16 instances of the conv kernels
 // (trim_conv2d.cu, trim_conv2d_fused.cu).  A bf16 value widens to f32
 // exactly (its 16 bits are the high half of the f32), and a product of two
-// bf16 values is exact in f32, so a bf16 instance runs the f32 kernel's
-// fmaf chain on the same real numbers as JAX's bf16 x bf16 -> f32 tap
-// matmuls; the one rounding to bf16 is at the store (__float2bfloat16_rn),
-// where JAX's _epilogue_store casts to the output dtype.
+// bf16 values is exact in f32, so the bf16 route "ffma" (Cin/g not a
+// multiple of 16) runs the f32 kernel's fmaf chain on the same real numbers
+// as JAX's bf16 x bf16 -> f32 tap matmuls; route "mma" feeds the bf16
+// values to the tensor cores instead (bf16_mma.cuh: no widening, the same
+// exact products, the tensor core's f32 sum).  Either way the one rounding
+// to bf16 is at the store (__float2bfloat16_rn), where JAX's
+// _epilogue_store casts to the output dtype.
 #pragma once
 
 #include <cuda_bf16.h>

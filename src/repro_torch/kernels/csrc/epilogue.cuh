@@ -1,8 +1,9 @@
 // The conv epilogue shared by every forward kernel of the port: the
 // activation applied after `acc + bias`.  trim_conv2d.cu and
-// trim_conv2d_fused.cu both compute an output element as one fmaf chain in
-// (ki, kj, ci) order, then `+ bias`, then activate() below, so a fused group
-// is bitwise equal to the per-layer chain (ROADMAP Queue 3).  Keep the one
+// trim_conv2d_fused.cu both compute an output element's sum in one order of
+// its route (the fmaf chain in (ki, kj, ci) order, or bf16_mma.cuh's
+// k-steps), then `+ bias`, then activate() below, so a fused group is
+// bitwise equal to the per-layer chain (ROADMAP Queue 3).  Keep the one
 // definition here: two copies could be compiled differently.
 #pragma once
 

@@ -5,11 +5,17 @@ kernels and their plain PyTorch versions (the counterpart of
 * ``trim_conv2d`` — the forward conv.  On a CUDA tensor it launches the
   hand-written kernel of ``csrc/trim_conv2d.cu`` for the chosen dataflow,
   ``"carry"`` (the paper's shadow registers) or ``"halo"`` (TrIM's
-  over-fetch), in f32 or, on bf16 operands, its bf16 instance
+  over-fetch), in f32 or, on bf16 operands, its bf16 entries
   (``trim_conv2d_carry_bf16`` / ``trim_conv2d_halo_bf16``: products
   exact, one f32 sum, one rounding to bf16 at the store, as JAX's
-  ``_tap_matmuls`` and ``_epilogue_store`` on bf16); on a CPU tensor it
-  runs :func:`trim_conv2d_plain`.
+  ``_tap_matmuls`` and ``_epilogue_store`` on bf16) on the plan's route,
+  :func:`~repro_torch.core.conv_plan.bf16_route` of the layer: ``"mma"``
+  (Cin/g a multiple of 16) sums on the bf16 tensor cores in the one
+  k-order of ``csrc/bf16_mma.cuh``, ``"ffma"`` (the rest) takes the f32
+  kernel's fmaf chain; on a CPU tensor it runs :func:`trim_conv2d_plain`,
+  the fmaf chain, which the ``mma`` route no longer equals bit for bit
+  (the tensor core adds in its own order; ``chip_smoke.py`` and
+  ``tests/test_torch_cuda.py`` hold it against a float64 oracle).
 * ``trim_conv2d_input_grad`` — dx, itself a TrIM conv: the stride-dilated
   cotangent through the same forward kernel (its bf16 instance on bf16
   operands), with the flipped, transposed weights and the edge pads
@@ -36,10 +42,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.conv_plan import (DATAFLOWS, Q8_ROUTES, ConvPlan,
-                                        WeightGradPlan, input_grad_geometry,
-                                        normalize_pad, q8_kpad,
-                                        q8_tap_bytes)
+from repro_torch.core.conv_plan import (BF16_ROUTES, DATAFLOWS, Q8_ROUTES,
+                                        ConvPlan, WeightGradPlan,
+                                        input_grad_geometry, normalize_pad,
+                                        q8_kpad, q8_tap_bytes)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (ACTIVATIONS, epilogue,
                                      exact_int_products, pad_nhwc)
@@ -183,6 +189,9 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor,
                                      activation=activation)
     lib = build.library("trim_conv2d")
     launch = getattr(lib, f"trim_conv2d_{dataflow}{suffix}")
+    # the bf16 entries take the plan's route and warps (checked there)
+    route = [BF16_ROUTES.index(plan.bf16_route), plan.warps_n,
+             plan.m_frags] if suffix else []
     y = torch.empty(plan.out_shape, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -193,7 +202,7 @@ def trim_conv2d(x: torch.Tensor, w: torch.Tensor,
             plan.stride, plan.pads[0][0], plan.pads[1][0], plan.groups,
             plan.h_out, plan.w_out, plan.th_out, plan.tile_w,
             plan.tile_cout, plan.strips_per_segment, plan.ring_rows,
-            plan.cin_stride, ACTIVATION_CODES[activation], stream)
+            plan.cin_stride, ACTIVATION_CODES[activation], *route, stream)
     if err != 0:
         raise RuntimeError(
             f"trim_conv2d_{dataflow}{suffix} kernel launch failed: CUDA "

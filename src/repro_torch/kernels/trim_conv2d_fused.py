@@ -9,8 +9,10 @@ counterpart of ``repro/kernels/trim_conv2d_fused.py``; DESIGN.md §8).
   same tile geometry.
 * :func:`reference_chain` — the per-layer execution of the same group
   (``ops.conv_pool_chain``: a conv launch and a separate max-pool per
-  stage).  The kernel is bitwise equal to it on the card (same fmaf
-  order per element), and it is the recompute path of the backward.
+  stage).  The kernel is bitwise equal to it on the card (the same order
+  per element: the fmaf chain in f32 and on bf16 route ``"ffma"``, the
+  k-steps of ``csrc/bf16_mma.cuh`` on bf16 route ``"mma"``), and it is the
+  recompute path of the backward.
 * :func:`fused_group_apply` — the differentiable entry point: forward on
   the fused kernel, backward by recomputing :func:`reference_chain`
   under autograd (``_FusedGroupFn``, the counterpart of the JAX
@@ -24,6 +26,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.conv_plan import BF16_ROUTES
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.ref import ACTIVATIONS, epilogue
 from repro_torch.kernels.trim_conv2d import (ACTIVATION_CODES,
@@ -138,20 +141,21 @@ def kernel_geometry(group) -> list[int]:
     """The kernel's host geometry (``make_args`` in the ``.cu`` file):
     :data:`GEOM_HEADER` ints (the problem, the tiles and the buffers),
     then :data:`GEOM_STAGE_FIELDS` per stage (its problem, tile ranges,
-    C_out tile and channel pitch).  The kernel derives each stage's
-    threads along C_out and positions a thread, and the weight ring's
-    row, from these."""
+    C_out tile and channel pitch, those two of the group's
+    :attr:`~repro_torch.core.fuse_plan.FusedGroup.layouts`).  The kernel
+    derives each stage's threads or warps along C_out and positions a
+    thread, and the weight ring's row, from these."""
     s0 = group.stages[0]
     buf0, buf1 = group.buffer_elems
     geom = [group.n, s0.h_in, s0.w_in, s0.cin, group.depth, group.n_strips,
             group.n_bands, buf0, buf1]
-    for st in group.stages:
+    for st, lay in zip(group.stages, group.layouts):
         geom += [st.cin, st.cout, st.kernel, st.stride, st.pool_stride,
                  st.pool_window, st.h_pool, st.w_pool, st.in_rows,
                  st.in_cols, st.pool_rows, st.pool_cols, st.in_start,
                  st.in_step, st.in_col_start, st.in_col_step,
                  st.pool_start, st.pool_step, st.pool_col_start,
-                 st.pool_col_step, st.tile_cout, st.cin_pitch]
+                 st.pool_col_step, lay.tile_cout, lay.pitch]
     return geom
 
 
@@ -182,10 +186,13 @@ def trim_conv2d_fused(x: torch.Tensor, weights, biases, *, group,
     wb = (ctypes.c_void_p * len(ptrs))(*ptrs)
     geom = kernel_geometry(group)
     geom_arr = (ctypes.c_int * len(geom))(*geom)
+    # the bf16 entry takes each stage's route (checked there)
+    routes = [] if not suffix else [(ctypes.c_int * group.depth)(
+        *(BF16_ROUTES.index(lay.route) for lay in group.layouts))]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, f"trim_conv2d_fused{suffix}")(
-            x.data_ptr(), y.data_ptr(), wb, geom_arr,
+            x.data_ptr(), y.data_ptr(), wb, geom_arr, *routes,
             ACTIVATION_CODES[activation], stream)
     if err != 0:
         raise RuntimeError(

@@ -287,8 +287,9 @@ def test_fused_bf16_equals_the_chain_bitwise_and_matches_jax(
 
 
 def test_bf16_fused_plan_halves_the_bytes():
-    """The same geometry in elements, two bytes each: f32 plans do not
-    move, a bf16 tile fits where the f32 one does not."""
+    """The same geometry in elements, two bytes each, on the fmaf chain:
+    f32 plans do not move, a bf16 tile fits where the f32 one does not; a
+    stage on the bf16 tensor cores takes a pitch of its own."""
     topo = network_layers("vgg16")
     f32, bf16 = (FusedGroupPlan.build(topo, n=1, dtype_bytes=d)
                  for d in (4, 2))
@@ -297,12 +298,20 @@ def test_bf16_fused_plan_halves_the_bytes():
     assert all(type(g) is BF16FusedGroup for g in bf16.groups)
     assert len(bf16.fused_groups) > len(f32.fused_groups)
     assert all(g.smem_bytes <= SMEM_PER_BLOCK for g in bf16.groups)
-    g4 = build_group(topo[:2], 0, n=8, strip_rows=8, band_cols=16)
-    g2 = build_group(topo[:2], 0, n=8, strip_rows=8, band_cols=16,
-                     dtype_bytes=2)
+    # VGG-16/16's conv1..conv2 (Cin 3, 4): both stages on the fmaf chain
+    g4, g2 = (build_group(scale_layers(topo, 16)[:2], 0, n=8, strip_rows=8,
+                          band_cols=16, dtype_bytes=d) for d in (4, 2))
     assert dataclasses.asdict(g4) == dataclasses.asdict(g2)
     assert 2 * g2.smem_bytes == g4.smem_bytes
     assert 2 * g2.hbm_bytes()["total"] == g4.hbm_bytes()["total"]
+    assert 2 * g2.min_bytes() == g4.min_bytes()
+    # full-width conv2 (Cin 64) runs on the bf16 tensor cores: a pitch of
+    # Cin + 8, an odd count of 16-byte quads, in the same geometry
+    g4, g2 = (build_group(topo[:2], 0, n=8, strip_rows=8, band_cols=16,
+                          dtype_bytes=d) for d in (4, 2))
+    assert dataclasses.asdict(g4) == dataclasses.asdict(g2)
+    assert [lay.route for lay in g2.layouts] == ["ffma", "mma"]
+    assert g2.layouts[1].pitch == 72 and g2.smem_bytes < g4.smem_bytes
     assert 2 * g2.min_bytes() == g4.min_bytes()
     with pytest.raises(ValueError, match="dtype_bytes"):
         build_group(topo[:2], 0, dtype_bytes=1)

@@ -1474,9 +1474,38 @@ BF16_CASES = [c + (0,) for c in CASES] + [
     in EDGE_CASES]
 
 
+def _bf16_f64_excess(y, x, w, b, *, stride, pad, groups, act):
+    """How far a bf16 conv output lies beyond its bound from the float64
+    oracle rounded to bf16 (<= 0: within): one bf16 ulp of the oracle plus
+    n 2^-22 sum|x w| (n = KH KW Cin/g products: the f32 chain's n 2^-24
+    bound, tests/test_torch_bf16.py, doubled twice for the tensor core's
+    truncating additions), times the activation's largest slope (gelu
+    1.13, silu 1.10)."""
+    import torch.nn.functional as F
+    (pt, pb), (pl, pr) = pad
+    xd = F.pad(x.double().permute(0, 3, 1, 2), (pl, pr, pt, pb))
+    wd = w.double().permute(3, 2, 0, 1)
+    acc = F.conv2d(xd, wd, stride=stride, groups=groups)
+    mass = F.conv2d(xd.abs(), wd.abs(), stride=stride, groups=groups)
+    want = ref.epilogue(acc.permute(0, 2, 3, 1), None if b is None
+                        else b.double(), act).bfloat16().double()
+    n = w.shape[0] * w.shape[1] * w.shape[2]
+    slope = 1.0 if act in (None, "relu") else 1.2
+    ulp = torch.pow(2.0, torch.floor(torch.log2(
+        want.abs().clamp_min(2.0 ** -126))) - 7)
+    bound = ulp + slope * n * 2.0 ** -22 * mass.permute(0, 2, 3, 1)
+    return ((y.double() - want).abs() - bound).max().item()
+
+
 @pytest.mark.parametrize("case", BF16_CASES,
                          ids=[str(i) for i in range(len(BF16_CASES))])
 def test_bf16_kernels_match_plain_within_an_ulp(cuda, case):
+    """Route ffma (the fmaf chain): bitwise the plain version where the
+    epilogue is exact, within one ulp otherwise.  Route mma (Cin/g a
+    multiple of 16: the bf16 tensor cores, whose additions the CPU cannot
+    repeat): within the float64 oracle's bound (``_bf16_f64_excess``).
+    Either route: carry == halo and a row alone bitwise."""
+    from repro_torch.core.conv_plan import bf16_route
     n, h, w, cin, cout, k, s, g, padding, act, tile_h, tile_cout, off = case
     gen = torch.Generator(device="cuda").manual_seed(len(BF16_CASES))
 
@@ -1498,11 +1527,16 @@ def test_bf16_kernels_match_plain_within_an_ulp(cuda, case):
         assert tc.LAUNCHES[f"{df}_bf16"] == before[f"{df}_bf16"] + 1
         assert tc.LAUNCHES[df] == before[df]
     torch.cuda.synchronize()
+    mma = bf16_route(cin // g, g) == "mma"
     for df, y in out.items():
         assert y.dtype == torch.bfloat16 and y.shape == plain.shape
-        if act in (None, "relu"):
-            assert torch.equal(y, plain), df
-        assert _bf16_ulps(y, plain) <= 1.0, df
+        if mma:
+            assert _bf16_f64_excess(y, x, wt, b, stride=s, pad=kw["pad"],
+                                    groups=g, act=act) <= 0, df
+        else:
+            if act in (None, "relu"):
+                assert torch.equal(y, plain), df
+            assert _bf16_ulps(y, plain) <= 1.0, df
     assert torch.equal(out["carry"], out["halo"])
     # batch invariance: a row alone gives the same bits
     one = tc.trim_conv2d(x[:1].contiguous(), wt, b, **kw)
@@ -1541,7 +1575,10 @@ def test_bf16_fused_kernel_equals_the_chain_bitwise(cuda, case):
         assert one.dtype == torch.bfloat16 and one.shape == g.out_shape
         assert torch.equal(one, two), (t, b)
         assert torch.equal(one, chain), (t, b)
-        if act in (None, "relu"):
+        # the plain version is the fmaf chain: bitwise where every stage
+        # takes it (route ffma) and the epilogue is exact
+        if act in (None, "relu") and all(
+                lay.route == "ffma" for lay in g.layouts):
             assert torch.equal(one, plain), (t, b)
         else:   # stage by stage, an ulp may carry into the next stage
             assert (one.float() - plain.float()).abs().max().item() <= \
@@ -1775,13 +1812,15 @@ def _bf16_ulps(a, b) -> float:
 
 
 def test_bf16_cnn_train_step_on_the_kernels_matches_plain(cuda, monkeypatch):
-    """One bf16 ``train_step`` of the example CNN on the kernels against
-    the same step with ``kernels.ops``' three wrappers swapped for their
-    plain versions, on the card: the forward and input-gradient entries
-    are bitwise their plain versions, so every leaf but the weight
-    gradients is bitwise equal and each dw within one bf16 ulp (the
-    kernel's chunked f32 sums against an f32 einsum, each rounded once);
-    the AdamW step after it within one bf16 ulp."""
+    """One bf16 ``train_step`` of the example CNN on the kernels: the
+    same step again gives the same bits; against the same step with
+    ``kernels.ops``' three wrappers swapped for their plain versions (the
+    fmaf chain), on the card, each gradient and parameter leaf lies at
+    most twice as far from the f32 step on the same draws as the plain
+    step does, plus one bf16 ulp of the leaf's max (``down1``, Cin 16,
+    runs on the bf16 tensor cores, whose sums the fmaf chain does not
+    repeat bit for bit, so no leaf downstream of it is bitwise the plain
+    step's; the plain step's own distance is the bf16 noise)."""
     from repro_torch.launch import train_cnn
     from repro_torch.models import layers
     from repro_torch.models.base import init_params
@@ -1795,7 +1834,7 @@ def test_bf16_cnn_train_step_on_the_kernels_matches_plain(cuda, monkeypatch):
     y = torch.randint(0, 10, (4,), generator=gen, device=cuda)
     names = [f"{k}.{n}" for k in sorted(params) for n in sorted(params[k])]
 
-    def step():
+    def step(params, x):
         live = [t.detach().requires_grad_()
                 for t in adamw.tree_leaves(params)]
         loss = train_cnn.nll_loss(layers.simple_cnn_apply(
@@ -1805,25 +1844,197 @@ def test_bf16_cnn_train_step_on_the_kernels_matches_plain(cuda, monkeypatch):
             params, adamw.init_moments(params, train_cnn.OPT), 0, x, y,
             apply_fn=layers.simple_cnn_apply, cfg=train_cnn.OPT)
         torch.cuda.synchronize()
-        return loss, grads, adamw.tree_leaves(new_p)
+        return [loss, *grads], adamw.tree_leaves(new_p)
 
     tc.reset_launch_counts()
-    loss_k, g_k, p_k = step()
+    g_k, p_k = step(params, x)
     # five convs: 5 forwards + 4 input gradients (the image needs none)
     # and 5 weight gradients, twice (the gradients, then the step)
     assert tc.LAUNCHES["carry_bf16"] == 18 and tc.LAUNCHES["wgrad_bf16"] == 10
     assert tc.LAUNCHES["carry"] == tc.LAUNCHES["wgrad"] == 0
+    again = step(params, x)
+    assert all(torch.equal(a, b) for a, b in zip(g_k + p_k, sum(again, [])))
+    p32 = {k: {n: t.float() for n, t in v.items()} for k, v in
+           params.items()}
+    g_32, p_32 = step(p32, x.float())
     for name, fn in tc.plain_versions().items():
         monkeypatch.setattr(ops, name, fn)
     tc.reset_launch_counts()
-    loss_p, g_p, p_p = step()
+    g_p, p_p = step(params, x)
     assert not any(tc.LAUNCHES.values())
-    assert torch.equal(loss_k, loss_p)
-    for name, a, b in zip(names, g_k, g_p):
-        assert a.dtype == torch.bfloat16, name
-        if name.endswith(".w") and not name.startswith("head"):
-            assert _bf16_ulps(a, b) <= 1.0, name
-        else:
-            assert torch.equal(a, b), name
-    for name, a, b in zip(names, p_k, p_p):
-        assert a.dtype == torch.bfloat16 and _bf16_ulps(a, b) <= 1.0, name
+
+    def dist(a, b):
+        return (a.float() - b).abs().max().item() / max(
+            b.abs().max().item(), 2.0 ** -126)
+    for name, a, b, f in zip(["loss", *names, *names], g_k + p_k,
+                             g_p + p_p, g_32 + p_32):
+        assert a.dtype == (torch.float32 if name == "loss"
+                           else torch.bfloat16), name
+        assert dist(a, f) <= 2 * dist(b, f) + 2.0 ** -8, name
+
+
+# ---------------------------------------------------------------------------
+# The bf16 tensor-core route (route mma: csrc/bf16_mma.cuh's k-order)
+# ---------------------------------------------------------------------------
+
+def _sass_functions(lib_name) -> dict:
+    """{kernel instance: its SASS} of one built library (cuobjdump)."""
+    import shutil
+    import subprocess
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", build.library(lib_name)._name],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            out[fn] = []
+        elif fn is not None:
+            out[fn].append(line)
+    return {f: "\n".join(v) for f, v in out.items()}
+
+
+def test_bf16_mma_instances_issue_hmma(cuda):
+    """Every instance of the per-layer mma kernel and the fused kernel's
+    bf16 instance issue ``HMMA.16816.F32.BF16``; the bf16 ffma instances
+    and every f32 instance issue no HMMA."""
+    conv = _sass_functions("trim_conv2d")
+    fused = _sass_functions("trim_conv2d_fused")
+    mma = [f for f in conv if "trim_conv2d_mma_kernel" in f]
+    ffma = [f for f in conv if "trim_conv2d_kernelI" in f]
+    assert len(mma) == 3 and len(ffma) == 8
+    for f in mma:
+        assert "HMMA.16816.F32.BF16" in conv[f], f
+    for f in ffma:
+        assert "HMMA" not in conv[f], f
+    bf = [f for f in fused if "kernelI13__nv_bfloat16" in f]
+    f32 = [f for f in fused if "kernelIfE" in f]
+    assert len(bf) == len(f32) == 1
+    assert "HMMA.16816.F32.BF16" in fused[bf[0]]
+    assert "HMMA" not in fused[f32[0]]
+
+
+def test_bf16_launchers_refuse_a_route_that_is_not_the_layers(cuda):
+    """The plan's route goes to the launcher, which checks it against
+    Cin/g: route ffma for a Cin 16 layer, or mma for Cin 8, is refused
+    (cudaErrorInvalidValue), and so is an mma plan's route on the fused
+    entry."""
+    import ctypes
+    from repro_torch.core.conv_plan import BF16_ROUTES, ConvPlan
+    from repro_torch.kernels import build
+    from repro_torch.kernels import trim_conv2d_fused as tfu
+    lib = build.library("trim_conv2d")
+    for cin in (16, 8):
+        x = torch.zeros((1, 8, 8, cin), device=cuda).bfloat16()
+        w = torch.zeros((3, 3, cin, 16), device=cuda).bfloat16()
+        y = torch.empty((1, 8, 8, 16), device=cuda).bfloat16()
+        p = ConvPlan.build(x.shape, w.shape, pad=1, dtype_bytes=2)
+        wrong = 1 - BF16_ROUTES.index(p.bf16_route)
+        err = lib.trim_conv2d_carry_bf16(
+            x.data_ptr(), w.data_ptr(), None, y.data_ptr(), p.n, p.h, p.w,
+            p.cin, p.cout, p.kh, p.kw, p.stride, 1, 1, 1, p.h_out, p.w_out,
+            p.th_out, p.tile_w, p.tile_cout, p.strips_per_segment,
+            p.ring_rows, p.cin_stride, 0, wrong, 1 if wrong else 0,
+            1 if wrong else 0, None)
+        assert err != 0, cin
+    from repro_torch.core.fuse_plan import build_group
+    from repro_torch.core.model import ConvLayer
+    topo = [ConvLayer("a", 8, 16, 16, 3, padding=1),
+            ConvLayer("b", 8, 16, 16, 3, padding=1)]
+    g = build_group(topo, 0, n=1, strip_rows=4, dtype_bytes=2)
+    x = torch.zeros((1, 8, 8, 16), device=cuda).bfloat16()
+    ws = [torch.zeros((3, 3, 16, 16), device=cuda).bfloat16()] * 2
+    y = torch.empty(g.out_shape, device=cuda).bfloat16()
+    ptrs = [ws[0].data_ptr(), None, ws[1].data_ptr(), None]
+    geom = tfu.kernel_geometry(g)
+    err = build.library("trim_conv2d_fused").trim_conv2d_fused_bf16(
+        x.data_ptr(), y.data_ptr(), (ctypes.c_void_p * 4)(*ptrs),
+        (ctypes.c_int * len(geom))(*geom), (ctypes.c_int * 2)(0, 0), 1,
+        None)
+    assert err != 0
+
+
+# VGG-16's and AlexNet's mma geometries at full channel width (smaller
+# images), a rectangular sub-kernel at Cin 16 and a 1x1 / 2: (n, h, cin,
+# cout, kh, kw, stride, padding)
+BF16_MMA_CASES = [
+    (2, 56, 64, 128, 3, 3, 1, "same"),
+    (1, 28, 256, 512, 3, 3, 1, "same"),
+    (2, 14, 512, 512, 3, 3, 1, "same"),
+    (2, 27, 96, 256, 5, 5, 1, "same"),
+    (2, 13, 384, 384, 3, 3, 1, "same"),
+    (2, 23, 16, 48, 3, 2, 1, "valid"),
+    (2, 28, 64, 128, 1, 1, 2, "valid"),
+]
+
+
+@pytest.mark.parametrize("case", BF16_MMA_CASES,
+                         ids=[str(i) for i in range(len(BF16_MMA_CASES))])
+def test_bf16_mma_carry_halo_batch_and_f64(cuda, case):
+    """The mma route at the networks' channel widths: carry == halo, a
+    row alone and a repeat bitwise, within the float64 oracle's bound;
+    its input gradient (the same kernel on the dilated cotangent) carry ==
+    halo and within its bound too."""
+    n, h, cin, cout, kh, kw, s, padding = case
+    gen = torch.Generator(device="cuda").manual_seed(h + cin + cout)
+    x = torch.randn((n, h, h, cin), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((kh, kw, cin, cout), generator=gen, device=cuda)
+         * (kh * kw * cin) ** -0.5).bfloat16()
+    b = (0.1 * torch.randn((cout,), generator=gen, device=cuda)).bfloat16()
+    pad = ((conv_pads(h, h, kh, s, padding)[0],
+            conv_pads(h, h, kw, s, padding)[1]))
+    kw_ = dict(stride=s, pad=pad, activation="relu")
+    out = {df: tc.trim_conv2d(x, w, b, dataflow=df, **kw_)
+           for df in ("carry", "halo")}
+    again = tc.trim_conv2d(x, w, b, **kw_)
+    one = tc.trim_conv2d(x[-1:].contiguous(), w, b, **kw_)
+    torch.cuda.synchronize()
+    assert torch.equal(out["carry"], out["halo"])
+    assert torch.equal(out["carry"], again)
+    assert torch.equal(out["carry"][-1:], one)
+    assert _bf16_f64_excess(out["carry"], x, w, b, stride=s, pad=pad,
+                            groups=1, act="relu") <= 0
+    gy = torch.randn(out["carry"].shape, generator=gen,
+                     device=cuda).bfloat16()
+    dx = {df: tc.trim_conv2d_input_grad(gy, w, x_shape=tuple(x.shape),
+                                        stride=s, pad=pad, dataflow=df)
+          for df in ("carry", "halo")}
+    torch.cuda.synchronize()
+    assert torch.equal(dx["carry"], dx["halo"])
+    gd, wt, pads = tc._input_grad_layout(gy, w, tuple(x.shape), s, pad, 1)
+    assert _bf16_f64_excess(dx["carry"], gd, wt, None, stride=1, pad=pads,
+                            groups=1, act=None) <= 0
+
+
+def test_bf16_mma_network_served_rows_equal_forward_one(cuda):
+    """A bf16 network whose convs past the first run on the tensor cores
+    (Cin 16, 32), served per layer and fused: every row bitwise
+    ``forward_one``'s, per layer == fused, launching only bf16 entries."""
+    from repro_torch.core.model import ConvLayer
+    from repro_torch.core.serving import ServingEngine, replay
+    from repro_torch.models import layers
+    topo = [ConvLayer("a", 16, 3, 16, 3, padding=1),
+            ConvLayer("b", 16, 16, 32, 3, padding=1),
+            ConvLayer("c", 8, 32, 32, 3, padding=1),
+            ConvLayer("d", 8, 32, 48, 3, padding=1)]
+    model = layers.TrimCNN.random(topo, n_classes=4, device=cuda,
+                                  dtype=torch.bfloat16)
+    xs = torch.randn((5, 16, 16, 3), generator=torch.Generator().manual_seed(
+        9)).numpy()
+    tc.reset_launch_counts()
+    rows = {}
+    for fused in (False, True):
+        eng = ServingEngine.for_topology(topo, model, buckets=(1, 2, 4),
+                                         device=cuda, fused=fused)
+        served, rejected = replay(eng, [(0.0, i, x) for i, x in
+                                        enumerate(xs)],
+                                  service_model=lambda bucket: 1e-3)
+        rows[fused] = [eng.forward_one(r) for r in xs]
+        assert not rejected and sorted(served) == list(range(len(xs)))
+        for i, row in served.items():
+            assert (row == rows[fused][i]).all(), (fused, i)
+    assert all((a == b).all() for a, b in zip(rows[False], rows[True]))
+    assert tc.LAUNCHES["carry"] == tc.LAUNCHES["fused"] == 0
+    assert tc.LAUNCHES["carry_bf16"] > 0
