@@ -55,9 +55,13 @@ Phases, each raising on failure (each prints its seconds):
    same padded cotangent, within the forward's tolerance; then the bf16
    entry (``trim_conv2d_wgrad_bf16``, PR 31) at VGG-16's 13 layers, the
    112^2 depthwise case, AlexNet conv1's sub-kernels and ResNet-18's
-   7x7/2 Cin-3 stem at batch 8: its f32 sums bitwise the f32 entry's on
-   the widened operands and repeatable, and within ``WGRAD_TOLERANCE``
-   of its plain version; device
+   7x7/2 Cin-3 stem at batch 8, each case's route printed (PR 33: VGG-16
+   conv2-13 must run ``mma`` on the bf16 tensor cores, the others keep
+   gemm or depthwise): on routes gemm / depthwise its f32 sums bitwise
+   the f32 entry's on the widened operands, on route mma within
+   (positions a chunk + chunks) 2^-22 sum|x dz| of the float64 sums;
+   repeatable, and within ``WGRAD_TOLERANCE`` of its plain version; the
+   13 VGG-16 layers faster than the f32 entry's on the same values; device
    ms from CUDA graphs beside the f32 entry's, ``conv2d_weight`` on bf16,
    the plain version's, the bound (989 TFLOP/s of bf16 or 2 bytes an
    element at 3.35 TB/s) and the FFMA ceiling (67 TFLOP/s);
@@ -317,9 +321,12 @@ Phases, each raising on failure (each prints its seconds):
    gradients on the kernels against the f32 step on ``impl="ref"``
    (``MAMBA_GRAD_TOLERANCE``);
 33. bf16 — the bf16 routes of the conv kernels: first the SASS of the
-   conv and fused libraries (``cuobjdump``), where every instance of the
-   tensor-core kernel (route mma) and the fused kernel's bf16 instance must
-   issue ``HMMA.16816.F32.BF16`` and the bf16 ffma and f32 instances none;
+   conv, fused, weight-gradient and flash libraries (``cuobjdump``),
+   where every instance of the tensor-core kernel (route mma), the fused
+   kernel's bf16 instance, the weight gradient's route-mma instances and
+   the flash kernel's bf16 narrow instances (PR 33; no TF32 HMMA there)
+   must issue ``HMMA.16816.F32.BF16`` and the bf16 ffma, f32, other wgrad
+   and flash f32 / wide instances none;
    then the carry and halo entries (``trim_conv2d_carry_bf16`` /
    ``_halo_bf16``) at full-width VGG-16's 13 layers at batch 8 and 1 and
    at AlexNet's five convs (conv1 the K 11 adder tree of bf16 parts) at
@@ -349,10 +356,13 @@ Phases, each raising on failure (each prints its seconds):
    exact products, one rounding), ``flash_attention_bf16`` at cases (a),
    (b), (c) and (f) of ``attention_cases`` within
    ``FLASH_BF16_TOLERANCE`` of max|o| of its plain version (the
-   deviation printed) and repeatable bitwise; device ms from CUDA graphs
-   beside the plain versions', ``F.conv1d`` and SDPA on bf16 ((a), (b))
-   and the bound (989 TFLOP/s of bf16 or 2 bytes an element at 3.35
-   TB/s); then full-width qwen2.5-3b (2 x 4096), recurrentgemma-2b (2 x
+   deviation printed), within half an ulp of bf16 plus
+   ``FLASH_BF16_F64_EXCESS`` of max|o| of the float64 plain version (f32
+   inside, which one bf16 P would not be) and repeatable bitwise; device
+   ms from CUDA graphs beside the plain versions', ``F.conv1d`` and SDPA on bf16 ((a), (b)),
+   the bound (989 TFLOP/s of bf16 or 2 bytes an element at 3.35 TB/s)
+   and the flash route's ceiling (PR 33: bf16 mma, 1.5 x FLOPs at 989
+   TFLOP/s); then full-width qwen2.5-3b (2 x 4096), recurrentgemma-2b (2 x
    4096) and falcon-mamba-7b (2 x 2048), each drawn in bf16 on the card
    by the port's ``init_params`` (norm scales and scan states f32, as in
    JAX) after its f32 twin of the earlier phases is freed: two timed
@@ -551,6 +561,11 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32
 # f32 inside, one rounding to bf16 (2^-8 of a value) apart at most
 LM_BF16_TOLERANCE = 3e-2
 FLASH_BF16_TOLERANCE = 1e-2
+# the bf16 flash kernel against the float64 plain version, past half an
+# ulp of bf16 at its output, of max|o|: f32 inside (P split hi / lo on
+# the tensor cores) leaves ~1e-6; one bf16 P would leave 2^-9 of each
+# weight, ~7e-4 (tests/test_torch_bf16_wgrad_flash.py emulates both)
+FLASH_BF16_F64_EXCESS = 2.0 ** -14
 LM_BF16_CUT = 3             # layers held per sublayer (one rec, rec, att)
 BF16_REQUESTS, BF16_PROMPT, BF16_GEN = 4, 16, 8
 CROSS_PROMPT = 256          # decode-vs-prefill prompt at the depth-1 cut
@@ -595,10 +610,11 @@ def card() -> str:
 def flash_sass_check() -> dict:
     """Disassemble the built flash-attention libraries (``cuobjdump
     -sass``) and count, in each kernel instance, the tensor-core
-    instructions on TF32 operands (``HMMA.1688.F32.TF32``): every
-    narrow-route forward instance (D <= 256; f32 and bf16 at Dp 64, 128,
-    256) and every backward instance (dQ and dK/dV at Dp 64, 128, 256)
-    must issue them, the wide route (f32 and bf16) none."""
+    instructions on TF32 operands (``HMMA.1688.F32.TF32``): every f32
+    narrow-route forward instance (D <= 256 at Dp 64, 128, 256) and every
+    backward instance (dQ and dK/dV at Dp 64, 128, 256) must issue them,
+    the bf16 narrow instances (on the bf16 tensor cores since PR 33:
+    :func:`bf16_sass_check`) and the wide route (f32 and bf16) none."""
     import shutil
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -617,18 +633,19 @@ def flash_sass_check() -> dict:
     def of(name):
         return {f: n for f, n in counts.items() if name in f}
     narrow, wide = of("flash_attention_kernel"), of("flash_attention_wide")
+    n32 = {f: n for f, n in narrow.items() if "bfloat16" not in f}
+    n16 = {f: n for f, n in narrow.items() if "bfloat16" in f}
     bwd = {**of("flash_attention_bwd_dq_kernel"),
            **of("flash_attention_bwd_dkdv_kernel")}
-    if len(narrow) != 6 or min(narrow.values()) == 0 or len(wide) != 2 \
-            or any(wide.values()) or len(bwd) != 6 or min(bwd.values()) == 0:
+    if len(n32) != 3 or min(n32.values()) == 0 or len(n16) != 3 \
+            or any(n16.values()) or len(wide) != 2 or any(wide.values()) \
+            or len(bwd) != 6 or min(bwd.values()) == 0:
         raise AssertionError(f"flash SASS: TF32 HMMA counts {counts}")
     print("flash SASS: HMMA.1688.F32.TF32 instructions per narrow "
-          "instance, f32 " + ", ".join(
-              str(n) for f, n in narrow.items() if "bfloat16" not in f)
-          + ", bf16 " + ", ".join(
-              str(n) for f, n in narrow.items() if "bfloat16" in f)
-          + f"; wide route {sum(wide.values())}; backward dQ / dK/dV "
-          "instances " + ", ".join(str(n) for n in bwd.values()))
+          "instance, f32 " + ", ".join(str(n) for n in n32.values())
+          + ", bf16 " + ", ".join(str(n) for n in n16.values())
+          + f" (none); wide route {sum(wide.values())}; backward dQ / "
+          "dK/dV instances " + ", ".join(str(n) for n in bwd.values()))
     return counts
 
 
@@ -995,16 +1012,21 @@ def check_backward_kernels(torch):
     from repro_torch.kernels.ref import conv_pads, pad_nhwc
 
     # the plan's time model assumes WGRAD_BLOCKS_PER_SM resident GEMM
-    # blocks an SM: the card must agree
+    # blocks an SM (route mma: WGRAD_MMA_BLOCKS_PER_SM): the card must
+    # agree
+    lib = build.library("trim_conv2d_wgrad")
     for tile in (cp.WGRAD_NARROW_TILE_COUT, cp.WGRAD_TILE_COUT):
-        got = ctypes.c_int(0)
-        err = build.library("trim_conv2d_wgrad") \
-            .trim_conv2d_wgrad_resident_blocks(tile, ctypes.byref(got))
-        if err != 0 or got.value != cp.WGRAD_BLOCKS_PER_SM:
-            raise AssertionError(
-                f"wgrad {tile}-column tile: {got.value} resident blocks an "
-                f"SM (CUDA error {err}), the plan assumes "
-                f"{cp.WGRAD_BLOCKS_PER_SM}")
+        for query, want in ((lib.trim_conv2d_wgrad_resident_blocks,
+                             cp.WGRAD_BLOCKS_PER_SM),
+                            (lib.trim_conv2d_wgrad_mma_resident_blocks,
+                             cp.WGRAD_MMA_BLOCKS_PER_SM)):
+            got = ctypes.c_int(0)
+            err = query(tile, ctypes.byref(got))
+            if err != 0 or got.value != want:
+                raise AssertionError(
+                    f"wgrad {tile}-column tile ({query.__name__}): "
+                    f"{got.value} resident blocks an SM (CUDA error "
+                    f"{err}), the plan assumes {want}")
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     print("backward kernel check (times in ms, device events):")
@@ -1116,12 +1138,48 @@ def wgrad_bf16_cases(n: int = TRAIN_BATCH):
     return cases
 
 
+def wgrad_f64_excess(torch, dw, x, gy, plan) -> float:
+    """How far the f32 sums ``dw`` of a weight gradient lie beyond their
+    float64 bound (<= 0: within): |dw - dw64| <= (P + C) 2^-22
+    sum|x dz|, P a chunk's positions and C its chunks (each position's
+    product enters one tensor-core accumulator, which truncates as it
+    adds: at most ~2^-23 of its running sum a k-step of 16; the ordered
+    sum of the chunks' partials rounds C times).  A worst case that
+    grows with P while the error grows as its root: at VGG-16's conv2
+    (N=8, P 7840) it allows ~473 against errors of ~0.02, so on route
+    mma ``WGRAD_TOLERANCE`` of max|plain| (~0.29 there) is the binding
+    check; this one refuses a sum that left the float64 value wholesale
+    (a lost or doubled k-step, a wrong tap)."""
+    (pt, pb), (pl, pr) = plan.pads
+    wsize = (plan.cout, plan.cin_per_group, plan.kh, plan.kw)
+    xd = torch.nn.functional.pad(x.double().permute(0, 3, 1, 2),
+                                 (pl, pr, pt, pb))
+    gd = gy.double().permute(0, 3, 1, 2)
+    want = torch.nn.grad.conv2d_weight(xd, wsize, gd, stride=plan.stride,
+                                       groups=plan.groups)
+    # the bound's scale in f32 (bf16 products exact; its own rounding
+    # moves the bound by a few 2^-24 of itself)
+    mass = torch.nn.grad.conv2d_weight(
+        xd.abs().float(), wsize, gd.abs().float(), stride=plan.stride,
+        groups=plan.groups).double()
+    n = plan.tile_go * plan.w_out + plan.chunks
+    excess = ((dw.double().permute(3, 2, 0, 1) - want).abs()
+              - n * 2.0 ** -22 * mass).max().item()
+    del xd, gd, want, mass
+    return excess
+
+
 def check_wgrad_bf16(torch) -> list:
     """The weight-gradient kernel's bf16 entry (``trim_conv2d_wgrad_bf16``)
-    at :func:`wgrad_bf16_cases`: its f32 sums bitwise the f32 entry's on
-    the widened operands and bitwise repeatable, and within
-    ``WGRAD_TOLERANCE`` of max|plain| of the plain version; device ms
-    from CUDA graphs beside the f32 entry's on the widened operands,
+    at :func:`wgrad_bf16_cases`, each case's route printed (VGG-16's
+    conv2-13 must take ``mma``, conv1, the depthwise case, AlexNet
+    conv1's sub-kernels and the stem keep theirs): on routes gemm and
+    depthwise its f32 sums bitwise the f32 entry's on the widened
+    operands; on route mma (the bf16 tensor cores, whose sum the plain
+    version's einsum does not repeat) within :func:`wgrad_f64_excess`'s
+    float64 bound; bitwise repeatable and within ``WGRAD_TOLERANCE`` of
+    max|plain| of the plain version everywhere; device ms from CUDA
+    graphs beside the f32 entry's on the widened operands,
     ``torch.nn.grad.conv2d_weight`` on bf16 (cuDNN, TF32 off; the
     yardstick) and the plain version's (eager), the bound (operations at
     989 TFLOP/s of bf16, or 2 bytes an element at 3.35 TB/s) and the FFMA
@@ -1134,16 +1192,24 @@ def check_wgrad_bf16(torch) -> list:
     bf, f32 = torch.bfloat16, torch.float32
     rows = []
     print(f"bf16 weight-gradient check at batch {TRAIN_BATCH} (device ms "
-          "from CUDA graphs, plain eager; f32 sums == the f32 entry on the "
-          "widened operands, bitwise):")
+          "from CUDA graphs, plain eager; routes gemm / depthwise: f32 "
+          "sums == the f32 entry on the widened operands, bitwise; route "
+          "mma: f64 excess over its bound, <= 0):")
     print(f"  {'case':11s} {'err':>9s} {'tol':>8s} {'==f32':>5s} "
-          f"{'bf16':>8s} {'f32':>8s} {'cw_lib':>8s} {'plain':>8s} "
-          f"{'bound':>8s} by         {'FFMA':>8s} {'TF/s':>6s} route     "
-          "chunks blocks")
+          f"{'f64_exc':>9s} {'bf16':>8s} {'f32':>8s} {'cw_lib':>8s} "
+          f"{'plain':>8s} {'bound':>8s} by         {'FFMA':>8s} "
+          f"{'TF/s':>6s} route     chunks blocks pos/chunk")
     for name, xs, (kh, kw, cout), s, g, pads in wgrad_bf16_cases():
         plan = WeightGradPlan.build(xs, (kh, kw, xs[3] // g, cout),
                                     stride=s, pad=pads, groups=g,
                                     dtype_bytes=2)
+        if name.startswith("conv") and name != "conv1" \
+                and plan.route != "mma":
+            raise AssertionError(f"wgrad bf16 {name}: route {plan.route}, "
+                                 "not mma")
+        if (name == "conv1" or not name.startswith("conv")) \
+                and plan.route == "mma":
+            raise AssertionError(f"wgrad bf16 {name}: route mma")
         x = torch.randn(xs, generator=gen, device="cuda").to(bf)
         gy = torch.randn((plan.n, plan.h_out, plan.w_out, cout),
                          generator=gen, device="cuda").to(bf)
@@ -1156,10 +1222,17 @@ def check_wgrad_bf16(torch) -> list:
         torch.cuda.synchronize()
         err = (sums - plain).abs().max().item()
         tol = WGRAD_TOLERANCE * plain.abs().max().item()
-        if sums.dtype != f32 or not torch.equal(sums, wide):
+        same = torch.equal(sums, wide)
+        if sums.dtype != f32 or (plan.route != "mma" and not same):
             raise AssertionError(f"wgrad bf16 {name}: the f32 sums differ "
                                  "from the f32 entry on the widened "
                                  "operands")
+        excess = float("nan")
+        if plan.route == "mma":
+            excess = wgrad_f64_excess(torch, sums, x, gy, plan)
+            if not excess <= 0:
+                raise AssertionError(f"wgrad bf16 {name}: {excess:.3e} "
+                                     "beyond the float64 bound")
         if not torch.equal(sums, again):
             raise AssertionError(f"wgrad bf16 {name}: two launches differ")
         if not np.isfinite(err) or err > tol:
@@ -1179,25 +1252,33 @@ def check_wgrad_bf16(torch) -> list:
              "plain": time_ms(torch, lambda: tc.trim_conv2d_weight_grad_plain(
                  x, gy, **kw_), reps=3)}
         row = dict(name=name, vgg=name.startswith("conv"), err=err,
-                   flops=plan.flops, **t,
+                   flops=plan.flops, route=plan.route, excess=excess, **t,
                    **bf16_bound(plan.flops, plan.min_bytes()))
         rows.append(row)
-        print(f"  {name:11s} {err:9.2e} {tol:8.1e} {'True':>5s} "
-              f"{t['kernel']:8.3f} {t['f32']:8.3f} {t['library']:8.3f} "
-              f"{t['plain']:8.3f} {row['bound']:8.4f} {row['by']:10s} "
-              f"{row['ffma']:8.3f} {plan.flops / t['kernel'] / 1e9:6.2f} "
-              f"{plan.route:9s} {plan.chunks:6d} {plan.blocks:6d}")
+        print(f"  {name:11s} {err:9.2e} {tol:8.1e} {str(same):>5s} "
+              f"{excess:9.2e} {t['kernel']:8.3f} {t['f32']:8.3f} "
+              f"{t['library']:8.3f} {t['plain']:8.3f} {row['bound']:8.4f} "
+              f"{row['by']:10s} {row['ffma']:8.3f} "
+              f"{plan.flops / t['kernel'] / 1e9:6.2f} {plan.route:9s} "
+              f"{plan.chunks:6d} {plan.blocks:6d} "
+              f"{plan.tile_go * plan.w_out:9d}")
         del x, gy, xf, gf, sums, again, wide, plain, xp, gl
     torch.cuda.empty_cache()
     vgg = [r for r in rows if r["vgg"]]
     ms = sum(r["kernel"] for r in vgg)
+    f32_ms = sum(r["f32"] for r in vgg)
     print(f"bf16 weight-gradient check, sums over the 13 VGG-16 layers: "
           f"bf16 {ms:.3f} ms ({sum(r['flops'] for r in vgg) / ms / 1e9:.2f} "
-          f"TFLOP/s), f32 entry {sum(r['f32'] for r in vgg):.3f} ms, "
-          f"conv2d_weight bf16 {sum(r['library'] for r in vgg):.3f} ms, "
-          f"plain {sum(r['plain'] for r in vgg):.3f} ms, bound "
+          f"TFLOP/s; route mma on conv2-13 "
+          f"{sum(r['kernel'] for r in vgg if r['route'] == 'mma'):.3f}), "
+          f"f32 entry {f32_ms:.3f} ms, conv2d_weight bf16 "
+          f"{sum(r['library'] for r in vgg):.3f} ms, plain "
+          f"{sum(r['plain'] for r in vgg):.3f} ms, bound "
           f"{sum(r['bound'] for r in vgg):.4f} ms (FFMA ceiling "
           f"{sum(r['ffma'] for r in vgg):.3f} ms)")
+    if not ms < f32_ms:
+        raise AssertionError(f"wgrad bf16: VGG-16's 13 layers {ms:.3f} ms, "
+                             f"not below the f32 entry's {f32_ms:.3f}")
     return rows
 
 
@@ -5042,12 +5123,17 @@ def bf16_sass_check() -> dict:
     kernel and the fused kernel's bf16 instance (whose stages on route
     mma run the shared k-loop) must issue ``HMMA.16816.F32.BF16``; the
     per-layer kernel's bf16 ffma instances and every f32 instance none.
-    Returns {instance: HMMA count}."""
+    PR 33: every instance of the weight gradient's route mma
+    (``wgrad_mma_kernel``) and the flash kernel's bf16 narrow instances
+    must issue it, the flash bf16 narrow instances no TF32 HMMA, and the
+    wgrad's other instances and the flash kernel's f32 and wide ones no
+    bf16 HMMA.  Returns {instance: HMMA.16816.F32.BF16 count}."""
     import shutil
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    out = {}
-    for lib_name in ("trim_conv2d", "trim_conv2d_fused"):
+    out, tf32 = {}, {}
+    for lib_name in ("trim_conv2d", "trim_conv2d_fused", "trim_conv2d_wgrad",
+                     "flash_attention"):
         sass = subprocess.run([tool, "-sass", build.library(lib_name)._name],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
@@ -5055,9 +5141,11 @@ def bf16_sass_check() -> dict:
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = line.split("Function :")[1].strip()
-                out[fn] = 0
+                out[fn] = tf32[fn] = 0
             elif fn is not None and "HMMA.16816.F32.BF16" in line:
                 out[fn] += 1
+            elif fn is not None and "HMMA" in line and "TF32" in line:
+                tf32[fn] += 1
     named = {}
     for f, count in out.items():
         if "trim_conv2d_mma_kernel" in f:
@@ -5066,19 +5154,39 @@ def bf16_sass_check() -> dict:
             kind = "ffma"
         elif "trim_conv2d_fused_kernelI13__nv_bfloat16" in f:
             kind = "fused_bf16"
+        elif "wgrad_mma_kernel" in f:
+            kind = "wgrad_mma"
+        elif "wgrad" in f:
+            kind = "wgrad_other"
+        elif "flash_attention_kernelI13__nv_bfloat16" in f:
+            kind = "flash_bf16"
+        elif "flash_attention" in f:
+            kind = "flash_other"
         else:
             kind = "f32"
         named.setdefault(kind, []).append(count)
+    flash_tf32 = [tf32[f] for f in out
+                  if "flash_attention_kernelI13__nv_bfloat16" in f]
     if (len(named.get("mma", [])) != 3 or min(named["mma"]) == 0
             or len(named.get("fused_bf16", [])) != 1
             or named["fused_bf16"][0] == 0
             or any(named.get("ffma", [1])) or len(named["ffma"]) != 4
-            or any(named.get("f32", [1]))):
+            or any(named.get("f32", [1]))
+            or len(named.get("wgrad_mma", [])) != 2
+            or min(named["wgrad_mma"]) == 0
+            or any(named.get("wgrad_other", [1]))
+            or len(named.get("flash_bf16", [])) != 3
+            or min(named["flash_bf16"]) == 0 or any(flash_tf32)
+            or any(named.get("flash_other", [1]))):
         raise AssertionError(f"bf16 SASS: HMMA.16816.F32.BF16 by instance "
-                             f"{out}")
+                             f"{out}; TF32 HMMA {tf32}")
     print("bf16 SASS: HMMA.16816.F32.BF16 a kernel instance: mma "
-          f"{named['mma']}, fused bf16 {named['fused_bf16']}; bf16 ffma "
-          f"{named['ffma']} and f32 {named['f32']} (none)")
+          f"{named['mma']}, fused bf16 {named['fused_bf16']}, wgrad mma "
+          f"{named['wgrad_mma']}, flash bf16 narrow {named['flash_bf16']} "
+          f"(TF32 HMMA there {flash_tf32}); bf16 ffma {named['ffma']}, "
+          f"f32 {named['f32']}, wgrad gemm / depthwise / reduce "
+          f"{named['wgrad_other']}, flash f32 / wide {named['flash_other']}"
+          " (none)")
     return out
 
 
@@ -5432,16 +5540,37 @@ def check_bf16_conv1d(torch) -> list:
 BF16_ATTENTION_CASES = ("a_prefill", "b_continue", "c_rgemma", "f_d320")
 
 
+def flash_bf16_f64_excess(torch, out, q, k, v, kw) -> float:
+    """How far a bf16 attention output lies from the float64 plain
+    version beyond the half ulp of bf16 that its one rounding may add,
+    of max|o64|: what the f32 arithmetic inside lost."""
+    from repro_torch.kernels import flash_attention as fa
+    want = fa.flash_attention_plain(q.double(), k.double(), v.double(),
+                                    **kw)
+    of = out.float()
+    _, e = torch.frexp(of)
+    half = torch.where(of == 0, torch.zeros_like(of),
+                       torch.ldexp(torch.ones_like(of), e - 9))
+    excess = ((of.double() - want).abs() - half.double()).max().item()
+    scale = want.abs().max().item()
+    del want, of, e, half
+    return excess / scale
+
+
 def check_bf16_flash(torch) -> list:
     """The flash kernel's bf16 route (``flash_attention_bf16``) at cases
     (a), (b), (c) and (f) of :func:`attention_cases` against its plain
     version within ``FLASH_BF16_TOLERANCE`` of max|o| (the deviation
-    printed), repeatable bitwise; device ms from CUDA graphs beside the
+    printed), against the float64 plain version within half an ulp of
+    bf16 plus ``FLASH_BF16_F64_EXCESS`` of max|o| (f32 inside: the P
+    split; one bf16 P fails it), repeatable bitwise; device ms from CUDA
+    graphs beside the
     plain version's (eager), ``F.scaled_dot_product_attention`` on bf16
     at (a) and (b) (queries right-aligned: (b) through an explicit mask;
     none at (c), soft cap, or (f)), the bound at 989 TFLOP/s or 2 bytes
     an element at 3.35 TB/s, and the kernel's own route's ceiling (its
-    TF32 mma: 1.5 x FLOPs at 495 TFLOP/s for D <= 256; f32 FFMA above)."""
+    bf16 mma since PR 33, Q K^T once and P's two halves against V: 1.5 x
+    FLOPs at 989 TFLOP/s for D <= 256; f32 FFMA above)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
@@ -5451,8 +5580,8 @@ def check_bf16_flash(torch) -> list:
     print("bf16 attention kernel check (ms: kernel and SDPA from CUDA "
           "graphs, plain eager):")
     print(f"  {'case':12s} {'max_err':>9s} {'of max|o|':>9s} "
-          f"{'kernel':>9s} {'plain':>9s} {'sdpa':>9s} {'bound':>8s} by    "
-          f"{'route_b':>8s} TFLOP/s")
+          f"{'f64_exc':>9s} {'kernel':>9s} {'plain':>9s} {'sdpa':>9s} "
+          f"{'bound':>8s} by    {'route_b':>8s} TFLOP/s")
     for name, b, lq, lk, hq, hkv, d, causal, cap, win in attention_cases():
         if name not in BF16_ATTENTION_CASES:
             continue
@@ -5472,6 +5601,12 @@ def check_bf16_flash(torch) -> list:
                                  f"max|o| from the plain version (tol "
                                  f"{FLASH_BF16_TOLERANCE}), or not "
                                  "repeatable")
+        excess = flash_bf16_f64_excess(torch, out, q, k, v, kw)
+        if not excess <= FLASH_BF16_F64_EXCESS:
+            raise AssertionError(f"bf16 attention {name}: {excess:.3e} of "
+                                 "max|o| from the float64 plain version "
+                                 "past half an ulp (tol "
+                                 f"{FLASH_BF16_F64_EXCESS:.3e})")
         t = {"kernel": time_graph_ms(torch, lambda: fa.flash_attention(
                 q, k, v, **kw), reps=5),
              "plain": time_ms(torch, lambda: fa.flash_attention_plain(
@@ -5488,11 +5623,13 @@ def check_bf16_flash(torch) -> list:
         _, _, flops, nbytes, ffma = attention_bound(b, lq, lk, hq, hkv, d,
                                                     causal, win)
         bd = bf16_bound(flops, nbytes // 2)
-        route = (1.5 * flops / PEAK_TF32_FLOPS * 1e3 if d <= 256 else ffma)
-        rows.append(dict(name=name, err=err, rel=rel, bound=bd["bound"],
-                         by=bd["by"], route_bound=route, **t))
+        route = (1.5 * flops / PEAK_BF16_FLOPS * 1e3 if d <= 256 else ffma)
+        rows.append(dict(name=name, err=err, rel=rel, excess=excess,
+                         bound=bd["bound"], by=bd["by"], route_bound=route,
+                         **t))
         lib = "-" if t["library"] is None else f"{t['library']:9.3f}"
-        print(f"  {name:12s} {err:9.2e} {rel:9.2e} {t['kernel']:9.3f} "
+        print(f"  {name:12s} {err:9.2e} {rel:9.2e} {excess:9.2e} "
+              f"{t['kernel']:9.3f} "
               f"{t['plain']:9.3f} {lib:>9s} {bd['bound']:8.3f} "
               f"{bd['by']:5s} {route:8.3f} {flops / t['kernel'] / 1e9:7.2f}")
         del q, k, v, out, again, plain
@@ -6243,6 +6380,8 @@ def run(torch, args, cache_dir: str) -> int:
         "bound_ms": sum(r["bound"] for r in w16),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "ffma_bound_ms": sum(r["ffma"] for r in w16),
+        # VGG-16 conv2-13 on route mma (the bf16 tensor cores)
+        "mma_ms": sum(r["kernel"] for r in w16 if r["route"] == "mma"),
         "library_ms": sum(r["library"] for r in w16),  # conv2d_weight bf16
         "f32_entry_ms": sum(r["f32"] for r in w16),
         "depthwise_ms": w16x["dw_112x32"]["kernel"],
@@ -6568,6 +6707,7 @@ def run(torch, args, cache_dir: str) -> int:
         "launches": lmb["launches"]["flash_attention_bf16"],
         "max_abs_err": max(r["err"] for r in lmb["flash"]),
         "max_rel_err": max(r["rel"] for r in lmb["flash"]),
+        "max_f64_excess": max(r["excess"] for r in lmb["flash"]),
         # case (a), the qwen2.5-3b prefill's shape, CUDA graphs
         "ms": a["kernel"],
         "plain_ms": a["plain"],

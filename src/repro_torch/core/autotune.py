@@ -33,7 +33,11 @@ record also holds the layer's bf16 route (``"route": "mma"|"ffma"``,
 ``conv_plan.bf16_route``), a fused one its stages' (``"routes"``); a
 record without it predates the tensor-core route (it was tuned for the
 fmaf chain, route ``"ffma"``) and is read only where the route is still
-``"ffma"``: it is never replayed as an ``mma`` plan.
+``"ffma"``: it is never replayed as an ``mma`` plan.  Likewise a
+``bfloat16`` ``conv2d_wgrad:`` record holds the layer's weight-gradient
+route (``"route": "mma"|"gemm"|"depthwise"``, ``conv_plan.wgrad_route``);
+one without it was tuned for the widened FFMA kernel and is never read on
+a layer of route ``"mma"``.
 
 Keys are ``<op>:n..h..w..cin..cout..k<kh>x<kw>s..p<t>.<b>.<l>.<r>g..:
 <dtype>:<backend>``: the problem as the port's kernel sees it — the
@@ -73,9 +77,8 @@ import torch
 from repro_torch.core import conv_plan
 from repro_torch.core.conv_plan import (BF16_TILE_COUTS, CONV_MAX_TILE_COUT,
                                         DATAFLOWS, Q8_TILE_COUTS,
-                                        SMEM_PER_BLOCK, SMS, WGRAD_TILE_ROWS,
-                                        ConvPlan, WeightGradPlan,
-                                        _wgrad_min_rows, _wgrad_seconds,
+                                        SMEM_PER_BLOCK, SMS, ConvPlan,
+                                        WeightGradPlan, _wgrad_min_rows,
                                         bf16_route, input_grad_geometry,
                                         mma_strip_clocks, normalize_pad)
 from repro_torch.device import resolve_device
@@ -377,12 +380,12 @@ def weight_grad_knobs_for(x_shape, w_shape, *, stride: int = 1, pad=0,
     tag = (cache_path(path), key)
     if tag not in _CHECKED:
         _CHECKED[tag] = _checked_wgrad_record(key, x_shape, w_shape, stride,
-                                              pad, groups, path)
+                                              pad, groups, dtype, path)
     return _CHECKED[tag]
 
 
 def _checked_wgrad_record(key, x_shape, w_shape, stride, pad, groups,
-                          path) -> dict | None:
+                          dtype, path) -> dict | None:
     rec = lookup(key, path)
     if rec is None:
         return None
@@ -390,10 +393,18 @@ def _checked_wgrad_record(key, x_shape, w_shape, stride, pad, groups,
         _reject(key, f"bad shape/type/knobs: {rec!r}", path)
         return None
     try:
-        WeightGradPlan.build(x_shape, w_shape, stride=stride, pad=pad,
-                             groups=groups, tile_go=rec["tile_go"])
+        plan = WeightGradPlan.build(x_shape, w_shape, stride=stride, pad=pad,
+                                    groups=groups, tile_go=rec["tile_go"],
+                                    dtype_bytes=_dtype_bytes(dtype))
     except ValueError as e:
         _reject(key, f"knobs infeasible for current geometry: {e}", path)
+        return None
+    # a record names its route (bf16), or has none and was tuned for the
+    # FFMA kernel, which no layer of route mma runs
+    route = rec.get("route")
+    if route != plan.route and (route is not None or plan.route == "mma"):
+        _reject(key, f"a record of wgrad route {rec.get('route')!r} for a "
+                     f"layer on route {plan.route!r}", path)
         return None
     return rec
 
@@ -630,11 +641,12 @@ def tune(x_shape, w_shape, *, stride: int = 1, pad=0, groups: int = 1,
 # ---------------------------------------------------------------------------
 
 def candidate_weight_grad_knobs(x_shape, w_shape, *, stride: int = 1,
-                                pad=0, groups: int = 1) -> list:
+                                pad=0, groups: int = 1,
+                                dtype_bytes: int = 4) -> list:
     """Distinct :class:`WeightGradPlan` candidates over ``tile_go``: the
     cotangent-row ticks 1, 2, ..., 32, the default's and all rows (each
     raised to the workspace cap by the plan), the default first."""
-    kw = dict(stride=stride, pad=pad, groups=groups)
+    kw = dict(stride=stride, pad=pad, groups=groups, dtype_bytes=dtype_bytes)
     base = WeightGradPlan.build(x_shape, w_shape, **kw)
     rows = base.n * base.h_out
     plans = {base: None}
@@ -646,20 +658,17 @@ def candidate_weight_grad_knobs(x_shape, w_shape, *, stride: int = 1,
 
 
 def _wgrad_score(p: WeightGradPlan, base: WeightGradPlan) -> tuple:
-    """``WeightGradPlan``'s own ranking.  GEMM route: chunks of fewer
+    """``WeightGradPlan``'s own ranking.  GEMM routes: chunks of fewer
     than its minimum rows last, then the plan's time model
-    (``conv_plan._wgrad_seconds``: whole rounds of resident blocks at 67
-    TFLOP/s plus the workspace's traffic at 3.35 TB/s), ties to the
-    taller chunk.  Depthwise route: the plan's block-count rule (the
-    default) first, then taller chunks."""
+    (``WeightGradPlan.model_seconds``: whole rounds of resident blocks at
+    the route's rate, 67 TFLOP/s of FFMA or 989 of the bf16 tensor cores,
+    plus the workspace's traffic at 3.35 TB/s), ties to the taller chunk.
+    Depthwise route: the plan's block-count rule (the default) first,
+    then taller chunks."""
     if p.route == "depthwise":
         return (p.tile_go != base.tile_go, 0.0, -p.tile_go)
-    rows = p.n * p.h_out
-    _, min_rows = _wgrad_min_rows(rows, p.w_out, p.dw_elems)
-    return (p.tile_go < min_rows,
-            _wgrad_seconds(rows, p.w_out, p.tiles,
-                           2 * WGRAD_TILE_ROWS * p.tile_cout, p.dw_elems,
-                           p.tile_go), -p.tile_go)
+    _, min_rows = _wgrad_min_rows(p.n * p.h_out, p.w_out, p.dw_elems)
+    return (p.tile_go < min_rows, p.model_seconds(), -p.tile_go)
 
 
 def tune_weight_grad(x_shape, w_shape, *, stride: int = 1, pad=0,
@@ -667,20 +676,26 @@ def tune_weight_grad(x_shape, w_shape, *, stride: int = 1, pad=0,
                      write: bool = True, path: str | None = None) -> dict:
     """Tune the weight-gradient kernel of one forward problem by
     :func:`_wgrad_score` (model only, as in JAX) and (by default) persist
-    it under ``conv2d_wgrad:`` at ``dtype`` (the bf16 entry runs the f32
-    geometry, so both dtypes rank the same plans; each keeps its own
-    record, as the backward looks them up at the tensors' dtype)."""
+    it under ``conv2d_wgrad:`` at ``dtype``.  A bf16 record names the
+    layer's route (``"route"``): on route mma the candidates are the bf16
+    tensor-core plans, ranked at their own rate; on routes gemm and
+    depthwise the bf16 entry runs the f32 geometry, so both dtypes rank
+    the same plans (each keeps its own record, as the backward looks them
+    up at the tensors' dtype)."""
     if dtype not in ("float32", "bfloat16"):
         raise ValueError(f"the weight-gradient kernel takes float32 or "
                          f"bfloat16, got {dtype!r}")
     dev = resolve_device(device)
     plans = candidate_weight_grad_knobs(x_shape, w_shape, stride=stride,
-                                        pad=pad, groups=groups)
+                                        pad=pad, groups=groups,
+                                        dtype_bytes=_dtype_bytes(dtype))
     best = min(plans, key=lambda p: _wgrad_score(p, plans[0]))
     record = dict(tile_go=best.tile_go, source="model",
                   model_key=[float(v) for v in _wgrad_score(best,
                                                             plans[0])],
                   measured_us=None, chunks=best.chunks, blocks=best.blocks)
+    if dtype == "bfloat16":
+        record["route"] = best.route
     if write:
         store(make_key(x_shape, w_shape, stride=stride, pad=pad,
                        groups=groups, dtype=dtype, device=dev,

@@ -5,7 +5,9 @@ for the H100 forward kernel of ``kernels/csrc/trim_conv2d.cu`` (which
 also runs the input gradient, laid out by :func:`input_grad_geometry`);
 :class:`WeightGradPlan` plans the weight-gradient kernel of
 ``kernels/csrc/trim_conv2d_wgrad.cu`` (:class:`BF16WeightGradPlan` its
-bf16 entry), :class:`Conv1dPlan` the causal
+bf16 entry, on the bf16 tensor cores where :func:`wgrad_route` says
+``"mma"``; constants ``WGRAD_*``, route mma's ``WGRAD_MMA_*``),
+:class:`Conv1dPlan` the causal
 depthwise conv1d of ``kernels/csrc/trim_conv1d.cu`` (also its input
 gradient) and :class:`Conv1dWeightGradPlan` its weight gradient,
 ``kernels/csrc/trim_conv1d_wgrad.cu``.  The TPU forward plan
@@ -1042,18 +1044,44 @@ WGRAD_MIN_CHUNK_POSITIONS = 256
 WGRAD_WORKSPACE_CAP = 256 * 2**20   # bytes of per-chunk partial sums
 WGRAD_DW_BLOCKS = 4 * SMS * (2048 // WGRAD_THREADS)   # depthwise: 4 full
                               # waves of resident blocks (8 an SM)
+# The routes, in the launcher's order (enum WgradRoute)
+WGRAD_ROUTES = ("gemm", "depthwise", "mma")
+# Route mma (bf16 operands on the bf16 tensor cores; kMma* of the .cu)
+WGRAD_MMA_TILE_ROWS = 128     # rows a block (kMmaTileRows)
+WGRAD_MMA_POSITIONS = 64      # cotangent positions a ring stage: 4 k-steps
+WGRAD_MMA_STAGES = 3          # stages of its cp.async ring (kMmaStages)
+WGRAD_MMA_BLOCKS_PER_SM = 2   # __launch_bounds__(kThreads, 2)
+WGRAD_MMA_SLOTS = SMS * WGRAD_MMA_BLOCKS_PER_SM   # resident mma blocks
+WGRAD_MMA_PITCH_PAD = 8       # bf16 past each staged row (kBf16RowPad: an
+                              # odd count of 16-byte quads)
+
+
+def wgrad_route(cin: int, cout: int, groups: int, dtype_bytes: int) -> str:
+    """The weight-gradient kernel's route for a layer: ``"depthwise"``
+    where groups == Cin == Cout; on bf16 operands ``"mma"`` (the bf16
+    tensor cores) where Cin/g is a multiple of 16 and Cout/g of 8; else
+    ``"gemm"`` (the FFMA loop; bf16 widened into its f32 stages).  A
+    function of the layer alone: the launcher checks it."""
+    if groups == cin == cout:
+        return "depthwise"
+    if (dtype_bytes == 2 and (cin // groups) % BF16_MMA_K == 0
+            and (cout // groups) % BF16_MMA_N == 0):
+        return "mma"
+    return "gemm"
 
 
 def _wgrad_seconds(rows: int, w_out: int, tiles: int, tile_flops: int,
-                   dw_elems: int, t: int) -> float:
-    """The GEMM route's time model at a chunk height of ``t`` cotangent
-    rows: ``ceil(blocks / WGRAD_SLOTS)`` rounds of blocks that each do
+                   dw_elems: int, t: int, slots: int, peak: float) -> float:
+    """The GEMM routes' time model at a chunk height of ``t`` cotangent
+    rows: ``ceil(blocks / slots)`` rounds of blocks that each do
     ``tile_flops`` per position of the largest chunk at one slot's share
-    of 67 TFLOP/s, plus the workspace's traffic (partials written and
-    read, dw written) at 3.35 TB/s."""
+    of ``peak`` (route gemm: :data:`WGRAD_SLOTS` at 67 TFLOP/s of FFMA;
+    route mma: :data:`WGRAD_MMA_SLOTS` at 989 TFLOP/s of bf16), plus the
+    workspace's traffic (partials written and read, dw written) at
+    3.35 TB/s."""
     chunks = -(-rows // t)
-    rounds = -(-tiles * chunks // WGRAD_SLOTS)
-    ops_s = rounds * t * w_out * tile_flops * WGRAD_SLOTS / PEAK_F32_FLOPS
+    rounds = -(-tiles * chunks // slots)
+    ops_s = rounds * t * w_out * tile_flops * slots / peak
     ws_s = 0 if chunks == 1 else \
         (2 * chunks + 1) * 4 * dw_elems / PEAK_BYTES_PER_S
     return ops_s + ws_s
@@ -1061,13 +1089,15 @@ def _wgrad_seconds(rows: int, w_out: int, tiles: int, tile_flops: int,
 
 @functools.lru_cache(maxsize=None)
 def _wgrad_chunk_rows(rows: int, w_out: int, tiles: int, tile_flops: int,
-                      dw_elems: int, min_rows: int) -> int:
-    """The GEMM route's chunk height (cotangent rows) from ``min_rows`` up
+                      dw_elems: int, min_rows: int, slots: int,
+                      peak: float) -> int:
+    """The GEMM routes' chunk height (cotangent rows) from ``min_rows`` up
     that minimises :func:`_wgrad_seconds`.  Ties go to the taller chunk
     (less workspace)."""
     best = None
     for t in range(rows, min_rows - 1, -1):
-        sec = _wgrad_seconds(rows, w_out, tiles, tile_flops, dw_elems, t)
+        sec = _wgrad_seconds(rows, w_out, tiles, tile_flops, dw_elems, t,
+                             slots, peak)
         if best is None or sec < best[0]:
             best = (sec, t)
     return best[1]
@@ -1122,10 +1152,14 @@ class WeightGradPlan:
 
     The element size of x, the cotangent and dw is the class's
     ``dtype_bytes`` (4 here; :class:`BF16WeightGradPlan`, from
-    ``build(..., dtype_bytes=2)``, for the bf16 entry).  Only the byte
-    counts depend on it: the bf16 entry widens its operands into the f32
-    kernel's stages, so it runs the f32 geometry, chunks and f32
-    partials, and an f32 plan prints as it did before.
+    ``build(..., dtype_bytes=2)``, for the bf16 entry).  On routes gemm
+    and depthwise only the byte counts depend on it: the bf16 entry
+    widens its operands into the f32 kernel's stages, so it runs the f32
+    geometry, chunks and f32 partials.  A bf16 layer on route ``"mma"``
+    (:func:`wgrad_route`) runs the bf16 tensor cores: tiles of
+    :data:`WGRAD_MMA_TILE_ROWS` rows, and chunks from the time model at
+    :data:`WGRAD_MMA_SLOTS` resident blocks and 989 TFLOP/s.  An f32
+    plan prints as it did before.
     """
 
     dtype_bytes: ClassVar[int] = 4
@@ -1181,10 +1215,9 @@ class WeightGradPlan:
                 chunks = -(-WGRAD_DW_BLOCKS // plan.tiles)
                 tile_go = -(-rows // chunks)
             else:
-                tile_go = _wgrad_chunk_rows(
-                    rows, w_out, plan.tiles,
-                    2 * WGRAD_TILE_ROWS * plan.tile_cout, dw_elems,
-                    min_rows)
+                flops, slots, peak = plan._model()
+                tile_go = _wgrad_chunk_rows(rows, w_out, plan.tiles, flops,
+                                            dw_elems, min_rows, slots, peak)
         tile_go = min(max(tile_go, cap_rows), rows)
         return cls(n=n, h=h, w=w, cin=cin, cout=cout, kh=kh, kw=kw,
                    stride=stride, pads=pads, groups=groups, tile_go=tile_go)
@@ -1199,12 +1232,36 @@ class WeightGradPlan:
 
     @property
     def route(self) -> str:
-        """``"depthwise"`` where groups == Cin == Cout, else ``"gemm"``.
-        The wrapper passes it, :attr:`tile_cout` and :attr:`blocks` to the
-        kernel's launcher, which launches what they say and refuses a
-        block count that its own tile constants do not give."""
-        return "depthwise" if self.groups == self.cin == self.cout \
-            else "gemm"
+        """:func:`wgrad_route` of the layer: ``"depthwise"`` where groups
+        == Cin == Cout, else ``"gemm"`` (f32; :class:`BF16WeightGradPlan`
+        adds ``"mma"``).  The wrapper passes it, :attr:`tile_cout` and
+        :attr:`blocks` to the kernel's launcher, which launches what they
+        say and refuses a route or a block count that the layer and its
+        own tile constants do not give."""
+        return wgrad_route(self.cin, self.cout, self.groups,
+                           self.dtype_bytes)
+
+    def _model(self) -> tuple:
+        """(FLOPs a block does a position, resident blocks, peak FLOP/s)
+        of the route's time model (:func:`_wgrad_seconds`).  Route mma is
+        priced at the nominal bf16 peak, not at the 117-251 TFLOP/s the
+        card gives it per VGG-16 layer (``chip_smoke.py``): the chunk
+        heights this gives (one chunk of 144 blocks for conv9-13 at N=8)
+        have not been checked against others on the card."""
+        if self.route == "mma":
+            return (2 * WGRAD_MMA_TILE_ROWS * self.tile_cout,
+                    WGRAD_MMA_SLOTS, PEAK_BF16_FLOPS)
+        return 2 * WGRAD_TILE_ROWS * self.tile_cout, WGRAD_SLOTS, \
+            PEAK_F32_FLOPS
+
+    def model_seconds(self, tile_go: int | None = None) -> float:
+        """:func:`_wgrad_seconds` of the plan's route at a chunk height of
+        ``tile_go`` cotangent rows (the plan's own by default)."""
+        flops, slots, peak = self._model()
+        return _wgrad_seconds(self.n * self.h_out, self.w_out, self.tiles,
+                              flops, self.dw_elems,
+                              self.tile_go if tile_go is None else tile_go,
+                              slots, peak)
 
     @property
     def tile_cout(self) -> int:
@@ -1219,7 +1276,9 @@ class WeightGradPlan:
         of :data:`WGRAD_THREADS` (tap, channel) elements."""
         if self.route == "depthwise":
             return -(-self.dw_elems // WGRAD_THREADS)
-        return (self.groups * -(-self.rows // WGRAD_TILE_ROWS)
+        tile_rows = WGRAD_MMA_TILE_ROWS if self.route == "mma" \
+            else WGRAD_TILE_ROWS
+        return (self.groups * -(-self.rows // tile_rows)
                 * -(-self.cout_per_group // self.tile_cout))
 
     @property
@@ -1274,8 +1333,9 @@ class WeightGradPlan:
 @dataclass(frozen=True)
 class BF16WeightGradPlan(WeightGradPlan):
     """The :class:`WeightGradPlan` of the bf16 entry
-    (``trim_conv2d_wgrad_bf16``): bf16 x, cotangent and dw, the same
-    geometry and f32 partials."""
+    (``trim_conv2d_wgrad_bf16``): bf16 x, cotangent and dw, f32 partials;
+    the f32 geometry on routes gemm and depthwise, its own tiles and
+    chunks on route mma."""
 
     dtype_bytes = 2
 

@@ -47,7 +47,9 @@ SOURCES = {
                        "trim_conv2d_q8_halo": _Q8_ARGS},
     "trim_conv2d_wgrad": {"trim_conv2d_wgrad": _WGRAD_ARGS,
                           "trim_conv2d_wgrad_bf16": _WGRAD_ARGS,
-                          "trim_conv2d_wgrad_resident_blocks": [_I, _P]},
+                          "trim_conv2d_wgrad_resident_blocks": [_I, _P],
+                          "trim_conv2d_wgrad_mma_resident_blocks":
+                              [_I, _P]},
     "trim_conv2d_fused": {"trim_conv2d_fused": _FUSED_ARGS,
                           "trim_conv2d_fused_bf16": _FUSED_BF16_ARGS},
     "flash_attention": {"flash_attention_f32": _ATTN_ARGS,

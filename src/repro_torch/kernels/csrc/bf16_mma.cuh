@@ -1,6 +1,9 @@
 // The k-order of a bf16 conv output on the tensor cores, shared by the
 // per-layer conv kernel (trim_conv2d.cu, route "mma") and the fused-group
-// kernel (trim_conv2d_fused.cu, its stages on route "mma").
+// kernel (trim_conv2d_fused.cu, its stages on route "mma").  The weight
+// gradient's route "mma" (trim_conv2d_wgrad.cu) and the flash kernel's
+// bf16 narrow route (flash_attention.cu) use the loaders and the
+// instruction below in k-orders of their own, each stated in its file.
 //
 // Contract.  On a layer whose Cin/g is a multiple of 16 (core/conv_plan.py,
 // bf16_route), each bf16 output element y[n, oh, ow, co] is
@@ -74,6 +77,20 @@ __device__ __forceinline__ void ldsm_x4_trans(const void* p,
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
       "[%4];\n"
       : "=r"(b[0]), "=r"(b[1]), "=r"(c[0]), "=r"(c[1])
+      : "r"(bf16_smem_addr(p)));
+}
+
+// An A fragment from k-major rows (A^T stored row by row, the weight
+// gradient's position-major x stage): lane l gives the address of k row
+// (l & 7) + 8 (l >> 4), m columns 8 ((l >> 3) & 1) on, so the four
+// transposed 8 x 8 matrices land as a0 (m 0-7, k 0-7), a1 (m 8-15, k 0-7),
+// a2 (m 0-7, k 8-15), a3 (m 8-15, k 8-15).
+__device__ __forceinline__ void ldsm_x4_trans_a(const void* p,
+                                                uint32_t (&a)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
       : "r"(bf16_smem_addr(p)));
 }
 

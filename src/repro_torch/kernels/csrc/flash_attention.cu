@@ -102,27 +102,42 @@
 // (flash_attention.py:44-45, :66, :73).  The same kernels run on bf16
 // operands (the template's T): the Q tile and the K / V ring hold bf16,
 // so a 16-byte cp.async carries 8 elements and a ring stage takes half
-// the f32 bytes (row stride Dp + 8 elements: the fragment reads stay
-// free of bank conflicts); everything after the load is f32.  A bf16
-// value is exact in TF32 (8 bits of mantissa in 10), so Q K^T needs one
-// TF32 mma a k-step on the widened values, where the f32 route needs
-// three, and P V two: P's big and small halves against the exact V.  The
-// fresh accumulator per pair of k-steps and per key tile (see
-// "Truncation") is kept, and so is the lse output (f32).  o is rounded
+// the f32 bytes; everything after the products is f32.  On the narrow
+// route the products run on the bf16 tensor cores, mma.sync m16n8k16
+// (bf16_mma.cuh), not on TF32:
+//   Q K^T: A = 16 Q rows x 16 d by ldmatrix.x4 from the Q tile, B = 16 d x
+//     8 keys by non-transposed ldmatrix.x4 from the key-major K stage (d
+//     contiguous: the mma's "col" B); a bf16 product is exact in f32.
+//   P V: the C fragments of two adjacent n8 score tiles (keys 16 j ..
+//     16 j + 15 of the tile) are the A fragment of one k16 step as they
+//     stand (a lane holds keys 2t, 2t + 1 and 2t + 8, 2t + 9 of rows g and
+//     g + 8), so no permutation of k and no shuffle is needed.  P is f32
+//     in JAX, so each weight is split, p_hi = bf16_rn(p) and p_lo =
+//     bf16_rn(p - p_hi) (p - p_hi is exact in f32), and both go against
+//     the exact bf16 V (B by ldmatrix.x4.trans from the [key][d] stage):
+//     p_hi + p_lo keeps p to within 2^-16 of |p| (bf16's unit roundoff
+//     2^-8, twice), where one bf16 P would leave up to 2^-8.
+// The fresh accumulator per pair of k-steps (32 d) for S and per key tile
+// for P V (p_hi and p_lo each their own, added to O as hi + lo) is kept
+// (see "Truncation"), and so is the lse output (f32).  Row stride Dp + 8
+// elements: an odd count of 16-byte quads (Dp 64: 9, 128: 17, 256: 33), so
+// no ldmatrix phase has a bank conflict; the tiles take 55,296, 104,448
+// and 101,376 bytes of shared memory at Dp 64, 128 and 256.  o is rounded
 // to bf16 once, at the store.  The wide route widens its tile loads and
-// rounds at its store likewise.  The bound of the bf16 narrow route is
-// its FLOPs over 989 TFLOP/s; its tensor-core work is FLOPs x 1.5 at the
-// TF32 rate (495 TFLOP/s).
+// rounds at its store likewise.  The bound of the bf16 narrow route is its
+// FLOPs over 989 TFLOP/s; its tensor-core work is FLOPs x 1.5 at that rate
+// (Q K^T once, P V twice).
 //
 // Left for later: wgmma and TMA-fed K/V behind a producer warp, a key
 // split for few-row calls (Lq = 17), the wide route on the tensor cores,
-// the bf16 route on bf16 mma.sync (m16n8k16) or wgmma.
+// the bf16 route on wgmma.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "cp_async.cuh"
 #include "elem.cuh"
 #include "tf32_mma.cuh"
@@ -167,9 +182,18 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 zero_elem<__nv_bfloat16>() {
   return __ushort_as_bfloat16(0);
 }
-// A bf16 value as a TF32 operand: its widening, exact (no split needed)
-__device__ __forceinline__ uint32_t tf32_bits(__nv_bfloat16 x) {
-  return (uint32_t)__bfloat16_as_ushort(x) << 16;
+// Two f32 weights (the lower k first) as bf16 pairs: hi = bf16_rn(x),
+// lo = bf16_rn(x - hi); x - hi is exact in f32
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t &hi,
+                                           uint32_t &lo) {
+  const __nv_bfloat16 h0 = __float2bfloat16_rn(x0);
+  const __nv_bfloat16 h1 = __float2bfloat16_rn(x1);
+  const __nv_bfloat16 l0 = __float2bfloat16_rn(x0 - __bfloat162float(h0));
+  const __nv_bfloat16 l1 = __float2bfloat16_rn(x1 - __bfloat162float(h1));
+  hi = (uint32_t)__bfloat16_as_ushort(h0) |
+       ((uint32_t)__bfloat16_as_ushort(h1) << 16);
+  lo = (uint32_t)__bfloat16_as_ushort(l0) |
+       ((uint32_t)__bfloat16_as_ushort(l1) << 16);
 }
 
 // Row padding of the shared tiles, in elements: 16 bytes, which keeps
@@ -307,45 +331,67 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
     for (int j = 0; j < kNt; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    if constexpr (kF32) {
 #pragma unroll 1
-    for (int d0 = 0; d0 < kDp; d0 += 16) {
-      uint32_t ab[2][4], as[2][4];
+      for (int d0 = 0; d0 < kDp; d0 += 16) {
+        uint32_t ab[2][4], as[2][4];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const T *qr = qw + gq * kS + d0 + 8 * h + tq;
-        if constexpr (kF32) {
+        for (int h = 0; h < 2; ++h) {
+          const T *qr = qw + gq * kS + d0 + 8 * h + tq;
           split_tf32(qr[0], ab[h][0], as[h][0]);
           split_tf32(qr[8 * kS], ab[h][1], as[h][1]);
           split_tf32(qr[4], ab[h][2], as[h][2]);
           split_tf32(qr[8 * kS + 4], ab[h][3], as[h][3]);
-        } else {   // exact in TF32: no small half
-          ab[h][0] = tf32_bits(qr[0]);
-          ab[h][1] = tf32_bits(qr[8 * kS]);
-          ab[h][2] = tf32_bits(qr[4]);
-          ab[h][3] = tf32_bits(qr[8 * kS + 4]);
         }
-      }
 #pragma unroll
-      for (int j = 0; j < kNt; ++j) {
-        // two k-steps into a fresh accumulator, added to s in f32 (see
-        // "Truncation" above)
-        float t[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int j = 0; j < kNt; ++j) {
+          // two k-steps into a fresh accumulator, added to s in f32 (see
+          // "Truncation" above)
+          float t[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const T *kr = ks + (8 * j + gq) * kS + d0 + 8 * h + tq;
-          uint32_t bb[2], bs[2];
-          if constexpr (kF32) {
+          for (int h = 0; h < 2; ++h) {
+            const T *kr = ks + (8 * j + gq) * kS + d0 + 8 * h + tq;
+            uint32_t bb[2], bs[2];
             split_tf32(kr[0], bb[0], bs[0]);
             split_tf32(kr[4], bb[1], bs[1]);
             mma_3xtf32(t, t, ab[h], as[h], bb, bs);
-          } else {
-            bb[0] = tf32_bits(kr[0]);
-            bb[1] = tf32_bits(kr[4]);
-            mma_tf32(t, ab[h], bb);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] += t[e];
+        }
+      }
+    } else {
+      // bf16: a k-step is 16 d; two k-steps (32 d) into a fresh
+      // accumulator per pair of score tiles, added to s in f32.  Q rows by
+      // ldmatrix.x4 (lane: row (l & 7) + 8 ((l >> 3) & 1), d 8 (l >> 4));
+      // K rows likewise, non-transposed (lane: key (l & 7) + 8 (l >> 4),
+      // d 8 ((l >> 3) & 1)): b0 / b1 of score tiles 2 jj and 2 jj + 1
+      const T *qa = qw + ((lane & 7) + 8 * ((lane >> 3) & 1)) * kS +
+                    8 * (lane >> 4);
+      const T *ka = ks + ((lane & 7) + 8 * (lane >> 4)) * kS +
+                    8 * ((lane >> 3) & 1);
+#pragma unroll 1
+      for (int d0 = 0; d0 < kDp; d0 += 32) {
+        uint32_t af[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) ldsm_x4(qa + d0 + 16 * h, af[h]);
+#pragma unroll
+        for (int jj = 0; jj < kNt / 2; ++jj) {
+          float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t kb[4];
+            ldsm_x4(ka + 16 * jj * kS + d0 + 16 * h, kb);
+            const uint32_t b0[2] = {kb[0], kb[1]}, b1[2] = {kb[2], kb[3]};
+            mma_bf16(t0, af[h], b0);
+            mma_bf16(t1, af[h], b1);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[2 * jj][e] += t0[e];
+            s[2 * jj + 1][e] += t1[e];
           }
         }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] += t[e];
       }
     }
 
@@ -390,40 +436,74 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
       }
     }
 
-    // O += P V over 8 keys a k-step, k index permuted: A(row, k = tq) is
-    // P(row, key 2 tq) and A(row, k = tq + 4) is P(row, key 2 tq + 1).
-    // Each 8-column tile of O takes the tile's keys in a fresh
-    // accumulator, added to O in f32 (round to nearest): the tensor
-    // cores' accumulation truncates, and 3 x Lk / 8 truncated adds into O
-    // itself would bias it by ~3e-5 of |O| at Lk = 4096.
-    uint32_t pb[kNt][4], ps[kNt][4];
-#pragma unroll
-    for (int j = 0; j < kNt; ++j) {
-      split_tf32(s[j][0], pb[j][0], ps[j][0]);
-      split_tf32(s[j][2], pb[j][1], ps[j][1]);
-      split_tf32(s[j][1], pb[j][2], ps[j][2]);
-      split_tf32(s[j][3], pb[j][3], ps[j][3]);
-    }
-    const T *vr = vs + 2 * tq * kS + gq;
-#pragma unroll
-    for (int c = 0; c < kOt; ++c) {
-      float t[4] = {0.f, 0.f, 0.f, 0.f}, tc[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (kF32) {
+      // O += P V over 8 keys a k-step, k index permuted: A(row, k = tq) is
+      // P(row, key 2 tq) and A(row, k = tq + 4) is P(row, key 2 tq + 1).
+      // Each 8-column tile of O takes the tile's keys in a fresh
+      // accumulator, added to O in f32 (round to nearest): the tensor
+      // cores' accumulation truncates, and 3 x Lk / 8 truncated adds into
+      // O itself would bias it by ~3e-5 of |O| at Lk = 4096.
+      uint32_t pb[kNt][4], ps[kNt][4];
 #pragma unroll
       for (int j = 0; j < kNt; ++j) {
-        uint32_t bb[2], bs[2];
-        if constexpr (kF32) {
+        split_tf32(s[j][0], pb[j][0], ps[j][0]);
+        split_tf32(s[j][2], pb[j][1], ps[j][1]);
+        split_tf32(s[j][1], pb[j][2], ps[j][2]);
+        split_tf32(s[j][3], pb[j][3], ps[j][3]);
+      }
+      const T *vr = vs + 2 * tq * kS + gq;
+#pragma unroll
+      for (int c = 0; c < kOt; ++c) {
+        float t[4] = {0.f, 0.f, 0.f, 0.f}, tc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < kNt; ++j) {
+          uint32_t bb[2], bs[2];
           split_tf32(vr[8 * j * kS + 8 * c], bb[0], bs[0]);
           split_tf32(vr[(8 * j + 1) * kS + 8 * c], bb[1], bs[1]);
           mma_3xtf32(t, tc, pb[j], ps[j], bb, bs);
-        } else {   // V exact: P's two halves, two mmas
-          bb[0] = tf32_bits(vr[8 * j * kS + 8 * c]);
-          bb[1] = tf32_bits(vr[(8 * j + 1) * kS + 8 * c]);
-          mma_tf32(tc, ps[j], bb);
-          mma_tf32(t, pb[j], bb);
         }
-      }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[c][e] += t[e] + tc[e];
+        for (int e = 0; e < 4; ++e) o[c][e] += t[e] + tc[e];
+      }
+    } else {
+      // O += P V over 16 keys a k-step: score tiles 2 jj and 2 jj + 1 are
+      // the A fragment (a0, a1 from tile 2 jj's rows g, g + 8; a2, a3 from
+      // tile 2 jj + 1's), split into p_hi and p_lo; V's B fragments of two
+      // 8-column tiles by ldmatrix.x4.trans (lane: key (l & 7) + 8 ((l >> 3)
+      // & 1), d 8 (l >> 4)).  Per key tile a fresh accumulator each for
+      // p_hi V and p_lo V, added to O as hi + lo.
+      uint32_t ph[kNt / 2][4], pl[kNt / 2][4];
+#pragma unroll
+      for (int jj = 0; jj < kNt / 2; ++jj)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float *src = s[2 * jj + (r >> 1)] + 2 * (r & 1);
+          split_bf16(src[0], src[1], ph[jj][r], pl[jj][r]);
+        }
+      const T *va = vs + ((lane & 7) + 8 * ((lane >> 3) & 1)) * kS +
+                    8 * (lane >> 4);
+#pragma unroll
+      for (int c2 = 0; c2 < kOt / 2; ++c2) {
+        float th[2][4], tl[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) th[i][e] = tl[i][e] = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < kNt / 2; ++jj) {
+          uint32_t vb[2][2];
+          ldsm_x4_trans(va + 16 * jj * kS + 16 * c2, vb[0], vb[1]);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma_bf16(tl[i], pl[jj], vb[i]);
+            mma_bf16(th[i], ph[jj], vb[i]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[2 * c2 + i][e] += th[i][e] + tl[i][e];
+      }
     }
   }
 

@@ -17,9 +17,11 @@
 //
 // What bounds it on the H100.  At VGG-16 shapes the weight gradient does
 // as many FLOPs as the forward conv on as many bytes, hundreds of FLOPs per
-// byte, so the bound is operations: 67 TFLOP/s of f32 FFMA.  The kernel
-// stays on those pipes (no TF32, no tensor cores), so the bound stays
-// 67 TFLOP/s and its result stays one fmaf chain per element.
+// byte, so the bound is operations: 67 TFLOP/s of f32 FFMA for f32
+// operands, 989 TFLOP/s of the bf16 tensor cores for bf16 ones.  The f32
+// entry stays on the FFMA pipes (no TF32, no tensor cores), so its result
+// stays one fmaf chain per element; the bf16 entry's route "mma" (below)
+// runs on the bf16 tensor cores.
 //
 // Chunks (core/conv_plan.py WeightGradPlan).  The TPU kernel sweeps
 // (image, strip of cotangent rows) in sequence into one resident f32
@@ -46,21 +48,65 @@
 //
 // bf16 operands (trim_conv2d_wgrad_bf16).  JAX's kernel takes bf16 x and
 // cotangent, sums their products in f32 (preferred_element_type) into an
-// f32 block and casts dw to bf16 once.  Here the element type is a
-// template parameter of the same kernel: the loaders widen each bf16 value
-// to f32 on its way into the same f32 shared-memory stages, and the FFMA
-// loop, the tiles, the chunks and the ordered reduction are the f32
-// kernel's.  A bf16 x bf16 product is exact in f32, so the bf16 entry's
-// f32 dw is bitwise the f32 entry's on the widened operands under the
-// same plan.  The entry writes f32 dw; autograd rounds it once to bf16.
-// cp.async cannot widen and has no 2-byte copy (a bf16 pixel of Cin 3 is
-// 6 bytes, so half of VGG-16 conv1's pixels do not start on a 4-byte
-// boundary), so the bf16 loaders load through registers: 16 bytes (8
-// bf16) a thread where Cin/g (Cout/g) is a multiple of 8 and the operand
-// 16-byte aligned, else one element a thread, again instances of one
-// kernel.  The loads of stage s + 2 are issued before stage s computes and
-// land in shared memory before the next barrier; the other resident warps
-// hide their latency.
+// f32 block and casts dw to bf16 once.  The entry writes f32 dw; autograd
+// rounds it once to bf16.  Two routes (core/conv_plan.py, wgrad_route):
+//
+// Route "mma" (wgrad_mma_kernel): Cin/g a multiple of 16, Cout/g of 8,
+// both operands 16-byte aligned (the wrapper copies one that is not):
+// VGG-16 conv2-13, AlexNet conv2-5, ResNet-18 and U-Net past their stems.
+// Per group dw is M = (ki, kj, ci) rows by N = co columns, and the k axis
+// is the chunk's cotangent positions (n, oh, ow).  A block owns 128 rows x
+// 128 (or 64) columns of one chunk: 8 warps of 2 x 4 (or 4 x 2), each
+// 4 (or 2) m16 x 4 n8 fragments of mma.sync.m16n8k16 bf16 -> f32.  x and
+// the cotangent stay bf16 in shared memory, position-major ([position]
+// [row], [position][column]), 64 positions a stage in a 3-stage ring
+// filled by 16-byte cp.async (8 channels, one tap: Cin/g % 16 == 0), zeros
+// at the virtual pad, past the chunk and past the tile; rows are padded to
+// an odd count of 16-byte quads (128 + 8 bf16: 17 quads; 64 + 8: 9), so
+// no ldmatrix phase has a bank conflict.  Both operands come through
+// ldmatrix.x4.trans: A = x^T (16 rows x 16 positions) by ldsm_x4_trans_a,
+// B = dz (16 positions x 8 columns) by ldsm_x4_trans, as the forward's B.
+// Taps: each 8-row group of a staged row is copied with its own tap's
+// offset, so x is re-staged for every tap a tile holds.  A stride-1 shift
+// of one staged strip would serve several taps, but the k axis runs over
+// flattened (n, oh, ow), so a shifted 16-position k-step crosses row ends
+// and the pad at other positions for every tap, and a k-step would need
+// a per-tap map from positions to strip rows; the re-staged copies come
+// from L2 and the tensor cores, not the copies, are what the loop waits
+// on.  Order contract, route mma: each partial-dw element
+//
+//   acc = 0.0f                                  (one f32 accumulator)
+//   for p0 = 0, 16, 32, ... < the chunk's positions, ascending (n, oh, ow):
+//     acc = mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32(A, B, acc)
+//           (k lane l of the step is position p0 + l, l = 0..15; positions
+//           past the chunk are zeros in both operands and add exact zeros)
+//
+// then the partials are summed in ascending chunk order by
+// wgrad_reduce_kernel (one fadd chain).  Nothing else enters a sum: no
+// split of the k axis across warps or blocks, no atomics, so two launches
+// are bitwise equal.  A chunk's chain (tile_go x W_out positions, e.g. 490
+// k-steps at VGG-16 conv2, N=8) goes into one tensor-core accumulator,
+// which truncates as it adds (flash_attention.cu, "Truncation"): at most
+// ~2^-23 of its running sum a k-step, within the bound chip_smoke.py holds
+// it to, (positions a chunk + chunks) 2^-22 sum|x dz|, so no chain is
+// broken into fresh accumulators.  The plain version is the f32 einsum,
+// which the tensor core's sum does not repeat bit for bit: the card holds
+// this route to a float64 oracle.
+//
+// Route "gemm" (the other bf16 layers: Cin 3, other grouped layers) and
+// "depthwise": the f32 kernels' template on bf16.  The loaders widen each
+// bf16 value to f32 on its way into the same f32 shared-memory stages,
+// and the FFMA loop, the tiles, the chunks and the ordered reduction are
+// the f32 kernel's.  A bf16 x bf16 product is exact in f32, so these
+// routes' f32 dw is bitwise the f32 entry's on the widened operands under
+// the same plan.  cp.async cannot widen and has no 2-byte copy (a bf16
+// pixel of Cin 3 is 6 bytes, so half of VGG-16 conv1's pixels do not start
+// on a 4-byte boundary), so these loaders load through registers: 16 bytes
+// (8 bf16) a thread where Cin/g (Cout/g) is a multiple of 8 and the
+// operand 16-byte aligned, else one element a thread, again instances of
+// one kernel.  The loads of stage s + 2 are issued before stage s computes
+// and land in shared memory before the next barrier; the other resident
+// warps hide their latency.
 //
 // Depthwise route (wgrad_depthwise_kernel, groups == Cin == Cout).  A GEMM
 // tile would use 9 rows and 1 column a group.  Here a thread owns one
@@ -70,7 +116,8 @@
 //
 // Determinism without float atomics.  The partial launch writes one
 // partial dw per chunk into a workspace: each element is ONE fmaf chain
-// over the chunk's positions in ascending (n, oh, ow) order.
+// (route mma: one tensor-core chain, above) over the chunk's positions in
+// ascending (n, oh, ow) order.
 // wgrad_reduce_kernel sums the partials of each element in ascending chunk
 // order, one fadd chain (float4 where dw's size allows).  The result
 // depends on the shape and the data only, so two launches on the same
@@ -84,6 +131,7 @@
 
 #include <type_traits>
 
+#include "bf16_mma.cuh"
 #include "cp_async.cuh"
 
 namespace {
@@ -95,8 +143,21 @@ constexpr int kTileRows = 128;    // rows of the flattened (ki, kj, ci) axis
 constexpr int kPositions = 16;    // cotangent positions a stage
 constexpr int kStages = 3;        // stages of the cp.async ring
 
+// route mma (kBf16* of bf16_mma.cuh)
+constexpr int kMmaTileRows = 128;    // rows a block
+constexpr int kMmaPositions = 64;    // cotangent positions a stage: 4 k-steps
+constexpr int kMmaStages = 3;        // stages of its cp.async ring
+constexpr int kMmaBlocksPerSm = 2;   // __launch_bounds__(kThreads, 2)
+constexpr int kMmaXPitch = kMmaTileRows + kBf16RowPad;   // bf16 a staged x
+                                                         // row: 17 quads
+
 static_assert(kThreads == 16 * 16 && kTileRows == 16 * 8,
               "a 16 x 16 thread grid of 8-row accumulator tiles");
+static_assert(kMmaTileRows == kTileRows, "both GEMM routes tile rows alike");
+
+// The routes (core/conv_plan.py WGRAD_ROUTES, in order): the plan's, passed
+// by the wrapper and checked by the launcher against the layer.
+enum WgradRoute { kRouteGemm = 0, kRouteDepthwise = 1, kRouteMma = 2 };
 
 struct WgradArgs {
   int n, h, w, cin, cout, kh, kw, stride, pad_top, pad_left, groups;
@@ -454,6 +515,190 @@ wgrad_gemm_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
+template <int kTileCout>
+constexpr size_t mma_smem_bytes() {
+  return (size_t)kMmaStages * kMmaPositions *
+         (kMmaXPitch + kTileCout + kBf16RowPad) * sizeof(bf16);
+}
+
+// Route mma (see the notes at the top): a block owns (chunk, group,
+// 128-row tile, kTileCout-column tile); warp w owns rows wm * 16 kMF ..
+// and columns wn * 32 .. of it, kMF m16 x 4 n8 accumulator fragments.
+template <int kTileCout>
+__global__ void __launch_bounds__(kThreads, kMmaBlocksPerSm)
+wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                 float* __restrict__ out, const WgradArgs a) {
+  constexpr int kWarpsN = kTileCout / kBf16WarpN;        // 4 or 2
+  constexpr int kWarpsM = kThreads / 32 / kWarpsN;       // 2 or 4
+  constexpr int kMF = kMmaTileRows / (kBf16MmaM * kWarpsM);   // 4 or 2
+  constexpr int kGPitch = kTileCout + kBf16RowPad;       // 17 or 9 quads
+  constexpr int kXStage = kMmaPositions * kMmaXPitch;
+  constexpr int kGStage = kMmaPositions * kGPitch;
+  constexpr int kSteps = kMmaPositions / kBf16MmaK;      // k-steps a stage
+  // loaders: 16-byte copies of 8 rows (x) or 8 columns (cotangent)
+  constexpr int kXGroups = kMmaTileRows / 8;             // 16 a position
+  constexpr int kXLanes = kThreads / kXGroups;           // positions at once
+  constexpr int kXPasses = kMmaPositions / kXLanes;      // 4
+  constexpr int kGGroups = kTileCout / 8;                // 16 or 8
+  constexpr int kGLanes = kThreads / kGGroups;           // 16 or 32
+  constexpr int kGPasses = kMmaPositions / kGLanes;      // 4 or 2
+  static_assert(kMF * kBf16MmaM * kWarpsM == kMmaTileRows &&
+                    kXPasses * kXLanes == kMmaPositions &&
+                    kGPasses * kGLanes == kMmaPositions,
+                "mma route geometry");
+  extern __shared__ float4 smem4[];
+  bf16* xs = reinterpret_cast<bf16*>(smem4);      // [stage][position][row]
+  bf16* gs = xs + kMmaStages * kXStage;           // [stage][position][col]
+
+  int b = blockIdx.x;
+  const int cot = b % a.co_tiles; b /= a.co_tiles;
+  const int rt = b % a.row_tiles; b /= a.row_tiles;
+  const int grp = b % a.groups;
+  const int chunk = b / a.groups;
+  const int tid = threadIdx.x;
+
+  const int total_rows = a.n * a.h_out;
+  const int row0 = chunk * a.tile_go;
+  const int row1 = min(total_rows, row0 + a.tile_go);
+  const int npos = (row1 - row0) * a.w_out;
+  const int nstages = (npos + kMmaPositions - 1) / kMmaPositions;
+
+  // x loader: rows 8 xc .. 8 xc + 7 of the tile (one tap: Cin/g % 16 ==
+  // 0), positions xp + kXLanes i
+  const int xc = tid % kXGroups, xp = tid / kXGroups;
+  int xki = -(1 << 20), xkj = 0;   // a row past the tile's end: never in
+  long long xoff = 0;              // range
+  {
+    const int r = rt * kMmaTileRows + 8 * xc;
+    if (r < a.rows) {
+      const int tap = r / a.cin_pg, ci = r - tap * a.cin_pg;
+      xki = tap / a.kw;
+      xkj = tap - xki * a.kw;
+      xoff = ((long long)xki * a.w + xkj) * a.cin + grp * a.cin_pg + ci;
+    }
+  }
+  int pimg[kXPasses], poh[kXPasses], pow_[kXPasses];
+#pragma unroll
+  for (int i = 0; i < kXPasses; ++i) {
+    const int q = xp + kXLanes * i;
+    const int orow = row0 + q / a.w_out;
+    pow_[i] = q - (q / a.w_out) * a.w_out;
+    pimg[i] = orow / a.h_out;
+    poh[i] = orow - pimg[i] * a.h_out;
+  }
+  // cotangent loader: columns 8 gc .. 8 gc + 7, positions gp + kGLanes i
+  const int gc = tid % kGGroups, gp = tid / kGGroups;
+  const int gco = cot * kTileCout + 8 * gc;
+  const bf16* gsrc = g + (long long)row0 * a.w_out * a.cout +
+                     grp * a.cout_pg + gco;
+
+  auto load = [&](int stage, int buf) {
+    const int q0 = stage * kMmaPositions;
+    bf16* xdst = xs + buf * kXStage + 8 * xc;
+    bf16* gdst = gs + buf * kGStage + 8 * gc;
+#pragma unroll
+    for (int i = 0; i < kXPasses; ++i) {
+      const int p = xp + kXLanes * i;
+      const int ih0 = poh[i] * a.stride - a.pad_top;
+      const int iw0 = pow_[i] * a.stride - a.pad_left;
+      const int ih = ih0 + xki, iw = iw0 + xkj;
+      const bool ok = q0 + p < npos && ih >= 0 && ih < a.h && iw >= 0 &&
+                      iw < a.w;
+      const bf16* src =
+          ok ? x + (((long long)pimg[i] * a.h + ih0) * a.w + iw0) * a.cin +
+                   xoff
+             : x;
+      cp_async16(reinterpret_cast<float*>(xdst + p * kMmaXPitch),
+                 reinterpret_cast<const float*>(src), ok);
+      advance(pimg[i], poh[i], pow_[i], kMmaPositions, a);
+    }
+#pragma unroll
+    for (int i = 0; i < kGPasses; ++i) {
+      const int p = gp + kGLanes * i;
+      const bool ok = q0 + p < npos && gco < a.cout_pg;
+      const bf16* src = ok ? gsrc + (long long)(q0 + p) * a.cout : g;
+      cp_async16(reinterpret_cast<float*>(gdst + p * kGPitch),
+                 reinterpret_cast<const float*>(src), ok);
+    }
+  };
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
+  const int m_base = wm * kMF * kBf16MmaM;         // the warp's first row
+  const int n_base = wn * kBf16WarpN;              // ... and column
+  // a warp whose rows all lie past dw's has nothing to add (warp-uniform)
+  const bool live = rt * kMmaTileRows + m_base < a.rows;
+  // ldmatrix lane addresses (bf16_mma.cuh): A from position rows
+  // (l & 7) + 8 (l >> 4), row columns 8 ((l >> 3) & 1) on; B from position
+  // rows (l & 7) + 8 ((l >> 3) & 1), columns 8 (l >> 4) on
+  const int a_off = ((lane & 7) + 8 * (lane >> 4)) * kMmaXPitch + m_base +
+                    8 * ((lane >> 3) & 1);
+  const int b_off = ((lane & 7) + 8 * ((lane >> 3) & 1)) * kGPitch +
+                    n_base + 8 * (lane >> 4);
+
+  float acc[kMF][4][4];
+#pragma unroll
+  for (int i = 0; i < kMF; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < kMmaStages - 1; ++s) {
+    if (s < nstages) load(s, s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nstages; ++s) {
+    cp_async_wait<kMmaStages - 2>();   // this thread's copies of stage s
+    __syncthreads();                   // everyone's; stage s-1 is consumed
+    if (s + kMmaStages - 1 < nstages)
+      load(s + kMmaStages - 1, (s + kMmaStages - 1) % kMmaStages);
+    cp_async_commit();
+    if (!live) continue;
+    const bf16* xb = xs + (s % kMmaStages) * kXStage + a_off;
+    const bf16* gb = gs + (s % kMmaStages) * kGStage + b_off;
+    // k-steps of this stage: the chunk's tail adds zeros past its end
+    const int steps = min(kSteps, (npos - s * kMmaPositions +
+                                   kBf16MmaK - 1) / kBf16MmaK);
+#pragma unroll
+    for (int q = 0; q < kSteps; ++q) {
+      if (q >= steps) break;
+      uint32_t af[kMF][4], bfr[4][2];
+#pragma unroll
+      for (int i = 0; i < kMF; ++i)
+        ldsm_x4_trans_a(xb + q * kBf16MmaK * kMmaXPitch + i * kBf16MmaM,
+                        af[i]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        ldsm_x4_trans(gb + q * kBf16MmaK * kGPitch + 16 * j, bfr[2 * j],
+                      bfr[2 * j + 1]);
+#pragma unroll
+      for (int i = 0; i < kMF; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af[i], bfr[j]);
+    }
+  }
+
+  // C fragment (g, 2t / 2t + 1) and (g + 8, ..): rows and column pairs
+  float* dst = out + (size_t)chunk * a.rows * a.cout + grp * a.cout_pg;
+  const int fg = lane / 4, ft = lane % 4;
+#pragma unroll
+  for (int i = 0; i < kMF; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = rt * kMmaTileRows + m_base + kBf16MmaM * i + fg + 8 * h;
+      if (row >= a.rows) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = cot * kTileCout + n_base + kBf16MmaN * j + 2 * ft;
+        if (col < a.cout_pg)   // Cout/g % 8 == 0: col + 1 is in range too
+          *reinterpret_cast<float2*>(dst + (size_t)row * a.cout + col) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+    }
+}
+
 // groups == Cin == Cout: thread e owns dw element e = tap * C + c.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -558,22 +803,60 @@ cudaError_t resident_blocks(int* out) {
                                                        smem);
 }
 
-// The launcher of both entries.  The loaders' vector instances need the
-// channels of a group in whole vectors (4 f32 or 8 bf16: 16 bytes) and
-// 16-byte aligned operands.
+template <int kTileCout>
+cudaError_t launch_mma(const bf16* x, const bf16* g, float* out,
+                       const WgradArgs& a, unsigned blocks, cudaStream_t s) {
+  constexpr size_t smem = mma_smem_bytes<kTileCout>();
+  auto kernel = wgrad_mma_kernel<kTileCout>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kThreads, smem, s>>>(x, g, out, a);
+  return cudaGetLastError();
+}
+
+template <int kTileCout>
+cudaError_t mma_resident_blocks(int* out) {
+  constexpr size_t smem = mma_smem_bytes<kTileCout>();
+  auto kernel = wgrad_mma_kernel<kTileCout>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, kThreads,
+                                                       smem);
+}
+
+// The route of a layer (core/conv_plan.py, wgrad_route): depthwise where
+// groups == Cin == Cout; on bf16 operands mma where Cin/g % 16 == 0 and
+// Cout/g % 8 == 0; else gemm.
+template <typename T>
+int wgrad_route_of(int cin, int cout, int groups) {
+  if (groups == cin && cin == cout) return kRouteDepthwise;
+  if (sizeof(T) == 2 && (cin / groups) % kBf16MmaK == 0 &&
+      (cout / groups) % kBf16MmaN == 0)
+    return kRouteMma;
+  return kRouteGemm;
+}
+
+// The launcher of both entries.  The GEMM loaders' vector instances need
+// the channels of a group in whole vectors (4 f32 or 8 bf16: 16 bytes)
+// and 16-byte aligned operands; route mma needs both always.
 template <typename T>
 int wgrad_entry(const T* x, const T* g, float* ws, float* dw, int n, int h,
                 int wd, int cin, int cout, int kh, int kw, int stride,
                 int pad_top, int pad_left, int groups, int h_out, int w_out,
-                int tile_go, int depthwise, int tile_cout, int blocks,
+                int tile_go, int route, int tile_cout, int blocks,
                 void* stream) {
   if (n < 1 || kh < 1 || kw < 1 || stride < 1 || groups < 1 ||
       cin % groups != 0 || cout % groups != 0 || h_out < 1 || w_out < 1 ||
       tile_go < 1 ||
       pad_top < 0 || pad_left < 0)
     return (int)cudaErrorInvalidValue;
-  if (depthwise ? !(groups == cin && cin == cout)
-                : tile_cout != 64 && tile_cout != 128)
+  if (route != wgrad_route_of<T>(cin, cout, groups))
+    return (int)cudaErrorInvalidValue;
+  if (route != kRouteDepthwise && tile_cout != 64 && tile_cout != 128)
+    return (int)cudaErrorInvalidValue;
+  if (route == kRouteMma && !(aligned16(x) && aligned16(g)))
     return (int)cudaErrorInvalidValue;
   WgradArgs a;
   a.n = n; a.h = h; a.w = wd; a.cin = cin; a.cout = cout; a.kh = kh;
@@ -588,17 +871,25 @@ int wgrad_entry(const T* x, const T* g, float* ws, float* dw, int n, int h,
   a.co_tiles = (a.cout_pg + tile_cout - 1) / tile_cout;
   if (a.chunks > 1 && ws == dw) return (int)cudaErrorInvalidValue;
   const long long tiles =
-      depthwise ? ((long long)kh * kw * cin + kThreads - 1) / kThreads
-                : (long long)groups * a.row_tiles * a.co_tiles;
+      route == kRouteDepthwise
+          ? ((long long)kh * kw * cin + kThreads - 1) / kThreads
+          : (long long)groups * a.row_tiles * a.co_tiles;
   if (tiles * a.chunks != (long long)blocks || blocks < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = a.chunks > 1 ? ws : dw;
   cudaError_t err;
-  if (depthwise) {
+  if (route == kRouteDepthwise) {
     wgrad_depthwise_kernel<T><<<(unsigned)blocks, kThreads, 0, s>>>(
         x, g, out, a);
     err = cudaGetLastError();
+  } else if (route == kRouteMma) {
+    if constexpr (std::is_same<T, bf16>::value)
+      err = tile_cout == 64
+                ? launch_mma<64>(x, g, out, a, (unsigned)blocks, s)
+                : launch_mma<128>(x, g, out, a, (unsigned)blocks, s);
+    else
+      err = cudaErrorInvalidValue;   // not reached: f32 has no route mma
   } else {
     constexpr int kVec = 16 / (int)sizeof(T);    // elements a vector
     const bool vec_x = a.cin_pg % kVec == 0 && aligned16(x);
@@ -632,45 +923,52 @@ int wgrad_entry(const T* x, const T* g, float* ws, float* dw, int n, int h,
 // cannot take).  `ws` holds chunks * KH*KW*Cin/groups * Cout floats; with a
 // single chunk it may be `dw` itself.  dw and ws are f32 in both entries;
 // x and g are f32 (trim_conv2d_wgrad) or bf16 (trim_conv2d_wgrad_bf16).
-// WeightGradPlan decides the route (`depthwise`), the GEMM tile's columns
-// (`tile_cout`, 64 or 128) and so the partial launch's `blocks`; this
-// launcher takes those decisions as given and only checks them: the
-// depthwise route needs groups == Cin == Cout, and `blocks` must equal the
-// count from this file's tile rows and threads, so a plan that prices
-// another launch than the one made fails here instead of running.
+// WeightGradPlan decides the route (`route`: WgradRoute), the tile's
+// columns (`tile_cout`, 64 or 128) and so the partial launch's `blocks`;
+// this launcher takes those decisions as given and only checks them: the
+// route must be the layer's (wgrad_route_of; route mma also needs 16-byte
+// aligned x and g), and `blocks` must equal the count from this file's
+// tile rows and threads, so a plan that prices another launch than the one
+// made fails here instead of running.
 extern "C" {
 
 int trim_conv2d_wgrad(const float* x, const float* g, float* ws, float* dw,
                       int n, int h, int wd, int cin, int cout, int kh,
                       int kw, int stride, int pad_top, int pad_left,
                       int groups, int h_out, int w_out, int tile_go,
-                      int depthwise, int tile_cout, int blocks,
-                      void* stream) {
+                      int route, int tile_cout, int blocks, void* stream) {
   return wgrad_entry<float>(x, g, ws, dw, n, h, wd, cin, cout, kh, kw,
                             stride, pad_top, pad_left, groups, h_out, w_out,
-                            tile_go, depthwise, tile_cout, blocks, stream);
+                            tile_go, route, tile_cout, blocks, stream);
 }
 
 int trim_conv2d_wgrad_bf16(const void* x, const void* g, float* ws,
                            float* dw, int n, int h, int wd, int cin,
                            int cout, int kh, int kw, int stride,
                            int pad_top, int pad_left, int groups, int h_out,
-                           int w_out, int tile_go, int depthwise,
+                           int w_out, int tile_go, int route,
                            int tile_cout, int blocks, void* stream) {
   return wgrad_entry<bf16>(static_cast<const bf16*>(x),
                            static_cast<const bf16*>(g), ws, dw, n, h, wd,
                            cin, cout, kh, kw, stride, pad_top, pad_left,
-                           groups, h_out, w_out, tile_go, depthwise,
+                           groups, h_out, w_out, tile_go, route,
                            tile_cout, blocks, stream);
 }
 
 // Resident blocks an SM of the GEMM route's tile of `tile_cout` columns
 // (16-byte loaders), as the card reports it, into `*out`:
 // WeightGradPlan's time model assumes WGRAD_BLOCKS_PER_SM of them.  The
-// bf16 instances share the stages and __launch_bounds__(kThreads, 2).
+// bf16 gemm instances share the stages and __launch_bounds__(kThreads, 2).
 int trim_conv2d_wgrad_resident_blocks(int tile_cout, int* out) {
   if (tile_cout == 64) return (int)resident_blocks<64>(out);
   if (tile_cout == 128) return (int)resident_blocks<128>(out);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same for route mma's instances: WGRAD_MMA_BLOCKS_PER_SM.
+int trim_conv2d_wgrad_mma_resident_blocks(int tile_cout, int* out) {
+  if (tile_cout == 64) return (int)mma_resident_blocks<64>(out);
+  if (tile_cout == 128) return (int)mma_resident_blocks<128>(out);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -13,9 +13,12 @@ softmax over key tiles in f32.  GQA: query head h reads KV head
 ``h // (Hq / Hkv)``; no K/V head is replicated.
 
 bf16 q, k and v launch ``flash_attention_bf16``: the same kernels on bf16
-tiles, everything after the load in f32 (``_kernel`` widens q, k and v,
-``repro/kernels/flash_attention.py:44-45, :66``), o rounded once to bf16
-(``:73``); the plain version widens likewise and casts once.  The bf16
+tiles, the narrow route's products on the bf16 tensor cores (Q K^T exact
+in f32; P split into bf16 hi and lo halves against the exact V, which
+keep each weight to within 2^-16 of itself) and the online softmax in f32
+(``_kernel`` widens q, k and v, ``repro/kernels/flash_attention.py:44-45,
+:66``), o rounded once to bf16 (``:73``); the plain version widens and
+casts once.  The bf16
 route has no backward yet: under autograd a bf16 operand raises
 ``NotImplementedError`` (ROADMAP Queue 1 item 7b).
 
@@ -115,20 +118,24 @@ def _plain_forward(q, k, v, *, causal, soft_cap, window, block_k):
     for all query rows at once; ``lse`` (B, Hq, Lq) is ``m + log(max(l,
     1e-30))``.  Tiles before the first query's window are skipped, as the
     kernel skips the tiles masked for all rows of a block (exactly: such a
-    tile adds 0 after a row's first valid key and is wiped before it)."""
+    tile adds 0 after a row's first valid key and is wiped before it).
+    f32, or float64 throughout where q is float64 (an oracle of the
+    kernel's arithmetic, as for the backward)."""
     b, lq, hq, d = q.shape
     _, lk, hkv, _ = k.shape
     group = hq // hkv
     sm_scale = 1.0 / math.sqrt(d)
     off = lk - lq
-    qg = q.reshape(b, lq, hkv, group, d).permute(0, 2, 3, 1, 4).float()
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qg = q.reshape(b, lq, hkv, group, d).permute(0, 2, 3, 1, 4).to(dt)
     q_pos = torch.arange(lq, device=q.device) + off
-    m = torch.full((b, hkv, group, lq, 1), NEG_INF, device=q.device)
-    l = torch.zeros((b, hkv, group, lq, 1), device=q.device)
-    acc = torch.zeros((b, hkv, group, lq, d), device=q.device)
+    m = torch.full((b, hkv, group, lq, 1), NEG_INF, dtype=dt,
+                   device=q.device)
+    l = torch.zeros((b, hkv, group, lq, 1), dtype=dt, device=q.device)
+    acc = torch.zeros((b, hkv, group, lq, d), dtype=dt, device=q.device)
     for k0 in range(_first_tile(lq, lk, window, block_k), lk, block_k):
-        kc = k[:, k0:k0 + block_k].float()
-        vc = v[:, k0:k0 + block_k].float()
+        kc = k[:, k0:k0 + block_k].to(dt)
+        vc = v[:, k0:k0 + block_k].to(dt)
         s = torch.einsum("bhgqd,bchd->bhgqc", qg, kc) * sm_scale
         if soft_cap is not None:
             s = soft_cap * torch.tanh(s / soft_cap)
@@ -170,8 +177,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           window: int | None = None,
                           block_k: int = BLOCK_K) -> torch.Tensor:
     """The kernel's function in plain PyTorch (see :func:`_plain_forward`):
-    bf16 operands widened to f32, o cast once to q's dtype.  q: (B, Lq,
-    Hq, D); k/v: (B, Lk, Hkv, D)."""
+    bf16 operands widened to f32, o cast once to q's dtype; float64
+    operands computed in float64.  q: (B, Lq, Hq, D); k/v: (B, Lk, Hkv,
+    D)."""
     return _plain_forward(q, k, v, causal=causal, soft_cap=soft_cap,
                           window=window, block_k=block_k)[0]
 

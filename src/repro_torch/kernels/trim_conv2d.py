@@ -22,10 +22,14 @@ kernels and their plain PyTorch versions (the counterpart of
   applied virtually.
 * ``trim_conv2d_weight_grad`` — dw through the kernel of
   ``csrc/trim_conv2d_wgrad.cu`` (``trim_conv2d_wgrad``, or on bf16
-  operands ``trim_conv2d_wgrad_bf16``: the operands widened to f32, the
-  f32 kernel's sums, so its f32 dw is bitwise the f32 entry's on the
-  widened operands); f32 dw either way, which the caller rounds once;
-  :func:`trim_conv2d_weight_grad_plain` on a CPU tensor.
+  operands ``trim_conv2d_wgrad_bf16`` on the plan's route,
+  :func:`~repro_torch.core.conv_plan.wgrad_route` of the layer: ``"mma"``
+  (Cin/g a multiple of 16, Cout/g of 8) sums on the bf16 tensor cores in
+  the order stated atop the ``.cu``; ``"gemm"`` / ``"depthwise"`` widen
+  the operands into the f32 kernel's sums, so their f32 dw is bitwise the
+  f32 entry's on the widened operands); f32 dw either way, which the
+  caller rounds once; :func:`trim_conv2d_weight_grad_plain` on a CPU
+  tensor, the f32 einsum, which route mma does not equal bit for bit.
 * ``trim_conv2d_q8`` — the int8 route of the forward conv (the JAX
   ``trim_conv2d`` with a ``scale``): int8 operands, an exact int32
   accumulator and the dequant epilogue ``(acc + bias_q) * scale``, f32
@@ -43,9 +47,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.conv_plan import (BF16_ROUTES, DATAFLOWS, Q8_ROUTES,
-                                        ConvPlan, WeightGradPlan,
-                                        input_grad_geometry, normalize_pad,
-                                        q8_kpad, q8_tap_bytes)
+                                        WGRAD_ROUTES, ConvPlan,
+                                        WeightGradPlan, input_grad_geometry,
+                                        normalize_pad, q8_kpad, q8_tap_bytes)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (ACTIVATIONS, epilogue,
                                      exact_int_products, pad_nhwc)
@@ -359,6 +363,11 @@ def trim_conv2d_weight_grad(x: torch.Tensor, g: torch.Tensor, *,
             return trim_conv2d_weight_grad_plain(
                 x, g, kernel_size=(kh, kw), stride=stride, pad=plan.pads,
                 groups=groups)
+    if plan.route == "mma":
+        # the route's 16-byte copies need 16-byte aligned operands: a view
+        # at another offset is copied (never on the main paths, whose
+        # activations and cotangents are allocations of their own)
+        x, g = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, g))
     lib = build.library("trim_conv2d_wgrad")
     dw = torch.empty(plan.dw_shape, dtype=torch.float32, device=x.device)
     ws = dw if plan.chunks == 1 else torch.empty(
@@ -370,7 +379,7 @@ def trim_conv2d_weight_grad(x: torch.Tensor, g: torch.Tensor, *,
             plan.n, plan.h, plan.w, plan.cin, plan.cout, plan.kh, plan.kw,
             plan.stride, plan.pads[0][0], plan.pads[1][0], plan.groups,
             plan.h_out, plan.w_out, plan.tile_go,
-            int(plan.route == "depthwise"), plan.tile_cout, plan.blocks,
+            WGRAD_ROUTES.index(plan.route), plan.tile_cout, plan.blocks,
             stream)
     if err != 0:
         raise RuntimeError(

@@ -56,6 +56,7 @@ from repro.optim import AdamWConfig as JAdamWConfig
 from repro.optim import adamw as jadamw
 from repro_torch.convert import params_from_jax
 from repro_torch.core import autotune
+from repro_torch.core import conv_plan as cp
 from repro_torch.core.conv_plan import (BF16WeightGradPlan, WeightGradPlan,
                                         input_grad_geometry)
 from repro_torch.core.fuse_plan import FusedGroupPlan
@@ -374,22 +375,55 @@ def test_bf16_backward_reads_the_bfloat16_records(monkeypatch):
 
 @pytest.mark.parametrize("n", [1, 8])
 def test_bf16_weight_grad_plan_is_the_f32_geometry(n):
+    """On routes gemm and depthwise (VGG-16 conv1, the depthwise layer,
+    AlexNet conv1's K 11 part, the stem) the bf16 plan is the f32 plan's
+    geometry, bytes halved.  On route mma (VGG-16 conv2-13, PR 33) it
+    keeps the f32 plan's fields but its chunks: its tiles are
+    ``WGRAD_MMA_TILE_ROWS`` rows, its chunk height the mma time model's
+    (a pure function of the shape), its workspace within the cap, and the
+    partial launch's blocks are its tiles times its chunks."""
     problems = [((n, l.ifmap, l.ifmap, l.in_channels),
                  (3, 3, l.in_channels, l.out_channels), 1, 1, 1)
                 for l in vgg16_layers()]
     problems += [((n, 112, 112, 32), (3, 3, 1, 32), 1, 32, 1),    # depthwise
                  ((n, 223, 222, 3), (3, 2, 3, 96), 4, 1, 0),      # K 11 part
                  ((n, 224, 224, 3), (7, 7, 3, 64), 2, 1, 3)]      # stem
+    routes = []
     for xs, ws, s, g, p in problems:
         p32 = WeightGradPlan.build(xs, ws, stride=s, pad=p, groups=g)
         p16 = WeightGradPlan.build(xs, ws, stride=s, pad=p, groups=g,
                                    dtype_bytes=2)
         assert type(p16) is BF16WeightGradPlan and p16.dtype_bytes == 2
         assert type(p32) is WeightGradPlan and p32.dtype_bytes == 4
-        assert dataclasses.astuple(p16) == dataclasses.astuple(p32)
-        for prop in ("route", "tile_cout", "chunks", "blocks", "flops",
-                     "workspace_bytes"):
-            assert getattr(p16, prop) == getattr(p32, prop), prop
+        assert p32.route in ("gemm", "depthwise")
         assert 2 * p16.min_bytes() == p32.min_bytes()
+        assert p16.flops == p32.flops
+        routes.append(p16.route)
+        if p16.route != "mma":
+            assert p16.route == p32.route
+            assert dataclasses.astuple(p16) == dataclasses.astuple(p32)
+            for prop in ("tile_cout", "chunks", "blocks",
+                         "workspace_bytes"):
+                assert getattr(p16, prop) == getattr(p32, prop), prop
+            continue
+        fields = dataclasses.asdict(p16)
+        assert {k: v for k, v in fields.items() if k != "tile_go"} == \
+            {k: v for k, v in dataclasses.asdict(p32).items()
+             if k != "tile_go"}
+        assert p16.tile_cout == p32.tile_cout
+        assert p16.tiles == -(-p16.rows // cp.WGRAD_MMA_TILE_ROWS) * \
+            -(-p16.cout_per_group // p16.tile_cout)
+        assert p16.blocks == p16.tiles * p16.chunks
+        assert p16.workspace_bytes <= cp.WGRAD_WORKSPACE_CAP
+        again = WeightGradPlan.build(xs, ws, stride=s, pad=p, groups=g,
+                                     dtype_bytes=2)
+        assert again == p16
+        # the mma time model's chunk height, not the FFMA model's
+        rows = p16.n * p16.h_out
+        _, min_rows = cp._wgrad_min_rows(rows, p16.w_out, p16.dw_elems)
+        assert p16.tile_go == min(
+            range(rows, min_rows - 1, -1),
+            key=lambda t: (p16.model_seconds(t), -t))
+    assert routes == ["gemm"] + ["mma"] * 12 + ["depthwise", "gemm", "gemm"]
     with pytest.raises(ValueError, match="dtype_bytes"):
         WeightGradPlan.build((1, 8, 8, 4), (3, 3, 4, 4), dtype_bytes=1)

@@ -15,7 +15,8 @@ tile_cout 3, Cin 3, and operands at a 4-byte offset.  Tolerance: 1e-4 * max(1, m
 another order); carry and halo must agree bitwise.  The weight-gradient
 kernel is held against its plain version within 1e-4 * max|plain| and
 must repeat bitwise (its bf16 entry's f32 sums bitwise the f32 entry's
-on the widened operands, its bf16 dw those sums rounded once; one bf16
+on the widened operands on routes gemm / depthwise, within a float64
+bound on route mma, its bf16 dw those sums rounded once; one bf16
 example-CNN train step on the kernels against the same step on the plain
 versions: dw within one bf16 ulp, every other leaf bitwise); the input
 gradient (the forward kernel on the dilated cotangent) and the autograd
@@ -308,6 +309,13 @@ def test_wgrad_launcher_takes_and_checks_the_plan(cuda):
     assert launch(0, plan.tile_cout, plan.blocks + 1) != 0
     assert launch(0, 32, plan.blocks) != 0
     assert launch(1, plan.tile_cout, plan.blocks) != 0
+    assert launch(2, plan.tile_cout, plan.blocks) != 0     # f32: no mma
+    # route mma's instances: as many resident blocks as its plan assumes
+    for tile_cout in (64, 128):
+        got = ctypes.c_int(0)
+        assert lib.trim_conv2d_wgrad_mma_resident_blocks(
+            tile_cout, ctypes.byref(got)) == 0
+        assert got.value == cp.WGRAD_MMA_BLOCKS_PER_SM, tile_cout
 
 
 @pytest.mark.parametrize("case", WGRAD_CASES[:6],
@@ -1672,6 +1680,10 @@ FLASH_BF16_CASES = [
     (2, 70, 130, 6, 2, 320, False, 30.0, 40),
 ]
 FLASH_BF16_TOL = 1e-2
+# past half an ulp of bf16, of max|o|, from the float64 plain version:
+# f32 inside leaves ~1e-6, one bf16 P ~7e-4 (chip_smoke's
+# FLASH_BF16_F64_EXCESS; tests/test_torch_bf16_wgrad_flash.py)
+FLASH_BF16_F64_EXCESS = 2.0 ** -14
 
 
 @pytest.mark.parametrize("case", FLASH_BF16_CASES,
@@ -1679,8 +1691,11 @@ FLASH_BF16_TOL = 1e-2
 def test_flash_bf16_kernel_matches_plain(cuda, case):
     """bf16 q, k, v: the kernel within 1e-2 of max|o| of its plain
     version (both f32 inside, one rounding to bf16 at the end; the
-    tolerance is DESIGN.md's bf16 one), counted under
-    ``flash_attention_bf16`` only, repeatable bitwise."""
+    tolerance is DESIGN.md's bf16 one) and within half an ulp of bf16
+    plus ``FLASH_BF16_F64_EXCESS`` of max|o| of the float64 plain
+    version (the narrow route's P split keeps P f32; one bf16 P does
+    not), counted under ``flash_attention_bf16`` only, repeatable
+    bitwise."""
     from repro_torch.kernels import flash_attention as fa
     b, lq, lk, hq, hkv, d, causal, cap, win = case
     gen = torch.Generator(device="cuda").manual_seed(lq + lk + d)
@@ -1700,6 +1715,14 @@ def test_flash_bf16_kernel_matches_plain(cuda, case):
     scale = plain.float().abs().max().item()
     assert (out.float() - plain.float()).abs().max().item() <= \
         FLASH_BF16_TOL * scale
+    want = fa.flash_attention_plain(q.double(), k.double(), v.double(),
+                                    **kw)
+    of = out.float()
+    half = torch.where(of == 0, torch.zeros_like(of),
+                       torch.ldexp(torch.ones_like(of),
+                                   torch.frexp(of)[1] - 9))
+    excess = ((of.double() - want).abs() - half.double()).max().item()
+    assert excess <= FLASH_BF16_F64_EXCESS * want.abs().max().item()
     assert torch.equal(out, again)
 
 
@@ -1743,7 +1766,9 @@ def test_bf16_lm_calls_never_reach_the_plain_versions(cuda, monkeypatch):
 # (a) (K 3 at strides 1 and 2, 'same' and 'valid', groups 2, depthwise,
 # Cin 3 and K 11's rectangular sub-kernels), ragged chunks and 128-column
 # tiles, VGG-16 conv2 at 1/2 the image, the smoke's depthwise case and
-# operands at a 2-byte offset (the one-element loaders).
+# operands at a 2-byte offset: on route gemm (Cin 8, the one-element
+# loaders) and on route mma (Cin 16, Cout 24: the wrapper copies them to
+# 16-byte alignment).
 # (n, h, w, cin, cout, kh, kw, stride, groups, padding, tile_go, offset)
 WGRAD_BF16_CASES = [
     (2, 11, 12, 8, 16, 3, 3, 1, 1, "same", None, 0),
@@ -1760,18 +1785,46 @@ WGRAD_BF16_CASES = [
     (8, 112, 112, 64, 64, 3, 3, 1, 1, "same", None, 0),
     (8, 112, 112, 32, 32, 3, 3, 1, 32, "same", None, 0),
     (2, 19, 23, 16, 24, 3, 3, 2, 1, "same", None, 1),
+    (2, 19, 23, 8, 16, 3, 3, 2, 1, "same", None, 1),
+    # route mma: ragged chunks, 128-column and half-empty 128-row tiles,
+    # groups of 16 channels, a 3x2 tap set
+    (2, 13, 11, 64, 136, 3, 3, 1, 1, "same", 3, 0),
+    (2, 12, 12, 32, 16, 3, 3, 1, 2, "same", 2, 0),
+    (1, 10, 9, 48, 64, 3, 2, 1, 1, "valid", None, 0),
+    (8, 28, 28, 256, 512, 3, 3, 1, 1, "same", None, 0),
 ]
+
+
+def _wgrad_f64_excess(dw, x, gy, plan):
+    """How far f32 weight-gradient sums lie beyond their float64 bound
+    (<= 0: within): (P + C) 2^-22 sum|x dz|, P a chunk's positions, C
+    its chunks (``chip_smoke.wgrad_f64_excess``)."""
+    import torch.nn.functional as F
+    (pt, pb), (pl, pr) = plan.pads
+    xd = F.pad(x.double().permute(0, 3, 1, 2), (pl, pr, pt, pb))
+    gd = gy.double().permute(0, 3, 1, 2)
+    wsize = (plan.cout, plan.cin_per_group, plan.kh, plan.kw)
+    kw = dict(stride=plan.stride, groups=plan.groups)
+    want = torch.nn.grad.conv2d_weight(xd, wsize, gd, **kw)
+    mass = torch.nn.grad.conv2d_weight(xd.abs(), wsize, gd.abs(), **kw)
+    n = plan.tile_go * plan.w_out + plan.chunks
+    return ((dw.double().permute(3, 2, 0, 1) - want).abs()
+            - n * 2.0 ** -22 * mass).max().item()
 
 
 @pytest.mark.parametrize("case", WGRAD_BF16_CASES,
                          ids=[str(i) for i in range(len(WGRAD_BF16_CASES))])
 def test_bf16_wgrad_is_the_f32_entry_on_widened_operands(cuda, case):
-    """``trim_conv2d_wgrad_bf16`` widens its operands into the f32
-    kernel's stages: its f32 sums are bitwise the f32 entry's on the
-    widened operands (a bf16 product is exact in f32; the same plan, so
-    the same chunks and order) and repeatable, and within TOL of
-    max|plain| of the plain version.  Counted under ``wgrad_bf16``
-    only."""
+    """On routes gemm and depthwise ``trim_conv2d_wgrad_bf16`` widens its
+    operands into the f32 kernel's stages: its f32 sums are bitwise the
+    f32 entry's on the widened operands (a bf16 product is exact in f32;
+    the same plan, so the same chunks and order).  On route mma (Cin/g %
+    16 == 0, Cout/g % 8 == 0: the bf16 tensor cores, whose sum no f32
+    path repeats) they lie within the float64 bound
+    (``_wgrad_f64_excess``); a misaligned operand is copied, not refused.
+    Either route: repeatable, and within TOL of max|plain| of the plain
+    version.  Counted under ``wgrad_bf16`` only."""
+    from repro_torch.core.conv_plan import WeightGradPlan
     n, h, w, cin, cout, kh, kw, s, g, padding, tile_go, offset = case
     gen = torch.Generator(device="cuda").manual_seed(h * w + cout)
     pads = conv_pads(h, w, kh, s, padding) if kh == kw else \
@@ -1795,7 +1848,14 @@ def test_bf16_wgrad_is_the_f32_entry_on_widened_operands(cuda, case):
     assert tc.LAUNCHES["wgrad"] == before["wgrad"]
     wide = tc.trim_conv2d_weight_grad(x.float(), gy.float(), **kw_)
     torch.cuda.synchronize()
-    assert sums.dtype == torch.float32 and torch.equal(sums, wide)
+    plan = WeightGradPlan.build((n, h, w, cin), (kh, kw, cin // g, cout),
+                                stride=s, pad=pads, groups=g,
+                                tile_go=tile_go, dtype_bytes=2)
+    assert sums.dtype == torch.float32
+    if plan.route == "mma":
+        assert _wgrad_f64_excess(sums, x, gy, plan) <= 0
+    else:
+        assert torch.equal(sums, wide)
     assert torch.equal(sums, again)
     plain = tc.trim_conv2d_weight_grad_plain(
         x, gy, kernel_size=(kh, kw), stride=s, pad=pads, groups=g)
@@ -1914,6 +1974,27 @@ def test_bf16_mma_instances_issue_hmma(cuda):
     assert len(bf) == len(f32) == 1
     assert "HMMA.16816.F32.BF16" in fused[bf[0]]
     assert "HMMA" not in fused[f32[0]]
+
+
+def test_bf16_wgrad_and_flash_instances_issue_hmma(cuda):
+    """The weight gradient's route-mma instances (64 and 128 columns) and
+    the flash kernel's three bf16 narrow instances issue
+    ``HMMA.16816.F32.BF16``, the latter no TF32 HMMA; the wgrad's other
+    instances and the flash kernel's f32 and wide instances no bf16
+    HMMA."""
+    wgrad = _sass_functions("trim_conv2d_wgrad")
+    flash = _sass_functions("flash_attention")
+    mma = [f for f in wgrad if "wgrad_mma_kernel" in f]
+    assert len(mma) == 2
+    for f in wgrad:
+        assert ("HMMA.16816.F32.BF16" in wgrad[f]) == (f in mma), f
+    narrow = [f for f in flash if "flash_attention_kernelI13__nv_bfloat16"
+              in f]
+    assert len(narrow) == 3
+    for f in flash:
+        assert ("HMMA.16816.F32.BF16" in flash[f]) == (f in narrow), f
+    for f in narrow:
+        assert "TF32" not in flash[f], f
 
 
 def test_bf16_launchers_refuse_a_route_that_is_not_the_layers(cuda):
