@@ -377,7 +377,47 @@ Phases, each raising on failure (each prints its seconds):
    f32 kernel on the same q, k, v within ``FLASH_BF16_TOLERANCE``); and
    ``BF16_REQUESTS`` greedy requests through ``make_decode_step`` on a
    bf16 state (ms a step, the tokens; no kernel runs in decode);
-35. train_bf16 — full-width VGG-16 (224x224, 1000 classes, the train
+35. conv1d wgrad check — the redesigned weight-gradient kernel
+   (16-byte rows, 4 f32 or 8 bf16 channels a lane, runs of 64 / 32
+   steps, two load batches in flight) in f32 and bf16 at recurrentgemma-2b's and
+   falcon-mamba-7b's training rows: bitwise its plain version and over
+   two calls; device ms from CUDA graphs over input copies that outgrow
+   the L2 (and events around the wrapper, the earlier PRs' timing, with
+   the wrapper's host us a call, which bounds them) beside the plain
+   version's, the byte bound,
+   ``torch.nn.grad.conv1d_weight`` on the same dtype (TF32 off), the
+   bytes moved and the rate; in bf16 also dx (``trim_conv1d_bf16`` on
+   the reversed cotangent) bitwise plain, its time, bound and
+   ``conv1d_input``'s;
+36. bf16 flash backward check — ``flash_attention_bwd_{dq,dkdv,sum}_bf16``
+   at the cases of ``flash_bwd_cases`` ((t), (c), GQA 7, Lq < Lk): dq,
+   dk, dv bf16, each no farther from the float64 plain backward than the
+   plain bf16 backward (f32 math, one rounding) plus one bf16 ulp of
+   max|grad|, and past half a bf16 ulp within
+   ``FLASH_BWD_BF16_F64_EXCESS`` of max|grad| of it (at (t) and (c) the
+   emulated P / dS split passes that gate and one bf16 P or dS fails it
+   by 4x); repeatable bitwise; the bf16 forward's o bitwise with and
+   without lse; each kernel's launches; CUDA-graph ms of the backward and
+   each kernel beside the plain backward's (the sum over partials that
+   outgrow the L2), the bound at 989 TFLOP/s and, at (t), SDPA's bf16
+   backward and forward + backward;
+37. train_lm_bf16 — qwen2.5-3b (36 layers, 2 x 1024), recurrentgemma-2b
+   (26 layers, 1 x 4096) and falcon-mamba-7b cut to
+   ``MAMBA_TRAIN_LAYERS`` (2 x 1024), all at published widths, drawn in
+   bf16 by the port's ``init_params`` (norm scales f32) with f32 AdamW
+   moments, trained through ``steps.make_train_step``: first, at each
+   family's gradient cut (depth 2, 3 and 2), the step-1 gradients on the
+   kernels, on the plain routes (every conv1d and flash wrapper, forward
+   and backward, swapped for its plain version) and on the f32 kernels
+   for the same values widened: every leaf and the loss of the kernels'
+   step no farther from the plain step than twice the plain step's
+   distance from the f32 step, plus 2^-8; only bf16 routes launched, each once a
+   layer (forwards twice: remat); ``BF16_LM_CUT_STEPS`` steps at the
+   cut, where mu and nu must move; then ``LM_BF16_TRAIN_STEPS`` timed
+   steps at the f32 phases' shapes: ms, peak GiB and every bf16
+   kernel's launches a step, beside the f32 phase's ms and peak of this
+   call, every loss and leaf finite (``train_clip_state``);
+38. train_bf16 — full-width VGG-16 (224x224, 1000 classes, the train
    phase's seeded weights drawn in f32 and cast to bf16, its first
    batches rounded to bf16, batch 8): the step-1 gradients on the
    kernels (25 ``carry_bf16`` and 13 ``wgrad_bf16`` launches, no f32
@@ -392,12 +432,13 @@ Phases, each raising on failure (each prints its seconds):
    ``carry_bf16`` and 13 ``wgrad_bf16`` launches and a finite loss, step
    1 run again from the same state bitwise equal; ms a step (steps 2-4)
    and peak memory beside the train phase's f32 figures of this call;
-36. the kernel JSON line (nineteen kernels; the launches of trim_conv1d
+39. the kernel JSON line (twenty-four kernels; the launches of trim_conv1d
    and flash_attention include the prefills' and the training phases',
    the flash backward kernels' and conv1d backward kernels' the training
    steps', the bf16 conv entries' the bf16 serving phase's and the
    train_bf16 phase's timed steps', the bf16 conv1d and flash entries'
-   the lm_bf16 prefills'), then ``{"ok": true, "device": ...}`` last.
+   the lm_bf16 prefills', the bf16 backward entries' the train_lm_bf16
+   phase's timed steps'), then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without a result when no GPU is visible.
 """
@@ -566,12 +607,21 @@ FLASH_BF16_TOLERANCE = 1e-2
 # the tensor cores) leaves ~1e-6; one bf16 P would leave 2^-9 of each
 # weight, ~7e-4 (tests/test_torch_bf16_wgrad_flash.py emulates both)
 FLASH_BF16_F64_EXCESS = 2.0 ** -14
+# the bf16 flash backward's dq, dk and dv against the float64 plain
+# backward, past half an ulp of bf16 at each element, of max|grad|: the P
+# and dS splits leave ~1e-6, one bf16 P (dv) or dS (dk, dq) ~1e-3
+# (flash_bwd_bf16_emulated, here at (t) and (c) and in
+# tests/test_torch_bf16_wgrad_flash.py)
+FLASH_BWD_BF16_F64_EXCESS = 2.0 ** -14
+ROTATE_BYTES = 150_000_000  # rotating(): inputs held, 3x the L2
 LM_BF16_CUT = 3             # layers held per sublayer (one rec, rec, att)
 BF16_REQUESTS, BF16_PROMPT, BF16_GEN = 4, 16, 8
 CROSS_PROMPT = 256          # decode-vs-prefill prompt at the depth-1 cut
 TRAIN_BATCH = 8
 TRAIN_STEPS = 6
 BF16_TRAIN_STEPS = 4        # the train_bf16 phase's AdamW steps
+LM_BF16_TRAIN_STEPS = 4     # the train_lm_bf16 phase's timed steps a model
+BF16_LM_CUT_STEPS = 2       # its steps at each depth cut (mu, nu move)
 REQUESTS = 48               # carry- and fused-kernel serving traces
 HALO_REQUESTS = 16          # halo-kernel serving trace (a prefix of it)
 FUSED_SCALE = 16            # channel divisor of the fused phases' VGG-16
@@ -599,6 +649,18 @@ def launch_counts(**nonzero) -> dict:
     return {**dict.fromkeys(tc.LAUNCHES, 0), **nonzero}
 
 
+def route_counts(counts: dict, bf16: bool) -> dict:
+    """The launches of one route in a launch-count dict (the bf16 route's
+    keys end in ``_bf16``); raises if the other route launched."""
+    other = {k: v for k, v in counts.items()
+             if k.endswith("_bf16") != bf16 and v}
+    if other:
+        raise AssertionError(f"the {'f32' if bf16 else 'bf16'} route "
+                             f"launched on a {'bf16' if bf16 else 'f32'} "
+                             f"path: {other}")
+    return {k: v for k, v in counts.items() if k.endswith("_bf16") == bf16}
+
+
 def card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -612,9 +674,11 @@ def flash_sass_check() -> dict:
     -sass``) and count, in each kernel instance, the tensor-core
     instructions on TF32 operands (``HMMA.1688.F32.TF32``): every f32
     narrow-route forward instance (D <= 256 at Dp 64, 128, 256) and every
-    backward instance (dQ and dK/dV at Dp 64, 128, 256) must issue them,
-    the bf16 narrow instances (on the bf16 tensor cores since PR 33:
-    :func:`bf16_sass_check`) and the wide route (f32 and bf16) none."""
+    f32 backward instance (dQ and dK/dV at Dp 64, 128, 256) must issue
+    them, the bf16 narrow instances (on the bf16 tensor cores:
+    :func:`bf16_sass_check`), the bf16 backward instances (dQ at three
+    Dp, dK/dV at three Dp for f32 partials and for bf16 outputs) and the
+    wide route (f32 and bf16) none."""
     import shutil
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -635,17 +699,22 @@ def flash_sass_check() -> dict:
     narrow, wide = of("flash_attention_kernel"), of("flash_attention_wide")
     n32 = {f: n for f, n in narrow.items() if "bfloat16" not in f}
     n16 = {f: n for f, n in narrow.items() if "bfloat16" in f}
-    bwd = {**of("flash_attention_bwd_dq_kernel"),
-           **of("flash_attention_bwd_dkdv_kernel")}
+    bwd_all = {**of("flash_attention_bwd_dq_kernel"),
+               **of("flash_attention_bwd_dkdv_kernel")}
+    bwd = {f: n for f, n in bwd_all.items() if "bfloat16" not in f}
+    bwd16 = {f: n for f, n in bwd_all.items() if "bfloat16" in f}
     if len(n32) != 3 or min(n32.values()) == 0 or len(n16) != 3 \
             or any(n16.values()) or len(wide) != 2 or any(wide.values()) \
-            or len(bwd) != 6 or min(bwd.values()) == 0:
+            or len(bwd) != 6 or min(bwd.values()) == 0 or len(bwd16) != 9 \
+            or any(bwd16.values()):
         raise AssertionError(f"flash SASS: TF32 HMMA counts {counts}")
     print("flash SASS: HMMA.1688.F32.TF32 instructions per narrow "
           "instance, f32 " + ", ".join(str(n) for n in n32.values())
           + ", bf16 " + ", ".join(str(n) for n in n16.values())
           + f" (none); wide route {sum(wide.values())}; backward dQ / "
-          "dK/dV instances " + ", ".join(str(n) for n in bwd.values()))
+          "dK/dV instances, f32 " + ", ".join(str(n) for n in bwd.values())
+          + ", bf16 " + ", ".join(str(n) for n in bwd16.values())
+          + " (none)")
     return counts
 
 
@@ -779,18 +848,25 @@ DP4A_Q8_SUMS = {8: (4.333, 4.218), 1: (1.493, 1.301)}   # carry, halo
 def time_graph_ms(torch, fn, reps: int = 10) -> float:
     """Device time of ``fn`` a launch: ``reps`` launches captured in one
     CUDA graph and replayed between CUDA events, so that the wrapper's
-    host time (which exceeds a small kernel's) is not in it."""
-    fn()
+    host time (which exceeds a small kernel's) is not in it.  ``fn`` may
+    be a list of calls on copies of the same inputs (:func:`rotating`),
+    captured in turn, so that a memory-bound kernel does not find its
+    inputs in L2 from the launch before."""
+    fns = fn if isinstance(fn, (list, tuple)) else [fn]
+    for f in fns:
+        f()
     torch.cuda.synchronize()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        for f in fns:
+            f()
     torch.cuda.current_stream().wait_stream(side)
+    reps = max(reps, len(fns))
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+        for i in range(reps):
+            fns[i % len(fns)]()
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -802,6 +878,15 @@ def time_graph_ms(torch, fn, reps: int = 10) -> float:
     ms = start.elapsed_time(end) / reps
     del graph
     return ms
+
+
+def rotating(make, nbytes: int) -> list:
+    """Calls ``make()`` (each making its own copies of a kernel's inputs
+    and returning the call on them) until the copies hold
+    ``ROTATE_BYTES``, three times the H100's 50 MB L2, for
+    :func:`time_graph_ms`: a launch then finds nothing of its inputs
+    left in L2 by the one before.  ``nbytes``: one copy's bytes."""
+    return [make() for _ in range(max(1, -(-ROTATE_BYTES // nbytes)))]
 
 
 def q8_build_check() -> dict:
@@ -2928,7 +3013,8 @@ def check_attention(torch):
              "plain": time_ms(torch, lambda: fa.flash_attention_plain(
                  q, k, v, **kw), reps=3),
              "library": None}
-        if name == "a_prefill":   # the yardstick: one PyTorch call
+        if name in ("a_prefill", "f_d320"):   # one PyTorch call computes
+            # it (at D 320 SDPA's math backend)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             sdpa = F.scaled_dot_product_attention
             t["library"] = time_ms(torch, lambda: sdpa(
@@ -4061,7 +4147,7 @@ def lm_train(torch):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = {"flash_attention": fa.LAUNCHES["flash_attention"],
-                **fa.BWD_LAUNCHES}
+                **route_counts(fa.BWD_LAUNCHES, bf16=False)}
     clip = train_clip_state(torch, out.pop("state"), out["grad_norms"],
                             "full width")
     torch.cuda.empty_cache()
@@ -4270,7 +4356,7 @@ def lm_resume(torch):
     diff = max((x.double() - y.double()).abs().max().item()
                for x, y in pairs)
     launched = fa.LAUNCHES["flash_attention"] > 0 and \
-        min(fa.BWD_LAUNCHES.values()) > 0
+        min(route_counts(fa.BWD_LAUNCHES, bf16=False).values()) > 0
     if not launched or not all(torch.equal(x, y) for x, y in pairs):
         raise AssertionError(f"LM resume: resumed state vs 4 straight "
                              f"steps max|diff| {diff} (launches "
@@ -4303,7 +4389,7 @@ def check_conv1d_backward(torch):
     the plain version's, ``torch.nn.grad.conv1d_input`` /
     ``conv1d_weight``'s (TF32 off) and the bound."""
     import torch.nn.functional as F
-    from repro_torch.core.conv_plan import Conv1dPlan, Conv1dWeightGradPlan
+    from repro_torch.core.conv_plan import Conv1dPlan
     from repro_torch.kernels import ref
     from repro_torch.kernels import trim_conv1d as tc1
 
@@ -4347,7 +4433,7 @@ def check_conv1d_backward(torch):
                                  f"float64 autograd {errs} > "
                                  f"{CONV1D_BWD_TOLERANCE}")
         plan = Conv1dPlan.build((b, length, d), (k, d), tile_l=tile_l)
-        wplan = Conv1dWeightGradPlan.build((b, length, d), k, tile_l=tile_l)
+        wplan = tc1._wgrad_plan(x, dy, k, tile_l)
         row = dict(name=name, shape=(b, length, d, k), dx_err=errs[0],
                    dw_err=errs[1], tile_l=wplan.tile_l,
                    groups=wplan.groups, dx_bound=plan.bound(),
@@ -4483,15 +4569,13 @@ def leaf_errs(grads, want) -> list:
              / w.double().abs().max()).item() for g, w in zip(grads, want)]
 
 
-def family_counts(tc1, fa) -> dict:
-    """The f32 routes' launches of an ssm / hybrid training path (the
-    bf16 routes have no backward, so a training step launches none)."""
-    if tc1.LAUNCHES["trim_conv1d_bf16"] or fa.LAUNCHES["flash_attention_bf16"]:
-        raise AssertionError(f"a training path launched a bf16 route: "
-                             f"{tc1.LAUNCHES} {fa.LAUNCHES}")
-    return {"trim_conv1d": tc1.LAUNCHES["trim_conv1d"], **tc1.BWD_LAUNCHES,
-            "flash_attention": fa.LAUNCHES["flash_attention"],
-            **fa.BWD_LAUNCHES}
+def family_counts(tc1, fa, bf16: bool = False) -> dict:
+    """The conv1d and flash launches of a training path on one route
+    (f32, or bf16): raises if the other route launched."""
+    return {**route_counts(tc1.LAUNCHES, bf16),
+            **route_counts(tc1.BWD_LAUNCHES, bf16),
+            **route_counts(fa.LAUNCHES, bf16),
+            **route_counts(fa.BWD_LAUNCHES, bf16)}
 
 
 def rgemma_train(torch):
@@ -4691,7 +4775,7 @@ def mamba_train(torch):
     tc1.reset_launch_counts()
     errs = leaf_errs(loss_grads(torch, gcfg, params, batch), want_g)
     names = leaf_names(params)
-    grad_launches = dict(tc1.BWD_LAUNCHES)
+    grad_launches = route_counts(tc1.BWD_LAUNCHES, bf16=False)
     del want_g, params, batch
     torch.cuda.empty_cache()
     worst = int(np.argmax(errs))
@@ -5127,13 +5211,15 @@ def bf16_sass_check() -> dict:
     (``wgrad_mma_kernel``) and the flash kernel's bf16 narrow instances
     must issue it, the flash bf16 narrow instances no TF32 HMMA, and the
     wgrad's other instances and the flash kernel's f32 and wide ones no
-    bf16 HMMA.  Returns {instance: HMMA.16816.F32.BF16 count}."""
+    bf16 HMMA.  Every bf16 instance of the flash backward's dQ and dK/dV
+    kernels must issue it and no TF32 HMMA, its f32 instances and sum
+    kernels none.  Returns {instance: HMMA.16816.F32.BF16 count}."""
     import shutil
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out, tf32 = {}, {}
     for lib_name in ("trim_conv2d", "trim_conv2d_fused", "trim_conv2d_wgrad",
-                     "flash_attention"):
+                     "flash_attention", "flash_attention_bwd"):
         sass = subprocess.run([tool, "-sass", build.library(lib_name)._name],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
@@ -5160,13 +5246,18 @@ def bf16_sass_check() -> dict:
             kind = "wgrad_other"
         elif "flash_attention_kernelI13__nv_bfloat16" in f:
             kind = "flash_bf16"
+        elif ("flash_attention_bwd_dq_kernelI13__nv_bfloat16" in f
+              or "flash_attention_bwd_dkdv_kernelI13__nv_bfloat16" in f):
+            kind = "flash_bwd_bf16"
         elif "flash_attention" in f:
             kind = "flash_other"
         else:
             kind = "f32"
         named.setdefault(kind, []).append(count)
     flash_tf32 = [tf32[f] for f in out
-                  if "flash_attention_kernelI13__nv_bfloat16" in f]
+                  if "flash_attention_kernelI13__nv_bfloat16" in f
+                  or ("flash_attention_bwd" in f
+                      and "_kernelI13__nv_bfloat16" in f)]
     if (len(named.get("mma", [])) != 3 or min(named["mma"]) == 0
             or len(named.get("fused_bf16", [])) != 1
             or named["fused_bf16"][0] == 0
@@ -5177,16 +5268,19 @@ def bf16_sass_check() -> dict:
             or any(named.get("wgrad_other", [1]))
             or len(named.get("flash_bf16", [])) != 3
             or min(named["flash_bf16"]) == 0 or any(flash_tf32)
+            or len(named.get("flash_bwd_bf16", [])) != 9
+            or min(named["flash_bwd_bf16"]) == 0
             or any(named.get("flash_other", [1]))):
         raise AssertionError(f"bf16 SASS: HMMA.16816.F32.BF16 by instance "
                              f"{out}; TF32 HMMA {tf32}")
     print("bf16 SASS: HMMA.16816.F32.BF16 a kernel instance: mma "
           f"{named['mma']}, fused bf16 {named['fused_bf16']}, wgrad mma "
-          f"{named['wgrad_mma']}, flash bf16 narrow {named['flash_bf16']} "
-          f"(TF32 HMMA there {flash_tf32}); bf16 ffma {named['ffma']}, "
+          f"{named['wgrad_mma']}, flash bf16 narrow {named['flash_bf16']}, "
+          f"flash bf16 backward {named['flash_bwd_bf16']} (TF32 HMMA there "
+          f"{flash_tf32}); bf16 ffma {named['ffma']}, "
           f"f32 {named['f32']}, wgrad gemm / depthwise / reduce "
-          f"{named['wgrad_other']}, flash f32 / wide {named['flash_other']}"
-          " (none)")
+          f"{named['wgrad_other']}, flash f32 / wide / f32 backward / sums "
+          f"{named['flash_other']} (none)")
     return out
 
 
@@ -5540,21 +5634,82 @@ def check_bf16_conv1d(torch) -> list:
 BF16_ATTENTION_CASES = ("a_prefill", "b_continue", "c_rgemma", "f_d320")
 
 
-def flash_bf16_f64_excess(torch, out, q, k, v, kw) -> float:
-    """How far a bf16 attention output lies from the float64 plain
-    version beyond the half ulp of bf16 that its one rounding may add,
-    of max|o64|: what the f32 arithmetic inside lost."""
-    from repro_torch.kernels import flash_attention as fa
-    want = fa.flash_attention_plain(q.double(), k.double(), v.double(),
-                                    **kw)
+def half_ulp_excess(torch, out, want) -> float:
+    """How far a bf16 result lies from its float64 oracle ``want`` beyond
+    the half ulp of bf16 that its one rounding may add, of max|want|:
+    what the f32 arithmetic before that rounding lost."""
     of = out.float()
     _, e = torch.frexp(of)
     half = torch.where(of == 0, torch.zeros_like(of),
                        torch.ldexp(torch.ones_like(of), e - 9))
     excess = ((of.double() - want).abs() - half.double()).max().item()
     scale = want.abs().max().item()
-    del want, of, e, half
+    del of, e, half
     return excess / scale
+
+
+def flash_bf16_f64_excess(torch, out, q, k, v, kw) -> float:
+    """:func:`half_ulp_excess` of a bf16 attention output against the
+    float64 plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    want = fa.flash_attention_plain(q.double(), k.double(), v.double(),
+                                    **kw)
+    excess = half_ulp_excess(torch, out, want)
+    del want
+    return excess
+
+
+def flash_bwd_bf16_emulated(torch, q, k, v, do, kw, *, p_terms: int = 2,
+                            ds_terms: int = 2):
+    """The bf16 backward kernels' arithmetic in f32 (one softmax over all
+    keys, cuBLAS products without TF32) -> (dq, dk, dv) bf16: S and dP of
+    the exact bf16 operands, P = softmax, delta = sum P dP, dS = P (dP -
+    delta) (times 1 - tanh^2 under a soft cap), dV = P^T dO, dK = dS^T Q
+    scale, dQ = dS K scale, with P and dS each taken as its hi and lo bf16
+    halves (``p_terms`` / ``ds_terms`` 2, the kernels' split) or as hi
+    alone (1: one bf16 rounding), each gradient rounded once.  The float64
+    gate (``FLASH_BWD_BF16_F64_EXCESS``) must pass the split and refuse
+    one rounding."""
+    import math
+    from repro_torch.kernels import flash_attention as fa
+    b, lq, hq, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        qg = q.float().reshape(b, lq, hkv, hq // hkv, d)
+        dog = do.float().reshape(b, lq, hkv, hq // hkv, d)
+        y = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+        chain = None
+        if kw["soft_cap"] is not None:
+            th = torch.tanh(y / kw["soft_cap"])
+            y, chain = kw["soft_cap"] * th, 1.0 - th * th
+        mask = fa._mask(torch.arange(lq, device=q.device) + lk - lq, 0, lk,
+                        kw["causal"], kw["window"])
+        p = torch.softmax(torch.where(mask, y, float("-inf")), dim=-1)
+        del y
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        del dp
+        if chain is not None:
+            ds = ds * chain
+            del chain
+
+        def halves(t, n):
+            hi = t.bfloat16().float()
+            return [hi, (t - hi).bfloat16().float()][:n]
+        dv = sum(torch.einsum("bhgqk,bqhgd->bkhd", t, dog)
+                 for t in halves(p, p_terms))
+        del p
+        dk = sum(torch.einsum("bhgqk,bqhgd->bkhd", t, qg)
+                 for t in halves(ds, ds_terms)) * scale
+        dq = sum(torch.einsum("bhgqk,bkhd->bqhgd", t, k.float())
+                 for t in halves(ds, ds_terms)) * scale
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    return (dq.reshape(b, lq, hq, d).bfloat16(), dk.bfloat16(),
+            dv.bfloat16())
 
 
 def check_bf16_flash(torch) -> list:
@@ -5566,8 +5721,9 @@ def check_bf16_flash(torch) -> list:
     split; one bf16 P fails it), repeatable bitwise; device ms from CUDA
     graphs beside the
     plain version's (eager), ``F.scaled_dot_product_attention`` on bf16
-    at (a) and (b) (queries right-aligned: (b) through an explicit mask;
-    none at (c), soft cap, or (f)), the bound at 989 TFLOP/s or 2 bytes
+    at (a), (b) and (f) (queries right-aligned: (b) through an explicit
+    mask; (f), D 320, on SDPA's math backend; none at (c), soft cap), the
+    bound at 989 TFLOP/s or 2 bytes
     an element at 3.35 TB/s, and the kernel's own route's ceiling (its
     bf16 mma since PR 33, Q K^T once and P's two halves against V: 1.5 x
     FLOPs at 989 TFLOP/s for D <= 256; f32 FFMA above)."""
@@ -5612,7 +5768,7 @@ def check_bf16_flash(torch) -> list:
              "plain": time_ms(torch, lambda: fa.flash_attention_plain(
                  q, k, v, **kw), reps=2),
              "library": None}
-        if name in ("a_prefill", "b_continue"):
+        if name in ("a_prefill", "b_continue", "f_d320"):
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             q_pos = torch.arange(lq, device="cuda")[:, None] + lk - lq
             mask = None if lq == lk else \
@@ -5909,7 +6065,7 @@ def device_share(torch, fn, n: int = 2) -> dict:
 
 
 def train_bf16(torch, f32: dict) -> dict:
-    """Phase 35 (module docstring): full-width VGG-16 drawn in bf16 and
+    """Phase 38 (module docstring): full-width VGG-16 drawn in bf16 and
     trained through ``launch.train_cnn.train_step``; ``f32`` is the train
     phase's ``{"times", "peak"}`` of this call.  Returns the launches of
     the timed steps, ms a step, the peak and each step-1 leaf's distance
@@ -6033,6 +6189,629 @@ def train_bf16(torch, f32: dict) -> dict:
     return {"launches": launches, "ms": ms, "times": times, "peak": peak,
             "f32_ms": f32_ms, "dist": dist_k, "plain_dist": dist_p,
             "share": share}
+
+
+def conv1d_wgrad_rows():
+    """(name, b, length, d, k, strided): the two training rows of the
+    conv1d weight gradient, recurrentgemma-2b's (the rec mixer's (B, L,
+    lru_width)) and falcon-mamba-7b's (the mixer's strided half of the
+    in-projection)."""
+    return [("rg_train", 1, 4096, 2560, 4, False),
+            ("mamba_view", 2, 1024, 8192, 4, True)]
+
+
+def host_us(torch, fn, calls: int = 200) -> float:
+    """The host's microseconds a call of ``fn`` (a kernel wrapper): calls
+    issued back to back, timed on the host's clock before the card
+    catches up (the launch queue holds them), then synchronized."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def check_conv1d_wgrad(torch) -> list:
+    """The redesigned weight-gradient kernel (``trim_conv1d_wgrad_f32``
+    and ``_bf16``) at both training rows: bitwise its plain
+    version (the plan's runs and groups replayed) and over two calls;
+    device ms from CUDA graphs over input copies that outgrow the L2
+    (:func:`rotating`) and from events around the wrapper (the earlier
+    PRs' timing, which the wrapper's host time bounds: its host us a
+    call printed), the plain version's (eager), the byte bound,
+    ``torch.nn.grad.conv1d_weight``'s on the same dtype (TF32 off), the
+    bytes the schedule moves and the achieved rate; in bf16 also the
+    input gradient's route (``trim_conv1d_bf16`` on the reversed
+    cotangent) bitwise its plain version, its time, bound and
+    ``torch.nn.grad.conv1d_input``'s."""
+    import torch.nn.functional as F
+    from repro_torch.core.conv_plan import Conv1dPlan
+    from repro_torch.kernels import trim_conv1d as tc1
+
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    rows = []
+    print("conv1d wgrad check (bitwise vs plain and over two calls; ms: "
+          "graph = CUDA graph device time over input copies that outgrow "
+          "the L2, events = around the wrapper, host = the wrapper's host "
+          "us a call; bound: the least bytes at 3.35 TB/s):")
+    print(f"  {'case':11s} {'dtype':8s} {'vec':>3s} {'T_l':>4s} "
+          f"{'blocks':>6s} {'graph':>8s} {'events':>8s} {'host':>6s} "
+          f"{'plain':>8s} "
+          f"{'library':>8s} {'bound':>8s} {'of bnd':>6s} {'MB moved':>8s} "
+          f"{'TB/s':>5s}")
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, b, length, d, k, strided in conv1d_wgrad_rows():
+            for dt in (torch.float32, torch.bfloat16):
+                xz = torch.randn((b, length, 2 * d if strided else d),
+                                 generator=gen, device="cuda").to(dt)
+                x = xz[..., :d]
+                dy = torch.randn((b, length, d), generator=gen,
+                                 device="cuda").to(dt)
+                w = (0.5 * torch.randn((k, d), generator=gen,
+                                       device="cuda")).to(dt)
+                plan = tc1._wgrad_plan(x, dy, k, None)
+                tc1.reset_launch_counts()
+                dw = tc1.trim_conv1d_weight_grad(x, dy, k)
+                dw2 = tc1.trim_conv1d_weight_grad(x, dy, k)
+                pdw = tc1.trim_conv1d_wgrad_plain(x, dy, k,
+                                                  tile_l=plan.tile_l)
+                torch.cuda.synchronize()
+                key = "trim_conv1d_wgrad" + (
+                    "_bf16" if dt == torch.bfloat16 else "")
+                counts = dict(tc1.BWD_LAUNCHES)
+                if not (torch.equal(dw, pdw) and torch.equal(dw, dw2)
+                        and dw.dtype == dt and counts[key] == 2):
+                    raise AssertionError(
+                        f"conv1d wgrad {name} {dt}: vs plain "
+                        f"{(dw.float() - pdw.float()).abs().max().item()}, "
+                        f"repeat {torch.equal(dw, dw2)}, launches {counts}")
+                xt = x.transpose(1, 2).contiguous()      # (B, D, L)
+                wt = w.t()[:, None, :].contiguous()      # (D, 1, K)
+                gt = F.pad(dy.transpose(1, 2), (0, k - 1)).contiguous()
+                one = 2 * x.numel() * x.element_size()
+
+                def kernel_copy():
+                    cx, cy = xz.clone()[..., :d], dy.clone()
+                    return lambda: tc1.trim_conv1d_weight_grad(cx, cy, k)
+
+                def library_copy():
+                    cx, cg = xt.clone(), gt.clone()
+                    return lambda: torch.nn.grad.conv1d_weight(
+                        cx, wt.shape, cg, padding=k - 1, groups=d)
+                row = dict(
+                    name=name, dtype=str(dt).split(".")[1], vec=plan.vec,
+                    tile_l=plan.tile_l, blocks=plan.blocks,
+                    groups=plan.groups, bound=plan.bound(),
+                    hbm=plan.hbm_bytes()["total"], least=plan.min_bytes(),
+                    err=0.0,
+                    ms=time_graph_ms(torch, rotating(kernel_copy, one),
+                                     reps=20),
+                    events=time_ms(torch, lambda: tc1.trim_conv1d_weight_grad(
+                        x, dy, k), reps=20),
+                    host_us=host_us(torch, lambda: tc1.
+                                    trim_conv1d_weight_grad(x, dy, k)),
+                    plain=time_ms(torch, lambda: tc1.trim_conv1d_wgrad_plain(
+                        x, dy, k), reps=2),
+                    library=time_graph_ms(torch, rotating(library_copy, one),
+                                          reps=20))
+                if dt == torch.bfloat16:
+                    dplan = Conv1dPlan.build(
+                        (b, length, d), (k, d), dtype_bytes=2,
+                        vec=tc1.bf16_vec(dy, w))
+                    dx = tc1.trim_conv1d_input_grad(dy, w)
+                    pdx = tc1.trim_conv1d_input_grad_plain(dy, w)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(dx, pdx) and dx.dtype == dt and
+                            tc1.BWD_LAUNCHES["trim_conv1d_dx_bf16"]
+                            == 1):
+                        raise AssertionError(
+                            f"conv1d dx bf16 {name}: vs plain "
+                            f"{(dx.float() - pdx.float()).abs().max().item()}"
+                            f", launches {tc1.BWD_LAUNCHES}")
+                    def dx_copy():
+                        cy = dy.clone()
+                        return lambda: tc1.trim_conv1d_input_grad(cy, w)
+
+                    def dx_library_copy():
+                        cg = gt.clone()
+                        return lambda: torch.nn.grad.conv1d_input(
+                            xt.shape, wt, cg, padding=k - 1, groups=d)
+                    row.update(
+                        dx=time_graph_ms(torch, rotating(dx_copy, one),
+                                         reps=20),
+                        dx_plain=time_ms(torch, lambda: tc1.
+                                         trim_conv1d_input_grad_plain(dy, w),
+                                         reps=2),
+                        dx_library=time_graph_ms(
+                            torch, rotating(dx_library_copy, one), reps=20),
+                        dx_bound=dplan.bound(), dx_vec=dplan.vec)
+                    del dx, pdx
+                rows.append(row)
+                rate = row["least"] / (row["ms"] * 1e-3) / 1e12
+                print(f"  {name:11s} {row['dtype']:8s} {plan.vec:3d} "
+                      f"{plan.tile_l:4d} {plan.blocks:6d} {row['ms']:8.4f} "
+                      f"{row['events']:8.4f} {row['host_us']:6.1f} "
+                      f"{row['plain']:8.3f} "
+                      f"{row['library']:8.4f} {row['bound'][0]:8.4f} "
+                      f"{row['bound'][0] / row['ms']:6.1%} "
+                      f"{row['hbm'] / 1e6:8.1f} {rate:5.2f}"
+                      + (f"  dx: {row['dx']:.4f} ms (plain "
+                         f"{row['dx_plain']:.3f}, conv1d_input "
+                         f"{row['dx_library']:.4f}, bound "
+                         f"{row['dx_bound'][0]:.4f}, vec {row['dx_vec']})"
+                         if "dx" in row else ""))
+                del xz, x, dy, w, dw, dw2, pdw, xt, wt, gt
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+    torch.cuda.empty_cache()
+    return rows
+
+
+def flash_bwd_bounds_bf16(b, lq, lk, hq, hkv, d, causal, window) -> dict:
+    """{part: (ms, bound_by)} of the bf16 backward: the FLOPs of
+    :func:`flash_bwd_bounds` (10 D a valid pair for the whole backward,
+    8 D dK/dV, 6 D dQ) over 989 TFLOP/s of the dense bf16 tensor cores,
+    against the bytes (2 an element of q, k, v, dO and the gradients, 4 of
+    lse and the statistics) over 3.35 TB/s; ``sum``: the G heads' f32
+    partials read once and bf16 dK and dV written once."""
+    q_pos = np.arange(lq) + lk - lq
+    hi = np.minimum(q_pos + 1, lk) if causal else np.full(lq, lk)
+    lo = np.maximum(q_pos - window + 1, 0) if window else np.zeros(lq)
+    pairs = int(np.maximum(hi - lo, 0).sum()) * b * hq
+    rows, keys, stats = b * lq * hq * d, b * lk * hkv * d, b * hq * lq
+    parts = {"backward": (10, 2 * (3 * rows + 4 * keys) + 4 * stats),
+             # dK / dV: f32 partials of the G heads, or bf16 for G = 1
+             "dkdv": (8, 2 * (2 * rows + 2 * keys) + 4 * 2 * stats
+                      + (2 * 2 * keys if hq == hkv
+                         else 4 * 2 * keys * (hq // hkv))),
+             "dq": (6, 2 * (3 * rows + 2 * keys) + 4 * 3 * stats)}
+    out = {}
+    for part, (per_pair, nbytes) in parts.items():
+        flops = per_pair * d * pairs
+        ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        out[part] = (max(ops_ms, bytes_ms),
+                     "operations" if ops_ms >= bytes_ms else "bytes")
+        out[f"{part}_flops"] = flops
+    g = hq // hkv
+    bytes_ms = (4 * 2 * g + 2 * 2) * keys / PEAK_BYTES_PER_S * 1e3
+    out["sum"] = (bytes_ms, "bytes")
+    return out
+
+
+def check_bf16_flash_bwd(torch) -> list:
+    """The flash backward's bf16 route (``flash_attention_bwd_dq_bf16``,
+    ``_dkdv_bf16``, ``_sum_bf16``) at cases (t) and (c) of
+    :func:`flash_bwd_cases` (and the GQA-7 and Lq < Lk cases): dq, dk and
+    dv of bf16, each no farther from the float64 plain backward than the
+    plain bf16 backward (f32 math on the widened values, rounded once) is
+    plus one bf16 ulp of max|grad|, and within half an ulp of bf16 plus
+    ``FLASH_BWD_BF16_F64_EXCESS`` of max|grad| of it (at (t) and (c) the
+    emulated split passes that gate and one bf16 P or dS fails it, on
+    the same inputs: :func:`flash_bwd_bf16_emulated`); two calls bitwise
+    equal; the bf16
+    forward's o bitwise the same with and without lse; the launches of
+    each kernel; device ms (CUDA graphs; the sum over copies of its
+    partials that outgrow the L2, :func:`rotating`) of the whole backward
+    and of each kernel beside the plain backward's (eager), the bound at
+    989 TFLOP/s and, at (t), SDPA's bf16 backward and forward +
+    backward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    bf = torch.bfloat16
+    rows = []
+    print("bf16 flash backward check (errors of max|float64 grad|: kernels "
+          "/ plain bf16; ms: CUDA graphs, plain eager; bound: 10 D FLOPs a "
+          "valid pair at 989 TFLOP/s, dK/dV 8 D, dQ 6 D):")
+    for name, b, lq, lk, hq, hkv, d, causal, cap, win in flash_bwd_cases():
+        q, do = (torch.randn((b, lq, hq, d), generator=gen,
+                             device="cuda").to(bf) for _ in range(2))
+        k, v = (torch.randn((b, lk, hkv, d), generator=gen,
+                            device="cuda").to(bf) for _ in range(2))
+        kw = dict(causal=causal, soft_cap=cap, window=win)
+        plan = fa.bwd_plan(b, lq, lk, hq, hkv, d)
+        lse = torch.empty((b, hq, lq), device="cuda")
+        fa.reset_launch_counts()
+        o = fa._launch_forward(q, k, v, causal, cap, win, lse)
+        same_o = torch.equal(o, fa.flash_attention(q, k, v, **kw))
+        got = fa.flash_attention_backward(q, k, v, lse, do, **kw)
+        again = fa.flash_attention_backward(q, k, v, lse, do, **kw)
+        counts = route_counts(fa.BWD_LAUNCHES, bf16=True)
+        plain = fa.flash_attention_backward_plain(q, k, v, lse, do, **kw)
+        want = fa.flash_attention_backward_plain(
+            q.double(), k.double(), v.double(), lse.double(), do.double(),
+            **kw)
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(x, y) for x, y in zip(got, again))
+        f64_exc = [half_ulp_excess(torch, g, w) for g, w in zip(got, want)]
+        emulated = {}
+        if name in ("t_train", "c_rgemma"):
+            for key, terms in (("split", (2, 2)), ("one_p", (1, 2)),
+                               ("one_ds", (2, 1))):
+                emu = flash_bwd_bf16_emulated(torch, q, k, v, do, kw,
+                                              p_terms=terms[0],
+                                              ds_terms=terms[1])
+                emulated[key] = [half_ulp_excess(torch, g, w)
+                                 for g, w in zip(emu, want)]
+                del emu
+            gate = FLASH_BWD_BF16_F64_EXCESS
+            if not (max(emulated["split"]) <= gate
+                    and emulated["one_p"][2] > 4 * gate
+                    and min(emulated["one_ds"][:2]) > 4 * gate):
+                raise AssertionError(
+                    f"bf16 flash backward {name}: the float64 gate {gate} "
+                    f"does not tell the emulated P / dS split (dq, dk, dv "
+                    f"{emulated['split']}) from one bf16 P (dv "
+                    f"{emulated['one_p'][2]}) or dS (dq, dk "
+                    f"{emulated['one_ds'][:2]}) by 4x")
+        errs, perrs, excess = [], [], []
+        for g, p, w in zip(got, plain, want):
+            scale = w.abs().max().item()
+            ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+            ek = (g.double() - w).abs().max().item()
+            ep = (p.double() - w).abs().max().item()
+            errs.append(ek / scale)
+            perrs.append(ep / scale)
+            excess.append((ek - ep - ulp) / scale)
+        n_sum = 2 if plan.group > 1 else 0
+        want_counts = {"flash_attention_bwd_dq_bf16": 2,
+                       "flash_attention_bwd_dkdv_bf16": 2,
+                       "flash_attention_bwd_sum_bf16": n_sum}
+        if not (same_o and repeat and counts == want_counts
+                and all(g.dtype == bf for g in got)
+                and np.isfinite(errs).all() and max(excess) <= 0
+                and max(f64_exc) <= FLASH_BWD_BF16_F64_EXCESS):
+            raise AssertionError(
+                f"bf16 flash backward {name}: o with lse == without "
+                f"{same_o}, two calls bitwise {repeat}, launches {counts}, "
+                f"dq/dk/dv of max|f64| {errs} against the plain bf16 "
+                f"backward's {perrs} (limit: plus one bf16 ulp); past half "
+                f"a bf16 ulp {f64_exc} (limit "
+                f"{FLASH_BWD_BF16_F64_EXCESS})")
+        stats = torch.empty((2, b, hq, lq), device="cuda")
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        part = torch.empty((2, plan.group, *k.shape), device="cuda")
+        outs = (dk, dv) if plan.group == 1 else (part[0], part[1])
+        t = {"backward": time_graph_ms(torch, lambda: fa.
+                                       flash_attention_backward(
+                                           q, k, v, lse, do, **kw), reps=5),
+             "dq": time_graph_ms(torch, lambda: fa._launch_backward(
+                 "dq", q, k, v, do, lse, stats, (dq,), **kw), reps=5),
+             "dkdv": time_graph_ms(torch, lambda: fa._launch_backward(
+                 "dkdv", q, k, v, do, lse, stats, outs, **kw), reps=5),
+             "sum": None, "sum_plain": None, "sum_library": None,
+             "plain": time_ms(torch, lambda: fa.flash_attention_backward_plain(
+                 q, k, v, lse, do, **kw), reps=2),
+             "sdpa_bwd": None, "sdpa_fwd_bwd": None,
+             "sdpa_bwd_device": None, "backward_device": None}
+        if plan.group > 1:
+            def copies(call):
+                def make():
+                    c = part.clone()
+                    return lambda: call(c)
+                return rotating(make, part.numel() * 4)
+            t["sum"] = time_graph_ms(torch, copies(
+                lambda c: fa._launch_sum(c, dk, dv, plan)), reps=10)
+            # the plain sum (in head order, f32) rounded once, and one
+            # PyTorch call over the heads
+            t["sum_plain"] = time_ms(torch, lambda: [
+                x.to(bf) for x in fa.sum_partials_plain(part)])
+            t["sum_library"] = time_graph_ms(torch, copies(
+                lambda c: torch.sum(c, 1).to(bf)), reps=10)
+        if cap is None and win is None and lq == lk:
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            dot = do.transpose(1, 2)
+            sdpa = F.scaled_dot_product_attention
+
+            def fwd_bwd():
+                out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+                return torch.autograd.grad(out, (qt, kt, vt), dot)
+            t["sdpa_fwd_bwd"] = time_ms(torch, fwd_bwd)
+            out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                           retain_graph=True)
+            t["sdpa_bwd"] = time_ms(torch, sdpa_bwd)
+            # the device time alone (torch.profiler), of SDPA's backward
+            # and of the kernels': events around autograd include its host
+            # work (SDPA's events have read 0.17-0.68 ms across calls)
+            share = device_share(torch, sdpa_bwd, n=5)
+            t["sdpa_bwd_device"] = share["device_ms"]
+            t["sdpa_bwd_top"] = share["top"][:2]
+            t["backward_device"] = device_share(
+                torch, lambda: fa.flash_attention_backward(
+                    q, k, v, lse, do, **kw), n=5)["device_ms"]
+            del out, qt, kt, vt
+        bounds = flash_bwd_bounds_bf16(b, lq, lk, hq, hkv, d, causal, win)
+        rows.append(dict(name=name, errs=errs, plain_errs=perrs,
+                         excess=max(excess), f64_excess=max(f64_exc),
+                         emulated=emulated, bounds=bounds, plan=plan,
+                         abs_err=max((g.float() - p.float()).abs().max()
+                                     .item() for g, p in zip(got, plain)),
+                         **t))
+        fmt = (lambda x: "-" if x is None else f"{x:.3f}")
+        print(f"  {name:9s} dq/dk/dv {errs[0]:.2e} {errs[1]:.2e} "
+              f"{errs[2]:.2e} (plain bf16 {perrs[0]:.2e} {perrs[1]:.2e} "
+              f"{perrs[2]:.2e}); past half a bf16 ulp of float64 "
+              + " ".join(f"{x:.2e}" for x in f64_exc)
+              + "".join(f", emulated {key} " + " ".join(
+                  f"{x:.2e}" for x in vals)
+                  for key, vals in emulated.items())
+              + f"; ms backward {t['backward']:.3f} (dq "
+              f"{t['dq']:.3f}, dkdv {t['dkdv']:.3f}, sum {fmt(t['sum'])}), "
+              f"plain {t['plain']:.3f}, bound {bounds['backward'][0]:.3f} "
+              f"({bounds['backward'][1]}; dkdv {bounds['dkdv'][0]:.3f}, dq "
+              f"{bounds['dq'][0]:.3f}), SDPA bf16 backward "
+              f"{fmt(t['sdpa_bwd'])}, fwd+bwd {fmt(t['sdpa_fwd_bwd'])} "
+              f"(profiler device ms: SDPA backward "
+              f"{fmt(t['sdpa_bwd_device'])}, the kernels' "
+              f"{fmt(t['backward_device'])}"
+              + (f"; SDPA's kernels {t['sdpa_bwd_top']}"
+                 if t["sdpa_bwd_device"] is not None else "") + "); "
+              f"{bounds['backward_flops'] / t['backward'] / 1e9:.1f} TFLOP/s;"
+              f" blocks {plan.dq_blocks} / {plan.dkdv_blocks} / "
+              f"{plan.sum_blocks}")
+        del q, k, v, o, do, lse, got, again, plain, want, stats, dq, dk, dv
+        del part
+    torch.cuda.empty_cache()
+    return rows
+
+
+def bf16_plain_routes(torch):
+    """Every conv1d and flash kernel wrapper of a training step swapped
+    for its plain version (the forwards too: the kernels' functions in
+    plain PyTorch on the CUDA tensors)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import trim_conv1d as tc1
+
+    def conv_forward(x, w, tile_l):
+        with torch.no_grad():
+            return tc1.trim_conv1d_plain(x, w.contiguous(), tile_l=tile_l)
+
+    def attn_forward(q, k, v, causal, soft_cap, window, lse=None):
+        o, plain_lse = fa._plain_forward(q, k, v, causal=causal,
+                                         soft_cap=soft_cap, window=window,
+                                         block_k=fa.BLOCK_K)
+        if lse is not None:
+            lse.copy_(plain_lse)
+        return o
+    stack = contextlib.ExitStack()
+    stack.enter_context(swapped(
+        tc1, _forward=conv_forward,
+        trim_conv1d_input_grad=tc1.trim_conv1d_input_grad_plain,
+        trim_conv1d_weight_grad=tc1.trim_conv1d_wgrad_plain))
+    stack.enter_context(swapped(
+        fa, _launch_forward=attn_forward,
+        flash_attention_backward=fa.flash_attention_backward_plain))
+    return stack
+
+
+def bf16_step_launches(cfg) -> dict:
+    """The bf16 kernels' launches of one remat train step of ``cfg``:
+    each conv1d and flash forward twice a layer (remat recomputes it),
+    each backward kernel once (the flash sum where G > 1)."""
+    rec = sum(cfg.pattern_at(i) == "rec" for i in range(cfg.n_layers)) \
+        if cfg.family == "hybrid" else (
+            cfg.n_layers if cfg.family == "ssm" else 0)
+    att = cfg.n_layers - rec
+    sums = att if cfg.n_heads > cfg.n_kv_heads else 0
+    return {"trim_conv1d_bf16": 2 * rec, "trim_conv1d_dx_bf16": rec,
+            "trim_conv1d_wgrad_bf16": rec, "flash_attention_bf16": 2 * att,
+            "flash_attention_bwd_dkdv_bf16": att,
+            "flash_attention_bwd_dq_bf16": att,
+            "flash_attention_bwd_sum_bf16": sums}
+
+
+def train_lm_bf16_rows():
+    """(arch, layers or None for full depth, batch, seq, f32 phase key,
+    gradient cut layers, gradient tokens): the f32 training phases'
+    shapes."""
+    return [("qwen2.5-3b", None, TRAIN_LM_BATCH, TRAIN_LM_SEQ,
+             GRAD_LM_LAYERS, 1, GRAD_LM_TOKENS),
+            ("recurrentgemma-2b", None, RGEMMA_TRAIN_BATCH,
+             RGEMMA_TRAIN_SEQ, RGEMMA_GRAD_LAYERS, 1, RGEMMA_GRAD_TOKENS),
+            ("falcon-mamba-7b", MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_BATCH,
+             MAMBA_TRAIN_SEQ, MAMBA_GRAD_LAYERS, MAMBA_TRAIN_BATCH,
+             MAMBA_TRAIN_SEQ - 1)]
+
+
+def train_lm_bf16(torch, f32: dict) -> dict:
+    """Phase 37 (module docstring): full-width qwen2.5-3b and
+    recurrentgemma-2b and the falcon-mamba-7b depth cut trained in bf16
+    through ``steps.make_train_step`` (params drawn in bf16, f32
+    moments); ``f32``: each family's f32 training phase's result of this
+    call.  Per family: step-1 gradients at the depth cut on the kernels,
+    on the plain routes and on the f32 kernels for the same values
+    widened (each leaf of the kernels' step no farther from the plain
+    step than twice the plain step's distance from the f32 step, plus
+    2^-8);
+    BF16_LM_TRAIN_STEPS steps at the cut (the gradient reaches mu and
+    nu); then LM_BF16_TRAIN_STEPS timed steps at the f32 phase's shape:
+    ms and peak a step, launches a step of each bf16 kernel, every loss
+    and leaf finite, beside the f32 phase's figures."""
+    from repro_torch.configs import registry
+    from repro_torch.data import DataConfig, SyntheticStream, make_batch
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import trim_conv1d as tc1
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+    from repro_torch.optim import AdamWConfig, adamw
+
+    out = {"launches": {}}
+    for arch, layers, batch, seq, cut, gb, gtok in train_lm_bf16_rows():
+        cfg = registry.get(arch).CONFIG
+        if layers is not None:
+            cfg = cfg.replace(n_layers=layers)
+        assert cfg.remat
+        opt = AdamWConfig(lr=3e-3, warmup_steps=10,
+                          decay_steps=LM_BF16_TRAIN_STEPS)
+
+        # step-1 gradients at the depth cut: kernels, plain routes, f32
+        gcfg = cfg.replace(n_layers=cut)
+        params = init_params(api.params(gcfg), torch.Generator(
+            device="cuda").manual_seed(0), device="cuda",
+            dtype=torch.bfloat16)
+        nb = make_batch(DataConfig(batch=gb, seq=gtok + 1, vocab=cfg.vocab,
+                                   task="copy"), 0)
+        gbatch = {k: torch.from_numpy(v).cuda() for k, v in nb.items()}
+        names = leaf_names(params)
+
+        def grads(p):
+            live = [t.detach().requires_grad_()
+                    for t in adamw.tree_leaves(p)]
+            logits, aux = api.forward(adamw.tree_unflatten(p, live), gbatch,
+                                      gcfg)
+            loss = api.loss_fn(logits, gbatch["labels"], aux)
+            return [loss] + list(torch.autograd.grad(loss, live))
+        tc1.reset_launch_counts()
+        fa.reset_launch_counts()
+        g_k = grads(params)
+        torch.cuda.synchronize()
+        g_launches = family_counts(tc1, fa, bf16=True)
+        with bf16_plain_routes(torch):
+            tc1.reset_launch_counts()
+            fa.reset_launch_counts()
+            g_p = grads(params)
+            torch.cuda.synchronize()
+            plain_launches = {**tc1.LAUNCHES, **tc1.BWD_LAUNCHES,
+                              **fa.LAUNCHES, **fa.BWD_LAUNCHES}
+        g_32 = grads(widened(params))
+        torch.cuda.synchronize()
+
+        def dist(a, b):
+            return (a.float() - b.float()).abs().max().item() / max(
+                b.float().abs().max().item(), 2.0 ** -126)
+        want = bf16_step_launches(gcfg)
+        if any(plain_launches.values()):
+            raise AssertionError(f"train_lm_bf16 {arch}: the plain step "
+                                 f"launched {plain_launches}")
+        bad, table = [], []
+        for name, a, p, f in zip(["loss"] + names, g_k, g_p, g_32):
+            if name != "loss" and a.dtype != p.dtype:
+                bad.append(f"{name} dtype {a.dtype} / {p.dtype}")
+            dk, dp = dist(a, p), dist(p, f)
+            table.append((name, dk, dp, dist(a, f)))
+            if not (np.isfinite(dk) and dk <= 2 * dp + 2.0 ** -8):
+                bad.append(f"{name} {dk:.3e} from the plain step, which "
+                           f"lies {dp:.3e} from f32")
+        if bad or g_launches != want:
+            raise AssertionError(f"train_lm_bf16 {arch}: step-1 gradients "
+                                 f"at the depth-{cut} cut: {bad}; launches "
+                                 f"{g_launches}, want {want}")
+        table.sort(key=lambda r: -r[1] / max(r[2], 1e-30))
+        print(f"train_lm_bf16 {arch}: step-1 gradients at the depth-{cut} "
+              f"full-width cut ({gb} x {gtok} tokens), each leaf's max|diff| "
+              f"/ max: kernels vs plain routes (plain vs f32 on the same "
+              f"values; kernels vs f32), worst ratio first: " + ", ".join(
+                  f"{n} {dk:.2e} ({dp:.2e}; {df:.2e})"
+                  for n, dk, dp, df in table[:6])
+              + f" -- every leaf within 2x plus 2^-8; launches {g_launches}")
+        del g_k, g_p, g_32, gbatch
+
+        # steps at the cut: the gradient reaches mu and nu
+        state = {"params": params,
+                 "opt": adamw.init_moments(params, opt),
+                 "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+        stream = SyntheticStream(DataConfig(batch=gb, seq=gtok + 1,
+                                            vocab=cfg.vocab, task="copy"))
+        step_fn = steps.make_train_step(gcfg, opt)
+        norms, cut_losses = [], []
+        for _ in range(BF16_LM_CUT_STEPS):
+            state, metrics = step_fn(state, {
+                k: torch.from_numpy(v).cuda()
+                for k, v in next(stream).items()})
+            norms.append(float(metrics["grad_norm"]))
+            cut_losses.append(float(metrics["loss"]))
+        clip = train_clip_state(torch, state, norms,
+                                f"{arch} bf16 depth-{cut} full-width cut")
+        if not (clip["mu_leaves_moved"] > 0 and np.isfinite(cut_losses).all()
+                and all(t.dtype == p.dtype for t, p in zip(
+                    adamw.tree_leaves(state["params"]),
+                    adamw.tree_leaves(params)))):
+            raise AssertionError(f"train_lm_bf16 {arch}: the depth-{cut} "
+                                 f"cut's steps: losses {cut_losses}, grad "
+                                 f"norms {norms}, {clip}")
+        del state, params, step_fn
+        torch.cuda.empty_cache()
+
+        # the timed steps at the f32 phase's shape
+        torch.cuda.reset_peak_memory_stats()
+        state = {"params": init_params(api.params(cfg), torch.Generator(
+                     device="cuda").manual_seed(0), device="cuda",
+                     dtype=torch.bfloat16),
+                 "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+        state["opt"] = adamw.init_moments(state["params"], opt)
+        stream = SyntheticStream(DataConfig(batch=batch, seq=seq,
+                                            vocab=cfg.vocab, task="copy"))
+        step_fn = steps.make_train_step(cfg, opt)
+        losses, norms, step_ms, peaks, per_step = [], [], [], [], []
+        for _ in range(LM_BF16_TRAIN_STEPS):
+            b_ = {k: torch.from_numpy(v).cuda()
+                  for k, v in next(stream).items()}
+            torch.cuda.synchronize()
+            tc1.reset_launch_counts()
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, b_)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            per_step.append(family_counts(tc1, fa, bf16=True))
+            norms.append(float(metrics["grad_norm"]))
+            peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        clip = train_clip_state(torch, state, norms,
+                                f"{arch} bf16 full width"
+                                + (f" cut to {layers}" if layers else ""))
+        leaves_bf16 = sum(t.dtype == torch.bfloat16
+                          for t in adamw.tree_leaves(state["params"]))
+        del state, step_fn
+        torch.cuda.empty_cache()
+        want = bf16_step_launches(cfg)
+        if any(c != want for c in per_step) or \
+                not np.isfinite(losses).all() or leaves_bf16 == 0:
+            raise AssertionError(f"train_lm_bf16 {arch}: launches a step "
+                                 f"{per_step}, want {want}; losses "
+                                 f"{losses}")
+        for key in per_step[0]:
+            out["launches"][key] = out["launches"].get(key, 0) + sum(
+                c[key] for c in per_step)
+        ref = f32[arch]
+        f_ms = ref["step_ms"]
+        print(f"train_lm_bf16 {arch}: {cfg.n_layers} layers at full width "
+              f"(remat), batch {batch} x {seq - 1} tokens, "
+              f"{LM_BF16_TRAIN_STEPS} AdamW steps in bf16: losses "
+              f"{[round(x, 4) for x in losses]}, grad norms {norms}")
+        for i in range(LM_BF16_TRAIN_STEPS):
+            fm = f"{f_ms[i]:.1f}" if i < len(f_ms) else "-"
+            print(f"  step {i + 1}: {step_ms[i]:.1f} ms (f32 phase "
+                  f"{fm} ms), peak {peaks[i]:.2f} GiB (f32 phase peak "
+                  f"{ref['peak']:.2f} GiB over its steps), launches "
+                  f"{per_step[i]}")
+        steady = float(np.mean(step_ms[1:]))
+        f_steady = float(np.mean(f_ms[1:]))
+        print(f"  steady {steady:.1f} ms a step (steps 2-"
+              f"{LM_BF16_TRAIN_STEPS}) against the f32 phase's "
+              f"{f_steady:.1f} ms (steps 2-{len(f_ms)}): "
+              f"{f_steady / steady:.2f}x; peak {max(peaks):.2f} GiB "
+              f"against {ref['peak']:.2f}")
+        out[arch] = dict(losses=losses, grad_norms=norms, step_ms=step_ms,
+                         steady_ms=steady, f32_steady_ms=f_steady,
+                         peak=max(peaks), f32_peak=ref["peak"],
+                         per_step=per_step[0], clip=clip,
+                         worst=table[0], cut_losses=cut_losses)
+    print(f"train_lm_bf16: launches of the bf16 routes over the three "
+          f"families' timed steps {out['launches']}")
+    return out
 
 
 def main() -> int:
@@ -6223,6 +7002,13 @@ def run(torch, args, cache_dir: str) -> int:
         "falcon-mamba-7b": dict(ms=mb["ms"], peak=mb["peak"],
                                 step_ms=mserved["step_ms"])})
     phase.done("lm_bf16")
+    c1w = check_conv1d_wgrad(torch)
+    phase.done("conv1d wgrad check")
+    fb16 = check_bf16_flash_bwd(torch)
+    phase.done("bf16 flash backward check")
+    tlb = train_lm_bf16(torch, {"qwen2.5-3b": lmt, "recurrentgemma-2b": rgt,
+                                "falcon-mamba-7b": mbt})
+    phase.done("train_lm_bf16")
     tb = train_bf16(torch, train_stats)
     phase.done("train_bf16")
 
@@ -6424,6 +7210,7 @@ def run(torch, args, cache_dir: str) -> int:
     })
     a = next(r for r in arows if r["name"] == "a_prefill")
     ac = next(r for r in arows if r["name"] == "c_rgemma")
+    af32 = next(r for r in arows if r["name"] == "f_d320")
     kernels.append({
         "name": "flash_attention",
         "route": "cuda",
@@ -6444,6 +7231,10 @@ def run(torch, args, cache_dir: str) -> int:
         "rgemma_plain_ms": ac["plain"],
         "rgemma_bound_ms": ac["bound"],
         "rgemma_bound_by": ac["by"],
+        # case (f), D 320: the wide route; SDPA (its math backend)
+        "d320_ms": af32["kernel"],
+        "d320_bound_ms": af32["bound"],
+        "d320_library_ms": af32["library"],
     })
     bt = next(r for r in fbrows if r["name"] == "t_train")
     bc = next(r for r in fbrows if r["name"] == "c_rgemma")
@@ -6525,6 +7316,7 @@ def run(torch, args, cache_dir: str) -> int:
     })
     cb = next(r for r in c1b if r["name"] == "rg_train")
     cm = next(r for r in c1b if r["name"] == "mamba_view")
+    c1w_rows = {(r["name"], r["dtype"]): r for r in c1w}
     for part, key, src in (("dx", "trim_conv1d_dx", "trim_conv1d.cu"),
                            ("dw", "trim_conv1d_wgrad",
                             "trim_conv1d_wgrad.cu")):
@@ -6550,6 +7342,18 @@ def run(torch, args, cache_dir: str) -> int:
             "mamba_library_ms": cm[f"{part}_library"],
             "mamba_forward_ms": cm["fwd"],
         })
+        if part == "dw":
+            # the redesigned kernel: device ms from CUDA graphs over input
+            # copies that outgrow the L2; the events around the wrapper
+            # above (its host time bounds them) are kept as events_ms
+            wr, wm = (c1w_rows[(n, "float32")]
+                      for n in ("rg_train", "mamba_view"))
+            kernels[-1].update(
+                ms=wr["ms"], events_ms=cb["dw"], host_us=wr["host_us"],
+                library_ms=wr["library"],
+                mamba_ms=wm["ms"], mamba_events_ms=cm["dw"],
+                mamba_library_ms=wm["library"], tile_l=wr["tile_l"],
+                vec=wr["vec"], blocks=wr["blocks"])
     print(f"recurrentgemma train: {rgt['steady_ms']:.1f} ms a full-width "
           f"step ({RGEMMA_TRAIN_BATCH} x {RGEMMA_TRAIN_SEQ - 1}; clip scales "
           f"{rgt['clip']['scales']}), peak {rgt['peak']:.2f} GiB; mamba "
@@ -6722,10 +7526,104 @@ def run(torch, args, cache_dir: str) -> int:
         "rgemma_ms": ac["kernel"],
         "rgemma_plain_ms": ac["plain"],
         "rgemma_bound_ms": ac["bound"],
-        # case (f), D 320: the wide route
+        # case (f), D 320: the wide route; SDPA (its math backend) on
+        # bf16 computes the same function
         "d320_ms": af["kernel"],
         "d320_bound_ms": af["bound"],
         "d320_route_bound_ms": af["route_bound"],
+        "d320_library_ms": af["library"],
+    })
+    wr, wm = (c1w_rows[(n, "bfloat16")] for n in ("rg_train", "mamba_view"))
+    kernels.append({
+        "name": "trim_conv1d_wgrad_bf16",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/trim_conv1d_wgrad.cu",
+        # the backward of row 5's kernel, which the JAX package leaves to
+        # XLA's autodiff of ref.depthwise_conv1d
+        "replaces": "src/repro/kernels/trim_conv1d.py:29",
+        "launches": tlb["launches"]["trim_conv1d_wgrad_bf16"],
+        "max_abs_err": 0.0,          # bitwise its plain version
+        # recurrentgemma-2b's training row, CUDA graphs
+        "ms": wr["ms"],
+        "events_ms": wr["events"],
+        "host_us": wr["host_us"],
+        "plain_ms": wr["plain"],
+        "bound_ms": wr["bound"][0],
+        "bound_by": wr["bound"][1],
+        "library_ms": wr["library"],      # conv1d_weight on bf16
+        "tile_l": wr["tile_l"],
+        "vec": wr["vec"],
+        "mamba_ms": wm["ms"],
+        "mamba_bound_ms": wm["bound"][0],
+        "mamba_library_ms": wm["library"],
+    })
+    kernels.append({
+        "name": "trim_conv1d_dx_bf16",
+        "route": "cuda",
+        # trim_conv1d_bf16 launched on the reversed cotangent
+        "source": "src/repro_torch/kernels/csrc/trim_conv1d.cu",
+        "replaces": "src/repro/kernels/trim_conv1d.py:29",
+        "launches": tlb["launches"]["trim_conv1d_dx_bf16"],
+        "max_abs_err": 0.0,          # bitwise its plain version
+        "ms": wr["dx"],
+        "plain_ms": wr["dx_plain"],
+        "bound_ms": wr["dx_bound"][0],
+        "bound_by": wr["dx_bound"][1],
+        "library_ms": wr["dx_library"],   # conv1d_input on bf16
+        "mamba_ms": wm["dx"],
+        "mamba_bound_ms": wm["dx_bound"][0],
+        "mamba_library_ms": wm["dx_library"],
+    })
+    ft, fc = (next(r for r in fb16 if r["name"] == n)
+              for n in ("t_train", "c_rgemma"))
+    for part in ("dq", "dkdv"):
+        kernels.append({
+            "name": f"flash_attention_bwd_{part}_bf16",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:31",
+            "launches": tlb["launches"][f"flash_attention_bwd_{part}_bf16"],
+            # against the plain bf16 backward (f32 math, one rounding)
+            "max_abs_err": max(r["abs_err"] for r in fb16),
+            # past the plain bf16 backward's distance from float64 plus
+            # one bf16 ulp, of max|grad| (<= 0: the gate)
+            "max_plain_excess": max(r["excess"] for r in fb16),
+            # past half a bf16 ulp of the float64 plain backward, of
+            # max|grad| (<= FLASH_BWD_BF16_F64_EXCESS: the gate)
+            "max_f64_excess": max(r["f64_excess"] for r in fb16),
+            # case (t), one layer of the qwen2.5-3b step, CUDA graphs
+            "ms": ft[part],
+            "plain_ms": ft["plain"],
+            "bound_ms": ft["bounds"][part][0],
+            "bound_by": ft["bounds"][part][1],
+            # no single PyTorch call computes one kernel's half; SDPA's
+            # bf16 backward (both halves) is beside it
+            "library_ms": None,
+            "backward_ms": ft["backward"],
+            "backward_bound_ms": ft["bounds"]["backward"][0],
+            "sdpa_bwd_ms": ft["sdpa_bwd"],
+            "sdpa_fwd_bwd_ms": ft["sdpa_fwd_bwd"],
+            # torch.profiler device time of each backward, at (t)
+            "sdpa_bwd_device_ms": ft["sdpa_bwd_device"],
+            "backward_device_ms": ft["backward_device"],
+            "rgemma_ms": fc[part],
+            "rgemma_bound_ms": fc["bounds"][part][0],
+            "rgemma_backward_ms": fc["backward"],
+        })
+    kernels.append({
+        "name": "flash_attention_bwd_sum_bf16",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:31",
+        "launches": tlb["launches"]["flash_attention_bwd_sum_bf16"],
+        "max_abs_err": max(r["abs_err"] for r in fb16),
+        "ms": ft["sum"],
+        "plain_ms": ft["sum_plain"],
+        "bound_ms": ft["bounds"]["sum"][0],
+        "bound_by": ft["bounds"]["sum"][1],
+        "library_ms": ft["sum_library"],   # torch.sum over the heads
+        "rgemma_ms": fc["sum"],
+        "rgemma_bound_ms": fc["bounds"]["sum"][0],
     })
     print("lm_bf16 (bf16 prefill ms a forward, f32 of this call in "
           "brackets; peak GiB; ms a bf16 decode step): " + "; ".join(

@@ -61,6 +61,7 @@ the int8 kernel's own are ``Q8_*``.  The fused kernel's are ``FUSED_*`` in
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import ClassVar
@@ -1361,9 +1362,19 @@ CONV1D_UNROLLED_K = 8         # K = 2..8 keep the window in registers (a
                               # template instance each); larger K runs the
                               # kernel's runtime-K instance
 # The conv1d weight-gradient kernel (trim_conv1d_wgrad.cu)
-CONV1D_WGRAD_RUNS = 8         # runs (warps) a block (kRuns)
-CONV1D_WGRAD_TILE_D = 32      # channels (lanes) a block (kLanes)
+CONV1D_WGRAD_RUNS = 4         # runs (warps) a block (kRuns)
+CONV1D_WGRAD_LANES = 32       # channel vectors (lanes) a warp (kLanes)
+CONV1D_WGRAD_VEC = {4: 4, 2: 8}   # channels a lane where rows are 16-byte
+                              # aligned, by element size (kVecF32, kVecBf16)
+CONV1D_WGRAD_UNROLL = 4       # rows of x and dy a load batch (kUnroll);
+                              # the next batch is in flight while one sums
+CONV1D_WGRAD_TILE_LS = (256, 128, 64, 32, 16, 8)   # run lengths
+CONV1D_WGRAD_HALO_SHARE = 0.1  # a run re-reads at most this share of its
+                               # rows as halo (K-1 rows a run)
+CONV1D_WGRAD_MIN_BLOCKS = 2 * SMS   # blocks to aim for: every SM busy,
+                                    # the whole grid resident at once
 CONV1D_WGRAD_SUM_THREADS = 256   # threads a block of the partials' sum
+CONV1D_WGRAD_MAX_SMEM = 232448   # H100: 227 KB opt-in a block
 
 
 @dataclass(frozen=True)
@@ -1528,26 +1539,44 @@ class Conv1dWeightGradPlan:
     one sequence (its window starts from the ``K-1`` inputs before it,
     zeros before t = 0), numbered b-major; a block takes a *group* of
     :data:`CONV1D_WGRAD_RUNS` consecutive runs (one a warp) over
-    :data:`CONV1D_WGRAD_TILE_D` channels (one a lane), adds its warps'
-    sums in run order and writes one ``(K, D)`` partial a group into
-    scratch; a second launch adds the partials in group order.  Nothing is
-    summed with atomics, so a call is deterministic and its plain version
-    replays it bit for bit.  ``tile_l`` is the longest run of
-    ``CONV1D_TILE_LS`` that still gives :data:`CONV1D_MIN_WAVES` full
-    waves of resident blocks, as for the forward."""
+    ``tile_d`` channels (``vec`` a lane: one 16-byte load a row, 4 f32 or
+    8 bf16 channels, where rows are 16-byte aligned; else one), adds its
+    warps' sums in run order and writes one f32 ``(K, D)`` partial a
+    group into scratch; a second launch adds the partials in group order
+    and rounds once to the operands' dtype.  Nothing is summed with
+    atomics, so a call is deterministic and its plain version replays it
+    bit for bit.
+
+    ``tile_l`` is the longest run of :data:`CONV1D_WGRAD_TILE_LS` that
+    still gives :data:`CONV1D_WGRAD_MIN_BLOCKS` blocks, but never one so
+    short that its ``K-1`` halo rows exceed
+    :data:`CONV1D_WGRAD_HALO_SHARE` of it (32 steps at K = 4): the
+    halo is re-read from device memory, the whole cost of a short run,
+    while the blocks only need to fill the card once (each thread keeps
+    two batches of :data:`CONV1D_WGRAD_UNROLL` rows in flight)."""
 
     b: int
     length: int
     d: int
     k: int
     tile_l: int
+    dtype_bytes: int = 4
+    vec: int = 1
 
     @classmethod
-    def build(cls, x_shape, k: int, *,
-              tile_l: int | None = None) -> "Conv1dWeightGradPlan":
-        """Plan from ``x (B, L, D)`` and the tap count ``K``, choosing
-        ``tile_l`` if it is left as ``None``.  Raises ``ValueError`` for
-        what the kernel cannot take."""
+    def build(cls, x_shape, k: int, *, tile_l: int | None = None,
+              dtype_bytes: int = 4, vec: int = 1) -> "Conv1dWeightGradPlan":
+        """Plan from ``x (B, L, D)``, the tap count ``K``, the element
+        size (4: f32, 2: bf16) and the channels a lane (1, or
+        ``CONV1D_WGRAD_VEC[dtype_bytes]`` with D a multiple of it),
+        choosing ``tile_l`` if it is left as ``None``.  Raises
+        ``ValueError`` for what the kernel cannot take.  Cached: the
+        wrapper plans on every call."""
+        return cls._build(tuple(x_shape), k, tile_l, dtype_bytes, vec)
+
+    @classmethod
+    @functools.lru_cache(maxsize=256)
+    def _build(cls, x_shape, k, tile_l, dtype_bytes, vec):
         if len(x_shape) != 3:
             raise ValueError(f"x must be (B, L, D); got {tuple(x_shape)}")
         b, length, d = (int(v) for v in x_shape)
@@ -1557,18 +1586,41 @@ class Conv1dWeightGradPlan:
                              "must be >= 1")
         if k < 2:
             raise ValueError(f"K={k}: the kernel takes K >= 2")
+        if dtype_bytes not in CONV1D_WGRAD_VEC or vec not in (
+                1, CONV1D_WGRAD_VEC[dtype_bytes]) or d % vec:
+            raise ValueError(
+                f"dtype_bytes={dtype_bytes}, vec={vec}: the kernel takes "
+                "f32 (4) with vec 1 or 4 and bf16 (2) with vec 1 or 8, D a "
+                "multiple of vec")
+        plan = cls(b=b, length=length, d=d, k=k, tile_l=1,
+                   dtype_bytes=dtype_bytes, vec=vec)
+        if plan.smem_bytes > CONV1D_WGRAD_MAX_SMEM:
+            raise ValueError(f"K={k}: the block's sums take "
+                             f"{plan.smem_bytes} bytes of shared memory, "
+                             f"more than {CONV1D_WGRAD_MAX_SMEM}")
         if tile_l is None:
-            threads = CONV1D_WGRAD_RUNS * CONV1D_WGRAD_TILE_D
-            wave = SMS * (THREADS_PER_SM // threads)
-            d_tiles = -(-d // CONV1D_WGRAD_TILE_D)
+            fits = [t for t in CONV1D_WGRAD_TILE_LS
+                    if k - 1 <= CONV1D_WGRAD_HALO_SHARE * t] \
+                or [CONV1D_WGRAD_TILE_LS[0]]
             tile_l = next(
-                (t for t in CONV1D_TILE_LS
-                 if d_tiles * -(-b * -(-length // t) // CONV1D_WGRAD_RUNS)
-                 >= CONV1D_MIN_WAVES * wave), CONV1D_TILE_LS[-1])
+                (t for t in fits
+                 if plan.d_tiles * -(-b * -(-length // t)
+                                     // CONV1D_WGRAD_RUNS)
+                 >= CONV1D_WGRAD_MIN_BLOCKS), fits[-1])
             tile_l = min(tile_l, length)
         if tile_l < 1:
             raise ValueError(f"tile_l={tile_l} must be >= 1")
-        return cls(b=b, length=length, d=d, k=k, tile_l=tile_l)
+        return dataclasses.replace(plan, tile_l=tile_l)
+
+    @property
+    def tile_d(self) -> int:
+        """Channels a block: a warp's lanes times ``vec``."""
+        return CONV1D_WGRAD_LANES * self.vec
+
+    @property
+    def smem_bytes(self) -> int:
+        """The block's shared memory: each warp's K x tile_d f32 sums."""
+        return 4 * CONV1D_WGRAD_RUNS * self.k * self.tile_d
 
     @property
     def runs_per_b(self) -> int:
@@ -1584,7 +1636,7 @@ class Conv1dWeightGradPlan:
 
     @property
     def d_tiles(self) -> int:
-        return -(-self.d // CONV1D_WGRAD_TILE_D)
+        return -(-self.d // self.tile_d)
 
     @property
     def grid(self) -> tuple[int, int]:
@@ -1605,28 +1657,31 @@ class Conv1dWeightGradPlan:
         return 2 * self.b * self.length * self.d * self.k
 
     def min_bytes(self) -> int:
-        """f32 bytes the function must move: x and dy read once, dw
-        written once."""
-        return 4 * (2 * self.b * self.length * self.d + self.k * self.d)
+        """Bytes the function must move: x and dy read once, dw written
+        once, ``dtype_bytes`` an element."""
+        return self.dtype_bytes * (2 * self.b * self.length * self.d
+                                   + self.k * self.d)
 
     def hbm_bytes(self) -> dict:
-        """f32 bytes the kernels' schedule moves: x and dy once, each
-        run's re-read halo (``min(K-1, t0)`` rows), the partials written
-        and read once, dw written."""
+        """Bytes the kernels' schedule moves: x and dy once, each run's
+        re-read halo (``min(K-1, t0)`` rows), the f32 partials written and
+        read once, dw written."""
+        e = self.dtype_bytes
         rows = sum(min(self.k - 1, r * self.tile_l)
                    for r in range(self.runs_per_b))
-        inp = 8 * self.b * self.length * self.d
-        halo = 4 * self.b * self.d * rows
+        inp = 2 * e * self.b * self.length * self.d
+        halo = e * self.b * self.d * rows
         partials = 2 * 4 * self.groups * self.k * self.d
-        out = 4 * self.k * self.d
+        out = e * self.k * self.d
         return dict(input=inp, halo=halo, partials=partials, output=out,
                     total=inp + halo + partials + out)
 
     def bound(self) -> tuple[float, str]:
         """(ms, "bytes" or "operations"): the least time the H100 takes,
-        :attr:`flops` over 67 TFLOP/s against :meth:`min_bytes` over
-        3.35 TB/s."""
-        ops_ms = self.flops / PEAK_F32_FLOPS * 1e3
+        :attr:`flops` over the peak of the operands' type (67 TFLOP/s f32,
+        989 TFLOP/s bf16) against :meth:`min_bytes` over 3.35 TB/s."""
+        peak = PEAK_BF16_FLOPS if self.dtype_bytes == 2 else PEAK_F32_FLOPS
+        ops_ms = self.flops / peak * 1e3
         bytes_ms = self.min_bytes() / PEAK_BYTES_PER_S * 1e3
         return (max(ops_ms, bytes_ms),
                 "operations" if ops_ms >= bytes_ms else "bytes")

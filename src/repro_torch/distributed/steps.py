@@ -18,10 +18,6 @@ from repro_torch.models.base import init_params
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamWConfig, adamw
 
-BF16_TRAIN = ("the port trains in f32 only: bf16 training needs the bf16 "
-              "backward of the conv1d and flash kernels, ROADMAP Queue 1 "
-              "item 7b (label 2g)")
-
 
 def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig,
                      generator: torch.Generator, device=None) -> dict:
@@ -50,12 +46,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     ``grad_norm``, ``lr`` (0-d tensors).  batch: ``tokens``, ``labels``
     (B, S) integer tensors on the params' device.
 
-    Training is f32: a bf16 config, or a step given bf16 params, raises
-    ``NotImplementedError`` (the bf16 backward is ROADMAP Queue 1 item
-    7b)."""
+    bf16 params (``init_params(..., dtype=torch.bfloat16)``, the norms'
+    scales f32 as in JAX) train as JAX's ``make_train_step`` trains them:
+    the forward and backward run in the params' dtypes (the conv1d and
+    flash kernels' bf16 routes), each gradient comes out in its leaf's
+    dtype (``n_micro > 1``: summed in ``accum_dtype``), and AdamW updates
+    each leaf in f32 and rounds it once to its dtype, the moments kept in
+    ``opt_cfg.moment_dtype``."""
     api.require_ported(cfg.family)
-    if cfg.dtype != "float32":
-        raise NotImplementedError(BF16_TRAIN)
 
     def loss_and_grads(leaves, params, mb):
         live = [t.detach().requires_grad_() for t in leaves]
@@ -67,8 +65,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     def train_step(state, batch):
         params = state["params"]
         leaves = adamw.tree_leaves(params)
-        if any(t.dtype == torch.bfloat16 for t in leaves):
-            raise NotImplementedError(BF16_TRAIN)
         if n_micro == 1:
             loss, grads = loss_and_grads(leaves, params, batch)
         else:

@@ -79,15 +79,58 @@
 // registers a lane): 10 D FLOPs a pair in that kernel instead of 8.
 // The wrapper's plan (kernels/flash_attention.py, bwd_plan) gives the
 // grids and scratch; each launcher refuses a block count its constants do
-// not give.  Left for later: wgmma, operands split once into shared memory,
-// the wide route (D > 256).
+// not give.
+//
+// bf16 (flash_attention_bwd_{dq,dkdv,sum}_bf16).  JAX trains through
+// chunked_attention, which widens q, k and v to f32 and casts o once
+// (src/repro/kernels/ops.py:845-846, :863, :920), so its bf16 gradient is
+// f32 math on the widened values, rounded once per output.  The same three
+// kernels run on bf16 Q, K, V and dO (the template's T): the resident rows
+// and the ring hold bf16 at a stride of Dp + 8 elements (an odd count of
+// 16-byte quads: no ldmatrix phase has a bank conflict), a 16-byte copy
+// carries 8 elements, and the products run on the bf16 tensor cores,
+// mma.sync m16n8k16 with f32 accumulators (bf16_mma.cuh), not on 3xTF32:
+//   S = Q K^T and dP = dO V^T (and S^T = K Q^T, dP^T = V dO^T in dK / dV):
+//     both operands bf16, so every product is exact in f32.  A: 16
+//     resident rows x 16 d by ldmatrix.x4; B: the streamed tile's 16 rows
+//     by non-transposed ldmatrix.x4 (d contiguous is the mma's "col" B):
+//     one ldmatrix gives the b0 / b1 of both n8 tiles.  Two k-steps (32 d)
+//     go into a fresh accumulator added to the score in f32, in the same
+//     order in both kernels, so a dK / dV score and a dQ score take the
+//     same products in the same order.
+//   dV = P^T dO, dK = dS^T Q, dQ = dS K: the first operand is f32 (P, dS).
+//     The C fragments of the two n8 score tiles of a streamed tile are the
+//     A fragment of one k16 step as they stand (a lane holds k 2t, 2t + 1
+//     and 2t + 8, 2t + 9 of rows g and g + 8), so no permutation is needed.
+//     Each value is split, hi = bf16_rn(x) and lo = bf16_rn(x - hi) (x - hi
+//     is exact in f32), and both meet the exact bf16 second operand (B by
+//     ldmatrix.x4.trans from its [row][d] tile): hi + lo keeps x to within
+//     2^-16 of itself, where one bf16 rounding would leave 2^-8 (the
+//     forward's P V split).  Per tile a fresh accumulator each for
+//     the hi and lo products, added to the output as hi + lo.
+// Everything else is the f32 route's: the row statistics from the
+// backward's own scores, the masks, the per-head f32 partials (dK / dV for
+// G > 1) summed in head order by the sum kernel, no float atomics.  dQ, and
+// dK and dV (by the sum kernel, or by dK / dV itself for G = 1), are
+// rounded once to bf16 at their stores.  At (t) the tensor-core work is
+// (S, dP) x 3 + (dV, dK, dQ) x 2 x 2 = 18 D FLOPs a valid pair at 989
+// TFLOP/s, against 10 D at the least: the bound is 10 D FLOPs a pair over
+// 989 TFLOP/s.  Shared memory is half the f32 route's: Dp 64, 128 and 256
+// take 27, 51 and 102 KB a block, two blocks an SM at every Dp; Dp 256
+// keeps dK / dV's two passes (the f32 accumulators are the same size).
+//
+// Left for later: wgmma, operands split once into shared memory, the wide
+// route (D > 256).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "cp_async.cuh"
+#include "elem.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -103,11 +146,21 @@ constexpr int kMaxSmemBytes = 232448;     // H100: 227 KB opt-in per block
 
 constexpr int kJ = kTile / 8;             // m16n8 tiles of a score row
 
+// Row stride of the shared tiles in elements: 16 bytes of padding, so rows
+// stay 16-byte aligned for cp.async and the fragment reads conflict-free
+// (f32: Dp + 4; bf16: Dp + 8, an odd count of 16-byte quads)
+template <typename T>
+__host__ __device__ constexpr int row_stride(int dp) {
+  return dp + 16 / (int)sizeof(T);
+}
+
+template <typename T>
 struct BwdArgs {
-  const float *q, *k, *v, *dout;
+  const T *q, *k, *v, *dout;
   const float *lse;       // the forward's (B, Hq, Lq), read by dq
   float *stats;           // (2, B, Hq, Lq): lse' and delta, dq -> dkdv
-  float *out_a, *out_b;   // dq: dQ; dkdv: dK and dV partials (G, B, Lk, Hkv, D)
+  void *out_a, *out_b;    // dq: dQ (T); dkdv: dK and dV, f32 partials
+                          // (G, B, Lk, Hkv, D) or, for G = 1, the T outputs
   int b, lq, lk, hq, hkv, d, group;
   int64_t q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh;
   int64_t do_sb, do_sl, do_sh;
@@ -118,33 +171,51 @@ struct BwdArgs {
   int vec;                // q, k, v, dO rows copied 16 bytes at a time
 };
 
-template <int kDp>
-constexpr size_t bwd_smem_bytes() {
-  // two resident operands of kBlockRows rows, kStages stages of two
-  // streamed operands of kTile rows, and each stage's lse' and delta
-  return ((size_t)(2 * kBlockRows + 2 * kStages * kTile) * (kDp + 4) +
-          (size_t)2 * kStages * kTile) * sizeof(float);
+// Bytes of one ring stage: two streamed operands of kTile rows, then (the
+// dK / dV kernel's) each row's lse' and delta
+template <typename T, int kDp>
+__host__ __device__ constexpr size_t stage_bytes() {
+  return (size_t)2 * kTile * row_stride<T>(kDp) * sizeof(T) +
+         (size_t)2 * kTile * sizeof(float);
 }
 
-// Rows [0, n) into shared memory at a stride of kDp + 4 floats: row r from
-// src(r) (nullptr: zeros), its first d columns, zeros past them
-template <int kDp, typename Src>
-__device__ __forceinline__ void copy_rows(float *dst, int n, Src src, int d,
-                                          int vec, const float *any) {
-  constexpr int kS = kDp + 4;
+template <typename T, int kDp>
+__host__ __device__ constexpr size_t bwd_smem_bytes() {
+  // two resident operands of kBlockRows rows and kStages ring stages
+  return (size_t)2 * kBlockRows * row_stride<T>(kDp) * sizeof(T) +
+         kStages * stage_bytes<T, kDp>();
+}
+
+// Rows [0, n) into shared memory at the row stride: row r from src(r)
+// (nullptr: zeros), its first d columns, zeros past them.  bf16 without
+// 16-byte rows: plain loads and stores (cp.async has no 2-byte copy), seen
+// by the other threads after the ring's next barrier.
+template <typename T, int kDp, typename Src>
+__device__ __forceinline__ void copy_rows(T *dst, int n, Src src, int d,
+                                          int vec, const T *any) {
+  constexpr int kS = row_stride<T>(kDp);
+  constexpr int kE = 16 / (int)sizeof(T);   // elements a 16-byte copy
   if (vec) {
-    for (int e = threadIdx.x; e < n * (kDp / 4); e += kThreads) {
-      const int r = e / (kDp / 4), c = 4 * (e % (kDp / 4));
-      const float *p = src(r);
+    for (int e = threadIdx.x; e < n * (kDp / kE); e += kThreads) {
+      const int r = e / (kDp / kE), c = kE * (e % (kDp / kE));
+      const T *p = src(r);
       const bool ok = p != nullptr && c < d;
-      cp_async16(dst + r * kS + c, ok ? p + c : any, ok);
+      cp_async16(reinterpret_cast<float *>(dst + r * kS + c),
+                 reinterpret_cast<const float *>(ok ? p + c : any), ok);
     }
   } else {
     for (int e = threadIdx.x; e < n * kDp; e += kThreads) {
       const int r = e / kDp, c = e % kDp;
-      const float *p = src(r);
+      const T *p = src(r);
       const bool ok = p != nullptr && c < d;
-      cp_async4(dst + r * kS + c, ok ? p + c : any, ok);
+      if constexpr (sizeof(T) == 4) {
+        cp_async4(dst + r * kS + c, ok ? p + c : any, ok);
+      } else {
+        dst[r * kS + c] =
+            ok ? __ushort_as_bfloat16(
+                     __ldg(reinterpret_cast<const unsigned short *>(p + c)))
+               : __ushort_as_bfloat16(0);
+      }
     }
   }
 }
@@ -177,7 +248,7 @@ __device__ __forceinline__ void stream_tiles(int begin, int end, Load load,
 template <int kDp, bool kYFirst>
 __device__ __forceinline__ void tile_scores(const float *xw, const float *ys,
                                             float (&c)[kJ][4]) {
-  constexpr int kS = kDp + 4;
+  constexpr int kS = row_stride<float>(kDp);
   const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
 #pragma unroll
   for (int j = 0; j < kJ; ++j)
@@ -217,6 +288,46 @@ __device__ __forceinline__ void tile_scores(const float *xw, const float *ys,
   }
 }
 
+// The same on bf16 rows, on the bf16 tensor cores: X_w by ldmatrix.x4
+// (lane: row (l & 7) + 8 ((l >> 3) & 1), d 8 (l >> 4) on), Y's 16 rows by
+// non-transposed ldmatrix.x4 (lane: row (l & 7) + 8 (l >> 4), d 8 ((l >> 3)
+// & 1) on: b0 / b1 of both n8 tiles).  Exact products; two k-steps (32 d)
+// into a fresh accumulator added to c in f32.  X and Y take the same
+// products in the same order whichever is A, so kYFirst has nothing to do.
+template <int kDp, bool kYFirst>
+__device__ __forceinline__ void tile_scores(const __nv_bfloat16 *xw,
+                                            const __nv_bfloat16 *ys,
+                                            float (&c)[kJ][4]) {
+  constexpr int kS = row_stride<__nv_bfloat16>(kDp);
+  const int lane = threadIdx.x % 32;
+  const __nv_bfloat16 *xa =
+      xw + ((lane & 7) + 8 * ((lane >> 3) & 1)) * kS + 8 * (lane >> 4);
+  const __nv_bfloat16 *ya =
+      ys + ((lane & 7) + 8 * (lane >> 4)) * kS + 8 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int j = 0; j < kJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll 2
+  for (int d0 = 0; d0 < kDp; d0 += 32) {
+    float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t af[4], yb[4];
+      ldsm_x4(xa + d0 + 16 * h, af);
+      ldsm_x4(ya + d0 + 16 * h, yb);
+      const uint32_t b0[2] = {yb[0], yb[1]}, b1[2] = {yb[2], yb[3]};
+      mma_bf16(t0, af, b0);
+      mma_bf16(t1, af, b1);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      c[0][e] += t0[e];
+      c[1][e] += t1[e];
+    }
+  }
+}
+
 // acc[c] (the m16n8 tiles of the warp's 16 rows x kDp columns) += A Y: A
 // (16 x kTile) in accumulator layout (p[j][0..1]: row gq, k 8 j + 2 tq,
 // + 1; [2..3]: row gq + 8), Y the streamed tile (ys, kTile rows of kDp).
@@ -227,7 +338,7 @@ template <int kDp>
 __device__ __forceinline__ void accumulate(float (&acc)[kDp / 8][4],
                                            const float (&p)[kJ][4],
                                            const float *ys) {
-  constexpr int kS = kDp + 4;
+  constexpr int kS = row_stride<float>(kDp);
   const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
   uint32_t pb[kJ][4], ps[kJ][4];
 #pragma unroll
@@ -253,6 +364,55 @@ __device__ __forceinline__ void accumulate(float (&acc)[kDp / 8][4],
   }
 }
 
+// Two f32 values (the lower k first) as bf16 pairs: hi = bf16_rn(x),
+// lo = bf16_rn(x - hi); x - hi is exact in f32
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t &hi,
+                                           uint32_t &lo) {
+  const __nv_bfloat16 h0 = __float2bfloat16_rn(x0);
+  const __nv_bfloat16 h1 = __float2bfloat16_rn(x1);
+  const __nv_bfloat16 l0 = __float2bfloat16_rn(x0 - __bfloat162float(h0));
+  const __nv_bfloat16 l1 = __float2bfloat16_rn(x1 - __bfloat162float(h1));
+  hi = (uint32_t)__bfloat16_as_ushort(h0) |
+       ((uint32_t)__bfloat16_as_ushort(h1) << 16);
+  lo = (uint32_t)__bfloat16_as_ushort(l0) |
+       ((uint32_t)__bfloat16_as_ushort(l1) << 16);
+}
+
+// The same on a bf16 tile: the kTile = 16 streamed rows are one k16 step.
+// p's two n8 tiles are its A fragment as they stand (a0 / a1: p[0] rows
+// gq / gq + 8, k 2 tq; a2 / a3: p[1], k 2 tq + 8), split into hi and lo;
+// Y's B fragments of two 8-column tiles by ldmatrix.x4.trans (lane: row
+// (l & 7) + 8 ((l >> 3) & 1), d 8 (l >> 4) on).  A fresh accumulator each
+// for the hi and lo products, added to acc as hi + lo.
+template <int kDp>
+__device__ __forceinline__ void accumulate(float (&acc)[kDp / 8][4],
+                                           const float (&p)[kJ][4],
+                                           const __nv_bfloat16 *ys) {
+  constexpr int kS = row_stride<__nv_bfloat16>(kDp);
+  const int lane = threadIdx.x % 32;
+  uint32_t ph[4], pl[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float *src = p[r >> 1] + 2 * (r & 1);
+    split_bf16(src[0], src[1], ph[r], pl[r]);
+  }
+  const __nv_bfloat16 *ya =
+      ys + ((lane & 7) + 8 * ((lane >> 3) & 1)) * kS + 8 * (lane >> 4);
+#pragma unroll
+  for (int c2 = 0; c2 < kDp / 16; ++c2) {
+    uint32_t yb[2][2];
+    ldsm_x4_trans(ya + 16 * c2, yb[0], yb[1]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float th[4] = {0.f, 0.f, 0.f, 0.f}, tl[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_bf16(tl, pl, yb[i]);
+      mma_bf16(th, ph, yb[i]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[2 * c2 + i][e] += th[e] + tl[e];
+    }
+  }
+}
+
 template <int kDp>
 __device__ __forceinline__ void zero(float (&acc)[kDp / 8][4]) {
 #pragma unroll
@@ -263,7 +423,8 @@ __device__ __forceinline__ void zero(float (&acc)[kDp / 8][4]) {
 
 // The scaled, capped score y of a raw product s, and (in chain) the cap's
 // derivative 1 - tanh^2 (1 without a cap)
-__device__ __forceinline__ float capped(const BwdArgs &a, float s,
+template <typename T>
+__device__ __forceinline__ float capped(const BwdArgs<T> &a, float s,
                                         float &chain) {
   float y = s * a.sm_scale;
   chain = 1.f;
@@ -276,21 +437,27 @@ __device__ __forceinline__ float capped(const BwdArgs &a, float s,
 }
 
 // Whether a query at position q_pos (absolute) sees key kp
-__device__ __forceinline__ bool sees(const BwdArgs &a, int q_pos, int kp) {
+template <typename T>
+__device__ __forceinline__ bool sees(const BwdArgs<T> &a, int q_pos, int kp) {
   bool ok = kp < a.lk;
   if (a.causal) ok = ok && q_pos >= kp;
   if (a.window > 0) ok = ok && q_pos - kp < a.window;
   return ok;
 }
 
-template <int kDp>
-__global__ void __launch_bounds__(kThreads, kDp <= 128 ? 2 : 1)
-    flash_attention_bwd_dq_kernel(const BwdArgs a) {
-  constexpr int kS = kDp + 4;
+template <typename T, int kDp>
+__global__ void __launch_bounds__(kThreads,
+                                  kDp <= 128 || sizeof(T) == 2 ? 2 : 1)
+    flash_attention_bwd_dq_kernel(const BwdArgs<T> a) {
+  constexpr int kS = row_stride<T>(kDp);
   extern __shared__ float4 smem4[];
-  float *qs = reinterpret_cast<float *>(smem4);
-  float *dos = qs + kBlockRows * kS;
-  float *ring = dos + kBlockRows * kS;    // [stage][K, V][key][d]
+  T *qs = reinterpret_cast<T *>(smem4);
+  T *dos = qs + kBlockRows * kS;
+  char *ring = reinterpret_cast<char *>(dos + kBlockRows * kS);
+  // [stage][K, V][key][d]
+  auto stage_k = [&](int stage) {
+    return reinterpret_cast<T *>(ring + stage * stage_bytes<T, kDp>());
+  };
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gq = lane / 4, tq = lane % 4;
@@ -312,28 +479,28 @@ __global__ void __launch_bounds__(kThreads, kDp <= 128 ? 2 : 1)
   const int kt_end = k_end > k_begin ? (k_end + kTile - 1) / kTile : kt_begin;
 
   // resident Q and dO: row r is (position (t0 + r) / G, head kvh G + ..)
-  auto row_of = [&](const float *base, int64_t sb, int64_t sl, int64_t sh) {
-    return [=](int r) -> const float * {
+  auto row_of = [&](const T *base, int64_t sb, int64_t sl, int64_t sh) {
+    return [=](int r) -> const T * {
       const int t = t0 + r;
       if (t >= n_rows) return nullptr;
       return base + (int64_t)b * sb + (int64_t)(t / g) * sl +
              (int64_t)(kvh * g + t % g) * sh;
     };
   };
-  copy_rows<kDp>(qs, kBlockRows, row_of(a.q, a.q_sb, a.q_sl, a.q_sh), a.d,
-                 a.vec, a.q);
-  copy_rows<kDp>(dos, kBlockRows,
-                 row_of(a.dout, a.do_sb, a.do_sl, a.do_sh), a.d, a.vec,
-                 a.q);
-  const float *kbase = a.k + (int64_t)b * a.k_sb + (int64_t)kvh * a.k_sh;
-  const float *vbase = a.v + (int64_t)b * a.v_sb + (int64_t)kvh * a.v_sh;
+  copy_rows<T, kDp>(qs, kBlockRows, row_of(a.q, a.q_sb, a.q_sl, a.q_sh), a.d,
+                    a.vec, a.q);
+  copy_rows<T, kDp>(dos, kBlockRows,
+                    row_of(a.dout, a.do_sb, a.do_sl, a.do_sh), a.d, a.vec,
+                    a.q);
+  const T *kbase = a.k + (int64_t)b * a.k_sb + (int64_t)kvh * a.k_sh;
+  const T *vbase = a.v + (int64_t)b * a.v_sb + (int64_t)kvh * a.v_sh;
   auto load = [&](int kt, int stage) {
-    float *kd = ring + stage * 2 * kTile * kS, *vd = kd + kTile * kS;
+    T *kd = stage_k(stage), *vd = kd + kTile * kS;
     const int k0 = kt * kTile;
-    copy_rows<kDp>(kd, kTile, [=](int r) -> const float * {
+    copy_rows<T, kDp>(kd, kTile, [=](int r) -> const T * {
       return k0 + r < a.lk ? kbase + (int64_t)(k0 + r) * a.k_sl : nullptr;
     }, a.d, a.vec, a.q);
-    copy_rows<kDp>(vd, kTile, [=](int r) -> const float * {
+    copy_rows<T, kDp>(vd, kTile, [=](int r) -> const T * {
       return k0 + r < a.lk ? vbase + (int64_t)(k0 + r) * a.v_sl : nullptr;
     }, a.d, a.vec, a.q);
   };
@@ -351,13 +518,13 @@ __global__ void __launch_bounds__(kThreads, kDp <= 128 ? 2 : 1)
                                            a.lq + t / g)
                        : 0.f;
   }
-  const float *qw = qs + warp * 16 * kS, *dow = dos + warp * 16 * kS;
+  const T *qw = qs + warp * 16 * kS, *dow = dos + warp * 16 * kS;
 
   // pass 1: the rows' statistics under this kernel's scores (see "Row
   // statistics" above): e = exp(y - lse), l' = sum e, t' = sum e dP
   float lsum[2] = {0.f, 0.f}, tsum[2] = {0.f, 0.f};
   stream_tiles(kt_begin, kt_end, load, [&](int kt, int stage) {
-    const float *ks = ring + stage * 2 * kTile * kS, *vs = ks + kTile * kS;
+    const T *ks = stage_k(stage), *vs = ks + kTile * kS;
     float s[kJ][4], dp[kJ][4];
     tile_scores<kDp, false>(qw, ks, s);
     tile_scores<kDp, false>(dow, vs, dp);
@@ -406,7 +573,7 @@ __global__ void __launch_bounds__(kThreads, kDp <= 128 ? 2 : 1)
   float dq[kDp / 8][4];
   zero<kDp>(dq);
   stream_tiles(kt_begin, kt_end, load, [&](int kt, int stage) {
-    const float *ks = ring + stage * 2 * kTile * kS, *vs = ks + kTile * kS;
+    const T *ks = stage_k(stage), *vs = ks + kTile * kS;
     float s[kJ][4], dp[kJ][4];
     tile_scores<kDp, false>(qw, ks, s);
     tile_scores<kDp, false>(dow, vs, dp);
@@ -423,55 +590,59 @@ __global__ void __launch_bounds__(kThreads, kDp <= 128 ? 2 : 1)
     accumulate<kDp>(dq, s, ks);
   });
 
-  // dQ (scaled), contiguous (B, Lq, Hq, D): dq[c][2 i + e] is row gq + 8 i,
-  // column 8 c + 2 tq + e
+  // dQ (scaled), contiguous (B, Lq, Hq, D) of T, rounded once: dq[c][2 i +
+  // e] is row gq + 8 i, column 8 c + 2 tq + e
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int t = t0 + warp * 16 + gq + 8 * i;
     if (t >= n_rows) continue;
-    float *dst = a.out_a + (((int64_t)b * a.lq + t / g) * a.hq + kvh * g +
-                            t % g) * a.d;
+    T *dst = static_cast<T *>(a.out_a) +
+             (((int64_t)b * a.lq + t / g) * a.hq + kvh * g + t % g) * a.d;
 #pragma unroll
     for (int c = 0; c < kDp / 8; ++c)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = 8 * c + 2 * tq + e;
-        if (col < a.d) dst[col] = dq[c][2 * i + e] * a.sm_scale;
+        if (col < a.d) store_elem(dst + col, dq[c][2 * i + e] * a.sm_scale);
       }
   }
 }
 
 // One pass of a dK / dV block over its query rows: dV += P^T dO (kDV) and
 // dK += dS^T Q (kDK) for the warp's 16 keys, written (dK scaled) into the
-// head's partial.  kvw, vw: the warp's K and V rows.
-template <int kDp, bool kDV, bool kDK>
-__device__ __forceinline__ void dkdv_pass(const BwdArgs &a, int b, int h,
+// head's partial (O = float) or, for G = 1, the gradients (O = T).  kw,
+// vw: the warp's K and V rows.
+template <typename T, typename O, int kDp, bool kDV, bool kDK>
+__device__ __forceinline__ void dkdv_pass(const BwdArgs<T> &a, int b, int h,
                                           int k0, int rt_begin, int rt_end,
-                                          const float *kw, const float *vw,
-                                          float *ring) {
-  constexpr int kS = kDp + 4;
-  constexpr int kStage = 2 * kTile * kS + 2 * kTile;   // Q, dO, lse', delta
+                                          const T *kw, const T *vw,
+                                          char *ring) {
+  constexpr int kS = row_stride<T>(kDp);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gq = lane / 4, tq = lane % 4;
   const int kvh = h / a.group, off = a.lk - a.lq;
   const int64_t n_stats = (int64_t)a.b * a.hq * a.lq;
-  const float *qbase = a.q + (int64_t)b * a.q_sb + (int64_t)h * a.q_sh;
-  const float *obase = a.dout + (int64_t)b * a.do_sb + (int64_t)h * a.do_sh;
+  const T *qbase = a.q + (int64_t)b * a.q_sb + (int64_t)h * a.q_sh;
+  const T *obase = a.dout + (int64_t)b * a.do_sb + (int64_t)h * a.do_sh;
   const float *sbase = a.stats + ((int64_t)b * a.hq + h) * a.lq;
+  // [stage][Q, dO, lse', delta]
+  auto stage_q = [&](int stage) {
+    return reinterpret_cast<T *>(ring + stage * stage_bytes<T, kDp>());
+  };
   auto load = [&](int rt, int stage) {
-    float *qd = ring + stage * kStage, *od = qd + kTile * kS;
-    float *ld = od + kTile * kS;
+    T *qd = stage_q(stage), *od = qd + kTile * kS;
+    float *ld = reinterpret_cast<float *>(od + kTile * kS);
     const int r0 = rt * kTile;
-    copy_rows<kDp>(qd, kTile, [=](int r) -> const float * {
+    copy_rows<T, kDp>(qd, kTile, [=](int r) -> const T * {
       return r0 + r < a.lq ? qbase + (int64_t)(r0 + r) * a.q_sl : nullptr;
     }, a.d, a.vec, a.q);
-    copy_rows<kDp>(od, kTile, [=](int r) -> const float * {
+    copy_rows<T, kDp>(od, kTile, [=](int r) -> const T * {
       return r0 + r < a.lq ? obase + (int64_t)(r0 + r) * a.do_sl : nullptr;
     }, a.d, a.vec, a.q);
     for (int e = threadIdx.x; e < 2 * kTile; e += kThreads) {
       const int r = e % kTile;
       const bool ok = r0 + r < a.lq;
-      cp_async4(ld + e, ok ? sbase + (e / kTile) * n_stats + r0 + r : a.q,
+      cp_async4(ld + e, ok ? sbase + (e / kTile) * n_stats + r0 + r : a.lse,
                 ok);
     }
   };
@@ -482,8 +653,9 @@ __device__ __forceinline__ void dkdv_pass(const BwdArgs &a, int b, int h,
   zero<kDp>(dv);
 
   stream_tiles(rt_begin, rt_end, load, [&](int rt, int stage) {
-    const float *qt = ring + stage * kStage, *ot = qt + kTile * kS;
-    const float *ls = ot + kTile * kS, *dls = ls + kTile;
+    const T *qt = stage_q(stage), *ot = qt + kTile * kS;
+    const float *ls = reinterpret_cast<const float *>(ot + kTile * kS);
+    const float *dls = ls + kTile;
     // S^T and dP^T: s[j][e] is key gq + 8 (e / 2), row 8 j + 2 tq + e % 2
     float s[kJ][4], dp[kJ][4];
     tile_scores<kDp, true>(kw, qt, s);
@@ -509,6 +681,7 @@ __device__ __forceinline__ void dkdv_pass(const BwdArgs &a, int b, int h,
 
   // the head's partial, (B, Lk, Hkv, D) at slot h % G: dk[c][2 i + e] is
   // key gq + 8 i, column 8 c + 2 tq + e
+  O *out_k = static_cast<O *>(a.out_a), *out_v = static_cast<O *>(a.out_b);
   const int64_t part = ((int64_t)(h % a.group) * a.b + b) * a.lk;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -521,20 +694,22 @@ __device__ __forceinline__ void dkdv_pass(const BwdArgs &a, int b, int h,
       for (int e = 0; e < 2; ++e) {
         const int col = 8 * c + 2 * tq + e;
         if (col >= a.d) continue;
-        if constexpr (kDK) a.out_a[base + col] = dk[c][2 * i + e] * a.sm_scale;
-        if constexpr (kDV) a.out_b[base + col] = dv[c][2 * i + e];
+        if constexpr (kDK)
+          store_elem(out_k + base + col, dk[c][2 * i + e] * a.sm_scale);
+        if constexpr (kDV) store_elem(out_v + base + col, dv[c][2 * i + e]);
       }
   }
 }
 
-template <int kDp>
-__global__ void __launch_bounds__(kThreads, kDp <= 128 ? 2 : 1)
-    flash_attention_bwd_dkdv_kernel(const BwdArgs a) {
-  constexpr int kS = kDp + 4;
+template <typename T, typename O, int kDp>
+__global__ void __launch_bounds__(kThreads,
+                                  kDp <= 128 || sizeof(T) == 2 ? 2 : 1)
+    flash_attention_bwd_dkdv_kernel(const BwdArgs<T> a) {
+  constexpr int kS = row_stride<T>(kDp);
   extern __shared__ float4 smem4[];
-  float *ks = reinterpret_cast<float *>(smem4);
-  float *vs = ks + kBlockRows * kS;
-  float *ring = vs + kBlockRows * kS;     // [stage][Q, dO, lse', delta]
+  T *ks = reinterpret_cast<T *>(smem4);
+  T *vs = ks + kBlockRows * kS;
+  char *ring = reinterpret_cast<char *>(vs + kBlockRows * kS);
 
   const int warp = threadIdx.x / 32;
   // tile-major: key tile 0, the longest under a causal mask, first
@@ -552,31 +727,47 @@ __global__ void __launch_bounds__(kThreads, kDp <= 128 ? 2 : 1)
   const int rt_begin = qi_lo / kTile;
   const int rt_end = qi_hi >= qi_lo ? qi_hi / kTile + 1 : rt_begin;
 
-  const float *kbase = a.k + (int64_t)b * a.k_sb + (int64_t)kvh * a.k_sh;
-  const float *vbase = a.v + (int64_t)b * a.v_sb + (int64_t)kvh * a.v_sh;
-  copy_rows<kDp>(ks, kBlockRows, [=](int r) -> const float * {
+  const T *kbase = a.k + (int64_t)b * a.k_sb + (int64_t)kvh * a.k_sh;
+  const T *vbase = a.v + (int64_t)b * a.v_sb + (int64_t)kvh * a.v_sh;
+  copy_rows<T, kDp>(ks, kBlockRows, [=](int r) -> const T * {
     return k0 + r < a.lk ? kbase + (int64_t)(k0 + r) * a.k_sl : nullptr;
   }, a.d, a.vec, a.q);
-  copy_rows<kDp>(vs, kBlockRows, [=](int r) -> const float * {
+  copy_rows<T, kDp>(vs, kBlockRows, [=](int r) -> const T * {
     return k0 + r < a.lk ? vbase + (int64_t)(k0 + r) * a.v_sl : nullptr;
   }, a.d, a.vec, a.q);
-  const float *kw = ks + warp * 16 * kS, *vw = vs + warp * 16 * kS;
+  const T *kw = ks + warp * 16 * kS, *vw = vs + warp * 16 * kS;
   if constexpr (kDp <= 128) {
-    dkdv_pass<kDp, true, true>(a, b, h, k0, rt_begin, rt_end, kw, vw, ring);
+    dkdv_pass<T, O, kDp, true, true>(a, b, h, k0, rt_begin, rt_end, kw, vw,
+                                     ring);
   } else {
     // 16 x 256 accumulators: dV and dK in two passes over the rows
-    dkdv_pass<kDp, true, false>(a, b, h, k0, rt_begin, rt_end, kw, vw,
-                                ring);
+    dkdv_pass<T, O, kDp, true, false>(a, b, h, k0, rt_begin, rt_end, kw, vw,
+                                      ring);
     __syncthreads();   // the first pass's last tile is consumed
-    dkdv_pass<kDp, false, true>(a, b, h, k0, rt_begin, rt_end, kw, vw,
-                                ring);
+    dkdv_pass<T, O, kDp, false, true>(a, b, h, k0, rt_begin, rt_end, kw, vw,
+                                      ring);
   }
 }
 
-// dK and dV: the G heads' partials (2, G, n) summed in head order, four
-// elements a thread (16-byte accesses where vec: n % 4 == 0, aligned)
+// Four consecutive f32 values stored as O (16 bytes of f32; 8 of bf16,
+// rounded once); the pointer is aligned to that size
+__device__ __forceinline__ void store4(float *p, float4 v) {
+  *reinterpret_cast<float4 *>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16 *p, float4 v) {
+  const auto pack = [](float x0, float x1) {
+    return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x0)) |
+           ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x1)) << 16);
+  };
+  *reinterpret_cast<uint2 *>(p) = make_uint2(pack(v.x, v.y), pack(v.z, v.w));
+}
+
+// dK and dV: the G heads' f32 partials (2, G, n) summed in head order and
+// stored as O, four elements a thread (16-byte partial reads where vec:
+// n % 4 == 0, aligned)
+template <typename O>
 __global__ void __launch_bounds__(kSumThreads)
-    flash_attention_bwd_sum_kernel(const float *part, float *dk, float *dv,
+    flash_attention_bwd_sum_kernel(const float *part, O *dk, O *dv,
                                    int64_t n, int g, int vec) {
   const int64_t e0 = 4 * ((int64_t)blockIdx.x * kSumThreads + threadIdx.x);
   if (vec && e0 < n) {
@@ -589,8 +780,8 @@ __global__ void __launch_bounds__(kSumThreads)
       sk.x += xk.x; sk.y += xk.y; sk.z += xk.z; sk.w += xk.w;
       sv.x += xv.x; sv.y += xv.y; sv.z += xv.z; sv.w += xv.w;
     }
-    *reinterpret_cast<float4 *>(dk + e0) = sk;
-    *reinterpret_cast<float4 *>(dv + e0) = sv;
+    store4(dk + e0, sk);
+    store4(dv + e0, sv);
     return;
   }
   for (int64_t e = e0; e < min(e0 + 4, n); ++e) {
@@ -599,20 +790,20 @@ __global__ void __launch_bounds__(kSumThreads)
       sk += part[i * n + e];
       sv += part[(g + i) * n + e];
     }
-    dk[e] = sk;
-    dv[e] = sv;
+    store_elem(dk + e, sk);
+    store_elem(dv + e, sv);
   }
 }
 
-template <int kDp>
-int launch_dq(BwdArgs a, int blocks, void *stream) {
-  constexpr size_t smem = bwd_smem_bytes<kDp>();
+template <typename T, int kDp>
+int launch_dq(BwdArgs<T> a, int blocks, void *stream) {
+  constexpr size_t smem = bwd_smem_bytes<T, kDp>();
   static_assert(smem <= (size_t)kMaxSmemBytes, "tile exceeds shared memory");
   const int64_t tiles =
       ((int64_t)a.lq * a.group + kBlockRows - 1) / kBlockRows;
   const int64_t grid = tiles * a.hkv * a.b;
   if (grid != blocks) return (int)cudaErrorInvalidValue;
-  auto kernel = flash_attention_bwd_dq_kernel<kDp>;
+  auto kernel = flash_attention_bwd_dq_kernel<T, kDp>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -622,14 +813,14 @@ int launch_dq(BwdArgs a, int blocks, void *stream) {
   return (int)cudaGetLastError();
 }
 
-template <int kDp>
-int launch_dkdv(BwdArgs a, int blocks, void *stream) {
-  constexpr size_t smem = bwd_smem_bytes<kDp>();
+template <typename T, typename O, int kDp>
+int launch_dkdv(BwdArgs<T> a, int blocks, void *stream) {
+  constexpr size_t smem = bwd_smem_bytes<T, kDp>();
   static_assert(smem <= (size_t)kMaxSmemBytes, "tile exceeds shared memory");
   const int64_t tiles = (a.lk + kBlockRows - 1) / kBlockRows;
   const int64_t grid = tiles * a.hq * a.b;
   if (grid != blocks) return (int)cudaErrorInvalidValue;
-  auto kernel = flash_attention_bwd_dkdv_kernel<kDp>;
+  auto kernel = flash_attention_bwd_dkdv_kernel<T, O, kDp>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -639,16 +830,16 @@ int launch_dkdv(BwdArgs a, int blocks, void *stream) {
   return (int)cudaGetLastError();
 }
 
-// The argument checks and the struct both entry points share; returns
+// The argument checks and the struct every entry point shares; returns
 // cudaErrorInvalidValue for a geometry the kernels cannot take
-int make_args(BwdArgs &a, const float *q, const float *k, const float *v,
-              const float *dout, const float *lse, float *stats,
-              float *out_a, float *out_b, int b, int lq, int lk, int hq,
-              int hkv, int d, int64_t q_sb, int64_t q_sl, int64_t q_sh,
-              int64_t k_sb, int64_t k_sl, int64_t k_sh, int64_t v_sb,
-              int64_t v_sl, int64_t v_sh, int64_t do_sb, int64_t do_sl,
-              int64_t do_sh, int causal, int window, float soft_cap,
-              float sm_scale) {
+template <typename T>
+int make_args(BwdArgs<T> &a, const T *q, const T *k, const T *v,
+              const T *dout, const float *lse, float *stats, void *out_a,
+              void *out_b, int b, int lq, int lk, int hq, int hkv, int d,
+              int64_t q_sb, int64_t q_sl, int64_t q_sh, int64_t k_sb,
+              int64_t k_sl, int64_t k_sh, int64_t v_sb, int64_t v_sl,
+              int64_t v_sh, int64_t do_sb, int64_t do_sl, int64_t do_sh,
+              int causal, int window, float soft_cap, float sm_scale) {
   if (b < 1 || lq < 1 || lk < 1 || hkv < 1 || hq < hkv || hq % hkv != 0 ||
       d < 1 || d > kMaxDp || (causal && lq > lk) ||
       (int64_t)lq * (hq / hkv) > ((int64_t)1 << 30) ||
@@ -670,12 +861,51 @@ int make_args(BwdArgs &a, const float *q, const float *k, const float *v,
   const auto al16 = [](const void *p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
-  a.vec = d % 4 == 0 && al16(q) && al16(k) && al16(v) && al16(dout) &&
-          q_sb % 4 == 0 && q_sl % 4 == 0 && q_sh % 4 == 0 &&
-          k_sb % 4 == 0 && k_sl % 4 == 0 && k_sh % 4 == 0 &&
-          v_sb % 4 == 0 && v_sl % 4 == 0 && v_sh % 4 == 0 &&
-          do_sb % 4 == 0 && do_sl % 4 == 0 && do_sh % 4 == 0;
+  constexpr int kE = 16 / (int)sizeof(T);   // elements a 16-byte copy
+  a.vec = d % kE == 0 && al16(q) && al16(k) && al16(v) && al16(dout) &&
+          q_sb % kE == 0 && q_sl % kE == 0 && q_sh % kE == 0 &&
+          k_sb % kE == 0 && k_sl % kE == 0 && k_sh % kE == 0 &&
+          v_sb % kE == 0 && v_sl % kE == 0 && v_sh % kE == 0 &&
+          do_sb % kE == 0 && do_sl % kE == 0 && do_sh % kE == 0;
   return 0;
+}
+
+template <typename T>
+int run_dkdv(const BwdArgs<T> &a, int blocks, void *stream) {
+  if (a.out_b == nullptr) return (int)cudaErrorInvalidValue;
+  // G = 1 writes the gradients (T); G > 1 the f32 partials
+  if (a.group == 1) {
+    if (a.d <= 64) return launch_dkdv<T, T, 64>(a, blocks, stream);
+    if (a.d <= 128) return launch_dkdv<T, T, 128>(a, blocks, stream);
+    return launch_dkdv<T, T, 256>(a, blocks, stream);
+  }
+  if (a.d <= 64) return launch_dkdv<T, float, 64>(a, blocks, stream);
+  if (a.d <= 128) return launch_dkdv<T, float, 128>(a, blocks, stream);
+  return launch_dkdv<T, float, 256>(a, blocks, stream);
+}
+
+template <typename T>
+int run_dq(const BwdArgs<T> &a, int blocks, void *stream) {
+  if (a.d <= 64) return launch_dq<T, 64>(a, blocks, stream);
+  if (a.d <= 128) return launch_dq<T, 128>(a, blocks, stream);
+  return launch_dq<T, 256>(a, blocks, stream);
+}
+
+template <typename O>
+int run_sum(const float *part, O *dk, O *dv, int64_t n, int g, int blocks,
+            void *stream) {
+  if (n < 1 || g < 2 ||
+      (n + 4 * kSumThreads - 1) / (4 * kSumThreads) != blocks)
+    return (int)cudaErrorInvalidValue;
+  const auto al = [](const void *p, size_t bytes) {
+    return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+  };
+  const int vec = n % 4 == 0 && al(part, 16) && al(dk, 4 * sizeof(O)) &&
+                  al(dv, 4 * sizeof(O));
+  flash_attention_bwd_sum_kernel<O><<<(unsigned)blocks, kSumThreads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      part, dk, dv, n, g, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -686,62 +916,75 @@ int make_args(BwdArgs &a, const float *q, const float *k, const float *v,
 // 256 has no backward here; or a block count `blocks`, the wrapper's plan,
 // that the kernel's constants do not give).  q, k, v and dO are read
 // through their strides (in elements; the head dim contiguous); lse (the
-// forward's) is contiguous (B, Hq, Lq) and stats (2, B, Hq, Lq); the
-// outputs are written contiguous.  Launch dq first (it writes the stats
-// dkdv reads), then dkdv, then, for G > 1, sum.
+// forward's) is contiguous (B, Hq, Lq) f32 and stats (2, B, Hq, Lq) f32;
+// the outputs are written contiguous.  Launch dq first (it writes the stats
+// dkdv reads), then dkdv, then, for G > 1, sum.  The _bf16 entries take
+// bf16 q, k, v and dO and write bf16 dQ (and dK, dV for G = 1; the
+// partials stay f32).
 extern "C" {
 
-#define BWD_PARAMS                                                          \
-  const float *q, const float *k, const float *v, const float *dout,       \
-      const float *lse, float *stats, float *out_a, float *out_b,          \
-      int b, int lq, int lk, int hq, int hkv, int d, int64_t q_sb,         \
-      int64_t q_sl, int64_t q_sh, int64_t k_sb, int64_t k_sl,              \
-      int64_t k_sh, int64_t v_sb, int64_t v_sl, int64_t v_sh,              \
-      int64_t do_sb, int64_t do_sl, int64_t do_sh, int causal, int window, \
-      float soft_cap, float sm_scale, int blocks, void *stream
+#define BWD_PARAMS(T)                                                       \
+  const T *q, const T *k, const T *v, const T *dout, const float *lse,     \
+      float *stats, void *out_a, void *out_b, int b, int lq, int lk,       \
+      int hq, int hkv, int d, int64_t q_sb, int64_t q_sl, int64_t q_sh,    \
+      int64_t k_sb, int64_t k_sl, int64_t k_sh, int64_t v_sb,              \
+      int64_t v_sl, int64_t v_sh, int64_t do_sb, int64_t do_sl,            \
+      int64_t do_sh, int causal, int window, float soft_cap,               \
+      float sm_scale, int blocks, void *stream
 #define BWD_ARGS                                                          \
   q, k, v, dout, lse, stats, out_a, out_b, b, lq, lk, hq, hkv, d, q_sb,  \
       q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, do_sb, do_sl,      \
       do_sh, causal, window, soft_cap, sm_scale
 
 // The heads' partial dK (scaled) into out_a and dV into out_b, each
-// (G, B, Lk, Hkv, D) (G = 1: the gradients), from the stats that
+// (G, B, Lk, Hkv, D) f32 (G = 1: the gradients), from the stats that
 // flash_attention_bwd_dq_f32 wrote
-int flash_attention_bwd_dkdv_f32(BWD_PARAMS) {
-  BwdArgs a;
+int flash_attention_bwd_dkdv_f32(BWD_PARAMS(float)) {
+  BwdArgs<float> a;
   const int err = make_args(a, BWD_ARGS);
-  if (err != 0 || out_b == nullptr) return (int)cudaErrorInvalidValue;
-  if (d <= 64) return launch_dkdv<64>(a, blocks, stream);
-  if (d <= 128) return launch_dkdv<128>(a, blocks, stream);
-  return launch_dkdv<256>(a, blocks, stream);
+  if (err != 0) return (int)cudaErrorInvalidValue;
+  return run_dkdv(a, blocks, stream);
 }
 
-// dQ into out_a, (B, Lq, Hq, D), and the rows' lse' and delta into
+// dQ into out_a, (B, Lq, Hq, D) f32, and the rows' lse' and delta into
 // stats; out_b is not read
-int flash_attention_bwd_dq_f32(BWD_PARAMS) {
-  BwdArgs a;
+int flash_attention_bwd_dq_f32(BWD_PARAMS(float)) {
+  BwdArgs<float> a;
   const int err = make_args(a, BWD_ARGS);
   if (err != 0) return err;
-  if (d <= 64) return launch_dq<64>(a, blocks, stream);
-  if (d <= 128) return launch_dq<128>(a, blocks, stream);
-  return launch_dq<256>(a, blocks, stream);
+  return run_dq(a, blocks, stream);
 }
 
 // dK into dk and dV into dv, n elements each, from the partials (2, G, n)
 // that flash_attention_bwd_dkdv_f32 wrote
 int flash_attention_bwd_sum_f32(const float *part, float *dk, float *dv,
                                 int64_t n, int g, int blocks, void *stream) {
-  if (n < 1 || g < 2 ||
-      (n + 4 * kSumThreads - 1) / (4 * kSumThreads) != blocks)
-    return (int)cudaErrorInvalidValue;
-  const auto al16 = [](const void *p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  const int vec = n % 4 == 0 && al16(part) && al16(dk) && al16(dv);
-  flash_attention_bwd_sum_kernel<<<(unsigned)blocks, kSumThreads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      part, dk, dv, n, g, vec);
-  return (int)cudaGetLastError();
+  return run_sum(part, dk, dv, n, g, blocks, stream);
+}
+
+// The bf16 route: the same kernels on bf16 q, k, v and dO (see "bf16"
+// above); the partials f32, dK and dV bf16 for G = 1
+int flash_attention_bwd_dkdv_bf16(BWD_PARAMS(__nv_bfloat16)) {
+  BwdArgs<__nv_bfloat16> a;
+  const int err = make_args(a, BWD_ARGS);
+  if (err != 0) return (int)cudaErrorInvalidValue;
+  return run_dkdv(a, blocks, stream);
+}
+
+// dQ into out_a, (B, Lq, Hq, D) bf16, rounded once; the stats as in f32
+int flash_attention_bwd_dq_bf16(BWD_PARAMS(__nv_bfloat16)) {
+  BwdArgs<__nv_bfloat16> a;
+  const int err = make_args(a, BWD_ARGS);
+  if (err != 0) return err;
+  return run_dq(a, blocks, stream);
+}
+
+// bf16 dK and dV, each the f32 partials (2, G, n) summed in head order and
+// rounded once
+int flash_attention_bwd_sum_bf16(const float *part, __nv_bfloat16 *dk,
+                                 __nv_bfloat16 *dv, int64_t n, int g,
+                                 int blocks, void *stream) {
+  return run_sum(part, dk, dv, n, g, blocks, stream);
 }
 
 const char *flash_attention_bwd_error_string(int err) {

@@ -18,9 +18,7 @@ in f32; P split into bf16 hi and lo halves against the exact V, which
 keep each weight to within 2^-16 of itself) and the online softmax in f32
 (``_kernel`` widens q, k and v, ``repro/kernels/flash_attention.py:44-45,
 :66``), o rounded once to bf16 (``:73``); the plain version widens and
-casts once.  The bf16
-route has no backward yet: under autograd a bf16 operand raises
-``NotImplementedError`` (ROADMAP Queue 1 item 7b).
+casts once.
 
 Under autograd (grad enabled and q, k or v requiring grad) the call goes
 through ``_FlashAttentionFn``: its forward also keeps the row log-sum-exp
@@ -34,6 +32,19 @@ and runs :func:`flash_attention_backward_plain` on CPU tensors.  The JAX package
 has no backward kernel: it differentiates ``ops.attention(impl=
 "chunked")`` through XLA.  The backward covers D <= 256 (the forward's
 narrow route); D > 256 under grad raises ``NotImplementedError``.
+
+bf16 under autograd runs the same three kernels' bf16 route
+(``flash_attention_bwd_{dq,dkdv,sum}_bf16``): JAX trains through
+``chunked_attention``, which widens q, k and v to f32 and rounds o once
+(``repro/kernels/ops.py:845-846, :863, :920``), so under ``jax.vjp`` the
+bf16 gradient is f32 math on the widened values, rounded once per
+output.  The kernels take S = Q K^T and dP = dO V^T on the bf16 tensor
+cores (exact products, f32 sums) and split P and dS into bf16 hi and lo
+halves against the exact second operand for dV, dK and dQ; the row
+statistics, the per-head f32 partials and their head-order sum are the
+f32 route's, and each gradient is rounded once to bf16 at its store.
+The plain backward widens and casts once likewise.  The forward's lse is
+f32 on both routes.
 """
 
 from __future__ import annotations
@@ -62,17 +73,17 @@ WIDE_BWD = ("the flash-attention backward takes head_dim <= 256; the wide "
             "route's backward is ROADMAP Queue 2 C item 8 (the flash "
             "backward)")
 
-BF16_BWD = ("the flash-attention kernel's bf16 route has no backward: bf16 "
-            "under autograd is ROADMAP Queue 1 item 7b (the bf16 backward; "
-            "label 2g)")
-
 # Kernel launches: each successful launch adds one, under its route's key
 # (flash_attention: f32, flash_attention_bf16).  The forward's count
 # includes the launches under autograd (and a remat recompute); the
-# backward's kernels count in BWD_LAUNCHES (the sum only where G > 1).
+# backward's kernels count in BWD_LAUNCHES, their bf16 route under the
+# same names with _bf16 (the sum only where G > 1).
 LAUNCHES = {"flash_attention": 0, "flash_attention_bf16": 0}
 BWD_LAUNCHES = {"flash_attention_bwd_dkdv": 0, "flash_attention_bwd_dq": 0,
-                "flash_attention_bwd_sum": 0}
+                "flash_attention_bwd_sum": 0,
+                "flash_attention_bwd_dkdv_bf16": 0,
+                "flash_attention_bwd_dq_bf16": 0,
+                "flash_attention_bwd_sum_bf16": 0}
 
 
 def reset_launch_counts() -> None:
@@ -327,21 +338,23 @@ def _launch_forward(q, k, v, causal, soft_cap, window, lse=None):
 
 def _launch_backward(kernel, q, k, v, do, lse, stats, outs, causal,
                      soft_cap, window, plan=None) -> None:
-    """One launch of ``flash_attention_bwd_{kernel}_f32``: ``"dq"`` (outs
-    = (dq,)) reads the forward's ``lse`` and writes the rows' lse' and
-    delta into ``stats`` (2, B, Hq, Lq); ``"dkdv"`` (outs = the partial
-    dK and dV, each (G, B, Lk, Hkv, D), or dk and dv when G = 1) reads
-    them.  Outputs contiguous; ``plan`` (default :func:`bwd_plan` of the
-    shapes) gives the blocks."""
+    """One launch of ``flash_attention_bwd_{kernel}_f32`` (``_bf16`` for
+    bf16 operands): ``"dq"`` (outs = (dq,), of q's dtype) reads the
+    forward's ``lse`` and writes the rows' lse' and delta into ``stats``
+    (2, B, Hq, Lq); ``"dkdv"`` (outs = the f32 partial dK and dV, each
+    (G, B, Lk, Hkv, D), or dk and dv of k's dtype when G = 1) reads them.
+    Outputs contiguous; ``plan`` (default :func:`bwd_plan` of the shapes)
+    gives the blocks."""
     b, lq, hq, d = q.shape
     _, lk, hkv, _ = k.shape
     plan = plan or bwd_plan(b, lq, lk, hq, hkv, d)
     lib = build.library("flash_attention_bwd")
     name = f"flash_attention_bwd_{kernel}"
+    bf16 = q.dtype == torch.bfloat16
     ptrs = [t.data_ptr() for t in outs] + [None] * (2 - len(outs))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, f"{name}_f32")(
+        err = getattr(lib, f"{name}_bf16" if bf16 else f"{name}_f32")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), stats.data_ptr(), *ptrs, b, lq, lk, hq, hkv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -352,9 +365,9 @@ def _launch_backward(kernel, q, k, v, do, lse, stats, outs, causal,
         raise RuntimeError(
             f"{name} kernel launch failed: CUDA error {err} "
             f"({lib.flash_attention_bwd_error_string(err).decode()}) for q "
-            f"{tuple(q.shape)}, k {tuple(k.shape)}, causal={causal}, "
-            f"soft_cap={soft_cap}, window={window}")
-    BWD_LAUNCHES[name] += 1
+            f"{tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}, "
+            f"causal={causal}, soft_cap={soft_cap}, window={window}")
+    BWD_LAUNCHES[f"{name}_bf16" if bf16 else name] += 1
 
 
 def sum_partials_plain(part: torch.Tensor):
@@ -369,13 +382,16 @@ def sum_partials_plain(part: torch.Tensor):
 
 
 def _launch_sum(part, dk, dv, plan) -> None:
-    """One launch of ``flash_attention_bwd_sum_f32``: dk and dv, each the
-    sum in head order of the G partials in ``part`` (2, G, B, Lk, Hkv,
-    D)."""
+    """One launch of ``flash_attention_bwd_sum_f32`` (``_bf16`` for bf16
+    dk and dv, rounded once): dk and dv, each the sum in head order of
+    the G f32 partials in ``part`` (2, G, B, Lk, Hkv, D)."""
     lib = build.library("flash_attention_bwd")
+    bf16 = dk.dtype == torch.bfloat16
+    entry = lib.flash_attention_bwd_sum_bf16 if bf16 \
+        else lib.flash_attention_bwd_sum_f32
     with torch.cuda.device(dk.device):
         stream = torch.cuda.current_stream(dk.device).cuda_stream
-        err = lib.flash_attention_bwd_sum_f32(
+        err = entry(
             part.data_ptr(), dk.data_ptr(), dv.data_ptr(), dk.numel(),
             plan.group, plan.sum_blocks, stream)
     if err != 0:
@@ -383,18 +399,24 @@ def _launch_sum(part, dk, dv, plan) -> None:
             f"flash_attention_bwd_sum kernel launch failed: CUDA error {err} "
             f"({lib.flash_attention_bwd_error_string(err).decode()}) for "
             f"partials {tuple(part.shape)}")
-    BWD_LAUNCHES["flash_attention_bwd_sum"] += 1
+    BWD_LAUNCHES["flash_attention_bwd_sum_bf16" if bf16
+                 else "flash_attention_bwd_sum"] += 1
 
 
 def flash_attention_backward(q, k, v, lse, do, *, causal=True,
                              soft_cap=None, window=None):
     """(dq, dk, dv) of attention at ``do``, from the forward's ``lse``
-    (B, Hq, Lq).  On CUDA tensors one launch of each backward kernel (dQ
-    with the rows' statistics; the query heads' partial dK and dV; for
-    G > 1 their sum; counted in ``BWD_LAUNCHES``); on CPU tensors
+    (B, Hq, Lq), each gradient of its operand's dtype (q, k, v and do all
+    f32 or all bf16; lse f32).  On CUDA tensors one launch of each
+    backward kernel of the dtype's route (dQ with the rows' statistics;
+    the query heads' partial dK and dV; for G > 1 their sum; counted in
+    ``BWD_LAUNCHES``); on CPU tensors
     :func:`flash_attention_backward_plain`.  D > 256 raises
     ``NotImplementedError``."""
-    _check(q, k, v, causal, soft_cap, window, dtypes=(torch.float32,))
+    _check(q, k, v, causal, soft_cap, window)
+    if do.dtype != q.dtype:
+        raise ValueError(f"do is {do.dtype}, q {q.dtype}: the cotangent "
+                         "takes the operands' dtype")
     if q.shape[-1] > MAX_BWD_D:
         raise NotImplementedError(WIDE_BWD)
     kw = dict(causal=causal, soft_cap=soft_cap, window=window)
@@ -407,8 +429,8 @@ def flash_attention_backward(q, k, v, lse, do, *, causal=True,
     plan = bwd_plan(b, lq, k.shape[1], hq, k.shape[2], d)
     stats = torch.empty((2, *lse.shape), dtype=torch.float32,
                         device=q.device)
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     _launch_backward("dq", q, k, v, do, lse, stats, (dq,), plan=plan, **kw)
     if plan.group == 1:
@@ -459,8 +481,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the dtype (counted in ``LAUNCHES``); on CPU tensors,
     :func:`flash_attention_plain`.  Under autograd, through
     ``_FlashAttentionFn`` (module docstring), whose backward runs the
-    backward kernels; f32 only: a bf16 operand there raises
-    ``NotImplementedError`` (ROADMAP Queue 1 item 7b).  Raises
+    backward kernels of the dtype's route.  Raises
     ``ValueError`` for what the kernel cannot take: another dtype, mixed
     dtypes, Hq % Hkv != 0, causal with Lq > Lk.  Any head_dim: D > 256
     runs the kernel's wide-head route (D in chunks, 256 output columns a
@@ -470,8 +491,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, causal, soft_cap, window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if q.dtype != torch.float32:
-            raise NotImplementedError(BF16_BWD)
         if q.shape[-1] > MAX_BWD_D:
             raise NotImplementedError(WIDE_BWD)
         return _FlashAttentionFn.apply(q, k, v, causal, soft_cap, window)

@@ -605,9 +605,9 @@ def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, *,
                      impl: str = "trim") -> torch.Tensor:
     """Causal depthwise conv1d (``repro/kernels/ops.py:822``).  x: (B, L,
     D); w: (K, D), f32 or bf16.  Under grad ``"trim"`` differentiates
-    through the backward kernels (``trim_conv1d``'s autograd Function;
-    f32 only, bf16 raises naming ROADMAP Queue 1 item 7b), ``"ref"``
-    through plain autograd of the oracle."""
+    through the backward kernels (``trim_conv1d``'s autograd Function, on
+    the operands' dtype), ``"ref"`` through plain autograd of the
+    oracle."""
     if impl not in ("trim", "ref"):
         raise ValueError(f"unknown impl {impl!r}; choose 'trim' or 'ref'")
     if impl == "ref" or w.shape[0] < 2:

@@ -22,29 +22,36 @@ trim_conv1d.py:38-40``); the plain version computes the same in f32 and
 casts once, so the three agree bit for bit.  (``ref.depthwise_conv1d``
 on bf16 rounds every product and sum to bf16, as JAX's oracle does, and
 differs.)  Where rows are 16-byte aligned a thread owns 8 channels
-(``Conv1dPlan.vec``).  The bf16 route has no backward yet: under autograd
-a bf16 operand raises ``NotImplementedError`` (ROADMAP Queue 1 item 7b).
+(``Conv1dPlan.vec``).
 
 Under autograd ``trim_conv1d`` is ``_TrimConv1dFn`` (it saves x and w),
 the counterpart of JAX's autodiff of ``ref.depthwise_conv1d`` (the JAX
-package has no conv1d backward kernel).  Its backward runs two kernels:
+package has no conv1d backward kernel).  Its backward runs two kernels,
+each on f32 or bf16 operands, and returns dx and dw in their operands'
+dtype:
 
 * dx, :func:`trim_conv1d_input_grad`: ``dx[t] = sum_i w[i] dy[t+K-1-i]``,
   which in reversed time (``r = L-1-t``) is the forward's causal conv of
   the reversed cotangent with the same taps in the same order.  So it is
-  the forward kernel launched on dy and dx as reversed views (the base
-  pointer at row L-1, the time stride negated; no copy), and its plain
-  version is ``trim_conv1d_plain(dy.flip(1), w).flip(1)``, bit for bit.
+  the forward kernel (``trim_conv1d_f32`` or ``trim_conv1d_bf16``)
+  launched on dy and dx as reversed views (the base pointer at row L-1,
+  the time stride negated; no copy), and its plain version is
+  ``trim_conv1d_plain(dy.flip(1), w).flip(1)``, bit for bit.
 * dw, :func:`trim_conv1d_weight_grad`: the kernel of
-  ``csrc/trim_conv1d_wgrad.cu`` on ``core.conv_plan.
-  Conv1dWeightGradPlan``'s runs and groups, the partials added in group
-  order (no atomics), equal to :func:`trim_conv1d_wgrad_plain` bit for
-  bit.
+  ``csrc/trim_conv1d_wgrad.cu`` (``trim_conv1d_wgrad_f32`` or
+  ``_bf16``) on ``core.conv_plan.Conv1dWeightGradPlan``'s runs and
+  groups, the f32 partials added in group order (no atomics) and rounded
+  once to the operands' dtype, equal to :func:`trim_conv1d_wgrad_plain`
+  bit for bit.  In bf16 both widen x and dy (exact products) and sum in
+  f32: JAX's ``ref.depthwise_conv1d`` on bf16 rounds after every
+  operation instead, so the two part by up to a few bf16 ulps (ROADMAP
+  Queue 3).
 
 ``LAUNCHES`` counts the forward kernel's launches by route
 (``trim_conv1d``: f32, ``trim_conv1d_bf16``), ``BWD_LAUNCHES`` the
 backward's (``trim_conv1d_dx``: the forward kernel on the reversed
-cotangent; ``trim_conv1d_wgrad``: one a call, its two launches together).
+cotangent; ``trim_conv1d_wgrad``: one a call, its two launches together;
+the bf16 route's under the same names with ``_bf16``).
 """
 
 from __future__ import annotations
@@ -53,15 +60,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.conv_plan import (CONV1D_BF16_VEC, CONV1D_WGRAD_RUNS,
-                                         Conv1dPlan, Conv1dWeightGradPlan)
+                                         CONV1D_WGRAD_VEC, Conv1dPlan,
+                                         Conv1dWeightGradPlan)
 from repro_torch.kernels import build
 
 # Kernel launches: each successful launch adds one, under its route's key.
 LAUNCHES = {"trim_conv1d": 0, "trim_conv1d_bf16": 0}
-BF16_BWD = ("the conv1d kernel's bf16 route has no backward: bf16 under "
-            "autograd is ROADMAP Queue 1 item 7b (the bf16 backward; label "
-            "2g)")
-BWD_LAUNCHES = {"trim_conv1d_dx": 0, "trim_conv1d_wgrad": 0}
+BWD_LAUNCHES = {"trim_conv1d_dx": 0, "trim_conv1d_wgrad": 0,
+                "trim_conv1d_dx_bf16": 0, "trim_conv1d_wgrad_bf16": 0}
 
 
 def reset_launch_counts() -> None:
@@ -125,7 +131,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, plan: Conv1dPlan, *,
     """One launch of ``trim_conv1d_f32`` (or, for a bf16 plan,
     ``trim_conv1d_bf16``) on x; with ``reverse``, on x and the output
     read in reversed time (the base pointer at row L-1, the time strides
-    negated), which is the input gradient's launch (f32 only)."""
+    negated), which is the input gradient's launch."""
     b, length, d = x.shape
     y = torch.empty((b, length, d), dtype=x.dtype, device=x.device)
     x_ptr, x_sl = x.data_ptr(), x.stride(1)
@@ -178,16 +184,21 @@ def trim_conv1d_input_grad(dy: torch.Tensor, w: torch.Tensor, *,
                            tile_l: int | None = None) -> torch.Tensor:
     """dx (B, L, D) of ``y = trim_conv1d(x, w)`` from dy (B, L, D): the
     forward kernel on dy and dx in reversed time (module docstring),
-    counted in ``BWD_LAUNCHES["trim_conv1d_dx"]``; on CPU tensors its
-    plain version, :func:`trim_conv1d_input_grad_plain`."""
+    counted in ``BWD_LAUNCHES["trim_conv1d_dx"]`` (bf16:
+    ``"trim_conv1d_dx_bf16"``, the ``trim_conv1d_bf16`` route); on CPU tensors its plain version,
+    :func:`trim_conv1d_input_grad_plain`.  dy and w share f32 or bf16."""
     dy = _channels_contiguous(dy)
-    _check(dy, w, dtypes=(torch.float32,))
-    plan = Conv1dPlan.build(tuple(dy.shape), tuple(w.shape), tile_l=tile_l)
+    _check(dy, w)
+    w = w.contiguous()
+    bf16 = dy.dtype == torch.bfloat16
+    plan = Conv1dPlan.build(tuple(dy.shape), tuple(w.shape), tile_l=tile_l,
+                            dtype_bytes=dy.element_size(),
+                            vec=bf16_vec(dy, w) if bf16 else 1)
     if dy.device.type == "cpu":
         with torch.no_grad():
             return trim_conv1d_input_grad_plain(dy, w, tile_l=plan.tile_l)
-    dx = _launch(dy, w.contiguous(), plan, reverse=True)
-    BWD_LAUNCHES["trim_conv1d_dx"] += 1
+    dx = _launch(dy, w, plan, reverse=True)
+    BWD_LAUNCHES["trim_conv1d_dx_bf16" if bf16 else "trim_conv1d_dx"] += 1
     return dx
 
 
@@ -198,71 +209,102 @@ def trim_conv1d_input_grad_plain(dy: torch.Tensor, w: torch.Tensor, *,
     return trim_conv1d_plain(dy.flip(1), w, tile_l=tile_l).flip(1)
 
 
+def wgrad_vec(x: torch.Tensor, dy: torch.Tensor) -> int:
+    """Channels a lane of the weight-gradient kernel:
+    ``CONV1D_WGRAD_VEC`` of the element size (4 f32, 8 bf16) where x's
+    and dy's rows are 16-byte aligned (D and both tensors' batch and time
+    strides multiples of it, the pointers of 16 bytes), else 1."""
+    v = CONV1D_WGRAD_VEC.get(x.element_size(), 1)     # float64: 1
+    ok = x.shape[-1] % v == 0 and all(
+        t.stride(0) % v == 0 and t.stride(1) % v == 0
+        and t.data_ptr() % 16 == 0 for t in (x, dy))
+    return v if ok else 1
+
+
+def _wgrad_plan(x, dy, k, tile_l) -> Conv1dWeightGradPlan:
+    """The weight-gradient plan of x and dy (a float64 oracle's: f32's
+    geometry, one channel a lane)."""
+    return Conv1dWeightGradPlan.build(
+        tuple(x.shape), k, tile_l=tile_l,
+        dtype_bytes=2 if x.dtype == torch.bfloat16 else 4,
+        vec=wgrad_vec(x, dy))
+
+
 def trim_conv1d_wgrad_plain(x: torch.Tensor, dy: torch.Tensor, k: int, *,
                             tile_l: int | None = None) -> torch.Tensor:
-    """The weight-gradient kernel's schedule in plain PyTorch -> dw (K, D):
-    each run of the plan's ``tile_l`` steps summed from 0 in time order
-    (every product rounded before its add) with its window's ``K-1``
-    predecessors (zeros before t = 0), the runs of each group of
-    ``CONV1D_WGRAD_RUNS`` added in run order, then the groups in group
-    order, every run, group and channel at once."""
-    plan = Conv1dWeightGradPlan.build(tuple(x.shape), k, tile_l=tile_l)
+    """The weight-gradient kernel's schedule in plain PyTorch -> dw (K, D)
+    of x's dtype: each run of the plan's ``tile_l`` steps summed from 0
+    in time order (every product rounded before its add) with its
+    window's ``K-1`` predecessors (zeros before t = 0), the runs of each
+    group of ``CONV1D_WGRAD_RUNS`` added in run order, then the groups in
+    group order, every run, group and channel at once, in f32 (bf16
+    operands widened: exact products; float64 operands in float64, an
+    oracle), cast once to x's dtype."""
+    plan = _wgrad_plan(x, dy, k, tile_l)
     b, length, d = x.shape
     tl, rpb = plan.tile_l, plan.runs_per_b
     padded = rpb * tl
-    xw = F.pad(x, (0, 0, k - 1, padded - length)).unfold(1, tl + k - 1, tl)
-    gw = F.pad(dy, (0, 0, 0, padded - length)).unfold(1, tl, tl)
-    acc = torch.zeros((b, rpb, d, k), dtype=torch.float32, device=x.device)
+    acc_dtype = torch.promote_types(x.dtype, torch.float32)
+    xw = F.pad(x.to(acc_dtype), (0, 0, k - 1, padded - length)).unfold(
+        1, tl + k - 1, tl)
+    gw = F.pad(dy.to(acc_dtype), (0, 0, 0, padded - length)).unfold(1, tl,
+                                                                      tl)
+    acc = torch.zeros((b, rpb, d, k), dtype=acc_dtype, device=x.device)
     for j in range(tl):                 # (B, runs, D, tl [+ K-1])
         acc = acc + xw[..., j:j + k] * gw[..., j:j + 1]
     runs = F.pad(acc.reshape(b * rpb, d, k),
                  (0, 0, 0, 0, 0, plan.groups * CONV1D_WGRAD_RUNS - plan.runs))
     runs = runs.reshape(plan.groups, CONV1D_WGRAD_RUNS, d, k)
-    part = torch.zeros((plan.groups, d, k), dtype=torch.float32,
+    part = torch.zeros((plan.groups, d, k), dtype=acc_dtype,
                        device=x.device)
     for r in range(CONV1D_WGRAD_RUNS):
         part = part + runs[:, r]
-    dw = torch.zeros((d, k), dtype=torch.float32, device=x.device)
+    dw = torch.zeros((d, k), dtype=acc_dtype, device=x.device)
     for g in range(plan.groups):
         dw = dw + part[g]
-    return dw.t().contiguous()
+    return dw.t().contiguous().to(x.dtype)
 
 
 def trim_conv1d_weight_grad(x: torch.Tensor, dy: torch.Tensor, k: int, *,
                             tile_l: int | None = None) -> torch.Tensor:
-    """dw (K, D) of ``y = trim_conv1d(x, w)`` from x and dy (B, L, D), x
-    read through its strides: the kernel of ``csrc/trim_conv1d_wgrad.cu``
-    (two launches, counted once in ``BWD_LAUNCHES["trim_conv1d_wgrad"]``);
-    on CPU tensors :func:`trim_conv1d_wgrad_plain`."""
+    """dw (K, D) of x's dtype of ``y = trim_conv1d(x, w)`` from x and dy
+    (B, L, D), both f32 or both bf16, x read through its strides: the
+    kernel of ``csrc/trim_conv1d_wgrad.cu`` (two launches, counted once in
+    ``BWD_LAUNCHES["trim_conv1d_wgrad"]``, bf16 under
+    ``"trim_conv1d_wgrad_bf16"``); on CPU tensors
+    :func:`trim_conv1d_wgrad_plain`."""
     dy = _channels_contiguous(dy)
-    _check(x, dy, dtypes=(torch.float32,))
+    _check(x, dy)
     if dy.shape != x.shape:
         raise ValueError(f"dy {tuple(dy.shape)} is not of x's shape "
                          f"{tuple(x.shape)}")
-    plan = Conv1dWeightGradPlan.build(tuple(x.shape), k, tile_l=tile_l)
+    plan = _wgrad_plan(x, dy, k, tile_l)
     if x.device.type == "cpu":
         with torch.no_grad():
             return trim_conv1d_wgrad_plain(x, dy, k, tile_l=plan.tile_l)
+    bf16 = x.dtype == torch.bfloat16
     b, length, d = x.shape
     partial = torch.empty(plan.partial_shape, dtype=torch.float32,
                           device=x.device)
-    dw = torch.empty((k, d), dtype=torch.float32, device=x.device)
+    dw = torch.empty((k, d), dtype=x.dtype, device=x.device)
     lib = build.library("trim_conv1d_wgrad")
+    entry = lib.trim_conv1d_wgrad_bf16 if bf16 else lib.trim_conv1d_wgrad_f32
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.trim_conv1d_wgrad_f32(
+        err = entry(
             x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(),
             b, length, d, k, x.stride(0), x.stride(1), dy.stride(0),
-            dy.stride(1), plan.tile_l, plan.groups, stream)
+            dy.stride(1), plan.tile_l, plan.groups, plan.vec, stream)
     if err != 0:
         raise RuntimeError(
             f"trim_conv1d_wgrad kernel launch failed: CUDA error {err} "
             f"({lib.trim_conv1d_wgrad_error_string(err).decode()}) for x "
-            f"{tuple(x.shape)} strides {x.stride()}, K={k}, "
-            f"tile_l={plan.tile_l}, groups={plan.groups} (a wrong group "
-            "count means the plan's CONV1D_WGRAD_* constants and the .cu's "
-            "disagree)")
-    BWD_LAUNCHES["trim_conv1d_wgrad"] += 1
+            f"{tuple(x.shape)} {x.dtype} strides {x.stride()}, K={k}, "
+            f"tile_l={plan.tile_l}, groups={plan.groups}, vec={plan.vec} "
+            "(a wrong group count means the plan's CONV1D_WGRAD_* "
+            "constants and the .cu's disagree)")
+    BWD_LAUNCHES["trim_conv1d_wgrad_bf16" if bf16
+                 else "trim_conv1d_wgrad"] += 1
     return dw
 
 
@@ -298,15 +340,12 @@ def trim_conv1d(x: torch.Tensor, w: torch.Tensor, *,
     the dtype (counted in ``LAUNCHES``); on CPU tensors,
     :func:`trim_conv1d_plain`.  Under autograd, with x or w requiring
     grad, through ``_TrimConv1dFn``, whose backward runs the backward
-    kernels (module docstring); f32 only: a bf16 operand there raises
-    ``NotImplementedError`` (ROADMAP Queue 1 item 7b).  Raises
+    kernels on the operands' dtype (module docstring).  Raises
     ``ValueError`` for what the kernel cannot take: another dtype, mixed
     dtypes or devices, K < 2, or an empty B, L or D.  ``tile_l`` left as
     ``None`` takes ``Conv1dPlan.build``'s choice.
     """
     _check(x, w)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        if x.dtype != torch.float32:
-            raise NotImplementedError(BF16_BWD)
         return _TrimConv1dFn.apply(x, w, tile_l)
     return _forward(x, w, tile_l)

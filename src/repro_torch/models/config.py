@@ -1,9 +1,11 @@
 """Model configuration shared by every architecture family (the
 counterpart of ``repro/models/config.py``, with the same fields).
 
-The port runs float32 and bfloat16 (``dtype``: bf16 LM inference, where
-the norms' scales and the scan states stay f32 as in JAX; training is
-f32 only, ROADMAP Queue 1 item 7b), and its attention implementations are
+The port runs float32 and bfloat16 (``dtype``: bf16 LM inference and
+training, where the norms' scales and the scan states stay f32 as in JAX;
+the trainer's entry point forces f32 as JAX's does, and bf16 training
+runs through ``distributed.steps.make_train_step`` on bf16 params), and
+its attention implementations are
 ``"flash"`` (the hand-written CUDA kernel of ``kernels/flash_attention.py``
 on a CUDA tensor, its plain PyTorch version on a CPU tensor; the JAX
 ``"pallas"``), ``"chunked"`` and ``"ref"``.

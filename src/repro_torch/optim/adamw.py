@@ -8,12 +8,14 @@ takes them, so the global norm sums in the JAX package's order.
 ``apply_updates`` is functional (new trees, inputs untouched);
 ``apply_updates_`` updates params and moments in place, the port's
 counterpart of the JAX train step's state donation (``repro/distributed/
-steps.py:128``, ``donate_argnums=(0,)``): it holds two leaf-sized
-temporaries where the functional update holds a second copy of params,
-mu and nu (at qwen2.5-3b's 3.40 B parameters ~41 GB more), and gives
-bitwise the functional update's numbers (the same operations in the same
-order).  Both run under ``torch.no_grad()``; ``step`` is a Python int or a
-0-d tensor.  The ZeRO-style sharding of the JAX moments has no counterpart
+steps.py:128``, ``donate_argnums=(0,)``): it holds a few f32
+temporaries of at most ``UPDATE_CHUNK`` elements (two for an f32 leaf,
+up to six for a bf16 one) where the functional update holds a second
+copy of params, mu and nu (at qwen2.5-3b's 3.40 B parameters ~41 GB
+more), and gives bitwise the functional update's numbers (the same
+operations in the same order; a bf16 leaf is updated in f32 and rounded
+once).  Both run under ``torch.no_grad()``; ``step`` is a Python int or a 0-d
+tensor.  The ZeRO-style sharding of the JAX moments has no counterpart
 on one card.
 """
 
@@ -131,34 +133,65 @@ def apply_updates(params, grads, moments, step, cfg: AdamWConfig):
             {"grad_norm": gnorm, "lr": lr})
 
 
+# Elements of a leaf updated at a time by apply_updates_: its temporaries
+# are this many f32 values each (128 MiB), whatever the leaf's size
+UPDATE_CHUNK = 1 << 25
+
+
+def _update_slice(p, g, mu, nu, scale, lr, bc1, bc2, cfg: AdamWConfig,
+                  decay: bool) -> None:
+    """One AdamW update of flat slices in place, in f32: the functional
+    update's operations in its order; a slice of another dtype (a bf16
+    param or gradient, a bf16 moment) is widened into an f32 temporary,
+    updated there and rounded once back into the leaf."""
+    f32 = torch.float32
+    b1, b2 = cfg.b1, cfg.b2
+    g = g.mul_(scale) if g.dtype == f32 else g.to(f32) * scale
+    m32 = mu if mu.dtype == f32 else mu.to(f32)
+    n32 = nu if nu.dtype == f32 else nu.to(f32)
+    p32 = p if p.dtype == f32 else p.to(f32)
+    t = torch.mul(g, 1 - b1)
+    m32.mul_(b1).add_(t)                          # b1 mu + (1 - b1) g
+    torch.mul(g, 1 - b2, out=t).mul_(g)
+    n32.mul_(b2).add_(t)                          # b2 nu + (1 - b2) g g
+    u = torch.div(n32, bc2).sqrt_().add_(cfg.eps)
+    torch.div(m32, bc1, out=t).div_(u)            # (mu / bc1) / (...)
+    if decay:   # decoupled weight decay on matrices only
+        t.add_(torch.mul(p32, cfg.weight_decay, out=u))
+    p32.sub_(t.mul_(lr))
+    for leaf, new in ((p, p32), (mu, m32), (nu, n32)):
+        if new is not leaf:
+            leaf.copy_(new)                       # the one rounding
+
+
 @torch.no_grad()
 def apply_updates_(params, grads, moments, step, cfg: AdamWConfig) -> dict:
     """:func:`apply_updates` in place: every leaf of ``params``,
-    ``moments["mu"]`` and ``moments["nu"]`` (float32) takes its new value,
-    and the leaves of ``grads`` (float32, the step's own) are scaled by
-    the clip factor in place.  Returns the metrics ``{"grad_norm",
-    "lr"}``.  Each new value comes from the functional update's operations
-    in its order (``b1 * mu`` then ``+ (1 - b1) * g``, ...), so the two
-    agree bit for bit."""
+    ``moments["mu"]`` and ``moments["nu"]`` takes its new value; the
+    leaves of ``grads`` (the step's own) serve as scratch.  Returns the
+    metrics ``{"grad_norm", "lr"}``.  Each new value comes from the
+    functional update's operations in its order (``b1 * mu`` then ``+
+    (1 - b1) * g``, ...), in f32, so the two agree bit for bit.  A leaf of
+    another dtype (a bf16 param or its bf16 gradient, a moment in a bf16
+    ``moment_dtype``) is widened into an f32 temporary, updated there and
+    rounded once back into the leaf, as ``apply_updates`` rounds
+    ``new_p.to(p.dtype)``.  The update is elementwise, so each leaf goes
+    in flat slices of :data:`UPDATE_CHUNK` elements: the temporaries stay
+    that small (a stacked mamba leaf holds two billion elements)."""
     flat_p = tree_leaves(params)
     flat = (flat_p, tree_leaves(grads), tree_leaves(moments["mu"]),
             tree_leaves(moments["nu"]))
-    if any(t.dtype != torch.float32 for leaves in flat for t in leaves):
-        raise ValueError("apply_updates_ updates float32 params, grads and "
-                         "moments in place; use apply_updates for others")
+    if any(t.dtype not in (torch.float32, torch.bfloat16)
+           for leaves in flat for t in leaves):
+        raise ValueError("apply_updates_ updates float32 and bfloat16 "
+                         "leaves in place; use apply_updates for others")
     gnorm, scale, lr, bc1, bc2 = _scalars(grads, step, cfg,
                                           flat_p[0].device)
-    b1, b2 = cfg.b1, cfg.b2
     for p, g, mu, nu in zip(*flat):
-        g.mul_(scale)
-        t = torch.mul(g, 1 - b1)
-        mu.mul_(b1).add_(t)                       # b1 mu + (1 - b1) g
-        torch.mul(g, 1 - b2, out=t).mul_(g)
-        nu.mul_(b2).add_(t)                       # b2 nu + (1 - b2) g g
-        u = torch.div(nu, bc2).sqrt_().add_(cfg.eps)
-        torch.div(mu, bc1, out=t).div_(u)         # (mu / bc1) / (...)
-        if p.dim() >= 2:   # decoupled weight decay on matrices only
-            t.add_(torch.mul(p, cfg.weight_decay, out=u))
-        p.sub_(t.mul_(lr))
-        del t, u
+        pf, mf, nf = (t.view(-1) for t in (p, mu, nu))
+        gf = g.reshape(-1)
+        for i in range(0, pf.numel(), UPDATE_CHUNK):
+            j = i + UPDATE_CHUNK
+            _update_slice(pf[i:j], gf[i:j], mf[i:j], nf[i:j], scale, lr,
+                          bc1, bc2, cfg, p.dim() >= 2)
     return {"grad_norm": gnorm, "lr": lr}

@@ -20,7 +20,9 @@ them:
   geometry and shared memory per Dp against the ``.cu`` (parsed);
 * the P split's error budget, and the card's float64 gate on the
   narrow route on its arithmetic emulated: the split passes, one bf16 P
-  fails; the plain forward in float64 (the gate's oracle);
+  fails; the plain forward in float64 (the gate's oracle); the same for
+  the bf16 backward (``chip_smoke.flash_bwd_bf16_emulated``): the P and
+  dS splits pass, one bf16 P or dS fails;
 * the tuner: bf16 wgrad records name their route, and one of the FFMA
   kernel's design is never read as an mma plan.
 """
@@ -460,6 +462,77 @@ def test_flash_plain_forward_in_float64(case):
     assert torch.equal(ob, o32.bfloat16()) and torch.equal(lseb, lse32)
     assert (o64 - o32.double()).abs().max() <= 1e-5 * o64.abs().max()
     assert (lse64 - lse32.double()).abs().max() <= 1e-5 * lse64.abs().max()
+
+
+# tests/test_torch_cuda.py's FLASH_BWD_CASES: (b, lq, lk, hq, hkv, d, causal,
+# soft_cap, window)
+FLASH_BWD_CASES = [
+    (2, 100, 100, 4, 2, 16, True, None, None),
+    (1, 130, 130, 7, 1, 64, True, None, None),
+    (2, 45, 300, 8, 2, 128, True, None, None),
+    (1, 200, 200, 10, 1, 256, True, 30.0, 70),
+    (1, 70, 150, 6, 3, 12, False, 5.0, 40),
+    (2, 520, 520, 16, 2, 64, True, None, None),
+    (1, 90, 90, 3, 3, 32, False, None, 50),
+]
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its emulation and gate)."""
+    import importlib.util
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES,
+                         ids=[str(i) for i in range(len(FLASH_BWD_CASES))])
+def test_flash_bwd_bf16_f64_gate_passes_the_splits_and_refuses_one_bf16_p_or_ds(
+        case):
+    """The card's gate on the bf16 backward (dq, dk, dv past half an ulp
+    of bf16 from the float64 plain backward within
+    ``FLASH_BWD_BF16_F64_EXCESS`` of max|grad|) on the kernels' arithmetic
+    emulated at the GPU test's cases: the P and dS splits pass it
+    by 16x, as does the plain backward (f32) rounded once; one bf16 P
+    fails it at dv and one bf16 dS at dk and dq, each by more than 4x.
+    The constant and cases are the ones ``tests/test_torch_cuda.py``
+    holds the card to."""
+    from repro_torch.kernels import flash_attention as fa
+    smoke = _chip_smoke()
+    cuda_tests = (Path(__file__).resolve().parent / "test_torch_cuda.py"
+                  ).read_text()
+    assert "\n".join(f"    {c}," for c in FLASH_BWD_CASES) in cuda_tests
+    gate = smoke.FLASH_BWD_BF16_F64_EXCESS
+    assert re.search(r"^FLASH_BWD_BF16_F64_EXCESS = 2\.0 \*\* -14$",
+                     cuda_tests, re.M)
+    assert gate == 2.0 ** -14
+    b, lq, lk, hq, hkv, d, causal, cap, win = case
+    gen = torch.Generator().manual_seed(lq + lk + d)
+    q, k, v, do = (torch.randn(shape, generator=gen).bfloat16()
+                   for shape in ((b, lq, hq, d), (b, lk, hkv, d),
+                                 (b, lk, hkv, d), (b, lq, hq, d)))
+    kw = dict(causal=causal, soft_cap=cap, window=win)
+    _, lse64 = fa._plain_forward(q.double(), k.double(), v.double(),
+                                 block_k=fa.BLOCK_K, **kw)
+    want = fa.flash_attention_backward_plain(
+        q.double(), k.double(), v.double(), lse64, do.double(), **kw)
+    _, lse = fa._plain_forward(q, k, v, block_k=fa.BLOCK_K, **kw)
+
+    def excess(grads):
+        return [smoke.half_ulp_excess(torch, g, w)
+                for g, w in zip(grads, want)]
+    split = excess(smoke.flash_bwd_bf16_emulated(torch, q, k, v, do, kw))
+    plain = excess(fa.flash_attention_backward_plain(q, k, v, lse, do, **kw))
+    one_p = excess(smoke.flash_bwd_bf16_emulated(torch, q, k, v, do, kw,
+                                                 p_terms=1))
+    one_ds = excess(smoke.flash_bwd_bf16_emulated(torch, q, k, v, do, kw,
+                                                  ds_terms=1))
+    assert max(split) <= gate / 16 and max(plain) <= gate / 16, (split,
+                                                                 plain)
+    assert one_p[2] > 4 * gate and min(one_ds[:2]) > 4 * gate, (one_p,
+                                                                 one_ds)
 
 
 # ---------------------------------------------------------------------------

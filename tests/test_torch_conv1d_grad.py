@@ -126,35 +126,57 @@ def test_wgrad_plain_is_bitwise_repeatable(tile_l):
 
 
 def test_wgrad_plan_runs_groups_and_scratch():
-    # recurrentgemma-2b's training row and mamba's training batch: the
-    # longest run that fills CONV1D_MIN_WAVES waves of 1,056 blocks
-    rg = Conv1dWeightGradPlan.build((1, 4096, 2560), 4)
-    assert (rg.tile_l, rg.runs, rg.groups, rg.grid) == (8, 512, 64, (64, 80))
-    assert rg.partial_shape == (64, 4, 2560)
+    # recurrentgemma-2b's training row and mamba's training batch, f32 (4
+    # channels a lane) and bf16 (8): the longest run that still gives
+    # CONV1D_WGRAD_MIN_BLOCKS blocks, never one whose halo passes a tenth
+    rg = Conv1dWeightGradPlan.build((1, 4096, 2560), 4, vec=4)
+    assert (rg.tile_l, rg.runs, rg.groups, rg.grid) == (64, 64, 16, (16, 20))
+    assert rg.partial_shape == (16, 4, 2560)
     assert rg.min_bytes() == 4 * (2 * 4096 * 2560 + 4 * 2560)
     assert rg.bound()[1] == "bytes"
     assert abs(rg.bound()[0] - 0.025053) < 1e-5
-    mb = Conv1dWeightGradPlan.build((2, 1024, 8192), 4)
-    assert (mb.tile_l, mb.runs_per_b, mb.runs, mb.groups) == (16, 64, 128,
-                                                              16)
-    wave = conv_plan.SMS * conv_plan.THREADS_PER_SM // (
-        conv_plan.CONV1D_WGRAD_RUNS * conv_plan.CONV1D_WGRAD_TILE_D)
-    for plan in (rg, mb):
-        assert plan.blocks >= conv_plan.CONV1D_MIN_WAVES * wave
+    rg16 = Conv1dWeightGradPlan.build((1, 4096, 2560), 4, dtype_bytes=2,
+                                      vec=8)
+    assert (rg16.tile_l, rg16.runs, rg16.groups, rg16.grid) == (
+        32, 128, 32, (32, 10))
+    assert rg16.min_bytes() == 2 * (2 * 4096 * 2560 + 4 * 2560)
+    assert abs(rg16.bound()[0] - 0.0125264) < 1e-6
+    mb = Conv1dWeightGradPlan.build((2, 1024, 8192), 4, vec=4)
+    assert (mb.tile_l, mb.runs_per_b, mb.runs, mb.groups, mb.grid) == (
+        64, 16, 32, 8, (8, 64))
+    mb16 = Conv1dWeightGradPlan.build((2, 1024, 8192), 4, dtype_bytes=2,
+                                      vec=8)
+    assert (mb16.tile_l, mb16.runs, mb16.groups, mb16.grid) == (
+        32, 64, 16, (16, 32))
+    # one channel a lane (rows not 16-byte aligned): 32 channels a block
+    one = Conv1dWeightGradPlan.build((1, 4096, 2560), 4)
+    assert (one.tile_d, one.tile_l, one.grid) == (32, 256, (4, 80))
+    for plan in (rg, rg16, mb, mb16, one):
+        assert plan.blocks >= conv_plan.CONV1D_WGRAD_MIN_BLOCKS
+        assert plan.k - 1 <= conv_plan.CONV1D_WGRAD_HALO_SHARE * plan.tile_l
+        assert plan.tile_d == conv_plan.CONV1D_WGRAD_LANES * plan.vec
         bytes_ = plan.hbm_bytes()
         assert bytes_["total"] == sum(v for key, v in bytes_.items()
                                       if key != "total")
         assert bytes_["partials"] == 2 * 4 * plan.groups * plan.k * plan.d
+        # the redesign's traffic: halo and partials under 12% of the least
+        assert bytes_["total"] <= 1.12 * plan.min_bytes()
     # runs never straddle a sequence; a short L is one run a sequence
     short = Conv1dWeightGradPlan.build((3, 5, 7), 4)
     assert (short.tile_l, short.runs_per_b, short.runs, short.groups) == (
         5, 1, 3, 1)
     ragged = Conv1dWeightGradPlan.build((2, 17, 5), 3, tile_l=8)
-    assert (ragged.runs_per_b, ragged.runs, ragged.groups) == (3, 6, 1)
+    assert (ragged.runs_per_b, ragged.runs, ragged.groups) == (3, 6, 2)
     assert ragged.hbm_bytes()["halo"] == 4 * 2 * 5 * (0 + 2 + 2)
+    # a long kernel takes runs long enough for its halo: K 9 -> 128
+    assert Conv1dWeightGradPlan.build((1, 4096, 64), 9).tile_l == 128
     for bad in (dict(x_shape=(2, 0, 4), k=4), dict(x_shape=(2, 8, 4), k=1),
                 dict(x_shape=(8, 4), k=4),
-                dict(x_shape=(2, 8, 4), k=4, tile_l=0)):
+                dict(x_shape=(2, 8, 4), k=4, tile_l=0),
+                dict(x_shape=(2, 8, 6), k=4, vec=4),
+                dict(x_shape=(2, 8, 8), k=4, dtype_bytes=2, vec=4),
+                dict(x_shape=(2, 8, 8), k=4, dtype_bytes=8),
+                dict(x_shape=(2, 8, 256), k=200, dtype_bytes=2, vec=8)):
         with pytest.raises(ValueError):
             Conv1dWeightGradPlan.build(**bad)
 
@@ -166,12 +188,15 @@ def test_wgrad_plan_constants_match_the_kernel():
         found[name] = eval(expr, {"__builtins__": {}}, dict(found))
     assert found == {
         "kRuns": conv_plan.CONV1D_WGRAD_RUNS,
-        "kLanes": conv_plan.CONV1D_WGRAD_TILE_D,
+        "kLanes": conv_plan.CONV1D_WGRAD_LANES,
         "kThreads": (conv_plan.CONV1D_WGRAD_RUNS
-                     * conv_plan.CONV1D_WGRAD_TILE_D),
-        "kUnroll": 8,
+                     * conv_plan.CONV1D_WGRAD_LANES),
+        "kVecF32": conv_plan.CONV1D_WGRAD_VEC[4],
+        "kVecBf16": conv_plan.CONV1D_WGRAD_VEC[2],
+        "kUnroll": conv_plan.CONV1D_WGRAD_UNROLL,
         "kMaxUnrolledK": conv_plan.CONV1D_UNROLLED_K,
         "kSumThreads": conv_plan.CONV1D_WGRAD_SUM_THREADS,
+        "kMaxSmemBytes": conv_plan.CONV1D_WGRAD_MAX_SMEM,
     }
 
 
@@ -197,7 +222,9 @@ def test_ops_routes_the_gradient():
     assert torch.equal(dw, tc1.trim_conv1d_wgrad_plain(
         torch.from_numpy(xzn), torch.from_numpy(dyn), 4))
     assert tc1.LAUNCHES == {"trim_conv1d": 0, "trim_conv1d_bf16": 0}
-    assert tc1.BWD_LAUNCHES == {"trim_conv1d_dx": 0, "trim_conv1d_wgrad": 0}
+    assert tc1.BWD_LAUNCHES == {"trim_conv1d_dx": 0, "trim_conv1d_wgrad": 0,
+                                "trim_conv1d_dx_bf16": 0,
+                                "trim_conv1d_wgrad_bf16": 0}
 
 
 def test_backward_wrappers_reject_what_the_kernels_cannot_take():

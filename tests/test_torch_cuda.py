@@ -83,6 +83,12 @@ pytestmark = pytest.mark.gpu
 TOL = 1e-4
 
 
+def _bwd_counts(module, **nonzero) -> dict:
+    """Every key of a wrapper module's ``BWD_LAUNCHES`` (f32 and bf16
+    routes), 0 unless given."""
+    return {**dict.fromkeys(module.BWD_LAUNCHES, 0), **nonzero}
+
+
 @pytest.fixture(autouse=True)
 def _port_convtune_cache(tmp_path, monkeypatch):
     """The port's autotune cache in a per-test temp file: no test reads
@@ -718,9 +724,9 @@ def test_flash_backward_kernels_match_plain(cuda, case):
     got = fa.flash_attention_backward(q, k, v, lse, do, **kw)
     again = fa.flash_attention_backward(q, k, v, lse, do, **kw)
     torch.cuda.synchronize()
-    assert fa.BWD_LAUNCHES == {"flash_attention_bwd_dkdv": 2,
-                               "flash_attention_bwd_dq": 2,
-                               "flash_attention_bwd_sum": 2 * (hq > hkv)}
+    assert fa.BWD_LAUNCHES == _bwd_counts(
+        fa, flash_attention_bwd_dkdv=2, flash_attention_bwd_dq=2,
+        flash_attention_bwd_sum=2 * (hq > hkv))
     plain = fa.flash_attention_backward_plain(q, k, v, lse, do, **kw)
     qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
     want = torch.autograd.grad(ref.attention(
@@ -731,6 +737,64 @@ def test_flash_backward_kernels_match_plain(cuda, case):
         scale = p.abs().max().item()
         assert (g - p).abs().max().item() <= FLASH_BWD_TOL * scale
         assert (g - w).abs().max().item() <= FLASH_BWD_TOL * scale
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES,
+                         ids=[str(i) for i in range(len(FLASH_BWD_CASES))])
+def test_flash_backward_bf16_within_the_plain_distance_of_float64(cuda,
+                                                                   case):
+    """The bf16 route of the backward kernels (bf16 mma for S and dP; P
+    and dS split hi / lo for dV, dK, dQ): dq, dk and dv bf16, each no
+    farther from the float64 plain backward than the plain bf16 backward
+    (f32 math on the widened values, rounded once) is, plus one bf16 ulp
+    of max|grad|, and past half an ulp of bf16 within
+    ``FLASH_BWD_BF16_F64_EXCESS`` of max|grad| of it (the splits keep P
+    and dS f32; one bf16 P or dS does not); bitwise over two calls; only
+    the bf16 kernels launch; under autograd a bf16 q, k, v gets bf16
+    gradients from them."""
+    import math
+    from repro_torch.kernels import flash_attention as fa
+    b, lq, lk, hq, hkv, d, causal, cap, win = case
+    gen = torch.Generator(device="cuda").manual_seed(lq + d + 1)
+    bf = torch.bfloat16
+    q, do = (torch.randn((b, lq, hq, d), generator=gen, device=cuda).to(bf)
+             for _ in range(2))
+    k, v = (torch.randn((b, lk, hkv, d), generator=gen, device=cuda).to(bf)
+            for _ in range(2))
+    kw = dict(causal=causal, soft_cap=cap, window=win)
+    lse = torch.empty((b, hq, lq), device=cuda)
+    o = fa._launch_forward(q, k, v, causal, cap, win, lse)
+    assert torch.equal(o, fa.flash_attention(q, k, v, **kw))
+    fa.reset_launch_counts()
+    got = fa.flash_attention_backward(q, k, v, lse, do, **kw)
+    again = fa.flash_attention_backward(q, k, v, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fa.BWD_LAUNCHES == _bwd_counts(
+        fa, flash_attention_bwd_dkdv_bf16=2, flash_attention_bwd_dq_bf16=2,
+        flash_attention_bwd_sum_bf16=2 * (hq > hkv))
+    plain = fa.flash_attention_backward_plain(q, k, v, lse, do, **kw)
+    want = fa.flash_attention_backward_plain(
+        q.double(), k.double(), v.double(), lse.double(), do.double(), **kw)
+    for g, g2, p, w in zip(got, again, plain, want):
+        assert g.dtype == bf and torch.equal(g, g2)
+        scale = w.abs().max().item()
+        ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+        assert (g.double() - w).abs().max().item() <= (
+            p.double() - w).abs().max().item() + ulp
+        gf = g.float()
+        half = torch.where(gf == 0, torch.zeros_like(gf),
+                           torch.ldexp(torch.ones_like(gf),
+                                       torch.frexp(gf)[1] - 9))
+        assert ((gf.double() - w).abs() - half.double()).max().item() <= \
+            FLASH_BWD_BF16_F64_EXCESS * scale
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.reset_launch_counts()
+    grads = torch.autograd.grad(fa.flash_attention(*leaves, **kw), leaves,
+                                do)
+    assert fa.LAUNCHES == {"flash_attention": 0, "flash_attention_bf16": 1}
+    assert fa.BWD_LAUNCHES["flash_attention_bwd_dq_bf16"] == 1
+    for g, g0 in zip(grads, got):
+        assert torch.equal(g, g0)
 
 
 def test_flash_autograd_on_the_card_matches_ref(cuda):
@@ -751,7 +815,9 @@ def test_flash_autograd_on_the_card_matches_ref(cuda):
         grads[impl] = torch.autograd.grad((out * out).sum(), leaves)
         want = 1 if impl == "flash" else 0
         assert fa.LAUNCHES["flash_attention"] == want
-        assert set(fa.BWD_LAUNCHES.values()) == {want}
+        assert fa.BWD_LAUNCHES == _bwd_counts(fa, **dict.fromkeys(
+            ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
+             "flash_attention_bwd_sum"), want))
     for g, w in zip(grads["flash"], grads["ref"]):
         assert (g - w).abs().max().item() <= FLASH_BWD_TOL * w.abs().max(
             ).item()
@@ -861,7 +927,9 @@ def test_lm_train_step_on_the_kernels_matches_ref(cuda):
         state, metrics = steps.make_train_step(icfg, opt)(state, batch)
         if impl == "flash":
             assert fa.LAUNCHES["flash_attention"] == 2 * cfg.n_layers
-            assert set(fa.BWD_LAUNCHES.values()) == {cfg.n_layers}
+            assert fa.BWD_LAUNCHES == _bwd_counts(fa, **dict.fromkeys(
+                ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_sum"), cfg.n_layers))
         out[impl] = (state, metrics, g)
     _hold_first_step(out["flash"], out["ref"], p0, opt)
 
@@ -955,7 +1023,8 @@ def test_conv1d_backward_kernels_equal_plain_bitwise(cuda, case):
     dx2 = tc1.trim_conv1d_input_grad(dy, w, tile_l=tile_l)
     dw2 = tc1.trim_conv1d_weight_grad(x, dy, k, tile_l=tile_l)
     torch.cuda.synchronize()
-    assert tc1.BWD_LAUNCHES == {"trim_conv1d_dx": 2, "trim_conv1d_wgrad": 2}
+    assert tc1.BWD_LAUNCHES == _bwd_counts(tc1, trim_conv1d_dx=2,
+                                           trim_conv1d_wgrad=2)
     assert torch.equal(dx, tc1.trim_conv1d_input_grad_plain(
         dy, w, tile_l=tile_l))
     assert torch.equal(dw, tc1.trim_conv1d_wgrad_plain(x, dy, k,
@@ -966,6 +1035,51 @@ def test_conv1d_backward_kernels_equal_plain_bitwise(cuda, case):
                                   (xg, wg), dy)
     assert torch.equal(gxz[..., :d], dx)
     assert torch.equal(gw, tc1.trim_conv1d_weight_grad(x, dy, k))
+    assert not gxz[..., d:].any()
+
+
+@pytest.mark.parametrize("case", CONV1D_CASES,
+                         ids=[str(i) for i in range(len(CONV1D_CASES))])
+def test_conv1d_bf16_backward_kernels_equal_plain_bitwise(cuda, case):
+    """The bf16 routes of the conv1d backward: dx (``trim_conv1d_bf16``
+    on the reversed cotangent) and dw (``trim_conv1d_wgrad_bf16``, the
+    redesigned plan's runs and groups, 8 channels a lane where rows are
+    16-byte aligned) bitwise their plain versions and over two calls; dw's
+    f32 sums are the f32 entry's on the widened operands, rounded once;
+    through the Function a bf16 x and w get bf16 gradients."""
+    from repro_torch.kernels import trim_conv1d as tc1
+    b, length, d, k, tile_l, strided = case
+    gen = torch.Generator(device="cuda").manual_seed(length + d + 2)
+    bf = torch.bfloat16
+    xz = torch.randn((b, length, 2 * d if strided else d), generator=gen,
+                     device=cuda).to(bf)
+    x = xz[..., :d]
+    w = torch.randn((k, d), generator=gen, device=cuda).to(bf)
+    dy = torch.randn((b, length, d), generator=gen, device=cuda).to(bf)
+    tc1.reset_launch_counts()
+    dx = tc1.trim_conv1d_input_grad(dy, w, tile_l=tile_l)
+    dw = tc1.trim_conv1d_weight_grad(x, dy, k, tile_l=tile_l)
+    dx2 = tc1.trim_conv1d_input_grad(dy, w, tile_l=tile_l)
+    dw2 = tc1.trim_conv1d_weight_grad(x, dy, k, tile_l=tile_l)
+    torch.cuda.synchronize()
+    assert tc1.BWD_LAUNCHES == _bwd_counts(tc1, trim_conv1d_dx_bf16=2,
+                                           trim_conv1d_wgrad_bf16=2)
+    assert dx.dtype == dw.dtype == bf
+    assert torch.equal(dx, tc1.trim_conv1d_input_grad_plain(
+        dy, w, tile_l=tile_l))
+    plan = tc1._wgrad_plan(x, dy, k, tile_l)
+    assert torch.equal(dw, tc1.trim_conv1d_wgrad_plain(x, dy, k,
+                                                       tile_l=plan.tile_l))
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    if plan.vec == 8:    # the same plan in f32: 4 channels a lane
+        wide = tc1.trim_conv1d_wgrad_plain(x.float(), dy.float(), k,
+                                           tile_l=plan.tile_l)
+        assert torch.equal(dw, wide.to(bf))
+    xg, wg = xz.clone().requires_grad_(), w.clone().requires_grad_()
+    gxz, gw = torch.autograd.grad(tc1.trim_conv1d(xg[..., :d], wg),
+                                  (xg, wg), dy)
+    assert gxz.dtype == gw.dtype == bf
+    assert torch.equal(gxz[..., :d], dx)
     assert not gxz[..., d:].any()
 
 
@@ -1014,12 +1128,67 @@ def test_ssm_and_hybrid_train_step_on_the_kernels_matches_the_cpu(cuda,
         if cfg.family == "hybrid" else cfg.n_layers
     att = cfg.n_layers - rec
     assert tc1.LAUNCHES["trim_conv1d"] == 2 * rec
-    assert tc1.BWD_LAUNCHES == {"trim_conv1d_dx": rec,
-                                "trim_conv1d_wgrad": rec}
+    assert tc1.BWD_LAUNCHES == _bwd_counts(tc1, trim_conv1d_dx=rec,
+                                           trim_conv1d_wgrad=rec)
     assert fa.LAUNCHES["flash_attention"] == 2 * att
-    assert set(fa.BWD_LAUNCHES.values()) == ({att} if att else {0})
+    assert fa.BWD_LAUNCHES == _bwd_counts(fa, **dict.fromkeys(
+        ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
+         "flash_attention_bwd_sum"), att))
     _hold_first_step(out[str(cuda)], out["cpu"], p0, opt,
                      2e-4 if cfg.family == "hybrid" else STEP_GRAD_TOL)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "falcon-mamba-7b",
+                                  "recurrentgemma-2b"])
+def test_bf16_train_step_on_the_kernels(cuda, arch):
+    """One SMOKE train step on bf16 params (remat, flash) on the card:
+    only the bf16 routes launch (the conv1d forward twice a rec layer, dx
+    and dw once; the flash forward twice and each backward kernel once
+    an att layer), every leaf keeps its dtype and stays finite, and the
+    loss is the CPU step's (the plain versions) within 1e-2: the same
+    bf16 function, rounded in another order."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import trim_conv1d as tc1
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+    from repro_torch.optim import AdamWConfig, adamw
+    cfg = registry.get(arch).SMOKE.replace(remat=True, attn_impl="flash")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, decay_steps=50)
+    toks = torch.randint(2, cfg.vocab, (4, 65),
+                         generator=torch.Generator().manual_seed(0))
+    params = init_params(api.params(cfg), torch.Generator().manual_seed(1),
+                         dtype=torch.bfloat16)
+    losses = {}
+    for dev in ("cpu", cuda):
+        p = adamw.tree_unflatten(params, [t.to(dev, copy=True) for t in
+                                          adamw.tree_leaves(params)])
+        state = {"params": p, "opt": adamw.init_moments(p, opt),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        batch = {"tokens": toks[:, :-1].to(dev),
+                 "labels": toks[:, 1:].to(dev)}
+        fa.reset_launch_counts()
+        tc1.reset_launch_counts()
+        state, metrics = steps.make_train_step(cfg, opt)(state, batch)
+        losses[str(dev)] = float(metrics["loss"])
+        for t, t0 in zip(adamw.tree_leaves(state["params"]),
+                         adamw.tree_leaves(params)):
+            assert t.dtype == t0.dtype and bool(torch.isfinite(t).all())
+    rec = sum(cfg.pattern_at(i) == "rec" for i in range(cfg.n_layers)) \
+        if cfg.family == "hybrid" else (
+            cfg.n_layers if cfg.family == "ssm" else 0)
+    att = cfg.n_layers - rec
+    assert tc1.LAUNCHES == {"trim_conv1d": 0, "trim_conv1d_bf16": 2 * rec}
+    assert tc1.BWD_LAUNCHES == _bwd_counts(tc1, trim_conv1d_dx_bf16=rec,
+                                           trim_conv1d_wgrad_bf16=rec)
+    assert fa.LAUNCHES == {"flash_attention": 0,
+                           "flash_attention_bf16": 2 * att}
+    assert fa.BWD_LAUNCHES == _bwd_counts(fa, **dict.fromkeys(
+        ("flash_attention_bwd_dkdv_bf16", "flash_attention_bwd_dq_bf16",
+         "flash_attention_bwd_sum_bf16"), att))
+    assert abs(losses[str(cuda)] - losses["cpu"]) <= 1e-2 * abs(
+        losses["cpu"])
 
 
 def test_conv1d_wrapper_raises_on_cuda(cuda):
@@ -1684,6 +1853,10 @@ FLASH_BF16_TOL = 1e-2
 # f32 inside leaves ~1e-6, one bf16 P ~7e-4 (chip_smoke's
 # FLASH_BF16_F64_EXCESS; tests/test_torch_bf16_wgrad_flash.py)
 FLASH_BF16_F64_EXCESS = 2.0 ** -14
+# the bf16 backward's dq, dk, dv likewise, of max|grad|: the P and dS
+# splits leave ~1e-6, one bf16 P or dS ~1e-3 (chip_smoke's
+# FLASH_BWD_BF16_F64_EXCESS; tests/test_torch_bf16_wgrad_flash.py)
+FLASH_BWD_BF16_F64_EXCESS = 2.0 ** -14
 
 
 @pytest.mark.parametrize("case", FLASH_BF16_CASES,
@@ -1974,6 +2147,25 @@ def test_bf16_mma_instances_issue_hmma(cuda):
     assert len(bf) == len(f32) == 1
     assert "HMMA.16816.F32.BF16" in fused[bf[0]]
     assert "HMMA" not in fused[f32[0]]
+
+
+def test_flash_bwd_bf16_instances_issue_hmma(cuda):
+    """The flash backward's bf16 dQ (three Dp) and dK/dV (three Dp, f32
+    partials and bf16 outputs) instances issue ``HMMA.16816.F32.BF16``
+    and no TF32 HMMA; its f32 instances TF32 HMMA and no bf16 HMMA; the
+    partials' sums no HMMA."""
+    bwd = _sass_functions("flash_attention_bwd")
+    bf = [f for f in bwd if "_kernelI13__nv_bfloat16" in f
+          and "sum_kernel" not in f]
+    f32 = [f for f in bwd if "_kernelIf" in f and "sum_kernel" not in f]
+    assert len(bf) == 9 and len(f32) == 6
+    for f in bf:
+        assert "HMMA.16816.F32.BF16" in bwd[f] and "TF32" not in bwd[f], f
+    for f in f32:
+        assert "TF32" in bwd[f] and "F32.BF16" not in bwd[f], f
+    for f in bwd:
+        if "sum_kernel" in f:
+            assert "HMMA" not in bwd[f], f
 
 
 def test_bf16_wgrad_and_flash_instances_issue_hmma(cuda):

@@ -39,9 +39,8 @@ Tolerances:
 
 Also: the port's ``init_params`` gives every leaf JAX's dtype (the
 ``Param.dtype`` pins) in all three families' params and decode states,
-and an f32 init is the one the port drew before the pins; bf16 under
-autograd and ``make_train_step`` on bf16 raise ``NotImplementedError``
-naming ROADMAP Queue 1 item 7b.
+and an f32 init is the one the port drew before the pins.  bf16
+training is held against JAX in ``tests/test_torch_bf16_lm_train.py``.
 """
 
 import dataclasses
@@ -70,7 +69,6 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import trim_conv1d as tc1
 from repro_torch.models import api, layers, mamba, rglru
 from repro_torch.models.base import Param, init_params
-from repro_torch.optim import AdamWConfig
 
 TOL = 3e-2
 FLASH_TOL = 1e-2
@@ -386,39 +384,6 @@ def test_f32_init_is_unchanged_by_the_pins(arch):
     for path, t in f32.items():
         assert torch.equal(t, old[path]), path
         assert torch.equal(bf16[path], t.to(bf16[path].dtype)), path
-
-
-# ---------------------------------------------------------------------------
-# What bf16 does not do yet: train (ROADMAP Queue 1 item 7b)
-# ---------------------------------------------------------------------------
-
-def test_bf16_under_autograd_raises_naming_7b():
-    x = torch.randn((1, 9, 16)).bfloat16().requires_grad_()
-    w = torch.randn((4, 16)).bfloat16()
-    for fn in (tc1.trim_conv1d, ops.depthwise_conv1d):
-        with pytest.raises(NotImplementedError, match="item 7b"):
-            fn(x, w)
-    q = torch.randn((1, 9, 4, 16)).bfloat16().requires_grad_()
-    kv = torch.randn((1, 9, 2, 16)).bfloat16()
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        ops.attention(q, kv, kv, impl="flash")
-    with torch.no_grad():          # inference in bf16 runs
-        assert tc1.trim_conv1d(x, w).dtype == torch.bfloat16
-        assert fa.flash_attention(q, kv, kv).dtype == torch.bfloat16
-
-
-def test_make_train_step_refuses_bf16_naming_7b():
-    cfg = registry.get("qwen2.5-3b").SMOKE
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        steps.make_train_step(cfg.replace(dtype="bfloat16"), AdamWConfig())
-    train_step = steps.make_train_step(cfg, AdamWConfig())
-    params = init_params(api.params(cfg), torch.Generator().manual_seed(0),
-                         dtype=torch.bfloat16)
-    state = {"params": params, "opt": None,
-             "step": torch.zeros((), dtype=torch.int32)}
-    toks = torch.randint(0, cfg.vocab, (2, 8))
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        train_step(state, {"tokens": toks, "labels": toks})
 
 
 def test_config_takes_float32_and_bfloat16_only():
