@@ -218,10 +218,11 @@ Phases, each raising on failure (each prints its seconds):
    divide L, L < K-1, D = 5 and 24, K = 2 and 3, B = 3, L = 1) and K = 9
    (at the prefill's shape) and 16 (the runtime-K instance), and at
    recurrentgemma-2b's prefill shape (B 2, L 4096, D 2560, K 4); at the
-   prefills' shapes its time beside the plain version's, ``F.conv1d``'s
-   on input laid out (B, D, L) (TF32 off) and the plan's bound, and the
-   bytes the function must move beside those the kernel's schedule moves
-   (the runs' re-read halos priced, ``Conv1dPlan.hbm_bytes``);
+   prefills' shapes its device ms from CUDA graphs over input copies that
+   outgrow the L2 (``rotating_ms``) beside the plain version's,
+   ``F.conv1d``'s on input laid out (B, D, L) (TF32 off, timed the same
+   way), the plan's bound and the share of it, the wrapper's host us a
+   call and the plan's runs, channel warps and halo share;
 22. mamba prefill — full-width falcon-mamba-7b (64 layers, 7.27 B
    parameters drawn on the card, after qwen2.5-3b's are freed) through
    ``steps.make_prefill_step`` on 2 x 2048 seeded tokens: exactly 64
@@ -296,7 +297,9 @@ Phases, each raising on failure (each prints its seconds):
    strided view (2, 1024, 8192, 4), K 9, an L no run length divides and
    L < K; at the two training shapes each one's time beside the forward
    kernel's, the plain version's, ``torch.nn.grad.conv1d_input`` /
-   ``conv1d_weight``'s (TF32 off) and the bound;
+   ``conv1d_weight``'s (TF32 off) and the bound (the forward, dx and
+   ``conv1d_input`` from CUDA graphs over input copies past the L2, dx
+   with its share of the bound, host us a call and plan geometry);
 31. recurrentgemma train — full-width recurrentgemma-2b (26 layers, 2.89 B
    parameters, f32, remat, flash) through ``launch.train.main``: 3 AdamW
    steps at 1 x 4096 tokens of the copy task (the window binds), each
@@ -387,8 +390,9 @@ Phases, each raising on failure (each prints its seconds):
    version's, the byte bound,
    ``torch.nn.grad.conv1d_weight`` on the same dtype (TF32 off), the
    bytes moved and the rate; in bf16 also dx (``trim_conv1d_bf16`` on
-   the reversed cotangent) bitwise plain, its time, bound and
-   ``conv1d_input``'s;
+   the reversed cotangent) bitwise plain, its time (CUDA graphs over
+   input copies past the L2), bound, ``conv1d_input``'s, host us a call
+   and plan geometry;
 36. bf16 flash backward check — ``flash_attention_bwd_{dq,dkdv,sum}_bf16``
    at the cases of ``flash_bwd_cases`` ((t), (c), GQA 7, Lq < Lk): dq,
    dk, dv bf16, each no farther from the float64 plain backward than the
@@ -887,6 +891,66 @@ def rotating(make, nbytes: int) -> list:
     :func:`time_graph_ms`: a launch then finds nothing of its inputs
     left in L2 by the one before.  ``nbytes``: one copy's bytes."""
     return [make() for _ in range(max(1, -(-ROTATE_BYTES // nbytes)))]
+
+
+def rotating_ms(torch, call, inputs, out_bytes: int = 0,
+                reps: int = 20) -> float:
+    """Device ms of ``call(*inputs)`` from CUDA graphs
+    (:func:`time_graph_ms`) over copies of ``inputs`` that outgrow the L2
+    (:func:`rotating`), each copy with its original's strides (a strided
+    view stays a strided view); ``out_bytes``: what a call writes,
+    counted with the inputs toward the bytes held."""
+    def copy():
+        c = [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                 device=t.device).copy_(t) for t in inputs]
+        return lambda: call(*c)
+    held = out_bytes + sum(
+        t.element_size() * (1 + sum((n - 1) * st for n, st in
+                                    zip(t.shape, t.stride())))
+        for t in inputs)
+    return time_graph_ms(torch, rotating(copy, held), reps=reps)
+
+
+def conv1d_timed(torch, plan, kernel, library, inputs, lib_inputs) -> dict:
+    """A conv1d launch's timings at one row: the kernel's (``kernel(*
+    inputs)``) and the library call's (``library(*lib_inputs)``) device
+    ms from CUDA graphs over input copies past the L2
+    (:func:`rotating_ms`), the wrapper's host us a call
+    (:func:`host_us`), the share of the byte bound and the plan's
+    geometry."""
+    out = plan.b * plan.length * plan.d * plan.dtype_bytes
+    ms = rotating_ms(torch, kernel, inputs, out)
+    return dict(kernel=ms, library=rotating_ms(torch, library, lib_inputs,
+                                               out),
+                host_us=host_us(torch, lambda: kernel(*inputs)),
+                of_bound=plan.bound()[0] / ms, runs=plan.runs,
+                tile_l=plan.tile_l, d_warps=plan.d_warps, vec=plan.vec,
+                halo_share=plan.halo_share,
+                geometry=f"vec {plan.vec}, runs of {plan.tile_l} x "
+                         f"{plan.runs}, {plan.d_warps} channel warps, "
+                         f"{plan.blocks} warps, halo {plan.halo_share:.1%}")
+
+
+def conv1d_kernel_times(rows) -> dict:
+    """The kernel line's times of a conv1d route from its check's rows:
+    row (a), the falcon-mamba-7b mixer's strided view, as the kernel's
+    own, row (b), recurrentgemma-2b's prefill, under ``rgemma_``, the
+    contiguous mamba input under ``contiguous_`` (device ms from CUDA
+    graphs over input copies past the L2)."""
+    by = {r["name"]: r for r in rows}
+    out = {}
+    for prefix, name in (("", "b_mixer_view"), ("rgemma_", "k_rgemma"),
+                         ("contiguous_", "a_prefill")):
+        r = by[name]
+        out.update({f"{prefix}ms": r["kernel"],
+                    f"{prefix}plain_ms": r["plain"],
+                    f"{prefix}bound_ms": r["bound"],
+                    f"{prefix}bound_by": r["by"],
+                    f"{prefix}library_ms": r["library"],
+                    f"{prefix}host_us": r["host_us"],
+                    f"{prefix}tile_l": r["tile_l"],
+                    f"{prefix}vec": r["vec"]})
+    return out
 
 
 def q8_build_check() -> dict:
@@ -3350,18 +3414,23 @@ def conv1d_cases():
 
 def check_conv1d(torch):
     """The conv1d kernel against its plain version and the oracle, bit
-    for bit, at every case; times at the prefill's shape."""
+    for bit, at every case; at the prefills' rows (the mixer's view, row
+    (a); recurrentgemma-2b's, row (b); also the contiguous mamba input and
+    K 9) device ms from CUDA graphs over input copies past the L2 beside
+    the plain version's (events), ``F.conv1d``'s (TF32 off) and the
+    bound, the wrapper's host us a call and the plan's geometry."""
     import torch.nn.functional as F
-    from repro_torch.core.conv_plan import Conv1dPlan
     from repro_torch.kernels import ref
     from repro_torch.kernels import trim_conv1d as tc1
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = []
-    print("conv1d kernel check (bitwise; times in ms, device events):")
-    print(f"  {'case':14s} {'shape':>22s} {'T_l':>4s} {'grid':>14s} "
+    print("conv1d kernel check (bitwise; ms: kernel and F.conv1d from CUDA "
+          "graphs over input copies past the L2, plain device events; "
+          "host: the wrapper's us a call):")
+    print(f"  {'case':14s} {'shape':>22s} {'T_l':>4s} {'grid':>12s} "
           f"{'max_err':>8s} {'kernel':>8s} {'plain':>8s} {'F.conv1d':>8s} "
-          f"{'bound':>8s} by     GB/s  MB least  MB sched")
+          f"{'bound':>8s} {'of bnd':>6s} {'host':>5s}  geometry")
     for name, b, length, d, k, tile_l, strided in conv1d_cases():
         xz = torch.randn((b, length, 2 * d if strided else d),
                          generator=gen, device="cuda")
@@ -3376,29 +3445,28 @@ def check_conv1d(torch):
             raise AssertionError(f"conv1d {name}: the kernel differs from "
                                  f"its plain version (max|diff| {err}) or "
                                  "the oracle")
-        plan = Conv1dPlan.build((b, length, d), (k, d), tile_l=tile_l)
+        plan = tc1.plan_for(x, w, tile_l)
         bound, by = plan.bound()
         row = dict(name=name, err=err, bound=bound, by=by, kernel=None,
                    plain=None, library=None)
         line = (f"  {name:14s} {str((b, length, d, k)):>22s} "
-                f"{plan.tile_l:4d} {str(plan.grid):>14s} {err:8.1e}")
+                f"{plan.tile_l:4d} {str(plan.grid):>12s} {err:8.1e}")
         if length * d >= 4096 * 2560:       # the prefills' shapes: timed
             xt = x.transpose(1, 2).contiguous()     # (B, D, L) for cuDNN
             wt = w.t()[:, None, :].contiguous()     # (D, 1, K)
             lib = F.conv1d(xt, wt, padding=k - 1, groups=d)[..., :length]
             lib_err = (lib.transpose(1, 2) - plain).abs().max().item()
-            row.update(
-                kernel=time_ms(torch, lambda: tc1.trim_conv1d(x, w)),
+            row.update(conv1d_timed(
+                torch, plan, lambda a, b: tc1.trim_conv1d(a, b),
+                lambda a, b: F.conv1d(a, b, padding=k - 1,
+                                      groups=d)[..., :length],
+                [x, w], [xt, wt]),
                 plain=time_ms(torch, lambda: tc1.trim_conv1d_plain(x, w)),
-                library=time_ms(torch, lambda: F.conv1d(
-                    xt, wt, padding=k - 1, groups=d)[..., :length]),
                 lib_err=lib_err)
             line += (f" {row['kernel']:8.4f} {row['plain']:8.4f} "
-                     f"{row['library']:8.4f} {bound:8.4f} {by:6s} "
-                     f"{plan.min_bytes() / row['kernel'] / 1e6:6.0f}"
-                     f"  {plan.min_bytes() / 1e6:8.2f}"
-                     f"  {plan.hbm_bytes()['total'] / 1e6:8.2f}"
-                     f"  (F.conv1d vs plain {lib_err:.1e})")
+                     f"{row['library']:8.4f} {bound:8.4f} "
+                     f"{row['of_bound']:6.1%} {row['host_us']:5.1f}  "
+                     f"{row['geometry']} (F.conv1d vs plain {lib_err:.1e})")
             del xt, wt, lib
         rows.append(row)
         print(line)
@@ -4387,16 +4455,19 @@ def check_conv1d_backward(torch):
     float64 autograd of ``ref.depthwise_conv1d`` (``CONV1D_BWD_TOLERANCE``);
     at the training shapes each one's time beside the forward kernel's,
     the plain version's, ``torch.nn.grad.conv1d_input`` /
-    ``conv1d_weight``'s (TF32 off) and the bound."""
+    ``conv1d_weight``'s (TF32 off) and the bound: the forward, dx and
+    conv1d_input from CUDA graphs over input copies past the L2 (dx with
+    its host us a call and its plan's geometry), dw and conv1d_weight
+    from device events (``check_conv1d_wgrad`` times dw from graphs)."""
     import torch.nn.functional as F
-    from repro_torch.core.conv_plan import Conv1dPlan
     from repro_torch.kernels import ref
     from repro_torch.kernels import trim_conv1d as tc1
 
     gen = torch.Generator(device="cuda").manual_seed(27)
     rows = []
     print("conv1d backward check (bitwise vs plain; of max|grad| vs "
-          "float64 autograd; times in ms, device events):")
+          "float64 autograd; times in ms: fwd, dx and dx lib from CUDA "
+          "graphs over input copies past the L2, the rest device events):")
     print(f"  {'case':11s} {'shape':>22s} {'dx f64':>8s} {'dw f64':>8s} "
           f"{'fwd':>8s} {'dx':>8s} {'dx pl':>8s} {'dx lib':>8s} "
           f"{'dx bnd':>8s} {'dw':>8s} {'dw pl':>8s} {'dw lib':>8s} "
@@ -4432,7 +4503,7 @@ def check_conv1d_backward(torch):
             raise AssertionError(f"conv1d backward {name}: dx / dw vs "
                                  f"float64 autograd {errs} > "
                                  f"{CONV1D_BWD_TOLERANCE}")
-        plan = Conv1dPlan.build((b, length, d), (k, d), tile_l=tile_l)
+        plan = tc1.plan_for(dy, w, tile_l)
         wplan = tc1._wgrad_plan(x, dy, k, tile_l)
         row = dict(name=name, shape=(b, length, d, k), dx_err=errs[0],
                    dw_err=errs[1], tile_l=wplan.tile_l,
@@ -4451,13 +4522,19 @@ def check_conv1d_backward(torch):
                                                  padding=k - 1, groups=d)
             lib_err = max((lib_dx.transpose(1, 2) - pdx).abs().max().item(),
                           (lib_dw[:, 0].t() - pdw).abs().max().item())
+            dxt = conv1d_timed(
+                torch, plan, lambda g, v: tc1.trim_conv1d_input_grad(g, v),
+                lambda g, v: torch.nn.grad.conv1d_input(
+                    xt.shape, v, g, padding=k - 1, groups=d), [dy, w],
+                [gt, wt])
             row.update(
-                fwd=time_ms(torch, lambda: tc1.trim_conv1d(x, w)),
-                dx=time_ms(torch, lambda: tc1.trim_conv1d_input_grad(dy, w)),
+                fwd=rotating_ms(torch, lambda a, v: tc1.trim_conv1d(a, v),
+                                [x, w], dy.numel() * dy.element_size()),
+                dx=dxt["kernel"], dx_library=dxt["library"],
+                dx_host_us=dxt["host_us"], dx_of_bound=dxt["of_bound"],
+                dx_geometry=dxt["geometry"],
                 dx_plain=time_ms(torch, lambda:
                                  tc1.trim_conv1d_input_grad_plain(dy, w)),
-                dx_library=time_ms(torch, lambda: torch.nn.grad.conv1d_input(
-                    xt.shape, wt, gt, padding=k - 1, groups=d)),
                 dw=time_ms(torch, lambda: tc1.trim_conv1d_weight_grad(
                     x, dy, k)),
                 dw_plain=time_ms(torch, lambda: tc1.trim_conv1d_wgrad_plain(
@@ -4472,7 +4549,9 @@ def check_conv1d_backward(torch):
                      f"{wplan.bound()[0]:8.4f} {wplan.tile_l:3d} "
                      f"{wplan.groups:4d}  (library vs plain {lib_err:.1e}; "
                      f"dw moves {row['dw_hbm'] / 1e6:.1f} MB, least "
-                     f"{wplan.min_bytes() / 1e6:.1f})")
+                     f"{wplan.min_bytes() / 1e6:.1f}; dx "
+                     f"{row['dx_of_bound']:.1%} of its bound, host "
+                     f"{row['dx_host_us']:.1f} us, {row['dx_geometry']})")
             del xt, wt, gt, lib_dx, lib_dw
         rows.append(row)
         print(line)
@@ -5575,21 +5654,22 @@ def bf16_phase(torch) -> dict:
 def check_bf16_conv1d(torch) -> list:
     """The conv1d kernel's bf16 route (``trim_conv1d_bf16``) against its
     plain version, bit for bit, at every case of :func:`conv1d_cases`;
-    at the prefills' shapes its device ms from CUDA graphs beside the
-    plain version's (eager), ``F.conv1d`` on bf16 (the yardstick, CUDA
-    graphs) and the bound (2 bytes an element at 3.35 TB/s)."""
+    at the prefills' rows its device ms from CUDA graphs over input
+    copies past the L2 beside the plain version's (eager), ``F.conv1d``
+    on bf16 (timed the same way), the bound (2 bytes an element at 3.35
+    TB/s), the wrapper's host us a call and the plan's geometry."""
     import torch.nn.functional as F
-    from repro_torch.core.conv_plan import Conv1dPlan
     from repro_torch.kernels import trim_conv1d as tc1
 
     gen = torch.Generator(device="cuda").manual_seed(30)
     bf = torch.bfloat16
     rows = []
     print("bf16 conv1d kernel check (bitwise vs plain; kernel and F.conv1d "
-          "ms from CUDA graphs, plain eager):")
+          "ms from CUDA graphs over input copies past the L2, plain "
+          "eager):")
     print(f"  {'case':14s} {'shape':>22s} {'vec':>3s} {'T_l':>4s} "
-          f"{'grid':>14s} {'kernel':>8s} {'plain':>8s} {'F.conv1d':>8s} "
-          f"{'bound':>8s} by     GB/s")
+          f"{'grid':>12s} {'kernel':>8s} {'plain':>8s} {'F.conv1d':>8s} "
+          f"{'bound':>8s} {'of bnd':>6s} {'host':>5s}  geometry")
     for name, b, length, d, k, tile_l, strided in conv1d_cases():
         xz = torch.randn((b, length, 2 * d if strided else d),
                          generator=gen, device="cuda").to(bf)
@@ -5603,26 +5683,26 @@ def check_bf16_conv1d(torch) -> list:
                 f"bf16 conv1d {name}: the kernel differs from its plain "
                 f"version (max|diff| "
                 f"{(out.float() - plain.float()).abs().max().item()})")
-        vec = tc1.bf16_vec(x, w)
-        plan = Conv1dPlan.build((b, length, d), (k, d), tile_l=tile_l,
-                                dtype_bytes=2, vec=vec)
+        plan = tc1.plan_for(x, w, tile_l)
         bound, by = plan.bound()
         row = dict(name=name, err=0.0, bound=bound, by=by, kernel=None,
                    plain=None, library=None)
-        line = (f"  {name:14s} {str((b, length, d, k)):>22s} {vec:3d} "
-                f"{plan.tile_l:4d} {str(plan.grid):>14s}")
+        line = (f"  {name:14s} {str((b, length, d, k)):>22s} {plan.vec:3d} "
+                f"{plan.tile_l:4d} {str(plan.grid):>12s}")
         if length * d >= 4096 * 2560:       # the prefills' shapes: timed
             xt = x.transpose(1, 2).contiguous()     # (B, D, L) for cuDNN
             wt = w.t()[:, None, :].contiguous()     # (D, 1, K)
-            row.update(
-                kernel=time_graph_ms(torch, lambda: tc1.trim_conv1d(x, w)),
+            row.update(conv1d_timed(
+                torch, plan, lambda a, b: tc1.trim_conv1d(a, b),
+                lambda a, b: F.conv1d(a, b, padding=k - 1,
+                                      groups=d)[..., :length],
+                [x, w], [xt, wt]),
                 plain=time_ms(torch, lambda: tc1.trim_conv1d_plain(x, w),
-                              reps=3),
-                library=time_graph_ms(torch, lambda: F.conv1d(
-                    xt, wt, padding=k - 1, groups=d)[..., :length]))
+                              reps=3))
             line += (f" {row['kernel']:8.4f} {row['plain']:8.4f} "
-                     f"{row['library']:8.4f} {bound:8.4f} {by:6s} "
-                     f"{plan.min_bytes() / row['kernel'] / 1e6:6.0f}")
+                     f"{row['library']:8.4f} {bound:8.4f} "
+                     f"{row['of_bound']:6.1%} {row['host_us']:5.1f}  "
+                     f"{row['geometry']}")
             del xt, wt
         rows.append(row)
         print(line)
@@ -6191,6 +6271,15 @@ def train_bf16(torch, f32: dict) -> dict:
             "share": share}
 
 
+def conv1d_fwd_rows():
+    """(name, b, length, d, k, strided): the rows the conv1d forward
+    kernel is timed at, (a) falcon-mamba-7b's prefill (the mixer's strided
+    half of the in-projection) and (b) recurrentgemma-2b's prefill (the
+    rec mixer's contiguous (B, L, lru_width))."""
+    return [("a_mamba_prefill", 2, 2048, 8192, 4, True),
+            ("b_rgemma_prefill", 2, 4096, 2560, 4, False)]
+
+
 def conv1d_wgrad_rows():
     """(name, b, length, d, k, strided): the two training rows of the
     conv1d weight gradient, recurrentgemma-2b's (the rec mixer's (B, L,
@@ -6228,7 +6317,6 @@ def check_conv1d_wgrad(torch) -> list:
     cotangent) bitwise its plain version, its time, bound and
     ``torch.nn.grad.conv1d_input``'s."""
     import torch.nn.functional as F
-    from repro_torch.core.conv_plan import Conv1dPlan
     from repro_torch.kernels import trim_conv1d as tc1
 
     gen = torch.Generator(device="cuda").manual_seed(34)
@@ -6300,9 +6388,7 @@ def check_conv1d_wgrad(torch) -> list:
                     library=time_graph_ms(torch, rotating(library_copy, one),
                                           reps=20))
                 if dt == torch.bfloat16:
-                    dplan = Conv1dPlan.build(
-                        (b, length, d), (k, d), dtype_bytes=2,
-                        vec=tc1.bf16_vec(dy, w))
+                    dplan = tc1.plan_for(dy, w)
                     dx = tc1.trim_conv1d_input_grad(dy, w)
                     pdx = tc1.trim_conv1d_input_grad_plain(dy, w)
                     torch.cuda.synchronize()
@@ -6313,22 +6399,19 @@ def check_conv1d_wgrad(torch) -> list:
                             f"conv1d dx bf16 {name}: vs plain "
                             f"{(dx.float() - pdx.float()).abs().max().item()}"
                             f", launches {tc1.BWD_LAUNCHES}")
-                    def dx_copy():
-                        cy = dy.clone()
-                        return lambda: tc1.trim_conv1d_input_grad(cy, w)
-
-                    def dx_library_copy():
-                        cg = gt.clone()
-                        return lambda: torch.nn.grad.conv1d_input(
-                            xt.shape, wt, cg, padding=k - 1, groups=d)
+                    dxt = conv1d_timed(
+                        torch, dplan,
+                        lambda g, v: tc1.trim_conv1d_input_grad(g, v),
+                        lambda g, v: torch.nn.grad.conv1d_input(
+                            xt.shape, v, g, padding=k - 1, groups=d),
+                        [dy, w], [gt, wt])
                     row.update(
-                        dx=time_graph_ms(torch, rotating(dx_copy, one),
-                                         reps=20),
+                        dx=dxt["kernel"], dx_library=dxt["library"],
+                        dx_host_us=dxt["host_us"],
+                        dx_geometry=dxt["geometry"],
                         dx_plain=time_ms(torch, lambda: tc1.
                                          trim_conv1d_input_grad_plain(dy, w),
                                          reps=2),
-                        dx_library=time_graph_ms(
-                            torch, rotating(dx_library_copy, one), reps=20),
                         dx_bound=dplan.bound(), dx_vec=dplan.vec)
                     del dx, pdx
                 rows.append(row)
@@ -6343,7 +6426,10 @@ def check_conv1d_wgrad(torch) -> list:
                       + (f"  dx: {row['dx']:.4f} ms (plain "
                          f"{row['dx_plain']:.3f}, conv1d_input "
                          f"{row['dx_library']:.4f}, bound "
-                         f"{row['dx_bound'][0]:.4f}, vec {row['dx_vec']})"
+                         f"{row['dx_bound'][0]:.4f}, "
+                         f"{row['dx_bound'][0] / row['dx']:.1%} of it, host "
+                         f"{row['dx_host_us']:.1f} us, "
+                         f"{row['dx_geometry']})"
                          if "dx" in row else ""))
                 del xz, x, dy, w, dw, dw2, pdw, xt, wt, gt
     finally:
@@ -7291,8 +7377,6 @@ def run(torch, args, cache_dir: str) -> int:
         "rgemma_ms": bc["sum"],
         "rgemma_bound_ms": bc["bounds"]["sum"][0],
     })
-    c = next(r for r in crows if r["name"] == "a_prefill")
-    ck = next(r for r in crows if r["name"] == "k_rgemma")
     kernels.append({
         "name": "trim_conv1d",
         "route": "cuda",
@@ -7302,17 +7386,7 @@ def run(torch, args, cache_dir: str) -> int:
                      + rgt["launches"]["trim_conv1d"]
                      + mbt["launches"]["trim_conv1d"]),
         "max_abs_err": max(r["err"] for r in crows),
-        "ms": c["kernel"],
-        "plain_ms": c["plain"],
-        "bound_ms": c["bound"],
-        "bound_by": c["by"],
-        "library_ms": c["library"],
-        # recurrentgemma-2b's prefill shape (2, 4096, 2560, K 4)
-        "rgemma_ms": ck["kernel"],
-        "rgemma_plain_ms": ck["plain"],
-        "rgemma_bound_ms": ck["bound"],
-        "rgemma_bound_by": ck["by"],
-        "rgemma_library_ms": ck["library"],
+        **conv1d_kernel_times(crows),
     })
     cb = next(r for r in c1b if r["name"] == "rg_train")
     cm = next(r for r in c1b if r["name"] == "mamba_view")
@@ -7368,7 +7442,8 @@ def run(torch, args, cache_dir: str) -> int:
           f"the two training phases' steps")
     print(f"mamba: prefill {mb['ms']:.1f} ms a forward (2 x {MAMBA_SEQ}), "
           f"serve {mserved['tok_s']:.1f} tok/s; trim_conv1d times are one "
-          f"launch at case a_prefill, the prefill's shape (one layer); its "
+          f"launch at case b_mixer_view, the prefill's strided view (one "
+          f"layer; contiguous_*: a_prefill, rgemma_*: k_rgemma); its "
           f"launches are the {mb['launches']} of the two timed full-width "
           f"prefill forwards")
     print(f"recurrentgemma: prefill {rg['ms']:.1f} ms a forward (2 x "
@@ -7481,8 +7556,6 @@ def run(torch, args, cache_dir: str) -> int:
           f"{train_launches}), one VGG-16/{FUSED_SCALE} fused step "
           f"({train_fused_launches}) and VGG-16 served on measured "
           f"records ({tuned['launches']})")
-    c = next(r for r in lmb["conv1d"] if r["name"] == "a_prefill")
-    ck = next(r for r in lmb["conv1d"] if r["name"] == "k_rgemma")
     kernels.append({
         "name": "trim_conv1d_bf16",
         "route": "cuda",
@@ -7490,16 +7563,7 @@ def run(torch, args, cache_dir: str) -> int:
         "replaces": "src/repro/kernels/trim_conv1d.py:29",
         "launches": lmb["launches"]["trim_conv1d_bf16"],
         "max_abs_err": max(r["err"] for r in lmb["conv1d"]),  # bitwise
-        # the mamba prefill's shape, CUDA graphs
-        "ms": c["kernel"],
-        "plain_ms": c["plain"],
-        "bound_ms": c["bound"],
-        "bound_by": c["by"],
-        "library_ms": c["library"],       # F.conv1d on bf16
-        "rgemma_ms": ck["kernel"],
-        "rgemma_plain_ms": ck["plain"],
-        "rgemma_bound_ms": ck["bound"],
-        "rgemma_library_ms": ck["library"],
+        **conv1d_kernel_times(lmb["conv1d"]),   # library: F.conv1d on bf16
     })
     fr = {r["name"]: r for r in lmb["flash"]}
     a, ac, af = fr["a_prefill"], fr["c_rgemma"], fr["f_d320"]
@@ -7632,8 +7696,9 @@ def run(torch, args, cache_dir: str) -> int:
               for arch, f in (("qwen2.5-3b", lm["ms"]),
                               ("recurrentgemma-2b", rg["ms"]),
                               ("falcon-mamba-7b", mb["ms"])))
-          + "; trim_conv1d_bf16 times are one launch at case a_prefill "
-          "(rgemma_*: k_rgemma), flash_attention_bf16 at case (a) "
+          + "; trim_conv1d_bf16 times are one launch at case b_mixer_view "
+          "(contiguous_*: a_prefill, rgemma_*: k_rgemma), "
+          "flash_attention_bf16 at case (a) "
           "(rgemma_*: (c), d320_*: (f)); their launches are the bf16 "
           "prefills' (2 forwards a model)")
     print(f"train_bf16: {tb['ms']:.1f} ms a full-width VGG-16 step in bf16 "

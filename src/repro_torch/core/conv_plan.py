@@ -1348,16 +1348,24 @@ _WGRAD_PLANS = {4: WeightGradPlan, 2: BF16WeightGradPlan}
 # 1-D plan (causal depthwise conv: the Mamba / RG-LRU temporal mixing)
 # ---------------------------------------------------------------------------
 
-THREADS_PER_SM = 2048
 PEAK_F32_FLOPS = 67e12        # H100 SXM: f32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12      # H100 SXM: bf16 on the tensor cores, dense
 PEAK_BYTES_PER_S = 3.35e12    # H100 SXM: HBM3
-CONV1D_TILE_D = 256           # threads (one to `vec` channels each) per
-                              # block; __launch_bounds__ (kMaxThreads)
-CONV1D_BF16_VEC = 8           # channels a thread of the bf16 route where
-                              # rows are 16-byte aligned (kVec: one uint4)
+# The conv1d forward kernel (trim_conv1d.cu; also the input gradient)
+CONV1D_LANES = 32             # threads a block: one warp (kLanes)
+CONV1D_VEC = {4: 4, 2: 8}     # channels a lane where rows are 16-byte
+                              # aligned, by element size (kVecF32, kVecBf16)
+CONV1D_AHEAD = 8              # rows of a load batch (kAhead); the next
+                              # batch is in flight while one sums
+CONV1D_RESIDENT_WARPS = 12    # blocks (warps) an SM the kernel's launch
+                              # bounds keep resident (kMinBlocks)
 CONV1D_TILE_LS = (256, 128, 64, 32, 16, 8)   # run lengths, longest first
-CONV1D_MIN_WAVES = 3          # full waves of resident blocks to aim for
+CONV1D_HALO_SHARE = 0.2       # a run re-reads at most this share of its
+                              # rows as halo (K-1 rows a run)
+CONV1D_HBM_LATENCY_S = 1e-6   # HBM latency under load, for Little's law
+# Bytes to keep in flight on each SM to stream at the HBM rate (Little's
+# law: rate x latency over the SMs): 25,379
+CONV1D_INFLIGHT_BYTES = PEAK_BYTES_PER_S * CONV1D_HBM_LATENCY_S / SMS
 CONV1D_UNROLLED_K = 8         # K = 2..8 keep the window in registers (a
                               # template instance each); larger K runs the
                               # kernel's runtime-K instance
@@ -1380,7 +1388,8 @@ CONV1D_WGRAD_MAX_SMEM = 232448   # H100: 227 KB opt-in a block
 @dataclass(frozen=True)
 class Conv1dPlan:
     """Launch geometry of the causal depthwise conv1d kernel
-    (``kernels/csrc/trim_conv1d.cu``); the Hopper counterpart of
+    (``kernels/csrc/trim_conv1d.cu``; also its input gradient, launched
+    on the reversed cotangent); the Hopper counterpart of
     ``repro/core/conv_plan.py:759``.
 
         y[b, t, d] = sum_{i < K} x[b, t-K+1+i, d] * w[i, d]
@@ -1388,27 +1397,41 @@ class Conv1dPlan:
     The TPU plan sweeps chunks of 512 steps in order on one core, carrying
     the ``K-1`` boundary rows in VMEM, with 1024-lane channel tiles.  On
     the card blocks run in parallel and in no order, so nothing carries
-    between them.  Here a thread owns one channel of one *run* of
-    ``tile_l`` timesteps and keeps the ``K-1`` previous inputs of its
-    channel in registers (the shadow registers) while it walks the run;
-    for K > :data:`CONV1D_UNROLLED_K` the kernel re-reads them through
-    L1 instead (K must be known at compile time for a register window);
-    a block is ``tile_d`` consecutive channels (D is contiguous, so a
-    warp's row loads coalesce); the grid is ``(B, D / tile_d,
-    L / tile_l)``.  A run's first ``K-1`` inputs are re-read from device
-    memory (zeros before t = 0): that halo is what the plan's
-    :meth:`hbm_bytes` prices beyond the least traffic, the JAX plan's
-    ``"trim"`` mode; a carry between runs (its ``"3dtrim"``) would save
-    exactly those bytes at the price of ordered runs.  ``tile_l`` is the
-    longest run that still gives :data:`CONV1D_MIN_WAVES` full waves of
-    resident blocks over the 132 SMs, since a short run costs only its
-    halo (3 rows in 32 at K = 4) while too few blocks leave SMs idle.
+    between them.  Here a block is one warp, and the warp owns one *run*
+    of ``tile_l`` timesteps of one sequence over one *channel warp* of
+    ``tile_d`` = 32 ``vec`` consecutive channels: a lane owns ``vec``
+    channels, one 16-byte vector a row where rows are 16-byte aligned
+    (:data:`CONV1D_VEC`: 4 f32 or 8 bf16 channels), else one.  The
+    channel warps tile D from its start, so the only lanes that idle are
+    those of a row's last channel warp past D, and only when D is not a
+    multiple of ``tile_d`` (at D = 2560: 20 f32 or 10 bf16 warps, none
+    idle).  The grid is ``(runs x channel warps, B)``, one block a warp.
+
+    A lane keeps the ``K-1`` previous inputs of its channels in registers
+    (the shadow registers) while it walks its run, and keeps two batches
+    of :data:`CONV1D_AHEAD` rows in flight; for K >
+    :data:`CONV1D_UNROLLED_K` the kernel re-reads them through L1
+    instead.  A run's first ``K-1`` inputs are re-read (zeros before t =
+    0): that halo is what :meth:`hbm_bytes` prices beyond the least
+    traffic, as device-memory bytes (an upper bound: most come from the
+    L2), the JAX plan's ``"trim"`` mode.
+
+    ``tile_l`` comes from bytes.  It is the shortest run of
+    :data:`CONV1D_TILE_LS` whose ``K-1`` re-read halo rows stay within
+    :data:`CONV1D_HALO_SHARE` of it (16 steps at K = 4): a warp then has
+    its whole run in flight in its first two load batches, and the grid
+    keeps the most warps streaming, several times the
+    :data:`CONV1D_INFLIGHT_BYTES` on each SM that cover the latency of
+    device memory (Little's law at 3.35 TB/s and
+    :data:`CONV1D_HBM_LATENCY_S`; :attr:`inflight_bytes`), with a short
+    last wave.  A longer run saves only halo rows that the previous run's
+    warp, scheduled beside it in the run-major grid, has just brought
+    into the L2; measured on the H100 (``tools/conv1d_fwd_ablation.py``),
+    runs of 32-256 steps read up to 1.4x (f32) and 2x (bf16) slower at
+    the main-path rows.
 
     ``dtype_bytes`` 2 is the bf16 route (``trim_conv1d_bf16``: bf16 in
-    and out, the same f32 sums); there a thread may own ``vec`` =
-    :data:`CONV1D_BF16_VEC` consecutive channels, read and written 16
-    bytes at a time, so ``tile_d`` (channels a block) is ``vec`` times the
-    threads.  The byte counts follow the element size.
+    and out, the same f32 sums); the byte counts follow the element size.
     """
 
     b: int
@@ -1416,18 +1439,18 @@ class Conv1dPlan:
     d: int
     k: int
     tile_l: int
-    tile_d: int
     dtype_bytes: int = 4
     vec: int = 1
 
     @classmethod
     def build(cls, x_shape, w_shape, *, tile_l: int | None = None,
               dtype_bytes: int = 4, vec: int = 1) -> "Conv1dPlan":
-        """Plan from ``x (B, L, D)`` and ``w (K, D)``, choosing ``tile_l``
-        if it is left as ``None``; ``tile_d`` is :data:`CONV1D_TILE_D`
-        threads of ``vec`` channels, or D rounded up to a warp's channels
-        when D is narrower.  Raises ``ValueError`` for what the kernel
-        cannot take, so every plan it returns is one the kernel runs."""
+        """Plan from ``x (B, L, D)``, ``w (K, D)``, the element size (4:
+        f32, 2: bf16) and the channels a lane (1, or
+        ``CONV1D_VEC[dtype_bytes]`` with D a multiple of it), choosing
+        ``tile_l`` if it is left as ``None``.  Raises ``ValueError`` for
+        what the kernel cannot take, so every plan it returns is one the
+        kernel runs."""
         if len(x_shape) != 3 or len(w_shape) != 2:
             raise ValueError(f"x must be (B, L, D) and w (K, D); got "
                              f"{tuple(x_shape)} and {tuple(w_shape)}")
@@ -1439,59 +1462,82 @@ class Conv1dPlan:
             raise ValueError(f"empty input {tuple(x_shape)}: B, L and D "
                              "must be >= 1")
         if b > 65535:
-            raise ValueError(f"B={b} > 65535, the grid's z limit")
+            raise ValueError(f"B={b} > 65535, the grid's y limit")
         if k < 2:
             raise ValueError(f"K={k}: the kernel takes K >= 2 "
                              "(ops.depthwise_conv1d routes K < 2 to the "
                              "oracle)")
-        if dtype_bytes not in (2, 4) or vec not in (1, CONV1D_BF16_VEC) \
-                or (vec > 1 and (dtype_bytes != 2 or d % vec)):
-            raise ValueError(f"dtype_bytes={dtype_bytes}, vec={vec}: the "
-                             "kernel takes f32 with vec 1, or bf16 with vec "
-                             f"1 or {CONV1D_BF16_VEC} (D a multiple of it)")
-        lanes = 32 * vec                 # channels a warp
-        tile_d = min(CONV1D_TILE_D * vec, -(-d // lanes) * lanes)
+        if dtype_bytes not in CONV1D_VEC or vec not in (
+                1, CONV1D_VEC[dtype_bytes]) or d % vec:
+            raise ValueError(
+                f"dtype_bytes={dtype_bytes}, vec={vec}: the kernel takes "
+                "f32 (4) with vec 1 or 4 and bf16 (2) with vec 1 or 8, D a "
+                "multiple of vec")
         if tile_l is None:
-            wave = SMS * (THREADS_PER_SM // (tile_d // vec))
-            blocks = b * -(-d // tile_d)
-            tile_l = next((t for t in CONV1D_TILE_LS
-                           if blocks * -(-length // t)
-                           >= CONV1D_MIN_WAVES * wave), CONV1D_TILE_LS[-1])
-            tile_l = min(tile_l, length)
+            fits = [t for t in CONV1D_TILE_LS
+                    if k - 1 <= CONV1D_HALO_SHARE * t] \
+                or [CONV1D_TILE_LS[0]]
+            tile_l = min(fits[-1], length)
         if tile_l < 1:
             raise ValueError(f"tile_l={tile_l} must be >= 1")
         return cls(b=b, length=length, d=d, k=k, tile_l=tile_l,
-                   tile_d=tile_d, dtype_bytes=dtype_bytes, vec=vec)
+                   dtype_bytes=dtype_bytes, vec=vec)
 
     @property
-    def d_tiles(self) -> int:
-        return -(-self.d // self.tile_d)
+    def tile_d(self) -> int:
+        """Channels a block (a channel warp): 32 lanes of ``vec``."""
+        return CONV1D_LANES * self.vec
 
     @property
     def threads(self) -> int:
-        """Threads a block: ``tile_d / vec``."""
-        return self.tile_d // self.vec
+        """Threads a block: one warp."""
+        return CONV1D_LANES
+
+    @property
+    def d_warps(self) -> int:
+        """Channel warps across D; only the last may hold idle lanes."""
+        return -(-self.d // self.tile_d)
 
     @property
     def runs(self) -> int:
         return -(-self.length // self.tile_l)
 
     @property
-    def grid(self) -> tuple[int, int, int]:
-        """(B, channel tiles, runs)."""
-        return (self.b, self.d_tiles, self.runs)
+    def grid(self) -> tuple[int, int]:
+        """(runs x channel warps, B): block x is run x // d_warps over
+        channel warp x % d_warps."""
+        return (self.runs * self.d_warps, self.b)
 
     @property
     def blocks(self) -> int:
-        return self.b * self.d_tiles * self.runs
+        """Blocks, each one warp."""
+        return self.b * self.runs * self.d_warps
+
+    @property
+    def warp_inflight_bytes(self) -> int:
+        """Bytes a warp keeps in flight: two batches of
+        :data:`CONV1D_AHEAD` rows of its 32 lanes' ``vec`` channels."""
+        return 2 * CONV1D_AHEAD * CONV1D_LANES * self.vec * self.dtype_bytes
+
+    @property
+    def inflight_bytes(self) -> float:
+        """Bytes in flight on an SM: the grid's warps an SM, at most the
+        :data:`CONV1D_RESIDENT_WARPS` the launch bounds keep resident,
+        times :attr:`warp_inflight_bytes`."""
+        return min(self.blocks / SMS, CONV1D_RESIDENT_WARPS) \
+            * self.warp_inflight_bytes
 
     @property
     def halo_rows(self) -> int:
         """Input rows re-read per (batch, channel): run r >= 1 re-reads
         the ``min(K-1, r * tile_l)`` rows before it."""
-        r0 = max(1, -(-(self.k - 1) // self.tile_l))
-        partial = sum(r * self.tile_l for r in range(1, min(r0, self.runs)))
-        return partial + (self.k - 1) * max(0, self.runs - r0)
+        return sum(min(self.k - 1, r * self.tile_l)
+                   for r in range(1, self.runs))
+
+    @property
+    def halo_share(self) -> float:
+        """Re-read rows over the rows of the sequence."""
+        return self.halo_rows / self.length
 
     @property
     def flops(self) -> int:
@@ -1504,13 +1550,14 @@ class Conv1dPlan:
                                    + self.k * self.d)
 
     def hbm_bytes(self) -> dict:
-        """Bytes the kernel's schedule moves: every input row once, plus
-        each run's re-read halo; each block's ``K x tile_d`` weights; the
-        output once."""
+        """Bytes the kernel's schedule moves to and from device memory:
+        every input row once, plus each run's re-read halo; the ``K x D``
+        taps once (each warp re-reads its tap rows, a few KB that stay in
+        the 50 MB L2); the output once."""
         e = self.dtype_bytes
         inp = e * self.b * self.length * self.d
         halo = e * self.b * self.d * self.halo_rows
-        weights = e * self.b * self.runs * self.k * self.d
+        weights = e * self.k * self.d
         out = e * self.b * self.length * self.d
         return dict(input=inp, halo=halo, weights=weights, output=out,
                     total=inp + halo + weights + out)

@@ -35,8 +35,7 @@ _FUSED_ARGS = [_P, _P, _P, _P, _I, _P]
 _FUSED_BF16_ARGS = [_P, _P, _P, _P, _P, _I, _P]   # + the stages' routes
 _ATTN_ARGS = [_P] * 5 + [_I] * 6 + [_L] * 12 + [_I, _I, _F, _F, _P]
 _ATTN_BWD_ARGS = [_P] * 8 + [_I] * 6 + [_L] * 12 + [_I, _I, _F, _F, _I, _P]
-_CONV1D_ARGS = [_P] * 3 + [_I] * 4 + [_L] * 4 + [_I, _I, _P]
-_CONV1D_BF16_ARGS = [_P] * 3 + [_I] * 4 + [_L] * 4 + [_I, _I, _I, _P]
+_CONV1D_ARGS = [_P] * 3 + [_I] * 4 + [_L] * 4 + [_I, _I, _I, _P]
 _CONV1D_WGRAD_ARGS = [_P] * 4 + [_I] * 4 + [_L] * 4 + [_I, _I, _I, _P]
 SOURCES = {
     "trim_conv2d": {"trim_conv2d_carry": _CONV_ARGS,
@@ -63,7 +62,7 @@ SOURCES = {
                             "flash_attention_bwd_sum_bf16":
                                 [_P, _P, _P, _L, _I, _I, _P]},
     "trim_conv1d": {"trim_conv1d_f32": _CONV1D_ARGS,
-                    "trim_conv1d_bf16": _CONV1D_BF16_ARGS},
+                    "trim_conv1d_bf16": _CONV1D_ARGS},
     "trim_conv1d_wgrad": {"trim_conv1d_wgrad_f32": _CONV1D_WGRAD_ARGS,
                           "trim_conv1d_wgrad_bf16": _CONV1D_WGRAD_ARGS},
 }

@@ -9,10 +9,14 @@ falls back.  Both compute ``_kernel`` (``repro/kernels/trim_conv1d.py:29``):
 ``y[b, t, d] = sum_{i < K} x[b, t-K+1+i, d] * w[i, d]`` with zero left
 padding, summed from 0 in the order i = 0..K-1 with every product rounded
 before its add, so the kernel, its plain version and
-``ref.depthwise_conv1d`` agree bit for bit.  The geometry (runs of
-``tile_l`` steps, ``tile_d`` channels a block) is ``core.conv_plan.
-Conv1dPlan``'s.  The input may be a strided view with a contiguous channel
-axis (the mixer's half of the in-projection); it is read in place.
+``ref.depthwise_conv1d`` agree bit for bit.  The geometry (a block one
+warp, over one run of ``tile_l`` steps and one channel warp of
+``tile_d`` channels, ``vec`` a lane) is ``core.conv_plan.Conv1dPlan``'s,
+built for the route by :func:`plan_for`.  The input may be a strided
+view with a contiguous channel axis (the mixer's half of the
+in-projection); it is read in place.  Where rows are 16-byte aligned a
+lane owns 4 f32 (:func:`f32_vec`) or 8 bf16 (:func:`bf16_vec`) channels
+and moves a row with one 16-byte load or store.
 
 bf16 x and w launch ``trim_conv1d_bf16``, the same kernel on bf16
 operands: every value widened to f32 (exact), products exact in f32, the
@@ -21,8 +25,7 @@ f32 sum from 0 in tap order rounded once to bf16 at the store, which is
 trim_conv1d.py:38-40``); the plain version computes the same in f32 and
 casts once, so the three agree bit for bit.  (``ref.depthwise_conv1d``
 on bf16 rounds every product and sum to bf16, as JAX's oracle does, and
-differs.)  Where rows are 16-byte aligned a thread owns 8 channels
-(``Conv1dPlan.vec``).
+differs.)
 
 Under autograd ``trim_conv1d`` is ``_TrimConv1dFn`` (it saves x and w),
 the counterpart of JAX's autodiff of ``ref.depthwise_conv1d`` (the JAX
@@ -59,7 +62,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.conv_plan import (CONV1D_BF16_VEC, CONV1D_WGRAD_RUNS,
+from repro_torch.core.conv_plan import (CONV1D_VEC, CONV1D_WGRAD_RUNS,
                                          CONV1D_WGRAD_VEC, Conv1dPlan,
                                          Conv1dWeightGradPlan)
 from repro_torch.kernels import build
@@ -68,6 +71,9 @@ from repro_torch.kernels import build
 LAUNCHES = {"trim_conv1d": 0, "trim_conv1d_bf16": 0}
 BWD_LAUNCHES = {"trim_conv1d_dx": 0, "trim_conv1d_wgrad": 0,
                 "trim_conv1d_dx_bf16": 0, "trim_conv1d_wgrad_bf16": 0}
+# The geometry of the forward kernel's last launch (grid, threads a block,
+# D, L, tile_l, tile_d, vec), as the wrapper passed it.
+LAST_LAUNCH: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -91,86 +97,123 @@ def _check(x: torch.Tensor, w: torch.Tensor, *,
                          f"strides {x.stride()}")
 
 
-def trim_conv1d_plain(x: torch.Tensor, w: torch.Tensor, *,
-                      tile_l: int | None = None) -> torch.Tensor:
-    """The kernel's schedule in plain PyTorch: the sequence cut into runs
-    of the plan's ``tile_l`` steps, each run's window holding its ``K-1``
-    predecessors (the halo; zeros before t = 0), and the taps summed over
-    every run at once in the kernel's order, in f32 (bf16 operands
-    widened: exact products), cast once to x's dtype.  x: (B, L, D); w:
-    (K, D)."""
-    plan = Conv1dPlan.build(tuple(x.shape), tuple(w.shape), tile_l=tile_l)
-    b, length, d = x.shape
-    k, tl = plan.k, plan.tile_l
-    padded = plan.runs * tl
-    acc_dtype = torch.promote_types(x.dtype, torch.float32)
-    xp = F.pad(x.to(acc_dtype), (0, 0, k - 1, padded - length))
-    win = xp.unfold(1, tl + k - 1, tl)            # (B, runs, D, tl + K - 1)
-    wf = w.to(acc_dtype)
-    acc = 0
-    for i in range(k):
-        acc = acc + win[..., i:i + tl] * wf[i][:, None]
-    y = acc.permute(0, 1, 3, 2).reshape(b, padded, d)
-    return y[:, :length].to(x.dtype).contiguous()
-
-
-def bf16_vec(x: torch.Tensor, w: torch.Tensor) -> int:
-    """Channels a thread of the bf16 route: :data:`CONV1D_BF16_VEC` where
-    x's rows, w's contiguous rows and the output's are 16-byte aligned (D
-    and x's batch and time strides multiples of 8 elements, the pointers
-    of 16 bytes), else 1."""
-    v = CONV1D_BF16_VEC
+def _row_vec(x: torch.Tensor, w: torch.Tensor, v: int) -> int:
+    """``v`` where x's rows, w's contiguous rows and the output's hold
+    whole 16-byte vectors of ``v`` channels (D and x's batch and time
+    strides multiples of ``v``, the pointers of 16 bytes), else 1."""
     ok = (x.shape[-1] % v == 0 and x.stride(0) % v == 0
           and x.stride(1) % v == 0 and x.data_ptr() % 16 == 0
           and w.data_ptr() % 16 == 0)
     return v if ok else 1
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, plan: Conv1dPlan, *,
-            reverse: bool = False) -> torch.Tensor:
-    """One launch of ``trim_conv1d_f32`` (or, for a bf16 plan,
-    ``trim_conv1d_bf16``) on x; with ``reverse``, on x and the output
-    read in reversed time (the base pointer at row L-1, the time strides
-    negated), which is the input gradient's launch."""
+def f32_vec(x: torch.Tensor, w: torch.Tensor) -> int:
+    """Channels a lane of the f32 route: ``CONV1D_VEC[4]`` (one float4 a
+    row) where rows are 16-byte aligned, else 1."""
+    return _row_vec(x, w, CONV1D_VEC[4])
+
+
+def bf16_vec(x: torch.Tensor, w: torch.Tensor) -> int:
+    """Channels a lane of the bf16 route: ``CONV1D_VEC[2]`` (one uint4 a
+    row) where rows are 16-byte aligned, else 1."""
+    return _row_vec(x, w, CONV1D_VEC[2])
+
+
+def plan_for(x: torch.Tensor, w: torch.Tensor,
+             tile_l: int | None = None) -> Conv1dPlan:
+    """The plan of x's route: bf16 (2-byte elements, :func:`bf16_vec`) or
+    f32 (:func:`f32_vec`; a float64 oracle's too, one channel a lane)."""
+    if x.dtype == torch.bfloat16:
+        return Conv1dPlan.build(tuple(x.shape), tuple(w.shape),
+                                tile_l=tile_l, dtype_bytes=2,
+                                vec=bf16_vec(x, w))
+    return Conv1dPlan.build(
+        tuple(x.shape), tuple(w.shape), tile_l=tile_l,
+        vec=f32_vec(x, w) if x.dtype == torch.float32 else 1)
+
+
+def trim_conv1d_plain(x: torch.Tensor, w: torch.Tensor, *,
+                      tile_l: int | None = None) -> torch.Tensor:
+    """The kernel's schedule in plain PyTorch, on x's route's plan: the
+    sequence cut into runs of ``tile_l`` steps, each run's window holding
+    its ``K-1`` predecessors (the halo; zeros before t = 0), the channels
+    cut into channel warps of ``tile_d`` (the last one's lanes past D
+    computing on zeros, then dropped), and the taps summed over every
+    run and channel warp at once in the kernel's order, in f32 (bf16
+    operands widened: exact products), cast once to x's dtype.  x: (B, L,
+    D); w: (K, D)."""
+    plan = plan_for(x, w.contiguous(), tile_l)
     b, length, d = x.shape
-    y = torch.empty((b, length, d), dtype=x.dtype, device=x.device)
+    k, tl, td = plan.k, plan.tile_l, plan.tile_d
+    padded, wide = plan.runs * tl, plan.d_warps * td
+    acc_dtype = torch.promote_types(x.dtype, torch.float32)
+    xp = F.pad(x.to(acc_dtype), (0, wide - d, k - 1, padded - length))
+    win = xp.unfold(1, tl + k - 1, tl)      # (B, runs, wide, tl + K - 1)
+    win = win.reshape(b, plan.runs, plan.d_warps, td, tl + k - 1)
+    wf = F.pad(w.to(acc_dtype), (0, wide - d)).reshape(k, plan.d_warps,
+                                                       td, 1)
+    acc = 0
+    for i in range(k):
+        acc = acc + win[..., i:i + tl] * wf[i]
+    y = acc.permute(0, 1, 4, 2, 3).reshape(b, padded, wide)
+    return y[:, :length, :d].to(x.dtype).contiguous()
+
+
+def _launch_args(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor,
+                 plan: Conv1dPlan, *, reverse: bool = False) -> tuple:
+    """The C entry's arguments but the stream: x, w and y (B, L, D) as
+    the kernel reads them; with ``reverse``, x and y in reversed time
+    (the base pointers at row L-1, the time strides negated), which is
+    the input gradient's launch."""
+    b, length, d = x.shape
     x_ptr, x_sl = x.data_ptr(), x.stride(1)
     y_ptr, y_sl = y.data_ptr(), y.stride(1)
     if reverse:
         x_ptr += x.element_size() * (length - 1) * x_sl
         y_ptr += y.element_size() * (length - 1) * y_sl
         x_sl, y_sl = -x_sl, -y_sl
+    return (x_ptr, w.data_ptr(), y_ptr, b, length, d, plan.k, x.stride(0),
+            x_sl, y.stride(0), y_sl, plan.tile_l, plan.tile_d, plan.vec)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, plan: Conv1dPlan, *,
+            reverse: bool = False) -> torch.Tensor:
+    """One launch of ``trim_conv1d_f32`` (or, for a bf16 plan,
+    ``trim_conv1d_bf16``) on x, on the plan's grid (:data:`LAST_LAUNCH`
+    records it); with ``reverse``, the input gradient's launch
+    (:func:`_launch_args`)."""
+    y = torch.empty(tuple(x.shape), dtype=x.dtype, device=x.device)
+    args = _launch_args(x, w, y, plan, reverse=reverse)
     lib = build.library("trim_conv1d")
-    args = (x_ptr, w.data_ptr(), y_ptr, b, length, d, plan.k, x.stride(0),
-            x_sl, y.stride(0), y_sl, plan.tile_l, plan.tile_d)
+    entry = lib.trim_conv1d_bf16 if plan.dtype_bytes == 2 \
+        else lib.trim_conv1d_f32
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if plan.dtype_bytes == 2:
-            err = lib.trim_conv1d_bf16(*args, plan.vec, stream)
-        else:
-            err = lib.trim_conv1d_f32(*args, stream)
+        err = entry(*args, stream)
     if err != 0:
         raise RuntimeError(
             f"trim_conv1d kernel launch failed: CUDA error {err} "
             f"({lib.trim_conv1d_error_string(err).decode()}) for x "
             f"{tuple(x.shape)} {x.dtype} strides {x.stride()}, K={plan.k}, "
             f"tile_l={plan.tile_l}, tile_d={plan.tile_d}, vec={plan.vec}, "
-            f"reverse={reverse}")
+            f"reverse={reverse} (a refused tile_d means the plan's "
+            "CONV1D_* constants and the .cu's disagree)")
+    LAST_LAUNCH.update(grid=plan.grid, threads=plan.threads, d=plan.d,
+                       length=plan.length, tile_l=plan.tile_l,
+                       tile_d=plan.tile_d, vec=plan.vec)
     return y
 
 
 def _forward(x: torch.Tensor, w: torch.Tensor,
              tile_l: int | None) -> torch.Tensor:
-    bf16 = x.dtype == torch.bfloat16
     w = w.contiguous()
-    plan = Conv1dPlan.build(tuple(x.shape), tuple(w.shape), tile_l=tile_l,
-                            dtype_bytes=x.element_size(),
-                            vec=bf16_vec(x, w) if bf16 else 1)
+    plan = plan_for(x, w, tile_l)
     if x.device.type == "cpu":
         with torch.no_grad():
             return trim_conv1d_plain(x, w, tile_l=plan.tile_l)
     y = _launch(x, w, plan)
-    LAUNCHES["trim_conv1d_bf16" if bf16 else "trim_conv1d"] += 1
+    LAUNCHES["trim_conv1d_bf16" if x.dtype == torch.bfloat16
+             else "trim_conv1d"] += 1
     return y
 
 
@@ -190,15 +233,13 @@ def trim_conv1d_input_grad(dy: torch.Tensor, w: torch.Tensor, *,
     dy = _channels_contiguous(dy)
     _check(dy, w)
     w = w.contiguous()
-    bf16 = dy.dtype == torch.bfloat16
-    plan = Conv1dPlan.build(tuple(dy.shape), tuple(w.shape), tile_l=tile_l,
-                            dtype_bytes=dy.element_size(),
-                            vec=bf16_vec(dy, w) if bf16 else 1)
+    plan = plan_for(dy, w, tile_l)
     if dy.device.type == "cpu":
         with torch.no_grad():
             return trim_conv1d_input_grad_plain(dy, w, tile_l=plan.tile_l)
     dx = _launch(dy, w, plan, reverse=True)
-    BWD_LAUNCHES["trim_conv1d_dx_bf16" if bf16 else "trim_conv1d_dx"] += 1
+    BWD_LAUNCHES["trim_conv1d_dx_bf16" if dy.dtype == torch.bfloat16
+                 else "trim_conv1d_dx"] += 1
     return dx
 
 

@@ -9,9 +9,16 @@ within 1e-5 * max(1, max|ref|) (f32 sums of K <= 4 products; XLA may
 contract a product and its add), and against the port's own oracle bit
 for bit (same products, same order).  Also: the decode step against the
 full conv, the operator's routing, ``Conv1dPlan``'s geometry, bytes and
-errors.  The kernel itself runs on the card (``tests/test_torch_cuda.py``
+errors (at the main-path rows in f32 and bf16: no idle lane, the halo
+share, the bytes in flight, the bytes of a walk over the runs; its
+constants parsed from ``csrc/trim_conv1d.cu``), and when the f32 route
+takes 16-byte rows (aligned views, the input gradient's reversed
+launch).  The kernel itself runs on the card (``tests/test_torch_cuda.py``
 and ``chip_smoke.py``).
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,9 +27,16 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.trim_conv1d import trim_conv1d as jtrim_conv1d
-from repro_torch.core.conv_plan import CONV1D_UNROLLED_K, Conv1dPlan
+from repro_torch.core import conv_plan
+from repro_torch.core.conv_plan import (CONV1D_AHEAD, CONV1D_HALO_SHARE,
+                                        CONV1D_INFLIGHT_BYTES,
+                                        CONV1D_RESIDENT_WARPS,
+                                        CONV1D_UNROLLED_K, CONV1D_VEC, SMS,
+                                        Conv1dPlan)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import trim_conv1d as tc1
+
+CU = Path(tc1.__file__).resolve().parent / "csrc" / "trim_conv1d.cu"
 
 TOL = 1e-5
 GRID = [(2, 16, 8, 4), (1, 100, 24, 4), (3, 7, 5, 2), (2, 33, 16, 3)]
@@ -126,19 +140,137 @@ def test_op_routes_impls_as_jax():
 
 
 def test_plan_at_the_mamba_prefill_shape():
-    """falcon-mamba-7b prefill, 2 x 2048 tokens, d_inner 8192, K 4."""
-    plan = Conv1dPlan.build((2, 2048, 8192), (4, 8192))
-    assert (plan.tile_l, plan.tile_d) == (32, 256)
-    assert plan.grid == (2, 32, 64) and plan.blocks == 4096
-    # three full waves of resident blocks (8 of 256 threads an SM)
-    assert plan.blocks >= 3 * 132 * 8
+    """falcon-mamba-7b prefill, 2 x 2048 tokens, d_inner 8192, K 4, on the
+    f32 route's 16-byte rows (4 channels a lane)."""
+    plan = Conv1dPlan.build((2, 2048, 8192), (4, 8192), vec=4)
+    assert (plan.tile_l, plan.tile_d) == (16, 128)
+    assert plan.grid == (128 * 64, 2) and plan.blocks == 16384
+    # the shortest run whose K-1 halo rows stay within the share
+    assert plan.k - 1 <= CONV1D_HALO_SHARE * plan.tile_l
+    assert plan.k - 1 > CONV1D_HALO_SHARE * plan.tile_l / 2
+    assert plan.inflight_bytes >= CONV1D_INFLIGHT_BYTES
     assert plan.flops == 2 * 2 * 2048 * 8192 * 4
     assert plan.min_bytes() == 4 * (2 * 2 * 2048 * 8192 + 4 * 8192)
     ms, by = plan.bound()
     assert by == "bytes" and abs(ms - 0.0802) < 1e-3
     hbm = plan.hbm_bytes()
-    assert hbm["halo"] == 4 * 2 * 8192 * 3 * 63
+    assert hbm["halo"] == 4 * 2 * 8192 * 3 * 127
     assert hbm["total"] == sum(v for key, v in hbm.items() if key != "total")
+
+
+# (a) falcon-mamba-7b prefill, (b) recurrentgemma-2b prefill (forward);
+# (c) recurrentgemma-2b training, (d) falcon-mamba-7b training (dx)
+MAIN_ROWS = {"a": (2, 2048, 8192), "b": (2, 4096, 2560),
+             "c": (1, 4096, 2560), "d": (2, 1024, 8192)}
+# (tile_l, channel warps) of each row on the f32 and the bf16 route
+MAIN_PLANS = {("a", 4): (16, 64), ("b", 4): (16, 20), ("c", 4): (16, 20),
+              ("d", 4): (16, 64), ("a", 2): (16, 32), ("b", 2): (16, 10),
+              ("c", 2): (16, 10), ("d", 2): (16, 32)}
+
+
+@pytest.mark.parametrize("row,dtype_bytes", sorted(MAIN_PLANS),
+                         ids=[f"{r}-{'f32' if e == 4 else 'bf16'}"
+                              for r, e in sorted(MAIN_PLANS)])
+def test_plan_at_the_main_path_rows(row, dtype_bytes):
+    """At every main-path row, on each route's 16-byte rows: no idle lane
+    (D 2560 and 8192 are whole channel warps), runs whose K-1 halo rows
+    stay within CONV1D_HALO_SHARE, at least Little's law's bytes in flight
+    on an SM, and hbm_bytes() equal to the bytes of a walk over the
+    runs."""
+    b, length, d = MAIN_ROWS[row]
+    plan = Conv1dPlan.build((b, length, d), (4, d), dtype_bytes=dtype_bytes,
+                            vec=CONV1D_VEC[dtype_bytes])
+    assert (plan.tile_l, plan.d_warps) == MAIN_PLANS[row, dtype_bytes]
+    assert plan.tile_d == 32 * plan.vec and plan.threads == 32
+    # every launched lane owns channels: no idle lane anywhere
+    assert plan.d_warps * plan.tile_d == d
+    assert plan.grid == (plan.runs * plan.d_warps, b)
+    assert plan.blocks == b * plan.runs * plan.d_warps
+    assert plan.k - 1 <= CONV1D_HALO_SHARE * plan.tile_l
+    assert plan.halo_share <= CONV1D_HALO_SHARE
+    assert plan.warp_inflight_bytes == 2 * CONV1D_AHEAD * 32 * 16
+    # every SM holds its resident warps: 2,560 warps and more
+    assert plan.blocks >= SMS * CONV1D_RESIDENT_WARPS
+    assert plan.inflight_bytes == CONV1D_RESIDENT_WARPS \
+        * plan.warp_inflight_bytes >= CONV1D_INFLIGHT_BYTES
+    e = dtype_bytes
+    walked = e * plan.k * d                          # the taps, once
+    for _ in range(b):
+        for t0 in range(0, length, plan.tile_l):
+            t1 = min(t0 + plan.tile_l, length)
+            walked += e * d * ((t1 - t0)            # the run's rows
+                               + min(plan.k - 1, t0)   # its halo
+                               + (t1 - t0))          # its output
+    assert plan.hbm_bytes()["total"] == walked
+    # the halo is the schedule's only traffic beyond the least
+    assert walked - plan.min_bytes() == plan.hbm_bytes()["halo"] \
+        <= CONV1D_HALO_SHARE * plan.min_bytes() / 2
+
+
+@pytest.mark.parametrize("d,vec", [(5, 1), (100, 1), (2600, 4), (2056, 8),
+                                   (33, 1)])
+def test_plan_idles_only_the_last_channel_warp(d, vec):
+    """Where D is not a multiple of a warp's channels, only each row's
+    last channel warp holds lanes past D, and it holds at least one busy
+    lane."""
+    plan = Conv1dPlan.build((2, 300, d), (4, d), dtype_bytes=2 if vec == 8
+                            else 4, vec=vec)
+    lanes = -(-d // vec)                   # lanes that own channels
+    idle = plan.d_warps * 32 - lanes
+    assert 0 <= idle < 32 and (idle == 0) == (d % plan.tile_d == 0)
+    assert (plan.d_warps - 1) * plan.tile_d < d <= plan.d_warps * plan.tile_d
+
+
+def test_plan_constants_match_the_kernel():
+    """Each constexpr of csrc/trim_conv1d.cu against its CONV1D_* mirror."""
+    found = {}
+    for name, expr in re.findall(r"^constexpr int (k\w+) = ([^;]+);",
+                                 CU.read_text(), re.M):
+        found[name] = eval(expr, {"__builtins__": {}}, dict(found))
+    assert found == {
+        "kLanes": conv_plan.CONV1D_LANES,
+        "kVecF32": CONV1D_VEC[4],
+        "kVecBf16": CONV1D_VEC[2],
+        "kAhead": CONV1D_AHEAD,
+        "kMinBlocks": CONV1D_RESIDENT_WARPS,
+        "kMaxUnrolledK": CONV1D_UNROLLED_K,
+    }
+
+
+def _aligned(shape, width=None, offset=0):
+    """A float32 (B, L, D) view on 16-byte-aligned storage: the first D
+    of ``width`` channels, starting ``offset`` elements in."""
+    b, length, d = shape
+    width = width or d
+    base = torch.zeros(b * length * width + offset + 8)
+    start = (-base.data_ptr() // 4) % 4 + offset      # 16-byte boundary
+    return base[start:start + b * length * width].view(b, length,
+                                                       width)[..., :d]
+
+
+def test_f32_vec_eligibility():
+    """4 channels a lane (one float4 a row) where D, the strides and the
+    pointers hold whole 16-byte vectors; one channel elsewhere; the input
+    gradient's reversed launch keeps its 16-byte rows."""
+    w = _aligned((1, 4, 64))[0]
+    view = _aligned((2, 10, 64), width=128)          # the mixer's half
+    assert not view.is_contiguous() and tc1.f32_vec(view, w) == 4
+    assert tc1.plan_for(view, w).vec == 4
+    assert tc1.f32_vec(_aligned((2, 10, 64), width=128, offset=1), w) == 1
+    assert tc1.f32_vec(_aligned((2, 10, 62)), _aligned((1, 4, 62))[0]) == 1
+    assert tc1.f32_vec(_aligned((2, 10, 64), width=130), w) == 1
+    assert tc1.plan_for(view.bfloat16(), w.bfloat16()).dtype_bytes == 2
+    # dx: dy and dx read from row L-1 with negated time strides
+    dy = _aligned((2, 10, 64))
+    plan = tc1.plan_for(dy, w)
+    args = tc1._launch_args(dy, w, torch.empty_like(dy), plan,
+                            reverse=True)
+    x_ptr, w_ptr, y_ptr, b, length, d, k, x_sb, x_sl, y_sb, y_sl = args[:11]
+    assert plan.vec == 4 and args[11:] == (plan.tile_l, 128, 4)
+    assert x_sl == y_sl == -64 and x_sb == y_sb == 640
+    assert x_ptr == dy.data_ptr() + 4 * 9 * 64
+    assert all(p % 16 == 0 for p in (x_ptr, w_ptr, y_ptr))
+    assert all(s % 4 == 0 for s in (x_sb, x_sl, y_sb, y_sl, d))
 
 
 @pytest.mark.parametrize("length,tile_l,k", [(37, 5, 4), (37, 1, 4),
@@ -153,9 +285,11 @@ def test_plan_halo_rows_count_the_reread_inputs(length, tile_l, k):
 
 def test_plan_defaults_and_small_shapes():
     plan = Conv1dPlan.build((3, 7, 5), (2, 5))
-    assert plan.tile_d == 32 and plan.tile_l == 7 and plan.grid == (3, 1, 1)
+    assert plan.tile_d == 32 and plan.tile_l == 7 and plan.grid == (1, 3)
     assert Conv1dPlan.build((1, 1, 24), (4, 24)).tile_l == 1
-    assert Conv1dPlan.build((1, 100, 300), (4, 300)).tile_d == 256
+    wide = Conv1dPlan.build((1, 100, 300), (4, 300))
+    assert (wide.tile_d, wide.d_warps, wide.tile_l) == (32, 10, 16)
+    assert Conv1dPlan.build((1, 100, 300), (4, 300), vec=4).tile_d == 128
 
 
 @pytest.mark.parametrize("x_shape,w_shape,kw,match", [

@@ -105,6 +105,29 @@ def test_input_grad_plain_is_the_flip_formula_bitwise(tile_l):
                                                       tile_l=tile_l), want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_input_grad_takes_the_route_plan(dtype):
+    """dx is the forward kernel on the reversed cotangent, on the route's
+    own plan: at the training rows (c) recurrentgemma-2b's and (d)
+    falcon-mamba-7b's, 16-byte rows (4 f32 / 8 bf16 channels a lane),
+    runs of 16 steps and whole channel warps; on the CPU its plain
+    version is the flip formula bit for bit in either dtype."""
+    e = torch.empty((), dtype=dtype).element_size()
+    for (b, length, d), d_warps in (((1, 4096, 2560), {4: 20, 2: 10}),
+                                    ((2, 1024, 8192), {4: 64, 2: 32})):
+        dy = torch.empty((b, length, d), dtype=dtype)
+        plan = tc1.plan_for(dy, torch.empty((4, d), dtype=dtype))
+        assert (plan.dtype_bytes, plan.vec) == (e, conv_plan.CONV1D_VEC[e])
+        assert (plan.tile_l, plan.d_warps) == (16, d_warps[e])
+        assert plan.d_warps * plan.tile_d == d
+    _, wn, dyn = _inputs(2, 45, 24, 4, 3, False)
+    dy, w = torch.from_numpy(dyn).to(dtype), torch.from_numpy(wn).to(dtype)
+    want = tc1.trim_conv1d_plain(dy.flip(1), w).flip(1)
+    assert torch.equal(tc1.trim_conv1d_input_grad(dy, w), want)
+    assert torch.equal(tc1.trim_conv1d_input_grad_plain(dy, w), want)
+
+
 @pytest.mark.parametrize("tile_l", [None, 1, 5, 8])
 def test_wgrad_plain_is_bitwise_repeatable(tile_l):
     """Two calls bitwise equal (the ordered runs and groups); the plan's

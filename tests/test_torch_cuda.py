@@ -976,19 +976,30 @@ CONV1D_CASES = [
     (1, 5, 33, 12, None, False),
     # recurrentgemma-2b's prefill: the rec mixer's (B, L, lru_width)
     (2, 4096, 2560, 4, None, False),
+    # 16-byte rows with a partial last channel warp (f32 and bf16)
+    (2, 300, 2600, 4, None, True),
 ]
+# the f32 forward also at a 4-byte offset (one channel a lane)
+CONV1D_F32_CASES = CONV1D_CASES + [(2, 300, 64, 4, None, "offset"),
+                                   (1, 50, 40, 9, 3, "offset")]
 
 
-@pytest.mark.parametrize("case", CONV1D_CASES,
-                         ids=[str(i) for i in range(len(CONV1D_CASES))])
+@pytest.mark.parametrize("case", CONV1D_F32_CASES,
+                         ids=[str(i) for i in range(len(CONV1D_F32_CASES))])
 def test_conv1d_kernel_equals_plain_bitwise(cuda, case):
+    """The f32 route on the new geometry (a warp a block over one run and
+    one channel warp, 4 channels a lane where rows are 16-byte aligned,
+    else one): bitwise its plain version and the oracle, and over two
+    calls."""
     from repro_torch.kernels import trim_conv1d as tc1
-    b, length, d, k, tile_l, strided = case
+    b, length, d, k, tile_l, view = case
     gen = torch.Generator(device="cuda").manual_seed(length + d)
-    xz = torch.randn((b, length, 2 * d if strided else d), generator=gen,
-                     device=cuda)
-    x = xz[..., :d]
+    width = 2 * d if view is True else d + 1 if view == "offset" else d
+    xz = torch.randn((b, length, width), generator=gen, device=cuda)
+    x = xz[..., 1:d + 1] if view == "offset" else xz[..., :d]
     w = torch.randn((k, d), generator=gen, device=cuda)
+    assert tc1.f32_vec(x, w) == (4 if d % 4 == 0 and view != "offset"
+                                 else 1)
     before = tc1.LAUNCHES["trim_conv1d"]
     out = tc1.trim_conv1d(x, w, tile_l=tile_l)
     again = tc1.trim_conv1d(x, w, tile_l=tile_l)
@@ -1081,6 +1092,47 @@ def test_conv1d_bf16_backward_kernels_equal_plain_bitwise(cuda, case):
     assert gxz.dtype == gw.dtype == bf
     assert torch.equal(gxz[..., :d], dx)
     assert not gxz[..., d:].any()
+
+
+@pytest.mark.parametrize("case", [
+    (1, 4096, 2560, torch.bfloat16, "dx"),   # recurrentgemma-2b training
+    (2, 2048, 8192, torch.float32, "fwd"),   # falcon-mamba-7b prefill
+    (2, 300, 2600, torch.float32, "fwd"),    # a partial last channel warp
+    (3, 37, 70, torch.bfloat16, "fwd")], ids=["c-bf16-dx", "a-f32",
+                                              "d2600", "d70-vec1"])
+def test_conv1d_launched_grid_has_no_idle_warp(cuda, case):
+    """The grid the wrapper launched (``LAST_LAUNCH``): one warp a block,
+    (runs x channel warps, B), and every block's warp owns channels of a
+    run that holds steps, so no warp is launched idle; the kernel equals
+    its plain version there."""
+    from repro_torch.kernels import trim_conv1d as tc1
+    b, length, d, dtype, part = case
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    x = torch.randn((b, length, d), generator=gen, device=cuda).to(dtype)
+    w = torch.randn((4, d), generator=gen, device=cuda).to(dtype)
+    tc1.LAST_LAUNCH.clear()
+    if part == "dx":
+        out = tc1.trim_conv1d_input_grad(x, w)
+        want = tc1.trim_conv1d_input_grad_plain(x, w)
+    else:
+        out = tc1.trim_conv1d(x, w)
+        want = tc1.trim_conv1d_plain(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    got = dict(tc1.LAST_LAUNCH)
+    plan = tc1.plan_for(x, w)
+    assert got["grid"] == plan.grid and got["threads"] == 32
+    assert (got["d"], got["length"]) == (d, length)
+    d_warps = -(-d // got["tile_d"])
+    runs = -(-length // got["tile_l"])
+    assert got["grid"] == (runs * d_warps, b)
+    assert got["tile_d"] == 32 * got["vec"]
+    for block in range(got["grid"][0]):
+        run, cw = divmod(block, d_warps)
+        assert cw * got["tile_d"] < d and run * got["tile_l"] < length
+    # D 2560 and 8192 are whole channel warps: no idle lane either
+    if d % got["tile_d"] == 0:
+        assert d_warps * got["tile_d"] == d
 
 
 def _to_device(state, device):
@@ -1803,8 +1855,8 @@ def test_bf16_cuda_calls_never_reach_the_plain_versions(cuda, monkeypatch):
 
 
 # bf16 conv1d: the f32 cases (every K instance, ragged runs, strided
-# views; 8 channels a thread where D % 8 == 0), plus rows at a 2-byte
-# offset (one channel a thread)
+# views; 8 channels a lane where D % 8 == 0), plus rows at a 2-byte
+# offset (one channel a lane)
 CONV1D_BF16_CASES = CONV1D_CASES + [(2, 300, 64, 4, None, "offset"),
                                     (1, 50, 40, 9, 3, "offset")]
 

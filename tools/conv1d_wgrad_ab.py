@@ -1,21 +1,33 @@
-"""Time one checkout's conv1d weight-gradient kernel the way
-``chip_smoke.check_conv1d_wgrad`` times it, to compare two designs in one
-call on the card.
+"""Time one checkout's conv1d kernels the way ``chip_smoke.py`` times them,
+to compare two designs in one call on the card: the forward kernel at the
+prefill rows, its input gradient (the forward kernel on the reversed
+cotangent) and the weight-gradient kernel at the training rows.
 
     python3 tools/conv1d_wgrad_ab.py [--src DIR] [--label NAME]
 
 ``--src`` is the ``src`` directory of the checkout to measure (default:
-this one's).  Its ``repro_torch`` builds its own kernel into its own
-``build/`` at first use.  At recurrentgemma-2b's and falcon-mamba-7b's
-training rows (``chip_smoke.conv1d_wgrad_rows``), in f32 and, where that
-checkout's wrapper takes it, bf16, it prints one JSON line of:
+this one's).  Its ``repro_torch`` builds its own kernels into its own
+``build/`` at first use.  The rows, in f32 and, where that checkout's
+wrappers take it, bf16:
 
-* ``graph_ms``: device time from CUDA graphs over copies of x and dy
+* ``fwd``: ``trim_conv1d`` at falcon-mamba-7b's and recurrentgemma-2b's
+  prefill rows (``chip_smoke.conv1d_fwd_rows``: (a) the mixer's strided
+  view (2, 2048, 8192, 4), (b) (2, 4096, 2560, 4));
+* ``dx``: ``trim_conv1d_input_grad`` and ``dw``:
+  ``trim_conv1d_weight_grad`` at the training rows
+  (``chip_smoke.conv1d_wgrad_rows``: (c) recurrentgemma-2b's (1, 4096,
+  2560, 4), (d) falcon-mamba-7b's (2, 1024, 8192, 4) view).
+
+It prints one JSON line, each row with:
+
+* ``graph_ms``: device time from CUDA graphs over copies of the inputs
   that outgrow the L2 (``chip_smoke.rotating``);
 * ``events_ms``: CUDA events around 20 back-to-back wrapper calls on one
-  x and dy, the timing of the earlier PRs (a wrapper slower on the host
-  than its kernel on the card reads its host time here);
-* ``host_us``: the wrapper's host time a call (``chip_smoke.host_us``).
+  set of inputs, the timing of the earlier PRs (a wrapper slower on the
+  host than its kernel on the card reads its host time here);
+* ``host_us``: the wrapper's host time a call (``chip_smoke.host_us``);
+* ``bound_ms`` and ``of_bound``: the least bytes (each input read once,
+  the output written once) at 3.35 TB/s, and that over ``graph_ms``.
 
 To compare two commits, unpack the other into a gitignored directory
 (``git archive <commit> | tar -x -C build/parent``) and run this script
@@ -50,33 +62,49 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(Path(args.src).resolve()))
     from repro_torch.kernels import trim_conv1d as tc1
     gen = torch.Generator(device="cuda").manual_seed(34)
+    parts = [("fwd", r) for r in smoke.conv1d_fwd_rows()] + [
+        (part, r) for r in smoke.conv1d_wgrad_rows() for part in ("dx",
+                                                                 "dw")]
     rows = []
-    for name, b, length, d, k, strided in smoke.conv1d_wgrad_rows():
+    for part, (name, b, length, d, k, strided) in parts:
         for dt in (torch.float32, torch.bfloat16):
             xz = torch.randn((b, length, 2 * d if strided else d),
                              generator=gen, device="cuda").to(dt)
-            x = xz[..., :d]
             dy = torch.randn((b, length, d), generator=gen,
                              device="cuda").to(dt)
+            w = (0.5 * torch.randn((k, d), generator=gen,
+                                   device="cuda")).to(dt)
+
+            def call(xz, dy):
+                if part == "fwd":
+                    return lambda: tc1.trim_conv1d(xz[..., :d], w)
+                if part == "dx":
+                    return lambda: tc1.trim_conv1d_input_grad(dy, w)
+                return lambda: tc1.trim_conv1d_weight_grad(xz[..., :d],
+                                                           dy, k)
             try:
-                tc1.trim_conv1d_weight_grad(x, dy, k)
+                call(xz, dy)()
             except ValueError:      # an f32-only wrapper
                 continue
+            e = xz.element_size()
+            # the bytes each call must move, and one copy's for rotating
+            least = e * (2 * b * length * d + k * d)
+            held = {"fwd": xz.numel() * e + b * length * d * e,
+                    "dx": 2 * dy.numel() * e,
+                    "dw": (xz.numel() + dy.numel()) * e}[part]
 
             def copy():
-                cx, cy = xz.clone()[..., :d], dy.clone()
-                return lambda: tc1.trim_conv1d_weight_grad(cx, cy, k)
-            one = 2 * x.numel() * x.element_size()
+                return call(xz.clone(), dy.clone())
+            ms = smoke.time_graph_ms(torch, smoke.rotating(copy, held),
+                                     reps=20)
+            bound = least / smoke.PEAK_BYTES_PER_S * 1e3
             rows.append(dict(
-                case=name, dtype=str(dt).split(".")[1],
-                graph_ms=smoke.time_graph_ms(
-                    torch, smoke.rotating(copy, one), reps=20),
-                events_ms=smoke.time_ms(
-                    torch, lambda: tc1.trim_conv1d_weight_grad(x, dy, k),
-                    reps=20),
-                host_us=smoke.host_us(
-                    torch, lambda: tc1.trim_conv1d_weight_grad(x, dy, k))))
-            del xz, x, dy
+                part=part, case=name, dtype=str(dt).split(".")[1],
+                graph_ms=ms,
+                events_ms=smoke.time_ms(torch, call(xz, dy), reps=20),
+                host_us=smoke.host_us(torch, call(xz, dy)),
+                bound_ms=bound, of_bound=bound / ms))
+            del xz, dy, w
             torch.cuda.empty_cache()
     print(json.dumps({"label": args.label or args.src,
                       "card": smoke.card(), "rows": rows}))
