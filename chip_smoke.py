@@ -186,7 +186,11 @@ Phases, each raising on failure (each prints its seconds):
    4096 keys; (c) recurrentgemma-2b's geometry, Hq=10, Hkv=1, D=256,
    window 2048, soft cap 30; (d) (a) without the causal mask; (e) ragged
    Lq=17 / Lk=47; (f) head_dim 320 and (g) 512 with a 512 window, the
-   wide-head route (B=1, L=2048, Hq=8, Hkv=2); each one's time beside
+   wide-head route (B=1, L=2048, Hq=8, Hkv=2); seamless-m4t-large-v2's
+   calls (MHA, Hq=Hkv=16, D=64, B=2): its encoder's non-causal 4096 x
+   4096 (the prefill's cross call too), its decoder's causal one, and
+   cross calls of 1024 queries onto 4096 keys and 4096 onto 1024; each
+   one's time beside
    the plain version's and two bounds, its route's (3xTF32 on the tensor
    cores for D <= 256, f32 FFMA above) and the FFMA one, and for (a)
    ``F.scaled_dot_product_attention`` (the yardstick; the port never
@@ -265,7 +269,9 @@ Phases, each raising on failure (each prints its seconds):
    without its lse output and that lse against the plain forward's, at
    (t) the LM training shape (B 2, L 1024, Hq 16, Hkv 2, D 128, causal),
    (c) recurrentgemma-2b's (B 1, L 4096, Hq 10, Hkv 1, D 256, window
-   2048, cap 30), a GQA group of 7 at D 64 and Lq 256 < Lk 1024; each
+   2048, cap 30), a GQA group of 7 at D 64, Lq 256 < Lk 1024 and
+   seamless-m4t-large-v2's training calls (B 2, Hq = Hkv = 16, D 64:
+   1024 x 1024 causal and non-causal, 1024 queries onto 512 keys); each
    case's ms (the whole backward and each kernel), TFLOP/s and blocks
    beside the forward's, the plain backward's, the 3xTF32 and FFMA
    bounds and, for (t) and the G=7 case, SDPA's forward + backward and
@@ -357,7 +363,8 @@ Phases, each raising on failure (each prints its seconds):
    LM inference: ``trim_conv1d_bf16`` at every case of
    ``conv1d_cases`` bitwise equal to its plain version (f32 sums of
    exact products, one rounding), ``flash_attention_bf16`` at cases (a),
-   (b), (c) and (f) of ``attention_cases`` within
+   (b), (c), (f) and seamless's s_enc, s_cross_short and s_cross_long of
+   ``attention_cases`` within
    ``FLASH_BF16_TOLERANCE`` of max|o| of its plain version (the
    deviation printed), within half an ulp of bf16 plus
    ``FLASH_BF16_F64_EXCESS`` of max|o| of the float64 plain version (f32
@@ -394,7 +401,8 @@ Phases, each raising on failure (each prints its seconds):
    input copies past the L2), bound, ``conv1d_input``'s, host us a call
    and plan geometry;
 36. bf16 flash backward check — ``flash_attention_bwd_{dq,dkdv,sum}_bf16``
-   at the cases of ``flash_bwd_cases`` ((t), (c), GQA 7, Lq < Lk): dq,
+   at the cases of ``flash_bwd_cases`` ((t), (c), GQA 7, Lq < Lk and
+   seamless's three): dq,
    dk, dv bf16, each no farther from the float64 plain backward than the
    plain bf16 backward (f32 math, one rounding) plus one bf16 ulp of
    max|grad|, and past half a bf16 ulp within
@@ -436,13 +444,50 @@ Phases, each raising on failure (each prints its seconds):
    ``carry_bf16`` and 13 ``wgrad_bf16`` launches and a finite loss, step
    1 run again from the same state bitwise equal; ms a step (steps 2-4)
    and peak memory beside the train phase's f32 figures of this call;
-39. the kernel JSON line (twenty-four kernels; the launches of trim_conv1d
+39. encdec — full-width seamless-m4t-large-v2 (24 encoder + 24 decoder
+   layers, d_model 1024, 16 heads of 64, d_ff 8192, vocab 256206; 1.63 B
+   parameters drawn on the card from seed 0; the speech frontend a stub,
+   ``src`` frames unit-normal from a numpy seed), the encoder-decoder
+   family on the flash kernel's non-causal and cross-attention calls:
+   first the flash kernel's device ms from CUDA graphs at seamless's
+   calls (forward: encoder 4096 x 4096 non-causal, decoder causal, cross
+   4096 onto 1024; backward: the training rows 1024 x 1024 causal and
+   non-causal), f32 and bf16, beside SDPA on the same call and the
+   bound; then two timed f32 prefills through ``make_prefill_step`` at 2
+   x 4096 tokens over 4096 frames, exactly 72 flash launches a forward
+   (24 encoder, 24 decoder self, 24 cross), finite logits, ms and peak,
+   the ref prefill's distance printed; every attention sublayer along
+   the flash forward on the kernel against ref (``LM_LAYER_TOLERANCE``)
+   and its core against the float64 plain version (``F64_FACTOR``);
+   the depth-1 cut over 1024 frames (its cross call has Lq > Lk), flash
+   and ref each against the float64 oracle (``repro_torch.testing.
+   float64``): flash within max(``F64_FACTOR`` x ref's, ``LM_TOLERANCE``),
+   the oracle's next token; ``serve_batch``
+   at batch 4, prompt 16, gen 32 (over JAX's zero cross caches); then
+   drawn in bf16: two bf16 prefills with a bf16 ``src`` (72 bf16 flash
+   launches a forward), the f32 twin's distance printed, every sublayer
+   bf16 against f32 on the same bf16 input (MLPs ``LM_BF16_TOLERANCE``,
+   kernel cores ``FLASH_BF16_TOLERANCE``), 4 requests through bf16
+   decode steps; then training through ``steps.make_train_step`` (the
+   trainer's entry point refuses the family: no ``src`` stream): the
+   depth-1 cut's first-step gradients (the backward kernels against the
+   float64 plain backward, ``BWD_TOLERANCE``; flash against ref,
+   ``LM_GRAD_TOLERANCE``), every attention sublayer's backward against
+   float64 autograd at 1 x 512, and 3 timed AdamW steps at 2 x 1024 over
+   1024 frames in f32 and in bf16 (f32 moments): every loss and grad
+   norm finite, each step launching the forward 144 times (72 calls,
+   remat) and the dQ and dK/dV kernels 72 times each (MHA: no partial
+   sum), ms a step and peak;
+40. the kernel JSON line (twenty-four kernels; the launches of trim_conv1d
    and flash_attention include the prefills' and the training phases',
    the flash backward kernels' and conv1d backward kernels' the training
    steps', the bf16 conv entries' the bf16 serving phase's and the
    train_bf16 phase's timed steps', the bf16 conv1d and flash entries'
    the lm_bf16 prefills', the bf16 backward entries' the train_lm_bf16
-   phase's timed steps'), then ``{"ok": true, "device": ...}`` last.
+   phase's timed steps'; the flash entries also the encdec phase's
+   prefills and steps, counted apart as ``encdec_launches``, and its
+   times at seamless's calls as ``s_*``), then ``{"ok": true,
+   "device": ...}`` last.
 
 Exits non-zero without a result when no GPU is visible.
 """
@@ -3014,14 +3059,22 @@ def serve_q8(torch, model, xs, f32_rows):
 
 
 def attention_cases():
-    """(name, b, lq, lk, hq, hkv, d, causal, soft_cap, window)."""
+    """(name, b, lq, lk, hq, hkv, d, causal, soft_cap, window); the s_*
+    cases are seamless-m4t-large-v2's calls (MHA, D 64): its encoder's
+    non-causal self-attention (and the prefill's cross call, the same
+    shape at 4096 source frames), its decoder's causal self-attention,
+    and cross calls with a target shorter and longer than the source."""
     return [("a_prefill", 2, 4096, 4096, 16, 2, 128, True, None, None),
             ("b_continue", 2, 17, 4096, 16, 2, 128, True, None, None),
             ("c_rgemma", 2, 4096, 4096, 10, 1, 256, True, 30.0, 2048),
             ("d_noncausal", 2, 4096, 4096, 16, 2, 128, False, None, None),
             ("e_ragged", 2, 17, 47, 16, 2, 128, True, None, None),
             ("f_d320", 1, 2048, 2048, 8, 2, 320, True, None, None),
-            ("g_d512_win", 1, 2048, 2048, 8, 2, 512, True, None, 512)]
+            ("g_d512_win", 1, 2048, 2048, 8, 2, 512, True, None, 512),
+            ("s_enc", 2, 4096, 4096, 16, 16, 64, False, None, None),
+            ("s_dec", 2, 4096, 4096, 16, 16, 64, True, None, None),
+            ("s_cross_short", 2, 1024, 4096, 16, 16, 64, False, None, None),
+            ("s_cross_long", 2, 4096, 1024, 16, 16, 64, False, None, None)]
 
 
 def attention_bound(b, lq, lk, hq, hkv, d, causal, window):
@@ -3872,11 +3925,17 @@ TUNE_TURNS = 3              # alternating graph timings of default / tuned
 def flash_bwd_cases():
     """(name, b, lq, lk, hq, hkv, d, causal, soft_cap, window): (t) the
     LM training shape; (c) recurrentgemma-2b's attention; a GQA group of
-    7 at D 64; queries right-aligned to more keys."""
+    7 at D 64; queries right-aligned to more keys; seamless-m4t-large-v2's
+    training calls (MHA, D 64, G = 1: no partial sum), its decoder's
+    causal and its encoder's non-causal self-attention, and a cross call
+    with more queries than keys."""
     return [("t_train", 2, 1024, 1024, 16, 2, 128, True, None, None),
             ("c_rgemma", 1, 4096, 4096, 10, 1, 256, True, 30.0, 2048),
             ("g7_d64", 2, 1024, 1024, 14, 2, 64, True, None, None),
-            ("lq_lt_lk", 2, 256, 1024, 16, 2, 128, True, None, None)]
+            ("lq_lt_lk", 2, 256, 1024, 16, 2, 128, True, None, None),
+            ("s_train", 2, 1024, 1024, 16, 16, 64, True, None, None),
+            ("s_train_nc", 2, 1024, 1024, 16, 16, 64, False, None, None),
+            ("s_cross_bwd", 2, 1024, 512, 16, 16, 64, False, None, None)]
 
 
 def flash_bwd_bounds(b, lq, lk, hq, hkv, d, causal, window) -> dict:
@@ -4114,19 +4173,6 @@ def lm_grads(torch, cfg, params, batch, plain_bwd: bool) -> dict:
     return out
 
 
-def attention_f64(torch, q, k, v):
-    """Causal GQA attention in float64, differentiable (``ref.attention``
-    computes its scores in f32)."""
-    import math
-    group = q.shape[2] // k.shape[2]
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k.repeat_interleave(group, 2))
-    s = s / math.sqrt(q.shape[-1])
-    lq = q.shape[1]
-    mask = torch.ones(lq, lq, dtype=torch.bool, device=q.device).tril()
-    p = torch.softmax(torch.where(mask, s, -torch.inf), -1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.repeat_interleave(group, 2))
-
-
 def lm_bwd_layer_check(torch, cfg, params, tokens):
     """Along the flash forward (batch row 0, the first BWD_F64_POSITIONS
     positions): each layer's attention backward at its own q, k, v and a
@@ -4138,6 +4184,7 @@ def lm_bwd_layer_check(torch, cfg, params, tokens):
     from repro_torch.kernels import ref
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
+    from repro_torch.testing import float64
     toks = tokens[:1, :BWD_F64_POSITIONS]
     pos = torch.arange(toks.shape[1], device="cuda")[None]
     gen = torch.Generator(device="cuda").manual_seed(13)
@@ -4159,8 +4206,7 @@ def lm_bwd_layer_check(torch, cfg, params, tokens):
                         ("kernel", fa.flash_attention, torch.float32),
                         ("ref", lambda a, b, c: ref.attention(
                             a, b, c, causal=True), torch.float32),
-                        ("f64", lambda a, b, c: attention_f64(
-                            torch, a, b, c), torch.float64)):
+                        ("f64", float64.attention, torch.float64)):
                     lv = [t.to(dt).requires_grad_() for t in (q, k, v)]
                     grads[name] = torch.autograd.grad(fn(*lv), lv,
                                                       do.to(dt))
@@ -5711,7 +5757,8 @@ def check_bf16_conv1d(torch) -> list:
     return rows
 
 
-BF16_ATTENTION_CASES = ("a_prefill", "b_continue", "c_rgemma", "f_d320")
+BF16_ATTENTION_CASES = ("a_prefill", "b_continue", "c_rgemma", "f_d320",
+                        "s_enc", "s_cross_short", "s_cross_long")
 
 
 def half_ulp_excess(torch, out, want) -> float:
@@ -6900,6 +6947,731 @@ def train_lm_bf16(torch, f32: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# encdec: seamless-m4t-large-v2, the encoder-decoder family (phase 39)
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+# prefill: 4096 target tokens over 4096 source frames a row
+ENCDEC_BATCH, ENCDEC_SEQ = 2, 4096
+# the depth-1 cut's source: its cross call has more queries than keys
+ENCDEC_CUT_SRC = 1024
+# training: 2 x 1024 tokens (make_batch drops one) over 1024 frames a row
+ENCDEC_TRAIN_STEPS, ENCDEC_TRAIN_BATCH = 3, 2
+ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_SRC = 1025, 1024
+# the depth-1 cut's first-step gradients: 1 x 256 tokens over 384 frames
+ENCDEC_GRAD_TOKENS, ENCDEC_GRAD_SRC = 256, 384
+# a full-width cut trained beside full depth: at full depth the f32 sum
+# of squares of the gradient overflows (ROADMAP Queue 3), at this cut it
+# must not, and the gradient must reach mu and nu
+ENCDEC_TRAIN_CUT = 2
+# the flash kernel timed at seamless's calls: forward (name, lq, lk,
+# causal) at batch 2 and backward at the training rows
+ENCDEC_FWD_TIMES = (("s_enc", 4096, 4096, False), ("s_dec", 4096, 4096, True),
+                    ("s_cross_long", 4096, 1024, False))
+ENCDEC_BWD_TIMES = (("s_train", 1024, 1024, True),
+                    ("s_train_nc", 1024, 1024, False))
+
+
+def encdec_inputs(torch, cfg, batch, tgt, src_len, seed, dtype):
+    """(tokens (B, tgt), src (B, src_len, d_model) of ``dtype``): tokens
+    and unit-normal frames from ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           (batch, tgt))).cuda()
+    src = torch.from_numpy(rng.standard_normal(
+        (batch, src_len, cfg.d_model)).astype(np.float32)).cuda()
+    return tokens, src.to(dtype)
+
+
+def encdec_cut(params, n):
+    """The first ``n`` encoder and ``n`` decoder blocks of a seamless
+    parameter tree (views)."""
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[:n]
+    return {**params, "enc_blocks": cut(params["enc_blocks"]),
+            "dec_blocks": cut(params["dec_blocks"])}
+
+
+def encdec_walk(torch, cfg, params, src, tokens):
+    """The forward of ``cfg`` step by step, as ``transformer.encdec_apply``
+    takes it: yields (stack, layer, kind, sublayer params, normed input,
+    causal, encoder output or None, positions or None) before each
+    sublayer (kind "self", "cross" or "mlp") and then adds the sublayer's
+    output to the residual stream; the encoder's output is held bitwise
+    against ``transformer._run_blocks``."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    ps = torch.arange(src.shape[1], device="cuda")[None]
+    x = src
+    for i, pi in enumerate(T.layer_list(params["enc_blocks"],
+                                        cfg.enc_layers)):
+        h = L.norm_apply(pi["ln_att"], x, cfg)
+        yield "enc", i, "self", pi["att"], h, False, None, ps
+        x = x + L.attention_apply(pi["att"], h, cfg, positions=ps,
+                                  causal=False)
+        z = L.norm_apply(pi["ln_mlp"], x, cfg)
+        yield "enc", i, "mlp", pi["mlp"], z, None, None, None
+        x = x + L.mlp_apply(pi["mlp"], z, cfg)
+    if not torch.equal(x, T._run_blocks(params["enc_blocks"], src, cfg,
+                                        positions=ps,
+                                        n_layers=cfg.enc_layers,
+                                        causal=False)):
+        raise AssertionError("encdec walk: the encoder stream is not "
+                             "transformer._run_blocks's")
+    enc = L.norm_apply(params["enc_ln"], x, cfg)
+    x = L.embed_apply(params["tok"], tokens, cfg)
+    pt = torch.arange(tokens.shape[1], device="cuda")[None]
+    for i, pi in enumerate(T.layer_list(params["dec_blocks"],
+                                        cfg.dec_layers)):
+        h = L.norm_apply(pi["ln_att"], x, cfg)
+        yield "dec", i, "self", pi["att"], h, True, None, pt
+        x = x + L.attention_apply(pi["att"], h, cfg, positions=pt)
+        h = L.norm_apply(pi["ln_cross"], x, cfg)
+        yield "dec", i, "cross", pi["cross"], h, False, enc, None
+        x = x + L.attention_apply(pi["cross"], h, cfg, encoder_out=enc,
+                                  is_cross=True, causal=False,
+                                  use_rope=False)
+        z = L.norm_apply(pi["ln_mlp"], x, cfg)
+        yield "dec", i, "mlp", pi["mlp"], z, None, None, None
+        x = x + L.mlp_apply(pi["mlp"], z, cfg)
+
+
+def encdec_sublayer(L, p, h, cfg, causal, enc, pos):
+    """One attention sublayer of the walk on ``cfg``'s attn_impl."""
+    if enc is not None:
+        return L.attention_apply(p, h, cfg, encoder_out=enc, is_cross=True,
+                                 causal=False, use_rope=False)
+    return L.attention_apply(p, h, cfg, positions=pos, causal=causal)
+
+
+def encdec_qkv(torch, L, p, h, cfg, enc, pos):
+    """q, k, v of one attention sublayer as ``attention_apply`` forms them
+    (self: RoPE over ``pos``; cross: k, v from ``enc``, no RoPE)."""
+    src = h if enc is None else enc
+    q, k, v = (torch.einsum("bld,dhk->blhk", a, p[w])
+               for a, w in ((h, "wq"), (src, "wk"), (src, "wv")))
+    if enc is None:
+        q = L.rope(q, pos[:, :q.shape[1]], cfg.rope_theta)
+        k = L.rope(k, pos[:, :k.shape[1]], cfg.rope_theta)
+    return q, k, v
+
+
+def encdec_layer_check(torch, cfg, params, src, tokens) -> dict:
+    """Along the f32 flash forward, each of the 72 attention sublayers
+    (24 encoder self, 24 decoder self, 24 cross) on the kernel and on the
+    ref oracle on the same input, within LM_LAYER_TOLERANCE of max|ref|;
+    and its core (batch row 0, the first F64_POSITIONS queries against
+    every key they see, before the output projection) against the float64
+    plain version: the kernel's error at most max(F64_FACTOR x the f32
+    ref oracle's, ATTN_TOLERANCE) of max|f64|."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
+    cref = cfg.replace(attn_impl="ref")
+    worst, rows = {}, []
+    with torch.no_grad():
+        for stack, i, kind, p, h, causal, enc, pos in encdec_walk(
+                torch, cfg, params, src, tokens):
+            if kind == "mlp":
+                continue
+            af = encdec_sublayer(L, p, h, cfg, causal, enc, pos)
+            ar = encdec_sublayer(L, p, h, cref, causal, enc, pos)
+            err = ((af - ar).abs().max() / ar.abs().max()).item()
+            q, k, v = encdec_qkv(torch, L, p, h[:1], cfg,
+                                 None if enc is None else enc[:1], pos)
+            q = q[:, :F64_POSITIONS]
+            if causal:
+                k, v = k[:, :F64_POSITIONS], v[:, :F64_POSITIONS]
+            o64 = fa.flash_attention_plain(q.double(), k.double(),
+                                           v.double(), causal=causal)
+            scale = o64.abs().max().item()
+            ek = ((fa.flash_attention(q, k, v, causal=causal).double()
+                   - o64).abs().max() / scale).item()
+            er = ((ref.attention(q, k, v, causal=causal).double()
+                   - o64).abs().max() / scale).item()
+            lim = max(F64_FACTOR * er, ATTN_TOLERANCE)
+            if not (np.isfinite(err) and err <= LM_LAYER_TOLERANCE
+                    and ek <= lim):
+                raise AssertionError(
+                    f"encdec {stack} layer {i} {kind}: kernel vs ref "
+                    f"{err:.3e} of max|ref| (tol {LM_LAYER_TOLERANCE}); "
+                    f"vs float64 {ek:.3e}, ref {er:.3e} (limit {lim:.3e})")
+            key = f"{stack}_{kind}"
+            w = worst.setdefault(key, [0.0, 0.0, 0.0])
+            w[0], w[1] = max(w[0], err), max(w[1], ek)
+            w[2] = max(w[2], ek / max(er, 1e-30))
+            rows.append((stack, i, kind, err, ek, er))
+            del af, ar, q, k, v, o64
+    print("encdec layer check (f32, flash forward, every attention "
+          "sublayer; worst kernel-vs-ref of max|ref| (tol "
+          f"{LM_LAYER_TOLERANCE:g}), worst kernel-vs-float64 of max|f64| "
+          f"(first {F64_POSITIONS} queries of row 0), worst kernel / ref "
+          "float64 error ratio): " + "; ".join(
+              f"{k} {v[0]:.2e} {v[1]:.2e} {v[2]:.2f}"
+              for k, v in worst.items()) + f" -- {len(rows)} sublayers")
+    return worst
+
+
+def encdec_prefill(torch) -> dict:
+    """Full-width seamless-m4t-large-v2 drawn on the card in f32: two
+    timed prefills through ``make_prefill_step`` at 2 x 4096 over 4096
+    source frames (72 flash launches a forward: 24 encoder, 24 decoder
+    self, 24 cross), the ref prefill's distance printed, the per-layer
+    check, and the depth-1 cut over 1024 frames (a cross call with Lq
+    4096 > Lk 1024): the flash logits no farther from the float64 oracle
+    (``repro_torch.testing.float64``) than max(F64_FACTOR x ref's,
+    LM_TOLERANCE), the oracle's next token."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+    from repro_torch.testing import float64
+
+    cfg = registry.get(ENCDEC_ARCH).CONFIG
+    assert cfg.attn_impl == "flash" and cfg.family == "encdec"
+    n_att = cfg.enc_layers + 2 * cfg.dec_layers
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(api.params(cfg), torch.Generator(device="cuda")
+                         .manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    tokens, src = encdec_inputs(torch, cfg, ENCDEC_BATCH, ENCDEC_SEQ,
+                                ENCDEC_SEQ, 39, torch.float32)
+    batch = {"tokens": tokens, "src": src}
+    prefill = steps.make_prefill_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        logits, nxt = prefill(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches != {"flash_attention": 2 * n_att,
+                    "flash_attention_bf16": 0}:
+        raise AssertionError(f"encdec prefill: launches {launches} in 2 "
+                             f"forwards, want {n_att} f32 each")
+    if tuple(logits.shape) != (ENCDEC_BATCH, ENCDEC_SEQ, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"encdec prefill: logits {tuple(logits.shape)}"
+                             " not finite or of the wrong shape")
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    ref_logits, ref_nxt = steps.make_prefill_step(
+        cfg.replace(attn_impl="ref"))(params, batch)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    if fa.LAUNCHES["flash_attention"]:
+        raise AssertionError("encdec prefill: the ref forward launched the "
+                             "kernel")
+    drift = ((logits - ref_logits).abs().max()
+             / ref_logits.abs().max()).item()
+    print(f"encdec: {cfg.name} full width ({cfg.enc_layers} + "
+          f"{cfg.dec_layers} layers), {registry.count_params(cfg):,} "
+          f"parameters drawn on the card in {draw_s:.2f} s; prefill "
+          f"{ENCDEC_BATCH} x {ENCDEC_SEQ} tokens over {ENCDEC_SEQ} frames, "
+          f"flash {times[1]:.1f} ms a forward (first {times[0]:.1f} ms), "
+          f"{n_att} launches each; ref {ref_ms:.1f} ms; peak "
+          f"{peak:.2f} GiB (flash forwards); whole-depth logits flash vs "
+          f"ref {drift:.2e} of max|ref|, next tokens {nxt.tolist()} vs "
+          f"{ref_nxt.tolist()} (printed)")
+    del logits, ref_logits
+    torch.cuda.empty_cache()
+    worst = encdec_layer_check(torch, cfg, params, src, tokens)
+
+    # the depth-1 cut: three attention calls in series, each f32 path
+    # held against the float64 oracle (row 0), not against the other
+    c1, p1 = cfg.replace(enc_layers=1, dec_layers=1, n_layers=2), \
+        encdec_cut(params, 1)
+    b1 = {"tokens": tokens[:1],
+          "src": src[:1, :ENCDEC_CUT_SRC].contiguous()}
+    fa.reset_launch_counts()
+    l1, n1 = steps.make_prefill_step(c1)(p1, b1)
+    cut_launches = fa.LAUNCHES["flash_attention"]
+    r1, _ = steps.make_prefill_step(c1.replace(attn_impl="ref"))(p1, b1)
+    with float64.float64(), torch.no_grad():
+        l64, _ = api.forward(float64.widen(p1), {
+            "tokens": b1["tokens"], "src": b1["src"].double()},
+            c1.replace(attn_impl="ref"))
+    scale = l64.abs().max().item()
+    err1, ref1 = ((x.double() - l64).abs().max().item() / scale
+                  for x in (l1, r1))
+    lim = max(F64_FACTOR * ref1, LM_TOLERANCE)
+    want1 = l64[:, -1].argmax(-1)
+    if cut_launches != 3 or not np.isfinite(err1) or err1 > lim or \
+            not same_tokens(n1, want1, l64[:, -1], lim * scale):
+        raise AssertionError(f"encdec depth-1 cut: {cut_launches} launches, "
+                             f"flash {err1:.3e} of max|f64 logits| from the "
+                             f"float64 oracle, ref {ref1:.3e} (limit "
+                             f"{lim:.3e}), tokens {n1.tolist()} vs "
+                             f"{want1.tolist()}")
+    print(f"encdec depth-1 cut ({ENCDEC_SEQ} tokens over {ENCDEC_CUT_SRC} "
+          f"frames: the cross call has Lq > Lk; row 0): logits of max|f64| "
+          f"from the float64 oracle flash {err1:.2e}, ref {ref1:.2e} (limit "
+          f"max({F64_FACTOR:g} x ref's, {LM_TOLERANCE:g})), flash vs ref "
+          f"{(l1 - r1).abs().max().item() / r1.abs().max().item():.2e}; "
+          f"next token {n1.tolist()} == {want1.tolist()}")
+    del l1, r1, l64, p1
+    torch.cuda.empty_cache()
+    return dict(cfg=cfg, params=params, ms=times[1], ref_ms=ref_ms,
+                peak=peak, launches=launches["flash_attention"],
+                worst=worst, err1=err1)
+
+
+def encdec_bf16_layers(torch, cfg, params, src, tokens) -> list:
+    """Along the bf16 forward, every sublayer run in bf16 and in f32 (its
+    params widened) on the same bf16 input: each MLP within
+    LM_BF16_TOLERANCE of max|f32 out|; each attention sublayer's core, the
+    bf16 kernel against the f32 kernel on the same bf16 q, k, v, within
+    FLASH_BF16_TOLERANCE of max|o| (the whole sublayer's distance
+    printed, as bf16_layer_check does).  Returns the worst of each."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as L
+    c32 = cfg.replace(dtype="float32")
+    worst = {}
+
+    def note(key, err, lim):
+        if not np.isfinite(err) or (lim is not None and err > lim):
+            raise AssertionError(f"encdec bf16 {key}: {err:.3e} (tol "
+                                 f"{lim})")
+        worst[key] = max(worst.get(key, 0.0), err)
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+    with torch.no_grad():
+        for stack, i, kind, p, h, causal, enc, pos in encdec_walk(
+                torch, cfg, params, src, tokens):
+            pf = widened(p)
+            if kind == "mlp":
+                yb, yf = L.mlp_apply(p, h, cfg), L.mlp_apply(pf, h.float(),
+                                                             c32)
+                if yb.dtype != torch.bfloat16:
+                    raise AssertionError(f"encdec bf16 MLP is {yb.dtype}")
+                note(f"{stack}_mlp", rel(yb, yf), LM_BF16_TOLERANCE)
+                continue
+            yb = encdec_sublayer(L, p, h, cfg, causal, enc, pos)
+            yf = encdec_sublayer(L, pf, h.float(), c32, causal,
+                                 None if enc is None else enc.float(), pos)
+            note(f"{stack}_{kind}_sublayer", rel(yb, yf), None)
+            q, k, v = encdec_qkv(torch, L, p, h, cfg, enc, pos)
+            ob = fa.flash_attention(q, k, v, causal=causal)
+            of = fa.flash_attention(q.float(), k.float(), v.float(),
+                                    causal=causal)
+            note(f"{stack}_{kind}_kernel", rel(ob, of), FLASH_BF16_TOLERANCE)
+            del pf, yb, yf, q, k, v, ob, of
+    torch.cuda.empty_cache()
+    return worst
+
+
+def encdec_bf16(torch, cfg, f32: dict) -> dict:
+    """seamless-m4t-large-v2 drawn in bf16 (the same seed; norm scales
+    f32): two timed bf16 prefills with a bf16 ``src`` (72 bf16 flash
+    launches a forward, no f32 one), logits bf16, finite; the f32 twin's
+    (the same weights widened) last-position distance printed; the bf16
+    per-sublayer check along the forward; 4 greedy requests through bf16
+    decode steps.  ``cfg``: the f32 config; ``f32``: the f32 prefill's
+    figures of this call."""
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+
+    cfg = cfg.replace(dtype="bfloat16")
+    n_att = cfg.enc_layers + 2 * cfg.dec_layers
+    params = init_params(api.params(cfg), torch.Generator(device="cuda")
+                         .manual_seed(0), device="cuda",
+                         dtype=torch.bfloat16)
+    tokens, src = encdec_inputs(torch, cfg, ENCDEC_BATCH, ENCDEC_SEQ,
+                                ENCDEC_SEQ, 39, torch.bfloat16)
+    prefill = steps.make_prefill_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        logits, nxt = prefill(params, {"tokens": tokens, "src": src})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches != {"flash_attention": 0,
+                    "flash_attention_bf16": 2 * n_att}:
+        raise AssertionError(f"encdec bf16 prefill: launches {launches}")
+    if logits.dtype != torch.bfloat16 or not bool(
+            torch.isfinite(logits).all()) or tuple(logits.shape) != (
+            ENCDEC_BATCH, ENCDEC_SEQ, cfg.vocab):
+        raise AssertionError(f"encdec bf16 prefill: logits "
+                             f"{tuple(logits.shape)} {logits.dtype}")
+    last = logits[:, -1].float()
+    del logits
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        f32_logits, f32_nxt = steps.make_prefill_step(
+            cfg.replace(dtype="float32"))(widened(params), {
+                "tokens": tokens, "src": src.float()})
+    f32_last = f32_logits[:, -1]
+    del f32_logits
+    torch.cuda.empty_cache()
+    dist = ((last - f32_last).abs().max() / f32_last.abs().max()).item()
+    worst = encdec_bf16_layers(torch, cfg, params, src, tokens)
+    req = bf16_requests(torch, cfg, params)
+    print(f"encdec bf16: prefill {ENCDEC_BATCH} x {ENCDEC_SEQ} over "
+          f"{ENCDEC_SEQ} bf16 frames {times[1]:.1f} ms a forward (first "
+          f"{times[0]:.1f} ms; f32 {f32['ms']:.1f} ms, peak "
+          f"{f32['peak']:.2f} GiB), peak {peak:.2f} GiB; launches in 2 "
+          f"forwards {launches}; last-position logits vs the f32 twin "
+          f"{dist:.3e} of max|f32| (printed), next tokens {nxt.tolist()} "
+          f"vs {f32_nxt.tolist()}")
+    print("encdec bf16 sublayers along the bf16 forward, bf16 vs f32 on the "
+          "same bf16 input, worst of each kind (checked: MLPs "
+          f"{LM_BF16_TOLERANCE:g}, kernel cores {FLASH_BF16_TOLERANCE:g}; "
+          "whole attention sublayers printed): " + ", ".join(
+              f"{k} {v:.2e}" for k, v in worst.items()))
+    print(f"encdec bf16: {BF16_REQUESTS} requests, {BF16_PROMPT}-token "
+          f"prompts, {BF16_GEN} greedy tokens through bf16 decode steps: "
+          f"{req['ms_step']:.2f} ms a step; tokens {req['tokens']}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(ms=times[1], first_ms=times[0], peak=peak, dist=dist,
+                worst=worst, launches=launches["flash_attention_bf16"],
+                **req)
+
+
+def encdec_bwd_layer_check(torch, cfg, params) -> dict:
+    """Along the f32 flash forward of one row of BWD_F64_POSITIONS tokens
+    over as many frames, each of the 72 attention sublayers' backward at
+    its own q, k, v and a seeded cotangent: on the kernels, on autograd
+    of the f32 ref oracle and of float64 attention; the kernels' error of
+    max|f64 grad| at most max(F64_FACTOR x ref's, ATTN_TOLERANCE)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
+    from repro_torch.testing import float64
+    tokens, src = encdec_inputs(torch, cfg, 1, BWD_F64_POSITIONS,
+                                BWD_F64_POSITIONS, 40, torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    worst = {"kernel": 0.0, "ref": 0.0, "ratio": 0.0}
+    n = 0
+    with torch.no_grad():
+        for stack, i, kind, p, h, causal, enc, pos in encdec_walk(
+                torch, cfg, params, src, tokens):
+            if kind == "mlp":
+                continue
+            q, k, v = encdec_qkv(torch, L, p, h, cfg, enc, pos)
+            do = torch.randn(q.shape, generator=gen, device="cuda")
+            grads = {}
+            with torch.enable_grad():
+                for name, fn, dt in (
+                        ("kernel", lambda a, b, c: fa.flash_attention(
+                            a, b, c, causal=causal), torch.float32),
+                        ("ref", lambda a, b, c: ref.attention(
+                            a, b, c, causal=causal), torch.float32),
+                        ("f64", lambda a, b, c: float64.attention(
+                            a, b, c, causal=causal), torch.float64)):
+                    lv = [t.to(dt).requires_grad_() for t in (q, k, v)]
+                    grads[name] = torch.autograd.grad(fn(*lv), lv,
+                                                      do.to(dt))
+            for g64, gk, gr in zip(grads["f64"], grads["kernel"],
+                                   grads["ref"]):
+                scale = g64.abs().max().item()
+                ek = (gk.double() - g64).abs().max().item() / scale
+                er = (gr.double() - g64).abs().max().item() / scale
+                lim = max(F64_FACTOR * er, ATTN_TOLERANCE)
+                if not ek <= lim:
+                    raise AssertionError(
+                        f"encdec train {stack} layer {i} {kind}: the "
+                        f"backward on the kernels is {ek:.3e} of max|f64 "
+                        f"grad| from float64, ref {er:.3e}: above {lim:.3e}")
+                worst["kernel"] = max(worst["kernel"], ek)
+                worst["ref"] = max(worst["ref"], er)
+                worst["ratio"] = max(worst["ratio"], ek / max(er, 1e-30))
+            n += 1
+            del grads, q, k, v, do
+    worst["sublayers"] = n
+    return worst
+
+
+def encdec_steps(torch, cfg, state, opt, dtype, n) -> dict:
+    """``n`` timed AdamW steps of ``steps.make_train_step`` on ``state``
+    (ENCDEC_TRAIN_BATCH x ENCDEC_TRAIN_SEQ - 1 copy-task tokens over
+    ENCDEC_TRAIN_SRC frames of ``dtype`` a row): losses, grad norms, ms a
+    step (host clock, synchronised), peak, launches a step of the route's
+    flash kernels."""
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import flash_attention as fa
+    bf16 = dtype == torch.bfloat16
+    stream = SyntheticStream(DataConfig(batch=ENCDEC_TRAIN_BATCH,
+                                        seq=ENCDEC_TRAIN_SEQ,
+                                        vocab=cfg.vocab, task="copy"))
+    rng = np.random.default_rng(41)
+    step_fn = steps.make_train_step(cfg, opt)
+    out = {"losses": [], "grad_norms": [], "step_ms": [], "per_step": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(n):
+        b_ = {k: torch.from_numpy(v).cuda() for k, v in next(stream).items()}
+        b_["src"] = torch.from_numpy(rng.standard_normal(
+            (ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SRC, cfg.d_model)).astype(
+            np.float32)).cuda().to(dtype)
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, b_)
+        out["losses"].append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["grad_norms"].append(float(metrics["grad_norm"]))
+        out["per_step"].append({
+            **route_counts(fa.LAUNCHES, bf16),
+            **route_counts(fa.BWD_LAUNCHES, bf16)})
+    out["peak"] = torch.cuda.max_memory_allocated() / 2**30
+    out["steady_ms"] = float(np.mean(out["step_ms"][1:]))
+    return out
+
+
+def encdec_train(torch, cfg) -> dict:
+    """Full-width seamless-m4t-large-v2 trained through
+    ``steps.make_train_step`` (remat, flash forward and backward kernels;
+    the trainer's entry point refuses the family: its stream feeds no
+    ``src``), f32 then bf16 (params drawn in bf16, f32 moments):
+    ENCDEC_TRAIN_STEPS timed steps each, every loss and every leaf
+    finite, a step launching the forward 144 times (72 calls, remat) and
+    the dQ and dK/dV kernels 72 times each (MHA: no partial sum); the
+    grad norm as the reference computes it (an f32 sum of squares, inf
+    at this depth under the JAX initialiser: ``train_clip_state``); then
+    the same at the ENCDEC_TRAIN_CUT + ENCDEC_TRAIN_CUT-layer full-width
+    cut, where every grad norm must be finite and the gradient reach mu
+    and nu.  Before the
+    f32 steps, on their initial params: the depth-1 cut's first-step
+    gradients (the backward kernels against the plain backward in
+    float64 on the same forward, flash against ref) and every attention
+    sublayer's backward against float64 (:func:`encdec_bwd_layer_check`)."""
+    from repro_torch.distributed import steps
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+    from repro_torch.optim import AdamWConfig, adamw
+
+    assert cfg.remat
+    n_att = cfg.enc_layers + 2 * cfg.dec_layers
+    opt = AdamWConfig(lr=3e-3, warmup_steps=10,
+                      decay_steps=ENCDEC_TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    state = steps.init_train_state(
+        cfg, opt, torch.Generator(device="cuda").manual_seed(0))
+
+    c1 = cfg.replace(enc_layers=1, dec_layers=1, n_layers=2)
+    tokens, src = encdec_inputs(torch, cfg, 1, ENCDEC_GRAD_TOKENS + 1,
+                                ENCDEC_GRAD_SRC, 42, torch.float32)
+    gbatch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:],
+              "src": src}
+    cut = lm_grads(torch, c1, encdec_cut(state["params"], 1), gbatch,
+                   plain_bwd=True)
+    cut_err, cut_leaf = cut["flash_ref"]
+    bwd_err, bwd_leaf = cut["flash_plain_bwd"]
+    plain32 = cut["plain_bwd32_plain_bwd"][0]
+    if not (cut["finite"] and bwd_err <= BWD_TOLERANCE
+            and bwd_err <= plain32 and cut_err <= LM_GRAD_TOLERANCE):
+        raise AssertionError(
+            f"encdec train: depth-1 gradients, backward kernels vs the "
+            f"float64 plain backward {bwd_err:.3e} at {bwd_leaf} (tol "
+            f"{BWD_TOLERANCE}, and at most the f32 plain's {plain32:.3e}), "
+            f"flash vs ref {cut_err:.3e} at {cut_leaf} (tol "
+            f"{LM_GRAD_TOLERANCE})")
+    f64 = encdec_bwd_layer_check(torch, cfg, state["params"])
+    print(f"encdec train: depth-1 cut first-step gradients (1 x "
+          f"{ENCDEC_GRAD_TOKENS} tokens over {ENCDEC_GRAD_SRC} frames), of "
+          f"each leaf's max: the backward kernels vs the float64 plain "
+          f"backward {bwd_err:.2e} ({bwd_leaf}; tol {BWD_TOLERANCE:g}, f32 "
+          f"plain vs it {plain32:.2e}), flash vs ref {cut_err:.2e} "
+          f"({cut_leaf}; tol {LM_GRAD_TOLERANCE:g}), chunked vs ref "
+          f"{cut['chunked_ref'][0]:.2e}; every attention sublayer's "
+          f"backward ({f64['sublayers']}, 1 x {BWD_F64_POSITIONS} over as "
+          f"many frames) vs float64: kernels' worst {f64['kernel']:.2e} of "
+          f"max|f64 grad|, the f32 ref's {f64['ref']:.2e}, worst ratio "
+          f"{f64['ratio']:.1f}")
+    del gbatch, cut
+
+    def fresh(c, dtype):
+        """A train state of ``c`` from seed 0: params of ``dtype`` (norm
+        scales f32), f32 moments."""
+        params = init_params(api.params(c), torch.Generator(
+            device="cuda").manual_seed(0), device="cuda", dtype=dtype)
+        return {"params": params, "opt": adamw.init_moments(params, opt),
+                "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+
+    def want(c, bf16):
+        n = c.enc_layers + 2 * c.dec_layers
+        w = {"flash_attention": 2 * n, "flash_attention_bwd_dkdv": n,
+             "flash_attention_bwd_dq": n, "flash_attention_bwd_sum": 0}
+        return {f"{k}_bf16": v for k, v in w.items()} if bf16 else w
+
+    ccfg = cfg.replace(enc_layers=ENCDEC_TRAIN_CUT,
+                       dec_layers=ENCDEC_TRAIN_CUT,
+                       n_layers=2 * ENCDEC_TRAIN_CUT)
+    out = {}
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        bf16 = dtype == torch.bfloat16
+        for depth, c in (("full", cfg), ("cut", ccfg)):
+            if state is None:
+                state = fresh(c, dtype)
+            r = encdec_steps(torch, c, state, opt, dtype, ENCDEC_TRAIN_STEPS)
+            where = f"encdec {label} " + (
+                "full width" if depth == "full" else
+                f"{ENCDEC_TRAIN_CUT} + {ENCDEC_TRAIN_CUT}-layer full-width "
+                "cut")
+            # at full depth the f32 sum of squares may overflow (ROADMAP
+            # Queue 3: the reference's arithmetic, kept); the cut's must
+            # not, and its gradient must reach mu and nu
+            clip = train_clip_state(torch, state, r["grad_norms"], where)
+            n_bf16 = sum(t.dtype == torch.bfloat16
+                         for t in adamw.tree_leaves(state["params"]))
+            state = None
+            torch.cuda.empty_cache()
+            if any(x != want(c, bf16) for x in r["per_step"]) or \
+                    not np.isfinite(r["losses"]).all() or \
+                    (n_bf16 > 0) != bf16 or (depth == "cut" and not (
+                        np.isfinite(r["grad_norms"]).all()
+                        and min(clip["scales"]) > 0)):
+                raise AssertionError(
+                    f"{where}: launches a step {r['per_step']}, want "
+                    f"{want(c, bf16)}; losses {r['losses']}, grad norms "
+                    f"{r['grad_norms']}, clip scales {clip['scales']}")
+            print(f"{where} (remat), batch {ENCDEC_TRAIN_BATCH} x "
+                  f"{ENCDEC_TRAIN_SEQ - 1} tokens over {ENCDEC_TRAIN_SRC} "
+                  f"frames, {ENCDEC_TRAIN_STEPS} AdamW steps: losses "
+                  f"{[round(x, 4) for x in r['losses']]}, grad norms "
+                  f"{r['grad_norms']}, ms a step "
+                  f"{[round(x, 1) for x in r['step_ms']]} (steady "
+                  f"{r['steady_ms']:.1f}), peak {r['peak']:.2f} GiB; "
+                  f"launches a step {r['per_step'][0]}")
+            out[f"{label}_{depth}" if depth == "cut" else label] = dict(
+                r, clip=clip, launches={
+                    k: sum(x[k] for x in r["per_step"])
+                    for k in want(c, bf16)})
+    out.update(cut_err=cut_err, bwd_err=bwd_err, bwd_f64=f64)
+    return out
+
+
+def encdec_flash_times(torch) -> dict:
+    """The flash kernel at seamless-m4t-large-v2's calls (batch 2, MHA 16
+    heads, D 64), f32 and bf16, device ms from CUDA graphs: the forward
+    at ENCDEC_FWD_TIMES beside SDPA on the same call (CUDA graphs) and
+    the bound (f32: the 3xTF32 route's, :func:`attention_bound`; bf16: 989
+    TFLOP/s or 2 bytes an element); the backward (dQ and dK/dV launches,
+    each and together) at ENCDEC_BWD_TIMES beside SDPA's backward on the
+    same call (events) and the bound of :func:`flash_bwd_bounds` (3xTF32)
+    / :func:`flash_bwd_bounds_bf16`.  Correctness at these shapes is the
+    attention and flash backward checks' (the s_* cases)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(39)
+    sdpa = F.scaled_dot_product_attention
+    b, h, d = 2, 16, 64
+    rows = {}
+    print("encdec flash times (seamless calls, batch 2, 16 x 16 heads, D 64;"
+          " ms: kernel and SDPA forward from CUDA graphs, SDPA backward "
+          "events):")
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for name, lq, lk, causal in ENCDEC_FWD_TIMES:
+            q = torch.randn((b, lq, h, d), generator=gen,
+                            device="cuda").to(dtype)
+            k, v = (torch.randn((b, lk, h, d), generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            kernel = time_graph_ms(torch, lambda: fa.flash_attention(
+                q, k, v, causal=causal), reps=5)
+            library = time_graph_ms(torch, lambda: sdpa(
+                qt, kt, vt, is_causal=causal), reps=5)
+            bound, by, flops, nbytes, _ = attention_bound(b, lq, lk, h, h, d,
+                                                          causal, None)
+            if dtype == torch.bfloat16:
+                bd = bf16_bound(flops, nbytes // 2)
+                bound, by = bd["bound"], bd["by"]
+            rows[(tag, name)] = dict(ms=kernel, library=library,
+                                     bound=bound, by=by)
+            print(f"  {tag:4s} fwd {name:12s} Lq {lq} Lk {lk} "
+                  f"{'causal' if causal else 'non-causal':10s} kernel "
+                  f"{kernel:.3f} SDPA {library:.3f} bound {bound:.3f} ({by})"
+                  f" {flops / kernel / 1e9:.1f} TFLOP/s")
+            del q, k, v, qt, kt, vt
+        for name, lq, lk, causal in ENCDEC_BWD_TIMES:
+            q, do = (torch.randn((b, lq, h, d), generator=gen,
+                                 device="cuda").to(dtype) for _ in range(2))
+            k, v = (torch.randn((b, lk, h, d), generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            kw = dict(causal=causal, soft_cap=None, window=None)
+            lse = torch.empty((b, h, lq), device="cuda")
+            fa._launch_forward(q, k, v, causal, None, None, lse)
+            stats = torch.empty((2, b, h, lq), device="cuda")
+            dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+            t = {"backward": time_graph_ms(torch, lambda: fa.
+                                           flash_attention_backward(
+                                               q, k, v, lse, do, **kw),
+                                           reps=5),
+                 "dq": time_graph_ms(torch, lambda: fa._launch_backward(
+                     "dq", q, k, v, do, lse, stats, (dq,), **kw), reps=5),
+                 "dkdv": time_graph_ms(torch, lambda: fa._launch_backward(
+                     "dkdv", q, k, v, do, lse, stats, (dk, dv), **kw),
+                     reps=5)}
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            out = sdpa(qt, kt, vt, is_causal=causal)
+            t["library"] = time_ms(torch, lambda: torch.autograd.grad(
+                out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+            if dtype == torch.bfloat16:
+                bb = flash_bwd_bounds_bf16(b, lq, lk, h, h, d, causal, None)
+                bounds = {p: bb[p] for p in ("backward", "dq", "dkdv")}
+            else:
+                bb = flash_bwd_bounds(b, lq, lk, h, h, d, causal, None)
+                bounds = {p: bb[p]["tf32x3"] for p in ("backward", "dq",
+                                                       "dkdv")}
+            rows[(tag, name)] = dict(t, bounds=bounds)
+            print(f"  {tag:4s} bwd {name:12s} Lq {lq} Lk {lk} "
+                  f"{'causal' if causal else 'non-causal':10s} backward "
+                  f"{t['backward']:.3f} (dq {t['dq']:.3f}, dkdv "
+                  f"{t['dkdv']:.3f}) SDPA backward {t['library']:.3f} bound "
+                  f"{bounds['backward'][0]:.3f} (dq "
+                  f"{bounds['dq'][0]:.3f}, dkdv {bounds['dkdv'][0]:.3f}; "
+                  f"{bounds['backward'][1]})")
+            del q, k, v, do, lse, stats, dq, dk, dv, out, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def encdec_phase(torch) -> dict:
+    """Phase 39 (module docstring)."""
+    torch.cuda.empty_cache()
+    out = {"times": encdec_flash_times(torch)}
+    pre = encdec_prefill(torch)
+    served = family_serve(torch, "encdec", pre["cfg"], pre["params"], 39)
+    cfg = pre.pop("cfg")
+    del pre["params"]
+    torch.cuda.empty_cache()
+    bf = encdec_bf16(torch, cfg, pre)
+    tr = encdec_train(torch, cfg)
+    out.update(prefill=pre, served=served, bf16=bf, train=tr)
+    launches = {"flash_attention": pre["launches"],
+                "flash_attention_bf16": bf["launches"]}
+    for run in ("f32", "f32_cut", "bf16", "bf16_cut"):
+        for k, v in tr[run]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    print(f"encdec: launches of the phase's main paths {launches} (two f32 "
+          f"and two bf16 prefills; {ENCDEC_TRAIN_STEPS} training steps at "
+          f"full depth and at the cut, in f32 and in bf16)")
+    return out
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -7097,6 +7869,9 @@ def run(torch, args, cache_dir: str) -> int:
     phase.done("train_lm_bf16")
     tb = train_bf16(torch, train_stats)
     phase.done("train_bf16")
+    ed = encdec_phase(torch)
+    phase.done("encdec")
+    et, el = ed["times"], ed["launches"]
 
     vgg = [r for r in rows if r["vgg"]]
     kernels = []
@@ -7304,7 +8079,8 @@ def run(torch, args, cache_dir: str) -> int:
         "replaces": "src/repro/kernels/flash_attention.py:31",
         "launches": (lm["launches"] + rg["launches"]["flash_attention"]
                      + lmt["launches"]["flash_attention"]
-                     + rgt["launches"]["flash_attention"]),
+                     + rgt["launches"]["flash_attention"]
+                     + el["flash_attention"]),
         "max_abs_err": max(r["err"] for r in arows),
         "ms": a["kernel"],
         "plain_ms": a["plain"],
@@ -7321,6 +8097,15 @@ def run(torch, args, cache_dir: str) -> int:
         "d320_ms": af32["kernel"],
         "d320_bound_ms": af32["bound"],
         "d320_library_ms": af32["library"],
+        # seamless-m4t-large-v2's calls (MHA, D 64; CUDA graphs; SDPA on
+        # the same call): its encoder's non-causal self-attention and its
+        # decoder's causal one at 2 x 4096, a cross call of 4096 queries
+        # onto 1024 keys
+        **{f"{n}_{k}": et[("f32", n)][v]
+           for n in ("s_enc", "s_dec", "s_cross_long")
+           for k, v in (("ms", "ms"), ("bound_ms", "bound"),
+                        ("library_ms", "library"))},
+        "encdec_launches": el["flash_attention"],
     })
     bt = next(r for r in fbrows if r["name"] == "t_train")
     bc = next(r for r in fbrows if r["name"] == "c_rgemma")
@@ -7334,7 +8119,8 @@ def run(torch, args, cache_dir: str) -> int:
             # to XLA's autodiff of ops.attention(impl="chunked")
             "replaces": "src/repro/kernels/flash_attention.py:31",
             "launches": (lmt["launches"][f"flash_attention_bwd_{part}"]
-                         + rgt["launches"][f"flash_attention_bwd_{part}"]),
+                         + rgt["launches"][f"flash_attention_bwd_{part}"]
+                         + el[f"flash_attention_bwd_{part}"]),
             "max_abs_err": max(r["abs_err"] for r in fbrows),
             "max_rel_err": max(err_of(r) for r in fbrows),
             "ms": bt[part],
@@ -7357,6 +8143,16 @@ def run(torch, args, cache_dir: str) -> int:
             "rgemma_ms": bc[part],
             "rgemma_bound_ms": bc["bounds"][part]["tf32x3"][0],
             "rgemma_backward_ms": bc["backward"],
+            # seamless-m4t-large-v2's training calls (2 x 1024, MHA, D
+            # 64; CUDA graphs): causal (decoder) and non-causal (encoder,
+            # cross); SDPA's backward on the same call beside them
+            **{f"{n}_{k}": v for n in ("s_train", "s_train_nc")
+               for k, v in (
+                   ("ms", et[("f32", n)][part]),
+                   ("bound_ms", et[("f32", n)]["bounds"][part][0]),
+                   ("backward_ms", et[("f32", n)]["backward"]),
+                   ("sdpa_bwd_ms", et[("f32", n)]["library"]))},
+            "encdec_launches": el[f"flash_attention_bwd_{part}"],
         })
     kernels.append({
         "name": "flash_attention_bwd_sum",
@@ -7572,7 +8368,8 @@ def run(torch, args, cache_dir: str) -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:31",
-        "launches": lmb["launches"]["flash_attention_bf16"],
+        "launches": (lmb["launches"]["flash_attention_bf16"]
+                     + el["flash_attention_bf16"]),
         "max_abs_err": max(r["err"] for r in lmb["flash"]),
         "max_rel_err": max(r["rel"] for r in lmb["flash"]),
         "max_f64_excess": max(r["excess"] for r in lmb["flash"]),
@@ -7596,6 +8393,12 @@ def run(torch, args, cache_dir: str) -> int:
         "d320_bound_ms": af["bound"],
         "d320_route_bound_ms": af["route_bound"],
         "d320_library_ms": af["library"],
+        # seamless-m4t-large-v2's calls in bf16 (CUDA graphs, SDPA bf16)
+        **{f"{n}_{k}": et[("bf16", n)][v]
+           for n in ("s_enc", "s_dec", "s_cross_long")
+           for k, v in (("ms", "ms"), ("bound_ms", "bound"),
+                        ("library_ms", "library"))},
+        "encdec_launches": el["flash_attention_bf16"],
     })
     wr, wm = (c1w_rows[(n, "bfloat16")] for n in ("rg_train", "mamba_view"))
     kernels.append({
@@ -7646,7 +8449,8 @@ def run(torch, args, cache_dir: str) -> int:
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention.py:31",
-            "launches": tlb["launches"][f"flash_attention_bwd_{part}_bf16"],
+            "launches": (tlb["launches"][f"flash_attention_bwd_{part}_bf16"]
+                         + el[f"flash_attention_bwd_{part}_bf16"]),
             # against the plain bf16 backward (f32 math, one rounding)
             "max_abs_err": max(r["abs_err"] for r in fb16),
             # past the plain bf16 backward's distance from float64 plus
@@ -7673,6 +8477,14 @@ def run(torch, args, cache_dir: str) -> int:
             "rgemma_ms": fc[part],
             "rgemma_bound_ms": fc["bounds"][part][0],
             "rgemma_backward_ms": fc["backward"],
+            # seamless-m4t-large-v2's training calls in bf16
+            **{f"{n}_{k}": v for n in ("s_train", "s_train_nc")
+               for k, v in (
+                   ("ms", et[("bf16", n)][part]),
+                   ("bound_ms", et[("bf16", n)]["bounds"][part][0]),
+                   ("backward_ms", et[("bf16", n)]["backward"]),
+                   ("sdpa_bwd_ms", et[("bf16", n)]["library"]))},
+            "encdec_launches": el[f"flash_attention_bwd_{part}_bf16"],
         })
     kernels.append({
         "name": "flash_attention_bwd_sum_bf16",
@@ -7709,6 +8521,18 @@ def run(torch, args, cache_dir: str) -> int:
           "stem_*: one launch at those cases), its launches the "
           f"{BF16_TRAIN_STEPS} timed steps'; the bf16 carry launches include "
           f"them ({tb['launches']['carry_bf16']})")
+    ep, etr = ed["prefill"], ed["train"]
+    print(f"encdec ({ENCDEC_ARCH}): prefill {ep['ms']:.1f} ms a forward "
+          f"(2 x {ENCDEC_SEQ} over {ENCDEC_SEQ} frames; bf16 "
+          f"{ed['bf16']['ms']:.1f}), peak {ep['peak']:.2f} GiB (bf16 "
+          f"{ed['bf16']['peak']:.2f}); serve {ed['served']['tok_s']:.1f} "
+          f"tok/s, {ed['served']['step_ms']:.2f} ms a step (bf16 decode "
+          f"{ed['bf16']['ms_step']:.2f} ms a step); train "
+          f"{etr['f32']['steady_ms']:.1f} ms a step f32, "
+          f"{etr['bf16']['steady_ms']:.1f} bf16 (2 x 1024 over 1024 frames),"
+          f" peak {etr['f32']['peak']:.2f} / {etr['bf16']['peak']:.2f} GiB; "
+          f"the flash entries' s_* times are one launch at seamless's "
+          f"calls, encdec_launches the phase's share of their launches")
     phase.total()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

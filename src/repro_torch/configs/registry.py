@@ -1,10 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolution and parameter counts
 (the counterpart of ``repro/configs/registry.py``).
 
-The port runs the dense decoder family, the ssm family (falcon-mamba-7b)
-and the hybrid family (recurrentgemma-2b).  The other architectures of
-the JAX package are known by id and raise ``NotImplementedError`` naming
-the ROADMAP item that brings their family.
+The port runs the dense decoder family, the ssm family (falcon-mamba-7b),
+the hybrid family (recurrentgemma-2b) and the encoder-decoder family
+(seamless-m4t-large-v2).  The MoE architectures of the JAX package are
+known by id and raise ``NotImplementedError`` naming the ROADMAP item
+that brings their family.
 """
 
 from __future__ import annotations
@@ -16,13 +17,13 @@ from repro_torch.models.base import tree_size
 from repro_torch.models.config import ModelConfig
 
 _MODULES = ["qwen25_3b", "starcoder2_3b", "starcoder2_7b", "llama3_405b",
-            "llava_next_34b", "falcon_mamba", "recurrentgemma_2b"]
+            "llava_next_34b", "falcon_mamba", "recurrentgemma_2b",
+            "seamless_m4t"]
 
 # arch id -> family, of the JAX package's architectures not ported yet
 NOT_PORTED = {
     "phi3.5-moe-42b-a6.6b": "moe",
     "qwen3-moe-30b-a3b": "moe",
-    "seamless-m4t-large-v2": "encdec",
 }
 
 _TABLE: dict | None = None

@@ -44,7 +44,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     then updates params, moments and step in place (``adamw.
     apply_updates_``), and the same state is returned.  Metrics: ``loss``,
     ``grad_norm``, ``lr`` (0-d tensors).  batch: ``tokens``, ``labels``
-    (B, S) integer tensors on the params' device.
+    (B, S) integer tensors on the params' device, and for an
+    encoder-decoder ``src`` (B, Ls, d_model) in the params' dtype; every
+    key splits into the micro-batches.
 
     bf16 params (``init_params(..., dtype=torch.bfloat16)``, the norms'
     scales f32 as in JAX) train as JAX's ``make_train_step`` trains them:
@@ -96,7 +98,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 
 def make_prefill_step(cfg: ModelConfig):
     """``prefill(params, batch) -> (logits, next_tok)``: the full-sequence
-    forward and the greedy next token from the last position."""
+    forward and the greedy next token from the last position.  batch:
+    ``tokens`` (and ``vision`` for a VLM, ``src`` for an
+    encoder-decoder)."""
     @torch.no_grad()
     def prefill(params, batch):
         logits, _ = api.forward(params, batch, cfg)
@@ -107,7 +111,8 @@ def make_prefill_step(cfg: ModelConfig):
 def make_decode_step(cfg: ModelConfig):
     """``decode(params, state, batch) -> (next_tok, state)``: one token
     through the decode state (KV caches, ring KV caches, conv windows, SSM
-    or LRU states; updated in place) and its greedy successor."""
+    or LRU states; updated in place; an encoder-decoder's static cross
+    caches, read) and its greedy successor."""
     @torch.no_grad()
     def decode(params, state, batch):
         logits, state = api.decode(params, batch, state, cfg)

@@ -2,7 +2,9 @@
 prefill a batch of prompts token by token through the decode step, then
 greedy decode, with the per-family state on the device (KV caches; the
 conv windows and SSM states of falcon-mamba-7b; the ring KV caches, conv
-windows and LRU states of recurrentgemma-2b).
+windows and LRU states of recurrentgemma-2b; the decoder's KV caches and
+the static cross caches of seamless-m4t-large-v2 through ``serve_batch``,
+which ``main`` does not drive, as JAX's does not).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
       --smoke --batch 4 --prompt-len 16 --gen 32 --device cpu
@@ -73,6 +75,10 @@ def main(argv=None):
     device = resolve_device(args.device)
     mod = registry.get(args.arch)
     cfg = mod.SMOKE if args.smoke else mod.CONFIG
+    if cfg.family == "encdec":
+        # JAX's message (repro/launch/serve.py:64), and the port's call
+        raise SystemExit("use examples/serve_lm.py for enc-dec serving "
+                         "(the port: launch.serve.serve_batch)")
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(api.params(cfg), gen, device=device)
     prompts = torch.from_numpy(np.random.default_rng(0).integers(

@@ -23,7 +23,10 @@ card at full depth) and hybrid (recurrentgemma-2b) families train.
 Attention runs the flash kernels forward and backward
 (``attn_impl="flash"``, the port's default), the temporal conv the conv1d
 kernels forward and backward, and each block is rematerialised
-(``remat``).  Every ``--ckpt-every`` steps, and at the end, the train
+(``remat``).  The encoder-decoder family (seamless-m4t-large-v2) is
+refused: the synthetic stream feeds no ``src`` frames (JAX's trainer
+fails there with a ``KeyError``); ``steps.make_train_step`` trains it on
+a batch that carries them.  Every ``--ckpt-every`` steps, and at the end, the train
 state and the data-iterator state are written atomically; on startup the
 latest checkpoint in ``--ckpt-dir`` is restored, so a restart resumes
 exactly.  The weights come from
@@ -99,6 +102,13 @@ def main(argv=None) -> dict:
             "(multi-GPU)")
     mod = registry.get(args.arch)
     cfg = mod.SMOKE if args.smoke else mod.CONFIG
+    if cfg.family == "encdec":
+        raise SystemExit(
+            f"--arch {args.arch}: the encoder-decoder family needs a src "
+            "stream (frame embeddings) beside tokens and labels, and the "
+            "trainer's SyntheticStream feeds none; train it through "
+            "distributed.steps.make_train_step on a batch that carries "
+            "src")
     dev = resolve_device(args.device)
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=10,
                           decay_steps=args.steps)

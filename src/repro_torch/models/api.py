@@ -6,9 +6,10 @@
 ``decode_state(cfg, batch, max_len)``  -> Param tree of the decode state
 
 Batch dict keys: ``tokens`` (B, S) int, plus ``vision`` (B, Nv, d) for a
-VLM; decode adds ``cache_len`` (B,), which the ssm family ignores.  The
-port runs the dense, ssm and hybrid families; the others raise
-``NotImplementedError`` naming their ROADMAP item.
+VLM and ``src`` (B, Ls, d) for an encoder-decoder (frame embeddings in
+the params' dtype); decode adds ``cache_len`` (B,), which the ssm family
+ignores.  The port runs the dense, ssm, hybrid and encdec families; MoE
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -18,17 +19,16 @@ import torch
 from repro_torch.models import mamba, rglru, transformer
 from repro_torch.models.config import ModelConfig
 
-PORTED = ("dense", "ssm", "hybrid")
+PORTED = ("dense", "ssm", "hybrid", "encdec")
 # family -> the ROADMAP item that ports it
 NOT_PORTED = {
     "moe": "ROADMAP Queue 1 item 2d (MoE: moe_apply)",
-    "encdec": "ROADMAP Queue 1 item 2e (encoder-decoder and "
-              "cross-attention)",
 }
 
 
 def require_ported(family: str) -> None:
-    """Raise unless the port runs ``family`` (dense, ssm or hybrid)."""
+    """Raise unless the port runs ``family`` (dense, ssm, hybrid or
+    encdec)."""
     if family in NOT_PORTED:
         raise NotImplementedError(f"the port does not run the {family!r} "
                                   f"family yet: {NOT_PORTED[family]}")
@@ -42,6 +42,8 @@ def params(cfg: ModelConfig) -> dict:
         return mamba.lm_params(cfg)
     if cfg.family == "hybrid":
         return rglru.lm_params(cfg)
+    if cfg.family == "encdec":
+        return transformer.encdec_params(cfg)
     return transformer.lm_params(cfg)
 
 
@@ -53,6 +55,9 @@ def forward(p: dict, batch: dict, cfg: ModelConfig):
         logits, _ = mamba.lm_apply(p, batch["tokens"], cfg)
     elif cfg.family == "hybrid":
         logits, _ = rglru.lm_apply(p, batch["tokens"], cfg)
+    elif cfg.family == "encdec":
+        logits, _, _ = transformer.encdec_apply(p, batch["src"],
+                                                batch["tokens"], cfg)
     else:
         logits, _ = transformer.lm_apply(p, batch["tokens"], cfg,
                                          vision_embeds=batch.get("vision"))
@@ -64,24 +69,38 @@ def decode_state(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     for the ssm family the zero conv windows and SSM states, for the
     hybrid family per-layer ring KV caches of ``cfg.window`` slots or conv
     windows and LRU states (neither takes ``max_len``: the state does not
-    grow)."""
+    grow); for the encdec family the decoder's ``caches`` and its static
+    ``cross`` caches of ``cfg.n_frontend_tokens or 1`` entries, both over
+    ``cfg.dec_layers`` layers (zero: JAX's ``decode_state`` fills no
+    cross cache either)."""
     require_ported(cfg.family)
     if cfg.family == "ssm":
         return mamba.make_state(cfg, batch)
     if cfg.family == "hybrid":
         return rglru.make_state(cfg, batch)
+    if cfg.family == "encdec":
+        return {"caches": transformer.make_caches(cfg, batch, max_len,
+                                                  cfg.dec_layers),
+                "cross": transformer.make_caches(
+                    cfg, batch, cfg.n_frontend_tokens or 1, cfg.dec_layers)}
     return {"caches": transformer.make_caches(cfg, batch, max_len)}
 
 
 def decode(p: dict, batch: dict, state: dict, cfg: ModelConfig):
     """One-token decode step.  batch: tokens (B, 1), cache_len (B,).
-    Returns (logits (B, 1, V), state); the state is updated in place."""
+    Returns (logits (B, 1, V), state); the state is updated in place (an
+    encdec state's ``cross`` caches are only read)."""
     require_ported(cfg.family)
     if cfg.family == "ssm":
         return mamba.lm_apply(p, batch["tokens"], cfg, state=state)
     if cfg.family == "hybrid":
         return rglru.lm_apply(p, batch["tokens"], cfg, state=state,
                               cache_len=batch["cache_len"])
+    if cfg.family == "encdec":
+        logits, caches, cross = transformer.encdec_apply(
+            p, None, batch["tokens"], cfg, caches=state["caches"],
+            cache_len=batch["cache_len"], cross_caches=state["cross"])
+        return logits, {"caches": caches, "cross": cross}
     logits, caches = transformer.lm_apply(
         p, batch["tokens"], cfg, caches=state["caches"],
         cache_len=batch["cache_len"])

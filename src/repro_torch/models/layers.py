@@ -672,7 +672,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# GQA self-attention, with an optional KV cache
+# GQA attention (self- or cross-), with an optional KV cache
 # ---------------------------------------------------------------------------
 
 def attention_params(cfg: ModelConfig) -> dict:
@@ -687,35 +687,62 @@ def attention_params(cfg: ModelConfig) -> dict:
 
 
 def attention_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                    positions: torch.Tensor,
+                    positions: torch.Tensor | None = None,
                     kv_cache: tuple | None = None,
                     cache_len: torch.Tensor | None = None,
-                    window: int | None = None) -> torch.Tensor:
-    """Causal self-attention of ``repro/models/layers.py:84``; returns y.
+                    causal: bool = True,
+                    window: int | None = None,
+                    encoder_out: torch.Tensor | None = None,
+                    is_cross: bool = False,
+                    use_rope: bool = True) -> torch.Tensor:
+    """Self- or cross-attention of ``repro/models/layers.py:84``; returns
+    y.
 
     * prefill: ``kv_cache`` is None; ``ops.attention`` with
       ``impl=cfg.attn_impl`` over ``x`` (no cache is threaded through the
-      stack).
-    * decode: ``kv_cache=(k, v)`` of shape (B, Lmax, Hkv, hd); the new
-      token's k/v are written at ``max(cache_len) - 1`` IN PLACE (the JAX
-      function returns updated copies), then ``ops.decode_attention``.
+      stack), causal unless ``causal=False`` (the encoder); with
+      ``encoder_out`` (cross-attention) k and v are projected from it and
+      the call is non-causal.
+    * decode: ``kv_cache=(k, v)`` of shape (B, Lmax, Hkv, hd).  Self-
+      attention writes the new token's k/v at ``max(cache_len) - 1`` IN
+      PLACE (the JAX function returns updated copies), then
+      ``ops.decode_attention``; cross-attention (``is_cross``) reads the
+      static cache, projects no k/v and writes nothing, through
+      ``ops.attention(..., causal=False, impl="ref")`` as JAX does.
+
+    RoPE (over ``positions``, default ``arange(Lq)``) rotates q and k of
+    self-attention where ``use_rope``; cross-attention takes none.
     """
     q = torch.einsum("bld,dhk->blhk", x, p["wq"])
-    k = torch.einsum("bld,dhk->blhk", x, p["wk"])
-    v = torch.einsum("bld,dhk->blhk", x, p["wv"])
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+        q = q + p["bq"]
+    if is_cross and kv_cache is not None:
+        k = v = None                  # static encoder K/V: nothing to project
+    else:
+        src = x if encoder_out is None else encoder_out
+        k = torch.einsum("bld,dhk->blhk", src, p["wk"])
+        v = torch.einsum("bld,dhk->blhk", src, p["wv"])
+        if cfg.qkv_bias:
+            k, v = k + p["bk"], v + p["bv"]
+    if use_rope and not is_cross:
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)[None]
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     if kv_cache is not None:
         kc, vc = kv_cache
-        idx = (cache_len.max() - 1).reshape(1).long()   # stays on device
-        kc.index_copy_(1, idx, k)
-        vc.index_copy_(1, idx, v)
-        o = ops.decode_attention(q, kc, vc, cache_len,
-                                 soft_cap=cfg.logits_soft_cap, window=window)
+        if is_cross:
+            o = ops.attention(q, kc, vc, causal=False,
+                              soft_cap=cfg.logits_soft_cap, impl="ref")
+        else:
+            idx = (cache_len.max() - 1).reshape(1).long()  # stays on device
+            kc.index_copy_(1, idx, k)
+            vc.index_copy_(1, idx, v)
+            o = ops.decode_attention(q, kc, vc, cache_len,
+                                     soft_cap=cfg.logits_soft_cap,
+                                     window=window)
     else:
-        o = ops.attention(q, k, v, causal=True,
+        o = ops.attention(q, k, v, causal=causal and encoder_out is None,
                           soft_cap=cfg.logits_soft_cap, window=window,
                           impl=cfg.attn_impl, chunk=cfg.attn_chunk)
     return torch.einsum("blhk,hkd->bld", o, p["wo"])

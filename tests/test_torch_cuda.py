@@ -68,7 +68,13 @@ with their weight and input gradients; ResNet-18 layer1's no-pool pair
 and U-Net's three-stage group ending in the 1x1 head, as the plans tile
 them, against their per-layer chains bitwise; and both tiny graphs
 through ``cnn_apply_from_graph`` (halo and fused equal to carry
-bitwise, carry against ``impl="ref"``).
+bitwise, carry against ``impl="ref"``).  The encoder-decoder family
+(seamless-m4t-large-v2's calls: MHA at D 64, non-causal with Lq < Lk and
+Lq > Lk, forward, backward and bf16, in the flash cases above) and its
+full-width 2 + 2-layer cut: prefill and one train step on the card's
+kernels, each held against the port's float64 oracle on the CPU
+(``repro_torch.testing.float64``) within twice the CPU plain version's
+distance from it (two f32 paths part by ~1e-2 there).
 """
 
 import pytest
@@ -629,6 +635,10 @@ FLASH_CASES = [
     (2, 70, 130, 6, 2, 320, False, 30.0, 40),
     (1, 100, 100, 2, 1, 512, True, None, 33),
     (1, 17, 80, 3, 1, 600, True, None, None),
+    # seamless-m4t-large-v2's calls: MHA at D 64, non-causal, a target
+    # shorter and longer than the source (cross-attention)
+    (2, 100, 300, 16, 16, 64, False, None, None),
+    (2, 300, 100, 16, 16, 64, False, None, None),
 ]
 FLASH_TOL = 1e-5
 
@@ -694,6 +704,11 @@ FLASH_BWD_CASES = [
     (1, 70, 150, 6, 3, 12, False, 5.0, 40),
     (2, 520, 520, 16, 2, 64, True, None, None),
     (1, 90, 90, 3, 3, 32, False, None, 50),
+    # seamless-m4t-large-v2's calls: MHA at D 64 (G 1), non-causal with
+    # Lq < Lk and Lq > Lk (cross-attention), and causal (the decoder)
+    (2, 100, 300, 16, 16, 64, False, None, None),
+    (2, 300, 100, 16, 16, 64, False, None, None),
+    (2, 200, 200, 16, 16, 64, True, None, None),
 ]
 FLASH_BWD_TOL = 1e-4
 
@@ -1188,6 +1203,130 @@ def test_ssm_and_hybrid_train_step_on_the_kernels_matches_the_cpu(cuda,
          "flash_attention_bwd_sum"), att))
     _hold_first_step(out[str(cuda)], out["cpu"], p0, opt,
                      2e-4 if cfg.family == "hybrid" else STEP_GRAD_TOL)
+
+
+# seamless-m4t-large-v2 cut to 2 encoder + 2 decoder layers at full
+# width (d_model 1024, 16 heads of 64, d_ff 8192, vocab 256206): the card's
+# kernels and the CPU's plain versions, each against the port's float64
+# oracle (``repro_torch.testing.float64``) on the CPU.  The JAX
+# initialiser's scores reach |s| ~ 300 at this width, so two f32 paths
+# part by far more than a rounding (card against CPU ~1.5e-2 of
+# max|logits| at this cut); each is held to the oracle instead: the
+# card's error at most F64_FACTOR x the CPU's, or the floor below
+ENCDEC_F64_FACTOR = 2.0
+ENCDEC_CUT_TOL = 1e-4       # prefill logits' floor, of max|logits|
+ENCDEC_CUT_LOSS_TOL = 1e-4  # the step's loss against the CPU's, relative
+
+
+def _encdec_cut():
+    from repro_torch.configs import registry
+    return registry.get("seamless-m4t-large-v2").CONFIG.replace(
+        enc_layers=2, dec_layers=2, n_layers=4, remat=True)
+
+
+def _encdec_batch(cfg, b, tgt, src, seed):
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(2, cfg.vocab, (b, tgt + 1), generator=gen)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+            "src": torch.randn((b, src, cfg.d_model), generator=gen)}
+
+
+def _rel(a, b) -> float:
+    return ((a.double() - b.double()).abs().max()
+            / b.double().abs().max()).item()
+
+
+def test_encdec_cut_at_full_width_prefill_on_the_card(cuda):
+    """The cut's prefill (96 target tokens over 160 frames and 160 over
+    96: cross calls with Lq < Lk and Lq > Lk) on the card's flash kernel
+    (6 launches a forward: 2 encoder, 2 decoder self, 2 cross): its
+    logits no farther from the float64 oracle than ENCDEC_F64_FACTOR x
+    the CPU plain version's distance (or ENCDEC_CUT_TOL), its greedy
+    tokens the oracle's unless the oracle's top two lie within twice that
+    limit."""
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+    from repro_torch.testing import float64
+    cfg = _encdec_cut()
+    p = init_params(api.params(cfg), torch.Generator().manual_seed(0))
+    pc, p64 = _to_device(p, cuda), float64.widen(p)
+    for tgt, src in ((96, 160), (160, 96)):
+        batch = _encdec_batch(cfg, 2, tgt, src, tgt)
+        del batch["labels"]
+        with float64.float64(), torch.no_grad():
+            l64, _ = api.forward(p64, {"tokens": batch["tokens"],
+                                       "src": batch["src"].double()},
+                                 cfg.replace(attn_impl="ref"))
+        lc, _ = steps.make_prefill_step(cfg)(p, batch)
+        fa.reset_launch_counts()
+        lg, tg = steps.make_prefill_step(cfg)(
+            pc, {k: v.to(cuda) for k, v in batch.items()})
+        assert fa.LAUNCHES == {"flash_attention": 6,
+                               "flash_attention_bf16": 0}
+        lg, tg = lg.cpu(), tg.cpu()
+        card, cpu = _rel(lg, l64), _rel(lc, l64)
+        lim = max(ENCDEC_F64_FACTOR * cpu, ENCDEC_CUT_TOL)
+        print(f"encdec cut prefill {tgt} over {src}: of max|f64 logits| "
+              f"card {card:.2e}, CPU {cpu:.2e}, card vs CPU "
+              f"{_rel(lg, lc):.2e}")
+        assert card <= lim
+        last = l64[:, -1]
+        picked = last.gather(1, tg[:, None])[:, 0]
+        tol = 2 * lim * l64.abs().max().item()
+        assert bool(((tg == last.argmax(1)) | (last.amax(1) - picked <= tol))
+                    .all())
+
+
+def test_encdec_cut_at_full_width_train_step_on_the_card(cuda):
+    """One AdamW step of the cut (remat, 2 x 64 tokens over 96 frames):
+    the card's gradient (flash forward and backward kernels) leaf by leaf
+    no farther from the float64 oracle's than ENCDEC_F64_FACTOR x the CPU
+    plain version's worst leaf (or STEP_GRAD_TOL); the step's loss the
+    CPU step's within ENCDEC_CUT_LOSS_TOL; the card's step launches the
+    forward twice a call (remat) and dQ and dK/dV once (6 calls: MHA, no
+    partial sum); every leaf of its state finite."""
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.testing import float64
+    cfg = _encdec_cut()
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, decay_steps=50)
+    cpu = steps.init_train_state(cfg, opt, torch.Generator().manual_seed(1))
+    batch = _encdec_batch(cfg, 2, 64, 96, 3)
+    live = [t.double().requires_grad_()
+            for t in adamw.tree_leaves(cpu["params"])]
+    with float64.float64():
+        logits, _ = api.forward(
+            adamw.tree_unflatten(cpu["params"], live),
+            {"tokens": batch["tokens"], "src": batch["src"].double()},
+            cfg.replace(attn_impl="ref"))
+        lp = torch.log_softmax(logits, dim=-1)
+        loss = -torch.gather(lp, -1, batch["labels"][..., None])[..., 0]
+        g64 = torch.autograd.grad(loss.mean(), live)
+    out = {}
+    for dev in ("cpu", cuda):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        state = _to_device(cpu, dev)
+        g = _grads(cfg, state, b)
+        fa.reset_launch_counts()
+        state, metrics = steps.make_train_step(cfg, opt)(state, b)
+        out[str(dev)] = (_to_device(state, "cpu"),
+                         {k: v.cpu() for k, v in metrics.items()},
+                         max(_rel(a.cpu(), w) for a, w in zip(g, g64)))
+    assert fa.LAUNCHES == {"flash_attention": 12, "flash_attention_bf16": 0}
+    assert fa.BWD_LAUNCHES == _bwd_counts(
+        fa, flash_attention_bwd_dkdv=6, flash_attention_bwd_dq=6)
+    (s, m, card), (_, mc, cpu_err) = out[str(cuda)], out["cpu"]
+    print(f"encdec cut step: gradients of each leaf's max|f64|, card "
+          f"{card:.2e}, CPU {cpu_err:.2e}; loss {m['loss'].item():.6f} vs "
+          f"{mc['loss'].item():.6f}")
+    assert card <= max(ENCDEC_F64_FACTOR * cpu_err, STEP_GRAD_TOL)
+    assert abs(m["loss"].item() - mc["loss"].item()) <= \
+        ENCDEC_CUT_LOSS_TOL * abs(mc["loss"].item())
+    assert all(bool(torch.isfinite(t).all()) for t in adamw.tree_leaves(s))
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "falcon-mamba-7b",
@@ -1899,6 +2038,9 @@ FLASH_BF16_CASES = [
     (1, 150, 150, 10, 1, 256, True, 30.0, 70),
     (1, 150, 150, 4, 2, 320, True, None, None),
     (2, 70, 130, 6, 2, 320, False, 30.0, 40),
+    # seamless-m4t-large-v2's cross calls (MHA, D 64, non-causal)
+    (2, 100, 300, 16, 16, 64, False, None, None),
+    (2, 300, 100, 16, 16, 64, False, None, None),
 ]
 FLASH_BF16_TOL = 1e-2
 # past half an ulp of bf16, of max|o|, from the float64 plain version:

@@ -20,7 +20,8 @@ so both packages compute the same function on the same numpy tokens.
   port's decode logits against its own flash prefill at every position.
 * ``serve_batch``: the same tokens as the JAX ``serve_batch``.
 * ``registry.count_params`` equal to JAX's at full width for every dense
-  config, without materialising a parameter.
+  config and seamless-m4t-large-v2 (the encoder-decoder family,
+  ``tests/test_torch_encdec.py``), without materialising a parameter.
 """
 
 import jax
@@ -154,7 +155,7 @@ def test_serve_batch_matches_jax(arch):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ["seamless-m4t-large-v2"])
 def test_count_params_matches_jax_at_full_width(arch):
     jcfg = jregistry.get(arch).CONFIG
     cfg = registry.get(arch).CONFIG
@@ -162,6 +163,8 @@ def test_count_params_matches_jax_at_full_width(arch):
     assert cfg.param_count() == jcfg.param_count()
     if arch == "qwen2.5-3b":
         assert registry.count_params(cfg) == 3_397_103_616
+    if arch == "seamless-m4t-large-v2":
+        assert registry.count_params(cfg) == 1_632_698_368
 
 
 def test_convert_keeps_the_lm_tree_and_layout():
@@ -228,7 +231,8 @@ def test_config_rejects_what_the_port_does_not_run():
     with pytest.raises(KeyError):
         registry.get("gpt-2")
     assert sorted(registry.archs()) == sorted(
-        DENSE + ["falcon-mamba-7b", "recurrentgemma-2b"])
+        DENSE + ["falcon-mamba-7b", "recurrentgemma-2b",
+                 "seamless-m4t-large-v2"])
 
 
 def test_serve_cli_on_cpu(capsys):
