@@ -478,7 +478,36 @@ Phases, each raising on failure (each prints its seconds):
    norm finite, each step launching the forward 144 times (72 calls,
    remat) and the dQ and dK/dV kernels 72 times each (MHA: no partial
    sum), ms a step and peak;
-40. the kernel JSON line (twenty-four kernels; the launches of trim_conv1d
+40. moe — the MoE family on the flash kernel's GQA calls: first the
+   kernel at qwen3-moe-30b-a3b's prefill call (B 2, L 4096, Hq 32, Hkv 4,
+   D 128, causal), f32 and bf16, against its plain version (and the bf16
+   route against float64), device ms from CUDA graphs beside SDPA on the
+   same call and the bound; then full-width qwen3-moe-30b-a3b (48 layers,
+   128 experts top 8, 30.53 B parameters) drawn in bf16 on the card, the
+   expert leaves a layer at a time: two timed bf16 prefills through
+   ``make_prefill_step`` at 2 x 4096 (48 bf16 flash launches a forward,
+   none f32), the choices dropped a layer and the aux; along the bf16
+   forward of 512 tokens, the depth-1 and depth-2 cuts sublayer by
+   sublayer: attention on the kernel against ref (printed), its core bf16
+   against the f32 kernel (``FLASH_BF16_TOLERANCE``) and float64
+   (``FLASH_BF16_F64_EXCESS``), the MoE sublayer against the float64
+   oracle on its own routing (bf16 ``LM_BF16_TOLERANCE``, the f32 twin
+   ``LM_LAYER_TOLERANCE``), each block bitwise ``block_apply``, each
+   cut's residual stream against the float64 oracle (printed); 4 greedy
+   requests through bf16 decode steps and the decode step's device-busy
+   share; then in f32 at the full-width 8-layer cut, ``serve_batch`` and,
+   at its first 2 layers, 6 decode steps of batch 4 against the float64
+   oracle's decode on the same routing (``LM_TOLERANCE``); then the
+   full-width 4-layer cut trained through ``make_train_step`` in f32 and
+   bf16 at 2 x 1024: the gradient taken twice bitwise equal, in f32 the
+   depth-1 cut's first-step gradients (the backward kernels against the
+   float64 plain backward, ``BWD_TOLERANCE``), 3 timed AdamW steps each
+   launching 8 forwards (remat) and 4 each of dQ, dK/dV and the heads'
+   sum (G 8), the gradient reaching mu and nu; last phi3.5-moe-42b-a6.6b
+   at the full-width 16-layer cut in bf16 (LayerNorm, G 4): two prefills
+   at 2 x 2048, the depth-1 sublayer check, 4 requests through bf16
+   decode steps;
+41. the kernel JSON line (twenty-four kernels; the launches of trim_conv1d
    and flash_attention include the prefills' and the training phases',
    the flash backward kernels' and conv1d backward kernels' the training
    steps', the bf16 conv entries' the bf16 serving phase's and the
@@ -486,7 +515,9 @@ Phases, each raising on failure (each prints its seconds):
    the lm_bf16 prefills', the bf16 backward entries' the train_lm_bf16
    phase's timed steps'; the flash entries also the encdec phase's
    prefills and steps, counted apart as ``encdec_launches``, and its
-   times at seamless's calls as ``s_*``), then ``{"ok": true,
+   times at seamless's calls as ``s_*``; the moe phase's prefills and
+   steps likewise as ``moe_launches``, the times at qwen3-moe's prefill
+   call as ``q3_*``), then ``{"ok": true,
    "device": ...}`` last.
 
 Exits non-zero without a result when no GPU is visible.
@@ -3201,8 +3232,8 @@ def lm_layer_check(torch, cfg, params, tokens):
                                      f"{LM_LAYER_TOLERANCE}")
             worst = max(worst, err)
             del h, af, ar
-            xf = T.block_apply(pi, xf, cfg, positions=pos)
-            xr = T.block_apply(pi, xr, cref, positions=pos)
+            xf, _ = T.block_apply(pi, xf, cfg, positions=pos)
+            xr, _ = T.block_apply(pi, xr, cref, positions=pos)
             drift.append(((xf - xr).abs().max() / xr.abs().max()).item())
     print(f"LM layer check: every layer's attention, kernel vs ref on the "
           f"flash forward's activations, within {worst:.2e} of max|ref| "
@@ -4225,7 +4256,7 @@ def lm_bwd_layer_check(torch, cfg, params, tokens):
                 worst["ref"] = max(worst["ref"], er)
                 worst["ratio"] = max(worst["ratio"], ek / er)
             del grads, q, k, v, do, h
-            x = T.block_apply(pi, x, cfg, positions=pos)
+            x, _ = T.block_apply(pi, x, cfg, positions=pos)
     return worst
 
 
@@ -6009,7 +6040,7 @@ def bf16_layer_check(torch, cfg, params, tokens) -> list:
                 y = attention(i, pb["att"], pf["att"], h, cfg.window)
             z = L.norm_apply(pb["ln_mlp"], x + y, cfg)
             check(i, "MLP", L.mlp_apply, pb["mlp"], pf["mlp"], z)
-            x = (T.block_apply(pb, x, cfg, positions=pos)
+            x = (T.block_apply(pb, x, cfg, positions=pos)[0]
                  if cfg.family == "dense"
                  else R.block_apply(pb, x, cfg, positions=pos))
             del pf, h, y, z
@@ -7018,7 +7049,7 @@ def encdec_walk(torch, cfg, params, src, tokens):
     if not torch.equal(x, T._run_blocks(params["enc_blocks"], src, cfg,
                                         positions=ps,
                                         n_layers=cfg.enc_layers,
-                                        causal=False)):
+                                        causal=False)[0]):
         raise AssertionError("encdec walk: the encoder stream is not "
                              "transformer._run_blocks's")
     enc = L.norm_apply(params["enc_ln"], x, cfg)
@@ -7672,6 +7703,615 @@ def encdec_phase(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# moe: qwen3-moe-30b-a3b and phi3.5-moe-42b-a6.6b, the MoE family (phase 40)
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, MOE_PHI = "qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b"
+# the bf16 prefill at full width: 2 x 4096 tokens
+MOE_BATCH, MOE_SEQ = 2, 4096
+# the depth cuts held sublayer by sublayer against the float64 oracle, on
+# batch row 0's first MOE_CHECK_TOKENS tokens
+MOE_CUTS = (1, 2)
+MOE_CHECK_TOKENS = 512
+# serve_batch in f32 at a full-width cut: 8 of 48 layers (5.6 B, 22.4 GB)
+MOE_F32_CUT = 8
+# decode steps of batch 4 held against the float64 oracle's decode (the
+# f32 cut's first MOE_DECODE_CUT layers)
+MOE_DECODE_STEPS, MOE_DECODE_CUT = 6, 2
+# training: 4 of 48 layers at full width (3.11 B), 2 x 1024 tokens
+MOE_TRAIN_CUT, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 4, 2, 3
+# the depth-1 cut's first-step gradients: 1 x 256 tokens
+MOE_GRAD_TOKENS = 256
+# phi3.5-moe-42b-a6.6b in bf16: 16 of 32 layers (21.1 B), 2 x 2048
+MOE_PHI_CUT, MOE_PHI_BATCH, MOE_PHI_SEQ = 16, 2, 2048
+# the flash kernel at qwen3-moe-30b-a3b's prefill call (B, L, Hq, Hkv, D)
+MOE_FLASH_CALL = (2, 4096, 32, 4, 128)
+
+
+def moe_tokens(torch, cfg, batch, seq, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq))).cuda()
+
+
+def moe_capacity(cfg, tg) -> int:
+    """``moe_apply``'s buffer rows an expert for a group of ``tg``
+    tokens."""
+    import math
+    return max(int(math.ceil(tg * cfg.top_k / cfg.n_experts
+                             * cfg.capacity_factor)), 1)
+
+
+def moe_drops(torch, cfg, routes, tg) -> list:
+    """The choices dropped at capacity in each recorded layer's routing
+    (``layers.moe_dispatch`` on the recorded experts)."""
+    from repro_torch.models import layers as L
+    cap = moe_capacity(cfg, tg)
+    return [int((L.moe_dispatch(r, cfg.n_experts, cap)[0]
+                 == cfg.n_experts * cap).sum()) for r in routes]
+
+
+def moe_flash_times(torch) -> dict:
+    """The flash kernel at qwen3-moe-30b-a3b's prefill call (B 2, L 4096,
+    Hq 32, Hkv 4, D 128, causal), f32 and bf16: the f32 kernel against its
+    plain version within ``ATTN_TOLERANCE`` of max|plain|, the bf16 one
+    within ``FLASH_BF16_TOLERANCE`` of its plain version and past half a
+    bf16 ulp of the float64 plain version by at most
+    ``FLASH_BF16_F64_EXCESS``; device ms from CUDA graphs beside SDPA on
+    the same call (GQA, CUDA graphs), the plain version's (eager) and the
+    bound (f32: the 3xTF32 route's; bf16: 989 TFLOP/s)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    b, length, hq, hkv, d = MOE_FLASH_CALL
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    kw = dict(causal=True, soft_cap=None, window=None)
+    rows = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        q = torch.randn((b, length, hq, d), generator=gen,
+                        device="cuda").to(dtype)
+        k, v = (torch.randn((b, length, hkv, d), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        out = fa.flash_attention(q, k, v, **kw)
+        plain = fa.flash_attention_plain(q, k, v, **kw)
+        err = ((out.float() - plain.float()).abs().max()
+               / plain.float().abs().max()).item()
+        tol = ATTN_TOLERANCE if tag == "f32" else FLASH_BF16_TOLERANCE
+        excess = None
+        if tag == "bf16":
+            excess = flash_bf16_f64_excess(torch, out, q, k, v, kw)
+        if not np.isfinite(err) or err > tol or (
+                excess is not None and not excess <= FLASH_BF16_F64_EXCESS):
+            raise AssertionError(f"moe flash {tag}: {err:.3e} of max|plain| "
+                                 f"from the plain version (tol {tol}), past "
+                                 f"half a bf16 ulp of float64 {excess}")
+        del out, plain
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        t = {"ms": time_graph_ms(torch, lambda: fa.flash_attention(
+                q, k, v, **kw), reps=5),
+             "library": time_graph_ms(torch, lambda: F.
+                                      scaled_dot_product_attention(
+                                          qt, kt, vt, is_causal=True,
+                                          enable_gqa=True), reps=5),
+             "plain": time_ms(torch, lambda: fa.flash_attention_plain(
+                 q, k, v, **kw), reps=2)}
+        bound, by, flops, nbytes, _ = attention_bound(b, length, length, hq,
+                                                      hkv, d, True, None)
+        if tag == "bf16":
+            bd = bf16_bound(flops, nbytes // 2)
+            bound, by = bd["bound"], bd["by"]
+        rows[tag] = dict(t, bound=bound, by=by, err=err, excess=excess,
+                         tflops=flops / t["ms"] / 1e9)
+        print(f"moe flash {tag} at qwen3-moe's prefill call (B {b}, L "
+              f"{length}, Hq {hq}, Hkv {hkv}, D {d}, causal): kernel "
+              f"{t['ms']:.3f} ms (CUDA graphs), SDPA {t['library']:.3f}, "
+              f"plain {t['plain']:.3f}, bound {bound:.3f} ({by}); "
+              f"{flops / t['ms'] / 1e9:.1f} TFLOP/s; {err:.2e} of max|plain|"
+              f" from the plain version" + ("" if excess is None else
+                                           f", past half a bf16 ulp of "
+                                           f"float64 {excess:.2e}"))
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def moe_layer_check(torch, cfg, params, tokens, cuts=MOE_CUTS) -> dict:
+    """Along the bf16 forward of batch row 0's first MOE_CHECK_TOKENS
+    tokens, each of the first max(``cuts``) layers' sublayers: attention
+    on the flash kernel against ``attn_impl="ref"`` (printed) and its
+    core, the bf16 kernel on the sublayer's own q, k, v, against the f32
+    kernel (``FLASH_BF16_TOLERANCE``) and past half a bf16 ulp of the
+    float64 plain version (``FLASH_BF16_F64_EXCESS``); the MoE sublayer
+    against the float64 oracle on its own routing (bf16 within
+    ``LM_BF16_TOLERANCE``, the f32 twin on the same bf16 input and routing
+    within ``LM_LAYER_TOLERANCE``; the routes the f32 twin would pick
+    printed); each block bitwise ``transformer.block_apply``.  At each
+    cut the residual stream against the float64 oracle's on the same
+    routing (printed, finite)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.testing import float64
+    c32, cref = cfg.replace(dtype="float32"), cfg.replace(attn_impl="ref")
+    toks = tokens[:1, :MOE_CHECK_TOKENS]
+    pos = torch.arange(toks.shape[1], device="cuda")[None]
+    kw = dict(causal=True, soft_cap=None, window=None)
+    rows, streams = [], {}
+
+    def rel(a, b):
+        return ((a.double() - b.double()).abs().max()
+                / b.double().abs().max()).item()
+    with torch.no_grad():
+        x0 = x = L.embed_apply(params["tok"], toks, cfg)
+        blocks = T.layer_list(params["blocks"], cfg.n_layers)
+        for i, pb in enumerate(blocks[:max(cuts)]):
+            h = L.norm_apply(pb["ln_att"], x, cfg)
+            ab = L.attention_apply(pb["att"], h, cfg, positions=pos)
+            ar = L.attention_apply(pb["att"], h, cref, positions=pos)
+            q, k = (L.rope(torch.einsum("bld,dhk->blhk", h, pb["att"][w]),
+                           pos, cfg.rope_theta) for w in ("wq", "wk"))
+            v = torch.einsum("bld,dhk->blhk", h, pb["att"]["wv"])
+            ob = fa.flash_attention(q, k, v, **kw)
+            e32 = rel(ob, fa.flash_attention(q.float(), k.float(),
+                                             v.float(), **kw))
+            excess = flash_bf16_f64_excess(torch, ob, q, k, v, kw)
+            x1 = x + ab
+            z = L.norm_apply(pb["ln_mlp"], x1, cfg)
+            with float64.routes() as rec:
+                yb, auxb = L.moe_apply(pb["moe"], z, cfg)
+            wide = float64.widen(pb["moe"])
+            with float64.float64(routes=rec):
+                y64, aux64 = L.moe_apply(wide, z.double(), cfg)
+            del wide
+            with float64.float64(routes=rec):
+                yf, _ = L.moe_apply(widened(pb["moe"]), z.float(), c32)
+            with float64.routes() as rec32:
+                L.moe_apply(widened(pb["moe"]), z.float(), c32)
+            flips = int((rec[0] != rec32[0]).any(-1).sum())
+            eb, ef = rel(yb, y64), rel(yf, y64)
+            xb, _ = T.block_apply(pb, x, cfg, positions=pos)
+            x = x1 + yb
+            if not torch.equal(x, xb):
+                raise AssertionError(f"moe layer check: layer {i}'s walk is "
+                                     "not transformer.block_apply's")
+            row = dict(layer=i, attn_vs_ref=rel(ab, ar), kernel_vs_f32=e32,
+                       excess=excess, moe_bf16=eb, moe_f32=ef, flips=flips,
+                       aux=auxb.item(), aux64=aux64.item(),
+                       drops=moe_drops(torch, cfg, rec, toks.shape[1])[0])
+            rows.append(row)
+            if not (np.isfinite(eb) and e32 <= FLASH_BF16_TOLERANCE
+                    and excess <= FLASH_BF16_F64_EXCESS
+                    and eb <= LM_BF16_TOLERANCE
+                    and ef <= LM_LAYER_TOLERANCE):
+                raise AssertionError(f"moe layer check {cfg.name}: {row}")
+            del h, ab, ar, q, k, v, ob, z, yb, y64, yf
+            if i + 1 in cuts:
+                cut = depth_cut(params, i + 1)["blocks"]
+                with float64.routes() as rc:
+                    xs, _ = T._run_blocks(cut, x0, cfg, positions=pos,
+                                          n_layers=i + 1)
+                if not torch.equal(xs, x):
+                    raise AssertionError(f"moe layer check: the walk's "
+                                         f"stream after {i + 1} layers is "
+                                         "not transformer._run_blocks's")
+                wide = float64.widen(cut)
+                with float64.float64(routes=rc):
+                    x64, _ = T._run_blocks(wide, x0.double(), cref,
+                                           positions=pos, n_layers=i + 1)
+                del wide
+                streams[i + 1] = rel(xs, x64)
+                if not np.isfinite(streams[i + 1]):
+                    raise AssertionError(f"moe depth-{i + 1} cut: stream "
+                                         "not finite")
+                del xs, x64
+                torch.cuda.empty_cache()
+    print(f"moe layer check {cfg.name} (bf16, batch row 0, "
+          f"{toks.shape[1]} tokens; of max|ref| or max|f64|): " + "; ".join(
+              f"layer {r['layer']}: attention flash vs ref "
+              f"{r['attn_vs_ref']:.2e}, kernel bf16 vs f32 "
+              f"{r['kernel_vs_f32']:.2e} (tol {FLASH_BF16_TOLERANCE:g}), past "
+              f"half a bf16 ulp of f64 {r['excess']:.2e} (tol "
+              f"{FLASH_BF16_F64_EXCESS:.1e}); MoE bf16 vs f64 "
+              f"{r['moe_bf16']:.2e} (tol {LM_BF16_TOLERANCE:g}), f32 twin "
+              f"vs f64 {r['moe_f32']:.2e} (tol {LM_LAYER_TOLERANCE:g}), "
+              f"{r['flips']} of {toks.shape[1]} tokens routed otherwise by "
+              f"the f32 twin, {r['drops']} choices dropped, aux "
+              f"{r['aux']:.6f} (f64 {r['aux64']:.6f})" for r in rows)
+          + "; the residual stream vs the float64 oracle on the same "
+          "routing: " + ", ".join(f"depth-{n} cut {e:.2e}"
+                                  for n, e in streams.items()))
+    return dict(rows=rows, streams=streams)
+
+
+def moe_bf16_requests(torch, cfg, params) -> dict:
+    """``bf16_requests`` (BF16_REQUESTS greedy requests through bf16
+    decode steps) and the decode step's device-busy share
+    (``device_share``: torch.profiler over 2 steps after a warm-up, each
+    step one group of BF16_REQUESTS tokens through every layer)."""
+    from repro_torch.distributed import steps
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+    req = bf16_requests(torch, cfg, params)
+    b = BF16_REQUESTS
+    state = init_params(api.decode_state(cfg, b, 8), torch.Generator(),
+                        device="cuda", dtype=torch.bfloat16)
+    decode = steps.make_decode_step(cfg)
+    toks = moe_tokens(torch, cfg, b, 8, 41)
+    t = [0]
+
+    def step():
+        t[0] = t[0] % 7 + 1
+        decode(params, state, {
+            "tokens": toks[:, t[0] - 1:t[0]],
+            "cache_len": torch.full((b,), t[0], dtype=torch.int32,
+                                    device="cuda")})
+    busy = device_share(torch, step)
+    del state
+    return dict(req, busy=busy)
+
+
+def moe_prefill(torch) -> dict:
+    """Full-width qwen3-moe-30b-a3b drawn in bf16 on the card (the expert
+    leaves a layer slice at a time): two timed bf16 prefills through
+    ``make_prefill_step`` at MOE_BATCH x MOE_SEQ (48 ``flash_attention_bf16``
+    launches a forward, none of the f32 route), finite bf16 logits, ms and
+    peak; a third forward through ``api.forward`` recording each layer's
+    routing: the choices dropped a layer and the aux; the sublayer check
+    at MOE_CUTS; BF16_REQUESTS greedy requests through bf16 decode steps
+    and the decode step's device-busy share."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+    from repro_torch.testing import float64
+
+    cfg = registry.get(MOE_ARCH).CONFIG.replace(dtype="bfloat16")
+    assert cfg.attn_impl == "flash" and cfg.family == "moe"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(api.params(cfg), torch.Generator(device="cuda")
+                         .manual_seed(0), device="cuda",
+                         dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    draw_peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = moe_tokens(torch, cfg, MOE_BATCH, MOE_SEQ, 40)
+    prefill = steps.make_prefill_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        logits, nxt = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches != {"flash_attention": 0,
+                    "flash_attention_bf16": 2 * cfg.n_layers}:
+        raise AssertionError(f"moe prefill: launches {launches} in 2 "
+                             f"forwards, want {cfg.n_layers} bf16 each")
+    if logits.dtype != torch.bfloat16 or tuple(logits.shape) != (
+            MOE_BATCH, MOE_SEQ, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"moe prefill: logits {tuple(logits.shape)} "
+                             f"{logits.dtype}, not finite or of the wrong "
+                             "shape or type")
+    del logits
+    torch.cuda.empty_cache()
+    with float64.routes() as rec, torch.no_grad():
+        logits, aux = api.forward(params, {"tokens": tokens}, cfg)
+    del logits
+    drops = moe_drops(torch, cfg, rec, MOE_SEQ)
+    cap = moe_capacity(cfg, MOE_SEQ)
+    del rec
+    torch.cuda.empty_cache()
+    if len(drops) != cfg.n_layers or not np.isfinite(aux.item()):
+        raise AssertionError(f"moe prefill: {len(drops)} routed layers, aux "
+                             f"{aux.item()}")
+    print(f"moe: {cfg.name} full width ({cfg.n_layers} layers, "
+          f"{cfg.n_experts} experts top {cfg.top_k}), "
+          f"{registry.count_params(cfg):,} parameters drawn in bf16 on the "
+          f"card in {draw_s:.2f} s (peak {draw_peak:.2f} GiB); bf16 prefill "
+          f"{MOE_BATCH} x {MOE_SEQ} {times[1]:.1f} ms a forward (first "
+          f"{times[0]:.1f} ms), peak {peak:.2f} GiB; launches in 2 forwards "
+          f"{launches}; next tokens {nxt.tolist()}; capacity {cap} rows an "
+          f"expert a sequence; choices dropped a layer (of "
+          f"{MOE_BATCH * MOE_SEQ * cfg.top_k}) {drops}; aux summed over "
+          f"the layers {aux.item():.6f}")
+    check = moe_layer_check(torch, cfg, params, tokens)
+    req = moe_bf16_requests(torch, cfg, params)
+    busy = req["busy"]
+    print(f"moe: {BF16_REQUESTS} requests, {BF16_PROMPT}-token prompts, "
+          f"{BF16_GEN} greedy tokens through bf16 decode steps (one group "
+          f"of {BF16_REQUESTS} tokens a layer, capacity "
+          f"{moe_capacity(cfg, BF16_REQUESTS)}): {req['ms_step']:.2f} ms a "
+          f"step; profiled step {busy['device_ms']:.2f} ms of device time in "
+          f"{busy['wall_ms']:.2f} ms ({busy['device_ms'] / busy['wall_ms']:.1%}"
+          f" busy, {busy['kernels']:.0f} kernels; top "
+          f"{[(n[:40], round(t, 3)) for n, t in busy['top'][:3]]}); tokens "
+          f"{req['tokens']}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(ms=times[1], first_ms=times[0], peak=peak, draw_s=draw_s,
+                draw_peak=draw_peak, launches=launches["flash_attention_bf16"],
+                drops=drops, aux=aux.item(), check=check, **req)
+
+
+def moe_f32_cut(torch) -> dict:
+    """qwen3-moe-30b-a3b in f32 at the full-width MOE_F32_CUT-layer cut:
+    ``serve_batch`` (``family_serve``: f32, as JAX's entry point forces);
+    then MOE_DECODE_STEPS decode steps of batch 4 at its first
+    MOE_DECODE_CUT layers, each step's logits against the float64
+    oracle's decode on the same routing (``LM_TOLERANCE``), the greedy
+    tokens the oracle's unless its top two lie within twice that."""
+    from repro_torch.configs import registry
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+    from repro_torch.testing import float64
+
+    cfg = registry.get(MOE_ARCH).CONFIG.replace(n_layers=MOE_F32_CUT)
+    torch.cuda.empty_cache()
+    params = init_params(api.params(cfg), torch.Generator(device="cuda")
+                         .manual_seed(0), device="cuda")
+    served = family_serve(torch, f"moe f32 {MOE_F32_CUT}-layer cut", cfg,
+                          params, 40)
+    c2 = cfg.replace(n_layers=MOE_DECODE_CUT)
+    p2 = depth_cut(params, MOE_DECODE_CUT)
+    b = 4
+    toks = moe_tokens(torch, cfg, b, MOE_DECODE_STEPS, 42)
+    state = init_params(api.decode_state(c2, b, MOE_DECODE_STEPS),
+                        torch.Generator(), device="cuda")
+    wide = float64.widen(p2)
+    s64 = float64.widen(init_params(api.decode_state(c2, b, MOE_DECODE_STEPS),
+                                    torch.Generator(), device="cuda"))
+    worst, drops = 0.0, 0
+    with torch.no_grad():
+        for t in range(MOE_DECODE_STEPS):
+            batch = {"tokens": toks[:, t:t + 1],
+                     "cache_len": torch.full((b,), t + 1, dtype=torch.int32,
+                                             device="cuda")}
+            with float64.routes() as rec:
+                lg, state = api.decode(p2, batch, state, c2)
+            drops += sum(moe_drops(torch, c2, rec, b))
+            # float64_reference: decode_attention's .float() keeps float64
+            with float64_reference(torch), float64.float64(routes=rec):
+                l64, s64 = api.decode(wide, batch, s64,
+                                      c2.replace(attn_impl="ref"))
+            err = ((lg.double() - l64).abs().max()
+                   / l64.abs().max()).item()
+            worst = max(worst, err)
+            lim = LM_TOLERANCE * l64.abs().max().item()
+            if not np.isfinite(err) or err > LM_TOLERANCE or \
+                    not same_tokens(lg[:, 0].argmax(-1), l64[:, 0].argmax(-1),
+                                    l64[:, 0], lim):
+                raise AssertionError(f"moe f32 decode step {t}: logits "
+                                     f"{err:.3e} of max|f64| from the float64"
+                                     f" oracle (tol {LM_TOLERANCE})")
+    print(f"moe f32 decode ({MOE_DECODE_CUT}-layer full-width cut, batch "
+          f"{b}: one group of {b} tokens a layer, capacity "
+          f"{moe_capacity(c2, b)}, {drops} choices dropped over "
+          f"{MOE_DECODE_STEPS} steps): logits vs the float64 oracle's decode"
+          f" on the same routing, worst {worst:.2e} of max|f64| (tol "
+          f"{LM_TOLERANCE:g}); greedy tokens the oracle's")
+    del params, p2, wide, state, s64
+    torch.cuda.empty_cache()
+    return dict(served, decode_err=worst)
+
+
+def moe_grads(torch, cfg, params, batch) -> list:
+    """The loss's gradient of every leaf at ``params`` (flash, remat)."""
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    live = [t.detach().requires_grad_() for t in adamw.tree_leaves(params)]
+    logits, aux = api.forward(adamw.tree_unflatten(params, live), batch, cfg)
+    loss = api.loss_fn(logits, batch["labels"], aux)
+    del logits
+    return list(torch.autograd.grad(loss, live))
+
+
+def moe_train(torch) -> dict:
+    """qwen3-moe-30b-a3b at the full-width MOE_TRAIN_CUT-layer cut trained
+    through ``steps.make_train_step`` (remat; flash forward and backward
+    kernels), f32 then bf16 (params drawn in bf16, f32 moments): the
+    gradient at 2 x 1024 taken twice, bitwise equal (no float atomics in
+    the dispatch or combine); in f32 the depth-1 cut's first-step
+    gradients (1 x MOE_GRAD_TOKENS; ``lm_grads``: the backward kernels
+    against the float64 plain backward on the same forward,
+    ``BWD_TOLERANCE``; flash vs ref printed: a route may flip between two
+    forwards); MOE_TRAIN_STEPS timed AdamW steps, each launching the
+    forward 8 times (4 calls, remat) and dQ, dK/dV and the heads' sum 4
+    times each (G 8); every loss finite, the gradient reaching mu and nu."""
+    from repro_torch.configs import registry
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+    from repro_torch.optim import AdamWConfig, adamw
+
+    cfg = registry.get(MOE_ARCH).CONFIG.replace(n_layers=MOE_TRAIN_CUT)
+    assert cfg.remat
+    opt = AdamWConfig(lr=3e-3, warmup_steps=10, decay_steps=MOE_TRAIN_STEPS)
+    n = cfg.n_layers
+    out = {}
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        bf16 = dtype == torch.bfloat16
+        c = cfg.replace(dtype="bfloat16") if bf16 else cfg
+        torch.cuda.empty_cache()
+        params = init_params(api.params(c), torch.Generator(device="cuda")
+                             .manual_seed(0), device="cuda", dtype=dtype)
+        stream = SyntheticStream(DataConfig(batch=MOE_TRAIN_BATCH,
+                                            seq=TRAIN_LM_SEQ,
+                                            vocab=cfg.vocab, task="copy"))
+        batches = [{k: torch.from_numpy(v).cuda()
+                    for k, v in next(stream).items()}
+                   for _ in range(MOE_TRAIN_STEPS)]
+        g1 = moe_grads(torch, c, params, batches[0])
+        g2 = moe_grads(torch, c, params, batches[0])
+        repeat = all(torch.equal(a, b) for a, b in zip(g1, g2))
+        finite = all(bool(torch.isfinite(g).all()) for g in g1)
+        del g1, g2
+        torch.cuda.empty_cache()
+        if not (repeat and finite):
+            raise AssertionError(f"moe train {label}: the gradient taken "
+                                 f"twice bitwise equal {repeat}, finite "
+                                 f"{finite}")
+        cut = None
+        if not bf16:
+            c1 = cfg.replace(n_layers=1)
+            toks = moe_tokens(torch, cfg, 1, MOE_GRAD_TOKENS + 1, 43)
+            cut = lm_grads(torch, c1, depth_cut(params, 1),
+                           {"tokens": toks[:, :-1], "labels": toks[:, 1:]},
+                           plain_bwd=True)
+            bwd_err, bwd_leaf = cut["flash_plain_bwd"]
+            plain32 = cut["plain_bwd32_plain_bwd"][0]
+            if not (cut["finite"] and bwd_err <= BWD_TOLERANCE
+                    and bwd_err <= plain32):
+                raise AssertionError(
+                    f"moe train: depth-1 gradients, backward kernels vs the "
+                    f"float64 plain backward {bwd_err:.3e} at {bwd_leaf} "
+                    f"(tol {BWD_TOLERANCE}, and at most the f32 plain's "
+                    f"{plain32:.3e})")
+            print(f"moe train: depth-1 cut first-step gradients (1 x "
+                  f"{MOE_GRAD_TOKENS} tokens), of each leaf's max: the "
+                  f"backward kernels vs the float64 plain backward "
+                  f"{bwd_err:.2e} ({bwd_leaf}; tol {BWD_TOLERANCE:g}, f32 "
+                  f"plain vs it {plain32:.2e}); flash vs ref "
+                  f"{cut['flash_ref'][0]:.2e} ({cut['flash_ref'][1]}), "
+                  f"chunked vs ref {cut['chunked_ref'][0]:.2e} (printed: "
+                  "two forwards may route a near-tied token apart)")
+        state = {"params": params, "opt": adamw.init_moments(params, opt),
+                 "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+        step_fn = steps.make_train_step(c, opt)
+        want = {"flash_attention": 2 * n, "flash_attention_bwd_dkdv": n,
+                "flash_attention_bwd_dq": n, "flash_attention_bwd_sum": n}
+        if bf16:
+            want = {f"{k}_bf16": v for k, v in want.items()}
+        r = {"losses": [], "grad_norms": [], "step_ms": [], "per_step": []}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for b_ in batches:
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, b_)
+            r["losses"].append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            r["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            r["grad_norms"].append(float(metrics["grad_norm"]))
+            r["per_step"].append({**route_counts(fa.LAUNCHES, bf16),
+                                  **route_counts(fa.BWD_LAUNCHES, bf16)})
+        r["peak"] = torch.cuda.max_memory_allocated() / 2**30
+        r["steady_ms"] = float(np.mean(r["step_ms"][1:]))
+        where = f"moe {label} {MOE_TRAIN_CUT}-layer full-width cut"
+        clip = train_clip_state(torch, state, r["grad_norms"], where)
+        n_bf16 = sum(t.dtype == torch.bfloat16
+                     for t in adamw.tree_leaves(state["params"]))
+        del state, params, batches
+        torch.cuda.empty_cache()
+        if any(x != want for x in r["per_step"]) or \
+                not np.isfinite(r["losses"]).all() or \
+                not np.isfinite(r["grad_norms"]).all() or \
+                min(clip["scales"]) <= 0 or (n_bf16 > 0) != bf16:
+            raise AssertionError(
+                f"{where}: launches a step {r['per_step']}, want {want}; "
+                f"losses {r['losses']}, grad norms {r['grad_norms']}, clip "
+                f"scales {clip['scales']}")
+        print(f"{where} (remat), batch {MOE_TRAIN_BATCH} x "
+              f"{TRAIN_LM_SEQ - 1}, {MOE_TRAIN_STEPS} AdamW steps: losses "
+              f"{[round(x, 4) for x in r['losses']]}, grad norms "
+              f"{r['grad_norms']}, ms a step "
+              f"{[round(x, 1) for x in r['step_ms']]} (steady "
+              f"{r['steady_ms']:.1f}), peak {r['peak']:.2f} GiB; launches a "
+              f"step {r['per_step'][0]}; the gradient taken twice bitwise "
+              "equal")
+        out[label] = dict(r, clip=clip, cut=cut, launches={
+            k: sum(x[k] for x in r["per_step"]) for k in want})
+    return out
+
+
+def moe_phi(torch) -> dict:
+    """phi3.5-moe-42b-a6.6b (LayerNorm, 16 experts top 2, GQA 32 / 8) at
+    the full-width MOE_PHI_CUT-layer cut in bf16: two timed prefills at
+    MOE_PHI_BATCH x MOE_PHI_SEQ (MOE_PHI_CUT ``flash_attention_bf16``
+    launches a forward), finite bf16 logits, ms and peak; the depth-1
+    sublayer check; BF16_REQUESTS greedy requests through bf16 decode
+    steps."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models.base import init_params
+
+    cfg = registry.get(MOE_PHI).CONFIG.replace(dtype="bfloat16",
+                                               n_layers=MOE_PHI_CUT)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(api.params(cfg), torch.Generator(device="cuda")
+                         .manual_seed(0), device="cuda",
+                         dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    tokens = moe_tokens(torch, cfg, MOE_PHI_BATCH, MOE_PHI_SEQ, 44)
+    prefill = steps.make_prefill_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        logits, nxt = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches != {"flash_attention": 0,
+                    "flash_attention_bf16": 2 * cfg.n_layers} or \
+            logits.dtype != torch.bfloat16 or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"moe {cfg.name} prefill: launches {launches},"
+                             f" logits {logits.dtype} finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    del logits
+    torch.cuda.empty_cache()
+    print(f"moe: {cfg.name} {MOE_PHI_CUT}-layer full-width cut, "
+          f"{registry.count_params(cfg):,} parameters drawn in bf16 in "
+          f"{draw_s:.2f} s; bf16 prefill {MOE_PHI_BATCH} x {MOE_PHI_SEQ} "
+          f"{times[1]:.1f} ms a forward (first {times[0]:.1f} ms), peak "
+          f"{peak:.2f} GiB; launches in 2 forwards {launches}; next tokens "
+          f"{nxt.tolist()}")
+    check = moe_layer_check(torch, cfg, params, tokens, cuts=(1,))
+    req = bf16_requests(torch, cfg, params)
+    print(f"moe: {cfg.name} cut, {BF16_REQUESTS} requests through bf16 "
+          f"decode steps: {req['ms_step']:.2f} ms a step; tokens "
+          f"{req['tokens']}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(ms=times[1], first_ms=times[0], peak=peak,
+                launches=launches["flash_attention_bf16"], check=check, **req)
+
+
+def moe_phase(torch) -> dict:
+    """Phase 40 (module docstring)."""
+    torch.cuda.empty_cache()
+    out = {"times": moe_flash_times(torch)}
+    out["prefill"] = moe_prefill(torch)
+    out["f32"] = moe_f32_cut(torch)
+    out["train"] = moe_train(torch)
+    out["phi"] = moe_phi(torch)
+    launches = {"flash_attention_bf16": out["prefill"]["launches"]
+                + out["phi"]["launches"]}
+    for run in ("f32", "bf16"):
+        for k, v in out["train"][run]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    print(f"moe: launches of the phase's main paths {launches} (two bf16 "
+          f"qwen3-moe and two phi3.5-moe prefills; {MOE_TRAIN_STEPS} "
+          f"training steps each in f32 and bf16)")
+    return out
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -7872,6 +8512,9 @@ def run(torch, args, cache_dir: str) -> int:
     ed = encdec_phase(torch)
     phase.done("encdec")
     et, el = ed["times"], ed["launches"]
+    md = moe_phase(torch)
+    phase.done("moe")
+    mt, ml = md["times"], md["launches"]
 
     vgg = [r for r in rows if r["vgg"]]
     kernels = []
@@ -8080,7 +8723,7 @@ def run(torch, args, cache_dir: str) -> int:
         "launches": (lm["launches"] + rg["launches"]["flash_attention"]
                      + lmt["launches"]["flash_attention"]
                      + rgt["launches"]["flash_attention"]
-                     + el["flash_attention"]),
+                     + el["flash_attention"] + ml["flash_attention"]),
         "max_abs_err": max(r["err"] for r in arows),
         "ms": a["kernel"],
         "plain_ms": a["plain"],
@@ -8106,6 +8749,13 @@ def run(torch, args, cache_dir: str) -> int:
            for k, v in (("ms", "ms"), ("bound_ms", "bound"),
                         ("library_ms", "library"))},
         "encdec_launches": el["flash_attention"],
+        # qwen3-moe-30b-a3b's prefill call (B 2, L 4096, Hq 32, Hkv 4, D
+        # 128, causal; CUDA graphs; SDPA with GQA on the same call) and the
+        # moe phase's launches (its f32 training steps)
+        **{f"q3_{k}": mt["f32"][v] for k, v in (
+            ("ms", "ms"), ("bound_ms", "bound"), ("library_ms", "library"),
+            ("plain_ms", "plain"))},
+        "moe_launches": ml["flash_attention"],
     })
     bt = next(r for r in fbrows if r["name"] == "t_train")
     bc = next(r for r in fbrows if r["name"] == "c_rgemma")
@@ -8120,7 +8770,8 @@ def run(torch, args, cache_dir: str) -> int:
             "replaces": "src/repro/kernels/flash_attention.py:31",
             "launches": (lmt["launches"][f"flash_attention_bwd_{part}"]
                          + rgt["launches"][f"flash_attention_bwd_{part}"]
-                         + el[f"flash_attention_bwd_{part}"]),
+                         + el[f"flash_attention_bwd_{part}"]
+                         + ml[f"flash_attention_bwd_{part}"]),
             "max_abs_err": max(r["abs_err"] for r in fbrows),
             "max_rel_err": max(err_of(r) for r in fbrows),
             "ms": bt[part],
@@ -8153,6 +8804,7 @@ def run(torch, args, cache_dir: str) -> int:
                    ("backward_ms", et[("f32", n)]["backward"]),
                    ("sdpa_bwd_ms", et[("f32", n)]["library"]))},
             "encdec_launches": el[f"flash_attention_bwd_{part}"],
+            "moe_launches": ml[f"flash_attention_bwd_{part}"],
         })
     kernels.append({
         "name": "flash_attention_bwd_sum",
@@ -8161,7 +8813,8 @@ def run(torch, args, cache_dir: str) -> int:
         # part of the same backward: the G query heads' partial dK and dV
         "replaces": "src/repro/kernels/flash_attention.py:31",
         "launches": (lmt["launches"]["flash_attention_bwd_sum"]
-                     + rgt["launches"]["flash_attention_bwd_sum"]),
+                     + rgt["launches"]["flash_attention_bwd_sum"]
+                     + ml["flash_attention_bwd_sum"]),
         "max_abs_err": max(r["sum_err"] for r in fbrows
                            if r["sum_err"] is not None),
         "ms": bt["sum"],
@@ -8172,6 +8825,7 @@ def run(torch, args, cache_dir: str) -> int:
         "blocks": bt["plan"].sum_blocks,
         "rgemma_ms": bc["sum"],
         "rgemma_bound_ms": bc["bounds"]["sum"][0],
+        "moe_launches": ml["flash_attention_bwd_sum"],
     })
     kernels.append({
         "name": "trim_conv1d",
@@ -8369,7 +9023,8 @@ def run(torch, args, cache_dir: str) -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:31",
         "launches": (lmb["launches"]["flash_attention_bf16"]
-                     + el["flash_attention_bf16"]),
+                     + el["flash_attention_bf16"]
+                     + ml["flash_attention_bf16"]),
         "max_abs_err": max(r["err"] for r in lmb["flash"]),
         "max_rel_err": max(r["rel"] for r in lmb["flash"]),
         "max_f64_excess": max(r["excess"] for r in lmb["flash"]),
@@ -8399,6 +9054,12 @@ def run(torch, args, cache_dir: str) -> int:
            for k, v in (("ms", "ms"), ("bound_ms", "bound"),
                         ("library_ms", "library"))},
         "encdec_launches": el["flash_attention_bf16"],
+        # qwen3-moe-30b-a3b's prefill call in bf16 (CUDA graphs, SDPA bf16
+        # with GQA); the moe phase's bf16 prefills and training steps
+        **{f"q3_{k}": mt["bf16"][v] for k, v in (
+            ("ms", "ms"), ("bound_ms", "bound"), ("library_ms", "library"),
+            ("plain_ms", "plain"))},
+        "moe_launches": ml["flash_attention_bf16"],
     })
     wr, wm = (c1w_rows[(n, "bfloat16")] for n in ("rg_train", "mamba_view"))
     kernels.append({
@@ -8450,7 +9111,8 @@ def run(torch, args, cache_dir: str) -> int:
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention.py:31",
             "launches": (tlb["launches"][f"flash_attention_bwd_{part}_bf16"]
-                         + el[f"flash_attention_bwd_{part}_bf16"]),
+                         + el[f"flash_attention_bwd_{part}_bf16"]
+                         + ml[f"flash_attention_bwd_{part}_bf16"]),
             # against the plain bf16 backward (f32 math, one rounding)
             "max_abs_err": max(r["abs_err"] for r in fb16),
             # past the plain bf16 backward's distance from float64 plus
@@ -8485,13 +9147,15 @@ def run(torch, args, cache_dir: str) -> int:
                    ("backward_ms", et[("bf16", n)]["backward"]),
                    ("sdpa_bwd_ms", et[("bf16", n)]["library"]))},
             "encdec_launches": el[f"flash_attention_bwd_{part}_bf16"],
+            "moe_launches": ml[f"flash_attention_bwd_{part}_bf16"],
         })
     kernels.append({
         "name": "flash_attention_bwd_sum_bf16",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:31",
-        "launches": tlb["launches"]["flash_attention_bwd_sum_bf16"],
+        "launches": (tlb["launches"]["flash_attention_bwd_sum_bf16"]
+                     + ml["flash_attention_bwd_sum_bf16"]),
         "max_abs_err": max(r["abs_err"] for r in fb16),
         "ms": ft["sum"],
         "plain_ms": ft["sum_plain"],
@@ -8500,6 +9164,7 @@ def run(torch, args, cache_dir: str) -> int:
         "library_ms": ft["sum_library"],   # torch.sum over the heads
         "rgemma_ms": fc["sum"],
         "rgemma_bound_ms": fc["bounds"]["sum"][0],
+        "moe_launches": ml["flash_attention_bwd_sum_bf16"],
     })
     print("lm_bf16 (bf16 prefill ms a forward, f32 of this call in "
           "brackets; peak GiB; ms a bf16 decode step): " + "; ".join(
@@ -8533,6 +9198,19 @@ def run(torch, args, cache_dir: str) -> int:
           f" peak {etr['f32']['peak']:.2f} / {etr['bf16']['peak']:.2f} GiB; "
           f"the flash entries' s_* times are one launch at seamless's "
           f"calls, encdec_launches the phase's share of their launches")
+    mp, mtr = md["prefill"], md["train"]
+    print(f"moe ({MOE_ARCH}): bf16 prefill {mp['ms']:.1f} ms a forward (2 x "
+          f"{MOE_SEQ}, full width), peak {mp['peak']:.2f} GiB; bf16 decode "
+          f"{mp['ms_step']:.2f} ms a step; f32 serve at the "
+          f"{MOE_F32_CUT}-layer cut {md['f32']['tok_s']:.1f} tok/s, "
+          f"{md['f32']['step_ms']:.2f} ms a step; train at the "
+          f"{MOE_TRAIN_CUT}-layer cut {mtr['f32']['steady_ms']:.1f} ms a "
+          f"step f32, {mtr['bf16']['steady_ms']:.1f} bf16 (2 x 1024), peak "
+          f"{mtr['f32']['peak']:.2f} / {mtr['bf16']['peak']:.2f} GiB; "
+          f"{MOE_PHI} {MOE_PHI_CUT}-layer cut bf16 prefill "
+          f"{md['phi']['ms']:.1f} ms (2 x {MOE_PHI_SEQ}); the flash entries' "
+          f"q3_* times are one launch at qwen3-moe's prefill call, "
+          f"moe_launches the phase's share of their launches")
     phase.total()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolution and parameter counts
 (the counterpart of ``repro/configs/registry.py``).
 
-The port runs the dense decoder family, the ssm family (falcon-mamba-7b),
-the hybrid family (recurrentgemma-2b) and the encoder-decoder family
-(seamless-m4t-large-v2).  The MoE architectures of the JAX package are
-known by id and raise ``NotImplementedError`` naming the ROADMAP item
-that brings their family.
+Every architecture of the JAX package: the dense decoder family, the
+ssm family (falcon-mamba-7b), the hybrid family (recurrentgemma-2b), the
+encoder-decoder family (seamless-m4t-large-v2) and the MoE family
+(qwen3-moe-30b-a3b, phi3.5-moe-42b-a6.6b).
 """
 
 from __future__ import annotations
@@ -18,13 +17,7 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = ["qwen25_3b", "starcoder2_3b", "starcoder2_7b", "llama3_405b",
             "llava_next_34b", "falcon_mamba", "recurrentgemma_2b",
-            "seamless_m4t"]
-
-# arch id -> family, of the JAX package's architectures not ported yet
-NOT_PORTED = {
-    "phi3.5-moe-42b-a6.6b": "moe",
-    "qwen3-moe-30b-a3b": "moe",
-}
+            "seamless_m4t", "qwen3_moe", "phi35_moe"]
 
 _TABLE: dict | None = None
 
@@ -45,12 +38,9 @@ def archs() -> list[str]:
 
 def get(arch_id: str):
     """The config module (``ARCH_ID``, ``CONFIG``, ``SMOKE``) of an id."""
-    if arch_id in NOT_PORTED:
-        api.require_ported(NOT_PORTED[arch_id])
     table = _table()
     if arch_id not in table:
-        raise KeyError(f"unknown arch {arch_id!r}; known: "
-                       f"{sorted([*table, *NOT_PORTED])}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(table)}")
     return table[arch_id]
 
 

@@ -7,7 +7,10 @@ LM's ``api.params`` (``tok {embed, head}``, ``blocks`` stacked over a
 leading layer axis — ``wq (L, d, h, hd)``, ``wo (L, h, hd, d)``, ... —
 ``ln_f``, ``vision_proj``; for the mamba family ``blocks.mixer.{w_in,
 conv_w, conv_b, w_x, w_dt, dt_bias, a_log, d_skip, w_out}`` and
-``blocks.ln``) — already converted to numpy arrays
+``blocks.ln``; for the MoE family ``blocks.moe.{router (L, d, e), w_gate
+(L, e, d, f), w_up (L, e, d, f), w_down (L, e, f, d)}`` and, with a
+shared expert, ``blocks.moe.shared.{w_gate, w_up, w_down}``) — already
+converted to numpy arrays
 (``jax.tree.map(np.asarray, params)``), and returns the same tree as
 tensors, keys, nesting and layouts unchanged (bf16 leaves as bf16, other
 floating leaves as float32, integer leaves in their own dtype): the

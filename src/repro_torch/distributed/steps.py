@@ -36,7 +36,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     """``train_step(state, batch) -> (state, metrics)``, the counterpart of
     ``make_train_step`` (``repro/distributed/steps.py:77``).
 
-    The loss is ``api.loss_fn`` of ``api.forward``; the gradient is taken
+    The loss is ``api.loss_fn`` of ``api.forward``, with the MoE family's
+    load-balance aux (summed over its layers) weighted in as JAX's step
+    adds it (``repro/distributed/steps.py:81-82``); the gradient is taken
     with ``torch.autograd.grad`` on detached views of the params (no copy).
     With ``n_micro > 1`` the batch splits along its first axis and the
     gradients sum in ``accum_dtype`` from zeros, micro-batch by
@@ -55,7 +57,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     dtype (``n_micro > 1``: summed in ``accum_dtype``), and AdamW updates
     each leaf in f32 and rounds it once to its dtype, the moments kept in
     ``opt_cfg.moment_dtype``."""
-    api.require_ported(cfg.family)
 
     def loss_and_grads(leaves, params, mb):
         live = [t.detach().requires_grad_() for t in leaves]

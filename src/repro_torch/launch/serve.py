@@ -4,7 +4,9 @@ greedy decode, with the per-family state on the device (KV caches; the
 conv windows and SSM states of falcon-mamba-7b; the ring KV caches, conv
 windows and LRU states of recurrentgemma-2b; the decoder's KV caches and
 the static cross caches of seamless-m4t-large-v2 through ``serve_batch``,
-which ``main`` does not drive, as JAX's does not).
+which ``main`` does not drive, as JAX's does not).  The MoE family
+(qwen3-moe-30b-a3b, phi3.5-moe-42b-a6.6b) serves as the dense one does:
+each decode step routes the batch's B tokens as one group.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
       --smoke --batch 4 --prompt-len 16 --gen 32 --device cpu
@@ -12,9 +14,13 @@ which ``main`` does not drive, as JAX's does not).
       --arch falcon-mamba-7b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch recurrentgemma-2b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch qwen3-moe-30b-a3b --smoke --device cpu
 
 Without ``--device`` it runs on the card and raises where PyTorch sees no
-GPU.  Weights are random, drawn from seed 0 on the device; prompts come
+GPU.  ``serve_batch`` runs f32, as JAX's entry point forces; a full-width
+config must fit the card in f32 (qwen3-moe-30b-a3b's 122 GB does not).
+Weights are random, drawn from seed 0 on the device; prompts come
 from ``np.random.default_rng(0)``.
 """
 

@@ -14,11 +14,16 @@ Usage (``--device cpu`` runs the plain versions; keep the model small):
       --seq 64 --ckpt-dir "$(mktemp -d)"
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch recurrentgemma-2b --steps 4 --batch 1 --seq 4097   # the card
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch qwen3-moe-30b-a3b --smoke --device cpu --steps 10 --batch 8 \\
+      --seq 64 --ckpt-dir "$(mktemp -d)"
 
 The flags and their defaults are JAX's, plus ``--device`` (default
 ``cuda``) and ``--json OUT``; ``--model-parallel`` other than 1 raises
 (ROADMAP Queue 1 item 9).  The dense (qwen2.5-3b, starcoder2-3b/7b,
-...), ssm (falcon-mamba-7b, whose 116 GB of f32 state does not fit one
+...), MoE (qwen3-moe-30b-a3b, phi3.5-moe-42b-a6.6b: the loss adds the
+routers' load-balance aux; neither fits one card in f32 at full depth),
+ssm (falcon-mamba-7b, whose 116 GB of f32 state does not fit one
 card at full depth) and hybrid (recurrentgemma-2b) families train.
 Attention runs the flash kernels forward and backward
 (``attn_impl="flash"``, the port's default), the temporal conv the conv1d

@@ -8,8 +8,8 @@
 Batch dict keys: ``tokens`` (B, S) int, plus ``vision`` (B, Nv, d) for a
 VLM and ``src`` (B, Ls, d) for an encoder-decoder (frame embeddings in
 the params' dtype); decode adds ``cache_len`` (B,), which the ssm family
-ignores.  The port runs the dense, ssm, hybrid and encdec families; MoE
-raises ``NotImplementedError`` naming its ROADMAP item.
+ignores.  The port runs every family of the JAX package: dense, moe,
+ssm, hybrid and encdec.
 """
 
 from __future__ import annotations
@@ -19,25 +19,8 @@ import torch
 from repro_torch.models import mamba, rglru, transformer
 from repro_torch.models.config import ModelConfig
 
-PORTED = ("dense", "ssm", "hybrid", "encdec")
-# family -> the ROADMAP item that ports it
-NOT_PORTED = {
-    "moe": "ROADMAP Queue 1 item 2d (MoE: moe_apply)",
-}
-
-
-def require_ported(family: str) -> None:
-    """Raise unless the port runs ``family`` (dense, ssm, hybrid or
-    encdec)."""
-    if family in NOT_PORTED:
-        raise NotImplementedError(f"the port does not run the {family!r} "
-                                  f"family yet: {NOT_PORTED[family]}")
-    if family not in PORTED:
-        raise ValueError(f"unknown family {family!r}")
-
 
 def params(cfg: ModelConfig) -> dict:
-    require_ported(cfg.family)
     if cfg.family == "ssm":
         return mamba.lm_params(cfg)
     if cfg.family == "hybrid":
@@ -48,9 +31,9 @@ def params(cfg: ModelConfig) -> dict:
 
 
 def forward(p: dict, batch: dict, cfg: ModelConfig):
-    """Full-sequence forward (prefill).  Returns (logits, aux); aux, the
-    MoE load-balance loss of the JAX API, is 0.0 for the ported families."""
-    require_ported(cfg.family)
+    """Full-sequence forward (training / prefill).  Returns (logits, aux):
+    aux is the MoE family's load-balance loss summed over its layers (a
+    0-d tensor), 0.0 for the other families."""
     if cfg.family == "ssm":
         logits, _ = mamba.lm_apply(p, batch["tokens"], cfg)
     elif cfg.family == "hybrid":
@@ -59,8 +42,9 @@ def forward(p: dict, batch: dict, cfg: ModelConfig):
         logits, _, _ = transformer.encdec_apply(p, batch["src"],
                                                 batch["tokens"], cfg)
     else:
-        logits, _ = transformer.lm_apply(p, batch["tokens"], cfg,
-                                         vision_embeds=batch.get("vision"))
+        logits, _, aux = transformer.lm_apply(
+            p, batch["tokens"], cfg, vision_embeds=batch.get("vision"))
+        return logits, aux
     return logits, 0.0
 
 
@@ -73,7 +57,6 @@ def decode_state(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     ``cross`` caches of ``cfg.n_frontend_tokens or 1`` entries, both over
     ``cfg.dec_layers`` layers (zero: JAX's ``decode_state`` fills no
     cross cache either)."""
-    require_ported(cfg.family)
     if cfg.family == "ssm":
         return mamba.make_state(cfg, batch)
     if cfg.family == "hybrid":
@@ -90,7 +73,6 @@ def decode(p: dict, batch: dict, state: dict, cfg: ModelConfig):
     """One-token decode step.  batch: tokens (B, 1), cache_len (B,).
     Returns (logits (B, 1, V), state); the state is updated in place (an
     encdec state's ``cross`` caches are only read)."""
-    require_ported(cfg.family)
     if cfg.family == "ssm":
         return mamba.lm_apply(p, batch["tokens"], cfg, state=state)
     if cfg.family == "hybrid":
@@ -101,7 +83,7 @@ def decode(p: dict, batch: dict, state: dict, cfg: ModelConfig):
             p, None, batch["tokens"], cfg, caches=state["caches"],
             cache_len=batch["cache_len"], cross_caches=state["cross"])
         return logits, {"caches": caches, "cross": cross}
-    logits, caches = transformer.lm_apply(
+    logits, caches, _ = transformer.lm_apply(
         p, batch["tokens"], cfg, caches=state["caches"],
         cache_len=batch["cache_len"])
     return logits, {"caches": caches}

@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 ATTN_IMPLS = ("flash", "chunked", "ref")
 DTYPES = ("float32", "bfloat16")
 
@@ -71,9 +72,12 @@ class ModelConfig:
     attn_chunk: int = 1024
     remat: bool = True             # checkpoint each dense block under grad
     unroll_layers: bool = False    # the port's layer loop is always unrolled
-    moe_impl: str = "gmm"
+    moe_impl: str = "gmm"          # gmm (capacity-grouped matmul)
 
     def __post_init__(self):
+        if self.family not in FAMILIES:
+            raise ValueError(f"family={self.family!r}; choose from "
+                             f"{FAMILIES}")
         if self.dtype not in DTYPES:
             raise ValueError(
                 f"dtype={self.dtype!r}: the port runs {' and '.join(DTYPES)}"
@@ -81,6 +85,15 @@ class ModelConfig:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl={self.attn_impl!r}; choose from "
                              f"{ATTN_IMPLS}")
+        if self.family == "moe":
+            if not self.n_experts >= self.top_k >= 1 or self.moe_dff <= 0:
+                raise ValueError(
+                    f"moe: n_experts={self.n_experts}, top_k={self.top_k}, "
+                    f"moe_dff={self.moe_dff}; want n_experts >= top_k >= 1 "
+                    "and moe_dff > 0")
+            if self.moe_impl != "gmm":
+                raise ValueError(f"moe_impl={self.moe_impl!r}: the port "
+                                 "runs 'gmm' (the capacity-grouped matmul)")
 
     @property
     def hd(self) -> int:

@@ -20,14 +20,16 @@ f32 weights with the autotune cache's knobs as hints); or, after
 runs the int8 route (inference only; ``TrimCNN`` holds it as buffers).
 
 Transformer layers.  Norms (RMSNorm / LayerNorm in f32, eps 1e-6), RoPE
-(split halves), GQA attention with an optional KV cache, the dense MLPs
-and the token embedding / LM head, each a ``*_params`` declaration and a
-``*_apply`` function on tensors in the JAX layout (``wq`` ``(d, h, hd)``,
-``wo`` ``(h, hd, d)``, activations ``(B, L, d)``).  No sharding: the
-port's LM runs on one device.
+(split halves), GQA attention with an optional KV cache, the dense MLPs,
+the mixture of experts and the token embedding / LM head, each a
+``*_params`` declaration and a ``*_apply`` function on tensors in the
+JAX layout (``wq`` ``(d, h, hd)``, ``wo`` ``(h, hd, d)``, activations
+``(B, L, d)``).  No sharding: the port's LM runs on one device.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -774,6 +776,163 @@ def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if "b_down" in p:
         y = y + p["b_down"]
     return y
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (token-choice top-k, capacity-grouped matmul)
+# ---------------------------------------------------------------------------
+
+def moe_params(cfg: ModelConfig) -> dict:
+    """The router (scale 0.1), the experts' SwiGLU weights ``w_gate`` /
+    ``w_up`` (e, d, f) and ``w_down`` (e, f, d), each drawn a leading
+    slice at a time (``Param.sliced``), and, with ``shared_expert_dff``,
+    a dense ``shared`` expert (``repro/models/layers.py:668``)."""
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_dff
+    p = {"router": Param((d, e), scale=0.1),
+         "w_gate": Param((e, d, f), sliced=True),
+         "w_up": Param((e, d, f), sliced=True),
+         "w_down": Param((e, f, d), sliced=True)}
+    if cfg.shared_expert_dff:
+        fs = cfg.shared_expert_dff
+        p["shared"] = {"w_gate": Param((d, fs)), "w_up": Param((d, fs)),
+                       "w_down": Param((fs, d))}
+    return p
+
+
+def moe_top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis -> (values, indices): the k
+    largest, largest first, the lower index first among equal values.  A
+    stable descending sort gives that order; ``torch.topk`` promises none
+    among ties, and bf16 router logits tie often across 128 experts."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_dispatch(gate_idx: torch.Tensor, n_experts: int, cap: int):
+    """JAX's ``_dispatch_one`` (``repro/models/layers.py:712``) over all
+    groups at once, in integers.  ``gate_idx`` (g, tg, k) holds each
+    token's experts.  The g x tg x k choices (choice ``c = t * k + j``)
+    are ordered by expert with a stable sort, as ``jnp.argsort`` orders
+    them; each takes its expert's next buffer row (``expert * cap +
+    rank``) while the expert's ``cap`` rows last, and is dropped after.
+    Returns
+
+    * ``rows`` (g, tg, k): the buffer row of each token's choices, the
+      choices in ascending expert order (the order in which JAX's
+      ``.at[tok].add`` sums a token's contributions); ``e * cap`` where
+      dropped;
+    * ``by_expert`` (g, tg, k): the choice index ``j`` of each entry of
+      ``rows``;
+    * ``src`` (g, e * cap): the token that fills each buffer row, ``tg``
+      where the row stays empty;
+    * ``back`` (g, e * cap): the flat index (``t * k + i``) of the entry
+      of ``rows`` that names each buffer row, ``tg * k`` where empty;
+    * ``counts`` (g, e): the choices of each expert before drops."""
+    g, tg, k = gate_idx.shape
+    e, n, dev = n_experts, tg * k, gate_idx.device
+    flat = gate_idx.reshape(g, n)
+    order = torch.argsort(flat, dim=-1, stable=True)
+    seg = flat.gather(1, order)
+    counts = torch.zeros((g, e), dtype=torch.int64, device=dev)
+    counts.scatter_add_(1, flat, torch.ones_like(flat))
+    starts = counts.cumsum(1) - counts
+    rank = torch.arange(n, device=dev) - starts.gather(1, seg)
+    slot = torch.where(rank < cap, seg * cap + rank, e * cap)
+    slot = torch.empty_like(slot).scatter_(1, order, slot)   # choice order
+    by_expert = torch.argsort(gate_idx, dim=-1)   # a token's experts differ
+    rows = slot.reshape(g, tg, k).gather(2, by_expert)
+    # buffer row (expert, r) takes sorted choice starts + r, if there is one
+    r = torch.arange(cap, device=dev)
+    filled = (r < counts[:, :, None]).reshape(g, e * cap)
+    c = order.gather(1, (starts[:, :, None] + r).reshape(g, e * cap)
+                     .clamp(max=n - 1))
+    src = torch.where(filled, c // k, tg)
+    at = torch.empty_like(by_expert).scatter_(
+        2, by_expert, torch.arange(k, device=dev).expand(g, tg, k))
+    at = at + k * torch.arange(tg, device=dev)[:, None]
+    back = torch.where(filled, at.reshape(g, n).gather(1, c), n)
+    return rows, by_expert, src, back, counts
+
+
+def _rows_of(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` (g, m) of ``src`` (g, R, d); index R reads zeros."""
+    g, _, d = src.shape
+    pad = torch.cat([src, src.new_zeros((g, 1, d))], dim=1)
+    return pad.gather(1, idx[..., None].expand(-1, -1, d))
+
+
+class _GatherRows(torch.autograd.Function):
+    """``out[g, i] = src[g, idx[g, i]]`` over rows (a zero row where
+    ``idx`` is ``src.shape[1]``).  Its gradient is a gather as well: row r
+    of ``src`` sums the cotangent's rows ``inv[g, r, :]`` (``out.shape[1]``:
+    none) in that order, one add at a time.  Autograd of a plain gather
+    would scatter-add, which sums a row read k times (a token's k
+    choices) with float atomics on the card, in no fixed order."""
+
+    @staticmethod
+    def forward(ctx, src, idx, inv):
+        ctx.save_for_backward(inv)
+        return _rows_of(src, idx)
+
+    @staticmethod
+    def backward(ctx, dout):
+        inv, = ctx.saved_tensors
+        dsrc = _rows_of(dout, inv[..., 0])
+        for j in range(1, inv.shape[-1]):
+            dsrc = dsrc + _rows_of(dout, inv[..., j])
+        return dsrc, None, None
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """GShard-style token-choice top-k with grouped capacity dispatch
+    (``repro/models/layers.py:685``) -> (y, aux).
+
+    A group is a sequence (one group over the batch at decode, ``s ==
+    1``), of ``cap = max(ceil(tg k / e capacity_factor), 1)`` buffer rows
+    an expert.  The router's logits are taken in the activations' dtype,
+    then in f32 (float64 stays float64), softmax; :func:`moe_top_k` picks
+    each token's experts, their gates renormalised (clipped at 1e-9);
+    :func:`moe_dispatch` assigns rows; the experts run as three batched
+    products over the (g, e, cap, d) buffer (``torch.einsum``, as JAX's
+    ``einsum``: no Pallas kernel there); each token sums its kept
+    contributions (gate x expert output, in the activations' dtype) from
+    zeros in ascending expert order, one rounding an add, as XLA's serial
+    scatter-add does.  The dispatch gather and the combine's read of the
+    expert outputs are :class:`_GatherRows`, so the backward holds no
+    float atomics; every other gather here reads an element at most
+    once, so its backward adds one value into each zero.  ``aux`` is the
+    Switch load-balance loss: ``e`` x the groups' mean of the sum over
+    experts of (mean router probability x share of the choices, drops
+    included); its gradient flows through the probabilities only."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    xg = x.reshape(1, b, d) if s == 1 else x
+    g, tg, _ = xg.shape
+    logits = torch.einsum("gtd,de->gte", xg, p["router"])
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = moe_top_k(probs, k)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    cap = max(int(math.ceil(tg * k / e * cfg.capacity_factor)), 1)
+    with torch.no_grad():
+        rows, by_expert, src, back, counts = moe_dispatch(gate_idx, e, cap)
+    buf = _GatherRows.apply(xg, src, rows).reshape(g, e, cap, d)
+    h = F.silu(torch.einsum("gecd,edf->gecf", buf, p["w_gate"])) \
+        * torch.einsum("gecd,edf->gecf", buf, p["w_up"])
+    yexp = torch.einsum("gecf,efd->gecd", h, p["w_down"])
+    part = _GatherRows.apply(yexp.reshape(g, e * cap, d),
+                             rows.reshape(g, tg * k), back[..., None])
+    gts = gate_vals.to(x.dtype).gather(2, by_expert)
+    part = part.reshape(g, tg, k, d) * gts[..., None]
+    y = torch.zeros((g, tg, d), dtype=x.dtype, device=x.device)
+    for i in range(k):
+        y = y + part[:, :, i]
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], xg, cfg)
+    me = probs.mean(dim=1)                                   # (g, e)
+    ce = counts.to(probs.dtype) / (tg * k)
+    aux = e * torch.mean(torch.sum(me * ce, dim=-1))
+    return y.reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------

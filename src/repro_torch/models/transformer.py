@@ -1,4 +1,4 @@
-"""Decoder-only LM (dense / VLM) and encoder-decoder stacks — the
+"""Decoder-only LM (dense / MoE / VLM) and encoder-decoder stacks — the
 counterpart of ``repro/models/transformer.py``.
 
 Parameters keep the JAX tree and layout: ``tok {embed, head}``, ``blocks``
@@ -15,8 +15,9 @@ with ``cfg.remat`` each block runs under
 ``torch.utils.checkpoint`` (non-reentrant), the counterpart of JAX's
 ``jax.checkpoint(..., nothing_saveable)`` (``repro/models/transformer.py:
 75-77``): only the block inputs are kept, and the backward recomputes each
-block's forward.  MoE blocks are not ported yet (ROADMAP Queue 1 item
-2d).
+block's forward.  A MoE block (``family == "moe"``) has ``moe`` where the
+others have ``mlp``; its load-balance aux is summed over the stack in
+layer order (the scan's carry in JAX) and returned beside the output.
 """
 
 from __future__ import annotations
@@ -35,17 +36,21 @@ def block_params(cfg: ModelConfig, cross: bool = False) -> dict:
     if cross:
         p["ln_cross"] = L.norm_params(cfg)
         p["cross"] = L.attention_params(cfg)
-    p["mlp"] = L.mlp_params(cfg)
+    if cfg.family == "moe":
+        p["moe"] = L.moe_params(cfg)
+    else:
+        p["mlp"] = L.mlp_params(cfg)
     return p
 
 
 def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions,
                 kv_cache=None, cache_len=None, causal: bool = True,
-                encoder_out=None, cross_cache=None) -> torch.Tensor:
-    """One pre-norm block: self-attention (non-causal for the encoder),
-    the cross-attention onto ``encoder_out`` or its static
-    ``cross_cache`` where either is given, then the MLP.  A ``kv_cache``
-    is updated in place; a ``cross_cache`` is only read."""
+                encoder_out=None, cross_cache=None):
+    """One pre-norm block -> (x, aux): self-attention (non-causal for the
+    encoder), the cross-attention onto ``encoder_out`` or its static
+    ``cross_cache`` where either is given, then the MLP, or the experts
+    (``moe_apply``: aux its load-balance loss; 0.0 for an MLP block).  A
+    ``kv_cache`` is updated in place; a ``cross_cache`` is only read."""
     x = x + L.attention_apply(
         p["att"], L.norm_apply(p["ln_att"], x, cfg), cfg,
         positions=positions, kv_cache=kv_cache, cache_len=cache_len,
@@ -56,7 +61,10 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions,
             encoder_out=encoder_out, kv_cache=cross_cache, is_cross=True,
             causal=False, use_rope=False)
     z = L.norm_apply(p["ln_mlp"], x, cfg)
-    return x + L.mlp_apply(p["mlp"], z, cfg)
+    if cfg.family == "moe":
+        h, aux = L.moe_apply(p["moe"], z, cfg)
+        return x + h, aux
+    return x + L.mlp_apply(p["mlp"], z, cfg), 0.0
 
 
 def layer_slice(tree, i: int):
@@ -78,26 +86,31 @@ def layer_list(tree, n: int) -> list:
 def _run_blocks(blocks: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 positions, n_layers: int, caches=None, cache_len=None,
                 causal: bool = True, encoder_out=None,
-                cross_caches=None) -> torch.Tensor:
-    """The layer stack (``repro/models/transformer.py:63``): ``n_layers``
-    blocks of a stacked tree, each leaf cut once (:func:`layer_list`).
+                cross_caches=None):
+    """The layer stack (``repro/models/transformer.py:63``) -> (x, aux):
+    ``n_layers`` blocks of a stacked tree, each leaf cut once
+    (:func:`layer_list`), their aux summed from 0.0 in layer order.
     ``caches`` / ``cross_caches``: ``{"k", "v"}`` stacked (L, B, Lmax,
     Hkv, hd) or None; layer i's self cache is updated in place.  Under
     grad with ``cfg.remat`` and no caches each block is checkpointed."""
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    aux_total = 0.0
     for i, pi in enumerate(layer_list(blocks, n_layers)):
         if remat:
-            x = checkpoint(block_apply, pi, x, cfg, positions=positions,
-                           causal=causal, encoder_out=encoder_out,
-                           use_reentrant=False)
-            continue
-        kv = None if caches is None else (caches["k"][i], caches["v"][i])
-        xkv = None if cross_caches is None else (cross_caches["k"][i],
-                                                 cross_caches["v"][i])
-        x = block_apply(pi, x, cfg, positions=positions, kv_cache=kv,
-                        cache_len=cache_len, causal=causal,
-                        encoder_out=encoder_out, cross_cache=xkv)
-    return x
+            x, aux = checkpoint(block_apply, pi, x, cfg, positions=positions,
+                                causal=causal, encoder_out=encoder_out,
+                                use_reentrant=False)
+        else:
+            kv = None if caches is None else (caches["k"][i],
+                                              caches["v"][i])
+            xkv = None if cross_caches is None else (cross_caches["k"][i],
+                                                     cross_caches["v"][i])
+            x, aux = block_apply(pi, x, cfg, positions=positions,
+                                 kv_cache=kv, cache_len=cache_len,
+                                 causal=causal, encoder_out=encoder_out,
+                                 cross_cache=xkv)
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -131,25 +144,26 @@ def _positions(x: torch.Tensor, cache_len) -> torch.Tensor:
 
 def lm_apply(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
              caches=None, cache_len=None, vision_embeds=None):
-    """tokens: (B, S) -> (logits (B, S[+Nv], vocab), caches).
+    """tokens: (B, S) -> (logits (B, S[+Nv], vocab), caches, aux).
 
     Decode mode: S == 1 with ``caches``/``cache_len`` set; each layer's
-    cache is updated in place and ``caches`` is returned.
+    cache is updated in place and ``caches`` is returned.  ``aux``: the
+    stack's summed MoE load-balance loss (0.0 for a dense stack).
     """
     x = L.embed_apply(params["tok"], tokens, cfg)
     if vision_embeds is not None:
         v = vision_embeds.to(x.dtype) @ params["vision_proj"]
         x = torch.cat([v, x], dim=1)
-    x = _run_blocks(params["blocks"], x, cfg,
-                    positions=_positions(x, cache_len),
-                    n_layers=cfg.n_layers, caches=caches,
-                    cache_len=cache_len)
+    x, aux = _run_blocks(params["blocks"], x, cfg,
+                         positions=_positions(x, cache_len),
+                         n_layers=cfg.n_layers, caches=caches,
+                         cache_len=cache_len)
     x = L.norm_apply(params["ln_f"], x, cfg)
     logits = L.head_apply(params["tok"], x, cfg)
     if cfg.logits_soft_cap:
         logits = cfg.logits_soft_cap * torch.tanh(
             logits / cfg.logits_soft_cap)
-    return logits, caches
+    return logits, caches, aux
 
 
 # ---------------------------------------------------------------------------
@@ -188,15 +202,15 @@ def encdec_apply(params: dict, src_embeds, tokens: torch.Tensor,
                 f"embeddings in the params' dtype, {want} (JAX's "
                 "input_specs builds them in the activation dtype); cast "
                 "them before the call")
-        enc = _run_blocks(params["enc_blocks"], src_embeds, cfg,
-                          positions=_positions(src_embeds, None),
-                          n_layers=cfg.enc_layers, causal=False)
+        enc, _ = _run_blocks(params["enc_blocks"], src_embeds, cfg,
+                             positions=_positions(src_embeds, None),
+                             n_layers=cfg.enc_layers, causal=False)
         enc = L.norm_apply(params["enc_ln"], enc, cfg)
     x = L.embed_apply(params["tok"], tokens, cfg)
-    x = _run_blocks(params["dec_blocks"], x, cfg,
-                    positions=_positions(x, cache_len),
-                    n_layers=cfg.dec_layers, caches=caches,
-                    cache_len=cache_len, encoder_out=enc,
-                    cross_caches=cross_caches)
+    x, _ = _run_blocks(params["dec_blocks"], x, cfg,
+                       positions=_positions(x, cache_len),
+                       n_layers=cfg.dec_layers, caches=caches,
+                       cache_len=cache_len, encoder_out=enc,
+                       cross_caches=cross_caches)
     x = L.norm_apply(params["dec_ln"], x, cfg)
     return L.head_apply(params["tok"], x, cfg), caches, cross_caches

@@ -10,6 +10,18 @@ throughout.  Under the JAX initialiser's peaked attention scores (|s| in
 the hundreds at full width) two f32 computations of a deep stack part by
 far more than an f32 rounding, so the tests and ``chip_smoke.py`` hold
 each f32 path against this oracle rather than against each other.
+
+A MoE block is float64 by itself (its router widens to at least f32),
+but its routing is a discontinuous function: a token whose k-th and
+(k+1)-th router probabilities nearly tie takes one expert in the run
+under test and may take the other in float64.  So the oracle replays
+that run's routing: :func:`routes` records each MoE layer's expert
+choices (``layers.moe_top_k``'s indices) in call order, and
+``float64(routes=...)`` hands them back in the same order, the gates
+taken from the float64 probabilities at those experts; the dispatch,
+capacity drops, combine and aux then follow from them as in the run
+under test.  Replay needs one forward in the recorded order: run the
+oracle without remat (a checkpointed block would route twice).
 """
 
 from __future__ import annotations
@@ -72,16 +84,55 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 @contextlib.contextmanager
-def float64():
+def routes():
+    """Record the expert choices of every MoE layer run inside the block:
+    yields the list that ``layers.moe_top_k``'s indices (g, tg, k) are
+    appended to, in call order."""
+    recorded = []
+    top_k = layers.moe_top_k
+
+    def recording(probs, k):
+        vals, idx = top_k(probs, k)
+        recorded.append(idx.detach().clone())
+        return vals, idx
+    layers.moe_top_k = recording
+    try:
+        yield recorded
+    finally:
+        layers.moe_top_k = top_k
+
+
+def _replay(recorded: list):
+    """A ``moe_top_k`` that returns the next recorded choices and the
+    probabilities at them."""
+    pending = iter(recorded)
+
+    def replay(probs, k):
+        idx = next(pending).to(probs.device)
+        if idx.shape != (*probs.shape[:-1], k):
+            raise ValueError(f"recorded choices {tuple(idx.shape)} do not "
+                             f"fit probabilities {tuple(probs.shape)}, k "
+                             f"{k}: replay in the recorded order")
+        return probs.gather(-1, idx), idx
+    return replay
+
+
+@contextlib.contextmanager
+def float64(routes: list | None = None):
     """``layers.norm_apply``, ``layers.rope`` and ``ref.attention``
-    swapped for the float64 versions above inside the block."""
-    saved = layers.norm_apply, layers.rope, ref.attention
+    swapped for the float64 versions above inside the block; with
+    ``routes`` (from :func:`routes`), ``layers.moe_top_k`` replays them."""
+    saved = (layers.norm_apply, layers.rope, ref.attention,
+             layers.moe_top_k)
     layers.norm_apply, layers.rope, ref.attention = norm_apply, rope, \
         attention
+    if routes is not None:
+        layers.moe_top_k = _replay(routes)
     try:
         yield
     finally:
-        layers.norm_apply, layers.rope, ref.attention = saved
+        (layers.norm_apply, layers.rope, ref.attention,
+         layers.moe_top_k) = saved
 
 
 def widen(tree):

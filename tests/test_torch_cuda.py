@@ -74,8 +74,14 @@ Lq > Lk, forward, backward and bf16, in the flash cases above) and its
 full-width 2 + 2-layer cut: prefill and one train step on the card's
 kernels, each held against the port's float64 oracle on the CPU
 (``repro_torch.testing.float64``) within twice the CPU plain version's
-distance from it (two f32 paths part by ~1e-2 there).
+distance from it (two f32 paths part by ~1e-2 there).  The MoE family
+(qwen3-moe-30b-a3b's SMOKE widened to 32 experts, top 4): one layer on
+the card against the CPU with the same experts, rows and counts (prefill
+groups and decode's one group), its gradient bitwise on repeat, and a
+train step bitwise on repeat.
 """
+
+import math
 
 import pytest
 import torch
@@ -1327,6 +1333,91 @@ def test_encdec_cut_at_full_width_train_step_on_the_card(cuda):
     assert abs(m["loss"].item() - mc["loss"].item()) <= \
         ENCDEC_CUT_LOSS_TOL * abs(mc["loss"].item())
     assert all(bool(torch.isfinite(t).all()) for t in adamw.tree_leaves(s))
+
+
+# The MoE family at a widened SMOKE (32 experts, top 4): the experts run
+# as einsums on either device; what the card must keep is the routing
+# (a stable top-k, a stable dispatch sort) and a deterministic dispatch
+# and combine (``layers._GatherRows``: no float atomics)
+def _moe_cfg():
+    from repro_torch.configs import registry
+    return registry.get("qwen3-moe-30b-a3b").SMOKE.replace(
+        d_model=256, n_heads=8, n_kv_heads=2, head_dim=32, moe_dff=128,
+        n_experts=32, top_k=4, attn_impl="flash", remat=True)
+
+
+@pytest.mark.parametrize("s", [64, 1], ids=["prefill", "decode"])
+def test_moe_apply_on_the_card_matches_the_cpu(cuda, s):
+    """One MoE layer on the card against the CPU plain path on the same
+    f32 inputs (prefill: a group a sequence; decode: one group of 8
+    tokens, cap 2): the same experts, buffer rows and counts; y within
+    TOL of max|y|; aux within 1e-6 of it."""
+    from repro_torch.models import layers
+    from repro_torch.models.base import init_params
+    from repro_torch.testing import float64
+    cfg = _moe_cfg()
+    p = init_params(layers.moe_params(cfg), torch.Generator().manual_seed(0))
+    b = 8 if s == 1 else 2
+    x = torch.randn((b, s, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    tg = b if s == 1 else s
+    cap = max(math.ceil(tg * cfg.top_k / cfg.n_experts
+                        * cfg.capacity_factor), 1)
+    out = {}
+    for dev in ("cpu", cuda):
+        with float64.routes() as rec, torch.no_grad():
+            y, aux = layers.moe_apply(_to_device(p, dev), x.to(dev), cfg)
+        disp = layers.moe_dispatch(rec[0], cfg.n_experts, cap)
+        out[str(dev)] = (y.cpu(), aux.cpu(), rec[0].cpu(),
+                         [t.cpu() for t in disp])
+    (y, aux, idx, disp), (yc, auxc, idxc, dispc) = out[str(cuda)], out["cpu"]
+    assert torch.equal(idx, idxc)
+    for a, w in zip(disp, dispc):
+        assert torch.equal(a, w)
+    assert _rel(y, yc) <= TOL
+    assert abs(aux.item() - auxc.item()) <= 1e-6 * abs(auxc.item())
+
+
+def test_moe_backward_is_bitwise_on_repeat(cuda):
+    """The gradient of one MoE layer (the dispatch gather's backward sums
+    a token's k rows in order; the combine's in one add a row) on the card
+    twice: bitwise equal, and within TOL of the CPU's; then one SMOKE-
+    width train step of the family (flash, remat) twice from one state:
+    every leaf of the state bitwise equal."""
+    from repro_torch.distributed import steps
+    from repro_torch.models import layers
+    from repro_torch.models.base import init_params
+    from repro_torch.optim import AdamWConfig, adamw
+    cfg = _moe_cfg()
+    p = init_params(layers.moe_params(cfg), torch.Generator().manual_seed(0))
+    x = torch.randn((2, 64, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2))
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(3))
+
+    def grads(dev):
+        pd = [t.to(dev).requires_grad_() for t in adamw.tree_leaves(p)]
+        xd = x.to(dev).requires_grad_()
+        y, aux = layers.moe_apply(adamw.tree_unflatten(p, pd), xd, cfg)
+        return [g.cpu() for g in torch.autograd.grad(
+            (y * dy.to(dev)).sum() + aux, [xd, *pd])]
+    first, again, cpu = grads(cuda), grads(cuda), grads("cpu")
+    for a, b, c in zip(first, again, cpu):
+        assert torch.equal(a, b)
+        assert _rel(a, c) <= TOL
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, decay_steps=50)
+    state = steps.init_train_state(cfg, opt,
+                                   torch.Generator().manual_seed(4))
+    gen = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (2, 65), generator=gen)
+    batch = {"tokens": toks[:, :-1].to(cuda), "labels": toks[:, 1:].to(cuda)}
+    runs = [steps.make_train_step(cfg, opt)(_to_device(state, cuda), batch)
+            for _ in range(2)]
+    for a, b in zip(adamw.tree_leaves(runs[0][0]),
+                    adamw.tree_leaves(runs[1][0])):
+        assert torch.equal(a, b)
+    assert torch.equal(runs[0][1]["loss"], runs[1][1]["loss"])
+    assert all(bool(torch.isfinite(t).all())
+               for t in adamw.tree_leaves(runs[0][0]))
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "falcon-mamba-7b",

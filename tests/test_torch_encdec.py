@@ -228,15 +228,15 @@ def test_encoder_matches_jax_flash_kernel():
     jenc = jlayers.norm_apply(jp["enc_ln"], jenc, jcfg)
     p = params_from_jax(jp)
     with torch.no_grad():
-        enc = transformer._run_blocks(
+        enc, aux = transformer._run_blocks(
             p["enc_blocks"], torch.from_numpy(src), cfg,
             positions=torch.arange(src.shape[1])[None],
             n_layers=cfg.enc_layers, causal=False)
         enc = layers.norm_apply(p["enc_ln"], enc, cfg)
-    assert _rel(enc, jenc) <= TOL
+    assert _rel(enc, jenc) <= TOL and aux == 0.0
     # a causal encoder is another function
     with torch.no_grad():
-        causal = transformer._run_blocks(
+        causal, _ = transformer._run_blocks(
             p["enc_blocks"], torch.from_numpy(src), cfg,
             positions=torch.arange(src.shape[1])[None],
             n_layers=cfg.enc_layers, causal=True)
@@ -783,10 +783,13 @@ def test_registry_runs_the_family_at_full_width():
     assert mod.CONFIG.family == "encdec" and mod.CONFIG.attn_impl == "flash"
     assert (mod.SMOKE.attn_impl, mod.SMOKE.remat) == ("ref", False)
     assert registry.count_params(mod.CONFIG) == 1_632_698_368
-    assert ARCH in registry.archs() and ARCH not in registry.NOT_PORTED
-    for arch in registry.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="item 2d"):
-            registry.get(arch)
+    assert ARCH in registry.archs()
+    # the MoE ids, refused here until their family was ported, resolve
+    for arch in ("qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b"):
+        mod = registry.get(arch)
+        assert mod.CONFIG.family == "moe" and arch in registry.archs()
+        assert registry.count_params(mod.CONFIG) == jregistry.count_params(
+            jregistry.get(arch).CONFIG)
 
 
 def test_entry_points_refuse_encdec_as_jax_does(tmp_path):

@@ -212,11 +212,17 @@ def test_loss_matches_jax():
     assert abs(got.item() - float(want)) <= 1e-6 * abs(float(want))
 
 
-@pytest.mark.parametrize("arch", sorted(registry.NOT_PORTED))
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
+                                  "qwen3-moe-30b-a3b"])
 def test_unported_families_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
-        registry.get(arch)
-    assert arch in jregistry.archs()
+    """The two MoE ids, which the port refused naming their ROADMAP item
+    until the MoE family was ported, now resolve, with JAX's exact
+    parameter count; every id of the JAX package resolves."""
+    mod = registry.get(arch)
+    assert mod.ARCH_ID == arch and mod.CONFIG.family == "moe"
+    assert registry.count_params(mod.CONFIG) == jregistry.count_params(
+        jregistry.get(arch).CONFIG)
+    assert sorted(registry.archs()) == sorted(jregistry.archs())
 
 
 def test_config_rejects_what_the_port_does_not_run():
@@ -232,7 +238,8 @@ def test_config_rejects_what_the_port_does_not_run():
         registry.get("gpt-2")
     assert sorted(registry.archs()) == sorted(
         DENSE + ["falcon-mamba-7b", "recurrentgemma-2b",
-                 "seamless-m4t-large-v2"])
+                 "seamless-m4t-large-v2", "qwen3-moe-30b-a3b",
+                 "phi3.5-moe-42b-a6.6b"])
 
 
 def test_serve_cli_on_cpu(capsys):
