@@ -507,7 +507,29 @@ Phases, each raising on failure (each prints its seconds):
    at the full-width 16-layer cut in bf16 (LayerNorm, G 4): two prefills
    at 2 x 2048, the depth-1 sublayer check, 4 requests through bf16
    decode steps;
-41. the kernel JSON line (twenty-four kernels; the launches of trim_conv1d
+41. paper — the paper's own results and the card's roofline, from the
+   port's analytical modules (``core/model.py``, ``dataflow.py``,
+   ``netplan.py``, ``roofline.py``, ``configs/registry.model_flops``),
+   beside the card's name and power limit, with no new full-width timing
+   run: (a) Fig. 1, Fig. 6 for VGG-16 and AlexNet and the §V network
+   comparison of VGG-16, AlexNet, ResNet-18 and U-Net, raising unless
+   VGG-16's improvement lies in (3.0, 3.6), every VGG-16 and AlexNet
+   layer's stays under 3.6 and ResNet-18's exceeds 2.0 (README's gates);
+   (b) full-width VGG-16 and AlexNet at batch 8 and 1 through
+   ``NetworkPlan``: per layer the bytes in "3dtrim", "trim" and the
+   plan's own schedule, T_comp and T_mem, the kernel check's and the
+   AlexNet table's carry and halo ms, the roofline time over each, and
+   the measured halo / carry ratio beside the modelled trim / 3dtrim
+   bytes; the network's roofline beside the summed carry times; (c) the
+   paper's core (``core_conv``, 8 slices, K 3, one ifmap channel) at
+   16x16 and 15x23 against the carry and halo kernels (Cin 1, Cout 8,
+   'valid') within ``TOLERANCE``, its reads against the access model,
+   the 4 launches counted in the kernel line (``paper_launches``); (d)
+   model FLOPs over measured seconds x the peak (f32 67 TFLOP/s with
+   TF32 off, bf16 989) of qwen2.5-3b's f32 and bf16 prefill and training
+   step and qwen3-moe-30b-a3b's bf16 prefill, from the earlier phases'
+   times; a share above 1 raises;
+42. the kernel JSON line (twenty-four kernels; the launches of trim_conv1d
    and flash_attention include the prefills' and the training phases',
    the flash backward kernels' and conv1d backward kernels' the training
    steps', the bf16 conv entries' the bf16 serving phase's and the
@@ -536,14 +558,20 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PEAK_F32_FLOPS = 67e12      # H100 SXM: f32 outside the tensor cores
-PEAK_TF32_FLOPS = 495e12    # H100 SXM: TF32 tensor cores, dense
-PEAK_BYTES_PER_S = 3.35e12  # H100 SXM: HBM3
-PEAK_INT8_OPS = 1979e12     # H100 SXM: int8 tensor cores, dense
-PEAK_BF16_FLOPS = 989e12    # H100 SXM: bf16 tensor cores, dense
-# __dp4a on the integer pipes: 132 SMs x 64 lanes x 4 MACs x 2 ops x
-# 1.98 GHz (the int8 kernel's own ceiling, printed beside the bound)
-PEAK_DP4A_OPS = 132 * 64 * 4 * 2 * 1.98e9
+sys.path.insert(0, os.path.join(ROOT, "src"))
+# Before torch is imported (the import of the peaks below imports it):
+# growable segments.  The mamba train phase's full-width cut fills the
+# card, and fixed-size cached segments left 18.5 GiB of holes beside its
+# 8 GiB gradient-norm temporary (out of memory at 58 GiB in use).
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+# The H100 SXM's peaks, from the port's one source of them: f32 outside
+# the tensor cores, the TF32, bf16 and int8 tensor cores (dense), __dp4a
+# on the integer pipes (the int8 kernel's own ceiling, printed beside the
+# bound) and HBM3
+from repro_torch.core.roofline import (PEAK_BF16_FLOPS,  # noqa: E402
+                                       PEAK_BYTES_PER_S, PEAK_DP4A_OPS,
+                                       PEAK_F32_FLOPS, PEAK_INT8_OPS,
+                                       PEAK_TF32_FLOPS)
 TOLERANCE = 1e-4            # of max(1, max|plain|); see the docstring
 # Weight gradient: of max|plain|.  Each dw element sums N*H_out*W_out
 # products (up to 8 * 224^2 = 401,408 at conv2); the kernel takes them as
@@ -8312,6 +8340,213 @@ def moe_phase(torch) -> dict:
     return out
 
 
+# The paper phase (module docstring): the README's gates on the paper's
+# §V comparison (3D-TrIM over TrIM in Ops/MAcc a slice), the slice
+# simulator's ifmaps against the carry and halo kernels (P_O 8 slices of
+# one core, K 3, one ifmap channel), and the whole-step shares' rows
+PAPER_VGG_IMPROVEMENT = (3.0, 3.6)   # VGG-16's network improvement
+PAPER_LAYER_LIMIT = 3.6              # no VGG-16 or AlexNet layer reaches it
+PAPER_RESNET_FLOOR = 2.0             # ResNet-18's network improvement
+PAPER_SIM_SHAPES = ((16, 16), (15, 23))
+PAPER_SIM_FILTERS = 8
+
+
+def paper_figures(where: str) -> dict:
+    """(a) Fig. 1, Fig. 6 for VGG-16 and AlexNet and the §V network
+    comparison of VGG-16, AlexNet, ResNet-18 and U-Net on the port's
+    access model (``core/model.py``, ``core/netplan.py``; CPU
+    arithmetic), with the README's gates."""
+    from repro_torch.core import model as pm
+    from repro_torch.core.netplan import NetworkGraph, NetworkPlan
+
+    curve = pm.fig1_curve()
+    print("paper: Fig. 1, TrIM's ifmap reads past one a pixel (K 3): "
+          + ", ".join(f"{k}x{k} {v:.2f}%" for k, v in curve.items()))
+    for net in ("vgg16", "alexnet"):
+        print(f"paper: Fig. 6, {net}, Ops/access/slice 3D-TrIM | TrIM | "
+              "improvement:")
+        for row in pm.fig6(net):
+            print(f"  {row['layer']:>18s} {row['3d-trim']:7.3f} "
+                  f"{row['trim']:7.3f} {row['improvement']:6.3f}")
+    arch = {net: NetworkPlan.build(net).arch_compare()
+            for net in ("vgg16", "alexnet")}
+    arch.update({net: NetworkGraph.build(net).arch_compare()
+                 for net in ("resnet18", "unet")})
+    for net, a in arch.items():
+        best = max(r["improvement"] for r in a["layers"])
+        print(f"paper: §V {net}: Ops/MAcc a slice 3D-TrIM "
+              f"{a['ops_per_macc_per_slice']['3d-trim']:.4f}, TrIM "
+              f"{a['ops_per_macc_per_slice']['trim']:.4f}: network "
+              f"{a['improvement']:.4f}x, best layer {best:.4f}x "
+              f"({len(a['layers'])} convs; CPU arithmetic, {where})")
+    lo, hi = PAPER_VGG_IMPROVEMENT
+    if not lo < arch["vgg16"]["improvement"] < hi:
+        raise AssertionError(f"paper: VGG-16's improvement "
+                             f"{arch['vgg16']['improvement']} outside "
+                             f"({lo}, {hi})")
+    for net in ("vgg16", "alexnet"):
+        best = max(r["improvement"] for r in arch[net]["layers"])
+        if not best < PAPER_LAYER_LIMIT:
+            raise AssertionError(f"paper: a {net} layer reaches {best} >= "
+                                 f"{PAPER_LAYER_LIMIT}")
+    if not arch["resnet18"]["improvement"] > PAPER_RESNET_FLOOR:
+        raise AssertionError(f"paper: ResNet-18's improvement "
+                             f"{arch['resnet18']['improvement']} <= "
+                             f"{PAPER_RESNET_FLOOR}")
+    print(f"paper: gates held: VGG-16 {arch['vgg16']['improvement']:.4f} in "
+          f"({lo}, {hi}), VGG-16 and AlexNet layers < {PAPER_LAYER_LIMIT}, "
+          f"ResNet-18 {arch['resnet18']['improvement']:.4f} > "
+          f"{PAPER_RESNET_FLOOR}")
+    return {net: a["improvement"] for net, a in arch.items()}
+
+
+def paper_roofline(tables: dict, where: str) -> list:
+    """(b) Full-width VGG-16 and AlexNet through the port's
+    ``NetworkPlan`` at each batch of ``tables`` (``{(net, n): rows}``:
+    the kernel check's and the AlexNet table's rows, with ``carry`` and
+    ``halo`` ms): per layer the bytes of ``"3dtrim"``, ``"trim"`` and
+    the plan's own schedule, T_comp and T_mem (``core/roofline.py``), the
+    measured carry and halo times, the roofline time over each, and the
+    measured halo / carry ratio beside the modelled trim / 3dtrim bytes;
+    then the network sums."""
+    from repro_torch.core.netplan import NetworkPlan
+    from repro_torch.core.roofline import conv_plan_roofline, \
+        network_roofline
+
+    out = []
+    for (net, n), rows in tables.items():
+        kw = dict(n=n, residency="never", fold_pooling=False)
+        plan = NetworkPlan.build(net, **kw)
+        halo = NetworkPlan.build(net, dataflow="halo", **kw)
+        rows = [r for r in rows if r["name"] in {s.name for s in plan.steps}]
+        if len(rows) != plan.n_layers:
+            raise AssertionError(f"paper: {len(rows)} measured rows for "
+                                 f"{plan.n_layers} layers of {net}")
+        print(f"paper: {net} at batch {n}, per layer (MB; ms; roofline ms "
+              f"over measured ms; {where}):")
+        print(f"  {'layer':6s} {'3dtrim':>8s} {'trim':>8s} {'plan':>8s} "
+              f"{'T_comp':>7s} {'T_mem':>7s} {'carry':>8s} {'halo':>8s} "
+              f"{'roof/c':>6s} {'roof/h':>6s} {'h/c':>6s} {'trim/3d':>7s}")
+        for st, hs, row in zip(plan.steps, halo.steps, rows):
+            assert row["name"] == st.name, (row["name"], st.name)
+            b = {m: st.plan.hbm_bytes(m)["total"]
+                 for m in ("3dtrim", "trim", None)}
+            t = conv_plan_roofline(st.name, st.plan)
+            th = conv_plan_roofline(st.name, hs.plan)
+            r = dict(net=net, n=n, layer=st.name, bytes_3dtrim=b["3dtrim"],
+                     bytes_trim=b["trim"], bytes_plan=b[None],
+                     t_comp_ms=t.t_compute * 1e3, t_mem_ms=t.t_memory * 1e3,
+                     carry_ms=row["carry"], halo_ms=row["halo"],
+                     carry_share=t.step_time_s * 1e3 / row["carry"],
+                     halo_share=th.step_time_s * 1e3 / row["halo"],
+                     ratio=row["halo"] / row["carry"],
+                     model_ratio=b["trim"] / b["3dtrim"])
+            out.append(r)
+            print(f"  {st.name:6s} {b['3dtrim'] / 1e6:8.2f} "
+                  f"{b['trim'] / 1e6:8.2f} {b[None] / 1e6:8.2f} "
+                  f"{r['t_comp_ms']:7.4f} {r['t_mem_ms']:7.4f} "
+                  f"{r['carry_ms']:8.4f} {r['halo_ms']:8.4f} "
+                  f"{r['carry_share']:6.3f} {r['halo_share']:6.3f} "
+                  f"{r['ratio']:6.3f} {r['model_ratio']:7.4f}")
+        terms = network_roofline(net, plan)
+        auto = network_roofline(net, NetworkPlan.build(net, n=n))
+        carry = sum(r["carry"] for r in rows)
+        print(f"paper: {net} at batch {n}, network: roofline (per layer, "
+              f"every activation through device memory) "
+              f"{terms.step_time_s * 1e3:.4f} ms (T_comp "
+              f"{terms.t_compute * 1e3:.4f}, T_mem "
+              f"{terms.t_memory * 1e3:.4f}), with the fused groups' "
+              f"interiors on chip {auto.step_time_s * 1e3:.4f} ms; the "
+              f"carry kernels' sum {carry:.4f} ms: "
+              f"{terms.step_time_s * 1e3 / carry:.3f} of it")
+    return out
+
+
+def paper_slice_check(torch) -> dict:
+    """(c) The paper's core (``dataflow.core_conv``: P_O slices over one
+    ifmap channel, K 3, shared IRB) against ``trim_conv2d``'s carry and
+    halo kernels on the same ifmap (Cin 1, Cout P_O, 'valid') within the
+    f32 tolerance, and its reads against the access model; the kernels'
+    launches counted from 0."""
+    from repro_torch.core.conv_plan import slice_reads_per_channel
+    from repro_torch.core.dataflow import core_conv
+    from repro_torch.kernels import trim_conv2d as tc
+
+    rng = np.random.default_rng(38)
+    tc.reset_launch_counts()
+    worst = 0.0
+    for h, w in PAPER_SIM_SHAPES:
+        ifmap = rng.standard_normal((h, w)).astype(np.float32)
+        stack = rng.standard_normal((PAPER_SIM_FILTERS, 3, 3)).astype(
+            np.float32)
+        sim, reads = core_conv(ifmap.astype(np.float64),
+                               stack.astype(np.float64), "3dtrim")
+        _, reads_trim = core_conv(ifmap.astype(np.float64),
+                                  stack.astype(np.float64), "trim")
+        if reads != h * w or reads_trim != PAPER_SIM_FILTERS * \
+                slice_reads_per_channel(h, w, 3, shadow=False):
+            raise AssertionError(f"paper: core reads {reads} / "
+                                 f"{reads_trim} at {h}x{w}")
+        x = torch.from_numpy(ifmap).reshape(1, h, w, 1).cuda()
+        wt = torch.from_numpy(np.ascontiguousarray(
+            stack.transpose(1, 2, 0))).reshape(3, 3, 1, -1).cuda()
+        want = sim.transpose(1, 2, 0)
+        lim = TOLERANCE * max(1.0, float(np.abs(want).max()))
+        err = 0.0
+        for df in ("carry", "halo"):
+            got = tc.trim_conv2d(x, wt, None, dataflow=df).cpu().numpy()[0]
+            err_df = float(np.abs(got - want).max())
+            if not err_df <= lim:
+                raise AssertionError(f"paper: {df} kernel vs the slice "
+                                     f"simulator at {h}x{w}: {err_df} > "
+                                     f"{lim}")
+            err = max(err, err_df)
+        worst = max(worst, err)
+        print(f"paper: core_conv {h}x{w}, P_O {PAPER_SIM_FILTERS}, K 3: "
+              f"carry and halo kernels vs the simulator max|diff| "
+              f"{err:.2e} <= {lim:.1e}; reads 3D-TrIM {reads} (shared "
+              f"IRB, one a pixel), TrIM {reads_trim}")
+    launches = {df: tc.LAUNCHES[df] for df in ("carry", "halo")}
+    if launches != {"carry": 2, "halo": 2}:
+        raise AssertionError(f"paper: kernel launches {launches}")
+    return dict(err=worst, launches=launches)
+
+
+def paper_shares(torch, rows: list, where: str) -> list:
+    """(d) Model FLOPs (``registry.model_flops``) over the measured
+    seconds times the peak of the path's type: f32 at 67 TFLOP/s (TF32
+    off on the path), bf16 at 989.  Printed; a share above 1 means a
+    wrong peak or count and raises."""
+    from repro_torch.configs import registry
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("paper: the f32 shares assume TF32 off")
+    out = []
+    for label, arch, dtype, kind, batch, seq, ms in rows:
+        flops = registry.model_flops(registry.get(arch).CONFIG, kind, batch,
+                                     seq)
+        peak = PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_F32_FLOPS
+        share = flops / (ms / 1e3 * peak)
+        print(f"paper: {label} ({batch} x {seq}): {flops / 1e12:.2f} model "
+              f"TFLOP in {ms:.1f} ms = {flops / (ms / 1e3) / 1e12:.1f} "
+              f"TFLOP/s, {share:.3f} of {peak / 1e12:.0f} TFLOP/s "
+              f"({where})")
+        if not 0 < share <= 1:
+            raise AssertionError(f"paper: {label} share {share}")
+        out.append(dict(label=label, flops=flops, ms=ms, share=share))
+    return out
+
+
+def paper_phase(torch, tables: dict, shares: list) -> dict:
+    """The paper phase (module docstring): (a) to (d) beside the card's
+    name and power limit; no new full-width timing run."""
+    where = card()
+    return dict(improvement=paper_figures(where),
+                roofline=paper_roofline(tables, where),
+                slice=paper_slice_check(torch),
+                shares=paper_shares(torch, shares, where))
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -8321,11 +8556,6 @@ def main() -> int:
                          "kernel (printed as one JSON line); no checks "
                          "beyond the train phase's launch counts")
     args = ap.parse_args()
-    # growable segments: the mamba train phase's full-width cut fills the
-    # card, and fixed-size cached segments left 18.5 GiB of holes beside
-    # its 8 GiB gradient-norm temporary (out of memory at 58 GiB in use)
-    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
-                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -8333,7 +8563,6 @@ def main() -> int:
         return 2
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     # every phase on a fresh, empty autotune cache of this run's own: none
     # reads a cache an earlier run left, none leaves one for a later run
     import shutil
@@ -8515,6 +8744,20 @@ def run(torch, args, cache_dir: str) -> int:
     md = moe_phase(torch)
     phase.done("moe")
     mt, ml = md["times"], md["launches"]
+    paper = paper_phase(torch, {
+        ("vgg16", 8): rows, ("vgg16", 1): rows1,
+        **{("alexnet", n): alex_rows[n] for n in ALEXNET_BATCHES}}, [
+        ("qwen2.5-3b f32 prefill", "qwen2.5-3b", "f32", "prefill",
+         PREFILL_BATCH, PREFILL_SEQ, lm["ms"]),
+        ("qwen2.5-3b bf16 prefill", "qwen2.5-3b", "bf16", "prefill",
+         PREFILL_BATCH, PREFILL_SEQ, lmb["qwen2.5-3b"]["ms"]),
+        ("qwen2.5-3b f32 training step", "qwen2.5-3b", "f32", "train",
+         TRAIN_LM_BATCH, TRAIN_LM_SEQ - 1, lmt["steady_ms"]),
+        ("qwen2.5-3b bf16 training step", "qwen2.5-3b", "bf16", "train",
+         TRAIN_LM_BATCH, TRAIN_LM_SEQ - 1, tlb["qwen2.5-3b"]["steady_ms"]),
+        (f"{MOE_ARCH} bf16 prefill", MOE_ARCH, "bf16", "prefill",
+         MOE_BATCH, MOE_SEQ, md["prefill"]["ms"])])
+    phase.done("paper")
 
     vgg = [r for r in rows if r["vgg"]]
     kernels = []
@@ -8522,9 +8765,11 @@ def run(torch, args, cache_dir: str) -> int:
                    + small_launches["carry"] + fused_launches["carry"]
                    + train_launches["carry"] + train_fused_launches["carry"]
                    + alex["carry"]["carry"] + alex["fused"]["carry"])
-    carry_total += tuned["launches"]["carry"] + graph["launches"]["carry"]
+    carry_total += (tuned["launches"]["carry"] + graph["launches"]["carry"]
+                    + paper["slice"]["launches"]["carry"])
     halo_total = (halo_launches["halo"] + alex["halo"]["halo"]
-                  + tuned["launches"]["halo"] + graph["launches"]["halo"])
+                  + tuned["launches"]["halo"] + graph["launches"]["halo"]
+                  + paper["slice"]["launches"]["halo"])
     rect_err = max(max(r["err"] for r in rect_rows),
                    max(r["err"] for r in krows),
                    max(r["err"] for r in graph["kernels"]))
@@ -8540,6 +8785,10 @@ def run(torch, args, cache_dir: str) -> int:
             "replaces": f"src/repro/kernels/trim_conv2d.py:{src_line}",
             "launches": launches,
             "max_abs_err": max(max(r["err"] for r in rows), rect_err),
+            # the paper phase's slice check (in "launches" too): its
+            # error against the simulator
+            "paper_launches": paper["slice"]["launches"][df],
+            "paper_max_abs_err": paper["slice"]["err"],
             "ms": sum(r[df] for r in vgg),
             "plain_ms": sum(r["plain"] for r in vgg),
             "bound_ms": sum(r["bound"] for r in vgg),

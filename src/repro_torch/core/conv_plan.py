@@ -66,6 +66,9 @@ import functools
 from dataclasses import dataclass
 from typing import ClassVar
 
+from repro_torch.core.roofline import (PEAK_BF16_FLOPS, PEAK_BYTES_PER_S,
+                                       PEAK_F32_FLOPS)
+
 SMEM_PER_BLOCK = 232_448     # H100: 227 KB of opt-in shared memory per block
 SMEM_PER_SM = 233_472        # H100: 228 KB of shared memory per SM
 SMEM_RESERVED_PER_BLOCK = 1_024   # taken by the runtime from each block
@@ -256,6 +259,26 @@ def _blocks_per_sm(smem: int) -> int:
     (:data:`CONV_BLOCKS_PER_SM`) or its shared memory, the fewer."""
     return min(CONV_BLOCKS_PER_SM,
                SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK))
+
+
+def slice_reads_per_channel(height: int, width: int, kernel: int,
+                            stride: int = 1, *, shadow: bool) -> int:
+    """External reads of one ifmap channel for one pass of a TrIM slice
+    (the paper's Fig. 1; ``repro/core/conv_plan.py:98``).
+
+    The sliding-window band advances by ``stride`` rows per output row.
+    With shadow registers (3D-TrIM) every real activation is read exactly
+    once.  Without them (TrIM), every band advance re-reads the last
+    ``K-1`` activations of each of the ``K - stride`` re-used rows.
+    """
+    ideal = height * width
+    if shadow:
+        return ideal
+    out_rows = (height - kernel) // stride + 1
+    band_advances = max(out_rows - 1, 0)
+    reused_rows = max(kernel - stride, 0)
+    rereads_per_advance = reused_rows * (kernel - 1)
+    return ideal + band_advances * rereads_per_advance
 
 
 @dataclass(frozen=True)
@@ -629,16 +652,53 @@ class ConvPlan:
                 + 4 * (rows * self.cout
                        + self.n * self.h_out * self.w_out * self.cout))
 
-    def hbm_bytes(self) -> dict:
+    # -- the paper's accounting modes (``repro/core/conv_plan.py:443``) ----
+
+    def _mode_segments(self, mode: str | None) -> int:
+        if mode is None:
+            return self.segments
+        if mode == "3dtrim":
+            return 1
+        if mode == "trim":
+            return self.n_strips
+        raise ValueError(f"unknown mode {mode!r}")
+
+    def traffic_mode(self) -> str | None:
+        """The accounting mode whose bytes this plan's schedule moves:
+        ``"3dtrim"`` where a band is one carry chain, ``"trim"`` where
+        every strip is a segment of its own (``halo``), else None: carry
+        chains cut into several segments move bytes between the two.  A
+        method, not a property, so that the plans'
+        ``tools/plan_digest.py`` output stays as it was."""
+        if self.segments == 1:
+            return "3dtrim"
+        if self.segments == self.n_strips:
+            return "trim"
+        return None
+
+    def halo_rows(self, mode: str | None = None) -> int:
+        """Input rows a chain re-reads from device memory: ``carry_rows``
+        for every segment after its first.  ``"3dtrim"``: one carry
+        segment a chain, none (the paper's shadow registers); ``"trim"``:
+        one segment a strip, every strip after the first re-reads its
+        ``carry_rows`` (what the halo kernel moves); ``None``: the plan's
+        own ``segments``."""
+        return (self._mode_segments(mode) - 1) * self.carry_rows
+
+    def hbm_bytes(self, mode: str | None = None) -> dict:
         """Bytes the kernel's schedule moves: every chain (image,
         group, C_out tile, band) reads its band's window columns of each
         padded row once, plus ``carry_rows`` more for every segment after
         the first (a segment loads its first window whole: with ``halo``,
         one a strip, that is ``window_rows`` a strip); every strip
         streams its C_out tile's weights once; the output is written
-        once (f32, or bf16 in bf16).  x and w at ``dtype_bytes``."""
+        once (f32, or bf16 in bf16).  x and w at ``dtype_bytes``.
+        ``mode`` prices the same tiles with the segments of
+        :meth:`halo_rows`: ``"3dtrim"`` <= ``None`` <= ``"trim"``, and
+        ``"trim"`` is the halo plan's bytes at these tiles."""
         db = self.dtype_bytes
-        rows = self.n_strips * self.tile_h + self.segments * self.carry_rows
+        rows = (self.n_strips * self.tile_h
+                + self._mode_segments(mode) * self.carry_rows)
         in_bytes = (db * self.chains * rows * self.window_cols
                     * self.cin_per_group)
         w_bytes = db * (self.n * self.n_bands * self.n_strips * self.kh
@@ -647,6 +707,10 @@ class ConvPlan:
             * self.w_out * self.cout
         return dict(input=in_bytes, weights=w_bytes, output=out_bytes,
                     total=in_bytes + w_bytes + out_bytes)
+
+    def arithmetic_intensity(self, mode: str | None = None) -> float:
+        """FLOPs per device-memory byte of :meth:`hbm_bytes` ``(mode)``."""
+        return self.flops / max(self.hbm_bytes(mode)["total"], 1)
 
 
 @dataclass(frozen=True)
@@ -1348,9 +1412,6 @@ _WGRAD_PLANS = {4: WeightGradPlan, 2: BF16WeightGradPlan}
 # 1-D plan (causal depthwise conv: the Mamba / RG-LRU temporal mixing)
 # ---------------------------------------------------------------------------
 
-PEAK_F32_FLOPS = 67e12        # H100 SXM: f32 outside the tensor cores
-PEAK_BF16_FLOPS = 989e12      # H100 SXM: bf16 on the tensor cores, dense
-PEAK_BYTES_PER_S = 3.35e12    # H100 SXM: HBM3
 # The conv1d forward kernel (trim_conv1d.cu; also the input gradient)
 CONV1D_LANES = 32             # threads a block: one warp (kLanes)
 CONV1D_VEC = {4: 4, 2: 8}     # channels a lane where rows are 16-byte

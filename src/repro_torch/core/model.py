@@ -1,9 +1,33 @@
-"""CNN topologies of the paper (copied from ``repro/core/model.py``).
+"""The paper's analytical access model and its CNN topologies (the
+counterpart of ``repro/core/model.py``).
 
-Only the topology: the layer description, the VGG-16 / AlexNet /
-MobileNet conv stacks, the DAG nodes of ResNet-18 and U-Net and the
-kernel tiling's sub-kernel count.  The accelerator configurations and
-the Fig. 6 access accounting stay with the JAX package.
+Reproduces the paper's analytical results:
+
+* Fig. 1 — ifmap memory-access overhead of TrIM vs ifmap size (K=3):
+  TrIM's shift registers hold ``W - K - 1`` entries per reused row, so the
+  last ``K-1`` activations of every ifmap row fall off and must be re-read
+  from external memory on every band advance.  3D-TrIM's shadow registers
+  hold exactly those values -> zero overhead.
+
+* Fig. 6 — OPs / memory-access / slice for every conv layer of VGG-16 and
+  AlexNet, comparing the 3D-TrIM ASIC configuration (P_I=8 cores x P_O=8
+  slices = 64 slices) against the TrIM configuration (7 x 24 = 168 slices).
+
+Counting conventions (DESIGN.md §1):
+  * "memory accesses" = external (off-chip) ifmap reads + weight reads.
+    Psums are accumulated in on-chip buffers in both architectures and are
+    not part of the paper's OPs/Access metric.
+  * An ifmap channel that is broadcast to several consumers at the same
+    time (TrIM: the same channel feeding the 7 filter-parallel cores;
+    3D-TrIM: one channel feeding the P_O slices of a core through the
+    shared IRB) is counted as ONE external read.
+  * One OP = one multiply or one add, so a MAC = 2 OPs (this makes the
+    576-PE / 1 GHz design peak at 1.15 TOPS as reported).
+
+The model is the paper's architecture, not the card: the H100's own
+bytes for a layer are its :meth:`ConvLayer.plan`'s
+(``core/conv_plan.ConvPlan.hbm_bytes``).  Also the topologies: VGG-16,
+AlexNet, MobileNet stages, and the DAG nodes of ResNet-18 and U-Net.
 """
 
 from __future__ import annotations
@@ -11,6 +35,13 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+from repro_torch.core.conv_plan import (ConvPlan, same_pads,
+                                        slice_reads_per_channel)
+
+
+# ---------------------------------------------------------------------------
+# Layer / hardware descriptions
+# ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
 class ConvLayer:
@@ -43,6 +74,178 @@ class ConvLayer:
         return (f"({self.ifmap},{self.in_channels},"
                 f"{self.out_channels},{self.kernel}{g})")
 
+    def plan(self, *, n: int = 1, dtype_bytes: int = 4,
+             tile_h: int | None = None, tile_cout: int | None = None,
+             dataflow: str = "carry") -> ConvPlan:
+        """The H100 kernel's ``ConvPlan`` for this layer at batch ``n``:
+        the padding the port runs ('same' pads where ``padding`` > 0, as
+        ``netplan.layer_kernel_problem`` maps a layer, else 'valid'), at
+        ``dtype_bytes`` (4 f32, 2 bf16, 1 int8).  The whole K x K kernel
+        is planned, also past ``ops.MAX_NATIVE_K``, where the port runs
+        the kernel tiling's sub-kernels.  Raises ``ValueError`` where the
+        layer's padding is not 'same'-equivalent."""
+        pad = ((same_pads(self.ifmap, self.kernel, self.stride),) * 2
+               if self.padding else 0)
+        plan = ConvPlan.build(
+            (n, self.ifmap, self.ifmap, self.in_channels),
+            (self.kernel, self.kernel, self.in_channels // self.groups,
+             self.out_channels),
+            stride=self.stride, pad=pad, groups=self.groups,
+            tile_h=tile_h, tile_cout=tile_cout, dataflow=dataflow,
+            dtype_bytes=dtype_bytes)
+        if plan.h_out != self.out_size:
+            raise ValueError(
+                f"layer {self.name}: padding={self.padding} is not "
+                f"'same'-equivalent (executed output {plan.h_out} != "
+                f"{self.out_size}); the port runs 'same' or zero padding")
+        return plan
+
+
+@dataclass(frozen=True)
+class HWConfig:
+    """A TrIM-family accelerator configuration.
+
+    ``filter_parallel``  — number of filters processed concurrently.
+    ``channel_parallel`` — number of ifmap channels processed concurrently.
+    ``shadow_registers`` — True for 3D-TrIM (end-of-row activations kept in
+                           shadow registers, ifmap overhead nullified).
+    ``native_k``         — largest kernel the slices support natively;
+                           larger kernels are decomposed into ceil(K/3)^2
+                           3x3 sub-kernels (paper §III kernel tiling).
+    """
+
+    name: str
+    filter_parallel: int
+    channel_parallel: int
+    shadow_registers: bool
+    slices: int
+    native_k: int = 3
+    frequency_ghz: float = 1.0
+
+    @property
+    def pes(self) -> int:
+        return self.slices * 9
+
+    @property
+    def peak_tops(self) -> float:
+        return self.pes * 2 * self.frequency_ghz / 1e3
+
+
+# The two configurations compared in the paper (§III).
+TRIM_3D = HWConfig(name="3d-trim", filter_parallel=8, channel_parallel=8,
+                   shadow_registers=True, slices=64)
+TRIM = HWConfig(name="trim", filter_parallel=7, channel_parallel=24,
+                shadow_registers=False, slices=168)
+
+
+# ---------------------------------------------------------------------------
+# ifmap access model (Fig. 1)
+# ---------------------------------------------------------------------------
+
+def ifmap_reads_per_channel(height: int, width: int, kernel: int,
+                            stride: int = 1, *, shadow: bool) -> int:
+    """External reads of one ifmap channel for one pass of the array:
+    ``core.conv_plan.slice_reads_per_channel`` under its Fig. 1 / 6
+    name."""
+    return slice_reads_per_channel(height, width, kernel, stride,
+                                   shadow=shadow)
+
+
+def ifmap_overhead_pct(size: int, kernel: int = 3, stride: int = 1) -> float:
+    """TrIM ifmap access overhead (%) vs the ideal single-read — Fig. 1."""
+    ideal = size * size
+    trim = ifmap_reads_per_channel(size, size, kernel, stride, shadow=False)
+    return 100.0 * (trim - ideal) / ideal
+
+
+def fig1_curve(sizes=(14, 28, 56, 112, 224), kernel: int = 3) -> dict:
+    """Overhead curve of Fig. 1: TrIM % overhead per ifmap size, K=3."""
+    return {s: ifmap_overhead_pct(s, kernel) for s in sizes}
+
+
+# ---------------------------------------------------------------------------
+# Kernel tiling (paper §III: K>3 decomposed into 3x3 sub-kernels)
+# ---------------------------------------------------------------------------
+
+def num_subkernels(kernel: int, native_k: int = 3) -> int:
+    """Sub-kernels of the paper's kernel tiling (§III): one for K <= 3,
+    else ``ceil(K / 3)^2`` (``core.tiling.subkernel_decomposition``)."""
+    if kernel <= native_k:
+        return 1
+    t = math.ceil(kernel / native_k)
+    return t * t
+
+
+# ---------------------------------------------------------------------------
+# Per-layer access + OPs/Access/Slice model (Fig. 6)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LayerAccesses:
+    layer: ConvLayer
+    hw: HWConfig
+    ifmap_reads: int
+    weight_reads: int
+
+    @property
+    def total(self) -> int:
+        return self.ifmap_reads + self.weight_reads
+
+    @property
+    def ops_per_access(self) -> float:
+        return self.layer.ops / self.total
+
+    @property
+    def ops_per_access_per_slice(self) -> float:
+        return self.ops_per_access / self.hw.slices
+
+
+def layer_accesses(layer: ConvLayer, hw: HWConfig) -> LayerAccesses:
+    """External memory accesses for one conv layer on one configuration."""
+    k, s = layer.kernel, layer.stride
+    tiles = num_subkernels(k, hw.native_k)
+    sub_k = k if tiles == 1 else hw.native_k
+
+    # Filter passes: every pass over a new batch of filters re-streams the
+    # ifmap channels it consumes (psums for only ``filter_parallel`` ofmaps
+    # fit on chip).  With feature groups, a filter only consumes its own
+    # group's C/groups channels.
+    filter_passes = math.ceil(layer.out_channels // layer.groups
+                              / hw.filter_parallel)
+
+    # Per-channel reads for one pass of one (sub-)kernel.
+    rpc = ifmap_reads_per_channel(layer.ifmap, layer.ifmap, sub_k, s,
+                                  shadow=hw.shadow_registers)
+    # Each sub-kernel occupies its own core/slice with its own IRB, so a
+    # channel is streamed once per sub-kernel.
+    ifmap_reads = layer.in_channels * rpc * tiles * filter_passes
+
+    # Weights are loaded once per (filter, channel, tap).  Tiled kernels are
+    # zero-padded up to tiles * native_k^2 taps.
+    taps = k * k if tiles == 1 else tiles * hw.native_k ** 2
+    weight_reads = layer.out_channels * (layer.in_channels // layer.groups) \
+        * taps
+
+    return LayerAccesses(layer=layer, hw=hw, ifmap_reads=ifmap_reads,
+                         weight_reads=weight_reads)
+
+
+def compare_layer(layer: ConvLayer, hw_a: HWConfig = TRIM_3D,
+                  hw_b: HWConfig = TRIM) -> dict:
+    """Fig. 6 bar pair for one layer: OPs/Access/Slice of both configs."""
+    a = layer_accesses(layer, hw_a)
+    b = layer_accesses(layer, hw_b)
+    return {
+        "layer": layer.label(),
+        hw_a.name: a.ops_per_access_per_slice,
+        hw_b.name: b.ops_per_access_per_slice,
+        "improvement": a.ops_per_access_per_slice / b.ops_per_access_per_slice,
+    }
+
+
+# ---------------------------------------------------------------------------
+# CNN topologies used in the paper
+# ---------------------------------------------------------------------------
 
 def vgg16_layers() -> list[ConvLayer]:
     """The 13 conv layers of the VGG-16 feature extractor (same padding)."""
@@ -67,15 +270,6 @@ def alexnet_layers() -> list[ConvLayer]:
         ConvLayer("conv4", 13, 384, 384, kernel=3, stride=1, padding=1),
         ConvLayer("conv5", 13, 384, 256, kernel=3, stride=1, padding=1),
     ]
-
-
-def num_subkernels(kernel: int, native_k: int = 3) -> int:
-    """Sub-kernels of the paper's kernel tiling (§III): one for K <= 3,
-    else ``ceil(K / 3)^2`` (``core.tiling.subkernel_decomposition``)."""
-    if kernel <= native_k:
-        return 1
-    t = math.ceil(kernel / native_k)
-    return t * t
 
 
 def mobilenet_layers() -> list[ConvLayer]:
@@ -215,3 +409,24 @@ def unet_graph(image: int = 64, base: int = 16, in_channels: int = 3,
         cin = c
     conv("out", size, cin, out_channels, k=1, p=0)
     return nodes
+
+
+def fig6(network: str = "vgg16") -> list[dict]:
+    layers = {"vgg16": vgg16_layers, "alexnet": alexnet_layers,
+              "mobilenet": mobilenet_layers}[network]()
+    return [compare_layer(l) for l in layers]
+
+
+# ---------------------------------------------------------------------------
+# GeMM (im2col) baseline — the redundancy the Conv-based dataflows avoid
+# ---------------------------------------------------------------------------
+
+def im2col_ifmap_reads(layer: ConvLayer) -> int:
+    """im2col materializes every window: K^2 redundancy at the memory level."""
+    return (layer.out_size ** 2) * (layer.kernel ** 2) * layer.in_channels
+
+
+def gemm_accesses(layer: ConvLayer, filter_parallel: int = 8) -> int:
+    filter_passes = math.ceil(layer.out_channels / filter_parallel)
+    return (im2col_ifmap_reads(layer) * filter_passes
+            + layer.out_channels * layer.in_channels * layer.kernel ** 2)

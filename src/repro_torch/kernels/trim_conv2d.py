@@ -35,6 +35,8 @@ kernels and their plain PyTorch versions (the counterpart of
   accumulator and the dequant epilogue ``(acc + bias_q) * scale``, f32
   out, through the kernel of ``csrc/trim_conv2d_q8.cu`` (carry or halo);
   :func:`trim_conv2d_q8_plain` on a CPU tensor.  Inference only.
+* ``hbm_traffic_model`` — the forward schedule's device-memory bytes in
+  the paper's accounting modes (``ConvPlan.hbm_bytes(mode)``).
 
 A wrapper given a CUDA tensor launches its kernel or raises; nothing falls
 back.  The wrappers are not differentiable themselves (their results never
@@ -591,3 +593,19 @@ def trim_conv2d_q8(x: torch.Tensor, w: torch.Tensor,
             f"{plan}")
     LAUNCHES[f"q8_{dataflow}"] += 1
     return y
+
+
+def hbm_traffic_model(n, h, width, cin, cout, k, stride=1, pad=0,
+                      tile_h=None, tile_cout=None, dtype_bytes=4,
+                      mode: str | None = "3dtrim") -> dict:
+    """Device-memory bytes of the forward kernel's schedule for one
+    square-kernel conv: a thin wrapper over
+    :meth:`~repro_torch.core.conv_plan.ConvPlan.hbm_bytes` of the plan at
+    these tiles (left None, the plan's own).  ``mode="trim"`` prices one
+    segment a strip (each strip re-reads its rows shared with the one
+    before: what the ``"halo"`` dataflow moves), ``"3dtrim"`` one carry
+    segment a band, ``None`` the plan's own segments."""
+    plan = ConvPlan.build((n, h, width, cin), (k, k, cin, cout),
+                          stride=stride, pad=pad, tile_h=tile_h,
+                          tile_cout=tile_cout, dtype_bytes=dtype_bytes)
+    return plan.hbm_bytes(mode)

@@ -14,6 +14,12 @@ a leaf declared ``sliced`` (the MoE experts' weights): it is drawn one
 slice of its leading axis at a time, each cast straight into the target
 tensor, so no f32 temporary is larger than one slice (qwen3-moe-30b-a3b's
 stacked ``w_gate`` is 9.66e9 elements: 38.7 GB as one f32 draw).
+
+JAX's ``Param`` names its axes; the port's keeps one of those names, as
+``experts``: a leaf with an experts axis (the MoE router and the experts'
+weights), which ``configs.registry.count_active_params`` scales by
+top_k / n_experts, as JAX's does for a leaf with ``"experts"`` in its
+axes.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ class Param:
     scale: float = 1.0
     dtype: torch.dtype | None = None      # overrides the model dtype
     sliced: bool = False                  # drawn a leading slice at a time
+    experts: bool = False                 # has an experts axis (JAX's
+                                          # "experts" in Param.axes)
 
 
 def stack_params(tree, n: int):

@@ -785,13 +785,14 @@ def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def moe_params(cfg: ModelConfig) -> dict:
     """The router (scale 0.1), the experts' SwiGLU weights ``w_gate`` /
     ``w_up`` (e, d, f) and ``w_down`` (e, f, d), each drawn a leading
-    slice at a time (``Param.sliced``), and, with ``shared_expert_dff``,
+    slice at a time (``Param.sliced``), each with its experts axis marked
+    (``Param.experts``), and, with ``shared_expert_dff``,
     a dense ``shared`` expert (``repro/models/layers.py:668``)."""
     d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_dff
-    p = {"router": Param((d, e), scale=0.1),
-         "w_gate": Param((e, d, f), sliced=True),
-         "w_up": Param((e, d, f), sliced=True),
-         "w_down": Param((e, f, d), sliced=True)}
+    p = {"router": Param((d, e), scale=0.1, experts=True),
+         "w_gate": Param((e, d, f), sliced=True, experts=True),
+         "w_up": Param((e, d, f), sliced=True, experts=True),
+         "w_down": Param((e, f, d), sliced=True, experts=True)}
     if cfg.shared_expert_dff:
         fs = cfg.shared_expert_dff
         p["shared"] = {"w_gate": Param((d, fs)), "w_up": Param((d, fs)),
